@@ -1,0 +1,46 @@
+"""dexct_tpu_torch: the PyTorch / CUDA port of dexct_tpu for one NVIDIA H100.
+
+A second package beside the JAX package ``dexct_tpu``, which stays the
+reference it is tested against.  This package imports ``torch`` and never
+``jax`` or ``dexct_tpu``.  It runs the dual-energy main path: exact Siddon
+trace -> two polyenergetic acquisitions -> Gauss-Newton decomposition ->
+four fan-beam FBPs -> the §2.6 output files, with four hand-written
+kernels on the card (K1-K4, sources in ``csrc/`` and ``ops/spectral.py``)
+and plain PyTorch versions of each on the CPU.
+
+Layer map (as in dexct_tpu):
+    physics/   attenuation tables, spectra, detectors, materials (host NumPy)
+    system/    scanner geometry, voxel phantoms, run config (host NumPy)
+    ops/       siddon (K1), spectral (K2), matdecomp (K3), fbp/fbp_fast (K4)
+    pipeline/  reference-compatible API, fused step, driver
+    utils/     output contract, kernel build
+"""
+
+__version__ = "0.1.0"
+
+from . import ops, physics, pipeline, system, utils
+from .physics import mixatten
+from .pipeline import get_basismat_sinos, get_recon, get_sino, simulate_dect
+from .system import (
+    FanBeamGeometry,
+    VoxelPhantom,
+    read_parameter_file,
+    water_cylinder_phantom,
+)
+
+__all__ = [
+    "physics",
+    "system",
+    "ops",
+    "pipeline",
+    "utils",
+    "get_sino",
+    "get_recon",
+    "get_basismat_sinos",
+    "simulate_dect",
+    "mixatten",
+    "FanBeamGeometry",
+    "VoxelPhantom",
+    "read_parameter_file",
+    "water_cylinder_phantom",
+]

@@ -1,0 +1,116 @@
+"""Fan-beam filtered back-projection.
+
+Port of :mod:`dexct_tpu.ops.fbp`: cos(gamma) pre-weighting, FFT
+ramp/sinc filtering (``torch.fft``) and distance-weighted backprojection
+with linear channel interpolation (Kak & Slaney ch. 3.4, equiangular
+geometry).  The backprojection of one image is kernel K4 with K = 1
+(:func:`dexct_tpu_torch.ops.fbp_fast.fan_backproject_multi`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .fbp_fast import fan_backproject_multi, pack_filtered
+from .filters import filter_frequency_response
+
+__all__ = ["filter_sinogram", "filter_views", "fan_backproject",
+           "parker_weights", "fbp_recon", "hu_image"]
+
+
+def filter_views(sino, cos_w, H, fft_len, dgamma):
+    """Pre-weight by ``cos_w``, filter each view with the real response
+    ``H`` on an ``fft_len`` grid, and scale by ``dgamma``."""
+    n_ch = sino.shape[-1]
+    spec = torch.fft.rfft(sino * cos_w, n=fft_len, dim=-1)
+    filt = torch.fft.irfft(spec * H, n=fft_len, dim=-1)[..., :n_ch]
+    return (filt * dgamma).to(sino.dtype)
+
+
+def filter_sinogram(sino, geometry, ramp=0.8, window="sinc"):
+    """cos-weight + windowed-ramp filter each view (host-built response),
+    on the device of ``sino``.  Returns the same shape, scaled by dgamma."""
+    H, m = filter_frequency_response(geometry.N_channels, geometry.dgamma,
+                                     ramp, window, "fan")
+    dev, dtype = sino.device, sino.dtype
+    gammas = torch.as_tensor(geometry.gammas, dtype=dtype, device=dev)
+    w = torch.cos(gammas) * geometry.SID
+    return filter_views(sino, w, torch.as_tensor(H, dtype=dtype, device=dev),
+                        m, geometry.dgamma)
+
+
+def fan_backproject(q, betas, sid, dgamma, n_matrix, fov, *, dbeta=None):
+    """Distance-weighted equiangular backprojection of one filtered
+    sinogram q [N_proj, N_channels]; ``dbeta`` defaults to 2 pi / N_proj.
+    Returns image [n_matrix, n_matrix]."""
+    n_proj, n_ch = q.shape
+    if dbeta is None:
+        dbeta = 2.0 * np.pi / n_proj if n_proj else 0.0
+    return fan_backproject_multi(pack_filtered(q[None]), 1, betas, sid,
+                                 dgamma, n_ch, n_matrix, fov, dbeta)[0]
+
+
+def parker_weights(geometry):
+    """Short-scan redundancy weights W[view, channel] (Parker 1982); full
+    scans return ones; scans shorter than pi + gamma_fan raise."""
+    two_pi = 2.0 * np.pi
+    rot = float(geometry.rotation_total)
+    gam_fan = float(geometry.gamma_fan)
+    if rot >= two_pi - 1e-6:
+        return np.ones((geometry.N_proj, geometry.N_channels))
+    short = np.pi + gam_fan
+    if rot < short - 1e-6:
+        raise ValueError(
+            f"rotation_total={rot:.4f} < pi + fan angle ({short:.4f}): "
+            "not enough data for fan-beam FBP"
+        )
+    B, G = np.meshgrid(geometry.betas, geometry.gammas, indexing="ij")
+    gm = gam_fan / 2.0
+    w = np.ones_like(B)
+    lo = gam_fan - 2.0 * G  # start-of-scan wedge
+    with np.errstate(invalid="ignore", divide="ignore"):
+        ws = np.sin(np.pi / 4.0 * B / np.maximum(gm - G, 1e-9)) ** 2
+        we = np.sin(np.pi / 4.0 * (np.pi + gam_fan - B)
+                    / np.maximum(gm + G, 1e-9)) ** 2
+    w = np.where(B < lo, ws, w)
+    w = np.where(B > np.pi - 2.0 * G, we, w)
+    w = np.clip(w, 0.0, 1.0)
+    w = np.where(B > np.pi + gam_fan, 0.0, w)
+    # dbeta assumes full-2pi double coverage; short scans count each line
+    # once, so the weights double
+    return 2.0 * w
+
+
+def hu_image(recon_raw, mu_water_eff):
+    """cm^-1 -> Hounsfield units (formula pinned at plots.py:140-143)."""
+    return 1000.0 * (recon_raw - mu_water_eff) / mu_water_eff
+
+
+def fbp_recon(sino_log, geometry, n_matrix, fov, ramp=0.8, window="sinc",
+              mu_water_eff=None):
+    """Full fan-beam FBP on the device of ``sino_log``: returns
+    (recon_raw [1/cm], recon_HU or None).  Parallel-beam and flying-focal-
+    spot geometries are not ported yet (ROADMAP queue 2)."""
+    if not hasattr(geometry, "dgamma"):  # parallel-beam geometries
+        raise NotImplementedError(
+            "parallel-beam FBP is not ported yet (ROADMAP queue 2, "
+            "parallel backprojection)")
+    if getattr(geometry, "ffs", "none") != "none":
+        raise NotImplementedError(
+            "flying-focal-spot reconstruction is not ported yet (ROADMAP "
+            "queue 2, ops/ffs.py rebin)")
+    sino_log = sino_log.to(torch.float32)
+    if geometry.rotation_total < 2.0 * np.pi - 1e-6:
+        sino_log = sino_log * torch.as_tensor(
+            parker_weights(geometry), dtype=torch.float32,
+            device=sino_log.device)
+    q = filter_sinogram(sino_log, geometry, ramp, window)
+    img = fan_backproject(
+        q, torch.as_tensor(geometry.betas, dtype=torch.float32,
+                           device=q.device),
+        float(geometry.SID), float(geometry.dgamma), int(n_matrix),
+        float(fov), dbeta=float(geometry.rotation_total) / geometry.N_proj)
+    if mu_water_eff is None:
+        return img, None
+    return img, hu_image(img, mu_water_eff)

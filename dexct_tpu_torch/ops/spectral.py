@@ -1,0 +1,246 @@
+"""Polyenergetic forward model: material paths -> detected counts.
+
+Port of :mod:`dexct_tpu.ops.spectral`:
+
+    counts(ray) = sum_E i0_eff(E) exp(-clip(sum_m paths_m mu_m(E)))
+
+:func:`counts_from_paths` dispatches on the device of its tensors: CUDA
+tensors go to the hand-written Triton kernel K2 (``_counts_kernel``), CPU
+tensors to :func:`counts_from_paths_plain`, the JAX package's two matrix
+products in torch.
+
+K2 replaces the TPU program ``dexct_tpu/ops/spectral.py:counts_from_paths``
+(two MXU matmuls, ``[R, M] @ [M, E]`` then ``exp(-L) @ i0``).  On the card
+that form writes and re-reads an ``[R, E]`` float32 array (8e5 x 140 x 4 B
+= 450 MB per spectrum at the reference protocol) and M = 6 is far too thin
+for a tensor-core product.  What bounds the fused kernel is the exp per
+(ray, energy) and the M FMAs that form its argument; the bytes moved are
+only the paths in and one float out per ray.  Design: a block owns
+BLOCK_R rays and loops over E in BLOCK_E chunks; per chunk it forms
+``L = sum_m paths_m mu_m(E)`` with M FMAs in registers, applies
+``exp(clip(-L, -700, 2))`` and reduces ``* i0(E)`` over the chunk, so
+``[R, E]`` never reaches device memory.  An optional second fluence table
+(the compound-noise second moment ``i2``) shares the same exp pass.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+__all__ = [
+    "effective_fluence",
+    "second_moment_fluence",
+    "counts_from_paths",
+    "counts_from_paths_plain",
+    "log_sinogram",
+    "sample_noise",
+    "forward_counts",
+]
+
+
+def effective_fluence(spec, geometry):
+    """Detector-weighted fluence per energy bin: i0_eff[E] (host, float64).
+
+    ``I0(E) * eta(E) * [E if eid] * dE`` with dE[0] = E[0] — exactly the
+    construction the GN decomposition applies on its union grid
+    (matdecomp.py:146-151), evaluated here on the spectrum's own grid.
+    """
+    resp = geometry.detector_response(spec.E)
+    return spec.I0 * resp * spec.bin_widths()
+
+
+def second_moment_fluence(spec, geometry):
+    """Second-moment table for compound-Poisson noise: i2[E].
+
+    EID: detected photons are Poisson and the signal weights each by
+    w(E) = eta(E) * E, so var(signal) = sum_E n(E) w(E)^2 with n = I0 dE
+    photon counts.  PCD: each detected photon counts once, so
+    var = mean = sum_E n(E) eta(E).
+    """
+    n = spec.I0 * spec.bin_widths()  # photons per bin
+    w = geometry.detector_response(spec.E)  # eta * E when eid, else eta
+    return n * w * w if geometry.eid else n * w
+
+
+def counts_from_paths_plain(paths, mu_table, i0_eff):
+    """``exp(-clip(paths @ mu)) @ i0`` as two float32 matrix products."""
+    L = paths @ mu_table.to(paths.dtype)  # [..., E]
+    # L >= 0 physically; the tight upper clip keeps float32 finite when an
+    # approximate projector rings slightly negative at sharp edges
+    atten = torch.exp(torch.clamp(-L, -700.0, 2.0))
+    return atten @ i0_eff.to(paths.dtype)
+
+
+@functools.lru_cache(maxsize=1)
+def _counts_kernel():
+    """Compile-on-first-use Triton kernel (``triton`` is imported here, not
+    at module import: a CPU-only installation has no triton)."""
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def counts_kernel(paths_ptr, mu_ptr, i0_ptr, i2_ptr, out_ptr, var_ptr,
+                      R, E, M: tl.constexpr, HAS_I2: tl.constexpr,
+                      BLOCK_R: tl.constexpr, BLOCK_E: tl.constexpr):
+        pid = tl.program_id(0)
+        rows = pid * BLOCK_R + tl.arange(0, BLOCK_R)
+        rmask = rows < R
+        rows64 = rows.to(tl.int64)
+        acc = tl.zeros([BLOCK_R], dtype=tl.float32)
+        acc2 = tl.zeros([BLOCK_R], dtype=tl.float32)
+        for e0 in range(0, E, BLOCK_E):
+            cols = e0 + tl.arange(0, BLOCK_E)
+            emask = cols < E
+            L = tl.zeros([BLOCK_R, BLOCK_E], dtype=tl.float32)
+            for m in tl.static_range(M):
+                p = tl.load(paths_ptr + rows64 * M + m, mask=rmask, other=0.0)
+                mu = tl.load(mu_ptr + m * E + cols, mask=emask, other=0.0)
+                L += p[:, None] * mu[None, :]
+            att = tl.exp(tl.minimum(tl.maximum(-L, -700.0), 2.0))
+            i0 = tl.load(i0_ptr + cols, mask=emask, other=0.0)
+            acc += tl.sum(att * i0[None, :], axis=1)
+            if HAS_I2:
+                i2 = tl.load(i2_ptr + cols, mask=emask, other=0.0)
+                acc2 += tl.sum(att * i2[None, :], axis=1)
+        tl.store(out_ptr + rows64, acc, mask=rmask)
+        if HAS_I2:
+            tl.store(var_ptr + rows64, acc2, mask=rmask)
+
+    return counts_kernel
+
+
+_BLOCK_R = 128
+_BLOCK_E = 64
+
+
+def _counts_cuda(paths, mu_table, i0_eff, i2_eff):
+    dev = paths.device
+    m = paths.shape[-1]
+    p2 = paths.reshape(-1, m).to(torch.float32).contiguous()
+    mu = mu_table.to(device=dev, dtype=torch.float32).contiguous()
+    e = mu.shape[1]
+    if mu.shape[0] != m:
+        raise ValueError(f"mu_table has {mu.shape[0]} materials, paths {m}")
+    i0 = i0_eff.to(device=dev, dtype=torch.float32).contiguous()
+    if i0.shape != (e,):
+        raise ValueError(f"i0_eff must have shape ({e},), got "
+                         f"{tuple(i0.shape)}")
+    r = p2.shape[0]
+    out = torch.empty(r, dtype=torch.float32, device=dev)
+    has_i2 = i2_eff is not None
+    if has_i2:
+        i2 = i2_eff.to(device=dev, dtype=torch.float32).contiguous()
+        if i2.shape != (e,):
+            raise ValueError("i2_eff must match i0_eff's shape")
+        var = torch.empty_like(out)
+    else:
+        i2, var = i0, out  # unused by the kernel
+    grid = (max(-(-r // _BLOCK_R), 1),)
+    with torch.cuda.device(dev):
+        _counts_kernel()[grid](p2, mu, i0, i2, out, var, r, e, M=m,
+                               HAS_I2=has_i2, BLOCK_R=_BLOCK_R,
+                               BLOCK_E=_BLOCK_E, num_warps=4)
+    counts_from_paths.launches += 1
+    shape = paths.shape[:-1]
+    if has_i2:
+        return out.reshape(shape), var.reshape(shape)
+    return out.reshape(shape)
+
+
+def counts_from_paths(paths, mu_table, i0_eff, i2_eff=None):
+    """Detected signal per ray.
+
+    paths:    [..., n_mats] material path lengths [cm]
+    mu_table: [n_mats, E] linear attenuation of each material [1/cm]
+    i0_eff:   [E] effective fluence per bin
+    i2_eff:   optional [E] second table (compound-noise second moment)
+              contracted against the same attenuation.
+    Returns counts ``[...]``, or ``(counts, var)`` when ``i2_eff`` is given.
+
+    CUDA tensors run kernel K2 (counted in ``counts_from_paths.launches``);
+    CPU tensors run :func:`counts_from_paths_plain`.
+    """
+    if paths.is_cuda:
+        return _counts_cuda(paths, mu_table, i0_eff, i2_eff)
+    if paths.device.type != "cpu":
+        raise ValueError(f"unsupported device {paths.device}")
+    counts = counts_from_paths_plain(paths, mu_table, i0_eff)
+    if i2_eff is None:
+        return counts
+    return counts, counts_from_paths_plain(paths, mu_table, i2_eff)
+
+
+counts_from_paths.launches = 0
+
+
+def log_sinogram(counts, air_counts):
+    """Log-normalized line-integral sinogram: -ln(counts / air)."""
+    c = torch.clamp_min(counts, 1e-30)
+    return -torch.log(c / air_counts)
+
+
+def sample_noise(generator, counts, mode="poisson", var_scale=1.0, var=None):
+    """Seedable detector-noise stage, drawing from ``generator`` (a
+    ``torch.Generator`` on the device of ``counts``).
+
+    mode='poisson': Poisson counting statistics (Gaussian limit above 1e5).
+    mode='gaussian': Normal with variance ``var_scale * counts``.
+    mode='compound': Normal with an explicit per-ray ``var`` array — the
+        EID model (pair with :func:`second_moment_fluence`).
+    mode='none': pass-through.
+    """
+    if mode == "none":
+        return counts
+
+    def normal():
+        return torch.randn(counts.shape, generator=generator,
+                           dtype=counts.dtype, device=counts.device)
+
+    if mode == "compound":
+        if var is None:
+            raise ValueError("compound mode requires a per-ray var array")
+        sigma = torch.sqrt(torch.clamp_min(var, 0.0))
+        return torch.clamp_min(counts + sigma * normal(), 0.0)
+    if mode == "poisson":
+        # the discrete sampler is pointless at large rates: EID signals
+        # are energy-weighted and reach ~1e10 per ray
+        big = counts > 1e5
+        small = torch.poisson(torch.where(big, 0.0, counts),
+                              generator=generator)
+        gauss = counts + torch.sqrt(torch.clamp_min(counts, 0.0)) * normal()
+        return torch.where(big, torch.clamp_min(gauss, 0.0), small)
+    if mode == "gaussian":
+        sigma = torch.sqrt(torch.clamp_min(counts * var_scale, 0.0))
+        return counts + sigma * normal()
+    raise ValueError(f"unknown noise mode {mode!r}")
+
+
+def forward_counts(paths, phantom, spec, geometry, *, noise="none",
+                   generator=None):
+    """paths -> (counts, log_sino): the get_sino back half, on the device
+    of ``paths``.  Bowtie filtration, tube-current modulation and
+    electronic noise are not ported yet (ROADMAP queue 1, item 12)."""
+    dev = paths.device
+    mu_table = torch.as_tensor(phantom.materials.mu_table(spec.E),
+                               dtype=torch.float32, device=dev)
+    i0_h = effective_fluence(spec, geometry)
+    air = float(np.sum(i0_h))
+    i0 = torch.as_tensor(i0_h, dtype=torch.float32, device=dev)
+    paths = paths.to(torch.float32)
+    if noise == "none":
+        counts = counts_from_paths(paths, mu_table, i0)
+    else:
+        if generator is None:
+            raise ValueError("noise sampling requires a torch.Generator")
+        var = None
+        if noise == "compound":
+            i2 = torch.as_tensor(second_moment_fluence(spec, geometry),
+                                 dtype=torch.float32, device=dev)
+            counts, var = counts_from_paths(paths, mu_table, i0, i2)
+        else:
+            counts = counts_from_paths(paths, mu_table, i0)
+        counts = sample_noise(generator, counts, noise, var=var)
+    return counts, log_sinogram(counts, air)

@@ -1,0 +1,25 @@
+"""Pipeline: reference-compatible API + fused step + run driver."""
+
+from .api import (
+    DectResult,
+    effective_water_mu,
+    get_basismat_sinos,
+    get_recon,
+    get_sino,
+    load_spectrum,
+    simulate_dect,
+)
+from .runner import DEFAULT_SPEC_PAIRS, run_config, run_parameter_file
+
+__all__ = [
+    "get_sino",
+    "get_recon",
+    "get_basismat_sinos",
+    "load_spectrum",
+    "simulate_dect",
+    "effective_water_mu",
+    "DectResult",
+    "run_config",
+    "run_parameter_file",
+    "DEFAULT_SPEC_PAIRS",
+]

@@ -1,0 +1,220 @@
+"""The fused dual-energy pipeline step (``--engine fused``).
+
+Port of :mod:`dexct_tpu.pipeline.fused` for one device, the exact Siddon
+projector and direct fan-beam reconstruction: trace (K1) -> two
+polyenergetic acquisitions (K2) -> Gauss-Newton decomposition (K3) -> FBP
+of both single-energy images and both basis images through one packed
+4-image backprojection (K4).  ``pack_dect`` lowers the host system model to
+a dict of device tensors plus a hashable :class:`DectMeta`;
+:func:`dect_step` is a function of the two.  PyTorch runs eagerly, so there
+is no compiled program to cache.
+
+``projector='siddon_dominant'`` runs the same exact per-ray kernel as
+``'siddon'``: on the card one per-ray walk replaces the TPU's whole
+packed-plan family, and its output is already in natural [V, C, M] order.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops import matdecomp as md_ops
+from ..ops import spectral as sp_ops
+from ..ops.fbp import filter_views, hu_image
+from ..ops.fbp_fast import fan_backproject_multi, pack_filtered
+from ..ops.filters import filter_frequency_response
+from ..ops.siddon import labels_tensor, trace_paths
+
+__all__ = ["DectMeta", "PROJECTORS", "pack_dect", "dect_step",
+           "reconstruct_stack", "arrays_from_numpy", "check_choices"]
+
+PROJECTORS = ("siddon", "siddon_dominant")
+
+# the arrays dect_step reads, with their dtypes
+_ARRAY_DTYPES = {
+    "labels": torch.uint8,
+    "src": torch.float32, "dirs": torch.float32, "betas": torch.float32,
+    "mu_t1": torch.float32, "mu_t2": torch.float32,
+    "i0_1": torch.float32, "i0_2": torch.float32,
+    "i2_1": torch.float32, "i2_2": torch.float32,
+    "dec_i0": torch.float32, "dec_mus": torch.float32,
+    "filt_H": torch.float32, "cos_w": torch.float32,
+}
+
+
+class DectMeta(NamedTuple):
+    """Static parameters of a fused DE pipeline step (the fields of the JAX
+    package's ``DectMeta`` that this path reads, plus the noise seed)."""
+
+    n_materials: int
+    n_matrix: int
+    fft_len: int
+    n_iters: int
+    dx: float
+    dy: float
+    sid: float
+    dgamma: float
+    dbeta: float
+    fov: float
+    air1: float
+    air2: float
+    mu_w1: float
+    mu_w2: float
+    mask_thresh: float
+    pixel_block: int
+    projector: str = "siddon"
+    recon: str = "fan"
+    noise: str = "none"  # 'none' | 'poisson' | 'gaussian' | 'compound'
+    gn_warm_nodes: int = 32
+    seed: int = 0
+
+
+def check_choices(projector, recon):
+    """Raise for a projector or reconstruction this port does not run."""
+    if projector in ("fourier", "analytic"):
+        raise NotImplementedError(
+            f"projector={projector!r} is not ported yet (ROADMAP queue 2: "
+            "Fourier-slice projector, then analytic projector)")
+    if projector not in PROJECTORS:
+        raise ValueError(f"unknown projector {projector!r}")
+    if recon == "parallel":
+        raise NotImplementedError(
+            "recon='parallel' is not ported yet (ROADMAP queue 2: "
+            "rebin_to_parallel and the parallel backprojector)")
+    if recon != "fan":
+        raise ValueError(f"unknown recon {recon!r}")
+
+
+def pack_dect(ct, phantom, spec1, spec2, n_matrix, fov, ramp, *, device,
+              n_iters=50, window="sinc", mask_thresh=0.95,
+              pixel_block=65536, projector="siddon", recon="fan",
+              noise="none", seed=0):
+    """Lower the system model to (arrays, meta) for :func:`dect_step`, with
+    every array on ``device``."""
+    from .api import effective_water_mu
+
+    check_choices(projector, recon)
+    if getattr(ct, "ffs", "none") != "none":
+        raise ValueError(
+            "the fused pipeline's recon tables assume a static focal spot")
+    if not hasattr(phantom, "slice_labels"):
+        raise NotImplementedError(
+            "analytic phantoms are not ported yet (ROADMAP queue 2, "
+            "analytic projector)")
+    src, dirs = ct.ray_geometry()
+    i0_1 = sp_ops.effective_fluence(spec1, ct)
+    i0_2 = sp_ops.effective_fluence(spec2, ct)
+    _, dec_i0, dec_mus = md_ops.prepare_decomposition(ct, spec1, spec2)
+    H, m = filter_frequency_response(ct.N_channels, ct.dgamma, ramp, window,
+                                     "fan")
+    host = {
+        "src": src, "dirs": dirs, "betas": ct.betas,
+        "mu_t1": phantom.materials.mu_table(spec1.E),
+        "mu_t2": phantom.materials.mu_table(spec2.E),
+        "i0_1": i0_1, "i0_2": i0_2,
+        "i2_1": sp_ops.second_moment_fluence(spec1, ct),
+        "i2_2": sp_ops.second_moment_fluence(spec2, ct),
+        "dec_i0": dec_i0, "dec_mus": dec_mus,
+        "filt_H": H,  # real response
+        "cos_w": np.cos(ct.gammas) * ct.SID,
+    }
+    arrays = {k: torch.as_tensor(np.asarray(v), dtype=_ARRAY_DTYPES[k],
+                                 device=device) for k, v in host.items()}
+    arrays["labels"] = labels_tensor(phantom, device)
+    meta = DectMeta(
+        n_materials=phantom.n_materials,
+        n_matrix=int(n_matrix),
+        fft_len=int(m),
+        n_iters=int(n_iters),
+        dx=float(phantom.dx),
+        dy=float(phantom.dy),
+        sid=float(ct.SID),
+        dgamma=float(ct.dgamma),
+        dbeta=float(ct.rotation_total / ct.N_proj),
+        fov=float(fov),
+        air1=float(np.sum(i0_1)),
+        air2=float(np.sum(i0_2)),
+        mu_w1=float(effective_water_mu(spec1, ct)),
+        mu_w2=float(effective_water_mu(spec2, ct)),
+        mask_thresh=float(mask_thresh),
+        pixel_block=int(pixel_block),
+        projector=projector,
+        recon=recon,
+        noise=noise,
+        seed=int(seed),
+    )
+    return arrays, meta
+
+
+def arrays_from_numpy(arrays_np, device):
+    """The JAX package's ``pack_dect`` arrays (as numpy) -> this port's
+    tensor dict on ``device``, so both ``dect_step``s can run on identical
+    inputs.  Keys this path does not read are dropped; labels become uint8
+    after a range check."""
+    out = {}
+    for k, dtype in _ARRAY_DTYPES.items():
+        a = np.array(arrays_np[k])  # a writable copy
+        if k == "labels" and a.size and (a.min() < 0 or a.max() > 255):
+            raise ValueError("material labels must lie in 0..255")
+        out[k] = torch.as_tensor(a.astype(np.uint8) if k == "labels" else a,
+                                 dtype=dtype, device=device)
+    return out
+
+
+def reconstruct_stack(sinos, a, meta: DectMeta):
+    """Filter and fan-backproject a ``[K, V, C]`` sinogram stack through
+    the packed K-image backprojector; returns ``[K, n_matrix, n_matrix]``
+    in cm^-1."""
+    check_choices(meta.projector, meta.recon)
+    qs = filter_views(sinos, a["cos_w"], a["filt_H"], meta.fft_len,
+                      meta.dgamma)
+    return fan_backproject_multi(
+        pack_filtered(qs), sinos.shape[0], a["betas"], meta.sid,
+        meta.dgamma, sinos.shape[-1], meta.n_matrix, meta.fov, meta.dbeta)
+
+
+def dect_step(arrays, meta: DectMeta):
+    """The fused DE pipeline on the device of ``arrays``.  Returns the
+    JAX package's output dict: sino_raw, sino_log, mat_sinos, recon_raw,
+    recon_HU and mat_recons, each a pair of tensors."""
+    a = arrays
+    check_choices(meta.projector, meta.recon)
+    paths = trace_paths(a["labels"], a["src"], a["dirs"], meta.dx, meta.dy,
+                        n_materials=meta.n_materials)
+    if meta.noise == "none":
+        counts1 = sp_ops.counts_from_paths(paths, a["mu_t1"], a["i0_1"])
+        counts2 = sp_ops.counts_from_paths(paths, a["mu_t2"], a["i0_2"])
+    else:
+        gen = torch.Generator(device=paths.device).manual_seed(meta.seed)
+        c1, v1 = sp_ops.counts_from_paths(paths, a["mu_t1"], a["i0_1"],
+                                          a["i2_1"])
+        c2, v2 = sp_ops.counts_from_paths(paths, a["mu_t2"], a["i0_2"],
+                                          a["i2_2"])
+        counts1 = sp_ops.sample_noise(gen, c1, meta.noise, var=v1)
+        counts2 = sp_ops.sample_noise(gen, c2, meta.noise, var=v2)
+    log1 = sp_ops.log_sinogram(counts1, meta.air1)
+    log2 = sp_ops.log_sinogram(counts2, meta.air2)
+
+    flat = torch.stack([counts1.reshape(-1), counts2.reshape(-1)])
+    ab = md_ops.gauss_newton_solve(
+        flat, a["dec_i0"], a["dec_mus"], n_iters=meta.n_iters,
+        pixel_block=meta.pixel_block, warm_nodes=meta.gn_warm_nodes)
+    # air mask against the maximum over the WHOLE sinogram
+    mask = counts1 >= meta.mask_thresh * counts1.max()
+    zero = torch.zeros((), dtype=ab.dtype, device=ab.device)
+    mat1 = torch.where(mask, zero, ab[:, 0].reshape(counts1.shape))
+    mat2 = torch.where(mask, zero, ab[:, 1].reshape(counts1.shape))
+
+    imgs = reconstruct_stack(torch.stack([log1, log2, mat1, mat2]), a, meta)
+    r1, r2, m1r, m2r = imgs[0], imgs[1], imgs[2], imgs[3]
+    return {
+        "sino_raw": (counts1, counts2),
+        "sino_log": (log1, log2),
+        "mat_sinos": (mat1, mat2),
+        "recon_raw": (r1, r2),
+        "recon_HU": (hu_image(r1, meta.mu_w1), hu_image(r2, meta.mu_w2)),
+        "mat_recons": (m1r, m2r),
+    }

@@ -1,0 +1,199 @@
+"""The pipeline driver: configs -> simulated acquisitions -> output files.
+
+Port of :mod:`dexct_tpu.pipeline.runner`: loops over the run configs of a
+params file and the dual-energy spectrum pairs, runs trace ->
+acquisitions -> decomposition -> reconstruction on ``device``, and writes
+the §2.6 output contract (flat float32 ``.bin`` files) with the same names
+and layout as the JAX package.  Choices that are not ported yet raise
+``NotImplementedError`` naming their ROADMAP item; none is replaced by
+another path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+
+import torch
+
+from ..system.config import RunConfig, read_parameter_file
+from ..utils.io import StageWriter, acquisition_dir, matdecomp_dir
+from . import api
+
+__all__ = ["DEFAULT_SPEC_PAIRS", "run_config", "run_parameter_file"]
+
+# the reference's hardcoded protocol (main.py:101-102)
+DEFAULT_SPEC_PAIRS = (
+    ("detunedMV", "80kV", 9.0, 1.0),
+)
+
+
+@dataclasses.dataclass
+class RunResult:
+    run_id: str
+    pair: tuple
+    dect: api.DectResult
+    wall_s: float
+
+
+def _resolve_spectrum(spec_id, dose, ct, spectrum_dir, generators):
+    """Load a spectrum binary if present, else synthesize analytically."""
+    fname = os.path.join(spectrum_dir, f"{spec_id}_1mGy_float32.bin")
+    if os.path.exists(fname):
+        return api.load_spectrum(spec_id, dose, ct, spectrum_dir)
+    if spec_id not in generators:
+        raise FileNotFoundError(
+            f"no spectrum file {fname} and no generator for {spec_id!r}"
+        )
+    spec = generators[spec_id]()
+    spec.name = spec_id
+    spec.rescale_counts(ct.A_iso * dose / ct.N_proj)
+    return spec
+
+
+def default_generators():
+    from ..physics.spectrum import kramers_spectrum, linac_spectrum
+
+    return {
+        "80kV": lambda: kramers_spectrum(80.0),
+        "120kV": lambda: kramers_spectrum(120.0),
+        "140kV": lambda: kramers_spectrum(140.0),
+        "6MV": lambda: linac_spectrum(detuned=False,
+                                      e_min=157.56497,
+                                      photons_per_cm2_per_mGy=4.6e6),
+        "detunedMV": lambda: linac_spectrum(detuned=True),
+    }
+
+
+def _effective_noise(noise, ct):
+    """EID detectors integrate energy-weighted counts, so their
+    ``poisson`` request is the compound (energy-weighted Poisson) model."""
+    return "compound" if noise == "poisson" and ct.eid else noise
+
+
+def _check_supported(cfg, engine, projector, recon, bhc, denoise):
+    """Raise for every choice this port does not run yet."""
+    from ..system.geometry import ConeBeamGeometry, FanBeamGeometry
+    from .fused import check_choices
+
+    if engine not in ("fused", "composed"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if isinstance(cfg.ct, ConeBeamGeometry):
+        raise NotImplementedError(
+            "cone-beam and helical configs are not ported yet (ROADMAP "
+            "queue 1, item 10: 3-D)")
+    if not isinstance(cfg.ct, FanBeamGeometry):
+        raise NotImplementedError(
+            f"{type(cfg.ct).__name__} is not ported yet (ROADMAP queue 2, "
+            "parallel backprojection)")
+    if getattr(cfg.ct, "ffs", "none") != "none":
+        raise NotImplementedError(
+            "flying-focal-spot scans are not ported yet (ROADMAP queue 2, "
+            "ops/ffs.py rebin)")
+    if bhc:
+        raise NotImplementedError(
+            "--bhc is not ported yet (ROADMAP queue 1, item 8: ops/bhc.py)")
+    if denoise:
+        raise NotImplementedError(
+            "--denoise is not ported yet (ROADMAP queue 1, item 8: learn/)")
+    if engine == "fused":
+        check_choices(projector, recon)
+
+
+def run_config(cfg: RunConfig, *, out_dir="./output", spec_pairs=None,
+               spectrum_dir="./input/spectrum", noise="none", seed=0,
+               n_iters=50, param_file=None, verbose=True, bhc=False,
+               engine="fused", projector="siddon", recon="fan",
+               resume=False, denoise=False, device="cuda"):
+    """Execute one run config over its DE spectrum pairs (main.py:90-178)
+    on ``device``.
+
+    engine='fused' runs :func:`~dexct_tpu_torch.pipeline.fused.dect_step`;
+    engine='composed' runs the reference-API op chain
+    (:func:`~dexct_tpu_torch.pipeline.api.simulate_dect`).  Noise draws
+    come from a ``torch.Generator`` seeded with ``seed``.
+    """
+    _check_supported(cfg, engine, projector, recon, bhc, denoise)
+    device = torch.device(device)
+    pairs = spec_pairs or DEFAULT_SPEC_PAIRS
+    writer = StageWriter(out_dir, cfg.run_id, param_file)
+    gens = default_generators()
+    eff_noise = _effective_noise(noise, cfg.ct)
+    bp = cfg.do_back_projection
+    results = []
+    for spec_id1, spec_id2, d1, d2 in pairs:
+        t0 = time.time()
+        if resume and _pair_complete(out_dir, cfg, spec_id1, spec_id2,
+                                     d1, d2):
+            if verbose:
+                print(f"resume: skipping completed pair "
+                      f"{spec_id1}-{spec_id2}")
+            continue
+        spec1 = _resolve_spectrum(spec_id1, d1, cfg.ct, spectrum_dir, gens)
+        spec2 = _resolve_spectrum(spec_id2, d2, cfg.ct, spectrum_dir, gens)
+        if engine == "fused":
+            from .fused import dect_step, pack_dect
+
+            arrays, meta = pack_dect(
+                cfg.ct, cfg.phantom, spec1, spec2, cfg.N_matrix, cfg.FOV,
+                cfg.ramp, device=device, n_iters=n_iters,
+                projector=projector, recon=recon, noise=eff_noise,
+                seed=seed)
+            out = dect_step(arrays, meta)
+            dect = api.DectResult(
+                sino_raw=out["sino_raw"], sino_log=out["sino_log"],
+                recon_raw=out["recon_raw"] if bp else (None, None),
+                recon_HU=out["recon_HU"] if bp else (None, None),
+                mat_sinos=out["mat_sinos"],
+                mat_recons=out["mat_recons"] if bp else (None, None),
+            )
+        else:
+            gen = (torch.Generator(device=device).manual_seed(seed)
+                   if eff_noise != "none" else None)
+            dect = api.simulate_dect(
+                cfg.ct, cfg.phantom, spec1, spec2, cfg.N_matrix, cfg.FOV,
+                cfg.ramp, device=device, n_iters=n_iters, noise=eff_noise,
+                generator=gen, do_recon=bp)
+        for i, (sid, dose) in enumerate(((spec_id1, d1), (spec_id2, d2))):
+            writer.acquisition(
+                sid, dose,
+                sino_raw=dect.sino_raw[i], sino_log=dect.sino_log[i],
+                recon_raw=dect.recon_raw[i], recon_HU=dect.recon_HU[i])
+        writer.matdecomp(
+            spec_id1, spec_id2, d1, d2, mat_sinos=list(dect.mat_sinos),
+            mat_recons=(None if dect.mat_recons[0] is None
+                        else list(dect.mat_recons)))
+        wall = time.time() - t0
+        if verbose:
+            print(f"matdecomp finished for {spec_id1}-{spec_id2} : "
+                  f"t={wall:.2f}s")
+        results.append(RunResult(cfg.run_id, (spec_id1, spec_id2, d1, d2),
+                                 dect, wall))
+    return results
+
+
+def _pair_complete(out_dir, cfg, spec_id1, spec_id2, d1, d2):
+    """All stage artifacts of a DE pair already on disk."""
+    want = []
+    for sid, dose in ((spec_id1, d1), (spec_id2, d2)):
+        d = acquisition_dir(out_dir, cfg.run_id, sid, dose)
+        want += [os.path.join(d, "sino_raw_float32.bin"),
+                 os.path.join(d, "sino_log_float32.bin")]
+        if cfg.do_back_projection:
+            want += [os.path.join(d, "recon_raw_float32.bin"),
+                     os.path.join(d, "recon_HU_float32.bin")]
+    md = matdecomp_dir(out_dir, cfg.run_id, spec_id1, spec_id2, d1, d2)
+    want += [os.path.join(md, "mat1_sino_float32.bin"),
+             os.path.join(md, "mat2_sino_float32.bin")]
+    return all(os.path.exists(p) for p in want)
+
+
+def run_parameter_file(param_file, *, out_dir="./output", **kw):
+    """``python -m dexct_tpu_torch.run`` entry: every config in the params
+    file."""
+    out = []
+    for cfg in read_parameter_file(param_file):
+        out.extend(run_config(cfg, out_dir=out_dir, param_file=param_file,
+                              **kw))
+    return out

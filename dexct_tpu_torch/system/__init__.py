@@ -1,0 +1,46 @@
+"""System models: scanner geometry, voxel phantoms, run configuration."""
+
+from .config import RunConfig, read_parameter_file
+from .geometry import (
+    ConeBeamGeometry,
+    FanBeamGeometry,
+    FlatPanelConeBeamGeometry,
+    GEOMETRY_REGISTRY,
+    HelicalConeBeamGeometry,
+    ParallelBeamGeometry,
+    ScannerGeometry,
+    TiltedConeBeamGeometry,
+)
+from .phantom import (
+    VoxelPhantom,
+    contrast_rods_phantom,
+    head_phantom,
+    head_phantom_3d,
+    pelvis_phantom,
+    pelvis_phantom_3d,
+    thorax_phantom,
+    thorax_phantom_3d,
+    water_cylinder_phantom,
+)
+
+__all__ = [
+    "RunConfig",
+    "read_parameter_file",
+    "ScannerGeometry",
+    "FanBeamGeometry",
+    "ParallelBeamGeometry",
+    "ConeBeamGeometry",
+    "HelicalConeBeamGeometry",
+    "TiltedConeBeamGeometry",
+    "FlatPanelConeBeamGeometry",
+    "GEOMETRY_REGISTRY",
+    "VoxelPhantom",
+    "water_cylinder_phantom",
+    "contrast_rods_phantom",
+    "pelvis_phantom",
+    "pelvis_phantom_3d",
+    "head_phantom",
+    "head_phantom_3d",
+    "thorax_phantom",
+    "thorax_phantom_3d",
+]

@@ -163,3 +163,6 @@ def pytest_collection_modifyitems(config, items):
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "quick: ~5-min one-test-per-subsystem inner-loop tier")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (hand-written kernels); "
+        "skips without one")

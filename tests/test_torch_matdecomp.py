@@ -1,0 +1,128 @@
+"""The port's Gauss-Newton decomposition (plain version on the CPU) against
+the JAX package's solver and the float64 oracle.  Tolerance: relative error
+< 1e-4 with a floor of 1 g/cm^2, the JAX package's own parity bar."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dexct_tpu.ops.matdecomp import gauss_newton_solve as j_solve
+from dexct_tpu.ops.matdecomp import prepare_decomposition as j_prepare
+from dexct_tpu.physics import kramers_spectrum, linac_spectrum
+from dexct_tpu.system import FanBeamGeometry
+from dexct_tpu.utils.testing import gauss_newton_decompose_numpy
+from dexct_tpu_torch.ops import matdecomp as t_md
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def de_tables():
+    """The reference protocol's pair on the shipped EID detector: union
+    grid of detunedMV and 80 kV (> 64 bins, so the warm phase runs on the
+    compressed table)."""
+    ct = FanBeamGeometry(N_channels=800, N_proj=1000, eid=True,
+                         detector_file="input/detector/eta_eid_mv.bin")
+    s1, s2 = linac_spectrum(), kramers_spectrum(80.0)
+    s1.rescale_counts(ct.A_iso * 9.0 / ct.N_proj)
+    s2.rescale_counts(ct.A_iso * 1.0 / ct.N_proj)
+    _, i0, mus = j_prepare(ct, s1, s2)
+    assert i0.shape[1] > 64
+    return i0, mus
+
+
+def _counts(i0, mus, a_true):
+    return (np.exp(-a_true @ mus) @ i0.T).T  # float64 forward model [2, P]
+
+
+def _rel(a, b):
+    return np.abs(a - b) / np.maximum(np.abs(b), 1.0)
+
+
+def test_matches_jax_and_float64_oracle(de_tables):
+    i0, mus = de_tables
+    rng = np.random.default_rng(1)
+    a_true = np.stack([rng.uniform(0, 40, 500), rng.uniform(0, 12, 500)], -1)
+    counts = _counts(i0, mus, a_true)
+    got = t_md.gauss_newton_solve(
+        *(torch.as_tensor(x, dtype=torch.float32) for x in (counts, i0, mus)),
+        n_iters=50).numpy()
+    want = np.asarray(j_solve(jnp.asarray(counts, jnp.float32),
+                              jnp.asarray(i0, jnp.float32),
+                              jnp.asarray(mus, jnp.float32), n_iters=50))
+    oracle = gauss_newton_decompose_numpy(counts, i0, mus, 50)
+    assert _rel(got, want).max() < 1e-4
+    assert _rel(got, oracle).max() < 1e-4
+    assert _rel(got, a_true).max() < 1e-4
+
+
+@pytest.mark.parametrize("n_iters,warm_nodes", [(20, 32), (3, 32), (50, 0)])
+def test_schedule_variants_match_jax(de_tables, n_iters, warm_nodes):
+    """Fewer iterations than the polish (no warm phase), the default
+    compressed warm table, and the uncompressed one."""
+    i0, mus = de_tables
+    rng = np.random.default_rng(2)
+    a_true = np.stack([rng.uniform(0, 30, 300), rng.uniform(0, 5, 300)], -1)
+    counts = _counts(i0, mus, a_true)
+    got = t_md.gauss_newton_solve(
+        *(torch.as_tensor(x, dtype=torch.float32) for x in (counts, i0, mus)),
+        n_iters=n_iters, warm_nodes=warm_nodes, pixel_block=128).numpy()
+    want = np.asarray(j_solve(jnp.asarray(counts, jnp.float32),
+                              jnp.asarray(i0, jnp.float32),
+                              jnp.asarray(mus, jnp.float32), n_iters=n_iters,
+                              warm_nodes=warm_nodes, pixel_block=128))
+    assert _rel(got, want).max() < 1e-4
+
+
+def test_starved_and_air_pixels_stay_finite(de_tables):
+    i0, mus = de_tables
+    counts = np.array([[0.0, 1e-20, i0[0].sum()], [0.0, 0.0, i0[1].sum()]])
+    got = t_md.gauss_newton_solve(
+        *(torch.as_tensor(x, dtype=torch.float32) for x in (counts, i0, mus)),
+        n_iters=50).numpy()
+    want = np.asarray(j_solve(jnp.asarray(counts, jnp.float32),
+                              jnp.asarray(i0, jnp.float32),
+                              jnp.asarray(mus, jnp.float32), n_iters=50))
+    assert np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_unported_material_counts_raise(de_tables):
+    i0, mus = (torch.as_tensor(x, dtype=torch.float32) for x in de_tables)
+    counts3 = torch.ones((3, 4))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_md.gauss_newton_solve(counts3, torch.cat([i0, i0[:1]]),
+                                torch.cat([mus, mus[:1]]))
+    with pytest.raises(ValueError, match="measurements"):
+        t_md.gauss_newton_solve(torch.ones((2, 4)), i0,
+                                torch.cat([mus, mus[:1]]))
+
+
+def test_decompose_sinograms_matches_jax():
+    from dexct_tpu.ops.matdecomp import decompose_sinograms as j_dec
+    from dexct_tpu_torch.physics import kramers_spectrum as tk
+    from dexct_tpu_torch.physics import linac_spectrum as tl
+    from dexct_tpu_torch.system import FanBeamGeometry as TFan
+
+    jct, tct = FanBeamGeometry(N_channels=16), TFan(N_channels=16)
+    js = (linac_spectrum(), kramers_spectrum(80.0))
+    ts = (tl(), tk(80.0))
+    _, i0, mus = j_prepare(jct, *js)
+    rng = np.random.default_rng(3)
+    a_true = np.stack([rng.uniform(0, 20, 96), rng.uniform(0, 3, 96)], -1)
+    a_true[:5] = 0.0  # air rays: masked to zero
+    sino = _counts(i0, mus, a_true).astype(np.float32).reshape(2, 6, 16)
+    want = j_dec(jct, jnp.asarray(sino[0]), jnp.asarray(sino[1]), *js,
+                 n_iters=30)
+    got = t_md.decompose_sinograms(tct, torch.as_tensor(sino[0]),
+                                   torch.as_tensor(sino[1]), *ts, n_iters=30)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-3)
+    assert float(got[0].reshape(-1)[:5].abs().max()) == 0.0

@@ -1,0 +1,214 @@
+"""The port's main path as a whole against the JAX package's, on the CPU:
+the fused step on identical packed inputs, the composed engine, and both
+CLIs writing the §2.6 files.  Tolerances as in tests/test_pipeline.py:
+sino_raw rtol 1e-4, mat_sinos atol 1e-3, recon_raw atol 1e-4,
+mat_recons atol 1e-3 (and recon_HU atol 1 HU, sino_log atol 1e-4)."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from dexct_tpu.physics import kramers_spectrum, linac_spectrum
+from dexct_tpu.pipeline import simulate_dect as j_simulate
+from dexct_tpu.pipeline.fused import make_jitted_step
+from dexct_tpu.pipeline.fused import pack_dect as j_pack
+from dexct_tpu.system import FanBeamGeometry, water_cylinder_phantom
+from dexct_tpu_torch.pipeline import fused as t_fused
+from dexct_tpu_torch.pipeline.api import simulate_dect as t_simulate
+
+TOL = {"sino_raw": dict(rtol=1e-4, atol=0.0),
+       "sino_log": dict(rtol=0.0, atol=1e-4),
+       "mat_sinos": dict(rtol=0.0, atol=1e-3),
+       "recon_raw": dict(rtol=0.0, atol=1e-4),
+       "recon_HU": dict(rtol=0.0, atol=1.0),
+       "mat_recons": dict(rtol=0.0, atol=1e-3)}
+FILE_TOL = {"sino_raw": TOL["sino_raw"], "sino_log": TOL["sino_log"],
+            "recon_raw": TOL["recon_raw"], "recon_HU": TOL["recon_HU"],
+            "mat1_sino": TOL["mat_sinos"], "mat2_sino": TOL["mat_sinos"],
+            "mat1_recon": TOL["mat_recons"], "mat2_recon": TOL["mat_recons"]}
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def small_de():
+    """The setup of tests/test_pipeline.py (JAX host objects; the port's
+    host layer is identical, tests/test_torch_host.py)."""
+    ct = FanBeamGeometry(N_channels=128, N_proj=96, gamma_fan=0.8230337,
+                         SID=60.0, SDD=100.0, eid=True)
+    ph = water_cylinder_phantom(N=96, dx=0.25)  # radius 9.6 cm
+    s1 = linac_spectrum()
+    s1.rescale_counts(ct.A_iso * 9.0 / ct.N_proj)
+    s2 = kramers_spectrum(80.0)
+    s2.rescale_counts(ct.A_iso * 1.0 / ct.N_proj)
+    return ct, ph, s1, s2
+
+
+def _assert_outputs_close(got, want, keys=TOL):
+    for key in keys:
+        for i in range(2):
+            np.testing.assert_allclose(
+                np.asarray(got[key][i]), np.asarray(want[key][i]),
+                err_msg=f"{key}[{i}]", **TOL[key])
+
+
+def test_dect_step_matches_jax(small_de):
+    arrays, meta = j_pack(*small_de, 64, 24.0, 0.8, n_iters=20)
+    want = make_jitted_step(meta)(arrays)
+    a = t_fused.arrays_from_numpy(
+        {k: np.asarray(v) for k, v in arrays.items()}, "cpu")
+    m = t_fused.DectMeta(**{f: getattr(meta, f) for f in
+                            t_fused.DectMeta._fields if hasattr(meta, f)})
+    got = t_fused.dect_step(a, m)
+    _assert_outputs_close({k: tuple(x.numpy() for x in v)
+                           for k, v in got.items()}, want)
+
+
+def test_port_pack_matches_jax_pack(small_de):
+    """The port's own pack_dect gives the arrays and meta that
+    arrays_from_numpy makes of the JAX pack."""
+    arrays, meta = j_pack(*small_de, 64, 24.0, 0.8, n_iters=20,
+                          projector="siddon_dominant")
+    a, m = t_fused.pack_dect(*small_de, 64, 24.0, 0.8, n_iters=20,
+                             device="cpu", projector="siddon_dominant")
+    ref = t_fused.arrays_from_numpy(
+        {k: np.asarray(v) for k, v in arrays.items()}, "cpu")
+    assert set(a) == set(ref)
+    for k in a:
+        assert a[k].dtype == ref[k].dtype, k
+        torch.testing.assert_close(a[k], ref[k], rtol=0, atol=0)
+    for f in t_fused.DectMeta._fields:
+        if hasattr(meta, f):
+            assert getattr(m, f) == getattr(meta, f), f
+
+
+def test_composed_engine_matches_jax(small_de):
+    want = j_simulate(*small_de, 64, 24.0, 0.8, n_iters=20)
+    got = t_simulate(*small_de, 64, 24.0, 0.8, n_iters=20, device="cpu")
+    to_np = {k: tuple(None if x is None else x.numpy()
+                      for x in getattr(got, k)) for k in TOL}
+    _assert_outputs_close(to_np, {k: getattr(want, k) for k in TOL})
+
+
+def test_noise_is_seeded_and_compound(small_de):
+    a, m = t_fused.pack_dect(*small_de, 32, 24.0, 0.8, n_iters=4,
+                             device="cpu", noise="compound", seed=5)
+    o1, o2 = t_fused.dect_step(a, m), t_fused.dect_step(a, m)
+    o3 = t_fused.dect_step(a, m._replace(seed=6))
+    torch.testing.assert_close(o1["sino_raw"][1], o2["sino_raw"][1])
+    assert bool((o1["sino_raw"][1] != o3["sino_raw"][1]).any())
+    clean = t_fused.dect_step(a, m._replace(noise="none"))
+    rel = (o1["sino_raw"][1] / clean["sino_raw"][1] - 1.0).abs()
+    assert 1e-6 < float(rel.mean()) < 0.05  # noisy, not wild
+
+
+def _tiny_params(tmp_path):
+    """The verify recipe's config: 64^2 water cylinder, 64 x 64 sinogram."""
+    ph = water_cylinder_phantom(N=64, dx=0.4)
+    ph.to_file(str(tmp_path / "ph.bin"), str(tmp_path / "ph.csv"))
+    with open(os.path.join(REPO, "input", "params.txt")) as f:
+        cfg = json.load(f)
+    cfg.update({"RUN_ID": "tiny", "phantom_id": "water_cyl",
+                "phantom_filename": str(tmp_path / "ph.bin"),
+                "matcomp_filename": str(tmp_path / "ph.csv"),
+                "Nx": 64, "Ny": 64, "dx": 0.4, "dy": 0.4, "dz": 0.4,
+                "N_channels": 64, "N_projections": 64,
+                "detector_filename": os.path.join(REPO,
+                                                  cfg["detector_filename"]),
+                "N_recon_matrix": 64, "FOV_recon": 26.0})
+    path = tmp_path / "params.txt"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def test_both_clis_write_the_same_files(tmp_path):
+    from dexct_tpu.run import main as j_main
+    from dexct_tpu_torch.run import main as t_main
+
+    params = _tiny_params(tmp_path)
+    common = ["--params", str(params), "--iters", "8", "--projector",
+              "siddon", "--recon", "fan", "--spectrum-dir",
+              os.path.join(REPO, "input", "spectrum")]
+    j_main(common + ["--output", str(tmp_path / "jax")])
+    t_main(common + ["--output", str(tmp_path / "torch"), "--device", "cpu"])
+    files = sorted(p.relative_to(tmp_path / "jax")
+                   for p in (tmp_path / "jax").rglob("*.bin"))
+    assert len(files) == 12
+    assert files == sorted(p.relative_to(tmp_path / "torch")
+                           for p in (tmp_path / "torch").rglob("*.bin"))
+    for rel in files:
+        want = np.fromfile(tmp_path / "jax" / rel, np.float32)
+        got = np.fromfile(tmp_path / "torch" / rel, np.float32)
+        assert got.size == want.size
+        np.testing.assert_allclose(
+            got, want, err_msg=str(rel),
+            **FILE_TOL[rel.name[:-len("_float32.bin")]])
+    assert (tmp_path / "torch" / "tiny" / "params.txt").exists()
+
+
+def test_resume_and_composed_cli(tmp_path, capsys):
+    from dexct_tpu_torch.run import main as t_main
+
+    params = _tiny_params(tmp_path)
+    argv = ["--params", str(params), "--iters", "4", "--device", "cpu",
+            "--engine", "composed", "--output", str(tmp_path / "o")]
+    assert len(t_main(argv)) == 1
+    assert t_main(argv + ["--resume"]) == []
+    assert "skipping completed" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flags", [
+    ["--projector", "fourier"], ["--recon", "parallel"], ["--bhc"],
+    ["--denoise"]])
+def test_unported_choices_raise(tmp_path, flags):
+    from dexct_tpu_torch.run import main as t_main
+
+    params = _tiny_params(tmp_path)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_main(["--params", str(params), "--device", "cpu", "--output",
+                str(tmp_path / "o")] + flags)
+
+
+def test_cone_config_raises():
+    from dexct_tpu_torch.pipeline.runner import run_config
+    from dexct_tpu_torch.system import ConeBeamGeometry
+    from dexct_tpu_torch.system.config import RunConfig
+    from dexct_tpu_torch.system.phantom import water_cylinder_phantom as tw
+
+    cfg = RunConfig("c", True, True, ConeBeamGeometry(N_rows=4), tw(N=16),
+                    None, 16, 20.0, 0.8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_config(cfg, device="cpu")
+
+
+def test_port_never_imports_jax(tmp_path):
+    """Importing the port and running its CLI on the CPU leaves JAX and the
+    JAX package unimported."""
+    params = _tiny_params(tmp_path)
+    code = (
+        "import sys\n"
+        "import dexct_tpu_torch\n"
+        "from dexct_tpu_torch.run import main\n"
+        f"main(['--params', {str(params)!r}, '--iters', '2', '--device',"
+        f" 'cpu', '--output', {str(tmp_path / 'o')!r}])\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'dexct_tpu' or m.startswith('dexct_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "clean" in out.stdout

@@ -1,0 +1,112 @@
+"""The port's polyenergetic forward model (plain version on the CPU)
+against the JAX package's: counts rtol 1e-5, log sinogram, and noise by
+its statistics (PyTorch and JAX draw different numbers from one seed)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dexct_tpu.ops import spectral as j_sp
+from dexct_tpu_torch.ops import spectral as t_sp
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def tables():
+    rng = np.random.default_rng(0)
+    paths = rng.uniform(0.0, 8.0, (40, 30, 6)).astype(np.float32)
+    paths[0, 0] = 0.0  # an air ray
+    mu = rng.uniform(0.01, 1.5, (6, 140)).astype(np.float32)
+    i0 = rng.uniform(0.0, 1e7, 140).astype(np.float32)
+    return paths, mu, i0
+
+
+def test_counts_match_jax(tables):
+    paths, mu, i0 = tables
+    want = np.asarray(j_sp.counts_from_paths(
+        jnp.asarray(paths), jnp.asarray(mu), jnp.asarray(i0)))
+    got = t_sp.counts_from_paths(*(torch.as_tensor(x) for x in tables))
+    assert got.shape == (40, 30)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+    np.testing.assert_allclose(got[0, 0].item(), i0.astype(np.float64).sum(),
+                               rtol=1e-5)
+
+
+def test_second_table_shares_the_pass(tables):
+    paths, mu, i0 = (torch.as_tensor(x) for x in tables)
+    i2 = i0 * 70.0
+    c, v = t_sp.counts_from_paths(paths, mu, i0, i2)
+    torch.testing.assert_close(c, t_sp.counts_from_paths(paths, mu, i0))
+    torch.testing.assert_close(v, t_sp.counts_from_paths(paths, mu, i2))
+
+
+def test_log_sinogram_matches_jax():
+    counts = np.array([[1e10, 3.5e7], [2.0, 1.0]], np.float32)
+    want = np.asarray(j_sp.log_sinogram(jnp.asarray(counts), 2e10))
+    got = t_sp.log_sinogram(torch.as_tensor(counts), 2e10).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    # a zero count floors at 1e-30; 1e-30 / air is subnormal in float32,
+    # which XLA on the CPU flushes to 0 (giving inf) and PyTorch keeps
+    zero = t_sp.log_sinogram(torch.zeros(1), 2e10)
+    np.testing.assert_allclose(zero.numpy(), [np.log(2e10 / 1e-30)],
+                               rtol=1e-4)
+
+
+def test_forward_counts_matches_jax():
+    from dexct_tpu.physics import kramers_spectrum as jk
+    from dexct_tpu.system import FanBeamGeometry as JFan
+    from dexct_tpu.system import water_cylinder_phantom as jw
+    from dexct_tpu_torch.physics import kramers_spectrum as tk
+    from dexct_tpu_torch.system import FanBeamGeometry as TFan
+    from dexct_tpu_torch.system import water_cylinder_phantom as tw
+
+    paths = np.random.default_rng(1).uniform(0, 20, (8, 16, 2)).astype(
+        np.float32)
+    raw_j, log_j = j_sp.forward_counts(jnp.asarray(paths), jw(N=16),
+                                       jk(80.0), JFan(N_channels=16))
+    raw_t, log_t = t_sp.forward_counts(torch.as_tensor(paths), tw(N=16),
+                                       tk(80.0), TFan(N_channels=16))
+    np.testing.assert_allclose(raw_t.numpy(), np.asarray(raw_j), rtol=1e-5)
+    np.testing.assert_allclose(log_t.numpy(), np.asarray(log_j), atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["compound", "poisson", "gaussian"])
+def test_noise_statistics_match_jax(mode):
+    """Mean and variance of many draws, per model, against the JAX
+    sampler's; draws themselves differ by design."""
+    n = 200_000
+    mean = 4.0e4 if mode == "poisson" else 1.0e8
+    counts = np.full(n, mean, np.float32)
+    var = np.full(n, 50.0 * mean, np.float32)
+    got = t_sp.sample_noise(torch.Generator().manual_seed(0),
+                            torch.as_tensor(counts), mode,
+                            var=torch.as_tensor(var)).double().numpy()
+    ref = np.asarray(j_sp.sample_noise(jax.random.PRNGKey(0),
+                                       jnp.asarray(counts), mode,
+                                       var=jnp.asarray(var)), np.float64)
+    want_var = var[0] if mode == "compound" else mean
+    for draws in (got, ref):
+        # 5 standard errors of the mean and of the variance
+        assert abs(draws.mean() - mean) < 5 * np.sqrt(want_var / n)
+        assert abs(draws.var() / want_var - 1.0) < 5 * np.sqrt(2.0 / n)
+
+
+def test_noise_is_seeded():
+    c = torch.full((1000,), 50.0)
+    a = t_sp.sample_noise(torch.Generator().manual_seed(3), c, "poisson")
+    b = t_sp.sample_noise(torch.Generator().manual_seed(3), c, "poisson")
+    d = t_sp.sample_noise(torch.Generator().manual_seed(4), c, "poisson")
+    torch.testing.assert_close(a, b)
+    assert bool((a != d).any())
+    assert torch.equal(t_sp.sample_noise(None, c, "none"), c)
+    with pytest.raises(ValueError, match="compound"):
+        t_sp.sample_noise(torch.Generator(), c, "compound")

@@ -1,10 +1,12 @@
-"""Fan-beam filtered back-projection.
+"""Filtered back-projection, fan-beam and parallel-beam.
 
 Port of :mod:`dexct_tpu.ops.fbp`: cos(gamma) pre-weighting, FFT
 ramp/sinc filtering (``torch.fft``) and distance-weighted backprojection
 with linear channel interpolation (Kak & Slaney ch. 3.4, equiangular
 geometry).  The backprojection of one image is kernel K4 with K = 1
-(:func:`dexct_tpu_torch.ops.fbp_fast.fan_backproject_multi`).
+(:func:`dexct_tpu_torch.ops.fbp_fast.fan_backproject_multi`); a
+parallel-beam geometry backprojects through kernel K6 with K = 1
+(:func:`dexct_tpu_torch.ops.fbp_fast.parallel_backproject_multi`).
 """
 
 from __future__ import annotations
@@ -12,11 +14,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .fbp_fast import fan_backproject_multi, pack_filtered
+from .fbp_fast import (fan_backproject_multi, pack_filtered,
+                       parallel_backproject_multi)
 from .filters import filter_frequency_response
 
 __all__ = ["filter_sinogram", "filter_views", "fan_backproject",
-           "parker_weights", "fbp_recon", "hu_image"]
+           "parker_weights", "fbp_recon", "parallel_fbp", "hu_image"]
 
 
 def filter_views(sino, cos_w, H, fft_len, dgamma):
@@ -89,28 +92,54 @@ def hu_image(recon_raw, mu_water_eff):
 
 def fbp_recon(sino_log, geometry, n_matrix, fov, ramp=0.8, window="sinc",
               mu_water_eff=None):
-    """Full fan-beam FBP on the device of ``sino_log``: returns
-    (recon_raw [1/cm], recon_HU or None).  Parallel-beam and flying-focal-
-    spot geometries are not ported yet (ROADMAP queue 2)."""
-    if not hasattr(geometry, "dgamma"):  # parallel-beam geometries
-        raise NotImplementedError(
-            "parallel-beam FBP is not ported yet (ROADMAP queue 2, "
-            "parallel backprojection)")
-    if getattr(geometry, "ffs", "none") != "none":
+    """Full FBP on the device of ``sino_log``: returns (recon_raw [1/cm],
+    recon_HU or None).  Dispatches on the geometry: equiangular fan beam
+    (the reference's scanner) or parallel beam.  Flying-focal-spot
+    geometries are not ported yet (ROADMAP queue 2)."""
+    from ..system.geometry import ParallelBeamGeometry
+
+    if isinstance(geometry, ParallelBeamGeometry):
+        img = parallel_fbp(sino_log, geometry, n_matrix, fov, ramp, window)
+    elif getattr(geometry, "ffs", "none") != "none":
         raise NotImplementedError(
             "flying-focal-spot reconstruction is not ported yet (ROADMAP "
             "queue 2, ops/ffs.py rebin)")
-    sino_log = sino_log.to(torch.float32)
-    if geometry.rotation_total < 2.0 * np.pi - 1e-6:
-        sino_log = sino_log * torch.as_tensor(
-            parker_weights(geometry), dtype=torch.float32,
-            device=sino_log.device)
-    q = filter_sinogram(sino_log, geometry, ramp, window)
-    img = fan_backproject(
-        q, torch.as_tensor(geometry.betas, dtype=torch.float32,
-                           device=q.device),
-        float(geometry.SID), float(geometry.dgamma), int(n_matrix),
-        float(fov), dbeta=float(geometry.rotation_total) / geometry.N_proj)
+    else:
+        sino_log = sino_log.to(torch.float32)
+        if geometry.rotation_total < 2.0 * np.pi - 1e-6:
+            sino_log = sino_log * torch.as_tensor(
+                parker_weights(geometry), dtype=torch.float32,
+                device=sino_log.device)
+        q = filter_sinogram(sino_log, geometry, ramp, window)
+        img = fan_backproject(
+            q, torch.as_tensor(geometry.betas, dtype=torch.float32,
+                               device=q.device),
+            float(geometry.SID), float(geometry.dgamma), int(n_matrix),
+            float(fov),
+            dbeta=float(geometry.rotation_total) / geometry.N_proj)
     if mu_water_eff is None:
         return img, None
     return img, hu_image(img, mu_water_eff)
+
+
+def parallel_fbp(sino_log, geometry, n_matrix, fov, ramp=0.8,
+                 window="sinc"):
+    """Parallel-beam FBP over the geometry's angular coverage, on the
+    device of ``sino_log``; returns the [n_matrix, n_matrix] image."""
+    nt = geometry.N_channels
+    ds = geometry.ds
+    dev = sino_log.device
+    H, m = filter_frequency_response(nt, ds, ramp, window, "parallel")
+    q = filter_views(sino_log.to(torch.float32)[None],
+                     torch.ones(nt, dtype=torch.float32, device=dev),
+                     torch.as_tensor(H, dtype=torch.float32, device=dev), m,
+                     ds)
+    # each line is counted rotation_total/pi times over the scan
+    dtheta = float(geometry.rotation_total) / geometry.N_proj \
+        * (np.pi / geometry.rotation_total)
+    img = parallel_backproject_multi(
+        pack_filtered(q), 1,
+        torch.as_tensor(geometry.betas, dtype=torch.float32, device=dev),
+        float(geometry.s_positions[0]), float(ds), nt, int(n_matrix),
+        float(fov), dtheta)
+    return img[0]

@@ -1,17 +1,23 @@
 """The fused dual-energy pipeline step (``--engine fused``).
 
-Port of :mod:`dexct_tpu.pipeline.fused` for one device, the exact Siddon
-projector and direct fan-beam reconstruction: trace (K1) -> two
-polyenergetic acquisitions (K2) -> Gauss-Newton decomposition (K3) -> FBP
-of both single-energy images and both basis images through one packed
-4-image backprojection (K4).  ``pack_dect`` lowers the host system model to
-a dict of device tensors plus a hashable :class:`DectMeta`;
-:func:`dect_step` is a function of the two.  PyTorch runs eagerly, so there
-is no compiled program to cache.
+Port of :mod:`dexct_tpu.pipeline.fused` for one device: projection ->
+two polyenergetic acquisitions (K2) -> Gauss-Newton decomposition (K3) ->
+FBP of both single-energy images and both basis images through one packed
+4-image backprojection.  ``pack_dect`` lowers the host system model to a
+dict of device tensors plus a hashable :class:`DectMeta`; :func:`dect_step`
+is a function of the two.  PyTorch runs eagerly, so there is no compiled
+program to cache.
 
-``projector='siddon_dominant'`` runs the same exact per-ray kernel as
-``'siddon'``: on the card one per-ray walk replaces the TPU's whole
-packed-plan family, and its output is already in natural [V, C, M] order.
+Projectors: ``'fourier'`` (the default of the CLI) is the Fourier-slice
+projector (:mod:`dexct_tpu_torch.ops.fourier`: cuFFT, KB sampler K7, fan
+resample K8); ``'siddon'`` the exact trace K1.  ``'siddon_dominant'`` runs
+the same exact per-ray kernel as ``'siddon'``: on the card one per-ray walk
+replaces the TPU's whole packed-plan family, and its output is already in
+natural [V, C, M] order.
+
+Reconstructions: ``'parallel'`` (the default of the CLI) rebins the fan
+data to a (θ, t) parallel grid (K5), filters it and backprojects it over
+the FOV disc (K6); ``'fan'`` backprojects the fan data directly (K4).
 """
 
 from __future__ import annotations
@@ -24,14 +30,19 @@ import torch
 from ..ops import matdecomp as md_ops
 from ..ops import spectral as sp_ops
 from ..ops.fbp import filter_views, hu_image
-from ..ops.fbp_fast import fan_backproject_multi, pack_filtered
+from ..ops.fbp_fast import (fan_backproject_multi, pack_filtered,
+                             parallel_backproject_multi, parallel_rebin_plan,
+                             rebin_to_parallel)
 from ..ops.filters import filter_frequency_response
+from ..ops.fourier import (fourier_paths_from_arrays, plan_arrays,
+                           plan_fourier_projector)
 from ..ops.siddon import labels_tensor, trace_paths
 
 __all__ = ["DectMeta", "PROJECTORS", "pack_dect", "dect_step",
            "reconstruct_stack", "arrays_from_numpy", "check_choices"]
 
-PROJECTORS = ("siddon", "siddon_dominant")
+PROJECTORS = ("fourier", "siddon", "siddon_dominant")
+RECONS = ("parallel", "fan")
 
 # the arrays dect_step reads, with their dtypes
 _ARRAY_DTYPES = {
@@ -43,11 +54,26 @@ _ARRAY_DTYPES = {
     "dec_i0": torch.float32, "dec_mus": torch.float32,
     "filt_H": torch.float32, "cos_w": torch.float32,
 }
+# the arrays of the fourier projector and the parallel recon, present when
+# the meta selects them
+_OPTIONAL_DTYPES = {
+    "fp_deapod": torch.float32, "fp_slice_idx": torch.int32,
+    "fp_slice_w": torch.float32, "fp_phase_cos": torch.float32,
+    "fp_phase_sin": torch.float32, "fp_fan_idx": torch.int32,
+    "fp_fan_w": torch.float32,
+    "rb_idx": torch.int32, "rb_w": torch.float32,
+    "par_thetas": torch.float32, "par_H": torch.float32,
+}
 
 
 class DectMeta(NamedTuple):
     """Static parameters of a fused DE pipeline step (the fields of the JAX
-    package's ``DectMeta`` that this path reads, plus the noise seed)."""
+    package's ``DectMeta`` that this port reads, plus the noise seed).
+
+    ``par_sym`` is kept so that a JAX meta copies over field by field, and
+    selects nothing: in the JAX package it picks the symmetry-packed
+    parallel backprojectors, TPU gather-count layouts that compute the
+    image kernel K6 computes directly."""
 
     n_materials: int
     n_matrix: int
@@ -66,34 +92,39 @@ class DectMeta(NamedTuple):
     mask_thresh: float
     pixel_block: int
     projector: str = "siddon"
+    fp_meta: tuple = ()  # (n_materials, n_theta, nt, grid, n_img, scale)
     recon: str = "fan"
+    par_meta: tuple = ()  # (n_theta, nt, t0, dt, fft_len)
     noise: str = "none"  # 'none' | 'poisson' | 'gaussian' | 'compound'
+    par_sym: bool = True
     gn_warm_nodes: int = 32
     seed: int = 0
 
 
 def check_choices(projector, recon):
     """Raise for a projector or reconstruction this port does not run."""
-    if projector in ("fourier", "analytic"):
+    if projector == "analytic":
         raise NotImplementedError(
-            f"projector={projector!r} is not ported yet (ROADMAP queue 2: "
-            "Fourier-slice projector, then analytic projector)")
+            "projector='analytic' is not ported yet (ROADMAP queue 2: "
+            "analytic projector, the next slice)")
     if projector not in PROJECTORS:
         raise ValueError(f"unknown projector {projector!r}")
-    if recon == "parallel":
-        raise NotImplementedError(
-            "recon='parallel' is not ported yet (ROADMAP queue 2: "
-            "rebin_to_parallel and the parallel backprojector)")
-    if recon != "fan":
+    if recon not in RECONS:
         raise ValueError(f"unknown recon {recon!r}")
 
 
 def pack_dect(ct, phantom, spec1, spec2, n_matrix, fov, ramp, *, device,
               n_iters=50, window="sinc", mask_thresh=0.95,
-              pixel_block=65536, projector="siddon", recon="fan",
-              noise="none", seed=0):
+              pixel_block=65536, projector="siddon", n_theta=1024,
+              recon="fan", recon_n_theta=512, recon_nt=1024, noise="none",
+              seed=0):
     """Lower the system model to (arrays, meta) for :func:`dect_step`, with
-    every array on ``device``."""
+    every array on ``device``.
+
+    ``n_theta`` is the Fourier projector's angle count
+    (``projector='fourier'``); ``recon_n_theta`` x ``recon_nt`` is the
+    parallel grid of ``recon='parallel'``.  The plans are host float64
+    NumPy, built anew on each call."""
     from .api import effective_water_mu
 
     check_choices(projector, recon)
@@ -124,6 +155,28 @@ def pack_dect(ct, phantom, spec1, spec2, n_matrix, fov, ramp, *, device,
     arrays = {k: torch.as_tensor(np.asarray(v), dtype=_ARRAY_DTYPES[k],
                                  device=device) for k, v in host.items()}
     arrays["labels"] = labels_tensor(phantom, device)
+    fp_meta = ()
+    if projector == "fourier":
+        plan = plan_fourier_projector(phantom, ct, n_theta=n_theta,
+                                      device=device)
+        arrays.update(plan_arrays(plan, (ct.N_proj, ct.N_channels)))
+        fp_meta = (plan.n_materials, plan.n_theta, plan.nt, plan.grid,
+                   plan.n_img, plan.scale)
+    par_meta = ()
+    if recon == "parallel":
+        rb_idx, rb_w, par_t0, par_dt = parallel_rebin_plan(
+            ct, recon_n_theta, recon_nt)
+        Hp, mp = filter_frequency_response(recon_nt, par_dt, ramp, window,
+                                           "parallel")
+        par = {"rb_idx": rb_idx, "rb_w": rb_w,
+               "par_thetas": (np.arange(recon_n_theta)
+                              * (np.pi / recon_n_theta)),
+               "par_H": Hp}
+        arrays.update({k: torch.as_tensor(v, dtype=_OPTIONAL_DTYPES[k],
+                                          device=device)
+                       for k, v in par.items()})
+        par_meta = (recon_n_theta, recon_nt, float(par_t0), float(par_dt),
+                    int(mp))
     meta = DectMeta(
         n_materials=phantom.n_materials,
         n_matrix=int(n_matrix),
@@ -142,7 +195,9 @@ def pack_dect(ct, phantom, spec1, spec2, n_matrix, fov, ramp, *, device,
         mask_thresh=float(mask_thresh),
         pixel_block=int(pixel_block),
         projector=projector,
+        fp_meta=fp_meta,
         recon=recon,
+        par_meta=par_meta,
         noise=noise,
         seed=int(seed),
     )
@@ -152,10 +207,13 @@ def pack_dect(ct, phantom, spec1, spec2, n_matrix, fov, ramp, *, device,
 def arrays_from_numpy(arrays_np, device):
     """The JAX package's ``pack_dect`` arrays (as numpy) -> this port's
     tensor dict on ``device``, so both ``dect_step``s can run on identical
-    inputs.  Keys this path does not read are dropped; labels become uint8
-    after a range check."""
+    inputs.  The Fourier-projector and parallel-recon tables are carried
+    when present; keys this port does not read are dropped; labels become
+    uint8 after a range check."""
     out = {}
-    for k, dtype in _ARRAY_DTYPES.items():
+    for k, dtype in {**_ARRAY_DTYPES, **_OPTIONAL_DTYPES}.items():
+        if k not in _ARRAY_DTYPES and k not in arrays_np:
+            continue
         a = np.array(arrays_np[k])  # a writable copy
         if k == "labels" and a.size and (a.min() < 0 or a.max() > 255):
             raise ValueError("material labels must lie in 0..255")
@@ -165,15 +223,33 @@ def arrays_from_numpy(arrays_np, device):
 
 
 def reconstruct_stack(sinos, a, meta: DectMeta):
-    """Filter and fan-backproject a ``[K, V, C]`` sinogram stack through
-    the packed K-image backprojector; returns ``[K, n_matrix, n_matrix]``
-    in cm^-1."""
+    """FBP a ``[K, V, C]`` fan-sinogram stack through the pipeline's
+    reconstruction: ``recon='fan'`` filters and backprojects the fan data
+    (K4); ``'parallel'`` rebins it to the parallel grid (K5), filters, and
+    backprojects over the FOV disc (K6).  Returns ``[K, n_matrix,
+    n_matrix]`` in cm^-1."""
     check_choices(meta.projector, meta.recon)
+    n_img = sinos.shape[0]
+    if meta.recon == "parallel":
+        n_th, nt, par_t0, par_dt, par_m = meta.par_meta
+        par = rebin_to_parallel(sinos, a["rb_idx"], a["rb_w"], nt)
+        qs = filter_views(par, 1.0, a["par_H"], par_m, par_dt)
+        return parallel_backproject_multi(
+            pack_filtered(qs), n_img, a["par_thetas"], par_t0, par_dt, nt,
+            meta.n_matrix, meta.fov, np.pi / n_th)
     qs = filter_views(sinos, a["cos_w"], a["filt_H"], meta.fft_len,
                       meta.dgamma)
     return fan_backproject_multi(
-        pack_filtered(qs), sinos.shape[0], a["betas"], meta.sid,
-        meta.dgamma, sinos.shape[-1], meta.n_matrix, meta.fov, meta.dbeta)
+        pack_filtered(qs), n_img, a["betas"], meta.sid, meta.dgamma,
+        sinos.shape[-1], meta.n_matrix, meta.fov, meta.dbeta)
+
+
+def _project_paths(a, meta: DectMeta):
+    """Material paths [V, C, M] from the meta's projector."""
+    if meta.projector == "fourier":
+        return fourier_paths_from_arrays(a, a["labels"], meta.fp_meta)
+    return trace_paths(a["labels"], a["src"], a["dirs"], meta.dx, meta.dy,
+                       n_materials=meta.n_materials)
 
 
 def dect_step(arrays, meta: DectMeta):
@@ -182,8 +258,7 @@ def dect_step(arrays, meta: DectMeta):
     recon_HU and mat_recons, each a pair of tensors."""
     a = arrays
     check_choices(meta.projector, meta.recon)
-    paths = trace_paths(a["labels"], a["src"], a["dirs"], meta.dx, meta.dy,
-                        n_materials=meta.n_materials)
+    paths = _project_paths(a, meta)
     if meta.noise == "none":
         counts1 = sp_ops.counts_from_paths(paths, a["mu_t1"], a["i0_1"])
         counts2 = sp_ops.counts_from_paths(paths, a["mu_t2"], a["i0_2"])

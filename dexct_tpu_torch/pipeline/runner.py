@@ -4,9 +4,12 @@ Port of :mod:`dexct_tpu.pipeline.runner`: loops over the run configs of a
 params file and the dual-energy spectrum pairs, runs trace ->
 acquisitions -> decomposition -> reconstruction on ``device``, and writes
 the §2.6 output contract (flat float32 ``.bin`` files) with the same names
-and layout as the JAX package.  Choices that are not ported yet raise
-``NotImplementedError`` naming their ROADMAP item; none is replaced by
-another path.
+and layout as the JAX package.  As in the JAX runner, the fused engine
+runs the exact Siddon projector for a non-square phantom (the Fourier
+projector needs a square grid) and direct fan reconstruction for a partial
+rotation (rebinning needs a full one).  Choices that are not ported yet
+raise ``NotImplementedError`` naming their ROADMAP item; none is replaced
+by another path.
 """
 
 from __future__ import annotations
@@ -15,13 +18,15 @@ import dataclasses
 import os
 import time
 
+import numpy as np
 import torch
 
 from ..system.config import RunConfig, read_parameter_file
 from ..utils.io import StageWriter, acquisition_dir, matdecomp_dir
 from . import api
 
-__all__ = ["DEFAULT_SPEC_PAIRS", "run_config", "run_parameter_file"]
+__all__ = ["DEFAULT_SPEC_PAIRS", "fused_choices", "run_config",
+           "run_parameter_file"]
 
 # the reference's hardcoded protocol (main.py:101-102)
 DEFAULT_SPEC_PAIRS = (
@@ -85,8 +90,9 @@ def _check_supported(cfg, engine, projector, recon, bhc, denoise):
             "queue 1, item 10: 3-D)")
     if not isinstance(cfg.ct, FanBeamGeometry):
         raise NotImplementedError(
-            f"{type(cfg.ct).__name__} is not ported yet (ROADMAP queue 2, "
-            "parallel backprojection)")
+            f"run configs with a {type(cfg.ct).__name__} are not ported yet "
+            "(ROADMAP queue 1, item 5: the composed path of other "
+            "geometries)")
     if getattr(cfg.ct, "ffs", "none") != "none":
         raise NotImplementedError(
             "flying-focal-spot scans are not ported yet (ROADMAP queue 2, "
@@ -101,10 +107,22 @@ def _check_supported(cfg, engine, projector, recon, bhc, denoise):
         check_choices(projector, recon)
 
 
+def fused_choices(cfg, projector, recon):
+    """The JAX runner's downgrades of the fused path's choices for a
+    config: ``fourier`` becomes ``siddon`` for a non-square phantom grid,
+    ``parallel`` becomes ``fan`` for a partial rotation."""
+    if projector == "fourier" and cfg.phantom.Nx != cfg.phantom.Ny:
+        projector = "siddon"
+    if recon == "parallel" and abs(
+            cfg.ct.rotation_total - 2.0 * np.pi) > 1e-3:
+        recon = "fan"
+    return projector, recon
+
+
 def run_config(cfg: RunConfig, *, out_dir="./output", spec_pairs=None,
                spectrum_dir="./input/spectrum", noise="none", seed=0,
                n_iters=50, param_file=None, verbose=True, bhc=False,
-               engine="fused", projector="siddon", recon="fan",
+               engine="fused", projector="fourier", recon="parallel",
                resume=False, denoise=False, device="cuda"):
     """Execute one run config over its DE spectrum pairs (main.py:90-178)
     on ``device``.
@@ -115,6 +133,7 @@ def run_config(cfg: RunConfig, *, out_dir="./output", spec_pairs=None,
     come from a ``torch.Generator`` seeded with ``seed``.
     """
     _check_supported(cfg, engine, projector, recon, bhc, denoise)
+    projector, recon = fused_choices(cfg, projector, recon)
     device = torch.device(device)
     pairs = spec_pairs or DEFAULT_SPEC_PAIRS
     writer = StageWriter(out_dir, cfg.run_id, param_file)

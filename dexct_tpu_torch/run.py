@@ -1,11 +1,13 @@
 """CLI: ``python -m dexct_tpu_torch.run --params ./input/params.txt``.
 
-The PyTorch port of ``python -m dexct_tpu.run``: the same flags and the
-same output tree, plus ``--device``.  This port runs the exact Siddon
-projector with direct fan-beam reconstruction, so those are the defaults;
-``--projector fourier``, ``--recon parallel``, ``--bhc``, ``--denoise`` and
-cone/helical configs raise ``NotImplementedError`` naming their ROADMAP
-item.  Float32 matrix products run in full float32 on the card
+The PyTorch port of ``python -m dexct_tpu.run``: the same flags, the same
+defaults and the same output tree, plus ``--device``.  The default path is
+the JAX CLI's: the Fourier-slice projector with rebinned parallel-beam
+reconstruction (``--projector fourier --recon parallel``); ``--projector
+siddon --recon fan`` runs the exact trace with direct fan-beam
+reconstruction.  ``--bhc``, ``--denoise`` and cone/helical configs raise
+``NotImplementedError`` naming their ROADMAP item.  Float32 matrix products
+run in full float32 on the card
 (``torch.backends.cuda.matmul.allow_tf32 = False``, set by ``main``).
 """
 
@@ -54,11 +56,16 @@ def main(argv=None):
                    default="fused")
     p.add_argument("--projector",
                    choices=["fourier", "siddon", "siddon_dominant"],
-                   default="siddon",
-                   help="siddon_dominant runs the same exact per-ray "
-                   "kernel as siddon; fourier is not ported yet")
-    p.add_argument("--recon", choices=["parallel", "fan"], default="fan",
-                   help="parallel is not ported yet")
+                   default="fourier",
+                   help="fourier: Fourier-slice projector (square phantoms; "
+                   "others run siddon); siddon: exact trace; "
+                   "siddon_dominant runs the same exact per-ray kernel as "
+                   "siddon")
+    p.add_argument("--recon", choices=["parallel", "fan"],
+                   default="parallel",
+                   help="parallel: rebinned parallel-beam FBP (full "
+                   "rotations; partial ones run fan); fan: direct fan-beam "
+                   "FBP")
     p.add_argument("--recon3d",
                    choices=["auto", "fdk", "helical", "katsevich"],
                    default="auto",

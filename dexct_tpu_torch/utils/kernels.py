@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of the port.
 
 The CUDA C++ sources live in ``dexct_tpu_torch/csrc/*.cu``.  They expose a
-plain C interface and are compiled by ``nvcc`` for Hopper (``sm_90a``) into
-one shared library that is loaded with :mod:`ctypes`.  The build runs at the
+plain C interface and are compiled by ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` process per source, all started together, and linked into one
+shared library that is loaded with :mod:`ctypes`.  The build runs at the
 first kernel launch of a process, never at import, into
 ``dexct_tpu_torch/_build/`` (listed in ``.gitignore``).  The library name
 carries a hash of the sources and flags, so an edited source is rebuilt and a
@@ -24,16 +25,17 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["build", "library", "check", "stream_ptr"]
+__all__ = ["build", "library", "check", "require", "stream_ptr"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("siddon_trace.cu", "gauss_newton.cu", "fan_backproject.cu")
-# no --use_fast_math: the trace's plane crossings and the backprojector's
-# atan2/sin/cos feed 1e-4 parity tolerances
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+SOURCES = ("siddon_trace.cu", "gauss_newton.cu", "fan_backproject.cu",
+           "gather_taps.cu", "parallel_backproject.cu", "kb_sample.cu")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+# no --use_fast_math: the trace's plane crossings and the backprojectors'
+# edge tests feed 1e-4 parity tolerances
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,6 +56,16 @@ _SIGNATURES = {
     # dbeta, stream
     "dexct_fan_backproject": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
                               _F, _F, _P),
+    # sinos, idx, w, out, n_bins, K, n_src, taps, stream
+    "dexct_rebin_to_parallel": (_P, _P, _P, _P, _L, _I, _L, _I, _P),
+    # radon, idx, w, out, n_rays, M, n_src, stream
+    "dexct_resample_to_fan": (_P, _P, _P, _P, _L, _I, _L, _P),
+    # packed, cos_t, sin_t, mask, out, n_images, n_theta, nt, N, px, half,
+    # t0, dt, dtheta, stream
+    "dexct_parallel_backproject": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                   _F, _F, _F, _F, _P),
+    # F, base, w, phase_cos, phase_sin, out, S, M, G, stream
+    "dexct_kb_sample": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 
@@ -84,15 +96,27 @@ def build():
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, s[:-len(".cu")] + ".o") for s in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for src, obj in zip(SOURCES, objs)]
+        errors = []
+        for src, proc in zip(SOURCES, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{src} ({proc.returncode}):\n{err}")
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        so = os.path.join(tmp, lib.name)
+        proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", so, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stderr}")
+        os.replace(so, lib)  # atomic: a concurrent build never sees half a file
     return lib
 
 
@@ -112,6 +136,23 @@ def check(rc, name):
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError_t {rc}")
+
+
+def require(t, name, device, dtype, shape=None):
+    """Return ``t`` after checking that it is a contiguous ``dtype`` tensor
+    on ``device`` (and of ``shape``, when given); raise ``ValueError``
+    otherwise.  Kernel wrappers call it on every tensor whose pointer they
+    pass."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    return t
 
 
 def stream_ptr(device):

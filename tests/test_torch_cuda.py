@@ -1,4 +1,4 @@
-"""Hand-written kernels K1-K4 against their plain PyTorch versions, on the
+"""Hand-written kernels K1-K8 against their plain PyTorch versions, on the
 card.
 
 Every test here needs a CUDA device and skips without one.  This file
@@ -14,8 +14,13 @@ import numpy as np
 import pytest
 import torch
 
-from dexct_tpu_torch.ops.fbp_fast import (fan_backproject_multi,
-                                          fan_backproject_multi_plain)
+from dexct_tpu_torch.ops.fbp_fast import (
+    fan_backproject_multi, fan_backproject_multi_plain,
+    parallel_backproject_multi, parallel_backproject_multi_plain,
+    rebin_to_parallel, rebin_to_parallel_plain)
+from dexct_tpu_torch.ops.fourier import (kb_sample, kb_sample_plain,
+                                         resample_to_fan,
+                                         resample_to_fan_plain)
 from dexct_tpu_torch.ops.matdecomp import (gauss_newton_solve,
                                             prepare_decomposition)
 from dexct_tpu_torch.ops.siddon import trace_paths, trace_paths_plain
@@ -123,7 +128,103 @@ def test_fan_backproject_matches_plain(dev):
     assert float((got - want).abs().max()) <= 1e-5 * scale
 
 
-def test_dect_step_cuda_matches_cpu(dev):
+@pytest.mark.parametrize("taps", [8, 16])
+def test_rebin_to_parallel_matches_plain(dev, taps):
+    rng = np.random.default_rng(5)
+    V, C, nth, nt = 90, 96, 48, 128
+    sinos = torch.as_tensor(rng.normal(size=(4, V, C)), dtype=torch.float32,
+                            device=dev)
+    first = rng.integers(0, V * C, (nth * nt, taps // 2))
+    first[:3, 0] = V * C - 1  # the pair wraps to element 0
+    idx = np.repeat(first, 2, axis=1).reshape(-1).astype(np.int32)
+    w = rng.uniform(0, 1, idx.size).astype(np.float32)
+    args = (sinos, torch.as_tensor(idx, device=dev),
+            torch.as_tensor(w, device=dev), nt)
+    before = rebin_to_parallel.launches
+    got = rebin_to_parallel(*args, taps=taps)
+    torch.cuda.synchronize()
+    assert rebin_to_parallel.launches == before + 1
+    torch.testing.assert_close(got, rebin_to_parallel_plain(*args, taps=taps),
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("fov_mask", [True, False])
+def test_parallel_backproject_matches_plain(dev, fov_mask):
+    from dexct_tpu_torch.ops.fbp_fast import pack_filtered
+
+    rng = np.random.default_rng(6)
+    nth, nt, N, fov = 64, 96, 61, 20.0
+    dt = 1.2 * fov / nt
+    qs = torch.as_tensor(rng.normal(size=(4, nth, nt)), dtype=torch.float32,
+                         device=dev)
+    th = torch.arange(nth, dtype=torch.float32, device=dev) * (np.pi / nth)
+    args = (pack_filtered(qs), 4, th, -0.5 * nt * dt + 0.5 * dt, dt, nt, N,
+            fov, np.pi / nth)
+    before = parallel_backproject_multi.launches
+    got = parallel_backproject_multi(*args, fov_mask=fov_mask)
+    torch.cuda.synchronize()
+    assert parallel_backproject_multi.launches == before + 1
+    want = parallel_backproject_multi_plain(*args, fov_mask=fov_mask)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_kb_sample_matches_plain(dev):
+    from dexct_tpu_torch.ops.fourier import plan_fourier_projector
+    from dexct_tpu_torch.system import FanBeamGeometry, water_cylinder_phantom
+
+    plan = plan_fourier_projector(water_cylinder_phantom(N=64, dx=0.4),
+                                  FanBeamGeometry(N_channels=80, N_proj=48),
+                                  n_theta=96, device=dev)
+    rng = np.random.default_rng(7)
+    G = plan.grid
+    F = torch.complex(*(torch.as_tensor(rng.normal(size=(6, G, G)),
+                                        dtype=torch.float32, device=dev)
+                        for _ in range(2)))
+    args = (F, plan.slice_idx, plan.slice_w, plan.phase_cos, plan.phase_sin)
+    before = kb_sample.launches
+    got = kb_sample(*args)
+    torch.cuda.synchronize()
+    assert kb_sample.launches == before + 1
+    want = kb_sample_plain(*args)
+    assert got.dtype == torch.complex64 and got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_resample_to_fan_matches_plain(dev):
+    rng = np.random.default_rng(8)
+    M, nth, nt, V, C = 6, 64, 128, 40, 50
+    radon = torch.as_tensor(rng.normal(size=(M, nth, nt)),
+                            dtype=torch.float32, device=dev)
+    idx = torch.as_tensor(rng.integers(0, nth * nt, (V, C * 4)),
+                          dtype=torch.int32, device=dev)
+    w = torch.as_tensor(rng.uniform(0, 1, (V, C * 4)), dtype=torch.float32,
+                        device=dev)
+    before = resample_to_fan.launches
+    got = resample_to_fan(radon, idx, w, (V, C, M))
+    torch.cuda.synchronize()
+    assert resample_to_fan.launches == before + 1
+    torch.testing.assert_close(got, resample_to_fan_plain(radon, idx, w,
+                                                          (V, C, M)),
+                               atol=1e-5, rtol=0)
+
+
+def test_wrappers_refuse_mismatched_tensors(dev):
+    """A kernel wrapper raises, and launches nothing, for a table on the
+    wrong device or of the wrong dtype."""
+    sinos = torch.zeros((2, 4, 8), device=dev)
+    idx = torch.zeros(8 * 4, dtype=torch.int32)
+    w = torch.zeros(8 * 4, device=dev)
+    before = rebin_to_parallel.launches
+    with pytest.raises(ValueError, match="idx is on cpu"):
+        rebin_to_parallel(sinos, idx, w, 4)
+    with pytest.raises(ValueError, match="dtype"):
+        rebin_to_parallel(sinos, idx.to(dev, torch.int64), w, 4)
+    assert rebin_to_parallel.launches == before
+
+
+@pytest.mark.parametrize("projector,recon", [("siddon", "fan"),
+                                             ("fourier", "parallel")])
+def test_dect_step_cuda_matches_cpu(dev, projector, recon):
     from dexct_tpu_torch.physics import kramers_spectrum, linac_spectrum
     from dexct_tpu_torch.pipeline.fused import dect_step, pack_dect
     from dexct_tpu_torch.system import FanBeamGeometry, water_cylinder_phantom
@@ -134,7 +235,9 @@ def test_dect_step_cuda_matches_cpu(dev):
     s1.rescale_counts(ct.A_iso * 9.0 / ct.N_proj)
     s2.rescale_counts(ct.A_iso * 1.0 / ct.N_proj)
     outs = [dect_step(*pack_dect(ct, ph, s1, s2, 64, 24.0, 0.8, n_iters=20,
-                                 device=d)) for d in (dev, "cpu")]
+                                 device=d, projector=projector, recon=recon,
+                                 n_theta=128, recon_n_theta=64,
+                                 recon_nt=256)) for d in (dev, "cpu")]
     gpu, cpu = outs
     tol = {"sino_raw": dict(rtol=1e-4, atol=0),
            "mat_sinos": dict(rtol=0, atol=1e-3),

@@ -87,12 +87,8 @@ def test_fbp_recon_matches_jax(sinos, rotation):
 
 
 def test_unported_geometries_raise(sinos):
-    from dexct_tpu_torch.system import ParallelBeamGeometry
-
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_fbp.fbp_recon(torch.as_tensor(sinos[0]),
-                        ParallelBeamGeometry(N_channels=96, N_proj=90), 64,
-                        24.0)
+    """Flying-focal-spot scans raise; parallel-beam FBP runs
+    (tests/test_torch_parallel_recon.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_fbp.fbp_recon(torch.as_tensor(sinos[0]),
                         TFan(**dict(GEOM, N_proj=90), ffs="inplane"), 64,

@@ -1,8 +1,10 @@
-"""The port's main path as a whole against the JAX package's, on the CPU:
-the fused step on identical packed inputs, the composed engine, and both
-CLIs writing the §2.6 files.  Tolerances as in tests/test_pipeline.py:
-sino_raw rtol 1e-4, mat_sinos atol 1e-3, recon_raw atol 1e-4,
-mat_recons atol 1e-3 (and recon_HU atol 1 HU, sino_log atol 1e-4)."""
+"""The port's main paths as a whole against the JAX package's, on the CPU:
+the fused step on identical packed inputs under every projector and
+reconstruction pairing, the composed engine, both CLIs writing the §2.6
+files (default and exact flags), and the runner's downgrades.  Tolerances
+as in tests/test_pipeline.py: sino_raw rtol 1e-4, mat_sinos atol 1e-3,
+recon_raw atol 1e-4, mat_recons atol 1e-3 (and recon_HU atol 1 HU,
+sino_log atol 1e-4)."""
 
 import json
 import os
@@ -64,8 +66,16 @@ def _assert_outputs_close(got, want, keys=TOL):
                 err_msg=f"{key}[{i}]", **TOL[key])
 
 
-def test_dect_step_matches_jax(small_de):
-    arrays, meta = j_pack(*small_de, 64, 24.0, 0.8, n_iters=20)
+# small Fourier and parallel grids for the 96^2 phantom and 96 x 128 scan
+PLAN_KW = dict(n_theta=128, recon_n_theta=64, recon_nt=256)
+CHOICES = [("siddon", "fan"), ("fourier", "parallel"), ("fourier", "fan"),
+           ("siddon", "parallel")]
+
+
+@pytest.mark.parametrize("projector,recon", CHOICES)
+def test_dect_step_matches_jax(small_de, projector, recon):
+    arrays, meta = j_pack(*small_de, 64, 24.0, 0.8, n_iters=20,
+                          projector=projector, recon=recon, **PLAN_KW)
     want = make_jitted_step(meta)(arrays)
     a = t_fused.arrays_from_numpy(
         {k: np.asarray(v) for k, v in arrays.items()}, "cpu")
@@ -76,13 +86,16 @@ def test_dect_step_matches_jax(small_de):
                            for k, v in got.items()}, want)
 
 
-def test_port_pack_matches_jax_pack(small_de):
+@pytest.mark.parametrize("projector,recon",
+                         CHOICES + [("siddon_dominant", "fan")])
+def test_port_pack_matches_jax_pack(small_de, projector, recon):
     """The port's own pack_dect gives the arrays and meta that
     arrays_from_numpy makes of the JAX pack."""
     arrays, meta = j_pack(*small_de, 64, 24.0, 0.8, n_iters=20,
-                          projector="siddon_dominant")
+                          projector=projector, recon=recon, **PLAN_KW)
     a, m = t_fused.pack_dect(*small_de, 64, 24.0, 0.8, n_iters=20,
-                             device="cpu", projector="siddon_dominant")
+                             device="cpu", projector=projector, recon=recon,
+                             **PLAN_KW)
     ref = t_fused.arrays_from_numpy(
         {k: np.asarray(v) for k, v in arrays.items()}, "cpu")
     assert set(a) == set(ref)
@@ -90,7 +103,10 @@ def test_port_pack_matches_jax_pack(small_de):
         assert a[k].dtype == ref[k].dtype, k
         torch.testing.assert_close(a[k], ref[k], rtol=0, atol=0)
     for f in t_fused.DectMeta._fields:
-        if hasattr(meta, f):
+        # siddon_dominant's JAX fp_meta describes its TPU ray plan, which
+        # the port's one per-ray kernel has no use for
+        if hasattr(meta, f) and not (f == "fp_meta"
+                                     and projector == "siddon_dominant"):
             assert getattr(m, f) == getattr(meta, f), f
 
 
@@ -133,14 +149,17 @@ def _tiny_params(tmp_path):
     return path
 
 
-def test_both_clis_write_the_same_files(tmp_path):
+@pytest.mark.parametrize("flags", [[], ["--projector", "siddon", "--recon",
+                                        "fan"]], ids=["defaults", "exact"])
+def test_both_clis_write_the_same_files(tmp_path, flags):
+    """With no flags both CLIs run the Fourier projector and the rebinned
+    parallel recon; with the exact flags, the Siddon trace and fan FBP."""
     from dexct_tpu.run import main as j_main
     from dexct_tpu_torch.run import main as t_main
 
     params = _tiny_params(tmp_path)
-    common = ["--params", str(params), "--iters", "8", "--projector",
-              "siddon", "--recon", "fan", "--spectrum-dir",
-              os.path.join(REPO, "input", "spectrum")]
+    common = ["--params", str(params), "--iters", "8", "--spectrum-dir",
+              os.path.join(REPO, "input", "spectrum")] + flags
     j_main(common + ["--output", str(tmp_path / "jax")])
     t_main(common + ["--output", str(tmp_path / "torch"), "--device", "cpu"])
     files = sorted(p.relative_to(tmp_path / "jax")
@@ -170,15 +189,83 @@ def test_resume_and_composed_cli(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--projector", "fourier"], ["--recon", "parallel"], ["--bhc"],
+    ["--projector", "fourier", "--recon", "fan"],
+    ["--projector", "siddon", "--recon", "parallel"], ["--bhc"],
     ["--denoise"]])
 def test_unported_choices_raise(tmp_path, flags):
+    """--bhc and --denoise raise naming their ROADMAP item; the Fourier
+    projector and the parallel recon, once unported, now run (here each
+    beside the other path's choice) and write the 12 files."""
     from dexct_tpu_torch.run import main as t_main
 
     params = _tiny_params(tmp_path)
+    argv = ["--params", str(params), "--device", "cpu", "--iters", "4",
+            "--output", str(tmp_path / "o")] + flags
+    if "--projector" not in flags:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            t_main(argv)
+        return
+    (res,) = t_main(argv)
+    assert bool(torch.isfinite(res.dect.recon_raw[0]).all())
+    assert len(list((tmp_path / "o").rglob("*.bin"))) == 12
+
+
+def test_analytic_projector_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_main(["--params", str(params), "--device", "cpu", "--output",
-                str(tmp_path / "o")] + flags)
+        t_fused.check_choices("analytic", "parallel")
+
+
+def _runner_cfg(kind):
+    from dexct_tpu_torch.system import FanBeamGeometry as TFan
+    from dexct_tpu_torch.system.config import RunConfig
+    from dexct_tpu_torch.system.phantom import water_cylinder_phantom as tw
+
+    ph = tw(N=32, dx=0.6)
+    ct = TFan(N_channels=48, N_proj=40, gamma_fan=0.8230337, SID=60.0,
+              SDD=100.0, eid=True)
+    if kind == "non_square":
+        ph.labels = np.ascontiguousarray(ph.labels[:, :, 2:-2])
+    else:
+        ct = TFan(N_channels=48, N_proj=40, gamma_fan=0.8230337, SID=60.0,
+                  SDD=100.0, eid=True, rotation_total=np.pi + 1.0)
+    return RunConfig(kind, True, True, ct, ph, None, 32, 20.0, 0.8)
+
+
+@pytest.mark.parametrize("kind,want", [
+    ("non_square", ("siddon", "parallel")),
+    ("partial_rotation", ("fourier", "fan"))])
+def test_runner_downgrades_like_jax(tmp_path, kind, want):
+    """The JAX runner's rules: fourier needs a square phantom grid and
+    parallel a full rotation; otherwise the default runs siddon / fan, and
+    the run equals one with those choices given."""
+    from dexct_tpu_torch.pipeline.runner import fused_choices, run_config
+
+    cfg = _runner_cfg(kind)
+    assert fused_choices(cfg, "fourier", "parallel") == want
+    assert fused_choices(cfg, "siddon", "fan") == ("siddon", "fan")
+    with pytest.raises(ValueError):  # what the downgrade avoids
+        t_fused.pack_dect(cfg.ct, cfg.phantom, *_spectra(cfg.ct), 32, 20.0,
+                          0.8, device="cpu", projector="fourier",
+                          recon="parallel")
+    kw = dict(device="cpu", n_iters=4, verbose=False,
+              spectrum_dir=os.path.join(REPO, "input", "spectrum"))
+    (got,) = run_config(cfg, out_dir=str(tmp_path / "a"), **kw)
+    (ref,) = run_config(cfg, out_dir=str(tmp_path / "b"), projector=want[0],
+                        recon=want[1], **kw)
+    for key in ("sino_raw", "mat_sinos", "recon_raw"):
+        for i in range(2):
+            torch.testing.assert_close(getattr(got.dect, key)[i],
+                                       getattr(ref.dect, key)[i], rtol=0,
+                                       atol=0)
+
+
+def _spectra(ct):
+    from dexct_tpu_torch.physics import kramers_spectrum, linac_spectrum
+
+    s1, s2 = linac_spectrum(), kramers_spectrum(80.0)
+    s1.rescale_counts(ct.A_iso * 9.0 / ct.N_proj)
+    s2.rescale_counts(ct.A_iso * 1.0 / ct.N_proj)
+    return s1, s2
 
 
 def test_cone_config_raises():
@@ -194,8 +281,9 @@ def test_cone_config_raises():
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Importing the port and running its CLI on the CPU leaves JAX and the
-    JAX package unimported."""
+    """Importing the port and running its CLI's default path (Fourier
+    projector, parallel recon) on the CPU leaves JAX and the JAX package
+    unimported."""
     params = _tiny_params(tmp_path)
     code = (
         "import sys\n"

@@ -7,26 +7,36 @@ Needs one CUDA device, the CUDA toolkit (nvcc) and Triton; imports nothing
 of JAX.  Phases, each of which raises on failure:
 
 1. Device: the card's name and power limit (nvidia-smi).
-2. Build: nvcc builds kernels K1 and K3-K8 from ``dexct_tpu_torch/csrc``
+2. Build: nvcc builds kernels K1, K3-K12 from ``dexct_tpu_torch/csrc``
    (one nvcc per source, all at once); Triton compiles K2.
 3. Each kernel against its plain PyTorch version on the card, on the
-   inputs its path gives it at the reference protocol
+   inputs its path gives it, with the error, both times, the kernel's
+   bound (the larger of its bytes over 3.35 TB/s and its float32
+   operations over 67 TFLOP/s, counted from this run's inputs) and, where
+   one PyTorch call computes the same function, that call's time: K1-K4 on
+   the exact path and K5-K8 on the default path at the reference protocol
    (``input/params.txt``: 256^2 pelvis, 1000 views x 800 channels, 50 GN
-   iterations, four 512^2 images), with the error and both times: K1-K4
-   on the exact path (``--projector siddon --recon fan``), K5-K8 on the
-   default path (``--projector fourier --recon parallel``: Fourier plan
-   n_theta 1024, parallel grid 512 x 1024), where K2 and K3 are held
-   against their plain versions again on the Fourier paths.
-4. Both paths through ``dexct_tpu_torch.run.main`` on
-   ``input/params.txt``: the default path (no projector or recon flags)
-   twice, then the exact path twice (each second call is steady state).
-   Every launch counter is set to 0 just before a path and read just after
-   it: each kernel of the path must have launched, and no kernel of the
-   other path.  Each path's §2.6 files are checked (exact byte sizes,
-   finite values, air ~ -1000 HU).
+   iterations, four 512^2 images); K9 on the same fan rays through
+   ``pelvis_analytic()``; K10 and K11 on the cone config (360 views x 16
+   rows x 256 channels through a 256^2 x 32 pelvis, 16 slices of 256^2);
+   K12 on the helical one (720 views over two turns, pitch 3 cm, through
+   a 256^2 x 48 pelvis, 19 slices); K2 and K3 once more on each 3-D
+   config's own [V, R, C, M] paths and counts, timed apart.
+4. The paths: the default and the exact path through
+   ``dexct_tpu_torch.run.main`` on ``input/params.txt``, then the cone and
+   the helical config through the same CLI, each twice (the second call is
+   steady state), and the analytic projector through the library
+   (``pack_dect(projector='analytic', recon='parallel')`` + ``dect_step``
+   on the reference protocol with ``pelvis_analytic()``), twice.  Every
+   launch counter is set to 0 just before a path and read just after it:
+   each kernel of the path must have launched, and no other.  Each path's
+   outputs are checked (exact sizes, finite values, air ~ -1000 HU), and
+   the 3-D paths' stages are timed once more (spectra, pack with
+   ``ray_geometry_3d`` apart, step, writes) with the device's busy share
+   inside the step.
 5. A 64^2 config through the port on ``--device cpu`` and ``--device
-   cuda`` under both flag sets; every output file agrees to the pipeline
-   tolerances.
+   cuda`` under both 2-D flag sets, and a tiny cone and a tiny helical
+   config; every output file agrees to the pipeline tolerances.
 
 The last two lines of standard output are the kernels' JSON record and the
 device JSON line.
@@ -70,16 +80,49 @@ KERNELS = {
     "resample_to_fan": ("cuda", "dexct_tpu_torch/csrc/gather_taps.cu",
                         "dexct_tpu/ops/fourier.py:397",
                         "max abs <= 1e-5 x max |plain|"),
+    "analytic_chords": ("cuda", "dexct_tpu_torch/csrc/analytic_chords.cu",
+                        "dexct_tpu/system/analytic.py:81",
+                        "max abs <= 1e-5 x max path"),
+    "siddon_trace_3d": ("cuda", "dexct_tpu_torch/csrc/siddon_trace_3d.cu",
+                        "dexct_tpu/ops/conebeam.py:1162",
+                        "max abs <= 1e-4 cm"),
+    "fdk_backproject": ("cuda", "dexct_tpu_torch/csrc/cone_backproject.cu",
+                        "dexct_tpu/ops/conebeam.py:1879",
+                        "max abs <= 1e-4 x max |plain|"),
+    "helical_backproject": ("cuda",
+                            "dexct_tpu_torch/csrc/cone_backproject.cu",
+                            "dexct_tpu/ops/conebeam.py:413",
+                            "max abs <= 1e-4 x max |plain|"),
 }
-# the CLI flags of each path and the kernels it launches
+# the CLI paths: flags, whether the params file is a 3-D config, and the
+# kernels each launches
 PATHS = {
-    "default": ([], ("kb_sample", "resample_to_fan", "spectral_counts",
-                     "gauss_newton", "rebin_to_parallel",
-                     "parallel_backproject")),
-    "exact": (["--projector", "siddon", "--recon", "fan"],
+    "default": ([], None, ("kb_sample", "resample_to_fan", "spectral_counts",
+                           "gauss_newton", "rebin_to_parallel",
+                           "parallel_backproject")),
+    "exact": (["--projector", "siddon", "--recon", "fan"], None,
               ("siddon_trace", "spectral_counts", "gauss_newton",
                "fan_backproject")),
+    "cone": ([], "cone", ("siddon_trace_3d", "spectral_counts",
+                          "gauss_newton", "fdk_backproject")),
+    "helical": ([], "helical", ("siddon_trace_3d", "spectral_counts",
+                                "gauss_newton", "helical_backproject")),
 }
+ANALYTIC_KERNELS = ("analytic_chords", "spectral_counts", "gauss_newton",
+                    "rebin_to_parallel", "parallel_backproject")
+# the repo's own cone configurations (tools/bench_r3c.py:60-69,
+# tools/bench_helical.py:62-66) as params-file entries
+CONE_CONFIGS = {
+    "cone": dict(scanner_geometry="cone_beam", N_projections=360,
+                 phantom_nz=32),
+    "helical": dict(scanner_geometry="helical_cone_beam", N_projections=720,
+                    rotation_angle_total=4.0 * 3.141592653589793, pitch=3.0,
+                    phantom_nz=48),
+}
+# one H100 SXM (NVIDIA's data sheet): HBM3 rate and float32 peak outside
+# the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
 
 
 def fail(msg):
@@ -115,20 +158,57 @@ def compare(kernel_fn, plain_fn, reps):
     return got, want, sum(tk) / 2, sum(tp) / 2
 
 
-def report(records, name, err, ms, plain_ms, ok, extra=""):
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, n_ops):
+    """The least time [ms] the card could take: the larger of the bytes
+    over the memory rate and the float32 operations over the peak rate."""
+    t_bytes = float(n_bytes) / PEAK_BYTES_S * 1e3
+    t_ops = float(n_ops) / PEAK_F32_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def report(records, name, err, ms, plain_ms, ok, work, library_ms=None,
+           extra=""):
+    """Print and record one kernel's comparison; ``work`` is (bytes read
+    and written once, float32 operations) of the call."""
+    bound_ms, bound_by = bound(*work)
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
     print(f"  {name:20s} max_abs_err={err:.6g}{extra}  kernel={ms:.4f} ms"
-          f"  plain={plain_ms:.4f} ms  [{KERNELS[name][3]}]")
+          f"  plain={plain_ms:.4f} ms  bound={bound_ms:.4f} ms ({bound_by})"
+          f"  library={lib}  [{KERNELS[name][3]}]")
     if not ok:
         fail(f"{name} disagrees with its plain version")
     route, src, replaces, _ = KERNELS[name]
     records[name] = {"name": name, "route": route, "source": src,
                      "replaces": replaces, "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms}
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms}
 
 
 def max_err(got, want):
     """Max abs difference and max |want|."""
     return float((got - want).abs().max()), float(want.abs().max())
+
+
+def sparse_taps(rows, cols, vals, shape):
+    """A CSR matrix of (row, col, value) taps; repeated taps add."""
+    import torch
+
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, shape)
+    return coo.coalesce().to_sparse_csr()
+
+
+def walk_steps(paths, dirs, cells):
+    """Traversal steps of a Siddon walk on this run's rays: each ray's
+    in-grid chord (its summed paths) times the plane crossings per cm
+    along each axis, plus the entry cell."""
+    chord = paths.reshape(-1, paths.shape[-1]).sum(-1)
+    d = dirs.reshape(-1, dirs.shape[-1]).abs()
+    per_cm = sum(d[:, i] / c for i, c in enumerate(cells))
+    return float((chord * per_cm).sum()) + chord.numel()
 
 
 def kernel_phase(arrays, meta, records):
@@ -148,11 +228,16 @@ def kernel_phase(arrays, meta, records):
         lambda: siddon.trace_paths(*args, **kw),
         lambda: siddon.trace_paths_plain(*args, **kw), reps=3)
     err = float((paths - want).abs().max())
-    report(records, "siddon_trace", err, ms, pms, err <= 1e-4)
+    steps = walk_steps(paths, a["dirs"], (meta.dx, meta.dy))
+    n_rays = paths.numel() // meta.n_materials
+    report(records, "siddon_trace", err, ms, pms, err <= 1e-4,
+           (nbytes(a["labels"], a["src"], a["dirs"], paths),
+            6 * steps + 40 * n_rays))
 
     # K2: both spectra, counts as the main path asks for them; the
     # optional second-moment table is checked too (not timed)
     counts, errs, rels, ms_sum, pms_sum = [], [], [], 0.0, 0.0
+    k2_bytes = k2_ops = 0
     for s in ("1", "2"):
         mu, i0, i2 = a["mu_t" + s], a["i0_" + s], a["i2_" + s]
         c, wc, ms, pms = compare(
@@ -167,8 +252,11 @@ def kernel_phase(arrays, meta, records):
         ms_sum += ms
         pms_sum += pms
         counts.append(c)
+        k2_bytes += nbytes(paths, mu, i0, c)
+        k2_ops += c.numel() * mu.shape[1] * (2 * meta.n_materials + 3)
     report(records, "spectral_counts", max(errs), ms_sum, pms_sum,
-           max(rels) <= 1e-5, f" (max rel {max(rels):.3g})")
+           max(rels) <= 1e-5, (k2_bytes, k2_ops),
+           extra=f" (max rel {max(rels):.3g})")
 
     # K3: all 8e5 pixels, 50 iterations
     flat = torch.stack([counts[0].reshape(-1), counts[1].reshape(-1)])
@@ -183,7 +271,8 @@ def kernel_phase(arrays, meta, records):
     err = float((ab - want).abs().max())
     rel = float(((ab - want).abs() / want.abs().clamp_min(1.0)).max())
     report(records, "gauss_newton", err, ms, pms, rel <= 1e-4,
-           f" (rel {rel:.3g})")
+           gn_work(flat, ab, a["dec_mus"].shape[1], meta),
+           extra=f" (rel {rel:.3g})")
 
     # K4: 4 x 512^2 from the filtered 4 x 1000 x 800 sinogram stack
     log = [spectral.log_sinogram(c, air) for c, air in
@@ -198,7 +287,26 @@ def kernel_phase(arrays, meta, records):
         lambda: fbp_fast.fan_backproject_multi(*bargs),
         lambda: fbp_fast.fan_backproject_multi_plain(*bargs), reps=3)
     err = float((img - want).abs().max())
-    report(records, "fan_backproject", err, ms, pms, err <= 1e-4)
+    V = a["betas"].shape[0]
+    report(records, "fan_backproject", err, ms, pms, err <= 1e-4,
+           (nbytes(packed, img) + 8 * V,
+            meta.n_matrix ** 2 * V * (25 + 4 * 4)))
+
+
+def gn_work(flat, ab, e_full, meta, polish=4, warm_nodes=32):
+    """Bytes and operations of one GN solve: per pixel and iteration, 17
+    operations per energy node (the exponent, exp, six moment sums) and
+    ~40 for the 2 x 2 step; the warm phase on the ~warm_nodes-node table
+    when the union grid has more than twice as many bins."""
+    n_pix = flat.shape[1]
+    e_warm = e_full
+    if e_full > 2 * warm_nodes and meta.n_iters > polish:
+        seg = -(-e_full // warm_nodes)
+        e_warm = -(-e_full // seg)
+    n_pol = min(polish, meta.n_iters)
+    per_pix = ((meta.n_iters - n_pol) * (17 * e_warm + 40)
+               + n_pol * (17 * e_full + 40))
+    return nbytes(flat, ab) + 64 * (e_full + e_warm), n_pix * per_pix
 
 
 def default_kernel_phase(arrays, meta, records):
@@ -225,9 +333,11 @@ def default_kernel_phase(arrays, meta, records):
                                   reps=5)
     err, big = max_err(spec, want)
     report(records, "kb_sample", err, ms, pms, err <= 1e-5 * big,
-           f" (max |plain| {big:.6g})")
+           (nbytes(*sargs, spec), spec.numel() * 70),
+           extra=f" (max |plain| {big:.6g})")
 
-    # K8: 8e5 fan rays from the 6 x 1024 x 1024 Radon transforms
+    # K8: 8e5 fan rays from the 6 x 1024 x 1024 Radon transforms; the
+    # library yardstick is the same taps as one CSR product
     radon = torch.fft.irfft(spec, n=nt, dim=-1) * scale
     V, C4 = a["fp_fan_idx"].shape
     rargs = (radon, a["fp_fan_idx"], a["fp_fan_w"], (V, C4 // 4, n_mat))
@@ -235,8 +345,20 @@ def default_kernel_phase(arrays, meta, records):
         lambda: fourier.resample_to_fan(*rargs),
         lambda: fourier.resample_to_fan_plain(*rargs), reps=5)
     err, big = max_err(paths, want)
+    table = radon.reshape(n_mat, -1)
+    idx = a["fp_fan_idx"].reshape(-1, 4).to(torch.int64)
+    W = sparse_taps(torch.arange(idx.shape[0], device=idx.device)
+                    .repeat_interleave(4), idx.reshape(-1),
+                    a["fp_fan_w"].reshape(-1), (idx.shape[0], table.shape[1]))
+    dense = table.T.contiguous()
+    lib_err = float((torch.sparse.mm(W, dense).reshape(paths.shape)
+                     - want).abs().max())
     report(records, "resample_to_fan", err, ms, pms, err <= 1e-5 * big,
-           f" (max |plain| {big:.6g} cm)")
+           (nbytes(radon, a["fp_fan_idx"], a["fp_fan_w"], paths),
+            paths.numel() * 8),
+           library_ms=time_ms(lambda: torch.sparse.mm(W, dense), 5),
+           extra=f" (max |plain| {big:.6g} cm; library err {lib_err:.3g})")
+    del W, dense
     print(f"  Fourier paths: min {float(paths.min()):.6g} cm, "
           f"{int((paths < 0).sum())} of {paths.numel()} negative")
 
@@ -276,8 +398,23 @@ def default_kernel_phase(arrays, meta, records):
         lambda: fbp_fast.rebin_to_parallel(*rargs),
         lambda: fbp_fast.rebin_to_parallel_plain(*rargs), reps=5)
     err, big = max_err(par, want)
+    K, taps = sinos.shape[0], 8
+    vc = sinos[0].numel()
+    first = a["rb_idx"].reshape(-1, taps)[:, 0::2].to(torch.int64)
+    cols = torch.stack([first, (first + 1) % vc], -1).reshape(-1)
+    n_bins = first.shape[0]
+    W = sparse_taps(torch.arange(n_bins, device=cols.device)
+                    .repeat_interleave(taps), cols, a["rb_w"].reshape(-1),
+                    (n_bins, vc))
+    dense = sinos.reshape(K, -1).T.contiguous()
+    lib_err = float((torch.sparse.mm(W, dense).T.reshape(par.shape)
+                     - want).abs().max())
     report(records, "rebin_to_parallel", err, ms, pms, err <= 1e-5 * big,
-           f" (max |plain| {big:.6g})")
+           (nbytes(sinos, a["rb_idx"], a["rb_w"], par),
+            n_bins * taps * 2 * K),
+           library_ms=time_ms(lambda: torch.sparse.mm(W, dense), 5),
+           extra=f" (max |plain| {big:.6g}; library err {lib_err:.3g})")
+    del W, dense
     packed = fbp_fast.pack_filtered(filter_views(par, 1.0, a["par_H"],
                                                  par_m, dt))
     bargs = (packed, 4, a["par_thetas"], t0, dt, pnt, meta.n_matrix,
@@ -286,13 +423,153 @@ def default_kernel_phase(arrays, meta, records):
         lambda: fbp_fast.parallel_backproject_multi(*bargs),
         lambda: fbp_fast.parallel_backproject_multi_plain(*bargs), reps=3)
     err, big = max_err(img, want)
+    n_disc = int(fbp_fast._fov_disc_mask(meta.n_matrix, meta.fov).sum())
     report(records, "parallel_backproject", err, ms, pms, err <= 1e-4,
-           f" (max |plain| {big:.6g})")
+           (nbytes(packed, img) + meta.n_matrix ** 2 + 8 * n_th,
+            n_disc * n_th * (8 + 4 * 4)),
+           extra=f" (max |plain| {big:.6g})")
+
+
+def analytic_kernel_phase(arrays, meta, records):
+    """Phase 3, analytic projector: K9 on the reference protocol's 8e5 fan
+    rays through ``pelvis_analytic()``."""
+    import math
+
+    from dexct_tpu_torch.system import analytic
+
+    a = arrays
+    args = (a["an_params"], a["an_labels"], a["src"], a["dirs"])
+    kw = dict(n_materials=meta.n_materials)
+    paths, want, ms, pms = compare(
+        lambda: analytic.analytic_paths(*args, **kw),
+        lambda: analytic.analytic_paths_plain(*args, **kw), reps=3)
+    err, big = max_err(paths, want)
+    S = a["an_params"].shape[0]
+    n_rays = paths.numel() // meta.n_materials
+    per_ray = (30 * S + 2 * S * (2 * S - 1)
+               + 2 * S * math.ceil(math.log2(2 * S)))
+    report(records, "analytic_chords", err, ms, pms, err <= 1e-5 * big,
+           (nbytes(*args, paths), n_rays * per_ray),
+           extra=f" (max path {big:.6g} cm, S = {S})")
+
+
+def check_counts_and_gn(label, paths, a, meta, pixel_block):
+    """K2 (both spectra) and K3 against their plain versions on one path's
+    own paths and counts, with both times; the records keep the reference
+    protocol's rows."""
+    import torch
+
+    from dexct_tpu_torch.ops import matdecomp, spectral
+
+    counts, rels, ms, pms = [], [], 0.0, 0.0
+    for s in ("1", "2"):
+        mu, i0 = a["mu_t" + s], a["i0_" + s]
+        c, wc, k_ms, p_ms = compare(
+            lambda: spectral.counts_from_paths(paths, mu, i0),
+            lambda: spectral.counts_from_paths_plain(paths, mu, i0), reps=2)
+        rels.append(float(((c - wc).abs() / wc.abs().clamp_min(1e-30))
+                          .max()))
+        ms, pms = ms + k_ms, pms + p_ms
+        counts.append(c)
+    n_rays = paths.numel() // paths.shape[-1]
+    print(f"  spectral_counts on the {label} paths ({n_rays} rays): max rel"
+          f" {max(rels):.3g} [max rel <= 1e-5]  kernel="
+          f"{ms:.4f} ms  plain={pms:.4f} ms")
+    if max(rels) > 1e-5:
+        fail(f"spectral_counts disagrees with its plain version on the "
+             f"{label} paths")
+    flat = torch.stack([counts[0].reshape(-1), counts[1].reshape(-1)])
+    gkw = dict(n_iters=meta.n_iters, pixel_block=pixel_block,
+               warm_nodes=meta.gn_warm_nodes)
+    ab, want, ms, pms = compare(
+        lambda: matdecomp.gauss_newton_solve(flat, a["dec_i0"], a["dec_mus"],
+                                             **gkw),
+        lambda: matdecomp.gauss_newton_solve_plain(flat, a["dec_i0"],
+                                                   a["dec_mus"], **gkw),
+        reps=1)
+    rel = float(((ab - want).abs() / want.abs().clamp_min(1.0)).max())
+    print(f"  gauss_newton on the {label} counts ({flat.shape[1]} pixels, "
+          f"pixel_block {pixel_block}): rel {rel:.3g} [max |d| / max(|a|, 1)"
+          f" <= 1e-4]  kernel={ms:.4f} ms  plain={pms:.4f} ms")
+    if not (rel <= 1e-4 and bool(torch.isfinite(ab).all())):
+        fail(f"gauss_newton disagrees with its plain version on the {label} "
+             "counts")
+
+
+def cone_kernel_phase(arrays, meta, records, helical):
+    """Phase 3, 3-D paths: K10 on the circular config's rays, K2 and K3
+    on each config's own paths and counts (4-D [V, R, C, M] paths, the
+    decomposition in the step's pixel blocks), and K11 (or K12 on the
+    helical config) on the filtered 4-volume stack of that path's own
+    step."""
+    import numpy as np
+    import torch
+
+    from dexct_tpu_torch.ops import conebeam
+    from dexct_tpu_torch.ops.fbp import filter_views
+    from dexct_tpu_torch.pipeline import cone
+
+    a = arrays
+    V, R, C = meta.vrc
+    if not helical:
+        args = (a["labels"], a["src"], a["dirs"], meta.dx, meta.dy, meta.dz)
+        kw = dict(n_materials=meta.n_materials)
+        paths, want, ms, pms = compare(
+            lambda: conebeam.trace_paths_3d(*args, **kw),
+            lambda: conebeam.trace_paths_3d_plain(*args, **kw), reps=2)
+        err = float((paths - want).abs().max())
+        steps = walk_steps(paths, a["dirs"], (meta.dx, meta.dy, meta.dz))
+        report(records, "siddon_trace_3d", err, ms, pms, err <= 1e-4,
+               (nbytes(a["labels"], a["src"], a["dirs"], paths),
+                7 * steps + 60 * V * R * C),
+               extra=f" ({V * R * C} rays)")
+    else:
+        paths = cone.cone_paths(a, meta)
+    # decompose_counts's pixel blocks, as the step solves them
+    check_counts_and_gn("helical" if helical else "cone", paths, a, meta,
+                        65536)
+    out = cone.cone_dect_from_paths(paths, a, meta._replace(do_recon=False))
+    del paths
+    sinos = torch.stack([out["sino_log"][0], out["sino_log"][1],
+                         out["mat_sinos"][0], out["mat_sinos"][1]])
+    qs = filter_views(sinos, a["fdk_w"], a["filt_H"], meta.fft_len,
+                      meta.dgamma).contiguous()
+    K = qs.shape[0]
+    X, _, _ = conebeam._disc(meta.n_matrix, meta.fov, qs.device)
+    P = X.shape[0]
+    if helical:
+        hargs = (qs, a["betas"], a["src_z"], a["row_off"], a["beta_c"],
+                 meta.sid, meta.dgamma, meta.row_h, R, meta.pitch,
+                 meta.n_matrix, meta.nz_out, meta.fov, meta.dz_out, meta.z0)
+        vol, want, ms, pms = compare(
+            lambda: conebeam._helical_backproject(*hargs, dbeta=meta.dbeta),
+            lambda: conebeam._helical_backproject_plain(*hargs), reps=1)
+        err, big = max_err(vol, want)
+        win = ((a["betas"][None, :] - a["beta_c"][:, None]).abs()
+               <= np.pi)
+        report(records, "helical_backproject", err, ms, pms,
+               err <= 1e-4 * big,
+               (nbytes(qs, vol) + 8 * P + 16 * V,
+                P * int(win.sum()) * (35 + 7 * K)),
+               extra=f" (max |plain| {big:.6g}; {meta.nz_out} slices, "
+                     f"{int(win.sum())} slice-views)")
+        return
+    fargs = (qs, a["betas"], meta.sid, meta.dgamma, meta.row_h, R,
+             meta.n_matrix, meta.nz_out, meta.fov, meta.dz_out, meta.dbeta)
+    vol, want, ms, pms = compare(
+        lambda: conebeam._fdk_backproject_multi(*fargs),
+        lambda: conebeam._fdk_backproject_multi_plain(*fargs), reps=1)
+    err, big = max_err(vol, want)
+    report(records, "fdk_backproject", err, ms, pms, err <= 1e-4 * big,
+           (nbytes(qs, vol) + 8 * P + 8 * V,
+            P * meta.nz_out * V * (30 + 7 * K)),
+           extra=f" (max |plain| {big:.6g}; {meta.nz_out} slices)")
 
 
 def counters():
-    from dexct_tpu_torch.ops import (fbp_fast, fourier, matdecomp, siddon,
-                                     spectral)
+    from dexct_tpu_torch.ops import (conebeam, fbp_fast, fourier, matdecomp,
+                                     siddon, spectral)
+    from dexct_tpu_torch.system import analytic
 
     return {"siddon_trace": siddon.trace_paths,
             "spectral_counts": spectral.counts_from_paths,
@@ -301,7 +578,48 @@ def counters():
             "rebin_to_parallel": fbp_fast.rebin_to_parallel,
             "parallel_backproject": fbp_fast.parallel_backproject_multi,
             "kb_sample": fourier.kb_sample,
-            "resample_to_fan": fourier.resample_to_fan}
+            "resample_to_fan": fourier.resample_to_fan,
+            "analytic_chords": analytic.analytic_paths,
+            "siddon_trace_3d": conebeam.trace_paths_3d,
+            "fdk_backproject": conebeam._fdk_backproject_multi,
+            "helical_backproject": conebeam._helical_backproject}
+
+
+def check_launches(label, fns, path_kernels, records):
+    """Fail unless exactly the path's kernels launched since the counts
+    were set to 0; add the counts to the records."""
+    launches = {name: fn.launches for name, fn in fns.items()}
+    print(f"  launches: {launches}")
+    for name, n in launches.items():
+        if name in path_kernels and n <= 0:
+            fail(f"kernel {name} was not launched on the {label} path")
+        if name not in path_kernels and n != 0:
+            fail(f"kernel {name} was launched on the {label} path")
+        records[name]["launches"] += n
+
+
+def write_cone_params(tmp, label, spec):
+    """A params file of one of the repo's cone configurations, with its
+    pelvis_phantom_3d (N 256, 0.2 cm voxels) written beside it."""
+    from dexct_tpu_torch.system.phantom import pelvis_phantom_3d
+
+    spec = dict(spec)
+    nz = spec.pop("phantom_nz")
+    ph = pelvis_phantom_3d(N=256, nz=nz, dx=0.2, dz=0.2)
+    ph.to_file(str(tmp / f"{label}.bin"), str(tmp / f"{label}.csv"))
+    cfg = json.loads(PARAMS.read_text())
+    cfg.update({"RUN_ID": label, "phantom_id": ph.name,
+                "phantom_filename": str(tmp / f"{label}.bin"),
+                "matcomp_filename": str(tmp / f"{label}.csv"),
+                "Nx": 256, "Ny": 256, "Nz": nz, "dx": 0.2, "dy": 0.2,
+                "dz": 0.2, "N_rows": 16, "detector_px_height": 0.25,
+                "N_channels": 256, "SID": 60.0, "SDD": 100.0,
+                "fan_angle_total": 0.8230337,
+                "detector_filename": str(ROOT / cfg["detector_filename"]),
+                "N_recon_matrix": 256, "FOV_recon": 40.0, **spec})
+    path = tmp / f"{label}.txt"
+    path.write_text(json.dumps(cfg))
+    return path
 
 
 def check_outputs(out_dir, run_id, n_views, n_ch, n_img):
@@ -332,25 +650,257 @@ def check_outputs(out_dir, run_id, n_views, n_ch, n_img):
     px = 50.0 / n_img
     iy = int(round(-20.0 / px + n_img / 2 - 0.5))
     ix = n_img // 2
-    h = int(round(0.5 / px))
+    h = max(int(round(0.5 / px)), 1)
     hus = []
     for d in acq:
         hu = np.fromfile(d / "recon_HU_float32.bin", np.float32).reshape(
             n_img, n_img)
         hus.append(float(hu[iy - h:iy + h, ix - h:ix + h].mean()))
     print(f"  air ROI HU: detunedMV {hus[0]:.2f}, 80kV {hus[1]:.2f}")
-    if any(abs(h_ + 1000.0) > 50.0 for h_ in hus):
+    if not all(abs(h_ + 1000.0) <= 50.0 for h_ in hus):
         fail(f"air ROI is not ~-1000 HU: {hus}")
     return len(want)
 
 
-def both_devices_phase(tmp, label, flags):
-    """Phase 5: a 64^2 water-cylinder config through the port's CLI on the
-    CPU and on the card, under one path's flags; every output file must
-    agree."""
+def check_outputs_3d(out_dir, run_id, vrc, nz, n_img):
+    """Phase 4 checks on a 3-D path's files: [V, R, C] sinograms and
+    [nz, N, N] volumes, finite, air ~ -1000 HU in the central slice."""
+    import numpy as np
+
+    V, R, C = vrc
+    acq = [out_dir / run_id / "detunedMV_9000uGy",
+           out_dir / run_id / "80kV_1000uGy"]
+    md = out_dir / run_id / "matdecomp_detunedMV_80kV_9000uGy_1000uGy"
+    want = {}
+    for d in acq:
+        for f in ("sino_raw", "sino_log"):
+            want[d / f"{f}_float32.bin"] = V * R * C * 4
+        for f in ("recon_raw", "recon_HU"):
+            want[d / f"{f}_float32.bin"] = nz * n_img * n_img * 4
+    for i in (1, 2):
+        want[md / f"mat{i}_sino_float32.bin"] = V * R * C * 4
+        want[md / f"mat{i}_recon_float32.bin"] = nz * n_img * n_img * 4
+    for path, size in want.items():
+        if not path.exists():
+            fail(f"missing output {path}")
+        if path.stat().st_size != size:
+            fail(f"{path} has {path.stat().st_size} bytes, want {size}")
+        if not np.all(np.isfinite(np.fromfile(path, np.float32))):
+            fail(f"{path} holds non-finite values")
+    # air ROI inside the 40 cm FOV: 1 cm x 1 cm at (x, y) = (0, -18) cm,
+    # below the pelvis body (|y| <= 14.9 cm)
+    px = 40.0 / n_img
+    iy = int(round(-18.0 / px + n_img / 2 - 0.5))
+    ix = n_img // 2
+    h = max(int(round(0.5 / px)), 1)
+    hus = []
+    for d in acq:
+        hu = np.fromfile(d / "recon_HU_float32.bin", np.float32).reshape(
+            nz, n_img, n_img)
+        hus.append(float(hu[nz // 2, iy - h:iy + h, ix - h:ix + h].mean()))
+    print(f"  air ROI HU (central slice): detunedMV {hus[0]:.2f}, "
+          f"80kV {hus[1]:.2f}")
+    if not all(abs(h_ + 1000.0) <= 50.0 for h_ in hus):
+        fail(f"air ROI is not ~-1000 HU: {hus}")
+    return len(want)
+
+
+def profiled_step(step):
+    """Wall and device kernel time [ms] of one more call of ``step`` under
+    torch.profiler, and the peak device memory [GB] of that call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - w0) * 1e3
+    dev_us = 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        dev_us += float(us or 0.0)
+    return wall, dev_us / 1e3, torch.cuda.max_memory_allocated() / 1e9
+
+
+def print_stages(label, t, step, smi):
+    wall, dev_ms, peak = profiled_step(step)
+    print(f"  {label} stages (ms, one pair, {smi}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in t.items()))
+    print(f"  {label} profiled step: wall {wall:.3f} ms, device kernel time "
+          f"{dev_ms:.3f} ms (busy share {dev_ms / wall:.3f}); peak device "
+          f"memory {peak:.3f} GB")
+
+
+class Stages:
+    """Host-clock stage timer with a synchronise at each stage edge."""
+
+    def __init__(self):
+        self.t = {}
+        self.t0 = time.perf_counter()
+
+    def mark(self, name):
+        import torch
+
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.t[name] = (now - self.t0) * 1e3
+        self.t0 = time.perf_counter()
+
+
+def cone_stage_profile(cfg, label, tmp, smi):
+    """One more DE pair of a 3-D path, stage by stage, and the device's
+    busy share over one more step."""
+    import torch
+
+    from dexct_tpu_torch.pipeline.cone import cone_dect_step, pack_cone_dect
+    from dexct_tpu_torch.pipeline.runner import (_resolve_spectrum,
+                                                 default_generators)
+    from dexct_tpu_torch.utils.io import StageWriter
+
+    st = Stages()
+    gens = default_generators()
+    s1 = _resolve_spectrum("detunedMV", 9.0, cfg.ct, str(SPECTRA), gens)
+    s2 = _resolve_spectrum("80kV", 1.0, cfg.ct, str(SPECTRA), gens)
+    st.mark("spectra")
+    cfg.ct.ray_geometry_3d()
+    st.mark("ray_geometry_3d (alone)")
+    arrays, meta = pack_cone_dect(cfg.ct, cfg.phantom, s1, s2, cfg.N_matrix,
+                                  cfg.FOV, cfg.ramp,
+                                  device=torch.device("cuda"), n_iters=50)
+    st.mark("pack_cone_dect (with its ray_geometry_3d)")
+    out = cone_dect_step(arrays, meta)
+    st.mark("cone_dect_step")
+    writer = StageWriter(str(tmp / f"{label}_profile"), cfg.run_id)
+    for i, (sid_, dose) in enumerate((("detunedMV", 9.0), ("80kV", 1.0))):
+        writer.acquisition(sid_, dose, sino_raw=out["sino_raw"][i],
+                           sino_log=out["sino_log"][i],
+                           recon_raw=out["recon_raw"][i],
+                           recon_HU=out["recon_HU"][i])
+    writer.matdecomp("detunedMV", "80kV", 9.0, 1.0,
+                     mat_sinos=list(out["mat_sinos"]),
+                     mat_recons=list(out["mat_recons"]))
+    st.mark("write the 12 files")
+    del out
+    print_stages(label, st.t, lambda: cone_dect_step(arrays, meta), smi)
+
+
+def analytic_path(records, smi):
+    """Phase 4, analytic projector through the library: pack_dect +
+    dect_step on the reference protocol with pelvis_analytic(), twice,
+    with the launch counters and the outputs checked."""
+    import torch
+
+    from dexct_tpu_torch.pipeline.fused import dect_step, pack_dect
+    from dexct_tpu_torch.pipeline.runner import (_resolve_spectrum,
+                                                 default_generators)
+    from dexct_tpu_torch.system.analytic import pelvis_analytic
+    from dexct_tpu_torch.system.config import read_parameter_file
+
+    cfg = read_parameter_file(PARAMS)[0]
+    fns = counters()
+    for fn in fns.values():
+        fn.launches = 0
+    walls = []
+    for _ in (1, 2):
+        t0 = time.perf_counter()
+        gens = default_generators()
+        s1 = _resolve_spectrum("detunedMV", 9.0, cfg.ct, str(SPECTRA), gens)
+        s2 = _resolve_spectrum("80kV", 1.0, cfg.ct, str(SPECTRA), gens)
+        arrays, meta = pack_dect(cfg.ct, pelvis_analytic(), s1, s2,
+                                 cfg.N_matrix, cfg.FOV, cfg.ramp,
+                                 device=torch.device("cuda"), n_iters=50,
+                                 projector="analytic", recon="parallel")
+        out = dect_step(arrays, meta)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    print(f"analytic path (library, pack_dect + dect_step): "
+          f"{walls[0]:.3f} s (first), {walls[1]:.3f} s (steady) on {smi}")
+    check_launches("analytic", fns, ANALYTIC_KERNELS, records)
+
+    from dexct_tpu_torch.ops.fbp_fast import parallel_rebin_plan
+
+    st = Stages()
+    s1 = _resolve_spectrum("detunedMV", 9.0, cfg.ct, str(SPECTRA), gens)
+    s2 = _resolve_spectrum("80kV", 1.0, cfg.ct, str(SPECTRA), gens)
+    st.mark("spectra")
+    cfg.ct.ray_geometry()
+    st.mark("ray_geometry (alone)")
+    parallel_rebin_plan(cfg.ct, 512, 1024)
+    st.mark("parallel_rebin_plan (alone)")
+    p_arrays, p_meta = pack_dect(cfg.ct, pelvis_analytic(), s1, s2,
+                                 cfg.N_matrix, cfg.FOV, cfg.ramp,
+                                 device=torch.device("cuda"), n_iters=50,
+                                 projector="analytic", recon="parallel")
+    st.mark("pack_dect (with both)")
+    dect_step(p_arrays, p_meta)
+    st.mark("dect_step")
+    print_stages("analytic", st.t, lambda: dect_step(p_arrays, p_meta), smi)
+    V, C, N = cfg.ct.N_proj, cfg.ct.N_channels, cfg.N_matrix
+    for key in out:
+        for i, x in enumerate(out[key]):
+            shape = (V, C) if "sino" in key else (N, N)
+            if tuple(x.shape) != shape:
+                fail(f"analytic {key}[{i}] has shape {tuple(x.shape)}")
+            if not bool(torch.isfinite(x).all()):
+                fail(f"analytic {key}[{i}] holds non-finite values")
+    px = cfg.FOV / N
+    iy = int(round(-20.0 / px + N / 2 - 0.5))
+    h = max(int(round(0.5 / px)), 1)
+    hus = [float(out["recon_HU"][i][iy - h:iy + h, N // 2 - h:N // 2 + h]
+                 .mean()) for i in (0, 1)]
+    print(f"  12 outputs: exact shapes, finite; air ROI HU: detunedMV "
+          f"{hus[0]:.2f}, 80kV {hus[1]:.2f}")
+    if not all(abs(h_ + 1000.0) <= 50.0 for h_ in hus):
+        fail(f"analytic air ROI is not ~-1000 HU: {hus}")
+
+
+FILE_TOL = {"sino_raw": dict(rtol=1e-4, atol=0.0),
+            "sino_log": dict(rtol=0.0, atol=1e-4),
+            "recon_raw": dict(rtol=0.0, atol=1e-4),
+            "recon_HU": dict(rtol=0.0, atol=1.0),
+            "mat1_sino": dict(rtol=0.0, atol=1e-3),
+            "mat2_sino": dict(rtol=0.0, atol=1e-3),
+            "mat1_recon": dict(rtol=0.0, atol=1e-3),
+            "mat2_recon": dict(rtol=0.0, atol=1e-3)}
+
+
+def compare_devices(tmp, label, params, flags):
+    """Run ``params`` through the port's CLI on the CPU and on the card;
+    every output file must agree to the pipeline tolerances."""
     import numpy as np
 
     from dexct_tpu_torch.run import main as run_main
+
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        outs[dev] = tmp / f"tiny_{label}_{dev}"
+        run_main(["--params", str(params), "--output", str(outs[dev]),
+                  "--spectrum-dir", str(SPECTRA), "--iters", "8",
+                  "--device", dev] + flags)
+    files = sorted(p.relative_to(outs["cpu"])
+                   for p in outs["cpu"].rglob("*.bin"))
+    if files != sorted(p.relative_to(outs["cuda"])
+                       for p in outs["cuda"].rglob("*.bin")):
+        fail("cpu and cuda runs wrote different file sets")
+    if len(files) != 12:
+        fail(f"expected 12 output files, got {len(files)}")
+    for rel in files:
+        x = np.fromfile(outs["cpu"] / rel, np.float32)
+        y = np.fromfile(outs["cuda"] / rel, np.float32)
+        kind = rel.name[:-len("_float32.bin")]
+        np.testing.assert_allclose(y, x, err_msg=str(rel), **FILE_TOL[kind])
+    print(f"  {label} path: {len(files)} files agree between --device cpu "
+          "and --device cuda")
+
+
+def both_devices_phase(tmp, label, flags):
+    """Phase 5: a 64^2 water-cylinder config under one 2-D path's flags."""
     from dexct_tpu_torch.system.phantom import water_cylinder_phantom
 
     ph = water_cylinder_phantom(N=64, dx=0.4)
@@ -364,34 +914,36 @@ def both_devices_phase(tmp, label, flags):
                 "detector_filename": str(ROOT / cfg["detector_filename"]),
                 "N_recon_matrix": 64, "FOV_recon": 26.0})
     (tmp / "tiny.txt").write_text(json.dumps(cfg))
-    outs = {}
-    for dev in ("cpu", "cuda"):
-        outs[dev] = tmp / f"tiny_{label}_{dev}"
-        run_main(["--params", str(tmp / "tiny.txt"), "--output",
-                  str(outs[dev]), "--spectrum-dir", str(SPECTRA),
-                  "--iters", "8", "--device", dev] + flags)
-    tol = {"sino_raw": dict(rtol=1e-4, atol=0.0),
-           "sino_log": dict(rtol=0.0, atol=1e-4),
-           "recon_raw": dict(rtol=0.0, atol=1e-4),
-           "recon_HU": dict(rtol=0.0, atol=1.0),
-           "mat1_sino": dict(rtol=0.0, atol=1e-3),
-           "mat2_sino": dict(rtol=0.0, atol=1e-3),
-           "mat1_recon": dict(rtol=0.0, atol=1e-3),
-           "mat2_recon": dict(rtol=0.0, atol=1e-3)}
-    files = sorted(p.relative_to(outs["cpu"])
-                   for p in outs["cpu"].rglob("*.bin"))
-    if files != sorted(p.relative_to(outs["cuda"])
-                       for p in outs["cuda"].rglob("*.bin")):
-        fail("cpu and cuda runs wrote different file sets")
-    if len(files) != 12:
-        fail(f"expected 12 output files, got {len(files)}")
-    for rel in files:
-        x = np.fromfile(outs["cpu"] / rel, np.float32)
-        y = np.fromfile(outs["cuda"] / rel, np.float32)
-        kind = rel.name[:-len("_float32.bin")]
-        np.testing.assert_allclose(y, x, err_msg=str(rel), **tol[kind])
-    print(f"  {label} path: {len(files)} files agree between --device cpu "
-          "and --device cuda")
+    compare_devices(tmp, label, tmp / "tiny.txt", flags)
+
+
+def cone_devices_phase(tmp, kind):
+    """Phase 5: a 32^2 x 8 water cylinder under a 24-view (48 over two
+    turns for the helix) 4-row cone config."""
+    import numpy as np
+
+    from dexct_tpu_torch.system.phantom import (VoxelPhantom,
+                                                water_cylinder_phantom)
+
+    ph = water_cylinder_phantom(N=32, dx=0.6)
+    lab = np.broadcast_to(ph.labels[0], (8, 32, 32)).copy()
+    VoxelPhantom("w3", lab, ph.materials, 0.6, 0.6, 0.5).to_file(
+        str(tmp / "w3.bin"), str(tmp / "w3.csv"))
+    cfg = json.loads(PARAMS.read_text())
+    cfg.update({"RUN_ID": "tiny3d", "phantom_id": "water3d",
+                "phantom_filename": str(tmp / "w3.bin"),
+                "matcomp_filename": str(tmp / "w3.csv"),
+                "Nx": 32, "Ny": 32, "Nz": 8, "dx": 0.6, "dy": 0.6,
+                "dz": 0.5, "scanner_geometry": kind, "N_rows": 4,
+                "detector_px_height": 0.5, "N_channels": 32,
+                "N_projections": 24,
+                "detector_filename": str(ROOT / cfg["detector_filename"]),
+                "N_recon_matrix": 32, "FOV_recon": 18.0})
+    if kind == "helical_cone_beam":
+        cfg.update({"N_projections": 48, "pitch": 2.0,
+                    "rotation_angle_total": 4 * np.pi})
+    (tmp / f"{kind}.txt").write_text(json.dumps(cfg))
+    compare_devices(tmp, kind, tmp / f"{kind}.txt", [])
 
 
 def main():
@@ -432,73 +984,104 @@ def main():
                                torch.zeros(1, device=dev))
     torch.cuda.synchronize()
     t2 = time.time()
-    print(f"build: nvcc K1, K3-K8 {t1 - t0:.1f} s, triton K2 "
+    print(f"build: nvcc K1, K3-K12 {t1 - t0:.1f} s, triton K2 "
           f"{t2 - t1:.1f} s")
 
-    # 3. kernels against their plain versions at the slice's shapes
+    # 3. kernels against their plain versions at the paths' shapes
+    from dexct_tpu_torch.pipeline.cone import pack_cone_dect
     from dexct_tpu_torch.pipeline.fused import pack_dect
     from dexct_tpu_torch.pipeline.runner import (_resolve_spectrum,
                                                  default_generators)
+    from dexct_tpu_torch.system.analytic import pelvis_analytic
     from dexct_tpu_torch.system.config import read_parameter_file
-
-    cfg = read_parameter_file(PARAMS)[0]
-    gens = default_generators()
-    s1 = _resolve_spectrum("detunedMV", 9.0, cfg.ct, str(SPECTRA), gens)
-    s2 = _resolve_spectrum("80kV", 1.0, cfg.ct, str(SPECTRA), gens)
-    pack = (cfg.ct, cfg.phantom, s1, s2, cfg.N_matrix, cfg.FOV, cfg.ramp)
-    print(f"kernels vs plain at the reference protocol ({smi}):")
-    records = {}
-    arrays, meta = pack_dect(*pack, device=dev, n_iters=50,
-                             projector="siddon", recon="fan")
-    kernel_phase(arrays, meta, records)
-    arrays, meta = pack_dect(*pack, device=dev, n_iters=50,
-                             projector="fourier", recon="parallel")
-    default_kernel_phase(arrays, meta, records)
-    del arrays
-    torch.cuda.empty_cache()
-
-    # 4. both paths, through the CLI
-    from dexct_tpu_torch.run import main as run_main
 
     tmp = Path(tempfile.mkdtemp(prefix="dexct_chip_smoke_"))
     try:
+        cfg = read_parameter_file(PARAMS)[0]
+        gens = default_generators()
+
+        def spectra(ct):
+            return (_resolve_spectrum("detunedMV", 9.0, ct, str(SPECTRA),
+                                      gens),
+                    _resolve_spectrum("80kV", 1.0, ct, str(SPECTRA), gens))
+
+        pack = (cfg.ct, cfg.phantom, *spectra(cfg.ct), cfg.N_matrix, cfg.FOV,
+                cfg.ramp)
+        print(f"kernels vs plain ({smi}):")
+        records = {}
+        arrays, meta = pack_dect(*pack, device=dev, n_iters=50,
+                                 projector="siddon", recon="fan")
+        kernel_phase(arrays, meta, records)
+        arrays, meta = pack_dect(*pack, device=dev, n_iters=50,
+                                 projector="fourier", recon="parallel")
+        default_kernel_phase(arrays, meta, records)
+        arrays, meta = pack_dect(cfg.ct, pelvis_analytic(), *pack[2:],
+                                 device=dev, n_iters=50,
+                                 projector="analytic", recon="parallel")
+        analytic_kernel_phase(arrays, meta, records)
+        cone_params = {label: write_cone_params(tmp, label, spec)
+                       for label, spec in CONE_CONFIGS.items()}
+        cone_cfgs = {label: read_parameter_file(p)[0]
+                     for label, p in cone_params.items()}
+        for label, ccfg in cone_cfgs.items():
+            arrays, meta = pack_cone_dect(
+                ccfg.ct, ccfg.phantom, *spectra(ccfg.ct), ccfg.N_matrix,
+                ccfg.FOV, ccfg.ramp, device=dev, n_iters=50)
+            cone_kernel_phase(arrays, meta, records, label == "helical")
+        del arrays
+        torch.cuda.empty_cache()
+
+        # 4. the paths: four through the CLI, the analytic projector
+        # through the library
+        from dexct_tpu_torch.run import main as run_main
+
         fns = counters()
         for name in KERNELS:
             records[name]["launches"] = 0
-        for label, (flags, path_kernels) in PATHS.items():
+        for label, (flags, cone, path_kernels) in PATHS.items():
+            params = cone_params[cone] if cone else PARAMS
             for fn in fns.values():
                 fn.launches = 0
             walls = []
             for i in (1, 2):
-                res = run_main(["--params", str(PARAMS), "--output",
+                res = run_main(["--params", str(params), "--output",
                                 str(tmp / f"{label}{i}"), "--spectrum-dir",
                                 str(SPECTRA)] + flags)
                 torch.cuda.synchronize()
                 walls.append(res[0].wall_s)
-            launches = {name: fn.launches for name, fn in fns.items()}
             print(f"{label} path {flags}: wall per DE pair {walls[0]:.3f} s "
                   f"(first), {walls[1]:.3f} s (steady) on {smi}")
-            print(f"  launches: {launches}")
-            for name, n in launches.items():
-                if name in path_kernels and n <= 0:
-                    fail(f"kernel {name} was not launched on the {label} "
-                         "path")
-                if name not in path_kernels and n != 0:
-                    fail(f"kernel {name} was launched on the {label} path")
-                records[name]["launches"] += n
-            n_files = check_outputs(tmp / f"{label}2", cfg.run_id,
-                                    cfg.ct.N_proj, cfg.ct.N_channels,
-                                    cfg.N_matrix)
-            print(f"  {n_files} output files: exact sizes, finite")
+            check_launches(label, fns, path_kernels, records)
+            if cone:
+                ccfg = cone_cfgs[cone]
+                vol = res[0].dect.recon_raw[0]
+                n_files = check_outputs_3d(
+                    tmp / f"{label}2", ccfg.run_id,
+                    (ccfg.ct.N_proj, ccfg.ct.N_rows, ccfg.ct.N_channels),
+                    vol.shape[0], ccfg.N_matrix)
+                print(f"  {n_files} output files: exact sizes, finite")
+                cone_stage_profile(ccfg, label, tmp, smi)
+            else:
+                n_files = check_outputs(tmp / f"{label}2", cfg.run_id,
+                                        cfg.ct.N_proj, cfg.ct.N_channels,
+                                        cfg.N_matrix)
+                print(f"  {n_files} output files: exact sizes, finite")
+            shutil.rmtree(tmp / f"{label}1", ignore_errors=True)
+            shutil.rmtree(tmp / f"{label}2", ignore_errors=True)
+        analytic_path(records, smi)
 
-        # 5. both paths on both devices
-        for label, (flags, _) in PATHS.items():
-            both_devices_phase(tmp, label, flags)
+        # 5. every path on both devices
+        for label, (flags, cone, _) in PATHS.items():
+            if cone:
+                cone_devices_phase(tmp, CONE_CONFIGS[cone]["scanner_geometry"])
+            else:
+                both_devices_phase(tmp, label, flags)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     order = ("name", "route", "source", "replaces", "launches",
-             "max_abs_err", "ms", "plain_ms")
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")
     print(smi)
     print(json.dumps({"kernels": [{k: records[n][k] for k in order}
                                   for n in KERNELS]}))

@@ -2,17 +2,19 @@
 
 A second package beside the JAX package ``dexct_tpu``, which stays the
 reference it is tested against.  This package imports ``torch`` and never
-``jax`` or ``dexct_tpu``.  It runs the dual-energy main path: exact Siddon
-trace -> two polyenergetic acquisitions -> Gauss-Newton decomposition ->
-four fan-beam FBPs -> the §2.6 output files, with four hand-written
-kernels on the card (K1-K4, sources in ``csrc/`` and ``ops/spectral.py``)
-and plain PyTorch versions of each on the CPU.
+``jax`` or ``dexct_tpu``.  It runs the dual-energy main path (projection ->
+two polyenergetic acquisitions -> Gauss-Newton decomposition -> four
+reconstructions -> the §2.6 output files) on the 2-D fan-beam paths, on
+cone-beam and helical configs, and with the analytic projector, through
+twelve hand-written kernels on the card (K1-K12, sources in ``csrc/`` and
+``ops/spectral.py``) with plain PyTorch versions of each on the CPU.
 
 Layer map (as in dexct_tpu):
     physics/   attenuation tables, spectra, detectors, materials (host NumPy)
-    system/    scanner geometry, voxel phantoms, run config (host NumPy)
-    ops/       siddon (K1), spectral (K2), matdecomp (K3), fbp/fbp_fast (K4)
-    pipeline/  reference-compatible API, fused step, driver
+    system/    scanner geometry, voxel and analytic phantoms (K9), run config
+    ops/       siddon (K1), spectral (K2), matdecomp (K3), fbp/fbp_fast
+               (K4-K6), fourier (K7, K8), conebeam (K10-K12)
+    pipeline/  reference-compatible API, fused 2-D and cone steps, driver
     utils/     output contract, kernel build
 """
 

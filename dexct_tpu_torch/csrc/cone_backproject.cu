@@ -1,0 +1,294 @@
+// K11 fdk_backproject and K12 helical_backproject: voxel-driven Feldkamp
+// backprojection of K filtered cone-beam stacks, on a circular orbit (K11)
+// and on a helix (K12, generalized Feldkamp with weighting "full": each
+// voxel takes the views within pi of its slice's window centre beta_c).
+//
+// K11 replaces dexct_tpu/ops/conebeam.py:_fdk_backproject_multi and K12
+// replaces dexct_tpu/ops/conebeam.py:_helical_backproject.  Both TPU
+// programs are a lax.scan over view blocks that gathers one packed row of
+// all 4K bilinear taps per (view, pixel, slice), with z-slice pairs sharing
+// a 4-row window; K11's quarter-turn orbit fold stacks four views into one
+// row, and K12, given dbeta, updates only a dynamic window of slices per
+// view block.  These are gather-count layouts of one image.
+//
+// What bounds them on the card: per (pixel, slice, view) one atan2, one
+// square root, three divisions and ~40 other float ops, plus four taps of
+// each of the K stacks (qs is 4 x 360 x 16 x 256 floats, 23.6 MB, at the
+// cone protocol and 4 x 720 x 16 x 256, 47 MB, at the helical one: about
+// the size of the 50 MB L2), so arithmetic dominates.  Design: one thread
+// per (disc pixel, output slice) loops over the views and keeps its sums in
+// registers, so the output is written once with no atomics; neighbouring
+// threads are neighbouring disc pixels of one slice, whose taps sit on
+// neighbouring channels of the same detector rows.  K11 stages cos/sin of
+// the view angles in shared memory (kChunk views at a time) and visits
+// every view.  K12 visits only the views of its slice's window: the views
+// are uniformly spaced (dbeta), so the range is computed from beta_c with a
+// two-view margin and the exact window test below decides each view; the
+// views skipped are those whose terms the reference multiplies by an exact
+// zero.
+//
+// Per view, as the JAX programs in float32 without fused multiply-adds
+// (view_tap and add_taps below, shared by both kernels):
+// ell = sid - (X cos b + Y sin b), vt = -X sin b + Y cos b,
+// h2 = ell^2 + vt^2, inv_h = 1 / sqrt(h2),
+// c = atan2(-vt, ell) / dgamma - 0.5 + C/2, in the fan when 0 <= c <= C-1,
+// c0 = clamp(floor(c), 0, C-2), fc = clamp(c - c0, 0, 1);
+// on the detector when -0.5 <= ridx <= R-0.5, r0 = clamp(floor(ridx), 0,
+// R-2), fr = clamp(ridx - r0, 0, 1); the tap rows are r0 and min(r0 + 1,
+// R-1) (the JAX row shift repeats the last row), the channels c0 and
+// c0 + 1, and the weight 1 / h2.
+// K11: ridx = z sid inv_h / row_h - 0.5 + R/2; the sum is multiplied by
+// dbeta.
+// K12: ridx = (z - src_z[v]) sid inv_h / row_h - 0.5 + R/2 + row_off[v];
+// a view inside the window (|beta[v] - beta_c| <= pi) and on the detector
+// adds 1 to the denominator and, inside the fan, its tap to the
+// numerator; out = (den > 0 ? num / max(den, 1e-30) : 0) 2 pi.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <type_traits>
+
+namespace {
+
+constexpr int kChunk = 512;
+constexpr float kPi = 3.14159265358979323846f;     // float32(pi)
+constexpr float kTwoPi = 6.28318530717958647692f;  // float32(2 pi)
+
+// The detector constants every view shares.
+struct Detector {
+  int R, C;
+  float c_shift, c_max, c0_max, r_shift, r_hi, r0_max;
+  long long view_stride, image_stride;
+};
+
+__device__ __forceinline__ Detector make_detector(int V, int R, int C) {
+  Detector d;
+  d.R = R;
+  d.C = C;
+  d.c_shift = 0.5f * (float)C;
+  d.c_max = (float)(C - 1);
+  d.c0_max = (float)(C - 2);
+  d.r_shift = 0.5f * (float)R;
+  d.r_hi = (float)R - 0.5f;
+  d.r0_max = (float)(R >= 2 ? R - 2 : 0);
+  d.view_stride = (long long)R * C;
+  d.image_stride = (long long)V * d.view_stride;
+  return d;
+}
+
+// The in-plane geometry of pixel (x, y) at one view.
+struct ViewTap {
+  float ell, vt, h2, inv_h;
+};
+
+__device__ __forceinline__ ViewTap view_tap(float x, float y, float cb,
+                                            float sb, float sid) {
+  ViewTap t;
+  t.ell = __fsub_rn(sid, __fadd_rn(__fmul_rn(x, cb), __fmul_rn(y, sb)));
+  t.vt = __fadd_rn(__fmul_rn(-x, sb), __fmul_rn(y, cb));
+  t.h2 = __fadd_rn(__fmul_rn(t.ell, t.ell), __fmul_rn(t.vt, t.vt));
+  t.inv_h = __fdiv_rn(1.0f, __fsqrt_rn(t.h2));
+  return t;
+}
+
+__device__ __forceinline__ float channel(const ViewTap& t, float dgamma,
+                                         const Detector& d) {
+  return __fadd_rn(__fsub_rn(__fdiv_rn(atan2f(-t.vt, t.ell), dgamma), 0.5f),
+                   d.c_shift);
+}
+
+__device__ __forceinline__ bool in_fan(float c, const Detector& d) {
+  return c >= 0.0f && c <= d.c_max;
+}
+
+__device__ __forceinline__ bool on_detector(float ridx, const Detector& d) {
+  return ridx >= -0.5f && ridx <= d.r_hi;
+}
+
+// acc[k] += (1 / h2) x the bilinear value of stack k at view v, row ridx,
+// channel c.
+template <int K>
+__device__ __forceinline__ void add_taps(const float* __restrict__ qs,
+                                         const Detector& d, int v, float c,
+                                         float ridx, float h2, float* acc) {
+  const float c0 = fminf(fmaxf(floorf(c), 0.0f), d.c0_max);
+  const float fc = fminf(fmaxf(__fsub_rn(c, c0), 0.0f), 1.0f);
+  const float r0 = fminf(fmaxf(floorf(ridx), 0.0f), d.r0_max);
+  const float fr = fminf(fmaxf(__fsub_rn(ridx, r0), 0.0f), 1.0f);
+  const float w = __fdiv_rn(1.0f, h2);
+  const int ir0 = (int)r0;
+  const int ir1 = min(ir0 + 1, d.R - 1);
+  const long long base = (long long)v * d.view_stride + (int)c0;
+  const long long o0 = base + (long long)ir0 * d.C;
+  const long long o1 = base + (long long)ir1 * d.C;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const float* q = qs + k * d.image_stride;
+    const float top = __fadd_rn(__fmul_rn(__ldg(q + o0), 1.0f - fc),
+                                __fmul_rn(__ldg(q + o0 + 1), fc));
+    const float bot = __fadd_rn(__fmul_rn(__ldg(q + o1), 1.0f - fc),
+                                __fmul_rn(__ldg(q + o1 + 1), fc));
+    acc[k] += __fadd_rn(__fmul_rn(top, 1.0f - fr), __fmul_rn(bot, fr)) * w;
+  }
+}
+
+template <int K>
+__global__ void fdk_backproject_kernel(
+    const float* __restrict__ qs, const float* __restrict__ cos_b,
+    const float* __restrict__ sin_b, const float* __restrict__ X,
+    const float* __restrict__ Y, const long long* __restrict__ sel,
+    const float* __restrict__ zc, float* __restrict__ out, int V, int R,
+    int C, int P, long long plane, float sid, float dgamma, float row_h,
+    float dbeta) {
+  __shared__ float s_cos[kChunk];
+  __shared__ float s_sin[kChunk];
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  const int iz = blockIdx.y;
+  const bool valid = p < P;
+  const float x = valid ? X[p] : 0.0f;
+  const float y = valid ? Y[p] : 0.0f;
+  const float zs = __fmul_rn(zc[iz], sid);
+  const Detector d = make_detector(V, R, C);
+
+  float acc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = 0.0f;
+
+  for (int v0 = 0; v0 < V; v0 += kChunk) {
+    const int nv = min(kChunk, V - v0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < nv; i += blockDim.x) {
+      s_cos[i] = cos_b[v0 + i];
+      s_sin[i] = sin_b[v0 + i];
+    }
+    __syncthreads();
+    if (!valid) continue;
+    for (int j = 0; j < nv; ++j) {
+      const ViewTap t = view_tap(x, y, s_cos[j], s_sin[j], sid);
+      const float c = channel(t, dgamma, d);
+      if (!in_fan(c, d)) continue;
+      const float ridx = __fadd_rn(
+          __fsub_rn(__fdiv_rn(__fmul_rn(zs, t.inv_h), row_h), 0.5f),
+          d.r_shift);
+      if (!on_detector(ridx, d)) continue;
+      add_taps<K>(qs, d, v0 + j, c, ridx, t.h2, acc);
+    }
+  }
+  if (!valid) return;
+  const long long dst = (long long)iz * plane + sel[p];
+  const long long vol = (long long)gridDim.y * plane;
+#pragma unroll
+  for (int k = 0; k < K; ++k) out[k * vol + dst] = acc[k] * dbeta;
+}
+
+template <int K>
+__global__ void helical_backproject_kernel(
+    const float* __restrict__ qs, const float* __restrict__ cos_b,
+    const float* __restrict__ sin_b, const float* __restrict__ betas,
+    const float* __restrict__ src_z, const float* __restrict__ row_off,
+    const float* __restrict__ beta_c, const float* __restrict__ X,
+    const float* __restrict__ Y, const long long* __restrict__ sel,
+    const float* __restrict__ zc, float* __restrict__ out, int V, int R,
+    int C, int P, long long plane, float sid, float dgamma, float row_h,
+    float beta0, float dbeta) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  const int iz = blockIdx.y;
+  if (p >= P) return;
+  const float x = X[p], y = Y[p];
+  const float z = zc[iz];
+  const float bc = beta_c[iz];
+  const Detector d = make_detector(V, R, C);
+  const int v_lo = max(0, (int)floorf((bc - kPi - beta0) / dbeta) - 2);
+  const int v_hi = min(V - 1, (int)ceilf((bc + kPi - beta0) / dbeta) + 2);
+
+  float num[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) num[k] = 0.0f;
+  float den = 0.0f;
+
+  for (int v = v_lo; v <= v_hi; ++v) {
+    if (!(fabsf(__fsub_rn(__ldg(betas + v), bc)) <= kPi)) continue;
+    const ViewTap t =
+        view_tap(x, y, __ldg(cos_b + v), __ldg(sin_b + v), sid);
+    const float zt = __fmul_rn(
+        __fmul_rn(__fsub_rn(z, __ldg(src_z + v)), sid), t.inv_h);
+    const float ridx = __fadd_rn(
+        __fadd_rn(__fsub_rn(__fdiv_rn(zt, row_h), 0.5f), d.r_shift),
+        __ldg(row_off + v));
+    if (!on_detector(ridx, d)) continue;
+    den += 1.0f;  // the window and row weights are 1 from here on
+    const float c = channel(t, dgamma, d);
+    if (!in_fan(c, d)) continue;
+    add_taps<K>(qs, d, v, c, ridx, t.h2, num);
+  }
+  const long long dst = (long long)iz * plane + sel[p];
+  const long long vol = (long long)gridDim.y * plane;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const float o = den > 0.0f ? __fdiv_rn(num[k], fmaxf(den, 1e-30f)) : 0.0f;
+    out[k * vol + dst] = __fmul_rn(o, kTwoPi);
+  }
+}
+
+// Calls launch(std::integral_constant<int, K>) for K = n_images in 1..4.
+template <typename Launch>
+int for_images(int n_images, Launch&& launch) {
+  switch (n_images) {
+    case 1: launch(std::integral_constant<int, 1>{}); break;
+    case 2: launch(std::integral_constant<int, 2>{}); break;
+    case 3: launch(std::integral_constant<int, 3>{}); break;
+    case 4: launch(std::integral_constant<int, 4>{}); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+constexpr int kThreads = 128;
+
+}  // namespace
+
+extern "C" int dexct_fdk_backproject(const void* qs, const void* cos_b,
+                                     const void* sin_b, const void* X,
+                                     const void* Y, const void* sel,
+                                     const void* zc, void* out, int n_images,
+                                     int V, int R, int C, int P, int nz,
+                                     long long plane, float sid, float dgamma,
+                                     float row_h, float dbeta, void* stream) {
+  if (P <= 0 || nz <= 0) return (int)cudaGetLastError();
+  if (C < 2 || R < 1 || nz > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 blocks((P + kThreads - 1) / kThreads, nz);
+  return for_images(n_images, [&](auto k) {
+    fdk_backproject_kernel<decltype(k)::value>
+        <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float*>(qs), static_cast<const float*>(cos_b),
+            static_cast<const float*>(sin_b), static_cast<const float*>(X),
+            static_cast<const float*>(Y), static_cast<const long long*>(sel),
+            static_cast<const float*>(zc), static_cast<float*>(out), V, R, C,
+            P, plane, sid, dgamma, row_h, dbeta);
+  });
+}
+
+extern "C" int dexct_helical_backproject(
+    const void* qs, const void* cos_b, const void* sin_b, const void* betas,
+    const void* src_z, const void* row_off, const void* beta_c, const void* X,
+    const void* Y, const void* sel, const void* zc, void* out, int n_images,
+    int V, int R, int C, int P, int nz, long long plane, float sid,
+    float dgamma, float row_h, float beta0, float dbeta, void* stream) {
+  if (P <= 0 || nz <= 0) return (int)cudaGetLastError();
+  if (C < 2 || R < 1 || nz > 65535 || !(dbeta > 0.0f))
+    return (int)cudaErrorInvalidValue;
+  const dim3 blocks((P + kThreads - 1) / kThreads, nz);
+  return for_images(n_images, [&](auto k) {
+    helical_backproject_kernel<decltype(k)::value>
+        <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float*>(qs), static_cast<const float*>(cos_b),
+            static_cast<const float*>(sin_b),
+            static_cast<const float*>(betas),
+            static_cast<const float*>(src_z),
+            static_cast<const float*>(row_off),
+            static_cast<const float*>(beta_c), static_cast<const float*>(X),
+            static_cast<const float*>(Y), static_cast<const long long*>(sel),
+            static_cast<const float*>(zc), static_cast<float*>(out), V, R, C,
+            P, plane, sid, dgamma, row_h, beta0, dbeta);
+  });
+}

@@ -1,0 +1,480 @@
+"""Circular and helical cone-beam projection and Feldkamp reconstruction.
+
+Port of the parts of :mod:`dexct_tpu.ops.conebeam` that the fused cone
+pipeline (:mod:`dexct_tpu_torch.pipeline.cone`) runs.  Three kernels, each
+behind a wrapper that dispatches on the device of its tensors (CUDA tensors
+launch the kernel, CPU tensors run the plain PyTorch version beside it):
+
+- :func:`trace_paths_3d`: K10 (``csrc/siddon_trace_3d.cu``), the exact 3-D
+  Siddon trace, one thread per ray walking only the voxels it crosses.  On
+  the card it replaces the JAX package's packed dominant-axis cone tracers
+  (label packs, ray plans and bundles are TPU gather-count layouts of the
+  same paths) as well as its ``trace_paths_3d``;
+- :func:`_fdk_backproject_multi`: K11 (``csrc/cone_backproject.cu``), the
+  voxel-driven circular FDK backprojection of K filtered stacks;
+- :func:`_helical_backproject`: K12 (the same source), the
+  generalized-Feldkamp backprojection of a helical scan (weighting
+  ``full``).
+
+The JAX backprojectors' ``orbit4``, ``pair_mode``, ``view_block``,
+``bf16_taps`` and ``pair_seq`` options are TPU gather-count layouts of one
+image; the kernels compute that image directly.  Pixel centres and the FOV
+disc are the host's float64 values, as in the JAX programs.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..utils import kernels
+
+__all__ = ["trace_paths_3d", "trace_paths_3d_plain",
+           "_fdk_backproject_multi", "_fdk_backproject_multi_plain",
+           "_helical_backproject", "_helical_backproject_plain"]
+
+_BIG = 1e30
+MAX_MATERIALS = 32
+MAX_IMAGES = 4
+
+
+# ---------------------------------------------------------------------------
+# K10: exact 3-D Siddon trace
+# ---------------------------------------------------------------------------
+
+def _grid_3d(labels_shape, dx, dy, dz):
+    """Grid origin, far edges and entry nudge (float64 host scalars,
+    rounded to float32 where used, as the JAX program's Python floats)."""
+    nz, ny, nx = labels_shape
+    g0 = (-0.5 * nx * dx, -0.5 * ny * dy, -0.5 * nz * dz)
+    g1 = (g0[0] + nx * dx, g0[1] + ny * dy, g0[2] + nz * dz)
+    return g0, g1, 1e-6 * (dx + dy + dz)
+
+
+def _ray_setup_3d(labels_shape, p, d, dx, dy, dz):
+    """Entry/exit parameters and DDA state of rays p, d [R, 3] (float32;
+    the operations of the JAX ``trace_paths_3d`` set-up in its order, every
+    division between tensors)."""
+    nz, ny, nx = labels_shape
+    g0, g1, eps = _grid_3d(labels_shape, dx, dy, dz)
+    cells, dims = (dx, dy, dz), (nx, ny, nz)
+
+    def full(v):
+        return torch.full_like(p[:, 0], v)
+
+    setup = []
+    for i in range(3):
+        pi, di = p[:, i], d[:, i]
+        ok = di.abs() > 1e-12
+        safe = torch.where(ok, di, full(1.0))
+        t_lo = (g0[i] - pi) / safe
+        t_hi = (g1[i] - pi) / safe
+        inside = (pi >= g0[i]) & (pi <= g1[i])
+        tmin = torch.where(ok, torch.minimum(t_lo, t_hi),
+                           torch.where(inside, full(-_BIG), full(_BIG)))
+        tmax = torch.where(ok, torch.maximum(t_lo, t_hi),
+                           torch.where(inside, full(_BIG), full(-_BIG)))
+        setup.append((ok, safe, tmin, tmax))
+    t_in = torch.clamp_min(torch.maximum(
+        setup[0][2], torch.maximum(setup[1][2], setup[2][2])), 0.0)
+    t_out = torch.minimum(setup[0][3],
+                          torch.minimum(setup[1][3], setup[2][3]))
+    t_out = torch.where(t_in < t_out, t_out, t_in)  # zero length on miss
+
+    state = []
+    for i in range(3):
+        pi, di = p[:, i], d[:, i]
+        ok, safe, _, _ = setup[i]
+        e = pi + (t_in + eps) * di
+        idx = torch.clamp(torch.floor((e - g0[i]) / full(cells[i])), 0,
+                          dims[i] - 1).to(torch.int64)
+        plane = g0[i] + (idx + (di > 0)).to(torch.float32) * cells[i]
+        t_next = torch.where(ok, (plane - pi) / safe, full(_BIG))
+        dt = torch.where(ok, full(cells[i]) / safe.abs(), full(_BIG))
+        step = torch.where(ok, torch.sign(di), full(0.0)).to(torch.int64)
+        state.append((idx, t_next, dt, step))
+    return t_in, t_out, state
+
+
+def _max_steps(labels_shape):
+    """The walk's trip count: nx+ny+nz+2 bounds the voxels any ray
+    crosses (the JAX ``trace_paths_3d``'s default)."""
+    nz, ny, nx = labels_shape
+    return nx + ny + nz + 2
+
+
+def trace_paths_3d_plain(labels, src, dirs, dx, dy, dz, *, n_materials):
+    """The fixed-trip DDA of ``dexct_tpu.ops.conebeam.trace_paths_3d`` in
+    torch, vectorised over rays, ending once every ray has reached its exit
+    (the remaining steps of the fixed-trip walk add zero-length
+    segments)."""
+    nz, ny, nx = labels.shape
+    batch = src.shape[:-1]
+    p = src.reshape(-1, 3).to(torch.float32)
+    d = dirs.reshape(-1, 3).to(device=p.device, dtype=torch.float32)
+    flat = labels.reshape(-1).to(device=p.device, dtype=torch.int64)
+    t, t_out, state = _ray_setup_3d((nz, ny, nx), p, d, dx, dy, dz)
+    (ix, tnx, dtx, sx), (iy, tny, dty, sy), (iz, tnz, dtz, sz) = state
+    mats = torch.arange(n_materials, device=p.device)
+    acc = torch.zeros((p.shape[0], n_materials), dtype=torch.float32,
+                      device=p.device)
+    for step in range(_max_steps(labels.shape)):
+        if step % 32 == 0 and not bool((t < t_out).any()):
+            break
+        t_min = torch.minimum(torch.minimum(tnx, tny), tnz)
+        t_next = torch.maximum(torch.minimum(t_min, t_out), t)
+        seg = t_next - t
+        lab = flat[(iz * ny + iy) * nx + ix]
+        # one-hot add: labels >= n_materials contribute nothing
+        acc += seg[:, None] * (lab[:, None] == mats).to(acc.dtype)
+        # advance the axis whose crossing is nearest (ties: x, then y)
+        take_x = tnx <= torch.minimum(tny, tnz)
+        take_y = ~take_x & (tny <= tnz)
+        take_z = ~(take_x | take_y)
+        ix = torch.clamp(torch.where(take_x, ix + sx, ix), 0, nx - 1)
+        iy = torch.clamp(torch.where(take_y, iy + sy, iy), 0, ny - 1)
+        iz = torch.clamp(torch.where(take_z, iz + sz, iz), 0, nz - 1)
+        tnx = torch.where(take_x, tnx + dtx, tnx)
+        tny = torch.where(take_y, tny + dty, tny)
+        tnz = torch.where(take_z, tnz + dtz, tnz)
+        t = t_next
+    return acc.reshape(*batch, n_materials)
+
+
+def labels_u8(labels, device):
+    """A label volume as the contiguous uint8 tensor the kernel reads,
+    after checking that every label fits."""
+    lab = torch.as_tensor(labels, device=device)
+    if lab.dtype != torch.uint8:
+        if lab.numel() and (int(lab.min()) < 0 or int(lab.max()) > 255):
+            raise ValueError("material labels must lie in 0..255")
+        lab = lab.to(torch.uint8)
+    return lab.contiguous()
+
+
+def _trace_paths_3d_cuda(labels, src, dirs, dx, dy, dz, n_materials):
+    nz, ny, nx = labels.shape
+    dev = src.device
+    lab = labels_u8(labels, dev)
+    src2 = src.reshape(-1, 3).to(torch.float32).contiguous()
+    dirs2 = kernels.require(dirs.reshape(-1, 3).to(torch.float32)
+                            .contiguous(), "dirs", dev, torch.float32,
+                            src2.shape)
+    n_rays = src2.shape[0]
+    out = torch.empty((n_rays, n_materials), dtype=torch.float32, device=dev)
+    g0, g1, eps = _grid_3d((nz, ny, nx), dx, dy, dz)
+    rc = kernels.library().dexct_siddon_trace_3d(
+        lab.data_ptr(), src2.data_ptr(), dirs2.data_ptr(), out.data_ptr(),
+        n_rays, nx, ny, nz, n_materials, *g0, *g1, dx, dy, dz, eps,
+        _max_steps((nz, ny, nx)), kernels.stream_ptr(dev))
+    kernels.check(rc, "siddon_trace_3d")
+    trace_paths_3d.launches += 1
+    return out.reshape(*src.shape[:-1], n_materials)
+
+
+def trace_paths_3d(labels, src, dirs, dx, dy, dz, *, n_materials):
+    """Exact per-material radiological paths of 3-D rays.
+
+    labels: [Nz, Ny, Nx] integer labels (uint8 on the CUDA path; labels
+    >= n_materials contribute nothing), the grid centred on the origin;
+    src, dirs: [..., 3] ray origins and unit directions (x, y, z); dx, dy,
+    dz: voxel sizes [cm].  Returns float32 ``[..., n_materials]``.
+
+    CUDA tensors run kernel K10 (counted in ``trace_paths_3d.launches``);
+    CPU tensors run :func:`trace_paths_3d_plain`.
+    """
+    if not 1 <= n_materials <= MAX_MATERIALS:
+        raise ValueError(f"n_materials must be in 1..{MAX_MATERIALS}, got "
+                         f"{n_materials}")
+    args = (float(dx), float(dy), float(dz))
+    if src.is_cuda:
+        return _trace_paths_3d_cuda(labels, src, dirs, *args,
+                                    int(n_materials))
+    if src.device.type != "cpu":
+        raise ValueError(f"unsupported device {src.device}")
+    return trace_paths_3d_plain(torch.as_tensor(labels), src, dirs, *args,
+                                n_materials=int(n_materials))
+
+
+trace_paths_3d.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Shared backprojection geometry
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=8)
+def _disc_host(n_matrix, fov):
+    """(X [P], Y [P] float32, sel [P] int64): centres of the pixels inside
+    the FOV disc, tested and computed in float64 as the JAX programs do.
+    Shared: never write."""
+    N = n_matrix
+    c = (np.arange(N) + 0.5 - N / 2.0) * (fov / N)
+    XX, YY = np.meshgrid(c, c)
+    sel = np.nonzero((np.hypot(XX, YY) <= fov / 2.0).reshape(-1))[0]
+    return (XX.reshape(-1)[sel].astype(np.float32),
+            YY.reshape(-1)[sel].astype(np.float32), sel.astype(np.int64))
+
+
+def _disc(n_matrix, fov, device):
+    X, Y, sel = _disc_host(int(n_matrix), float(fov))
+    return (torch.as_tensor(X, device=device),
+            torch.as_tensor(Y, device=device),
+            torch.as_tensor(sel, device=device))
+
+
+def _inplane(X, Y, beta, sid, dgamma, C):
+    """Per-(view, pixel) tap geometry [B, P] of the JAX programs' ``block``
+    body: channel index and weight, 1/sqrt(h^2) and w_in / h^2."""
+    cb, sb = torch.cos(beta)[:, None], torch.sin(beta)[:, None]
+    ell = sid - (X[None, :] * cb + Y[None, :] * sb)
+    vt = -X[None, :] * sb + Y[None, :] * cb
+    gam = torch.atan2(-vt, ell)
+    h2 = ell * ell + vt * vt
+    inv_h = torch.ones_like(h2) / torch.sqrt(h2)
+    cidx = gam / torch.full_like(gam, dgamma) - 0.5 + C / 2.0
+    c0 = torch.clamp(torch.floor(cidx), 0, C - 2)
+    fc = torch.clamp(cidx - c0, 0.0, 1.0)
+    w_in = ((cidx >= 0.0) & (cidx <= C - 1.0)).to(h2.dtype)
+    return c0.to(torch.int64), fc, inv_h, w_in / h2
+
+
+def _bilinear(qf, base, c0, fc, ridx, R, C):
+    """Bilinear (row, channel) value of the K flat stacks ``qf`` [K, V*R*C]
+    at rows ``ridx`` and channels (c0, fc); ``base`` = v * R * C.  Returns
+    (values [K, ...], w_z)."""
+    r0 = torch.clamp(torch.floor(ridx), 0, max(R - 2, 0))
+    fr = torch.clamp(ridx - r0, 0.0, 1.0)
+    w_z = ((ridx >= -0.5) & (ridx <= R - 0.5)).to(ridx.dtype)
+    r0 = r0.to(torch.int64)
+    r1 = torch.clamp_max(r0 + 1, R - 1)  # the JAX row shift repeats row R-1
+    i00 = base + r0 * C + c0
+    i10 = base + r1 * C + c0
+    top = qf[:, i00] * (1 - fc) + qf[:, i00 + 1] * fc
+    bot = qf[:, i10] * (1 - fc) + qf[:, i10 + 1] * fc
+    return top * (1 - fr) + bot * fr, w_z
+
+
+def _check_stack(q, name):
+    if q.dim() != 4:
+        raise ValueError(f"{name} must be [K, V, R, C], got "
+                         f"{tuple(q.shape)}")
+    K, V, R, C = q.shape
+    if not 1 <= K <= MAX_IMAGES:
+        raise ValueError(f"{name} stacks 1..{MAX_IMAGES} images, got {K}")
+    if C < 2 or R < 1:
+        raise ValueError(f"{name} needs at least 2 channels and 1 row")
+
+
+def _place(vals, sel, n_matrix):
+    """[K, nz, P] disc values -> [K, nz, N, N] volumes, 0 off the disc."""
+    K, nz, _ = vals.shape
+    vol = vals.new_zeros((K, nz, n_matrix * n_matrix))
+    vol[:, :, sel] = vals
+    return vol.reshape(K, nz, n_matrix, n_matrix)
+
+
+# ---------------------------------------------------------------------------
+# K11: circular FDK
+# ---------------------------------------------------------------------------
+
+def _fdk_z(nz_out, dz_out, z_center, device):
+    """Slice centres of the JAX FDK grid, in float32."""
+    return ((torch.arange(nz_out, dtype=torch.float32, device=device) + 0.5
+             - nz_out / 2.0) * dz_out + z_center)
+
+
+def _fdk_backproject_multi_plain(qs, betas, sid, dgamma, row_h, n_rows,
+                                 n_matrix, nz_out, fov, dz_out, dbeta,
+                                 z_center=0.0, *, view_block=8):
+    """``dexct_tpu.ops.conebeam._fdk_backproject_multi`` in torch: blocks
+    of ``view_block`` views, every (disc pixel, slice) at once."""
+    K, V, R, C = qs.shape
+    dev = qs.device
+    X, Y, sel = _disc(n_matrix, fov, dev)
+    zc = _fdk_z(nz_out, dz_out, z_center, dev)
+    betas = betas.to(device=dev, dtype=torch.float32)
+    qf = qs.to(torch.float32).reshape(K, -1)
+    acc = qf.new_zeros((K, nz_out, X.shape[0]))
+    for v0 in range(0, V, view_block):
+        beta = betas[v0:v0 + view_block]
+        c0, fc, inv_h, w_amp = _inplane(X, Y, beta, sid, dgamma, C)
+        ridx = ((zc[None, :, None] * sid) * inv_h[:, None, :]
+                / torch.full_like(inv_h[:, None, :], row_h)) - 0.5 + R / 2.0
+        base = (torch.arange(v0, v0 + beta.shape[0], device=dev)
+                * (R * C))[:, None, None]
+        val, w_z = _bilinear(qf, base, c0[:, None, :], fc[:, None, :], ridx,
+                             R, C)
+        acc += (val * (w_amp[:, None, :] * w_z)).sum(1)
+    return _place(acc * dbeta, sel, n_matrix)
+
+
+def _fdk_cuda(qs, betas, sid, dgamma, row_h, n_matrix, nz_out, fov, dz_out,
+              dbeta, z_center):
+    dev = qs.device
+    K, V, R, C = qs.shape
+    kernels.require(qs, "qs", dev, torch.float32)
+    kernels.require(betas, "betas", dev, torch.float32, (V,))
+    X, Y, sel = _disc(n_matrix, fov, dev)
+    zc = _fdk_z(nz_out, dz_out, z_center, dev)
+    cos_b, sin_b = torch.cos(betas), torch.sin(betas)
+    out = torch.zeros((K, nz_out, n_matrix, n_matrix), dtype=torch.float32,
+                      device=dev)
+    rc = kernels.library().dexct_fdk_backproject(
+        qs.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(), X.data_ptr(),
+        Y.data_ptr(), sel.data_ptr(), zc.data_ptr(), out.data_ptr(), K, V,
+        R, C, X.shape[0], nz_out, n_matrix * n_matrix, sid, dgamma, row_h,
+        dbeta, kernels.stream_ptr(dev))
+    kernels.check(rc, "fdk_backproject")
+    _fdk_backproject_multi.launches += 1
+    return out
+
+
+def _fdk_backproject_multi(qs, betas, sid, dgamma, row_h, n_rows, n_matrix,
+                           nz_out, fov, dz_out, dbeta, z_center=0.0):
+    """Voxel-driven FDK backprojection of K filtered stacks at once.
+
+    qs: [K, V, R, C] (cos- and cone-weighted, ramp-filtered, times dgamma);
+    betas: [V].  Per (disc pixel, slice, view): bilinear (row, channel)
+    taps with the fan-edge and detector-edge masks and the 1/h^2 weight;
+    the sum is multiplied by ``dbeta``.  Returns [K, nz_out, N, N], 0 off
+    the FOV disc.  CUDA tensors run kernel K11 (counted in
+    ``_fdk_backproject_multi.launches``); CPU tensors run
+    :func:`_fdk_backproject_multi_plain`.
+    """
+    _check_stack(qs, "qs")
+    if qs.shape[2] != n_rows:
+        raise ValueError(f"qs has {qs.shape[2]} rows, n_rows={n_rows}")
+    geo = (float(sid), float(dgamma), float(row_h))
+    grid = (int(n_matrix), int(nz_out), float(fov), float(dz_out),
+            float(dbeta), float(z_center))
+    if qs.is_cuda:
+        return _fdk_cuda(qs, betas, *geo, *grid)
+    if qs.device.type != "cpu":
+        raise ValueError(f"unsupported device {qs.device}")
+    return _fdk_backproject_multi_plain(qs, betas, *geo, int(n_rows), *grid)
+
+
+_fdk_backproject_multi.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K12: helical generalized Feldkamp
+# ---------------------------------------------------------------------------
+
+def _helical_z(nz_out, dz_out, z0, device):
+    """Slice centres of the JAX helical grid, in float32."""
+    return (torch.tensor(z0, dtype=torch.float32, device=device)
+            + torch.arange(nz_out, dtype=torch.float32, device=device)
+            * dz_out)
+
+
+def _helical_backproject_plain(q, betas, src_z, row_off, beta_c, sid, dgamma,
+                               row_h, n_rows, pitch, n_matrix, nz_out, fov,
+                               dz_out, z0, *, view_block=8):
+    """``dexct_tpu.ops.conebeam._helical_backproject`` (weighting
+    ``full``) in torch: blocks of ``view_block`` views over every (disc
+    pixel, slice); views outside a slice's window add exact zeros."""
+    M, V, R, C = q.shape
+    dev = q.device
+    X, Y, sel = _disc(n_matrix, fov, dev)
+    zc = _helical_z(nz_out, dz_out, z0, dev)
+    f32 = dict(device=dev, dtype=torch.float32)
+    betas, src_z, row_off, beta_c = (t.to(**f32) for t in
+                                     (betas, src_z, row_off, beta_c))
+    qf = q.to(torch.float32).reshape(M, -1)
+    num = qf.new_zeros((M, nz_out, X.shape[0]))
+    den = qf.new_zeros((nz_out, X.shape[0]))
+    for v0 in range(0, V, view_block):
+        sl = slice(v0, v0 + view_block)
+        beta, sz, ro = betas[sl], src_z[sl], row_off[sl]
+        c0, fc, inv_h, w_amp = _inplane(X, Y, beta, sid, dgamma, C)
+        zt = ((zc[None, :] - sz[:, None]) * sid)[:, :, None] \
+            * inv_h[:, None, :]  # [B, nz, P]
+        ridx = (zt / torch.full_like(zt, row_h) - 0.5 + R / 2.0
+                + ro[:, None, None])
+        base = (torch.arange(v0, v0 + beta.shape[0], device=dev)
+                * (R * C))[:, None, None]
+        val, w_z = _bilinear(qf, base, c0[:, None, :], fc[:, None, :], ridx,
+                             R, C)
+        w_win = ((beta[:, None] - beta_c[None, :]).abs()
+                 <= np.pi).to(torch.float32)  # [B, nz]
+        w = w_z * w_win[:, :, None]
+        num += (val * (w_amp[:, None, :] * w)).sum(1)
+        den += w.sum(0)
+    out = torch.where(den > 0, num / torch.clamp_min(den, 1e-30),
+                      torch.zeros_like(num))
+    return _place(out * (2.0 * np.pi), sel, n_matrix)
+
+
+def _helical_cuda(q, betas, src_z, row_off, beta_c, sid, dgamma, row_h,
+                  n_matrix, nz_out, fov, dz_out, z0, dbeta):
+    dev = q.device
+    M, V, R, C = q.shape
+    kernels.require(q, "q", dev, torch.float32)
+    for name, t in (("betas", betas), ("src_z", src_z),
+                    ("row_off", row_off)):
+        kernels.require(t, name, dev, torch.float32, (V,))
+    kernels.require(beta_c, "beta_c", dev, torch.float32, (nz_out,))
+    X, Y, sel = _disc(n_matrix, fov, dev)
+    zc = _helical_z(nz_out, dz_out, z0, dev)
+    cos_b, sin_b = torch.cos(betas), torch.sin(betas)
+    beta0 = float(betas[0])  # the origin of each slice's view range
+    out = torch.zeros((M, nz_out, n_matrix, n_matrix), dtype=torch.float32,
+                      device=dev)
+    rc = kernels.library().dexct_helical_backproject(
+        q.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(), betas.data_ptr(),
+        src_z.data_ptr(), row_off.data_ptr(), beta_c.data_ptr(),
+        X.data_ptr(), Y.data_ptr(), sel.data_ptr(), zc.data_ptr(),
+        out.data_ptr(), M, V, R, C, X.shape[0], nz_out, n_matrix * n_matrix,
+        sid, dgamma, row_h, beta0, dbeta, kernels.stream_ptr(dev))
+    kernels.check(rc, "helical_backproject")
+    _helical_backproject.launches += 1
+    return out
+
+
+def _helical_backproject(q, betas, src_z, row_off, beta_c, sid, dgamma,
+                         row_h, n_rows, pitch, n_matrix, nz_out, fov, dz_out,
+                         z0, *, dbeta, weighting="full"):
+    """Generalized-Feldkamp backprojection of a helical orbit.
+
+    Per (disc pixel, slice) the views inside the 2 pi window centred on the
+    slice's ``beta_c`` (|beta - beta_c| <= pi) add the circular-FDK 1/h^2
+    weighted bilinear tap (rows shifted by the source's ``src_z`` and by
+    ``row_off``); the sum is normalised by the window weight and scaled by
+    2 pi.  q: [M, V, R, C]; betas, src_z, row_off: [V], the views
+    uniformly spaced, ``betas[v] = betas[0] + v dbeta`` (``dbeta > 0``),
+    so that each slice visits only the views of its window (the terms
+    dropped are exact zeros); beta_c: [nz_out].  Returns
+    [M, nz_out, N, N].
+
+    CUDA tensors run kernel K12 (counted in
+    ``_helical_backproject.launches``); CPU tensors run
+    :func:`_helical_backproject_plain`.  Only ``weighting='full'``, the
+    fused pipeline's, is ported.
+    """
+    if weighting != "full":
+        raise NotImplementedError(
+            f"helical weighting {weighting!r} is not ported yet (ROADMAP "
+            "queue 2, row 11: other 3-D reconstructors)")
+    _check_stack(q, "q")
+    if q.shape[2] != n_rows:
+        raise ValueError(f"q has {q.shape[2]} rows, n_rows={n_rows}")
+    if not dbeta > 0.0:
+        raise ValueError(f"dbeta must be > 0, got {dbeta}")
+    if q.is_cuda:
+        return _helical_cuda(q, betas, src_z, row_off, beta_c, float(sid),
+                             float(dgamma), float(row_h), int(n_matrix),
+                             int(nz_out), float(fov), float(dz_out),
+                             float(z0), float(dbeta))
+    if q.device.type != "cpu":
+        raise ValueError(f"unsupported device {q.device}")
+    return _helical_backproject_plain(
+        q, betas, src_z, row_off, beta_c, float(sid), float(dgamma),
+        float(row_h), int(n_rows), float(pitch), int(n_matrix), int(nz_out),
+        float(fov), float(dz_out), float(z0))
+
+
+_helical_backproject.launches = 0

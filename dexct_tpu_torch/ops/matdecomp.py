@@ -57,17 +57,40 @@ def _solve_spd(H, dF):
     return torch.stack([d0, d1], -1)
 
 
+def _bf16_products(a, musT):
+    """bfloat16 ``a @ musT.T`` for a [B, 2], musT [E, 2], rounded as the
+    JAX warm phase's ``jnp.matmul`` of bfloat16 operands rounds it: each
+    product of two bfloat16 values is exact in float32, the two are summed
+    in float32 and the sum is rounded once to bfloat16.  Written out, so
+    that no CPU bfloat16 GEMM backend picks the rounding."""
+    a32 = a.to(torch.bfloat16).float()
+    m32 = musT.to(torch.bfloat16).float()
+    return (a32[:, :1] * m32[:, 0] + a32[:, 1:] * m32[:, 1]).to(
+        torch.bfloat16)
+
+
 def _moments_plain(a, musT, w, bf16):
     """[B, 6] = (nu_0, nu_1, g_00, g_01, g_10, g_11) at iterate a [B, 2].
 
     ``bf16`` reproduces the JAX warm phase: iterate, tables, exponent and
-    attenuation in bfloat16, products summed in float32."""
+    attenuation in bfloat16, products summed in float32.  The float32
+    exponent is the two products summed in order, and the exp and the sums
+    over energies are taken in float64 and rounded once, so that neither
+    the CPU's BLAS nor its vector-math library (both pick their kernels by
+    the host's instruction set) sets the rounding."""
     if bf16:
-        L = a.to(torch.bfloat16) @ musT.to(torch.bfloat16).T
+        L = _bf16_products(a, musT)
         atten = torch.exp(torch.clamp(-L, -_CLIP, 20.0))
-        return atten.float() @ w.to(torch.bfloat16).float()
-    L = a @ musT.T
-    return torch.exp(torch.clamp(-L, -_CLIP, 20.0)) @ w
+        return (atten.double() @ w.to(torch.bfloat16).double()).float()
+    L = a[:, :1] * musT[:, 0] + a[:, 1:] * musT[:, 1]
+    atten = torch.exp(torch.clamp(-L, -_CLIP, 20.0).double())
+    return (atten @ w.double()).float()
+
+
+def _in_f64(fn, x):
+    """``fn`` of float32 ``x`` taken in float64 and rounded once (the
+    CPU's float32 log and sqrt round by the host's instruction set)."""
+    return fn(x.double()).float()
 
 
 def _log_step(a, ngh, log_y, smax, lo, hi):
@@ -75,13 +98,13 @@ def _log_step(a, ngh, log_y, smax, lo, hi):
     nu_safe = torch.clamp_min(nu, 1e-35)
     J = g / nu_safe[..., None]  # [B, M, K]
     # photon-starved pixels would send the residual to -inf
-    r = torch.clamp(log_y - torch.log(nu_safe), -30.0, 30.0)
+    r = torch.clamp(log_y - _in_f64(torch.log, nu_safe), -30.0, 30.0)
     dF = (r[..., None] * J).sum(1)
     H = torch.stack([(J[:, :, 0] * J[:, :, 0]).sum(1),
                      (J[:, :, 0] * J[:, :, 1]).sum(1),
                      (J[:, :, 1] * J[:, :, 1]).sum(1)], -1)
     step = _solve_spd(H, dF)
-    norm = torch.sqrt((step * step).sum(-1, keepdim=True))
+    norm = _in_f64(torch.sqrt, (step * step).sum(-1, keepdim=True))
     step = step * torch.clamp_max(
         torch.full_like(norm, smax) / torch.clamp_min(norm, 1e-30), 1.0)
     return torch.clamp(a - step, lo, hi)
@@ -95,7 +118,7 @@ def _solve_block_plain(y, full, warm, n_warm, n_pol, warm_bf16, eps_init,
     grid for the float32 polish and the warm-phase table.  Returns a
     [B, 2]."""
     a = torch.full_like(y, eps_init)
-    log_y = torch.log(torch.clamp_min(y, 1e-35))
+    log_y = _in_f64(torch.log, torch.clamp_min(y, 1e-35))
     lo = max(a_lo, -1.0)  # the log step clamps negative overshoot hard
     smax = 10.0 * step_max  # ... and has the loose trust radius
     for _ in range(n_warm):

@@ -188,8 +188,16 @@ def material_path_sinogram(phantom, geometry, *, device,
 
     Host-side convenience wrapper: derives the rays from the geometry and
     traces them on ``device``.  One exact per-ray trace serves every grid,
-    so the JAX package's ``method`` choice has no counterpart here.
+    so the JAX package's ``method`` choice has no counterpart here.  An
+    :class:`~dexct_tpu_torch.system.analytic.AnalyticPhantom` is traced in
+    closed form (:func:`~dexct_tpu_torch.system.analytic.analytic_paths`).
     """
+    from ..system.analytic import (AnalyticPhantom,
+                                   material_path_sinogram_analytic)
+
+    if isinstance(phantom, AnalyticPhantom):
+        return material_path_sinogram_analytic(phantom, geometry,
+                                               device=device, dtype=dtype)
     src, dirs = geometry.ray_geometry()
     return trace_paths(
         labels_tensor(phantom, device),

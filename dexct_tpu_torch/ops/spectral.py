@@ -6,8 +6,8 @@ Port of :mod:`dexct_tpu.ops.spectral`:
 
 :func:`counts_from_paths` dispatches on the device of its tensors: CUDA
 tensors go to the hand-written Triton kernel K2 (``_counts_kernel``), CPU
-tensors to :func:`counts_from_paths_plain`, the JAX package's two matrix
-products in torch.
+tensors to :func:`counts_from_paths_plain`, the JAX package's two
+contractions in torch.
 
 K2 replaces the TPU program ``dexct_tpu/ops/spectral.py:counts_from_paths``
 (two MXU matmuls, ``[R, M] @ [M, E]`` then ``exp(-L) @ i0``).  On the card
@@ -66,12 +66,19 @@ def second_moment_fluence(spec, geometry):
 
 
 def counts_from_paths_plain(paths, mu_table, i0_eff):
-    """``exp(-clip(paths @ mu)) @ i0`` as two float32 matrix products."""
-    L = paths @ mu_table.to(paths.dtype)  # [..., E]
+    """``exp(-clip(paths @ mu)) @ i0`` with its rounding fixed by the
+    expression, not by the CPU's BLAS or vector-math library (both pick
+    their kernels, and so their rounding, by the host's instruction set):
+    ``L`` is the float32 sum of the M products in material order, and the
+    exp and the sum over energies are taken in float64 and rounded once."""
+    mu = mu_table.to(paths.dtype)
+    L = paths[..., :1] * mu[0]  # [..., E]
+    for m in range(1, mu.shape[0]):
+        L = L + paths[..., m:m + 1] * mu[m]
     # L >= 0 physically; the tight upper clip keeps float32 finite when an
     # approximate projector rings slightly negative at sharp edges
-    atten = torch.exp(torch.clamp(-L, -700.0, 2.0))
-    return atten @ i0_eff.to(paths.dtype)
+    atten = torch.exp(torch.clamp(-L, -700.0, 2.0).double())
+    return (atten @ i0_eff.double()).to(paths.dtype)
 
 
 @functools.lru_cache(maxsize=1)

@@ -9,6 +9,7 @@ from .api import (
     load_spectrum,
     simulate_dect,
 )
+from .cone import ConeDectMeta, cone_dect_step, pack_cone_dect
 from .runner import DEFAULT_SPEC_PAIRS, run_config, run_parameter_file
 
 __all__ = [
@@ -22,4 +23,7 @@ __all__ = [
     "run_config",
     "run_parameter_file",
     "DEFAULT_SPEC_PAIRS",
+    "ConeDectMeta",
+    "pack_cone_dect",
+    "cone_dect_step",
 ]

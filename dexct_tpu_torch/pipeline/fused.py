@@ -13,7 +13,10 @@ projector (:mod:`dexct_tpu_torch.ops.fourier`: cuFFT, KB sampler K7, fan
 resample K8); ``'siddon'`` the exact trace K1.  ``'siddon_dominant'`` runs
 the same exact per-ray kernel as ``'siddon'``: on the card one per-ray walk
 replaces the TPU's whole packed-plan family, and its output is already in
-natural [V, C, M] order.
+natural [V, C, M] order.  ``'analytic'`` traces an
+:class:`~dexct_tpu_torch.system.analytic.AnalyticPhantom`'s ellipses in
+closed form (K9); it is a library choice, as in the JAX package, and no
+CLI flag selects it.
 
 Reconstructions: ``'parallel'`` (the default of the CLI) rebins the fan
 data to a (θ, t) parallel grid (K5), filters it and backprojects it over
@@ -37,11 +40,13 @@ from ..ops.filters import filter_frequency_response
 from ..ops.fourier import (fourier_paths_from_arrays, plan_arrays,
                            plan_fourier_projector)
 from ..ops.siddon import labels_tensor, trace_paths
+from ..system.analytic import AnalyticPhantom, analytic_paths
 
 __all__ = ["DectMeta", "PROJECTORS", "pack_dect", "dect_step",
-           "reconstruct_stack", "arrays_from_numpy", "check_choices"]
+           "decompose_counts", "reconstruct_stack", "arrays_from_numpy",
+           "check_choices"]
 
-PROJECTORS = ("fourier", "siddon", "siddon_dominant")
+PROJECTORS = ("fourier", "siddon", "siddon_dominant", "analytic")
 RECONS = ("parallel", "fan")
 
 # the arrays dect_step reads, with their dtypes
@@ -63,6 +68,7 @@ _OPTIONAL_DTYPES = {
     "fp_fan_w": torch.float32,
     "rb_idx": torch.int32, "rb_w": torch.float32,
     "par_thetas": torch.float32, "par_H": torch.float32,
+    "an_params": torch.float32, "an_labels": torch.int32,
 }
 
 
@@ -103,10 +109,6 @@ class DectMeta(NamedTuple):
 
 def check_choices(projector, recon):
     """Raise for a projector or reconstruction this port does not run."""
-    if projector == "analytic":
-        raise NotImplementedError(
-            "projector='analytic' is not ported yet (ROADMAP queue 2: "
-            "analytic projector, the next slice)")
     if projector not in PROJECTORS:
         raise ValueError(f"unknown projector {projector!r}")
     if recon not in RECONS:
@@ -131,10 +133,11 @@ def pack_dect(ct, phantom, spec1, spec2, n_matrix, fov, ramp, *, device,
     if getattr(ct, "ffs", "none") != "none":
         raise ValueError(
             "the fused pipeline's recon tables assume a static focal spot")
-    if not hasattr(phantom, "slice_labels"):
-        raise NotImplementedError(
-            "analytic phantoms are not ported yet (ROADMAP queue 2, "
-            "analytic projector)")
+    analytic = isinstance(phantom, AnalyticPhantom)
+    if (projector == "analytic") != analytic:
+        raise ValueError(
+            "projector='analytic' requires an AnalyticPhantom, and an "
+            "AnalyticPhantom requires projector='analytic'")
     src, dirs = ct.ray_geometry()
     i0_1 = sp_ops.effective_fluence(spec1, ct)
     i0_2 = sp_ops.effective_fluence(spec2, ct)
@@ -154,7 +157,17 @@ def pack_dect(ct, phantom, spec1, spec2, n_matrix, fov, ramp, *, device,
     }
     arrays = {k: torch.as_tensor(np.asarray(v), dtype=_ARRAY_DTYPES[k],
                                  device=device) for k, v in host.items()}
-    arrays["labels"] = labels_tensor(phantom, device)
+    if analytic:
+        # analytic phantoms carry shapes instead of a label grid
+        params, labs = phantom.shape_arrays()
+        arrays["labels"] = torch.zeros((2, 2), dtype=torch.uint8,
+                                       device=device)
+        arrays["an_params"] = torch.as_tensor(params, dtype=torch.float32,
+                                              device=device)
+        arrays["an_labels"] = torch.as_tensor(labs, dtype=torch.int32,
+                                              device=device)
+    else:
+        arrays["labels"] = labels_tensor(phantom, device)
     fp_meta = ()
     if projector == "fourier":
         plan = plan_fourier_projector(phantom, ct, n_theta=n_theta,
@@ -182,8 +195,8 @@ def pack_dect(ct, phantom, spec1, spec2, n_matrix, fov, ramp, *, device,
         n_matrix=int(n_matrix),
         fft_len=int(m),
         n_iters=int(n_iters),
-        dx=float(phantom.dx),
-        dy=float(phantom.dy),
+        dx=float(getattr(phantom, "dx", 1.0)),
+        dy=float(getattr(phantom, "dy", 1.0)),
         sid=float(ct.SID),
         dgamma=float(ct.dgamma),
         dbeta=float(ct.rotation_total / ct.N_proj),
@@ -248,8 +261,27 @@ def _project_paths(a, meta: DectMeta):
     """Material paths [V, C, M] from the meta's projector."""
     if meta.projector == "fourier":
         return fourier_paths_from_arrays(a, a["labels"], meta.fp_meta)
+    if meta.projector == "analytic":
+        return analytic_paths(a["an_params"], a["an_labels"], a["src"],
+                              a["dirs"], n_materials=meta.n_materials)
     return trace_paths(a["labels"], a["src"], a["dirs"], meta.dx, meta.dy,
                        n_materials=meta.n_materials)
+
+
+def decompose_counts(counts1, counts2, a, meta, pixel_block=65536):
+    """Gauss-Newton decomposition (K3) of a counts pair of any shape, with
+    the air mask against the maximum of ``counts1`` over the whole
+    sinogram: the (mat1, mat2) basis sinograms [g/cm^2].  Shared by the
+    fan and cone steps (``meta`` gives n_iters, mask_thresh and
+    gn_warm_nodes)."""
+    flat = torch.stack([counts1.reshape(-1), counts2.reshape(-1)])
+    ab = md_ops.gauss_newton_solve(
+        flat, a["dec_i0"], a["dec_mus"], n_iters=meta.n_iters,
+        pixel_block=pixel_block, warm_nodes=meta.gn_warm_nodes)
+    mask = counts1 >= meta.mask_thresh * counts1.max()
+    zero = torch.zeros((), dtype=ab.dtype, device=ab.device)
+    return (torch.where(mask, zero, ab[:, 0].reshape(counts1.shape)),
+            torch.where(mask, zero, ab[:, 1].reshape(counts1.shape)))
 
 
 def dect_step(arrays, meta: DectMeta):
@@ -273,15 +305,8 @@ def dect_step(arrays, meta: DectMeta):
     log1 = sp_ops.log_sinogram(counts1, meta.air1)
     log2 = sp_ops.log_sinogram(counts2, meta.air2)
 
-    flat = torch.stack([counts1.reshape(-1), counts2.reshape(-1)])
-    ab = md_ops.gauss_newton_solve(
-        flat, a["dec_i0"], a["dec_mus"], n_iters=meta.n_iters,
-        pixel_block=meta.pixel_block, warm_nodes=meta.gn_warm_nodes)
-    # air mask against the maximum over the WHOLE sinogram
-    mask = counts1 >= meta.mask_thresh * counts1.max()
-    zero = torch.zeros((), dtype=ab.dtype, device=ab.device)
-    mat1 = torch.where(mask, zero, ab[:, 0].reshape(counts1.shape))
-    mat2 = torch.where(mask, zero, ab[:, 1].reshape(counts1.shape))
+    mat1, mat2 = decompose_counts(counts1, counts2, a, meta,
+                                  meta.pixel_block)
 
     imgs = reconstruct_stack(torch.stack([log1, log2, mat1, mat2]), a, meta)
     r1, r2, m1r, m2r = imgs[0], imgs[1], imgs[2], imgs[3]

@@ -4,7 +4,10 @@ Port of :mod:`dexct_tpu.pipeline.runner`: loops over the run configs of a
 params file and the dual-energy spectrum pairs, runs trace ->
 acquisitions -> decomposition -> reconstruction on ``device``, and writes
 the §2.6 output contract (flat float32 ``.bin`` files) with the same names
-and layout as the JAX package.  As in the JAX runner, the fused engine
+and layout as the JAX package.  Cone-beam and helical configs run the fused
+cone pipeline (:mod:`dexct_tpu_torch.pipeline.cone`) and write the natural
+volume extension of the contract: the same file names, [V, R, C] sinograms
+and [nz, N, N] volumes.  As in the JAX runner, the fused engine
 runs the exact Siddon projector for a non-square phantom (the Fourier
 projector needs a square grid) and direct fan reconstruction for a partial
 rotation (rebinning needs a full one).  Choices that are not ported yet
@@ -77,18 +80,52 @@ def _effective_noise(noise, ct):
     return "compound" if noise == "poisson" and ct.eid else noise
 
 
-def _check_supported(cfg, engine, projector, recon, bhc, denoise):
+RECON3D = ("auto", "fdk", "helical", "katsevich")
+
+
+def _check_cone(cfg, recon3d):
+    """The JAX runner's ``recon3d`` rules for a cone/helical config, then
+    a ``NotImplementedError`` for the 3-D choices that run outside the
+    fused cone pipeline (the JAX runner's stateless path)."""
+    from .cone import unsupported_geometry
+
+    if recon3d not in RECON3D:
+        raise ValueError(f"unknown recon3d {recon3d!r}")
+    ct = cfg.ct
+    helical = abs(getattr(ct, "pitch", 0.0)) > 1e-12
+    if not helical and recon3d in ("helical", "katsevich"):
+        raise ValueError(
+            f"recon3d={recon3d!r} requires a helical config (pitch>0); "
+            f"config {cfg.run_id!r} is a circular orbit")
+    if helical and recon3d == "fdk":
+        raise ValueError(
+            "recon3d='fdk' (circular FDK) cannot reconstruct a helical "
+            f"scan; config {cfg.run_id!r} has pitch "
+            f"{getattr(ct, 'pitch', 0.0)!r} — use 'helical', "
+            "'katsevich', or 'auto'")
+    if recon3d == "katsevich":
+        raise NotImplementedError(
+            "recon3d='katsevich' is not ported yet (ROADMAP queue 2, row "
+            "11: ops/katsevich.py)")
+    bad = unsupported_geometry(ct)
+    if bad:
+        raise NotImplementedError(
+            f"{bad[0]} cone configs are not ported yet (ROADMAP queue 2, "
+            f"{bad[2]})")
+
+
+def _check_supported(cfg, engine, projector, recon, bhc, denoise,
+                     recon3d="auto"):
     """Raise for every choice this port does not run yet."""
     from ..system.geometry import ConeBeamGeometry, FanBeamGeometry
     from .fused import check_choices
 
     if engine not in ("fused", "composed"):
         raise ValueError(f"unknown engine {engine!r}")
-    if isinstance(cfg.ct, ConeBeamGeometry):
-        raise NotImplementedError(
-            "cone-beam and helical configs are not ported yet (ROADMAP "
-            "queue 1, item 10: 3-D)")
-    if not isinstance(cfg.ct, FanBeamGeometry):
+    cone = isinstance(cfg.ct, ConeBeamGeometry)
+    if cone:
+        _check_cone(cfg, recon3d)
+    elif not isinstance(cfg.ct, FanBeamGeometry):
         raise NotImplementedError(
             f"run configs with a {type(cfg.ct).__name__} are not ported yet "
             "(ROADMAP queue 1, item 5: the composed path of other "
@@ -103,7 +140,7 @@ def _check_supported(cfg, engine, projector, recon, bhc, denoise):
     if denoise:
         raise NotImplementedError(
             "--denoise is not ported yet (ROADMAP queue 1, item 8: learn/)")
-    if engine == "fused":
+    if engine == "fused" and not cone:
         check_choices(projector, recon)
 
 
@@ -123,16 +160,22 @@ def run_config(cfg: RunConfig, *, out_dir="./output", spec_pairs=None,
                spectrum_dir="./input/spectrum", noise="none", seed=0,
                n_iters=50, param_file=None, verbose=True, bhc=False,
                engine="fused", projector="fourier", recon="parallel",
-               resume=False, denoise=False, device="cuda"):
+               recon3d="auto", resume=False, denoise=False, device="cuda"):
     """Execute one run config over its DE spectrum pairs (main.py:90-178)
     on ``device``.
 
     engine='fused' runs :func:`~dexct_tpu_torch.pipeline.fused.dect_step`;
     engine='composed' runs the reference-API op chain
-    (:func:`~dexct_tpu_torch.pipeline.api.simulate_dect`).  Noise draws
-    come from a ``torch.Generator`` seeded with ``seed``.
+    (:func:`~dexct_tpu_torch.pipeline.api.simulate_dect`).  Cone-beam and
+    helical configs run :func:`~dexct_tpu_torch.pipeline.cone.cone_dect_step`
+    whatever the engine, projector and recon (as in the JAX runner);
+    ``recon3d`` must agree with the orbit.  Noise draws come from a
+    ``torch.Generator`` seeded with ``seed``.
     """
-    _check_supported(cfg, engine, projector, recon, bhc, denoise)
+    from ..system.geometry import ConeBeamGeometry
+
+    _check_supported(cfg, engine, projector, recon, bhc, denoise, recon3d)
+    cone = isinstance(cfg.ct, ConeBeamGeometry)
     projector, recon = fused_choices(cfg, projector, recon)
     device = torch.device(device)
     pairs = spec_pairs or DEFAULT_SPEC_PAIRS
@@ -151,7 +194,10 @@ def run_config(cfg: RunConfig, *, out_dir="./output", spec_pairs=None,
             continue
         spec1 = _resolve_spectrum(spec_id1, d1, cfg.ct, spectrum_dir, gens)
         spec2 = _resolve_spectrum(spec_id2, d2, cfg.ct, spectrum_dir, gens)
-        if engine == "fused":
+        if cone:
+            dect = _cone_dect(cfg, spec1, spec2, n_iters=n_iters,
+                              noise=eff_noise, seed=seed, device=device)
+        elif engine == "fused":
             from .fused import dect_step, pack_dect
 
             arrays, meta = pack_dect(
@@ -190,6 +236,25 @@ def run_config(cfg: RunConfig, *, out_dir="./output", spec_pairs=None,
         results.append(RunResult(cfg.run_id, (spec_id1, spec_id2, d1, d2),
                                  dect, wall))
     return results
+
+
+def _cone_dect(cfg, spec1, spec2, *, n_iters, noise, seed, device):
+    """A cone/helical config through the fused cone pipeline: the circular
+    FDK or, for a helical orbit, the 4-volume generalized Feldkamp.  A
+    ``back_project false`` config skips the reconstruction.  The JAX
+    runner falls back to its stateless 3-D path where its TPU pack refuses
+    a shape; this pack refuses none, so there is no fallback."""
+    from .cone import cone_dect_step, pack_cone_dect
+
+    arrays, meta = pack_cone_dect(
+        cfg.ct, cfg.phantom, spec1, spec2, cfg.N_matrix, cfg.FOV, cfg.ramp,
+        device=device, n_iters=n_iters, noise=noise, seed=seed,
+        do_recon=bool(cfg.do_back_projection))
+    out = cone_dect_step(arrays, meta)
+    return api.DectResult(
+        sino_raw=out["sino_raw"], sino_log=out["sino_log"],
+        recon_raw=out["recon_raw"], recon_HU=out["recon_HU"],
+        mat_sinos=out["mat_sinos"], mat_recons=out["mat_recons"])
 
 
 def _pair_complete(out_dir, cfg, spec_id1, spec_id2, d1, d2):

@@ -5,7 +5,9 @@ defaults and the same output tree, plus ``--device``.  The default path is
 the JAX CLI's: the Fourier-slice projector with rebinned parallel-beam
 reconstruction (``--projector fourier --recon parallel``); ``--projector
 siddon --recon fan`` runs the exact trace with direct fan-beam
-reconstruction.  ``--bhc``, ``--denoise`` and cone/helical configs raise
+reconstruction.  Cone-beam and helical configs run the fused cone
+pipeline (circular FDK or helical generalized Feldkamp, ``--recon3d``).
+``--bhc``, ``--denoise`` and ``--recon3d katsevich`` raise
 ``NotImplementedError`` naming their ROADMAP item.  Float32 matrix products
 run in full float32 on the card
 (``torch.backends.cuda.matmul.allow_tf32 = False``, set by ``main``).
@@ -69,8 +71,10 @@ def main(argv=None):
     p.add_argument("--recon3d",
                    choices=["auto", "fdk", "helical", "katsevich"],
                    default="auto",
-                   help="3-D reconstruction for cone/helical configs (not "
-                   "ported yet; fan-beam configs ignore it)")
+                   help="3-D reconstruction for cone/helical configs: "
+                   "auto picks fdk for a circular orbit and helical "
+                   "(generalized Feldkamp) for a helical one; katsevich is "
+                   "not ported yet; fan-beam configs ignore it")
     p.add_argument("--bhc", action="store_true",
                    help="water/bone BHC reconstructions (not ported yet)")
     p.add_argument("--denoise", action="store_true",
@@ -100,6 +104,7 @@ def main(argv=None):
         engine=args.engine,
         projector=args.projector,
         recon=args.recon,
+        recon3d=args.recon3d,
         bhc=args.bhc,
         resume=args.resume,
         denoise=args.denoise,

@@ -1,5 +1,12 @@
-"""System models: scanner geometry, voxel phantoms, run configuration."""
+"""System models: scanner geometry, voxel and analytic phantoms, run
+configuration."""
 
+from .analytic import (
+    AnalyticPhantom,
+    Ellipse,
+    pelvis_analytic,
+    water_cylinder_analytic,
+)
 from .config import RunConfig, read_parameter_file
 from .geometry import (
     ConeBeamGeometry,
@@ -43,4 +50,8 @@ __all__ = [
     "head_phantom_3d",
     "thorax_phantom",
     "thorax_phantom_3d",
+    "Ellipse",
+    "AnalyticPhantom",
+    "pelvis_analytic",
+    "water_cylinder_analytic",
 ]

@@ -31,7 +31,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("siddon_trace.cu", "gauss_newton.cu", "fan_backproject.cu",
-           "gather_taps.cu", "parallel_backproject.cu", "kb_sample.cu")
+           "gather_taps.cu", "parallel_backproject.cu", "kb_sample.cu",
+           "analytic_chords.cu", "siddon_trace_3d.cu", "cone_backproject.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # no --use_fast_math: the trace's plane crossings and the backprojectors'
 # edge tests feed 1e-4 parity tolerances
@@ -66,6 +67,22 @@ _SIGNATURES = {
                                    _F, _F, _F, _F, _P),
     # F, base, w, phase_cos, phase_sin, out, S, M, G, stream
     "dexct_kb_sample": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # tab, labels, src, dirs, out, n_rays, S, n_materials, stream
+    "dexct_analytic_chords": (_P, _P, _P, _P, _P, _L, _I, _I, _P),
+    # labels, src, dirs, out, n_rays, nx, ny, nz, n_out, x0, y0, z0, x1,
+    # y1, z1, dx, dy, dz, eps, n_steps, stream
+    "dexct_siddon_trace_3d": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _F, _F,
+                              _F, _F, _F, _F, _F, _F, _F, _F, _I, _P),
+    # qs, cos_b, sin_b, X, Y, sel, zc, out, n_images, V, R, C, P, nz,
+    # plane, sid, dgamma, row_h, dbeta, stream
+    "dexct_fdk_backproject": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _I, _I, _L, _F, _F, _F, _F, _P),
+    # qs, cos_b, sin_b, betas, src_z, row_off, beta_c, X, Y, sel, zc, out,
+    # n_images, V, R, C, P, nz, plane, sid, dgamma, row_h, beta0, dbeta,
+    # stream
+    "dexct_helical_backproject": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _P, _P, _I, _I, _I, _I, _I, _I, _L, _F,
+                                  _F, _F, _F, _F, _P),
 }
 
 

@@ -1,0 +1,383 @@
+"""The port's cone-beam branch (the plain versions of K10-K12 on the CPU,
+the fused cone step and the CLI's 3-D configs) against the JAX package's.
+
+Tolerances:
+
+- ``trace_paths_3d`` against the JAX DDA: 2e-4 cm (the bar the JAX
+  package holds its 3-D DDA to, tests/test_conebeam.py:45); against the
+  JAX fused pack's packed dominant-axis trace: 2e-3 cm (the JAX package's
+  own bar between its two tracers, tests/test_conebeam.py:419);
+- the FDK and helical backprojectors against every JAX layout
+  (``pair_mode``, ``orbit4``, ``dbeta``): rtol 2e-4 with atol 2e-5 x max,
+  the JAX package's bar between its own FDK layouts
+  (tests/test_conebeam.py:807);
+- the cone step fed the JAX step's own paths (every stage after the
+  trace): the tolerances of tests/test_pipeline.py; the whole step, whose
+  tracer differs from the JAX packed one: the JAX package's fused-vs-
+  stateless bar (tests/test_conebeam.py:616-621: sino_log atol 2e-3,
+  recon_HU atol 2 HU, mat_recons atol 5e-3);
+- both CLIs on a tiny cone and a tiny helical config: the tolerances of
+  tests/test_pipeline.py, file by file (the tracers agree closely enough
+  on the tiny water cylinder).
+"""
+
+import dataclasses
+import json
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dexct_tpu.ops import conebeam as j_cb
+from dexct_tpu.physics import kramers_spectrum, linac_spectrum
+from dexct_tpu.pipeline import cone as j_cone
+from dexct_tpu.system import (ConeBeamGeometry, HelicalConeBeamGeometry,
+                              water_cylinder_phantom)
+from dexct_tpu_torch.ops import conebeam as t_cb
+from dexct_tpu_torch.pipeline import cone as t_cone
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TOL = {"sino_raw": dict(rtol=1e-4, atol=0.0),
+       "sino_log": dict(rtol=0.0, atol=1e-4),
+       "mat_sinos": dict(rtol=0.0, atol=1e-3),
+       "recon_raw": dict(rtol=0.0, atol=1e-4),
+       "recon_HU": dict(rtol=0.0, atol=1.0),
+       "mat_recons": dict(rtol=0.0, atol=1e-3)}
+WHOLE_TOL = {"sino_log": dict(rtol=0.0, atol=2e-3),
+             "recon_HU": dict(rtol=0.0, atol=2.0),
+             "mat_recons": dict(rtol=0.0, atol=5e-3)}
+FILE_TOL = {"sino_raw": TOL["sino_raw"], "sino_log": TOL["sino_log"],
+            "recon_raw": TOL["recon_raw"], "recon_HU": TOL["recon_HU"],
+            "mat1_sino": TOL["mat_sinos"], "mat2_sino": TOL["mat_sinos"],
+            "mat1_recon": TOL["mat_recons"], "mat2_recon": TOL["mat_recons"]}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def _np(x):
+    return np.array(x)  # a writable host copy
+
+
+# ---------------------------------------------------------------------------
+# K10: the 3-D trace
+# ---------------------------------------------------------------------------
+
+def test_trace_paths_3d_matches_jax():
+    """Random labels (4 materials, one label past n_materials), the rays of
+    a small cone scan and random rays, some axis-parallel and some
+    missing the grid."""
+    rng = np.random.default_rng(0)
+    labels = rng.integers(0, 5, (6, 10, 12)).astype(np.int32)
+    ct = ConeBeamGeometry(N_channels=24, N_proj=12, N_rows=4,
+                          gamma_fan=0.8230337, SID=30.0, SDD=50.0,
+                          h_iso=0.6)
+    src, dirs = (x.reshape(-1, 3) for x in ct.ray_geometry_3d())
+    rs = rng.uniform(-8, 8, (256, 3))
+    rd = rng.standard_normal((256, 3))
+    rd[:32, 1:] = 0.0  # along x
+    rd[32:64, :2] = 0.0  # along z
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    src = np.concatenate([src, rs])
+    dirs = np.concatenate([dirs, rd])
+    args = (0.9, 0.8, 1.1)
+    want = np.asarray(j_cb.trace_paths_3d(
+        jnp.asarray(labels), jnp.asarray(src, jnp.float32),
+        jnp.asarray(dirs, jnp.float32), *args, n_materials=4))
+    got = t_cb.trace_paths_3d(
+        torch.as_tensor(labels), torch.as_tensor(src, dtype=torch.float32),
+        torch.as_tensor(dirs, dtype=torch.float32), *args,
+        n_materials=4).numpy()
+    assert got.shape == want.shape == (src.shape[0], 4)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-4)
+    assert (want[:-256].sum(-1) > 0.0).mean() > 0.3  # the scan hits it
+
+
+# ---------------------------------------------------------------------------
+# K11 / K12: the backprojectors
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("pair_mode", [False, True])
+@pytest.mark.parametrize("orbit4", [False, True])
+def test_fdk_plain_matches_jax(pair_mode, orbit4):
+    rng = np.random.default_rng(5)
+    K, V, R, C = 4, 24, 8, 48
+    qs = rng.normal(size=(K, V, R, C)).astype(np.float32)
+    betas = (np.arange(V) * (2 * np.pi / V)).astype(np.float32)
+    args = (60.0, 0.8230337 / C, 0.5, R, 32, 8, 20.0, 0.5, 2 * np.pi / V)
+    want = np.asarray(j_cb._fdk_backproject_multi(
+        jnp.asarray(qs), jnp.asarray(betas), *args, pair_mode=pair_mode,
+        orbit4=orbit4))
+    got = t_cb._fdk_backproject_multi(torch.as_tensor(qs),
+                                      torch.as_tensor(betas), *args).numpy()
+    assert got.shape == want.shape == (K, 8, 32, 32)
+    np.testing.assert_allclose(got, want, rtol=2e-4,
+                               atol=2e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("pair_mode", [False, True])
+@pytest.mark.parametrize("windowed", [False, True])
+def test_helical_plain_matches_jax(pair_mode, windowed):
+    """A 3-turn helix, 17 slices (odd), against the JAX program with and
+    without its slice window (``dbeta``): every JAX layout gives the one
+    image the port computes."""
+    ct = HelicalConeBeamGeometry(
+        N_channels=48, N_proj=144, N_rows=8, gamma_fan=0.8, SID=60.0,
+        SDD=100.0, h_iso=0.5, rotation_total=6 * np.pi, pitch=2.0)
+    db = float(ct.betas[1] - ct.betas[0])
+    rng = np.random.default_rng(1)
+    q = rng.standard_normal((4, 144, 8, 48)).astype(np.float32)
+    nz = 17
+    zv = (np.arange(nz) + 0.5) * 0.5 - nz * 0.25
+    bc = (0.5 * ct.rotation_total + 2.0 * np.pi * zv / ct.pitch)
+    arrs = [ct.betas, ct.source_z, np.zeros(144), bc]
+    args = (60.0, ct.dgamma, 0.5, 8, 2.0, 32, nz, 20.0, 0.5, float(zv[0]))
+    want = np.asarray(j_cb._helical_backproject(
+        jnp.asarray(q), *(jnp.asarray(a, jnp.float32) for a in arrs),
+        *args, pair_mode=pair_mode, dbeta=db if windowed else None))
+    got = t_cb._helical_backproject(
+        torch.as_tensor(q),
+        *(torch.as_tensor(a, dtype=torch.float32) for a in arrs), *args,
+        dbeta=db).numpy()
+    assert got.shape == want.shape == (4, nz, 32, 32)
+    np.testing.assert_allclose(got, want, rtol=2e-4,
+                               atol=2e-5 * np.abs(want).max())
+
+
+def test_helical_other_weightings_raise():
+    q = torch.zeros((4, 8, 4, 16))
+    z = torch.zeros(8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_cb._helical_backproject(q, z, z, z, torch.zeros(3), 60.0, 0.01,
+                                  0.5, 4, 2.0, 16, 3, 10.0, 0.5, 0.0,
+                                  dbeta=0.1, weighting="td")
+
+
+# ---------------------------------------------------------------------------
+# The fused cone step
+# ---------------------------------------------------------------------------
+
+def _spectra(ct):
+    s1 = linac_spectrum()
+    s1.rescale_counts(ct.A_iso * 9.0 / ct.N_proj)
+    s2 = kramers_spectrum(80.0)
+    s2.rescale_counts(ct.A_iso * 1.0 / ct.N_proj)
+    return s1, s2
+
+
+def _water3d(nz):
+    ph2 = water_cylinder_phantom(N=48, dx=0.5)
+    lab3 = np.broadcast_to(ph2.labels[0], (nz, 48, 48)).copy()
+    return dataclasses.replace(ph2, labels=lab3, dz=0.5)
+
+
+SYSTEMS = {
+    # tests/test_pipeline.py's circular cone scan
+    "circular": lambda: ConeBeamGeometry(
+        N_channels=64, N_proj=48, N_rows=8, gamma_fan=0.8230337, SID=60.0,
+        SDD=100.0, h_iso=0.5),
+    # tests/test_conebeam.py's TestFusedHelical._system(2 pi, 3.0)
+    "helical": lambda: HelicalConeBeamGeometry(
+        N_channels=64, N_proj=96, N_rows=8, gamma_fan=0.8230337, SID=60.0,
+        SDD=100.0, h_iso=0.5, eid=True, rotation_total=2.0 * np.pi,
+        pitch=3.0),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(SYSTEMS))
+def jax_cone_run(request):
+    """The JAX fused cone step on a 16 x 48 x 48 water cylinder at 0.5 cm,
+    and the port's inputs made of the same pack."""
+    ct = SYSTEMS[request.param]()
+    ph3 = _water3d(16)
+    s1, s2 = _spectra(ct)
+    arrays, meta = j_cone.pack_cone_dect(ct, ph3, s1, s2, 48, 20.0, 0.8)
+    want = j_cone.make_jitted_cone_step(meta)(arrays)
+    V, R, C = meta.vrc
+    paths = _np(j_cone._cone_paths(arrays, meta))[_np(arrays["inv"])]
+    src, dirs = ct.ray_geometry_3d()
+    a = t_cone.cone_arrays_from_numpy(
+        {k: _np(v) for k, v in arrays.items()}, "cpu", ph3.labels, src, dirs)
+    m = t_cone.ConeDectMeta(**{f: getattr(meta, f) for f in
+                               t_cone.ConeDectMeta._fields
+                               if hasattr(meta, f)})
+    return {"ct": ct, "ph3": ph3, "spectra": (s1, s2), "want": want,
+            "paths": paths.reshape(V, R, C, -1), "a": a, "m": m,
+            "meta": meta}
+
+
+def test_trace_matches_jax_packed_trace(jax_cone_run):
+    r = jax_cone_run
+    got = t_cone.cone_paths(r["a"], r["m"]).numpy()
+    np.testing.assert_allclose(got, r["paths"], rtol=0, atol=2e-3)
+
+
+def test_cone_stages_match_jax_on_its_paths(jax_cone_run):
+    """K2 -> GN -> mask -> filter -> FDK/gFDK -> HU fed the JAX step's own
+    paths."""
+    r = jax_cone_run
+    got = t_cone.cone_dect_from_paths(torch.as_tensor(r["paths"]), r["a"],
+                                      r["m"])
+    for key, tol in TOL.items():
+        for i in range(2):
+            np.testing.assert_allclose(got[key][i].numpy(),
+                                       _np(r["want"][key][i]),
+                                       err_msg=f"{key}[{i}]", **tol)
+
+
+def test_cone_dect_step_matches_jax(jax_cone_run):
+    r = jax_cone_run
+    got = t_cone.cone_dect_step(r["a"], r["m"])
+    for key, tol in WHOLE_TOL.items():
+        for i in range(2):
+            assert got[key][i].shape == r["want"][key][i].shape
+            np.testing.assert_allclose(got[key][i].numpy(),
+                                       _np(r["want"][key][i]),
+                                       err_msg=f"{key}[{i}]", **tol)
+
+
+def test_port_pack_matches_jax_pack(jax_cone_run):
+    """The port's pack gives the arrays that cone_arrays_from_numpy makes
+    of the JAX pack, and the JAX meta's fields."""
+    r = jax_cone_run
+    a, m = t_cone.pack_cone_dect(r["ct"], r["ph3"], *r["spectra"], 48, 20.0,
+                                 0.8, device="cpu")
+    assert set(a) == set(r["a"])
+    for k in a:
+        assert a[k].dtype == r["a"][k].dtype, k
+        torch.testing.assert_close(a[k], r["a"][k], rtol=0, atol=0)
+    assert m == r["m"]
+
+
+def test_pack_refuses_what_the_fused_pipeline_does_not_model():
+    from dexct_tpu_torch.system import (FlatPanelConeBeamGeometry,
+                                        TiltedConeBeamGeometry)
+    from dexct_tpu_torch.system import ConeBeamGeometry as TCone
+
+    ph3 = _water3d(4)
+    for ct in (FlatPanelConeBeamGeometry(N_rows=4),
+               TiltedConeBeamGeometry(N_rows=4, tilt=0.2),
+               TCone(N_rows=4, N_proj=16, ffs="z")):
+        with pytest.raises(ValueError):
+            t_cone.pack_cone_dect(ct, ph3, *_spectra(ct), 16, 20.0, 0.8,
+                                  device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# The CLI's 3-D configs
+# ---------------------------------------------------------------------------
+
+def _cone_params(tmp_path, kind, back_project=True):
+    """A tiny cone or helical config: a 32 x 32 x 8 water cylinder and a
+    24-view (48 over two turns for the helix) 4-row scan."""
+    from dexct_tpu_torch.system.phantom import VoxelPhantom
+
+    ph = water_cylinder_phantom(N=32, dx=0.6)
+    lab = np.broadcast_to(ph.labels[0], (8, 32, 32)).copy()
+    VoxelPhantom("w3", lab, ph.materials, 0.6, 0.6, 0.5).to_file(
+        str(tmp_path / "ph.bin"), str(tmp_path / "ph.csv"))
+    with open(os.path.join(REPO, "input", "params.txt")) as f:
+        cfg = json.load(f)
+    cfg.update({"RUN_ID": "tiny3d", "phantom_id": "water3d",
+                "phantom_filename": str(tmp_path / "ph.bin"),
+                "matcomp_filename": str(tmp_path / "ph.csv"),
+                "Nx": 32, "Ny": 32, "Nz": 8, "dx": 0.6, "dy": 0.6,
+                "dz": 0.5, "scanner_geometry": kind, "N_rows": 4,
+                "detector_px_height": 0.5, "N_channels": 32,
+                "N_projections": 24, "back_project": back_project,
+                "detector_filename": os.path.join(REPO,
+                                                  cfg["detector_filename"]),
+                "N_recon_matrix": 32, "FOV_recon": 18.0})
+    if kind == "helical_cone_beam":
+        cfg.update({"N_projections": 48, "pitch": 2.0,
+                    "rotation_angle_total": 4 * np.pi})
+    path = tmp_path / f"{kind}.txt"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def _main_args(params, out, *extra):
+    return (["--params", str(params), "--output", str(out), "--iters", "8",
+             "--spectrum-dir", os.path.join(REPO, "input", "spectrum")]
+            + list(extra))
+
+
+@pytest.mark.parametrize("kind", ["cone_beam", "helical_cone_beam"])
+def test_both_clis_write_the_same_files(tmp_path, kind):
+    from dexct_tpu.run import main as j_main
+    from dexct_tpu_torch.run import main as t_main
+
+    params = _cone_params(tmp_path, kind)
+    j_main(_main_args(params, tmp_path / "jax"))
+    (res,) = t_main(_main_args(params, tmp_path / "torch", "--device",
+                               "cpu"))
+    files = sorted(p.relative_to(tmp_path / "jax")
+                   for p in (tmp_path / "jax").rglob("*.bin"))
+    assert len(files) == 12
+    assert files == sorted(p.relative_to(tmp_path / "torch")
+                           for p in (tmp_path / "torch").rglob("*.bin"))
+    V = 24 if kind == "cone_beam" else 48
+    nz = res.dect.recon_raw[0].shape[0]
+    for rel in files:
+        want = np.fromfile(tmp_path / "jax" / rel, np.float32)
+        got = np.fromfile(tmp_path / "torch" / rel, np.float32)
+        name = rel.name[:-len("_float32.bin")]
+        size = V * 4 * 32 if "sino" in name else nz * 32 * 32
+        assert got.size == want.size == size, rel
+        np.testing.assert_allclose(got, want, err_msg=str(rel),
+                                   **FILE_TOL[name])
+
+
+@pytest.mark.parametrize("kind,recon3d", [
+    ("cone_beam", "helical"), ("cone_beam", "katsevich"),
+    ("helical_cone_beam", "fdk")])
+def test_recon3d_mismatch_raises(tmp_path, kind, recon3d):
+    """The JAX runner's ValueErrors, before anything runs."""
+    from dexct_tpu.run import main as j_main
+    from dexct_tpu_torch.run import main as t_main
+
+    params = _cone_params(tmp_path, kind)
+    with pytest.raises(ValueError) as j_err:
+        j_main(_main_args(params, tmp_path / "j", "--recon3d", recon3d))
+    with pytest.raises(ValueError) as t_err:
+        t_main(_main_args(params, tmp_path / "t", "--device", "cpu",
+                          "--recon3d", recon3d))
+    assert str(t_err.value) == str(j_err.value)
+
+
+@pytest.mark.parametrize("change", ["katsevich", "flat_panel_cone_beam",
+                                    "tilted_cone_beam", "z_ffs"])
+def test_unported_cone_choices_raise(tmp_path, change):
+    from dexct_tpu_torch.run import main as t_main
+
+    kind = {"katsevich": "helical_cone_beam",
+            "z_ffs": "cone_beam"}.get(change, change)
+    params = _cone_params(tmp_path, kind)
+    cfg = json.loads(params.read_text())
+    if change == "tilted_cone_beam":
+        cfg["gantry_tilt_rad"] = 0.2
+    if change == "z_ffs":
+        cfg["flying_focal_spot"] = "z"
+    params.write_text(json.dumps(cfg))
+    extra = ["--recon3d", "katsevich"] if change == "katsevich" else []
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_main(_main_args(params, tmp_path / "t", "--device", "cpu", *extra))
+
+
+def test_back_project_false_writes_no_volumes(tmp_path):
+    from dexct_tpu_torch.run import main as t_main
+
+    params = _cone_params(tmp_path, "cone_beam", back_project=False)
+    (res,) = t_main(_main_args(params, tmp_path / "t", "--device", "cpu"))
+    assert res.dect.recon_raw == (None, None)
+    names = sorted(p.name for p in (tmp_path / "t").rglob("*.bin"))
+    assert names == sorted(["sino_raw_float32.bin", "sino_log_float32.bin"]
+                           * 2 + ["mat1_sino_float32.bin",
+                                  "mat2_sino_float32.bin"])

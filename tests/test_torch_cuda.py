@@ -1,4 +1,4 @@
-"""Hand-written kernels K1-K8 against their plain PyTorch versions, on the
+"""Hand-written kernels K1-K12 against their plain PyTorch versions, on the
 card.
 
 Every test here needs a CUDA device and skips without one.  This file
@@ -259,3 +259,97 @@ def test_noise_on_the_card_is_seeded(dev, mode):
     assert bool((draw[0] != draw[2]).any())
     want_var = 50.0 * 4.0e4 if mode == "compound" else 4.0e4
     assert abs(float(draw[0].double().var()) / want_var - 1.0) < 0.05
+
+
+# ---------------------------------------------------------------------------
+# K9-K12: the analytic projector and the cone-beam branch
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("implant", [None, "steel"])
+def test_analytic_chords_match_plain(dev, implant):
+    from dexct_tpu_torch.system.analytic import (analytic_paths,
+                                                 analytic_paths_plain,
+                                                 pelvis_analytic)
+
+    ph = pelvis_analytic(implant=implant)
+    p, lab = (torch.as_tensor(x, device=dev) for x in ph.shape_arrays())
+    rng = np.random.default_rng(9)
+    src, dirs = (torch.as_tensor(x, device=dev)
+                 for x in _rays(rng, 4000, 60.0))
+    src[-8:] = 0.0  # rays that start inside the shapes
+    kw = dict(n_materials=ph.n_materials)
+    before = analytic_paths.launches
+    got = analytic_paths(p, lab, src, dirs, **kw)
+    torch.cuda.synchronize()
+    assert analytic_paths.launches == before + 1
+    want = analytic_paths_plain(p, lab, src, dirs, **kw)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def test_siddon_trace_3d_matches_plain(dev):
+    from dexct_tpu_torch.ops.conebeam import (trace_paths_3d,
+                                              trace_paths_3d_plain)
+    from dexct_tpu_torch.system import ConeBeamGeometry
+
+    rng = np.random.default_rng(3)
+    lab = torch.as_tensor(rng.integers(0, 6, (12, 40, 40)),
+                          dtype=torch.uint8, device=dev)
+    ct = ConeBeamGeometry(N_channels=48, N_proj=24, N_rows=8, SID=40.0,
+                          SDD=70.0, h_iso=0.5)
+    src, dirs = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+                 for x in ct.ray_geometry_3d())
+    before = trace_paths_3d.launches
+    got = trace_paths_3d(lab, src, dirs, 0.5, 0.5, 0.5, n_materials=6)
+    torch.cuda.synchronize()
+    assert trace_paths_3d.launches == before + 1
+    want = trace_paths_3d_plain(lab, src, dirs, 0.5, 0.5, 0.5,
+                                n_materials=6)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+def test_fdk_backproject_matches_plain(dev):
+    from dexct_tpu_torch.ops.conebeam import (_fdk_backproject_multi,
+                                              _fdk_backproject_multi_plain)
+
+    rng = np.random.default_rng(5)
+    qs = torch.as_tensor(rng.normal(size=(4, 48, 8, 64)),
+                         dtype=torch.float32, device=dev)
+    betas = torch.arange(48, dtype=torch.float32, device=dev) \
+        * (2 * np.pi / 48)
+    args = (60.0, 0.8230337 / 64, 0.5, 8, 40, 10, 20.0, 0.5, 2 * np.pi / 48)
+    before = _fdk_backproject_multi.launches
+    got = _fdk_backproject_multi(qs, betas, *args)
+    torch.cuda.synchronize()
+    assert _fdk_backproject_multi.launches == before + 1
+    want = _fdk_backproject_multi_plain(qs, betas, *args)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("n_images", [1, 4])
+def test_helical_backproject_matches_plain(dev, n_images):
+    from dexct_tpu_torch.ops.conebeam import (_helical_backproject,
+                                              _helical_backproject_plain)
+    from dexct_tpu_torch.system import HelicalConeBeamGeometry
+
+    ct = HelicalConeBeamGeometry(N_channels=48, N_proj=144, N_rows=8,
+                                 SID=60.0, SDD=100.0, h_iso=0.5,
+                                 rotation_total=6 * np.pi, pitch=2.0)
+    rng = np.random.default_rng(1)
+    q = torch.as_tensor(rng.standard_normal((n_images, 144, 8, 48)),
+                        dtype=torch.float32, device=dev)
+    nz = 17
+    zv = (np.arange(nz) + 0.5) * 0.5 - nz * 0.25
+    bc = 0.5 * ct.rotation_total + 2.0 * np.pi * zv / ct.pitch
+    arrs = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+            for a in (ct.betas, ct.source_z, np.zeros(144), bc)]
+    args = (60.0, ct.dgamma, 0.5, 8, 2.0, 32, nz, 20.0, 0.5, float(zv[0]))
+    before = _helical_backproject.launches
+    got = _helical_backproject(q, *arrs, *args,
+                               dbeta=ct.rotation_total / 144)
+    torch.cuda.synchronize()
+    assert _helical_backproject.launches == before + 1
+    want = _helical_backproject_plain(q, *arrs, *args)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))

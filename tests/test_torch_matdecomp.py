@@ -94,6 +94,70 @@ def test_starved_and_air_pixels_stay_finite(de_tables):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
+def test_warm_products_round_once(de_tables):
+    """The warm phase's bfloat16 products are the float32 sums of the exact
+    products of the bfloat16-rounded operands, rounded once to bfloat16
+    (the JAX program's rounding), bit for bit, whatever the CPU's bf16
+    GEMM backend would do."""
+    i0, mus = de_tables
+    rng = np.random.default_rng(4)
+    a = torch.as_tensor(np.concatenate([
+        rng.uniform(-1.0, 60.0, (4000, 2)),
+        rng.uniform(0.0, 1e-3, (96, 2))]), dtype=torch.float32)
+    musT = torch.as_tensor(np.asarray(mus).T, dtype=torch.float32)
+    got = t_md._bf16_products(a, musT)
+    ab = a.to(torch.bfloat16).double().numpy()
+    mb = musT.to(torch.bfloat16).double().numpy()
+    exact = ab[:, :1] * mb[:, 0] + ab[:, 1:] * mb[:, 1]  # exact in float64
+    want = torch.as_tensor(exact.astype(np.float32)).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+_HOST_PROBE = """
+import hashlib, sys
+import numpy as np, torch
+from dexct_tpu_torch.ops import matdecomp, spectral
+torch.set_num_threads(int(sys.argv[2]))
+d = np.load(sys.argv[1])
+paths, i0, mus = (torch.as_tensor(d[k]) for k in ("paths", "i0", "mus"))
+counts = torch.stack([spectral.counts_from_paths_plain(paths, mus, i0[k])
+                      for k in range(2)])
+ab = matdecomp.gauss_newton_solve_plain(counts, i0, mus, n_iters=50)
+print(hashlib.sha1(counts.numpy().tobytes() + ab.numpy().tobytes())
+      .hexdigest())
+"""
+
+
+def test_plain_rounding_does_not_follow_the_host(de_tables, tmp_path):
+    """The plain counts and Gauss-Newton solve give the same bits whatever
+    instruction set the CPU's BLAS and vector-math kernels are held to
+    (MKL's, where PyTorch uses it; ATen's own) and whatever the thread
+    count: their float32 exp, log, sqrt and matrix products would not."""
+    import os
+    import subprocess
+    import sys
+
+    i0, mus = de_tables
+    rng = np.random.default_rng(6)
+    paths = np.stack([rng.uniform(0, 40, 3000), rng.uniform(0, 12, 3000)],
+                     -1)
+    np.savez(tmp_path / "in.npz", paths=paths.astype(np.float32),
+             i0=np.asarray(i0, np.float32), mus=np.asarray(mus, np.float32))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    digests = set()
+    for env, threads in (({}, 2), ({"MKL_ENABLE_INSTRUCTIONS": "SSE4_2"}, 2),
+                         ({"MKL_ENABLE_INSTRUCTIONS": "AVX2"}, 1),
+                         ({"ATEN_CPU_CAPABILITY": "default"}, 4)):
+        out = subprocess.run(
+            [sys.executable, "-c", _HOST_PROBE, str(tmp_path / "in.npz"),
+             str(threads)], cwd=repo, env={**os.environ, **env},
+            capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr
+        digests.add(out.stdout.strip())
+    assert len(digests) == 1, digests
+
+
 def test_unported_material_counts_raise(de_tables):
     i0, mus = (torch.as_tensor(x, dtype=torch.float32) for x in de_tables)
     counts3 = torch.ones((3, 4))

@@ -4,7 +4,16 @@ reconstruction pairing, the composed engine, both CLIs writing the §2.6
 files (default and exact flags), and the runner's downgrades.  Tolerances
 as in tests/test_pipeline.py: sino_raw rtol 1e-4, mat_sinos atol 1e-3,
 recon_raw atol 1e-4, mat_recons atol 1e-3 (and recon_HU atol 1 HU,
-sino_log atol 1e-4)."""
+sino_log atol 1e-4).
+
+The fused step is held as a whole, and each stage after the trace also
+on the JAX step's own inputs (the decomposition fed its counts, the
+reconstruction its sinograms), so that a fault is placed in its stage.
+The decomposition amplifies count differences: here a random 3.9e-6
+relative perturbation of the counts moves mat_sinos by 2.3e-4, so the
+port's plain counts and Gauss-Newton solve round as their expressions say
+and not as the host's BLAS or vector-math kernels do (tests/
+test_torch_matdecomp.py::test_plain_rounding_does_not_follow_the_host)."""
 
 import json
 import os
@@ -74,6 +83,8 @@ CHOICES = [("siddon", "fan"), ("fourier", "parallel"), ("fourier", "fan"),
 
 @pytest.mark.parametrize("projector,recon", CHOICES)
 def test_dect_step_matches_jax(small_de, projector, recon):
+    from dexct_tpu_torch.ops.fbp import hu_image
+
     arrays, meta = j_pack(*small_de, 64, 24.0, 0.8, n_iters=20,
                           projector=projector, recon=recon, **PLAN_KW)
     want = make_jitted_step(meta)(arrays)
@@ -84,6 +95,19 @@ def test_dect_step_matches_jax(small_de, projector, recon):
     got = t_fused.dect_step(a, m)
     _assert_outputs_close({k: tuple(x.numpy() for x in v)
                            for k, v in got.items()}, want)
+    # every later stage on the JAX step's own inputs
+    counts = [torch.as_tensor(np.array(x)) for x in want["sino_raw"]]
+    mats = t_fused.decompose_counts(*counts, a, m, m.pixel_block)
+    stack = torch.stack([torch.as_tensor(np.array(x)) for x in
+                         (*want["sino_log"], *want["mat_sinos"])])
+    imgs = t_fused.reconstruct_stack(stack, a, m)
+    staged = {"mat_sinos": mats, "recon_raw": (imgs[0], imgs[1]),
+              "recon_HU": (hu_image(imgs[0], m.mu_w1),
+                           hu_image(imgs[1], m.mu_w2)),
+              "mat_recons": (imgs[2], imgs[3])}
+    _assert_outputs_close({k: tuple(x.numpy() for x in v)
+                           for k, v in staged.items()}, want,
+                          keys=tuple(staged))
 
 
 @pytest.mark.parametrize("projector,recon",
@@ -210,9 +234,13 @@ def test_unported_choices_raise(tmp_path, flags):
     assert len(list((tmp_path / "o").rglob("*.bin"))) == 12
 
 
-def test_analytic_projector_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_fused.check_choices("analytic", "parallel")
+def test_analytic_projector_raises(small_de):
+    """The analytic projector is a choice now (tests/test_torch_analytic.py
+    runs it); what still raises is a voxel phantom under it."""
+    t_fused.check_choices("analytic", "parallel")
+    with pytest.raises(ValueError, match="AnalyticPhantom"):
+        t_fused.pack_dect(*small_de, 32, 24.0, 0.8, device="cpu",
+                          projector="analytic")
 
 
 def _runner_cfg(kind):
@@ -268,28 +296,50 @@ def _spectra(ct):
     return s1, s2
 
 
-def test_cone_config_raises():
+@pytest.mark.parametrize("what", ["flat_panel", "katsevich"])
+def test_cone_config_raises(what):
+    """Cone and helical configs run (tests/test_torch_cone.py); flat-panel
+    configs and the Katsevich reconstructor raise naming their ROADMAP
+    row."""
     from dexct_tpu_torch.pipeline.runner import run_config
-    from dexct_tpu_torch.system import ConeBeamGeometry
+    from dexct_tpu_torch.system import (FlatPanelConeBeamGeometry,
+                                        HelicalConeBeamGeometry)
     from dexct_tpu_torch.system.config import RunConfig
     from dexct_tpu_torch.system.phantom import water_cylinder_phantom as tw
 
-    cfg = RunConfig("c", True, True, ConeBeamGeometry(N_rows=4), tw(N=16),
-                    None, 16, 20.0, 0.8)
+    ct = (FlatPanelConeBeamGeometry(N_rows=4) if what == "flat_panel"
+          else HelicalConeBeamGeometry(N_rows=4, pitch=2.0))
+    cfg = RunConfig("c", True, True, ct, tw(N=16), None, 16, 20.0, 0.8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_config(cfg, device="cpu")
+        run_config(cfg, device="cpu",
+                   recon3d="katsevich" if what == "katsevich" else "auto")
+
+
+def _tiny_cone_params(tmp_path):
+    """The tiny config as a 2-row cone scan of its one-slice phantom."""
+    path = _tiny_params(tmp_path)
+    cfg = json.loads(path.read_text())
+    cfg.update({"RUN_ID": "tiny_cone", "scanner_geometry": "cone_beam",
+                "N_rows": 2, "detector_px_height": 0.4, "N_channels": 32,
+                "N_projections": 16, "N_recon_matrix": 32})
+    cone = tmp_path / "cone.txt"
+    cone.write_text(json.dumps(cfg))
+    return cone
 
 
 def test_port_never_imports_jax(tmp_path):
     """Importing the port and running its CLI's default path (Fourier
-    projector, parallel recon) on the CPU leaves JAX and the JAX package
-    unimported."""
+    projector, parallel recon) and a cone config on the CPU leaves JAX and
+    the JAX package unimported."""
     params = _tiny_params(tmp_path)
+    cone = _tiny_cone_params(tmp_path)
     code = (
         "import sys\n"
         "import dexct_tpu_torch\n"
         "from dexct_tpu_torch.run import main\n"
         f"main(['--params', {str(params)!r}, '--iters', '2', '--device',"
+        f" 'cpu', '--output', {str(tmp_path / 'o')!r}])\n"
+        f"main(['--params', {str(cone)!r}, '--iters', '2', '--device',"
         f" 'cpu', '--output', {str(tmp_path / 'o')!r}])\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'dexct_tpu' or m.startswith('dexct_tpu.')]\n"

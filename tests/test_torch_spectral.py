@@ -41,6 +41,27 @@ def test_counts_match_jax(tables):
                                rtol=1e-5)
 
 
+def test_counts_rounding_is_the_expressions(tables):
+    """The plain counts are bit for bit the float32 exponent summed in
+    material order (elementwise NumPy, no BLAS), its exp in float64 and
+    the energy sum taken exactly, rounded once to float32: no CPU BLAS or
+    vector-math kernel, whose choice follows the host's instruction set,
+    picks the rounding."""
+    import math
+
+    paths, mu, i0 = tables
+    L = paths[..., :1] * mu[0]
+    for m in range(1, mu.shape[0]):
+        L = L + paths[..., m:m + 1] * mu[m]
+    terms = np.exp(np.clip(-L, -700.0, 2.0).astype(np.float64)) \
+        * i0.astype(np.float64)
+    want = np.array([math.fsum(row) for row in terms.reshape(-1, 140)],
+                    np.float32).reshape(40, 30)
+    got = t_sp.counts_from_paths_plain(*(torch.as_tensor(x) for x in tables))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_second_table_shares_the_pass(tables):
     paths, mu, i0 = (torch.as_tensor(x) for x in tables)
     i2 = i0 * 70.0

@@ -7,8 +7,9 @@ Needs one CUDA device, the CUDA toolkit (nvcc) and Triton; imports nothing
 of JAX.  Phases, each of which raises on failure:
 
 1. Device: the card's name and power limit (nvidia-smi).
-2. Build: nvcc builds kernels K1, K3-K12 from ``dexct_tpu_torch/csrc``
-   (one nvcc per source, all at once); Triton compiles K2.
+2. Build: nvcc builds kernels K1, K3-K13, K15 and K16 from
+   ``dexct_tpu_torch/csrc`` (one nvcc per source, all at once); Triton
+   compiles K2 and K14.
 3. Each kernel against its plain PyTorch version on the card, on the
    inputs its path gives it, with the error, both times, the kernel's
    bound (the larger of its bytes over 3.35 TB/s and its float32
@@ -21,22 +22,28 @@ of JAX.  Phases, each of which raises on failure:
    rows x 256 channels through a 256^2 x 32 pelvis, 16 slices of 256^2);
    K12 on the helical one (720 views over two turns, pitch 3 cm, through
    a 256^2 x 48 pelvis, 19 slices); K2 and K3 once more on each 3-D
-   config's own [V, R, C, M] paths and counts, timed apart.
+   config's own [V, R, C, M] paths and counts, timed apart, and K10 on the
+   helical rays.  The stateless 3-D paths: K13 on the flat-panel config,
+   K16 (and K11 on its enlarged 258^2 x 60 gantry grid) on the 15-degree
+   tilted config, K12 with the z flying focal spot's nonzero row offsets
+   at pitch 0 on the z-FFS cone config, and K14 and K15 on the helical
+   config's Katsevich chain (14 slices).
 4. The paths: the default and the exact path through
-   ``dexct_tpu_torch.run.main`` on ``input/params.txt``, then the cone and
-   the helical config through the same CLI, each twice (the second call is
-   steady state), and the analytic projector through the library
-   (``pack_dect(projector='analytic', recon='parallel')`` + ``dect_step``
-   on the reference protocol with ``pelvis_analytic()``), twice.  Every
-   launch counter is set to 0 just before a path and read just after it:
-   each kernel of the path must have launched, and no other.  Each path's
-   outputs are checked (exact sizes, finite values, air ~ -1000 HU), and
-   the 3-D paths' stages are timed once more (spectra, pack with
-   ``ray_geometry_3d`` apart, step, writes) with the device's busy share
+   ``dexct_tpu_torch.run.main`` on ``input/params.txt``, then the cone,
+   helical, flat-panel, tilted, z-FFS and Katsevich configs through the
+   same CLI, each twice (the second call is steady state), and the analytic
+   projector through the library (``pack_dect(projector='analytic',
+   recon='parallel')`` + ``dect_step`` on the reference protocol with
+   ``pelvis_analytic()``), twice.  Every launch counter is set to 0 just
+   before a path and read just after it: each kernel of the path must have
+   launched, and no other.  Each path's outputs are checked (exact sizes,
+   finite values, air ~ -1000 HU), and the 3-D paths' stages are timed once
+   more (spectra, pack or trace-to-decomposition with ``ray_geometry_3d``
+   apart, step or reconstruction, writes) with the device's busy share
    inside the step.
 5. A 64^2 config through the port on ``--device cpu`` and ``--device
-   cuda`` under both 2-D flag sets, and a tiny cone and a tiny helical
-   config; every output file agrees to the pipeline tolerances.
+   cuda`` under both 2-D flag sets, and tiny versions of every 3-D path;
+   every output file agrees to the pipeline tolerances.
 
 The last two lines of standard output are the kernels' JSON record and the
 device JSON line.
@@ -93,6 +100,19 @@ KERNELS = {
                             "dexct_tpu_torch/csrc/cone_backproject.cu",
                             "dexct_tpu/ops/conebeam.py:413",
                             "max abs <= 1e-4 x max |plain|"),
+    "flat_backproject": ("cuda", "dexct_tpu_torch/csrc/cone_backproject.cu",
+                         "dexct_tpu/ops/flatpanel.py:100",
+                         "max abs <= 1e-4 x max |plain|"),
+    "katsevich_derivative": ("triton", "dexct_tpu_torch/ops/katsevich.py",
+                             "dexct_tpu/ops/katsevich.py:352",
+                             "max abs <= 1e-5 x max |plain|"),
+    "katsevich_backproject": ("cuda",
+                              "dexct_tpu_torch/csrc/cone_backproject.cu",
+                              "dexct_tpu/ops/katsevich.py:205",
+                              "max abs <= 1e-4 x max |plain|"),
+    "trilinear_sample": ("cuda", "dexct_tpu_torch/csrc/trilinear_sample.cu",
+                         "dexct_tpu/ops/conebeam.py:778",
+                         "max abs <= 1e-5 x max |plain|"),
 }
 # the CLI paths: flags, whether the params file is a 3-D config, and the
 # kernels each launches
@@ -107,18 +127,44 @@ PATHS = {
                           "gauss_newton", "fdk_backproject")),
     "helical": ([], "helical", ("siddon_trace_3d", "spectral_counts",
                                 "gauss_newton", "helical_backproject")),
+    "flat": ([], "flat", ("siddon_trace_3d", "spectral_counts",
+                          "gauss_newton", "flat_backproject")),
+    "tilted": ([], "tilted", ("siddon_trace_3d", "spectral_counts",
+                              "gauss_newton", "fdk_backproject",
+                              "trilinear_sample")),
+    "zffs": ([], "zffs", ("siddon_trace_3d", "spectral_counts",
+                          "gauss_newton", "helical_backproject")),
+    "katsevich": (["--recon3d", "katsevich"], "helical",
+                  ("siddon_trace_3d", "spectral_counts", "gauss_newton",
+                   "katsevich_derivative", "katsevich_backproject")),
 }
+# the paths that run the stateless 3-D branch (simulate_cone_dect)
+STATELESS = ("flat", "tilted", "zffs", "katsevich")
+# the paths that scan the cone path's phantom and reconstruct its central
+# slice at the same z: their body ROI (water) must read the cone path's HU
+# within BODY_TOL_HU (water against the adipose around it is ~100 HU)
+SAME_SLICE_AS_CONE = ("flat", "tilted", "zffs")
+BODY_TOL_HU = 50.0
 ANALYTIC_KERNELS = ("analytic_chords", "spectral_counts", "gauss_newton",
                     "rebin_to_parallel", "parallel_backproject")
 # the repo's own cone configurations (tools/bench_r3c.py:60-69,
-# tools/bench_helical.py:62-66) as params-file entries
+# tools/bench_helical.py:62-66) as params-file entries, and the cone one
+# with a flat panel, a 15-degree gantry tilt and a z flying focal spot
 CONE_CONFIGS = {
     "cone": dict(scanner_geometry="cone_beam", N_projections=360,
                  phantom_nz=32),
     "helical": dict(scanner_geometry="helical_cone_beam", N_projections=720,
                     rotation_angle_total=4.0 * 3.141592653589793, pitch=3.0,
                     phantom_nz=48),
+    "flat": dict(scanner_geometry="flat_panel_cone_beam", N_projections=360,
+                 phantom_nz=32),
+    "tilted": dict(scanner_geometry="tilted_cone_beam", gantry_tilt_rad=0.2618,
+                   N_projections=360, phantom_nz=32),
+    "zffs": dict(scanner_geometry="cone_beam", flying_focal_spot="z",
+                 N_projections=360, phantom_nz=32),
 }
+# the keys of a cone configuration that select its geometry's variant
+VARIANT_KEYS = ("scanner_geometry", "gantry_tilt_rad", "flying_focal_spot")
 # one H100 SXM (NVIDIA's data sheet): HBM3 rate and float32 peak outside
 # the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -523,8 +569,20 @@ def cone_kernel_phase(arrays, meta, records, helical):
                (nbytes(a["labels"], a["src"], a["dirs"], paths),
                 7 * steps + 60 * V * R * C),
                extra=f" ({V * R * C} rays)")
-    else:
-        paths = cone.cone_paths(a, meta)
+    else:  # K10 at the helical rays, timed apart from the cone record
+        args = (a["labels"], a["src"], a["dirs"], meta.dx, meta.dy, meta.dz)
+        kw = dict(n_materials=meta.n_materials)
+        paths, want, ms, pms = compare(
+            lambda: conebeam.trace_paths_3d(*args, **kw),
+            lambda: conebeam.trace_paths_3d_plain(*args, **kw), reps=2)
+        err = float((paths - want).abs().max())
+        print(f"  siddon_trace_3d on the helical rays ({V * R * C} rays): "
+              f"max_abs_err={err:.6g}  kernel={ms:.4f} ms  plain={pms:.4f} "
+              f"ms  [{KERNELS['siddon_trace_3d'][3]}]")
+        if err > 1e-4:
+            fail("siddon_trace_3d disagrees with its plain version on the "
+                 "helical rays")
+        del want
     # decompose_counts's pixel blocks, as the step solves them
     check_counts_and_gn("helical" if helical else "cone", paths, a, meta,
                         65536)
@@ -566,9 +624,210 @@ def cone_kernel_phase(arrays, meta, records, helical):
            extra=f" (max |plain| {big:.6g}; {meta.nz_out} slices)")
 
 
+def stateless_stack(ccfg, spectra, dev):
+    """The [4, V, R, C] stack (both log sinograms, both basis sinograms)
+    that the stateless branch reconstructs, from its own trace, counts and
+    decomposition."""
+    import torch
+
+    from dexct_tpu_torch.ops.conebeam import simulate_cone_dect
+
+    out = simulate_cone_dect(ccfg.ct, ccfg.phantom, *spectra(ccfg.ct),
+                             ccfg.N_matrix, ccfg.FOV, ccfg.ramp, device=dev,
+                             n_iters=50, do_recon=False)
+    return torch.stack([out["sino_log"][0], out["sino_log"][1],
+                        out["mat_sinos"][0], out["mat_sinos"][1]])
+
+
+def flat_kernel_phase(ccfg, stack, records):
+    """Phase 3, flat-panel path: K13 on the filtered 4-volume stack."""
+    from dexct_tpu_torch.ops import conebeam, flatpanel
+
+    ct = ccfg.ct
+    V, R, C = stack.shape[-3:]
+    N = ccfg.N_matrix
+    q = flatpanel._flat_filter(stack, ct, ccfg.ramp)
+    bargs = (q, conebeam._f32(ct.betas, q.device), ct.SID, ct.du_iso,
+             ct.h_iso, ct.det_offset_ch, ct.det_offset_row, R, N, R,
+             ccfg.FOV, ct.h_iso, ct.rotation_total / V)
+    vol, want, ms, pms = compare(
+        lambda: flatpanel._flat_backproject(*bargs),
+        lambda: flatpanel._flat_backproject_plain(*bargs), reps=1)
+    err, big = max_err(vol, want)
+    P = conebeam._disc(N, ccfg.FOV, q.device)[0].shape[0]
+    report(records, "flat_backproject", err, ms, pms, err <= 1e-4 * big,
+           (nbytes(q, vol) + 8 * P + 8 * V,
+            P * R * V * (30 + 7 * q.shape[0])),
+           extra=f" (max |plain| {big:.6g}; {R} slices)")
+
+
+def tilted_kernel_phase(ccfg, stack, records):
+    """Phase 3, tilted path: K11 on the enlarged gantry grid (timed), then
+    K16 resampling its four volumes onto the patient grid; the yardstick is
+    ``grid_sample``, trilinear with zero padding, which differs from the
+    reference at the box's faces (it weights the corners inside)."""
+    import torch
+    import torch.nn.functional as F
+
+    from dexct_tpu_torch.ops import conebeam
+
+    ct = ccfg.ct
+    V, R, C = stack.shape[-3:]
+    N, fov, dz, tau = ccfg.N_matrix, ccfg.FOV, ct.h_iso, ct.tilt
+    ct_g = ct.untilted()
+    n_g, fov_g, nz_g = conebeam._tilted_grid(tau, N, fov, R, dz)
+    q = conebeam._fdk_filter(stack, conebeam._fdk_weights(ct_g), ct_g,
+                             ccfg.ramp, "sinc")
+    fargs = (q, conebeam._f32(ct_g.betas, q.device), ct_g.SID, ct_g.dgamma,
+             ct_g.h_iso, R, n_g, nz_g, fov_g, dz, ct_g.rotation_total / V)
+    vols = conebeam._fdk_backproject_multi(*fargs)
+    k11 = time_ms(lambda: conebeam._fdk_backproject_multi(*fargs), 1)
+    print(f"  fdk_backproject on the tilted gantry grid ({n_g}^2 x {nz_g}): "
+          f"kernel={k11:.4f} ms")
+    idx = conebeam._tilted_indices(tau, N, fov, R, dz, q.device)
+    out, want, ms, pms = compare(
+        lambda: conebeam._trilinear_volume_sample(vols, *idx),
+        lambda: conebeam._trilinear_volume_sample_plain(vols, *idx), reps=5)
+    err, big = max_err(out, want)
+    # grid_sample's (x, y, z) in [-1, 1] at the box's corner centres
+    shape = out.shape[1:]
+    grid = torch.stack([
+        (t / (n - 1) * 2.0 - 1.0).expand(shape) for t, n in
+        ((idx[2], n_g), (idx[1], n_g), (idx[0], nz_g))], -1)[None]
+
+    def library():
+        return F.grid_sample(vols[None], grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)[0]
+
+    lib_err = float((library() - want).abs().max())
+    # the gantry cells the function needs: the eight corners of every
+    # point's stencil (the rotated patient slab covers part of the grid)
+    corner = [torch.clamp(torch.floor(t.expand(shape)), 0, n - 2).long()
+              .reshape(-1) for t, n in ((idx[0], nz_g), (idx[1], n_g),
+                                        (idx[2], n_g))]
+    cells = torch.unique(torch.cat([
+        ((corner[0] + a) * n_g + corner[1] + b) * n_g + corner[2] + c
+        for a in (0, 1) for b in (0, 1) for c in (0, 1)])).numel()
+    report(records, "trilinear_sample", err, ms, pms, err <= 1e-5 * big,
+           (4 * vols.shape[0] * cells + nbytes(*idx, out),
+            out.numel() * 40),
+           library_ms=time_ms(library, 5),
+           extra=f" (max |plain| {big:.6g}; {nz_g} x {n_g}^2 -> {R} x {N}^2,"
+                 f" {cells} of {vols[0].numel()} cells touched; library err "
+                 f"{lib_err:.3g})")
+
+
+def zffs_kernel_phase(ccfg, stack):
+    """Phase 3, z-FFS path: K12 as the circular z flying focal spot runs
+    it, pitch 0 with nonzero per-view row offsets (the helical record stays
+    the helical config's)."""
+    import numpy as np
+
+    from dexct_tpu_torch.ops import conebeam
+
+    ct = ccfg.ct
+    V, R, C = stack.shape[-3:]
+    dev = stack.device
+    q = conebeam._fdk_filter_zffs(stack, ct, ccfg.ramp)
+    off = np.asarray(ct.ffs_view_offsets, np.float64)
+    row_off = off * ct.SID / (ct.SDD * ct.h_iso)
+    z0 = (0.5 - R / 2.0) * ct.h_iso
+    hargs = (q, conebeam._f32(ct.betas, dev), conebeam._f32(off, dev),
+             conebeam._f32(row_off, dev),
+             conebeam._f32(np.full(R, 0.5 * ct.rotation_total), dev),
+             ct.SID, ct.dgamma, ct.h_iso, R, 0.0, ccfg.N_matrix, R, ccfg.FOV,
+             ct.h_iso, z0)
+    vol, want, ms, pms = compare(
+        lambda: conebeam._helical_backproject(
+            *hargs, dbeta=ct.rotation_total / V),
+        lambda: conebeam._helical_backproject_plain(*hargs), reps=1)
+    err, big = max_err(vol, want)
+    print(f"  helical_backproject at pitch 0 with the z-FFS row offsets "
+          f"(|row_off| {abs(row_off).max():.4g} rows): max_abs_err={err:.6g}"
+          f" (max |plain| {big:.6g})  kernel={ms:.4f} ms  plain={pms:.4f} ms"
+          f"  [{KERNELS['helical_backproject'][3]}]")
+    if err > 1e-4 * big:
+        fail("helical_backproject disagrees with its plain version at the "
+             "z-FFS row offsets")
+
+
+def katsevich_kernel_phase(ccfg, stack, records):
+    """Phase 3, Katsevich path on the helical config: K14 (with its cuFFT
+    spectral derivative) on the 4-volume stack, then K15 on the chain's
+    filtered data."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from dexct_tpu_torch.ops import conebeam, katsevich
+
+    ct = ccfg.ct
+    V, R, C = stack.shape[-3:]
+    N, fov = ccfg.N_matrix, ccfg.FOV
+    arrays, st = katsevich._host_prep(
+        stack.shape, ct, N, fov, z_out=None, n_psi=128, taper=None,
+        interp="linear", deriv="spectral", ramp=ccfg.ramp, window="sinc",
+        device=stack.device)
+    dargs = (stack, arrays["cosk"], st["dbeta"], st["dgamma"])
+    kw = dict(deriv="spectral", ramp=ccfg.ramp, window="sinc")
+    g1, want, ms, pms = compare(
+        lambda: katsevich._fixed_direction_derivative(*dargs, **kw),
+        lambda: katsevich._fixed_direction_derivative_plain(*dargs, **kw),
+        reps=5)
+    err, big = max_err(g1, want)
+    L = 1 << math.ceil(math.log2(2 * C))  # the spectral derivative's FFT
+    rows = stack.numel() // C
+    report(records, "katsevich_derivative", err, ms, pms, err <= 1e-5 * big,
+           (nbytes(stack, arrays["cosk"], g1),
+            stack.numel() * 12 + rows * (5 * L * math.log2(L) + 3 * L)),
+           extra=f" (max |plain| {big:.6g}; spectral, FFT length {L})")
+    del g1, want
+    gf = katsevich._katsevich_filter(
+        stack, arrays["Wf"], arrays["Wb"], arrays["kern_im"], arrays["cosk"],
+        dbeta=st["dbeta"], dgamma=st["dgamma"], deriv="spectral",
+        ramp=ccfg.ramp, window="sinc", fft_len=st["fft_len"])
+    bargs = (gf, arrays["betas"], arrays["src_z"], st["sid"], st["dgamma"],
+             st["row_h"], st["n_rows"], st["pitch"], N, st["nz_out"], fov,
+             st["dz_out"], st["z0"])
+    vol, want, ms, pms = compare(
+        lambda: katsevich._katsevich_backproject(
+            *bargs, st["beta_mid"], st["dbeta"], st["taper"]),
+        lambda: katsevich._katsevich_backproject_plain(
+            *bargs, st["dbeta"], st["taper"]), reps=1)
+    err, big = max_err(vol, want)
+    X, Y, _ = conebeam._disc(N, fov, gf.device)
+    P = X.shape[0]
+    # the views each slice visits: source z within the TD window's reach
+    reach = katsevich._z_reach(st["pitch"], C, st["dgamma"], st["taper"],
+                               st["sid"], fov)
+    zc = st["z0"] + np.arange(st["nz_out"]) * st["dz_out"]
+    visits = int((np.abs(zc[:, None] - np.asarray(ct.source_z)[None, :])
+                  <= reach).sum())
+    # the terms the function needs: (pixel, slice, view) with a nonzero
+    # weight, on the detector and inside the tapered TD window
+    zc_t = katsevich._katsevich_z(st["nz_out"], st["dz_out"], st["z0"],
+                                  gf.device)
+    betas = arrays["betas"].to(torch.float32)
+    src_z = arrays["src_z"].to(torch.float32)
+    terms = 0
+    for v0 in range(0, V, 8):
+        w = katsevich._pi_terms(
+            X, Y, zc_t, betas[v0:v0 + 8], src_z[v0:v0 + 8], st["sid"],
+            st["dgamma"], st["row_h"], R, C, st["pitch"] / (4.0 * np.pi),
+            st["taper"])[2]
+        terms += int((w != 0).sum())
+    report(records, "katsevich_backproject", err, ms, pms, err <= 1e-4 * big,
+           (nbytes(gf, vol) + 8 * P + 12 * V,
+            terms * (60 + 7 * gf.shape[0])),
+           extra=f" (max |plain| {big:.6g}; {st['nz_out']} slices; "
+                 f"{terms} weighted pixel-slice-views of {P * visits} in "
+                 f"reach)")
+
+
 def counters():
-    from dexct_tpu_torch.ops import (conebeam, fbp_fast, fourier, matdecomp,
-                                     siddon, spectral)
+    from dexct_tpu_torch.ops import (conebeam, fbp_fast, flatpanel, fourier,
+                                     katsevich, matdecomp, siddon, spectral)
     from dexct_tpu_torch.system import analytic
 
     return {"siddon_trace": siddon.trace_paths,
@@ -582,7 +841,11 @@ def counters():
             "analytic_chords": analytic.analytic_paths,
             "siddon_trace_3d": conebeam.trace_paths_3d,
             "fdk_backproject": conebeam._fdk_backproject_multi,
-            "helical_backproject": conebeam._helical_backproject}
+            "helical_backproject": conebeam._helical_backproject,
+            "flat_backproject": flatpanel._flat_backproject,
+            "katsevich_derivative": katsevich._fixed_direction_derivative,
+            "katsevich_backproject": katsevich._katsevich_backproject,
+            "trilinear_sample": conebeam._trilinear_volume_sample}
 
 
 def check_launches(label, fns, path_kernels, records):
@@ -662,9 +925,22 @@ def check_outputs(out_dir, run_id, n_views, n_ch, n_img):
     return len(want)
 
 
-def check_outputs_3d(out_dir, run_id, vrc, nz, n_img):
+def roi_mean(vol, x, y, iz, fov=40.0):
+    """Mean of the 1 cm x 1 cm ROI centred at (x, y) cm in slice ``iz`` of
+    a [nz, N, N] volume over ``fov`` cm."""
+    n_img = vol.shape[-1]
+    px = fov / n_img
+    iy = int(round(y / px + n_img / 2 - 0.5))
+    ix = int(round(x / px + n_img / 2 - 0.5))
+    h = max(int(round(0.5 / px)), 1)
+    return float(vol[iz, iy - h:iy + h, ix - h:ix + h].mean())
+
+
+def check_outputs_3d(out_dir, run_id, vrc, nz, n_img, tilted=False):
     """Phase 4 checks on a 3-D path's files: [V, R, C] sinograms and
-    [nz, N, N] volumes, finite, air ~ -1000 HU in the central slice."""
+    [nz, N, N] volumes, finite, air ~ -1000 HU inside the scanned cone.
+    Returns the file count and both acquisitions' HU in a 1 cm² ROI at the
+    centre of the central slice (the pelvis's bladder, water)."""
     import numpy as np
 
     V, R, C = vrc
@@ -687,22 +963,32 @@ def check_outputs_3d(out_dir, run_id, vrc, nz, n_img):
             fail(f"{path} has {path.stat().st_size} bytes, want {size}")
         if not np.all(np.isfinite(np.fromfile(path, np.float32))):
             fail(f"{path} holds non-finite values")
-    # air ROI inside the 40 cm FOV: 1 cm x 1 cm at (x, y) = (0, -18) cm,
-    # below the pelvis body (|y| <= 14.9 cm)
-    px = 40.0 / n_img
-    iy = int(round(-18.0 / px + n_img / 2 - 0.5))
-    ix = n_img // 2
-    h = max(int(round(0.5 / px)), 1)
-    hus = []
+    # air ROI inside the 40 cm FOV and the scanned cone. Untilted: at
+    # (x, y) = (0, -18) cm of the central slice, below the pelvis body
+    # (|y| <= 14.9 cm). Tilted 15 degrees, that point's gantry image lies
+    # 4.7 cm off the midplane, outside the +-2 cm the rows cover, so the
+    # ROI moves to (16, -10.5) cm of the first slice (z = -1.875 cm), air
+    # beside the tapered caudal body, whose gantry image lies 0.9 cm off
+    # the midplane; its raw values must then be nonzero.
+    x, y, iz = (16.0, -10.5, 0) if tilted else (0.0, -18.0, nz // 2)
+    hus, body, raw = [], [], []
     for d in acq:
         hu = np.fromfile(d / "recon_HU_float32.bin", np.float32).reshape(
             nz, n_img, n_img)
-        hus.append(float(hu[nz // 2, iy - h:iy + h, ix - h:ix + h].mean()))
-    print(f"  air ROI HU (central slice): detunedMV {hus[0]:.2f}, "
-          f"80kV {hus[1]:.2f}")
+        hus.append(roi_mean(hu, x, y, iz))
+        body.append(roi_mean(hu, 0.0, 0.0, nz // 2))
+        mu = np.fromfile(d / "recon_raw_float32.bin", np.float32).reshape(
+            nz, n_img, n_img)
+        raw.append(roi_mean(np.abs(mu), x, y, iz))
+    print(f"  air ROI HU at ({x:g}, {y:g}) cm, slice {iz}: detunedMV "
+          f"{hus[0]:.2f}, 80kV {hus[1]:.2f} (mean |raw| {raw[0]:.4g}, "
+          f"{raw[1]:.4g} cm^-1); body ROI HU at (0, 0), slice {nz // 2}: "
+          f"{body[0]:.2f}, {body[1]:.2f}")
     if not all(abs(h_ + 1000.0) <= 50.0 for h_ in hus):
         fail(f"air ROI is not ~-1000 HU: {hus}")
-    return len(want)
+    if tilted and min(raw) == 0.0:
+        fail("the tilted air ROI was not reconstructed (all zero)")
+    return len(want), body
 
 
 def profiled_step(step):
@@ -788,6 +1074,52 @@ def cone_stage_profile(cfg, label, tmp, smi):
     st.mark("write the 12 files")
     del out
     print_stages(label, st.t, lambda: cone_dect_step(arrays, meta), smi)
+
+
+def stateless_stage_profile(cfg, label, recon, tmp, smi):
+    """One more DE pair of a stateless 3-D path, stage by stage: spectra,
+    the rays alone, trace to decomposition (``do_recon=False``, with its own
+    rays), the 4-volume reconstruction, the writes; then the device's busy
+    share over one more whole ``simulate_cone_dect``."""
+    import torch
+
+    from dexct_tpu_torch.ops import conebeam
+    from dexct_tpu_torch.ops.fbp import hu_image
+    from dexct_tpu_torch.pipeline.api import effective_water_mu
+    from dexct_tpu_torch.pipeline.runner import (_resolve_spectrum,
+                                                 default_generators)
+    from dexct_tpu_torch.utils.io import StageWriter
+
+    dev = torch.device("cuda")
+    st = Stages()
+    gens = default_generators()
+    s1 = _resolve_spectrum("detunedMV", 9.0, cfg.ct, str(SPECTRA), gens)
+    s2 = _resolve_spectrum("80kV", 1.0, cfg.ct, str(SPECTRA), gens)
+    st.mark("spectra")
+    cfg.ct.ray_geometry_3d()
+    st.mark("ray_geometry_3d (alone)")
+    args = (cfg.ct, cfg.phantom, s1, s2, cfg.N_matrix, cfg.FOV, cfg.ramp)
+    out = conebeam.simulate_cone_dect(*args, device=dev, n_iters=50,
+                                      do_recon=False)
+    st.mark("trace to decomposition (with its ray_geometry_3d)")
+    stack = torch.stack([out["sino_log"][0], out["sino_log"][1],
+                         out["mat_sinos"][0], out["mat_sinos"][1]])
+    vols = conebeam.reconstruct_3d(stack, cfg.ct, cfg.N_matrix, cfg.FOV,
+                                   cfg.ramp, recon=recon)
+    st.mark("reconstruction of 4 volumes")
+    writer = StageWriter(str(tmp / f"{label}_profile"), cfg.run_id)
+    for i, (sid_, dose) in enumerate((("detunedMV", 9.0), ("80kV", 1.0))):
+        hu = hu_image(vols[i], effective_water_mu((s1, s2)[i], cfg.ct))
+        writer.acquisition(sid_, dose, sino_raw=out["sino_raw"][i],
+                           sino_log=out["sino_log"][i], recon_raw=vols[i],
+                           recon_HU=hu)
+    writer.matdecomp("detunedMV", "80kV", 9.0, 1.0,
+                     mat_sinos=list(out["mat_sinos"]),
+                     mat_recons=[vols[2], vols[3]])
+    st.mark("write the 12 files")
+    del out, stack, vols
+    print_stages(label, st.t, lambda: conebeam.simulate_cone_dect(
+        *args, device=dev, n_iters=50, recon=recon), smi)
 
 
 def analytic_path(records, smi):
@@ -917,9 +1249,9 @@ def both_devices_phase(tmp, label, flags):
     compare_devices(tmp, label, tmp / "tiny.txt", flags)
 
 
-def cone_devices_phase(tmp, kind):
+def cone_devices_phase(tmp, label, spec, flags):
     """Phase 5: a 32^2 x 8 water cylinder under a 24-view (48 over two
-    turns for the helix) 4-row cone config."""
+    turns for the helix) 4-row version of one 3-D path's configuration."""
     import numpy as np
 
     from dexct_tpu_torch.system.phantom import (VoxelPhantom,
@@ -934,16 +1266,16 @@ def cone_devices_phase(tmp, kind):
                 "phantom_filename": str(tmp / "w3.bin"),
                 "matcomp_filename": str(tmp / "w3.csv"),
                 "Nx": 32, "Ny": 32, "Nz": 8, "dx": 0.6, "dy": 0.6,
-                "dz": 0.5, "scanner_geometry": kind, "N_rows": 4,
-                "detector_px_height": 0.5, "N_channels": 32,
-                "N_projections": 24,
+                "dz": 0.5, "N_rows": 4, "detector_px_height": 0.5,
+                "N_channels": 32, "N_projections": 24,
                 "detector_filename": str(ROOT / cfg["detector_filename"]),
-                "N_recon_matrix": 32, "FOV_recon": 18.0})
-    if kind == "helical_cone_beam":
+                "N_recon_matrix": 32, "FOV_recon": 18.0,
+                **{k: spec[k] for k in VARIANT_KEYS if k in spec}})
+    if cfg["scanner_geometry"] == "helical_cone_beam":
         cfg.update({"N_projections": 48, "pitch": 2.0,
                     "rotation_angle_total": 4 * np.pi})
-    (tmp / f"{kind}.txt").write_text(json.dumps(cfg))
-    compare_devices(tmp, kind, tmp / f"{kind}.txt", [])
+    (tmp / f"{label}.txt").write_text(json.dumps(cfg))
+    compare_devices(tmp, label, tmp / f"{label}.txt", flags)
 
 
 def main():
@@ -984,7 +1316,7 @@ def main():
                                torch.zeros(1, device=dev))
     torch.cuda.synchronize()
     t2 = time.time()
-    print(f"build: nvcc K1, K3-K12 {t1 - t0:.1f} s, triton K2 "
+    print(f"build: nvcc K1, K3-K13, K15, K16 {t1 - t0:.1f} s, triton K2 "
           f"{t2 - t1:.1f} s")
 
     # 3. kernels against their plain versions at the paths' shapes
@@ -1023,13 +1355,22 @@ def main():
                        for label, spec in CONE_CONFIGS.items()}
         cone_cfgs = {label: read_parameter_file(p)[0]
                      for label, p in cone_params.items()}
-        for label, ccfg in cone_cfgs.items():
+        for label in ("cone", "helical"):
+            ccfg = cone_cfgs[label]
             arrays, meta = pack_cone_dect(
                 ccfg.ct, ccfg.phantom, *spectra(ccfg.ct), ccfg.N_matrix,
                 ccfg.FOV, ccfg.ramp, device=dev, n_iters=50)
             cone_kernel_phase(arrays, meta, records, label == "helical")
         del arrays
-        torch.cuda.empty_cache()
+        stateless_phases = (("flat", flat_kernel_phase),
+                            ("tilted", tilted_kernel_phase),
+                            ("zffs",
+                             lambda c, st, _: zffs_kernel_phase(c, st)),
+                            ("helical", katsevich_kernel_phase))
+        for label, phase in stateless_phases:
+            ccfg = cone_cfgs[label]
+            phase(ccfg, stateless_stack(ccfg, spectra, dev), records)
+            torch.cuda.empty_cache()
 
         # 4. the paths: four through the CLI, the analytic projector
         # through the library
@@ -1038,6 +1379,7 @@ def main():
         fns = counters()
         for name in KERNELS:
             records[name]["launches"] = 0
+        bodies = {}
         for label, (flags, cone, path_kernels) in PATHS.items():
             params = cone_params[cone] if cone else PARAMS
             for fn in fns.values():
@@ -1055,12 +1397,25 @@ def main():
             if cone:
                 ccfg = cone_cfgs[cone]
                 vol = res[0].dect.recon_raw[0]
-                n_files = check_outputs_3d(
+                n_files, bodies[label] = check_outputs_3d(
                     tmp / f"{label}2", ccfg.run_id,
                     (ccfg.ct.N_proj, ccfg.ct.N_rows, ccfg.ct.N_channels),
-                    vol.shape[0], ccfg.N_matrix)
+                    vol.shape[0], ccfg.N_matrix, tilted=label == "tilted")
                 print(f"  {n_files} output files: exact sizes, finite")
-                cone_stage_profile(ccfg, label, tmp, smi)
+                if label in SAME_SLICE_AS_CONE:
+                    d = [b - c for b, c in zip(bodies[label],
+                                               bodies["cone"])]
+                    print(f"  body ROI minus the cone path's: detunedMV "
+                          f"{d[0]:.2f}, 80kV {d[1]:.2f} HU")
+                    if max(abs(x) for x in d) > BODY_TOL_HU:
+                        fail(f"the {label} path's body ROI is {d} HU off "
+                             f"the cone path's")
+                if label in STATELESS:
+                    stateless_stage_profile(
+                        ccfg, label, "katsevich" if label == "katsevich"
+                        else "auto", tmp, smi)
+                else:
+                    cone_stage_profile(ccfg, label, tmp, smi)
             else:
                 n_files = check_outputs(tmp / f"{label}2", cfg.run_id,
                                         cfg.ct.N_proj, cfg.ct.N_channels,
@@ -1073,7 +1428,7 @@ def main():
         # 5. every path on both devices
         for label, (flags, cone, _) in PATHS.items():
             if cone:
-                cone_devices_phase(tmp, CONE_CONFIGS[cone]["scanner_geometry"])
+                cone_devices_phase(tmp, label, CONE_CONFIGS[cone], flags)
             else:
                 both_devices_phase(tmp, label, flags)
     finally:

@@ -5,15 +5,18 @@ reference it is tested against.  This package imports ``torch`` and never
 ``jax`` or ``dexct_tpu``.  It runs the dual-energy main path (projection ->
 two polyenergetic acquisitions -> Gauss-Newton decomposition -> four
 reconstructions -> the §2.6 output files) on the 2-D fan-beam paths, on
-cone-beam and helical configs, and with the analytic projector, through
-twelve hand-written kernels on the card (K1-K12, sources in ``csrc/`` and
-``ops/spectral.py``) with plain PyTorch versions of each on the CPU.
+cone-beam, helical, flat-panel and gantry-tilted configs (with a z flying
+focal spot and exact Katsevich helical reconstruction), and with the
+analytic projector, through sixteen hand-written kernels on the card
+(K1-K16, sources in ``csrc/``, ``ops/spectral.py`` and
+``ops/katsevich.py``) with plain PyTorch versions of each on the CPU.
 
 Layer map (as in dexct_tpu):
     physics/   attenuation tables, spectra, detectors, materials (host NumPy)
     system/    scanner geometry, voxel and analytic phantoms (K9), run config
     ops/       siddon (K1), spectral (K2), matdecomp (K3), fbp/fbp_fast
-               (K4-K6), fourier (K7, K8), conebeam (K10-K12)
+               (K4-K6), fourier (K7, K8), conebeam (K10-K12, K16),
+               flatpanel (K13), katsevich (K14, K15)
     pipeline/  reference-compatible API, fused 2-D and cone steps, driver
     utils/     output contract, kernel build
 """

@@ -1,48 +1,66 @@
-// K11 fdk_backproject and K12 helical_backproject: voxel-driven Feldkamp
-// backprojection of K filtered cone-beam stacks, on a circular orbit (K11)
-// and on a helix (K12, generalized Feldkamp with weighting "full": each
-// voxel takes the views within pi of its slice's window centre beta_c).
+// Voxel-driven backprojection of K filtered cone-beam stacks, four kernels
+// with one set of tap device functions:
+// - K11 fdk_backproject: circular Feldkamp (cylindrical detector);
+// - K12 helical_backproject: generalized Feldkamp on a helix, weighting
+//   "full" (each voxel takes the views within pi of its slice's window
+//   centre beta_c);
+// - K13 flat_backproject: circular Feldkamp on a flat panel;
+// - K15 katsevich_backproject: the PI-window backprojection of Katsevich's
+//   exact helical inversion.
 //
-// K11 replaces dexct_tpu/ops/conebeam.py:_fdk_backproject_multi and K12
-// replaces dexct_tpu/ops/conebeam.py:_helical_backproject.  Both TPU
-// programs are a lax.scan over view blocks that gathers one packed row of
-// all 4K bilinear taps per (view, pixel, slice), with z-slice pairs sharing
-// a 4-row window; K11's quarter-turn orbit fold stacks four views into one
-// row, and K12, given dbeta, updates only a dynamic window of slices per
-// view block.  These are gather-count layouts of one image.
+// They replace dexct_tpu/ops/conebeam.py:_fdk_backproject_multi (K11),
+// :_helical_backproject (K12), dexct_tpu/ops/flatpanel.py:_flat_backproject
+// (K13) and dexct_tpu/ops/katsevich.py:_katsevich_backproject (K15).  The
+// TPU programs are lax.scans over view blocks that gather one packed row of
+// all the bilinear (or 4-row cubic) taps per (view, pixel, slice), with
+// z-slice pairs sharing a 4-row window; K11's quarter-turn orbit fold stacks
+// four views into one row, and K12 and K15 update only a dynamic window of
+// slices per view block.  These are gather-count layouts of one image.
 //
-// What bounds them on the card: per (pixel, slice, view) one atan2, one
-// square root, three divisions and ~40 other float ops, plus four taps of
-// each of the K stacks (qs is 4 x 360 x 16 x 256 floats, 23.6 MB, at the
-// cone protocol and 4 x 720 x 16 x 256, 47 MB, at the helical one: about
-// the size of the 50 MB L2), so arithmetic dominates.  Design: one thread
-// per (disc pixel, output slice) loops over the views and keeps its sums in
-// registers, so the output is written once with no atomics; neighbouring
-// threads are neighbouring disc pixels of one slice, whose taps sit on
-// neighbouring channels of the same detector rows.  K11 stages cos/sin of
-// the view angles in shared memory (kChunk views at a time) and visits
-// every view.  K12 visits only the views of its slice's window: the views
-// are uniformly spaced (dbeta), so the range is computed from beta_c with a
-// two-view margin and the exact window test below decides each view; the
-// views skipped are those whose terms the reference multiplies by an exact
-// zero.
+// What bounds them on the card: per (pixel, slice, view) one atan2 (K15
+// also a cosine), one square root, three to six divisions and ~40 other
+// float ops, plus four taps (eight for K15's cubic rows) of each of the K
+// stacks (4 x 360 x 16 x 256 floats, 23.6 MB, at the cone protocol and
+// 4 x 720 x 16 x 256, 47 MB, at the helical one: about the size of the
+// 50 MB L2), so arithmetic dominates.  Design: one thread per (disc pixel,
+// output slice) loops over the views and keeps its sums in registers, so the
+// output is written once with no atomics; neighbouring threads are
+// neighbouring disc pixels of one slice, whose taps sit on neighbouring
+// channels of the same detector rows.  K11 and K13 stage cos/sin of the view
+// angles in shared memory (kChunk views at a time) and visit every view.
+// K12 and K15 visit only the views that can reach their slice, the views
+// being uniformly spaced: K12 those within pi of beta_c, K15 those whose
+// source z lies within z_reach of the slice (z_reach bounds the tapered
+// Tam-Danielsson window's height over the FOV), each with a two-view
+// margin; the exact per-view tests below decide the rest, and the views
+// skipped are those whose terms the reference multiplies by an exact zero.
 //
 // Per view, as the JAX programs in float32 without fused multiply-adds
-// (view_tap and add_taps below, shared by both kernels):
+// (view_tap, channel_tap, row_tap and add_taps below):
 // ell = sid - (X cos b + Y sin b), vt = -X sin b + Y cos b,
-// h2 = ell^2 + vt^2, inv_h = 1 / sqrt(h2),
-// c = atan2(-vt, ell) / dgamma - 0.5 + C/2, in the fan when 0 <= c <= C-1,
+// h2 = ell^2 + vt^2, inv_h = 1 / sqrt(h2) (the JAX programs' rsqrt),
+// a channel position c, in the fan when 0 <= c <= C-1,
 // c0 = clamp(floor(c), 0, C-2), fc = clamp(c - c0, 0, 1);
-// on the detector when -0.5 <= ridx <= R-0.5, r0 = clamp(floor(ridx), 0,
-// R-2), fr = clamp(ridx - r0, 0, 1); the tap rows are r0 and min(r0 + 1,
-// R-1) (the JAX row shift repeats the last row), the channels c0 and
-// c0 + 1, and the weight 1 / h2.
-// K11: ridx = z sid inv_h / row_h - 0.5 + R/2; the sum is multiplied by
-// dbeta.
-// K12: ridx = (z - src_z[v]) sid inv_h / row_h - 0.5 + R/2 + row_off[v];
-// a view inside the window (|beta[v] - beta_c| <= pi) and on the detector
-// adds 1 to the denominator and, inside the fan, its tap to the
-// numerator; out = (den > 0 ? num / max(den, 1e-30) : 0) 2 pi.
+// a row position ridx, on the detector when -0.5 <= ridx <= R-0.5,
+// r0 = clamp(floor(ridx), 0, R-2), fr = clamp(ridx - r0, 0, 1); the tap rows
+// are r0 and min(r0 + 1, R-1) (the JAX row shift repeats the last row) and
+// the channels c0 and c0 + 1.
+// K11: c = atan2(-vt, ell) / dgamma - 0.5 + C/2, ridx = z sid inv_h / row_h
+// - 0.5 + R/2, weight 1 / h2; the sum is multiplied by dbeta.
+// K12: c as K11, ridx = (z - src_z[v]) sid inv_h / row_h - 0.5 + R/2 +
+// row_off[v], weight 1 / h2; a view inside the window (|beta[v] - beta_c| <=
+// pi) and on the detector adds 1 to the denominator and, inside the fan, its
+// tap to the numerator; out = (den > 0 ? num / max(den, 1e-30) : 0) 2 pi.
+// K13: u = -sid vt / ell, c = u / du - 0.5 - off_c + C/2, ridx = (sid z /
+// ell) / dv - 0.5 - off_r + R/2, weight sid^2 / ell^2; the sum is multiplied
+// by dbeta / 2.
+// K15: gam = atan2(-vt, ell), c as K11, zt = (z - src_z[v]) sid inv_h, ridx =
+// zt / row_h - 0.5 + R/2; the Tam-Danielsson bounds htop = qp (pi + 2 gam) /
+// cos gam and hbot = -qp (pi - 2 gam) / cos gam (qp = pitch / 4 pi) give
+// w_td = clamp((zt - hbot) / taper + 0.5, 0, 1) clamp((htop - zt) / taper +
+// 0.5, 0, 1); weight w_td / max(ell, 1e-3); rows linear as above or
+// Catmull-Rom over rows r0-1 .. r0+2 (clamped to the detector); the sum is
+// multiplied by -dbeta / 2 pi.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -105,17 +123,35 @@ __device__ __forceinline__ bool on_detector(float ridx, const Detector& d) {
   return ridx >= -0.5f && ridx <= d.r_hi;
 }
 
-// acc[k] += (1 / h2) x the bilinear value of stack k at view v, row ridx,
-// channel c.
+// The channel tap (c0, fc) and row tap (r0, fr) of a detector position.
+__device__ __forceinline__ void channel_tap(float c, const Detector& d,
+                                            float& c0, float& fc) {
+  c0 = fminf(fmaxf(floorf(c), 0.0f), d.c0_max);
+  fc = fminf(fmaxf(__fsub_rn(c, c0), 0.0f), 1.0f);
+}
+
+__device__ __forceinline__ void row_tap(float ridx, const Detector& d,
+                                        float& r0, float& fr) {
+  r0 = fminf(fmaxf(floorf(ridx), 0.0f), d.r0_max);
+  fr = fminf(fmaxf(__fsub_rn(ridx, r0), 0.0f), 1.0f);
+}
+
+// q[row, c0] (1 - fc) + q[row, c0 + 1] fc of one stack at one view.
+__device__ __forceinline__ float lerp_channels(const float* __restrict__ q,
+                                               long long o, float fc) {
+  return __fadd_rn(__fmul_rn(__ldg(q + o), 1.0f - fc),
+                   __fmul_rn(__ldg(q + o + 1), fc));
+}
+
+// acc[k] += w x the bilinear value of stack k at view v, row ridx, channel
+// c.
 template <int K>
 __device__ __forceinline__ void add_taps(const float* __restrict__ qs,
                                          const Detector& d, int v, float c,
-                                         float ridx, float h2, float* acc) {
-  const float c0 = fminf(fmaxf(floorf(c), 0.0f), d.c0_max);
-  const float fc = fminf(fmaxf(__fsub_rn(c, c0), 0.0f), 1.0f);
-  const float r0 = fminf(fmaxf(floorf(ridx), 0.0f), d.r0_max);
-  const float fr = fminf(fmaxf(__fsub_rn(ridx, r0), 0.0f), 1.0f);
-  const float w = __fdiv_rn(1.0f, h2);
+                                         float ridx, float w, float* acc) {
+  float c0, fc, r0, fr;
+  channel_tap(c, d, c0, fc);
+  row_tap(ridx, d, r0, fr);
   const int ir0 = (int)r0;
   const int ir1 = min(ir0 + 1, d.R - 1);
   const long long base = (long long)v * d.view_stride + (int)c0;
@@ -124,10 +160,8 @@ __device__ __forceinline__ void add_taps(const float* __restrict__ qs,
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const float* q = qs + k * d.image_stride;
-    const float top = __fadd_rn(__fmul_rn(__ldg(q + o0), 1.0f - fc),
-                                __fmul_rn(__ldg(q + o0 + 1), fc));
-    const float bot = __fadd_rn(__fmul_rn(__ldg(q + o1), 1.0f - fc),
-                                __fmul_rn(__ldg(q + o1 + 1), fc));
+    const float top = lerp_channels(q, o0, fc);
+    const float bot = lerp_channels(q, o1, fc);
     acc[k] += __fadd_rn(__fmul_rn(top, 1.0f - fr), __fmul_rn(bot, fr)) * w;
   }
 }
@@ -171,7 +205,7 @@ __global__ void fdk_backproject_kernel(
           __fsub_rn(__fdiv_rn(__fmul_rn(zs, t.inv_h), row_h), 0.5f),
           d.r_shift);
       if (!on_detector(ridx, d)) continue;
-      add_taps<K>(qs, d, v0 + j, c, ridx, t.h2, acc);
+      add_taps<K>(qs, d, v0 + j, c, ridx, __fdiv_rn(1.0f, t.h2), acc);
     }
   }
   if (!valid) return;
@@ -219,7 +253,7 @@ __global__ void helical_backproject_kernel(
     den += 1.0f;  // the window and row weights are 1 from here on
     const float c = channel(t, dgamma, d);
     if (!in_fan(c, d)) continue;
-    add_taps<K>(qs, d, v, c, ridx, t.h2, num);
+    add_taps<K>(qs, d, v, c, ridx, __fdiv_rn(1.0f, t.h2), num);
   }
   const long long dst = (long long)iz * plane + sel[p];
   const long long vol = (long long)gridDim.y * plane;
@@ -228,6 +262,155 @@ __global__ void helical_backproject_kernel(
     const float o = den > 0.0f ? __fdiv_rn(num[k], fmaxf(den, 1e-30f)) : 0.0f;
     out[k * vol + dst] = __fmul_rn(o, kTwoPi);
   }
+}
+
+template <int K>
+__global__ void flat_backproject_kernel(
+    const float* __restrict__ qs, const float* __restrict__ cos_b,
+    const float* __restrict__ sin_b, const float* __restrict__ X,
+    const float* __restrict__ Y, const long long* __restrict__ sel,
+    const float* __restrict__ zc, float* __restrict__ out, int V, int R,
+    int C, int P, long long plane, float sid, float du, float dv,
+    float off_c, float off_r, float dbeta) {
+  __shared__ float s_cos[kChunk];
+  __shared__ float s_sin[kChunk];
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  const int iz = blockIdx.y;
+  const bool valid = p < P;
+  const float x = valid ? X[p] : 0.0f;
+  const float y = valid ? Y[p] : 0.0f;
+  const float zs = __fmul_rn(sid, zc[iz]);
+  const float nsid = -sid;
+  const float sid2 = __fmul_rn(sid, sid);
+  const Detector d = make_detector(V, R, C);
+
+  float acc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = 0.0f;
+
+  for (int v0 = 0; v0 < V; v0 += kChunk) {
+    const int nv = min(kChunk, V - v0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < nv; i += blockDim.x) {
+      s_cos[i] = cos_b[v0 + i];
+      s_sin[i] = sin_b[v0 + i];
+    }
+    __syncthreads();
+    if (!valid) continue;
+    for (int j = 0; j < nv; ++j) {
+      const ViewTap t = view_tap(x, y, s_cos[j], s_sin[j], sid);
+      const float u = __fdiv_rn(__fmul_rn(nsid, t.vt), t.ell);
+      const float c = __fadd_rn(
+          __fsub_rn(__fsub_rn(__fdiv_rn(u, du), 0.5f), off_c), d.c_shift);
+      if (!in_fan(c, d)) continue;
+      const float ridx = __fadd_rn(
+          __fsub_rn(__fsub_rn(__fdiv_rn(__fdiv_rn(zs, t.ell), dv), 0.5f),
+                    off_r),
+          d.r_shift);
+      if (!on_detector(ridx, d)) continue;
+      add_taps<K>(qs, d, v0 + j, c, ridx,
+                  __fdiv_rn(sid2, __fmul_rn(t.ell, t.ell)), acc);
+    }
+  }
+  if (!valid) return;
+  const long long dst = (long long)iz * plane + sel[p];
+  const long long vol = (long long)gridDim.y * plane;
+  const float scale = 0.5f * dbeta;
+#pragma unroll
+  for (int k = 0; k < K; ++k) out[k * vol + dst] = acc[k] * scale;
+}
+
+// The Catmull-Rom row weights at fraction fr, in the reference's order.
+__device__ __forceinline__ void cubic_weights(float fr, float* w) {
+  const float fr2 = __fmul_rn(fr, fr);
+  const float fr3 = __fmul_rn(fr2, fr);
+  w[0] = __fsub_rn(__fadd_rn(__fmul_rn(-0.5f, fr), fr2), __fmul_rn(0.5f, fr3));
+  w[1] = __fadd_rn(__fsub_rn(1.0f, __fmul_rn(2.5f, fr2)),
+                   __fmul_rn(1.5f, fr3));
+  w[2] = __fsub_rn(__fadd_rn(__fmul_rn(0.5f, fr), __fmul_rn(2.0f, fr2)),
+                   __fmul_rn(1.5f, fr3));
+  w[3] = __fadd_rn(__fmul_rn(-0.5f, fr2), __fmul_rn(0.5f, fr3));
+}
+
+template <int K, bool kCubic>
+__global__ void katsevich_backproject_kernel(
+    const float* __restrict__ gf, const float* __restrict__ cos_b,
+    const float* __restrict__ sin_b, const float* __restrict__ src_z,
+    const float* __restrict__ X, const float* __restrict__ Y,
+    const long long* __restrict__ sel, const float* __restrict__ zc,
+    float* __restrict__ out, int V, int R, int C, int P, long long plane,
+    float sid, float dgamma, float row_h, float qp, float taper, float scale,
+    float sz0, float dzv, float z_reach) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  const int iz = blockIdx.y;
+  if (p >= P) return;
+  const float x = X[p], y = Y[p];
+  const float z = zc[iz];
+  const Detector d = make_detector(V, R, C);
+  int v_lo = 0, v_hi = V - 1;
+  if (z_reach > 0.0f) {  // the views whose source lies within z_reach of z
+    const float a = (z - z_reach - sz0) / dzv;
+    const float b = (z + z_reach - sz0) / dzv;
+    v_lo = max(0, (int)floorf(fminf(a, b)) - 2);
+    v_hi = min(V - 1, (int)ceilf(fmaxf(a, b)) + 2);
+  }
+  const float nqp = -qp;
+
+  float acc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = 0.0f;
+
+  for (int v = v_lo; v <= v_hi; ++v) {
+    const ViewTap t =
+        view_tap(x, y, __ldg(cos_b + v), __ldg(sin_b + v), sid);
+    const float gam = atan2f(-t.vt, t.ell);
+    const float c = __fadd_rn(__fsub_rn(__fdiv_rn(gam, dgamma), 0.5f),
+                              d.c_shift);
+    if (!in_fan(c, d)) continue;
+    const float zt = __fmul_rn(
+        __fmul_rn(__fsub_rn(z, __ldg(src_z + v)), sid), t.inv_h);
+    const float ridx = __fadd_rn(__fsub_rn(__fdiv_rn(zt, row_h), 0.5f),
+                                 d.r_shift);
+    if (!on_detector(ridx, d)) continue;
+    const float cg = cosf(gam);
+    const float two_g = __fmul_rn(2.0f, gam);
+    const float htop = __fdiv_rn(__fmul_rn(qp, __fadd_rn(kPi, two_g)), cg);
+    const float hbot = __fdiv_rn(__fmul_rn(nqp, __fsub_rn(kPi, two_g)), cg);
+    const float w_lo = fminf(fmaxf(
+        __fadd_rn(__fdiv_rn(__fsub_rn(zt, hbot), taper), 0.5f), 0.0f), 1.0f);
+    const float w_hi = fminf(fmaxf(
+        __fadd_rn(__fdiv_rn(__fsub_rn(htop, zt), taper), 0.5f), 0.0f), 1.0f);
+    const float w_td = __fmul_rn(w_lo, w_hi);
+    if (w_td == 0.0f) continue;
+    const float w = __fmul_rn(__fdiv_rn(1.0f, fmaxf(t.ell, 1e-3f)), w_td);
+    if (!kCubic) {
+      add_taps<K>(gf, d, v, c, ridx, w, acc);
+      continue;
+    }
+    float c0, fc, r0, fr, wr[4];
+    channel_tap(c, d, c0, fc);
+    row_tap(ridx, d, r0, fr);
+    cubic_weights(fr, wr);
+    const int ir0 = (int)r0;
+    const long long base = (long long)v * d.view_stride + (int)c0;
+    long long o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)  // rows r0-1 .. r0+2, edges replicated
+      o[j] = base + (long long)min(max(ir0 - 1 + j, 0), R - 1) * d.C;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float* q = gf + k * d.image_stride;
+      float val = __fmul_rn(wr[0], lerp_channels(q, o[0], fc));
+#pragma unroll
+      for (int j = 1; j < 4; ++j)
+        val = __fadd_rn(val, __fmul_rn(wr[j], lerp_channels(q, o[j], fc)));
+      acc[k] += val * w;
+    }
+  }
+  const long long dst = (long long)iz * plane + sel[p];
+  const long long vol = (long long)gridDim.y * plane;
+#pragma unroll
+  for (int k = 0; k < K; ++k) out[k * vol + dst] = __fmul_rn(acc[k], scale);
 }
 
 // Calls launch(std::integral_constant<int, K>) for K = n_images in 1..4.
@@ -290,5 +473,52 @@ extern "C" int dexct_helical_backproject(
             static_cast<const float*>(Y), static_cast<const long long*>(sel),
             static_cast<const float*>(zc), static_cast<float*>(out), V, R, C,
             P, plane, sid, dgamma, row_h, beta0, dbeta);
+  });
+}
+
+extern "C" int dexct_flat_backproject(const void* qs, const void* cos_b,
+                                      const void* sin_b, const void* X,
+                                      const void* Y, const void* sel,
+                                      const void* zc, void* out, int n_images,
+                                      int V, int R, int C, int P, int nz,
+                                      long long plane, float sid, float du,
+                                      float dv, float off_c, float off_r,
+                                      float dbeta, void* stream) {
+  if (P <= 0 || nz <= 0) return (int)cudaGetLastError();
+  if (C < 2 || R < 1 || nz > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 blocks((P + kThreads - 1) / kThreads, nz);
+  return for_images(n_images, [&](auto k) {
+    flat_backproject_kernel<decltype(k)::value>
+        <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float*>(qs), static_cast<const float*>(cos_b),
+            static_cast<const float*>(sin_b), static_cast<const float*>(X),
+            static_cast<const float*>(Y), static_cast<const long long*>(sel),
+            static_cast<const float*>(zc), static_cast<float*>(out), V, R, C,
+            P, plane, sid, du, dv, off_c, off_r, dbeta);
+  });
+}
+
+extern "C" int dexct_katsevich_backproject(
+    const void* gf, const void* cos_b, const void* sin_b, const void* src_z,
+    const void* X, const void* Y, const void* sel, const void* zc, void* out,
+    int n_images, int cubic, int V, int R, int C, int P, int nz,
+    long long plane, float sid, float dgamma, float row_h, float qp,
+    float taper, float scale, float sz0, float dzv, float z_reach,
+    void* stream) {
+  if (P <= 0 || nz <= 0) return (int)cudaGetLastError();
+  if (C < 2 || R < 1 || nz > 65535 || (z_reach > 0.0f && !(dzv != 0.0f)))
+    return (int)cudaErrorInvalidValue;
+  const dim3 blocks((P + kThreads - 1) / kThreads, nz);
+  return for_images(n_images, [&](auto k) {
+    constexpr int kK = decltype(k)::value;
+    auto* kern = cubic ? katsevich_backproject_kernel<kK, true>
+                       : katsevich_backproject_kernel<kK, false>;
+    kern<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(gf), static_cast<const float*>(cos_b),
+        static_cast<const float*>(sin_b), static_cast<const float*>(src_z),
+        static_cast<const float*>(X), static_cast<const float*>(Y),
+        static_cast<const long long*>(sel), static_cast<const float*>(zc),
+        static_cast<float*>(out), V, R, C, P, plane, sid, dgamma, row_h, qp,
+        taper, scale, sz0, dzv, z_reach);
   });
 }

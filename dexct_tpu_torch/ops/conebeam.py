@@ -478,3 +478,475 @@ def _helical_backproject(q, betas, src_z, row_off, beta_c, sid, dgamma,
 
 
 _helical_backproject.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K16: trilinear resample
+# ---------------------------------------------------------------------------
+
+def _trilinear_volume_sample_plain(vol, zi, yi, xi):
+    """``dexct_tpu.ops.conebeam._trilinear_volume_sample`` in torch: the
+    eight corners summed z, then y, then x, each weighted ((wz wy) wx)."""
+    nz, ny, nx = vol.shape[-3:]
+    zi, yi, xi = (t.to(torch.float32) for t in
+                  torch.broadcast_tensors(zi, yi, xi))
+    corner, frac = [], []
+    for t, n in ((zi, nz), (yi, ny), (xi, nx)):
+        t0 = torch.clamp(torch.floor(t), 0, n - 2)
+        corner.append(t0.to(torch.int64))
+        frac.append(torch.clamp(t - t0, 0.0, 1.0))
+    ok = ((zi >= 0.0) & (zi <= nz - 1.0) & (yi >= 0.0) & (yi <= ny - 1.0)
+          & (xi >= 0.0) & (xi <= nx - 1.0))
+    (z0, y0, x0), (fz, fy, fx) = corner, frac
+    acc = None
+    for dz_ in (0, 1):
+        wz = fz if dz_ else 1.0 - fz
+        for dy_ in (0, 1):
+            wy = fy if dy_ else 1.0 - fy
+            for dx_ in (0, 1):
+                wx = fx if dx_ else 1.0 - fx
+                term = (wz * wy * wx) * vol[..., z0 + dz_, y0 + dy_, x0 + dx_]
+                acc = term if acc is None else acc + term
+    return acc * ok.to(acc.dtype)
+
+
+def _trilinear_cuda(vol, zi, yi, xi):
+    dev = vol.device
+    nz, ny, nx = vol.shape[-3:]
+    lead = vol.shape[:-3]
+    vols = kernels.require(vol.reshape(-1, nz, ny, nx), "vol", dev,
+                           torch.float32)
+    shape = torch.broadcast_shapes(zi.shape, yi.shape, xi.shape)
+    idx = [kernels.require(t.to(torch.float32).broadcast_to(shape)
+                           .contiguous(), name, dev, torch.float32)
+           for t, name in ((zi, "zi"), (yi, "yi"), (xi, "xi"))]
+    n_out = int(np.prod(shape, dtype=np.int64))
+    out = torch.empty((vols.shape[0], n_out), dtype=torch.float32, device=dev)
+    rc = kernels.library().dexct_trilinear_sample(
+        vols.data_ptr(), *(t.data_ptr() for t in idx), out.data_ptr(),
+        vols.shape[0], n_out, nz, ny, nx, kernels.stream_ptr(dev))
+    kernels.check(rc, "trilinear_sample")
+    _trilinear_volume_sample.launches += 1
+    return out.reshape(*lead, *shape)
+
+
+def _trilinear_volume_sample(vol, zi, yi, xi):
+    """Trilinear sample of ``vol [..., nz, ny, nx]`` (each axis >= 2) at
+    the continuous indices ``zi``, ``yi``, ``xi`` (broadcast together to
+    the output's trailing shape); points outside the index box give 0.
+
+    CUDA tensors run kernel K16 (counted in
+    ``_trilinear_volume_sample.launches``); CPU tensors run
+    :func:`_trilinear_volume_sample_plain`.
+    """
+    if min(vol.shape[-3:]) < 2:
+        raise ValueError(f"each volume axis needs 2 samples, got "
+                         f"{tuple(vol.shape[-3:])}")
+    if vol.is_cuda:
+        return _trilinear_cuda(vol, zi, yi, xi)
+    if vol.device.type != "cpu":
+        raise ValueError(f"unsupported device {vol.device}")
+    return _trilinear_volume_sample_plain(vol, zi, yi, xi)
+
+
+_trilinear_volume_sample.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The stateless 3-D branch: reconstructors and simulate_cone_dect
+# ---------------------------------------------------------------------------
+
+def _fdk_filter(sino_log, weights, ct, ramp, window):
+    """Pre-weight ``[..., V, R, C]`` data by the host table ``weights``
+    (float64, broadcast against it), ramp-filter along channels (cuFFT on
+    the card) and scale by dgamma: the JAX FDK filter chain."""
+    from .fbp import filter_views
+    from .filters import filter_frequency_response
+
+    dev = sino_log.device
+    C = sino_log.shape[-1]
+    H, m = filter_frequency_response(C, ct.dgamma, ramp, window, "fan")
+    f32 = dict(dtype=torch.float32, device=dev)
+    return filter_views(sino_log.to(torch.float32),
+                        torch.as_tensor(weights, **f32),
+                        torch.as_tensor(H, **f32), m, ct.dgamma).contiguous()
+
+
+def _fdk_weights(ct):
+    """The FDK pre-weight cos(gamma) cos(kappa) SID, [R, C] (float64)."""
+    cosg = np.cos(ct.gammas)
+    cosk = ct.SID / np.sqrt(ct.SID ** 2 + np.asarray(ct.z_iso) ** 2)
+    return cosg[None, :] * cosk[:, None] * ct.SID
+
+
+def _fdk_filter_zffs(sino_log, ct, ramp, window="sinc"):
+    """Filtered, preweighted projections of a z-FFS scan ``[..., V, R,
+    C]``: the static chain with each view's true deflected-ray cone factor
+    ``cos(kappa) = SDD / sqrt(SDD^2 + (z_det[r] - delta_v)^2)``."""
+    cosg = np.cos(ct.gammas)
+    z_det = np.asarray(ct.z_iso) * ct.SDD / ct.SID
+    off = np.asarray(ct.ffs_view_offsets, np.float64)
+    cosk = ct.SDD / np.sqrt(ct.SDD ** 2
+                            + (z_det[None, :] - off[:, None]) ** 2)
+    w = cosg[None, None, :] * cosk[:, :, None] * ct.SID
+    return _fdk_filter(sino_log, w, ct, ramp, window)
+
+
+def _stack(sino_log, name="sino_log"):
+    """``[V, R, C]`` or ``[M, V, R, C]`` -> (4-D stack, was it 3-D)."""
+    if sino_log.dim() not in (3, 4):
+        raise ValueError(f"{name} must be [V, R, C] or [M, V, R, C]")
+    single = sino_log.dim() == 3
+    return (sino_log[None] if single else sino_log), single
+
+
+def _f32(x, device):
+    return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device)
+
+
+def fdk_reconstruct(sino_log, geometry, n_matrix, fov, ramp, *, nz_out=None,
+                    dz_out=None, window="sinc"):
+    """FDK cone-beam reconstruction -> ``[nz_out, N, N]`` in cm^-1 (or
+    ``[M, nz_out, N, N]`` for a stack ``[M, V, R, C]``, all volumes in one
+    backprojection).
+
+    ``sino_log``: ``[V, R, C]`` line integrals of a circular
+    :class:`~dexct_tpu_torch.system.geometry.ConeBeamGeometry` scan; the
+    z grid defaults to one slice per row at the isocenter pitch.  The FDK
+    pre-weight and ramp filter (cuFFT on the card), then K11.  A z
+    flying-focal-spot scan (``ffs='z'``) takes each view's true cone factor
+    and row offset and backprojects through the helical K12 at pitch 0
+    with the window centred on the orbit, which then covers every view.
+    """
+    ct = geometry
+    if abs(getattr(ct, "pitch", 0.0)) > 1e-12:
+        raise ValueError(
+            "geometry has a helical pitch; use helical_fdk_reconstruct "
+            "(the circular FDK assumes a z=0 source orbit)"
+        )
+    if abs(getattr(ct, "tilt", 0.0)) > 1e-12:
+        raise ValueError(
+            "geometry has a gantry tilt; use fdk_tilted_reconstruct "
+            "(the circular FDK assumes a z=0 source orbit)")
+    if getattr(ct, "flat_panel", False):
+        raise ValueError(
+            "flat-panel geometries reconstruct with "
+            "ops.flatpanel.fdk_flat_reconstruct (equidistant columns; "
+            "this FDK assumes an equiangular cylindrical detector)")
+    stack, single = _stack(sino_log)
+    V, R, C = stack.shape[-3:]
+    if R != ct.N_rows:
+        raise ValueError(f"sinogram has {R} rows, geometry {ct.N_rows}")
+    nz = R if nz_out is None else int(nz_out)
+    dz = float(ct.h_iso if dz_out is None else dz_out)
+    dev = stack.device
+    betas = _f32(ct.betas, dev)
+    dbeta = float(ct.rotation_total / V)
+    if getattr(ct, "ffs", "none") == "z":
+        q = _fdk_filter_zffs(stack, ct, ramp, window)
+        off = np.asarray(ct.ffs_view_offsets, np.float64)
+        row_off = off * ct.SID / (ct.SDD * ct.h_iso)
+        z0 = (0.5 - nz / 2.0) * dz
+        beta_c = np.full(nz, 0.5 * ct.rotation_total)
+        out = _helical_backproject(
+            q, betas, _f32(off, dev), _f32(row_off, dev), _f32(beta_c, dev),
+            float(ct.SID), float(ct.dgamma), float(ct.h_iso), int(R), 0.0,
+            int(n_matrix), nz, float(fov), dz, float(z0), dbeta=dbeta)
+    else:
+        q = _fdk_filter(stack, _fdk_weights(ct), ct, ramp, window)
+        out = _fdk_backproject_multi(
+            q, betas, float(ct.SID), float(ct.dgamma), float(ct.h_iso),
+            int(R), int(n_matrix), nz, float(fov), dz, dbeta)
+    return out[0] if single else out
+
+
+def fdk_tilted_reconstruct(sino_log, geometry, n_matrix, fov, ramp, *,
+                           nz_out=None, dz_out=None, window="sinc"):
+    """Gantry-tilted circular cone-beam FDK -> ``[nz, N, N]`` cm^-1 on the
+    patient-frame grid (``[M, nz, N, N]`` for a stack).
+
+    A tilted scan is a circular scan of the rotated patient: the data are
+    filtered and backprojected (K11, all volumes at once) in the gantry
+    frame (``geometry.untilted()``) on a grid enlarged to cover the
+    rotated patient box, then resampled onto the patient grid by one
+    trilinear pass (K16).  Patient points whose gantry image falls outside
+    the scanned FOV come back 0.  ``tilt = 0`` is :func:`fdk_reconstruct`
+    of each volume.
+    """
+    ct = geometry
+    tau = float(getattr(ct, "tilt", 0.0))
+    stack, single = _stack(sino_log)
+    V, R, C = stack.shape[-3:]
+    if R != ct.N_rows:
+        raise ValueError(f"sinogram has {R} rows, geometry {ct.N_rows}")
+    nz = R if nz_out is None else int(nz_out)
+    dz = float(ct.h_iso if dz_out is None else dz_out)
+    ct_g = ct.untilted() if hasattr(ct, "untilted") else ct
+    if abs(tau) < 1e-12:
+        out = torch.stack([
+            fdk_reconstruct(s, ct_g, n_matrix, fov, ramp, nz_out=nz,
+                            dz_out=dz, window=window) for s in stack])
+        return out[0] if single else out
+
+    n_g, fov_g, nz_g = _tilted_grid(tau, n_matrix, fov, nz, dz)
+    dev = stack.device
+    q = _fdk_filter(stack, _fdk_weights(ct_g), ct_g, ramp, window)
+    vols = _fdk_backproject_multi(
+        q, _f32(ct_g.betas, dev), float(ct_g.SID), float(ct_g.dgamma),
+        float(ct_g.h_iso), int(R), n_g, nz_g, float(fov_g), dz,
+        float(ct_g.rotation_total / V))
+    out = _trilinear_volume_sample(
+        vols, *_tilted_indices(tau, n_matrix, fov, nz, dz, dev))
+    return out[0] if single else out
+
+
+def _tilted_grid(tau, n_matrix, fov, nz, dz):
+    """``(n_g, fov_g, nz_g)``: the gantry grid covering R_x(-tau) of the
+    patient grid at the same pixel and slice pitch; x is unchanged by the
+    tilt, so it keeps the full fov."""
+    c_t, s_t = abs(np.cos(tau)), abs(np.sin(tau))
+    px = fov / n_matrix
+    z_half = 0.5 * nz * dz
+    fov_g = max(fov, fov * c_t + 2.0 * z_half * s_t) + 2.0 * px
+    n_g = int(-(-fov_g / px // 2) * 2)
+    zg_half = 0.5 * fov * s_t + z_half * c_t + dz
+    nz_g = int(-(-2.0 * zg_half / dz // 2) * 2)
+    return n_g, n_g * px, nz_g
+
+
+def _tilted_indices(tau, n_matrix, fov, nz, dz, device):
+    """The gantry-grid indices ``(zi, yi, xi)`` of the patient grid's voxel
+    centres, shaped to broadcast to ``[nz, N, N]``: R_x(-tau) in float32,
+    operation by operation as the JAX program."""
+    n_g, fov_g, nz_g = _tilted_grid(tau, n_matrix, fov, nz, dz)
+    f32 = np.float32
+    px = fov / n_matrix
+    xs = ((np.arange(n_matrix) + 0.5 - n_matrix / 2) * px).astype(f32)
+    zs = ((np.arange(nz) + 0.5 - nz / 2) * dz).astype(f32)
+    ct_, st_ = f32(np.cos(tau)), f32(np.sin(tau))
+    y_g = ct_ * xs[None, :] + st_ * zs[:, None]  # [nz, N]
+    z_g = -st_ * xs[None, :] + ct_ * zs[:, None]
+    px_g = fov_g / n_g
+    yi = (y_g / px_g + n_g / 2 - 0.5)[:, :, None]
+    zi = (z_g / dz + nz_g / 2 - 0.5)[:, :, None]
+    xi = (xs / px_g + n_g / 2 - 0.5)[None, None, :]
+    return tuple(torch.as_tensor(t, device=device) for t in (zi, yi, xi))
+
+
+def helical_fdk_reconstruct(sino_log, geometry, n_matrix, fov, ramp, *,
+                            z_out=None, window="sinc", weighting="full"):
+    """Helical generalized-Feldkamp reconstruction -> ``[nz, N, N]``
+    cm^-1 (``[M, nz, N, N]`` for a stack, all volumes in one K12 pass).
+
+    ``z_out``: uniformly spaced slice positions [cm]; by default one slice
+    per ``h_iso`` across the central 80 % of the source travel.  The FDK
+    filter chain (each view's own cone factor for a z flying focal spot),
+    then K12.  ``pitch = 0`` delegates to :func:`fdk_reconstruct`.  Only
+    ``weighting='full'`` is ported; the JAX package's other study windows
+    raise ``NotImplementedError``.
+    """
+    ct = geometry
+    stack, single = _stack(sino_log)
+    V, R, C = stack.shape[-3:]
+    if R != ct.N_rows:
+        raise ValueError(f"sinogram has {R} rows, geometry {ct.N_rows}")
+    if abs(getattr(ct, "pitch", 0.0)) < 1e-12:
+        kw = {}
+        if z_out is not None:
+            zo = np.asarray(z_out, np.float64)
+            dzs = np.diff(zo)
+            if len(zo) > 1 and not np.allclose(dzs, dzs[0]):
+                raise ValueError("z_out must be uniformly spaced")
+            dz0 = float(dzs[0]) if len(zo) > 1 else float(ct.h_iso)
+            if abs(zo.mean()) > 1e-9 + 1e-6 * abs(dz0):
+                raise ValueError(
+                    "circular FDK slice grids are centered on z=0; "
+                    f"got mean z {zo.mean():g}")
+            kw = dict(nz_out=len(zo), dz_out=dz0)
+        return fdk_reconstruct(sino_log, ct, n_matrix, fov, ramp,
+                               window=window, **kw)
+    if z_out is None:
+        travel = ct.pitch * ct.rotation_total / (2.0 * np.pi)
+        half = 0.4 * travel
+        nz = max(int(2.0 * half / ct.h_iso), 1)
+        z_out = (np.arange(nz) + 0.5) * (2.0 * half / nz) - half
+    z_out = np.asarray(z_out, np.float64)
+    if len(z_out) > 1:
+        dzs = np.diff(z_out)
+        if not np.allclose(dzs, dzs[0]):
+            raise ValueError("z_out must be uniformly spaced")
+        dz = float(dzs[0])
+    else:
+        dz = float(ct.h_iso)
+
+    if getattr(ct, "ffs", "none") == "z":
+        if weighting not in ("full", "feather"):
+            raise ValueError(
+                "z-FFS helical reconstruction supports the 'full' and "
+                f"'feather' weightings (got {weighting!r}); the other "
+                "study windows assume a static spot")
+        q = _fdk_filter_zffs(stack, ct, ramp, window)
+    else:
+        q = _fdk_filter(stack, _fdk_weights(ct), ct, ramp, window)
+    if weighting not in ("td", "full", "cosz", "feather", "pair", "short"):
+        raise ValueError(f"unknown helical weighting {weighting!r}")
+    dev = stack.device
+    off = np.asarray(ct.ffs_view_offsets, np.float64)  # zeros if none
+    sz = np.asarray(ct.source_z, np.float64) + off
+    row_off = off * ct.SID / (ct.SDD * ct.h_iso)
+    beta_c = 0.5 * ct.rotation_total + 2.0 * np.pi * z_out / ct.pitch
+    dbeta = (float(ct.betas[1] - ct.betas[0]) if V > 1
+             else float(ct.rotation_total))
+    out = _helical_backproject(
+        q, _f32(ct.betas, dev), _f32(sz, dev), _f32(row_off, dev),
+        _f32(beta_c, dev), float(ct.SID), float(ct.dgamma),
+        float(ct.h_iso), int(R), float(ct.pitch), int(n_matrix),
+        len(z_out), float(fov), dz, float(z_out[0]), dbeta=dbeta,
+        weighting=weighting)
+    return out[0] if single else out
+
+
+def cone_material_paths(phantom, geometry, *, device):
+    """``[N_proj, N_rows, N_channels, n_materials]`` exact cone-beam paths
+    of the geometry's rays (``ray_geometry_3d``, exact for every cone
+    geometry: tilted, flat-panel, z flying focal spot), traced by K10 on
+    ``device``.  The JAX package's packed dominant-axis tracers and their
+    DDA fallback compute the same paths."""
+    src, dirs = geometry.ray_geometry_3d()
+    return trace_paths_3d(
+        labels_u8(np.asarray(phantom.labels), device), _f32(src, device),
+        _f32(dirs, device), phantom.dx, phantom.dy, phantom.dz,
+        n_materials=phantom.n_materials)
+
+
+def cone_sinogram(phantom, geometry, spectrum, *, device):
+    """Polyenergetic cone-beam acquisition -> (counts, log sinogram), both
+    ``[N_proj, N_rows, N_channels]`` on ``device``."""
+    from . import spectral as sp_ops
+
+    paths = cone_material_paths(phantom, geometry, device=device)
+    mu_t = _f32(phantom.materials.mu_table(spectrum.E), device)
+    i0 = sp_ops.effective_fluence(spectrum, geometry)
+    counts = sp_ops.counts_from_paths(paths, mu_t, _f32(i0, device))
+    return counts, sp_ops.log_sinogram(counts, float(np.sum(i0)))
+
+
+RECONS_3D = ("auto", "fdk", "helical", "tilted", "flat", "katsevich")
+
+
+def reconstruct_3d(stack, ct, n_matrix, fov, ramp, *, recon="auto",
+                   **recon_kw):
+    """Reconstruct ``[M, V, R, C]`` (or ``[V, R, C]``) by ``recon`` (one of
+    :data:`RECONS_3D`), all volumes in one pass: the stateless branch's
+    dispatch.  ``'auto'`` picks flat for a flat panel, tilted for a tilted
+    gantry, helical for a helix and fdk otherwise; ``'katsevich'`` takes
+    ``ramp`` to apodize its derivative."""
+    if recon not in RECONS_3D:
+        raise ValueError(f"unknown recon {recon!r}")
+    if recon == "auto":  # helical geometries must not reach circular FDK
+        if getattr(ct, "flat_panel", False):
+            recon = "flat"
+        elif abs(getattr(ct, "tilt", 0.0)) > 1e-12:
+            recon = "tilted"
+        else:
+            recon = ("helical" if abs(getattr(ct, "pitch", 0.0)) > 1e-12
+                     else "fdk")
+    if recon == "katsevich":
+        from .katsevich import katsevich_reconstruct
+
+        return katsevich_reconstruct(stack, ct, n_matrix, fov, ramp=ramp,
+                                     **recon_kw)
+    if recon == "flat":
+        from .flatpanel import fdk_flat_reconstruct
+
+        return fdk_flat_reconstruct(stack, ct, n_matrix, fov, ramp,
+                                    **recon_kw)
+    fn = {"helical": helical_fdk_reconstruct,
+          "tilted": fdk_tilted_reconstruct,
+          "fdk": fdk_reconstruct}[recon]
+    return fn(stack, ct, n_matrix, fov, ramp, **recon_kw)
+
+
+def simulate_cone_dect(ct, phantom, spec1, spec2, n_matrix, fov, ramp, *,
+                       device, n_iters=10, noise="none", generator=None,
+                       recon="auto", mask_thresh=0.95, do_recon=True,
+                       heel=None, **recon_kw):
+    """The stateless 3-D dual-energy pipeline on ``device``: trace once
+    (K10) -> two polyenergetic acquisitions (K2) -> Gauss-Newton
+    decomposition (K3) with the air mask ``c1 >= mask_thresh * max(c1)``
+    -> reconstruction of both single-energy volumes and both basis
+    volumes.
+
+    ``recon``: ``'fdk'`` (:func:`fdk_reconstruct`), ``'helical'``
+    (:func:`helical_fdk_reconstruct`), ``'tilted'``
+    (:func:`fdk_tilted_reconstruct`), ``'flat'``
+    (:func:`~dexct_tpu_torch.ops.flatpanel.fdk_flat_reconstruct`),
+    ``'katsevich'``
+    (:func:`~dexct_tpu_torch.ops.katsevich.katsevich_reconstruct`) or
+    ``'auto'``, dispatched by :func:`reconstruct_3d`, which reconstructs
+    the four volumes in one pass.  Noise is
+    drawn from ``generator`` (a ``torch.Generator`` on ``device``; seed 0 if
+    none), spectrum 1 first.  Returns the JAX package's dict: ``sino_raw``,
+    ``sino_log``, ``mat_sinos`` pairs ``[V, R, C]`` and ``recon_raw``,
+    ``recon_HU``, ``mat_recons`` pairs ``[nz, N, N]`` (``None`` when
+    ``do_recon`` is false).  The anode heel (``heel``) is not ported.
+    """
+    from ..pipeline.api import effective_water_mu
+    from . import matdecomp as md
+    from . import spectral as sp_ops
+    from .fbp import hu_image
+
+    if heel is not None and getattr(heel, "d0_cm", 0.0) != 0.0:
+        raise NotImplementedError(
+            "the anode heel effect is not ported yet (ROADMAP queue 1, item "
+            "12: ops/heel.py)")
+    if recon not in RECONS_3D:
+        raise ValueError(f"unknown recon {recon!r}")
+    paths = cone_material_paths(phantom, ct, device=device)
+    mu_t1 = _f32(phantom.materials.mu_table(spec1.E), device)
+    mu_t2 = _f32(phantom.materials.mu_table(spec2.E), device)
+    i0_1 = sp_ops.effective_fluence(spec1, ct)
+    i0_2 = sp_ops.effective_fluence(spec2, ct)
+    if noise == "none":
+        c1 = sp_ops.counts_from_paths(paths, mu_t1, _f32(i0_1, device))
+        c2 = sp_ops.counts_from_paths(paths, mu_t2, _f32(i0_2, device))
+    else:
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        v1 = v2 = None
+        if noise == "compound":
+            c1, v1 = sp_ops.counts_from_paths(
+                paths, mu_t1, _f32(i0_1, device),
+                _f32(sp_ops.second_moment_fluence(spec1, ct), device))
+            c2, v2 = sp_ops.counts_from_paths(
+                paths, mu_t2, _f32(i0_2, device),
+                _f32(sp_ops.second_moment_fluence(spec2, ct), device))
+        else:
+            c1 = sp_ops.counts_from_paths(paths, mu_t1, _f32(i0_1, device))
+            c2 = sp_ops.counts_from_paths(paths, mu_t2, _f32(i0_2, device))
+        c1 = sp_ops.sample_noise(generator, c1, noise, var=v1)
+        c2 = sp_ops.sample_noise(generator, c2, noise, var=v2)
+    del paths
+    log1 = sp_ops.log_sinogram(c1, float(np.sum(i0_1)))
+    log2 = sp_ops.log_sinogram(c2, float(np.sum(i0_2)))
+    _, dec_i0, dec_mus = md.prepare_decomposition(ct, spec1, spec2)
+    ab = md.gauss_newton_solve(
+        torch.stack([c1.reshape(-1), c2.reshape(-1)]), _f32(dec_i0, device),
+        _f32(dec_mus, device), n_iters=n_iters)
+    mask = c1 >= mask_thresh * c1.max()  # air rays
+    zero = torch.zeros((), dtype=ab.dtype, device=ab.device)
+    mat1 = torch.where(mask, zero, ab[:, 0].reshape(c1.shape))
+    mat2 = torch.where(mask, zero, ab[:, 1].reshape(c1.shape))
+    out = {"sino_raw": (c1, c2), "sino_log": (log1, log2),
+           "mat_sinos": (mat1, mat2)}
+    if not do_recon:
+        none = (None, None)
+        return {**out, "recon_raw": none, "recon_HU": none,
+                "mat_recons": none}
+    vols = reconstruct_3d(torch.stack([log1, log2, mat1, mat2]), ct,
+                          n_matrix, fov, ramp, recon=recon, **recon_kw)
+    mu_w1 = effective_water_mu(spec1, ct)
+    mu_w2 = effective_water_mu(spec2, ct)
+    return {**out, "recon_raw": (vols[0], vols[1]),
+            "recon_HU": (hu_image(vols[0], mu_w1), hu_image(vols[1], mu_w2)),
+            "mat_recons": (vols[2], vols[3])}

@@ -12,9 +12,10 @@ The JAX pack's label packs, ray plans and bundles are TPU layouts for its
 packed dominant-axis tracer, and its capability guards (packing limits,
 the table-size and HBM guards) bound those layouts.  One per-ray kernel has
 none of them, so this pack keeps only the rules that are physics or
-protocol: flat-panel, tilted and flying-focal-spot geometries are refused,
-and the helical z grid, window centres and FDK weights are the JAX
-package's.
+protocol: flat-panel, tilted and flying-focal-spot geometries are refused
+(they run the stateless branch,
+:func:`dexct_tpu_torch.ops.conebeam.simulate_cone_dect`), and the helical z
+grid, window centres and FDK weights are the JAX package's.
 """
 
 from __future__ import annotations
@@ -26,8 +27,8 @@ import torch
 
 from ..ops import matdecomp as md_ops
 from ..ops import spectral as sp_ops
-from ..ops.conebeam import (_fdk_backproject_multi, _helical_backproject,
-                            labels_u8, trace_paths_3d)
+from ..ops.conebeam import (_fdk_backproject_multi, _fdk_weights,
+                            _helical_backproject, labels_u8, trace_paths_3d)
 from ..ops.fbp import filter_views, hu_image
 from ..ops.filters import filter_frequency_response
 from .fused import decompose_counts
@@ -86,18 +87,18 @@ class ConeDectMeta(NamedTuple):
 
 
 def unsupported_geometry(ct):
-    """``(kind, assumption, ROADMAP row)`` of a geometry the fused cone
+    """``(kind, assumption, where it runs)`` of a geometry the fused cone
     pipeline does not model (the JAX pack's own refusals), or ``None``."""
     if getattr(ct, "flat_panel", False):
         return ("flat-panel", "its FDK assumes equiangular columns",
-                "row 11: ops/flatpanel.py")
+                "ops.flatpanel.fdk_flat_reconstruct")
     if abs(float(getattr(ct, "tilt", 0.0))) > 1e-12:
         return ("gantry-tilted", "its FDK assumes a z=0 orbit",
-                "row 10d: the tilted FDK's resample")
+                "ops.conebeam.fdk_tilted_reconstruct")
     if getattr(ct, "ffs", "none") != "none":
         return ("flying-focal-spot",
                 "its FDK assumes one shared detector-row grid",
-                "row 11: the stateless 3-D branch")
+                "ops.conebeam.fdk_reconstruct's z-FFS branch")
     return None
 
 
@@ -119,7 +120,9 @@ def pack_cone_dect(ct, phantom, spec1, spec2, n_matrix, fov, ramp, *,
     bad = unsupported_geometry(ct)
     if bad:
         raise ValueError(f"{bad[0]} geometries are not supported by the "
-                         f"fused cone pipeline ({bad[1]})")
+                         f"fused cone pipeline ({bad[1]}); use "
+                         "ops.conebeam.simulate_cone_dect, which routes "
+                         f"them through {bad[2]}")
     pitch = float(getattr(ct, "pitch", 0.0))
     helical = abs(pitch) > 1e-12
     nz, ny, nx = np.asarray(phantom.labels).shape
@@ -136,15 +139,13 @@ def pack_cone_dect(ct, phantom, spec1, spec2, n_matrix, fov, ramp, *,
     i0_2 = sp_ops.effective_fluence(spec2, ct)
     _, dec_i0, dec_mus = md_ops.prepare_decomposition(ct, spec1, spec2)
     V, R, C = ct.N_proj, ct.N_rows, ct.N_channels
-    cosg = np.cos(ct.gammas)
-    cosk = ct.SID / np.sqrt(ct.SID ** 2 + np.asarray(ct.z_iso) ** 2)
     H, m = filter_frequency_response(C, ct.dgamma, ramp, window, "fan")
     host = {
         "mu_t1": phantom.materials.mu_table(spec1.E),
         "mu_t2": phantom.materials.mu_table(spec2.E),
         "i0_1": i0_1, "i0_2": i0_2,
         "dec_i0": dec_i0, "dec_mus": dec_mus,
-        "fdk_w": cosg[None, :] * cosk[:, None] * ct.SID,
+        "fdk_w": _fdk_weights(ct),
         "filt_H": H,
         "betas": ct.betas,
     }

@@ -5,12 +5,15 @@ params file and the dual-energy spectrum pairs, runs trace ->
 acquisitions -> decomposition -> reconstruction on ``device``, and writes
 the §2.6 output contract (flat float32 ``.bin`` files) with the same names
 and layout as the JAX package.  Cone-beam and helical configs run the fused
-cone pipeline (:mod:`dexct_tpu_torch.pipeline.cone`) and write the natural
-volume extension of the contract: the same file names, [V, R, C] sinograms
-and [nz, N, N] volumes.  As in the JAX runner, the fused engine
-runs the exact Siddon projector for a non-square phantom (the Fourier
-projector needs a square grid) and direct fan reconstruction for a partial
-rotation (rebinning needs a full one).  Choices that are not ported yet
+cone pipeline (:mod:`dexct_tpu_torch.pipeline.cone`), or, for flat panels,
+tilted gantries, z flying focal spots and ``--recon3d katsevich``, the
+stateless 3-D branch (:func:`dexct_tpu_torch.ops.conebeam.
+simulate_cone_dect`), and write the natural volume extension of the
+contract: the same file names, [V, R, C] sinograms and [nz, N, N]
+volumes.  As in the JAX runner, the fused engine runs the exact Siddon
+projector for a non-square phantom (the Fourier projector needs a square
+grid) and direct fan reconstruction for a partial rotation (rebinning
+needs a full one).  Choices that are not ported yet
 raise ``NotImplementedError`` naming their ROADMAP item; none is replaced
 by another path.
 """
@@ -29,7 +32,7 @@ from ..utils.io import StageWriter, acquisition_dir, matdecomp_dir
 from . import api
 
 __all__ = ["DEFAULT_SPEC_PAIRS", "fused_choices", "run_config",
-           "run_parameter_file"]
+           "run_parameter_file", "stateless_3d"]
 
 # the reference's hardcoded protocol (main.py:101-102)
 DEFAULT_SPEC_PAIRS = (
@@ -84,11 +87,7 @@ RECON3D = ("auto", "fdk", "helical", "katsevich")
 
 
 def _check_cone(cfg, recon3d):
-    """The JAX runner's ``recon3d`` rules for a cone/helical config, then
-    a ``NotImplementedError`` for the 3-D choices that run outside the
-    fused cone pipeline (the JAX runner's stateless path)."""
-    from .cone import unsupported_geometry
-
+    """The JAX runner's ``recon3d`` rules for a cone/helical config."""
     if recon3d not in RECON3D:
         raise ValueError(f"unknown recon3d {recon3d!r}")
     ct = cfg.ct
@@ -103,15 +102,6 @@ def _check_cone(cfg, recon3d):
             f"scan; config {cfg.run_id!r} has pitch "
             f"{getattr(ct, 'pitch', 0.0)!r} — use 'helical', "
             "'katsevich', or 'auto'")
-    if recon3d == "katsevich":
-        raise NotImplementedError(
-            "recon3d='katsevich' is not ported yet (ROADMAP queue 2, row "
-            "11: ops/katsevich.py)")
-    bad = unsupported_geometry(ct)
-    if bad:
-        raise NotImplementedError(
-            f"{bad[0]} cone configs are not ported yet (ROADMAP queue 2, "
-            f"{bad[2]})")
 
 
 def _check_supported(cfg, engine, projector, recon, bhc, denoise,
@@ -130,10 +120,10 @@ def _check_supported(cfg, engine, projector, recon, bhc, denoise,
             f"run configs with a {type(cfg.ct).__name__} are not ported yet "
             "(ROADMAP queue 1, item 5: the composed path of other "
             "geometries)")
-    if getattr(cfg.ct, "ffs", "none") != "none":
+    if not cone and getattr(cfg.ct, "ffs", "none") != "none":
         raise NotImplementedError(
-            "flying-focal-spot scans are not ported yet (ROADMAP queue 2, "
-            "ops/ffs.py rebin)")
+            "in-plane flying-focal-spot scans are not ported yet (ROADMAP "
+            "queue 2, row 11e: the ops/ffs.py rebin)")
     if bhc:
         raise NotImplementedError(
             "--bhc is not ported yet (ROADMAP queue 1, item 8: ops/bhc.py)")
@@ -168,8 +158,10 @@ def run_config(cfg: RunConfig, *, out_dir="./output", spec_pairs=None,
     engine='composed' runs the reference-API op chain
     (:func:`~dexct_tpu_torch.pipeline.api.simulate_dect`).  Cone-beam and
     helical configs run :func:`~dexct_tpu_torch.pipeline.cone.cone_dect_step`
-    whatever the engine, projector and recon (as in the JAX runner);
-    ``recon3d`` must agree with the orbit.  Noise draws come from a
+    or, where :func:`stateless_3d` says so,
+    :func:`~dexct_tpu_torch.ops.conebeam.simulate_cone_dect`, whatever the
+    engine, projector and recon (as in the JAX runner); ``recon3d`` must
+    agree with the orbit.  Noise draws come from a
     ``torch.Generator`` seeded with ``seed``.
     """
     from ..system.geometry import ConeBeamGeometry
@@ -196,7 +188,8 @@ def run_config(cfg: RunConfig, *, out_dir="./output", spec_pairs=None,
         spec2 = _resolve_spectrum(spec_id2, d2, cfg.ct, spectrum_dir, gens)
         if cone:
             dect = _cone_dect(cfg, spec1, spec2, n_iters=n_iters,
-                              noise=eff_noise, seed=seed, device=device)
+                              noise=eff_noise, seed=seed, device=device,
+                              recon3d=recon3d)
         elif engine == "fused":
             from .fused import dect_step, pack_dect
 
@@ -238,19 +231,44 @@ def run_config(cfg: RunConfig, *, out_dir="./output", spec_pairs=None,
     return results
 
 
-def _cone_dect(cfg, spec1, spec2, *, n_iters, noise, seed, device):
-    """A cone/helical config through the fused cone pipeline: the circular
-    FDK or, for a helical orbit, the 4-volume generalized Feldkamp.  A
-    ``back_project false`` config skips the reconstruction.  The JAX
-    runner falls back to its stateless 3-D path where its TPU pack refuses
-    a shape; this pack refuses none, so there is no fallback."""
-    from .cone import cone_dect_step, pack_cone_dect
+def stateless_3d(ct, recon3d):
+    """Whether a cone config runs the stateless 3-D branch
+    (:func:`~dexct_tpu_torch.ops.conebeam.simulate_cone_dect`) instead of
+    the fused cone pipeline: flat panels, tilted gantries, z flying focal
+    spots (the geometries the fused pack does not model) and
+    ``recon3d='katsevich'`` on a helix, as the JAX runner sends them."""
+    from .cone import unsupported_geometry
 
-    arrays, meta = pack_cone_dect(
-        cfg.ct, cfg.phantom, spec1, spec2, cfg.N_matrix, cfg.FOV, cfg.ramp,
-        device=device, n_iters=n_iters, noise=noise, seed=seed,
-        do_recon=bool(cfg.do_back_projection))
-    out = cone_dect_step(arrays, meta)
+    helical = abs(getattr(ct, "pitch", 0.0)) > 1e-12
+    return (unsupported_geometry(ct) is not None
+            or (helical and recon3d == "katsevich"))
+
+
+def _cone_dect(cfg, spec1, spec2, *, n_iters, noise, seed, device,
+               recon3d):
+    """A cone/helical config through the 3-D pipelines: the fused cone
+    pipeline (circular FDK or, for a helical orbit, the 4-volume
+    generalized Feldkamp) or, for what :func:`stateless_3d` names, the
+    stateless branch with ``recon=recon3d``.  A ``back_project false``
+    config skips the reconstruction."""
+    bp = bool(cfg.do_back_projection)
+    if stateless_3d(cfg.ct, recon3d):
+        from ..ops.conebeam import simulate_cone_dect
+
+        gen = (torch.Generator(device=device).manual_seed(seed)
+               if noise != "none" else None)
+        out = simulate_cone_dect(
+            cfg.ct, cfg.phantom, spec1, spec2, cfg.N_matrix, cfg.FOV,
+            cfg.ramp, device=device, n_iters=n_iters, noise=noise,
+            generator=gen, do_recon=bp, recon=recon3d)
+    else:
+        from .cone import cone_dect_step, pack_cone_dect
+
+        arrays, meta = pack_cone_dect(
+            cfg.ct, cfg.phantom, spec1, spec2, cfg.N_matrix, cfg.FOV,
+            cfg.ramp, device=device, n_iters=n_iters, noise=noise,
+            seed=seed, do_recon=bp)
+        out = cone_dect_step(arrays, meta)
     return api.DectResult(
         sino_raw=out["sino_raw"], sino_log=out["sino_log"],
         recon_raw=out["recon_raw"], recon_HU=out["recon_HU"],

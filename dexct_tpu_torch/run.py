@@ -6,9 +6,11 @@ the JAX CLI's: the Fourier-slice projector with rebinned parallel-beam
 reconstruction (``--projector fourier --recon parallel``); ``--projector
 siddon --recon fan`` runs the exact trace with direct fan-beam
 reconstruction.  Cone-beam and helical configs run the fused cone
-pipeline (circular FDK or helical generalized Feldkamp, ``--recon3d``).
-``--bhc``, ``--denoise`` and ``--recon3d katsevich`` raise
-``NotImplementedError`` naming their ROADMAP item.  Float32 matrix products
+pipeline (circular FDK or helical generalized Feldkamp, ``--recon3d``);
+flat-panel and gantry-tilted configs, a z flying focal spot and
+``--recon3d katsevich`` (exact helical reconstruction) run the stateless
+3-D branch.  ``--bhc`` and ``--denoise`` raise ``NotImplementedError``
+naming their ROADMAP item.  Float32 matrix products
 run in full float32 on the card
 (``torch.backends.cuda.matmul.allow_tf32 = False``, set by ``main``).
 """

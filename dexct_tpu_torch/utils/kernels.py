@@ -32,7 +32,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("siddon_trace.cu", "gauss_newton.cu", "fan_backproject.cu",
            "gather_taps.cu", "parallel_backproject.cu", "kb_sample.cu",
-           "analytic_chords.cu", "siddon_trace_3d.cu", "cone_backproject.cu")
+           "analytic_chords.cu", "siddon_trace_3d.cu", "cone_backproject.cu",
+           "trilinear_sample.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # no --use_fast_math: the trace's plane crossings and the backprojectors'
 # edge tests feed 1e-4 parity tolerances
@@ -83,6 +84,18 @@ _SIGNATURES = {
     "dexct_helical_backproject": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _P, _P, _I, _I, _I, _I, _I, _I, _L, _F,
                                   _F, _F, _F, _F, _P),
+    # qs, cos_b, sin_b, X, Y, sel, zc, out, n_images, V, R, C, P, nz,
+    # plane, sid, du, dv, off_c, off_r, dbeta, stream
+    "dexct_flat_backproject": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _L, _F, _F, _F, _F, _F, _F, _P),
+    # gf, cos_b, sin_b, src_z, X, Y, sel, zc, out, n_images, cubic, V, R, C,
+    # P, nz, plane, sid, dgamma, row_h, qp, taper, scale, sz0, dzv, z_reach,
+    # stream
+    "dexct_katsevich_backproject": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                    _I, _I, _I, _I, _I, _I, _L, _F, _F, _F,
+                                    _F, _F, _F, _F, _F, _F, _P),
+    # vols, zi, yi, xi, out, n_images, n_out, nz, ny, nx, stream
+    "dexct_trilinear_sample": (_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _P),
 }
 
 

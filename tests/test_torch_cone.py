@@ -16,7 +16,20 @@ Tolerances:
   tracer differs from the JAX packed one: the JAX package's fused-vs-
   stateless bar (tests/test_conebeam.py:616-621: sino_log atol 2e-3,
   recon_HU atol 2 HU, mat_recons atol 5e-3);
-- both CLIs on a tiny cone and a tiny helical config: the tolerances of
+- the trilinear resample (K16's plain version): rtol 0, atol 1e-6 x max
+  (the same float32 operations; XLA may contract the weight products into
+  FMAs);
+- the tilted FDK's host tables (the enlarged gantry grid, the resample
+  indices): exact (atol 0), read off the JAX program's own calls;
+- the tilted FDK: at tilt 0 bitwise equal to the port's own
+  ``fdk_reconstruct``, as in JAX; against JAX at 15 and 30 degrees, and the
+  z-FFS circular and helical reconstructors against JAX: the
+  backprojectors' bar above (the FFTs are pocketfft here, XLA's in JAX);
+- ``cone_sinogram`` and ``simulate_cone_dect`` for each ``recon``: the
+  fused-vs-stateless bar above (the JAX stateless path traces with its
+  packed dominant-axis tracer, the port with K10);
+- both CLIs on a tiny cone, helical, flat-panel, tilted, z-FFS (circular
+  and helical) and Katsevich config: the tolerances of
   tests/test_pipeline.py, file by file (the tracers agree closely enough
   on the tiny water cylinder).
 """
@@ -34,7 +47,7 @@ from dexct_tpu.ops import conebeam as j_cb
 from dexct_tpu.physics import kramers_spectrum, linac_spectrum
 from dexct_tpu.pipeline import cone as j_cone
 from dexct_tpu.system import (ConeBeamGeometry, HelicalConeBeamGeometry,
-                              water_cylinder_phantom)
+                              TiltedConeBeamGeometry, water_cylinder_phantom)
 from dexct_tpu_torch.ops import conebeam as t_cb
 from dexct_tpu_torch.pipeline import cone as t_cone
 
@@ -158,6 +171,230 @@ def test_helical_other_weightings_raise():
         t_cb._helical_backproject(q, z, z, z, torch.zeros(3), 60.0, 0.01,
                                   0.5, 4, 2.0, 16, 3, 10.0, 0.5, 0.0,
                                   dbeta=0.1, weighting="td")
+
+
+# ---------------------------------------------------------------------------
+# K16 and the stateless reconstructors
+# ---------------------------------------------------------------------------
+
+def test_trilinear_sample_plain_matches_jax():
+    """Random volumes at random indices, some outside the box, some on
+    integers and on the box's faces."""
+    rng = np.random.default_rng(31)
+    vol = rng.standard_normal((3, 5, 6, 7)).astype(np.float32)
+    zi = rng.uniform(-0.5, 4.5, (4, 9, 1)).astype(np.float32)
+    yi = rng.uniform(-0.5, 5.5, (4, 9, 1)).astype(np.float32)
+    xi = rng.uniform(-0.5, 6.5, (1, 1, 11)).astype(np.float32)
+    zi[0, :3, 0] = [0.0, 4.0, 2.0]
+    yi[0, :3, 0] = [5.0, 0.0, 3.0]
+    xi[0, 0, :3] = [6.0, 0.0, 1.0]
+    want = np.asarray(j_cb._trilinear_volume_sample(
+        jnp.asarray(vol), *(jnp.asarray(np.broadcast_to(t, (4, 9, 11)))
+                            for t in (zi, yi, xi))))
+    got = t_cb._trilinear_volume_sample(
+        torch.as_tensor(vol), *(torch.as_tensor(t) for t in (zi, yi, xi)))
+    assert got.shape == want.shape == (3, 4, 9, 11)
+    assert (want == 0).any() and (want != 0).any()
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-6 * np.abs(vol).max())
+
+
+def _cyl_sino(ct, nz=8, N=32, dx=0.6, radius_cm=None):
+    """Monoenergetic sinogram of a water cylinder (0.2 /cm), traced by the
+    port's plain 3-D Siddon: the input of both sides."""
+    kw = {} if radius_cm is None else dict(radius_cm=radius_cm)
+    lab = np.broadcast_to(water_cylinder_phantom(N=N, dx=dx, **kw)
+                          .labels[0], (nz, N, N))
+    src, dirs = ct.ray_geometry_3d()
+    paths = t_cb.trace_paths_3d(
+        torch.as_tensor(np.ascontiguousarray(lab)),
+        torch.as_tensor(src, dtype=torch.float32),
+        torch.as_tensor(dirs, dtype=torch.float32), dx, dx, dx,
+        n_materials=2).numpy()
+    return (paths @ np.array([0.0, 0.2], np.float32)).astype(np.float32)
+
+
+def _port_ct(ct):
+    """The port's twin of a JAX geometry (same dataclass fields)."""
+    from dexct_tpu_torch.system import geometry as t_geo
+
+    return getattr(t_geo, type(ct).__name__)(
+        **{f.name: getattr(ct, f.name) for f in dataclasses.fields(ct)
+           if f.name != "detector"})
+
+
+def _bp_close(got, want):
+    np.testing.assert_allclose(got, want, rtol=2e-4,
+                               atol=2e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("tilt_deg", [0.0, 15.0])
+def test_tilted_fdk_matches_jax(tilt_deg):
+    """A tilted water cylinder, as a 2-volume stack; at tilt 0 the tilted
+    FDK is the port's own circular FDK bit for bit."""
+    jct = TiltedConeBeamGeometry(
+        N_channels=64, N_proj=48, N_rows=8, gamma_fan=0.8230337, SID=60.0,
+        SDD=100.0, h_iso=0.5, eid=True, tilt=np.deg2rad(tilt_deg))
+    tct = _port_ct(jct)
+    sino = _cyl_sino(jct)
+    want = np.asarray(j_cb.fdk_tilted_reconstruct(
+        jnp.asarray(np.stack([sino, 0.5 * sino])), jct, 32, 16.0, 0.8))
+    got = t_cb.fdk_tilted_reconstruct(
+        torch.as_tensor(np.stack([sino, 0.5 * sino])), tct, 32, 16.0,
+        0.8).numpy()
+    assert got.shape == want.shape == (2, 8, 32, 32)
+    _bp_close(got, want)
+    if tilt_deg == 0.0:
+        one = t_cb.fdk_reconstruct(torch.as_tensor(sino), tct.untilted(), 32,
+                                   16.0, 0.8).numpy()
+        np.testing.assert_array_equal(got[0], one)
+
+
+@pytest.mark.parametrize("tilt_deg,nz", [(15.0, 8), (30.0, 2)])
+def test_tilted_host_tables_equal_jax(monkeypatch, tilt_deg, nz):
+    """The enlarged gantry grid and the patient grid's gantry indices are
+    the JAX program's, exactly: both are read off the JAX function's own
+    calls of its backprojector and its resample."""
+    seen = {}
+
+    def bp(q, betas, sid, dgamma, row_h, n_rows, n_g, nz_g, fov_g, *a, **k):
+        seen["grid"] = (n_g, fov_g, nz_g)
+        return jnp.zeros((q.shape[0], nz_g, n_g, n_g), q.dtype)
+
+    def sample(vols, zi, yi, xi):
+        seen["idx"] = tuple(np.asarray(t) for t in (zi, yi, xi))
+        return vols[:, :zi.shape[0], :zi.shape[1], :zi.shape[2]]
+
+    monkeypatch.setattr(j_cb, "_fdk_backproject_multi", bp)
+    monkeypatch.setattr(j_cb, "_trilinear_volume_sample", sample)
+    tau = np.deg2rad(tilt_deg)
+    jct = TiltedConeBeamGeometry(N_channels=32, N_proj=8, N_rows=8,
+                                 h_iso=0.5, tilt=tau)
+    j_cb.fdk_tilted_reconstruct(jnp.zeros((8, 8, 32)), jct, 40, 20.0, 0.8,
+                                nz_out=nz, dz_out=0.5)
+    assert t_cb._tilted_grid(tau, 40, 20.0, nz, 0.5) == seen["grid"]
+    for got, want in zip(t_cb._tilted_indices(tau, 40, 20.0, nz, 0.5, "cpu"),
+                         seen["idx"]):
+        got = np.broadcast_to(got.numpy(), want.shape)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+def test_tilted_fdk_thin_volume_matches_jax():
+    """The JAX package's 30-degree, 2-slice regression config
+    (tests/test_conebeam.py, test_edge_x_coverage_thin_volume): the gantry
+    grid keeps the full FOV in x, so the edge pixels read water."""
+    jct = TiltedConeBeamGeometry(
+        N_channels=96, N_proj=48, N_rows=8, gamma_fan=0.8, SID=60.0,
+        SDD=100.0, h_iso=0.5, eid=True, tilt=np.deg2rad(30.0))
+    sino = _cyl_sino(jct, nz=8, N=32, dx=0.75, radius_cm=11.5)
+    kw = dict(nz_out=2, dz_out=0.5)
+    want = np.asarray(j_cb.fdk_tilted_reconstruct(jnp.asarray(sino), jct,
+                                                  40, 20.0, 0.8, **kw))
+    got = t_cb.fdk_tilted_reconstruct(torch.as_tensor(sino), _port_ct(jct),
+                                      40, 20.0, 0.8, **kw).numpy()
+    _bp_close(got, want)
+    mid = got[0]
+    c = mid[19:21, 18:22].mean()
+    assert c > 0.1
+    assert mid[20, 39] > 0.75 * c and mid[20, 0] > 0.75 * c
+
+
+@pytest.mark.parametrize("helical", [False, True])
+def test_zffs_reconstruction_matches_jax(helical):
+    """z flying focal spot: per-view cone factors and nonzero row offsets
+    through K12's plain version, on a circular orbit (pitch 0, the window
+    centred on the orbit) and on a helix."""
+    kw = dict(N_channels=64, N_proj=48, N_rows=8, gamma_fan=0.8230337,
+              SID=60.0, SDD=100.0, h_iso=0.5, eid=True, ffs="z")
+    if helical:
+        jct = HelicalConeBeamGeometry(rotation_total=4 * np.pi, pitch=2.0,
+                                      **{**kw, "N_proj": 96})
+        fn_j, fn_t = j_cb.helical_fdk_reconstruct, t_cb.helical_fdk_reconstruct
+    else:
+        jct = ConeBeamGeometry(**kw)
+        fn_j, fn_t = j_cb.fdk_reconstruct, t_cb.fdk_reconstruct
+    assert np.abs(jct.ffs_view_offsets).min() > 0
+    sino = _cyl_sino(jct)
+    want = np.asarray(fn_j(jnp.asarray(sino), jct, 32, 16.0, 0.8))
+    got = fn_t(torch.as_tensor(sino), _port_ct(jct), 32, 16.0, 0.8).numpy()
+    assert got.shape == want.shape
+    _bp_close(got, want)
+
+
+def _simulate_case(recon):
+    """(JAX geometry, phantom) of one stateless-pipeline case, at the
+    shapes of the tiny CLI configs below (so the JAX programs compile
+    once for both)."""
+    kw = dict(N_channels=32, N_proj=24, N_rows=4, h_iso=0.5, eid=True)
+    if recon == "helical":
+        ct = HelicalConeBeamGeometry(rotation_total=4 * np.pi, pitch=2.0,
+                                     **{**kw, "N_proj": 48})
+    elif recon == "tilted":
+        ct = TiltedConeBeamGeometry(tilt=0.2, **kw)
+    else:
+        ct = ConeBeamGeometry(**kw)
+    ph2 = water_cylinder_phantom(N=32, dx=0.6)
+    ph3 = dataclasses.replace(
+        ph2, labels=np.broadcast_to(ph2.labels[0], (8, 32, 32)).copy(),
+        dz=0.5)
+    return ct, ph3
+
+
+def test_cone_sinogram_matches_jax():
+    """``cone_sinogram``: K10's plain version and the JAX tracer on the
+    same rays, then the spectral chain; the log sinogram at the
+    fused-vs-stateless bar."""
+    jct, ph3 = _simulate_case("fdk")
+    spec = _spectra(jct)[1]
+    want = j_cb.cone_sinogram(ph3, jct, spec)
+    got = t_cb.cone_sinogram(ph3, _port_ct(jct), spec, device="cpu")
+    assert got[0].shape == np.shape(want[0]) == (24, 4, 32)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               rtol=1e-3)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                               **WHOLE_TOL["sino_log"])
+
+
+@pytest.mark.parametrize("recon", ["fdk", "helical", "tilted"])
+def test_simulate_cone_dect_matches_jax(recon):
+    """The stateless pipeline's circular FDK, helical gFDK and tilted FDK
+    (the flat and Katsevich branches are in their own test files)."""
+    from dexct_tpu_torch.ops.conebeam import simulate_cone_dect as t_sim
+
+    jct, ph3 = _simulate_case(recon)
+    s = _spectra(jct)
+    want = j_cb.simulate_cone_dect(jct, ph3, *s, 32, 18.0, 0.8, n_iters=8,
+                                   recon=recon)
+    got = t_sim(_port_ct(jct), ph3, *s, 32, 18.0, 0.8, device="cpu",
+                n_iters=8, recon=recon)
+    for key, tol in WHOLE_TOL.items():
+        for i in range(2):
+            assert got[key][i].shape == np.shape(want[key][i])
+            np.testing.assert_allclose(got[key][i].numpy(),
+                                       np.asarray(want[key][i]),
+                                       err_msg=f"{key}[{i}]", **tol)
+
+
+@pytest.mark.parametrize("recon", ["fdk", "helical", "tilted"])
+def test_reconstruct_3d_auto_is_the_geometry_reconstructor(recon):
+    """``reconstruct_3d``: ``'auto'`` and the named ``recon`` give the
+    geometry's own reconstructor bit for bit (the flat panel's case is in
+    tests/test_torch_flatpanel.py's pipeline tests)."""
+    jct, _ = _simulate_case(recon)
+    ct = _port_ct(jct)
+    rng = np.random.default_rng(11)
+    stack = torch.as_tensor(rng.standard_normal(
+        (2, ct.N_proj, ct.N_rows, ct.N_channels)).astype(np.float32))
+    fn = {"fdk": t_cb.fdk_reconstruct,
+          "helical": t_cb.helical_fdk_reconstruct,
+          "tilted": t_cb.fdk_tilted_reconstruct}[recon]
+    want = fn(stack, ct, 16, 18.0, 0.8)
+    for how in ("auto", recon):
+        got = t_cb.reconstruct_3d(stack, ct, 16, 18.0, 0.8, recon=how)
+        assert torch.equal(got, want), how
+    with pytest.raises(ValueError, match="unknown recon"):
+        t_cb.reconstruct_3d(stack, ct, 16, 18.0, 0.8, recon="art")
 
 
 # ---------------------------------------------------------------------------
@@ -309,22 +546,47 @@ def _main_args(params, out, *extra):
             + list(extra))
 
 
-@pytest.mark.parametrize("kind", ["cone_beam", "helical_cone_beam"])
-def test_both_clis_write_the_same_files(tmp_path, kind):
+# case -> (scanner_geometry, config changes, extra flags, slices out)
+CLI_CASES = {
+    "cone_beam": ("cone_beam", {}, [], 4),
+    "helical_cone_beam": ("helical_cone_beam", {}, [], 6),
+    "katsevich": ("helical_cone_beam", {}, ["--recon3d", "katsevich"], 4),
+    "flat_panel_cone_beam": ("flat_panel_cone_beam", {}, [], 4),
+    "tilted_cone_beam": ("tilted_cone_beam", {"gantry_tilt_rad": 0.2}, [],
+                         4),
+    "z_ffs": ("cone_beam", {"flying_focal_spot": "z"}, [], 4),
+    "helical_z_ffs": ("helical_cone_beam", {"flying_focal_spot": "z"}, [],
+                      6),
+}
+
+
+def _case_params(tmp_path, case):
+    kind, changes, extra, nz = CLI_CASES[case]
+    params = _cone_params(tmp_path, kind)
+    cfg = json.loads(params.read_text())
+    cfg.update(changes)
+    params.write_text(json.dumps(cfg))
+    return params, extra, nz
+
+
+@pytest.mark.parametrize("case", sorted(CLI_CASES))
+def test_both_clis_write_the_same_files(tmp_path, case):
+    """The fused circular and helical configs and every stateless one
+    (flat panel, tilted gantry, z-FFS on both orbits, Katsevich): the 12
+    files, their exact sizes (the slice count of each reconstructor's
+    default grid) and values."""
     from dexct_tpu.run import main as j_main
     from dexct_tpu_torch.run import main as t_main
 
-    params = _cone_params(tmp_path, kind)
-    j_main(_main_args(params, tmp_path / "jax"))
-    (res,) = t_main(_main_args(params, tmp_path / "torch", "--device",
-                               "cpu"))
+    params, extra, nz = _case_params(tmp_path, case)
+    j_main(_main_args(params, tmp_path / "jax", *extra))
+    t_main(_main_args(params, tmp_path / "torch", "--device", "cpu", *extra))
     files = sorted(p.relative_to(tmp_path / "jax")
                    for p in (tmp_path / "jax").rglob("*.bin"))
     assert len(files) == 12
     assert files == sorted(p.relative_to(tmp_path / "torch")
                            for p in (tmp_path / "torch").rglob("*.bin"))
-    V = 24 if kind == "cone_beam" else 48
-    nz = res.dect.recon_raw[0].shape[0]
+    V = 48 if "helical" in CLI_CASES[case][0] else 24
     for rel in files:
         want = np.fromfile(tmp_path / "jax" / rel, np.float32)
         got = np.fromfile(tmp_path / "torch" / rel, np.float32)
@@ -352,23 +614,35 @@ def test_recon3d_mismatch_raises(tmp_path, kind, recon3d):
     assert str(t_err.value) == str(j_err.value)
 
 
-@pytest.mark.parametrize("change", ["katsevich", "flat_panel_cone_beam",
-                                    "tilted_cone_beam", "z_ffs"])
-def test_unported_cone_choices_raise(tmp_path, change):
-    from dexct_tpu_torch.run import main as t_main
+@pytest.mark.parametrize("choice", ["inplane_ffs", "weighting", "heel"])
+def test_unported_3d_choices_raise(tmp_path, choice):
+    """What the stateless branch still refuses, naming its ROADMAP item: the
+    2-D in-plane flying focal spot (the composed path's FFS rebin), the
+    generalized Feldkamp's study weightings and the anode heel."""
+    if choice == "inplane_ffs":
+        from dexct_tpu_torch.run import main as t_main
 
-    kind = {"katsevich": "helical_cone_beam",
-            "z_ffs": "cone_beam"}.get(change, change)
-    params = _cone_params(tmp_path, kind)
-    cfg = json.loads(params.read_text())
-    if change == "tilted_cone_beam":
-        cfg["gantry_tilt_rad"] = 0.2
-    if change == "z_ffs":
-        cfg["flying_focal_spot"] = "z"
-    params.write_text(json.dumps(cfg))
-    extra = ["--recon3d", "katsevich"] if change == "katsevich" else []
+        params = _cone_params(tmp_path, "fan_beam")
+        cfg = json.loads(params.read_text())
+        cfg["flying_focal_spot"] = "inplane"
+        params.write_text(json.dumps(cfg))
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            t_main(_main_args(params, tmp_path / "t", "--device", "cpu"))
+        return
+    from dexct_tpu_torch.ops.conebeam import (helical_fdk_reconstruct,
+                                              simulate_cone_dect)
+    from dexct_tpu_torch.system import HelicalConeBeamGeometry as THelix
+
+    ct = THelix(N_channels=32, N_proj=48, N_rows=4, h_iso=0.5,
+                rotation_total=4 * np.pi, pitch=2.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_main(_main_args(params, tmp_path / "t", "--device", "cpu", *extra))
+        if choice == "weighting":
+            helical_fdk_reconstruct(torch.zeros((48, 4, 32)), ct, 16, 18.0,
+                                    0.8, weighting="td")
+        else:
+            heel = type("Heel", (), {"d0_cm": 1e-3})()
+            simulate_cone_dect(ct, _water3d(4), *_spectra(ct), 16, 18.0, 0.8,
+                               device="cpu", heel=heel)
 
 
 def test_back_project_false_writes_no_volumes(tmp_path):

@@ -1,4 +1,4 @@
-"""Hand-written kernels K1-K12 against their plain PyTorch versions, on the
+"""Hand-written kernels K1-K16 against their plain PyTorch versions, on the
 card.
 
 Every test here needs a CUDA device and skips without one.  This file
@@ -353,3 +353,180 @@ def test_helical_backproject_matches_plain(dev, n_images):
     want = _helical_backproject_plain(q, *arrs, *args)
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("pitch", [0.0, 2.0])
+def test_helical_backproject_zffs_row_offsets_match_plain(dev, pitch):
+    """K12 as the z flying focal spot runs it: alternating source offsets
+    and nonzero per-view row offsets, on a circular orbit (pitch 0, the
+    window centred on the orbit covers every view) and on a helix."""
+    from dexct_tpu_torch.ops.conebeam import (_helical_backproject,
+                                              _helical_backproject_plain)
+    from dexct_tpu_torch.system import (ConeBeamGeometry,
+                                        HelicalConeBeamGeometry)
+
+    kw = dict(N_channels=48, N_rows=8, SID=60.0, SDD=100.0, h_iso=0.5,
+              ffs="z")
+    if pitch:
+        ct = HelicalConeBeamGeometry(N_proj=96, rotation_total=4 * np.pi,
+                                     pitch=pitch, **kw)
+        nz = 9
+        zv = (np.arange(nz) + 0.5) * 0.5 - nz * 0.25
+        bc = 0.5 * ct.rotation_total + 2.0 * np.pi * zv / pitch
+        sz = ct.source_z + ct.ffs_view_offsets
+    else:
+        ct = ConeBeamGeometry(N_proj=48, **kw)
+        nz = 8
+        zv = (np.arange(nz) + 0.5 - nz / 2.0) * 0.5
+        bc = np.full(nz, 0.5 * ct.rotation_total)
+        sz = ct.ffs_view_offsets
+    off = ct.ffs_view_offsets
+    row_off = off * ct.SID / (ct.SDD * ct.h_iso)
+    assert np.abs(row_off).min() > 0
+    V = ct.N_proj
+    rng = np.random.default_rng(13)
+    q = torch.as_tensor(rng.standard_normal((4, V, 8, 48)),
+                        dtype=torch.float32, device=dev)
+    arrs = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+            for a in (ct.betas, sz, row_off, bc)]
+    args = (60.0, ct.dgamma, 0.5, 8, pitch, 32, nz, 20.0, 0.5,
+            float(zv[0]))
+    before = _helical_backproject.launches
+    got = _helical_backproject(q, *arrs, *args,
+                               dbeta=ct.rotation_total / V)
+    torch.cuda.synchronize()
+    assert _helical_backproject.launches == before + 1
+    want = _helical_backproject_plain(q, *arrs, *args)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("n_images", [1, 4])
+def test_flat_backproject_matches_plain(dev, n_images):
+    from dexct_tpu_torch.ops.flatpanel import (_flat_backproject,
+                                               _flat_backproject_plain)
+
+    rng = np.random.default_rng(14)
+    V, R, C = 48, 8, 64
+    q = torch.as_tensor(rng.normal(size=(n_images, V, R, C)),
+                        dtype=torch.float32, device=dev)
+    betas = torch.arange(V, dtype=torch.float32, device=dev) * (2 * np.pi / V)
+    args = (60.0, 0.45, 0.5, 0.75, -0.25, R, 40, 9, 20.0, 0.45,
+            2 * np.pi / V)
+    before = _flat_backproject.launches
+    got = _flat_backproject(q, betas, *args)
+    torch.cuda.synchronize()
+    assert _flat_backproject.launches == before + 1
+    want = _flat_backproject_plain(q, betas, *args)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("deriv", ["spectral", "stencil4"])
+def test_katsevich_derivative_matches_plain(dev, deriv):
+    from dexct_tpu_torch.ops.katsevich import (
+        _fixed_direction_derivative, _fixed_direction_derivative_plain)
+
+    rng = np.random.default_rng(15)
+    g = torch.as_tensor(rng.uniform(0, 3, (4, 60, 8, 96)),
+                        dtype=torch.float32, device=dev)
+    cosk = torch.as_tensor(rng.uniform(0.9, 1.0, 8), dtype=torch.float32,
+                           device=dev)
+    args = (g, cosk, 4 * np.pi / 120, 0.8 / 96)
+    before = _fixed_direction_derivative.launches
+    got = _fixed_direction_derivative(*args, deriv=deriv)
+    torch.cuda.synchronize()
+    assert _fixed_direction_derivative.launches == before + 1
+    want = _fixed_direction_derivative_plain(*args, deriv=deriv)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("interp", ["linear", "cubic"])
+def test_katsevich_backproject_matches_plain(dev, interp):
+    """K15, which visits per slice only the views that can reach it,
+    against the plain version's scan over every view; the end slices'
+    view windows are cut by both ends of the scan."""
+    from dexct_tpu_torch.ops.katsevich import (_katsevich_backproject,
+                                               _katsevich_backproject_plain)
+    from dexct_tpu_torch.system import HelicalConeBeamGeometry
+
+    ct = HelicalConeBeamGeometry(N_channels=48, N_proj=192, N_rows=12,
+                                 gamma_fan=0.8, SID=60.0, SDD=100.0,
+                                 h_iso=0.5, rotation_total=8 * np.pi,
+                                 pitch=2.0)
+    rng = np.random.default_rng(16)
+    gf = torch.as_tensor(rng.standard_normal((4, 192, 12, 48)),
+                         dtype=torch.float32, device=dev)
+    arrs = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+            for a in (ct.betas, ct.source_z)]
+    db = float(ct.betas[1] - ct.betas[0])
+    args = (60.0, ct.dgamma, 0.5, 12, 2.0, 32, 17, 20.0, 0.5, -4.25,
+            float(0.5 * ct.rotation_total), db, 0.25)
+    before = _katsevich_backproject.launches
+    got = _katsevich_backproject(gf, *arrs, *args, interp=interp)
+    torch.cuda.synchronize()
+    assert _katsevich_backproject.launches == before + 1
+    want = _katsevich_backproject_plain(gf, *arrs, 60.0, ct.dgamma, 0.5, 12,
+                                        2.0, 32, 17, 20.0, 0.5, -4.25, db,
+                                        0.25, interp=interp)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+def test_trilinear_sample_matches_plain(dev):
+    from dexct_tpu_torch.ops.conebeam import (_trilinear_volume_sample,
+                                              _trilinear_volume_sample_plain)
+
+    rng = np.random.default_rng(17)
+    vol = torch.as_tensor(rng.standard_normal((4, 12, 30, 34)),
+                          dtype=torch.float32, device=dev)
+    zi, yi, xi = (torch.as_tensor(rng.uniform(-1, n, shape),
+                                  dtype=torch.float32, device=dev)
+                  for n, shape in ((12, (6, 20, 1)), (30, (6, 20, 1)),
+                                   (34, (1, 1, 24))))
+    before = _trilinear_volume_sample.launches
+    got = _trilinear_volume_sample(vol, zi, yi, xi)
+    torch.cuda.synchronize()
+    assert _trilinear_volume_sample.launches == before + 1
+    want = _trilinear_volume_sample_plain(vol, zi, yi, xi)
+    assert got.shape == (4, 6, 20, 24)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("recon", ["flat", "tilted", "katsevich", "zffs"])
+def test_simulate_cone_dect_cuda_matches_cpu(dev, recon):
+    """The stateless 3-D branch on the card against the same call on the
+    CPU (the plain versions)."""
+    from dexct_tpu_torch.ops.conebeam import simulate_cone_dect
+    from dexct_tpu_torch.physics import kramers_spectrum, linac_spectrum
+    from dexct_tpu_torch.system import (ConeBeamGeometry,
+                                        FlatPanelConeBeamGeometry,
+                                        HelicalConeBeamGeometry,
+                                        TiltedConeBeamGeometry, VoxelPhantom,
+                                        water_cylinder_phantom)
+
+    kw = dict(N_channels=64, N_proj=48, N_rows=8, h_iso=0.5, eid=True)
+    ct = {"flat": lambda: FlatPanelConeBeamGeometry(**kw),
+          "tilted": lambda: TiltedConeBeamGeometry(tilt=0.26, **kw),
+          "katsevich": lambda: HelicalConeBeamGeometry(
+              rotation_total=4 * np.pi, pitch=3.0, **{**kw, "N_proj": 96}),
+          "zffs": lambda: ConeBeamGeometry(ffs="z", **kw)}[recon]()
+    ph = water_cylinder_phantom(N=48, dx=0.5)
+    ph3 = VoxelPhantom("w3", np.broadcast_to(ph.labels[0], (12, 48, 48))
+                       .copy(), ph.materials, 0.5, 0.5, 0.5)
+    s1, s2 = linac_spectrum(), kramers_spectrum(80.0)
+    s1.rescale_counts(ct.A_iso * 9.0 / ct.N_proj)
+    s2.rescale_counts(ct.A_iso * 1.0 / ct.N_proj)
+    r = "katsevich" if recon == "katsevich" else "auto"
+    gpu, cpu = (simulate_cone_dect(ct, ph3, s1, s2, 32, 22.0, 0.8, device=d,
+                                   n_iters=20, recon=r)
+                for d in (dev, "cpu"))
+    tol = {"sino_raw": dict(rtol=1e-4, atol=0),
+           "mat_sinos": dict(rtol=0, atol=1e-3),
+           "recon_raw": dict(rtol=0, atol=1e-4),
+           "mat_recons": dict(rtol=0, atol=1e-3)}
+    for key, t in tol.items():
+        for i in range(2):
+            torch.testing.assert_close(gpu[key][i].cpu(), cpu[key][i], **t)

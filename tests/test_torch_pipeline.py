@@ -297,22 +297,36 @@ def _spectra(ct):
 
 
 @pytest.mark.parametrize("what", ["flat_panel", "katsevich"])
-def test_cone_config_raises(what):
-    """Cone and helical configs run (tests/test_torch_cone.py); flat-panel
-    configs and the Katsevich reconstructor raise naming their ROADMAP
-    row."""
+def test_cone_config_raises(tmp_path, what):
+    """Flat-panel configs and the Katsevich reconstructor run
+    (tests/test_torch_cone.py) and keep the JAX package's refusals: a
+    helical reconstructor on a circular flat-panel orbit, and a
+    Tam-Danielsson window taller than the detector (pitch 6 cm over four
+    0.5 cm rows)."""
+    import dataclasses
+
     from dexct_tpu_torch.pipeline.runner import run_config
     from dexct_tpu_torch.system import (FlatPanelConeBeamGeometry,
                                         HelicalConeBeamGeometry)
     from dexct_tpu_torch.system.config import RunConfig
     from dexct_tpu_torch.system.phantom import water_cylinder_phantom as tw
 
-    ct = (FlatPanelConeBeamGeometry(N_rows=4) if what == "flat_panel"
-          else HelicalConeBeamGeometry(N_rows=4, pitch=2.0))
-    cfg = RunConfig("c", True, True, ct, tw(N=16), None, 16, 20.0, 0.8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_config(cfg, device="cpu",
-                   recon3d="katsevich" if what == "katsevich" else "auto")
+    kw = dict(N_channels=16, N_rows=4, h_iso=0.5)
+    if what == "flat_panel":
+        ct, recon3d, msg = (FlatPanelConeBeamGeometry(N_proj=16, **kw),
+                            "helical", "requires a helical config")
+    else:
+        ct, recon3d, msg = (
+            HelicalConeBeamGeometry(N_proj=32, rotation_total=4 * np.pi,
+                                    pitch=6.0, **kw),
+            "katsevich", "TD window .* exceeds the detector half-height")
+    ph = tw(N=16, dx=1.0)
+    ph = dataclasses.replace(
+        ph, labels=np.broadcast_to(ph.labels[0], (4, 16, 16)).copy(), dz=0.5)
+    cfg = RunConfig("c", True, True, ct, ph, None, 16, 16.0, 0.8)
+    with pytest.raises(ValueError, match=msg):
+        run_config(cfg, out_dir=tmp_path, device="cpu", n_iters=2,
+                   recon3d=recon3d)
 
 
 def _tiny_cone_params(tmp_path):
@@ -327,20 +341,37 @@ def _tiny_cone_params(tmp_path):
     return cone
 
 
+def _tiny_3d_variant(tmp_path, name, **changes):
+    """The tiny cone config with ``changes`` applied, as its own file."""
+    cfg = json.loads(_tiny_cone_params(tmp_path).read_text())
+    cfg.update(RUN_ID=f"tiny_{name}", **changes)
+    path = tmp_path / f"{name}.txt"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
 def test_port_never_imports_jax(tmp_path):
     """Importing the port and running its CLI's default path (Fourier
-    projector, parallel recon) and a cone config on the CPU leaves JAX and
+    projector, parallel recon), a cone config, a flat-panel config and a
+    helical config under ``--recon3d katsevich`` on the CPU leaves JAX and
     the JAX package unimported."""
     params = _tiny_params(tmp_path)
     cone = _tiny_cone_params(tmp_path)
+    flat = _tiny_3d_variant(tmp_path, "flat",
+                            scanner_geometry="flat_panel_cone_beam")
+    helix = _tiny_3d_variant(tmp_path, "helix",
+                             scanner_geometry="helical_cone_beam",
+                             N_projections=32, pitch=1.0,
+                             rotation_angle_total=4 * np.pi)
+    runs = [[str(params)], [str(cone)], [str(flat)],
+            [str(helix), "--recon3d", "katsevich"]]
     code = (
         "import sys\n"
         "import dexct_tpu_torch\n"
         "from dexct_tpu_torch.run import main\n"
-        f"main(['--params', {str(params)!r}, '--iters', '2', '--device',"
-        f" 'cpu', '--output', {str(tmp_path / 'o')!r}])\n"
-        f"main(['--params', {str(cone)!r}, '--iters', '2', '--device',"
-        f" 'cpu', '--output', {str(tmp_path / 'o')!r}])\n"
+        f"for args in {runs!r}:\n"
+        "    main(['--params', *args, '--iters', '2', '--device', 'cpu',"
+        f" '--output', {str(tmp_path / 'o')!r}])\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'dexct_tpu' or m.startswith('dexct_tpu.')]\n"
         "assert not bad, bad\n"

@@ -7,7 +7,7 @@ Needs one CUDA device, the CUDA toolkit (nvcc) and Triton; imports nothing
 of JAX.  Phases, each of which raises on failure:
 
 1. Device: the card's name and power limit (nvidia-smi).
-2. Build: nvcc builds kernels K1, K3-K13, K15 and K16 from
+2. Build: nvcc builds kernels K1, K3-K13 and K15-K17 from
    ``dexct_tpu_torch/csrc`` (one nvcc per source, all at once); Triton
    compiles K2 and K14.
 3. Each kernel against its plain PyTorch version on the card, on the
@@ -17,33 +17,42 @@ of JAX.  Phases, each of which raises on failure:
    one PyTorch call computes the same function, that call's time: K1-K4 on
    the exact path and K5-K8 on the default path at the reference protocol
    (``input/params.txt``: 256^2 pelvis, 1000 views x 800 channels, 50 GN
-   iterations, four 512^2 images); K9 on the same fan rays through
-   ``pelvis_analytic()``; K10 and K11 on the cone config (360 views x 16
-   rows x 256 channels through a 256^2 x 32 pelvis, 16 slices of 256^2);
-   K12 on the helical one (720 views over two turns, pitch 3 cm, through
-   a 256^2 x 48 pelvis, 19 slices); K2 and K3 once more on each 3-D
-   config's own [V, R, C, M] paths and counts, timed apart, and K10 on the
-   helical rays.  The stateless 3-D paths: K13 on the flat-panel config,
-   K16 (and K11 on its enlarged 258^2 x 60 gantry grid) on the 15-degree
-   tilted config, K12 with the z flying focal spot's nonzero row offsets
-   at pitch 0 on the z-FFS cone config, and K14 and K15 on the helical
-   config's Katsevich chain (14 slices).
+   iterations, four 512^2 images; K7's yardstick a complex CSR product);
+   K9 on the same fan rays through ``pelvis_analytic()``; K10 and K11 on
+   the cone config (360 views x 16 rows x 256 channels through a 256^2 x
+   32 pelvis, 16 slices of 256^2); K12 on the helical one (720 views over
+   two turns, pitch 3 cm, through a 256^2 x 48 pelvis, 19 slices); K2 and
+   K3 once more on each 3-D config's own [V, R, C, M] paths and counts,
+   timed apart, and K10 on the helical rays.  The stateless 3-D paths: K13
+   on the flat-panel config, K16 (and K11 on its enlarged 258^2 x 60
+   gantry grid) on the 15-degree tilted config, K12 with the z flying focal
+   spot's nonzero row offsets at pitch 0 on the z-FFS cone config, and K14
+   and K15 on the helical config's Katsevich chain (14 slices).  K17 at the
+   JAX package's z-stack workload (1000 x 800 rays through 8 slices of the
+   512^2 pelvis, rolled), also bitwise against K1 on each slice (K1 over
+   the 8 slices is its yardstick); K5 at 16 taps on the in-plane FFS plan
+   of the reference protocol (500 x 1600 bins).
 4. The paths: the default and the exact path through
    ``dexct_tpu_torch.run.main`` on ``input/params.txt``, then the cone,
-   helical, flat-panel, tilted, z-FFS and Katsevich configs through the
-   same CLI, each twice (the second call is steady state), and the analytic
-   projector through the library (``pack_dect(projector='analytic',
-   recon='parallel')`` + ``dect_step`` on the reference protocol with
-   ``pelvis_analytic()``), twice.  Every launch counter is set to 0 just
-   before a path and read just after it: each kernel of the path must have
-   launched, and no other.  Each path's outputs are checked (exact sizes,
-   finite values, air ~ -1000 HU), and the 3-D paths' stages are timed once
-   more (spectra, pack or trace-to-decomposition with ``ray_geometry_3d``
-   apart, step or reconstruction, writes) with the device's busy share
-   inside the step.
+   helical, flat-panel, tilted, z-FFS and Katsevich configs, the
+   reference protocol with an in-plane flying focal spot and as a
+   parallel-beam config, and the default path with ``--bhc --denoise``
+   through the same CLI, each twice (the second call is steady state); the
+   analytic projector through the library (``pack_dect(projector=
+   'analytic', recon='parallel')`` + ``dect_step`` on the reference
+   protocol with ``pelvis_analytic()``), twice; the z-stack through the
+   library (``pack_zstack`` + ``zstack_step`` at the K17 workload,
+   ``projector='siddon', recon='parallel'``), twice.  Every launch counter
+   is set to 0 just before a path and read just after it: each kernel of
+   the path must have launched, and no other.  Each path's outputs are
+   checked (exact sizes, finite values, air ~ -1000 HU; the z-stack's
+   slices 0 and 7 against single-slice steps), and the stages of the 3-D,
+   composed 2-D, BHC/denoise and z-stack paths are timed once more with the
+   device's busy share.
 5. A 64^2 config through the port on ``--device cpu`` and ``--device
-   cuda`` under both 2-D flag sets, and tiny versions of every 3-D path;
-   every output file agrees to the pipeline tolerances.
+   cuda`` under every 2-D path's flags and configuration, tiny versions of
+   every 3-D path, and a tiny z-stack through the library; every output
+   agrees to the pipeline tolerances.
 
 The last two lines of standard output are the kernels' JSON record and the
 device JSON line.
@@ -113,6 +122,11 @@ KERNELS = {
     "trilinear_sample": ("cuda", "dexct_tpu_torch/csrc/trilinear_sample.cu",
                          "dexct_tpu/ops/conebeam.py:778",
                          "max abs <= 1e-5 x max |plain|"),
+    "siddon_trace_stack": ("cuda",
+                           "dexct_tpu_torch/csrc/siddon_trace_stack.cu",
+                           "dexct_tpu/ops/siddon_fast.py:827",
+                           "max abs <= 1e-4 cm; bitwise equal to K1 on "
+                           "every slice"),
 }
 # the CLI paths: flags, whether the params file is a 3-D config, and the
 # kernels each launches
@@ -137,7 +151,36 @@ PATHS = {
     "katsevich": (["--recon3d", "katsevich"], "helical",
                   ("siddon_trace_3d", "spectral_counts", "gauss_newton",
                    "katsevich_derivative", "katsevich_backproject")),
+    "ffs": ([], "ffs", ("siddon_trace", "spectral_counts", "gauss_newton",
+                        "rebin_to_parallel", "parallel_backproject")),
+    "parallel_beam": ([], "parallel_beam",
+                      ("siddon_trace", "spectral_counts", "gauss_newton",
+                       "parallel_backproject")),
+    "bhc_denoise": (["--bhc", "--denoise"], None,
+                    ("kb_sample", "resample_to_fan", "spectral_counts",
+                     "gauss_newton", "rebin_to_parallel",
+                     "parallel_backproject", "fan_backproject")),
 }
+# the 2-D configurations beside input/params.txt: its keys with these
+# changes (both run the composed path, as the JAX runner sends them)
+CONFIGS_2D = {"ffs": {"flying_focal_spot": "inplane"},
+              "parallel_beam": {"scanner_geometry": "parallel_beam"}}
+# the JAX package's parallel-beam images come out turned by 90 degrees
+# against the phantom (its rays' lateral axis at view b is (-sin b, cos b),
+# its backprojector's (cos b, sin b)); the port writes the same files, so
+# the air below the body lies at (-20, 0) cm there
+AIR_XY = {"parallel_beam": (-20.0, 0.0)}
+# the extra files of the --bhc --denoise path: per acquisition two
+# denoised images, per spectrum four BHC images
+BHC_FILES = [f"recon_{k}BHC_{u}" for k in ("water", "bone")
+             for u in ("raw", "HU")]
+DENOISED_FILES = ["recon_denoised_raw", "recon_denoised_HU"]
+ZSTACK_KERNELS = ("siddon_trace_stack", "spectral_counts", "gauss_newton",
+                  "rebin_to_parallel", "parallel_backproject")
+# the JAX package's own z-stack workload (tools/bench_zstack.py:36-46):
+# 1000 views x 800 channels through 8 slices of the 512^2 pelvis at 0.1 cm,
+# slice k rolled by 7k columns; 512^2 images over 50 cm
+ZSTACK_NZ = 8
 # the paths that run the stateless 3-D branch (simulate_cone_dect)
 STATELESS = ("flat", "tilted", "zffs", "katsevich")
 # the paths that scan the cone path's phantom and reconstruct its central
@@ -378,9 +421,30 @@ def default_kernel_phase(arrays, meta, records):
                                   lambda: fourier.kb_sample_plain(*sargs),
                                   reps=5)
     err, big = max_err(spec, want)
+    # the library yardstick: the 16 taps of every sample, times its phase,
+    # as one complex64 CSR matrix applied to the flattened spectra
+    G = F.shape[-1]
+    S = a["fp_slice_idx"].numel()
+    base = a["fp_slice_idx"].reshape(-1).to(torch.int64)
+    offs = torch.arange(4, device=base.device)
+    cols = (torch.remainder(base[:, None, None] // G + offs[None, None, :],
+                            G) * G
+            + torch.remainder(base[:, None, None] % G + offs[None, :, None],
+                              G)).reshape(-1)
+    phase = torch.complex(a["fp_phase_cos"].reshape(-1),
+                          a["fp_phase_sin"].reshape(-1))
+    vals = a["fp_slice_w"].reshape(S, 16).to(torch.complex64) * phase[:, None]
+    W = sparse_taps(torch.arange(S, device=base.device).repeat_interleave(16),
+                    cols, vals.reshape(-1), (S, G * G))
+    dense = F.reshape(n_mat, -1).T.contiguous()
+    lib_err = float((torch.sparse.mm(W, dense).T.reshape(spec.shape)
+                     - want).abs().max())
     report(records, "kb_sample", err, ms, pms, err <= 1e-5 * big,
            (nbytes(*sargs, spec), spec.numel() * 70),
-           extra=f" (max |plain| {big:.6g})")
+           library_ms=time_ms(lambda: torch.sparse.mm(W, dense), 5),
+           extra=f" (max |plain| {big:.6g}; complex CSR library err "
+                 f"{lib_err:.3g})")
+    del W, dense, cols, vals
 
     # K8: 8e5 fan rays from the 6 x 1024 x 1024 Radon transforms; the
     # library yardstick is the same taps as one CSR product
@@ -825,6 +889,120 @@ def katsevich_kernel_phase(ccfg, stack, records):
                  f"reach)")
 
 
+def zstack_workload():
+    """The z-stack workload: the geometry, the 8-slice rolled pelvis and the
+    JAX bench's spectra (linac 9 mGy, 80 kV 1 mGy)."""
+    import dataclasses
+
+    import numpy as np
+
+    from dexct_tpu_torch.physics import kramers_spectrum, linac_spectrum
+    from dexct_tpu_torch.system import FanBeamGeometry, pelvis_phantom
+
+    ct = FanBeamGeometry(N_channels=800, N_proj=1000, gamma_fan=0.8230337,
+                         SID=60.0, SDD=100.0, eid=True)
+    ph = pelvis_phantom(N=512, dx=0.1)
+    labs = np.stack([np.roll(ph.labels[0], 7 * k, axis=1)
+                     for k in range(ZSTACK_NZ)])
+    ph = dataclasses.replace(ph, labels=labs)
+    s1 = linac_spectrum()
+    s1.rescale_counts(ct.A_iso * 9.0 / ct.N_proj)
+    s2 = kramers_spectrum(80.0)
+    s2.rescale_counts(ct.A_iso * 1.0 / ct.N_proj)
+    return ct, ph, s1, s2
+
+
+def zstack_kernel_phase(work, records, dev):
+    """Phase 3, z-stack: K17 on the 8 slices against its plain version, and
+    bitwise against K1 on each slice; K1 over the 8 slices is the
+    yardstick."""
+    import torch
+
+    from dexct_tpu_torch.ops import siddon
+
+    ct, ph, _, _ = work
+    nz, m = ph.labels.shape[0], ph.n_materials
+    src, dirs = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+                 for x in ct.ray_geometry())
+    lab = siddon.labels_stack_tensor(ph.labels, dev)
+    args = (lab, src, dirs, ph.dx, ph.dy)
+    paths, want, ms, pms = compare(
+        lambda: siddon.trace_paths_stack(*args, n_materials=m),
+        lambda: siddon.trace_paths_stack_plain(*args, n_materials=m), reps=2)
+    err = float((paths - want).abs().max())
+    del want
+
+    def per_slice():
+        return [siddon.trace_paths(lab[z], src, dirs, ph.dx, ph.dy,
+                                   n_materials=m) for z in range(nz)]
+
+    same = all(torch.equal(paths[z], k1) for z, k1 in enumerate(per_slice()))
+    k1_ms = time_ms(per_slice, 2)
+    steps = walk_steps(paths[0], dirs, (ph.dx, ph.dy))
+    n_rays = paths[0].numel() // m
+    report(records, "siddon_trace_stack", err, ms, pms, err <= 1e-4 and same,
+           (nbytes(lab, src, dirs, paths),
+            (6 + 2 * nz) * steps + 40 * n_rays),
+           extra=f" ({nz} slices x {n_rays} rays, {siddon.slice_chunk(nz, m)}"
+                 f" slices per walk; bitwise equal to K1 on every slice: "
+                 f"{same}; K1 over the {nz} slices {k1_ms:.4f} ms)")
+    if not same:
+        fail("siddon_trace_stack differs from K1 on a slice")
+
+
+def ffs_kernel_phase(cfg, spectra, dev):
+    """Phase 3, in-plane FFS path: K5 at 16 taps on the reference
+    protocol's FFS plan (500 x 1600 bins), on the path's four sinograms
+    (both logs, both basis sinograms); the library yardstick is the same
+    taps as one CSR product.  The path rebins one image per launch: that
+    time too."""
+    import torch
+
+    from dexct_tpu_torch.ops import fbp_fast
+    from dexct_tpu_torch.ops.ffs import parallel_rebin_plan_ffs
+    from dexct_tpu_torch.pipeline.api import simulate_dect
+
+    ct = cfg.ct
+    t0 = time.perf_counter()
+    idx, w, _, _ = parallel_rebin_plan_ffs(ct)
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    out = simulate_dect(ct, cfg.phantom, *spectra(ct), cfg.N_matrix, cfg.FOV,
+                        cfg.ramp, device=dev, n_iters=50, do_recon=False)
+    sinos = torch.stack([out.sino_log[0], out.sino_log[1],
+                         out.mat_sinos[0], out.mat_sinos[1]])
+    nt, taps, K = 2 * ct.N_channels, 16, sinos.shape[0]
+    idx = torch.as_tensor(idx, device=dev)
+    w = torch.as_tensor(w, device=dev)
+    rargs = (sinos, idx, w, nt)
+    par, want, ms, pms = compare(
+        lambda: fbp_fast.rebin_to_parallel(*rargs, taps=taps),
+        lambda: fbp_fast.rebin_to_parallel_plain(*rargs, taps=taps), reps=5)
+    err, big = max_err(par, want)
+    vc = sinos[0].numel()
+    first = idx.reshape(-1, taps)[:, 0::2].to(torch.int64)
+    cols = torch.stack([first, (first + 1) % vc], -1).reshape(-1)
+    n_bins = first.shape[0]
+    W = sparse_taps(torch.arange(n_bins, device=dev).repeat_interleave(taps),
+                    cols, w, (n_bins, vc))
+    dense = sinos.reshape(K, -1).T.contiguous()
+    lib_err = float((torch.sparse.mm(W, dense).T.reshape(par.shape)
+                     - want).abs().max())
+    lib_ms = time_ms(lambda: torch.sparse.mm(W, dense), 5)
+    del W, dense
+    one = sinos[:1].contiguous()
+    one_ms = time_ms(lambda: fbp_fast.rebin_to_parallel(one, idx, w, nt,
+                                                        taps=taps), 5)
+    bound_ms, by = bound(nbytes(sinos, idx, w, par), n_bins * taps * 2 * K)
+    print(f"  rebin_to_parallel at 16 taps (FFS plan, {par.shape[1]} x {nt} "
+          f"bins, K = {K}): max_abs_err={err:.6g} (max |plain| {big:.6g})  "
+          f"kernel={ms:.4f} ms  plain={pms:.4f} ms  bound={bound_ms:.4f} ms "
+          f"({by})  library={lib_ms:.4f} ms (CSR torch.sparse.mm, err "
+          f"{lib_err:.3g}); K = 1 as the path launches it {one_ms:.4f} ms; "
+          f"host plan {plan_ms:.1f} ms  [{KERNELS['rebin_to_parallel'][3]}]")
+    if err > 1e-5 * big:
+        fail("rebin_to_parallel disagrees with its plain version at 16 taps")
+
+
 def counters():
     from dexct_tpu_torch.ops import (conebeam, fbp_fast, flatpanel, fourier,
                                      katsevich, matdecomp, siddon, spectral)
@@ -845,7 +1023,8 @@ def counters():
             "flat_backproject": flatpanel._flat_backproject,
             "katsevich_derivative": katsevich._fixed_direction_derivative,
             "katsevich_backproject": katsevich._katsevich_backproject,
-            "trilinear_sample": conebeam._trilinear_volume_sample}
+            "trilinear_sample": conebeam._trilinear_volume_sample,
+            "siddon_trace_stack": siddon.trace_paths_stack}
 
 
 def check_launches(label, fns, path_kernels, records):
@@ -885,8 +1064,10 @@ def write_cone_params(tmp, label, spec):
     return path
 
 
-def check_outputs(out_dir, run_id, n_views, n_ch, n_img):
-    """Phase 4 checks on the §2.6 files of the reference protocol."""
+def check_outputs(out_dir, run_id, n_views, n_ch, n_img,
+                  air_xy=(0.0, -20.0)):
+    """Phase 4 checks on the §2.6 files of the reference protocol, with an
+    air ROI at ``air_xy`` cm."""
     import numpy as np
 
     acq = [out_dir / run_id / "detunedMV_9000uGy",
@@ -910,16 +1091,13 @@ def check_outputs(out_dir, run_id, n_views, n_ch, n_img):
             fail(f"{path} holds non-finite values")
     # air ROI inside the FOV: 1 cm x 1 cm at (x, y) = (0, -20) cm, 5 cm
     # below the pelvis body (which spans |y| <= 14.7 cm)
-    px = 50.0 / n_img
-    iy = int(round(-20.0 / px + n_img / 2 - 0.5))
-    ix = n_img // 2
-    h = max(int(round(0.5 / px)), 1)
     hus = []
     for d in acq:
         hu = np.fromfile(d / "recon_HU_float32.bin", np.float32).reshape(
-            n_img, n_img)
-        hus.append(float(hu[iy - h:iy + h, ix - h:ix + h].mean()))
-    print(f"  air ROI HU: detunedMV {hus[0]:.2f}, 80kV {hus[1]:.2f}")
+            1, n_img, n_img)
+        hus.append(roi_mean(hu, *air_xy, 0, 50.0))
+    print(f"  air ROI HU at {air_xy} cm: detunedMV {hus[0]:.2f}, 80kV "
+          f"{hus[1]:.2f}")
     if not all(abs(h_ + 1000.0) <= 50.0 for h_ in hus):
         fail(f"air ROI is not ~-1000 HU: {hus}")
     return len(want)
@@ -1192,6 +1370,248 @@ def analytic_path(records, smi):
         fail(f"analytic air ROI is not ~-1000 HU: {hus}")
 
 
+def write_2d_params(tmp, label, changes):
+    """``input/params.txt`` with ``changes``, as the run config ``label``."""
+    cfg = json.loads(PARAMS.read_text())
+    cfg.update({"RUN_ID": label, **changes})
+    path = tmp / f"{label}.txt"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def check_extra_2d(out_dir, cfg):
+    """Phase 4 checks on the --bhc --denoise files: the denoised images of
+    both acquisitions and the water and bone BHC images of both spectra,
+    exact sizes and finite; prints the bladder ROI (water, at the centre)
+    of recon_HU, the water-BHC image and the denoised image."""
+    import numpy as np
+
+    n = cfg.N_matrix
+    rows = []
+    for spec, dose in (("detunedMV", "9000uGy"), ("80kV", "1000uGy")):
+        acq = out_dir / cfg.run_id / f"{spec}_{dose}"
+        bhc = out_dir / cfg.run_id / f"{cfg.phantom.name}_bhc_{spec}"
+        paths = ([acq / f"{f}_float32.bin" for f in DENOISED_FILES]
+                 + [bhc / f"{f}_float32.bin" for f in BHC_FILES])
+        imgs = {}
+        for path in paths:
+            if not path.exists():
+                fail(f"missing output {path}")
+            img = np.fromfile(path, np.float32)
+            if img.size != n * n or not np.all(np.isfinite(img)):
+                fail(f"{path} has {img.size} values or non-finite ones")
+            imgs[path.name[:-len("_float32.bin")]] = img.reshape(1, n, n)
+        hu = np.fromfile(acq / "recon_HU_float32.bin",
+                         np.float32).reshape(1, n, n)
+        rows.append(f"{spec} recon_HU {roi_mean(hu, 0, 0, 0, cfg.FOV):.2f}, "
+                    f"water BHC {roi_mean(imgs['recon_waterBHC_HU'], 0, 0, 0, cfg.FOV):.2f}, "
+                    f"bone BHC {roi_mean(imgs['recon_boneBHC_HU'], 0, 0, 0, cfg.FOV):.2f}, "
+                    f"denoised {roi_mean(imgs['recon_denoised_HU'], 0, 0, 0, cfg.FOV):.2f}")
+    print("  bladder ROI HU at (0, 0): " + "; ".join(rows))
+    return 2 * (len(DENOISED_FILES) + len(BHC_FILES))
+
+
+def composed_stage_profile(cfg, label, tmp, smi):
+    """One more DE pair of a composed 2-D path (in-plane FFS or parallel
+    beam), stage by stage, and the device's busy share over one more
+    ``simulate_dect``."""
+    import torch
+
+    from dexct_tpu_torch.pipeline.api import get_recon, simulate_dect
+    from dexct_tpu_torch.pipeline.runner import (_resolve_spectrum,
+                                                 default_generators)
+    from dexct_tpu_torch.utils.io import StageWriter
+
+    dev = torch.device("cuda")
+    st = Stages()
+    gens = default_generators()
+    s1 = _resolve_spectrum("detunedMV", 9.0, cfg.ct, str(SPECTRA), gens)
+    s2 = _resolve_spectrum("80kV", 1.0, cfg.ct, str(SPECTRA), gens)
+    st.mark("spectra")
+    cfg.ct.ray_geometry()
+    st.mark("ray_geometry (alone)")
+    if getattr(cfg.ct, "ffs", "none") != "none":
+        from dexct_tpu_torch.ops.ffs import parallel_rebin_plan_ffs
+
+        parallel_rebin_plan_ffs(cfg.ct)
+        st.mark("FFS rebin plan (alone)")
+    args = (cfg.ct, cfg.phantom, s1, s2, cfg.N_matrix, cfg.FOV, cfg.ramp)
+    out = simulate_dect(*args, device=dev, n_iters=50, do_recon=False)
+    st.mark("trace to decomposition (with its rays)")
+    recons = [get_recon(x, cfg.ct, spec, cfg.N_matrix, cfg.FOV, cfg.ramp)
+              for x, spec in ((out.sino_log[0], s1), (out.sino_log[1], s2),
+                              (out.mat_sinos[0], None),
+                              (out.mat_sinos[1], None))]
+    st.mark("4 reconstructions" + (" (each with its FFS plan)"
+                                   if label == "ffs" else ""))
+    writer = StageWriter(str(tmp / f"{label}_profile"), cfg.run_id)
+    for i, (sid_, dose) in enumerate((("detunedMV", 9.0), ("80kV", 1.0))):
+        writer.acquisition(sid_, dose, sino_raw=out.sino_raw[i],
+                           sino_log=out.sino_log[i], recon_raw=recons[i][0],
+                           recon_HU=recons[i][1])
+    writer.matdecomp("detunedMV", "80kV", 9.0, 1.0,
+                     mat_sinos=list(out.mat_sinos),
+                     mat_recons=[recons[2][0], recons[3][0]])
+    st.mark("write the 12 files")
+    del out, recons
+    print_stages(label, st.t, lambda: simulate_dect(*args, device=dev,
+                                                    n_iters=50), smi)
+
+
+def bhc_denoise_stage_profile(cfg, smi):
+    """One more DE pair of the --bhc --denoise path after its default
+    step, stage by stage: the water BHC of both spectra, the two n_theta =
+    768 Fourier plans of the bone BHC alone (host), the bone BHC of both
+    spectra (with their plans), the denoiser (first call, then its forward
+    pass on the card alone); the device's busy share over the BHC and
+    denoising stages."""
+    import numpy as np
+    import torch
+
+    from dexct_tpu_torch.learn.denoiser_io import denoise_hu_batch
+    from dexct_tpu_torch.ops.bhc import bone_bhc_recon, water_bhc_recon
+    from dexct_tpu_torch.ops.fourier import plan_fourier_projector
+    from dexct_tpu_torch.physics.materials import AIR, WATER, MaterialTable
+    from dexct_tpu_torch.pipeline.fused import dect_step, pack_dect
+    from dexct_tpu_torch.pipeline.runner import (_resolve_spectrum,
+                                                 default_generators)
+    from dexct_tpu_torch.system.phantom import VoxelPhantom
+
+    dev = torch.device("cuda")
+    st = Stages()
+    gens = default_generators()
+    specs = (_resolve_spectrum("detunedMV", 9.0, cfg.ct, str(SPECTRA), gens),
+             _resolve_spectrum("80kV", 1.0, cfg.ct, str(SPECTRA), gens))
+    st.mark("spectra")
+    arrays, meta = pack_dect(cfg.ct, cfg.phantom, *specs, cfg.N_matrix,
+                             cfg.FOV, cfg.ramp, device=dev, n_iters=50,
+                             projector="fourier", recon="parallel")
+    st.mark("pack_dect")
+    out = dect_step(arrays, meta)
+    st.mark("dect_step")
+    n, fov = cfg.N_matrix, cfg.FOV
+    bhc_args = [(out["sino_log"][i], cfg.ct, specs[i], n, fov, cfg.ramp)
+                for i in (0, 1)]
+    for a in bhc_args:
+        water_bhc_recon(*a)
+    st.mark("water BHC x2")
+    dummy = VoxelPhantom("bhc", np.zeros((n, n), np.uint8),
+                         MaterialTable([AIR, WATER]), fov / n, fov / n,
+                         fov / n)
+    for _ in (0, 1):
+        plan_fourier_projector(dummy, cfg.ct, n_theta=768, device=dev)
+    st.mark("two n_theta=768 Fourier plans (alone)")
+    for a in bhc_args:
+        bone_bhc_recon(*a)
+    st.mark("bone BHC x2 (with their plans)")
+    batch = torch.cat([h.reshape(-1, n, n) for h in out["recon_HU"]])
+    denoise_hu_batch(batch)
+    st.mark("denoise (first call)")
+    fwd = time_ms(lambda: denoise_hu_batch(batch), 5)
+    print(f"  denoiser forward on {tuple(batch.shape)} float32 (cuDNN, TF32 "
+          f"off; CUDA events, mean of 5): {fwd:.4f} ms")
+
+    def post():
+        for a in bhc_args:
+            water_bhc_recon(*a)
+            bone_bhc_recon(*a)
+        denoise_hu_batch(batch)
+
+    print_stages("bhc_denoise", st.t, post, smi)
+
+
+STEP_TOL = {"sino_raw": dict(rtol=1e-4, atol=0.0),
+            "sino_log": dict(rtol=0.0, atol=1e-4),
+            "mat_sinos": dict(rtol=0.0, atol=1e-3),
+            "recon_raw": dict(rtol=0.0, atol=1e-4),
+            "recon_HU": dict(rtol=0.0, atol=1.0),
+            "mat_recons": dict(rtol=0.0, atol=1e-3)}
+
+
+def close_outputs(got, want, label):
+    """Fail unless two step outputs agree to the pipeline tolerances."""
+    import torch
+
+    for key, tol in STEP_TOL.items():
+        for i in range(2):
+            g, w = got[key][i], want[key][i].to(got[key][i].device)
+            if not torch.allclose(g, w, **tol):
+                fail(f"{label}: {key}[{i}] differs by "
+                     f"{float((g - w).abs().max()):.6g}")
+
+
+def zstack_path(records, work, smi):
+    """Phase 4, z-stack through the library: pack_zstack + zstack_step at
+    the z-stack workload (projector 'siddon', recon 'parallel', 50 GN
+    iterations, the 8 slices in one chunk), twice, with the launch
+    counters and the outputs checked: slices 0 and 7 equal single-slice
+    dect_step runs, the air ROI reads ~-1000 HU on every slice."""
+    import dataclasses
+
+    import torch
+
+    from dexct_tpu_torch.pipeline.fused import dect_step, pack_dect
+    from dexct_tpu_torch.pipeline.zstack import (pack_zstack, stack_paths,
+                                                 zstack_step)
+
+    ct, ph, s1, s2 = work
+    dev = torch.device("cuda")
+    kw = dict(device=dev, n_iters=50, projector="siddon", recon="parallel")
+    n_img, fov = 512, 50.0
+    fns = counters()
+    for fn in fns.values():
+        fn.launches = 0
+    walls = []
+    for _ in (1, 2):
+        t0 = time.perf_counter()
+        arrays, meta, axes = pack_zstack(ct, ph, s1, s2, n_img, fov, 0.8,
+                                         **kw)
+        out = zstack_step(arrays, meta, axes)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    nz = ph.labels.shape[0]
+    print(f"zstack path (library, pack_zstack + zstack_step, {nz} slices): "
+          f"{walls[0]:.3f} s (first), {walls[1]:.3f} s (steady, "
+          f"{walls[1] / nz * 1e3:.1f} ms per slice) on {smi}")
+    k17 = fns["siddon_trace_stack"].launches
+    check_launches("zstack", fns, ZSTACK_KERNELS, records)
+    if k17 != 2:
+        fail(f"siddon_trace_stack launched {k17} times in 2 one-chunk runs")
+    V, C = ct.N_proj, ct.N_channels
+    for key in out:
+        for i, x in enumerate(out[key]):
+            shape = (nz, V, C) if "sino" in key else (nz, n_img, n_img)
+            if tuple(x.shape) != shape:
+                fail(f"zstack {key}[{i}] has shape {tuple(x.shape)}")
+            if not bool(torch.isfinite(x).all()):
+                fail(f"zstack {key}[{i}] holds non-finite values")
+    air = [[roi_mean(out["recon_HU"][i], 0.0, -20.0, z, fov)
+            for z in range(nz)] for i in (0, 1)]
+    print("  air ROI HU at (0, -20) cm per slice: detunedMV "
+          + ", ".join(f"{h:.2f}" for h in air[0]) + "; 80kV "
+          + ", ".join(f"{h:.2f}" for h in air[1]))
+    if not all(abs(h + 1000.0) <= 50.0 for row in air for h in row):
+        fail(f"zstack air ROI is not ~-1000 HU: {air}")
+    for z in (0, nz - 1):
+        a1, m1 = pack_dect(ct, dataclasses.replace(ph, z_index=z), s1, s2,
+                           n_img, fov, 0.8, **kw)
+        ref = dect_step(a1, m1)
+        close_outputs({k: (v[0][z], v[1][z]) for k, v in out.items()}, ref,
+                      f"zstack slice {z} against its single-slice step")
+    print(f"  slices 0 and {nz - 1} equal single-slice dect_step runs to the "
+          "pipeline tolerances")
+    del out
+    st = Stages()
+    arrays, meta, axes = pack_zstack(ct, ph, s1, s2, n_img, fov, 0.8, **kw)
+    st.mark("pack_zstack")
+    shared = {k: v for k, v in arrays.items() if axes[k] is None}
+    stack_paths(shared, arrays["labels"], meta)
+    st.mark(f"K17 trace of the {nz} slices (alone)")
+    zstack_step(arrays, meta, axes)
+    st.mark("zstack_step")
+    print_stages("zstack", st.t, lambda: zstack_step(arrays, meta, axes), smi)
+
+
 FILE_TOL = {"sino_raw": dict(rtol=1e-4, atol=0.0),
             "sino_log": dict(rtol=0.0, atol=1e-4),
             "recon_raw": dict(rtol=0.0, atol=1e-4),
@@ -1202,7 +1622,15 @@ FILE_TOL = {"sino_raw": dict(rtol=1e-4, atol=0.0),
             "mat2_recon": dict(rtol=0.0, atol=1e-3)}
 
 
-def compare_devices(tmp, label, params, flags):
+def file_tol(name):
+    """The tolerance of one output file: FILE_TOL; the denoised and BHC
+    images those of recon_raw and recon_HU."""
+    if name in FILE_TOL:
+        return FILE_TOL[name]
+    return FILE_TOL["recon_HU" if name.endswith("_HU") else "recon_raw"]
+
+
+def compare_devices(tmp, label, params, flags, n_files=12):
     """Run ``params`` through the port's CLI on the CPU and on the card;
     every output file must agree to the pipeline tolerances."""
     import numpy as np
@@ -1220,19 +1648,20 @@ def compare_devices(tmp, label, params, flags):
     if files != sorted(p.relative_to(outs["cuda"])
                        for p in outs["cuda"].rglob("*.bin")):
         fail("cpu and cuda runs wrote different file sets")
-    if len(files) != 12:
-        fail(f"expected 12 output files, got {len(files)}")
+    if len(files) != n_files:
+        fail(f"expected {n_files} output files, got {len(files)}")
     for rel in files:
         x = np.fromfile(outs["cpu"] / rel, np.float32)
         y = np.fromfile(outs["cuda"] / rel, np.float32)
         kind = rel.name[:-len("_float32.bin")]
-        np.testing.assert_allclose(y, x, err_msg=str(rel), **FILE_TOL[kind])
+        np.testing.assert_allclose(y, x, err_msg=str(rel), **file_tol(kind))
     print(f"  {label} path: {len(files)} files agree between --device cpu "
           "and --device cuda")
 
 
-def both_devices_phase(tmp, label, flags):
-    """Phase 5: a 64^2 water-cylinder config under one 2-D path's flags."""
+def both_devices_phase(tmp, label, flags, changes=None):
+    """Phase 5: a 64^2 water-cylinder config (with one 2-D configuration's
+    ``changes``) under one 2-D path's flags."""
     from dexct_tpu_torch.system.phantom import water_cylinder_phantom
 
     ph = water_cylinder_phantom(N=64, dx=0.4)
@@ -1244,9 +1673,35 @@ def both_devices_phase(tmp, label, flags):
                 "Nx": 64, "Ny": 64, "dx": 0.4, "dy": 0.4, "dz": 0.4,
                 "N_channels": 64, "N_projections": 64,
                 "detector_filename": str(ROOT / cfg["detector_filename"]),
-                "N_recon_matrix": 64, "FOV_recon": 26.0})
+                "N_recon_matrix": 64, "FOV_recon": 26.0, **(changes or {})})
     (tmp / "tiny.txt").write_text(json.dumps(cfg))
-    compare_devices(tmp, label, tmp / "tiny.txt", flags)
+    extra = 8 * ("--bhc" in flags) + 4 * ("--denoise" in flags)
+    compare_devices(tmp, label, tmp / "tiny.txt", flags, 12 + extra)
+
+
+def zstack_devices_phase():
+    """Phase 5: a 3-slice 64^2 z-stack through the library on the CPU and
+    on the card, both projectors' paths (K17, and the Fourier projector's
+    slice batch); every output agrees to the pipeline tolerances."""
+    from dexct_tpu_torch.physics import kramers_spectrum, linac_spectrum
+    from dexct_tpu_torch.pipeline.zstack import (pack_zstack, stack_phantom,
+                                                 zstack_step)
+    from dexct_tpu_torch.system import (FanBeamGeometry,
+                                        contrast_rods_phantom)
+
+    ct = FanBeamGeometry(N_channels=64, N_proj=96, eid=True)
+    ph = stack_phantom(contrast_rods_phantom, 3, N=64, dx=0.4)
+    s1, s2 = linac_spectrum(), kramers_spectrum(80.0)
+    s1.rescale_counts(ct.A_iso * 9.0 / ct.N_proj)
+    s2.rescale_counts(ct.A_iso * 1.0 / ct.N_proj)
+    for projector, recon in (("siddon", "parallel"), ("fourier", "fan")):
+        cpu, gpu = (zstack_step(*pack_zstack(
+            ct, ph, s1, s2, 64, 20.0, 0.8, device=d, n_iters=8,
+            projector=projector, recon=recon, n_theta=128, recon_n_theta=64,
+            recon_nt=128)) for d in ("cpu", "cuda"))
+        close_outputs(gpu, cpu, f"tiny zstack ({projector}, {recon})")
+        print(f"  zstack ({projector}, {recon}): every output of the 3 "
+              "slices agrees between the CPU and the card")
 
 
 def cone_devices_phase(tmp, label, spec, flags):
@@ -1316,7 +1771,7 @@ def main():
                                torch.zeros(1, device=dev))
     torch.cuda.synchronize()
     t2 = time.time()
-    print(f"build: nvcc K1, K3-K13, K15, K16 {t1 - t0:.1f} s, triton K2 "
+    print(f"build: nvcc K1, K3-K13, K15-K17 {t1 - t0:.1f} s, triton K2 "
           f"{t2 - t1:.1f} s")
 
     # 3. kernels against their plain versions at the paths' shapes
@@ -1371,6 +1826,14 @@ def main():
             ccfg = cone_cfgs[label]
             phase(ccfg, stateless_stack(ccfg, spectra, dev), records)
             torch.cuda.empty_cache()
+        config_files = dict(cone_params)
+        config_files.update({label: write_2d_params(tmp, label, changes)
+                             for label, changes in CONFIGS_2D.items()})
+        work = zstack_workload()
+        zstack_kernel_phase(work, records, dev)
+        ffs_kernel_phase(read_parameter_file(config_files["ffs"])[0],
+                         spectra, dev)
+        torch.cuda.empty_cache()
 
         # 4. the paths: four through the CLI, the analytic projector
         # through the library
@@ -1380,8 +1843,9 @@ def main():
         for name in KERNELS:
             records[name]["launches"] = 0
         bodies = {}
-        for label, (flags, cone, path_kernels) in PATHS.items():
-            params = cone_params[cone] if cone else PARAMS
+        for label, (flags, config, path_kernels) in PATHS.items():
+            params = config_files[config] if config else PARAMS
+            cone = config if config in CONE_CONFIGS else None
             for fn in fns.values():
                 fn.launches = 0
             walls = []
@@ -1417,20 +1881,34 @@ def main():
                 else:
                     cone_stage_profile(ccfg, label, tmp, smi)
             else:
-                n_files = check_outputs(tmp / f"{label}2", cfg.run_id,
-                                        cfg.ct.N_proj, cfg.ct.N_channels,
-                                        cfg.N_matrix)
+                run_cfg = read_parameter_file(params)[0]
+                n_files = check_outputs(tmp / f"{label}2", run_cfg.run_id,
+                                        run_cfg.ct.N_proj,
+                                        run_cfg.ct.N_channels,
+                                        run_cfg.N_matrix,
+                                        AIR_XY.get(label, (0.0, -20.0)))
+                if label == "bhc_denoise":
+                    n_files += check_extra_2d(tmp / f"{label}2", run_cfg)
                 print(f"  {n_files} output files: exact sizes, finite")
+                if config in CONFIGS_2D:
+                    composed_stage_profile(run_cfg, label, tmp, smi)
+                elif label == "bhc_denoise":
+                    bhc_denoise_stage_profile(run_cfg, smi)
             shutil.rmtree(tmp / f"{label}1", ignore_errors=True)
             shutil.rmtree(tmp / f"{label}2", ignore_errors=True)
         analytic_path(records, smi)
+        zstack_path(records, work, smi)
+        del work
+        torch.cuda.empty_cache()
 
         # 5. every path on both devices
-        for label, (flags, cone, _) in PATHS.items():
-            if cone:
-                cone_devices_phase(tmp, label, CONE_CONFIGS[cone], flags)
+        for label, (flags, config, _) in PATHS.items():
+            if config in CONE_CONFIGS:
+                cone_devices_phase(tmp, label, CONE_CONFIGS[config], flags)
             else:
-                both_devices_phase(tmp, label, flags)
+                both_devices_phase(tmp, label, flags,
+                                   CONFIGS_2D.get(config))
+        zstack_devices_phase()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

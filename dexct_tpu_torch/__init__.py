@@ -4,20 +4,24 @@ A second package beside the JAX package ``dexct_tpu``, which stays the
 reference it is tested against.  This package imports ``torch`` and never
 ``jax`` or ``dexct_tpu``.  It runs the dual-energy main path (projection ->
 two polyenergetic acquisitions -> Gauss-Newton decomposition -> four
-reconstructions -> the §2.6 output files) on the 2-D fan-beam paths, on
-cone-beam, helical, flat-panel and gantry-tilted configs (with a z flying
-focal spot and exact Katsevich helical reconstruction), and with the
-analytic projector, through sixteen hand-written kernels on the card
-(K1-K16, sources in ``csrc/``, ``ops/spectral.py`` and
+reconstructions -> the §2.6 output files) on the 2-D fan-beam paths (with
+an in-plane flying focal spot), on parallel-beam configs, as a z-stack of
+slices, on cone-beam, helical, flat-panel and gantry-tilted configs (with
+a z flying focal spot and exact Katsevich helical reconstruction), and with
+the analytic projector, optionally with beam-hardening correction and the
+learned denoiser, through seventeen hand-written kernels on the card
+(K1-K17, sources in ``csrc/``, ``ops/spectral.py`` and
 ``ops/katsevich.py``) with plain PyTorch versions of each on the CPU.
 
 Layer map (as in dexct_tpu):
     physics/   attenuation tables, spectra, detectors, materials (host NumPy)
     system/    scanner geometry, voxel and analytic phantoms (K9), run config
-    ops/       siddon (K1), spectral (K2), matdecomp (K3), fbp/fbp_fast
-               (K4-K6), fourier (K7, K8), conebeam (K10-K12, K16),
-               flatpanel (K13), katsevich (K14, K15)
-    pipeline/  reference-compatible API, fused 2-D and cone steps, driver
+    ops/       siddon (K1, K17), spectral (K2), matdecomp (K3), fbp/fbp_fast
+               (K4-K6), ffs (K5 at 16 taps), fourier (K7, K8), conebeam
+               (K10-K12, K16), flatpanel (K13), katsevich (K14, K15), bhc
+    pipeline/  reference-compatible API, fused 2-D, z-stack and cone steps,
+               CLI runner
+    learn/     the DnCNN denoiser (inference, cuDNN)
     utils/     output contract, kernel build
 """
 

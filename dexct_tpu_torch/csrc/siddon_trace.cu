@@ -20,8 +20,9 @@
 // is gone.  Neighbouring threads are neighbouring channels of one view,
 // whose walks have similar lengths and touch neighbouring cells.
 //
-// The ray setup reproduces dexct_tpu/ops/siddon.py:_ray_setup in float32
-// operation by operation (no fused multiply-add, via the _rn intrinsics):
+// The ray setup (siddon_walk.cuh, shared with K17) reproduces
+// dexct_tpu/ops/siddon.py:_ray_setup in float32 operation by operation
+// (no fused multiply-add, via the _rn intrinsics):
 // the entry nudge eps = 1e-6 (dx + dy), the index clamps, the +-1e30
 // bounds of axis-parallel rays with |d| <= 1e-12, the tie rule
 // take_x = tnx <= tny and t_next clamped into [t, t_out].  Stopping at
@@ -30,36 +31,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "siddon_walk.cuh"
+
 namespace {
 
-constexpr float kBig = 1e30f;
-
-struct AxisSetup {
-  bool ok;
-  float safe_d, tmin, tmax;
-};
-
-__device__ __forceinline__ AxisSetup axis_setup(float p, float d, float g0,
-                                                float g1) {
-  AxisSetup s;
-  s.ok = fabsf(d) > 1e-12f;
-  s.safe_d = s.ok ? d : 1.0f;
-  const float t_lo = __fdiv_rn(__fsub_rn(g0, p), s.safe_d);
-  const float t_hi = __fdiv_rn(__fsub_rn(g1, p), s.safe_d);
-  const bool inside = (p >= g0) && (p <= g1);
-  s.tmin = s.ok ? fminf(t_lo, t_hi) : (inside ? -kBig : kBig);
-  s.tmax = s.ok ? fmaxf(t_lo, t_hi) : (inside ? kBig : -kBig);
-  return s;
-}
-
-__device__ __forceinline__ int entry_index(float p, float d, float t_in,
-                                           float eps, float g0, float cell,
-                                           int n) {
-  const float e = __fadd_rn(p, __fmul_rn(__fadd_rn(t_in, eps), d));
-  float f = floorf(__fdiv_rn(__fsub_rn(e, g0), cell));
-  f = fminf(fmaxf(f, 0.0f), (float)(n - 1));
-  return (int)f;
-}
+using namespace dexct_walk;
 
 template <int M>
 __global__ void siddon_trace_kernel(const uint8_t* __restrict__ labels,
@@ -74,51 +50,19 @@ __global__ void siddon_trace_kernel(const uint8_t* __restrict__ labels,
   const float px = src[2 * r], py = src[2 * r + 1];
   const float ux = dirs[2 * r], uy = dirs[2 * r + 1];
 
-  const AxisSetup ax = axis_setup(px, ux, x0, x1);
-  const AxisSetup ay = axis_setup(py, uy, y0, y1);
-  float t = fmaxf(fmaxf(ax.tmin, ay.tmin), 0.0f);
-  float t_out = fminf(ax.tmax, ay.tmax);
-  if (!(t < t_out)) t_out = t;  // miss: zero-length traversal
-
-  int ix = entry_index(px, ux, t, eps, x0, dx, nx);
-  int iy = entry_index(py, uy, t, eps, y0, dy, ny);
-
-  // next plane crossings and per-step increments
-  float tnx = kBig, dtx = kBig, tny = kBig, dty = kBig;
-  int sx = 0, sy = 0;
-  if (ax.ok) {
-    const float plane =
-        __fadd_rn(x0, __fmul_rn((float)(ix + (ux > 0.0f)), dx));
-    tnx = __fdiv_rn(__fsub_rn(plane, px), ax.safe_d);
-    dtx = __fdiv_rn(dx, fabsf(ax.safe_d));
-    sx = ux > 0.0f ? 1 : -1;
-  }
-  if (ay.ok) {
-    const float plane =
-        __fadd_rn(y0, __fmul_rn((float)(iy + (uy > 0.0f)), dy));
-    tny = __fdiv_rn(__fsub_rn(plane, py), ay.safe_d);
-    dty = __fdiv_rn(dy, fabsf(ay.safe_d));
-    sy = uy > 0.0f ? 1 : -1;
-  }
+  Walk w = walk_init(px, py, ux, uy, nx, ny, x0, y0, x1, y1, dx, dy, eps);
 
   float acc[M];
 #pragma unroll
   for (int m = 0; m < M; ++m) acc[m] = 0.0f;
 
-  for (int k = 0; k < n_steps && t < t_out; ++k) {
-    const float t_next = fmaxf(fminf(fminf(tnx, tny), t_out), t);
-    const float seg = __fsub_rn(t_next, t);
-    const int lab = __ldg(labels + (iy * nx + ix));
+  for (int k = 0; k < n_steps && w.t < w.t_out; ++k) {
+    const float t_next = walk_next(w);
+    const float seg = __fsub_rn(t_next, w.t);
+    const int lab = __ldg(labels + (w.iy * nx + w.ix));
 #pragma unroll
     for (int m = 0; m < M; ++m) acc[m] += (lab == m) ? seg : 0.0f;
-    if (tnx <= tny) {
-      ix = min(max(ix + sx, 0), nx - 1);
-      tnx = __fadd_rn(tnx, dtx);
-    } else {
-      iy = min(max(iy + sy, 0), ny - 1);
-      tny = __fadd_rn(tny, dty);
-    }
-    t = t_next;
+    walk_advance(w, t_next, nx, ny);
   }
   float* o = out + r * n_out;
 #pragma unroll

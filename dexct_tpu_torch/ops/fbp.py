@@ -6,7 +6,9 @@ with linear channel interpolation (Kak & Slaney ch. 3.4, equiangular
 geometry).  The backprojection of one image is kernel K4 with K = 1
 (:func:`dexct_tpu_torch.ops.fbp_fast.fan_backproject_multi`); a
 parallel-beam geometry backprojects through kernel K6 with K = 1
-(:func:`dexct_tpu_torch.ops.fbp_fast.parallel_backproject_multi`).
+(:func:`dexct_tpu_torch.ops.fbp_fast.parallel_backproject_multi`), and an
+in-plane flying-focal-spot scan rebins through K5 at 16 taps first
+(:mod:`dexct_tpu_torch.ops.ffs`).
 """
 
 from __future__ import annotations
@@ -94,16 +96,19 @@ def fbp_recon(sino_log, geometry, n_matrix, fov, ramp=0.8, window="sinc",
               mu_water_eff=None):
     """Full FBP on the device of ``sino_log``: returns (recon_raw [1/cm],
     recon_HU or None).  Dispatches on the geometry: equiangular fan beam
-    (the reference's scanner) or parallel beam.  Flying-focal-spot
-    geometries are not ported yet (ROADMAP queue 2)."""
+    (the reference's scanner), parallel beam, or a fan beam with an
+    in-plane flying focal spot (the interleaved parallel rebin of
+    :func:`~dexct_tpu_torch.ops.ffs.ffs_fbp_recon`)."""
     from ..system.geometry import ParallelBeamGeometry
 
     if isinstance(geometry, ParallelBeamGeometry):
         img = parallel_fbp(sino_log, geometry, n_matrix, fov, ramp, window)
     elif getattr(geometry, "ffs", "none") != "none":
-        raise NotImplementedError(
-            "flying-focal-spot reconstruction is not ported yet (ROADMAP "
-            "queue 2, ops/ffs.py rebin)")
+        # deflected-spot views break the uniform-gamma fan assumption of
+        # the direct backprojector
+        from .ffs import ffs_fbp_recon
+
+        img = ffs_fbp_recon(sino_log, geometry, n_matrix, fov, ramp, window)
     else:
         sino_log = sino_log.to(torch.float32)
         if geometry.rotation_total < 2.0 * np.pi - 1e-6:

@@ -167,8 +167,8 @@ def parallel_rebin_plan(geometry, n_theta=512, nt=1024, t_max=None):
         )
     if getattr(geometry, "ffs", "none") != "none":
         raise ValueError(
-            "this plan assumes a static focal spot; the flying-focal-spot "
-            "rebin is not ported yet (ROADMAP queue 2, ops/ffs.py rebin)")
+            "this plan assumes a static focal spot; flying-focal-spot "
+            "scans rebin through ops.ffs.parallel_rebin_plan_ffs")
     sid = geometry.SID
     v, c = geometry.N_proj, geometry.N_channels
     dgamma = geometry.dgamma

@@ -38,6 +38,7 @@ __all__ = [
     "fourier_radon",
     "fourier_project_images",
     "fourier_paths",
+    "fourier_paths_stack_from_arrays",
     "fourier_paths_from_arrays",
     "radon_grid",
     "kb_sample",
@@ -455,12 +456,23 @@ def fourier_paths_from_arrays(a, labels, meta_fp):
     meta_fp: (n_materials, n_theta, nt, grid, n_img, scale), optionally
     extended with the JAX package's 7th ``packed_table`` flag (ignored).
     """
+    return fourier_paths_stack_from_arrays(a, labels[None], meta_fp)[0]
+
+
+def fourier_paths_stack_from_arrays(a, labels, meta_fp):
+    """:func:`fourier_paths_from_arrays` for a stack of label slices [Z, N,
+    N] in one pass: the one-hot images of every slice go through the FFT,
+    the KB sampler (K7) and the fan resample (K8) as one batch of Z x M
+    images.  Returns [Z, V, C, M], each slice contiguous."""
     n_mat, n_theta, nt, grid, n_img, scale = meta_fp[:6]
+    z = labels.shape[0]
+    imgs = torch.cat([_onehot_images(lab, n_mat) for lab in labels])
     radon = _radon_from_images(
-        _onehot_images(labels, n_mat), a["fp_deapod"], a["fp_slice_idx"],
-        a["fp_slice_w"], a["fp_phase_cos"], a["fp_phase_sin"], scale,
-        n_theta=n_theta, nt=nt, grid=grid, n_img=n_img,
+        imgs, a["fp_deapod"], a["fp_slice_idx"], a["fp_slice_w"],
+        a["fp_phase_cos"], a["fp_phase_sin"], scale, n_theta=n_theta, nt=nt,
+        grid=grid, n_img=n_img,
     )
     fan_idx = a["fp_fan_idx"]  # [V, C*4]
-    out_shape = (fan_idx.shape[0], fan_idx.shape[1] // 4, n_mat)
-    return resample_to_fan(radon, fan_idx, a["fp_fan_w"], out_shape)
+    v, c = fan_idx.shape[0], fan_idx.shape[1] // 4
+    paths = resample_to_fan(radon, fan_idx, a["fp_fan_w"], (v, c, z * n_mat))
+    return paths.reshape(v, c, z, n_mat).permute(2, 0, 1, 3).contiguous()

@@ -11,6 +11,13 @@ ray walking only the cells it crosses), CPU tensors to
 :func:`trace_paths_plain`, the fixed-trip DDA of the JAX package written in
 torch and vectorised over rays.  Both follow ``_ray_setup`` of the JAX
 package in float32 operation by operation.
+
+:func:`trace_paths_stack` traces the same rays through every slice of a
+label stack ``[Nz, Ny, Nx]`` (the z-stack of
+:mod:`dexct_tpu_torch.pipeline.zstack`): CUDA tensors go to kernel K17
+(``csrc/siddon_trace_stack.cu``, one walk per ray for a chunk of slices),
+CPU tensors to :func:`trace_paths_stack_plain`.  Slice ``z`` of either
+equals :func:`trace_paths` on ``labels[z]`` bit for bit.
 """
 
 from __future__ import annotations
@@ -20,10 +27,16 @@ import torch
 
 from ..utils import kernels
 
-__all__ = ["material_path_sinogram", "trace_paths", "trace_paths_plain"]
+__all__ = ["material_path_sinogram", "trace_paths", "trace_paths_plain",
+           "trace_paths_stack", "trace_paths_stack_plain", "labels_tensor",
+           "labels_stack_tensor"]
 
 _BIG = 1e30
 MAX_MATERIALS = 32
+# K17 keeps Z x M per-material sums in registers: at most this many
+MAX_STACK_ACC = 64
+# the label of K17's padding slices: no material takes it
+PAD_LABEL = 255
 
 
 def _grid_constants(labels_shape, dx, dy):
@@ -124,12 +137,7 @@ def trace_paths_plain(labels, src, dirs, dx, dy, *, n_materials,
 def _trace_paths_cuda(labels, src, dirs, dx, dy, n_materials, n_steps):
     ny, nx = labels.shape
     dev = src.device
-    lab = labels.to(dev)
-    if lab.dtype != torch.uint8:
-        if lab.numel() and (int(lab.min()) < 0 or int(lab.max()) > 255):
-            raise ValueError("material labels must lie in 0..255")
-        lab = lab.to(torch.uint8)
-    lab = lab.contiguous()
+    lab = _uint8_labels(labels, dev).contiguous()
     src2 = src.reshape(-1, 2).to(torch.float32).contiguous()
     dirs2 = dirs.reshape(-1, 2).to(torch.float32).contiguous()
     n_rays = src2.shape[0]
@@ -157,9 +165,7 @@ def trace_paths(labels, src, dirs, dx, dy, *, n_materials, n_steps=None):
     (default nx+ny+1, the exact bound).
     """
     ny, nx = labels.shape
-    if not 1 <= n_materials <= MAX_MATERIALS:
-        raise ValueError(f"n_materials must be in 1..{MAX_MATERIALS}, got "
-                         f"{n_materials}")
+    _check_materials(n_materials)
     k = n_steps if n_steps is not None else nx + ny + 1
     if src.is_cuda:
         return _trace_paths_cuda(labels, src, dirs, float(dx), float(dy),
@@ -173,13 +179,124 @@ def trace_paths(labels, src, dirs, dx, dy, *, n_materials, n_steps=None):
 trace_paths.launches = 0
 
 
+def _check_materials(n_materials):
+    if not 1 <= n_materials <= MAX_MATERIALS:
+        raise ValueError(f"n_materials must be in 1..{MAX_MATERIALS}, got "
+                         f"{n_materials}")
+
+
+def trace_paths_stack_plain(labels, src, dirs, dx, dy, *, n_materials,
+                            n_steps=None):
+    """:func:`trace_paths_plain` on every slice of ``labels`` [Nz, Ny, Nx],
+    stacked: float32 ``[Nz, ..., n_materials]``."""
+    return torch.stack([
+        trace_paths_plain(lab, src, dirs, dx, dy, n_materials=n_materials,
+                          n_steps=n_steps) for lab in labels])
+
+
+def slice_chunk(nz, n_materials):
+    """K17's slices per walk: the largest of 8, 4, 2, 1 whose Z x M sums
+    fit ``MAX_STACK_ACC`` registers (M rounded up to the kernel's 16 or 32
+    above 8), and no larger than the stack needs."""
+    m = n_materials if n_materials <= 8 else (16 if n_materials <= 16
+                                               else 32)
+    z = 8
+    while z > 1 and (z * m > MAX_STACK_ACC or z // 2 >= nz):
+        z //= 2
+    return z
+
+
+def pack_stack_labels(labels, z_chunk):
+    """[Nz, Ny, Nx] uint8 -> K17's z-minor chunks [ceil(Nz / Z), Ny, Nx,
+    Z], the missing slices of the last chunk filled with ``PAD_LABEL``."""
+    nz, ny, nx = labels.shape
+    n_chunks = -(-nz // z_chunk)
+    pad = n_chunks * z_chunk - nz
+    if pad:
+        labels = torch.cat([labels, labels.new_full((pad, ny, nx),
+                                                    PAD_LABEL)])
+    return labels.reshape(n_chunks, z_chunk, ny, nx).permute(
+        0, 2, 3, 1).contiguous()
+
+
+def _uint8_labels(labels, device):
+    lab = labels.to(device)
+    if lab.dtype != torch.uint8:
+        if lab.numel() and (int(lab.min()) < 0 or int(lab.max()) > 255):
+            raise ValueError("material labels must lie in 0..255")
+        lab = lab.to(torch.uint8)
+    return lab
+
+
+def _trace_paths_stack_cuda(labels, src, dirs, dx, dy, n_materials, n_steps):
+    nz, ny, nx = labels.shape
+    dev = src.device
+    z_chunk = slice_chunk(nz, n_materials)
+    packed = pack_stack_labels(_uint8_labels(labels, dev), z_chunk)
+    src2 = src.reshape(-1, 2).to(torch.float32).contiguous()
+    dirs2 = dirs.reshape(-1, 2).to(torch.float32).contiguous()
+    n_rays = src2.shape[0]
+    out = torch.empty((nz, n_rays, n_materials), dtype=torch.float32,
+                      device=dev)
+    x0, y0, x1, y1, eps = _grid_constants((ny, nx), dx, dy)
+    rc = kernels.library().dexct_siddon_trace_stack(
+        packed.data_ptr(), src2.data_ptr(), dirs2.data_ptr(), out.data_ptr(),
+        n_rays, nx, ny, nz, n_materials, z_chunk, x0, y0, x1, y1, dx, dy,
+        eps, n_steps, kernels.stream_ptr(dev))
+    kernels.check(rc, "siddon_trace_stack")
+    trace_paths_stack.launches += 1
+    return out.reshape(nz, *src.shape[:-1], n_materials)
+
+
+def trace_paths_stack(labels, src, dirs, dx, dy, *, n_materials,
+                      n_steps=None):
+    """Exact per-material paths of one ray batch through every slice of a
+    label stack.
+
+    labels: [Nz, Ny, Nx] integer labels (uint8 on the CUDA path, checked
+    into 0..255 otherwise; labels >= n_materials contribute nothing); src,
+    dirs: [..., 2]; dx, dy: cell sizes [cm].  Returns float32 ``[Nz, ...,
+    n_materials]``, slice-major; slice z equals :func:`trace_paths` on
+    ``labels[z]``.  CUDA tensors run kernel K17 (counted in
+    ``trace_paths_stack.launches``, one launch for the whole stack); CPU
+    tensors run :func:`trace_paths_stack_plain`.
+    """
+    if labels.dim() != 3:
+        raise ValueError(f"labels must be [Nz, Ny, Nx], got "
+                         f"{tuple(labels.shape)}")
+    _check_materials(n_materials)
+    nz, ny, nx = labels.shape
+    k = n_steps if n_steps is not None else nx + ny + 1
+    if src.is_cuda:
+        return _trace_paths_stack_cuda(labels, src, dirs, float(dx),
+                                       float(dy), int(n_materials), int(k))
+    if src.device.type != "cpu":
+        raise ValueError(f"unsupported device {src.device}")
+    return trace_paths_stack_plain(labels, src, dirs, float(dx), float(dy),
+                                   n_materials=n_materials, n_steps=k)
+
+
+trace_paths_stack.launches = 0
+
+
+def _labels_checked(lab):
+    lab = np.asarray(lab)
+    if lab.size and (lab.min() < 0 or lab.max() > 255):
+        raise ValueError("material labels must lie in 0..255")
+    return lab.astype(np.uint8)
+
+
 def labels_tensor(phantom, device):
     """The phantom's 2-D label slice as a uint8 tensor (the kernel's
     label type), after checking that every label fits."""
-    lab = np.asarray(phantom.slice_labels())
-    if lab.size and (lab.min() < 0 or lab.max() > 255):
-        raise ValueError("material labels must lie in 0..255")
-    return torch.as_tensor(lab.astype(np.uint8), device=device)
+    return torch.as_tensor(_labels_checked(phantom.slice_labels()),
+                           device=device)
+
+
+def labels_stack_tensor(labels, device):
+    """A host label stack [Nz, Ny, Nx] as a uint8 tensor, after the same
+    check."""
+    return torch.as_tensor(_labels_checked(labels), device=device)
 
 
 def material_path_sinogram(phantom, geometry, *, device,

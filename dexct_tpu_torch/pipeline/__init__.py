@@ -11,6 +11,8 @@ from .api import (
 )
 from .cone import ConeDectMeta, cone_dect_step, pack_cone_dect
 from .runner import DEFAULT_SPEC_PAIRS, run_config, run_parameter_file
+from .zstack import (make_jitted_zstack_step, pack_zstack, stack_phantom,
+                     zstack_step)
 
 __all__ = [
     "get_sino",
@@ -26,4 +28,8 @@ __all__ = [
     "ConeDectMeta",
     "pack_cone_dect",
     "cone_dect_step",
+    "pack_zstack",
+    "zstack_step",
+    "make_jitted_zstack_step",
+    "stack_phantom",
 ]

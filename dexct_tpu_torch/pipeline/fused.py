@@ -287,10 +287,14 @@ def decompose_counts(counts1, counts2, a, meta, pixel_block=65536):
 def dect_step(arrays, meta: DectMeta):
     """The fused DE pipeline on the device of ``arrays``.  Returns the
     JAX package's output dict: sino_raw, sino_log, mat_sinos, recon_raw,
-    recon_HU and mat_recons, each a pair of tensors."""
+    recon_HU and mat_recons, each a pair of tensors.
+
+    Precomputed material paths ``arrays["paths"]`` [V, C, M] replace the
+    projector, as in the JAX step (the z-stack traces every slice before
+    its per-slice steps, :mod:`dexct_tpu_torch.pipeline.zstack`)."""
     a = arrays
     check_choices(meta.projector, meta.recon)
-    paths = _project_paths(a, meta)
+    paths = a["paths"] if "paths" in a else _project_paths(a, meta)
     if meta.noise == "none":
         counts1 = sp_ops.counts_from_paths(paths, a["mu_t1"], a["i0_1"])
         counts2 = sp_ops.counts_from_paths(paths, a["mu_t2"], a["i0_2"])

@@ -13,9 +13,10 @@ contract: the same file names, [V, R, C] sinograms and [nz, N, N]
 volumes.  As in the JAX runner, the fused engine runs the exact Siddon
 projector for a non-square phantom (the Fourier projector needs a square
 grid) and direct fan reconstruction for a partial rotation (rebinning
-needs a full one).  Choices that are not ported yet
-raise ``NotImplementedError`` naming their ROADMAP item; none is replaced
-by another path.
+needs a full one).  Parallel-beam configs and in-plane flying focal spots
+run the composed path, as the JAX runner sends them.  ``--bhc`` writes the
+water- and bone-BHC reconstructions of 2-D configs, ``--denoise`` the
+learned denoiser's images.
 """
 
 from __future__ import annotations
@@ -31,8 +32,8 @@ from ..system.config import RunConfig, read_parameter_file
 from ..utils.io import StageWriter, acquisition_dir, matdecomp_dir
 from . import api
 
-__all__ = ["DEFAULT_SPEC_PAIRS", "fused_choices", "run_config",
-           "run_parameter_file", "stateless_3d"]
+__all__ = ["DEFAULT_SPEC_PAIRS", "fused_choices", "is_cone", "run_config",
+           "run_parameter_file", "runs_fused_2d", "stateless_3d"]
 
 # the reference's hardcoded protocol (main.py:101-102)
 DEFAULT_SPEC_PAIRS = (
@@ -104,34 +105,36 @@ def _check_cone(cfg, recon3d):
             "'katsevich', or 'auto'")
 
 
-def _check_supported(cfg, engine, projector, recon, bhc, denoise,
-                     recon3d="auto"):
-    """Raise for every choice this port does not run yet."""
-    from ..system.geometry import ConeBeamGeometry, FanBeamGeometry
+def _check_supported(cfg, engine, projector, recon, recon3d="auto"):
+    """Raise for a choice the runner refuses before anything runs: an
+    unknown engine, the JAX runner's ``recon3d`` rules on a cone config,
+    and an unknown projector or recon on the fused 2-D path."""
     from .fused import check_choices
 
     if engine not in ("fused", "composed"):
         raise ValueError(f"unknown engine {engine!r}")
-    cone = isinstance(cfg.ct, ConeBeamGeometry)
-    if cone:
+    if is_cone(cfg.ct):
         _check_cone(cfg, recon3d)
-    elif not isinstance(cfg.ct, FanBeamGeometry):
-        raise NotImplementedError(
-            f"run configs with a {type(cfg.ct).__name__} are not ported yet "
-            "(ROADMAP queue 1, item 5: the composed path of other "
-            "geometries)")
-    if not cone and getattr(cfg.ct, "ffs", "none") != "none":
-        raise NotImplementedError(
-            "in-plane flying-focal-spot scans are not ported yet (ROADMAP "
-            "queue 2, row 11e: the ops/ffs.py rebin)")
-    if bhc:
-        raise NotImplementedError(
-            "--bhc is not ported yet (ROADMAP queue 1, item 8: ops/bhc.py)")
-    if denoise:
-        raise NotImplementedError(
-            "--denoise is not ported yet (ROADMAP queue 1, item 8: learn/)")
-    if engine == "fused" and not cone:
+    elif runs_fused_2d(cfg.ct, engine):
         check_choices(projector, recon)
+
+
+def is_cone(ct):
+    from ..system.geometry import ConeBeamGeometry
+
+    return isinstance(ct, ConeBeamGeometry)
+
+
+def runs_fused_2d(ct, engine):
+    """Whether a 2-D config runs the fused engine: a fan beam with a static
+    focal spot under ``engine='fused'``.  Parallel-beam geometries and
+    in-plane flying focal spots take the composed path
+    (:func:`~dexct_tpu_torch.pipeline.api.simulate_dect`), as the JAX runner
+    sends them."""
+    from ..system.geometry import FanBeamGeometry
+
+    return (engine == "fused" and isinstance(ct, FanBeamGeometry)
+            and not is_cone(ct) and getattr(ct, "ffs", "none") == "none")
 
 
 def fused_choices(cfg, projector, recon):
@@ -154,20 +157,27 @@ def run_config(cfg: RunConfig, *, out_dir="./output", spec_pairs=None,
     """Execute one run config over its DE spectrum pairs (main.py:90-178)
     on ``device``.
 
-    engine='fused' runs :func:`~dexct_tpu_torch.pipeline.fused.dect_step`;
-    engine='composed' runs the reference-API op chain
-    (:func:`~dexct_tpu_torch.pipeline.api.simulate_dect`).  Cone-beam and
+    engine='fused' runs :func:`~dexct_tpu_torch.pipeline.fused.dect_step`
+    on fan beams with a static focal spot; engine='composed', parallel-beam
+    geometries and in-plane flying focal spots run the reference-API op
+    chain (:func:`~dexct_tpu_torch.pipeline.api.simulate_dect`).  Cone-beam and
     helical configs run :func:`~dexct_tpu_torch.pipeline.cone.cone_dect_step`
     or, where :func:`stateless_3d` says so,
     :func:`~dexct_tpu_torch.ops.conebeam.simulate_cone_dect`, whatever the
     engine, projector and recon (as in the JAX runner); ``recon3d`` must
     agree with the orbit.  Noise draws come from a
     ``torch.Generator`` seeded with ``seed``.
-    """
-    from ..system.geometry import ConeBeamGeometry
 
-    _check_supported(cfg, engine, projector, recon, bhc, denoise, recon3d)
-    cone = isinstance(cfg.ct, ConeBeamGeometry)
+    ``bhc=True`` also writes water- and bone-BHC reconstructions of each
+    acquisition on 2-D configs (:mod:`dexct_tpu_torch.ops.bhc`; cone
+    configs warn and write none); ``denoise=True`` runs the vendored
+    denoiser (:mod:`dexct_tpu_torch.learn.denoiser_io`) on every
+    reconstructed HU image of the pair, both spectra and every slice in one
+    forward pass, and writes ``recon_denoised_{raw,HU}_float32.bin``.
+    """
+    _check_supported(cfg, engine, projector, recon, recon3d)
+    cone = is_cone(cfg.ct)
+    fused = runs_fused_2d(cfg.ct, engine)
     projector, recon = fused_choices(cfg, projector, recon)
     device = torch.device(device)
     pairs = spec_pairs or DEFAULT_SPEC_PAIRS
@@ -179,7 +189,7 @@ def run_config(cfg: RunConfig, *, out_dir="./output", spec_pairs=None,
     for spec_id1, spec_id2, d1, d2 in pairs:
         t0 = time.time()
         if resume and _pair_complete(out_dir, cfg, spec_id1, spec_id2,
-                                     d1, d2):
+                                     d1, d2, denoise=denoise):
             if verbose:
                 print(f"resume: skipping completed pair "
                       f"{spec_id1}-{spec_id2}")
@@ -190,7 +200,7 @@ def run_config(cfg: RunConfig, *, out_dir="./output", spec_pairs=None,
             dect = _cone_dect(cfg, spec1, spec2, n_iters=n_iters,
                               noise=eff_noise, seed=seed, device=device,
                               recon3d=recon3d)
-        elif engine == "fused":
+        elif fused:
             from .fused import dect_step, pack_dect
 
             arrays, meta = pack_dect(
@@ -222,6 +232,19 @@ def run_config(cfg: RunConfig, *, out_dir="./output", spec_pairs=None,
             spec_id1, spec_id2, d1, d2, mat_sinos=list(dect.mat_sinos),
             mat_recons=(None if dect.mat_recons[0] is None
                         else list(dect.mat_recons)))
+        if denoise and bp and dect.recon_HU[0] is not None:
+            _write_denoised(writer, cfg, dect,
+                            ((spec_id1, d1, spec1), (spec_id2, d2, spec2)))
+        if bhc and bp and cone:
+            import warnings
+
+            warnings.warn(
+                "bhc=True is ignored for cone/helical configs (the BHC "
+                "polynomials are calibrated on the 2-D fan path); no "
+                "recon_*BHC_* artifacts will be written", stacklevel=2)
+        if bhc and bp and not cone:
+            _write_bhc(writer, cfg, dect, ((spec_id1, spec1),
+                                           (spec_id2, spec2)))
         wall = time.time() - t0
         if verbose:
             print(f"matdecomp finished for {spec_id1}-{spec_id2} : "
@@ -275,8 +298,40 @@ def _cone_dect(cfg, spec1, spec2, *, n_iters, noise, seed, device,
         mat_sinos=out["mat_sinos"], mat_recons=out["mat_recons"])
 
 
-def _pair_complete(out_dir, cfg, spec_id1, spec_id2, d1, d2):
-    """All stage artifacts of a DE pair already on disk."""
+def _write_denoised(writer, cfg, dect, acqs):
+    """Denoise both spectra's HU images (every slice of a volume) in one
+    forward pass and write ``recon_denoised_{raw,HU}`` per acquisition,
+    the raw image as ``mu_w (1 + HU / 1000)``."""
+    from ..learn.denoiser_io import denoise_hu_batch
+
+    hu = [dect.recon_HU[i] for i in range(2)]
+    dn = denoise_hu_batch(torch.cat([h.reshape(-1, *h.shape[-2:])
+                                     for h in hu]))
+    pos = 0
+    for h, (sid, dose, spec) in zip(hu, acqs):
+        n = int(np.prod(h.shape[:-2], initial=1))
+        hu_dn = dn[pos:pos + n].reshape(h.shape)
+        pos += n
+        mu_w = float(api.effective_water_mu(spec, cfg.ct))
+        writer.denoised(sid, dose, recon_raw=mu_w * (1.0 + hu_dn / 1000.0),
+                        recon_HU=hu_dn)
+
+
+def _write_bhc(writer, cfg, dect, acqs):
+    """Water- and bone-BHC reconstructions of each acquisition's log
+    sinogram, written as ``{phantom}_bhc_{spec}/recon_{water,bone}BHC_*``."""
+    from ..ops.bhc import bone_bhc_recon, water_bhc_recon
+
+    for i, (sid, spec) in enumerate(acqs):
+        args = (dect.sino_log[i], cfg.ct, spec, cfg.N_matrix, cfg.FOV,
+                cfg.ramp)
+        writer.bhc(cfg.phantom.name, sid, "water", *water_bhc_recon(*args))
+        writer.bhc(cfg.phantom.name, sid, "bone", *bone_bhc_recon(*args))
+
+
+def _pair_complete(out_dir, cfg, spec_id1, spec_id2, d1, d2, denoise=False):
+    """All stage artifacts of a DE pair already on disk (with
+    ``denoise``, the denoised images too)."""
     want = []
     for sid, dose in ((spec_id1, d1), (spec_id2, d2)):
         d = acquisition_dir(out_dir, cfg.run_id, sid, dose)
@@ -285,6 +340,9 @@ def _pair_complete(out_dir, cfg, spec_id1, spec_id2, d1, d2):
         if cfg.do_back_projection:
             want += [os.path.join(d, "recon_raw_float32.bin"),
                      os.path.join(d, "recon_HU_float32.bin")]
+            if denoise:
+                want += [os.path.join(d, "recon_denoised_raw_float32.bin"),
+                         os.path.join(d, "recon_denoised_HU_float32.bin")]
     md = matdecomp_dir(out_dir, cfg.run_id, spec_id1, spec_id2, d1, d2)
     want += [os.path.join(md, "mat1_sino_float32.bin"),
              os.path.join(md, "mat2_sino_float32.bin")]

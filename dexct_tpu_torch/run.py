@@ -9,10 +9,14 @@ reconstruction.  Cone-beam and helical configs run the fused cone
 pipeline (circular FDK or helical generalized Feldkamp, ``--recon3d``);
 flat-panel and gantry-tilted configs, a z flying focal spot and
 ``--recon3d katsevich`` (exact helical reconstruction) run the stateless
-3-D branch.  ``--bhc`` and ``--denoise`` raise ``NotImplementedError``
-naming their ROADMAP item.  Float32 matrix products
-run in full float32 on the card
-(``torch.backends.cuda.matmul.allow_tf32 = False``, set by ``main``).
+3-D branch.  Parallel-beam configs and fan-beam configs with an in-plane
+flying focal spot run the composed path (the 16-tap interleaved rebin for
+the latter).  ``--bhc`` writes water- and bone-BHC reconstructions of 2-D
+configs; ``--denoise`` writes the learned denoiser's images.  Float32
+matrix products run in full float32 on the card
+(``torch.backends.cuda.matmul.allow_tf32 = False``, set by ``main``), and
+so do the denoiser's convolutions
+(:func:`dexct_tpu_torch.learn.train.apply_denoiser`).
 """
 
 from __future__ import annotations
@@ -76,11 +80,14 @@ def main(argv=None):
                    help="3-D reconstruction for cone/helical configs: "
                    "auto picks fdk for a circular orbit and helical "
                    "(generalized Feldkamp) for a helical one; katsevich is "
-                   "not ported yet; fan-beam configs ignore it")
+                   "the exact helical reconstruction; fan-beam configs "
+                   "ignore it")
     p.add_argument("--bhc", action="store_true",
-                   help="water/bone BHC reconstructions (not ported yet)")
+                   help="also write water/bone BHC reconstructions (2-D "
+                   "configs)")
     p.add_argument("--denoise", action="store_true",
-                   help="learned-denoiser reconstructions (not ported yet)")
+                   help="also write learned-denoiser reconstructions "
+                   "(recon_denoised_{raw,HU})")
     p.add_argument("--resume", action="store_true",
                    help="skip DE pairs whose stage artifacts exist")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")

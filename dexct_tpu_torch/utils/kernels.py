@@ -33,7 +33,9 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("siddon_trace.cu", "gauss_newton.cu", "fan_backproject.cu",
            "gather_taps.cu", "parallel_backproject.cu", "kb_sample.cu",
            "analytic_chords.cu", "siddon_trace_3d.cu", "cone_backproject.cu",
-           "trilinear_sample.cu")
+           "trilinear_sample.cu", "siddon_trace_stack.cu")
+# headers the sources include (hashed with them, compiled through them)
+HEADERS = ("siddon_walk.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # no --use_fast_math: the trace's plane crossings and the backprojectors'
 # edge tests feed 1e-4 parity tolerances
@@ -96,6 +98,10 @@ _SIGNATURES = {
                                     _F, _F, _F, _F, _F, _F, _P),
     # vols, zi, yi, xi, out, n_images, n_out, nz, ny, nx, stream
     "dexct_trilinear_sample": (_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _P),
+    # labels, src, dirs, out, n_rays, nx, ny, nz, n_out, z_chunk, x0, y0,
+    # x1, y1, dx, dy, eps, n_steps, stream
+    "dexct_siddon_trace_stack": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F,
+                                 _F, _F, _F, _F, _F, _F, _I, _P),
 }
 
 
@@ -113,7 +119,7 @@ def _nvcc():
 
 def _digest():
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

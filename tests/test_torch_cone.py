@@ -616,18 +616,30 @@ def test_recon3d_mismatch_raises(tmp_path, kind, recon3d):
 
 @pytest.mark.parametrize("choice", ["inplane_ffs", "weighting", "heel"])
 def test_unported_3d_choices_raise(tmp_path, choice):
-    """What the stateless branch still refuses, naming its ROADMAP item: the
-    2-D in-plane flying focal spot (the composed path's FFS rebin), the
-    generalized Feldkamp's study weightings and the anode heel."""
+    """What the stateless branch still refuses, naming its ROADMAP item:
+    the generalized Feldkamp's study weightings and the anode heel.  The
+    2-D in-plane flying focal spot, once refused here too, now runs the
+    composed path's 16-tap FFS rebin and writes the JAX CLI's 12 files."""
     if choice == "inplane_ffs":
+        from dexct_tpu.run import main as j_main
         from dexct_tpu_torch.run import main as t_main
 
         params = _cone_params(tmp_path, "fan_beam")
         cfg = json.loads(params.read_text())
         cfg["flying_focal_spot"] = "inplane"
         params.write_text(json.dumps(cfg))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_main(_main_args(params, tmp_path / "t", "--device", "cpu"))
+        j_main(_main_args(params, tmp_path / "j"))
+        t_main(_main_args(params, tmp_path / "t", "--device", "cpu"))
+        files = sorted(p.relative_to(tmp_path / "j")
+                       for p in (tmp_path / "j").rglob("*.bin"))
+        assert len(files) == 12
+        assert files == sorted(p.relative_to(tmp_path / "t")
+                               for p in (tmp_path / "t").rglob("*.bin"))
+        for rel in files:
+            np.testing.assert_allclose(
+                np.fromfile(tmp_path / "t" / rel, np.float32),
+                np.fromfile(tmp_path / "j" / rel, np.float32),
+                err_msg=str(rel), **FILE_TOL[rel.name[:-len("_float32.bin")]])
         return
     from dexct_tpu_torch.ops.conebeam import (helical_fdk_reconstruct,
                                               simulate_cone_dect)

@@ -530,3 +530,110 @@ def test_simulate_cone_dect_cuda_matches_cpu(dev, recon):
     for key, t in tol.items():
         for i in range(2):
             torch.testing.assert_close(gpu[key][i].cpu(), cpu[key][i], **t)
+
+
+# ---------------------------------------------------------------------------
+# K17 and the 2-D paths finished with it: the z-stack, the in-plane flying
+# focal spot, the denoiser
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("nz", [1, 3, 8, 9])
+@pytest.mark.parametrize("n_materials", [2, 5, 8])
+def test_siddon_trace_stack_matches_plain_and_k1(dev, nz, n_materials):
+    """K17 on a non-square grid with unequal cells, labels up to
+    n_materials (which adds nothing): one launch for the stack, equal bit
+    for bit to its plain version and, slice by slice, to K1 (chunks of
+    8, 4, 2 or 1 slices, the last one padded)."""
+    from dexct_tpu_torch.ops.siddon import (trace_paths_stack,
+                                            trace_paths_stack_plain)
+
+    rng = np.random.default_rng(20 + nz + n_materials)
+    lab = torch.as_tensor(rng.integers(0, n_materials + 1, (nz, 48, 40)),
+                          dtype=torch.uint8, device=dev)
+    src, dirs = (torch.as_tensor(x, device=dev)
+                 for x in _rays(rng, 3000, 30.0))
+    before = trace_paths_stack.launches
+    got = trace_paths_stack(lab, src, dirs, 0.5, 0.4,
+                            n_materials=n_materials)
+    torch.cuda.synchronize()
+    assert trace_paths_stack.launches == before + 1
+    assert got.shape == (nz, 3000, n_materials)
+    torch.testing.assert_close(
+        got, trace_paths_stack_plain(lab, src, dirs, 0.5, 0.4,
+                                     n_materials=n_materials),
+        rtol=0, atol=0)
+    for z in range(nz):
+        torch.testing.assert_close(
+            got[z], trace_paths(lab[z], src, dirs, 0.5, 0.4,
+                                n_materials=n_materials), rtol=0, atol=0)
+
+
+def _small_system(dev_ct_kw=None):
+    from dexct_tpu_torch.physics import kramers_spectrum, linac_spectrum
+    from dexct_tpu_torch.system import FanBeamGeometry
+
+    ct = FanBeamGeometry(N_channels=96, N_proj=90, eid=True,
+                         **(dev_ct_kw or {}))
+    s1, s2 = linac_spectrum(), kramers_spectrum(80.0)
+    s1.rescale_counts(ct.A_iso * 9.0 / ct.N_proj)
+    s2.rescale_counts(ct.A_iso * 1.0 / ct.N_proj)
+    return ct, s1, s2
+
+
+@pytest.mark.parametrize("projector,recon", [("siddon", "parallel"),
+                                             ("fourier", "fan")])
+def test_zstack_cuda_matches_cpu(dev, projector, recon):
+    """The z-stack on the card (K17 or the batched Fourier projector, then
+    the per-slice step) against the same call on the CPU."""
+    from dexct_tpu_torch.pipeline.zstack import (pack_zstack, stack_phantom,
+                                                 zstack_step)
+    from dexct_tpu_torch.system import contrast_rods_phantom
+
+    ct, s1, s2 = _small_system()
+    ph = stack_phantom(contrast_rods_phantom, 3, N=64, dx=0.4)
+    gpu, cpu = (zstack_step(*pack_zstack(
+        ct, ph, s1, s2, 64, 24.0, 0.8, device=d, n_iters=20,
+        projector=projector, recon=recon, n_theta=128, recon_n_theta=64,
+        recon_nt=192)) for d in (dev, "cpu"))
+    tol = {"sino_raw": dict(rtol=1e-4, atol=0),
+           "mat_sinos": dict(rtol=0, atol=1e-3),
+           "recon_raw": dict(rtol=0, atol=1e-4),
+           "mat_recons": dict(rtol=0, atol=1e-3)}
+    for key, t in tol.items():
+        for i in range(2):
+            torch.testing.assert_close(gpu[key][i].cpu(), cpu[key][i], **t)
+
+
+def test_ffs_fbp_recon_cuda_matches_cpu(dev):
+    """K5 at 16 taps on the interleaved plan, then K6, against the plain
+    versions."""
+    from dexct_tpu_torch.ops.fbp_fast import rebin_to_parallel as k5
+    from dexct_tpu_torch.ops.ffs import ffs_fbp_recon
+
+    ct, _, _ = _small_system(dict(ffs="inplane"))
+    rng = np.random.default_rng(8)
+    t = ct.SID * np.sin(ct.gammas)
+    sino = torch.as_tensor(
+        2.0 * np.sqrt(np.clip(12.0 ** 2 - t ** 2, 0, None)) * 0.2
+        + 0.01 * rng.normal(size=(90, 96)), dtype=torch.float32)
+    before = k5.launches
+    gpu = ffs_fbp_recon(sino.to(dev), ct, 64, 30.0)
+    torch.cuda.synchronize()
+    assert k5.launches == before + 1
+    torch.testing.assert_close(gpu.cpu(), ffs_fbp_recon(sino, ct, 64, 30.0),
+                               rtol=0, atol=1e-4)
+
+
+def test_denoiser_cuda_matches_cpu(dev):
+    """cuDNN's float32 convolutions with TF32 off: the card's denoised HU
+    agree with the CPU's to 1e-2 HU."""
+    from dexct_tpu_torch.learn.denoiser_io import denoise_hu_batch
+
+    rng = np.random.default_rng(9)
+    imgs = torch.as_tensor(rng.normal(0, 60, (3, 96, 96)),
+                           dtype=torch.float32)
+    prev = torch.backends.cudnn.allow_tf32
+    gpu = denoise_hu_batch(imgs.to(dev))
+    assert torch.backends.cudnn.allow_tf32 == prev  # restored
+    cpu = denoise_hu_batch(imgs)
+    torch.testing.assert_close(gpu.cpu(), cpu, rtol=0, atol=1e-2)

@@ -87,9 +87,17 @@ def test_fbp_recon_matches_jax(sinos, rotation):
 
 
 def test_unported_geometries_raise(sinos):
-    """Flying-focal-spot scans raise; parallel-beam FBP runs
-    (tests/test_torch_parallel_recon.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_fbp.fbp_recon(torch.as_tensor(sinos[0]),
-                        TFan(**dict(GEOM, N_proj=90), ffs="inplane"), 64,
-                        24.0)
+    """No geometry raises any longer: a flying-focal-spot scan, once
+    refused, reconstructs through the 16-tap interleaved rebin as the JAX
+    package's does (tests/test_torch_ffs.py holds it at its own bar);
+    parallel-beam FBP runs (tests/test_torch_parallel_recon.py)."""
+    kw = dict(GEOM, N_proj=90)
+    want_raw, want_hu = j_fbp.fbp_recon(jnp.asarray(sinos[0]),
+                                        JFan(**kw, ffs="inplane"), 64, 24.0,
+                                        mu_water_eff=0.2)
+    got_raw, got_hu = t_fbp.fbp_recon(torch.as_tensor(sinos[0]),
+                                      TFan(**kw, ffs="inplane"), 64, 24.0,
+                                      mu_water_eff=0.2)
+    np.testing.assert_allclose(got_raw.numpy(), np.asarray(want_raw),
+                               atol=1e-4)
+    np.testing.assert_allclose(got_hu.numpy(), np.asarray(want_hu), atol=0.5)

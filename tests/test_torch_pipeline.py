@@ -173,22 +173,29 @@ def _tiny_params(tmp_path):
     return path
 
 
-@pytest.mark.parametrize("flags", [[], ["--projector", "siddon", "--recon",
-                                        "fan"]], ids=["defaults", "exact"])
-def test_both_clis_write_the_same_files(tmp_path, flags):
-    """With no flags both CLIs run the Fourier projector and the rebinned
-    parallel recon; with the exact flags, the Siddon trace and fan FBP."""
+def _file_tol(name):
+    """The bar of one output file: the §2.6 files' FILE_TOL; the denoised
+    and BHC images (recon_{denoised,waterBHC,boneBHC}_{raw,HU}) those of
+    recon_raw and recon_HU."""
+    if name in FILE_TOL:
+        return FILE_TOL[name]
+    return FILE_TOL["recon_HU" if name.endswith("_HU") else "recon_raw"]
+
+
+def _both_clis(tmp_path, params, flags, n_files, iters="8"):
+    """Run ``params`` through the JAX CLI and the port's (on the CPU) with
+    ``flags``; both must write the same ``n_files`` files, each within its
+    bar.  Returns the port's output directory."""
     from dexct_tpu.run import main as j_main
     from dexct_tpu_torch.run import main as t_main
 
-    params = _tiny_params(tmp_path)
-    common = ["--params", str(params), "--iters", "8", "--spectrum-dir",
+    common = ["--params", str(params), "--iters", iters, "--spectrum-dir",
               os.path.join(REPO, "input", "spectrum")] + flags
     j_main(common + ["--output", str(tmp_path / "jax")])
     t_main(common + ["--output", str(tmp_path / "torch"), "--device", "cpu"])
     files = sorted(p.relative_to(tmp_path / "jax")
                    for p in (tmp_path / "jax").rglob("*.bin"))
-    assert len(files) == 12
+    assert len(files) == n_files
     assert files == sorted(p.relative_to(tmp_path / "torch")
                            for p in (tmp_path / "torch").rglob("*.bin"))
     for rel in files:
@@ -197,8 +204,17 @@ def test_both_clis_write_the_same_files(tmp_path, flags):
         assert got.size == want.size
         np.testing.assert_allclose(
             got, want, err_msg=str(rel),
-            **FILE_TOL[rel.name[:-len("_float32.bin")]])
-    assert (tmp_path / "torch" / "tiny" / "params.txt").exists()
+            **_file_tol(rel.name[:-len("_float32.bin")]))
+    return tmp_path / "torch"
+
+
+@pytest.mark.parametrize("flags", [[], ["--projector", "siddon", "--recon",
+                                        "fan"]], ids=["defaults", "exact"])
+def test_both_clis_write_the_same_files(tmp_path, flags):
+    """With no flags both CLIs run the Fourier projector and the rebinned
+    parallel recon; with the exact flags, the Siddon trace and fan FBP."""
+    out = _both_clis(tmp_path, _tiny_params(tmp_path), flags, 12)
+    assert (out / "tiny" / "params.txt").exists()
 
 
 def test_resume_and_composed_cli(tmp_path, capsys):
@@ -217,21 +233,25 @@ def test_resume_and_composed_cli(tmp_path, capsys):
     ["--projector", "siddon", "--recon", "parallel"], ["--bhc"],
     ["--denoise"]])
 def test_unported_choices_raise(tmp_path, flags):
-    """--bhc and --denoise raise naming their ROADMAP item; the Fourier
-    projector and the parallel recon, once unported, now run (here each
-    beside the other path's choice) and write the 12 files."""
+    """Every choice that once raised now runs (here each beside the other
+    path's choice): the Fourier projector and the parallel recon write the
+    12 files; --bhc adds the water and bone BHC images of both spectra, and
+    --denoise the denoised ones, all finite (tests/test_torch_bhc.py and
+    tests/test_torch_learn.py hold them to the JAX CLI's)."""
     from dexct_tpu_torch.run import main as t_main
 
     params = _tiny_params(tmp_path)
     argv = ["--params", str(params), "--device", "cpu", "--iters", "4",
             "--output", str(tmp_path / "o")] + flags
-    if "--projector" not in flags:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_main(argv)
-        return
     (res,) = t_main(argv)
     assert bool(torch.isfinite(res.dect.recon_raw[0]).all())
-    assert len(list((tmp_path / "o").rglob("*.bin"))) == 12
+    files = list((tmp_path / "o").rglob("*.bin"))
+    extra = [p for p in files if "BHC" in p.name or "denoised" in p.name]
+    assert len(files) == 12 + len(extra)
+    assert len(extra) == {"--bhc": 8, "--denoise": 4}.get(flags[0], 0)
+    for p in extra:
+        img = np.fromfile(p, np.float32)
+        assert img.size == 64 * 64 and np.isfinite(img).all(), p
 
 
 def test_analytic_projector_raises(small_de):
@@ -352,10 +372,15 @@ def _tiny_3d_variant(tmp_path, name, **changes):
 
 def test_port_never_imports_jax(tmp_path):
     """Importing the port and running its CLI's default path (Fourier
-    projector, parallel recon), a cone config, a flat-panel config and a
-    helical config under ``--recon3d katsevich`` on the CPU leaves JAX and
-    the JAX package unimported."""
+    projector, parallel recon) with --bhc and --denoise, an in-plane
+    flying-focal-spot config, a cone config, a flat-panel config and a
+    helical config under ``--recon3d katsevich``, and a z-stack through the
+    library, on the CPU, leaves JAX and the JAX package unimported."""
     params = _tiny_params(tmp_path)
+    ffs = tmp_path / "ffs.txt"
+    ffs.write_text(json.dumps(dict(json.loads(params.read_text()),
+                                   RUN_ID="tiny_ffs",
+                                   flying_focal_spot="inplane")))
     cone = _tiny_cone_params(tmp_path)
     flat = _tiny_3d_variant(tmp_path, "flat",
                             scanner_geometry="flat_panel_cone_beam")
@@ -363,8 +388,8 @@ def test_port_never_imports_jax(tmp_path):
                              scanner_geometry="helical_cone_beam",
                              N_projections=32, pitch=1.0,
                              rotation_angle_total=4 * np.pi)
-    runs = [[str(params)], [str(cone)], [str(flat)],
-            [str(helix), "--recon3d", "katsevich"]]
+    runs = [[str(params), "--bhc", "--denoise"], [str(ffs)], [str(cone)],
+            [str(flat)], [str(helix), "--recon3d", "katsevich"]]
     code = (
         "import sys\n"
         "import dexct_tpu_torch\n"
@@ -372,6 +397,20 @@ def test_port_never_imports_jax(tmp_path):
         f"for args in {runs!r}:\n"
         "    main(['--params', *args, '--iters', '2', '--device', 'cpu',"
         f" '--output', {str(tmp_path / 'o')!r}])\n"
+        "from dexct_tpu_torch.pipeline import pack_zstack, stack_phantom,"
+        " zstack_step\n"
+        "from dexct_tpu_torch.pipeline.runner import _resolve_spectrum,"
+        " default_generators\n"
+        "from dexct_tpu_torch.system import FanBeamGeometry,"
+        " contrast_rods_phantom\n"
+        "ct = FanBeamGeometry(N_channels=32, N_proj=24)\n"
+        "s = [_resolve_spectrum(n, d, ct, 'input/spectrum',"
+        " default_generators()) for n, d in (('detunedMV', 9.0),"
+        " ('80kV', 1.0))]\n"
+        "ph = stack_phantom(contrast_rods_phantom, 3, N=32, dx=0.6)\n"
+        "a, m, ax = pack_zstack(ct, ph, *s, 32, 20.0, 0.8, device='cpu',"
+        " n_iters=2)\n"
+        "assert zstack_step(a, m, ax)['recon_HU'][0].shape == (3, 32, 32)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'dexct_tpu' or m.startswith('dexct_tpu.')]\n"
         "assert not bad, bad\n"

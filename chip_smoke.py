@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (``dexct_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--witness DIR]
 
 Needs one CUDA device, the CUDA toolkit (nvcc) and Triton; imports nothing
 of JAX.  Phases, each of which raises on failure:
 
 1. Device: the card's name and power limit (nvidia-smi).
-2. Build: nvcc builds kernels K1, K3-K13 and K15-K17 from
+2. Build: nvcc builds kernels K1, K3-K13 and K15-K20 from
    ``dexct_tpu_torch/csrc`` (one nvcc per source, all at once); Triton
    compiles K2 and K14.
 3. Each kernel against its plain PyTorch version on the card, on the
@@ -31,7 +31,13 @@ of JAX.  Phases, each of which raises on failure:
    JAX package's z-stack workload (1000 x 800 rays through 8 slices of the
    512^2 pelvis, rolled), also bitwise against K1 on each slice (K1 over
    the 8 slices is its yardstick); K5 at 16 taps on the in-plane FFS plan
-   of the reference protocol (500 x 1600 bins).
+   of the reference protocol (500 x 1600 bins).  K12 in each of its six
+   gFDK weightings on the helical config; K18 and K19 (the exact 3-D
+   projector and its adjoint) on the cone config's rays and mu[labels] at
+   60 keV, K18 also against K10's paths . mu and K19 through the
+   dot-product identity, both against the system matrix's CSR product on
+   every tenth view; K5 at 4 taps and K20 (the PI method) on the helical
+   config's 60 keV sinogram.
 4. The paths: the default and the exact path through
    ``dexct_tpu_torch.run.main`` on ``input/params.txt``, then the cone,
    helical, flat-panel, tilted, z-FFS and Katsevich configs, the
@@ -42,22 +48,34 @@ of JAX.  Phases, each of which raises on failure:
    'analytic', recon='parallel')`` + ``dect_step`` on the reference
    protocol with ``pelvis_analytic()``), twice; the z-stack through the
    library (``pack_zstack`` + ``zstack_step`` at the K17 workload,
-   ``projector='siddon', recon='parallel'``), twice.  Every launch counter
+   ``projector='siddon', recon='parallel'``), twice; then the library
+   paths of the helical study and iterative reconstructors: the helical
+   config through ``pack_cone_dect(weighting=...)`` + ``cone_dect_step``
+   ('pair' twice, 'td', 'short'), a 60 keV scan of the cone config
+   through an FDK warm start, ``cone_pwls_recon`` and ``cone_cg_recon``
+   (twice), and the helical config's 60 keV scan through
+   ``helical_pi_reconstruct`` (twice).  Every launch counter
    is set to 0 just before a path and read just after it: each kernel of
    the path must have launched, and no other.  Each path's outputs are
    checked (exact sizes, finite values, air ~ -1000 HU; the z-stack's
    slices 0 and 7 against single-slice steps), and the stages of the 3-D,
    composed 2-D, BHC/denoise and z-stack paths are timed once more with the
-   device's busy share.
+   device's busy share; the PWLS path must read water in the bladder within
+   5 % with noise below 0.6 x FDK's, the PI path the helical gFDK's
+   bladder within 50 HU, and each weighting the air and body readings of
+   the JAX package's reconstruction of the same sinograms within 2 HU
+   (``--witness DIR`` writes those sinograms and the slices read, for
+   ``tests/test_torch_cone.py``).
 5. A 64^2 config through the port on ``--device cpu`` and ``--device
    cuda`` under every 2-D path's flags and configuration, tiny versions of
-   every 3-D path, and a tiny z-stack through the library; every output
-   agrees to the pipeline tolerances.
+   every 3-D path, a tiny z-stack, and tiny versions of the three library
+   paths above; every output agrees to the pipeline tolerances.
 
 The last two lines of standard output are the kernels' JSON record and the
 device JSON line.
 """
 
+import argparse
 import json
 import os
 import shutil
@@ -127,7 +145,49 @@ KERNELS = {
                            "dexct_tpu/ops/siddon_fast.py:827",
                            "max abs <= 1e-4 cm; bitwise equal to K1 on "
                            "every slice"),
+    "project_3d": ("cuda", "dexct_tpu_torch/csrc/siddon_project_3d.cu",
+                   "dexct_tpu/ops/conebeam.py:1028",
+                   "max abs <= 1e-4 x max |plain|; on mu[labels] <= 1e-4 x "
+                   "max of K10's paths . mu"),
+    "backproject_3d": ("cuda", "dexct_tpu_torch/csrc/siddon_project_3d.cu",
+                       "dexct_tpu/ops/conebeam.py:1028",
+                       "max abs <= 1e-4 x max |plain|; <Ax, y> = <x, A^T y> "
+                       "to rel 1e-4"),
+    "pi_backproject": ("cuda", "dexct_tpu_torch/csrc/pi_backproject.cu",
+                       "dexct_tpu/ops/helical_pi.py:128",
+                       "max abs <= 1e-4 x max |plain|"),
 }
+# the library paths of the helical study reconstructors and the exact 3-D
+# iterative reconstruction, and the kernels each launches
+HELICAL_WEIGHTING_KERNELS = ("siddon_trace_3d", "spectral_counts",
+                             "gauss_newton", "helical_backproject")
+CONE_PWLS_KERNELS = ("siddon_trace_3d", "fdk_backproject", "project_3d",
+                     "backproject_3d")
+HELICAL_PI_KERNELS = ("siddon_trace_3d", "rebin_to_parallel",
+                      "pi_backproject")
+# K12's float32 operations per (pixel, slice, view) on the detector within
+# its slice's window: 35 for the geometry and the row, and each gFDK
+# window's own (cosine, sine and division count as one); 7 K more where the
+# weight is nonzero inside the fan (the taps of K stacks)
+WEIGHT_OPS = {"full": 0, "feather": 6, "td": 16, "cosz": 8, "short": 16,
+              "pair": 30}
+# what the JAX package's helical_fdk_reconstruct reads on the helical
+# config's log sinograms, per weighting, at the central slice (z = 0):
+# (air ROI at (0, -18) cm, body ROI at (0, 0) cm) in HU, detunedMV and 80kV
+# (tests/test_torch_cone.py's witness on chip_smoke.py --witness's output);
+# the fused step in that weighting must read them within REF_TOL_HU
+WEIGHTING_REF_HU = {
+    "pair": ((-1058.78, -1066.11), (-139.89, -123.52)),
+    "td": ((-1300.32, -1335.65), (-111.43, -87.60)),
+    "short": ((-987.56, -987.40), (-139.53, -122.74)),
+}
+REF_TOL_HU = 2.0
+# the monoenergetic scans of the iterative and PI paths: 60 keV, and the
+# PWLS scan's unattenuated counts per ray (at 2e4 the lateral rays through
+# the 42 cm wide pelvis keep ~3 counts, and the clamped logs bias FDK 16 %
+# low in the bladder; 1e5 keeps ~15)
+MONO_KEV = 60.0
+PWLS_N0 = 1.0e5
 # the CLI paths: flags, whether the params file is a 3-D config, and the
 # kernels each launches
 PATHS = {
@@ -612,7 +672,6 @@ def cone_kernel_phase(arrays, meta, records, helical):
     decomposition in the step's pixel blocks), and K11 (or K12 on the
     helical config) on the filtered 4-volume stack of that path's own
     step."""
-    import numpy as np
     import torch
 
     from dexct_tpu_torch.ops import conebeam
@@ -657,24 +716,37 @@ def cone_kernel_phase(arrays, meta, records, helical):
     qs = filter_views(sinos, a["fdk_w"], a["filt_H"], meta.fft_len,
                       meta.dgamma).contiguous()
     K = qs.shape[0]
-    X, _, _ = conebeam._disc(meta.n_matrix, meta.fov, qs.device)
+    X, Y, _ = conebeam._disc(meta.n_matrix, meta.fov, qs.device)
     P = X.shape[0]
-    if helical:
+    if helical:  # K12 in every gFDK weighting; the record is 'full''s
         hargs = (qs, a["betas"], a["src_z"], a["row_off"], a["beta_c"],
                  meta.sid, meta.dgamma, meta.row_h, R, meta.pitch,
                  meta.n_matrix, meta.nz_out, meta.fov, meta.dz_out, meta.z0)
-        vol, want, ms, pms = compare(
-            lambda: conebeam._helical_backproject(*hargs, dbeta=meta.dbeta),
-            lambda: conebeam._helical_backproject_plain(*hargs), reps=1)
-        err, big = max_err(vol, want)
-        win = ((a["betas"][None, :] - a["beta_c"][:, None]).abs()
-               <= np.pi)
-        report(records, "helical_backproject", err, ms, pms,
-               err <= 1e-4 * big,
-               (nbytes(qs, vol) + 8 * P + 16 * V,
-                P * int(win.sum()) * (35 + 7 * K)),
-               extra=f" (max |plain| {big:.6g}; {meta.nz_out} slices, "
-                     f"{int(win.sum())} slice-views)")
+        for w in conebeam.WEIGHTINGS:
+            vol, want, ms, pms = compare(
+                lambda w=w: conebeam._helical_backproject(
+                    *hargs, dbeta=meta.dbeta, weighting=w),
+                lambda w=w: conebeam._helical_backproject_plain(
+                    *hargs, weighting=w), reps=1)
+            err, big = max_err(vol, want)
+            on, taps = helical_terms(a, meta, w, X, Y)
+            work = (nbytes(qs, vol) + 8 * P + 16 * V,
+                    (35 + WEIGHT_OPS[w]) * on + 7 * K * taps)
+            extra = (f" (max |plain| {big:.6g}; {meta.nz_out} slices; "
+                     f"{on} pixel-slice-views on the detector in the window,"
+                     f" {taps} of them weighted)")
+            if w == "full":
+                report(records, "helical_backproject", err, ms, pms,
+                       err <= 1e-4 * big, work, extra=extra)
+                continue
+            b_ms, by = bound(*work)
+            print(f"  helical_backproject weighting {w:8s} "
+                  f"max_abs_err={err:.6g}{extra}  kernel={ms:.4f} ms  "
+                  f"plain={pms:.4f} ms  bound={b_ms:.4f} ms ({by})  "
+                  f"[{KERNELS['helical_backproject'][3]}]")
+            if not err <= 1e-4 * big:
+                fail(f"helical_backproject ({w}) disagrees with its plain "
+                     "version")
         return
     fargs = (qs, a["betas"], meta.sid, meta.dgamma, meta.row_h, R,
              meta.n_matrix, meta.nz_out, meta.fov, meta.dz_out, meta.dbeta)
@@ -686,6 +758,38 @@ def cone_kernel_phase(arrays, meta, records, helical):
            (nbytes(qs, vol) + 8 * P + 8 * V,
             P * meta.nz_out * V * (30 + 7 * K)),
            extra=f" (max |plain| {big:.6g}; {meta.nz_out} slices)")
+
+
+def helical_terms(a, meta, weighting, X, Y):
+    """K12's work on the helical config in one weighting: the (disc pixel,
+    slice, view) terms on the detector within the slice's window, and those
+    of them whose weight is nonzero inside the fan (the terms that take
+    taps), from the plain version's geometry and window in blocks of 8
+    views."""
+    from dexct_tpu_torch.ops import conebeam
+
+    V, R, C = meta.vrc
+    zc = conebeam._helical_z(meta.nz_out, meta.dz_out, meta.z0, X.device)
+    k = conebeam._window_constants(weighting, C, meta.dgamma, meta.pitch,
+                                   meta.row_h, R, meta.sid)
+    on = taps = 0
+    for v0 in range(0, V, 8):
+        sl = slice(v0, v0 + 8)
+        beta, sz = a["betas"][sl], a["src_z"][sl]
+        _, _, inv_h, w_amp, gam, h2 = conebeam._inplane(
+            X, Y, beta, meta.sid, meta.dgamma, C)
+        zt = ((zc[None, :] - sz[:, None]) * meta.sid)[:, :, None] \
+            * inv_h[:, None, :]
+        ridx = zt / meta.row_h - 0.5 + R / 2.0 + a["row_off"][sl][:, None,
+                                                                   None]
+        d = (beta[:, None] - a["beta_c"][None, :])[:, :, None]
+        w = conebeam._window_weight(
+            weighting, k, d, gam[:, None, :], zt, zc[None, :, None],
+            sz[:, None, None], h2[:, None, :], inv_h[:, None, :], meta.sid)
+        live = (ridx >= -0.5) & (ridx <= R - 0.5) & (d.abs() <= k["hwpi"])
+        on += int(live.sum())
+        taps += int((live & (w != 0) & (w_amp[:, None, :] != 0)).sum())
+    return on, taps
 
 
 def stateless_stack(ccfg, spectra, dev):
@@ -889,6 +993,195 @@ def katsevich_kernel_phase(ccfg, stack, records):
                  f"reach)")
 
 
+def mono_mu(phantom, dev):
+    """The phantom's per-label attenuation [1/cm] at MONO_KEV, float32."""
+    import numpy as np
+    import torch
+
+    return torch.as_tensor(
+        phantom.materials.mu_table(np.array([MONO_KEV]))[:, 0],
+        dtype=torch.float32, device=dev)
+
+
+def cone_rays(ct, dev):
+    import torch
+
+    return (torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
+            for x in ct.ray_geometry_3d())
+
+
+def project_kernel_phase(ccfg, records):
+    """Phase 3, exact 3-D projector on the cone config: K18 on mu[labels] at
+    60 keV over the 1.47M rays (also against K10's paths . mu), K19 on a
+    random sinogram with the dot-product identity on random x and y; the
+    library yardstick is the system matrix as a CSR product on every tenth
+    view, scaled to all views."""
+    import torch
+
+    from dexct_tpu_torch.ops import conebeam
+
+    ct, ph = ccfg.ct, ccfg.phantom
+    dev = torch.device("cuda")
+    src, dirs = cone_rays(ct, dev)
+    labels = conebeam.labels_u8(ph.labels, dev)
+    mu = mono_mu(ph, dev)
+    vol = mu[labels.long()].contiguous()
+    vox = (ph.dx, ph.dy, ph.dz)
+    shape = tuple(vol.shape)
+    sino, want, ms, pms = compare(
+        lambda: conebeam.project_volume_3d(vol, src, dirs, *vox),
+        lambda: conebeam.project_volume_3d_plain(vol, src, dirs, *vox),
+        reps=3)
+    err, big = max_err(sino, want)
+    paths = conebeam.trace_paths_3d(labels, src, dirs, *vox,
+                                    n_materials=ph.n_materials)
+    ref = paths @ mu
+    k10_err = float((sino - ref).abs().max())
+    steps = walk_steps(paths, dirs, vox)
+    n_rays = sino.numel()
+    del paths, want
+
+    # every tenth view's rows of the system matrix, from the plain walk
+    every = 10
+    s_sub = src[::every].reshape(-1, 3)
+    d_sub = dirs[::every].reshape(-1, 3)
+    n_sub = s_sub.shape[0]
+    rows, cols, vals = [], [], []
+    ray = torch.arange(n_sub, device=dev)
+    for lin, seg in conebeam._walk_3d(shape, s_sub, d_sub, *vox,
+                                      conebeam._max_steps(shape)):
+        keep = seg > 0
+        rows.append(ray[keep])
+        cols.append(lin[keep])
+        vals.append(seg[keep])
+    rows, cols, vals = torch.cat(rows), torch.cat(cols), torch.cat(vals)
+    nnz = vals.numel()
+    A = sparse_taps(rows, cols, vals, (n_sub, vol.numel()))
+    At = sparse_taps(cols, rows, vals, (vol.numel(), n_sub))
+    del rows, cols, vals
+    scale = n_rays / n_sub
+    x1 = vol.reshape(-1, 1)
+    lib_err = float((torch.sparse.mm(A, x1).reshape(-1)
+                     - sino[::every].reshape(-1)).abs().max())
+    lib_fwd = time_ms(lambda: torch.sparse.mm(A, x1), 5) * scale
+    report(records, "project_3d", err, ms, pms,
+           err <= 1e-4 * big and k10_err <= 1e-4 * float(ref.abs().max()),
+           (nbytes(vol, src, dirs, sino), 9 * steps + 60 * n_rays),
+           library_ms=lib_fwd,
+           extra=f" (max |plain| {big:.6g}; {n_rays} rays through "
+                 f"{shape}; against K10's paths . mu {k10_err:.3g}; library "
+                 f"= CSR torch.sparse.mm on every {every}th view ({nnz} "
+                 f"nonzeros) x {scale:g}, err {lib_err:.3g})")
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    y = torch.randn(sino.shape, generator=gen, device=dev)
+    x = torch.randn(shape, generator=gen, device=dev)
+    back, want, ms, pms = compare(
+        lambda: conebeam.project_volume_3d_adjoint(y, src, dirs, shape,
+                                                   *vox),
+        lambda: conebeam.project_volume_3d_adjoint_plain(y, src, dirs, shape,
+                                                         *vox), reps=3)
+    err, big = max_err(back, want)
+    lhs = float((conebeam.project_volume_3d(x, src, dirs, *vox).double()
+                 * y.double()).sum())
+    rhs = float((x.double() * back.double()).sum())
+    ident = abs(lhs - rhs) / abs(lhs)
+    y1 = y[::every].reshape(-1, 1).contiguous()
+    lib_adj = time_ms(lambda: torch.sparse.mm(At, y1), 5) * scale
+    report(records, "backproject_3d", err, ms, pms,
+           err <= 1e-4 * big and ident <= 1e-4,
+           (nbytes(y, src, dirs, back), 9 * steps + 60 * n_rays),
+           library_ms=lib_adj,
+           extra=f" (max |plain| {big:.6g}; <Ax, y> = {lhs:.8g}, <x, A^T y>"
+                 f" = {rhs:.8g}, rel {ident:.3g}; library = CSR of A^T on "
+                 f"every {every}th view x {scale:g})")
+    del A, At
+
+
+def pi_kernel_phase(ccfg, records, dev):
+    """Phase 3, cone-parallel PI method on the helical config's
+    monoenergetic sinogram (60 keV): K5 at 4 taps on the 16 detector rows
+    (the library yardstick the same taps as a CSR product), then K20 on the
+    filtered lines (nt = 512, 19 slices)."""
+    import numpy as np
+    import torch
+
+    from dexct_tpu_torch.ops import conebeam, fbp_fast, helical_pi
+    from dexct_tpu_torch.ops.fbp import filter_views
+    from dexct_tpu_torch.ops.filters import filter_frequency_response
+    from dexct_tpu_torch.ops.siddon import mono_sinogram
+
+    ct, ph = ccfg.ct, ccfg.phantom
+    V, R, C = ct.N_proj, ct.N_rows, ct.N_channels
+    src, dirs = cone_rays(ct, dev)
+    sino = mono_sinogram(conebeam.trace_paths_3d(
+        conebeam.labels_u8(ph.labels, dev), src, dirs, ph.dx, ph.dy, ph.dz,
+        n_materials=ph.n_materials), mono_mu(ph, dev))
+    del src, dirs
+    nt = 2 * C
+    cosk = ct.SID / np.sqrt(ct.SID ** 2 + np.asarray(ct.z_iso) ** 2)
+    rows = (sino * conebeam._f32(cosk, dev)[None, :, None]).permute(
+        1, 0, 2).contiguous()
+    idx, w, t0, dt, thetas = helical_pi._conepar_rebin_plan(ct, nt)
+    idx, w = torch.as_tensor(idx, device=dev), torch.as_tensor(w, device=dev)
+    par, want, ms, pms = compare(
+        lambda: fbp_fast.rebin_to_parallel(rows, idx, w, nt, taps=4),
+        lambda: fbp_fast.rebin_to_parallel_plain(rows, idx, w, nt, taps=4),
+        reps=5)
+    err, big = max_err(par, want)
+    n_bins = V * nt
+    first = idx.reshape(-1, 4)[:, 0::2].to(torch.int64)
+    cols = torch.stack([first, first + 1], -1).reshape(-1)
+    W = sparse_taps(torch.arange(n_bins, device=dev).repeat_interleave(4),
+                    cols, w, (n_bins, V * C))
+    dense = rows.reshape(R, -1).T.contiguous()
+    lib_err = float((torch.sparse.mm(W, dense).T.reshape(par.shape)
+                     - want).abs().max())
+    lib_ms = time_ms(lambda: torch.sparse.mm(W, dense), 5)
+    del W, dense
+    b_ms, by = bound(nbytes(rows, idx, w, par), n_bins * 4 * 2 * R)
+    print(f"  rebin_to_parallel at 4 taps (PI plan, {V} x {nt} bins, K = {R}"
+          f" rows): max_abs_err={err:.6g} (max |plain| {big:.6g})  kernel="
+          f"{ms:.4f} ms  plain={pms:.4f} ms  bound={b_ms:.4f} ms ({by})  "
+          f"library={lib_ms:.4f} ms (CSR torch.sparse.mm, err {lib_err:.3g})"
+          f"  [{KERNELS['rebin_to_parallel'][3]}]")
+    if err > 1e-5 * big:
+        fail("rebin_to_parallel disagrees with its plain version at 4 taps")
+    H, m = filter_frequency_response(nt, dt, ccfg.ramp, "sinc", "parallel")
+    parf = filter_views(par, 1.0, conebeam._f32(H, dev), m,
+                        dt).permute(1, 2, 0).contiguous()
+    del par, want
+    z_out = helical_pi._default_z(ct, float(ct.pitch))
+    th = torch.as_tensor(thetas, device=dev)
+    N, fov = ccfg.N_matrix, ccfg.FOV
+    args = (parf, ct.SID, ct.h_iso, R, float(ct.pitch),
+            float(np.asarray(ct.source_z)[0]), th, t0, dt, nt, N, len(z_out),
+            fov, float(z_out[1] - z_out[0]), float(z_out[0]),
+            float(ct.rotation_total / V))
+    vol, want, ms, pms = compare(
+        lambda: helical_pi._pi_backproject(*args),
+        lambda: helical_pi._pi_backproject_plain(*args), reps=1)
+    err, big = max_err(vol, want)
+    # the terms the function needs: (line, slice, pixel) of nonzero weight
+    # take the copies' windows and the taps (~230 operations); every other
+    # one its t and channel test (8)
+    X, Y, _ = conebeam._disc(N, fov, dev)
+    zc = conebeam._f32(z_out, dev)[None, :, None]
+    terms = 0
+    for v0 in range(0, V, 8):
+        terms += int((helical_pi._pi_terms(
+            X, Y, zc, th[v0:v0 + 8], th, ct.SID, ct.h_iso, R,
+            float(ct.pitch), float(np.asarray(ct.source_z)[0]), t0, dt,
+            nt)[5] != 0).sum())
+    P = X.shape[0]
+    report(records, "pi_backproject", err, ms, pms, err <= 1e-4 * big,
+           (nbytes(parf, vol) + 8 * P + 12 * V,
+            P * len(z_out) * V * 8 + terms * 230),
+           extra=f" (max |plain| {big:.6g}; {len(z_out)} slices, {V} lines "
+                 f"x {nt} x {R}; {terms} weighted pixel-slice-lines of "
+                 f"{P * len(z_out) * V})")
+
+
 def zstack_workload():
     """The z-stack workload: the geometry, the 8-slice rolled pelvis and the
     JAX bench's spectra (linac 9 mGy, 80 kV 1 mGy)."""
@@ -1005,7 +1298,8 @@ def ffs_kernel_phase(cfg, spectra, dev):
 
 def counters():
     from dexct_tpu_torch.ops import (conebeam, fbp_fast, flatpanel, fourier,
-                                     katsevich, matdecomp, siddon, spectral)
+                                     helical_pi, katsevich, matdecomp,
+                                     siddon, spectral)
     from dexct_tpu_torch.system import analytic
 
     return {"siddon_trace": siddon.trace_paths,
@@ -1024,7 +1318,18 @@ def counters():
             "katsevich_derivative": katsevich._fixed_direction_derivative,
             "katsevich_backproject": katsevich._katsevich_backproject,
             "trilinear_sample": conebeam._trilinear_volume_sample,
-            "siddon_trace_stack": siddon.trace_paths_stack}
+            "siddon_trace_stack": siddon.trace_paths_stack,
+            "project_3d": conebeam.project_volume_3d,
+            "backproject_3d": conebeam.project_volume_3d_adjoint,
+            "pi_backproject": helical_pi._pi_backproject}
+
+
+def zero_counters():
+    """The launch counters, each set to 0."""
+    fns = counters()
+    for fn in fns.values():
+        fn.launches = 0
+    return fns
 
 
 def check_launches(label, fns, path_kernels, records):
@@ -1103,15 +1408,21 @@ def check_outputs(out_dir, run_id, n_views, n_ch, n_img,
     return len(want)
 
 
-def roi_mean(vol, x, y, iz, fov=40.0):
-    """Mean of the 1 cm x 1 cm ROI centred at (x, y) cm in slice ``iz`` of
-    a [nz, N, N] volume over ``fov`` cm."""
+def roi_box(vol, x, y, iz, fov=40.0, half_cm=0.5):
+    """The square ROI of half-width ``half_cm`` centred at (x, y) cm in
+    slice ``iz`` of a [nz, N, N] volume over ``fov`` cm."""
     n_img = vol.shape[-1]
     px = fov / n_img
     iy = int(round(y / px + n_img / 2 - 0.5))
     ix = int(round(x / px + n_img / 2 - 0.5))
-    h = max(int(round(0.5 / px)), 1)
-    return float(vol[iz, iy - h:iy + h, ix - h:ix + h].mean())
+    h = max(int(round(half_cm / px)), 1)
+    return vol[iz, iy - h:iy + h, ix - h:ix + h]
+
+
+def roi_mean(vol, x, y, iz, fov=40.0):
+    """Mean of the 1 cm x 1 cm ROI centred at (x, y) cm in slice ``iz`` of
+    a [nz, N, N] volume over ``fov`` cm."""
+    return float(roi_box(vol, x, y, iz, fov).mean())
 
 
 def check_outputs_3d(out_dir, run_id, vrc, nz, n_img, tilted=False):
@@ -1313,9 +1624,7 @@ def analytic_path(records, smi):
     from dexct_tpu_torch.system.config import read_parameter_file
 
     cfg = read_parameter_file(PARAMS)[0]
-    fns = counters()
-    for fn in fns.values():
-        fn.launches = 0
+    fns = zero_counters()
     walls = []
     for _ in (1, 2):
         t0 = time.perf_counter()
@@ -1558,9 +1867,7 @@ def zstack_path(records, work, smi):
     dev = torch.device("cuda")
     kw = dict(device=dev, n_iters=50, projector="siddon", recon="parallel")
     n_img, fov = 512, 50.0
-    fns = counters()
-    for fn in fns.values():
-        fn.launches = 0
+    fns = zero_counters()
     walls = []
     for _ in (1, 2):
         t0 = time.perf_counter()
@@ -1610,6 +1917,235 @@ def zstack_path(records, work, smi):
     zstack_step(arrays, meta, axes)
     st.mark("zstack_step")
     print_stages("zstack", st.t, lambda: zstack_step(arrays, meta, axes), smi)
+
+
+def helical_weightings_path(ccfg, spectra, records, smi, witness=None):
+    """Phase 4, the gFDK study weightings through the library:
+    ``pack_cone_dect(weighting=w)`` + ``cone_dect_step`` on the helical
+    config for 'pair' (twice), 'td' and 'short', with the launch counters
+    and the outputs checked: exact shapes, finite values, and the central
+    slice's air and body ROIs within REF_TOL_HU of what the JAX package
+    reads there in that weighting (WEIGHTING_REF_HU; these windows differ
+    from 'full' near the FOV's edge).  With ``witness``, the log sinograms
+    and each weighting's central slice (HU) go to
+    ``witness/helical_weightings.npz`` for that comparison."""
+    import numpy as np
+    import torch
+
+    from dexct_tpu_torch.pipeline.cone import cone_dect_step, pack_cone_dect
+
+    ct = ccfg.ct
+    dev = torch.device("cuda")
+    fns = zero_counters()
+    saved = {}
+    for w, run in (("pair", 1), ("pair", 2), ("td", 1), ("short", 1)):
+        st = Stages()
+        arrays, meta = pack_cone_dect(
+            ct, ccfg.phantom, *spectra(ct), ccfg.N_matrix, ccfg.FOV,
+            ccfg.ramp, device=dev, n_iters=50, weighting=w)
+        st.mark("pack_cone_dect")
+        out = cone_dect_step(arrays, meta)
+        st.mark("cone_dect_step")
+        wall = sum(st.t.values()) / 1e3
+        vols = out["recon_HU"]
+        shape = (meta.nz_out, ccfg.N_matrix, ccfg.N_matrix)
+        for key in out:
+            for i, x in enumerate(out[key]):
+                if not bool(torch.isfinite(x).all()):
+                    fail(f"helical weighting {w}: {key}[{i}] holds "
+                         "non-finite values")
+        if tuple(vols[0].shape) != shape:
+            fail(f"helical weighting {w}: volume shape {tuple(vols[0].shape)}")
+        air = [roi_mean(v.cpu().numpy(), 0.0, -18.0, shape[0] // 2)
+               for v in vols]
+        body = [roi_mean(v.cpu().numpy(), 0.0, 0.0, shape[0] // 2)
+                for v in vols]
+        ref_air, ref_body = WEIGHTING_REF_HU[w]
+        d = [got - ref for got, ref in zip(air + body, ref_air + ref_body)]
+        print(f"helical weighting {w} (run {run}, library): wall per DE pair"
+              f" {wall:.3f} s (pack {st.t['pack_cone_dect']:.1f} ms, step "
+              f"{st.t['cone_dect_step']:.1f} ms) on {smi}; air ROI HU "
+              f"{air[0]:.2f}, {air[1]:.2f}; body ROI HU {body[0]:.2f}, "
+              f"{body[1]:.2f} (minus the reference's: air {d[0]:.2f}, "
+              f"{d[1]:.2f}; body {d[2]:.2f}, {d[3]:.2f})")
+        if not max(abs(x) for x in d) <= REF_TOL_HU:
+            fail(f"helical weighting {w}: the air and body ROIs are {d} HU "
+                 "off the reference's")
+        if witness is not None and run == 1:
+            saved[f"hu_{w}"] = torch.stack(
+                [v[shape[0] // 2] for v in vols]).cpu().numpy()
+            saved["sino_log"] = torch.stack(out["sino_log"]).cpu().numpy()
+            saved["mu_w"] = np.array([meta.mu_w1, meta.mu_w2])
+    check_launches("helical_weightings", fns, HELICAL_WEIGHTING_KERNELS,
+                   records)
+    if witness is not None:
+        witness.mkdir(parents=True, exist_ok=True)
+        np.savez(witness / "helical_weightings.npz", **saved)
+        print(f"  wrote {witness / 'helical_weightings.npz'}")
+
+
+def cone_pwls_path(ccfg, records, smi):
+    """Phase 4, exact 3-D iterative reconstruction through the library on
+    the cone config: the 60 keV sinogram from ``cone_material_paths``
+    (K10), Poisson counts at PWLS_N0 per ray from a seeded generator, an
+    FDK warm start (K11) on the phantom's voxel grid, ``cone_pwls_recon``
+    (60 iterations, beta 3e-2; K18, K19) and ``cone_cg_recon`` (30
+    iterations), twice, with the launch counters checked.  The bladder
+    (water) ROI of the central slice must read mu_w within 5 % with a
+    standard deviation below 0.6 x FDK's (the JAX package's
+    test_cone_pwls_low_dose checks), and CG's residual must fall."""
+    import torch
+
+    from dexct_tpu_torch.ops import conebeam
+    from dexct_tpu_torch.ops.siddon import mono_sinogram
+
+    ct, ph = ccfg.ct, ccfg.phantom
+    dev = torch.device("cuda")
+    shape = tuple(ph.labels.shape)
+    vox = (ph.dx, ph.dy, ph.dz)
+    n, fov = shape[-1], shape[-1] * ph.dx
+    fns = zero_counters()
+    for run in (1, 2):
+        st = Stages()
+        sino = mono_sinogram(conebeam.cone_material_paths(ph, ct, device=dev),
+                             mono_mu(ph, dev))
+        st.mark("cone_material_paths + mono_sinogram")
+        gen = torch.Generator(device=dev).manual_seed(5)
+        counts = torch.clamp_min(torch.poisson(
+            PWLS_N0 * torch.exp(-sino), generator=gen), 1.0)
+        y = -torch.log(counts / PWLS_N0)
+        st.mark("Poisson counts")
+        fdk = conebeam.fdk_reconstruct(y, ct, n, fov, ccfg.ramp,
+                                       nz_out=shape[0], dz_out=ph.dz)
+        st.mark("FDK warm start")
+        x = conebeam.cone_pwls_recon(y, counts, ct, shape, vox, n_iters=60,
+                                     beta=3e-2,
+                                     x0=torch.clamp_min(fdk, 0.0))
+        st.mark("cone_pwls_recon (60 iterations)")
+        vol_cg, hist = conebeam.cone_cg_recon(y, ct, shape, vox, n_iters=30)
+        st.mark("cone_cg_recon (30 iterations)")
+        wall = sum(st.t.values()) / 1e3
+        print(f"cone_pwls path (library, run {run}): {wall:.3f} s on {smi}; "
+              "stages (ms): " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in st.t.items()))
+    check_launches("cone_pwls", fns, CONE_PWLS_KERNELS, records)
+    mu_w = float(mono_mu(ph, dev)[5])  # label 5: water (the bladder)
+    # 2 cm x 2 cm inside the bladder (its centre lies at y = 1.8 cm)
+    xr, fr = (roi_box(v, 0.0, 1.8, shape[0] // 2, fov, 1.0) for v in (x, fdk))
+    bias = abs(float(xr.mean()) - mu_w) / mu_w
+    ratio = float(xr.std()) / float(fr.std())
+    h = hist.cpu()
+    print(f"  bladder ROI: PWLS mean {float(xr.mean()):.5f} (mu_w {mu_w:.5f}"
+          f", off {bias:.4f}; FDK mean {float(fr.mean()):.5f}), std "
+          f"{float(xr.std()):.5f} = {ratio:.3f} x FDK's "
+          f"{float(fr.std()):.5f}; CG residual {float(h[0]):.6g} -> "
+          f"{float(h[-1]):.6g}; finite: "
+          f"{bool(torch.isfinite(x).all() and torch.isfinite(vol_cg).all())}")
+    if not (bias < 0.05 and ratio < 0.6 and float(h[-1]) < float(h[0])
+            and bool(torch.isfinite(x).all())
+            and bool(torch.isfinite(vol_cg).all())):
+        fail("the cone PWLS/CG path misses its physics checks")
+
+
+def helical_pi_path(ccfg, records, smi):
+    """Phase 4, the cone-parallel PI method through the library on the
+    helical config's 60 keV sinogram (K10, then ``helical_pi_reconstruct``:
+    K5 at 4 taps, K20), twice, with the launch counters checked; finite
+    values, and the bladder ROI within BODY_TOL_HU of the helical gFDK's
+    (``helical_fdk_reconstruct`` on the same sinogram, run after the count)
+    in 60 keV HU."""
+    import torch
+
+    from dexct_tpu_torch.ops import conebeam, helical_pi
+    from dexct_tpu_torch.ops.siddon import mono_sinogram
+
+    ct, ph = ccfg.ct, ccfg.phantom
+    dev = torch.device("cuda")
+    fns = zero_counters()
+    for run in (1, 2):
+        st = Stages()
+        sino = mono_sinogram(conebeam.cone_material_paths(ph, ct, device=dev),
+                             mono_mu(ph, dev))
+        st.mark("cone_material_paths + mono_sinogram")
+        vol = helical_pi.helical_pi_reconstruct(sino, ct, ccfg.N_matrix,
+                                                ccfg.FOV, ccfg.ramp)
+        st.mark("helical_pi_reconstruct")
+        print(f"helical_pi path (library, run {run}): "
+              f"{sum(st.t.values()) / 1e3:.3f} s on {smi}; stages (ms): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in st.t.items()))
+    check_launches("helical_pi", fns, HELICAL_PI_KERNELS, records)
+    ref = conebeam.helical_fdk_reconstruct(sino, ct, ccfg.N_matrix, ccfg.FOV,
+                                           ccfg.ramp)
+    mu_w = float(mono_mu(ph, dev)[5])
+    hu = [(1000.0 * (v - mu_w) / mu_w).cpu().numpy() for v in (vol, ref)]
+    iz = vol.shape[0] // 2
+    body = [roi_mean(h, 0.0, 0.0, iz) for h in hu]
+    air = [roi_mean(h, 0.0, -18.0, iz) for h in hu]
+    print(f"  {vol.shape[0]} slices; bladder ROI HU (60 keV): PI "
+          f"{body[0]:.2f}, gFDK {body[1]:.2f}; air ROI HU: PI {air[0]:.2f}, "
+          f"gFDK {air[1]:.2f}")
+    if not (bool(torch.isfinite(vol).all())
+            and abs(body[0] - body[1]) <= BODY_TOL_HU
+            and abs(air[0] + 1000.0) <= 50.0):
+        fail("the helical PI path misses its checks")
+
+
+def library_devices_phase():
+    """Phase 5: tiny versions of the three library paths on the CPU and on
+    the card: the helical 'pair' weighting through the fused cone step
+    (pipeline tolerances), cone PWLS and CG fed one start vector (1e-3 x
+    max: the adjoint's atomics add in no fixed order), the PI method (1e-4
+    x max)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from dexct_tpu_torch.ops import conebeam, helical_pi
+    from dexct_tpu_torch.physics import kramers_spectrum, linac_spectrum
+    from dexct_tpu_torch.pipeline.cone import cone_dect_step, pack_cone_dect
+    from dexct_tpu_torch.system import (ConeBeamGeometry,
+                                        HelicalConeBeamGeometry,
+                                        water_cylinder_phantom)
+
+    helix = HelicalConeBeamGeometry(N_channels=64, N_proj=96, N_rows=8,
+                                    h_iso=0.5, eid=True, pitch=3.0)
+    ph2 = water_cylinder_phantom(N=48, dx=0.5)
+    ph3 = dataclasses.replace(
+        ph2, labels=np.broadcast_to(ph2.labels[0], (16, 48, 48)).copy(),
+        dz=0.5)
+    s1, s2 = linac_spectrum(), kramers_spectrum(80.0)
+    s1.rescale_counts(helix.A_iso * 9.0 / helix.N_proj)
+    s2.rescale_counts(helix.A_iso * 1.0 / helix.N_proj)
+    cpu, gpu = (cone_dect_step(*pack_cone_dect(
+        helix, ph3, s1, s2, 48, 20.0, 0.8, device=d, n_iters=8,
+        weighting="pair")) for d in ("cpu", "cuda"))
+    close_outputs(gpu, cpu, "tiny helical weighting pair")
+    print("  helical weighting pair: every output agrees between the CPU "
+          "and the card")
+    rng = np.random.default_rng(26)
+    ct = ConeBeamGeometry(N_channels=32, N_proj=48, N_rows=4, h_iso=0.5)
+    sino = rng.uniform(0.5, 2.0, (48, 4, 32)).astype(np.float32)
+    counts = np.maximum(1500.0 * np.exp(-sino), 1.0)
+    v0 = rng.normal(size=(4, 24, 24)).astype(np.float32)
+    pw = [conebeam.cone_pwls_recon(sino, counts, ct, (4, 24, 24),
+                                   (1.0, 1.0, 1.0), n_iters=20, beta=3e-2,
+                                   device=d, _v0=v0).cpu()
+          for d in ("cpu", "cuda")]
+    cg = [conebeam.cone_cg_recon(sino, ct, (4, 24, 24), (1.0, 1.0, 1.0),
+                                 n_iters=6, device=d)[0].cpu()
+          for d in ("cpu", "cuda")]
+    hsino = rng.uniform(0.5, 1.5, (96, 8, 64)).astype(np.float32)
+    pi = [helical_pi.helical_pi_reconstruct(
+        torch.as_tensor(hsino, device=d), helix, 48, 20.0, 0.8).cpu()
+        for d in ("cpu", "cuda")]
+    for label, (c, g), tol in (("cone PWLS", pw, 1e-3), ("cone CG", cg, 1e-3),
+                               ("helical PI", pi, 1e-4)):
+        err = float((g - c).abs().max())
+        print(f"  {label}: card vs CPU max abs {err:.3g} (max "
+              f"{float(c.abs().max()):.4g})")
+        if not err <= tol * float(c.abs().max()):
+            fail(f"tiny {label} differs between the CPU and the card")
 
 
 FILE_TOL = {"sino_raw": dict(rtol=1e-4, atol=0.0),
@@ -1734,6 +2270,16 @@ def cone_devices_phase(tmp, label, spec, flags):
 
 
 def main():
+    parser = argparse.ArgumentParser(
+        description="Chip smoke test of the PyTorch port on one GPU.")
+    parser.add_argument(
+        "--witness", type=lambda p: Path(p).resolve(), default=None,
+        help="also write the helical config's log sinograms and the "
+             "weighted library paths' central slices to this directory, for "
+             "the witness in tests/test_torch_cone.py")
+    args = parser.parse_args()
+    # line by line, also into a pipe: a run cut short keeps what it printed
+    sys.stdout.reconfigure(line_buffering=True)
     try:
         import torch
     except ImportError:
@@ -1771,7 +2317,7 @@ def main():
                                torch.zeros(1, device=dev))
     torch.cuda.synchronize()
     t2 = time.time()
-    print(f"build: nvcc K1, K3-K13, K15-K17 {t1 - t0:.1f} s, triton K2 "
+    print(f"build: nvcc K1, K3-K13, K15-K20 {t1 - t0:.1f} s, triton K2 "
           f"{t2 - t1:.1f} s")
 
     # 3. kernels against their plain versions at the paths' shapes
@@ -1817,6 +2363,11 @@ def main():
                 ccfg.FOV, ccfg.ramp, device=dev, n_iters=50)
             cone_kernel_phase(arrays, meta, records, label == "helical")
         del arrays
+        torch.cuda.empty_cache()
+        project_kernel_phase(cone_cfgs["cone"], records)
+        torch.cuda.empty_cache()
+        pi_kernel_phase(cone_cfgs["helical"], records, dev)
+        torch.cuda.empty_cache()
         stateless_phases = (("flat", flat_kernel_phase),
                             ("tilted", tilted_kernel_phase),
                             ("zffs",
@@ -1835,19 +2386,16 @@ def main():
                          spectra, dev)
         torch.cuda.empty_cache()
 
-        # 4. the paths: four through the CLI, the analytic projector
-        # through the library
+        # 4. the paths: the CLI's, then the library's
         from dexct_tpu_torch.run import main as run_main
 
-        fns = counters()
         for name in KERNELS:
             records[name]["launches"] = 0
         bodies = {}
         for label, (flags, config, path_kernels) in PATHS.items():
             params = config_files[config] if config else PARAMS
             cone = config if config in CONE_CONFIGS else None
-            for fn in fns.values():
-                fn.launches = 0
+            fns = zero_counters()
             walls = []
             for i in (1, 2):
                 res = run_main(["--params", str(params), "--output",
@@ -1900,6 +2448,12 @@ def main():
         zstack_path(records, work, smi)
         del work
         torch.cuda.empty_cache()
+        helical_weightings_path(cone_cfgs["helical"], spectra, records, smi,
+                                args.witness)
+        cone_pwls_path(cone_cfgs["cone"], records, smi)
+        torch.cuda.empty_cache()
+        helical_pi_path(cone_cfgs["helical"], records, smi)
+        torch.cuda.empty_cache()
 
         # 5. every path on both devices
         for label, (flags, config, _) in PATHS.items():
@@ -1909,6 +2463,7 @@ def main():
                 both_devices_phase(tmp, label, flags,
                                    CONFIGS_2D.get(config))
         zstack_devices_phase()
+        library_devices_phase()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -9,16 +9,19 @@ an in-plane flying focal spot), on parallel-beam configs, as a z-stack of
 slices, on cone-beam, helical, flat-panel and gantry-tilted configs (with
 a z flying focal spot and exact Katsevich helical reconstruction), and with
 the analytic projector, optionally with beam-hardening correction and the
-learned denoiser, through seventeen hand-written kernels on the card
-(K1-K17, sources in ``csrc/``, ``ops/spectral.py`` and
-``ops/katsevich.py``) with plain PyTorch versions of each on the CPU.
+learned denoiser, through twenty hand-written kernels on the card (K1-K20,
+sources in ``csrc/``, ``ops/spectral.py`` and ``ops/katsevich.py``) with
+plain PyTorch versions of each on the CPU.  The library also offers the
+helical study reconstructors (every gFDK weighting, the cone-parallel PI
+method) and exact 3-D iterative reconstruction (CG, PWLS).
 
 Layer map (as in dexct_tpu):
     physics/   attenuation tables, spectra, detectors, materials (host NumPy)
     system/    scanner geometry, voxel and analytic phantoms (K9), run config
     ops/       siddon (K1, K17), spectral (K2), matdecomp (K3), fbp/fbp_fast
                (K4-K6), ffs (K5 at 16 taps), fourier (K7, K8), conebeam
-               (K10-K12, K16), flatpanel (K13), katsevich (K14, K15), bhc
+               (K10-K12, K16, K18, K19), flatpanel (K13), katsevich (K14,
+               K15), helical_pi (K5 at 4 taps, K20), iterative, bhc
     pipeline/  reference-compatible API, fused 2-D, z-stack and cone steps,
                CLI runner
     learn/     the DnCNN denoiser (inference, cuDNN)

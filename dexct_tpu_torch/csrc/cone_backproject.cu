@@ -1,9 +1,10 @@
 // Voxel-driven backprojection of K filtered cone-beam stacks, four kernels
 // with one set of tap device functions:
 // - K11 fdk_backproject: circular Feldkamp (cylindrical detector);
-// - K12 helical_backproject: generalized Feldkamp on a helix, weighting
-//   "full" (each voxel takes the views within pi of its slice's window
-//   centre beta_c);
+// - K12 helical_backproject: generalized Feldkamp on a helix, in each of the
+//   reference's six view weightings (full, feather, td, cosz, short, pair:
+//   the window each voxel's views are weighted by around its slice's centre
+//   beta_c);
 // - K13 flat_backproject: circular Feldkamp on a flat panel;
 // - K15 katsevich_backproject: the PI-window backprojection of Katsevich's
 //   exact helical inversion.
@@ -29,7 +30,8 @@
 // channels of the same detector rows.  K11 and K13 stage cos/sin of the view
 // angles in shared memory (kChunk views at a time) and visit every view.
 // K12 and K15 visit only the views that can reach their slice, the views
-// being uniformly spaced: K12 those within pi of beta_c, K15 those whose
+// being uniformly spaced: K12 those within the weighting's half-width hw pi
+// of beta_c (the reference's _helical_window_halfwidth), K15 those whose
 // source z lies within z_reach of the slice (z_reach bounds the tapered
 // Tam-Danielsson window's height over the FOV), each with a two-view
 // margin; the exact per-view tests below decide the rest, and the views
@@ -47,10 +49,12 @@
 // the channels c0 and c0 + 1.
 // K11: c = atan2(-vt, ell) / dgamma - 0.5 + C/2, ridx = z sid inv_h / row_h
 // - 0.5 + R/2, weight 1 / h2; the sum is multiplied by dbeta.
-// K12: c as K11, ridx = (z - src_z[v]) sid inv_h / row_h - 0.5 + R/2 +
-// row_off[v], weight 1 / h2; a view inside the window (|beta[v] - beta_c| <=
-// pi) and on the detector adds 1 to the denominator and, inside the fan, its
-// tap to the numerator; out = (den > 0 ? num / max(den, 1e-30) : 0) 2 pi.
+// K12: c as K11, zt = (z - src_z[v]) sid inv_h, ridx = zt / row_h - 0.5 +
+// R/2 + row_off[v]; a view on the detector with window weight w (below,
+// from d = beta[v] - beta_c, gam = atan2(-vt, ell) and zt; each jnp.where
+// and clip of the reference's win_weight in its order) adds w to the
+// denominator and, inside the fan, (1 / h2) w times its tap to the
+// numerator; out = (den > 0 ? num / max(den, 1e-30) : 0) 2 pi.
 // K13: u = -sid vt / ell, c = u / du - 0.5 - off_c + C/2, ridx = (sid z /
 // ell) / dv - 0.5 - off_r + R/2, weight sid^2 / ell^2; the sum is multiplied
 // by dbeta / 2.
@@ -60,17 +64,23 @@
 // w_td = clamp((zt - hbot) / taper + 0.5, 0, 1) clamp((htop - zt) / taper +
 // 0.5, 0, 1); weight w_td / max(ell, 1e-3); rows linear as above or
 // Catmull-Rom over rows r0-1 .. r0+2 (clamped to the detector); the sum is
-// multiplied by -dbeta / 2 pi.
+// multiplied by -dbeta / 2 pi.  K12's `td` window and K15's come from
+// td_window.cuh, which K20 (pi_backproject.cu) shares.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <type_traits>
 
+#include "td_window.cuh"
+
 namespace {
 
+using dexct_td::clampf;
+using dexct_td::kHalfPi;
+using dexct_td::kPi;
+using dexct_td::kTwoPi;
+
 constexpr int kChunk = 512;
-constexpr float kPi = 3.14159265358979323846f;     // float32(pi)
-constexpr float kTwoPi = 6.28318530717958647692f;  // float32(2 pi)
 
 // The detector constants every view shares.
 struct Detector {
@@ -215,7 +225,91 @@ __global__ void fdk_backproject_kernel(
   for (int k = 0; k < K; ++k) out[k * vol + dst] = acc[k] * dbeta;
 }
 
-template <int K>
+// The scalars of K12's windows, each the reference's Python float rounded
+// once to float32 (computed on the host in float64).
+struct Window {
+  float hwpi, pitch, qp, nqp, taper, hmax, gm, pi_2gm, two_sid, hdet, scale;
+};
+
+enum Weighting { kFull, kFeather, kTd, kCosz, kShort, kPair };
+
+constexpr float kQuarterPi = 0.78539816339744830962f;  // float32(pi / 4)
+constexpr float kOneHalfPi = 4.71238898038468985769f;  // float32(1.5 pi)
+
+__device__ __forceinline__ float cos2(float x) {
+  const float c = cosf(x);
+  return __fmul_rn(c, c);
+}
+
+// The window weight of one view without its on-detector factor: d = beta -
+// beta_c, gam the fan angle, zt the iso-scaled row height of the slice z,
+// sz the source z, t the view's in-plane geometry.
+template <int W>
+__device__ __forceinline__ float window_weight(const Window& k, float d,
+                                               float gam, float zt, float z,
+                                               float sz, const ViewTap& t,
+                                               float sid) {
+  if (W == kFull) return fabsf(d) <= kPi ? 1.0f : 0.0f;
+  if (W == kFeather) {
+    const float dd = __fdiv_rn(fabsf(d), kPi);
+    return cos2(__fmul_rn(
+        clampf(__fdiv_rn(__fsub_rn(dd, 0.75f), 0.5f), 0.0f, 1.0f), kHalfPi));
+  }
+  if (W == kTd) {
+    if (!(fabsf(d) <= kOneHalfPi)) return 0.0f;
+    return dexct_td::weight<false>(
+        zt, dexct_td::over_cos(dexct_td::bounds(k.qp, k.nqp, gam), cosf(gam)),
+        k.taper);
+  }
+  if (W == kCosz) {
+    if (!(fabsf(d) <= kOneHalfPi)) return 0.0f;
+    return __fadd_rn(
+        cos2(__fmul_rn(clampf(__fdiv_rn(zt, k.hmax), -1.0f, 1.0f), kHalfPi)),
+        1e-3f);
+  }
+  if (W == kShort) {
+    const float alpha = __fadd_rn(__fadd_rn(d, kHalfPi), k.gm);
+    if (!(alpha >= 0.0f && alpha <= k.pi_2gm)) return 0.0f;
+    if (alpha < __fmul_rn(2.0f, __fsub_rn(k.gm, gam))) {
+      const float lo_den = fmaxf(__fsub_rn(k.gm, gam), 1e-3f);
+      const float s = sinf(__fmul_rn(
+          kQuarterPi, clampf(__fdiv_rn(alpha, lo_den), 0.0f, 2.0f)));
+      return __fmul_rn(s, s);
+    }
+    if (alpha > __fsub_rn(kPi, __fmul_rn(2.0f, gam))) {
+      const float hi_den = fmaxf(__fadd_rn(k.gm, gam), 1e-3f);
+      const float s = sinf(__fmul_rn(
+          kQuarterPi,
+          clampf(__fdiv_rn(__fsub_rn(k.pi_2gm, alpha), hi_den), 0.0f, 2.0f)));
+      return __fmul_rn(s, s);
+    }
+    return 1.0f;
+  }
+  // kPair: the conjugate copy's row height, a smooth pairwise partition
+  if (!(fabsf(d) <= kPi)) return 0.0f;
+  const float two_g = __fmul_rn(2.0f, gam);
+  const float dbc =
+      d > -two_g ? -__fsub_rn(kPi, two_g) : __fadd_rn(kPi, two_g);
+  const float sz_conj =
+      __fadd_rn(sz, __fdiv_rn(__fmul_rn(dbc, k.pitch), kTwoPi));
+  const float h_own = __fmul_rn(t.h2, t.inv_h);
+  const float h_conj =
+      fmaxf(__fsub_rn(__fmul_rn(k.two_sid, cosf(gam)), h_own), 1e-3f);
+  const float zt_c = __fdiv_rn(__fmul_rn(__fsub_rn(z, sz_conj), sid), h_conj);
+  const float k_own = __fadd_rn(
+      cos2(__fmul_rn(clampf(__fdiv_rn(zt, k.scale), -1.0f, 1.0f), kHalfPi)),
+      1e-4f);
+  const float k_c =
+      fabsf(zt_c) <= k.hdet
+          ? __fadd_rn(cos2(__fmul_rn(
+                          clampf(__fdiv_rn(zt_c, k.scale), -1.0f, 1.0f),
+                          kHalfPi)),
+                      1e-4f)
+          : 0.0f;
+  return __fdiv_rn(k_own, __fadd_rn(__fadd_rn(k_own, k_c), 1e-30f));
+}
+
+template <int K, int W>
 __global__ void helical_backproject_kernel(
     const float* __restrict__ qs, const float* __restrict__ cos_b,
     const float* __restrict__ sin_b, const float* __restrict__ betas,
@@ -224,7 +318,7 @@ __global__ void helical_backproject_kernel(
     const float* __restrict__ Y, const long long* __restrict__ sel,
     const float* __restrict__ zc, float* __restrict__ out, int V, int R,
     int C, int P, long long plane, float sid, float dgamma, float row_h,
-    float beta0, float dbeta) {
+    float beta0, float dbeta, Window win) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   const int iz = blockIdx.y;
   if (p >= P) return;
@@ -232,8 +326,11 @@ __global__ void helical_backproject_kernel(
   const float z = zc[iz];
   const float bc = beta_c[iz];
   const Detector d = make_detector(V, R, C);
-  const int v_lo = max(0, (int)floorf((bc - kPi - beta0) / dbeta) - 2);
-  const int v_hi = min(V - 1, (int)ceilf((bc + kPi - beta0) / dbeta) + 2);
+  // the views within hw pi of beta_c, with a two-view margin
+  const int v_lo =
+      max(0, (int)floorf((bc - win.hwpi - beta0) / dbeta) - 2);
+  const int v_hi =
+      min(V - 1, (int)ceilf((bc + win.hwpi - beta0) / dbeta) + 2);
 
   float num[K];
 #pragma unroll
@@ -241,19 +338,24 @@ __global__ void helical_backproject_kernel(
   float den = 0.0f;
 
   for (int v = v_lo; v <= v_hi; ++v) {
-    if (!(fabsf(__fsub_rn(__ldg(betas + v), bc)) <= kPi)) continue;
+    const float dv = __fsub_rn(__ldg(betas + v), bc);
+    if (W == kFull && !(fabsf(dv) <= kPi)) continue;
     const ViewTap t =
         view_tap(x, y, __ldg(cos_b + v), __ldg(sin_b + v), sid);
-    const float zt = __fmul_rn(
-        __fmul_rn(__fsub_rn(z, __ldg(src_z + v)), sid), t.inv_h);
+    const float sz = __ldg(src_z + v);
+    const float zt = __fmul_rn(__fmul_rn(__fsub_rn(z, sz), sid), t.inv_h);
     const float ridx = __fadd_rn(
         __fadd_rn(__fsub_rn(__fdiv_rn(zt, row_h), 0.5f), d.r_shift),
         __ldg(row_off + v));
     if (!on_detector(ridx, d)) continue;
-    den += 1.0f;  // the window and row weights are 1 from here on
-    const float c = channel(t, dgamma, d);
+    const float gam = atan2f(-t.vt, t.ell);
+    const float w = window_weight<W>(win, dv, gam, zt, z, sz, t, sid);
+    if (w == 0.0f) continue;
+    den += w;
+    const float c =
+        __fadd_rn(__fsub_rn(__fdiv_rn(gam, dgamma), 0.5f), d.c_shift);
     if (!in_fan(c, d)) continue;
-    add_taps<K>(qs, d, v, c, ridx, __fdiv_rn(1.0f, t.h2), num);
+    add_taps<K>(qs, d, v, c, ridx, __fmul_rn(__fdiv_rn(1.0f, t.h2), w), num);
   }
   const long long dst = (long long)iz * plane + sel[p];
   const long long vol = (long long)gridDim.y * plane;
@@ -372,15 +474,11 @@ __global__ void katsevich_backproject_kernel(
     const float ridx = __fadd_rn(__fsub_rn(__fdiv_rn(zt, row_h), 0.5f),
                                  d.r_shift);
     if (!on_detector(ridx, d)) continue;
-    const float cg = cosf(gam);
-    const float two_g = __fmul_rn(2.0f, gam);
-    const float htop = __fdiv_rn(__fmul_rn(qp, __fadd_rn(kPi, two_g)), cg);
-    const float hbot = __fdiv_rn(__fmul_rn(nqp, __fsub_rn(kPi, two_g)), cg);
-    const float w_lo = fminf(fmaxf(
-        __fadd_rn(__fdiv_rn(__fsub_rn(zt, hbot), taper), 0.5f), 0.0f), 1.0f);
-    const float w_hi = fminf(fmaxf(
-        __fadd_rn(__fdiv_rn(__fsub_rn(htop, zt), taper), 0.5f), 0.0f), 1.0f);
-    const float w_td = __fmul_rn(w_lo, w_hi);
+    // the window at -gam: htop = qp (pi + 2 gam) / cos gam, hbot = -qp (pi -
+    // 2 gam) / cos gam (negating gam is exact)
+    const float w_td = dexct_td::weight<true>(
+        zt, dexct_td::over_cos(dexct_td::bounds(qp, nqp, -gam), cosf(gam)),
+        taper);
     if (w_td == 0.0f) continue;
     const float w = __fmul_rn(__fdiv_rn(1.0f, fmaxf(t.ell, 1e-3f)), w_td);
     if (!kCubic) {
@@ -455,24 +553,37 @@ extern "C" int dexct_helical_backproject(
     const void* qs, const void* cos_b, const void* sin_b, const void* betas,
     const void* src_z, const void* row_off, const void* beta_c, const void* X,
     const void* Y, const void* sel, const void* zc, void* out, int n_images,
-    int V, int R, int C, int P, int nz, long long plane, float sid,
-    float dgamma, float row_h, float beta0, float dbeta, void* stream) {
+    int weighting, int V, int R, int C, int P, int nz, long long plane,
+    float sid, float dgamma, float row_h, float beta0, float dbeta,
+    float hwpi, float pitch, float qp, float nqp, float taper, float hmax,
+    float gm, float pi_2gm, float two_sid, float hdet, float scale,
+    void* stream) {
   if (P <= 0 || nz <= 0) return (int)cudaGetLastError();
-  if (C < 2 || R < 1 || nz > 65535 || !(dbeta > 0.0f))
+  if (C < 2 || R < 1 || nz > 65535 || !(dbeta > 0.0f) || weighting < 0 ||
+      weighting > kPair)
     return (int)cudaErrorInvalidValue;
+  const Window win{hwpi, pitch, qp, nqp, taper, hmax, gm, pi_2gm, two_sid,
+                   hdet, scale};
   const dim3 blocks((P + kThreads - 1) / kThreads, nz);
   return for_images(n_images, [&](auto k) {
-    helical_backproject_kernel<decltype(k)::value>
-        <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const float*>(qs), static_cast<const float*>(cos_b),
-            static_cast<const float*>(sin_b),
-            static_cast<const float*>(betas),
-            static_cast<const float*>(src_z),
-            static_cast<const float*>(row_off),
-            static_cast<const float*>(beta_c), static_cast<const float*>(X),
-            static_cast<const float*>(Y), static_cast<const long long*>(sel),
-            static_cast<const float*>(zc), static_cast<float*>(out), V, R, C,
-            P, plane, sid, dgamma, row_h, beta0, dbeta);
+    constexpr int kK = decltype(k)::value;
+    auto* kern = helical_backproject_kernel<kK, kFull>;
+    switch (weighting) {
+      case kFeather: kern = helical_backproject_kernel<kK, kFeather>; break;
+      case kTd: kern = helical_backproject_kernel<kK, kTd>; break;
+      case kCosz: kern = helical_backproject_kernel<kK, kCosz>; break;
+      case kShort: kern = helical_backproject_kernel<kK, kShort>; break;
+      case kPair: kern = helical_backproject_kernel<kK, kPair>; break;
+      default: break;
+    }
+    kern<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(qs), static_cast<const float*>(cos_b),
+        static_cast<const float*>(sin_b), static_cast<const float*>(betas),
+        static_cast<const float*>(src_z), static_cast<const float*>(row_off),
+        static_cast<const float*>(beta_c), static_cast<const float*>(X),
+        static_cast<const float*>(Y), static_cast<const long long*>(sel),
+        static_cast<const float*>(zc), static_cast<float*>(out), V, R, C, P,
+        plane, sid, dgamma, row_h, beta0, dbeta, win);
   });
 }
 

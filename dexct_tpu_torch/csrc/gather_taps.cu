@@ -4,10 +4,12 @@
 // K5 replaces dexct_tpu/ops/fbp_fast.py:rebin_to_parallel, the TPU program
 // that maps K fan sinograms [K, V*C] onto a (theta, t) parallel grid.  Its
 // plan (parallel_rebin_plan) gives each parallel bin 8 taps (16 for the
-// flying-focal-spot plan), listed as adjacent-channel pairs: the TPU
-// program reads only each pair's first index and takes the second tap from
-// a channel-rolled copy of the table, laid out as [V*C, 2K] rows so one
-// gather fetches a pair for all K images.  Here the pair's second tap is
+// flying-focal-spot plan; 4, the bilinear (beta, gamma) taps, for the
+// cone-parallel rebin of dexct_tpu/ops/helical_pi.py:289-319, where the K
+// table rows are the R detector rows), listed as adjacent-channel pairs:
+// the TPU program reads only each pair's first index and takes the second
+// tap from a channel-rolled copy of the table, laid out as [V*C, 2K] rows
+// so one gather fetches a pair for all K images.  Here the pair's second tap is
 // the next element of the same row (mod V*C, the roll's wrap), read
 // straight from the sinograms [K, V*C]; no rolled table is built.
 //
@@ -76,13 +78,17 @@ int launch(const void* table, const void* idx, const void* w, void* out,
 
 }  // namespace
 
-// sinos [K, n_src] -> out [K, n_bins]; idx/w [n_bins, taps], taps 8 or 16
+// sinos [K, n_src] -> out [K, n_bins]; idx/w [n_bins, taps], taps 4, 8 or
+// 16
 extern "C" int dexct_rebin_to_parallel(const void* sinos, const void* idx,
                                        const void* w, void* out,
                                        long long n_bins, int K,
                                        long long n_src, int taps,
                                        void* stream) {
   switch (taps) {
+    case 4:
+      return launch<4, true, false>(sinos, idx, w, out, n_bins, K, n_src,
+                                    stream);
     case 8:
       return launch<8, true, false>(sinos, idx, w, out, n_bins, K, n_src,
                                     stream);

@@ -1,7 +1,9 @@
 """The learned denoiser's checkpoint and its batched inference.
 
-Port of :mod:`dexct_tpu.learn.denoiser_io` (reading only):
+Port of :mod:`dexct_tpu.learn.denoiser_io`:
 
+* :func:`save_params` writes a :class:`DnCNN` as the JAX package's flax
+  checkpoint ``.npz`` (the same keys, HWIO kernels, the architecture meta);
 * :func:`load_params` reads a flax checkpoint ``.npz`` (path-keyed leaves
   such as ``['params']['Conv_0']['kernel']`` plus the ``__meta_features``
   and ``__meta_depth`` architecture entries) into a :class:`DnCNN`, turning
@@ -22,7 +24,7 @@ import torch
 
 from .cnn import DnCNN
 
-__all__ = ["flax_key", "load_params", "load_default_denoiser",
+__all__ = ["flax_key", "save_params", "load_params", "load_default_denoiser",
            "default_weights_path", "denoise_hu_batch"]
 
 _META_PREFIX = "__meta_"
@@ -33,6 +35,30 @@ def flax_key(layer, leaf):
     """The checkpoint key of ``leaf`` ('kernel' or 'bias') of the JAX
     model's ``Conv_{layer}``."""
     return f"['params']['Conv_{layer}']['{leaf}']"
+
+
+def save_params(path, model, *, features=None, depth=None):
+    """Write ``model`` (a :class:`DnCNN`) as one compressed ``.npz`` in the
+    JAX package's checkpoint format, readable by :func:`load_params` and by
+    ``dexct_tpu.learn.denoiser_io.load_params``: each ``Conv_i``'s HWIO
+    kernel and bias under its flax key, plus ``__meta_features`` and
+    ``__meta_depth``.  ``features`` and ``depth``, the JAX function's
+    keywords, must match the model's when given."""
+    for name, given in (("features", features), ("depth", depth)):
+        if given is not None and int(given) != getattr(model, name):
+            raise ValueError(f"{name}={given} but the model has "
+                             f"{getattr(model, name)}")
+    arrs = {}
+    for i, conv in enumerate(model.convs):
+        w = conv.weight.detach().to("cpu", torch.float32).numpy()
+        arrs[flax_key(i, "kernel")] = np.ascontiguousarray(
+            w.transpose(2, 3, 1, 0))  # OIHW -> HWIO
+        arrs[flax_key(i, "bias")] = conv.bias.detach().to(
+            "cpu", torch.float32).numpy()
+    arrs[_META_PREFIX + "features"] = np.asarray(model.features)
+    arrs[_META_PREFIX + "depth"] = np.asarray(model.depth)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez_compressed(path, **arrs)
 
 
 def load_params(path):

@@ -2,13 +2,15 @@
 polyenergetic counts (K2), Gauss-Newton decomposition (K3), fan-beam and
 rebinned parallel FBP (K4-K6), the in-plane flying-focal-spot FBP (K5 at
 16 taps, K6), the Fourier projector (K7, K8), beam-hardening correction,
-the cone-beam trace, FDK/helical backprojectors and tilted-gantry resample
-(K10-K12, K16), the flat-panel FDK (K13) and the Katsevich exact helical
-reconstruction (K14, K15)."""
+the cone-beam trace, FDK/helical backprojectors in every gFDK weighting and
+tilted-gantry resample (K10-K12, K16), the flat-panel FDK (K13), the
+Katsevich exact helical reconstruction (K14, K15), the exact 3-D projector
+and its adjoint (K18, K19) with the iterative loops (CG, PWLS) on them, and
+the cone-parallel PI method (K5 at 4 taps, K20)."""
 
 from . import bhc, conebeam, fbp, fbp_fast, ffs, filters, flatpanel, fourier
-from . import katsevich, matdecomp, siddon, spectral
+from . import helical_pi, iterative, katsevich, matdecomp, siddon, spectral
 
 __all__ = ["bhc", "conebeam", "fbp", "fbp_fast", "ffs", "filters",
-           "flatpanel", "fourier", "katsevich", "matdecomp", "siddon",
-           "spectral"]
+           "flatpanel", "fourier", "helical_pi", "iterative", "katsevich",
+           "matdecomp", "siddon", "spectral"]

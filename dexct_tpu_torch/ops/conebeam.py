@@ -13,8 +13,12 @@ launch the kernel, CPU tensors run the plain PyTorch version beside it):
 - :func:`_fdk_backproject_multi`: K11 (``csrc/cone_backproject.cu``), the
   voxel-driven circular FDK backprojection of K filtered stacks;
 - :func:`_helical_backproject`: K12 (the same source), the
-  generalized-Feldkamp backprojection of a helical scan (weighting
-  ``full``).
+  generalized-Feldkamp backprojection of a helical scan, in each of the
+  JAX package's six view weightings;
+- :func:`project_volume_3d`: K18 (``csrc/siddon_project_3d.cu``), the exact
+  3-D Siddon line integrals of a volume, with K19 (the same source), its
+  adjoint, as the backward pass; :func:`cone_cg_recon` and
+  :func:`cone_pwls_recon` iterate on the pair.
 
 The JAX backprojectors' ``orbit4``, ``pair_mode``, ``view_block``,
 ``bf16_taps`` and ``pair_seq`` options are TPU gather-count layouts of one
@@ -31,9 +35,14 @@ import torch
 
 from ..utils import kernels
 
-__all__ = ["trace_paths_3d", "trace_paths_3d_plain",
+__all__ = ["WEIGHTINGS", "trace_paths_3d", "trace_paths_3d_plain",
            "_fdk_backproject_multi", "_fdk_backproject_multi_plain",
-           "_helical_backproject", "_helical_backproject_plain"]
+           "_helical_backproject", "_helical_backproject_plain",
+           "project_volume_3d", "project_volume_3d_plain",
+           "project_volume_3d_adjoint", "project_volume_3d_adjoint_plain",
+           "cone_cg_recon", "cone_pwls_recon", "fdk_reconstruct",
+           "fdk_tilted_reconstruct", "helical_fdk_reconstruct",
+           "cone_material_paths", "cone_sinogram", "simulate_cone_dect"]
 
 _BIG = 1e30
 MAX_MATERIALS = 32
@@ -54,9 +63,10 @@ def _grid_3d(labels_shape, dx, dy, dz):
 
 
 def _ray_setup_3d(labels_shape, p, d, dx, dy, dz):
-    """Entry/exit parameters and DDA state of rays p, d [R, 3] (float32;
-    the operations of the JAX ``trace_paths_3d`` set-up in its order, every
-    division between tensors)."""
+    """Entry/exit parameters and DDA state of rays p, d [R, 3] (float32, or
+    float64 for the projector's plain version; the operations of the JAX
+    ``trace_paths_3d`` set-up in its order, every division between
+    tensors)."""
     nz, ny, nx = labels_shape
     g0, g1, eps = _grid_3d(labels_shape, dx, dy, dz)
     cells, dims = (dx, dy, dz), (nx, ny, nz)
@@ -90,7 +100,7 @@ def _ray_setup_3d(labels_shape, p, d, dx, dy, dz):
         e = pi + (t_in + eps) * di
         idx = torch.clamp(torch.floor((e - g0[i]) / full(cells[i])), 0,
                           dims[i] - 1).to(torch.int64)
-        plane = g0[i] + (idx + (di > 0)).to(torch.float32) * cells[i]
+        plane = g0[i] + (idx + (di > 0)).to(p.dtype) * cells[i]
         t_next = torch.where(ok, (plane - pi) / safe, full(_BIG))
         dt = torch.where(ok, full(cells[i]) / safe.abs(), full(_BIG))
         step = torch.where(ok, torch.sign(di), full(0.0)).to(torch.int64)
@@ -105,30 +115,21 @@ def _max_steps(labels_shape):
     return nx + ny + nz + 2
 
 
-def trace_paths_3d_plain(labels, src, dirs, dx, dy, dz, *, n_materials):
-    """The fixed-trip DDA of ``dexct_tpu.ops.conebeam.trace_paths_3d`` in
-    torch, vectorised over rays, ending once every ray has reached its exit
-    (the remaining steps of the fixed-trip walk add zero-length
-    segments)."""
-    nz, ny, nx = labels.shape
-    batch = src.shape[:-1]
-    p = src.reshape(-1, 3).to(torch.float32)
-    d = dirs.reshape(-1, 3).to(device=p.device, dtype=torch.float32)
-    flat = labels.reshape(-1).to(device=p.device, dtype=torch.int64)
-    t, t_out, state = _ray_setup_3d((nz, ny, nx), p, d, dx, dy, dz)
+def _walk_3d(labels_shape, p, d, dx, dy, dz, n_steps):
+    """The fixed-trip DDA of the JAX ``trace_paths_3d`` and
+    ``project_volume_3d``, vectorised over the rays p, d [R, 3]: yields per
+    step the flat [z, y, x] index of each ray's current cell and its
+    segment length, ending after ``n_steps`` steps or once every ray has
+    reached its exit (the remaining steps add zero-length segments)."""
+    nz, ny, nx = labels_shape
+    t, t_out, state = _ray_setup_3d(labels_shape, p, d, dx, dy, dz)
     (ix, tnx, dtx, sx), (iy, tny, dty, sy), (iz, tnz, dtz, sz) = state
-    mats = torch.arange(n_materials, device=p.device)
-    acc = torch.zeros((p.shape[0], n_materials), dtype=torch.float32,
-                      device=p.device)
-    for step in range(_max_steps(labels.shape)):
+    for step in range(n_steps):
         if step % 32 == 0 and not bool((t < t_out).any()):
-            break
+            return
         t_min = torch.minimum(torch.minimum(tnx, tny), tnz)
         t_next = torch.maximum(torch.minimum(t_min, t_out), t)
-        seg = t_next - t
-        lab = flat[(iz * ny + iy) * nx + ix]
-        # one-hot add: labels >= n_materials contribute nothing
-        acc += seg[:, None] * (lab[:, None] == mats).to(acc.dtype)
+        yield (iz * ny + iy) * nx + ix, t_next - t
         # advance the axis whose crossing is nearest (ties: x, then y)
         take_x = tnx <= torch.minimum(tny, tnz)
         take_y = ~take_x & (tny <= tnz)
@@ -140,6 +141,22 @@ def trace_paths_3d_plain(labels, src, dirs, dx, dy, dz, *, n_materials):
         tny = torch.where(take_y, tny + dty, tny)
         tnz = torch.where(take_z, tnz + dtz, tnz)
         t = t_next
+
+
+def trace_paths_3d_plain(labels, src, dirs, dx, dy, dz, *, n_materials):
+    """The fixed-trip DDA of ``dexct_tpu.ops.conebeam.trace_paths_3d`` in
+    torch (:func:`_walk_3d`), the segments added per material."""
+    batch = src.shape[:-1]
+    p = src.reshape(-1, 3).to(torch.float32)
+    d = dirs.reshape(-1, 3).to(device=p.device, dtype=torch.float32)
+    flat = labels.reshape(-1).to(device=p.device, dtype=torch.int64)
+    mats = torch.arange(n_materials, device=p.device)
+    acc = torch.zeros((p.shape[0], n_materials), dtype=torch.float32,
+                      device=p.device)
+    for lin, seg in _walk_3d(labels.shape, p, d, dx, dy, dz,
+                             _max_steps(labels.shape)):
+        # one-hot add: labels >= n_materials contribute nothing
+        acc += seg[:, None] * (flat[lin][:, None] == mats).to(acc.dtype)
     return acc.reshape(*batch, n_materials)
 
 
@@ -227,7 +244,8 @@ def _disc(n_matrix, fov, device):
 
 def _inplane(X, Y, beta, sid, dgamma, C):
     """Per-(view, pixel) tap geometry [B, P] of the JAX programs' ``block``
-    body: channel index and weight, 1/sqrt(h^2) and w_in / h^2."""
+    body: channel index and weight, 1/sqrt(h^2), w_in / h^2, the fan angle
+    gamma and h^2."""
     cb, sb = torch.cos(beta)[:, None], torch.sin(beta)[:, None]
     ell = sid - (X[None, :] * cb + Y[None, :] * sb)
     vt = -X[None, :] * sb + Y[None, :] * cb
@@ -238,7 +256,7 @@ def _inplane(X, Y, beta, sid, dgamma, C):
     c0 = torch.clamp(torch.floor(cidx), 0, C - 2)
     fc = torch.clamp(cidx - c0, 0.0, 1.0)
     w_in = ((cidx >= 0.0) & (cidx <= C - 1.0)).to(h2.dtype)
-    return c0.to(torch.int64), fc, inv_h, w_in / h2
+    return c0.to(torch.int64), fc, inv_h, w_in / h2, gam, h2
 
 
 def _bilinear(qf, base, c0, fc, ridx, R, C):
@@ -300,7 +318,7 @@ def _fdk_backproject_multi_plain(qs, betas, sid, dgamma, row_h, n_rows,
     acc = qf.new_zeros((K, nz_out, X.shape[0]))
     for v0 in range(0, V, view_block):
         beta = betas[v0:v0 + view_block]
-        c0, fc, inv_h, w_amp = _inplane(X, Y, beta, sid, dgamma, C)
+        c0, fc, inv_h, w_amp, _, _ = _inplane(X, Y, beta, sid, dgamma, C)
         ridx = ((zc[None, :, None] * sid) * inv_h[:, None, :]
                 / torch.full_like(inv_h[:, None, :], row_h)) - 0.5 + R / 2.0
         base = (torch.arange(v0, v0 + beta.shape[0], device=dev)
@@ -371,12 +389,105 @@ def _helical_z(nz_out, dz_out, z0, device):
             * dz_out)
 
 
+WEIGHTINGS = ("full", "feather", "td", "cosz", "short", "pair")
+
+
+def _helical_window_halfwidth(weighting, n_channels, dgamma):
+    """Half-width of each gFDK weighting's view window in units of pi:
+    every weight is an exact zero beyond |beta - beta_c| = hw pi (the JAX
+    package's single source of truth for its slice-windowed scan, copied;
+    ``feather``'s 1.2501 is a margin over its 1.25 pi edge)."""
+    return {"full": 1.0, "pair": 1.0, "feather": 1.2501,
+            "td": 1.5, "cosz": 1.5,
+            "short": 0.5 + 0.5 * n_channels * dgamma / np.pi}[weighting]
+
+
+def _window_constants(weighting, C, dgamma, pitch, row_h, R, sid):
+    """The scalars of the JAX ``win_weight`` windows, computed in float64
+    on the host as the JAX program's Python floats are (each enters the
+    float32 program rounded once); ``hwpi`` bounds each slice's views."""
+    return dict(
+        hwpi=_helical_window_halfwidth(weighting, C, dgamma) * np.pi,
+        pitch=pitch, qp=pitch / (4.0 * np.pi), nqp=-(pitch / (4.0 * np.pi)),
+        taper=0.5 * row_h, hmax=0.5 * abs(pitch) + 0.25 * row_h,
+        gm=0.5 * C * dgamma, pi_2gm=np.pi + 2.0 * (0.5 * C * dgamma),
+        two_sid=2.0 * sid, hdet=0.5 * row_h * R + 0.5 * row_h,
+        scale=max(0.25 * abs(pitch), 0.75 * row_h))
+
+
+def _cos2(x):
+    c = torch.cos(x)
+    return c * c
+
+
+def _window_weight(weighting, k, d, gam, zt, z, sz, h2, inv_h, sid):
+    """The JAX ``win_weight`` of one weighting without its ``w_z`` factor,
+    operation by operation in float32, every division between tensors.
+    ``k``: :func:`_window_constants`; d = beta - beta_c ``[B, nz, 1]``;
+    gam, h2, inv_h ``[B, 1, P]``; zt ``[B, nz, P]``; z ``[1, nz, 1]``; sz
+    ``[B, 1, 1]``."""
+    def t(v, like):
+        return torch.full_like(like, v)
+
+    pi = np.pi
+    if weighting == "full":
+        return (d.abs() <= pi).to(zt.dtype).expand_as(zt)
+    if weighting == "feather":
+        dd = d.abs() / t(pi, d)
+        x = torch.clamp((dd - 0.75) / t(0.5, dd), 0.0, 1.0)
+        return _cos2(x * (0.5 * pi)).expand_as(zt)
+    if weighting == "td":
+        cg = torch.cos(gam)
+        two_g = 2.0 * gam
+        htop = (k["qp"] * (pi - two_g)) / cg
+        hbot = (k["nqp"] * (pi + two_g)) / cg
+        tap = t(k["taper"], zt)
+        w_td = (torch.clamp((zt - hbot) / tap, 0.0, 1.0)
+                * torch.clamp((htop - zt) / tap, 0.0, 1.0))
+        return w_td * (d.abs() <= 1.5 * pi).to(zt.dtype)
+    if weighting == "cosz":
+        kz = _cos2(torch.clamp(zt / t(k["hmax"], zt), -1.0, 1.0)
+                   * (0.5 * pi)) + 1e-3
+        return kz * (d.abs() <= 1.5 * pi).to(zt.dtype)
+    if weighting == "short":
+        gm = k["gm"]
+        alpha = (d + 0.5 * pi) + gm  # [B, nz, 1]
+        lo_den = torch.clamp_min(gm - gam, 1e-3)
+        hi_den = torch.clamp_min(gm + gam, 1e-3)
+        w_lo = torch.sin((0.25 * pi) * torch.clamp(alpha / lo_den, 0.0,
+                                                   2.0)) ** 2
+        w_hi = torch.sin((0.25 * pi) * torch.clamp(
+            (k["pi_2gm"] - alpha) / hi_den, 0.0, 2.0)) ** 2
+        one = torch.ones_like(w_lo)
+        w_park = torch.where(alpha < 2.0 * (gm - gam), w_lo,
+                             torch.where(alpha > pi - 2.0 * gam, w_hi, one))
+        in_scan = (alpha >= 0.0) & (alpha <= k["pi_2gm"])
+        return torch.where(in_scan, w_park, torch.zeros_like(w_park))
+    if weighting == "pair":
+        two_g = 2.0 * gam
+        dbc = torch.where(d > -two_g, -(pi - two_g), pi + two_g)
+        sz_conj = sz + (dbc * k["pitch"]) / t(2.0 * pi, dbc)
+        h_own = h2 * inv_h
+        h_conj = torch.clamp_min(k["two_sid"] * torch.cos(gam) - h_own, 1e-3)
+        zt_c = ((z - sz_conj) * sid) / h_conj
+        sc = t(k["scale"], zt)
+
+        def kfun(v):
+            return _cos2(torch.clamp(v / sc, -1.0, 1.0) * (0.5 * pi)) + 1e-4
+
+        k_own = kfun(zt)
+        k_c = kfun(zt_c) * (zt_c.abs() <= k["hdet"]).to(zt.dtype)
+        w_pair = k_own / (k_own + k_c + 1e-30)
+        return w_pair * (d.abs() <= pi).to(zt.dtype)
+    raise ValueError(f"unknown helical weighting {weighting!r}")
+
+
 def _helical_backproject_plain(q, betas, src_z, row_off, beta_c, sid, dgamma,
                                row_h, n_rows, pitch, n_matrix, nz_out, fov,
-                               dz_out, z0, *, view_block=8):
-    """``dexct_tpu.ops.conebeam._helical_backproject`` (weighting
-    ``full``) in torch: blocks of ``view_block`` views over every (disc
-    pixel, slice); views outside a slice's window add exact zeros."""
+                               dz_out, z0, *, weighting="full", view_block=8):
+    """``dexct_tpu.ops.conebeam._helical_backproject`` in torch: blocks of
+    ``view_block`` views over every (disc pixel, slice); views outside a
+    slice's window add exact zeros."""
     M, V, R, C = q.shape
     dev = q.device
     X, Y, sel = _disc(n_matrix, fov, dev)
@@ -384,13 +495,14 @@ def _helical_backproject_plain(q, betas, src_z, row_off, beta_c, sid, dgamma,
     f32 = dict(device=dev, dtype=torch.float32)
     betas, src_z, row_off, beta_c = (t.to(**f32) for t in
                                      (betas, src_z, row_off, beta_c))
+    k = _window_constants(weighting, C, dgamma, pitch, row_h, R, sid)
     qf = q.to(torch.float32).reshape(M, -1)
     num = qf.new_zeros((M, nz_out, X.shape[0]))
     den = qf.new_zeros((nz_out, X.shape[0]))
     for v0 in range(0, V, view_block):
         sl = slice(v0, v0 + view_block)
         beta, sz, ro = betas[sl], src_z[sl], row_off[sl]
-        c0, fc, inv_h, w_amp = _inplane(X, Y, beta, sid, dgamma, C)
+        c0, fc, inv_h, w_amp, gam, h2 = _inplane(X, Y, beta, sid, dgamma, C)
         zt = ((zc[None, :] - sz[:, None]) * sid)[:, :, None] \
             * inv_h[:, None, :]  # [B, nz, P]
         ridx = (zt / torch.full_like(zt, row_h) - 0.5 + R / 2.0
@@ -399,9 +511,10 @@ def _helical_backproject_plain(q, betas, src_z, row_off, beta_c, sid, dgamma,
                 * (R * C))[:, None, None]
         val, w_z = _bilinear(qf, base, c0[:, None, :], fc[:, None, :], ridx,
                              R, C)
-        w_win = ((beta[:, None] - beta_c[None, :]).abs()
-                 <= np.pi).to(torch.float32)  # [B, nz]
-        w = w_z * w_win[:, :, None]
+        w = w_z * _window_weight(
+            weighting, k, (beta[:, None] - beta_c[None, :])[:, :, None],
+            gam[:, None, :], zt, zc[None, :, None], sz[:, None, None],
+            h2[:, None, :], inv_h[:, None, :], sid)
         num += (val * (w_amp[:, None, :] * w)).sum(1)
         den += w.sum(0)
     out = torch.where(den > 0, num / torch.clamp_min(den, 1e-30),
@@ -410,7 +523,7 @@ def _helical_backproject_plain(q, betas, src_z, row_off, beta_c, sid, dgamma,
 
 
 def _helical_cuda(q, betas, src_z, row_off, beta_c, sid, dgamma, row_h,
-                  n_matrix, nz_out, fov, dz_out, z0, dbeta):
+                  pitch, n_matrix, nz_out, fov, dz_out, z0, dbeta, weighting):
     dev = q.device
     M, V, R, C = q.shape
     kernels.require(q, "q", dev, torch.float32)
@@ -422,62 +535,299 @@ def _helical_cuda(q, betas, src_z, row_off, beta_c, sid, dgamma, row_h,
     zc = _helical_z(nz_out, dz_out, z0, dev)
     cos_b, sin_b = torch.cos(betas), torch.sin(betas)
     beta0 = float(betas[0])  # the origin of each slice's view range
+    k = _window_constants(weighting, C, dgamma, pitch, row_h, R, sid)
     out = torch.zeros((M, nz_out, n_matrix, n_matrix), dtype=torch.float32,
                       device=dev)
     rc = kernels.library().dexct_helical_backproject(
         q.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(), betas.data_ptr(),
         src_z.data_ptr(), row_off.data_ptr(), beta_c.data_ptr(),
         X.data_ptr(), Y.data_ptr(), sel.data_ptr(), zc.data_ptr(),
-        out.data_ptr(), M, V, R, C, X.shape[0], nz_out, n_matrix * n_matrix,
-        sid, dgamma, row_h, beta0, dbeta, kernels.stream_ptr(dev))
+        out.data_ptr(), M, WEIGHTINGS.index(weighting), V, R, C, X.shape[0],
+        nz_out, n_matrix * n_matrix, sid, dgamma, row_h, beta0, dbeta,
+        *(k[name] for name in _WINDOW_ARGS), kernels.stream_ptr(dev))
     kernels.check(rc, "helical_backproject")
     _helical_backproject.launches += 1
     return out
 
 
+# the window constants the kernel takes, in its argument order
+_WINDOW_ARGS = ("hwpi", "pitch", "qp", "nqp", "taper", "hmax", "gm", "pi_2gm",
+                "two_sid", "hdet", "scale")
+
+
 def _helical_backproject(q, betas, src_z, row_off, beta_c, sid, dgamma,
                          row_h, n_rows, pitch, n_matrix, nz_out, fov, dz_out,
-                         z0, *, dbeta, weighting="full"):
+                         z0, *, dbeta, weighting="full", view_block=None,
+                         pair_mode=None):
     """Generalized-Feldkamp backprojection of a helical orbit.
 
-    Per (disc pixel, slice) the views inside the 2 pi window centred on the
-    slice's ``beta_c`` (|beta - beta_c| <= pi) add the circular-FDK 1/h^2
-    weighted bilinear tap (rows shifted by the source's ``src_z`` and by
-    ``row_off``); the sum is normalised by the window weight and scaled by
-    2 pi.  q: [M, V, R, C]; betas, src_z, row_off: [V], the views
-    uniformly spaced, ``betas[v] = betas[0] + v dbeta`` (``dbeta > 0``),
-    so that each slice visits only the views of its window (the terms
-    dropped are exact zeros); beta_c: [nz_out].  Returns
-    [M, nz_out, N, N].
+    Per (disc pixel, slice) each view inside the slice's window around
+    ``beta_c`` adds its circular-FDK 1/h^2 weighted bilinear tap (rows
+    shifted by the source's ``src_z`` and by ``row_off``) times its window
+    weight w; the sum is normalised by the sum of w over the views on the
+    detector and scaled by 2 pi.  ``weighting`` picks w (the JAX package's
+    study windows, :data:`WEIGHTINGS`): ``full`` (|beta - beta_c| <= pi),
+    ``feather`` (a cos^2 edge out to 1.25 pi), ``td`` (the Tam-Danielsson
+    window within 1.5 pi), ``cosz`` (a cos^2 row-height kernel within
+    1.5 pi), ``short`` (voxel-centred Parker short scan) or ``pair`` (the
+    conjugate-pair row-height partition).  q: [M, V, R, C]; betas, src_z,
+    row_off: [V], the views uniformly spaced, ``betas[v] = betas[0] + v
+    dbeta`` (``dbeta > 0``), so that each slice visits only the views
+    within the weighting's half-width of its ``beta_c`` (the terms dropped
+    are exact zeros); beta_c: [nz_out].  Returns [M, nz_out, N, N].
 
     CUDA tensors run kernel K12 (counted in
     ``_helical_backproject.launches``); CPU tensors run
-    :func:`_helical_backproject_plain`.  Only ``weighting='full'``, the
-    fused pipeline's, is ported.
+    :func:`_helical_backproject_plain`.  ``view_block`` and ``pair_mode``
+    (TPU layouts of one image) are accepted and ignored.
     """
-    if weighting != "full":
-        raise NotImplementedError(
-            f"helical weighting {weighting!r} is not ported yet (ROADMAP "
-            "queue 2, row 11: other 3-D reconstructors)")
+    del view_block, pair_mode
+    if weighting not in WEIGHTINGS:
+        raise ValueError(f"unknown helical weighting {weighting!r}")
     _check_stack(q, "q")
     if q.shape[2] != n_rows:
         raise ValueError(f"q has {q.shape[2]} rows, n_rows={n_rows}")
     if not dbeta > 0.0:
         raise ValueError(f"dbeta must be > 0, got {dbeta}")
+    geo = (float(sid), float(dgamma), float(row_h))
+    grid = (int(n_matrix), int(nz_out), float(fov), float(dz_out), float(z0))
     if q.is_cuda:
-        return _helical_cuda(q, betas, src_z, row_off, beta_c, float(sid),
-                             float(dgamma), float(row_h), int(n_matrix),
-                             int(nz_out), float(fov), float(dz_out),
-                             float(z0), float(dbeta))
+        return _helical_cuda(q, betas, src_z, row_off, beta_c, *geo,
+                             float(pitch), *grid, float(dbeta), weighting)
     if q.device.type != "cpu":
         raise ValueError(f"unsupported device {q.device}")
-    return _helical_backproject_plain(
-        q, betas, src_z, row_off, beta_c, float(sid), float(dgamma),
-        float(row_h), int(n_rows), float(pitch), int(n_matrix), int(nz_out),
-        float(fov), float(dz_out), float(z0))
+    return _helical_backproject_plain(q, betas, src_z, row_off, beta_c, *geo,
+                                      int(n_rows), float(pitch), *grid,
+                                      weighting=weighting)
 
 
 _helical_backproject.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K18 / K19: the exact 3-D projector of a volume and its adjoint
+# ---------------------------------------------------------------------------
+
+def _rays(src, dirs, dtype, device):
+    return (src.reshape(-1, 3).to(device=device, dtype=dtype),
+            dirs.reshape(-1, 3).to(device=device, dtype=dtype))
+
+
+def project_volume_3d_plain(vol, src, dirs, dx, dy, dz, *, n_steps=None):
+    """``dexct_tpu.ops.conebeam.project_volume_3d`` in torch: the walk of
+    :func:`_walk_3d`, adding segment x voxel value per step (float64 for a
+    float64 volume)."""
+    dtype = torch.promote_types(vol.dtype, torch.float32)
+    p, d = _rays(src, dirs, dtype, vol.device)
+    flat = vol.reshape(-1).to(dtype)
+    acc = torch.zeros(p.shape[0], dtype=dtype, device=vol.device)
+    k = _max_steps(vol.shape) if n_steps is None else int(n_steps)
+    for lin, seg in _walk_3d(vol.shape, p, d, dx, dy, dz, k):
+        acc += seg * flat[lin]
+    return acc.reshape(src.shape[:-1])
+
+
+def project_volume_3d_adjoint_plain(y, src, dirs, vol_shape, dx, dy, dz, *,
+                                    n_steps=None):
+    """The adjoint of :func:`project_volume_3d_plain`: the same walk, each
+    step's segment x ``y[ray]`` added into its cell (``index_add_``)."""
+    vol_shape = tuple(int(n) for n in vol_shape)
+    dtype = torch.promote_types(y.dtype, torch.float32)
+    p, d = _rays(src, dirs, dtype, y.device)
+    yf = y.reshape(-1).to(dtype)
+    out = torch.zeros(int(np.prod(vol_shape)), dtype=dtype, device=y.device)
+    k = _max_steps(vol_shape) if n_steps is None else int(n_steps)
+    for lin, seg in _walk_3d(vol_shape, p, d, dx, dy, dz, k):
+        out.index_add_(0, lin, seg * yf)
+    return out.reshape(vol_shape)
+
+
+def _walk_args(shape, dx, dy, dz, n_steps):
+    """The kernels' grid arguments after the ray count."""
+    nz, ny, nx = shape
+    g0, g1, eps = _grid_3d(shape, dx, dy, dz)
+    return (nx, ny, nz, *g0, *g1, dx, dy, dz, eps, n_steps)
+
+
+def _project_cuda(vol, src, dirs, dx, dy, dz, n_steps):
+    dev = vol.device
+    kernels.require(vol, "vol", dev, torch.float32)
+    s2 = kernels.require(src.reshape(-1, 3), "src", dev, torch.float32)
+    d2 = kernels.require(dirs.reshape(-1, 3), "dirs", dev, torch.float32,
+                         s2.shape)
+    out = torch.empty(s2.shape[0], dtype=torch.float32, device=dev)
+    rc = kernels.library().dexct_project_3d(
+        vol.data_ptr(), s2.data_ptr(), d2.data_ptr(), out.data_ptr(),
+        s2.shape[0], *_walk_args(vol.shape, dx, dy, dz, n_steps),
+        kernels.stream_ptr(dev))
+    kernels.check(rc, "project_3d")
+    project_volume_3d.launches += 1
+    return out.reshape(src.shape[:-1])
+
+
+def _adjoint_cuda(y, src, dirs, vol_shape, dx, dy, dz, n_steps):
+    dev = y.device
+    s2 = kernels.require(src.reshape(-1, 3), "src", dev, torch.float32)
+    d2 = kernels.require(dirs.reshape(-1, 3), "dirs", dev, torch.float32,
+                         s2.shape)
+    y2 = kernels.require(y.reshape(-1), "y", dev, torch.float32,
+                         (s2.shape[0],))
+    out = torch.zeros(vol_shape, dtype=torch.float32, device=dev)
+    rc = kernels.library().dexct_backproject_3d(
+        y2.data_ptr(), s2.data_ptr(), d2.data_ptr(), out.data_ptr(),
+        s2.shape[0], *_walk_args(vol_shape, dx, dy, dz, n_steps),
+        kernels.stream_ptr(dev))
+    kernels.check(rc, "backproject_3d")
+    project_volume_3d_adjoint.launches += 1
+    return out
+
+
+def _check_volume_shape(vol_shape):
+    if len(vol_shape) != 3 or min(vol_shape) < 1:
+        raise ValueError(f"the volume must be [Nz, Ny, Nx], got "
+                         f"{tuple(vol_shape)}")
+
+
+def _project(vol, src, dirs, dx, dy, dz, n_steps):
+    if vol.is_cuda:
+        return _project_cuda(vol, src, dirs, dx, dy, dz, n_steps)
+    if vol.device.type != "cpu":
+        raise ValueError(f"unsupported device {vol.device}")
+    return project_volume_3d_plain(vol, src, dirs, dx, dy, dz,
+                                   n_steps=n_steps)
+
+
+def project_volume_3d_adjoint(y, src, dirs, vol_shape, dx, dy, dz, *,
+                              n_steps=None):
+    """A^T y: the exact adjoint of :func:`project_volume_3d` (the JAX
+    package's ``jax.linear_transpose`` of it), ``y [...]`` over the rays'
+    batch shape -> ``[Nz, Ny, Nx]``.  CUDA tensors run kernel K19 (float32
+    atomic adds, counted in ``project_volume_3d_adjoint.launches``); CPU
+    tensors run :func:`project_volume_3d_adjoint_plain`."""
+    vol_shape = tuple(int(n) for n in vol_shape)
+    _check_volume_shape(vol_shape)
+    k = _max_steps(vol_shape) if n_steps is None else int(n_steps)
+    args = (float(dx), float(dy), float(dz))
+    if y.is_cuda:
+        return _adjoint_cuda(y, src, dirs, vol_shape, *args, k)
+    if y.device.type != "cpu":
+        raise ValueError(f"unsupported device {y.device}")
+    return project_volume_3d_adjoint_plain(y, src, dirs, vol_shape, *args,
+                                           n_steps=k)
+
+
+project_volume_3d_adjoint.launches = 0
+
+
+class _Project3D(torch.autograd.Function):
+    """The projector with its adjoint as the backward pass."""
+
+    @staticmethod
+    def forward(ctx, vol, src, dirs, grid):
+        ctx.save_for_backward(src, dirs)
+        ctx.grid, ctx.vol_shape = grid, tuple(vol.shape)
+        return _project(vol, src, dirs, *grid)
+
+    @staticmethod
+    def backward(ctx, grad):
+        src, dirs = ctx.saved_tensors
+        dx, dy, dz, k = ctx.grid
+        g = project_volume_3d_adjoint(grad.contiguous(), src, dirs,
+                                      ctx.vol_shape, dx, dy, dz, n_steps=k)
+        return g, None, None, None
+
+
+def project_volume_3d(vol, src, dirs, dx, dy, dz, *, n_steps=None):
+    """Exact line integrals of a continuous mu volume ``[Nz, Ny, Nx]`` (the
+    grid centred on the origin, voxels dx, dy, dz [cm]) along the rays
+    ``src``, ``dirs [..., 3]`` (origins and unit directions): the 3-D Siddon
+    walk of :func:`trace_paths_3d`, adding segment x voxel value.  Returns
+    ``[...]``.  ``n_steps`` caps the walk (default Nx + Ny + Nz + 2, enough
+    for every ray).  A linear operator; autograd's backward pass is its
+    exact adjoint, :func:`project_volume_3d_adjoint`.
+
+    CUDA tensors run kernel K18 (counted in ``project_volume_3d.launches``);
+    CPU tensors run :func:`project_volume_3d_plain`.
+    """
+    _check_volume_shape(vol.shape)
+    k = _max_steps(vol.shape) if n_steps is None else int(n_steps)
+    return _Project3D.apply(vol, src, dirs,
+                            (float(dx), float(dy), float(dz), k))
+
+
+project_volume_3d.launches = 0
+
+
+def _cone_operator(geometry, vol_shape, voxel, device):
+    """(A, A^T) of a cone geometry's rays on ``device``: the projector and
+    its explicit adjoint, as the iterative loops call them."""
+    src, dirs = (torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                                 device=device).contiguous()
+                 for x in geometry.ray_geometry_3d())
+    dx, dy, dz = (float(v) for v in voxel)
+    shape = tuple(int(n) for n in vol_shape)
+
+    def apply_fn(vol):
+        return project_volume_3d(vol, src, dirs, dx, dy, dz)
+
+    def adjoint_fn(y):
+        return project_volume_3d_adjoint(y, src, dirs, shape, dx, dy, dz)
+
+    return apply_fn, adjoint_fn
+
+
+def _device_of(x, device):
+    if device is not None:
+        return torch.device(device)
+    return x.device if torch.is_tensor(x) else torch.device("cuda")
+
+
+def cone_cg_recon(sino, geometry, vol_shape, voxel, *, n_iters=30, x0=None,
+                  device=None):
+    """Conjugate-gradient least-squares cone-beam reconstruction: solves
+    min_x ||A x - sino||^2 with A the exact 3-D projector
+    (:func:`project_volume_3d`, K18) over the geometry's rays and A^T its
+    adjoint (K19).  ``vol_shape``: (Nz, Ny, Nx); ``voxel``: (dx, dy, dz)
+    [cm]; ``x0`` the start (zeros by default).  Runs on ``device`` (default:
+    the device of ``sino`` if it is a tensor, else the card).  Returns
+    ``(volume [Nz, Ny, Nx] cm^-1, residual-norm history [n_iters])``."""
+    from .iterative import _cg
+
+    dev = _device_of(sino, device)
+    apply_fn, adjoint_fn = _cone_operator(geometry, vol_shape, voxel, dev)
+    b = torch.as_tensor(sino, dtype=torch.float32, device=dev)
+    x0 = (torch.zeros(tuple(vol_shape), dtype=torch.float32, device=dev)
+          if x0 is None else torch.as_tensor(x0, dtype=torch.float32,
+                                             device=dev))
+    return _cg(apply_fn, b, x0, int(n_iters), 0.0, adjoint=adjoint_fn)
+
+
+def cone_pwls_recon(sino_log, counts, geometry, vol_shape, voxel, *,
+                    n_iters=60, beta=1e-2, delta=5e-3, nonneg=True, x0=None,
+                    power_iters=12, sigma_e=0.0, var_ratio=1.0, device=None,
+                    _v0=None):
+    """3-D penalized weighted least-squares reconstruction: the
+    count-weighted data term over the exact 3-D projector (K18, adjoint
+    K19) plus the 6-neighbour edge-preserving Huber penalty, solved by
+    FISTA (:func:`~dexct_tpu_torch.ops.iterative._pwls_fista`).  ``beta`` is
+    relative to ||A^T W A||, estimated by ``power_iters`` power iterations
+    from a normal start vector drawn by a ``torch.Generator`` seeded 0.
+    Warm-start ``x0`` from :func:`fdk_reconstruct`.  Runs on ``device``
+    (default: the device of ``sino_log`` if it is a tensor, else the card).
+    Returns the [Nz, Ny, Nx] volume in cm^-1."""
+    from .iterative import _pwls_fista, pwls_weights
+
+    dev = _device_of(sino_log, device)
+    apply_fn, adjoint_fn = _cone_operator(geometry, vol_shape, voxel, dev)
+    y = torch.as_tensor(sino_log, dtype=torch.float32, device=dev)
+    w = pwls_weights(torch.as_tensor(counts, device=dev), sigma_e=sigma_e,
+                     var_ratio=var_ratio)
+    x0 = (torch.zeros(tuple(vol_shape), dtype=torch.float32, device=dev)
+          if x0 is None else torch.as_tensor(x0, dtype=torch.float32,
+                                             device=dev))
+    return _pwls_fista(apply_fn, y, w, x0, int(n_iters), float(beta),
+                       float(delta), bool(nonneg), int(power_iters),
+                       adjoint=adjoint_fn, _v0=_v0)
 
 
 # ---------------------------------------------------------------------------
@@ -605,7 +955,7 @@ def _f32(x, device):
 
 
 def fdk_reconstruct(sino_log, geometry, n_matrix, fov, ramp, *, nz_out=None,
-                    dz_out=None, window="sinc"):
+                    dz_out=None, window="sinc", view_block=None):
     """FDK cone-beam reconstruction -> ``[nz_out, N, N]`` in cm^-1 (or
     ``[M, nz_out, N, N]`` for a stack ``[M, V, R, C]``, all volumes in one
     backprojection).
@@ -617,7 +967,9 @@ def fdk_reconstruct(sino_log, geometry, n_matrix, fov, ramp, *, nz_out=None,
     flying-focal-spot scan (``ffs='z'``) takes each view's true cone factor
     and row offset and backprojects through the helical K12 at pitch 0
     with the window centred on the orbit, which then covers every view.
+    ``view_block`` (a TPU view-block layout) is accepted and ignored.
     """
+    del view_block
     ct = geometry
     if abs(getattr(ct, "pitch", 0.0)) > 1e-12:
         raise ValueError(
@@ -661,7 +1013,8 @@ def fdk_reconstruct(sino_log, geometry, n_matrix, fov, ramp, *, nz_out=None,
 
 
 def fdk_tilted_reconstruct(sino_log, geometry, n_matrix, fov, ramp, *,
-                           nz_out=None, dz_out=None, window="sinc"):
+                           nz_out=None, dz_out=None, window="sinc",
+                           view_block=None):
     """Gantry-tilted circular cone-beam FDK -> ``[nz, N, N]`` cm^-1 on the
     patient-frame grid (``[M, nz, N, N]`` for a stack).
 
@@ -671,8 +1024,10 @@ def fdk_tilted_reconstruct(sino_log, geometry, n_matrix, fov, ramp, *,
     rotated patient box, then resampled onto the patient grid by one
     trilinear pass (K16).  Patient points whose gantry image falls outside
     the scanned FOV come back 0.  ``tilt = 0`` is :func:`fdk_reconstruct`
-    of each volume.
+    of each volume.  ``view_block`` (a TPU view-block layout) is accepted and
+    ignored.
     """
+    del view_block
     ct = geometry
     tau = float(getattr(ct, "tilt", 0.0))
     stack, single = _stack(sino_log)
@@ -734,17 +1089,21 @@ def _tilted_indices(tau, n_matrix, fov, nz, dz, device):
 
 
 def helical_fdk_reconstruct(sino_log, geometry, n_matrix, fov, ramp, *,
-                            z_out=None, window="sinc", weighting="full"):
+                            z_out=None, window="sinc", view_block=None,
+                            weighting="full"):
     """Helical generalized-Feldkamp reconstruction -> ``[nz, N, N]``
     cm^-1 (``[M, nz, N, N]`` for a stack, all volumes in one K12 pass).
 
     ``z_out``: uniformly spaced slice positions [cm]; by default one slice
     per ``h_iso`` across the central 80 % of the source travel.  The FDK
     filter chain (each view's own cone factor for a z flying focal spot),
-    then K12.  ``pitch = 0`` delegates to :func:`fdk_reconstruct`.  Only
-    ``weighting='full'`` is ported; the JAX package's other study windows
-    raise ``NotImplementedError``.
+    then K12.  ``pitch = 0`` delegates to :func:`fdk_reconstruct`.
+    ``weighting`` picks the per-voxel view window (:data:`WEIGHTINGS`, see
+    :func:`_helical_backproject`; the JAX package's round-3 study measured
+    ``full`` best); a z flying focal spot takes ``full`` or ``feather``.
+    ``view_block`` (a TPU view-block layout) is accepted and ignored.
     """
+    del view_block
     ct = geometry
     stack, single = _stack(sino_log)
     V, R, C = stack.shape[-3:]
@@ -788,7 +1147,7 @@ def helical_fdk_reconstruct(sino_log, geometry, n_matrix, fov, ramp, *,
         q = _fdk_filter_zffs(stack, ct, ramp, window)
     else:
         q = _fdk_filter(stack, _fdk_weights(ct), ct, ramp, window)
-    if weighting not in ("td", "full", "cosz", "feather", "pair", "short"):
+    if weighting not in WEIGHTINGS:
         raise ValueError(f"unknown helical weighting {weighting!r}")
     dev = stack.device
     off = np.asarray(ct.ffs_view_offsets, np.float64)  # zeros if none
@@ -806,12 +1165,14 @@ def helical_fdk_reconstruct(sino_log, geometry, n_matrix, fov, ramp, *,
     return out[0] if single else out
 
 
-def cone_material_paths(phantom, geometry, *, device):
+def cone_material_paths(phantom, geometry, *, device, view_block=None):
     """``[N_proj, N_rows, N_channels, n_materials]`` exact cone-beam paths
     of the geometry's rays (``ray_geometry_3d``, exact for every cone
     geometry: tilted, flat-panel, z flying focal spot), traced by K10 on
     ``device``.  The JAX package's packed dominant-axis tracers and their
-    DDA fallback compute the same paths."""
+    DDA fallback compute the same paths.  ``view_block`` (a TPU view-block
+    layout) is accepted and ignored."""
+    del view_block
     src, dirs = geometry.ray_geometry_3d()
     return trace_paths_3d(
         labels_u8(np.asarray(phantom.labels), device), _f32(src, device),
@@ -819,9 +1180,11 @@ def cone_material_paths(phantom, geometry, *, device):
         n_materials=phantom.n_materials)
 
 
-def cone_sinogram(phantom, geometry, spectrum, *, device):
+def cone_sinogram(phantom, geometry, spectrum, *, device, view_block=None):
     """Polyenergetic cone-beam acquisition -> (counts, log sinogram), both
-    ``[N_proj, N_rows, N_channels]`` on ``device``."""
+    ``[N_proj, N_rows, N_channels]`` on ``device``.  ``view_block`` (a TPU
+    view-block layout) is accepted and ignored."""
+    del view_block
     from . import spectral as sp_ops
 
     paths = cone_material_paths(phantom, geometry, device=device)

@@ -45,10 +45,13 @@ def filter_sinogram(sino, geometry, ramp=0.8, window="sinc"):
                         m, geometry.dgamma)
 
 
-def fan_backproject(q, betas, sid, dgamma, n_matrix, fov, *, dbeta=None):
+def fan_backproject(q, betas, sid, dgamma, n_matrix, fov, *, view_block=None,
+                    dbeta=None):
     """Distance-weighted equiangular backprojection of one filtered
     sinogram q [N_proj, N_channels]; ``dbeta`` defaults to 2 pi / N_proj.
-    Returns image [n_matrix, n_matrix]."""
+    Returns image [n_matrix, n_matrix].  ``view_block`` (a TPU view-block
+    layout) is accepted and ignored."""
+    del view_block
     n_proj, n_ch = q.shape
     if dbeta is None:
         dbeta = 2.0 * np.pi / n_proj if n_proj else 0.0

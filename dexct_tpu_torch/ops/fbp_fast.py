@@ -116,7 +116,7 @@ def _fan_backproject_cuda(packed, n_images, betas, sid, dgamma, n_channels,
 
 
 def fan_backproject_multi(packed, n_images, betas, sid, dgamma, n_channels,
-                          n_matrix, fov, dbeta):
+                          n_matrix, fov, dbeta, *, view_block=None):
     """Backproject K images from a packed tap table.
 
     packed: [V*C, 2K] from :func:`pack_filtered`; betas: [V] view angles.
@@ -124,8 +124,10 @@ def fan_backproject_multi(packed, n_images, betas, sid, dgamma, n_channels,
     (image[iy, ix] at x = (ix + 0.5 - N/2) px, y = (iy + 0.5 - N/2) px),
     times ``dbeta``.  CUDA tensors run kernel K4 (counted in
     ``fan_backproject_multi.launches``); CPU tensors run
-    :func:`fan_backproject_multi_plain`.
+    :func:`fan_backproject_multi_plain`.  ``view_block`` (a TPU view-block
+    layout) is accepted and ignored.
     """
+    del view_block
     if not 1 <= n_images <= MAX_IMAGES:
         raise ValueError(f"n_images must be in 1..{MAX_IMAGES}")
     if n_channels < 2:
@@ -218,8 +220,8 @@ def parallel_rebin_plan(geometry, n_theta=512, nt=1024, t_max=None):
 
 
 def _rebin_shape(sinos, idx, w, nt, taps):
-    if taps not in (8, 16):
-        raise ValueError(f"taps must be 8 or 16, got {taps}")
+    if taps not in (4, 8, 16):
+        raise ValueError(f"taps must be 4, 8 or 16, got {taps}")
     if sinos.dim() != 3:
         raise ValueError(f"sinos must be [K, V, C], got {tuple(sinos.shape)}")
     n = idx.numel()
@@ -265,7 +267,8 @@ def rebin_to_parallel(sinos, idx, w, nt, taps=8):
     """[K, V, C] fan sinograms -> [K, nθ, nt] parallel sinograms.
 
     idx/w are the flat [nθ*nt*taps] tables of :func:`parallel_rebin_plan`
-    (``taps`` = 8; 16 for the flying-focal-spot plan), ordered as
+    (``taps`` = 8; 16 for the flying-focal-spot plan; 4 for the helical PI
+    method's row rebin, whose K are the detector rows), ordered as
     adjacent-channel pairs; nθ is inferred from their length.  CUDA tensors
     run kernel K5 (counted in ``rebin_to_parallel.launches``; float32
     sinograms and weights, int32 indices, all on the sinograms' device);
@@ -354,7 +357,8 @@ def _parallel_backproject_cuda(packed, n_images, thetas, t0, dt, nt,
 
 
 def parallel_backproject_multi(packed, n_images, thetas, t0, dt, nt,
-                               n_matrix, fov, dtheta, *, fov_mask=True):
+                               n_matrix, fov, dtheta, *, view_block=None,
+                               fov_mask=True):
     """Backproject K images from packed parallel-beam taps.
 
     packed: [nθ*nt, 2K] from :func:`pack_filtered` of the filtered parallel
@@ -363,8 +367,10 @@ def parallel_backproject_multi(packed, n_images, thetas, t0, dt, nt,
     [K, n_matrix, n_matrix] times ``dtheta``; with ``fov_mask`` pixels
     outside the FOV disc (r > fov/2) are 0.  CUDA tensors run kernel K6
     (counted in ``parallel_backproject_multi.launches``); CPU tensors run
-    :func:`parallel_backproject_multi_plain`.
+    :func:`parallel_backproject_multi_plain`.  ``view_block`` (a TPU view-block
+    layout) is accepted and ignored.
     """
+    del view_block
     if not 1 <= n_images <= MAX_IMAGES:
         raise ValueError(f"n_images must be in 1..{MAX_IMAGES}")
     if nt < 2:

@@ -222,7 +222,8 @@ def _flat_filter(stack, ct, ramp, window="sinc", redundancy="auto",
 
 def fdk_flat_reconstruct(sino_log, geometry, n_matrix, fov, ramp, *,
                          nz_out=None, dz_out=None, window="sinc",
-                         redundancy="auto", offset_feather=None):
+                         view_block=None, redundancy="auto",
+                         offset_feather=None):
     """Flat-detector FDK -> volume(s) ``[nz, N, N]`` in cm^-1.
 
     ``sino_log``: ``[V, R, C]`` or a stack ``[M, V, R, C]`` (all volumes
@@ -231,8 +232,10 @@ def fdk_flat_reconstruct(sino_log, geometry, n_matrix, fov, ramp, *,
     weight; shorter orbits down to pi + gamma_fan Parker weights (the
     C-arm short scan).  ``redundancy``: ``"full"``, ``"offset"`` (Wang
     weights of an offset-detector scan, full orbit only) or ``"auto"``
-    (offset when ``|det_offset_ch| >= 2``).
+    (offset when ``|det_offset_ch| >= 2``).  ``view_block`` (a TPU view-block
+    layout) is accepted and ignored.
     """
+    del view_block
     ct = geometry
     if not getattr(ct, "flat_panel", False):
         raise ValueError(

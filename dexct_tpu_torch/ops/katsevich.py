@@ -24,8 +24,8 @@ weights, the default slice grid) are float64 NumPy copies of the JAX
 package's.  Each kernel's wrapper runs its plain PyTorch version
 (:func:`_fixed_direction_derivative_plain`,
 :func:`_katsevich_backproject_plain`) for CPU tensors.  The JAX program's
-``view_block`` and the view-sharded ``axis_name``/``halo`` arguments
-(``parallel/``) are left out.
+``view_block`` is accepted and ignored; its view-sharded
+``axis_name``/``halo`` arguments (``parallel/``) are left out.
 """
 
 from __future__ import annotations
@@ -603,8 +603,9 @@ def _filter_backproject_chain(g, betas, src_z, Wf, Wb, kern_im, cosk, *,
 
 
 def katsevich_reconstruct(sino_log, geometry, n_matrix, fov, *, z_out=None,
-                          n_psi=128, taper=None, interp="linear",
-                          deriv="spectral", ramp=0.8, window="sinc"):
+                          n_psi=128, view_block=None, taper=None,
+                          interp="linear", deriv="spectral", ramp=0.8,
+                          window="sinc"):
     """Katsevich exact helical FBP -> ``[nz, N, N]`` in cm^-1 (or
     ``[M, nz, N, N]`` for a stack ``[M, V, R, C]``, all volumes through one
     chain and one K15 launch).
@@ -619,8 +620,10 @@ def katsevich_reconstruct(sino_log, geometry, n_matrix, fov, *, z_out=None,
     ``interp``: "linear" or "cubic" (Catmull-Rom) in both rebinnings and
     the backprojector's rows.  Raises ``ValueError`` at pitch 0, for a
     flying focal spot, when the TD window is taller than the detector and
-    when the scan is too short for any full PI interval.
+    when the scan is too short for any full PI interval.  ``view_block`` (a TPU
+    view-block layout) is accepted and ignored.
     """
+    del view_block
     stack, single = _stack(sino_log)
     arrays, statics = _host_prep(
         stack.shape, geometry, n_matrix, fov, z_out=z_out, n_psi=n_psi,

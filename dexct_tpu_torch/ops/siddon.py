@@ -27,7 +27,8 @@ import torch
 
 from ..utils import kernels
 
-__all__ = ["material_path_sinogram", "trace_paths", "trace_paths_plain",
+__all__ = ["material_path_sinogram", "mono_sinogram", "trace_paths",
+           "trace_paths_plain",
            "trace_paths_stack", "trace_paths_stack_plain", "labels_tensor",
            "labels_stack_tensor"]
 
@@ -300,15 +301,19 @@ def labels_stack_tensor(labels, device):
 
 
 def material_path_sinogram(phantom, geometry, *, device,
-                           dtype=torch.float32):
+                           dtype=torch.float32, trace_group=None,
+                           trace_bundle=None):
     """Full material-path sinogram [N_proj, N_channels, n_materials].
 
     Host-side convenience wrapper: derives the rays from the geometry and
     traces them on ``device``.  One exact per-ray trace serves every grid,
-    so the JAX package's ``method`` choice has no counterpart here.  An
+    so the JAX package's ``method`` choice has no counterpart here, and its
+    ``trace_group`` and ``trace_bundle`` (TPU ray-plan layouts) are
+    accepted and ignored.  An
     :class:`~dexct_tpu_torch.system.analytic.AnalyticPhantom` is traced in
     closed form (:func:`~dexct_tpu_torch.system.analytic.analytic_paths`).
     """
+    del trace_group, trace_bundle
     from ..system.analytic import (AnalyticPhantom,
                                    material_path_sinogram_analytic)
 
@@ -324,3 +329,12 @@ def material_path_sinogram(phantom, geometry, *, device,
         n_materials=phantom.n_materials,
     )
 
+
+
+def mono_sinogram(paths, mu_per_material):
+    """Monoenergetic line-integral sinogram: ``paths [..., M]`` contracted
+    with a per-material linear attenuation vector ``[M]`` [1/cm], in full
+    float32 (TF32 plays no part in a matrix-vector product)."""
+    mu = torch.as_tensor(mu_per_material, dtype=paths.dtype,
+                         device=paths.device)
+    return torch.matmul(paths, mu)

@@ -15,7 +15,8 @@ none of them, so this pack keeps only the rules that are physics or
 protocol: flat-panel, tilted and flying-focal-spot geometries are refused
 (they run the stateless branch,
 :func:`dexct_tpu_torch.ops.conebeam.simulate_cone_dect`), and the helical z
-grid, window centres and FDK weights are the JAX package's.
+grid, window centres, view weightings and FDK weights are the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -27,15 +28,17 @@ import torch
 
 from ..ops import matdecomp as md_ops
 from ..ops import spectral as sp_ops
-from ..ops.conebeam import (_fdk_backproject_multi, _fdk_weights,
-                            _helical_backproject, labels_u8, trace_paths_3d)
+from ..ops.conebeam import (WEIGHTINGS, _fdk_backproject_multi,
+                            _fdk_weights, _helical_backproject, labels_u8,
+                            trace_paths_3d)
 from ..ops.fbp import filter_views, hu_image
 from ..ops.filters import filter_frequency_response
 from .fused import decompose_counts
 
 __all__ = ["ConeDectMeta", "pack_cone_dect", "unsupported_geometry",
            "cone_paths", "cone_dect_from_paths", "cone_dect_step",
-           "cone_reconstruct_stack", "cone_arrays_from_numpy"]
+           "make_jitted_cone_step", "cone_reconstruct_stack",
+           "cone_arrays_from_numpy"]
 
 # the arrays the step reads besides labels/src/dirs, with their dtypes;
 # the helical and compound-noise ones are present when the meta needs them
@@ -83,6 +86,7 @@ class ConeDectMeta(NamedTuple):
     do_recon: bool = True
     pitch: float = 0.0
     z0: float = 0.0
+    helical_weighting: str = "full"
     seed: int = 0
 
 
@@ -103,18 +107,25 @@ def unsupported_geometry(ct):
 
 
 def pack_cone_dect(ct, phantom, spec1, spec2, n_matrix, fov, ramp, *,
-                   device, n_iters=10, window="sinc", noise="none", seed=0,
-                   mask_thresh=0.95, do_recon=True):
+                   device, n_iters=10, nz_out=None, dz_out=None,
+                   window="sinc", noise="none", seed=0, group=16,
+                   mask_thresh=0.95, do_recon=True, trace_bundle=8,
+                   weighting="full", _ray_plan=True, _n_zslab=1):
     """Lower a cone-beam DE scan to ``(arrays, meta)`` for
     :func:`cone_dect_step`, every array on ``device``.
 
-    Helical geometries (``ct.pitch != 0``) reconstruct on the JAX
-    package's default z grid, centred on the scan's mid-travel z = 0: one
-    slice per ``h_iso`` across the central 80 % of the source travel (the
-    ends lack a full 2 pi window), with the generalized Feldkamp's
-    weighting ``full``.  The circular grid is ``N_rows`` slices of
-    ``h_iso``.
+    Helical geometries (``ct.pitch != 0``) reconstruct on a z grid centred
+    on the scan's mid-travel z = 0: ``nz_out`` slices of ``dz_out``
+    (default ``h_iso``) or, without ``nz_out``, the JAX package's default
+    of one slice per ``h_iso`` across the central 80 % of the source
+    travel (the ends lack a full 2 pi window); ``weighting`` picks the
+    generalized Feldkamp's view window (``ops.conebeam.WEIGHTINGS``).  The
+    circular grid is ``nz_out`` (default ``N_rows``) slices of ``dz_out``
+    (default ``h_iso``).  ``group``, ``trace_bundle``, ``_ray_plan`` and
+    ``_n_zslab`` choose the JAX package's TPU trace layouts and z-slab
+    sharding; they are accepted and ignored.
     """
+    del group, trace_bundle, _ray_plan, _n_zslab
     from .api import effective_water_mu
 
     bad = unsupported_geometry(ct)
@@ -125,14 +136,21 @@ def pack_cone_dect(ct, phantom, spec1, spec2, n_matrix, fov, ramp, *,
                          f"them through {bad[2]}")
     pitch = float(getattr(ct, "pitch", 0.0))
     helical = abs(pitch) > 1e-12
+    if weighting not in WEIGHTINGS:
+        raise ValueError(f"unknown helical weighting {weighting!r}")
     nz, ny, nx = np.asarray(phantom.labels).shape
-    nz_out, dz_out, z0 = ct.N_rows, float(ct.h_iso), 0.0
+    z0 = 0.0
     if helical:
-        travel = pitch * ct.rotation_total / (2.0 * np.pi)
-        half = 0.4 * travel
-        nz_out = max(int(2.0 * half / ct.h_iso), 1)
-        dz_out = 2.0 * half / nz_out
-        z0 = (0.5 - nz_out / 2.0) * dz_out
+        if nz_out is None:
+            travel = pitch * ct.rotation_total / (2.0 * np.pi)
+            half = 0.4 * travel
+            nz_out = max(int(2.0 * half / ct.h_iso), 1)
+            dz_out = 2.0 * half / nz_out
+        elif dz_out is None:
+            dz_out = ct.h_iso
+        z0 = (0.5 - int(nz_out) / 2.0) * float(dz_out)
+    nz_out = int(ct.N_rows if nz_out is None else nz_out)
+    dz_out = float(ct.h_iso if dz_out is None else dz_out)
 
     src, dirs = ct.ray_geometry_3d()
     i0_1 = sp_ops.effective_fluence(spec1, ct)
@@ -185,6 +203,7 @@ def pack_cone_dect(ct, phantom, spec1, spec2, n_matrix, fov, ramp, *,
         noise=str(noise),
         do_recon=bool(do_recon),
         pitch=pitch, z0=float(z0),
+        helical_weighting=str(weighting),
         seed=int(seed),
     )
     return arrays, meta
@@ -219,8 +238,9 @@ def cone_paths(a, meta: ConeDectMeta):
 def cone_reconstruct_stack(sinos, a, meta: ConeDectMeta):
     """Filter and backproject a ``[K, V, R, C]`` sinogram stack: FDK
     weights, the shared ramp filter along channels (times dgamma), then
-    the circular FDK (K11) or the helical gFDK (K12) of all K volumes in
-    one pass.  Returns ``[K, nz, N, N]`` in the sinograms' units per cm."""
+    the circular FDK (K11) or the helical gFDK (K12, in the meta's
+    ``helical_weighting``) of all K volumes in one pass.  Returns
+    ``[K, nz, N, N]`` in the sinograms' units per cm."""
     V, R, C = meta.vrc
     qs = filter_views(sinos, a["fdk_w"], a["filt_H"], meta.fft_len,
                       meta.dgamma).contiguous()
@@ -228,7 +248,8 @@ def cone_reconstruct_stack(sinos, a, meta: ConeDectMeta):
         return _helical_backproject(
             qs, a["betas"], a["src_z"], a["row_off"], a["beta_c"],
             meta.sid, meta.dgamma, meta.row_h, R, meta.pitch, meta.n_matrix,
-            meta.nz_out, meta.fov, meta.dz_out, meta.z0, dbeta=meta.dbeta)
+            meta.nz_out, meta.fov, meta.dz_out, meta.z0, dbeta=meta.dbeta,
+            weighting=meta.helical_weighting)
     return _fdk_backproject_multi(
         qs, a["betas"], meta.sid, meta.dgamma, meta.row_h, R, meta.n_matrix,
         meta.nz_out, meta.fov, meta.dz_out, meta.dbeta)
@@ -278,3 +299,13 @@ def cone_dect_step(arrays, meta: ConeDectMeta):
     """One fused cone DE step on the device of ``arrays``: the trace, then
     :func:`cone_dect_from_paths`."""
     return cone_dect_from_paths(cone_paths(arrays, meta), arrays, meta)
+
+
+def make_jitted_cone_step(meta: ConeDectMeta):
+    """:func:`cone_dect_step` closed over the meta (the JAX package's name;
+    PyTorch runs eagerly, so this is a plain callable of the arrays)."""
+
+    def step(arrays):
+        return cone_dect_step(arrays, meta)
+
+    return step

@@ -43,8 +43,8 @@ from ..ops.siddon import labels_tensor, trace_paths
 from ..system.analytic import AnalyticPhantom, analytic_paths
 
 __all__ = ["DectMeta", "PROJECTORS", "pack_dect", "dect_step",
-           "decompose_counts", "reconstruct_stack", "arrays_from_numpy",
-           "check_choices"]
+           "make_jitted_step", "decompose_counts", "reconstruct_stack",
+           "arrays_from_numpy", "check_choices"]
 
 PROJECTORS = ("fourier", "siddon", "siddon_dominant", "analytic")
 RECONS = ("parallel", "fan")
@@ -119,14 +119,18 @@ def pack_dect(ct, phantom, spec1, spec2, n_matrix, fov, ramp, *, device,
               n_iters=50, window="sinc", mask_thresh=0.95,
               pixel_block=65536, projector="siddon", n_theta=1024,
               recon="fan", recon_n_theta=512, recon_nt=1024, noise="none",
-              seed=0):
+              seed=0, par_sym=True, trace_group=16, trace_bundle=8):
     """Lower the system model to (arrays, meta) for :func:`dect_step`, with
     every array on ``device``.
 
     ``n_theta`` is the Fourier projector's angle count
     (``projector='fourier'``); ``recon_n_theta`` x ``recon_nt`` is the
     parallel grid of ``recon='parallel'``.  The plans are host float64
-    NumPy, built anew on each call."""
+    NumPy, built anew on each call.  ``par_sym``, ``trace_group`` and
+    ``trace_bundle`` choose TPU layouts of the same arrays (the symmetric
+    parallel backprojection, the packed trace's ray plan); they are
+    accepted and ignored."""
+    del par_sym, trace_group, trace_bundle
     from .api import effective_water_mu
 
     check_choices(projector, recon)
@@ -322,3 +326,13 @@ def dect_step(arrays, meta: DectMeta):
         "recon_HU": (hu_image(r1, meta.mu_w1), hu_image(r2, meta.mu_w2)),
         "mat_recons": (m1r, m2r),
     }
+
+
+def make_jitted_step(meta: DectMeta):
+    """:func:`dect_step` closed over the meta (the JAX package's name;
+    PyTorch runs eagerly, so this is a plain callable of the arrays)."""
+
+    def step(arrays):
+        return dect_step(arrays, meta)
+
+    return step

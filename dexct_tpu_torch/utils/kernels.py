@@ -33,9 +33,10 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("siddon_trace.cu", "gauss_newton.cu", "fan_backproject.cu",
            "gather_taps.cu", "parallel_backproject.cu", "kb_sample.cu",
            "analytic_chords.cu", "siddon_trace_3d.cu", "cone_backproject.cu",
-           "trilinear_sample.cu", "siddon_trace_stack.cu")
+           "trilinear_sample.cu", "siddon_trace_stack.cu",
+           "siddon_project_3d.cu", "pi_backproject.cu")
 # headers the sources include (hashed with them, compiled through them)
-HEADERS = ("siddon_walk.cuh",)
+HEADERS = ("siddon_walk.cuh", "siddon_walk_3d.cuh", "td_window.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # no --use_fast_math: the trace's plane crossings and the backprojectors'
 # edge tests feed 1e-4 parity tolerances
@@ -81,11 +82,10 @@ _SIGNATURES = {
     "dexct_fdk_backproject": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _I, _I, _I, _L, _F, _F, _F, _F, _P),
     # qs, cos_b, sin_b, betas, src_z, row_off, beta_c, X, Y, sel, zc, out,
-    # n_images, V, R, C, P, nz, plane, sid, dgamma, row_h, beta0, dbeta,
-    # stream
-    "dexct_helical_backproject": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _P, _P, _I, _I, _I, _I, _I, _I, _L, _F,
-                                  _F, _F, _F, _F, _P),
+    # n_images, weighting, V, R, C, P, nz, plane, sid, dgamma, row_h, beta0,
+    # dbeta, then the 11 window scalars (hwpi .. scale), stream
+    "dexct_helical_backproject": (_P,) * 12 + (_I,) * 7 + (_L,)
+                                 + (_F,) * 16 + (_P,),
     # qs, cos_b, sin_b, X, Y, sel, zc, out, n_images, V, R, C, P, nz,
     # plane, sid, du, dv, off_c, off_r, dbeta, stream
     "dexct_flat_backproject": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -98,6 +98,17 @@ _SIGNATURES = {
                                     _F, _F, _F, _F, _F, _F, _P),
     # vols, zi, yi, xi, out, n_images, n_out, nz, ny, nx, stream
     "dexct_trilinear_sample": (_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _P),
+    # vol (or y), src, dirs, out (or vol), n_rays, nx, ny, nz, x0, y0, z0,
+    # x1, y1, z1, dx, dy, dz, eps, n_steps, stream
+    "dexct_project_3d": (_P, _P, _P, _P, _L, _I, _I, _I) + (_F,) * 10
+                        + (_I, _P),
+    "dexct_backproject_3d": (_P, _P, _P, _P, _L, _I, _I, _I) + (_F,) * 10
+                            + (_I, _P),
+    # par, thetas, cos_t, sin_t, X, Y, sel, zc, out, nT, nt, R, P, nz,
+    # plane, sid, row_h, pitch, z0_src, t0, dt, dtheta, qp, nqp, taper, hdet,
+    # th_lo, th_hi, stream
+    "dexct_pi_backproject": (_P,) * 9 + (_I,) * 5 + (_L,) + (_F,) * 13
+                            + (_P,),
     # labels, src, dirs, out, n_rays, nx, ny, nz, n_out, z_chunk, x0, y0,
     # x1, y1, dx, dy, eps, n_steps, stream
     "dexct_siddon_trace_stack": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F,

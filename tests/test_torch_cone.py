@@ -37,6 +37,9 @@ Tolerances:
 import dataclasses
 import json
 import os
+import sys
+import tempfile
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -164,13 +167,61 @@ def test_helical_plain_matches_jax(pair_mode, windowed):
                                atol=2e-5 * np.abs(want).max())
 
 
+WEIGHTINGS = ["full", "feather", "td", "cosz", "short", "pair"]
+
+
+@pytest.mark.parametrize("windowed", [False, True])
+@pytest.mark.parametrize("weighting", WEIGHTINGS)
+def test_helical_weightings_match_jax(weighting, windowed):
+    """Every gFDK view weighting on the 3-turn helix above, against the JAX
+    program with and without its slice window (the port visits each
+    slice's window of views; the terms it drops are exact zeros)."""
+    ct = HelicalConeBeamGeometry(
+        N_channels=48, N_proj=144, N_rows=8, gamma_fan=0.8, SID=60.0,
+        SDD=100.0, h_iso=0.5, rotation_total=6 * np.pi, pitch=2.0)
+    db = float(ct.betas[1] - ct.betas[0])
+    rng = np.random.default_rng(1)
+    q = rng.standard_normal((4, 144, 8, 48)).astype(np.float32)
+    nz = 17
+    zv = (np.arange(nz) + 0.5) * 0.5 - nz * 0.25
+    bc = (0.5 * ct.rotation_total + 2.0 * np.pi * zv / ct.pitch)
+    arrs = [ct.betas, ct.source_z, np.zeros(144), bc]
+    args = (60.0, ct.dgamma, 0.5, 8, 2.0, 32, nz, 20.0, 0.5, float(zv[0]))
+    want = np.asarray(j_cb._helical_backproject(
+        jnp.asarray(q), *(jnp.asarray(a, jnp.float32) for a in arrs),
+        *args, weighting=weighting, dbeta=db if windowed else None))
+    got = t_cb._helical_backproject(
+        torch.as_tensor(q),
+        *(torch.as_tensor(a, dtype=torch.float32) for a in arrs), *args,
+        dbeta=db, weighting=weighting).numpy()
+    assert got.shape == want.shape == (4, nz, 32, 32)
+    assert np.abs(want).max() > 0
+    _bp_close(got, want)
+
+
 def test_helical_other_weightings_raise():
+    """A weighting outside the six raises ValueError, as the JAX
+    reconstructor does."""
+    from dexct_tpu_torch.system import HelicalConeBeamGeometry as THelix
+
     q = torch.zeros((4, 8, 4, 16))
     z = torch.zeros(8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown helical weighting"):
         t_cb._helical_backproject(q, z, z, z, torch.zeros(3), 60.0, 0.01,
                                   0.5, 4, 2.0, 16, 3, 10.0, 0.5, 0.0,
-                                  dbeta=0.1, weighting="td")
+                                  dbeta=0.1, weighting="tam")
+    jct = HelicalConeBeamGeometry(N_channels=32, N_proj=48, N_rows=4,
+                                  h_iso=0.5, rotation_total=4 * np.pi,
+                                  pitch=2.0)
+    ct = THelix(N_channels=32, N_proj=48, N_rows=4, h_iso=0.5,
+                rotation_total=4 * np.pi, pitch=2.0)
+    with pytest.raises(ValueError) as j_err:
+        j_cb.helical_fdk_reconstruct(jnp.zeros((48, 4, 32)), jct, 16, 18.0,
+                                     0.8, weighting="tam")
+    with pytest.raises(ValueError) as t_err:
+        t_cb.helical_fdk_reconstruct(torch.zeros((48, 4, 32)), ct, 16, 18.0,
+                                     0.8, weighting="tam")
+    assert str(t_err.value) == str(j_err.value)
 
 
 # ---------------------------------------------------------------------------
@@ -319,6 +370,38 @@ def test_zffs_reconstruction_matches_jax(helical):
     want = np.asarray(fn_j(jnp.asarray(sino), jct, 32, 16.0, 0.8))
     got = fn_t(torch.as_tensor(sino), _port_ct(jct), 32, 16.0, 0.8).numpy()
     assert got.shape == want.shape
+    _bp_close(got, want)
+
+
+@pytest.mark.parametrize("weighting,zffs,z_out", [
+    pytest.param("td", False, None, id="td-False"),
+    pytest.param("feather", False, None, id="feather-False"),
+    pytest.param("feather", True, None, id="feather-True"),
+    *(pytest.param(w, False, [0.0], id=f"{w}-central-slice")
+      for w in t_cb.WEIGHTINGS)])
+def test_helical_fdk_weighting_matches_jax(weighting, zffs, z_out):
+    """``helical_fdk_reconstruct(weighting=)``: the Tam-Danielsson and
+    feathered windows on a static spot, and the feathered window with a z
+    flying focal spot (per-view cone factors and row offsets), on a 2-volume
+    stack; and every weighting on the central slice alone (``z_out=[0.0]``,
+    the crop :func:`witness` reconstructs at full size)."""
+    kw = dict(N_channels=64, N_proj=96, N_rows=8, gamma_fan=0.8230337,
+              SID=60.0, SDD=100.0, h_iso=0.5, eid=True,
+              rotation_total=4 * np.pi, pitch=2.0)
+    if zffs:
+        kw["ffs"] = "z"
+    jct = HelicalConeBeamGeometry(**kw)
+    sino = _cyl_sino(jct)
+    stack = np.stack([sino, 0.5 * sino])
+    want = np.asarray(j_cb.helical_fdk_reconstruct(
+        jnp.asarray(stack), jct, 32, 16.0, 0.8, z_out=z_out,
+        weighting=weighting))
+    got = t_cb.helical_fdk_reconstruct(
+        torch.as_tensor(stack), _port_ct(jct), 32, 16.0, 0.8, z_out=z_out,
+        weighting=weighting).numpy()
+    assert got.shape == want.shape
+    if z_out is not None:
+        assert got.shape == (2, 1, 32, 32)
     _bp_close(got, want)
 
 
@@ -480,6 +563,21 @@ def test_cone_dect_step_matches_jax(jax_cone_run):
                                        err_msg=f"{key}[{i}]", **tol)
 
 
+def test_make_jitted_cone_step_matches_jax(jax_cone_run):
+    """The port's ``make_jitted_cone_step`` (``cone_dect_step`` closed over
+    the meta) against the JAX one's step."""
+    r = jax_cone_run
+    got = t_cone.make_jitted_cone_step(r["m"])(r["a"])
+    again = t_cone.cone_dect_step(r["a"], r["m"])
+    for key, tol in WHOLE_TOL.items():
+        for i in range(2):
+            np.testing.assert_allclose(got[key][i].numpy(),
+                                       _np(r["want"][key][i]),
+                                       err_msg=f"{key}[{i}]", **tol)
+    assert all(torch.equal(x, y) for k in got for x, y in
+               zip(got[k], again[k]))
+
+
 def test_port_pack_matches_jax_pack(jax_cone_run):
     """The port's pack gives the arrays that cone_arrays_from_numpy makes
     of the JAX pack, and the JAX meta's fields."""
@@ -491,6 +589,50 @@ def test_port_pack_matches_jax_pack(jax_cone_run):
         assert a[k].dtype == r["a"][k].dtype, k
         torch.testing.assert_close(a[k], r["a"][k], rtol=0, atol=0)
     assert m == r["m"]
+
+
+@pytest.mark.parametrize("system,weighting,nz_out,dz_out", [
+    ("helical", "pair", 7, 0.4), ("helical", "short", None, None),
+    ("circular", "full", 6, 0.4)])
+def test_pack_weighting_and_grid_match_jax(system, weighting, nz_out,
+                                           dz_out):
+    """``pack_cone_dect(weighting=, nz_out=, dz_out=)`` and the step: the
+    port's pack equals the JAX pack's arrays and meta (with
+    ``helical_weighting``), the stages after the trace fed the JAX step's
+    paths agree at the pipeline tolerances and the whole step at the
+    fused-vs-stateless bar."""
+    ct = SYSTEMS[system]()
+    ph3 = _water3d(16)
+    s1, s2 = _spectra(ct)
+    kw = dict(nz_out=nz_out, dz_out=dz_out, weighting=weighting)
+    arrays, meta = j_cone.pack_cone_dect(ct, ph3, s1, s2, 48, 20.0, 0.8,
+                                         **kw)
+    want = j_cone.make_jitted_cone_step(meta)(arrays)
+    V, R, C = meta.vrc
+    paths = _np(j_cone._cone_paths(arrays, meta))[_np(arrays["inv"])]
+    src, dirs = ct.ray_geometry_3d()
+    ref = t_cone.cone_arrays_from_numpy(
+        {k: _np(v) for k, v in arrays.items()}, "cpu", ph3.labels, src, dirs)
+    a, m = t_cone.pack_cone_dect(ct, ph3, s1, s2, 48, 20.0, 0.8,
+                                 device="cpu", **kw)
+    assert m == t_cone.ConeDectMeta(**{f: getattr(meta, f) for f in
+                                       t_cone.ConeDectMeta._fields
+                                       if hasattr(meta, f)})
+    assert m.helical_weighting == weighting
+    if nz_out is not None:
+        assert (m.nz_out, m.dz_out) == (nz_out, dz_out)
+    for k in ref:
+        torch.testing.assert_close(a[k], ref[k], rtol=0, atol=0)
+    staged = t_cone.cone_dect_from_paths(
+        torch.as_tensor(paths.reshape(V, R, C, -1)), a, m)
+    whole = t_cone.make_jitted_cone_step(m)(a)
+    for got, tols in ((staged, TOL), (whole, WHOLE_TOL)):
+        for key, tol in tols.items():
+            for i in range(2):
+                assert got[key][i].shape == want[key][i].shape
+                np.testing.assert_allclose(got[key][i].numpy(),
+                                           _np(want[key][i]),
+                                           err_msg=f"{key}[{i}]", **tol)
 
 
 def test_pack_refuses_what_the_fused_pipeline_does_not_model():
@@ -617,9 +759,11 @@ def test_recon3d_mismatch_raises(tmp_path, kind, recon3d):
 @pytest.mark.parametrize("choice", ["inplane_ffs", "weighting", "heel"])
 def test_unported_3d_choices_raise(tmp_path, choice):
     """What the stateless branch still refuses, naming its ROADMAP item:
-    the generalized Feldkamp's study weightings and the anode heel.  The
-    2-D in-plane flying focal spot, once refused here too, now runs the
-    composed path's 16-tap FFS rebin and writes the JAX CLI's 12 files."""
+    the anode heel.  The 2-D in-plane flying focal spot and the generalized
+    Feldkamp's study weightings, once refused here too, now run: the
+    composed path's 16-tap FFS rebin writes the JAX CLI's 12 files, and
+    ``simulate_cone_dect(recon='helical', weighting='td')`` gives the JAX
+    package's volumes."""
     if choice == "inplane_ffs":
         from dexct_tpu.run import main as j_main
         from dexct_tpu_torch.run import main as t_main
@@ -641,20 +785,30 @@ def test_unported_3d_choices_raise(tmp_path, choice):
                 np.fromfile(tmp_path / "j" / rel, np.float32),
                 err_msg=str(rel), **FILE_TOL[rel.name[:-len("_float32.bin")]])
         return
-    from dexct_tpu_torch.ops.conebeam import (helical_fdk_reconstruct,
-                                              simulate_cone_dect)
+    from dexct_tpu_torch.ops.conebeam import simulate_cone_dect
     from dexct_tpu_torch.system import HelicalConeBeamGeometry as THelix
 
+    if choice == "weighting":
+        jct, ph3 = _simulate_case("helical")
+        s = _spectra(jct)
+        want = j_cb.simulate_cone_dect(jct, ph3, *s, 32, 18.0, 0.8,
+                                       n_iters=8, recon="helical",
+                                       weighting="td")
+        got = simulate_cone_dect(_port_ct(jct), ph3, *s, 32, 18.0, 0.8,
+                                 device="cpu", n_iters=8, recon="helical",
+                                 weighting="td")
+        for key, tol in WHOLE_TOL.items():
+            for i in range(2):
+                np.testing.assert_allclose(got[key][i].numpy(),
+                                           np.asarray(want[key][i]),
+                                           err_msg=f"{key}[{i}]", **tol)
+        return
     ct = THelix(N_channels=32, N_proj=48, N_rows=4, h_iso=0.5,
                 rotation_total=4 * np.pi, pitch=2.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if choice == "weighting":
-            helical_fdk_reconstruct(torch.zeros((48, 4, 32)), ct, 16, 18.0,
-                                    0.8, weighting="td")
-        else:
-            heel = type("Heel", (), {"d0_cm": 1e-3})()
-            simulate_cone_dect(ct, _water3d(4), *_spectra(ct), 16, 18.0, 0.8,
-                               device="cpu", heel=heel)
+        heel = type("Heel", (), {"d0_cm": 1e-3})()
+        simulate_cone_dect(ct, _water3d(4), *_spectra(ct), 16, 18.0, 0.8,
+                           device="cpu", heel=heel)
 
 
 def test_back_project_false_writes_no_volumes(tmp_path):
@@ -667,3 +821,83 @@ def test_back_project_false_writes_no_volumes(tmp_path):
     assert names == sorted(["sino_raw_float32.bin", "sino_log_float32.bin"]
                            * 2 + ["mat1_sino_float32.bin",
                                   "mat2_sino_float32.bin"])
+
+
+# ---------------------------------------------------------------------------
+# The full-size witness of the weighted helical paths (a script, not a test)
+# ---------------------------------------------------------------------------
+
+# the weightings the card's fused step runs, and 'full' beside them
+WITNESS_WEIGHTINGS = ("full", "pair", "td", "short")
+
+
+def _chip_smoke():
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    import chip_smoke
+
+    return chip_smoke
+
+
+def _helical_config():
+    """(JAX geometry, N, FOV, ramp) of chip_smoke.py's helical config."""
+    from dexct_tpu.system.config import read_parameter_file
+
+    chip_smoke = _chip_smoke()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = chip_smoke.write_cone_params(
+            Path(tmp), "helical", chip_smoke.CONE_CONFIGS["helical"])
+        cfg = read_parameter_file(str(path))[0]
+    return cfg.ct, cfg.N_matrix, cfg.FOV, cfg.ramp
+
+
+def witness(npz_path):
+    """The full-size witness for the readings ``chip_smoke.py`` holds its
+    weighted helical paths to (``WEIGHTING_REF_HU``), run as a script:
+
+        python3 chip_smoke.py --witness DIR                 # on the card
+        PYTHONPATH=. python tests/test_torch_cone.py DIR    # with JAX
+
+    The card writes the helical config's log sinograms (720 views x 16 rows
+    x 256 channels, both spectra) and the central slice (z = 0) of its
+    fused step's volumes in 'pair', 'td' and 'short'.  This reconstructs
+    that slice from the same sinograms with the JAX package's
+    ``helical_fdk_reconstruct(z_out=[0.0], weighting=w)`` and with the
+    port's plain version, for those weightings and 'full', and prints each
+    one's air (0, -18) cm and body (0, 0) cm ROIs in HU, and how far the
+    port's CPU slice and the card's lie from the JAX slice."""
+    chip_smoke = _chip_smoke()
+    data = np.load(npz_path)
+    sino, mu_w = data["sino_log"], data["mu_w"]
+    jct, n, fov, ramp = _helical_config()
+
+    def hu(vol):  # [2, N, N] cm^-1 -> HU per spectrum
+        return 1000.0 * (vol - mu_w[:, None, None]) / mu_w[:, None, None]
+
+    def rois(h):
+        return ([chip_smoke.roi_mean(x[None], 0.0, -18.0, 0, fov) for x in h]
+                + [chip_smoke.roi_mean(x[None], 0.0, 0.0, 0, fov) for x in h])
+
+    for w in WITNESS_WEIGHTINGS:
+        want = np.asarray(j_cb.helical_fdk_reconstruct(
+            jnp.asarray(sino), jct, n, fov, ramp, z_out=[0.0],
+            weighting=w))[:, 0]
+        got = t_cb.helical_fdk_reconstruct(
+            torch.as_tensor(sino), _port_ct(jct), n, fov, ramp, z_out=[0.0],
+            weighting=w).numpy()[:, 0]
+        ref = hu(want)
+        row = {"jax_air_body_hu": rois(ref),
+               "port_cpu_max_abs_hu": float(np.abs(hu(got) - ref).max()),
+               "port_cpu_air_body_hu": rois(hu(got))}
+        if f"hu_{w}" in data:
+            card = data[f"hu_{w}"]
+            row["card_max_abs_hu"] = float(np.abs(card - ref).max())
+            row["card_air_body_hu"] = rois(card)
+        print(w, json.dumps(row))
+
+
+if __name__ == "__main__":
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    witness(Path(sys.argv[1]) / "helical_weightings.npz")

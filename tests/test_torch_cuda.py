@@ -1,4 +1,4 @@
-"""Hand-written kernels K1-K16 against their plain PyTorch versions, on the
+"""Hand-written kernels K1-K20 against their plain PyTorch versions, on the
 card.
 
 Every test here needs a CUDA device and skips without one.  This file
@@ -637,3 +637,196 @@ def test_denoiser_cuda_matches_cpu(dev):
     assert torch.backends.cudnn.allow_tf32 == prev  # restored
     cpu = denoise_hu_batch(imgs)
     torch.testing.assert_close(gpu.cpu(), cpu, rtol=0, atol=1e-2)
+
+
+@pytest.mark.parametrize("weighting", ["full", "feather", "td", "cosz",
+                                       "short", "pair"])
+def test_helical_backproject_weightings_match_plain(dev, weighting):
+    """K12 in each gFDK weighting, on a 3-turn helix (the plain version
+    scans every view; the kernel each slice's window)."""
+    from dexct_tpu_torch.ops.conebeam import (_helical_backproject,
+                                              _helical_backproject_plain)
+    from dexct_tpu_torch.system import HelicalConeBeamGeometry
+
+    ct = HelicalConeBeamGeometry(N_channels=48, N_proj=144, N_rows=8,
+                                 SID=60.0, SDD=100.0, h_iso=0.5,
+                                 rotation_total=6 * np.pi, pitch=2.0)
+    rng = np.random.default_rng(21)
+    q = torch.as_tensor(rng.standard_normal((4, 144, 8, 48)),
+                        dtype=torch.float32, device=dev)
+    nz = 17
+    zv = (np.arange(nz) + 0.5) * 0.5 - nz * 0.25
+    bc = 0.5 * ct.rotation_total + 2.0 * np.pi * zv / ct.pitch
+    arrs = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+            for a in (ct.betas, ct.source_z, np.zeros(144), bc)]
+    args = (60.0, ct.dgamma, 0.5, 8, 2.0, 32, nz, 20.0, 0.5, float(zv[0]))
+    before = _helical_backproject.launches
+    got = _helical_backproject(q, *arrs, *args, weighting=weighting,
+                               dbeta=ct.rotation_total / 144)
+    torch.cuda.synchronize()
+    assert _helical_backproject.launches == before + 1
+    want = _helical_backproject_plain(q, *arrs, *args, weighting=weighting)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+def _cone_rays(dev):
+    from dexct_tpu_torch.system import ConeBeamGeometry
+
+    ct = ConeBeamGeometry(N_channels=64, N_proj=48, N_rows=8, SID=60.0,
+                          SDD=100.0, h_iso=0.5)
+    src, dirs = ct.ray_geometry_3d()
+    return (torch.as_tensor(src, dtype=torch.float32, device=dev),
+            torch.as_tensor(dirs, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.parametrize("n_steps", [None, 30])
+def test_project_volume_3d_matches_plain(dev, n_steps):
+    """K18 against its plain version, and on a volume of per-label values
+    against K10's paths times those values."""
+    from dexct_tpu_torch.ops.conebeam import (project_volume_3d,
+                                              project_volume_3d_plain,
+                                              trace_paths_3d)
+
+    src, dirs = _cone_rays(dev)
+    rng = np.random.default_rng(22)
+    vol = torch.as_tensor(rng.uniform(0, 1, (12, 40, 40)),
+                          dtype=torch.float32, device=dev)
+    before = project_volume_3d.launches
+    got = project_volume_3d(vol, src, dirs, 0.5, 0.5, 0.5, n_steps=n_steps)
+    torch.cuda.synchronize()
+    assert project_volume_3d.launches == before + 1
+    want = project_volume_3d_plain(vol, src, dirs, 0.5, 0.5, 0.5,
+                                   n_steps=n_steps)
+    assert got.shape == (48, 8, 64)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    labels = torch.as_tensor(rng.integers(0, 4, (12, 40, 40)),
+                             dtype=torch.uint8, device=dev)
+    mu = torch.tensor([0.0, 0.2, 0.35, 0.5], device=dev)
+    ref = trace_paths_3d(labels, src, dirs, 0.5, 0.5, 0.5,
+                         n_materials=4) @ mu
+    got = project_volume_3d(mu[labels.long()], src, dirs, 0.5, 0.5, 0.5)
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))
+
+
+def test_project_volume_3d_adjoint_matches_plain(dev):
+    """K19 against its plain version, the dot-product identity and the
+    autograd gradient."""
+    from dexct_tpu_torch.ops.conebeam import (
+        project_volume_3d, project_volume_3d_adjoint,
+        project_volume_3d_adjoint_plain)
+
+    src, dirs = _cone_rays(dev)
+    rng = np.random.default_rng(23)
+    shape = (12, 40, 40)
+    x = torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
+                        device=dev)
+    y = torch.as_tensor(rng.normal(size=(48, 8, 64)), dtype=torch.float32,
+                        device=dev)
+    before = project_volume_3d_adjoint.launches
+    got = project_volume_3d_adjoint(y, src, dirs, shape, 0.5, 0.5, 0.5)
+    torch.cuda.synchronize()
+    assert project_volume_3d_adjoint.launches == before + 1
+    want = project_volume_3d_adjoint_plain(y, src, dirs, shape, 0.5, 0.5,
+                                           0.5)
+    # atomics add in no fixed order
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+    lhs = float((project_volume_3d(x, src, dirs, 0.5, 0.5, 0.5)
+                 .double() * y.double()).sum())
+    rhs = float((x.double() * got.double()).sum())
+    assert abs(lhs - rhs) <= 1e-4 * abs(lhs)
+    x.requires_grad_(True)
+    (project_volume_3d(x, src, dirs, 0.5, 0.5, 0.5) * y).sum().backward()
+    torch.testing.assert_close(x.grad, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+def test_pi_backproject_matches_plain(dev):
+    from dexct_tpu_torch.ops.helical_pi import (_conepar_rebin_plan,
+                                                _pi_backproject,
+                                                _pi_backproject_plain)
+    from dexct_tpu_torch.system import HelicalConeBeamGeometry
+
+    ct = HelicalConeBeamGeometry(N_channels=32, N_proj=96, N_rows=8,
+                                 SID=60.0, SDD=100.0, h_iso=0.5, pitch=2.0,
+                                 rotation_total=4.0 * np.pi)
+    _, _, t0, dt, thetas = _conepar_rebin_plan(ct, 64)
+    rng = np.random.default_rng(24)
+    par = torch.as_tensor(rng.standard_normal((96, 64, 8)),
+                          dtype=torch.float32, device=dev)
+    th = torch.as_tensor(thetas, device=dev)
+    args = (par, 60.0, 0.5, 8, 2.0, float(ct.source_z[0]), th, t0, dt, 64,
+            32, 5, 16.0, 0.5, -1.0, float(ct.rotation_total / 96))
+    before = _pi_backproject.launches
+    got = _pi_backproject(*args)
+    torch.cuda.synchronize()
+    assert _pi_backproject.launches == before + 1
+    want = _pi_backproject_plain(*args)
+    assert float(want.abs().max()) > 0
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+def test_rebin_to_parallel_4_taps_matches_plain(dev):
+    """K5 at 4 taps on the PI method's plan, the 8 detector rows as its
+    images (more than the 4 of its other paths)."""
+    from dexct_tpu_torch.ops.helical_pi import _conepar_rebin_plan
+    from dexct_tpu_torch.system import HelicalConeBeamGeometry
+
+    ct = HelicalConeBeamGeometry(N_channels=32, N_proj=96, N_rows=8,
+                                 SID=60.0, SDD=100.0, h_iso=0.5, pitch=2.0,
+                                 rotation_total=4.0 * np.pi)
+    idx, w, _, _, _ = _conepar_rebin_plan(ct, 64)
+    rng = np.random.default_rng(25)
+    rows = torch.as_tensor(rng.standard_normal((8, 96, 32)),
+                           dtype=torch.float32, device=dev)
+    idx = torch.as_tensor(idx, device=dev)
+    w = torch.as_tensor(w, device=dev)
+    before = rebin_to_parallel.launches
+    got = rebin_to_parallel(rows, idx, w, 64, taps=4)
+    torch.cuda.synchronize()
+    assert rebin_to_parallel.launches == before + 1
+    want = rebin_to_parallel_plain(rows, idx, w, 64, taps=4)
+    assert got.shape == (8, 96, 64)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("path", ["pwls", "cg", "helical_pi"])
+def test_iterative_and_pi_paths_cuda_match_cpu(dev, path):
+    """Tiny cone PWLS and CG (K18, K19) and the PI method (K5, K20) on the
+    card against the CPU."""
+    from dexct_tpu_torch.ops import conebeam, helical_pi
+    from dexct_tpu_torch.system import (ConeBeamGeometry,
+                                        HelicalConeBeamGeometry)
+
+    rng = np.random.default_rng(26)
+    if path == "helical_pi":
+        ct = HelicalConeBeamGeometry(N_channels=32, N_proj=96, N_rows=8,
+                                     SID=60.0, SDD=100.0, h_iso=0.5,
+                                     pitch=2.0, rotation_total=4.0 * np.pi)
+        sino = rng.uniform(0.5, 1.5, (96, 8, 32)).astype(np.float32)
+        out = [helical_pi.helical_pi_reconstruct(
+            torch.as_tensor(sino, device=d), ct, 32, 18.0, 0.8).cpu()
+            for d in ("cpu", dev)]
+        tol = 1e-4
+    else:
+        ct = ConeBeamGeometry(N_channels=32, N_proj=48, N_rows=4, SID=60.0,
+                              SDD=100.0, h_iso=0.5)
+        sino = rng.uniform(0.5, 2.0, (48, 4, 32)).astype(np.float32)
+        counts = np.maximum(1500.0 * np.exp(-sino), 1.0)
+        v0 = rng.normal(size=(4, 24, 24)).astype(np.float32)
+        if path == "pwls":
+            out = [conebeam.cone_pwls_recon(
+                sino, counts, ct, (4, 24, 24), (1.0, 1.0, 1.0), n_iters=20,
+                beta=3e-2, device=d, _v0=v0).cpu() for d in ("cpu", dev)]
+        else:
+            out = [conebeam.cone_cg_recon(
+                sino, ct, (4, 24, 24), (1.0, 1.0, 1.0), n_iters=6,
+                device=d)[0].cpu() for d in ("cpu", dev)]
+        tol = 1e-3
+    torch.testing.assert_close(out[1], out[0], rtol=0,
+                               atol=tol * float(out[0].abs().max()))

@@ -7,7 +7,7 @@ Needs one CUDA device, the CUDA toolkit (nvcc) and Triton; imports nothing
 of JAX.  Phases, each of which raises on failure:
 
 1. Device: the card's name and power limit (nvidia-smi).
-2. Build: nvcc builds kernels K1, K3-K13 and K15-K20 from
+2. Build: nvcc builds kernels K1, K3-K13 and K15-K24 from
    ``dexct_tpu_torch/csrc`` (one nvcc per source, all at once); Triton
    compiles K2 and K14.
 3. Each kernel against its plain PyTorch version on the card, on the
@@ -37,7 +37,12 @@ of JAX.  Phases, each of which raises on failure:
    60 keV, K18 also against K10's paths . mu and K19 through the
    dot-product identity, both against the system matrix's CSR product on
    every tenth view; K5 at 4 taps and K20 (the PI method) on the helical
-   config's 60 keV sinogram.
+   config's 60 keV sinogram.  K21 and K22 (the adjoints of K7 and K8) at
+   the reference protocol's Fourier plan, each also against its forward
+   kernel through the dot-product identity, then the whole projector's
+   <A x, y> = <x, A^T y>; K23 (the 2-D dose map) on input/params.txt's 80
+   kV scan at every 10th view, K24 (the 3-D one) on the cone and helical
+   configs at every 30th and 60th view.
 4. The paths: the default and the exact path through
    ``dexct_tpu_torch.run.main`` on ``input/params.txt``, then the cone,
    helical, flat-panel, tilted, z-FFS and Katsevich configs, the
@@ -65,10 +70,17 @@ of JAX.  Phases, each of which raises on failure:
    bladder within 50 HU, and each weighting the air and body readings of
    the JAX package's reconstruction of the same sinograms within 2 HU
    (``--witness DIR`` writes those sinograms and the slices read, for
-   ``tests/test_torch_cone.py``).
+   ``tests/test_torch_cone.py``).  Then three more library paths, each
+   twice: ``iterative_2d`` (the reference protocol's 60 keV scan, CG 30,
+   SIRT 50 and PWLS 60 iterations: CG must read the bladder within 3 %,
+   PWLS within 5 % with noise below 0.6 x the FBP's), ``onestep`` (the
+   default path's two-step result refined by 300 Adam iterations: the data
+   loss must fall and the bladder's tissue density stay within 5 %) and
+   ``dose`` (the 2-D maps of both acquisitions, the cone and helical 3-D
+   maps: each deposited energy within 5 % of the beam energy removed).
 5. A 64^2 config through the port on ``--device cpu`` and ``--device
    cuda`` under every 2-D path's flags and configuration, tiny versions of
-   every 3-D path, a tiny z-stack, and tiny versions of the three library
+   every 3-D path, a tiny z-stack, and tiny versions of the six library
    paths above; every output agrees to the pipeline tolerances.
 
 The last two lines of standard output are the kernels' JSON record and the
@@ -156,6 +168,21 @@ KERNELS = {
     "pi_backproject": ("cuda", "dexct_tpu_torch/csrc/pi_backproject.cu",
                        "dexct_tpu/ops/helical_pi.py:128",
                        "max abs <= 1e-4 x max |plain|"),
+    "kb_sample_adjoint": ("cuda", "dexct_tpu_torch/csrc/kb_sample.cu",
+                          "dexct_tpu/ops/fourier.py:258",
+                          "max abs <= 1e-5 x max |plain|; <K7 F, g> = "
+                          "<F, K21 g> to rel 1e-5"),
+    "resample_to_fan_adjoint": ("cuda",
+                                "dexct_tpu_torch/csrc/gather_taps.cu",
+                                "dexct_tpu/ops/fourier.py:397",
+                                "max abs <= 1e-5 x max |plain|; <K8 r, y> = "
+                                "<r, K22 y> to rel 1e-5"),
+    "dose_map": ("cuda", "dexct_tpu_torch/csrc/dose.cu",
+                 "dexct_tpu/ops/dose.py:184",
+                 "max abs <= 1e-4 x max |plain|; deposited rel 1e-4"),
+    "dose_map_3d": ("cuda", "dexct_tpu_torch/csrc/dose.cu",
+                    "dexct_tpu/ops/dose.py:629",
+                    "max abs <= 1e-4 x max |plain|; deposited rel 1e-4"),
 }
 # the library paths of the helical study reconstructors and the exact 3-D
 # iterative reconstruction, and the kernels each launches
@@ -165,6 +192,19 @@ CONE_PWLS_KERNELS = ("siddon_trace_3d", "fdk_backproject", "project_3d",
                      "backproject_3d")
 HELICAL_PI_KERNELS = ("siddon_trace_3d", "rebin_to_parallel",
                       "pi_backproject")
+# the library paths of the 2-D iterative and one-step reconstructions and
+# of the dose maps, and the kernels each launches
+ITERATIVE_2D_KERNELS = ("siddon_trace", "fan_backproject", "kb_sample",
+                        "resample_to_fan", "kb_sample_adjoint",
+                        "resample_to_fan_adjoint")
+ONESTEP_KERNELS = ("kb_sample", "resample_to_fan", "kb_sample_adjoint",
+                   "resample_to_fan_adjoint")
+DOSE_KERNELS = ("siddon_trace", "siddon_trace_3d", "dose_map", "dose_map_3d")
+# the 2-D iterative path's Poisson scan: unattenuated counts per ray
+ITER_N0 = 1.0e5
+# the centre of the 2-D pelvis's bladder (water) in cm: rows 128-144 and
+# columns 118-138 of its 256^2 labels at 0.2 cm are water
+BLADDER_XY = (0.0, 1.7)
 # K12's float32 operations per (pixel, slice, view) on the detector within
 # its slice's window: 35 for the geometry and the row, and each gFDK
 # window's own (cosine, sine and division count as one); 7 K more where the
@@ -320,9 +360,10 @@ def bound(n_bytes, n_ops):
 
 
 def report(records, name, err, ms, plain_ms, ok, work, library_ms=None,
-           extra=""):
+           extra="", record=True):
     """Print and record one kernel's comparison; ``work`` is (bytes read
-    and written once, float32 operations) of the call."""
+    and written once, float32 operations) of the call.  ``record=False``
+    prints and checks a further case of a recorded kernel."""
     bound_ms, bound_by = bound(*work)
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
     print(f"  {name:20s} max_abs_err={err:.6g}{extra}  kernel={ms:.4f} ms"
@@ -330,6 +371,8 @@ def report(records, name, err, ms, plain_ms, ok, work, library_ms=None,
           f"  library={lib}  [{KERNELS[name][3]}]")
     if not ok:
         fail(f"{name} disagrees with its plain version")
+    if not record:
+        return
     route, src, replaces, _ = KERNELS[name]
     records[name] = {"name": name, "route": route, "source": src,
                      "replaces": replaces, "max_abs_err": err,
@@ -1297,9 +1340,9 @@ def ffs_kernel_phase(cfg, spectra, dev):
 
 
 def counters():
-    from dexct_tpu_torch.ops import (conebeam, fbp_fast, flatpanel, fourier,
-                                     helical_pi, katsevich, matdecomp,
-                                     siddon, spectral)
+    from dexct_tpu_torch.ops import (conebeam, dose, fbp_fast, flatpanel,
+                                     fourier, helical_pi, katsevich,
+                                     matdecomp, siddon, spectral)
     from dexct_tpu_torch.system import analytic
 
     return {"siddon_trace": siddon.trace_paths,
@@ -1321,7 +1364,11 @@ def counters():
             "siddon_trace_stack": siddon.trace_paths_stack,
             "project_3d": conebeam.project_volume_3d,
             "backproject_3d": conebeam.project_volume_3d_adjoint,
-            "pi_backproject": helical_pi._pi_backproject}
+            "pi_backproject": helical_pi._pi_backproject,
+            "kb_sample_adjoint": fourier.kb_sample_adjoint,
+            "resample_to_fan_adjoint": fourier.resample_to_fan_adjoint,
+            "dose_map": dose._dose_accumulate,
+            "dose_map_3d": dose._dose_accumulate_3d}
 
 
 def zero_counters():
@@ -2090,6 +2137,543 @@ def helical_pi_path(ccfg, records, smi):
         fail("the helical PI path misses its checks")
 
 
+def recon_grid(cfg):
+    """The reference protocol's reconstruction grid (N_matrix^2 over the
+    FOV) as an empty phantom: the domain of the one-step path's Fourier
+    plan."""
+    import numpy as np
+
+    from dexct_tpu_torch.system.phantom import VoxelPhantom
+
+    n, px = cfg.N_matrix, cfg.FOV / cfg.N_matrix
+    return VoxelPhantom("recon_grid", np.zeros((1, n, n), np.uint8),
+                        cfg.phantom.materials, px, px, px)
+
+
+def autograd_adjoint(A, n):
+    """A^T of a linear image -> sinogram operator by autograd: a forward
+    pass at zero, then its backward (K7 and K8, then K22 and K21)."""
+    import torch
+
+    def adjoint(y):
+        x = torch.zeros((n, n), device=y.device, requires_grad=True)
+        (g,) = torch.autograd.grad(A(x), x, y)
+        return g
+
+    return adjoint
+
+
+def fourier_adjoint_kernel_phase(cfg, records, dev):
+    """Phase 3, the Fourier projector's adjoints, at the two plans the
+    paths run them on: the reference protocol's phantom grid (256^2 at 0.2
+    cm, G = 512, n_theta = 1024, 1000 x 800 rays; one image, as the 2-D
+    iterative path runs them; recorded) and the one-step path's 512^2
+    reconstruction grid over 50 cm (G = 1024, 1024 x 513 samples; two basis
+    images).  At each, K21 and K22 against their plain versions (1e-5 x
+    max) and, through the dot-product identity, against K7 and K8 (1e-5);
+    at the reference plan <A x, y> = <x, A^T y> for the whole chain, and
+    one A^T explicit (K22, the FFT chain's adjoint, K21) against autograd's
+    (a forward pass, then its backward).  The library yardsticks are the
+    transposed tap matrices as CSR products (complex for K21)."""
+    import torch
+
+    from dexct_tpu_torch.ops import fourier, iterative
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def crandn(shape):
+        return torch.complex(*(torch.randn(shape, generator=gen, device=dev)
+                               for _ in range(2)))
+
+    def rdot(a, b):
+        return float((torch.view_as_real(a).double()
+                      * torch.view_as_real(b).double()).sum())
+
+    def check_k21(plan, M, label, record):
+        G = plan.grid
+        tabs = (plan.slice_idx, plan.slice_w, plan.phase_cos, plan.phase_sin)
+        g = crandn((M,) + tuple(plan.phase_cos.shape))
+        F_adj, want, ms, pms = compare(
+            lambda: fourier.kb_sample_adjoint(g, *tabs, G),
+            lambda: fourier.kb_sample_adjoint_plain(g, *tabs, G), reps=5)
+        err, big = max_err(F_adj, want)
+        F = crandn((M, G, G))
+        lhs, rhs = rdot(fourier.kb_sample(F, *tabs), g), rdot(F, F_adj)
+        ident = abs(lhs - rhs) / abs(lhs)
+        S = plan.slice_idx.numel()
+        phase = torch.complex(plan.phase_cos.reshape(-1),
+                              plan.phase_sin.reshape(-1))
+        vals = plan.slice_w.reshape(S, 16).to(torch.complex64) \
+            * phase.conj()[:, None]
+        Wh = sparse_taps(
+            fourier._window_indices(plan.slice_idx, G).reshape(-1),
+            torch.arange(S, device=dev).repeat_interleave(16),
+            vals.reshape(-1), (G * G, S))
+        gcol = g.reshape(M, S).T.contiguous()
+        lib_err = float((torch.sparse.mm(Wh, gcol).T.reshape(F_adj.shape)
+                         - want).abs().max())
+        report(records, "kb_sample_adjoint", err, ms, pms,
+               err <= 1e-5 * big and ident <= 1e-5,
+               (nbytes(g, *tabs, F_adj), S * M * 70),
+               library_ms=time_ms(lambda: torch.sparse.mm(Wh, gcol), 5),
+               extra=f" ({label}; max |plain| {big:.6g}; <K7 F, g> = "
+                     f"{lhs:.8g}, <F, K21 g> = {rhs:.8g}, rel {ident:.3g}; "
+                     f"complex CSR library err {lib_err:.3g})",
+               record=record)
+        return g
+
+    def check_k22(plan, M, label, record):
+        vs = (cfg.ct.N_proj, cfg.ct.N_channels)
+        radon_shape = (M, plan.n_theta, plan.nt)
+        y = torch.randn(vs + (M,), generator=gen, device=dev)
+        r_adj, want, ms, pms = compare(
+            lambda: fourier.resample_to_fan_adjoint(
+                y, plan.fan_idx, plan.fan_w, radon_shape),
+            lambda: fourier.resample_to_fan_adjoint_plain(
+                y, plan.fan_idx, plan.fan_w, radon_shape), reps=5)
+        err, big = max_err(r_adj, want)
+        r = torch.randn(radon_shape, generator=gen, device=dev)
+        lhs = float((fourier.resample_to_fan(r, plan.fan_idx, plan.fan_w,
+                                             vs + (M,)).double()
+                     * y.double()).sum())
+        rhs = float((r.double() * r_adj.double()).sum())
+        ident = abs(lhs - rhs) / abs(lhs)
+        idx = plan.fan_idx.reshape(-1, 4).to(torch.int64)
+        n_rays = idx.shape[0]
+        n_bins = plan.n_theta * plan.nt
+        Wt = sparse_taps(
+            idx.reshape(-1),
+            torch.arange(n_rays, device=dev).repeat_interleave(4),
+            plan.fan_w.reshape(-1), (n_bins, n_rays))
+        ycol = y.reshape(n_rays, M)
+        lib_err = float((torch.sparse.mm(Wt, ycol).T.reshape(radon_shape)
+                         - want).abs().max())
+        report(records, "resample_to_fan_adjoint", err, ms, pms,
+               err <= 1e-5 * big and ident <= 1e-5,
+               (nbytes(y, plan.fan_idx, plan.fan_w, r_adj), n_rays * M * 8),
+               library_ms=time_ms(lambda: torch.sparse.mm(Wt, ycol), 5),
+               extra=f" ({label}; max |plain| {big:.6g}; <K8 r, y> = "
+                     f"{lhs:.8g}, <r, K22 y> = {rhs:.8g}, rel {ident:.3g}; "
+                     f"CSR library err {lib_err:.3g})",
+               record=record)
+
+    plan = fourier.plan_fourier_projector(cfg.phantom, cfg.ct, device=dev)
+    vs = (cfg.ct.N_proj, cfg.ct.N_channels)
+    G = plan.grid
+    # K21: 1024 x 257 samples into the G = 512 spectrum
+    g = check_k21(plan, 1, "reference plan, 1 image", True)
+    # the DC hot spot: every line's l = 0 and l = 1 windows add into the
+    # same 16 cells; the same launch without those 2 n_theta samples
+    S = plan.slice_idx.numel()
+    nth, nl = plan.phase_cos.shape
+    cut = (g[:, :, 2:].contiguous(),
+           plan.slice_idx.reshape(nth, nl)[:, 2:].contiguous(),
+           plan.slice_w.reshape(nth, nl, 16)[:, 2:].contiguous(),
+           plan.phase_cos[:, 2:].contiguous(),
+           plan.phase_sin[:, 2:].contiguous())
+    print(f"  kb_sample_adjoint without the l < 2 samples ({2 * nth} of {S}):"
+          f" {time_ms(lambda: fourier.kb_sample_adjoint(*cut, G), 5):.4f} ms")
+    del cut
+    # K22: 8e5 fan rays into the 1024 x 1024 Radon transform
+    check_k22(plan, 1, "reference plan, 1 image", True)
+
+    # the whole projector: <A x, y> = <x, A^T y>
+    A = iterative.make_projection_operator(plan, vs)
+    At = iterative._projection_adjoint(plan, vs)
+    x = torch.randn((plan.n_img, plan.n_img), generator=gen, device=dev)
+    y2 = torch.randn(vs, generator=gen, device=dev)
+    lhs = float((A(x).double() * y2.double()).sum())
+    rhs = float((x.double() * At(y2).double()).sum())
+    ident = abs(lhs - rhs) / abs(lhs)
+    print(f"  Fourier projector A (K7, K8) and A^T (K22, K21) at "
+          f"{plan.n_img}^2, {vs[0]} x {vs[1]} rays: <A x, y> = {lhs:.8g}, "
+          f"<x, A^T y> = {rhs:.8g}, rel {ident:.3g} [<= 1e-5]")
+    if not ident <= 1e-5:
+        fail("the Fourier projector's adjoint fails the dot-product "
+             "identity")
+    At_auto = autograd_adjoint(A, plan.n_img)
+    err, big = max_err(At_auto(y2), At(y2))
+    t_exp, t_auto = [time_ms(lambda: At(y2), 10)], []
+    t_auto += [time_ms(lambda: At_auto(y2), 10) for _ in range(2)]
+    t_exp.append(time_ms(lambda: At(y2), 10))
+    print(f"  one A^T at the reference plan: explicit (K22, FFT adjoints, "
+          f"K21) {sum(t_exp) / 2:.4f} ms, autograd's (K7, K8, then K22, "
+          f"K21) {sum(t_auto) / 2:.4f} ms, A alone "
+          f"{time_ms(lambda: A(x), 10):.4f} ms; the two A^T differ by "
+          f"{err:.3g} (max {big:.6g}) [<= 1e-5 x max]")
+    if not err <= 1e-5 * big:
+        fail("the explicit A^T and autograd's differ")
+    del plan, A, At, At_auto
+
+    # the one-step path's plan: K21 and K22 on two basis images
+    plan = fourier.plan_fourier_projector(recon_grid(cfg), cfg.ct,
+                                          device=dev)
+    label = (f"one-step plan, {plan.n_img}^2 grid, G = {plan.grid}, "
+             "2 images")
+    check_k21(plan, 2, label, False)
+    check_k22(plan, 2, label, False)
+
+
+def dose_work(args, three_d):
+    """Bytes and float32 operations of one dose accumulation on this run's
+    inputs: each input and the dose map moved once; per (voxel, view) in
+    the beam (and, in 3-D, in the view's z slab) one exp and K + 2
+    operations per live energy, and per polar sample 20 (2-D) or 35 (3-D)
+    for its corners and running sum."""
+    import torch
+
+    from dexct_tpu_torch.ops import dose
+
+    if three_d:
+        (labels, mu, mu_dep, i0w, betas, src_zs, vw, gammas, ts, rs, vox,
+         rho, lab, scal, z_window) = args
+    else:
+        (labels, mu, mu_dep, i0w, betas, vw, gammas, rs, vox, rho, lab,
+         scal) = args
+    K, E = mu.shape
+    sid = torch.tensor(float(scal[0]), device=vox.device)
+    src, _, _ = dose._view_trig(betas, gammas, sid)
+    pairs = 0
+    if three_d:
+        nz, ny, nx = labels.shape
+        k0s, depth = dose._z_slabs(src_zs, ts, rs, vox[0, 2],
+                                   torch.tensor(float(scal[3]),
+                                                device=vox.device),
+                                   nz, z_window)
+        kz = torch.arange(vox.shape[0], device=vox.device) // (ny * nx)
+    for v in range(betas.shape[0]):
+        rel = vox[:, :2] - src[v][None, :]
+        r_v = torch.sqrt((rel * rel).sum(-1))
+        d0 = -src[v] / sid
+        g_v = torch.atan2(d0[0] * rel[:, 1] - d0[1] * rel[:, 0],
+                          rel[:, 0] * d0[0] + rel[:, 1] * d0[1])
+        ok = torch.abs(g_v) <= float(scal[5 if three_d else 4])
+        if three_d:
+            t_v = (vox[:, 2] - src_zs[v]) / r_v
+            ok &= (torch.abs(t_v) <= float(scal[6])) & (kz >= k0s[v]) & (
+                kz < k0s[v] + depth)
+        pairs += int(ok.sum())
+    n_polar = betas.shape[0] * gammas.shape[0] * rs.shape[0] * (
+        ts.shape[0] if three_d else 1)
+    n_bytes = sum(nbytes(t) for t in args if torch.is_tensor(t)) \
+        + 4 * vox.shape[0]
+    return n_bytes, pairs * E * (K + 3) + n_polar * (35 if three_d else 20)
+
+
+def dose_kernel_phase(cfg, cone_cfgs, spectra, records, dev):
+    """Phase 3, the dose kernels against their plain versions on the
+    spectra the dose path runs: K23 on input/params.txt's pelvis at every
+    10th of its 1000 views, for both acquisitions (detunedMV, 100 live
+    energy bins; 80 kV, 74, recorded), K24 at 80 kV on the cone config at
+    every 30th of its 360 views and on the helical config (its z-slab
+    window) at every 60th of its 720; dose 1e-4 of the map's maximum,
+    deposited energy rel 1e-4."""
+    from dexct_tpu_torch.ops import dose
+
+    def check(name, args, fn, plain, three_d, label, record):
+        (d, e), (dw, ew), ms, pms = compare(lambda: fn(*args),
+                                            lambda: plain(*args), reps=1)
+        err, big = max_err(d, dw)
+        rel_e = abs(e - ew) / abs(ew)
+        report(records, name, err, ms, pms,
+               err <= 1e-4 * big and rel_e <= 1e-4, dose_work(args, three_d),
+               extra=f" ({label}; {args[1].shape[1]} live energies; max "
+                     f"|plain| {big:.6g} keV/g; deposited {e:.8g} vs "
+                     f"{ew:.8g} keV, rel {rel_e:.3g})", record=record)
+
+    ct = cfg.ct
+    for i, spec in enumerate(spectra(ct)):
+        args, _ = dose._dose_prep(
+            cfg.phantom, ct, spec, n_gamma=None, n_r=None, oversample=2,
+            views=ct.betas[::10], z_index=None, n_energy=None,
+            view_weights=None, scoring="removed", device=dev)
+        check("dose_map", args, dose._dose_accumulate,
+              dose._dose_accumulate_plain, False,
+              f"{len(ct.betas[::10])} views, {spec.name}", i == 1)
+    for label, every in (("cone", 30), ("helical", 60)):
+        ccfg = cone_cfgs[label]
+        spec = spectra(ccfg.ct)[1]
+        args, _ = dose._dose_prep_3d(
+            ccfg.phantom, ccfg.ct, spec, n_gamma=None, n_t=None, n_r=None,
+            oversample=2, views=None, n_energy=None, view_weights=None,
+            scoring="removed", z_window="auto", device=dev)
+        args = list(args)
+        for i in (4, 5, 6):  # betas, source z, view weights
+            args[i] = args[i][::every].contiguous()
+        check("dose_map_3d", args, dose._dose_accumulate_3d,
+              dose._dose_accumulate_3d_plain, True,
+              f"{label} config, every {every}th view, z window "
+              f"{args[-1]}, {spec.name}", label == "cone")
+
+
+def iterative_2d_path(cfg, records, smi, dev):
+    """Phase 4, 2-D iterative reconstruction through the library on the
+    reference protocol: the 60 keV sinogram of the exact paths (K1),
+    Poisson counts at ITER_N0 per ray from a seeded generator, the Fourier
+    plan, ``cg_recon`` (30 iterations, lam 0.05) and ``sirt_recon`` (50)
+    on the noiseless sinogram, the FBP of the noisy one (K4) as PWLS's warm
+    start and ``pwls_recon`` (60, beta 3e-2), twice, with the launch
+    counters checked.  In the bladder (water) CG must read its 60 keV mu
+    within 3 % (the JAX package's test_recovers_cylinder bar) and PWLS
+    within 5 % with a standard deviation below 0.6 x the FBP's; SIRT
+    nonnegative and finite."""
+    import torch
+
+    from dexct_tpu_torch.ops import fourier, iterative
+    from dexct_tpu_torch.ops.fbp import fbp_recon
+    from dexct_tpu_torch.ops.siddon import (material_path_sinogram,
+                                            mono_sinogram)
+
+    ct, ph = cfg.ct, cfg.phantom
+    vs = (ct.N_proj, ct.N_channels)
+    n, fov = ph.Nx, ph.Nx * ph.dx
+    mu = mono_mu(ph, dev)
+    fns = zero_counters()
+    for run in (1, 2):
+        st = Stages()
+        sino = mono_sinogram(material_path_sinogram(ph, ct, device=dev), mu)
+        st.mark("trace (K1) + 60 keV sinogram")
+        gen = torch.Generator(device=dev).manual_seed(5)
+        counts = torch.clamp_min(torch.poisson(
+            ITER_N0 * torch.exp(-sino), generator=gen), 1.0)
+        y = -torch.log(counts / ITER_N0)
+        st.mark("Poisson counts")
+        plan = fourier.plan_fourier_projector(ph, ct, device=dev)
+        st.mark("Fourier plan (host)")
+        cg, hist = iterative.cg_recon(plan, sino, vs, n_iters=30, lam=0.05)
+        st.mark("cg_recon (30 iterations)")
+        sirt = iterative.sirt_recon(plan, sino, vs, n_iters=50)
+        st.mark("sirt_recon (50 iterations)")
+        fbp = fbp_recon(y, ct, n, fov, cfg.ramp)[0]
+        st.mark("FBP warm start (K4)")
+        pwls = iterative.pwls_recon(plan, y, counts, vs, n_iters=60,
+                                    beta=3e-2, x0=torch.clamp_min(fbp, 0.0))
+        st.mark("pwls_recon (60 iterations)")
+        print(f"iterative_2d path (library, run {run}): "
+              f"{sum(st.t.values()) / 1e3:.3f} s on {smi}; stages (ms): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in st.t.items()))
+    check_launches("iterative_2d", fns, ITERATIVE_2D_KERNELS, records)
+    mu_w = float(mu[5])  # label 5: water (the bladder)
+    roi = [roi_box(v[None], *BLADDER_XY, 0, fov, 1.0)
+           for v in (cg, sirt, pwls, fbp)]
+    means = [float(r.mean()) for r in roi]
+    bias = [abs(m - mu_w) / mu_w for m in means]
+    ratio = float(roi[2].std()) / float(roi[3].std())
+    h = hist.cpu()
+    finite = all(bool(torch.isfinite(v).all()) for v in (cg, sirt, pwls))
+    print(f"  bladder ROI (mu_w {mu_w:.5f}): CG {means[0]:.5f} (off "
+          f"{bias[0]:.4f}), SIRT {means[1]:.5f} (off {bias[1]:.4f}), PWLS "
+          f"{means[2]:.5f} (off {bias[2]:.4f}), FBP {means[3]:.5f}; PWLS std "
+          f"{float(roi[2].std()):.5f} = {ratio:.3f} x FBP's "
+          f"{float(roi[3].std()):.5f}; CG residual {float(h[0]):.6g} -> "
+          f"{float(h[-1]):.6g}; SIRT min {float(sirt.min()):.3g}; finite: "
+          f"{finite}")
+    if not (bias[0] < 0.03 and bias[2] < 0.05 and ratio < 0.6
+            and float(h[-1]) < float(h[0]) and float(sirt.min()) >= 0.0
+            and finite):
+        fail("the 2-D iterative path misses its physics checks")
+    adjoint_loops(plan, sino, y, counts, vs, torch.clamp_min(fbp, 0.0))
+
+
+def adjoint_loops(plan, sino, y, counts, vs, x0):
+    """The CG (30 iterations) and PWLS (60) loops of the iterative_2d path
+    with the explicit A^T, as ``cg_recon`` and ``pwls_recon`` run them, and
+    with autograd's (a forward pass and its backward per A^T), timed on the
+    host clock in turns (explicit, autograd, autograd, explicit) after the
+    path's runs.  One A^T of each is held to the other in phase 3; here the
+    images' spread between the two is printed beside the explicit loops'
+    own from run to run (the adjoints' atomics add in no fixed order and
+    30 float32 CG iterations amplify it)."""
+    import time
+
+    import torch
+
+    from dexct_tpu_torch.ops import iterative
+
+    A = iterative.make_projection_operator(plan, vs)
+    w = iterative.pwls_weights(counts)
+    zero = torch.zeros_like(x0)
+
+    def loops(adjoint):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cg = iterative._cg(A, sino, zero, 30, 0.05, adjoint=adjoint)[0]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pw = iterative._pwls_fista(A, y, w, x0, 60, 3e-2, 5e-3, True, 12,
+                                   adjoint=adjoint)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return (cg, pw), ((t1 - t0) * 1e3, (t2 - t1) * 1e3)
+
+    kinds = {"explicit": iterative._projection_adjoint(plan, vs),
+             "autograd": autograd_adjoint(A, plan.n_img)}
+    times = {k: [] for k in kinds}
+    imgs = {k: [] for k in kinds}
+    for k in ("explicit", "autograd", "autograd", "explicit"):
+        out, t = loops(kinds[k])
+        imgs[k].append(out)
+        times[k].append(t)
+    for k, ts in times.items():
+        print(f"  loops with {k} A^T: CG (30) "
+              + " / ".join(f"{t[0]:.1f}" for t in ts) + " ms, PWLS (60) "
+              + " / ".join(f"{t[1]:.1f}" for t in ts) + " ms")
+    (e1, e2), a1 = imgs["explicit"], imgs["autograd"][0]
+    for i, name in enumerate(("CG", "PWLS")):
+        print(f"  {name} images: autograd's A^T vs explicit max abs "
+              f"{max_err(a1[i], e1[i])[0]:.3g}, explicit run to run "
+              f"{max_err(e2[i], e1[i])[0]:.3g} (max "
+              f"{float(e1[i].abs().max()):.6g})")
+
+
+def onestep_path(cfg, spectra, records, smi, dev):
+    """Phase 4, spectral MBIR through the library: the default path's
+    two-step result on the reference protocol (both acquisitions' counts;
+    the tissue and bone images on the 512^2 grid over 50 cm, clipped at 0)
+    is the start, then a Fourier plan of that grid and
+    ``onestep_spectral_recon`` at its default 300 Adam iterations on the
+    union-grid tables of the decomposition, twice, with the launch counters
+    checked.  The normalized data loss must fall below the start's, the
+    images stay finite and nonnegative, and the bladder's tissue density
+    read the two-step's within 5 %."""
+    import numpy as np
+    import torch
+
+    from dexct_tpu_torch.ops import fourier, onestep
+    from dexct_tpu_torch.ops.matdecomp import (DEFAULT_BASIS,
+                                               prepare_decomposition)
+    from dexct_tpu_torch.pipeline.fused import dect_step, pack_dect
+
+    ct = cfg.ct
+    s1, s2 = spectra(ct)
+    arrays, meta = pack_dect(ct, cfg.phantom, s1, s2, cfg.N_matrix, cfg.FOV,
+                             cfg.ramp, device=dev, n_iters=50)
+    out = dect_step(arrays, meta)
+    counts = torch.stack(out["sino_raw"])
+    x0 = torch.clamp_min(torch.stack(out["mat_recons"]), 0.0)
+    del arrays, out
+    ee, i0s, _ = prepare_decomposition(ct, s1, s2)
+    n, grid = cfg.N_matrix, recon_grid(cfg)
+    vs = (ct.N_proj, ct.N_channels)
+    fns = zero_counters()
+    for run in (1, 2):
+        st = Stages()
+        plan = fourier.plan_fourier_projector(grid, ct, device=dev)
+        st.mark(f"Fourier plan of the {n}^2 grid (host)")
+        x = onestep.onestep_spectral_recon(counts, ee, i0s, DEFAULT_BASIS,
+                                           plan, vs, x0=x0)
+        st.mark("onestep_spectral_recon (300 Adam iterations)")
+        print(f"onestep path (library, run {run}): "
+              f"{sum(st.t.values()) / 1e3:.3f} s on {smi}; stages (ms): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in st.t.items()))
+    check_launches("onestep", fns, ONESTEP_KERNELS, records)
+    mus = torch.as_tensor(np.stack([b.mass_atten(ee)
+                                    for b in DEFAULT_BASIS]),
+                          dtype=torch.float32, device=dev)
+    data = onestep._objective(
+        lambda im, m, i: onestep.spectral_forward_images(plan, im, m, i, vs),
+        counts, mus, torch.as_tensor(i0s, dtype=torch.float32, device=dev),
+        0.0, 1e-2)
+    with torch.no_grad():
+        loss0, loss = float(data(x0)), float(data(x))
+    tis = [float(roi_box(v[None], *BLADDER_XY, 0, cfg.FOV, 1.5).mean())
+           for v in (x[0], x0[0])]
+    off = abs(tis[0] - tis[1]) / tis[1]
+    ok = bool(torch.isfinite(x).all()) and float(x.min()) >= 0.0
+    print(f"  {x.shape[0]} x {n}^2 basis images; normalized data loss "
+          f"{loss0:.6g} (two-step start) -> {loss:.6g}; bladder tissue "
+          f"density {tis[0]:.5f} g/cm^3 vs the two-step's {tis[1]:.5f} (off "
+          f"{off:.4f}); finite and nonnegative: {ok}")
+    if not (loss < loss0 and off < 0.05 and ok):
+        fail("the one-step path misses its checks")
+
+
+def dose_path(cfg, cone_cfgs, spectra, records, smi, dev):
+    """Phase 4, protocol dose studies through the library: ``dose_map`` of
+    both acquisitions of input/params.txt (detunedMV 9 mGy, 80 kV 1 mGy;
+    1000 views) with ``beam_energy_removed`` (K1), and ``dose_map_3d`` of
+    the cone and helical configs at 80 kV with ``beam_energy_removed_3d``
+    (K10), twice, with the launch counters checked.  Each deposited energy
+    must lie within 5 % of the removed energy (the JAX package's
+    conservation test); the organ report of the 2-D maps and the 3-D maps'
+    z profiles are printed."""
+    import numpy as np
+
+    from dexct_tpu_torch.ops import dose
+
+    jobs = [("params 2-D " + s.name, cfg.phantom, cfg.ct, s, False)
+            for s in spectra(cfg.ct)]
+    jobs += [(f"{label} 80kV", cone_cfgs[label].phantom, cone_cfgs[label].ct,
+              spectra(cone_cfgs[label].ct)[1], True)
+             for label in ("cone", "helical")]
+    fns = zero_counters()
+    for run in (1, 2):
+        st, results = Stages(), []
+        for label, ph, ct, spec, three_d in jobs:
+            fn = dose.dose_map_3d if three_d else dose.dose_map
+            res = fn(ph, ct, spec, device=dev)
+            st.mark(f"{label} map")
+            removed = (dose.beam_energy_removed_3d if three_d
+                       else dose.beam_energy_removed)(ph, ct, spec,
+                                                      device=dev)
+            st.mark(f"{label} removed energy")
+            results.append((label, res, removed))
+        print(f"dose path (library, run {run}): "
+              f"{sum(st.t.values()) / 1e3:.3f} s on {smi}; stages (ms): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in st.t.items()))
+    check_launches("dose", fns, DOSE_KERNELS, records)
+    ok = True
+    for (label, ph, _, _, three_d), (_, res, removed) in zip(jobs, results):
+        rel = abs(res.deposited_J - removed) / removed
+        d = res.dose_mGy
+        ok &= bool(np.isfinite(d).all()) and rel < 0.05
+        print(f"  {label}: deposited {res.deposited_J:.6g} J, removed "
+              f"{removed:.6g} J (rel {rel:.4f}); max {d.max():.6g} mGy")
+        if three_d:
+            prof = dose.dose_z_profile(d, ph.dx)
+            print(f"    central 1 cm ROI dose per slice: {prof.min():.6g} .. "
+                  f"{prof.max():.6g} mGy over {len(prof)} slices")
+        else:
+            rep = dose.organ_dose_report(d, ph)
+            print("    organ dose (mean / max mGy): " + ", ".join(
+                f"{k} {v['mean']:.4g}/{v['max']:.4g}" for k, v in rep.items()))
+    if not ok:
+        fail("a dose map misses the conservation check")
+
+
+def new_paths_devices_phase():
+    """Phase 5: tiny versions of the 2-D iterative, one-step and dose paths
+    on the CPU and on the card, from ``dexct_tpu_torch.utils.tiny_cases``
+    (the card tests run the same cases): CG, SIRT, PWLS and the one-step
+    fit on a 48^2 Fourier plan with 64 x 48 rays fed one start vector (1e-3
+    x max: the adjoints' atomics add in no fixed order), one gradient of the
+    one-step objective (1e-4 x max), the 2-D and 3-D dose maps of a 32^2
+    three-material phantom (1e-4 x max, deposited rel 1e-4)."""
+    import numpy as np
+
+    from dexct_tpu_torch.utils import tiny_cases as tc
+
+    cases = [(p, lambda d, p=p: tc.iterative_2d(p, d), tc.ITERATIVE_TOL)
+             for p in tc.ITERATIVE_PATHS]
+    cases.append(("onestep gradient", tc.onestep_gradient, tc.GRADIENT_TOL))
+    for label, fn, tol in cases:
+        c, g = fn("cpu"), fn("cuda")
+        err = float((g - c).abs().max())
+        print(f"  {label}: card vs CPU max abs {err:.3g} (max "
+              f"{float(c.abs().max()):.4g}) [<= {tol:g} x max]")
+        if not err <= tol * float(c.abs().max()):
+            fail(f"tiny {label} differs between the CPU and the card")
+    for kind in tc.DOSE_KINDS:
+        c, g = tc.dose(kind, "cpu"), tc.dose(kind, "cuda")
+        err = float(np.abs(g.dose_mGy - c.dose_mGy).max())
+        rel = abs(g.deposited_J - c.deposited_J) / c.deposited_J
+        print(f"  dose {kind}: card vs CPU max abs {err:.3g} mGy (max "
+              f"{c.dose_mGy.max():.4g}), deposited rel {rel:.3g}")
+        if not (err <= tc.DOSE_TOL * c.dose_mGy.max()
+                and rel <= tc.DOSE_TOL):
+            fail(f"tiny dose {kind} differs between the CPU and the card")
+
+
 def library_devices_phase():
     """Phase 5: tiny versions of the three library paths on the CPU and on
     the card: the helical 'pair' weighting through the fused cone step
@@ -2317,7 +2901,7 @@ def main():
                                torch.zeros(1, device=dev))
     torch.cuda.synchronize()
     t2 = time.time()
-    print(f"build: nvcc K1, K3-K13, K15-K20 {t1 - t0:.1f} s, triton K2 "
+    print(f"build: nvcc K1, K3-K13, K15-K24 {t1 - t0:.1f} s, triton K2 "
           f"{t2 - t1:.1f} s")
 
     # 3. kernels against their plain versions at the paths' shapes
@@ -2384,6 +2968,10 @@ def main():
         zstack_kernel_phase(work, records, dev)
         ffs_kernel_phase(read_parameter_file(config_files["ffs"])[0],
                          spectra, dev)
+        torch.cuda.empty_cache()
+        fourier_adjoint_kernel_phase(cfg, records, dev)
+        torch.cuda.empty_cache()
+        dose_kernel_phase(cfg, cone_cfgs, spectra, records, dev)
         torch.cuda.empty_cache()
 
         # 4. the paths: the CLI's, then the library's
@@ -2454,6 +3042,12 @@ def main():
         torch.cuda.empty_cache()
         helical_pi_path(cone_cfgs["helical"], records, smi)
         torch.cuda.empty_cache()
+        iterative_2d_path(cfg, records, smi, dev)
+        torch.cuda.empty_cache()
+        onestep_path(cfg, spectra, records, smi, dev)
+        torch.cuda.empty_cache()
+        dose_path(cfg, cone_cfgs, spectra, records, smi, dev)
+        torch.cuda.empty_cache()
 
         # 5. every path on both devices
         for label, (flags, config, _) in PATHS.items():
@@ -2464,6 +3058,7 @@ def main():
                                    CONFIGS_2D.get(config))
         zstack_devices_phase()
         library_devices_phase()
+        new_paths_devices_phase()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -9,11 +9,14 @@ an in-plane flying focal spot), on parallel-beam configs, as a z-stack of
 slices, on cone-beam, helical, flat-panel and gantry-tilted configs (with
 a z flying focal spot and exact Katsevich helical reconstruction), and with
 the analytic projector, optionally with beam-hardening correction and the
-learned denoiser, through twenty hand-written kernels on the card (K1-K20,
-sources in ``csrc/``, ``ops/spectral.py`` and ``ops/katsevich.py``) with
-plain PyTorch versions of each on the CPU.  The library also offers the
-helical study reconstructors (every gFDK weighting, the cone-parallel PI
-method) and exact 3-D iterative reconstruction (CG, PWLS).
+learned denoiser, through twenty-four hand-written kernels on the card
+(K1-K24, sources in ``csrc/``, ``ops/spectral.py`` and
+``ops/katsevich.py``) with plain PyTorch versions of each on the CPU.  The
+library also offers the helical study reconstructors (every gFDK
+weighting, the cone-parallel PI method), exact 3-D iterative
+reconstruction (CG, PWLS), 2-D iterative reconstruction on the Fourier
+projector (CG, SIRT, PWLS), one-step spectral reconstruction, and patient
+dose maps with CTDI, DLP and organ reports.
 
 Layer map (as in dexct_tpu):
     physics/   attenuation tables, spectra, detectors, materials (host NumPy)
@@ -21,11 +24,12 @@ Layer map (as in dexct_tpu):
     ops/       siddon (K1, K17), spectral (K2), matdecomp (K3), fbp/fbp_fast
                (K4-K6), ffs (K5 at 16 taps), fourier (K7, K8), conebeam
                (K10-K12, K16, K18, K19), flatpanel (K13), katsevich (K14,
-               K15), helical_pi (K5 at 4 taps, K20), iterative, bhc
+               K15), helical_pi (K5 at 4 taps, K20), fourier's adjoints
+               (K21, K22), iterative, onestep, dose (K23, K24), bhc
     pipeline/  reference-compatible API, fused 2-D, z-stack and cone steps,
                CLI runner
     learn/     the DnCNN denoiser (inference, cuDNN)
-    utils/     output contract, kernel build
+    utils/     output contract, kernel build, the Adam step
 """
 
 __version__ = "0.1.0"

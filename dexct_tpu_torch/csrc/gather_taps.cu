@@ -1,5 +1,6 @@
 // K5 rebin_to_parallel and K8 resample_to_fan: a gather-weighted sum of a
-// few taps per output sample, for every row of a small [K, n_src] table.
+// few taps per output sample, for every row of a small [K, n_src] table
+// (and K22, K8's adjoint, a scatter of the same taps; below).
 //
 // K5 replaces dexct_tpu/ops/fbp_fast.py:rebin_to_parallel, the TPU program
 // that maps K fan sinograms [K, V*C] onto a (theta, t) parallel grid.  Its
@@ -76,6 +77,37 @@ int launch(const void* table, const void* idx, const void* w, void* out,
   return (int)cudaGetLastError();
 }
 
+// K22 resample_to_fan_adjoint: the adjoint of K8 (dexct_tpu/ops/
+// fourier.py:397 transposed by jax.linear_transpose and jax.grad).  Each
+// ray scatters its M values, times its 4 bilinear weights, into the Radon
+// transforms' gradient [M, ntheta*nt] with float32 atomic adds, its tap
+// indices clamped as K8 clamps them.  Bound: 4 * M atomics per ray into a
+// table that stays in L2 (8 MB per image at 1024 x 2048); neighbouring
+// rays of a view hit neighbouring bins, so the adds of a warp share lines.
+__global__ void resample_adjoint_kernel(const float* __restrict__ g,
+                                        const int* __restrict__ idx,
+                                        const float* __restrict__ w,
+                                        float* __restrict__ radon,
+                                        long long n_rays, int M,
+                                        long long n_src) {
+  const long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= n_rays) return;
+  long long src[4];
+  float wt[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    long long s = __ldg(idx + o * 4 + t);
+    src[t] = s < 0 ? 0 : (s >= n_src ? n_src - 1 : s);
+    wt[t] = __ldg(w + o * 4 + t);
+  }
+  for (int k = 0; k < M; ++k) {
+    const float v = __ldg(g + o * M + k);
+    float* row = radon + (size_t)k * n_src;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) atomicAdd(row + src[t], wt[t] * v);
+  }
+}
+
 }  // namespace
 
 // sinos [K, n_src] -> out [K, n_bins]; idx/w [n_bins, taps], taps 4, 8 or
@@ -107,4 +139,21 @@ extern "C" int dexct_resample_to_fan(const void* radon, const void* idx,
                                      long long n_src, void* stream) {
   return launch<4, false, true>(radon, idx, w, out, n_rays, M, n_src,
                                 stream);
+}
+
+// g [n_rays, M]; idx/w [n_rays, 4]; radon [M, n_src], zeroed by the
+// caller, accumulated into
+extern "C" int dexct_resample_to_fan_adjoint(const void* g, const void* idx,
+                                             const void* w, void* radon,
+                                             long long n_rays, int M,
+                                             long long n_src, void* stream) {
+  if (n_rays <= 0) return (int)cudaGetLastError();
+  const int threads = 256;
+  const long long blocks = (n_rays + threads - 1) / threads;
+  resample_adjoint_kernel<<<(unsigned)blocks, threads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(g), static_cast<const int*>(idx),
+      static_cast<const float*>(w), static_cast<float*>(radon), n_rays, M,
+      n_src);
+  return (int)cudaGetLastError();
 }

@@ -5,12 +5,15 @@ rebinned parallel FBP (K4-K6), the in-plane flying-focal-spot FBP (K5 at
 the cone-beam trace, FDK/helical backprojectors in every gFDK weighting and
 tilted-gantry resample (K10-K12, K16), the flat-panel FDK (K13), the
 Katsevich exact helical reconstruction (K14, K15), the exact 3-D projector
-and its adjoint (K18, K19) with the iterative loops (CG, PWLS) on them, and
-the cone-parallel PI method (K5 at 4 taps, K20)."""
+and its adjoint (K18, K19) with the iterative loops (CG, PWLS) on them, the
+cone-parallel PI method (K5 at 4 taps, K20), the Fourier projector's
+adjoints (K21, K22) under the 2-D CG, SIRT and PWLS and the one-step
+spectral fit, and the 2-D and 3-D dose maps (K23, K24)."""
 
-from . import bhc, conebeam, fbp, fbp_fast, ffs, filters, flatpanel, fourier
-from . import helical_pi, iterative, katsevich, matdecomp, siddon, spectral
+from . import bhc, conebeam, dose, fbp, fbp_fast, ffs, filters, flatpanel
+from . import fourier, helical_pi, iterative, katsevich, matdecomp, onestep
+from . import siddon, spectral
 
-__all__ = ["bhc", "conebeam", "fbp", "fbp_fast", "ffs", "filters",
+__all__ = ["bhc", "conebeam", "dose", "fbp", "fbp_fast", "ffs", "filters",
            "flatpanel", "fourier", "helical_pi", "iterative", "katsevich",
-           "matdecomp", "siddon", "spectral"]
+           "matdecomp", "onestep", "siddon", "spectral"]

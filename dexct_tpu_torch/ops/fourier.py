@@ -15,6 +15,12 @@ an exact per-ray walk:
        t = SID sin γ) and bilinearly sample R (:func:`resample_to_fan`,
        kernel K8 on the card).
 
+The projector of images (:func:`fourier_project_images`) is
+differentiable: the backward passes of steps 2 and 4 are their adjoints
+(:func:`kb_sample_adjoint`, K21, and :func:`resample_to_fan_adjoint`, K22,
+on the card), where the JAX package transposes them with
+``jax.linear_transpose`` and ``jax.grad``.
+
 Accuracy is set by the KB gridding parameters (oversampling σ=2, W=4:
 ~1e-3 relative).  The host part (KB kernel, plan tables) is the JAX
 package's NumPy code unchanged; the plan's tables are tensors on a given
@@ -45,6 +51,10 @@ __all__ = [
     "kb_sample_plain",
     "resample_to_fan",
     "resample_to_fan_plain",
+    "kb_sample_adjoint",
+    "kb_sample_adjoint_plain",
+    "resample_to_fan_adjoint",
+    "resample_to_fan_adjoint_plain",
 ]
 
 
@@ -263,6 +273,19 @@ def plan_arrays(plan: FourierProjectorPlan, view_shape):
 # K7: Kaiser-Bessel sampler
 # ---------------------------------------------------------------------------
 
+def _window_indices(slice_idx, grid):
+    """[S, 16] flat spectrum indices of each sample's 4 x 4 window (tap
+    k = i*4 + j at column offset i, row offset j, wrapped mod G)."""
+    base = slice_idx.reshape(-1).to(torch.int64)
+    vb, ub = base // grid, base % grid
+    offs = torch.arange(4, device=base.device)
+    idx16 = (torch.remainder(vb[:, None, None] + offs[None, None, :], grid)
+             * grid
+             + torch.remainder(ub[:, None, None] + offs[None, :, None],
+                               grid))
+    return idx16.reshape(-1, 16)
+
+
 def kb_sample_plain(F, slice_idx, slice_w, phase_cos, phase_sin):
     """The sampler of ``dexct_tpu.ops.fourier._radon_from_images`` in
     torch: for each (θ, l), the 16-tap KB sum of every material spectrum
@@ -271,11 +294,7 @@ def kb_sample_plain(F, slice_idx, slice_w, phase_cos, phase_sin):
     M, G, _ = F.shape
     n_theta, nl = phase_cos.shape
     S = n_theta * nl
-    base = slice_idx.reshape(-1).to(torch.int64)
-    vb, ub = base // G, base % G
-    offs = torch.arange(4, device=F.device)
-    idx16 = (torch.remainder(vb[:, None, None] + offs[None, None, :], G) * G
-             + torch.remainder(ub[:, None, None] + offs[None, :, None], G))
+    idx16 = _window_indices(slice_idx, G)
     table = torch.cat([F.real, F.imag]).reshape(2 * M, G * G)
     rows = table[:, idx16.reshape(-1)].reshape(2 * M, S, 16)
     s = (rows * slice_w.reshape(1, S, 16)).sum(-1)  # [2M, S]
@@ -324,6 +343,93 @@ def kb_sample(F, slice_idx, slice_w, phase_cos, phase_sin):
 
 
 kb_sample.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K21: the sampler's adjoint
+# ---------------------------------------------------------------------------
+
+def kb_sample_adjoint_plain(spec_grad, slice_idx, slice_w, phase_cos,
+                            phase_sin, grid):
+    """The adjoint of :func:`kb_sample_plain` in the (re, im) pairing of
+    torch's autograd: each sample's complex value times the conjugate
+    phase, scattered with its 16 KB weights into the spectrum [M, G, G]
+    (``index_add_``).  ``spec_grad``: complex [M, nθ, nl]."""
+    M = spec_grad.shape[0]
+    S = phase_cos.numel()
+    idx = _window_indices(slice_idx, grid).reshape(-1)
+    g = spec_grad.reshape(M, S)
+    pc, ps = phase_cos.reshape(1, S), phase_sin.reshape(1, S)
+    z = torch.cat([g.real * pc + g.imag * ps, g.imag * pc - g.real * ps])
+    vals = z[:, :, None] * slice_w.reshape(1, S, 16).to(z.dtype)
+    table = z.new_zeros((2 * M, grid * grid))
+    table.index_add_(1, idx, vals.reshape(2 * M, S * 16))
+    return torch.complex(table[:M], table[M:]).reshape(M, grid, grid)
+
+
+def _kb_sample_adjoint_cuda(spec_grad, slice_idx, slice_w, phase_cos,
+                            phase_sin, grid):
+    dev = spec_grad.device
+    M = spec_grad.shape[0]
+    n_theta, nl = phase_cos.shape
+    S = n_theta * nl
+    g = kernels.require(spec_grad, "spec_grad", dev, torch.complex64,
+                        (M, n_theta, nl))
+    base = kernels.require(slice_idx.reshape(-1), "slice_idx", dev,
+                           torch.int32, (S,))
+    w = kernels.require(slice_w.reshape(-1), "slice_w", dev, torch.float32,
+                        (S * 16,))
+    kernels.require(phase_cos, "phase_cos", dev, torch.float32)
+    kernels.require(phase_sin, "phase_sin", dev, torch.float32,
+                    (n_theta, nl))
+    out = torch.zeros((M, grid, grid), dtype=torch.complex64, device=dev)
+    rc = kernels.library().dexct_kb_sample_adjoint(
+        g.data_ptr(), base.data_ptr(), w.data_ptr(), phase_cos.data_ptr(),
+        phase_sin.data_ptr(), out.data_ptr(), S, M, int(grid),
+        kernels.stream_ptr(dev))
+    kernels.check(rc, "kb_sample_adjoint")
+    kb_sample_adjoint.launches += 1
+    return out
+
+
+def kb_sample_adjoint(spec_grad, slice_idx, slice_w, phase_cos, phase_sin,
+                      grid):
+    """The adjoint of :func:`kb_sample`: complex samples [M, nθ, nl] ->
+    the spectra's gradient [M, G, G], as torch's autograd pairs re and im
+    (the JAX package gets the same real operator from
+    ``jax.linear_transpose``).  CUDA tensors run kernel K21 (float32 atomic
+    adds, counted in ``kb_sample_adjoint.launches``); CPU tensors run
+    :func:`kb_sample_adjoint_plain`."""
+    if spec_grad.dim() != 3 or spec_grad.shape[1:] != phase_cos.shape:
+        raise ValueError(f"spec_grad must be [M, {phase_cos.shape[0]}, "
+                         f"{phase_cos.shape[1]}], got "
+                         f"{tuple(spec_grad.shape)}")
+    if spec_grad.is_cuda:
+        return _kb_sample_adjoint_cuda(spec_grad, slice_idx, slice_w,
+                                       phase_cos, phase_sin, grid)
+    if spec_grad.device.type != "cpu":
+        raise ValueError(f"unsupported device {spec_grad.device}")
+    return kb_sample_adjoint_plain(spec_grad, slice_idx, slice_w, phase_cos,
+                                   phase_sin, grid)
+
+
+kb_sample_adjoint.launches = 0
+
+
+class _KBSample(torch.autograd.Function):
+    """The sampler (K7) with its adjoint (K21) as the backward pass."""
+
+    @staticmethod
+    def forward(ctx, F, slice_idx, slice_w, phase_cos, phase_sin):
+        ctx.save_for_backward(slice_idx, slice_w, phase_cos, phase_sin)
+        ctx.grid = F.shape[-1]
+        return kb_sample(F, slice_idx, slice_w, phase_cos, phase_sin)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = kb_sample_adjoint(grad.contiguous(), *ctx.saved_tensors,
+                              ctx.grid)
+        return g, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -384,6 +490,83 @@ resample_to_fan.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K22: the fan resample's adjoint
+# ---------------------------------------------------------------------------
+
+def resample_to_fan_adjoint_plain(values, fan_idx, fan_w, radon_shape):
+    """The adjoint of :func:`resample_to_fan_plain`: each ray's M values,
+    times its 4 bilinear weights, added into the Radon transforms
+    ``radon_shape`` = (M, nθ, nt) (``index_add_``)."""
+    m = radon_shape[0]
+    idx = fan_idx.reshape(-1, 4).to(torch.int64)
+    v = values.reshape(-1, m).T  # [M, rays]
+    vals = v[:, :, None] * fan_w.reshape(1, -1, 4).to(v.dtype)
+    table = v.new_zeros((m, radon_shape[1] * radon_shape[2]))
+    table.index_add_(1, idx.reshape(-1), vals.reshape(m, -1))
+    return table.reshape(radon_shape)
+
+
+def _resample_to_fan_adjoint_cuda(values, fan_idx, fan_w, radon_shape):
+    dev = values.device
+    m = radon_shape[0]
+    n_rays = fan_idx.numel() // 4
+    g = kernels.require(values.reshape(n_rays, m), "values", dev,
+                        torch.float32)
+    idx = kernels.require(fan_idx.reshape(-1, 4), "fan_idx", dev,
+                          torch.int32, (n_rays, 4))
+    w = kernels.require(fan_w.reshape(-1, 4), "fan_w", dev, torch.float32,
+                        (n_rays, 4))
+    n_src = radon_shape[1] * radon_shape[2]
+    out = torch.zeros((m, n_src), dtype=torch.float32, device=dev)
+    rc = kernels.library().dexct_resample_to_fan_adjoint(
+        g.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(), n_rays,
+        m, n_src, kernels.stream_ptr(dev))
+    kernels.check(rc, "resample_to_fan_adjoint")
+    resample_to_fan_adjoint.launches += 1
+    return out.reshape(radon_shape)
+
+
+def resample_to_fan_adjoint(values, fan_idx, fan_w, radon_shape):
+    """The adjoint of :func:`resample_to_fan`: fan values [V, C, M] (or
+    [V*C, M]) -> Radon-transform gradient ``radon_shape`` = (M, nθ, nt).
+    CUDA tensors run kernel K22 (float32 atomic adds, counted in
+    ``resample_to_fan_adjoint.launches``); CPU tensors run
+    :func:`resample_to_fan_adjoint_plain`."""
+    radon_shape = tuple(int(n) for n in radon_shape)
+    if (fan_w.numel() != fan_idx.numel()
+            or values.numel() != fan_idx.numel() // 4 * radon_shape[0]):
+        raise ValueError(f"fan tables of {fan_idx.numel()} taps and values "
+                         f"{tuple(values.shape)} do not fit {radon_shape}")
+    if values.is_cuda:
+        return _resample_to_fan_adjoint_cuda(values, fan_idx, fan_w,
+                                             radon_shape)
+    if values.device.type != "cpu":
+        raise ValueError(f"unsupported device {values.device}")
+    return resample_to_fan_adjoint_plain(values, fan_idx, fan_w, radon_shape)
+
+
+resample_to_fan_adjoint.launches = 0
+
+
+class _ResampleToFan(torch.autograd.Function):
+    """The fan resample (K8) with its adjoint (K22) as the backward
+    pass."""
+
+    @staticmethod
+    def forward(ctx, radon, fan_idx, fan_w, out_shape):
+        ctx.save_for_backward(fan_idx, fan_w)
+        ctx.radon_shape = tuple(radon.shape)
+        return resample_to_fan(radon, fan_idx, fan_w, out_shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        fan_idx, fan_w = ctx.saved_tensors
+        g = resample_to_fan_adjoint(grad.contiguous(), fan_idx, fan_w,
+                                    ctx.radon_shape)
+        return g, None, None, None
+
+
+# ---------------------------------------------------------------------------
 # Device-side projection
 # ---------------------------------------------------------------------------
 
@@ -408,7 +591,7 @@ def _radon_from_images(imgs, deapod, slice_idx, slice_w, phase_cos,
     """
     del packed_table
     F = _spectrum(imgs, deapod, grid, n_img)
-    spec = kb_sample(F, slice_idx, slice_w, phase_cos, phase_sin)
+    spec = _KBSample.apply(F, slice_idx, slice_w, phase_cos, phase_sin)
     if spec.shape[1] != n_theta:
         raise ValueError(f"phase tables hold {spec.shape[1]} lines, "
                          f"n_theta={n_theta}")
@@ -437,10 +620,13 @@ def fourier_radon(plan: FourierProjectorPlan, images):
 
 
 def fourier_project_images(plan: FourierProjectorPlan, images, view_shape):
-    """Fan-beam line integrals [V, C, K] of arbitrary images [K, N, N]."""
+    """Fan-beam line integrals [V, C, K] of arbitrary images [K, N, N].
+    Differentiable: autograd's backward pass runs the adjoints of the fan
+    resample and of the sampler (K22, K21 on the card) and differentiates
+    the FFT steps natively."""
     radon = fourier_radon(plan, images)
-    return resample_to_fan(radon, plan.fan_idx, plan.fan_w,
-                           tuple(view_shape) + (images.shape[0],))
+    return _ResampleToFan.apply(radon, plan.fan_idx, plan.fan_w,
+                                tuple(view_shape) + (images.shape[0],))
 
 
 def fourier_paths(plan: FourierProjectorPlan, labels, view_shape):

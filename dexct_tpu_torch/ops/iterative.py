@@ -1,20 +1,23 @@
-"""Iterative reconstruction: the operator-generic loops.
+"""Iterative reconstruction: CG least-squares, SIRT and PWLS.
 
-Port of the parts of :mod:`dexct_tpu.ops.iterative` that take any linear
-projector: the PWLS noise weights, conjugate gradients on the normal
-equations, the edge-preserving Huber roughness penalty and FISTA on the
-penalized weighted least-squares objective.  They need no kernel of their
-own; the 3-D reconstructors :func:`~dexct_tpu_torch.ops.conebeam.
-cone_cg_recon` and :func:`~dexct_tpu_torch.ops.conebeam.cone_pwls_recon`
-run them on the exact 3-D projector (K18) and its adjoint (K19).
+Port of :mod:`dexct_tpu.ops.iterative`.  The 2-D entry points
+(:func:`cg_recon`, :func:`sirt_recon`, :func:`pwls_recon`) solve on the
+linear monoenergetic fan-beam projection A of an image, the Fourier-slice
+projector (:func:`make_projection_operator`; K7 and K8 on the card).  The
+JAX package obtains A^T from ``jax.linear_transpose``; here the loops take
+an explicit adjoint: the fan resample's adjoint (K22), the adjoint of the
+radial ``irfft`` and of the phases, the sampler's adjoint (K21), then the
+adjoint of the 2-D FFT, roll, zero pad and deapodization
+(:func:`_projection_adjoint`).  Each A^T costs one K22 and one K21 launch.
 
-The JAX package obtains A^T from ``jax.linear_transpose``; here every loop
-takes the adjoint explicitly (``adjoint=``).  The power iteration's
-start vector is a normal draw from a ``torch.Generator`` seeded 0 (the JAX
+The loops take any linear projector with its adjoint (``adjoint=``): the
+3-D reconstructors :func:`~dexct_tpu_torch.ops.conebeam.cone_cg_recon`
+and :func:`~dexct_tpu_torch.ops.conebeam.cone_pwls_recon` run them on the
+exact 3-D projector (K18) and its adjoint (K19).  The power iterations
+start from a normal draw of a ``torch.Generator`` seeded 0 (the JAX
 package draws from ``PRNGKey(0)``; the two give other numbers, and the
-private ``_v0`` takes the start vector instead).  The 2-D entry points
-(``make_projection_operator``, ``cg_recon``, ``sirt_recon``,
-``pwls_recon``) wait for the adjoints of the Fourier projector's kernels.
+private ``_v0`` takes the start vector instead).  The 2-D entry points run
+on the device of the plan's tables.
 """
 
 from __future__ import annotations
@@ -22,7 +25,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["pwls_weights"]
+from .fourier import (FourierProjectorPlan, fourier_project_images,
+                      kb_sample_adjoint, resample_to_fan_adjoint)
+
+__all__ = ["make_projection_operator", "cg_recon", "sirt_recon",
+           "pwls_recon", "pwls_weights"]
 
 
 def pwls_weights(counts, *, sigma_e=0.0, var_ratio=1.0):
@@ -35,6 +42,129 @@ def pwls_weights(counts, *, sigma_e=0.0, var_ratio=1.0):
     sig = torch.tensor(sigma_e, **f32)
     w = c * c / (torch.tensor(var_ratio, **f32) * c + sig * sig)
     return w / torch.clamp_min(w.mean(), 1e-30)
+
+
+def make_projection_operator(plan: FourierProjectorPlan, view_shape):
+    """A(x): [N, N] image -> [V, C] line-integral sinogram (linear), the
+    Fourier-slice projector of one image."""
+    vs = tuple(int(n) for n in view_shape)
+
+    def apply(img):
+        return fourier_project_images(plan, img[None], vs)[..., 0]
+
+    return apply
+
+
+def _projection_adjoint(plan: FourierProjectorPlan, view_shape):
+    """A^T(y): [V, C] sinogram -> [N, N] image, the exact adjoint of
+    :func:`make_projection_operator` taken stage by stage in reverse: the
+    fan resample's adjoint (K22), the scale, the adjoint of the radial
+    ``irfft`` at n = nt (an ``rfft`` / nt of which the nl = G/2 + 1 bins
+    are kept, bins 1..nl-1 weighted twice for their conjugate halves and
+    the imaginary part of DC dropped), the sampler's adjoint (K21, the
+    conjugate phase), then the adjoint of the 2-D FFT of a real image (the
+    real part of an unnormalized inverse FFT), of the roll, of the zero pad
+    (a crop) and of the deapodization."""
+    v, c = (int(n) for n in view_shape)
+    n, grid, nt = plan.n_img, plan.grid, plan.nt
+    nl = grid // 2 + 1
+    half = n // 2
+
+    def adjoint(y):
+        radon = resample_to_fan_adjoint(y.reshape(v, c, 1), plan.fan_idx,
+                                        plan.fan_w, (1, plan.n_theta, nt))
+        spec = torch.fft.rfft(radon * plan.scale, dim=-1)[..., :nl] / nt
+        spec = torch.cat([spec[..., :1].real.to(spec.dtype),
+                          2.0 * spec[..., 1:]], -1)
+        F = kb_sample_adjoint(spec, plan.slice_idx, plan.slice_w,
+                              plan.phase_cos, plan.phase_sin, grid)
+        img = torch.fft.ifft2(F, norm="forward").real
+        img = torch.roll(img, (half, half), dims=(-2, -1))[0, :n, :n]
+        return img / plan.deapod
+
+    return adjoint
+
+
+def _image_start(plan, x0):
+    dev = plan.deapod.device
+    if x0 is None:
+        return torch.zeros((plan.n_img, plan.n_img), dtype=torch.float32,
+                           device=dev)
+    return torch.as_tensor(x0, dtype=torch.float32, device=dev)
+
+
+def cg_recon(plan: FourierProjectorPlan, sino, view_shape, *, n_iters=30,
+             lam=0.0, x0=None):
+    """Conjugate-gradient least-squares reconstruction on the Fourier-slice
+    projector: solves (A^T A + lam L) x = A^T b (L the 2-D Laplacian).
+    ``sino``: [V, C] line-integral (log) sinogram.  Runs on the device of
+    the plan's tables.  Returns ([N, N] image in 1/cm, residual-norm
+    history [n_iters])."""
+    apply_fn = make_projection_operator(plan, view_shape)
+    b = torch.as_tensor(sino, dtype=torch.float32, device=plan.deapod.device)
+    return _cg(apply_fn, b, _image_start(plan, x0), int(n_iters), float(lam),
+               adjoint=_projection_adjoint(plan, view_shape))
+
+
+def _start_vector(shape, device, _v0):
+    """The power iteration's start: a normal draw of a ``torch.Generator``
+    seeded 0, or the given ``_v0``."""
+    f32 = dict(dtype=torch.float32, device=device)
+    if _v0 is None:
+        gen = torch.Generator(device=device).manual_seed(0)
+        return torch.randn(tuple(shape), generator=gen, **f32)
+    return torch.as_tensor(np.array(_v0), **f32)
+
+
+def sirt_recon(plan: FourierProjectorPlan, sino, view_shape, *, n_iters=50,
+               relax=1.6, nonneg=True, x0=None, power_iters=12, _v0=None):
+    """SIRT-style projected Landweber iteration,
+    x <- max(0, x + (relax / lmax) A^T (b - A x)), with lmax = ||A^T A||
+    from ``power_iters`` power iterations (the Fourier-slice operator has
+    signed entries, so the classic row/column normalization does not
+    apply).  Runs on the device of the plan's tables; ``_v0``: the power
+    iteration's start vector.  Returns the [N, N] image in 1/cm."""
+    apply_fn = make_projection_operator(plan, view_shape)
+    adjoint = _projection_adjoint(plan, view_shape)
+    b = torch.as_tensor(sino, dtype=torch.float32, device=plan.deapod.device)
+    x = _image_start(plan, x0)
+
+    def normal(z):
+        return adjoint(apply_fn(z))
+
+    v = _start_vector(x.shape, x.device, _v0)
+    for _ in range(int(power_iters)):
+        v = normal(v)
+        v = v / torch.clamp_min(torch.linalg.vector_norm(v), 1e-30)
+    lmax = torch.clamp_min(_vdot(v, normal(v)), 1e-30)
+    omega = relax / lmax
+    for _ in range(int(n_iters)):
+        x = x + omega * adjoint(b - apply_fn(x))
+        if nonneg:
+            x = torch.clamp_min(x, 0.0)
+    return x
+
+
+def pwls_recon(plan: FourierProjectorPlan, sino_log, counts, view_shape, *,
+               n_iters=60, beta=1e-3, delta=5e-3, nonneg=True, x0=None,
+               power_iters=12, sigma_e=0.0, var_ratio=1.0, _v0=None):
+    """Penalized weighted least-squares reconstruction on the Fourier-slice
+    projector: minimizes 1/2 ||A x - y||^2_W + beta R(x), W the
+    :func:`pwls_weights` of ``counts``, R the 4-neighbour Huber roughness
+    (``beta`` relative to ||A^T W A||), by FISTA with a power-iteration
+    Lipschitz step from ``x0`` (warm-start it from the FBP image).  Runs on
+    the device of the plan's tables; ``_v0``: the power iteration's start
+    vector.  Returns the [N, N] image in 1/cm."""
+    dev = plan.deapod.device
+    apply_fn = make_projection_operator(plan, view_shape)
+    y = torch.as_tensor(sino_log, dtype=torch.float32, device=dev)
+    w = pwls_weights(torch.as_tensor(counts, device=dev), sigma_e=sigma_e,
+                     var_ratio=var_ratio)
+    return _pwls_fista(apply_fn, y, w, _image_start(plan, x0), int(n_iters),
+                       float(beta), float(delta), bool(nonneg),
+                       int(power_iters),
+                       adjoint=_projection_adjoint(plan, view_shape),
+                       _v0=_v0)
 
 
 def _laplacian(x):
@@ -111,11 +241,7 @@ def _pwls_fista(apply_fn, y, w, x0, n_iters, beta, delta, nonneg,
     def grad_data(x):
         return adjoint(w * (apply_fn(x) - y))
 
-    if _v0 is None:
-        gen = torch.Generator(device=x0.device).manual_seed(0)
-        v = torch.randn(x0.shape, generator=gen, **f32)
-    else:
-        v = torch.as_tensor(np.array(_v0), **f32)
+    v = _start_vector(x0.shape, x0.device, _v0)
     for _ in range(int(power_iters)):
         nv = adjoint(w * apply_fn(v))
         v = nv / torch.clamp_min(torch.linalg.vector_norm(nv), 1e-30)

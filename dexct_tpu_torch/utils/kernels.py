@@ -34,7 +34,7 @@ SOURCES = ("siddon_trace.cu", "gauss_newton.cu", "fan_backproject.cu",
            "gather_taps.cu", "parallel_backproject.cu", "kb_sample.cu",
            "analytic_chords.cu", "siddon_trace_3d.cu", "cone_backproject.cu",
            "trilinear_sample.cu", "siddon_trace_stack.cu",
-           "siddon_project_3d.cu", "pi_backproject.cu")
+           "siddon_project_3d.cu", "pi_backproject.cu", "dose.cu")
 # headers the sources include (hashed with them, compiled through them)
 HEADERS = ("siddon_walk.cuh", "siddon_walk_3d.cuh", "td_window.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -71,6 +71,10 @@ _SIGNATURES = {
                                    _F, _F, _F, _F, _P),
     # F, base, w, phase_cos, phase_sin, out, S, M, G, stream
     "dexct_kb_sample": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # g, base, w, phase_cos, phase_sin, F, S, M, G, stream
+    "dexct_kb_sample_adjoint": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # g, idx, w, radon, n_rays, M, n_src, stream
+    "dexct_resample_to_fan_adjoint": (_P, _P, _P, _P, _L, _I, _L, _P),
     # tab, labels, src, dirs, out, n_rays, S, n_materials, stream
     "dexct_analytic_chords": (_P, _P, _P, _P, _P, _L, _I, _I, _P),
     # labels, src, dirs, out, n_rays, nx, ny, nz, n_out, x0, y0, z0, x1,
@@ -109,6 +113,15 @@ _SIGNATURES = {
     # th_lo, th_hi, stream
     "dexct_pi_backproject": (_P,) * 9 + (_I,) * 5 + (_L,) + (_F,) * 13
                             + (_P,),
+    # labels, src, ca, sa, vw, rs, vox, rho, lab, muT, mu_dep, i0w, T,
+    # dose, edep; maxk, nv, n_g, n_r, K, E, nx, ny; n_vox; sid, dx, dy, cx,
+    # cy, g0, dg, gmax, r0, dr, rmax, geom, g_half, h_over_sid, dxdy; stream
+    "dexct_dose_2d": (_P,) * 15 + (_I,) * 8 + (_L,) + (_F,) * 15 + (_P,),
+    # labels, src, src_z, ca, sa, vw, k0s, ts, sec, rs, vox, rho, lab, muT,
+    # mu_dep, i0w, T, dose, edep; maxk, nv, n_g, n_t, n_r, K, E, nx, ny, nz,
+    # depth; n_vox; sid, dx, dy, dz, cx, cy, cz, g0, dg, gmax, t0, dt, tmax,
+    # r0, dr, rmax, geom, g_half, t_half, dvol; stream
+    "dexct_dose_3d": (_P,) * 19 + (_I,) * 11 + (_L,) + (_F,) * 20 + (_P,),
     # labels, src, dirs, out, n_rays, nx, ny, nz, n_out, z_chunk, x0, y0,
     # x1, y1, dx, dy, eps, n_steps, stream
     "dexct_siddon_trace_stack": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F,
@@ -187,8 +200,8 @@ def check(rc, name):
 
 def require(t, name, device, dtype, shape=None):
     """Return ``t`` after checking that it is a contiguous ``dtype`` tensor
-    on ``device`` (and of ``shape``, when given); raise ``ValueError``
-    otherwise.  Kernel wrappers call it on every tensor whose pointer they
+    on ``device`` (and of ``shape``, when given) with no lazy conjugate or
+    negation bit; raise ``ValueError`` otherwise.  Kernel wrappers call it on every tensor whose pointer they
     pass."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -199,6 +212,10 @@ def require(t, name, device, dtype, shape=None):
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if t.is_conj() or t.is_neg():
+        # a lazy view: the memory behind data_ptr() holds other values
+        raise ValueError(f"{name} carries a lazy conjugate or negation; "
+                         "resolve it first")
     return t
 
 

@@ -1,4 +1,4 @@
-"""Hand-written kernels K1-K20 against their plain PyTorch versions, on the
+"""Hand-written kernels K1-K24 against their plain PyTorch versions, on the
 card.
 
 Every test here needs a CUDA device and skips without one.  This file
@@ -26,6 +26,7 @@ from dexct_tpu_torch.ops.matdecomp import (gauss_newton_solve,
 from dexct_tpu_torch.ops.siddon import trace_paths, trace_paths_plain
 from dexct_tpu_torch.ops.spectral import (counts_from_paths,
                                           counts_from_paths_plain)
+from dexct_tpu_torch.utils import tiny_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -830,3 +831,118 @@ def test_iterative_and_pi_paths_cuda_match_cpu(dev, path):
         tol = 1e-3
     torch.testing.assert_close(out[1], out[0], rtol=0,
                                atol=tol * float(out[0].abs().max()))
+
+
+@pytest.mark.parametrize("M", [1, 2])
+def test_kb_sample_adjoint_matches_plain(dev, M):
+    """K21 against its plain version (index_add_), and <K7 F, g> =
+    <F, K21 g> in the real pairing."""
+    from dexct_tpu_torch.ops.fourier import (kb_sample_adjoint,
+                                             kb_sample_adjoint_plain)
+
+    plan = tiny_cases.fourier_plan(dev)
+    rng = np.random.default_rng(30)
+    G = plan.grid
+    tabs = (plan.slice_idx, plan.slice_w, plan.phase_cos, plan.phase_sin)
+    g = torch.complex(*(torch.as_tensor(
+        rng.normal(size=(M,) + tuple(plan.phase_cos.shape)),
+        dtype=torch.float32, device=dev) for _ in range(2)))
+    before = kb_sample_adjoint.launches
+    got = kb_sample_adjoint(g, *tabs, G)
+    torch.cuda.synchronize()
+    assert kb_sample_adjoint.launches == before + 1
+    want = kb_sample_adjoint_plain(g, *tabs, G)
+    assert got.dtype == torch.complex64 and got.shape == (M, G, G)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    F = torch.complex(*(torch.as_tensor(rng.normal(size=(M, G, G)),
+                                        dtype=torch.float32, device=dev)
+                        for _ in range(2)))
+    lhs = float((torch.view_as_real(kb_sample(F, *tabs)).double()
+                 * torch.view_as_real(g).double()).sum())
+    rhs = float((torch.view_as_real(F).double()
+                 * torch.view_as_real(got).double()).sum())
+    assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
+
+
+def test_resample_to_fan_adjoint_matches_plain(dev):
+    """K22 against its plain version (index_add_), and <K8 r, y> =
+    <r, K22 y>."""
+    from dexct_tpu_torch.ops.fourier import (resample_to_fan_adjoint,
+                                             resample_to_fan_adjoint_plain)
+
+    rng = np.random.default_rng(31)
+    M, nth, nt, V, C = 3, 64, 128, 40, 50
+    idx = torch.as_tensor(rng.integers(0, nth * nt, (V, C * 4)),
+                          dtype=torch.int32, device=dev)
+    w = torch.as_tensor(rng.uniform(0, 1, (V, C * 4)), dtype=torch.float32,
+                        device=dev)
+    y = torch.as_tensor(rng.normal(size=(V, C, M)), dtype=torch.float32,
+                        device=dev)
+    before = resample_to_fan_adjoint.launches
+    got = resample_to_fan_adjoint(y, idx, w, (M, nth, nt))
+    torch.cuda.synchronize()
+    assert resample_to_fan_adjoint.launches == before + 1
+    want = resample_to_fan_adjoint_plain(y, idx, w, (M, nth, nt))
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    r = torch.as_tensor(rng.normal(size=(M, nth, nt)), dtype=torch.float32,
+                        device=dev)
+    lhs = float((resample_to_fan(r, idx, w, (V, C, M)).double()
+                 * y.double()).sum())
+    rhs = float((r.double() * got.double()).sum())
+    assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
+
+
+@pytest.mark.parametrize("path", tiny_cases.ITERATIVE_PATHS)
+def test_2d_iterative_and_onestep_cuda_match_cpu(dev, path):
+    """The 2-D reconstructions and the one-step fit (K7, K8, K21, K22) on
+    the card against the CPU, every input drawn once from one seed
+    (``utils.tiny_cases``; the adjoints' atomics add in no fixed order:
+    1e-3 of the largest value)."""
+    from dexct_tpu_torch.ops.fourier import kb_sample_adjoint
+
+    want = tiny_cases.iterative_2d(path, "cpu")
+    before = kb_sample_adjoint.launches
+    got = tiny_cases.iterative_2d(path, dev)
+    assert kb_sample_adjoint.launches > before
+    torch.testing.assert_close(
+        got, want, rtol=0,
+        atol=tiny_cases.ITERATIVE_TOL * float(want.abs().max()))
+
+
+def test_onestep_gradient_cuda_matches_cpu(dev):
+    """One gradient of the one-step objective through autograd (K7 and K8
+    forward, K22 and K21 backward) on the card against the CPU: 1e-4 of
+    its largest value, with no fitting loop to amplify rounding."""
+    from dexct_tpu_torch.ops.fourier import (kb_sample_adjoint,
+                                             resample_to_fan_adjoint)
+
+    want = tiny_cases.onestep_gradient("cpu")
+    before = (kb_sample_adjoint.launches, resample_to_fan_adjoint.launches)
+    got = tiny_cases.onestep_gradient(dev)
+    assert (kb_sample_adjoint.launches,
+            resample_to_fan_adjoint.launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    assert float(want.abs().max()) > 0.0
+    torch.testing.assert_close(
+        got, want, rtol=0,
+        atol=tiny_cases.GRADIENT_TOL * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("kind", tiny_cases.DOSE_KINDS)
+def test_dose_kernels_match_plain(dev, kind):
+    """K23 (fan) and K24 (cone; helical with the z-slab window) against
+    their plain versions: 1e-4 of the map's maximum, deposited energy rel
+    1e-4."""
+    from dexct_tpu_torch.ops import dose
+
+    acc = dose._dose_accumulate if kind == "fan" else dose._dose_accumulate_3d
+    before = acc.launches
+    got = tiny_cases.dose(kind, dev)
+    torch.cuda.synchronize()
+    assert acc.launches > before
+    want = tiny_cases.dose(kind, "cpu")
+    assert np.abs(got.dose_mGy - want.dose_mGy).max() \
+        <= tiny_cases.DOSE_TOL * want.dose_mGy.max()
+    assert abs(got.deposited_J - want.deposited_J) \
+        <= tiny_cases.DOSE_TOL * want.deposited_J

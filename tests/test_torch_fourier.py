@@ -161,3 +161,18 @@ def test_onehot_ignores_out_of_range_labels():
     want = np.asarray(j_fo._onehot_images(jnp.asarray(lab.numpy()), 3))
     np.testing.assert_array_equal(got, want)
     assert got[:, 1, 1].sum() == 0
+
+
+@pytest.mark.parametrize("view", ["conj", "neg"])
+def test_kernel_arguments_refuse_lazy_views(view):
+    """A kernel reads the memory behind ``data_ptr()``: ``kernels.require``
+    refuses a tensor whose conjugate or negation is a lazy bit (the card's
+    K21 would read the unconjugated samples), and takes it resolved."""
+    from dexct_tpu_torch.utils import kernels
+
+    z = torch.complex(torch.ones(2, 3), torch.ones(2, 3))
+    t = z.conj() if view == "conj" else torch._neg_view(z)
+    with pytest.raises(ValueError, match="lazy"):
+        kernels.require(t, "g", t.device, torch.complex64)
+    res = t.resolve_conj().resolve_neg()
+    assert kernels.require(res, "g", t.device, torch.complex64) is res

@@ -7,7 +7,7 @@ Needs one CUDA device, the CUDA toolkit (nvcc) and Triton; imports nothing
 of JAX.  Phases, each of which raises on failure:
 
 1. Device: the card's name and power limit (nvidia-smi).
-2. Build: nvcc builds kernels K1, K3-K13 and K15-K24 from
+2. Build: nvcc builds kernels K1, K3-K13 and K15-K27 from
    ``dexct_tpu_torch/csrc`` (one nvcc per source, all at once); Triton
    compiles K2 and K14.
 3. Each kernel against its plain PyTorch version on the card, on the
@@ -42,7 +42,12 @@ of JAX.  Phases, each of which raises on failure:
    kernel through the dot-product identity, then the whole projector's
    <A x, y> = <x, A^T y>; K23 (the 2-D dose map) on input/params.txt's 80
    kV scan at every 10th view, K24 (the 3-D one) on the cone and helical
-   configs at every 30th and 60th view.
+   configs at every 30th and 60th view.  K25 (the variance backprojection)
+   at the reference protocol on the 80 kV exact-path counts (one field)
+   and on the basis covariance of their decomposition (three fields); K26
+   (fan-beam single scatter) on both acquisitions at every 50th view and
+   K27 (cone beam) on the cone config at every 45th, each plain version on
+   two of those views, and the N_rows = 1 cone against the fan.
 4. The paths: the default and the exact path through
    ``dexct_tpu_torch.run.main`` on ``input/params.txt``, then the cone,
    helical, flat-panel, tilted, z-FFS and Katsevich configs, the
@@ -77,11 +82,23 @@ of JAX.  Phases, each of which raises on failure:
    default path's two-step result refined by 300 Adam iterations: the data
    loss must fall and the bladder's tissue density stay within 5 %) and
    ``dose`` (the 2-D maps of both acquisitions, the cone and helical 3-D
-   maps: each deposited energy within 5 % of the beam energy removed).
+   maps: each deposited energy within 5 % of the beam energy removed),
+   ``noise_map`` (the reference protocol's exact counts and decomposition,
+   both acquisitions' FBP variance maps, the decomposition's CRLB
+   covariance, the basis maps and the VMI noise curve at 40-300 keV: the
+   80 kV map within 10 % of a 64-draw Poisson ensemble through K4 in the
+   body, the VMI curve falling over 40-140 keV and its minimum strictly
+   inside, within 15 keV of the JAX package's) and ``scatter`` (single scatter
+   of both acquisitions and of the cone config, the kernel-superposition
+   model and its correction on the 80 kV counts: scatter finite and >= 0,
+   each in-object SPR within 1.5x of the JAX package's and larger on the
+   cone, the
+   correction within 2 %).
 5. A 64^2 config through the port on ``--device cpu`` and ``--device
    cuda`` under every 2-D path's flags and configuration, tiny versions of
    every 3-D path, a tiny z-stack, and tiny versions of the six library
-   paths above; every output agrees to the pipeline tolerances.
+   paths above, and tiny noise maps and fan and cone scatter; every
+   output agrees to the pipeline tolerances.
 
 The last two lines of standard output are the kernels' JSON record and the
 device JSON line.
@@ -183,6 +200,18 @@ KERNELS = {
     "dose_map_3d": ("cuda", "dexct_tpu_torch/csrc/dose.cu",
                     "dexct_tpu/ops/dose.py:629",
                     "max abs <= 1e-4 x max |plain|; deposited rel 1e-4"),
+    "fan_backproject_var": ("cuda", "dexct_tpu_torch/csrc/fan_backproject.cu",
+                            "dexct_tpu/ops/noisemap.py:70",
+                            "max abs <= 1e-5 x max |plain|"),
+    "single_scatter": ("cuda", "dexct_tpu_torch/csrc/scatter.cu",
+                       "dexct_tpu/ops/scatter_physics.py:128",
+                       "max abs <= 1e-4 x max |plain| (float32 sums over "
+                       "vertices, energies and steps in another order); "
+                       "repeats bitwise"),
+    "single_scatter_conebeam": ("cuda", "dexct_tpu_torch/csrc/scatter.cu",
+                                "dexct_tpu/ops/scatter_physics.py:1229",
+                                "max abs <= 1e-4 x max |plain| (as K26); "
+                                "repeats bitwise"),
 }
 # the library paths of the helical study reconstructors and the exact 3-D
 # iterative reconstruction, and the kernels each launches
@@ -200,6 +229,45 @@ ITERATIVE_2D_KERNELS = ("siddon_trace", "fan_backproject", "kb_sample",
 ONESTEP_KERNELS = ("kb_sample", "resample_to_fan", "kb_sample_adjoint",
                    "resample_to_fan_adjoint")
 DOSE_KERNELS = ("siddon_trace", "siddon_trace_3d", "dose_map", "dose_map_3d")
+# the library paths of protocol planning, noise and scatter prediction, and
+# the kernels each launches
+NOISE_MAP_KERNELS = ("siddon_trace", "spectral_counts", "gauss_newton",
+                     "fan_backproject", "fan_backproject_var")
+SCATTER_KERNELS = ("siddon_trace", "spectral_counts", "siddon_trace_3d",
+                   "single_scatter", "single_scatter_conebeam")
+# the noise-map path's ensemble, and its VMI energies [keV]: the
+# reference protocol pairs a megavoltage beam with 80 kV, whose VMI noise
+# minimum lies where the tissue and bone mass attenuations cross, above a
+# kV/kV pair's 40-140 keV bracket (over which the curve falls
+# monotonically); VMI_MIN_KEV is the JAX package's minimum on this
+# protocol at half its resolution (vmi_reference in
+# tests/test_torch_noisemap.py), within 0.9 % of its value over +-20 keV,
+# so the card's minimum must lie within VMI_MIN_TOL_KEV of it
+NOISE_REALISATIONS = 64
+VMI_KEV = tuple(range(40, 301, 5))
+VMI_MONOTONE_KEV = 140
+VMI_MIN_KEV = 175.0
+VMI_MIN_TOL_KEV = 15.0
+# K26 and K27 at the JAX package's own study settings
+# (tools/protocol3d_study.py:234-236, tools/smoke_r3s3.py:95-109): the fan
+# at the estimator's defaults (4096 vertices of the 256^2 pelvis, 12
+# energies, s_in 128, s_out 64) on every 50th view and channel_sub 8 (101
+# channels); the cone config at coarse 8 (32 x 32 x 4 vertices), 8
+# energies, every 8th channel and 4th row (33 x 5 elements) on every 45th
+# view; the plain versions on two of those views
+FAN_SCATTER = dict(coarse=4, n_energy=12, channel_sub=8)
+FAN_SCATTER_EVERY = 50
+CONE_SCATTER = dict(coarse=8, n_energy=8, channel_sub=8, row_sub=4)
+CONE_SCATTER_EVERY = 45
+PLAIN_VIEWS = [0, 5]
+# the in-object single-scatter SPR (no anti-scatter grid) of each scene:
+# the JAX package's reading at half the in-plane resolution (spr_reference
+# in tests/test_torch_scatter_physics.py), within a factor SPR_FACTOR (the
+# mean weights the rays a pelvis transmits < 1 % of; their medians are
+# 0.023, 0.22 and 0.47)
+SPR_REF = {"fan detunedMV": 0.021726, "fan 80kV": 0.72856,
+           "cone 80kV": 1.2636}
+SPR_FACTOR = 1.5
 # the 2-D iterative path's Poisson scan: unattenuated counts per ray
 ITER_N0 = 1.0e5
 # the centre of the 2-D pelvis's bladder (water) in cm: rows 128-144 and
@@ -1342,7 +1410,8 @@ def ffs_kernel_phase(cfg, spectra, dev):
 def counters():
     from dexct_tpu_torch.ops import (conebeam, dose, fbp_fast, flatpanel,
                                      fourier, helical_pi, katsevich,
-                                     matdecomp, siddon, spectral)
+                                     matdecomp, noisemap, scatter_physics,
+                                     siddon, spectral)
     from dexct_tpu_torch.system import analytic
 
     return {"siddon_trace": siddon.trace_paths,
@@ -1368,7 +1437,10 @@ def counters():
             "kb_sample_adjoint": fourier.kb_sample_adjoint,
             "resample_to_fan_adjoint": fourier.resample_to_fan_adjoint,
             "dose_map": dose._dose_accumulate,
-            "dose_map_3d": dose._dose_accumulate_3d}
+            "dose_map_3d": dose._dose_accumulate_3d,
+            "fan_backproject_var": noisemap._fan_backproject_var,
+            "single_scatter": scatter_physics._scatter_scan,
+            "single_scatter_conebeam": scatter_physics._scatter_scan_cone}
 
 
 def zero_counters():
@@ -2406,6 +2478,447 @@ def dose_kernel_phase(cfg, cone_cfgs, spectra, records, dev):
               f"{args[-1]}, {spec.name}", label == "cone")
 
 
+def noise_fields(counts, cov, ct, dev):
+    """The filtered (r0, r1) [F, V, C] of the noise-map path: the 80 kV
+    log variance (F = 1) or the three basis covariance fields (F = 3)."""
+    import torch
+
+    from dexct_tpu_torch.ops import noisemap
+
+    if cov is None:
+        fields = noisemap.log_variance(counts)[None]
+    else:
+        fields = torch.stack([cov[..., 0, 0], cov[..., 1, 1],
+                              cov[..., 0, 1]])
+    k0, k1, m, w_pre = noisemap._variance_filters(ct, 0.8, "sinc",
+                                                  torch.float32, dev)
+    r0, r1 = noisemap._cov_filter(fields * w_pre, k0, k1, m, ct.dgamma)
+    return r0.contiguous(), r1.contiguous()
+
+
+def k25_work(r0, r1, betas, ct, n, fov):
+    """Bytes and float32 operations of one K25 call on this run's inputs:
+    r0, r1, the angles and the maps moved once; per (pixel, view) 12
+    operations up to the fan test (atan2 one), and inside the fan 16 more
+    for the taps' weights and 1/l2^2 plus 8 per field."""
+    import torch
+
+    from dexct_tpu_torch.ops.fbp_fast import _pixel_coords
+
+    F, V, C = r0.shape
+    X, Y = _pixel_coords(n, fov, torch.float32, r0.device)
+    inside = 0
+    for v0 in range(0, V, 50):
+        b = betas[v0:v0 + 50, None]
+        vr = X[None] * torch.cos(b) + Y[None] * torch.sin(b) - ct.SID
+        vt = -X[None] * torch.sin(b) + Y[None] * torch.cos(b)
+        c = torch.atan2(-vt, -vr) / ct.dgamma - 0.5 + C / 2.0
+        inside += int(((c >= 0) & (c <= C - 1)).sum())
+    n_bytes = nbytes(r0, r1, betas) + 4 * F * n * n
+    return n_bytes, V * n * n * 12 + inside * (16 + 8 * F)
+
+
+def noise_kernel_phase(cfg, spectra, records, dev):
+    """Phase 3, K25 against its plain version at the reference protocol
+    (1000 views x 800 channels -> 512^2 over 50 cm): on the 80 kV
+    acquisition's exact-path counts (K1, K2) with one field (recorded), and
+    on the three basis covariance fields of its decomposition (K3) with
+    three; 1e-5 x max |plain| (float32 sums over views in another order)."""
+    import torch
+
+    from dexct_tpu_torch.ops import matdecomp, noisemap, spectral
+    from dexct_tpu_torch.ops.siddon import material_path_sinogram
+
+    ct, n, fov = cfg.ct, cfg.N_matrix, cfg.FOV
+    s1, s2 = spectra(ct)
+    paths = material_path_sinogram(cfg.phantom, ct, device=dev)
+    c1, _ = spectral.forward_counts(paths, cfg.phantom, s1, ct)
+    c2, _ = spectral.forward_counts(paths, cfg.phantom, s2, ct)
+    m1, m2 = matdecomp.decompose_sinograms(ct, c1, c2, s1, s2, n_iters=50)
+    cov = noisemap.decomposition_covariance(torch.stack([m1, m2], -1), ct,
+                                            s1, s2)
+    betas = torch.as_tensor(ct.betas, dtype=torch.float32, device=dev)
+    dbeta = float(ct.rotation_total) / ct.N_proj
+    for fields, label in ((None, "80 kV log variance"),
+                          (cov, "basis covariance, 3 fields")):
+        r0, r1 = noise_fields(c2, fields, ct, dev)
+        args = (r0, r1, betas, ct.SID, ct.dgamma, n, fov)
+        got, want, ms, pms = compare(
+            lambda: noisemap._fan_backproject_var(*args, dbeta=dbeta),
+            lambda: noisemap._fan_backproject_var_plain(*args, dbeta),
+            reps=3)
+        err, big = max_err(got, want)
+        report(records, "fan_backproject_var", err, ms, pms,
+               err <= 1e-5 * big, k25_work(r0, r1, betas, ct, n, fov),
+               extra=f" ({label}; max |plain| {big:.6g} cm^-2)",
+               record=fields is None)
+
+
+def scatter_work(args, kw, cone):
+    """Bytes and float32 operations of one K26/K27 call on this run's
+    inputs: each input and the [V, D] output moved once; per march step
+    (s_in from the source to each illuminated vertex, s_out from it to
+    each element) 12 operations (14 in 3-D) for the sample point and
+    weights and 4 (8) corners x (K + 3); per illuminated (vertex, energy)
+    K + 4 with one exp; per (vertex, element) 40 for the geometry and per
+    energy bin 4K + 26 for the Compton term (one exp) and 4K + 21 more for
+    the Rayleigh term (one exp)."""
+    import numpy as np
+    import torch
+
+    from dexct_tpu_torch.ops import scatter_physics as sp
+
+    (labels, ne_w, f2w, cells, mu_gE, _, _, _, n0_g, betas, det_ga,
+     scalars) = args
+    K, G = mu_gE.shape
+    sc, _ = sp._scatter_scalars(scalars, cone)
+    src, d0, det, _ = sp._view_geometry(betas, det_ga, sc["sid"], sc["sdd"],
+                                        cone)
+    # the illuminated vertices (col > 0, the ones the exit stage visits),
+    # from the plain version's own gate
+    lit = sum(int((sp._incident_plain(labels, cells, ne_w, src[v], d0[v],
+                                      mu_gE, n0_g, sc, kw["s_in"],
+                                      kw["n_mats"], cone)[3] > 0).sum())
+              for v in range(betas.shape[0]))
+    corners, step = (8, 14) if cone else (4, 12)
+    per_step = step + corners * (K + 3)
+    D = det.shape[1]
+    per_pair = (kw["s_out"] * per_step + 40
+                + G * ((4 * K + 26) + kw["coherent"] * (4 * K + 21)))
+    ops = lit * (kw["s_in"] * per_step + G * (K + 4)) + lit * D * per_pair
+    n_bytes = sum(nbytes(t) for t in args if torch.is_tensor(t)) \
+        + 4 * betas.shape[0] * D
+    return n_bytes, float(np.float64(ops))
+
+
+def scatter_args(cone, phantom, ct, spec, views, dev):
+    """The tensors K26 (or K27) takes on the scatter path: the JAX study's
+    settings (FAN_SCATTER, CONE_SCATTER) on ``views``."""
+    from dexct_tpu_torch.ops import scatter_physics as sp
+
+    if cone:
+        args, kw, _ = sp._conebeam_prep(
+            phantom, ct, spec, n_fine=96, s_in=None, s_out=None, views=views,
+            coherent=True, n_q=48, device=dev, **CONE_SCATTER)
+    else:
+        args, kw, _ = sp._sinogram_prep(
+            phantom, ct, spec, n_fine=96, s_in=None, s_out=None, views=views,
+            z_index=None, coherent=True, n_q=48, device=dev, **FAN_SCATTER)
+    return args, kw
+
+
+def scatter_kernel_phase(cfg, cone_cfgs, spectra, records, dev):
+    """Phase 3, K26 and K27 against their plain versions at the scatter
+    path's shapes: K26 on both acquisitions of input/params.txt (every
+    50th of the 1000 views, 4096 vertices, 101 channels, 12 energies, s_in
+    128, s_out 64; 80 kV recorded), K27 on the cone config at 80 kV (every
+    45th of 360 views, 4096 vertices, 33 x 5 elements, 8 energies); each
+    plain version on 2 of those views (PLAIN_VIEWS), within 1e-4 x max
+    |plain| (float32 sums over vertices, energies and march steps in
+    another order); both kernels repeat bitwise.  Then the N_rows = 1
+    anchor: K27 on a one-row cone through the cone config's central slice
+    extruded over its 32 slices against K26 on that slice, the median
+    relative difference over the channels above 20 % of the maximum within
+    5 % (tests/test_scatter_physics.py:236)."""
+    import dataclasses
+
+    import numpy as np
+
+    from dexct_tpu_torch.ops import scatter_physics as sp
+
+    jobs = [(False, cfg.phantom, cfg.ct, s, cfg.ct.betas[::FAN_SCATTER_EVERY],
+             f"{s.name}, fan", i == 1)
+            for i, s in enumerate(spectra(cfg.ct))]
+    ccfg = cone_cfgs["cone"]
+    jobs.append((True, ccfg.phantom, ccfg.ct, spectra(ccfg.ct)[1],
+                 ccfg.ct.betas[::CONE_SCATTER_EVERY], "80kV, cone config",
+                 True))
+    for cone, ph, ct, spec, views, label, record in jobs:
+        args, kw = scatter_args(cone, ph, ct, spec, views, dev)
+        plain_args = list(args)
+        plain_args[9] = args[9][PLAIN_VIEWS].contiguous()
+        fn = sp._scatter_scan_cone if cone else sp._scatter_scan
+        got, want, ms, pms = compare(
+            lambda: fn(*args, **kw),
+            lambda: sp._scatter_plain(*plain_args, **kw, cone=cone,
+                                      x_block=1024, d_block=32), reps=1)
+        again = fn(*args, **kw)
+        err, big = max_err(got[PLAIN_VIEWS], want)
+        same = bool((again == got).all())
+        name = "single_scatter_conebeam" if cone else "single_scatter"
+        report(records, name, err, ms, pms, err <= 1e-4 * big and same,
+               scatter_work(args, kw, cone),
+               extra=f" ({label}; {got.shape[0]} views x {got.shape[1]} "
+                     f"elements, {args[1].shape[0]} vertices, "
+                     f"{args[4].shape[1]} energies, s_in {kw['s_in']}, s_out "
+                     f"{kw['s_out']}; plain on {len(PLAIN_VIEWS)} views; max "
+                     f"|plain| {big:.6g}; repeats bitwise: {same})",
+               record=record)
+    # the N_rows = 1 anchor on the cone config's central slice
+    mid = ccfg.phantom.labels[ccfg.phantom.labels.shape[0] // 2]
+    ph3 = dataclasses.replace(ccfg.phantom, labels=np.broadcast_to(
+        mid, ccfg.phantom.labels.shape).copy())
+    ph2 = dataclasses.replace(ccfg.phantom, labels=mid[None].copy())
+    one_row = dataclasses.replace(ccfg.ct, N_rows=1)
+    spec = spectra(one_row)[1]
+    views = ccfg.ct.betas[::CONE_SCATTER_EVERY][:2]
+    s3 = sp.single_scatter_conebeam(ph3, one_row, spec, views=views,
+                                    device=dev, **CONE_SCATTER)[:, 0]
+    fan = dict(CONE_SCATTER)
+    del fan["row_sub"]
+    s2 = sp.single_scatter_sinogram(ph2, one_row, spec, views=views,
+                                    device=dev, **fan)
+    sel = s2 > 0.2 * s2.max()
+    rel = float(np.median(np.abs(s3[sel] - s2[sel]) / s2[sel]))
+    print(f"  N_rows = 1 anchor: K27 vs K26 on the central slice, median "
+          f"relative difference {rel:.4g} over {int(sel.sum())} channels "
+          "[< 0.05]")
+    if not rel < 0.05:
+        fail("the one-row cone scatter misses the fan estimator")
+
+
+def body_pixels(phantom, n, fov):
+    """Image pixels (n^2 over fov cm) whose phantom voxel and every voxel
+    within 1 cm of it are body (not air, label 0): the interior where the
+    noise map is compared."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    lab = phantom.slice_labels()
+    r = max(1, int(round(1.0 / phantom.dx)))
+    air = torch.as_tensor((lab == 0).astype(np.float32))[None, None]
+    near_air = F.max_pool2d(air, 2 * r + 1, stride=1, padding=r)[0, 0]
+    c = (np.arange(n) + 0.5 - n / 2) * (fov / n)
+    iy = np.floor(c / phantom.dy + lab.shape[0] / 2).astype(int)
+    ix = np.floor(c / phantom.dx + lab.shape[1] / 2).astype(int)
+    ok_y = (iy >= 0) & (iy < lab.shape[0])
+    ok_x = (ix >= 0) & (ix < lab.shape[1])
+    sel = np.zeros((n, n), bool)
+    sub = near_air.numpy()[np.clip(iy, 0, lab.shape[0] - 1)][
+        :, np.clip(ix, 0, lab.shape[1] - 1)] == 0
+    sel[np.ix_(ok_y, ok_x)] = sub[np.ix_(ok_y, ok_x)]
+    return torch.as_tensor(sel)
+
+
+def noise_ensemble(counts, ct, spec, n, fov, dev):
+    """Unbiased per-pixel variance [n, n] of NOISE_REALISATIONS Poisson
+    draws of ``counts`` (a seeded torch.Generator on the card), each
+    reconstructed by the port's fan FBP (K4)."""
+    import numpy as np
+    import torch
+
+    from dexct_tpu_torch.ops import spectral
+    from dexct_tpu_torch.ops.fbp import fbp_recon
+
+    air = float(np.sum(spectral.effective_fluence(spec, ct)))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(64)
+    s1 = torch.zeros((n, n), dtype=torch.float64, device=dev)
+    s2 = torch.zeros_like(s1)
+    for _ in range(NOISE_REALISATIONS):
+        noisy = spectral.sample_noise(gen, counts, "poisson")
+        img, _ = fbp_recon(spectral.log_sinogram(noisy, air), ct, n, fov,
+                           0.8)
+        img = img.to(torch.float64)
+        s1 += img
+        s2 += img * img
+    m = NOISE_REALISATIONS
+    return (s2 - s1 * s1 / m) / (m - 1)
+
+
+def noise_map_path(cfg, spectra, records, smi, dev):
+    """Phase 4, protocol noise prediction through the library on the
+    reference protocol, twice with the launch counters checked: the exact
+    paths (K1), both acquisitions' counts (K2) and their decomposition (K3,
+    50 iterations), ``fbp_variance_map`` of both acquisitions (K25),
+    ``decomposition_covariance`` (its peak device memory printed),
+    ``basis_variance_maps`` (K25 with three fields) and
+    ``vmi_variance_map`` from 40 to 300 keV.  Check 1: the 80 kV map
+    against the variance of NOISE_REALISATIONS Poisson draws reconstructed
+    by the fan FBP (K4): the median of predicted / empirical inside the
+    body (1 cm from air) within 10 % of 1 (the JAX test's 8 % at 160
+    draws, tests/test_noisemap.py:28-70).  Check 2: the VMI noise curve
+    (median over the body) falls over 40-VMI_MONOTONE_KEV keV and has its
+    minimum strictly inside 40-300 keV (the negative basis covariance at
+    work; VMI_KEV says why not 40-140) and within VMI_MIN_TOL_KEV of the JAX
+    package's VMI_MIN_KEV; every map finite and positive in the body."""
+    import numpy as np
+    import torch
+
+    from dexct_tpu_torch.ops import matdecomp, noisemap, spectral
+    from dexct_tpu_torch.ops.siddon import material_path_sinogram
+
+    ct, ph, n, fov = cfg.ct, cfg.phantom, cfg.N_matrix, cfg.FOV
+    s1, s2 = spectra(ct)
+    fns = zero_counters()
+    for run in (1, 2):
+        st = Stages()
+        paths = material_path_sinogram(ph, ct, device=dev)
+        st.mark("K1 trace")
+        c1, _ = spectral.forward_counts(paths, ph, s1, ct)
+        c2, _ = spectral.forward_counts(paths, ph, s2, ct)
+        st.mark("counts")
+        m1, m2 = matdecomp.decompose_sinograms(ct, c1, c2, s1, s2,
+                                               n_iters=50)
+        st.mark("decomposition")
+        var = [noisemap.fbp_variance_map(c, ct, n, fov, 0.8)
+               for c in (c1, c2)]
+        st.mark("fbp_variance_map x2")
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        cov = noisemap.decomposition_covariance(
+            torch.stack([m1, m2], -1), ct, s1, s2)
+        st.mark("decomposition_covariance")
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        maps = noisemap.basis_variance_maps(cov, ct, n, fov, 0.8)
+        st.mark("basis_variance_maps")
+        vmi = torch.stack([noisemap.vmi_variance_map(*maps, e)
+                           for e in VMI_KEV])
+        st.mark("VMI curve")
+        print(f"noise_map path (library, run {run}): "
+              f"{sum(st.t.values()) / 1e3:.3f} s on {smi}; stages (ms): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in st.t.items())
+              + f"; covariance peak above its inputs {peak:.3f} GB")
+    t0 = time.perf_counter()
+    emp = noise_ensemble(c2, ct, s2, n, fov, dev)
+    t_ens = time.perf_counter() - t0
+    check_launches("noise_map", fns, NOISE_MAP_KERNELS, records)
+    body = body_pixels(ph, n, fov).to(dev)
+    ratio = float(torch.median(var[1][body].double() / emp[body]))
+    curve = [float(torch.median(v[body])) for v in vmi]
+    i_min = int(np.argmin(curve))
+    n_fall = VMI_KEV.index(VMI_MONOTONE_KEV) + 1
+    falls = all(a > b for a, b in zip(curve[:n_fall - 1], curve[1:n_fall]))
+    e_min = VMI_KEV[i_min]
+    finite = all(bool(torch.isfinite(x).all()) and float(x[body].min()) > 0
+                 for x in (*var, maps[0], maps[1], *vmi))
+    print(f"  80 kV predicted / empirical variance over {int(body.sum())} "
+          f"body pixels ({NOISE_REALISATIONS} Poisson draws through K4, "
+          f"{t_ens:.2f} s): median {ratio:.4f} [within 0.10 of 1]")
+    print("  VMI noise (median HU^2 over the body): " + ", ".join(
+        f"{e:g} keV {c:.4g}" for e, c in zip(VMI_KEV, curve))
+          + f"; falls over 40-{VMI_MONOTONE_KEV} keV: {falls}; minimum at "
+          f"{e_min:g} keV [strictly inside, within {VMI_MIN_TOL_KEV:g} of "
+          f"{VMI_MIN_KEV:g}]")
+    print(f"  basis maps: median var1 {float(maps[0][body].median()):.4g}, "
+          f"var2 {float(maps[1][body].median()):.4g}, cov12 "
+          f"{float(maps[2][body].median()):.4g} (g/cm^3)^2; finite and "
+          f"positive: {finite}")
+    if not (abs(ratio - 1.0) < 0.10 and 0 < i_min < len(VMI_KEV) - 1
+            and abs(e_min - VMI_MIN_KEV) <= VMI_MIN_TOL_KEV and falls
+            and finite):
+        fail("the noise-map path misses its checks")
+
+
+def scatter_path(cfg, cone_cfgs, spectra, records, smi, dev):
+    """Phase 4, protocol scatter prediction through the library, twice with
+    the launch counters checked: the reference protocol's exact paths
+    (K1) and counts (K2), ``single_scatter_sinogram`` of both acquisitions
+    (K26, every 50th view), ``add_scatter`` then ``correct_scatter`` on the
+    80 kV counts (spr 0.3, sigma 30 channels), and the cone config's 80 kV
+    scan: K10 paths and K2 counts of every 45th view and
+    ``single_scatter_conebeam`` (K27).  Checks: every scatter value finite
+    and >= 0; the in-object SPR (``scatter_to_primary_ratio``, single
+    scatter, no grid) of each scene within SPR_FACTOR of its SPR_REF, the
+    cone's (4 cm collimation) above the fan's (1 cm); the corrected primary within 2 % of the true one on
+    average (tests/test_scatter.py:85-99)."""
+    import numpy as np
+    import torch
+
+    from dexct_tpu_torch.ops import conebeam, spectral
+    from dexct_tpu_torch.ops import scatter as sc_ops
+    from dexct_tpu_torch.ops import scatter_physics as sp
+    from dexct_tpu_torch.ops.siddon import material_path_sinogram
+
+    ct, ph = cfg.ct, cfg.phantom
+    ccfg = cone_cfgs["cone"]
+    views = ct.betas[::FAN_SCATTER_EVERY]
+    v3 = np.arange(ccfg.ct.N_proj)[::CONE_SCATTER_EVERY]
+    fns = zero_counters()
+    for run in (1, 2):
+        st = Stages()
+        paths = material_path_sinogram(ph, ct, device=dev)
+        counts = [spectral.forward_counts(paths, ph, s, ct)[0]
+                  for s in spectra(ct)]
+        st.mark("K1 trace + counts")
+        fan = [sp.single_scatter_sinogram(ph, ct, s, views=views,
+                                          device=dev, **FAN_SCATTER)
+               for s in spectra(ct)]
+        st.mark("single_scatter_sinogram x2")
+        air = float(np.sum(spectral.effective_fluence(spectra(ct)[1], ct)))
+        kern = sc_ops.scatter_kernel(ct.N_channels, sigma_ch=30.0)
+        meas = sc_ops.add_scatter(counts[1], air, kern, spr=0.3)
+        fixed = sc_ops.correct_scatter(meas, air, kern, spr=0.3)
+        st.mark("add_scatter + correct_scatter")
+        spec3 = spectra(ccfg.ct)[1]
+        src, dirs = (torch.as_tensor(x[v3], dtype=torch.float32,
+                                     device=dev).contiguous()
+                     for x in ccfg.ct.ray_geometry_3d())
+        paths3 = conebeam.trace_paths_3d(
+            conebeam.labels_u8(ccfg.phantom.labels, dev), src, dirs,
+            ccfg.phantom.dx, ccfg.phantom.dy, ccfg.phantom.dz,
+            n_materials=ccfg.phantom.n_materials)
+        counts3, _ = spectral.forward_counts(paths3, ccfg.phantom, spec3,
+                                             ccfg.ct)
+        st.mark("cone K10 trace + counts")
+        cone = sp.single_scatter_conebeam(
+            ccfg.phantom, ccfg.ct, spec3, views=ccfg.ct.betas[v3],
+            device=dev, **CONE_SCATTER)
+        st.mark("single_scatter_conebeam")
+        print(f"scatter path (library, run {run}): "
+              f"{sum(st.t.values()) / 1e3:.3f} s on {smi}; stages (ms): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in st.t.items()))
+    check_launches("scatter", fns, SCATTER_KERNELS, records)
+    sub = slice(None, None, FAN_SCATTER_EVERY)
+    spr = [sp.scatter_to_primary_ratio(s, c[sub].cpu().numpy())
+           for s, c in zip(fan, counts)]
+    spr3 = sp.scatter_to_primary_ratio(cone, counts3.cpu().numpy())
+    ok_vals = all(np.isfinite(s).all() and s.min() >= 0
+                  for s in (*fan, cone))
+    frac = sc_ops.scatter_fraction(meas, counts[1], grid_p=0.95)
+    rel = float(torch.mean(torch.abs(fixed - counts[1]) / counts[1]))
+    got = dict(zip(SPR_REF, (*spr, spr3)))
+    in_band = all(SPR_REF[k] / SPR_FACTOR < v < SPR_REF[k] * SPR_FACTOR
+                  for k, v in got.items())
+    print("  in-object SPR (single scatter, no grid): " + ", ".join(
+        f"{k} {v:.5g} [JAX {SPR_REF[k]:g} x/ {SPR_FACTOR:g}]"
+        for k, v in got.items())
+          + f"; cone > fan; finite and >= 0: {ok_vals}")
+    print(f"  kernel model: scatter fraction {frac:.4f}; correct_scatter "
+          f"mean |P - P_true| / P_true {rel:.5f} [< 0.02]")
+    if not (ok_vals and in_band and spr3 > spr[1] and rel < 0.02 and frac > 0.01):
+        fail("the scatter path misses its checks")
+
+
+def planning_devices_phase():
+    """Phase 5: tiny noise maps (K1, K2, K3, K25 with one and three
+    fields) and tiny fan (with and without Rayleigh) and cone scatter
+    (K26, K27) on the CPU and on the card, from
+    ``dexct_tpu_torch.utils.tiny_cases`` (the card tests run the same
+    cases), each within 1e-4 of its maximum."""
+    import numpy as np
+
+    from dexct_tpu_torch.utils import tiny_cases as tc
+
+    c, g = tc.noise_maps("cpu"), tc.noise_maps("cuda")
+    for i, name in enumerate(("fbp variance", "var1", "var2", "cov12")):
+        err = float((g[i] - c[i]).abs().max())
+        big = float(c[i].abs().max())
+        print(f"  noise map {name}: card vs CPU max abs {err:.3g} (max "
+              f"{big:.4g}) [<= {tc.NOISE_TOL:g} x max]")
+        if not err <= tc.NOISE_TOL * big:
+            fail(f"tiny noise map {name} differs between the CPU and the "
+                 "card")
+    for kind in tc.SCATTER_KINDS:
+        c, g = tc.scatter(kind, "cpu"), tc.scatter(kind, "cuda")
+        err = float(np.abs(g - c).max())
+        print(f"  scatter {kind}: card vs CPU max abs {err:.3g} (max "
+              f"{c.max():.4g}) [<= {tc.SCATTER_TOL:g} x max]")
+        if not err <= tc.SCATTER_TOL * c.max():
+            fail(f"tiny scatter {kind} differs between the CPU and the card")
+
+
 def iterative_2d_path(cfg, records, smi, dev):
     """Phase 4, 2-D iterative reconstruction through the library on the
     reference protocol: the 60 keV sinogram of the exact paths (K1),
@@ -2862,6 +3375,7 @@ def main():
              "weighted library paths' central slices to this directory, for "
              "the witness in tests/test_torch_cone.py")
     args = parser.parse_args()
+    t_start = time.time()
     # line by line, also into a pipe: a run cut short keeps what it printed
     sys.stdout.reconfigure(line_buffering=True)
     try:
@@ -2901,7 +3415,7 @@ def main():
                                torch.zeros(1, device=dev))
     torch.cuda.synchronize()
     t2 = time.time()
-    print(f"build: nvcc K1, K3-K13, K15-K24 {t1 - t0:.1f} s, triton K2 "
+    print(f"build: nvcc K1, K3-K13, K15-K27 {t1 - t0:.1f} s, triton K2 "
           f"{t2 - t1:.1f} s")
 
     # 3. kernels against their plain versions at the paths' shapes
@@ -2972,6 +3486,10 @@ def main():
         fourier_adjoint_kernel_phase(cfg, records, dev)
         torch.cuda.empty_cache()
         dose_kernel_phase(cfg, cone_cfgs, spectra, records, dev)
+        torch.cuda.empty_cache()
+        noise_kernel_phase(cfg, spectra, records, dev)
+        torch.cuda.empty_cache()
+        scatter_kernel_phase(cfg, cone_cfgs, spectra, records, dev)
         torch.cuda.empty_cache()
 
         # 4. the paths: the CLI's, then the library's
@@ -3048,6 +3566,10 @@ def main():
         torch.cuda.empty_cache()
         dose_path(cfg, cone_cfgs, spectra, records, smi, dev)
         torch.cuda.empty_cache()
+        noise_map_path(cfg, spectra, records, smi, dev)
+        torch.cuda.empty_cache()
+        scatter_path(cfg, cone_cfgs, spectra, records, smi, dev)
+        torch.cuda.empty_cache()
 
         # 5. every path on both devices
         for label, (flags, config, _) in PATHS.items():
@@ -3059,12 +3581,14 @@ def main():
         zstack_devices_phase()
         library_devices_phase()
         new_paths_devices_phase()
+        planning_devices_phase()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
+    print(f"chip_smoke wall time: {time.time() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": [{k: records[n][k] for k in order}
                                   for n in KERNELS]}))

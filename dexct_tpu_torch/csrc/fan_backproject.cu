@@ -1,4 +1,6 @@
-// K4 fan_backproject: equiangular fan-beam backprojection of K images.
+// K4 fan_backproject: equiangular fan-beam backprojection of K images,
+// and K25 fan_backproject_var: the squared-weight backprojection of the
+// filtered variance and lag-1 covariance of F fields (below).
 //
 // Replaces the TPU programs dexct_tpu/ops/fbp_fast.py:fan_backproject_multi
 // (a lax.scan over 32-view blocks whose body gathers one packed row of all
@@ -30,6 +32,30 @@
 namespace {
 
 constexpr int kChunk = 1024;
+
+// The channel coordinate of pixel (X, Y) in the view (cos b, sin b), in the
+// JAX programs' operation order with no fused multiply-add (the hard
+// fan-edge test must flip where the reference's does): vr, vt, gamma =
+// atan2(-vt, -vr), c = gamma / dgamma - 0.5 + C/2.  Returns false outside
+// the fan (c < 0 or c > C - 1); else c0 = clamp(floor(c), 0, C - 2), the
+// tap fraction f = clamp(c - c0, 0, 1) and l2 = vr^2 + vt^2.  K4 and K25
+// share it.
+__device__ __forceinline__ bool fan_tap(float X, float Y, float cb, float sb,
+                                        float sid, float dgamma,
+                                        float c_shift, float c_max,
+                                        float c0_max, float& c0, float& f,
+                                        float& l2) {
+  const float vr = __fsub_rn(__fadd_rn(__fmul_rn(X, cb), __fmul_rn(Y, sb)),
+                             sid);
+  const float vt = __fadd_rn(__fmul_rn(-X, sb), __fmul_rn(Y, cb));
+  const float c = __fadd_rn(
+      __fsub_rn(__fdiv_rn(atan2f(-vt, -vr), dgamma), 0.5f), c_shift);
+  if (!(c >= 0.0f && c <= c_max)) return false;
+  c0 = fminf(fmaxf(floorf(c), 0.0f), c0_max);
+  f = fminf(fmaxf(c - c0, 0.0f), 1.0f);
+  l2 = __fadd_rn(__fmul_rn(vr, vr), __fmul_rn(vt, vt));
+  return true;
+}
 
 template <int K>
 __global__ void fan_backproject_kernel(const float* __restrict__ packed,
@@ -65,20 +91,11 @@ __global__ void fan_backproject_kernel(const float* __restrict__ packed,
     __syncthreads();
     if (!valid) continue;
     for (int j = 0; j < nv; ++j) {
-      const float cb = s_cos[j], sb = s_sin[j];
-      // the channel coordinate in the JAX program's operation order, with
-      // no fused multiply-add: the hard fan-edge test below must flip
-      // where the reference's does
-      const float vr = __fsub_rn(__fadd_rn(__fmul_rn(X, cb), __fmul_rn(Y, sb)),
-                                 sid);
-      const float vt = __fadd_rn(__fmul_rn(-X, sb), __fmul_rn(Y, cb));
-      const float c = __fadd_rn(
-          __fsub_rn(__fdiv_rn(atan2f(-vt, -vr), dgamma), 0.5f), c_shift);
-      if (!(c >= 0.0f && c <= c_max)) continue;  // outside the fan
-      const float c0 = fminf(fmaxf(floorf(c), 0.0f), c0_max);
-      const float f = fminf(fmaxf(c - c0, 0.0f), 1.0f);
-      const float w = __fdiv_rn(
-          1.0f, __fadd_rn(__fmul_rn(vr, vr), __fmul_rn(vt, vt)));
+      float c0, f, l2;
+      if (!fan_tap(X, Y, s_cos[j], s_sin[j], sid, dgamma, c_shift, c_max,
+                   c0_max, c0, f, l2))
+        continue;  // outside the fan
+      const float w = __fdiv_rn(1.0f, l2);
       const float* row =
           packed + ((size_t)(v0 + j) * C + (size_t)c0) * (2 * K);
 #pragma unroll
@@ -124,6 +141,127 @@ extern "C" int dexct_fan_backproject(const void* packed, const void* cos_b,
     case 2: DEXCT_CASE(2); break;
     case 3: DEXCT_CASE(3); break;
     case 4: DEXCT_CASE(4); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DEXCT_CASE
+  return (int)cudaGetLastError();
+}
+
+// K25 fan_backproject_var: replaces the TPU program
+// dexct_tpu/ops/noisemap.py:_fan_backproject_var (a lax.scan over 64-view
+// blocks, each a vmap over views of a full-image gather of the filtered
+// variance r0 and lag-1 covariance r1).  Per (pixel, view) inside the fan
+// it adds
+//     ((1-f)^2 r0[c0] + f^2 r0[c0+1] + 2 f (1-f) r1[c0]) / l2^2
+// for each of F fields and multiplies the sum by dbeta^2: the variance of
+// the linear-interpolation backprojection, with the taps' covariance.
+//
+// What bounds it on the card: as K4, one atan2 and ~30 float operations per
+// (pixel, view) for the geometry plus 9 per field; N^2 x V = 2.6e8
+// pixel-views at the reference protocol, so arithmetic.  Design: K4's
+// kernel with fan_tap() shared, one thread per pixel over all views, cos
+// and sin of the views in shared memory, the F sums in registers (the dual
+// energy noise map's three fields var1, var2, cov12 share one launch and
+// one geometry), the output written once with no atomics.  r0 and r1
+// [F, V, C] are read directly: three taps per field from rows that
+// neighbouring pixels share (L1/L2 resident).
+namespace {
+
+template <int F>
+__global__ void fan_backproject_var_kernel(
+    const float* __restrict__ r0, const float* __restrict__ r1,
+    const float* __restrict__ cos_b, const float* __restrict__ sin_b,
+    float* __restrict__ out, int V, int C, int N, float px, float half,
+    float sid, float dgamma, float dbeta2) {
+  __shared__ float s_cos[kChunk];
+  __shared__ float s_sin[kChunk];
+  const int ix = blockIdx.x * blockDim.x + threadIdx.x;
+  const int iy = blockIdx.y * blockDim.y + threadIdx.y;
+  const bool valid = ix < N && iy < N;
+  const float X = ((float)ix + 0.5f - half) * px;
+  const float Y = ((float)iy + 0.5f - half) * px;
+  const float c_shift = 0.5f * (float)C;
+  const float c_max = (float)(C - 1);
+  const float c0_max = (float)(C - 2);
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+  const size_t field = (size_t)V * C;
+
+  float acc[F];
+#pragma unroll
+  for (int k = 0; k < F; ++k) acc[k] = 0.0f;
+
+  for (int v0 = 0; v0 < V; v0 += kChunk) {
+    const int nv = min(kChunk, V - v0);
+    __syncthreads();
+    for (int i = tid; i < nv; i += nthreads) {
+      s_cos[i] = cos_b[v0 + i];
+      s_sin[i] = sin_b[v0 + i];
+    }
+    __syncthreads();
+    if (!valid) continue;
+    for (int j = 0; j < nv; ++j) {
+      float c0, f, l2;
+      if (!fan_tap(X, Y, s_cos[j], s_sin[j], sid, dgamma, c_shift, c_max,
+                   c0_max, c0, f, l2))
+        continue;
+      // the JAX program's order: (1-f)^2 r0[c0] + f f r0[c0+1]
+      // + (2 f)(1-f) r1[c0], then / (l2 l2)
+      const float g = __fsub_rn(1.0f, f);
+      const float a0 = __fmul_rn(g, g);
+      const float a1 = __fmul_rn(f, f);
+      const float a2 = __fmul_rn(__fmul_rn(2.0f, f), g);
+      const float l4 = __fmul_rn(l2, l2);
+      const size_t base = (size_t)(v0 + j) * C + (size_t)c0;
+#pragma unroll
+      for (int k = 0; k < F; ++k) {
+        const float* q0 = r0 + k * field + base;
+        const float var = __fadd_rn(
+            __fadd_rn(__fmul_rn(a0, __ldg(q0)), __fmul_rn(a1, __ldg(q0 + 1))),
+            __fmul_rn(a2, __ldg(r1 + k * field + base)));
+        acc[k] += __fdiv_rn(var, l4);
+      }
+    }
+  }
+  if (!valid) return;
+  const size_t plane = (size_t)N * N;
+#pragma unroll
+  for (int k = 0; k < F; ++k)
+    out[k * plane + (size_t)iy * N + ix] = acc[k] * dbeta2;
+}
+
+template <int F>
+void launch_var(const float* r0, const float* r1, const float* cos_b,
+                const float* sin_b, float* out, int V, int C, int N,
+                float px, float half, float sid, float dgamma, float dbeta2,
+                cudaStream_t stream) {
+  const dim3 threads(16, 16);
+  const dim3 blocks((N + 15) / 16, (N + 15) / 16);
+  fan_backproject_var_kernel<F><<<blocks, threads, 0, stream>>>(
+      r0, r1, cos_b, sin_b, out, V, C, N, px, half, sid, dgamma, dbeta2);
+}
+
+}  // namespace
+
+extern "C" int dexct_fan_backproject_var(const void* r0, const void* r1,
+                                         const void* cos_b,
+                                         const void* sin_b, void* out,
+                                         int n_fields, int V, int C, int N,
+                                         float px, float half, float sid,
+                                         float dgamma, float dbeta2,
+                                         void* stream) {
+  const float* a = static_cast<const float*>(r0);
+  const float* b = static_cast<const float*>(r1);
+  const float* cb = static_cast<const float*>(cos_b);
+  const float* sb = static_cast<const float*>(sin_b);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N <= 0) return (int)cudaGetLastError();
+#define DEXCT_CASE(FF) \
+  launch_var<FF>(a, b, cb, sb, o, V, C, N, px, half, sid, dgamma, dbeta2, st)
+  switch (n_fields) {  // one map, or the three basis fields
+    case 1: DEXCT_CASE(1); break;
+    case 3: DEXCT_CASE(3); break;
     default: return (int)cudaErrorInvalidValue;
   }
 #undef DEXCT_CASE

@@ -8,12 +8,15 @@ Katsevich exact helical reconstruction (K14, K15), the exact 3-D projector
 and its adjoint (K18, K19) with the iterative loops (CG, PWLS) on them, the
 cone-parallel PI method (K5 at 4 taps, K20), the Fourier projector's
 adjoints (K21, K22) under the 2-D CG, SIRT and PWLS and the one-step
-spectral fit, and the 2-D and 3-D dose maps (K23, K24)."""
+spectral fit, the 2-D and 3-D dose maps (K23, K24), the FBP noise maps
+(K25) and first-principles single scatter, fan beam (K26) and cone beam
+(K27), with the kernel-superposition scatter model."""
 
 from . import bhc, conebeam, dose, fbp, fbp_fast, ffs, filters, flatpanel
-from . import fourier, helical_pi, iterative, katsevich, matdecomp, onestep
-from . import siddon, spectral
+from . import fourier, helical_pi, iterative, katsevich, matdecomp, noisemap
+from . import onestep, scatter, scatter_physics, siddon, spectral
 
 __all__ = ["bhc", "conebeam", "dose", "fbp", "fbp_fast", "ffs", "filters",
            "flatpanel", "fourier", "helical_pi", "iterative", "katsevich",
-           "matdecomp", "onestep", "siddon", "spectral"]
+           "matdecomp", "noisemap", "onestep", "scatter", "scatter_physics",
+           "siddon", "spectral"]

@@ -1,7 +1,7 @@
 """Physics substrate: attenuation tables, spectra, detectors, materials
 (host NumPy, shared with the JAX package's definitions)."""
 
-from . import xcom
+from . import formfactor, xcom
 from .detector import DetectorResponse, photon_counting_response, scintillator_response
 from .materials import AIR, BONE, BUILTIN_MATERIALS, Material, MaterialTable, TISSUE, WATER
 from .spectrum import Spectrum, kramers_spectrum, linac_spectrum, xRaySpectrum
@@ -10,6 +10,7 @@ mixatten = xcom.mixatten
 
 __all__ = [
     "xcom",
+    "formfactor",
     "mixatten",
     "Spectrum",
     "xRaySpectrum",

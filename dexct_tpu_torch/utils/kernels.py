@@ -34,9 +34,11 @@ SOURCES = ("siddon_trace.cu", "gauss_newton.cu", "fan_backproject.cu",
            "gather_taps.cu", "parallel_backproject.cu", "kb_sample.cu",
            "analytic_chords.cu", "siddon_trace_3d.cu", "cone_backproject.cu",
            "trilinear_sample.cu", "siddon_trace_stack.cu",
-           "siddon_project_3d.cu", "pi_backproject.cu", "dose.cu")
+           "siddon_project_3d.cu", "pi_backproject.cu", "dose.cu",
+           "scatter.cu")
 # headers the sources include (hashed with them, compiled through them)
-HEADERS = ("siddon_walk.cuh", "siddon_walk_3d.cuh", "td_window.cuh")
+HEADERS = ("siddon_walk.cuh", "siddon_walk_3d.cuh", "td_window.cuh",
+           "scatter_march.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # no --use_fast_math: the trace's plane crossings and the backprojectors'
 # edge tests feed 1e-4 parity tolerances
@@ -63,6 +65,10 @@ _SIGNATURES = {
                               _F, _F, _P),
     # sinos, idx, w, out, n_bins, K, n_src, taps, stream
     "dexct_rebin_to_parallel": (_P, _P, _P, _P, _L, _I, _L, _I, _P),
+    # r0, r1, cos_b, sin_b, out, n_fields, V, C, N, px, half, sid, dgamma,
+    # dbeta^2, stream
+    "dexct_fan_backproject_var": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                  _F, _F, _F, _F, _P),
     # radon, idx, w, out, n_rays, M, n_src, stream
     "dexct_resample_to_fan": (_P, _P, _P, _P, _L, _I, _L, _P),
     # packed, cos_t, sin_t, mask, out, n_images, n_theta, nt, N, px, half,
@@ -122,6 +128,13 @@ _SIGNATURES = {
     # depth; n_vox; sid, dx, dy, dz, cx, cy, cz, g0, dg, gmax, t0, dt, tmax,
     # r0, dr, rmax, geom, g_half, t_half, dvol; stream
     "dexct_dose_3d": (_P,) * 19 + (_I,) * 11 + (_L,) + (_F,) * 20 + (_P,),
+    # labels, cells, ne_w, f2w, mu_gE, mu_fine, resp_fine, resp_g, n0_g,
+    # e_g, src, d0, det, nrm, phi, aux, out; maxk, nv, X, D, G, F, Q, nx,
+    # ny, nz, s_in, s_out, coherent; dx, dy, dz, hx, hy, hz, cx, cy, cz,
+    # geom, g_half, beam_a, beam_b, ef0, def, f_max, q_max, a_det, dq_inv,
+    # c_r2, inv_hc, inv_mec2; stream
+    "dexct_scatter_2d": (_P,) * 17 + (_I,) * 13 + (_F,) * 22 + (_P,),
+    "dexct_scatter_3d": (_P,) * 17 + (_I,) * 13 + (_F,) * 22 + (_P,),
     # labels, src, dirs, out, n_rays, nx, ny, nz, n_out, z_chunk, x0, y0,
     # x1, y1, dx, dy, eps, n_steps, stream
     "dexct_siddon_trace_stack": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F,

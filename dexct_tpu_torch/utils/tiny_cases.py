@@ -4,8 +4,10 @@ Each function builds its inputs afresh from a fixed seed, runs one entry
 point of the port on the given device and returns the result on the CPU,
 so that a caller runs it once per device and compares the two: the 2-D
 iterative reconstructions and the one-step fit on a 48^2 Fourier plan
-(n_theta = 96, 64 x 48 rays), one gradient of the one-step objective, and
-the 2-D and 3-D dose maps of a 32^2 three-material phantom.  The card tests
+(n_theta = 96, 64 x 48 rays), one gradient of the one-step objective, the
+2-D and 3-D dose maps of a 32^2 three-material phantom, the single- and
+dual-energy noise maps of a 48^2 cylinder, and fan- and cone-beam single
+scatter through a 32^2 (x 8) three-material phantom.  The card tests
 (``tests/test_torch_cuda.py``) and ``chip_smoke.py``'s phase 5 both run
 them, with the tolerances below.
 """
@@ -16,8 +18,9 @@ import numpy as np
 import torch
 
 __all__ = ["ITERATIVE_PATHS", "ITERATIVE_TOL", "GRADIENT_TOL", "DOSE_KINDS",
-           "DOSE_TOL", "fourier_plan", "iterative_2d", "onestep_gradient",
-           "dose_inputs", "dose"]
+           "DOSE_TOL", "NOISE_TOL", "SCATTER_KINDS", "SCATTER_TOL",
+           "fourier_plan", "iterative_2d", "onestep_gradient", "dose_inputs",
+           "dose", "noise_maps", "scatter"]
 
 ITERATIVE_PATHS = ("cg", "sirt", "pwls", "onestep")
 # of the result's largest value: the adjoints' float32 atomics add in no
@@ -28,6 +31,13 @@ GRADIENT_TOL = 1e-4
 DOSE_KINDS = ("fan", "cone", "helical")
 # of the map's largest value, and the deposited energy relative
 DOSE_TOL = 1e-4
+# of each noise map's largest value: float32 sums over views in another
+# order, atan2 of another library
+NOISE_TOL = 1e-4
+SCATTER_KINDS = ("fan", "fan_compton", "fan_mev", "cone")
+# of the scatter sinogram's largest value: float32 sums over vertices,
+# energies and march steps in another order
+SCATTER_TOL = 1e-4
 
 VIEW_SHAPE = (64, 48)
 
@@ -137,6 +147,20 @@ def onestep_gradient(device):
     return g.cpu()
 
 
+def _three_materials(nz=None, dz=0.5):
+    """A 32^2 water disc with a bone rod in air at 0.5 cm (``nz`` slices
+    of it ``dz`` apart for a 3-D phantom)."""
+    from ..physics.materials import AIR, BONE, WATER, MaterialTable
+    from ..system import VoxelPhantom
+
+    ys = (np.arange(32) + 0.5 - 16) * 0.5
+    lab = (np.hypot(ys[None, :], ys[:, None]) <= 6.0).astype(np.uint8)
+    lab[np.hypot(ys[None, :] - 2.0, ys[:, None] - 1.0) <= 1.5] = 2
+    lab = lab[None] if nz is None else np.broadcast_to(lab, (nz, 32, 32))
+    return VoxelPhantom("rods", lab.copy(), MaterialTable([AIR, WATER, BONE]),
+                        0.5, 0.5, dz)
+
+
 def dose_inputs(kind):
     """A 32^2 water disc with a bone rod in air at 0.5 cm, and a 120 kV
     Kramers spectrum at 10x the isocentre fluence over the scan, for one of
@@ -144,28 +168,21 @@ def dose_inputs(kind):
     16 views x 4 rows; a 32-slice (0.25 cm) helix of three turns at pitch
     1.6 cm, 48 views x 4 rows, whose dose map runs the z-slab window."""
     from ..physics import kramers_spectrum
-    from ..physics.materials import AIR, BONE, WATER, MaterialTable
     from ..system import (ConeBeamGeometry, FanBeamGeometry,
-                          HelicalConeBeamGeometry, VoxelPhantom)
+                          HelicalConeBeamGeometry)
 
-    ys = (np.arange(32) + 0.5 - 16) * 0.5
-    lab = (np.hypot(ys[None, :], ys[:, None]) <= 6.0).astype(np.uint8)
-    lab[np.hypot(ys[None, :] - 2.0, ys[:, None] - 1.0) <= 1.5] = 2
-    mats = MaterialTable([AIR, WATER, BONE])
     spec = kramers_spectrum(120.0)
     if kind == "fan":
         ct = FanBeamGeometry(N_channels=64, N_proj=48, h_iso=0.1)
-        ph = VoxelPhantom("rods", lab[None], mats, 0.5, 0.5, 0.5)
+        ph = _three_materials()
     elif kind == "cone":
         ct = ConeBeamGeometry(N_channels=32, N_proj=16, N_rows=4, h_iso=0.25)
-        ph = VoxelPhantom("rods", np.broadcast_to(lab, (8, 32, 32)).copy(),
-                          mats, 0.5, 0.5, 0.5)
+        ph = _three_materials(8)
     elif kind == "helical":
         ct = HelicalConeBeamGeometry(N_channels=32, N_proj=48, N_rows=4,
                                      h_iso=0.4, rotation_total=6 * np.pi,
                                      pitch=1.6)
-        ph = VoxelPhantom("rods", np.broadcast_to(lab, (32, 32, 32)).copy(),
-                          mats, 0.5, 0.5, 0.25)
+        ph = _three_materials(32, dz=0.25)
     else:
         raise ValueError(f"kind must be one of {DOSE_KINDS}, got {kind!r}")
     spec.rescale_counts(ct.A_iso * 10.0 / ct.N_proj)
@@ -181,3 +198,60 @@ def dose(kind, device):
     ph, ct, spec = dose_inputs(kind)
     fn = dose_ops.dose_map if kind == "fan" else dose_ops.dose_map_3d
     return fn(ph, ct, spec, device=device)
+
+
+def noise_maps(device):
+    """The predicted FBP variance of a 120 kV scan of a 48^2 water cylinder
+    (64 channels, 48 views) and the three basis maps of an 80 / 140 kV
+    pair decomposed from its exact paths: [4, 32, 32] on the CPU (K25 with
+    one field, then with three)."""
+    from ..ops import matdecomp, noisemap, spectral
+    from ..ops.siddon import material_path_sinogram
+    from ..physics import kramers_spectrum
+    from ..system import FanBeamGeometry, water_cylinder_phantom
+
+    ct = FanBeamGeometry(N_channels=64, N_proj=48, eid=False)
+    ph = water_cylinder_phantom(N=48, dx=0.25, radius_cm=4.5)
+    s1, s2 = kramers_spectrum(140.0), kramers_spectrum(80.0)
+    for s in (s1, s2):
+        s.rescale_counts(3e4 / float(np.sum(spectral.effective_fluence(s,
+                                                                       ct))))
+    paths = material_path_sinogram(ph, ct, device=device)
+    c1, _ = spectral.forward_counts(paths, ph, s1, ct)
+    c2, _ = spectral.forward_counts(paths, ph, s2, ct)
+    m1, m2 = matdecomp.decompose_sinograms(ct, c1, c2, s1, s2, n_iters=20)
+    var = noisemap.fbp_variance_map(c1, ct, 32, 12.0)
+    cov = noisemap.decomposition_covariance(torch.stack([m1, m2], -1), ct,
+                                            s1, s2)
+    maps = noisemap.basis_variance_maps(cov, ct, 32, 12.0)
+    return torch.stack([var, *maps]).cpu()
+
+
+def scatter(kind, device):
+    """Single scatter of one of :data:`SCATTER_KINDS` through
+    :func:`_three_materials` at 120 kV, two views: the fan (32 channels,
+    coarse 2, 8 bins, Compton + Rayleigh, Compton alone, or both with the
+    megavoltage linac spectrum) and a 4-row cone over 8 slices (coarse 2,
+    6 bins, every 2nd row and channel).  Returns the float64 sinogram on
+    the host."""
+    from ..ops import scatter_physics
+    from ..physics import kramers_spectrum, linac_spectrum
+    from ..system import ConeBeamGeometry, FanBeamGeometry
+
+    spec = linac_spectrum() if kind == "fan_mev" else kramers_spectrum(120.0)
+    spec.rescale_counts(1e6)
+    views = np.array([0.0, 2.0])
+    if kind == "cone":
+        ct = ConeBeamGeometry(N_channels=32, N_proj=4, N_rows=4, h_iso=0.5,
+                              gamma_fan=0.9, SID=60.0, SDD=100.0, eid=True)
+        return scatter_physics.single_scatter_conebeam(
+            _three_materials(8), ct, spec, coarse=2, n_energy=6,
+            channel_sub=2, row_sub=2, views=views, device=device)
+    if kind not in SCATTER_KINDS:
+        raise ValueError(f"kind must be one of {SCATTER_KINDS}, got "
+                         f"{kind!r}")
+    ct = FanBeamGeometry(N_channels=32, N_proj=4, gamma_fan=0.9, SID=60.0,
+                         SDD=100.0, h_iso=0.1, eid=True)
+    return scatter_physics.single_scatter_sinogram(
+        _three_materials(), ct, spec, coarse=2, n_energy=8, views=views,
+        coherent=kind != "fan_compton", device=device)

@@ -1,4 +1,4 @@
-"""Hand-written kernels K1-K24 against their plain PyTorch versions, on the
+"""Hand-written kernels K1-K27 against their plain PyTorch versions, on the
 card.
 
 Every test here needs a CUDA device and skips without one.  This file
@@ -946,3 +946,116 @@ def test_dose_kernels_match_plain(dev, kind):
         <= tiny_cases.DOSE_TOL * want.dose_mGy.max()
     assert abs(got.deposited_J - want.deposited_J) \
         <= tiny_cases.DOSE_TOL * want.deposited_J
+
+
+@pytest.mark.parametrize("n_fields", [1, 3])
+def test_fan_backproject_var_matches_plain(dev, n_fields):
+    """K25 against its plain version on random variance fields of 96
+    views x 64 channels: 1e-5 of the plain map's maximum (float32 sums
+    over views in another order)."""
+    from dexct_tpu_torch.ops import noisemap
+
+    rng = np.random.default_rng(25)
+    r0 = torch.as_tensor(rng.uniform(0.5, 2.0, (n_fields, 96, 64)),
+                         dtype=torch.float32, device=dev)
+    r1 = torch.as_tensor(rng.uniform(-0.5, 0.5, (n_fields, 96, 64)),
+                         dtype=torch.float32, device=dev)
+    betas = torch.linspace(0.0, 2 * np.pi, 97, device=dev)[:96]
+    args = (r0, r1, betas, 60.0, 0.9 / 64, 40, 20.0)
+    before = noisemap._fan_backproject_var.launches
+    got = noisemap._fan_backproject_var(*args)
+    assert noisemap._fan_backproject_var.launches == before + 1
+    want = noisemap._fan_backproject_var_plain(*args, 2 * np.pi / 96)
+    assert float(want.abs().max()) > 0.0
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def test_noise_maps_cuda_match_cpu(dev):
+    """The tiny noise maps (``utils.tiny_cases``: K1, K2, K3 and K25 with
+    one and three fields) on the card against the CPU: 1e-4 of each map's
+    maximum."""
+    from dexct_tpu_torch.ops import noisemap
+
+    before = noisemap._fan_backproject_var.launches
+    got = tiny_cases.noise_maps(dev)
+    assert noisemap._fan_backproject_var.launches == before + 2
+    want = tiny_cases.noise_maps("cpu")
+    for g, w in zip(got, want):
+        assert float(w.abs().max()) > 0.0
+        torch.testing.assert_close(
+            g, w, rtol=0, atol=tiny_cases.NOISE_TOL * float(w.abs().max()))
+
+
+def test_numpy_inputs_run_on_the_card(dev):
+    """The scatter model and the VMI map given NumPy arrays and no
+    ``device`` run on the card, and agree with the CPU within 1e-5
+    relative (float32 correlations summed in another order)."""
+    from dexct_tpu_torch.ops import noisemap, scatter
+
+    rng = np.random.default_rng(8)
+    p = rng.uniform(50.0, 900.0, (6, 32)).astype(np.float32)
+    air = np.full(32, 1000.0, np.float32)
+    k = scatter.scatter_kernel(32, sigma_ch=8.0)
+    meas = scatter.add_scatter(p, air, k, spr=0.25)
+    assert meas.device.type == "cuda"
+    m_cpu = scatter.add_scatter(p, air, k, spr=0.25, device="cpu")
+    torch.testing.assert_close(meas.cpu(), m_cpu, rtol=1e-5, atol=0)
+    fixed = scatter.correct_scatter(m_cpu.numpy(), air, k, spr=0.25)
+    assert fixed.device.type == "cuda"
+    torch.testing.assert_close(
+        fixed.cpu(), scatter.correct_scatter(m_cpu, air, k, spr=0.25),
+        rtol=1e-5, atol=0)
+    assert abs(scatter.scatter_fraction(m_cpu.numpy(), p, 0.95)
+               - scatter.scatter_fraction(m_cpu, torch.as_tensor(p),
+                                          0.95)) < 1e-5
+    maps = [rng.uniform(0.5, 2.0, (8, 8)).astype(np.float32)
+            for _ in range(3)]
+    vmi = noisemap.vmi_variance_map(*maps, 70.0)
+    assert vmi.device.type == "cuda"
+    torch.testing.assert_close(
+        vmi.cpu(), noisemap.vmi_variance_map(*maps, 70.0, device="cpu"),
+        rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("kind", tiny_cases.SCATTER_KINDS)
+def test_scatter_kernels_match_plain(dev, kind):
+    """K26 (fan, with and without the Rayleigh term) and K27 (cone) against
+    their plain versions on the CPU: 1e-4 of the sinogram's maximum; the
+    kernel repeats bitwise (its block sums have a fixed order)."""
+    from dexct_tpu_torch.ops import scatter_physics as sp
+
+    scan = sp._scatter_scan_cone if kind == "cone" else sp._scatter_scan
+    before = scan.launches
+    got = tiny_cases.scatter(kind, dev)
+    assert scan.launches == before + 1
+    assert np.array_equal(tiny_cases.scatter(kind, dev), got)
+    want = tiny_cases.scatter(kind, "cpu")
+    assert want.max() > 0.0
+    assert np.abs(got - want).max() <= tiny_cases.SCATTER_TOL * want.max()
+
+
+def test_cone_scatter_one_row_is_the_fan(dev):
+    """The N_rows = 1 anchor on the card: K27 on a one-row cone through a
+    z-extruded cylinder against K26 on its central slice, within the JAX
+    test's 5 % median (3-D vertices sample the slab at +-h/2, the fan at
+    its mid-plane)."""
+    from dexct_tpu_torch.ops import scatter_physics as sp
+    from dexct_tpu_torch.physics import Spectrum
+    from dexct_tpu_torch.system import ConeBeamGeometry, FanBeamGeometry
+
+    ph3 = tiny_cases._three_materials(16)
+    ph2 = tiny_cases._three_materials()
+    kw = dict(N_channels=32, N_proj=4, gamma_fan=0.9, SID=60.0, SDD=100.0,
+              h_iso=0.5, eid=True)
+    spec = Spectrum(np.array([60.0]), np.array([1e6]), "mono60")
+    v = np.array([0.0])
+    s3 = sp.single_scatter_conebeam(ph3, ConeBeamGeometry(N_rows=1, **kw),
+                                    spec, coarse=2, n_energy=1,
+                                    channel_sub=1, row_sub=1, views=v,
+                                    device=dev)[0, 0]
+    s2 = sp.single_scatter_sinogram(ph2, FanBeamGeometry(**kw), spec,
+                                    coarse=2, n_energy=1, views=v,
+                                    device=dev)[0]
+    sel = s2 > 0.2 * s2.max()
+    assert np.median(np.abs(s3[sel] - s2[sel]) / s2[sel]) < 0.05

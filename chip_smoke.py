@@ -7,9 +7,9 @@ Needs one CUDA device, the CUDA toolkit (nvcc) and Triton; imports nothing
 of JAX.  Phases, each of which raises on failure:
 
 1. Device: the card's name and power limit (nvidia-smi).
-2. Build: nvcc builds kernels K1, K3-K13 and K15-K27 from
+2. Build: nvcc builds kernels K1, K3-K13, K15-K27 and K29 from
    ``dexct_tpu_torch/csrc`` (one nvcc per source, all at once); Triton
-   compiles K2 and K14.
+   compiles K2, K14 and K28.
 3. Each kernel against its plain PyTorch version on the card, on the
    inputs its path gives it, with the error, both times, the kernel's
    bound (the larger of its bytes over 3.35 TB/s and its float32
@@ -47,7 +47,13 @@ of JAX.  Phases, each of which raises on failure:
    and on the basis covariance of their decomposition (three fields); K26
    (fan-beam single scatter) on both acquisitions at every 50th view and
    K27 (cone beam) on the cone config at every 45th, each plain version on
-   two of those views, and the N_rows = 1 cone against the fan.
+   two of those views, and the N_rows = 1 cone against the fan.  K28 (the
+   table-indexed counts) on the JAX study's bowtie (31 levels x 800
+   channels) at the reference protocol, both spectra, with and without the
+   second-moment table, and on the anode heel's 16 rows at the cone
+   config; K29 (the grouped Gauss-Newton solve) on the 31 bowtie groups
+   (50 iterations) and the 16 heel rows, and with one group bitwise
+   against K3.
 4. The paths: the default and the exact path through
    ``dexct_tpu_torch.run.main`` on ``input/params.txt``, then the cone,
    helical, flat-panel, tilted, z-FFS and Katsevich configs, the
@@ -93,12 +99,24 @@ of JAX.  Phases, each of which raises on failure:
    model and its correction on the 80 kV counts: scatter finite and >= 0,
    each in-object SPR within 1.5x of the JAX package's and larger on the
    cone, the
-   correction within 2 %).
+   correction within 2 %).  Then the scanner-realism paths, each twice with
+   its stages timed: ``realistic`` (``simulate_dect_realistic`` at the
+   reference protocol with the JAX study's bowtie and the JAX tests'
+   five-stage chain, with no noise and with compound noise: the chain's
+   round trip, the bowtie run under MTF + gains against the clean
+   no-bowtie basis sinogram, K29 against K3's central-spectrum solve, the
+   air and the bladder after the bowtie water BHC), ``tcm``
+   (``auto_tcm_profile`` + ``simulate_tcm_dect`` with no noise, equal to
+   ``simulate_dect``, and with compound noise and an electronic floor) and
+   ``heel`` (``simulate_cone_dect(heel=)`` on the cone config: d0 = 0 bit
+   for bit the heel-free run, the row-grouped solve 5x closer to the
+   heel-free basis sinogram than K3's).
 5. A 64^2 config through the port on ``--device cpu`` and ``--device
    cuda`` under every 2-D path's flags and configuration, tiny versions of
    every 3-D path, a tiny z-stack, and tiny versions of the six library
-   paths above, and tiny noise maps and fan and cone scatter; every
-   output agrees to the pipeline tolerances.
+   paths above, tiny noise maps and fan and cone scatter, and tiny
+   versions of the three realism paths; every output agrees to the
+   pipeline tolerances.
 
 The last two lines of standard output are the kernels' JSON record and the
 device JSON line.
@@ -212,6 +230,14 @@ KERNELS = {
                                 "dexct_tpu/ops/scatter_physics.py:1229",
                                 "max abs <= 1e-4 x max |plain| (as K26); "
                                 "repeats bitwise"),
+    "table_counts": ("triton", "dexct_tpu_torch/ops/spectral.py",
+                     "dexct_tpu/ops/spectral.py:67 (per_channel=True); "
+                     "dexct_tpu/ops/heel.py:111", "max rel <= 1e-5"),
+    "gauss_newton_grouped": ("cuda", "dexct_tpu_torch/csrc/gauss_newton.cu",
+                             "dexct_tpu/ops/bowtie.py:215; "
+                             "dexct_tpu/ops/heel.py:179",
+                             "max |d| / max(|a|, 1) <= 1e-4; one group "
+                             "bitwise equal to K3"),
 }
 # the library paths of the helical study reconstructors and the exact 3-D
 # iterative reconstruction, and the kernels each launches
@@ -233,6 +259,20 @@ DOSE_KERNELS = ("siddon_trace", "siddon_trace_3d", "dose_map", "dose_map_3d")
 # the kernels each launches
 NOISE_MAP_KERNELS = ("siddon_trace", "spectral_counts", "gauss_newton",
                      "fan_backproject", "fan_backproject_var")
+# the library paths of the scanner-realism chain, and the kernels each
+# launches: the bowtie under the artifact chain (K28 counts, K29 grouped
+# solve), tube-current modulation (K2, K3) and the anode heel on the cone
+# config (K28 per-row counts, K29 over the rows)
+REALISTIC_KERNELS = ("siddon_trace", "table_counts", "gauss_newton_grouped",
+                     "fan_backproject")
+TCM_KERNELS = ("siddon_trace", "spectral_counts", "gauss_newton",
+               "fan_backproject")
+HEEL_KERNELS = ("siddon_trace_3d", "table_counts", "gauss_newton_grouped",
+                "fdk_backproject")
+# the JAX study's bowtie (tools/protocol3d_study.py:120) and heel
+# (tools/smoke_r3s5.py:81)
+BOWTIE_RADIUS_CM = 15.0
+HEEL_D0_CM = 10e-4
 SCATTER_KERNELS = ("siddon_trace", "spectral_counts", "siddon_trace_3d",
                    "single_scatter", "single_scatter_conebeam")
 # the noise-map path's ensemble, and its VMI energies [keV]: the
@@ -553,11 +593,12 @@ def kernel_phase(arrays, meta, records):
             meta.n_matrix ** 2 * V * (25 + 4 * 4)))
 
 
-def gn_work(flat, ab, e_full, meta, polish=4, warm_nodes=32):
+def gn_work(flat, ab, e_full, meta, polish=4, warm_nodes=32, n_tables=1):
     """Bytes and operations of one GN solve: per pixel and iteration, 17
     operations per energy node (the exponent, exp, six moment sums) and
     ~40 for the 2 x 2 step; the warm phase on the ~warm_nodes-node table
-    when the union grid has more than twice as many bins."""
+    when the union grid has more than twice as many bins; ``n_tables``
+    fluence groups' tables read once each."""
     n_pix = flat.shape[1]
     e_warm = e_full
     if e_full > 2 * warm_nodes and meta.n_iters > polish:
@@ -566,7 +607,8 @@ def gn_work(flat, ab, e_full, meta, polish=4, warm_nodes=32):
     n_pol = min(polish, meta.n_iters)
     per_pix = ((meta.n_iters - n_pol) * (17 * e_warm + 40)
                + n_pol * (17 * e_full + 40))
-    return nbytes(flat, ab) + 64 * (e_full + e_warm), n_pix * per_pix
+    return (nbytes(flat, ab) + 64 * (e_full + e_warm) * n_tables,
+            n_pix * per_pix)
 
 
 def default_kernel_phase(arrays, meta, records):
@@ -1407,6 +1449,488 @@ def ffs_kernel_phase(cfg, spectra, dev):
         fail("rebin_to_parallel disagrees with its plain version at 16 taps")
 
 
+def realism_setup(cfg, spectra, dev):
+    """The realism paths' inputs at the reference protocol: the spectra,
+    the JAX study's bowtie (``design_flattening_bowtie(ct, 15.0)``, 31
+    thickness levels) and the exact paths (K1)."""
+    from dexct_tpu_torch.ops.bowtie import design_flattening_bowtie
+    from dexct_tpu_torch.ops.siddon import material_path_sinogram
+
+    s1, s2 = spectra(cfg.ct)
+    bt = design_flattening_bowtie(cfg.ct, BOWTIE_RADIUS_CM)
+    paths = material_path_sinogram(cfg.phantom, cfg.ct, device=dev)
+    return s1, s2, bt, paths
+
+
+def k28_case(paths, mu, tab, tab2, stride, reps=5):
+    """K28 against its plain twin on one table (and its second table when
+    given): (max abs err, max rel err, ms, plain ms, bytes, operations,
+    counts)."""
+    from dexct_tpu_torch.ops import spectral
+
+    def kernel():
+        return spectral.counts_from_table(paths, mu, tab, tab2,
+                                          stride=stride)
+
+    def plain():
+        out = spectral.counts_from_table_plain(paths, mu, tab,
+                                               stride=stride)
+        if tab2 is None:
+            return out
+        return out, spectral.counts_from_table_plain(paths, mu, tab2,
+                                                     stride=stride)
+
+    got, want, ms, pms = compare(kernel, plain, reps)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    errs, rels = [], []
+    for x, y in zip(got, want):
+        errs.append(float((x - y).abs().max()))
+        rels.append(float(((x - y).abs() / y.abs().clamp_min(1e-30)).max()))
+    n_rays, e = got[0].numel(), mu.shape[1]
+    m = paths.shape[-1]
+    work_b = nbytes(paths, mu, tab, *got) + (0 if tab2 is None
+                                             else nbytes(tab2))
+    work_ops = n_rays * e * (2 * m + 3 + (0 if tab2 is None else 2))
+    return max(errs), max(rels), ms, pms, work_b, work_ops, got[0]
+
+
+def k29_case(counts, group, i0_g, mus, n_iters, reps=2):
+    """K29 against its plain twin: (max abs err, max err / max(|a|, 1),
+    ms, plain ms, bytes, operations, a)."""
+    import types
+
+    from dexct_tpu_torch.ops import matdecomp
+
+    kw = dict(n_iters=n_iters)
+    ab, want, ms, pms = compare(
+        lambda: matdecomp.gauss_newton_solve_grouped(counts, group, i0_g,
+                                                     mus, **kw),
+        lambda: matdecomp.gauss_newton_solve_grouped_plain(
+            counts, group, i0_g, mus, **kw), reps)
+    err = float((ab - want).abs().max())
+    rel = float(((ab - want).abs() / want.abs().clamp_min(1.0)).max())
+    b, ops = gn_work(counts, ab, mus.shape[1],
+                     types.SimpleNamespace(n_iters=n_iters),
+                     n_tables=i0_g.shape[0])
+    return err, rel, ms, pms, b, ops, ab
+
+
+def realism_kernel_phase(cfg, cone_cfg, spectra, records, dev):
+    """Phase 3, the realism paths: K28 (table-indexed counts) on the
+    bowtie's per-channel tables at the reference protocol (both spectra,
+    with and without the second-moment table) and on the anode heel's
+    per-row tables at the cone config; K29 (the grouped Gauss-Newton solve)
+    on the 31 bowtie groups at the reference protocol (50 iterations) and
+    on the 16 heel rows at the cone config, each against its plain twin;
+    and K29 with one group bitwise against K3 on the same counts."""
+    import numpy as np
+    import torch
+
+    from dexct_tpu_torch.ops import matdecomp
+    from dexct_tpu_torch.ops.bowtie import (bowtie_fluence,
+                                            bowtie_second_moment)
+    from dexct_tpu_torch.ops.conebeam import cone_material_paths
+    from dexct_tpu_torch.ops.heel import HeelEffect, heel_fluence
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                               device=dev)
+
+    ct, ph = cfg.ct, cfg.phantom
+    s1, s2, bt, paths = realism_setup(cfg, spectra, dev)
+    counts, errs, rels, ms, pms, wb, wo = [], [], [], 0.0, 0.0, 0, 0
+    for s in (s1, s2):
+        mu = f32(ph.materials.mu_table(s.E))
+        tab = f32(bowtie_fluence(s, ct, bt))
+        tab2 = f32(bowtie_second_moment(s, ct, bt))
+        e, r, t, tp, b, o, c = k28_case(paths, mu, tab, None, 1)
+        e2, r2, _, _, _, _, _ = k28_case(paths, mu, tab, tab2, 1, reps=1)
+        errs += [e, e2]
+        rels += [r, r2]
+        ms, pms, wb, wo = ms + t, pms + tp, wb + b, wo + o
+        counts.append(c)
+    report(records, "table_counts", max(errs), ms, pms, max(rels) <= 1e-5,
+           (wb, wo), extra=f" (bowtie, {len(bt.groups()[0])} levels x "
+           f"{ct.N_channels} channels; max rel {max(rels):.3g})")
+
+    levels, gidx = bt.groups()
+    ee, i0_base, mus_h = matdecomp.prepare_decomposition(ct, s1, s2)
+    mu_bt = bt.material.linear_atten(ee)
+    i0_g = f32(i0_base[None] * np.exp(-np.outer(levels, mu_bt))[:, None])
+    mus = f32(mus_h)
+    V, C = counts[0].shape
+    flat = torch.stack([counts[0].reshape(-1), counts[1].reshape(-1)])
+    group = torch.as_tensor(gidx, device=dev).expand(V, C).reshape(-1)
+    n_g = np.bincount(gidx)
+    slots = int(sum(-(-n * V // 128) * 128 for n in n_g))
+    err, rel, t, tp, b, o, _ = k29_case(flat, group, i0_g, mus, 50)
+    report(records, "gauss_newton_grouped", err, t, tp, rel <= 1e-4, (b, o),
+           extra=f" (rel {rel:.3g}; {len(levels)} groups, {slots} pixel "
+           f"slots for {V * C} pixels; the vmap's {len(levels)} x "
+           f"{int(n_g.max())} x {V} = {len(levels) * int(n_g.max()) * V})")
+    # K29 with one group runs K3's per-pixel body on K3's tables
+    one = matdecomp.gauss_newton_solve_grouped(
+        flat, torch.zeros_like(group), i0_g[:1], mus, n_iters=50)
+    k3 = matdecomp.gauss_newton_solve(flat, i0_g[0], mus, n_iters=50)
+    k3_ms = time_ms(lambda: matdecomp.gauss_newton_solve(
+        flat, i0_g[0], mus, n_iters=50), 2)
+    print(f"  K29 with one group bitwise equal to K3: {torch.equal(one, k3)};"
+          f" K3 on the same {V * C} counts (unfiltered table): {k3_ms:.4f} "
+          "ms")
+    if not torch.equal(one, k3):
+        fail("K29 with one group differs from K3")
+    del paths, counts, flat, one, k3
+    torch.cuda.empty_cache()
+
+    # the anode heel on the cone config: one table row per detector row
+    cct, cph = cone_cfg.ct, cone_cfg.phantom
+    heel = HeelEffect(d0_cm=HEEL_D0_CM)
+    cpaths = cone_material_paths(cph, cct, device=dev)
+    hc = []
+    for s in spectra(cct):
+        mu = f32(cph.materials.mu_table(s.E))
+        tab = f32(heel_fluence(s, cct, heel))
+        e, r, t, tp, b, o, c = k28_case(cpaths, mu, tab, None,
+                                        cpaths.shape[2])
+        hc.append(c)
+        report(records, "table_counts", e, t, tp, r <= 1e-5, (b, o),
+               extra=f" (heel, {tab.shape[0]} rows; max rel {r:.3g})",
+               record=False)
+    del cpaths
+    hs1, hs2 = spectra(cct)
+    ee, i0_base, mus_h = matdecomp.prepare_decomposition(cct, hs1, hs2)
+    tr = np.exp(-np.outer(heel.excess_path(cct),
+                          heel.material.linear_atten(ee)))
+    V, R, C = hc[0].shape
+    err, rel, t, tp, b, o, _ = k29_case(
+        torch.stack([hc[0].reshape(-1), hc[1].reshape(-1)]),
+        torch.arange(R, device=dev)[None, :, None].expand(V, R, C)
+        .reshape(-1), f32(i0_base[None] * tr[:, None]), f32(mus_h), 50)
+    report(records, "gauss_newton_grouped", err, t, tp, rel <= 1e-4, (b, o),
+           extra=f" (heel, {R} rows of {V * C} rays; rel {rel:.3g})",
+           record=False)
+
+
+def timed_stages(stages, t):
+    """``stages`` with each apply and correct timed into ``t`` [ms] (host
+    clock between synchronises)."""
+    import torch
+
+    from dexct_tpu_torch.pipeline.realism import Stage
+
+    def timed(fn, key):
+        if fn is None:
+            return None
+
+        def run(c):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(c)
+            torch.cuda.synchronize()
+            t[key] = t.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    return [Stage(st.name, timed(st.apply, f"{st.name} apply"),
+                  timed(st.correct, f"{st.name} correct")) for st in stages]
+
+
+def realism_chain(ct, spec, bt, dev, full=True):
+    """The JAX tests' five-stage chain (tests/test_realism_chain.py:36-48:
+    MTF, scatter, pileup, gains, afterglow) under the bowtie: the scatter
+    and gain calibrations read the bowtie's per-channel air scan; with
+    ``full=False`` the MTF and gains of its bowtie test (:129-155).  The
+    focal spot keeps the JAX tests' width in detector channels (0.45 cm on
+    their 384 channels over the same fan, 1.4 channels): the same 0.45 cm
+    on 800 channels is a 2.9-channel rect whose spectral zeros fall inside
+    the band, where no Wiener restoration recovers the counts (the JAX
+    test's own caveat)."""
+    import numpy as np
+    import torch
+
+    from dexct_tpu_torch.ops.afterglow import decay_per_view
+    from dexct_tpu_torch.ops.bowtie import bowtie_fluence
+    from dexct_tpu_torch.ops.mtf import focal_spot_kernel
+    from dexct_tpu_torch.ops.rings import sample_channel_gains
+    from dexct_tpu_torch.ops.scatter import scatter_kernel
+    from dexct_tpu_torch.pipeline import realism
+
+    air_ch = torch.as_tensor(bowtie_fluence(spec, ct, bt).sum(-1),
+                             dtype=torch.float32, device=dev)
+    air = float(air_ch.max())
+    spot_cm = 0.45 * 384 / ct.N_channels
+    mtf = realism.stage_mtf(focal_spot_kernel(ct, spot_cm), nsr=1e-6)
+    gains = realism.stage_gains(
+        sample_channel_gains(3, ct.N_channels, sigma=0.01, device=dev),
+        air_ch)
+    if not full:
+        return [mtf, gains]
+    return [mtf,
+            realism.stage_scatter(air_ch, scatter_kernel(ct.N_channels,
+                                                         sigma_ch=60.0),
+                                  spr=0.3),
+            realism.stage_pileup(0.2 / air), gains,
+            realism.stage_afterglow([0.05, 0.02],
+                                    decay_per_view([2.0, 20.0], 1.0))]
+
+
+def realistic_path(cfg, spectra, records, smi, dev):
+    """Phase 4, the scanner-realism chain through the library at the
+    reference protocol: ``simulate_dect_realistic`` with the JAX study's
+    bowtie (31 levels) and the five-stage chain on both acquisitions, once
+    with no noise and once with compound noise, twice, each stage timed,
+    with the launch counters checked.  Checks: the chain's round trip on
+    the clean counts (median relative error below 5e-3); the bowtie run's
+    tissue sinogram under the MTF + gains chain against the clean
+    no-bowtie ``simulate_dect`` (median relative error < 0.01, max < 0.1
+    over rays above 0.25 x max); K29's grouped solve of the bowtie counts
+    at least 4x closer in max error to the no-bowtie basis sinogram than
+    K3's central-spectrum solve (through-object rays); the noiseless
+    images' air ROI within 50 HU of -1000, the bladder (water) within
+    BODY_TOL_HU of 0 HU after the bowtie-aware water calibration
+    (``fit_water_bhc_bowtie``; uncorrected, the bowtie's channel-dependent
+    hardening moves it by tens to hundreds of HU) and its tissue density
+    within 5 % of the clean pipeline's; all outputs finite."""
+    import numpy as np
+    import torch
+
+    from dexct_tpu_torch.ops import matdecomp
+    from dexct_tpu_torch.ops.bhc import fit_water_bhc_bowtie
+    from dexct_tpu_torch.ops.bowtie import decompose_sinograms_bowtie
+    from dexct_tpu_torch.pipeline.api import (get_recon, get_sino,
+                                              simulate_dect)
+    from dexct_tpu_torch.pipeline.realism import (apply_chain,
+                                                  correct_chain,
+                                                  simulate_dect_realistic)
+
+    ct, ph = cfg.ct, cfg.phantom
+    s1, s2, bt, paths = realism_setup(cfg, spectra, dev)
+    img = (cfg.N_matrix, cfg.FOV, cfg.ramp)
+    clean = simulate_dect(ct, ph, s1, s2, *img, device=dev, n_iters=50)
+    fns = zero_counters()
+    for run in (1, 2):
+        for noise in ("none", "compound"):
+            t = {}
+            gen = torch.Generator(device=dev).manual_seed(run)
+            w0 = time.perf_counter()
+            res = simulate_dect_realistic(
+                ct, ph, s1, s2, *img,
+                timed_stages(realism_chain(ct, s1, bt, dev), t),
+                timed_stages(realism_chain(ct, s2, bt, dev), t),
+                n_iters=50, noise=noise, generator=gen, bowtie=bt,
+                device=dev)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - w0) * 1e3
+            chain = sum(t.values())
+            print(f"realistic path (library, run {run}, noise {noise}): "
+                  f"{wall / 1e3:.3f} s on {smi}; chain stages (ms, both "
+                  f"acquisitions): " + ", ".join(f"{k} {v:.1f}"
+                                                 for k, v in t.items())
+                  + f"; trace, counts, decomposition and FBP "
+                  f"{wall - chain:.1f}")
+            if noise == "none":
+                quiet = res
+            if not all(bool(torch.isfinite(x).all()) for pair in (
+                    res.sino_log, res.mat_sinos, res.recon_HU,
+                    res.mat_recons) for x in pair):
+                fail(f"the realistic path ({noise}) gives non-finite "
+                     "values")
+    check_launches("realistic", fns, REALISTIC_KERNELS, records)
+    print_profiled("realistic (no noise)", lambda: simulate_dect_realistic(
+        ct, ph, s1, s2, *img, realism_chain(ct, s1, bt, dev),
+        realism_chain(ct, s2, bt, dev), n_iters=50, bowtie=bt, device=dev))
+
+    # the chain's round trip on the clean bowtie counts
+    c1, _ = get_sino(ct, ph, s1, device=dev, paths=paths, bowtie=bt)
+    stages = realism_chain(ct, s1, bt, dev)
+    meas = apply_chain(c1, stages)
+    back = correct_chain(meas, stages)
+    dist = float((meas / c1 - 1.0).abs().max())
+    rel = (back / c1 - 1.0).abs()
+    med = float(rel.median())
+    print(f"  chain round trip: the chain moves counts by up to {dist:.4f};"
+          f" corrected back to median rel {med:.3g} (max "
+          f"{float(rel.max()):.3g})")
+    if not (dist > 0.05 and med < 5e-3):
+        fail("the realism chain does not round-trip the clean counts")
+
+    # bowtie under MTF + gains against the clean no-bowtie pipeline
+    ref = clean.mat_sinos[0]
+    res = simulate_dect_realistic(
+        ct, ph, s1, s2, *img, realism_chain(ct, s1, bt, dev, full=False),
+        realism_chain(ct, s2, bt, dev, full=False), n_iters=50,
+        do_recon=False, bowtie=bt, device=dev)
+    inside = ref > 0.25 * ref.max()
+    rel = (res.mat_sinos[0] - ref).abs()[inside] / ref.max()
+    print(f"  bowtie + MTF + gains tissue sinogram vs the clean no-bowtie "
+          f"one: median rel {float(rel.median()):.3g}, max "
+          f"{float(rel.max()):.3g} over {int(inside.sum())} rays")
+    if not (float(rel.median()) < 0.01 and float(rel.max()) < 0.1):
+        fail("the bowtie realism run misses the clean basis sinogram")
+
+    # grouped (K29) against the central-spectrum solve (K3)
+    c2, _ = get_sino(ct, ph, s2, device=dev, paths=paths, bowtie=bt)
+    grouped, _ = decompose_sinograms_bowtie(ct, c1, c2, s1, s2, bt,
+                                            n_iters=50)
+    naive, _ = matdecomp.decompose_sinograms(ct, c1, c2, s1, s2, n_iters=50)
+    sel = ref > 0.1 * ref.max()
+    e_g = float((grouped - ref).abs()[sel].max())
+    e_n = float((naive - ref).abs()[sel].max())
+    print(f"  tissue sinogram max error: grouped (K29) {e_g:.4g}, central "
+          f"spectrum (K3) {e_n:.4g} g/cm^2 ({e_n / max(e_g, 1e-30):.1f}x)")
+    if not e_n >= 4.0 * e_g:
+        fail("the grouped solve does not beat the central-spectrum solve "
+             "by 4x")
+
+    # the noiseless realistic images: air, and the bladder (water) after
+    # the bowtie-aware water calibration (WaterBhcBowtie), and its tissue
+    # density against the clean pipeline's
+    fov = cfg.FOV
+    air = [roi_mean(h[None].cpu().numpy(), 0.0, -20.0, 0, fov)
+           for h in quiet.recon_HU]
+    blad = [roi_mean(h[None].cpu().numpy(), *BLADDER_XY, 0, fov)
+            for h in quiet.recon_HU]
+    wbhc = []
+    for s, log in zip((s1, s2), quiet.sino_log):
+        bhc = fit_water_bhc_bowtie(s, ct, bt)
+        _, hu = get_recon(bhc(log), ct, s, *img)
+        wbhc.append(roi_mean(hu[None].cpu().numpy(), *BLADDER_XY, 0, fov))
+    tis = [roi_mean(m[None].cpu().numpy(), *BLADDER_XY, 0, fov)
+           for m in (quiet.mat_recons[0], clean.mat_recons[0])]
+    off = abs(tis[0] - tis[1]) / tis[1]
+    print(f"  air ROI HU at (0, -20) cm: detunedMV {air[0]:.2f}, 80kV "
+          f"{air[1]:.2f}; bladder HU {blad[0]:.2f}, {blad[1]:.2f}, after "
+          f"the bowtie water BHC {wbhc[0]:.2f}, {wbhc[1]:.2f}; bladder "
+          f"tissue density {tis[0]:.4f} g/cm^3 vs the clean pipeline's "
+          f"{tis[1]:.4f} (off {off:.4f})")
+    if not (all(abs(a + 1000.0) <= 50.0 for a in air)
+            and all(abs(w) <= BODY_TOL_HU for w in wbhc) and off < 0.05):
+        fail("the realistic images miss their ROI checks")
+
+
+def tcm_path(cfg, spectra, records, smi, dev):
+    """Phase 4, tube-current modulation through the library at the
+    reference protocol: ``auto_tcm_profile`` (strength 1) then
+    ``simulate_tcm_dect`` with that profile, with no noise and with
+    compound noise plus an electronic floor of 1e-4 x each spectrum's air
+    signal (``forward_counts(tcm=, sigma_e=)``), twice, each stage timed,
+    with the launch counters checked.  The profile's mean must be 1 within
+    1e-5; the noiseless log sinograms equal ``simulate_dect``'s within
+    2e-6 absolute and 1e-5 of their maximum, the normalized counts within
+    1e-6 relative (tests/test_tcm.py:180-197); the noisy run is finite."""
+    import numpy as np
+    import torch
+
+    from dexct_tpu_torch.ops.spectral import effective_fluence
+    from dexct_tpu_torch.pipeline.api import simulate_dect
+    from dexct_tpu_torch.pipeline.tcm import (auto_tcm_profile,
+                                              simulate_tcm_dect)
+
+    ct, ph = cfg.ct, cfg.phantom
+    s1, s2 = spectra(ct)
+    img = (cfg.N_matrix, cfg.FOV, cfg.ramp)
+    sig = tuple(1e-4 * float(np.sum(effective_fluence(s, ct)))
+                for s in (s1, s2))
+    fns = zero_counters()
+    for run in (1, 2):
+        st = Stages()
+        m = auto_tcm_profile(ct, ph, s1, device=dev)
+        st.mark("auto_tcm_profile (K1, K2)")
+        quiet = simulate_tcm_dect(ct, ph, s1, s2, *img, m=m, n_iters=50,
+                                  device=dev)
+        st.mark("simulate_tcm_dect, no noise")
+        gen = torch.Generator(device=dev).manual_seed(run)
+        noisy = simulate_tcm_dect(ct, ph, s1, s2, *img, m=m, n_iters=50,
+                                  noise="compound", generator=gen,
+                                  sigma_e=sig, device=dev)
+        st.mark("simulate_tcm_dect, compound noise")
+        print(f"tcm path (library, run {run}): "
+              f"{sum(st.t.values()) / 1e3:.3f} s on {smi}; stages (ms): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in st.t.items()))
+    check_launches("tcm", fns, TCM_KERNELS, records)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    print_profiled("tcm (compound)", lambda: simulate_tcm_dect(
+        ct, ph, s1, s2, *img, m=m, n_iters=50, noise="compound",
+        generator=gen, sigma_e=sig, device=dev))
+    ref = simulate_dect(ct, ph, s1, s2, *img, device=dev, n_iters=50,
+                        do_recon=False)
+    d_log = max(float((q - r).abs().max())
+                for q, r in zip(quiet.sino_log, ref.sino_log))
+    norm = d_log / max(float(r.abs().max()) for r in ref.sino_log)
+    d_raw = max(float(((q - r).abs() / r.abs().clamp_min(1e-30)).max())
+                for q, r in zip(quiet.sino_raw, ref.sino_raw))
+    finite = all(bool(torch.isfinite(x).all()) for pair in (
+        noisy.sino_log, noisy.mat_sinos, noisy.recon_HU, noisy.mat_recons)
+        for x in pair)
+    print(f"  profile mean {float(m.mean()):.7f}, range "
+          f"[{float(m.min()):.3f}, {float(m.max()):.3f}]; noiseless vs "
+          f"simulate_dect: log sinograms max abs {d_log:.3g} ({norm:.3g} of "
+          f"their max), normalized counts max rel {d_raw:.3g}; compound "
+          f"run finite: {finite}")
+    # the JAX test's bars (tests/test_tcm.py:180-197): log atol 2e-6,
+    # normalized counts rtol 1e-6
+    if not (abs(float(m.mean()) - 1.0) <= 1e-5 and d_log <= 2e-6
+            and norm <= 1e-5 and d_raw <= 1e-6 and finite):
+        fail("the tcm path misses its checks")
+
+
+def heel_path(ccfg, spectra, records, smi, dev):
+    """Phase 4, the anode heel through the library on the cone config:
+    ``simulate_cone_dect(heel=HeelEffect(d0_cm=HEEL_D0_CM))``, twice,
+    timed, with the launch counters checked.  Then ``d0_cm = 0`` must be
+    bitwise the heel-free result, and the row-grouped decomposition's
+    max error against the heel-free basis sinogram below 0.2 x that of
+    K3's central-spectrum solve of the heel counts (through-object
+    rays)."""
+    import numpy as np
+    import torch
+
+    from dexct_tpu_torch.ops import matdecomp
+    from dexct_tpu_torch.ops.conebeam import simulate_cone_dect
+    from dexct_tpu_torch.ops.heel import HeelEffect
+
+    ct, ph = ccfg.ct, ccfg.phantom
+    s1, s2 = spectra(ct)
+    img = (ccfg.N_matrix, ccfg.FOV, ccfg.ramp)
+    heel = HeelEffect(d0_cm=HEEL_D0_CM)
+    fns = zero_counters()
+    for run in (1, 2):
+        w0 = time.perf_counter()
+        res = simulate_cone_dect(ct, ph, s1, s2, *img, device=dev,
+                                 n_iters=50, heel=heel)
+        torch.cuda.synchronize()
+        print(f"heel path (library, run {run}): "
+              f"{time.perf_counter() - w0:.3f} s on {smi}")
+    check_launches("heel", fns, HEEL_KERNELS, records)
+    print_profiled("heel", lambda: simulate_cone_dect(
+        ct, ph, s1, s2, *img, device=dev, n_iters=50, heel=heel))
+    free = simulate_cone_dect(ct, ph, s1, s2, *img, device=dev, n_iters=50)
+    zero = simulate_cone_dect(ct, ph, s1, s2, *img, device=dev, n_iters=50,
+                              heel=HeelEffect(d0_cm=0.0))
+    same = all(torch.equal(a, b) for k in free for a, b in
+               zip(free[k], zero[k]))
+    c1, c2 = res["sino_raw"]
+    _, i0, mus = matdecomp.prepare_decomposition(ct, s1, s2)
+    naive = matdecomp.gauss_newton_solve(
+        torch.stack([c1.reshape(-1), c2.reshape(-1)]),
+        torch.as_tensor(i0, dtype=torch.float32, device=dev),
+        torch.as_tensor(mus, dtype=torch.float32, device=dev),
+        n_iters=50)[:, 0].reshape(c1.shape)
+    truth = free["mat_sinos"][0]
+    sel = truth > 0.1 * truth.max()
+    e_a = float((res["mat_sinos"][0] - truth).abs()[sel].max())
+    e_n = float((naive - truth).abs()[sel].max())
+    finite = all(bool(torch.isfinite(x).all()) for k in res
+                 for x in res[k])
+    print(f"  d0_cm = 0 bitwise the heel-free result: {same}; tissue "
+          f"sinogram max error vs heel-free: row-grouped (K29) {e_a:.4g}, "
+          f"central spectrum (K3) {e_n:.4g} g/cm^2 (ratio "
+          f"{e_a / max(e_n, 1e-30):.3f}); finite: {finite}")
+    if not (same and e_a < 0.2 * e_n and finite):
+        fail("the heel path misses its checks")
+
+
 def counters():
     from dexct_tpu_torch.ops import (conebeam, dose, fbp_fast, flatpanel,
                                      fourier, helical_pi, katsevich,
@@ -1440,7 +1964,9 @@ def counters():
             "dose_map_3d": dose._dose_accumulate_3d,
             "fan_backproject_var": noisemap._fan_backproject_var,
             "single_scatter": scatter_physics._scatter_scan,
-            "single_scatter_conebeam": scatter_physics._scatter_scan_cone}
+            "single_scatter_conebeam": scatter_physics._scatter_scan_cone,
+            "table_counts": spectral.counts_from_table,
+            "gauss_newton_grouped": matdecomp.gauss_newton_solve_grouped}
 
 
 def zero_counters():
@@ -1599,9 +2125,10 @@ def check_outputs_3d(out_dir, run_id, vrc, nz, n_img, tilted=False):
     return len(want), body
 
 
-def profiled_step(step):
+def profiled_run(step, top=6):
     """Wall and device kernel time [ms] of one more call of ``step`` under
-    torch.profiler, and the peak device memory [GB] of that call."""
+    torch.profiler, the peak device memory [GB] of that call, and its
+    ``top`` kernels by device time as (name, ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1613,13 +2140,31 @@ def profiled_step(step):
         step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - w0) * 1e3
-    dev_us = 0.0
+    per = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
-        dev_us += float(us or 0.0)
-    return wall, dev_us / 1e3, torch.cuda.max_memory_allocated() / 1e9
+        per.append((e.key, float(us or 0.0) / 1e3))
+    per.sort(key=lambda kv: -kv[1])
+    return (wall, sum(ms for _, ms in per),
+            torch.cuda.max_memory_allocated() / 1e9, per[:top])
+
+
+def profiled_step(step):
+    """Wall and device kernel time [ms] of one more call of ``step`` under
+    torch.profiler, and the peak device memory [GB] of that call."""
+    return profiled_run(step)[:3]
+
+
+def print_profiled(label, step):
+    """One more call of ``step`` profiled: wall, device time, busy share,
+    peak memory and the kernels that took the most device time."""
+    wall, dev_ms, peak, top = profiled_run(step)
+    print(f"  {label} profiled run: wall {wall:.3f} ms, device kernel time "
+          f"{dev_ms:.3f} ms (busy share {dev_ms / wall:.3f}); peak device "
+          f"memory {peak:.3f} GB; top kernels (ms): "
+          + ", ".join(f"{k[:40]} {ms:.3f}" for k, ms in top))
 
 
 def print_stages(label, t, step, smi):
@@ -2919,6 +3464,26 @@ def planning_devices_phase():
             fail(f"tiny scatter {kind} differs between the CPU and the card")
 
 
+def realism_devices_phase():
+    """Phase 5: the tiny realism paths of ``dexct_tpu_torch.utils.
+    tiny_cases`` (a bowtie under MTF, gains and afterglow; tube-current
+    modulation; the anode heel on a cone) on the CPU and on the card, each
+    log and basis sinogram within REALISM_TOL of its maximum (the card
+    tests run the same cases)."""
+    from dexct_tpu_torch.utils import tiny_cases as tc
+
+    for kind in tc.REALISM_KINDS:
+        c, g = tc.realism(kind, "cpu"), tc.realism(kind, "cuda")
+        errs = [float((gi - ci).abs().max() / ci.abs().max())
+                for gi, ci in zip(g, c)]
+        print(f"  realism {kind}: card vs CPU max abs / max per output "
+              + ", ".join(f"{e:.3g}" for e in errs)
+              + f" [<= {tc.REALISM_TOL:g}]")
+        if not max(errs) <= tc.REALISM_TOL:
+            fail(f"tiny realism path {kind} differs between the CPU and "
+                 "the card")
+
+
 def iterative_2d_path(cfg, records, smi, dev):
     """Phase 4, 2-D iterative reconstruction through the library on the
     reference protocol: the 60 keV sinogram of the exact paths (K1),
@@ -3415,8 +3980,8 @@ def main():
                                torch.zeros(1, device=dev))
     torch.cuda.synchronize()
     t2 = time.time()
-    print(f"build: nvcc K1, K3-K13, K15-K27 {t1 - t0:.1f} s, triton K2 "
-          f"{t2 - t1:.1f} s")
+    print(f"build: nvcc K1, K3-K13, K15-K27, K29 {t1 - t0:.1f} s, triton "
+          f"K2 {t2 - t1:.1f} s")
 
     # 3. kernels against their plain versions at the paths' shapes
     from dexct_tpu_torch.pipeline.cone import pack_cone_dect
@@ -3490,6 +4055,8 @@ def main():
         noise_kernel_phase(cfg, spectra, records, dev)
         torch.cuda.empty_cache()
         scatter_kernel_phase(cfg, cone_cfgs, spectra, records, dev)
+        torch.cuda.empty_cache()
+        realism_kernel_phase(cfg, cone_cfgs["cone"], spectra, records, dev)
         torch.cuda.empty_cache()
 
         # 4. the paths: the CLI's, then the library's
@@ -3570,6 +4137,12 @@ def main():
         torch.cuda.empty_cache()
         scatter_path(cfg, cone_cfgs, spectra, records, smi, dev)
         torch.cuda.empty_cache()
+        realistic_path(cfg, spectra, records, smi, dev)
+        torch.cuda.empty_cache()
+        tcm_path(cfg, spectra, records, smi, dev)
+        torch.cuda.empty_cache()
+        heel_path(cone_cfgs["cone"], spectra, records, smi, dev)
+        torch.cuda.empty_cache()
 
         # 5. every path on both devices
         for label, (flags, config, _) in PATHS.items():
@@ -3582,6 +4155,7 @@ def main():
         library_devices_phase()
         new_paths_devices_phase()
         planning_devices_phase()
+        realism_devices_phase()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

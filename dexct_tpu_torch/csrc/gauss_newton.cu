@@ -30,6 +30,21 @@
 // rounds exactly where that program rounds (the iterate and the table to
 // bf16, the attenuation exponent and exp to bf16, sums in float32), so it
 // tracks the plain version's iterates rather than only its fixed point.
+//
+// K29 gauss_newton_grouped: the same per-pixel solve over fluence groups.
+//
+// Replaces the TPU program jax.vmap(gauss_newton_solve) over the groups of
+// dexct_tpu/ops/bowtie.py:decompose_sinograms_bowtie (bowtie thickness
+// levels) and dexct_tpu/ops/heel.py:decompose_cone_sinograms_heel
+// (detector rows): each group has its own i0 table, and so its own scale
+// and its own full and warm tables.  The vmap pads every group to the
+// largest one (31 bowtie groups x 308 channels for 800 channels at the
+// reference protocol, 11.9x the work).  Here the wrapper sorts the pixels
+// into group order and pads each group only to a whole block of 128
+// pixels with copies of the group's first pixel; each block reads its
+// group id, loads that group's tables into shared memory and runs K3's
+// per-pixel schedule (solve_pixel, shared with K3).  Bound and design are
+// K3's: arithmetic, one exp and 8 FMAs per (iteration, energy).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -108,6 +123,33 @@ __device__ __forceinline__ void log_step(float& a0, float& a1,
   a1 = fminf(fmaxf(a1 - d1, lo), hi);
 }
 
+// K3's per-pixel schedule on one pixel's raw counts (c0, c1), with the
+// full and warm tables in shared memory; writes a[0..1] to out.
+__device__ __forceinline__ void solve_pixel(
+    float c0, float c1, const float* full, const float* warm, int e_full,
+    int e_warm, int n_warm, int n_pol, int warm_bf16, float scale,
+    float a_lo, float a_hi, float step_max, float eps_init, float clip,
+    float* out) {
+  const float y0 = c0 / scale;
+  const float y1 = c1 / scale;
+  const float ly0 = logf(fmaxf(y0, 1e-35f));
+  const float ly1 = logf(fmaxf(y1, 1e-35f));
+  const float lo = fmaxf(a_lo, -1.0f);
+  const float smax = 10.0f * step_max;
+  float a0 = eps_init, a1 = eps_init;
+  for (int it = 0; it < n_warm; ++it) {
+    const Moments s = warm_bf16 ? moments<true>(warm, e_warm, a0, a1, clip)
+                                : moments<false>(warm, e_warm, a0, a1, clip);
+    log_step(a0, a1, s, ly0, ly1, smax, lo, a_hi);
+  }
+  for (int it = 0; it < n_pol; ++it) {
+    const Moments s = moments<false>(full, e_full, a0, a1, clip);
+    log_step(a0, a1, s, ly0, ly1, smax, lo, a_hi);
+  }
+  out[0] = a0;
+  out[1] = a1;
+}
+
 __global__ void gauss_newton_kernel(const float* __restrict__ counts,
                                     const float* __restrict__ tables,
                                     float* __restrict__ out, long long n_pix,
@@ -121,27 +163,30 @@ __global__ void gauss_newton_kernel(const float* __restrict__ counts,
   __syncthreads();
   const long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (p >= n_pix) return;
+  solve_pixel(counts[p], counts[n_pix + p], tab, tab + kRow * e_full, e_full,
+              e_warm, n_warm, n_pol, warm_bf16, scale, a_lo, a_hi, step_max,
+              eps_init, clip, out + 2 * p);
+}
 
-  const float y0 = counts[p] / scale;
-  const float y1 = counts[n_pix + p] / scale;
-  const float ly0 = logf(fmaxf(y0, 1e-35f));
-  const float ly1 = logf(fmaxf(y1, 1e-35f));
-  const float lo = fmaxf(a_lo, -1.0f);
-  const float smax = 10.0f * step_max;
-  const float* full = tab;
-  const float* warm = tab + kRow * e_full;
-  float a0 = eps_init, a1 = eps_init;
-  for (int it = 0; it < n_warm; ++it) {
-    const Moments s = warm_bf16 ? moments<true>(warm, e_warm, a0, a1, clip)
-                                : moments<false>(warm, e_warm, a0, a1, clip);
-    log_step(a0, a1, s, ly0, ly1, smax, lo, a_hi);
-  }
-  for (int it = 0; it < n_pol; ++it) {
-    const Moments s = moments<false>(full, e_full, a0, a1, clip);
-    log_step(a0, a1, s, ly0, ly1, smax, lo, a_hi);
-  }
-  out[2 * p] = a0;
-  out[2 * p + 1] = a1;
+// counts [2, n_pix] in group order, n_pix a multiple of blockDim.x; block
+// b solves group block_group[b] with tables + g * n_tab and scales[g].
+__global__ void gauss_newton_grouped_kernel(
+    const float* __restrict__ counts, const int* __restrict__ block_group,
+    const float* __restrict__ scales, const float* __restrict__ tables,
+    float* __restrict__ out, long long n_pix, int e_full, int e_warm,
+    int n_warm, int n_pol, int warm_bf16, float a_lo, float a_hi,
+    float step_max, float eps_init, float clip) {
+  extern __shared__ float tab[];
+  const int g = block_group[blockIdx.x];
+  const int n_tab = kRow * (e_full + e_warm);
+  const float* src = tables + (long long)g * n_tab;
+  for (int i = threadIdx.x; i < n_tab; i += blockDim.x) tab[i] = src[i];
+  __syncthreads();
+  const long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (p >= n_pix) return;
+  solve_pixel(counts[p], counts[n_pix + p], tab, tab + kRow * e_full, e_full,
+              e_warm, n_warm, n_pol, warm_bf16, scales[g], a_lo, a_hi,
+              step_max, eps_init, clip, out + 2 * p);
 }
 
 }  // namespace
@@ -167,5 +212,29 @@ extern "C" int dexct_gauss_newton(const void* counts, const void* tables,
       static_cast<const float*>(counts), static_cast<const float*>(tables),
       static_cast<float*>(out), n_pix, e_full, e_warm, n_warm, n_pol,
       warm_bf16, scale, a_lo, a_hi, step_max, eps_init, clip);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dexct_gauss_newton_grouped(
+    const void* counts, const void* block_group, const void* scales,
+    const void* tables, void* out, long long n_pix, int block, int e_full,
+    int e_warm, int n_warm, int n_pol, int warm_bf16, float a_lo, float a_hi,
+    float step_max, float eps_init, float clip, void* stream) {
+  if (n_pix <= 0) return (int)cudaGetLastError();
+  if (block <= 0 || n_pix % block != 0) return (int)cudaErrorInvalidValue;
+  const size_t shmem = sizeof(float) * kRow * (size_t)(e_full + e_warm);
+  if (shmem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gauss_newton_grouped_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long blocks = n_pix / block;
+  gauss_newton_grouped_kernel<<<(unsigned)blocks, block, shmem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(counts), static_cast<const int*>(block_group),
+      static_cast<const float*>(scales), static_cast<const float*>(tables),
+      static_cast<float*>(out), n_pix, e_full, e_warm, n_warm, n_pol,
+      warm_bf16, a_lo, a_hi, step_max, eps_init, clip);
   return (int)cudaGetLastError();
 }

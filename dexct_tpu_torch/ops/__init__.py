@@ -10,13 +10,21 @@ cone-parallel PI method (K5 at 4 taps, K20), the Fourier projector's
 adjoints (K21, K22) under the 2-D CG, SIRT and PWLS and the one-step
 spectral fit, the 2-D and 3-D dose maps (K23, K24), the FBP noise maps
 (K25) and first-principles single scatter, fan beam (K26) and cone beam
-(K27), with the kernel-superposition scatter model."""
+(K27), with the kernel-superposition scatter model, and the scanner-realism
+models: bowtie filtration and the anode heel (table-indexed counts K28,
+the grouped Gauss-Newton solve K29), detector MTF, gains and rings,
+afterglow, metal artifact reduction, synthetic dose reduction, truncation
+completion, finite aperture and the anticorrelated basis denoiser."""
 
-from . import bhc, conebeam, dose, fbp, fbp_fast, ffs, filters, flatpanel
-from . import fourier, helical_pi, iterative, katsevich, matdecomp, noisemap
-from . import onestep, scatter, scatter_physics, siddon, spectral
+from . import afterglow, aperture, bhc, bowtie, conebeam, denoise, dose, fbp
+from . import fbp_fast, ffs, filters, flatpanel, fourier, heel, helical_pi
+from . import iterative, katsevich, lowdose, mar, matdecomp, mtf, noisemap
+from . import onestep, rings, scatter, scatter_physics, siddon, spectral
+from . import truncation
 
-__all__ = ["bhc", "conebeam", "dose", "fbp", "fbp_fast", "ffs", "filters",
-           "flatpanel", "fourier", "helical_pi", "iterative", "katsevich",
-           "matdecomp", "noisemap", "onestep", "scatter", "scatter_physics",
-           "siddon", "spectral"]
+__all__ = ["afterglow", "aperture", "bhc", "bowtie", "conebeam", "denoise",
+           "dose", "fbp", "fbp_fast", "ffs", "filters", "flatpanel",
+           "fourier", "heel", "helical_pi", "iterative", "katsevich",
+           "lowdose", "mar", "matdecomp", "mtf", "noisemap", "onestep",
+           "rings", "scatter", "scatter_physics", "siddon", "spectral",
+           "truncation"]

@@ -98,22 +98,50 @@ def apply_water_bhc(bhc: WaterBhc, sino_log):
     return bhc(sino_log.to(torch.float32))
 
 
-_BOWTIE = ("the bowtie water calibration needs ops/bowtie.py, which is not "
-           "ported yet (ROADMAP queue 1, item 12)")
-
-
+@dataclasses.dataclass
 class WaterBhcBowtie:
-    """Per-channel water linearization under a bowtie filter (not ported
-    yet: ROADMAP queue 1, item 12)."""
+    """Per-channel water linearization under a bowtie filter.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_BOWTIE)
+    One calibration curve per bowtie thickness level, all mapped to the
+    SAME ``mu_eff`` target (the unfiltered central channel's), so every
+    channel lands on a common HU scale.  Duck-types as :class:`WaterBhc`
+    (``__call__`` + ``mu_eff``).
+    """
+
+    coeffs_ch: np.ndarray  # [C, D+1] polynomial per channel (polyval order)
+    mu_eff: float
+    t_max: float
+
+    def __call__(self, sino_log):
+        cs = torch.as_tensor(self.coeffs_ch.astype(np.float32),
+                             device=sino_log.device)  # [C, D+1]
+        out = torch.zeros_like(sino_log)
+        for i in range(cs.shape[1]):  # Horner, broadcast over views
+            out = out * sino_log + cs[:, i]
+        return out
 
 
-def fit_water_bhc_bowtie(spec, geometry, bowtie, **kwargs):
-    """Fit per-thickness-group water-BHC polynomials under a bowtie (not
-    ported yet: ROADMAP queue 1, item 12)."""
-    raise NotImplementedError(_BOWTIE)
+def fit_water_bhc_bowtie(spec, geometry, bowtie, *, t_max=50.0, degree=6,
+                         n_cal=256, calibration_cm=10.0):
+    """Fit per-thickness-group water-BHC polynomials under a bowtie (host,
+    float64): one analytic calibration curve per thickness level (the
+    level's hardened fluence), fitted to the common unfiltered ``mu_eff *
+    t`` target; channels inherit their level's polynomial."""
+    from ..pipeline.api import effective_water_mu
+
+    mu_w = xcom.mixatten("H(11.2)O(88.8)", spec.E)
+    mu_bt = bowtie.material.linear_atten(spec.E)
+    w_base = effective_fluence(spec, geometry)
+    levels, gidx = bowtie.groups()
+    mu_eff = effective_water_mu(spec, geometry, calibration_cm)
+    t = np.linspace(0.0, t_max, n_cal)
+    coeffs = []
+    for tl in levels:
+        w = w_base * np.exp(-mu_bt * float(tl))
+        L = _calibration_curve(spec, geometry, mu_w, t, weights=w)
+        coeffs.append(_fit_origin_poly(L, mu_eff * t, degree))
+    return WaterBhcBowtie(np.stack(coeffs)[gidx], float(mu_eff),
+                          float(t_max))
 
 
 def fit_water_bhc_from_scan(sino_log, geometry, radius, *,

@@ -1252,54 +1252,82 @@ def simulate_cone_dect(ct, phantom, spec1, spec2, n_matrix, fov, ramp, *,
     none), spectrum 1 first.  Returns the JAX package's dict: ``sino_raw``,
     ``sino_log``, ``mat_sinos`` pairs ``[V, R, C]`` and ``recon_raw``,
     ``recon_HU``, ``mat_recons`` pairs ``[nz, N, N]`` (``None`` when
-    ``do_recon`` is false).  The anode heel (``heel``) is not ported.
+    ``do_recon`` is false).  ``heel`` (:class:`~dexct_tpu_torch.ops.heel.
+    HeelEffect`) puts the anode heel under both acquisitions: per-row
+    fluence tables (K28), per-row air normalization and the row-grouped
+    decomposition (K29); ``d0_cm = 0`` is the heel-free result bit for
+    bit.
     """
     from ..pipeline.api import effective_water_mu
     from . import matdecomp as md
     from . import spectral as sp_ops
     from .fbp import hu_image
 
-    if heel is not None and getattr(heel, "d0_cm", 0.0) != 0.0:
-        raise NotImplementedError(
-            "the anode heel effect is not ported yet (ROADMAP queue 1, item "
-            "12: ops/heel.py)")
+    if heel is not None and heel.d0_cm == 0.0:
+        heel = None
     if recon not in RECONS_3D:
         raise ValueError(f"unknown recon {recon!r}")
     paths = cone_material_paths(phantom, ct, device=device)
     mu_t1 = _f32(phantom.materials.mu_table(spec1.E), device)
     mu_t2 = _f32(phantom.materials.mu_table(spec2.E), device)
-    i0_1 = sp_ops.effective_fluence(spec1, ct)
-    i0_2 = sp_ops.effective_fluence(spec2, ct)
+    if heel is not None:
+        # anode heel (ops/heel.py): per-row fluence tables (K28), per-row
+        # air normalization and the row-grouped exact decomposition (K29)
+        from .heel import (counts_from_paths_heel, heel_fluence,
+                           heel_second_moment)
+
+        i0_1 = heel_fluence(spec1, ct, heel)
+        i0_2 = heel_fluence(spec2, ct, heel)
+        i2_1 = heel_second_moment(spec1, ct, heel)
+        i2_2 = heel_second_moment(spec2, ct, heel)
+
+        def counts(mu_t, i0, i2):
+            return counts_from_paths_heel(paths, mu_t, i0, i2)
+    else:
+        i0_1 = sp_ops.effective_fluence(spec1, ct)
+        i0_2 = sp_ops.effective_fluence(spec2, ct)
+        i2_1 = sp_ops.second_moment_fluence(spec1, ct)
+        i2_2 = sp_ops.second_moment_fluence(spec2, ct)
+
+        def counts(mu_t, i0, i2):
+            return sp_ops.counts_from_paths(
+                paths, mu_t, _f32(i0, device),
+                None if i2 is None else _f32(i2, device))
     if noise == "none":
-        c1 = sp_ops.counts_from_paths(paths, mu_t1, _f32(i0_1, device))
-        c2 = sp_ops.counts_from_paths(paths, mu_t2, _f32(i0_2, device))
+        c1 = counts(mu_t1, i0_1, None)
+        c2 = counts(mu_t2, i0_2, None)
     else:
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         v1 = v2 = None
         if noise == "compound":
-            c1, v1 = sp_ops.counts_from_paths(
-                paths, mu_t1, _f32(i0_1, device),
-                _f32(sp_ops.second_moment_fluence(spec1, ct), device))
-            c2, v2 = sp_ops.counts_from_paths(
-                paths, mu_t2, _f32(i0_2, device),
-                _f32(sp_ops.second_moment_fluence(spec2, ct), device))
+            c1, v1 = counts(mu_t1, i0_1, i2_1)
+            c2, v2 = counts(mu_t2, i0_2, i2_2)
         else:
-            c1 = sp_ops.counts_from_paths(paths, mu_t1, _f32(i0_1, device))
-            c2 = sp_ops.counts_from_paths(paths, mu_t2, _f32(i0_2, device))
+            c1 = counts(mu_t1, i0_1, None)
+            c2 = counts(mu_t2, i0_2, None)
         c1 = sp_ops.sample_noise(generator, c1, noise, var=v1)
         c2 = sp_ops.sample_noise(generator, c2, noise, var=v2)
     del paths
-    log1 = sp_ops.log_sinogram(c1, float(np.sum(i0_1)))
-    log2 = sp_ops.log_sinogram(c2, float(np.sum(i0_2)))
-    _, dec_i0, dec_mus = md.prepare_decomposition(ct, spec1, spec2)
-    ab = md.gauss_newton_solve(
-        torch.stack([c1.reshape(-1), c2.reshape(-1)]), _f32(dec_i0, device),
-        _f32(dec_mus, device), n_iters=n_iters)
-    mask = c1 >= mask_thresh * c1.max()  # air rays
-    zero = torch.zeros((), dtype=ab.dtype, device=ab.device)
-    mat1 = torch.where(mask, zero, ab[:, 0].reshape(c1.shape))
-    mat2 = torch.where(mask, zero, ab[:, 1].reshape(c1.shape))
+    if heel is not None:
+        from .heel import decompose_cone_sinograms_heel
+
+        log1 = sp_ops.log_sinogram(c1, _f32(i0_1.sum(-1), device)[:, None])
+        log2 = sp_ops.log_sinogram(c2, _f32(i0_2.sum(-1), device)[:, None])
+        mat1, mat2 = decompose_cone_sinograms_heel(
+            ct, c1, c2, spec1, spec2, heel, n_iters=n_iters,
+            mask_thresh=mask_thresh)
+    else:
+        log1 = sp_ops.log_sinogram(c1, float(np.sum(i0_1)))
+        log2 = sp_ops.log_sinogram(c2, float(np.sum(i0_2)))
+        _, dec_i0, dec_mus = md.prepare_decomposition(ct, spec1, spec2)
+        ab = md.gauss_newton_solve(
+            torch.stack([c1.reshape(-1), c2.reshape(-1)]),
+            _f32(dec_i0, device), _f32(dec_mus, device), n_iters=n_iters)
+        mask = c1 >= mask_thresh * c1.max()  # air rays
+        zero = torch.zeros((), dtype=ab.dtype, device=ab.device)
+        mat1 = torch.where(mask, zero, ab[:, 0].reshape(c1.shape))
+        mat2 = torch.where(mask, zero, ab[:, 1].reshape(c1.shape))
     out = {"sino_raw": (c1, c2), "sino_log": (log1, log2),
            "mat_sinos": (mat1, mat2)}
     if not do_recon:

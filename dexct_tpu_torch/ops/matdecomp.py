@@ -15,6 +15,13 @@ on the device of its tensors: CUDA tensors go to the hand-written kernel K3
 (``csrc/gauss_newton.cu``, one thread per pixel, all iterations in
 registers), CPU tensors to :func:`gauss_newton_solve_plain`, the JAX
 package's ``_solve_block`` in torch, bfloat16 warm phase included.
+
+:func:`gauss_newton_solve_grouped` solves pixels that fall into fluence
+groups, each with its own ``i0`` (a bowtie's thickness levels, an anode
+heel's detector rows): kernel K29 (``csrc/gauss_newton.cu``, K3's
+per-pixel body over pixels sorted into group order, each group padded to a
+whole block) on CUDA tensors, :func:`gauss_newton_solve_grouped_plain`
+(:func:`gauss_newton_solve_plain` once per group) on CPU tensors.
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ from ..utils import kernels
 __all__ = [
     "gauss_newton_solve",
     "gauss_newton_solve_plain",
+    "gauss_newton_solve_grouped",
+    "gauss_newton_solve_grouped_plain",
     "prepare_decomposition",
     "detectable_bins",
     "decompose_sinograms",
@@ -131,39 +140,42 @@ def _solve_block_plain(y, full, warm, n_warm, n_pol, warm_bf16, eps_init,
 
 
 def _tables(i0n, mus, n_iters, polish_iters, warm_nodes):
-    """Energy tables (musT [E, 2], w [E, 6]) for the polish and the warm
-    phase; the warm table is moment-compressed to ~warm_nodes nodes when
-    the union grid has more than 2 * warm_nodes bins (per segment of equal
-    bin count the per-spectrum fluence sums exactly and the node
-    attenuation is the combined-fluence-weighted mean)."""
-    n_meas, E = i0n.shape
-    n_mats = mus.shape[0]
+    """Energy tables (musT [..., E, 2], w [..., E, 6]) for the polish and
+    the warm phase, for ``i0n`` [..., 2, E] (a leading axis of fluence
+    groups is kept); the warm table is moment-compressed to ~warm_nodes
+    nodes when the union grid has more than 2 * warm_nodes bins (per
+    segment of equal bin count the per-spectrum fluence sums exactly and
+    the node attenuation is the combined-fluence-weighted mean)."""
+    n_meas, E = i0n.shape[-2:]
+    n_mats = mus.shape[-2]
 
     def weights(i0_, mu_):
-        grad_w = torch.stack([i0_[m] * mu_[i] for m in range(n_meas)
+        grad_w = torch.stack([i0_[..., m, :] * mu_[..., i, :]
+                              for m in range(n_meas)
                               for i in range(n_mats)], -1)
-        return mu_.T.contiguous(), torch.cat([i0_.T, grad_w], -1)
+        return (mu_.transpose(-1, -2).contiguous(),
+                torch.cat([i0_.transpose(-1, -2), grad_w], -1))
 
-    full = weights(i0n, mus)
+    full = weights(i0n, mus.expand(i0n.shape[:-2] + mus.shape))
     if (warm_nodes and polish_iters > 0 and n_iters > polish_iters
             and E > 2 * warm_nodes):
         seg = -(-E // int(warm_nodes))
         kc = -(-E // seg)
         pad_e = kc * seg - E
+        lead = i0n.shape[:-2]
         i0p = torch.nn.functional.pad(i0n, (0, pad_e))
         musp = torch.cat([mus, mus[:, -1:].expand(n_mats, pad_e)], 1)
-        wgt = i0p.sum(0).reshape(kc, seg) + 1e-30  # combined fluence
-        i0_c = i0p.reshape(n_meas, kc, seg).sum(-1)  # exact 0th moments
-        mu_c = (musp.reshape(n_mats, kc, seg) * wgt[None]).sum(-1) \
-            / wgt.sum(-1)[None]
+        wgt = i0p.sum(-2).reshape(lead + (kc, seg)) + 1e-30  # combined
+        i0_c = i0p.reshape(lead + (n_meas, kc, seg)).sum(-1)  # exact 0th
+        mu_c = (musp.reshape(n_mats, kc, seg) * wgt[..., None, :, :]).sum(
+            -1) / wgt.sum(-1)[..., None, :]
         return full, weights(i0_c, mu_c)
     return full, full
 
 
-def _prepare(counts, i0, mus, n_iters, polish_iters, warm_nodes):
-    """Checks, float32 casts, the common normalisation and the energy
-    tables shared by the kernel and the plain version."""
-    n_meas, n_mats = counts.shape[0], mus.shape[0]
+def _schedule(n_meas, n_mats, n_iters, polish_iters):
+    """Checks and the phase lengths: (n_warm, n_pol, warm_bf16); the warm
+    phase runs in bfloat16 whenever a float32 polish follows."""
     if n_mats > n_meas:
         raise ValueError(f"{n_mats} materials need at least that many "
                          f"measurements (got {n_meas})")
@@ -172,6 +184,15 @@ def _prepare(counts, i0, mus, n_iters, polish_iters, warm_nodes):
             f"gauss_newton_solve with {n_meas} measurements and {n_mats} "
             "materials is not ported yet (ROADMAP queue 1, item 11: "
             "multi-bin spectral decomposition)")
+    n_pol = min(polish_iters, n_iters)
+    return n_iters - n_pol, n_pol, n_pol > 0
+
+
+def _prepare(counts, i0, mus, n_iters, polish_iters, warm_nodes):
+    """Checks, float32 casts, the common normalisation and the energy
+    tables shared by the kernel and the plain version."""
+    n_warm, n_pol, warm_bf16 = _schedule(counts.shape[0], mus.shape[0],
+                                         n_iters, polish_iters)
     dev = counts.device
     counts = counts.to(torch.float32)
     i0 = i0.to(device=dev, dtype=torch.float32)
@@ -179,10 +200,8 @@ def _prepare(counts, i0, mus, n_iters, polish_iters, warm_nodes):
     # common normalization keeps float32 in range; the Newton step is
     # invariant to a joint rescale of (y, i0)
     scale = torch.clamp_min(i0.max(), 1e-30)
-    n_pol = min(polish_iters, n_iters)
     full, warm = _tables(i0 / scale, mus, n_iters, polish_iters, warm_nodes)
-    # the warm phase runs in bfloat16 whenever a float32 polish follows
-    return counts, scale, full, warm, n_iters - n_pol, n_pol, n_pol > 0
+    return counts, scale, full, warm, n_warm, n_pol, warm_bf16
 
 
 def gauss_newton_solve_plain(counts, i0, mus, *, n_iters=30, eps_init=1e-6,
@@ -252,6 +271,125 @@ def _gauss_newton_cuda(counts, i0, mus, *, n_iters, eps_init, pixel_block,
 
 
 gauss_newton_solve.launches = 0
+
+_GROUP_BLOCK = 128  # K29's threads per block; each group pads to a multiple
+
+
+def gauss_newton_solve_grouped_plain(counts, group, i0_groups, mus,
+                                     **kw):
+    """The plain version of :func:`gauss_newton_solve_grouped`:
+    :func:`gauss_newton_solve_plain` once per group on that group's own
+    ``i0`` (its own scale, full and warm tables), which is what the JAX
+    package's ``jax.vmap(gauss_newton_solve)`` over the groups computes
+    for each real pixel."""
+    out = counts.new_empty((counts.shape[1], 2), dtype=torch.float32)
+    for g in range(i0_groups.shape[0]):
+        sel = torch.nonzero(group == g).reshape(-1)
+        if sel.numel():
+            out[sel] = gauss_newton_solve_plain(counts[:, sel], i0_groups[g],
+                                                mus, **kw)
+    return out
+
+
+def group_layout(group, n_groups, block=_GROUP_BLOCK):
+    """K29's pixel layout, on the device of ``group`` [P]: ``(src [P_pad],
+    slot [P], block_group [P_pad // block])``.  Pixels sorted into group
+    order (stable), each group padded to a whole ``block`` with copies of
+    its first pixel: slot ``i`` of the padded layout solves pixel
+    ``src[i]``, pixel ``p``'s result lands in slot ``slot[p]``, and block
+    ``b`` belongs to group ``block_group[b]``."""
+    dev = group.device
+    group = group.to(torch.int64)
+    order = torch.argsort(group, stable=True)
+    n_g = torch.bincount(group, minlength=n_groups)
+    blocks_g = torch.div(n_g + block - 1, block, rounding_mode="floor")
+    start = torch.cumsum(n_g, 0) - n_g  # first sorted index of each group
+    pad_start = (torch.cumsum(blocks_g, 0) - blocks_g) * block
+    n_pad = int(blocks_g.sum()) * block
+    sorted_g = group[order]
+    pos = pad_start[sorted_g] + torch.arange(order.numel(), device=dev) \
+        - start[sorted_g]
+    block_group = torch.repeat_interleave(
+        torch.arange(n_groups, device=dev), blocks_g)
+    # padding repeats the group's first pixel (a real, solvable ray)
+    first = order[torch.clamp_max(start, max(order.numel() - 1, 0))]
+    src = torch.repeat_interleave(first, blocks_g * block)
+    src[pos] = order
+    slot = torch.empty_like(order)
+    slot[order] = pos
+    return src, slot, block_group.to(torch.int32)
+
+
+def gauss_newton_solve_grouped(counts, group, i0_groups, mus, *,
+                               n_iters=30, eps_init=1e-6, pixel_block=65536,
+                               step_max=5.0, a_bounds=(-20.0, 500.0),
+                               polish_iters=4, warm_nodes=32):
+    """Two-material Newton solve of pixels in fluence groups.
+
+    counts: [2, P] detected counts; group: [P] integer group of each
+    pixel, in ``[0, G)``; i0_groups: [G, 2, E] effective fluence of each
+    group; mus: [2, E] basis mass attenuation.  Returns a: [P, 2] area
+    densities [g/cm^2], each pixel solved exactly as
+    :func:`gauss_newton_solve` solves it with its group's ``i0``.
+
+    CUDA tensors run kernel K29 (counted in
+    ``gauss_newton_solve_grouped.launches``); CPU tensors run
+    :func:`gauss_newton_solve_grouped_plain`.
+    """
+    kw = dict(n_iters=n_iters, eps_init=eps_init, pixel_block=pixel_block,
+              step_max=step_max, a_bounds=a_bounds,
+              polish_iters=polish_iters, warm_nodes=warm_nodes)
+    if group.shape != counts.shape[1:]:
+        raise ValueError(f"group must have shape ({counts.shape[1]},), got "
+                         f"{tuple(group.shape)}")
+    if counts.is_cuda:
+        return _gauss_newton_grouped_cuda(counts, group, i0_groups, mus,
+                                          **kw)
+    if counts.device.type != "cpu":
+        raise ValueError(f"unsupported device {counts.device}")
+    return gauss_newton_solve_grouped_plain(counts, group, i0_groups, mus,
+                                            **kw)
+
+
+def _gauss_newton_grouped_cuda(counts, group, i0_groups, mus, *, n_iters,
+                               eps_init, pixel_block, step_max, a_bounds,
+                               polish_iters, warm_nodes):
+    del pixel_block  # one launch covers every pixel
+    dev = counts.device
+    G = i0_groups.shape[0]
+    n_warm, n_pol, warm_bf16 = _schedule(counts.shape[0], mus.shape[0],
+                                         n_iters, polish_iters)
+    # every group's tables at once: _prepare's per group, batched
+    i0_g = i0_groups.to(device=dev, dtype=torch.float32)
+    mus = mus.to(device=dev, dtype=torch.float32)
+    scales = torch.clamp_min(i0_g.amax((-2, -1)), 1e-30)  # [G]
+    full, warm = _tables(i0_g / scales[:, None, None], mus, n_iters,
+                         polish_iters, warm_nodes)
+    rows = [torch.cat(full, -1), torch.cat(warm, -1)]  # [G, E, 8] rows
+    if warm_bf16:  # the warm tables as the bf16 warm phase sees them
+        rows[1] = rows[1].to(torch.bfloat16).float()
+    e_full, e_warm = rows[0].shape[1], rows[1].shape[1]
+    tables = torch.cat([r.reshape(G, -1) for r in rows], 1).contiguous()
+    scales = scales.contiguous()
+    src, slot, block_group = group_layout(group.to(dev), G)
+    y = counts.to(torch.float32)[:, src].contiguous()
+    n_pad = y.shape[1]
+    out = torch.empty((n_pad, 2), dtype=torch.float32, device=dev)
+    for t, name in ((y, "counts"), (block_group, "block_group"),
+                    (scales, "scales"), (tables, "tables")):
+        kernels.require(t, name, dev, t.dtype)
+    rc = kernels.library().dexct_gauss_newton_grouped(
+        y.data_ptr(), block_group.data_ptr(), scales.data_ptr(),
+        tables.data_ptr(), out.data_ptr(), n_pad, _GROUP_BLOCK, e_full,
+        e_warm, n_warm, n_pol, int(warm_bf16), float(a_bounds[0]),
+        float(a_bounds[1]), float(step_max), float(eps_init), _CLIP,
+        kernels.stream_ptr(dev))
+    kernels.check(rc, "gauss_newton_grouped")
+    gauss_newton_solve_grouped.launches += 1
+    return out[slot]
+
+
+gauss_newton_solve_grouped.launches = 0
 
 
 def prepare_decomposition(geometry, spec1, spec2, basis=DEFAULT_BASIS,

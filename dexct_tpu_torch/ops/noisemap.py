@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..utils import kernels
+from ..utils.devices import device_of
 from .fbp_fast import _pixel_coords
 from .filters import filter_frequency_response
 
@@ -47,12 +48,6 @@ FIELDS = (1, 3)
 _COV_VIEWS = 100
 
 
-def _device_of(x, device):
-    if torch.is_tensor(x):
-        return x.device
-    return torch.device("cuda" if device is None else device)
-
-
 def log_variance(counts, var_counts=None, *, device=None):
     """Delta-method variance of the log sinogram.
 
@@ -60,7 +55,7 @@ def log_variance(counts, var_counts=None, *, device=None):
     per-ray variance (``counts_from_paths`` of the second-moment
     fluence, ops/spectral.py) for energy-integrating detectors.
     """
-    dev = _device_of(counts, device)
+    dev = device_of(counts, device)
     c = torch.clamp_min(torch.as_tensor(counts, device=dev), 1e-30)
     v = c if var_counts is None else torch.as_tensor(var_counts, device=dev)
     return v / (c * c)
@@ -222,7 +217,7 @@ def fbp_variance_map(counts, geometry, n_matrix, fov, ramp=0.8,
             getattr(geometry, "ffs", "none") != "none":
         raise ValueError("variance map models the direct fan-beam FBP "
                          "path only")
-    dev = _device_of(counts, device)
+    dev = device_of(counts, device)
     var_log = log_variance(counts, var_counts, device=dev).to(dtype)
     var = _propagate(var_log[None], geometry, n_matrix, fov, ramp, window,
                      dtype)[0]
@@ -270,7 +265,7 @@ def decomposition_covariance(a_sinos, geometry, spec1, spec2, *,
     from .spectral import second_moment_fluence
 
     basis = DEFAULT_BASIS if basis is None else basis
-    dev = _device_of(a_sinos, device)
+    dev = device_of(a_sinos, device)
     f32 = dict(dtype=torch.float32, device=dev)
     _, i0, mus = prepare_decomposition(geometry, spec1, spec2, basis)
     a = torch.as_tensor(a_sinos, **f32)
@@ -312,7 +307,7 @@ def basis_variance_maps(cov_rays, geometry, n_matrix, fov, ramp=0.8,
     The three fields are filtered together and backprojected by one K25
     launch on the card.
     """
-    dev = _device_of(cov_rays, device)
+    dev = device_of(cov_rays, device)
     cov = torch.as_tensor(cov_rays, dtype=dtype, device=dev)
     fields = torch.stack([cov[..., 0, 0], cov[..., 1, 1], cov[..., 0, 1]])
     out = _propagate(fields, geometry, n_matrix, fov, ramp, window, dtype)
@@ -338,7 +333,7 @@ def vmi_variance_map(var1, var2, cov12, e0_keV, *, basis=None,
     m1 = float(basis[0].mass_atten(e)[0])
     m2 = float(basis[1].mass_atten(e)[0])
     mu_w = float(xcom.mixatten("H(11.2)O(88.8)", e)[0])
-    dev = _device_of(var1, device)
+    dev = device_of(var1, device)
     var1, var2, cov12 = (torch.as_tensor(x, device=dev)
                          for x in (var1, var2, cov12))
     var_mu = m1 * m1 * var1 + m2 * m2 * var2 + 2.0 * m1 * m2 * cov12

@@ -37,6 +37,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.devices import as_float, device_of
+
 __all__ = ["scatter_kernel", "add_scatter", "correct_scatter",
            "scatter_fraction"]
 
@@ -82,22 +84,8 @@ def _spread(seed, kernel, row_kernel):
     return s
 
 
-def _device_of(x, device):
-    if torch.is_tensor(x):
-        return x.device
-    return torch.device("cuda" if device is None else device)
-
-
-def _as_counts(x, dev):
-    """Counts as a tensor on ``dev``: a tensor keeps its dtype, anything
-    else becomes float32."""
-    if torch.is_tensor(x):
-        return x.to(dev)
-    return torch.as_tensor(np.asarray(x, np.float32), device=dev)
-
-
 def _as_air(air, dev):
-    return air if np.isscalar(air) else _as_counts(air, dev)
+    return air if np.isscalar(air) else as_float(air, dev)
 
 
 def add_scatter(primary, air, kernel, *, spr=0.2, grid_p=0.95,
@@ -116,8 +104,8 @@ def add_scatter(primary, air, kernel, *, spr=0.2, grid_p=0.95,
     device of ``primary`` when it is a tensor, else on ``device``
     (default: the card).
     """
-    dev = _device_of(primary, device)
-    primary = _as_counts(primary, dev)
+    dev = device_of(primary, device)
+    primary = as_float(primary, dev)
     air = _as_air(air, dev)
     t = primary / air
     seed = primary * (1.0 - t)
@@ -136,8 +124,8 @@ def correct_scatter(measured, air, kernel, *, spr=0.2, grid_p=0.95,
     ``measured`` when it is a tensor, else on ``device`` (default: the
     card).
     """
-    dev = _device_of(measured, device)
-    measured = _as_counts(measured, dev)
+    dev = device_of(measured, device)
+    measured = as_float(measured, dev)
     air = _as_air(air, dev)
     floor = 1e-6 * (air if torch.is_tensor(air)
                     else torch.tensor(float(air), dtype=measured.dtype,
@@ -154,7 +142,7 @@ def scatter_fraction(measured, primary, grid_p=1.0, *, device=None):
     """Mean scatter-to-total fraction of a measured sinogram (metric), on
     the device of ``measured`` when it is a tensor, else on ``device``
     (default: the card)."""
-    dev = _device_of(measured, device)
-    measured, primary = _as_counts(measured, dev), _as_counts(primary, dev)
+    dev = device_of(measured, device)
+    measured, primary = as_float(measured, dev), as_float(primary, dev)
     s = measured - grid_p * primary
     return float(torch.mean(s / torch.clamp_min(measured, 1e-30)))

@@ -21,6 +21,18 @@ BLOCK_R rays and loops over E in BLOCK_E chunks; per chunk it forms
 ``exp(clip(-L, -700, 2))`` and reduces ``* i0(E)`` over the chunk, so
 ``[R, E]`` never reaches device memory.  An optional second fluence table
 (the compound-noise second moment ``i2``) shares the same exp pass.
+
+K28 (``_table_counts_kernel``, :func:`counts_from_table`) is the same fused
+pass with the fluence read from a table of rows, one row per ray: row
+``t(r) = (r // stride) % n_rows`` of ``T [n_rows, E]``.  It replaces the
+TPU programs ``dexct_tpu/ops/spectral.py:counts_from_paths(...,
+per_channel=True)`` (the bowtie's per-channel ``[C, E]`` einsum against
+``[V, C]`` rays: stride 1, n_rows = C) and
+``dexct_tpu/ops/heel.py:counts_from_paths_heel`` (the anode heel's per-row
+``[R, E]`` einsum against ``[V, R, C]`` rays: stride C, n_rows = R).  The
+bound is K2's (one exp and M FMAs per ray and energy); the only new read
+is a ``[BLOCK_R, BLOCK_E]`` gather from the table, which stays in L2
+(800 x 140 x 4 B = 0.45 MB at the reference protocol).
 """
 
 from __future__ import annotations
@@ -35,6 +47,8 @@ __all__ = [
     "second_moment_fluence",
     "counts_from_paths",
     "counts_from_paths_plain",
+    "counts_from_table",
+    "counts_from_table_plain",
     "log_sinogram",
     "sample_noise",
     "forward_counts",
@@ -81,6 +95,31 @@ def counts_from_paths_plain(paths, mu_table, i0_eff):
     return (atten @ i0_eff.double()).to(paths.dtype)
 
 
+def _table_rows(n_rays, stride, n_rows, device):
+    """Table row of each ray: ``(r // stride) % n_rows``."""
+    r = torch.arange(n_rays, device=device)
+    return torch.div(r, stride, rounding_mode="floor") % n_rows
+
+
+def counts_from_table_plain(paths, mu_table, table, *, stride=1):
+    """:func:`counts_from_paths_plain` with the fluence of ray ``r`` read
+    from row ``(r // stride) % n_rows`` of ``table [n_rows, E]`` (rays in
+    the row-major order of ``paths[..., 0]``): the JAX package's
+    ``einsum`` over a per-channel or per-row table, with K2's plain
+    rounding (float32 ``L`` in material order, exp and the energy sum in
+    float64, rounded once)."""
+    m = paths.shape[-1]
+    p2 = paths.reshape(-1, m)
+    mu = mu_table.to(paths.dtype)
+    L = p2[:, :1] * mu[0]
+    for k in range(1, mu.shape[0]):
+        L = L + p2[:, k:k + 1] * mu[k]
+    atten = torch.exp(torch.clamp(-L, -700.0, 2.0).double())
+    rows = _table_rows(p2.shape[0], stride, table.shape[0], paths.device)
+    out = (atten * table.double()[rows]).sum(-1)
+    return out.to(paths.dtype).reshape(paths.shape[:-1])
+
+
 @functools.lru_cache(maxsize=1)
 def _counts_kernel():
     """Compile-on-first-use Triton kernel (``triton`` is imported here, not
@@ -119,8 +158,57 @@ def _counts_kernel():
     return counts_kernel
 
 
+@functools.lru_cache(maxsize=1)
+def _table_counts_kernel():
+    """K28, compiled on first use like K2: K2's fused pass with the
+    fluence of each ray gathered from its row of a table."""
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def table_counts_kernel(paths_ptr, mu_ptr, t_ptr, t2_ptr, out_ptr,
+                            var_ptr, R, E, stride, n_rows,
+                            M: tl.constexpr, HAS_T2: tl.constexpr,
+                            BLOCK_R: tl.constexpr, BLOCK_E: tl.constexpr):
+        pid = tl.program_id(0)
+        rows = pid * BLOCK_R + tl.arange(0, BLOCK_R)
+        rmask = rows < R
+        rows64 = rows.to(tl.int64)
+        trow = ((rows64 // stride) % n_rows) * E
+        acc = tl.zeros([BLOCK_R], dtype=tl.float32)
+        acc2 = tl.zeros([BLOCK_R], dtype=tl.float32)
+        for e0 in range(0, E, BLOCK_E):
+            cols = e0 + tl.arange(0, BLOCK_E)
+            emask = cols < E
+            L = tl.zeros([BLOCK_R, BLOCK_E], dtype=tl.float32)
+            for m in tl.static_range(M):
+                p = tl.load(paths_ptr + rows64 * M + m, mask=rmask, other=0.0)
+                mu = tl.load(mu_ptr + m * E + cols, mask=emask, other=0.0)
+                L += p[:, None] * mu[None, :]
+            att = tl.exp(tl.minimum(tl.maximum(-L, -700.0), 2.0))
+            tmask = rmask[:, None] & emask[None, :]
+            toff = trow[:, None] + cols[None, :]
+            t = tl.load(t_ptr + toff, mask=tmask, other=0.0)
+            acc += tl.sum(att * t, axis=1)
+            if HAS_T2:
+                t2 = tl.load(t2_ptr + toff, mask=tmask, other=0.0)
+                acc2 += tl.sum(att * t2, axis=1)
+        tl.store(out_ptr + rows64, acc, mask=rmask)
+        if HAS_T2:
+            tl.store(var_ptr + rows64, acc2, mask=rmask)
+
+    return table_counts_kernel
+
+
 _BLOCK_R = 128
 _BLOCK_E = 64
+# K28 holds a third [BLOCK_R, BLOCK_E] tile (the gathered table; a fourth
+# with the second table), so it takes narrower energy chunks than K2: on
+# the H100 at the reference protocol BLOCK_E 64 took 2.48 ms per spectrum,
+# 32 0.34 ms and 16 0.22 ms (chip_smoke's tuning record in PERF.md)
+_T_BLOCK_R = 128
+_T_BLOCK_E = 16
+_T_WARPS = 4
 
 
 def _counts_cuda(paths, mu_table, i0_eff, i2_eff):
@@ -157,19 +245,97 @@ def _counts_cuda(paths, mu_table, i0_eff, i2_eff):
     return out.reshape(shape)
 
 
-def counts_from_paths(paths, mu_table, i0_eff, i2_eff=None):
+def _table_counts_cuda(paths, mu_table, table, table2, stride):
+    dev = paths.device
+    m = paths.shape[-1]
+    p2 = paths.reshape(-1, m).to(torch.float32).contiguous()
+    mu = mu_table.to(device=dev, dtype=torch.float32).contiguous()
+    e = mu.shape[1]
+    if mu.shape[0] != m:
+        raise ValueError(f"mu_table has {mu.shape[0]} materials, paths {m}")
+    t = table.to(device=dev, dtype=torch.float32).contiguous()
+    if t.ndim != 2 or t.shape[1] != e:
+        raise ValueError(f"the fluence table must be [n_rows, {e}], got "
+                         f"{tuple(t.shape)}")
+    r = p2.shape[0]
+    out = torch.empty(r, dtype=torch.float32, device=dev)
+    has_t2 = table2 is not None
+    if has_t2:
+        t2 = table2.to(device=dev, dtype=torch.float32).contiguous()
+        if t2.shape != t.shape:
+            raise ValueError("the second table must match the first's shape")
+        var = torch.empty_like(out)
+    else:
+        t2, var = t, out  # unused by the kernel
+    grid = (max(-(-r // _T_BLOCK_R), 1),)
+    with torch.cuda.device(dev):
+        _table_counts_kernel()[grid](p2, mu, t, t2, out, var, r, e,
+                                     int(stride), t.shape[0], M=m,
+                                     HAS_T2=has_t2, BLOCK_R=_T_BLOCK_R,
+                                     BLOCK_E=_T_BLOCK_E, num_warps=_T_WARPS)
+    counts_from_table.launches += 1
+    shape = paths.shape[:-1]
+    if has_t2:
+        return out.reshape(shape), var.reshape(shape)
+    return out.reshape(shape)
+
+
+def counts_from_table(paths, mu_table, table, table2=None, *, stride=1):
+    """Detected signal per ray with a fluence table of rows.
+
+    paths:    [..., n_mats] material path lengths [cm]; rays are counted
+              in the row-major order of ``paths[..., 0]``
+    mu_table: [n_mats, E] linear attenuation [1/cm]
+    table:    [n_rows, E] effective fluence; ray ``r`` reads row
+              ``(r // stride) % n_rows`` (a bowtie's per-channel table
+              against [..., V, C] rays: stride 1; an anode heel's per-row
+              table against [V, R, C] rays: stride C)
+    table2:   optional second table of the same shape (the compound-noise
+              second moment), contracted in the same pass.
+    Returns counts ``[...]``, or ``(counts, var)`` when ``table2`` is given.
+
+    CUDA tensors run kernel K28 (counted in ``counts_from_table.launches``);
+    CPU tensors run :func:`counts_from_table_plain`.
+    """
+    if paths.is_cuda:
+        return _table_counts_cuda(paths, mu_table, table, table2, stride)
+    if paths.device.type != "cpu":
+        raise ValueError(f"unsupported device {paths.device}")
+    counts = counts_from_table_plain(paths, mu_table, table, stride=stride)
+    if table2 is None:
+        return counts
+    return counts, counts_from_table_plain(paths, mu_table, table2,
+                                           stride=stride)
+
+
+counts_from_table.launches = 0
+
+
+def counts_from_paths(paths, mu_table, i0_eff, i2_eff=None, *,
+                      per_channel=False):
     """Detected signal per ray.
 
     paths:    [..., n_mats] material path lengths [cm]
     mu_table: [n_mats, E] linear attenuation of each material [1/cm]
-    i0_eff:   [E] effective fluence per bin
-    i2_eff:   optional [E] second table (compound-noise second moment)
-              contracted against the same attenuation.
+    i0_eff:   [E] effective fluence per bin — or, with
+              ``per_channel=True``, a per-channel table [C, E] (bowtie
+              filtration, ops/bowtie.py) against rays laid out
+              [..., V, C] (kernel K28, :func:`counts_from_table`)
+    i2_eff:   optional second table of ``i0_eff``'s shape (compound-noise
+              second moment) contracted against the same attenuation.
     Returns counts ``[...]``, or ``(counts, var)`` when ``i2_eff`` is given.
 
     CUDA tensors run kernel K2 (counted in ``counts_from_paths.launches``);
     CPU tensors run :func:`counts_from_paths_plain`.
     """
+    if per_channel:
+        if i0_eff.ndim != 2:
+            raise ValueError("per_channel=True requires a [C, E] i0 table")
+        if paths.ndim < 2 or i0_eff.shape[0] != paths.shape[-2]:
+            raise ValueError(f"a [C, E] table with C = {i0_eff.shape[0]} "
+                             f"needs rays [..., V, C], got paths "
+                             f"{tuple(paths.shape)}")
+        return counts_from_table(paths, mu_table, i0_eff, i2_eff, stride=1)
     if paths.is_cuda:
         return _counts_cuda(paths, mu_table, i0_eff, i2_eff)
     if paths.device.type != "cpu":
@@ -226,28 +392,59 @@ def sample_noise(generator, counts, mode="poisson", var_scale=1.0, var=None):
 
 
 def forward_counts(paths, phantom, spec, geometry, *, noise="none",
-                   generator=None):
+                   generator=None, bowtie=None, tcm=None, sigma_e=0.0):
     """paths -> (counts, log_sino): the get_sino back half, on the device
-    of ``paths``.  Bowtie filtration, tube-current modulation and
-    electronic noise are not ported yet (ROADMAP queue 1, item 12)."""
+    of ``paths``.
+
+    With a ``bowtie`` (ops/bowtie.py) the fluence and the air
+    normalization become per channel (kernel K28).  With ``tcm`` (a
+    per-view relative output profile [V], pipeline/tcm.py) counts and the
+    compound-noise second moment scale by ``s(v)`` and the log divides by
+    the per-view air level, so the noiseless log sinogram is the
+    unmodulated scan's.  ``sigma_e`` (compound mode) adds the electronic
+    noise floor: ``var + sigma_e**2``.  One pass of K2 (or K28) gives the
+    counts and, in compound mode, the second moment together.
+    """
     dev = paths.device
     mu_table = torch.as_tensor(phantom.materials.mu_table(spec.E),
                                dtype=torch.float32, device=dev)
-    i0_h = effective_fluence(spec, geometry)
-    air = float(np.sum(i0_h))
+    compound = noise == "compound"
+    if bowtie is not None:
+        from .bowtie import bowtie_fluence, bowtie_second_moment
+
+        i0_h = bowtie_fluence(spec, geometry, bowtie)  # [C, E]
+        air = torch.as_tensor(i0_h.sum(-1), dtype=torch.float32,
+                              device=dev)
+        i2_h = bowtie_second_moment(spec, geometry, bowtie) \
+            if compound else None
+    else:
+        i0_h = effective_fluence(spec, geometry)
+        air = float(np.sum(i0_h))
+        i2_h = second_moment_fluence(spec, geometry) if compound else None
     i0 = torch.as_tensor(i0_h, dtype=torch.float32, device=dev)
     paths = paths.to(torch.float32)
-    if noise == "none":
-        counts = counts_from_paths(paths, mu_table, i0)
+    var = None
+    if compound:
+        i2 = torch.as_tensor(i2_h, dtype=torch.float32, device=dev)
+        counts, var = counts_from_paths(paths, mu_table, i0, i2,
+                                        per_channel=bowtie is not None)
     else:
+        counts = counts_from_paths(paths, mu_table, i0,
+                                   per_channel=bowtie is not None)
+    if tcm is not None:
+        # per-view tube-current modulation, broadcast over the trailing
+        # channel (and row) axes
+        s = torch.as_tensor(tcm, dtype=torch.float32, device=dev)
+        s = s.reshape(tuple(s.shape) + (1,) * (counts.ndim - 1))
+        counts = counts * s
+        air = air * s
+        if var is not None:
+            var = var * s
+    if noise != "none":
         if generator is None:
             raise ValueError("noise sampling requires a torch.Generator")
-        var = None
-        if noise == "compound":
-            i2 = torch.as_tensor(second_moment_fluence(spec, geometry),
-                                 dtype=torch.float32, device=dev)
-            counts, var = counts_from_paths(paths, mu_table, i0, i2)
-        else:
-            counts = counts_from_paths(paths, mu_table, i0)
+        if var is not None and sigma_e:
+            var = var + torch.tensor(float(sigma_e), dtype=torch.float32,
+                                     device=dev) ** 2
         counts = sample_noise(generator, counts, noise, var=var)
     return counts, log_sinogram(counts, air)

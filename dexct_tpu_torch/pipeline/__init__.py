@@ -10,11 +10,20 @@ from .api import (
     simulate_dect,
 )
 from .cone import ConeDectMeta, cone_dect_step, pack_cone_dect
+from .realism import (Stage, apply_chain, correct_chain,
+                      simulate_dect_realistic)
 from .runner import DEFAULT_SPEC_PAIRS, run_config, run_parameter_file
+from .tcm import auto_tcm_profile, simulate_tcm_dect
 from .zstack import (make_jitted_zstack_step, pack_zstack, stack_phantom,
                      zstack_step)
 
 __all__ = [
+    "Stage",
+    "apply_chain",
+    "correct_chain",
+    "simulate_dect_realistic",
+    "auto_tcm_profile",
+    "simulate_tcm_dect",
     "get_sino",
     "get_recon",
     "get_basismat_sinos",

@@ -45,14 +45,20 @@ def effective_water_mu(spec, geometry, calibration_cm=10.0):
 
 
 def get_sino(ct, phantom, spec, *, device, noise="none", generator=None,
-             paths=None):
+             paths=None, bowtie=None, tcm=None, sigma_e=0.0):
     """Forward project one polyenergetic acquisition: returns
     ``(sino_raw, sino_log)``, both [N_proj, N_channels].  ``paths`` reuses
-    a precomputed material-path sinogram (the DE driver traces once)."""
+    a precomputed material-path sinogram (the DE driver traces once).
+    ``bowtie`` (ops/bowtie.py) applies channel-dependent beam-shaping
+    filtration with per-channel air normalization, ``tcm``
+    (pipeline/tcm.py) modulates the tube output per view and ``sigma_e``
+    adds the electronic noise floor in compound mode
+    (:func:`~dexct_tpu_torch.ops.spectral.forward_counts`)."""
     if paths is None:
         paths = material_path_sinogram(phantom, ct, device=device)
     return sp_ops.forward_counts(paths, phantom, spec, ct, noise=noise,
-                                 generator=generator)
+                                 generator=generator, bowtie=bowtie,
+                                 tcm=tcm, sigma_e=sigma_e)
 
 
 def get_recon(sino_log, ct, spec, N_matrix, FOV, ramp, *, window="sinc"):

@@ -1,0 +1,30 @@
+"""Where an entry point of the port runs, and its array inputs as tensors.
+
+An entry point runs on the device of its first array when that is a
+tensor, else on its ``device=`` argument, and by default on the card.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["device_of", "as_float"]
+
+
+def device_of(x, device):
+    """The device of ``x`` when it is a tensor, else ``device`` (default:
+    the card)."""
+    if torch.is_tensor(x):
+        return x.device
+    return torch.device("cuda" if device is None else device)
+
+
+def as_float(x, device):
+    """``x`` as a tensor on ``device``: a floating tensor keeps its dtype;
+    an integer tensor and anything else (NumPy arrays, lists, scalars)
+    become float32, the JAX package's working type."""
+    if torch.is_tensor(x):
+        x = x.to(device)
+        return x if x.is_floating_point() else x.to(torch.float32)
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)

@@ -59,6 +59,11 @@ _SIGNATURES = {
     # warm_bf16, scale, a_lo, a_hi, step_max, eps_init, clip, stream
     "dexct_gauss_newton": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _F, _F, _F,
                            _F, _F, _F, _P),
+    # counts, block_group, scales, tables, out, n_pix, block, e_full,
+    # e_warm, n_warm, n_pol, warm_bf16, a_lo, a_hi, step_max, eps_init,
+    # clip, stream
+    "dexct_gauss_newton_grouped": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
+                                   _I, _I, _F, _F, _F, _F, _F, _P),
     # packed, cos_b, sin_b, out, n_images, V, C, N, px, half, sid, dgamma,
     # dbeta, stream
     "dexct_fan_backproject": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,

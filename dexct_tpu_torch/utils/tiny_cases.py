@@ -6,8 +6,10 @@ so that a caller runs it once per device and compares the two: the 2-D
 iterative reconstructions and the one-step fit on a 48^2 Fourier plan
 (n_theta = 96, 64 x 48 rays), one gradient of the one-step objective, the
 2-D and 3-D dose maps of a 32^2 three-material phantom, the single- and
-dual-energy noise maps of a 48^2 cylinder, and fan- and cone-beam single
-scatter through a 32^2 (x 8) three-material phantom.  The card tests
+dual-energy noise maps of a 48^2 cylinder, fan- and cone-beam single
+scatter through a 32^2 (x 8) three-material phantom, and the realism
+paths (a bowtie under an artifact chain, tube-current modulation, the
+anode heel) through the same phantom.  The card tests
 (``tests/test_torch_cuda.py``) and ``chip_smoke.py``'s phase 5 both run
 them, with the tolerances below.
 """
@@ -19,8 +21,9 @@ import torch
 
 __all__ = ["ITERATIVE_PATHS", "ITERATIVE_TOL", "GRADIENT_TOL", "DOSE_KINDS",
            "DOSE_TOL", "NOISE_TOL", "SCATTER_KINDS", "SCATTER_TOL",
-           "fourier_plan", "iterative_2d", "onestep_gradient", "dose_inputs",
-           "dose", "noise_maps", "scatter"]
+           "REALISM_KINDS", "REALISM_TOL", "fourier_plan", "iterative_2d",
+           "onestep_gradient", "dose_inputs", "dose", "noise_maps",
+           "scatter", "realism"]
 
 ITERATIVE_PATHS = ("cg", "sirt", "pwls", "onestep")
 # of the result's largest value: the adjoints' float32 atomics add in no
@@ -38,6 +41,11 @@ SCATTER_KINDS = ("fan", "fan_compton", "fan_mev", "cone")
 # of the scatter sinogram's largest value: float32 sums over vertices,
 # energies and march steps in another order
 SCATTER_TOL = 1e-4
+REALISM_KINDS = ("realistic", "tcm", "heel")
+# of each output's largest value: K29's bfloat16 warm phase rounds apart
+# from its plain twin (1e-4 of the basis sinogram), and the chain's Wiener
+# restoration and afterglow recursion carry the convolutions' rounding
+REALISM_TOL = 1e-3
 
 VIEW_SHAPE = (64, 48)
 
@@ -255,3 +263,64 @@ def scatter(kind, device):
     return scatter_physics.single_scatter_sinogram(
         _three_materials(), ct, spec, coarse=2, n_energy=8, views=views,
         coherent=kind != "fan_compton", device=device)
+
+
+def _realism_spectra(ct):
+    from ..physics import kramers_spectrum, linac_spectrum
+
+    s1 = linac_spectrum()
+    s1.rescale_counts(ct.A_iso * 9.0 / ct.N_proj)
+    s2 = kramers_spectrum(80.0)
+    s2.rescale_counts(ct.A_iso * 1.0 / ct.N_proj)
+    return s1, s2
+
+
+def realism(kind, device):
+    """One realism path on a tiny scan, no noise: ``'realistic'`` (a
+    4-level bowtie under MTF, gains and afterglow, 48 views x 64 channels
+    through the 32^2 phantom; K1, K28, K29), ``'tcm'`` (the auto profile,
+    K1, K2, K3) or ``'heel'`` (a 20 um heel on a 24 x 4 x 32 cone through
+    the phantom extruded to 8 slices; K10, K28, K29).  Returns the log and
+    basis sinograms stacked, [4, ...], on the CPU."""
+    from ..ops.afterglow import decay_per_view
+    from ..ops.bowtie import bowtie_fluence, design_flattening_bowtie
+    from ..ops.conebeam import simulate_cone_dect
+    from ..ops.heel import HeelEffect
+    from ..ops.mtf import focal_spot_kernel
+    from ..pipeline import realism as rl
+    from ..pipeline.tcm import simulate_tcm_dect
+    from ..system import ConeBeamGeometry, FanBeamGeometry
+
+    kw = dict(gamma_fan=0.9, SID=60.0, SDD=100.0, eid=True)
+    if kind == "heel":
+        ct = ConeBeamGeometry(N_channels=32, N_proj=24, N_rows=4, h_iso=0.5,
+                              **kw)
+        res = simulate_cone_dect(ct, _three_materials(8), *_realism_spectra(
+            ct), 32, 20.0, 0.8, device=device, n_iters=10, do_recon=False,
+            heel=HeelEffect(d0_cm=20e-4))
+        out = res["sino_log"] + res["mat_sinos"]
+    else:
+        ct = FanBeamGeometry(N_channels=64, N_proj=48, **kw)
+        s1, s2 = _realism_spectra(ct)
+        ph = _three_materials()
+        if kind == "tcm":
+            res = simulate_tcm_dect(ct, ph, s1, s2, 32, 20.0, 0.8,
+                                    n_iters=10, do_recon=False,
+                                    device=device)
+        else:
+            bt = design_flattening_bowtie(ct, 6.0, n_steps=4)
+            gains = np.random.default_rng(12).normal(1.0, 0.01, 64)
+
+            def chain(spec):
+                air = torch.as_tensor(bowtie_fluence(spec, ct, bt).sum(-1),
+                                      dtype=torch.float32)
+                return [rl.stage_mtf(focal_spot_kernel(ct, 0.1), nsr=1e-6),
+                        rl.stage_gains(gains.astype(np.float32), air),
+                        rl.stage_afterglow([0.05], decay_per_view([3.0],
+                                                                  1.0))]
+
+            res = rl.simulate_dect_realistic(
+                ct, ph, s1, s2, 32, 20.0, 0.8, chain(s1), chain(s2),
+                n_iters=10, do_recon=False, bowtie=bt, device=device)
+        out = res.sino_log + res.mat_sinos
+    return torch.stack(out).cpu()

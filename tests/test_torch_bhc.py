@@ -146,8 +146,27 @@ def test_bhc_on_a_cone_config_warns(tmp_path):
 
 
 def test_bowtie_bhc_is_not_ported_yet(bone_scan):
-    _, ct = bone_scan
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_bhc.fit_water_bhc_bowtie(_spectrum("80kV", ct), ct, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_bhc.WaterBhcBowtie(np.zeros((4, 7)), 0.2, 50.0)
+    """Once refused here, the bowtie water BHC now runs: on this file's
+    96-channel fan with an 8-level bowtie its per-channel coefficients
+    equal the JAX package's to rtol 1e-12 (host float64), and its Horner
+    evaluation on the scan's log sinogram agrees to rtol 1e-6."""
+    from dexct_tpu.ops.bowtie import design_flattening_bowtie as j_design
+    from dexct_tpu_torch.ops.bowtie import (design_flattening_bowtie as
+                                            t_design)
+    from dexct_tpu_torch.system import FanBeamGeometry as TFan
+
+    ph, ct = bone_scan
+    tct = TFan(N_channels=96, N_proj=96, gamma_fan=0.8230337, SID=60.0,
+               SDD=100.0, eid=True)
+    spec = _spectrum("80kV", ct)
+    jbt, tbt = j_design(ct, 11.0, n_steps=8), t_design(tct, 11.0, n_steps=8)
+    want = j_bhc.fit_water_bhc_bowtie(spec, ct, jbt)
+    got = t_bhc.fit_water_bhc_bowtie(spec, tct, tbt)
+    np.testing.assert_allclose(got.coeffs_ch, want.coeffs_ch, rtol=1e-12,
+                               atol=1e-15)
+    log = np.array(get_sino(ct, ph, spec, bowtie=jbt)[1])
+    np.testing.assert_allclose(got(torch.as_tensor(log)).numpy(),
+                               np.asarray(want(jnp.asarray(log))),
+                               rtol=1e-6, atol=1e-6)
+    by_hand = t_bhc.WaterBhcBowtie(want.coeffs_ch, want.mu_eff, want.t_max)
+    assert by_hand.mu_eff == got.mu_eff

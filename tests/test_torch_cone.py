@@ -758,12 +758,11 @@ def test_recon3d_mismatch_raises(tmp_path, kind, recon3d):
 
 @pytest.mark.parametrize("choice", ["inplane_ffs", "weighting", "heel"])
 def test_unported_3d_choices_raise(tmp_path, choice):
-    """What the stateless branch still refuses, naming its ROADMAP item:
-    the anode heel.  The 2-D in-plane flying focal spot and the generalized
-    Feldkamp's study weightings, once refused here too, now run: the
-    composed path's 16-tap FFS rebin writes the JAX CLI's 12 files, and
-    ``simulate_cone_dect(recon='helical', weighting='td')`` gives the JAX
-    package's volumes."""
+    """The choices the stateless branch once refused now run: the 2-D
+    in-plane flying focal spot (the composed path's 16-tap FFS rebin writes
+    the JAX CLI's 12 files), the generalized Feldkamp's study weightings
+    (``simulate_cone_dect(recon='helical', weighting='td')`` gives the JAX
+    package's volumes) and the anode heel."""
     if choice == "inplane_ffs":
         from dexct_tpu.run import main as j_main
         from dexct_tpu_torch.run import main as t_main
@@ -803,12 +802,21 @@ def test_unported_3d_choices_raise(tmp_path, choice):
                                            np.asarray(want[key][i]),
                                            err_msg=f"{key}[{i}]", **tol)
         return
+    # the anode heel, once refused here, now runs on the helix: finite,
+    # and a zero-depth heel is the heel-free pipeline bit for bit (its
+    # parity with the JAX package is tests/test_torch_heel.py's)
+    from dexct_tpu_torch.ops.heel import HeelEffect
+
     ct = THelix(N_channels=32, N_proj=48, N_rows=4, h_iso=0.5,
                 rotation_total=4 * np.pi, pitch=2.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        heel = type("Heel", (), {"d0_cm": 1e-3})()
-        simulate_cone_dect(ct, _water3d(4), *_spectra(ct), 16, 18.0, 0.8,
-                           device="cpu", heel=heel)
+    runs = [simulate_cone_dect(ct, _water3d(4), *_spectra(ct), 16, 18.0, 0.8,
+                               device="cpu", n_iters=4, heel=heel)
+            for heel in (HeelEffect(d0_cm=1e-3), HeelEffect(d0_cm=0.0),
+                         None)]
+    assert all(bool(torch.isfinite(x).all()) for k in runs[0]
+               for x in runs[0][k])
+    assert all(torch.equal(a, b) for k in runs[1]
+               for a, b in zip(runs[1][k], runs[2][k]))
 
 
 def test_back_project_false_writes_no_volumes(tmp_path):

@@ -1059,3 +1059,150 @@ def test_cone_scatter_one_row_is_the_fan(dev):
                                     device=dev)[0]
     sel = s2 > 0.2 * s2.max()
     assert np.median(np.abs(s3[sel] - s2[sel]) / s2[sel]) < 0.05
+
+
+def _k3_golden_case():
+    """A fixed K3 case: 4096 pixels of two basis materials under the tiny
+    cases' linac / 80 kV pair, 50 iterations."""
+    from dexct_tpu_torch.physics import kramers_spectrum, linac_spectrum
+    from dexct_tpu_torch.system import FanBeamGeometry
+
+    ct = FanBeamGeometry(N_channels=64, N_proj=64, eid=True)
+    s1, s2 = linac_spectrum(), kramers_spectrum(80.0)
+    s1.rescale_counts(ct.A_iso * 9.0 / ct.N_proj)
+    s2.rescale_counts(ct.A_iso * 1.0 / ct.N_proj)
+    _, i0, mus = prepare_decomposition(ct, s1, s2)
+    rng = np.random.default_rng(29)
+    a = np.stack([rng.uniform(0, 40, 4096), rng.uniform(0, 6, 4096)], -1)
+    counts = (np.exp(-a @ mus) @ i0.T).T.astype(np.float32)
+    return counts, i0.astype(np.float32), mus.astype(np.float32)
+
+
+@pytest.mark.parametrize("layout", ["bowtie", "heel", "one_row"])
+@pytest.mark.parametrize("with_t2", [False, True])
+def test_table_counts_matches_plain(dev, layout, with_t2):
+    """K28 in both table modes (a per-channel table, stride 1; a per-row
+    table, stride C) against its plain twin, and with a one-row table
+    against K2 on the same rays (its table is K2's fluence), rel 1e-5."""
+    from dexct_tpu_torch.ops.spectral import (counts_from_table,
+                                              counts_from_table_plain)
+
+    rng = np.random.default_rng(30)
+    V, R, C, M, E = 7, 5, 96, 6, 141
+    paths = torch.as_tensor(rng.uniform(-0.2, 5, (V, R, C, M)),
+                            dtype=torch.float32, device=dev)
+    mu = torch.as_tensor(rng.uniform(0.01, 2.0, (M, E)), dtype=torch.float32,
+                         device=dev)
+    n_rows, stride = {"bowtie": (C, 1), "heel": (R, C),
+                      "one_row": (1, 1)}[layout]
+    tab = torch.as_tensor(rng.uniform(0, 1e6, (n_rows, E)),
+                          dtype=torch.float32, device=dev)
+    tab2 = tab * 60.0 if with_t2 else None
+    before = counts_from_table.launches
+    got = counts_from_table(paths, mu, tab, tab2, stride=stride)
+    torch.cuda.synchronize()
+    assert counts_from_table.launches == before + 1
+    got = got if with_t2 else (got,)
+    want = [counts_from_table_plain(paths, mu, t, stride=stride)
+            for t in (tab, tab2) if t is not None]
+    for g, w in zip(got, want):
+        assert g.shape == (V, R, C)
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
+    if layout == "one_row":
+        k2 = counts_from_paths(paths, mu, tab[0])
+        torch.testing.assert_close(got[0], k2, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("grouping", ["bowtie", "heel"])
+def test_gauss_newton_grouped_matches_plain(dev, grouping):
+    """K29 against its plain twin (``gauss_newton_solve`` per group) on
+    bowtie thickness groups of uneven size and on detector rows, each
+    pixel's counts made with its own group's table (as an acquisition
+    makes them), at K3's bar (1e-4 of max(|a|, 1))."""
+    from dexct_tpu_torch.ops.matdecomp import (
+        gauss_newton_solve_grouped, gauss_newton_solve_grouped_plain)
+
+    _, i0, mus = _k3_golden_case()
+    rng = np.random.default_rng(31)
+    if grouping == "bowtie":
+        group = np.minimum(rng.geometric(0.3, 4096) - 1, 9)
+        G = 10
+    else:
+        group = np.arange(4096) // 256 % 16  # 16 rows of 256 channels
+        G = 16
+    i0_g = i0[None] * np.exp(-np.linspace(0, 3, G)[:, None, None]
+                             * rng.uniform(0.2, 1.0, (1, 1, i0.shape[1])))
+    a = np.stack([rng.uniform(0, 40, 4096), rng.uniform(0, 6, 4096)], -1)
+    atten = np.exp(-a @ mus.astype(np.float64))  # [P, E]
+    counts = np.einsum("pe,pme->mp", atten, i0_g[group]).astype(np.float32)
+    args = [torch.as_tensor(x, device=dev) for x in
+            (counts, group, i0_g.astype(np.float32), mus)]
+    before = gauss_newton_solve_grouped.launches
+    got = gauss_newton_solve_grouped(*args, n_iters=50)
+    torch.cuda.synchronize()
+    assert gauss_newton_solve_grouped.launches == before + 1
+    want = gauss_newton_solve_grouped_plain(*args, n_iters=50)
+    err = (got - want).abs() / torch.clamp_min(want.abs(), 1.0)
+    assert float(err.max()) < 1e-4
+
+
+def test_k29_one_group_is_k3_bit_for_bit(dev):
+    """K29 and K3 share the per-pixel body and the tables: one group over
+    all pixels gives K3's result bit for bit."""
+    from dexct_tpu_torch.ops.matdecomp import gauss_newton_solve_grouped
+
+    counts, i0, mus = (torch.as_tensor(x, device=dev)
+                       for x in _k3_golden_case())
+    k3 = gauss_newton_solve(counts, i0, mus, n_iters=50)
+    one = gauss_newton_solve_grouped(
+        counts, torch.zeros(counts.shape[1], dtype=torch.int64, device=dev),
+        i0[None], mus, n_iters=50)
+    assert torch.equal(one, k3)
+
+
+# sha1 of K3's output on _k3_golden_case from the build of K3's source
+# before K29 came to share its per-pixel body (NVIDIA H100 80GB HBM3,
+# CUDA 12.8): the refactor left K3 bit for bit as it was
+K3_GOLDEN_SHA1 = "ab01dea7e520a0199077119cd1b3db9294a9e1a9"
+
+
+def test_k3_output_is_unchanged(dev):
+    import hashlib
+
+    counts, i0, mus = (torch.as_tensor(x, device=dev)
+                       for x in _k3_golden_case())
+    out = gauss_newton_solve(counts, i0, mus, n_iters=50).cpu().numpy()
+    assert hashlib.sha1(out.tobytes()).hexdigest() == K3_GOLDEN_SHA1
+
+
+@pytest.mark.parametrize("kind", tiny_cases.REALISM_KINDS)
+def test_realism_paths_cuda_match_cpu(dev, kind):
+    got = tiny_cases.realism(kind, dev)
+    want = tiny_cases.realism(kind, "cpu")
+    for g, w in zip(got, want):
+        big = float(w.abs().max())
+        assert float((g - w).abs().max()) <= tiny_cases.REALISM_TOL * big
+
+
+def test_realism_numpy_inputs_run_on_the_card(dev):
+    """The realism entry points given NumPy arrays and no ``device`` run on
+    the card and agree with the CPU (the MTF blur 1e-5 relative: float32
+    correlations summed in another order)."""
+    from dexct_tpu_torch.ops import afterglow, mtf, rings
+    from dexct_tpu_torch.pipeline.tcm import normalize_counts
+    from dexct_tpu_torch.physics import pileup
+
+    rng = np.random.default_rng(33)
+    x = rng.uniform(1e3, 1e5, (16, 40)).astype(np.float32)
+    k = np.array([0.2, 0.6, 0.2], np.float32)
+    for fn in (lambda d: mtf.apply_detector_mtf(x, k, device=d),
+               lambda d: afterglow.apply_afterglow(x, [0.1], [0.5],
+                                                   device=d),
+               lambda d: rings.ring_correct_sinogram(np.log(x), device=d),
+               lambda d: pileup.recorded_rate(1e-6 * x, device=d),
+               lambda d: normalize_counts(x, np.linspace(0.5, 2, 16),
+                                          device=d)):
+        on_card = fn(None)
+        assert on_card.device.type == "cuda"
+        torch.testing.assert_close(on_card.cpu(), fn("cpu"), rtol=1e-5,
+                                   atol=0)

@@ -7,7 +7,7 @@ Needs one CUDA device, the CUDA toolkit (nvcc) and Triton; imports nothing
 of JAX.  Phases, each of which raises on failure:
 
 1. Device: the card's name and power limit (nvidia-smi).
-2. Build: nvcc builds kernels K1, K3-K13, K15-K27 and K29 from
+2. Build: nvcc builds kernels K1, K3-K13, K15-K27 and K29-K33 from
    ``dexct_tpu_torch/csrc`` (one nvcc per source, all at once); Triton
    compiles K2, K14 and K28.
 3. Each kernel against its plain PyTorch version on the card, on the
@@ -53,7 +53,14 @@ of JAX.  Phases, each of which raises on failure:
    second-moment table, and on the anode heel's 16 rows at the cone
    config; K29 (the grouped Gauss-Newton solve) on the 31 bowtie groups
    (50 iterations) and the 16 heel rows, and with one group bitwise
-   against K3.
+   against K3.  K30 (the motion-compensated fan backprojection) on the
+   motion path's filtered 80 kV sinogram of the breathing pelvis and its
+   true track, and at zero pose bitwise against K4; K31 (the gated
+   backprojection) on the gated path's 4000-view thorax scan with its four
+   gates in one launch, and with all-ones weights over one turn against K4
+   where every view's fan covers the pixel; K32 and K33 (the
+   motion-compensated cone FDK and helical gFDK) on the cone config's
+   z-breathing stack and the helical config's stack under a 1.6 cm drift.
 4. The paths: the default and the exact path through
    ``dexct_tpu_torch.run.main`` on ``input/params.txt``, then the cone,
    helical, flat-panel, tilted, z-FFS and Katsevich configs, the
@@ -110,13 +117,30 @@ of JAX.  Phases, each of which raises on failure:
    ``simulate_dect``, and with compound noise and an electronic floor) and
    ``heel`` (``simulate_cone_dect(heel=)`` on the cone config: d0 = 0 bit
    for bit the heel-free run, the row-grouped solve 5x closer to the
-   heel-free basis sinogram than K3's).
+   heel-free basis sinogram than K3's).  Then the patient-motion paths,
+   each twice: ``motion`` (the breathing pelvis at the reference
+   protocol: ``material_path_sinogram_motion``, counts, decomposition,
+   ``fbp_recon_motion`` of the four sinograms, ``estimate_translation``,
+   ``estimate_motion_joint`` at 800 iterations and
+   ``onestep_spectral_recon(motion=)`` at 300: the compensated images at
+   least MOTION_RATIO_REF times closer to the static image than the
+   uncorrected ones, both tracks' errors within MOTION_TRACK_REF's bands of
+   the JAX package's and the joint one below the centroid one, the
+   one-step loss falling, air ~ -1000 HU), ``gated`` (a breathing thorax
+   over four turns, ``gated_series`` with four gates: the gate at the pose
+   extreme under 0.6x the ungated lung error) and ``motion_3d`` (the cone
+   config under a 0.5 cm and the helical config under a 1.6 cm z drift
+   through ``fdk_reconstruct_motion`` and
+   ``helical_fdk_reconstruct_motion``: zero motion against the static
+   reconstructions, compensated below uncorrected and on the helix at
+   least the JAX package's ratios, the compensated air ~ -1000 HU on the
+   cone and at the JAX package's -1129 HU on the helix).
 5. A 64^2 config through the port on ``--device cpu`` and ``--device
    cuda`` under every 2-D path's flags and configuration, tiny versions of
    every 3-D path, a tiny z-stack, and tiny versions of the six library
-   paths above, tiny noise maps and fan and cone scatter, and tiny
-   versions of the three realism paths; every output agrees to the
-   pipeline tolerances.
+   paths above, tiny noise maps and fan and cone scatter, tiny versions
+   of the three realism paths and of the three motion paths; every output
+   agrees to the pipeline tolerances.
 
 The last two lines of standard output are the kernels' JSON record and the
 device JSON line.
@@ -238,6 +262,24 @@ KERNELS = {
                              "dexct_tpu/ops/heel.py:179",
                              "max |d| / max(|a|, 1) <= 1e-4; one group "
                              "bitwise equal to K3"),
+    "fan_backproject_motion": ("cuda",
+                               "dexct_tpu_torch/csrc/fan_backproject.cu",
+                               "dexct_tpu/ops/motion.py:256",
+                               "max abs <= 1e-5 x max |plain|; bitwise "
+                               "equal to K4 at zero pose"),
+    "gated_backproject": ("cuda", "dexct_tpu_torch/csrc/fan_backproject.cu",
+                          "dexct_tpu/pipeline/gated.py:79",
+                          "max abs <= 1e-5 x max |plain|; all-ones over "
+                          "one turn = K4 within 1e-5 x max where every "
+                          "view's fan covers the pixel"),
+    "fdk_backproject_motion": ("cuda",
+                               "dexct_tpu_torch/csrc/cone_backproject.cu",
+                               "dexct_tpu/ops/motion.py:514",
+                               "max abs <= 1e-4 x max |plain|"),
+    "helical_backproject_motion": ("cuda",
+                                   "dexct_tpu_torch/csrc/cone_backproject.cu",
+                                   "dexct_tpu/ops/motion.py:831",
+                                   "max abs <= 1e-4 x max |plain|"),
 }
 # the library paths of the helical study reconstructors and the exact 3-D
 # iterative reconstruction, and the kernels each launches
@@ -269,6 +311,56 @@ TCM_KERNELS = ("siddon_trace", "spectral_counts", "gauss_newton",
                "fan_backproject")
 HEEL_KERNELS = ("siddon_trace_3d", "table_counts", "gauss_newton_grouped",
                 "fdk_backproject")
+# the library paths of patient motion and gated reconstruction, and the
+# kernels each launches: the motion-compensated FBP (K30) with the joint
+# estimator and the motion-compensated one-step fit on the Fourier
+# projector's Radon transform (K7, K21 in the backward pass); the gated
+# series (K31); the motion-compensated cone FDK (K32) and helical gFDK (K33)
+MOTION_KERNELS = ("siddon_trace", "spectral_counts", "gauss_newton",
+                  "fan_backproject_motion", "kb_sample", "kb_sample_adjoint")
+GATED_KERNELS = ("siddon_trace", "gated_backproject")
+MOTION_3D_KERNELS = ("siddon_trace_3d", "spectral_counts", "gauss_newton",
+                     "fdk_backproject_motion", "helical_backproject_motion")
+# the motion path's breathing track (tests/test_motion.py:96-110)
+MOTION_TRACK = dict(amplitude_cm=0.8, cycles=1.5, direction=(1.0, 0.4))
+# the JAX package's ratio of the uncorrected to the motion-compensated rms
+# error against the static image, the least over the two log and two basis
+# images, on the same scene at half resolution (motion_reference in
+# tests/test_torch_motion.py: 3.8842, 3.8881, 3.7959, 3.8686); the card's
+# least ratio must reach it
+MOTION_RATIO_REF = 3.7959
+# the JAX package's track errors over the rms amplitude on the same scene
+# at half resolution (motion_reference: centroid 3.3891, joint 3.0082), and
+# the bands the card's must lie in: the centroid fit is host float64
+# (3.3911 in three runs on an H100), the joint one float32 Adam at twice
+# the sampling (2.9664-2.9667 in the same runs)
+MOTION_TRACK_REF = ((3.3891, 0.01), (3.0082, 0.1))
+# the gated path (tests/test_gated.py:98-134 at the reference fan): the
+# thorax at 70 keV, GATED_TURNS turns of the reference protocol's views,
+# AP breathing of GATED_AMP_CM with GATED_CYCLES cycles over the scan,
+# GATED_GATES gates of width 0.3; the gate at the pose extreme must beat
+# the ungated average on the lungs by GATED_FACTOR
+GATED_TURNS, GATED_CYCLES, GATED_AMP_CM, GATED_KEV = 4, 5, 0.8, 70.0
+GATED_GATES, GATED_FACTOR = 4, 0.6
+# the motion_3d path's axial drifts: 0.5 cm on the cone config, 1.6 cm on
+# the helical one (dexct_tpu/ops/motion.py:90-92)
+CONE_DZ_CM, HELICAL_DZ_CM = 0.5, 1.6
+# the JAX package's readings of the helical motion_3d scene at half its
+# in-plane resolution (_helical_reference in tests/test_torch_motion.py):
+# each image's ratio of the uncorrected to the compensated rms error (log
+# detunedMV, log 80 kV, tissue, bone; the card's must reach each and
+# exceed 1), and the compensated 80 kV air ROI HU (-1129.19: at the
+# track's peak the object moves 3.8 cm per turn against the 3 cm table
+# feed, so the object-frame helix reverses; the card's within AIR_TOL_HU
+# of it)
+HELICAL_RATIO_REF = (0.9104, 1.1938, 1.1039, 2.0435)
+HELICAL_AIR_REF, AIR_TOL_HU = -1129.19, 50.0
+# K32/K33's operations (exp, atan2, division, square root count one): per
+# (disc pixel, view) the in-plane geometry, the pose 8, ell, vt, h^2 and
+# 1 / h 13, the channel and its fan test 7, the channel tap 6 and 1 / h^2
+# 1; per (pixel, slice, view) row the row position and its test 6 and the
+# coverage count 1; per row with taps the row tap 7 (and 7 per image)
+MOTION_PLANE_OPS, MOTION_ROW_OPS, MOTION_TAP_OPS = 35, 7, 7
 # the JAX study's bowtie (tools/protocol3d_study.py:120) and heel
 # (tools/smoke_r3s5.py:81)
 BOWTIE_RADIUS_CM = 15.0
@@ -1931,11 +2023,537 @@ def heel_path(ccfg, spectra, records, smi, dev):
         fail("the heel path misses its checks")
 
 
+def motion_scan(cfg, spectra, track, dev, static=False):
+    """The reference protocol's scan of the moving pelvis (or, ``static``,
+    of the still one): exact paths on the object-frame rays (K1), both
+    acquisitions' counts and logs (K2) and their decomposition (K3, 50
+    iterations).  Returns (c1, c2, [log1, log2, tissue, bone])."""
+    from dexct_tpu_torch.ops import matdecomp, motion, siddon, spectral
+
+    ct, ph = cfg.ct, cfg.phantom
+    s1, s2 = spectra(ct)
+    paths = (siddon.material_path_sinogram(ph, ct, device=dev) if static
+             else motion.material_path_sinogram_motion(ph, ct, track,
+                                                       device=dev))
+    (c1, l1), (c2, l2) = (spectral.forward_counts(paths, ph, s, ct)
+                          for s in (s1, s2))
+    m1, m2 = matdecomp.decompose_sinograms(ct, c1, c2, s1, s2, n_iters=50)
+    return c1, c2, [l1, l2, m1, m2]
+
+
+def gated_scan(cfg, dev):
+    """The gated path's scan: the port's thorax at 256^2 (0.2 cm) under
+    the reference fan over GATED_TURNS turns, AP breathing with
+    GATED_CYCLES cycles over the scan, monoenergetic at GATED_KEV (K1).
+    Returns (geometry, the breathing period in views, phantom, log
+    sinogram, mu)."""
+    import dataclasses
+
+    import numpy as np
+
+    from dexct_tpu_torch.ops import motion
+    from dexct_tpu_torch.ops.siddon import mono_sinogram
+    from dexct_tpu_torch.pipeline.gated import view_phases
+    from dexct_tpu_torch.system.phantom import thorax_phantom
+
+    ph = thorax_phantom(N=256, dx=0.2)
+    ct = dataclasses.replace(
+        cfg.ct, N_proj=GATED_TURNS * cfg.ct.N_proj,
+        rotation_total=GATED_TURNS * cfg.ct.rotation_total)
+    period = ct.N_proj / GATED_CYCLES
+    ph_v = view_phases(ct.N_proj, period)
+    disp = GATED_AMP_CM * np.sin(2.0 * np.pi * ph_v)[:, None] \
+        * np.array([[0.0, 1.0]])
+    track = motion.MotionProfile(np.zeros(ct.N_proj), disp)
+    mu = ph.materials.mu_table(np.array([GATED_KEV]))[:, 0]
+    sino = mono_sinogram(motion.material_path_sinogram_motion(
+        ph, ct, track, device=dev), mu)
+    return ct, period, ph, sino, mu
+
+
+def motion_3d_stack(ccfg, spectra, track, dev):
+    """One motion_3d scan: the exact cone paths of the moving pelvis (K10),
+    both acquisitions (K2) and their decomposition (K3, 50 iterations),
+    stacked [log1, log2, tissue, bone] as [4, V, R, C]."""
+    import torch
+
+    from dexct_tpu_torch.ops import matdecomp, motion, spectral
+
+    ct, ph = ccfg.ct, ccfg.phantom
+    s1, s2 = spectra(ct)
+    paths = motion.cone_material_paths_motion(ph, ct, track, device=dev)
+    (c1, l1), (c2, l2) = (spectral.forward_counts(paths, ph, s, ct)
+                          for s in (s1, s2))
+    m1, m2 = matdecomp.decompose_sinograms(ct, c1, c2, s1, s2, n_iters=50)
+    return torch.stack([l1, l2, m1, m2])
+
+
+def covered_by_every_view(betas, ct, n, fov):
+    """[N, N] mask of the pixels inside every view's fan (K4's channel
+    test), and its count."""
+    import torch
+
+    from dexct_tpu_torch.ops.fbp_fast import _pixel_coords
+
+    X, Y = _pixel_coords(n, fov, torch.float32, betas.device)
+    count = torch.zeros_like(X, dtype=torch.int64)
+    C = ct.N_channels
+    for v0 in range(0, betas.shape[0], 50):
+        b = betas[v0:v0 + 50, None]
+        vr = X[None] * torch.cos(b) + Y[None] * torch.sin(b) - ct.SID
+        vt = -X[None] * torch.sin(b) + Y[None] * torch.cos(b)
+        c = torch.atan2(-vt, -vr) / ct.dgamma - 0.5 + C / 2.0
+        count += ((c >= 0) & (c <= C - 1)).sum(0)
+    mask = (count == betas.shape[0]).reshape(n, n)
+    return mask, int(mask.sum())
+
+
+def motion_kernel_phase(cfg, cone_cfgs, spectra, records, dev):
+    """Phase 3, K30-K33 against their plain versions on the inputs their
+    paths give them.  K30: the motion path's filtered 80 kV log sinogram
+    (1000 x 800, the breathing pelvis) and true track -> 512^2, and at zero
+    pose bitwise against K4 on the same sinogram.  K31: the gated path's
+    filtered thorax sinogram (4000 x 800) with its four gates in one
+    launch, and all-ones weights over the first turn against K4 where
+    every view's fan covers the pixel.  K32: the cone config's filtered
+    [log1, log2, tissue, bone] stack of the z-breathing pelvis (360 x 16 x
+    256 -> 16 x 256^2).  K33: the helical config's stack under a 1.6 cm z
+    drift (720 x 16 x 256 -> 19 x 256^2).  Bounds from this run's terms:
+    K30 25 + 6 (pose) + 4 (tap) operations per pixel-view; K31 25 + 4 per
+    gate per pixel-view with any nonzero weight; K32 and K33 from the work
+    that the plain version counts on this run's track: MOTION_PLANE_OPS per
+    (disc pixel, view) whose in-plane geometry some slice takes,
+    MOTION_ROW_OPS per (pixel, slice, view) row evaluated (K33: inside the
+    slice's moving window), MOTION_TAP_OPS + 7 per image for each row on
+    the detector inside the fan (the per-(slice, view) z and window terms,
+    nz V of them, are left out)."""
+    import numpy as np
+    import torch
+
+    from dexct_tpu_torch.ops import conebeam, fbp_fast, motion
+    from dexct_tpu_torch.ops.fbp import filter_sinogram
+    from dexct_tpu_torch.pipeline import gated
+
+    ct, n, fov = cfg.ct, cfg.N_matrix, cfg.FOV
+    V, C = ct.N_proj, ct.N_channels
+    track = motion.MotionProfile.breathing(V, **MOTION_TRACK)
+    _, _, sinos = motion_scan(cfg, spectra, track, dev)
+    q = filter_sinogram(sinos[1], ct).contiguous()
+    betas = torch.as_tensor(ct.betas, dtype=torch.float32, device=dev)
+    dbeta = float(ct.rotation_total) / V
+    args = (q, betas, ct.SID, ct.dgamma, n, fov, track.phi, track.disp)
+    img, want, ms, pms = compare(
+        lambda: motion.fan_backproject_motion(*args, dbeta=dbeta),
+        lambda: motion.fan_backproject_motion_plain(*args, dbeta), reps=3)
+    err, big = max_err(img, want)
+    report(records, "fan_backproject_motion", err, ms, pms, err <= 1e-5 * big,
+           (nbytes(q, img) + 24 * V, n * n * V * (25 + 6 + 4)),
+           extra=f" (max |plain| {big:.6g} cm^-1)")
+    still = motion.fan_backproject_motion(
+        q, betas, ct.SID, ct.dgamma, n, fov, np.zeros(V), np.zeros((V, 2)),
+        dbeta=dbeta)
+    k4 = fbp_fast.fan_backproject_multi(fbp_fast.pack_filtered(q[None]), 1,
+                                        betas, ct.SID, ct.dgamma, C, n, fov,
+                                        dbeta)[0]
+    same = torch.equal(still, k4)
+    print(f"  fan_backproject_motion at zero pose bitwise equal to K4: "
+          f"{same}")
+    if not same:
+        fail("K30 at zero pose differs from K4")
+    del sinos, q
+
+    gct, period, _, gsino, _ = gated_scan(cfg, dev)
+    q = filter_sinogram(gsino, gct).contiguous()
+    gbetas = torch.as_tensor(gct.betas, dtype=torch.float32, device=dev)
+    ph_v = gated.view_phases(gct.N_proj, period)
+    w = torch.as_tensor(np.stack([gated.gate_weights(ph_v, g / GATED_GATES,
+                                                     0.3)
+                                  for g in range(GATED_GATES)]),
+                        dtype=torch.float32, device=dev)
+    gargs = (q, gbetas, w, gct.SID, gct.dgamma, n, fov)
+    frames, want, ms, pms = compare(
+        lambda: gated._gated_backproject(*gargs),
+        lambda: gated._gated_backproject_plain(*gargs), reps=2)
+    err, big = max_err(frames, want)
+    live = int((w != 0).any(0).sum())
+    report(records, "gated_backproject", err, ms, pms, err <= 1e-5 * big,
+           (nbytes(q, gbetas, w, frames), n * n * live * (25 + 4 * GATED_GATES)),
+           extra=f" ({GATED_GATES} gates x {gct.N_proj} views, {live} with "
+                 f"a nonzero weight; max |plain| {big:.6g} cm^-1)")
+    q1, b1 = q[:V].contiguous(), gbetas[:V]
+    ones = gated._gated_backproject(q1, b1, torch.ones(V, device=dev),
+                                    gct.SID, gct.dgamma, n, fov)
+    k4 = fbp_fast.fan_backproject_multi(fbp_fast.pack_filtered(q1[None]), 1,
+                                        b1, gct.SID, gct.dgamma, C, n, fov,
+                                        2.0 * np.pi / V)[0]
+    mask, n_cov = covered_by_every_view(b1, gct, n, fov)
+    err = float((ones - k4).abs()[mask].max())
+    big = float(k4.abs()[mask].max())
+    print(f"  gated_backproject all-ones over one turn vs K4 on the {n_cov} "
+          f"pixels every view's fan covers: max abs {err:.3g} (max "
+          f"{big:.4g}) [<= 1e-5 x max]")
+    if not err <= 1e-5 * big:
+        fail("K31 with all-ones weights differs from K4")
+    del gsino, q, q1
+
+    for label, dz_cm in (("cone", CONE_DZ_CM), ("helical", HELICAL_DZ_CM)):
+        ccfg = cone_cfgs[label]
+        cct = ccfg.ct
+        V3, R = cct.N_proj, cct.N_rows
+        track3 = motion.MotionProfile3D.breathing_z(V3, amplitude_cm=dz_cm)
+        stack = motion_3d_stack(ccfg, spectra, track3, dev)
+        qs, _ = motion._cone_filtered(stack, cct, ccfg.ramp, "sinc", None)
+        del stack
+        b3 = torch.as_tensor(cct.betas, dtype=torch.float32, device=dev)
+        n3, fov3 = ccfg.N_matrix, ccfg.FOV
+        X, Y, _ = conebeam._disc(n3, fov3, dev)
+        geo = (cct.SID, cct.dgamma, cct.h_iso)
+        if label == "cone":
+            nz, dz = R, cct.h_iso
+            z0 = (0.5 - nz / 2.0) * dz
+            grid = (n3, nz, fov3, dz, z0)
+            kern = lambda: motion._fdk_backproject_motion(  # noqa: E731
+                qs, b3, track3.phi, track3.disp, *geo, R, *grid)
+            window, name = None, "fdk_backproject_motion"
+        else:
+            z_out, dz = conebeam.helical_slices(cct)
+            nz, z0 = len(z_out), z_out[0]
+            grid = (n3, nz, fov3, dz, z0)
+            window = (np.asarray(cct.source_z), 0.5 * cct.rotation_total,
+                      cct.pitch)
+            kern = lambda: motion._helical_backproject_motion(  # noqa: E731
+                qs, b3, window[0], window[1], track3.phi, track3.disp, *geo,
+                R, cct.pitch, *grid)
+            name = "helical_backproject_motion"
+        plain = lambda **kw: motion._motion_backproject_plain(  # noqa: E731
+            qs, b3, track3.phi, track3.disp, *geo, *grid, 8, window=window,
+            **kw)
+        vol, want, ms, pms = compare(kern, plain, reps=1)
+        err, big = max_err(vol, want)
+        work = {}
+        plain(terms=work)
+        K = qs.shape[0]
+        report(records, name, err, ms, pms, err <= 1e-4 * big,
+               (nbytes(qs, vol) + 16 * X.shape[0] + 32 * V3,
+                MOTION_PLANE_OPS * work["pixel_views"]
+                + MOTION_ROW_OPS * work["terms"]
+                + (MOTION_TAP_OPS + 7 * K) * work["taps"]),
+               extra=f" ({label} config, {dz_cm} cm z drift, {nz} slices; "
+                     f"{work['pixel_views']} pixel-views, {work['terms']} "
+                     f"pixel-slice-views evaluated, {work['taps']} with "
+                     f"taps; max |plain| {big:.6g})")
+        del qs, vol, want
+        torch.cuda.empty_cache()
+
+
+def motion_path(cfg, spectra, records, smi, dev):
+    """Phase 4, rigid patient motion through the library at the reference
+    protocol, twice, with the launch counters checked: the breathing
+    pelvis's exact scan (``material_path_sinogram_motion``, K1), counts
+    (K2), decomposition (K3), ``fbp_recon_motion`` of both log and both
+    basis sinograms with the true track (K30), ``estimate_translation``,
+    ``estimate_motion_joint`` (its defaults: 800 Adam iterations, n_theta
+    512; K7 and K21) and ``onestep_spectral_recon(motion=)`` from the
+    compensated basis images (300 iterations).  Checks: finite outputs;
+    air ~ -1000 HU in the compensated 80 kV image; each compensated image's
+    rms error against the static scan's image at least MOTION_RATIO_REF
+    times below the uncorrected FBP's; the centroid and joint tracks' errors
+    within MOTION_TRACK_REF's bands of the JAX package's, the joint one
+    below the centroid one; the one-step data loss below its start's."""
+    import numpy as np
+    import torch
+
+    from dexct_tpu_torch.ops import fbp, fourier, motion, onestep
+    from dexct_tpu_torch.ops.matdecomp import (DEFAULT_BASIS,
+                                               prepare_decomposition)
+    from dexct_tpu_torch.pipeline.api import effective_water_mu
+
+    ct, n, fov = cfg.ct, cfg.N_matrix, cfg.FOV
+    s1, s2 = spectra(ct)
+    vs = (ct.N_proj, ct.N_channels)
+    track = motion.MotionProfile.breathing(ct.N_proj, **MOTION_TRACK)
+    ee, i0s, _ = prepare_decomposition(ct, s1, s2)
+    fns = zero_counters()
+    for run in (1, 2):
+        st = Stages()
+        c1, c2, sinos = motion_scan(cfg, spectra, track, dev)
+        st.mark("scan: trace, counts, decomposition (K1, K2, K3)")
+        mc = [motion.fbp_recon_motion(s, ct, n, fov, track)[0]
+              for s in sinos]
+        st.mark("fbp_recon_motion x 4 (K30)")
+        est0, _ = motion.estimate_translation(sinos[1], ct)
+        st.mark("estimate_translation (host)")
+        est, ximg = motion.estimate_motion_joint(sinos[1], ct, n, fov,
+                                                 init=est0)
+        st.mark("estimate_motion_joint, 800 iterations (K7, K21)")
+        plan = fourier.plan_fourier_projector(recon_grid(cfg), ct,
+                                              device=dev)
+        st.mark(f"Fourier plan of the {n}^2 grid (host)")
+        x0 = torch.clamp_min(torch.stack(mc[2:]), 0.0)
+        x = onestep.onestep_spectral_recon(
+            torch.stack([c1, c2]), ee, i0s, DEFAULT_BASIS, plan, vs, x0=x0,
+            motion=track, geometry=ct)
+        st.mark("onestep_spectral_recon(motion=), 300 iterations "
+                "(K7, K21)")
+        print(f"motion path (library, run {run}): "
+              f"{sum(st.t.values()) / 1e3:.3f} s on {smi}; stages (ms): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in st.t.items()))
+    check_launches("motion", fns, MOTION_KERNELS, records)
+    print_profiled("motion joint estimator (20 iterations)",
+                   lambda: motion.estimate_motion_joint(
+                       sinos[1], ct, n, fov, init=est0, n_iters=20))
+    outs = mc + [ximg, x, *sinos]
+    finite = all(bool(torch.isfinite(t).all()) for t in outs)
+    hu = fbp.hu_image(mc[1], effective_water_mu(s2, ct))
+    air = roi_mean(hu[None].cpu().numpy(), 0.0, -20.0, 0, fov)
+    _, _, still = motion_scan(cfg, spectra, track, dev, static=True)
+    ratios = []
+    for s_mov, s_still, fix in zip(sinos, still, mc):
+        ref = fbp.fbp_recon(s_still, ct, n, fov)[0]
+        bad = fbp.fbp_recon(s_mov, ct, n, fov)[0]
+        e_bad = float(torch.sqrt(torch.mean((bad - ref) ** 2)))
+        e_fix = float(torch.sqrt(torch.mean((fix - ref) ** 2)))
+        ratios.append(e_bad / e_fix)
+    amp = float(np.sqrt(np.mean(track.disp ** 2)))
+    errs = [float(np.sqrt(np.mean((e.disp - track.disp) ** 2))) / amp
+            for e in (est0, est)]
+    mus = torch.as_tensor(np.stack([b.mass_atten(ee) for b in
+                                    DEFAULT_BASIS]), dtype=torch.float32,
+                          device=dev)
+    data = onestep._objective(
+        lambda im, m, i: onestep.spectral_forward_images(
+            plan, im, m, i, vs,
+            disp=torch.as_tensor(track.disp, dtype=torch.float32,
+                                 device=dev),
+            resample_meta=motion.fan_line_coords(ct, dev)),
+        torch.stack([c1, c2]), mus,
+        torch.as_tensor(i0s, dtype=torch.float32, device=dev), 0.0, 1e-2)
+    with torch.no_grad():
+        loss0, loss = float(data(x0)), float(data(x))
+    print(f"  air ROI HU at (0, -20) cm of the compensated 80 kV image: "
+          f"{air:.2f}; uncorrected / compensated rms error against the "
+          f"static image (log detunedMV, log 80kV, tissue, bone): "
+          + ", ".join(f"{r:.4f}" for r in ratios)
+          + f" [>= {MOTION_RATIO_REF}, the JAX package's at half "
+          f"resolution]; track err/amp centroid {errs[0]:.4f}, joint "
+          f"{errs[1]:.4f} [JAX's at half resolution "
+          + ", ".join(f"{r} +- {t}" for r, t in MOTION_TRACK_REF)
+          + f"]; one-step normalized data loss {loss0:.6g} -> {loss:.6g}; "
+          f"finite: {finite}")
+    tracks_ok = all(abs(e - r) <= t
+                    for e, (r, t) in zip(errs, MOTION_TRACK_REF))
+    if not (finite and abs(air + 1000.0) <= AIR_TOL_HU
+            and min(ratios) >= MOTION_RATIO_REF and tracks_ok
+            and errs[1] < errs[0] and loss < loss0):
+        fail("the motion path misses its checks")
+
+
+def lung_mask(ph, n, fov):
+    """The thorax's lung pixels (label 5) on the n^2 image grid over fov
+    cm: each pixel centre's phantom cell."""
+    import numpy as np
+
+    c = (np.arange(n) + 0.5 - n / 2.0) * (fov / n)
+    idx = np.clip(np.floor(c / ph.dx + ph.Nx / 2.0).astype(int), 0,
+                  ph.Nx - 1)
+    return ph.slice_labels()[np.ix_(idx, idx)] == 5
+
+
+def gated_path(cfg, records, smi, dev):
+    """Phase 4, gated (4-D) reconstruction through the library: the
+    breathing thorax over GATED_TURNS turns of the reference fan (K1 on
+    the object-frame rays), ``gated_series`` with GATED_GATES gates of
+    width 0.3 (one K31 launch), twice, with the launch counters checked.
+    Checks: finite frames; the frame at the pose extreme (phase 0.25)
+    within GATED_FACTOR of the ungated average's rms error on the lungs,
+    both against the object frozen at that pose (one turn, static FBP)."""
+    import numpy as np
+    import torch
+
+    from dexct_tpu_torch.ops import fbp, motion
+    from dexct_tpu_torch.ops.siddon import mono_sinogram
+    from dexct_tpu_torch.pipeline import gated
+
+    n, fov = cfg.N_matrix, cfg.FOV
+    fns = zero_counters()
+    for run in (1, 2):
+        st = Stages()
+        gct, period, ph, sino, mu = gated_scan(cfg, dev)
+        st.mark(f"scan of {gct.N_proj} views (K1)")
+        frames = gated.gated_series(sino, gct, n, fov, period,
+                                    n_gates=GATED_GATES, width=0.3)
+        st.mark(f"gated_series, {GATED_GATES} gates (K31)")
+        print(f"gated path (library, run {run}): "
+              f"{sum(st.t.values()) / 1e3:.3f} s on {smi}; stages (ms): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in st.t.items()))
+    check_launches("gated", fns, GATED_KERNELS, records)
+    print_profiled("gated (scan and series)", lambda: gated.gated_series(
+        gated_scan(cfg, dev)[3], gct, n, fov, period, n_gates=GATED_GATES,
+        width=0.3))
+    ungated = gated.gated_fbp_recon(sino, gct, n, fov, np.ones(gct.N_proj))
+    V = cfg.ct.N_proj
+    frozen = motion.MotionProfile(np.zeros(V), np.broadcast_to(
+        [0.0, GATED_AMP_CM], (V, 2)).copy())
+    ref = fbp.fbp_recon(mono_sinogram(motion.material_path_sinogram_motion(
+        ph, cfg.ct, frozen, device=dev), mu), cfg.ct, n, fov)[0]
+    lung = torch.as_tensor(lung_mask(ph, n, fov), device=dev)
+    e_un = float(torch.sqrt(torch.mean((ungated - ref)[lung] ** 2)))
+    e_g = float(torch.sqrt(torch.mean((frames[1] - ref)[lung] ** 2)))
+    finite = bool(torch.isfinite(frames).all())
+    print(f"  {frames.shape[0]} frames of {n}^2; lung rms error against the "
+          f"frozen pose: gate at phase 0.25 {e_g:.5g}, ungated {e_un:.5g} "
+          f"(ratio {e_g / e_un:.3f}, <= {GATED_FACTOR}) on "
+          f"{int(lung.sum())} lung pixels; finite: {finite}")
+    if not (finite and e_g < GATED_FACTOR * e_un):
+        fail("the gated path misses its checks")
+
+
+def full_coverage_slices(ct, nz, dz, fov):
+    """The slices of a circular scan whose every disc voxel stays on the
+    detector rows for every view (one row of margin): |z| SID / (SID -
+    fov/2) <= (R/2 - 1) h_iso."""
+    import numpy as np
+
+    z = (np.arange(nz) + 0.5 - nz / 2.0) * dz
+    reach = np.abs(z) * ct.SID / (ct.SID - 0.5 * fov)
+    return np.nonzero(reach <= (0.5 * ct.N_rows - 1.0) * ct.h_iso)[0]
+
+
+def motion_3d_path(cone_cfgs, spectra, records, smi, dev):
+    """Phase 4, axial patient motion through the library, twice, with the
+    launch counters checked: the cone config under a CONE_DZ_CM breathing
+    drift (``cone_material_paths_motion``, K10; K2; K3;
+    ``fdk_reconstruct_motion`` of the four volumes, K32) and the helical
+    config under a HELICAL_DZ_CM drift (the same chain and
+    ``helical_fdk_reconstruct_motion``, K33).  Checks (after the counted
+    runs): zero motion against the static reconstructions of the still
+    scan (the cone's full-coverage slices within 1e-5 x max of K11's; the
+    helix within 0.1 x max of K12 'full''s, the JAX test's bound for its
+    window-edge flips); finite volumes; the 80 kV air ROI HU at (0, -18)
+    cm of the central slice of each compensated volume within AIR_TOL_HU
+    of -1000 (cone) or of the JAX package's HELICAL_AIR_REF (helix); each
+    compensated volume's rms error against the still scan's static
+    reconstruction below the uncorrected one's, and for the helix at
+    least HELICAL_RATIO_REF times below it, image by image."""
+    import numpy as np
+    import torch
+
+    from dexct_tpu_torch.ops import conebeam, motion
+    from dexct_tpu_torch.ops.fbp import hu_image
+    from dexct_tpu_torch.pipeline.api import effective_water_mu
+
+    cases = []
+    for label, dz_cm in (("cone", CONE_DZ_CM), ("helical", HELICAL_DZ_CM)):
+        ccfg = cone_cfgs[label]
+        track = motion.MotionProfile3D.breathing_z(ccfg.ct.N_proj,
+                                                   amplitude_cm=dz_cm)
+        helix = label == "helical"
+        mc = (motion.helical_fdk_reconstruct_motion if helix
+              else motion.fdk_reconstruct_motion)
+        static = (conebeam.helical_fdk_reconstruct if helix
+                  else conebeam.fdk_reconstruct)
+        cases.append((label, ccfg, track, mc, static))
+    fns = zero_counters()
+    for run in (1, 2):
+        st = Stages()
+        vols, stacks = [], []
+        for label, ccfg, track, mc, _ in cases:
+            stacks.append(motion_3d_stack(ccfg, spectra, track, dev))
+            st.mark(f"{label} scan (K10, K2, K3)")
+            vols.append(mc(stacks[-1], ccfg.ct, ccfg.N_matrix, ccfg.FOV,
+                           ccfg.ramp, track))
+            st.mark(f"{label} motion-compensated reconstruction")
+        print(f"motion_3d path (library, run {run}): "
+              f"{sum(st.t.values()) / 1e3:.3f} s on {smi}; stages (ms): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in st.t.items()))
+    check_launches("motion_3d", fns, MOTION_3D_KERNELS, records)
+    label, ccfg, track, mc, _ = cases[1]
+    print_profiled("motion_3d helical scan and reconstruction", lambda: mc(
+        motion_3d_stack(ccfg, spectra, track, dev), ccfg.ct, ccfg.N_matrix,
+        ccfg.FOV, ccfg.ramp, track))
+    ok = True
+    for (label, ccfg, track, mc, static), vol, moving in zip(cases, vols,
+                                                             stacks):
+        ct, n, fov = ccfg.ct, ccfg.N_matrix, ccfg.FOV
+        img = (n, fov, ccfg.ramp)
+        still = motion_3d_stack(ccfg, spectra,
+                                motion.MotionProfile3D.static(ct.N_proj),
+                                dev)
+        kw = {}
+        if label == "helical":
+            kw = dict(z_out=conebeam.helical_slices(ct)[0],
+                      weighting="full")
+            sl = np.arange(vol.shape[1])
+        else:
+            sl = full_coverage_slices(ct, vol.shape[1], ct.h_iso, fov)
+        ref = static(still, ct, *img, **kw)
+        bad = static(moving, ct, *img, **kw)
+        kw.pop("weighting", None)
+        zero = mc(still, ct, *img, motion.MotionProfile3D.static(ct.N_proj),
+                  **kw)
+        big = float(ref[:, sl].abs().max())
+        d0 = float((zero - ref)[:, sl].abs().max())
+        tol = 0.1 if label == "helical" else 1e-5
+        e_fix = [float(torch.sqrt(torch.mean((vol[k] - ref[k])[sl] ** 2)))
+                 for k in range(4)]
+        e_bad = [float(torch.sqrt(torch.mean((bad[k] - ref[k])[sl] ** 2)))
+                 for k in range(4)]
+        mid = vol.shape[1] // 2
+        mu_w = effective_water_mu(spectra(ct)[1], ct)
+        air = [roi_mean(hu_image(v[1], mu_w).cpu().numpy(), 0.0, -18.0, mid,
+                        fov) for v in (zero, vol, bad)]
+        finite = bool(torch.isfinite(vol).all())
+        print(f"  {label}: zero motion vs static max abs {d0:.3g} (max "
+              f"{big:.4g}) [<= {tol:g} x max] on {len(sl)} slices; rms "
+              f"error compensated / uncorrected (log detunedMV, log 80kV, "
+              f"tissue, bone): "
+              + ", ".join(f"{f:.4g}/{b:.4g}" for f, b in zip(e_fix, e_bad))
+              + f"; 80 kV air ROI HU at (0, -18) cm, slice {mid}: still "
+              f"{air[0]:.2f}, compensated {air[1]:.2f}, uncorrected "
+              f"{air[2]:.2f}; finite: {finite}")
+        if label == "helical":
+            want_air = HELICAL_AIR_REF
+            least = tuple(max(1.0, r) for r in HELICAL_RATIO_REF)
+        else:
+            want_air, least = -1000.0, (1.0,) * 4
+        print(f"    [compensated air within {AIR_TOL_HU:g} HU of "
+              f"{want_air}; uncorrected / compensated rms >= "
+              + ", ".join(f"{r:g}" for r in least) + "]")
+        ok &= (d0 <= tol * big and abs(air[1] - want_air) <= AIR_TOL_HU
+               and all(b > r * f for f, b, r in zip(e_fix, e_bad, least))
+               and finite)
+        del still, ref, bad, zero
+        torch.cuda.empty_cache()
+    if not ok:
+        fail("the motion_3d path misses its checks")
+
+
+def motion_devices_phase():
+    """Phase 5: the tiny motion paths of ``dexct_tpu_torch.utils.
+    tiny_cases`` (a breathing fan through K1-K3, K30, the estimators and
+    the motion one-step fit; a gated series, K31; the z-breathing cone and
+    helix, K10, K32, K33) on the CPU and on the card, each output within
+    MOTION_TOL of its maximum (the card tests run the same cases)."""
+    from dexct_tpu_torch.utils import tiny_cases as tc
+
+    for kind in tc.MOTION_KINDS:
+        c, g = tc.motion(kind, "cpu"), tc.motion(kind, "cuda")
+        errs = [float((gi - ci).abs().max() / ci.abs().max())
+                for gi, ci in zip(g, c)]
+        print(f"  motion {kind}: card vs CPU max abs / max per output "
+              + ", ".join(f"{e:.3g}" for e in errs)
+              + f" [<= {tc.MOTION_TOL:g}]")
+        if not max(errs) <= tc.MOTION_TOL:
+            fail(f"tiny motion path {kind} differs between the CPU and the "
+                 "card")
+
+
 def counters():
     from dexct_tpu_torch.ops import (conebeam, dose, fbp_fast, flatpanel,
                                      fourier, helical_pi, katsevich,
-                                     matdecomp, noisemap, scatter_physics,
-                                     siddon, spectral)
+                                     matdecomp, motion, noisemap,
+                                     scatter_physics, siddon, spectral)
+    from dexct_tpu_torch.pipeline import gated
     from dexct_tpu_torch.system import analytic
 
     return {"siddon_trace": siddon.trace_paths,
@@ -1966,7 +2584,12 @@ def counters():
             "single_scatter": scatter_physics._scatter_scan,
             "single_scatter_conebeam": scatter_physics._scatter_scan_cone,
             "table_counts": spectral.counts_from_table,
-            "gauss_newton_grouped": matdecomp.gauss_newton_solve_grouped}
+            "gauss_newton_grouped": matdecomp.gauss_newton_solve_grouped,
+            "fan_backproject_motion": motion.fan_backproject_motion,
+            "gated_backproject": gated._gated_backproject,
+            "fdk_backproject_motion": motion._fdk_backproject_motion,
+            "helical_backproject_motion":
+                motion._helical_backproject_motion}
 
 
 def zero_counters():
@@ -3980,8 +4603,8 @@ def main():
                                torch.zeros(1, device=dev))
     torch.cuda.synchronize()
     t2 = time.time()
-    print(f"build: nvcc K1, K3-K13, K15-K27, K29 {t1 - t0:.1f} s, triton "
-          f"K2 {t2 - t1:.1f} s")
+    print(f"build: nvcc K1, K3-K13, K15-K27, K29-K33 {t1 - t0:.1f} s, "
+          f"triton K2 {t2 - t1:.1f} s")
 
     # 3. kernels against their plain versions at the paths' shapes
     from dexct_tpu_torch.pipeline.cone import pack_cone_dect
@@ -4057,6 +4680,8 @@ def main():
         scatter_kernel_phase(cfg, cone_cfgs, spectra, records, dev)
         torch.cuda.empty_cache()
         realism_kernel_phase(cfg, cone_cfgs["cone"], spectra, records, dev)
+        torch.cuda.empty_cache()
+        motion_kernel_phase(cfg, cone_cfgs, spectra, records, dev)
         torch.cuda.empty_cache()
 
         # 4. the paths: the CLI's, then the library's
@@ -4143,6 +4768,12 @@ def main():
         torch.cuda.empty_cache()
         heel_path(cone_cfgs["cone"], spectra, records, smi, dev)
         torch.cuda.empty_cache()
+        motion_path(cfg, spectra, records, smi, dev)
+        torch.cuda.empty_cache()
+        gated_path(cfg, records, smi, dev)
+        torch.cuda.empty_cache()
+        motion_3d_path(cone_cfgs, spectra, records, smi, dev)
+        torch.cuda.empty_cache()
 
         # 5. every path on both devices
         for label, (flags, config, _) in PATHS.items():
@@ -4156,6 +4787,7 @@ def main():
         new_paths_devices_phase()
         planning_devices_phase()
         realism_devices_phase()
+        motion_devices_phase()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -1,4 +1,4 @@
-// Voxel-driven backprojection of K filtered cone-beam stacks, four kernels
+// Voxel-driven backprojection of K filtered cone-beam stacks, six kernels
 // with one set of tap device functions:
 // - K11 fdk_backproject: circular Feldkamp (cylindrical detector);
 // - K12 helical_backproject: generalized Feldkamp on a helix, in each of the
@@ -7,7 +7,10 @@
 //   beta_c);
 // - K13 flat_backproject: circular Feldkamp on a flat panel;
 // - K15 katsevich_backproject: the PI-window backprojection of Katsevich's
-//   exact helical inversion.
+//   exact helical inversion;
+// - K32 fdk_backproject_motion and K33 helical_backproject_motion: K11 and
+//   K12 'full' with every voxel posed per view (rigid patient motion; their
+//   note is beside them below).
 //
 // They replace dexct_tpu/ops/conebeam.py:_fdk_backproject_multi (K11),
 // :_helical_backproject (K12), dexct_tpu/ops/flatpanel.py:_flat_backproject
@@ -511,6 +514,147 @@ __global__ void katsevich_backproject_kernel(
   for (int k = 0; k < K; ++k) out[k * vol + dst] = __fmul_rn(acc[k], scale);
 }
 
+// K32 fdk_backproject_motion and K33 helical_backproject_motion replace
+// dexct_tpu/ops/motion.py:_fdk_backproject_motion and
+// :_helical_backproject_motion (lax.scans over 8-view blocks that gather
+// the packed (row, channel) taps of every posed voxel and carry num and den
+// volumes).  Each view evaluates the voxel at its world position under the
+// view's rigid pose: (x, y) -> (cos phi x - sin phi y + dx, sin phi x +
+// cos phi y + dy) in the JAX order without FMAs (pose() below), z -> z +
+// dz.  Then K11's (K32) or K12's (K33) taps on the posed position: a view
+// on the detector adds 1 to den (K33: only inside its window) and, inside
+// the fan, its bilinear tap times 1 / h^2 to num; out = (den > 0 ? num /
+// max(den, 1e-30) : 0) 2 pi, the accumulated-coverage normalisation that
+// keeps z motion from shading the slices it pushes off the rows.
+// K32: zt = (z + dz) sid inv_h, ridx = zt / row_h - 0.5 + R/2, every view.
+// K33: zv = z + dz, zt = (zv - src_z[v]) sid inv_h, ridx as K32; the 2 pi
+// window |beta[v] - bc_v| <= pi is centred per view on bc_v = beta_mid +
+// (2 pi zv) / pitch, the source's passage of the voxel's posed z.
+//
+// What bounds them on the card: as K11/K12, one atan2, one square root,
+// three divisions and ~45 other float ops per (pixel, slice, view) plus the
+// taps, so arithmetic.  (The in-plane part, ~35 of them, depends only on
+// the pixel and the view: one thread per (pixel, slice) recomputes it for
+// each slice, where the function needs it once per (pixel, view).)
+// Design: K11's and K12's, one thread per (disc
+// pixel, slice) and the sums in registers; one kernel, templated on the
+// window.  It stages the view angles and the poses in shared memory
+// (kChunk views at a time).  K32 visits every view.  K33 visits only the
+// views whose window can reach its slice: with the centre moving by 2 pi
+// dz_v / pitch, that is beta in [bc + shift_lo - pi, bc + shift_hi + pi]
+// (bc the centre at dz = 0; shift_lo and shift_hi the least and largest
+// 2 pi dz_v / pitch, computed on the host), with K12's two-view margin;
+// the exact per-view window test decides the rest.
+
+// The posed in-plane position of (x, y) at one view.
+__device__ __forceinline__ void pose(float x, float y, float cp, float sp,
+                                     float dx, float dy, float& xv,
+                                     float& yv) {
+  xv = __fadd_rn(__fsub_rn(__fmul_rn(cp, x), __fmul_rn(sp, y)), dx);
+  yv = __fadd_rn(__fadd_rn(__fmul_rn(sp, x), __fmul_rn(cp, y)), dy);
+}
+
+// out[k] = (den > 0 ? num[k] / max(den, 1e-30) : 0) 2 pi at (slice, pixel).
+template <int K>
+__device__ __forceinline__ void store_normalised(float* __restrict__ out,
+                                                 const float* num, float den,
+                                                 long long dst,
+                                                 long long vol) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const float o = den > 0.0f ? __fdiv_rn(num[k], fmaxf(den, 1e-30f)) : 0.0f;
+    out[k * vol + dst] = __fmul_rn(o, kTwoPi);
+  }
+}
+
+// K32 (kWindow false: every view, src_z 0) and K33 (kWindow true: the
+// views that the slice's moving window can reach, each tested).
+template <int K, bool kWindow>
+__global__ void motion_backproject_kernel(
+    const float* __restrict__ qs, const float* __restrict__ cos_b,
+    const float* __restrict__ sin_b, const float* __restrict__ betas,
+    const float* __restrict__ src_z, const float* __restrict__ cos_p,
+    const float* __restrict__ sin_p, const float* __restrict__ dxs,
+    const float* __restrict__ dys, const float* __restrict__ dzs,
+    const float* __restrict__ X, const float* __restrict__ Y,
+    const long long* __restrict__ sel, const float* __restrict__ zc,
+    float* __restrict__ out, int V, int R, int C, int P, long long plane,
+    float sid, float dgamma, float row_h, float pitch, float beta_mid,
+    float beta0, float dbeta, float shift_lo, float shift_hi) {
+  __shared__ float s_cb[kChunk];
+  __shared__ float s_sb[kChunk];
+  __shared__ float s_cp[kChunk];
+  __shared__ float s_sp[kChunk];
+  __shared__ float s_dx[kChunk];
+  __shared__ float s_dy[kChunk];
+  __shared__ float s_dz[kChunk];
+  __shared__ float s_b[kWindow ? kChunk : 1];
+  __shared__ float s_sz[kWindow ? kChunk : 1];
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  const int iz = blockIdx.y;
+  const bool valid = p < P;
+  const float x = valid ? X[p] : 0.0f;
+  const float y = valid ? Y[p] : 0.0f;
+  const float z = zc[iz];
+  const Detector d = make_detector(V, R, C);
+  int v_lo = 0, v_hi = V - 1;
+  if (kWindow) {
+    // the views within pi of the window centre under any pose, with a
+    // two-view margin (one range per slice, so per block)
+    const float bc = beta_mid + kTwoPi * z / pitch;
+    v_lo = max(0, (int)floorf((bc + shift_lo - kPi - beta0) / dbeta) - 2);
+    v_hi = min(V - 1, (int)ceilf((bc + shift_hi + kPi - beta0) / dbeta) + 2);
+  }
+
+  float num[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) num[k] = 0.0f;
+  float den = 0.0f;
+
+  for (int v0 = v_lo; v0 <= v_hi; v0 += kChunk) {
+    const int nv = min(kChunk, v_hi + 1 - v0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < nv; i += blockDim.x) {
+      s_cb[i] = cos_b[v0 + i];
+      s_sb[i] = sin_b[v0 + i];
+      s_cp[i] = cos_p[v0 + i];
+      s_sp[i] = sin_p[v0 + i];
+      s_dx[i] = dxs[v0 + i];
+      s_dy[i] = dys[v0 + i];
+      s_dz[i] = dzs[v0 + i];
+      if (kWindow) {
+        s_b[i] = betas[v0 + i];
+        s_sz[i] = src_z[v0 + i];
+      }
+    }
+    __syncthreads();
+    if (!valid) continue;
+    for (int j = 0; j < nv; ++j) {
+      const float zv = __fadd_rn(z, s_dz[j]);
+      if (kWindow) {
+        const float bcv =
+            __fadd_rn(beta_mid, __fdiv_rn(__fmul_rn(kTwoPi, zv), pitch));
+        if (!(fabsf(__fsub_rn(s_b[j], bcv)) <= kPi)) continue;
+      }
+      float xv, yv;
+      pose(x, y, s_cp[j], s_sp[j], s_dx[j], s_dy[j], xv, yv);
+      const ViewTap t = view_tap(xv, yv, s_cb[j], s_sb[j], sid);
+      const float zs = kWindow ? __fsub_rn(zv, s_sz[j]) : zv;
+      const float zt = __fmul_rn(__fmul_rn(zs, sid), t.inv_h);
+      const float ridx = __fadd_rn(__fsub_rn(__fdiv_rn(zt, row_h), 0.5f),
+                                   d.r_shift);
+      if (!on_detector(ridx, d)) continue;
+      den += 1.0f;  // on the detector (and in the window), in the fan or not
+      const float c = channel(t, dgamma, d);
+      if (!in_fan(c, d)) continue;
+      add_taps<K>(qs, d, v0 + j, c, ridx, __fdiv_rn(1.0f, t.h2), num);
+    }
+  }
+  if (!valid) return;
+  store_normalised<K>(out, num, den, (long long)iz * plane + sel[p],
+                      (long long)gridDim.y * plane);
+}
+
 // Calls launch(std::integral_constant<int, K>) for K = n_images in 1..4.
 template <typename Launch>
 int for_images(int n_images, Launch&& launch) {
@@ -632,4 +776,66 @@ extern "C" int dexct_katsevich_backproject(
         static_cast<float*>(out), V, R, C, P, plane, sid, dgamma, row_h, qp,
         taper, scale, sz0, dzv, z_reach);
   });
+}
+
+// Launches K32 (window false) or K33 over K = n_images stacks.
+template <bool kWindow>
+int launch_motion(const void* qs, const void* cos_b, const void* sin_b,
+                  const void* betas, const void* src_z, const void* cos_p,
+                  const void* sin_p, const void* dx, const void* dy,
+                  const void* dz, const void* X, const void* Y,
+                  const void* sel, const void* zc, void* out, int n_images,
+                  int V, int R, int C, int P, int nz, long long plane,
+                  float sid, float dgamma, float row_h, float pitch,
+                  float beta_mid, float beta0, float dbeta, float shift_lo,
+                  float shift_hi, void* stream) {
+  if (P <= 0 || nz <= 0) return (int)cudaGetLastError();
+  if (C < 2 || R < 1 || nz > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 blocks((P + kThreads - 1) / kThreads, nz);
+  return for_images(n_images, [&](auto k) {
+    motion_backproject_kernel<decltype(k)::value, kWindow>
+        <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float*>(qs), static_cast<const float*>(cos_b),
+            static_cast<const float*>(sin_b),
+            static_cast<const float*>(betas),
+            static_cast<const float*>(src_z),
+            static_cast<const float*>(cos_p),
+            static_cast<const float*>(sin_p), static_cast<const float*>(dx),
+            static_cast<const float*>(dy), static_cast<const float*>(dz),
+            static_cast<const float*>(X), static_cast<const float*>(Y),
+            static_cast<const long long*>(sel),
+            static_cast<const float*>(zc), static_cast<float*>(out), V, R, C,
+            P, plane, sid, dgamma, row_h, pitch, beta_mid, beta0, dbeta,
+            shift_lo, shift_hi);
+  });
+}
+
+extern "C" int dexct_fdk_backproject_motion(
+    const void* qs, const void* cos_b, const void* sin_b, const void* cos_p,
+    const void* sin_p, const void* dx, const void* dy, const void* dz,
+    const void* X, const void* Y, const void* sel, const void* zc, void* out,
+    int n_images, int V, int R, int C, int P, int nz, long long plane,
+    float sid, float dgamma, float row_h, void* stream) {
+  return launch_motion<false>(qs, cos_b, sin_b, nullptr, nullptr, cos_p,
+                              sin_p, dx, dy, dz, X, Y, sel, zc, out,
+                              n_images, V, R, C, P, nz, plane, sid, dgamma,
+                              row_h, 1.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f,
+                              stream);
+}
+
+extern "C" int dexct_helical_backproject_motion(
+    const void* qs, const void* cos_b, const void* sin_b, const void* betas,
+    const void* src_z, const void* cos_p, const void* sin_p, const void* dx,
+    const void* dy, const void* dz, const void* X, const void* Y,
+    const void* sel, const void* zc, void* out, int n_images, int V, int R,
+    int C, int P, int nz, long long plane, float sid, float dgamma,
+    float row_h, float pitch, float beta_mid, float beta0, float dbeta,
+    float shift_lo, float shift_hi, void* stream) {
+  if (!(dbeta > 0.0f) || pitch == 0.0f || !(shift_lo <= shift_hi))
+    return (int)cudaErrorInvalidValue;
+  return launch_motion<true>(qs, cos_b, sin_b, betas, src_z, cos_p, sin_p,
+                             dx, dy, dz, X, Y, sel, zc, out, n_images, V, R,
+                             C, P, nz, plane, sid, dgamma, row_h, pitch,
+                             beta_mid, beta0, dbeta, shift_lo, shift_hi,
+                             stream);
 }

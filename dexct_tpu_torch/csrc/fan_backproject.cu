@@ -1,6 +1,9 @@
-// K4 fan_backproject: equiangular fan-beam backprojection of K images,
-// and K25 fan_backproject_var: the squared-weight backprojection of the
-// filtered variance and lag-1 covariance of F fields (below).
+// K4 fan_backproject: equiangular fan-beam backprojection of K images;
+// K25 fan_backproject_var: the squared-weight backprojection of the
+// filtered variance and lag-1 covariance of F fields; K30
+// fan_backproject_motion: K4 with each view's rigid pose; K31
+// gated_backproject: K4 with per-view gate weights and a per-pixel
+// normalisation (K25, K30 and K31 below).
 //
 // Replaces the TPU programs dexct_tpu/ops/fbp_fast.py:fan_backproject_multi
 // (a lax.scan over 32-view blocks whose body gathers one packed row of all
@@ -262,6 +265,221 @@ extern "C" int dexct_fan_backproject_var(const void* r0, const void* r1,
   switch (n_fields) {  // one map, or the three basis fields
     case 1: DEXCT_CASE(1); break;
     case 3: DEXCT_CASE(3); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DEXCT_CASE
+  return (int)cudaGetLastError();
+}
+
+// K30 fan_backproject_motion: replaces the TPU program
+// dexct_tpu/ops/motion.py:fan_backproject_motion (a lax.scan over 64-view
+// blocks, each a vmap over views of a full-image rotate/shift and gather).
+// The rigid motion-compensated backprojection: view v evaluates pixel x at
+// its world position under the view's pose, x_v = R(phi_v) x + d_v, and
+// then adds K4's equiangular tap with its 1/l2 weight; the sum is
+// multiplied by dbeta.
+//
+// What bounds it on the card: K4's arithmetic (one atan2, one reciprocal,
+// ~20 float ops per pixel-view) plus 6 for the pose; N^2 x V = 2.6e8
+// pixel-views at the reference protocol, so arithmetic.  Design: K4's, one
+// thread per pixel over all views, the per-view cos b, sin b, cos phi,
+// sin phi, dx and dy staged in shared memory (kChunk views at a time), the
+// sum in a register, the image written once.  The posed coordinates are
+// formed in the JAX order, Xv = (cos phi X - sin phi Y) + dx and Yv =
+// (sin phi X + cos phi Y) + dy, each operation rounded (no FMA); at phi = d
+// = 0 they are X and Y exactly, and the tap and sum below are K4's for one
+// image, so K30 then returns K4's image bit for bit.  q [V, C] is read
+// directly: q[c0] and q[c0 + 1] are the two halves of K4's packed row.
+namespace {
+
+__global__ void fan_backproject_motion_kernel(
+    const float* __restrict__ q, const float* __restrict__ cos_b,
+    const float* __restrict__ sin_b, const float* __restrict__ cos_p,
+    const float* __restrict__ sin_p, const float* __restrict__ dx,
+    const float* __restrict__ dy, float* __restrict__ out, int V, int C,
+    int N, float px, float half, float sid, float dgamma, float dbeta) {
+  __shared__ float s_cb[kChunk];
+  __shared__ float s_sb[kChunk];
+  __shared__ float s_cp[kChunk];
+  __shared__ float s_sp[kChunk];
+  __shared__ float s_dx[kChunk];
+  __shared__ float s_dy[kChunk];
+  const int ix = blockIdx.x * blockDim.x + threadIdx.x;
+  const int iy = blockIdx.y * blockDim.y + threadIdx.y;
+  const bool valid = ix < N && iy < N;
+  const float X = ((float)ix + 0.5f - half) * px;
+  const float Y = ((float)iy + 0.5f - half) * px;
+  const float c_shift = 0.5f * (float)C;
+  const float c_max = (float)(C - 1);
+  const float c0_max = (float)(C - 2);
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+
+  float acc = 0.0f;
+  for (int v0 = 0; v0 < V; v0 += kChunk) {
+    const int nv = min(kChunk, V - v0);
+    __syncthreads();
+    for (int i = tid; i < nv; i += nthreads) {
+      s_cb[i] = cos_b[v0 + i];
+      s_sb[i] = sin_b[v0 + i];
+      s_cp[i] = cos_p[v0 + i];
+      s_sp[i] = sin_p[v0 + i];
+      s_dx[i] = dx[v0 + i];
+      s_dy[i] = dy[v0 + i];
+    }
+    __syncthreads();
+    if (!valid) continue;
+    for (int j = 0; j < nv; ++j) {
+      const float cp = s_cp[j], sp = s_sp[j];
+      const float Xv = __fadd_rn(__fsub_rn(__fmul_rn(cp, X), __fmul_rn(sp, Y)),
+                                 s_dx[j]);
+      const float Yv = __fadd_rn(__fadd_rn(__fmul_rn(sp, X), __fmul_rn(cp, Y)),
+                                 s_dy[j]);
+      float c0, f, l2;
+      if (!fan_tap(Xv, Yv, s_cb[j], s_sb[j], sid, dgamma, c_shift, c_max,
+                   c0_max, c0, f, l2))
+        continue;  // outside the fan
+      const float w = __fdiv_rn(1.0f, l2);
+      const float* row = q + (size_t)(v0 + j) * C + (size_t)c0;
+      acc += w * (__ldg(row) * (1.0f - f) + __ldg(row + 1) * f);
+    }
+  }
+  if (!valid) return;
+  out[(size_t)iy * N + ix] = acc * dbeta;
+}
+
+// K31 gated_backproject: replaces the TPU program
+// dexct_tpu/pipeline/gated.py:_gated_backproject (a lax.scan over 64-view
+// blocks of a vmap over views, carrying num and den images).  Per (pixel,
+// view) inside the fan K4's tap qi = q[c0] (1 - f) + q[c0 + 1] f adds
+// (qi / l2) w[g, v] to num[g] and w[g, v] to den[g], for each of G gate
+// weightings of the same filtered sinogram; out[g] = (den > 0 ? num /
+// max(den, 1e-30) : 0) 2 pi, the per-pixel weighted mean over the views that
+// reached it.
+//
+// What bounds it on the card: K4's per pixel-view geometry (one atan2, ~20
+// float ops) plus 4 per gate; N^2 x V = 1e9 pixel-views for a 4-rotation
+// scan at the reference protocol, so arithmetic.  Design: one thread per
+// pixel over all views, cos b, sin b and the G weights of a chunk of views
+// in shared memory, num and den of all G gates in registers (gated_series
+// sends its gates through one launch, which computes the geometry once),
+// the G images written once; a view whose G weights are all 0 adds exact
+// zeros in the JAX program and is skipped.
+template <int G>
+__global__ void gated_backproject_kernel(
+    const float* __restrict__ q, const float* __restrict__ cos_b,
+    const float* __restrict__ sin_b, const float* __restrict__ w,
+    float* __restrict__ out, int V, int C, int N, float px, float half,
+    float sid, float dgamma) {
+  constexpr int kGChunk = 512;
+  __shared__ float s_cos[kGChunk];
+  __shared__ float s_sin[kGChunk];
+  __shared__ float s_w[G][kGChunk];
+  __shared__ int s_any[kGChunk];
+  const int ix = blockIdx.x * blockDim.x + threadIdx.x;
+  const int iy = blockIdx.y * blockDim.y + threadIdx.y;
+  const bool valid = ix < N && iy < N;
+  const float X = ((float)ix + 0.5f - half) * px;
+  const float Y = ((float)iy + 0.5f - half) * px;
+  const float c_shift = 0.5f * (float)C;
+  const float c_max = (float)(C - 1);
+  const float c0_max = (float)(C - 2);
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+
+  float num[G], den[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) num[g] = den[g] = 0.0f;
+
+  for (int v0 = 0; v0 < V; v0 += kGChunk) {
+    const int nv = min(kGChunk, V - v0);
+    __syncthreads();
+    for (int i = tid; i < nv; i += nthreads) {
+      s_cos[i] = cos_b[v0 + i];
+      s_sin[i] = sin_b[v0 + i];
+      int any = 0;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float wg = w[(size_t)g * V + v0 + i];
+        s_w[g][i] = wg;
+        any |= wg != 0.0f;
+      }
+      s_any[i] = any;
+    }
+    __syncthreads();
+    if (!valid) continue;
+    for (int j = 0; j < nv; ++j) {
+      if (!s_any[j]) continue;  // every gate adds exact zeros
+      float c0, f, l2;
+      if (!fan_tap(X, Y, s_cos[j], s_sin[j], sid, dgamma, c_shift, c_max,
+                   c0_max, c0, f, l2))
+        continue;  // outside the fan: num and den add zeros
+      const float* row = q + (size_t)(v0 + j) * C + (size_t)c0;
+      const float qi = __fadd_rn(__fmul_rn(__ldg(row), __fsub_rn(1.0f, f)),
+                                 __fmul_rn(__ldg(row + 1), f));
+      const float ql = __fdiv_rn(qi, l2);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        num[g] = __fadd_rn(num[g], __fmul_rn(ql, s_w[g][j]));
+        den[g] = __fadd_rn(den[g], s_w[g][j]);
+      }
+    }
+  }
+  if (!valid) return;
+  const size_t plane = (size_t)N * N;
+  const float two_pi = 6.28318530717958647692f;  // float32(2 pi)
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const float o =
+        den[g] > 0.0f ? __fdiv_rn(num[g], fmaxf(den[g], 1e-30f)) : 0.0f;
+    out[g * plane + (size_t)iy * N + ix] = __fmul_rn(o, two_pi);
+  }
+}
+
+}  // namespace
+
+extern "C" int dexct_fan_backproject_motion(
+    const void* q, const void* cos_b, const void* sin_b, const void* cos_p,
+    const void* sin_p, const void* dx, const void* dy, void* out, int V,
+    int C, int N, float px, float half, float sid, float dgamma, float dbeta,
+    void* stream) {
+  if (N <= 0) return (int)cudaGetLastError();
+  if (C < 2) return (int)cudaErrorInvalidValue;
+  const dim3 threads(16, 16);
+  const dim3 blocks((N + 15) / 16, (N + 15) / 16);
+  fan_backproject_motion_kernel<<<blocks, threads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(cos_b),
+      static_cast<const float*>(sin_b), static_cast<const float*>(cos_p),
+      static_cast<const float*>(sin_p), static_cast<const float*>(dx),
+      static_cast<const float*>(dy), static_cast<float*>(out), V, C, N, px,
+      half, sid, dgamma, dbeta);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dexct_gated_backproject(const void* q, const void* cos_b,
+                                       const void* sin_b, const void* w,
+                                       void* out, int n_gates, int V, int C,
+                                       int N, float px, float half, float sid,
+                                       float dgamma, void* stream) {
+  if (N <= 0) return (int)cudaGetLastError();
+  if (C < 2) return (int)cudaErrorInvalidValue;
+  const float* qq = static_cast<const float*>(q);
+  const float* cb = static_cast<const float*>(cos_b);
+  const float* sb = static_cast<const float*>(sin_b);
+  const float* ww = static_cast<const float*>(w);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 threads(16, 16);
+  const dim3 blocks((N + 15) / 16, (N + 15) / 16);
+#define DEXCT_CASE(GG)                                             \
+  gated_backproject_kernel<GG><<<blocks, threads, 0, st>>>(        \
+      qq, cb, sb, ww, o, V, C, N, px, half, sid, dgamma)
+  switch (n_gates) {  // one gate, or a series of up to four per launch
+    case 1: DEXCT_CASE(1); break;
+    case 2: DEXCT_CASE(2); break;
+    case 3: DEXCT_CASE(3); break;
+    case 4: DEXCT_CASE(4); break;
     default: return (int)cudaErrorInvalidValue;
   }
 #undef DEXCT_CASE

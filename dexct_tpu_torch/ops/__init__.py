@@ -14,17 +14,21 @@ spectral fit, the 2-D and 3-D dose maps (K23, K24), the FBP noise maps
 models: bowtie filtration and the anode heel (table-indexed counts K28,
 the grouped Gauss-Newton solve K29), detector MTF, gains and rings,
 afterglow, metal artifact reduction, synthetic dose reduction, truncation
-completion, finite aperture and the anticorrelated basis denoiser."""
+completion, finite aperture and the anticorrelated basis denoiser; rigid
+patient motion (the motion-compensated fan, FDK and helical
+backprojections K30, K32, K33) and the host-only calibrations (detector
+offset, bead geometry, empirical decomposition)."""
 
-from . import afterglow, aperture, bhc, bowtie, conebeam, denoise, dose, fbp
-from . import fbp_fast, ffs, filters, flatpanel, fourier, heel, helical_pi
-from . import iterative, katsevich, lowdose, mar, matdecomp, mtf, noisemap
+from . import afterglow, aperture, bhc, bowtie, calibration, conebeam
+from . import denoise, dose, empirical, fbp, fbp_fast, ffs, filters
+from . import flatpanel, fourier, geocal, heel, helical_pi, iterative
+from . import katsevich, lowdose, mar, matdecomp, motion, mtf, noisemap
 from . import onestep, rings, scatter, scatter_physics, siddon, spectral
 from . import truncation
 
-__all__ = ["afterglow", "aperture", "bhc", "bowtie", "conebeam", "denoise",
-           "dose", "fbp", "fbp_fast", "ffs", "filters", "flatpanel",
-           "fourier", "heel", "helical_pi", "iterative", "katsevich",
-           "lowdose", "mar", "matdecomp", "mtf", "noisemap", "onestep",
-           "rings", "scatter", "scatter_physics", "siddon", "spectral",
-           "truncation"]
+__all__ = ["afterglow", "aperture", "bhc", "bowtie", "calibration",
+           "conebeam", "denoise", "dose", "empirical", "fbp", "fbp_fast",
+           "ffs", "filters", "flatpanel", "fourier", "geocal", "heel",
+           "helical_pi", "iterative", "katsevich", "lowdose", "mar",
+           "matdecomp", "motion", "mtf", "noisemap", "onestep", "rings",
+           "scatter", "scatter_physics", "siddon", "spectral", "truncation"]

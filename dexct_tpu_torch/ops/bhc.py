@@ -6,9 +6,9 @@ the sinogram (the Horner evaluation and the bone correction polynomial
 have no hand kernel: they are elementwise ``jnp`` in the JAX package
 too), and the reconstructions and the bone reprojection run the port's
 FBP (K4, or K5 + K6) and Fourier projector (K7, K8).  The bowtie variant
-(``WaterBhcBowtie``, ``fit_water_bhc_bowtie``) needs ``ops/bowtie.py``,
-which is not ported yet (ROADMAP queue 1, item 12); both raise
-``NotImplementedError``.
+(``WaterBhcBowtie``, ``fit_water_bhc_bowtie``: one calibration curve per
+bowtie thickness level, host float64, applied per channel on the device of
+the sinogram) runs on the port's :mod:`~dexct_tpu_torch.ops.bowtie`.
 
 The reference analysis consumes ``recon_{water,bone}BHC_*`` images
 (reference plots.py:184-195) whose producer is not in the snapshot

@@ -1088,6 +1088,24 @@ def _tilted_indices(tau, n_matrix, fov, nz, dz, device):
     return tuple(torch.as_tensor(t, device=device) for t in (zi, yi, xi))
 
 
+def helical_slices(ct, z_out=None):
+    """``(z_out [nz] float64, dz)``: the helical reconstructors' slice grid,
+    by default one slice per ``h_iso`` over the central 80 % of the source
+    travel; a given ``z_out`` must be uniformly spaced."""
+    if z_out is None:
+        travel = ct.pitch * ct.rotation_total / (2.0 * np.pi)
+        half = 0.4 * travel
+        nz = max(int(2.0 * half / ct.h_iso), 1)
+        z_out = (np.arange(nz) + 0.5) * (2.0 * half / nz) - half
+    z_out = np.asarray(z_out, np.float64)
+    if len(z_out) > 1:
+        dzs = np.diff(z_out)
+        if not np.allclose(dzs, dzs[0]):
+            raise ValueError("z_out must be uniformly spaced")
+        return z_out, float(dzs[0])
+    return z_out, float(ct.h_iso)
+
+
 def helical_fdk_reconstruct(sino_log, geometry, n_matrix, fov, ramp, *,
                             z_out=None, window="sinc", view_block=None,
                             weighting="full"):
@@ -1124,19 +1142,7 @@ def helical_fdk_reconstruct(sino_log, geometry, n_matrix, fov, ramp, *,
             kw = dict(nz_out=len(zo), dz_out=dz0)
         return fdk_reconstruct(sino_log, ct, n_matrix, fov, ramp,
                                window=window, **kw)
-    if z_out is None:
-        travel = ct.pitch * ct.rotation_total / (2.0 * np.pi)
-        half = 0.4 * travel
-        nz = max(int(2.0 * half / ct.h_iso), 1)
-        z_out = (np.arange(nz) + 0.5) * (2.0 * half / nz) - half
-    z_out = np.asarray(z_out, np.float64)
-    if len(z_out) > 1:
-        dzs = np.diff(z_out)
-        if not np.allclose(dzs, dzs[0]):
-            raise ValueError("z_out must be uniformly spaced")
-        dz = float(dzs[0])
-    else:
-        dz = float(ct.h_iso)
+    z_out, dz = helical_slices(ct, z_out)
 
     if getattr(ct, "ffs", "none") == "z":
         if weighting not in ("full", "feather"):

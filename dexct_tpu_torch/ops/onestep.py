@@ -15,6 +15,12 @@ energy stage is plain ``torch.matmul`` and ``exp``, as the JAX module's
 ``jnp.matmul``.  The gradient comes from ``torch.autograd`` through the
 whole chain, as the JAX package's from ``jax.grad``.
 
+With a translation track (``motion=``), the forward model takes the line
+integrals along the motion-transformed rays: the Fourier-slice Radon
+transform of each basis image (K7, K21 in the backward pass) resampled per
+view by :func:`~dexct_tpu_torch.ops.motion._radon_resample_fan` (plain
+PyTorch): motion-compensated spectral MBIR.
+
 The gradient holds a [V, C, E] intermediate: at the reference protocol
 (1000 x 800 rays, ~180 energy bins) about 0.6 GB per float32 copy.
 """
@@ -30,20 +36,29 @@ from .fourier import FourierProjectorPlan, fourier_project_images
 
 __all__ = ["onestep_spectral_recon", "spectral_forward_images"]
 
-_MOTION = ("the motion-compensated one-step fit needs ops/motion.py, which "
-           "is not ported yet (ROADMAP queue 1, item 12)")
-
 
 def spectral_forward_images(plan: FourierProjectorPlan, x, mus, i0s,
                             view_shape, disp=None, resample_meta=None):
     """Expected counts [M, V, C] from basis images x [K, N, N]: the line
     integrals [V, C, K] of the Fourier-slice projector, contracted with
     ``mus`` [K, E], attenuated (exponent clipped to [-700, 2]) and
-    contracted with ``i0s`` [M, E], in full float32.  ``disp`` (the
-    motion-transformed rays) raises ``NotImplementedError``."""
-    if disp is not None or resample_meta is not None:
-        raise NotImplementedError(_MOTION)
-    L = fourier_project_images(plan, x, tuple(view_shape))  # [V, C, K]
+    contracted with ``i0s`` [M, E], in full float32.  With ``disp`` [V, 2]
+    (and ``resample_meta``, the fan-line coordinates of
+    :func:`~dexct_tpu_torch.ops.motion.fan_line_coords`) the line
+    integrals are taken along the motion-transformed rays: each basis
+    image's Radon transform resampled per view with a t-shift."""
+    if disp is None:
+        L = fourier_project_images(plan, x, tuple(view_shape))  # [V, C, K]
+    else:
+        from .fourier import fourier_radon
+        from .motion import _radon_resample_fan
+
+        th_w, t_w = resample_meta
+        radon = fourier_radon(plan, x)  # [K, ntheta, nt]
+        L = torch.stack([
+            _radon_resample_fan(radon[k], th_w, t_w, disp, plan.n_theta,
+                                plan.nt, plan.t0, plan.dt)
+            for k in range(x.shape[0])], dim=-1)  # [V, C, K]
     E = torch.matmul(L, mus)  # [V, C, E]
     atten = torch.exp(torch.clamp(-E, -700.0, 2.0))
     lam = torch.matmul(atten, i0s.T)  # [V, C, M]
@@ -106,11 +121,11 @@ def onestep_spectral_recon(counts, ee, i0s, basis, plan, view_shape, *,
     clipped nonnegative (zeros by default); ``beta`` weighs the Huber
     penalty against the normalized data term; ``lr`` is Adam's step in
     g/cm^3; ``dtype`` a torch dtype.  Runs on the device of the plan's
-    tables.  ``motion`` raises ``NotImplementedError`` (the motion model is
-    not ported).  Returns the basis images [K, N, N].
+    tables.  ``motion`` (a :class:`~dexct_tpu_torch.ops.motion.
+    MotionProfile` translation track; needs ``geometry``) fits the images in
+    the object frame through the motion-transformed rays.  Returns the
+    basis images [K, N, N].
     """
-    if motion is not None:
-        raise NotImplementedError(_MOTION)
     dev = plan.deapod.device
     dt = dict(dtype=dtype, device=dev)
     counts = torch.as_tensor(counts, **dt)
@@ -122,9 +137,21 @@ def onestep_spectral_recon(counts, ee, i0s, basis, plan, view_shape, *,
     else:
         x0 = torch.as_tensor(x0, **dt)
     vs = tuple(view_shape)
+    disp = meta = None
+    if motion is not None:
+        if geometry is None:
+            raise ValueError("motion-compensated fit needs geometry")
+        if np.any(motion.phi):
+            raise ValueError("the motion-forward resampler supports "
+                             "translation tracks (phi = 0) only")
+        from .motion import fan_line_coords
+
+        meta = fan_line_coords(geometry, dev)
+        disp = torch.as_tensor(motion.disp, **dt)
 
     def forward_fn(x, mu_t, i0_t):
-        return spectral_forward_images(plan, x, mu_t, i0_t, vs)
+        return spectral_forward_images(plan, x, mu_t, i0_t, vs, disp=disp,
+                                       resample_meta=meta)
 
     return _fit(forward_fn, counts, mus, torch.as_tensor(i0s, **dt), x0,
                 int(n_iters), float(beta), float(delta), float(lr),

@@ -10,6 +10,7 @@ from .api import (
     simulate_dect,
 )
 from .cone import ConeDectMeta, cone_dect_step, pack_cone_dect
+from .gated import gate_weights, gated_fbp_recon, gated_series, view_phases
 from .realism import (Stage, apply_chain, correct_chain,
                       simulate_dect_realistic)
 from .runner import DEFAULT_SPEC_PAIRS, run_config, run_parameter_file
@@ -18,6 +19,10 @@ from .zstack import (make_jitted_zstack_step, pack_zstack, stack_phantom,
                      zstack_step)
 
 __all__ = [
+    "gated_fbp_recon",
+    "gated_series",
+    "gate_weights",
+    "view_phases",
     "Stage",
     "apply_chain",
     "correct_chain",

@@ -74,6 +74,13 @@ _SIGNATURES = {
     # dbeta^2, stream
     "dexct_fan_backproject_var": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                                   _F, _F, _F, _F, _P),
+    # q, cos_b, sin_b, cos_p, sin_p, dx, dy, out, V, C, N, px, half, sid,
+    # dgamma, dbeta, stream
+    "dexct_fan_backproject_motion": (_P,) * 8 + (_I,) * 3 + (_F,) * 5
+                                    + (_P,),
+    # q, cos_b, sin_b, w, out, n_gates, V, C, N, px, half, sid, dgamma,
+    # stream
+    "dexct_gated_backproject": (_P,) * 5 + (_I,) * 4 + (_F,) * 4 + (_P,),
     # radon, idx, w, out, n_rays, M, n_src, stream
     "dexct_resample_to_fan": (_P, _P, _P, _P, _L, _I, _L, _P),
     # packed, cos_t, sin_t, mask, out, n_images, n_theta, nt, N, px, half,
@@ -101,6 +108,15 @@ _SIGNATURES = {
     # dbeta, then the 11 window scalars (hwpi .. scale), stream
     "dexct_helical_backproject": (_P,) * 12 + (_I,) * 7 + (_L,)
                                  + (_F,) * 16 + (_P,),
+    # qs, cos_b, sin_b, cos_p, sin_p, dx, dy, dz, X, Y, sel, zc, out,
+    # n_images, V, R, C, P, nz, plane, sid, dgamma, row_h, stream
+    "dexct_fdk_backproject_motion": (_P,) * 13 + (_I,) * 6 + (_L,)
+                                    + (_F,) * 3 + (_P,),
+    # qs, cos_b, sin_b, betas, src_z, cos_p, sin_p, dx, dy, dz, X, Y, sel,
+    # zc, out, n_images, V, R, C, P, nz, plane, sid, dgamma, row_h, pitch,
+    # beta_mid, beta0, dbeta, shift_lo, shift_hi, stream
+    "dexct_helical_backproject_motion": (_P,) * 15 + (_I,) * 6 + (_L,)
+                                        + (_F,) * 9 + (_P,),
     # qs, cos_b, sin_b, X, Y, sel, zc, out, n_images, V, R, C, P, nz,
     # plane, sid, du, dv, off_c, off_r, dbeta, stream
     "dexct_flat_backproject": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

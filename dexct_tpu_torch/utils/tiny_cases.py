@@ -9,21 +9,27 @@ iterative reconstructions and the one-step fit on a 48^2 Fourier plan
 dual-energy noise maps of a 48^2 cylinder, fan- and cone-beam single
 scatter through a 32^2 (x 8) three-material phantom, and the realism
 paths (a bowtie under an artifact chain, tube-current modulation, the
-anode heel) through the same phantom.  The card tests
+anode heel) through the same phantom, and the motion paths (a breathing
+scan of it through the motion-compensated FBP, the estimators and the
+motion-compensated one-step fit; a gated series; the motion-compensated
+cone and helical reconstructions).  The card tests
 (``tests/test_torch_cuda.py``) and ``chip_smoke.py``'s phase 5 both run
 them, with the tolerances below.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 __all__ = ["ITERATIVE_PATHS", "ITERATIVE_TOL", "GRADIENT_TOL", "DOSE_KINDS",
            "DOSE_TOL", "NOISE_TOL", "SCATTER_KINDS", "SCATTER_TOL",
-           "REALISM_KINDS", "REALISM_TOL", "fourier_plan", "iterative_2d",
-           "onestep_gradient", "dose_inputs", "dose", "noise_maps",
-           "scatter", "realism"]
+           "REALISM_KINDS", "REALISM_TOL", "MOTION_KINDS", "MOTION_TOL",
+           "fourier_plan", "iterative_2d", "onestep_gradient",
+           "dose_inputs", "dose", "noise_maps", "scatter", "realism",
+           "motion"]
 
 ITERATIVE_PATHS = ("cg", "sirt", "pwls", "onestep")
 # of the result's largest value: the adjoints' float32 atomics add in no
@@ -46,6 +52,11 @@ REALISM_KINDS = ("realistic", "tcm", "heel")
 # from its plain twin (1e-4 of the basis sinogram), and the chain's Wiener
 # restoration and afterglow recursion carry the convolutions' rounding
 REALISM_TOL = 1e-3
+MOTION_KINDS = ("motion", "gated", "motion_3d")
+# of each output's largest value: the fits (Adam on the joint track and
+# the one-step images) carry the adjoints' unordered float32 atomics on, as
+# ITERATIVE_TOL's loops do
+MOTION_TOL = 1e-3
 
 VIEW_SHAPE = (64, 48)
 
@@ -324,3 +335,78 @@ def realism(kind, device):
                 n_iters=10, do_recon=False, bowtie=bt, device=device)
         out = res.sino_log + res.mat_sinos
     return torch.stack(out).cpu()
+
+
+def motion(kind, device):
+    """One motion path on a tiny scan.  ``'motion'``: a 1 cm lateral
+    breathing track over a 64-view, 48-channel fan through the 32^2
+    phantom (K1), counts of two spectra (K2) and their decomposition (K3),
+    the motion-compensated FBP of the 80 kV log and both basis sinograms
+    (K30), the centroid estimate, 20 iterations of the joint estimator (K7,
+    K21) and 10 of the motion-compensated one-step fit on a 32^2 plan.
+    ``'gated'``: two turns of 48 views under a periodic 0.6 cm shift (K1),
+    a four-gate series (K31).  ``'motion_3d'``: a 0.8 cm z drift over a 24
+    x 4 x 32 cone (K10, K32) and a 1.6 cm drift over a 2-turn, 48-view
+    helix (K10, K33) through the phantom extruded to 8 slices.  Returns the
+    outputs as a list of CPU tensors."""
+    from ..ops import matdecomp, motion as mo, onestep, spectral
+    from ..ops.fourier import plan_fourier_projector
+    from ..ops.siddon import mono_sinogram
+    from ..pipeline.gated import gated_series, view_phases
+    from ..system import (ConeBeamGeometry, FanBeamGeometry,
+                          HelicalConeBeamGeometry)
+
+    kw = dict(gamma_fan=0.9, SID=60.0, SDD=100.0, eid=True)
+    mu = np.array([0.0, 0.2, 0.45])
+    if kind == "motion_3d":
+        ph = _three_materials(8)
+        out = []
+        for ct in (ConeBeamGeometry(N_channels=32, N_proj=24, N_rows=4,
+                                    h_iso=0.5, **kw),
+                   HelicalConeBeamGeometry(N_channels=32, N_proj=48,
+                                           N_rows=4, h_iso=0.5, pitch=1.5,
+                                           rotation_total=4 * np.pi, **kw)):
+            helix = getattr(ct, "pitch", 0.0) != 0.0
+            track = mo.MotionProfile3D.breathing_z(
+                ct.N_proj, amplitude_cm=1.6 if helix else 0.8)
+            sino = mono_sinogram(mo.cone_material_paths_motion(
+                ph, ct, track, device=device), mu)
+            recon = (mo.helical_fdk_reconstruct_motion if helix
+                     else mo.fdk_reconstruct_motion)
+            out.append(recon(sino, ct, 32, 20.0, 0.8, track))
+        return [t.cpu() for t in out]
+    ph = _three_materials()
+    if kind == "gated":
+        ct = FanBeamGeometry(N_channels=48, N_proj=96,
+                             rotation_total=4 * np.pi, **kw)
+        period = 96 / 3.0
+        ph_v = view_phases(ct.N_proj, period)
+        track = mo.MotionProfile(np.zeros(ct.N_proj), 0.6 * np.sin(
+            2 * np.pi * ph_v)[:, None] * np.array([[1.0, 0.0]]))
+        sino = mono_sinogram(mo.material_path_sinogram_motion(
+            ph, ct, track, device=device), mu)
+        return [gated_series(sino, ct, 32, 20.0, period).cpu()]
+    ct = FanBeamGeometry(N_channels=48, N_proj=64, **kw)
+    s1, s2 = _realism_spectra(ct)
+    track = mo.MotionProfile.breathing(ct.N_proj, amplitude_cm=1.0,
+                                       direction=(1.0, 0.4))
+    paths = mo.material_path_sinogram_motion(ph, ct, track, device=device)
+    (c1, _), (c2, l2) = (spectral.forward_counts(paths, ph, s, ct)
+                         for s in (s1, s2))
+    m1, m2 = matdecomp.decompose_sinograms(ct, c1, c2, s1, s2, n_iters=10)
+    imgs = [mo.fbp_recon_motion(s, ct, 32, 20.0, track)[0]
+            for s in (l2, m1, m2)]
+    est, _ = mo.estimate_translation(l2, ct, n_modes=4)
+    joint, x = mo.estimate_motion_joint(l2, ct, 32, 20.0, n_modes=4,
+                                        n_iters=20, n_theta=64, init=est)
+    ee, i0s, _ = matdecomp.prepare_decomposition(ct, s1, s2)
+    grid = dataclasses.replace(ph, labels=np.zeros((1, 32, 32), np.uint8),
+                               dx=20.0 / 32, dy=20.0 / 32, dz=20.0 / 32)
+    plan = plan_fourier_projector(grid, ct, n_theta=64, device=device)
+    x0 = torch.clamp_min(torch.stack(imgs[1:]), 0.0)
+    fit = onestep.onestep_spectral_recon(
+        torch.stack([c1, c2]), ee, i0s, matdecomp.DEFAULT_BASIS, plan,
+        (ct.N_proj, ct.N_channels), x0=x0, n_iters=10, motion=track,
+        geometry=ct)
+    return [t.cpu() for t in (l2, m1, m2, *imgs,
+                              torch.as_tensor(joint.disp), x, fit)]

@@ -1,4 +1,4 @@
-"""Hand-written kernels K1-K27 against their plain PyTorch versions, on the
+"""Hand-written kernels K1-K33 against their plain PyTorch versions, on the
 card.
 
 Every test here needs a CUDA device and skips without one.  This file
@@ -1206,3 +1206,165 @@ def test_realism_numpy_inputs_run_on_the_card(dev):
         assert on_card.device.type == "cuda"
         torch.testing.assert_close(on_card.cpu(), fn("cpu"), rtol=1e-5,
                                    atol=0)
+
+
+# --- K30-K33: motion-compensated and gated backprojections ---------------
+
+def _k4_golden_case():
+    """Two filtered sinograms [2, 180, 96] from a fixed seed and 180 view
+    angles over one turn: the K4 case whose output sha1 is pinned."""
+    rng = np.random.default_rng(41)
+    q = rng.normal(size=(2, 180, 96)).astype(np.float32)
+    betas = (np.arange(180) * (2 * np.pi / 180)).astype(np.float32)
+    return q, betas
+
+
+# the args after (packed, n_images, betas) of the K4 golden call
+K4_GOLDEN_ARGS = (60.0, 0.8230337 / 96, 96, 64, 24.0, 2 * np.pi / 180)
+# sha1 of K4's output on _k4_golden_case from the build of K4's source
+# before K30 and K31 joined it in csrc/fan_backproject.cu (NVIDIA H100
+# 80GB HBM3, CUDA 12.8)
+K4_GOLDEN_SHA1 = "7be906e3dce180a70cd456ee0bdc2b6ff4b230d7"
+
+
+def test_k4_output_is_unchanged(dev):
+    import hashlib
+
+    from dexct_tpu_torch.ops.fbp_fast import pack_filtered
+
+    q, betas = (torch.as_tensor(x, device=dev) for x in _k4_golden_case())
+    out = fan_backproject_multi(pack_filtered(q), 2, betas,
+                                *K4_GOLDEN_ARGS).cpu().numpy()
+    assert hashlib.sha1(out.tobytes()).hexdigest() == K4_GOLDEN_SHA1
+
+
+def _motion_fan_case(dev, V=120, C=96, seed=30):
+    rng = np.random.default_rng(seed)
+    q = torch.as_tensor(rng.normal(size=(V, C)), dtype=torch.float32,
+                        device=dev)
+    betas = torch.arange(V, dtype=torch.float32, device=dev) * (2 * np.pi / V)
+    phi = 0.1 * np.sin(np.linspace(0, 3, V))
+    disp = np.stack([0.8 * np.sin(np.linspace(0, 5, V)),
+                     0.5 * np.cos(np.linspace(0, 4, V))], -1)
+    return q, betas, phi, disp
+
+
+def test_fan_backproject_motion_matches_plain(dev):
+    from dexct_tpu_torch.ops.motion import (fan_backproject_motion,
+                                            fan_backproject_motion_plain)
+
+    q, betas, phi, disp = _motion_fan_case(dev)
+    args = (60.0, 0.8230337 / 96, 64, 24.0, phi, disp)
+    before = fan_backproject_motion.launches
+    got = fan_backproject_motion(q, betas, *args, dbeta=2 * np.pi / 120)
+    torch.cuda.synchronize()
+    assert fan_backproject_motion.launches == before + 1
+    want = fan_backproject_motion_plain(q, betas, *args, 2 * np.pi / 120)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def test_fan_backproject_motion_at_zero_pose_is_k4(dev):
+    """K30 with phi = d = 0 forms the pixel coordinates exactly and then
+    runs K4's tap and sum for one image: K4's image bit for bit."""
+    from dexct_tpu_torch.ops.fbp_fast import pack_filtered
+    from dexct_tpu_torch.ops.motion import fan_backproject_motion
+
+    q, betas, _, _ = _motion_fan_case(dev, V=180)
+    geo = (60.0, 0.8230337 / 96, 64, 24.0)
+    got = fan_backproject_motion(q, betas, *geo, np.zeros(180),
+                                 np.zeros((180, 2)), dbeta=2 * np.pi / 180)
+    k4 = fan_backproject_multi(pack_filtered(q[None]), 1, betas, geo[0],
+                               geo[1], 96, geo[2], geo[3], 2 * np.pi / 180)
+    assert torch.equal(got, k4[0])
+
+
+@pytest.mark.parametrize("n_gates", [1, 4, 6])
+def test_gated_backproject_matches_plain(dev, n_gates):
+    from dexct_tpu_torch.pipeline import gated
+
+    rng = np.random.default_rng(31)
+    V, C = 2 * 96, 96
+    q = torch.as_tensor(rng.normal(size=(V, C)), dtype=torch.float32,
+                        device=dev)
+    betas = torch.arange(V, dtype=torch.float32, device=dev) * (2 * np.pi / 96)
+    ph = gated.view_phases(V, 96 * 2 / 3.0)
+    w = np.stack([gated.gate_weights(ph, g / n_gates, 0.3)
+                  for g in range(n_gates)])
+    w = torch.as_tensor(w, dtype=torch.float32, device=dev)
+    args = (60.0, 0.8230337 / C, 64, 24.0)
+    before = gated._gated_backproject.launches
+    got = gated._gated_backproject(q, betas, w, *args)
+    torch.cuda.synchronize()
+    assert gated._gated_backproject.launches == before + -(-n_gates // 4)
+    want = gated._gated_backproject_plain(q, betas, w, *args)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def _motion_cone_case(dev, V, dz_amp, seed):
+    rng = np.random.default_rng(seed)
+    q = torch.as_tensor(rng.normal(size=(2, V, 8, 48)), dtype=torch.float32,
+                        device=dev)
+    s = np.linspace(0, 1, V)
+    phi = 0.05 * np.sin(2 * np.pi * s)
+    disp = np.stack([0.5 * np.sin(3 * s), 0.3 * np.cos(2 * s),
+                     0.5 * dz_amp * (1 - np.cos(3 * np.pi * s))], -1)
+    return q, phi, disp
+
+
+def test_fdk_backproject_motion_matches_plain(dev):
+    from dexct_tpu_torch.ops.motion import (_fdk_backproject_motion,
+                                            _motion_backproject_plain)
+
+    q, phi, disp = _motion_cone_case(dev, 48, 0.8, 32)
+    betas = torch.arange(48, dtype=torch.float32, device=dev) \
+        * (2 * np.pi / 48)
+    args = (60.0, 0.8230337 / 48, 0.5, 40, 10, 20.0, 0.5, -2.25)
+    before = _fdk_backproject_motion.launches
+    got = _fdk_backproject_motion(q, betas, phi, disp, *args[:3], 8,
+                                  *args[3:])
+    torch.cuda.synchronize()
+    assert _fdk_backproject_motion.launches == before + 1
+    want = _motion_backproject_plain(q, betas, phi, disp, *args,
+                                     view_block=8)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dz_amp", [0.0, 1.6])
+def test_helical_backproject_motion_matches_plain(dev, dz_amp):
+    """K33 on a 3-turn helix, still and with a z drift of 1.6 cm (over
+    three rows of 0.5 cm): the kernel visits only the views each slice's
+    moving window can reach, the plain version every view."""
+    from dexct_tpu_torch.ops.motion import (_helical_backproject_motion,
+                                            _motion_backproject_plain)
+    from dexct_tpu_torch.system import HelicalConeBeamGeometry
+
+    ct = HelicalConeBeamGeometry(N_channels=48, N_proj=144, N_rows=8,
+                                 SID=60.0, SDD=100.0, h_iso=0.5,
+                                 rotation_total=6 * np.pi, pitch=2.0)
+    q, phi, disp = _motion_cone_case(dev, 144, dz_amp, 33)
+    betas = torch.as_tensor(ct.betas, dtype=torch.float32, device=dev)
+    nz = 17
+    z0 = 0.25 - nz * 0.25
+    before = _helical_backproject_motion.launches
+    got = _helical_backproject_motion(
+        q, betas, ct.source_z, 3 * np.pi, phi, disp, 60.0, ct.dgamma, 0.5,
+        8, 2.0, 32, nz, 20.0, 0.5, z0)
+    torch.cuda.synchronize()
+    assert _helical_backproject_motion.launches == before + 1
+    want = _motion_backproject_plain(
+        q, betas, phi, disp, 60.0, ct.dgamma, 0.5, 32, nz, 20.0, 0.5, z0,
+        8, window=(ct.source_z, 3 * np.pi, 2.0))
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("kind", tiny_cases.MOTION_KINDS)
+def test_motion_paths_cuda_match_cpu(dev, kind):
+    got = tiny_cases.motion(kind, dev)
+    want = tiny_cases.motion(kind, "cpu")
+    for g, w in zip(got, want):
+        big = float(w.abs().max())
+        assert float((g - w).abs().max()) <= tiny_cases.MOTION_TOL * big

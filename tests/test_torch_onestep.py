@@ -8,7 +8,9 @@ count (the FFT libraries round differently, measured 1.0e-6); the
 objective's gradient (``torch.autograd`` through the Fourier chain against
 ``jax.grad``) rel 1e-4 of its largest value; 20 Adam iterations of
 ``onestep_spectral_recon`` rel 1e-4; ``adam_step`` and the Huber roughness
-rel 1e-6; the motion refusal.
+rel 1e-6; the motion-compensated forward (the motion resampler on the
+Radon transforms) rel 1e-5 and 20 iterations of the motion fit rel 1e-4;
+the motion guards.
 """
 
 import jax
@@ -18,6 +20,7 @@ import pytest
 import torch
 
 from dexct_tpu.ops import fourier as j_fo
+from dexct_tpu.ops import motion as jm
 from dexct_tpu.ops import onestep as j_os
 from dexct_tpu.physics import xcom as j_xcom
 from dexct_tpu.physics.materials import BONE as J_BONE
@@ -26,6 +29,7 @@ from dexct_tpu.system import FanBeamGeometry as JFan
 from dexct_tpu.system import water_cylinder_phantom as j_cyl
 from dexct_tpu.utils.optim import adam_step as j_adam
 from dexct_tpu_torch.ops import fourier as t_fo
+from dexct_tpu_torch.ops import motion as tm
 from dexct_tpu_torch.ops import onestep as t_os
 from dexct_tpu_torch.ops.matdecomp import prepare_decomposition
 from dexct_tpu_torch.physics import kramers_spectrum
@@ -149,8 +153,57 @@ def test_adam_step_and_roughness_match_jax():
         float(j_os._roughness(jnp.asarray(p), 0.3)), rel=1e-6)
 
 
-def test_motion_refused(setup):
+def _tracks():
+    j = jm.MotionProfile.breathing(VS[0], amplitude_cm=0.6, cycles=1.5,
+                                   direction=(1.0, 0.4))
+    return j, tm.MotionProfile(j.phi, j.disp)
+
+
+def test_motion_forward_matches_jax(setup):
+    """The motion-compensated forward model: each basis image's Fourier
+    Radon transform resampled along the motion-transformed rays."""
+    jplan, tplan, _, i0, mus, _, x0, _ = setup
+    jmo, tmo = _tracks()
+    want = np.asarray(j_os.spectral_forward_images(
+        jplan, jnp.asarray(x0), jnp.asarray(mus), jnp.asarray(i0), VS,
+        disp=jnp.asarray(jmo.disp, jnp.float32),
+        resample_meta=j_os._motion_resample_meta(JFan(**GEOM), VS)))
+    got = t_os.spectral_forward_images(
+        tplan, torch.as_tensor(x0), torch.as_tensor(mus),
+        torch.as_tensor(i0), VS,
+        disp=torch.as_tensor(tmo.disp, dtype=torch.float32),
+        resample_meta=tm.fan_line_coords(TFan(**GEOM), "cpu"))
+    assert got.shape == want.shape == (2,) + VS
+    assert _rel(got.numpy(), want) <= 1e-5
+    static = t_os.spectral_forward_images(
+        tplan, torch.as_tensor(x0), torch.as_tensor(mus),
+        torch.as_tensor(i0), VS).numpy()
+    assert _rel(got.numpy(), static) > 1e-3  # the track moves the rays
+
+
+def test_motion_fit_matches_jax(setup):
+    """Twenty Adam iterations of the motion-compensated fit (autograd
+    through the resampler and the Fourier chain against jax.grad)."""
+    jplan, tplan, ee, i0, _, _, x0, counts = setup
+    jmo, tmo = _tracks()
+    want = np.asarray(j_os.onestep_spectral_recon(
+        counts, ee, i0, (J_WATER, J_BONE), jplan, VS, x0=x0, n_iters=20,
+        motion=jmo, geometry=JFan(**GEOM)))
+    got = t_os.onestep_spectral_recon(counts, ee, i0, (WATER, BONE), tplan,
+                                      VS, x0=x0, n_iters=20, motion=tmo,
+                                      geometry=TFan(**GEOM))
+    assert got.shape == (2, 48, 48) and float(got.min()) >= 0.0
+    assert np.abs(want - x0).max() > 1e-2  # the fit moved
+    assert _rel(got.numpy(), want) <= 1e-4
+
+
+def test_motion_guards(setup):
     _, tplan, ee, i0, _, _, x0, counts = setup
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_os.onestep_spectral_recon(counts, ee, i0, (WATER, BONE), tplan, VS,
-                                    x0=x0, n_iters=1, motion=object())
+    _, tmo = _tracks()
+    args = (counts, ee, i0, (WATER, BONE), tplan, VS)
+    with pytest.raises(ValueError, match="needs geometry"):
+        t_os.onestep_spectral_recon(*args, x0=x0, n_iters=1, motion=tmo)
+    turning = tm.MotionProfile(np.full(VS[0], 0.01), tmo.disp)
+    with pytest.raises(ValueError, match="phi = 0"):
+        t_os.onestep_spectral_recon(*args, x0=x0, n_iters=1, motion=turning,
+                                    geometry=TFan(**GEOM))

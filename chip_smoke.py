@@ -7,9 +7,9 @@ Needs one CUDA device, the CUDA toolkit (nvcc) and Triton; imports nothing
 of JAX.  Phases, each of which raises on failure:
 
 1. Device: the card's name and power limit (nvidia-smi).
-2. Build: nvcc builds kernels K1, K3-K13, K15-K27 and K29-K33 from
+2. Build: nvcc builds kernels K1, K3-K13, K15-K27, K29-K33 and K35 from
    ``dexct_tpu_torch/csrc`` (one nvcc per source, all at once); Triton
-   compiles K2, K14 and K28.
+   compiles K2, K14, K28 and K34.
 3. Each kernel against its plain PyTorch version on the card, on the
    inputs its path gives it, with the error, both times, the kernel's
    bound (the larger of its bytes over 3.35 TB/s and its float32
@@ -61,6 +61,11 @@ of JAX.  Phases, each of which raises on failure:
    where every view's fan covers the pixel; K32 and K33 (the
    motion-compensated cone FDK and helical gFDK) on the cone config's
    z-breathing stack and the helical config's stack under a 1.6 cm drift.
+   K34 (the photon-counting bins' counts) on the exact trace of the
+   reference protocol as a PCD scan with the packed path's 4 bins and with
+   the K-edge pelvis's 6 bins and 8 materials, and K35 (the general Newton
+   decomposition) on those counts (M = 4, K = 2, 10 iterations; M = 6, K =
+   4, 60), and at (2, 2) with K3's schedule beside K3.
 4. The paths: the default and the exact path through
    ``dexct_tpu_torch.run.main`` on ``input/params.txt``, then the cone,
    helical, flat-panel, tilted, z-FFS and Katsevich configs, the
@@ -134,13 +139,25 @@ of JAX.  Phases, each of which raises on failure:
    ``helical_fdk_reconstruct_motion``: zero motion against the static
    reconstructions, compensated below uncorrected and on the helix at
    least the JAX package's ratios, the compensated air ~ -1000 HU on the
-   cone and at the JAX package's -1129 HU on the helix).
+   cone and at the JAX package's -1129 HU on the helix).  Then the
+   spectral paths: ``spectral`` (the reference protocol as a photon-
+   counting scan through ``pack_pcd_spectral`` + ``pcd_step`` with pileup,
+   noisy and noiseless: the tissue ROI ~ 1.06 g/cm^3; the K-edge scan of
+   a water cylinder with iodine and gadolinium rods through
+   ``simulate_pcd_spectral``: each rod its agent at 0.010 and not the
+   other, and the JAX package's half-resolution reading, within 0.002, the
+   70 keV VMI within 2 % of water; the same rods in the pelvis, read
+   beside the JAX package's), ``spectral_cone`` (the cone config as a PCD
+   scan, packed and stateless, and the helical config packed: the tissue
+   ROI ~ 1.06 g/cm^3) and ``acquisition_modes`` (kV switching, dual source
+   with cross-scatter corrected, dual layer at the reference protocol: air
+   ~ -1000 HU, the tissue ROI ~ 1.06 g/cm^3).
 5. A 64^2 config through the port on ``--device cpu`` and ``--device
    cuda`` under every 2-D path's flags and configuration, tiny versions of
    every 3-D path, a tiny z-stack, and tiny versions of the six library
    paths above, tiny noise maps and fan and cone scatter, tiny versions
-   of the three realism paths and of the three motion paths; every output
-   agrees to the pipeline tolerances.
+   of the three realism paths, of the three motion paths and of the
+   spectral paths; every output agrees to the pipeline tolerances.
 
 The last two lines of standard output are the kernels' JSON record and the
 device JSON line.
@@ -280,6 +297,14 @@ KERNELS = {
                                    "dexct_tpu_torch/csrc/cone_backproject.cu",
                                    "dexct_tpu/ops/motion.py:831",
                                    "max abs <= 1e-4 x max |plain|"),
+    "multibin_counts": ("triton", "dexct_tpu_torch/ops/spectral.py",
+                        "dexct_tpu/ops/spectral.py:67 (i0 [E, M])",
+                        "max rel <= 1e-5"),
+    "gauss_newton_general": ("cuda", "dexct_tpu_torch/csrc/gauss_newton.cu",
+                             "dexct_tpu/ops/matdecomp.py:333 (K in {3, 4}, "
+                             "M >= K, newton, lm_damping, warm)",
+                             "max |d| / max(|a|, 1) <= 1e-4 (K = 4: on 99 % "
+                             "of pixels); at (2, 2) within 1e-4 of K3"),
 }
 # the library paths of the helical study reconstructors and the exact 3-D
 # iterative reconstruction, and the kernels each launches
@@ -319,6 +344,23 @@ HEEL_KERNELS = ("siddon_trace_3d", "table_counts", "gauss_newton_grouped",
 MOTION_KERNELS = ("siddon_trace", "spectral_counts", "gauss_newton",
                   "fan_backproject_motion", "kb_sample", "kb_sample_adjoint")
 GATED_KERNELS = ("siddon_trace", "gated_backproject")
+# the spectral photon-counting paths and the other DE acquisition modes,
+# and the kernels each launches: the packed 2-D PCD step (K1, the bins'
+# counts K34, the multi-bin decomposition K35, rebin K5 and parallel BP
+# K6) and the K-edge scan (K1, K34, K35, fan BP K4); the cone PCD paths
+# (K10, K34, K35, FDK K11, helical gFDK K12); kV switching, dual source and
+# dual layer through the composed DE path (K1-K4)
+SPECTRAL_KERNELS = ("siddon_trace", "multibin_counts", "gauss_newton_general",
+                    "rebin_to_parallel", "parallel_backproject",
+                    "fan_backproject")
+SPECTRAL_CONE_KERNELS = ("siddon_trace_3d", "multibin_counts",
+                         "gauss_newton_general", "fdk_backproject",
+                         "helical_backproject")
+ACQUISITION_KERNELS = ("siddon_trace", "spectral_counts", "gauss_newton",
+                       "fan_backproject")
+# a 1 cm ROI of ICRU tissue (labels 2) in the pelvis, (x, y) cm: its
+# density in the tissue basis
+TISSUE_XY, TISSUE_DENSITY, TISSUE_TOL = (-0.3, -3.7), 1.06, 0.05
 MOTION_3D_KERNELS = ("siddon_trace_3d", "spectral_counts", "gauss_newton",
                      "fdk_backproject_motion", "helical_backproject_motion")
 # the motion path's breathing track (tests/test_motion.py:96-110)
@@ -361,6 +403,11 @@ HELICAL_AIR_REF, AIR_TOL_HU = -1129.19, 50.0
 # 1; per (pixel, slice, view) row the row position and its test 6 and the
 # coverage count 1; per row with taps the row tap 7 (and 7 per image)
 MOTION_PLANE_OPS, MOTION_ROW_OPS, MOTION_TAP_OPS = 35, 7, 7
+# K11's, K12's and K13's in-plane geometry per (disc pixel, view): K32's
+# without the pose (ell, vt, h^2 and 1 / h, the channel, its fan test and
+# tap, 1 / h^2; K13's u, channel and 1 / ell^2 alike); their rows and taps
+# as K32's
+PLANE_OPS = MOTION_PLANE_OPS - 8
 # the JAX study's bowtie (tools/protocol3d_study.py:120) and heel
 # (tools/smoke_r3s5.py:81)
 BOWTIE_RADIUS_CM = 15.0
@@ -406,9 +453,10 @@ ITER_N0 = 1.0e5
 # columns 118-138 of its 256^2 labels at 0.2 cm are water
 BLADDER_XY = (0.0, 1.7)
 # K12's float32 operations per (pixel, slice, view) on the detector within
-# its slice's window: 35 for the geometry and the row, and each gFDK
-# window's own (cosine, sine and division count as one); 7 K more where the
-# weight is nonzero inside the fan (the taps of K stacks)
+# its slice's window beyond PLANE_OPS per (disc pixel, view): each gFDK
+# window's own (cosine, sine and division count as one), besides the row's
+# MOTION_ROW_OPS; MOTION_TAP_OPS + 7 K more where the weight is nonzero
+# inside the fan (the taps of K stacks)
 WEIGHT_OPS = {"full": 0, "feather": 6, "td": 16, "cosz": 8, "short": 16,
               "pair": 30}
 # what the JAX package's helical_fdk_reconstruct reads on the helical
@@ -508,6 +556,99 @@ CONE_CONFIGS = {
 }
 # the keys of a cone configuration that select its geometry's variant
 VARIANT_KEYS = ("scanner_geometry", "gantry_tilt_rad", "flying_focal_spot")
+# the spectral paths: the reference protocol as a photon-counting scan
+# (the shipped Si PCD response, the 140 kV spectrum at 10 mGy)
+PCD_PARAMS = {"detector_mode": "pcd",
+              "detector_filename": "input/detector/eta_pcd_Si_30mm.bin"}
+PCD_DOSE_MGY = 10.0
+PCD_THRESHOLDS = (20.0, 34.0, 50.0, 70.0)
+# the packed path's pulse pileup: resolving time set so that air rays
+# count at rho = 0.1 (the JAX tests' 1e-5 is for ~2e4 counts per ray; at
+# this protocol's ~1e10 it would paralyse every ray)
+PCD_PILEUP_RHO = 0.1
+# the K-edge case (tests/test_spectralct.py:432-474): six bins straddling
+# the iodine (33.2 keV) and gadolinium (50.2 keV) K-edges, basis water,
+# bone, iodine, gadolinium, and rods of 10 mg/mL contrast (the JAX test's
+# solutions) at (x, y) cm; in two scenes at the reference protocol's width:
+# the JAX test's 19.2 cm water cylinder (256^2 at 0.075 cm, 1.5 cm rods
+# 3 cm off its centre, images 256^2 over 19.2 cm) and the pelvis (1 cm
+# rods in its muscle, images 512^2 over 50 cm)
+KEDGE_THRESHOLDS = (20.0, 34.0, 45.0, 52.0, 65.0, 85.0)
+KEDGE_AGENTS = (("iodine 10mg/mL", 1.008, "H(11.1)O(87.9)I(1.0)"),
+                ("gado 10mg/mL", 1.008, "H(11.1)O(87.9)Gd(1.0)"))
+KEDGE_SCENES = {"cylinder": (((0.0, 3.0), (0.0, -3.0)), 1.5),
+                "pelvis": (((-6.7, -5.1), (6.9, -5.1)), 1.0)}
+KEDGE_CYLINDER = dict(N=256, dx=0.075)  # water_cylinder_phantom's
+KEDGE_CYLINDER_IMAGE = (256, 19.2)  # matrix, FOV [cm]
+KEDGE_AGENT = 0.010  # g/cm^3 of the agent in its rod
+KEDGE_TOL = 0.002  # the JAX test's bar on each rod's agent and cross-talk
+# what the JAX package reads on each K-edge scene at half resolution (the
+# phantom's every other label at twice the voxel size, 500 views x 400
+# channels, images at half the matrix; kedge_reference in
+# tests/test_torch_spectralct.py): per rod, the (iodine, gadolinium) basis
+# densities of its 1 cm ROI.  On the cylinder the card must read each within
+# KEDGE_TOL of them; on the pelvis the readings are printed beside them: its
+# lateral rays starve the two lowest bins (transmission ~1e-8 of air at
+# 20-34 keV), the K = 4 solve there is chaotic, and the JAX program and the
+# port's plain version read its rods up to 0.0075 g/cm^3 apart at half
+# resolution
+KEDGE_REF = {"cylinder": {"iodine": (0.01009, -0.00001),
+                          "gadolinium": (-0.00001, 0.01009)},
+             "pelvis": {"iodine": (0.00936, 0.00121),
+                        "gadolinium": (0.00826, 0.01043)}}
+# K35's rows per energy node and operations (the gn_work style; exp and
+# division count one): per (pixel, iteration, node) the exponent 2 K, one
+# exp, the moment sums 2 M (1 + K) and with "newton" 2 M T more; per
+# (pixel, iteration) the step: 2 M (K + T) for dF and H, 8 M for the
+# residuals, and the closed-form solve (2x2 20, 3x3 50, 4x4 160)
+SOLVE_OPS = {2: 20, 3: 50, 4: 160}
+
+
+def kedge_labels(labels, dx, dy, first_label, scene):
+    """``labels`` [..., Ny, Nx] (a grid centred on the isocenter, y along
+    the rows) with the rods of the K-edge ``scene`` set to ``first_label``
+    (iodine) and the label after it (gadolinium)."""
+    import numpy as np
+
+    centres, radius = KEDGE_SCENES[scene]
+    ny, nx = labels.shape[-2:]
+    y = (np.arange(ny) + 0.5 - ny / 2.0) * dy
+    x = (np.arange(nx) + 0.5 - nx / 2.0) * dx
+    out = np.array(labels, copy=True)
+    for i, (cx, cy) in enumerate(centres):
+        out[..., np.hypot(x[None, :] - cx, y[:, None] - cy) <= radius] = \
+            first_label + i
+    return out
+
+
+def kedge_phantom(phantom, scene, material_table, material):
+    """``phantom`` with the K-edge ``scene``'s rods as two labels after its
+    own, made with the given MaterialTable and Material classes (either
+    package's)."""
+    import dataclasses
+
+    mats = list(phantom.materials.materials)
+    return dataclasses.replace(
+        phantom, labels=kedge_labels(phantom.labels, phantom.dx, phantom.dy,
+                                     len(mats), scene),
+        materials=material_table(mats + [material(*m)
+                                         for m in KEDGE_AGENTS]))
+
+
+def kedge_reading(basis_recons, fov, scene):
+    """Each rod's (iodine, gadolinium) basis densities [g/cm^3] in the
+    K-edge ``scene``: the means of its 1 cm ROI in basis images 2 and 3 of
+    [4, N, N] (a tensor or an array)."""
+    import numpy as np
+
+    imgs = np.asarray(basis_recons.cpu() if hasattr(basis_recons, "cpu")
+                      else basis_recons)
+    return {rod: tuple(roi_mean(imgs[k][None], cx, cy, 0, fov)
+                       for k in (2, 3))
+            for rod, (cx, cy) in zip(("iodine", "gadolinium"),
+                                     KEDGE_SCENES[scene][0])}
+
+
 # one H100 SXM (NVIDIA's data sheet): HBM3 rate and float32 peak outside
 # the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -976,7 +1117,9 @@ def cone_kernel_phase(arrays, meta, records, helical):
             err, big = max_err(vol, want)
             on, taps = helical_terms(a, meta, w, X, Y)
             work = (nbytes(qs, vol) + 8 * P + 16 * V,
-                    (35 + WEIGHT_OPS[w]) * on + 7 * K * taps)
+                    PLANE_OPS * P * V
+                    + (MOTION_ROW_OPS + WEIGHT_OPS[w]) * on
+                    + (MOTION_TAP_OPS + 7 * K) * taps)
             extra = (f" (max |plain| {big:.6g}; {meta.nz_out} slices; "
                      f"{on} pixel-slice-views on the detector in the window,"
                      f" {taps} of them weighted)")
@@ -999,10 +1142,34 @@ def cone_kernel_phase(arrays, meta, records, helical):
         lambda: conebeam._fdk_backproject_multi(*fargs),
         lambda: conebeam._fdk_backproject_multi_plain(*fargs), reps=1)
     err, big = max_err(vol, want)
+    zc = conebeam._fdk_z(meta.nz_out, meta.dz_out, 0.0, qs.device)
+    taps = rows_on_detector(
+        a["betas"], lambda beta: conebeam._inplane(
+            X, Y, beta, meta.sid, meta.dgamma, C)[2:4],
+        lambda inv_h: (zc[None, :, None] * meta.sid) * inv_h[:, None, :]
+        / meta.row_h - 0.5 + R / 2.0, R)
     report(records, "fdk_backproject", err, ms, pms, err <= 1e-4 * big,
            (nbytes(qs, vol) + 8 * P + 8 * V,
-            P * meta.nz_out * V * (30 + 7 * K)),
-           extra=f" (max |plain| {big:.6g}; {meta.nz_out} slices)")
+            PLANE_OPS * P * V + MOTION_ROW_OPS * P * meta.nz_out * V
+            + (MOTION_TAP_OPS + 7 * K) * taps),
+           extra=f" (max |plain| {big:.6g}; {meta.nz_out} slices; {taps} "
+                 f"of {P * meta.nz_out * V} pixel-slice-views on the "
+                 f"detector)")
+
+
+def rows_on_detector(betas, plane, row_index, R, block=8):
+    """The (disc pixel, slice, view) terms whose row lies on the detector
+    and whose pixel lies inside the fan: ``plane(beta)`` gives the
+    per-(view, pixel) scale of the row position and the fan mask [B, P],
+    ``row_index(scale)`` the row index [B, nz, P]; counted in blocks of
+    ``block`` views."""
+    n = 0
+    for v0 in range(0, betas.shape[0], block):
+        scale, inside = plane(betas[v0:v0 + block])
+        ridx = row_index(scale)
+        n += int(((ridx >= -0.5) & (ridx <= R - 0.5)
+                  & (inside[:, None, :] != 0)).sum())
+    return n
 
 
 def helical_terms(a, meta, weighting, X, Y):
@@ -1054,6 +1221,8 @@ def stateless_stack(ccfg, spectra, dev):
 
 def flat_kernel_phase(ccfg, stack, records):
     """Phase 3, flat-panel path: K13 on the filtered 4-volume stack."""
+    import torch
+
     from dexct_tpu_torch.ops import conebeam, flatpanel
 
     ct = ccfg.ct
@@ -1067,11 +1236,28 @@ def flat_kernel_phase(ccfg, stack, records):
         lambda: flatpanel._flat_backproject(*bargs),
         lambda: flatpanel._flat_backproject_plain(*bargs), reps=1)
     err, big = max_err(vol, want)
-    P = conebeam._disc(N, ccfg.FOV, q.device)[0].shape[0]
+    X, Y, _ = conebeam._disc(N, ccfg.FOV, q.device)
+    P = X.shape[0]
+    zc = flatpanel._flat_z(R, ct.h_iso, q.device)
+    sid = float(ct.SID)
+
+    def plane(beta):  # K13's 1 / ell and its fan test
+        cb, sb = torch.cos(beta)[:, None], torch.sin(beta)[:, None]
+        ell = sid - (X[None, :] * cb + Y[None, :] * sb)
+        vt = -X[None, :] * sb + Y[None, :] * cb
+        cidx = -sid * vt / ell / ct.du_iso - 0.5 - ct.det_offset_ch + C / 2
+        return 1.0 / ell, ((cidx >= 0.0) & (cidx <= C - 1.0)).float()
+
+    taps = rows_on_detector(
+        conebeam._f32(ct.betas, q.device), plane,
+        lambda inv_ell: (zc[None, :, None] * sid) * inv_ell[:, None, :]
+        / ct.h_iso - 0.5 - ct.det_offset_row + R / 2.0, R)
     report(records, "flat_backproject", err, ms, pms, err <= 1e-4 * big,
            (nbytes(q, vol) + 8 * P + 8 * V,
-            P * R * V * (30 + 7 * q.shape[0])),
-           extra=f" (max |plain| {big:.6g}; {R} slices)")
+            PLANE_OPS * P * V + MOTION_ROW_OPS * P * R * V
+            + (MOTION_TAP_OPS + 7 * q.shape[0]) * taps),
+           extra=f" (max |plain| {big:.6g}; {R} slices; {taps} of "
+                 f"{P * R * V} pixel-slice-views on the detector)")
 
 
 def tilted_kernel_phase(ccfg, stack, records):
@@ -2548,6 +2734,396 @@ def motion_devices_phase():
                  "card")
 
 
+def pcd_setup(tmp, dev, gens):
+    """The spectral paths' scenes: the reference protocol as a
+    photon-counting scan (config, its 140 kV spectrum at PCD_DOSE_MGY), the
+    K-edge scenes' phantoms ({scene: phantom}) and the K-edge basis."""
+    from dexct_tpu_torch.physics.materials import (BONE, WATER, Material,
+                                                   MaterialTable)
+    from dexct_tpu_torch.pipeline.runner import _resolve_spectrum
+    from dexct_tpu_torch.system import water_cylinder_phantom
+    from dexct_tpu_torch.system.config import read_parameter_file
+
+    pcfg = read_parameter_file(write_2d_params(tmp, "pcd", PCD_PARAMS))[0]
+    spec = _resolve_spectrum("140kV", PCD_DOSE_MGY, pcfg.ct, str(SPECTRA),
+                             gens)
+    kph = {"pelvis": kedge_phantom(pcfg.phantom, "pelvis", MaterialTable,
+                                   Material),
+           "cylinder": kedge_phantom(water_cylinder_phantom(
+               **KEDGE_CYLINDER), "cylinder", MaterialTable, Material)}
+    basis = (WATER, BONE, Material("iodine", 4.93, "I(100.0)"),
+             Material("gadolinium", 7.9, "Gd(100.0)"))
+    return pcfg, spec, kph, basis
+
+
+def newton_work(n_pix, n_meas, n_mats, n_iters, e_full, newton=False,
+                polish=4, warm_nodes=32, compress=True):
+    """Bytes and operations of one K35 solve (SOLVE_OPS's count): the warm
+    phase on the ~warm_nodes-node table when the log warm phase compresses
+    it, the polish on the full grid."""
+    T = n_mats * (n_mats + 1) // 2
+    e_warm = e_full
+    if compress and e_full > 2 * warm_nodes and n_iters > polish:
+        seg = -(-e_full // warm_nodes)
+        e_warm = -(-e_full // seg)
+    node = 2 * n_mats + 1 + 2 * n_meas * (1 + n_mats) \
+        + (2 * n_meas * T if newton else 0)
+    step = 2 * n_meas * (n_mats + T) + 8 * n_meas + SOLVE_OPS[n_mats]
+    n_pol = min(polish, n_iters)
+    per_pix = (n_iters - n_pol) * (node * e_warm + step) \
+        + n_pol * (node * e_full + step)
+    row = n_mats + n_meas * (1 + n_mats) + (n_meas * T if newton else 0)
+    return (4 * n_pix * (n_meas + n_mats) + 4 * row * (e_full + e_warm),
+            n_pix * per_pix)
+
+
+def compare_once(kernel_fn, plain_fn, reps):
+    """Kernel and plain outputs, the kernel's mean time over ``reps`` calls
+    after a warm-up and the plain version's time of a single call (CUDA
+    events): for plain versions too slow to repeat at full width."""
+    import torch
+
+    got = kernel_fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    want = plain_fn()
+    end.record()
+    torch.cuda.synchronize()
+    return got, want, time_ms(kernel_fn, reps), start.elapsed_time(end)
+
+
+def spectral_kernel_phase(cfg, pcd, spectra, records, dev):
+    """Phase 3, spectral paths: K34 (the bins' counts) on the exact trace
+    of the photon-counting reference protocol with the 4 bins of the
+    packed path (pelvis, 6 materials) and the K-edge scan's 6 bins (8
+    materials; recorded), and K35 on those counts: M = 4, K = 2 with the
+    packed path's 10 iterations, M = 6, K = 4 with the K-edge scan's 60
+    (recorded), and at (2, 2) on the exact path's DE counts beside K3."""
+    import numpy as np
+    import torch
+
+    from dexct_tpu_torch.ops import matdecomp, siddon, spectral
+    from dexct_tpu_torch.physics import xcom
+    from dexct_tpu_torch.physics.materials import BONE, TISSUE
+    from dexct_tpu_torch.utils import tiny_cases
+
+    pcfg, spec, kph, basis4 = pcd
+    ct = pcfg.ct
+    cases = []
+    for label, ph, thr, basis, n_iters in (
+            ("packed, M = 4, K = 2", pcfg.phantom, PCD_THRESHOLDS,
+             (TISSUE, BONE), 10),
+            ("K-edge pelvis, M = 6, K = 4", kph["pelvis"], KEDGE_THRESHOLDS,
+             basis4, 60)):
+        paths = siddon.material_path_sinogram(ph, ct, device=dev)
+        mu = torch.as_tensor(ph.materials.mu_table(spec.E),
+                             dtype=torch.float32, device=dev)
+        i0s = matdecomp.pcd_bin_fluences(ct, spec, thr)
+        i0_T = torch.as_tensor(i0s.T.copy(), dtype=torch.float32,
+                               device=dev)
+        c, want, ms, pms = compare(
+            lambda: spectral.counts_from_paths(paths, mu, i0_T),
+            lambda: spectral.counts_from_paths_plain(paths, mu, i0_T),
+            reps=3)
+        err = float((c - want).abs().max())
+        rel = float(((c - want).abs() / want.abs().clamp_min(1e-30)).max())
+        n_rays, E, M = c.numel() // c.shape[-1], mu.shape[1], c.shape[-1]
+        work = (nbytes(paths, mu, i0_T, c),
+                n_rays * E * (2 * mu.shape[0] + 1 + 2 * M))
+        report(records, "multibin_counts", err, ms, pms, rel <= 1e-5, work,
+               extra=f" (max rel {rel:.3g}; {label}: {n_rays} rays, "
+                     f"{mu.shape[0]} materials, {E} energies, {M} bins)",
+               record=basis is basis4)
+        counts = torch.movedim(c, -1, 0).reshape(M, -1).contiguous()
+        mus = torch.as_tensor(np.stack([xcom.mixatten(b.matcomp, spec.E)
+                                        for b in basis]),
+                              dtype=torch.float32, device=dev)
+        dec_i0 = torch.as_tensor(i0s, dtype=torch.float32, device=dev)
+        cases.append((label, counts, dec_i0, mus, n_iters, basis is basis4))
+        del paths, c, want
+    for label, counts, dec_i0, mus, n_iters, recorded in cases:
+        kw = dict(n_iters=n_iters)
+        ab, want, ms, pms = compare_once(
+            lambda: matdecomp.gauss_newton_solve(counts, dec_i0, mus, **kw),
+            lambda: matdecomp.gauss_newton_solve_plain(counts, dec_i0, mus,
+                                                       **kw), reps=2)
+        worst, p99 = tiny_cases.newton_agreement(ab, want)
+        err = float((ab - want).abs().max())
+        M, K = counts.shape[0], mus.shape[0]
+        report(records, "gauss_newton_general", err, ms, pms,
+               tiny_cases.newton_agrees(ab, want) and
+               bool(torch.isfinite(ab).all()),
+               newton_work(counts.shape[1], M, K, n_iters, mus.shape[1]),
+               extra=f" ({label}, {n_iters} iterations, {counts.shape[1]} "
+                     f"pixels, {mus.shape[1]} energies; rel max {worst:.3g},"
+                     f" 99th percentile {p99:.3g})", record=recorded)
+    del cases
+    # (2, 2) beside K3 on the exact path's DE counts, K3's schedule
+    ct2, ph2 = cfg.ct, cfg.phantom
+    s1, s2 = spectra(ct2)
+    paths = siddon.material_path_sinogram(ph2, ct2, device=dev)
+    flat = torch.stack([spectral.forward_counts(paths, ph2, s, ct2)[0]
+                        .reshape(-1) for s in (s1, s2)])
+    del paths
+    _, i0, mus = matdecomp.prepare_decomposition(ct2, s1, s2)
+    i0, mus = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+               for x in (i0, mus))
+    kw = dict(n_iters=50, eps_init=1e-6, pixel_block=65536, step_max=5.0,
+              a_bounds=(-20.0, 500.0), method="gn", lm_damping=0.0,
+              polish_iters=4, warm="log", warm_nodes=32)
+    k35 = matdecomp._gauss_newton_general(flat, i0, mus, **kw)
+    k3 = matdecomp.gauss_newton_solve(flat, i0, mus, n_iters=50)
+    rel = float(((k35 - k3).abs() / k3.abs().clamp_min(1.0)).max())
+    t35 = time_ms(lambda: matdecomp._gauss_newton_general(flat, i0, mus,
+                                                          **kw), 2)
+    t3 = time_ms(lambda: matdecomp.gauss_newton_solve(flat, i0, mus,
+                                                      n_iters=50), 2)
+    print(f"  gauss_newton_general at (2, 2) (the exact path's DE counts, "
+          f"{flat.shape[1]} pixels, 50 iterations): kernel={t35:.4f} ms, "
+          f"K3 {t3:.4f} ms, max |d| / max(|a|, 1) from K3 {rel:.3g} "
+          f"[<= 1e-4]")
+    if not rel <= 1e-4:
+        fail("gauss_newton_general disagrees with K3 at (2, 2)")
+
+
+def rod_check(scene, reading):
+    """Print each rod's reading of the K-edge ``scene`` beside the JAX
+    package's half-resolution one; True when each rod reads its agent at
+    KEDGE_AGENT and not the other, and the JAX reading, within
+    KEDGE_TOL."""
+    ok = True
+    for rod, (i_, g_) in reading.items():
+        want = (KEDGE_AGENT, 0.0) if rod == "iodine" else (0.0, KEDGE_AGENT)
+        ref = KEDGE_REF[scene][rod]
+        print(f"  K-edge {scene} {rod} rod: iodine {i_:.5f}, gadolinium "
+              f"{g_:.5f} g/cm^3 (JAX at half resolution {ref[0]:.5f}, "
+              f"{ref[1]:.5f})")
+        ok &= all(abs(x - w) <= KEDGE_TOL for x, w in zip((i_, g_), want))
+        ok &= all(abs(x - r) <= KEDGE_TOL for x, r in zip((i_, g_), ref))
+    return ok
+
+
+def spectral_path(cfg, pcd, records, smi, dev):
+    """Phase 4, spectral photon-counting CT at the reference protocol, each
+    run twice with its stages timed: (a) ``pack_pcd_spectral`` +
+    ``pcd_step`` (bins PCD_THRESHOLDS, basis tissue/bone, 10 iterations,
+    ``siddon_dominant``/``parallel``, pileup at PCD_PILEUP_RHO), with
+    Poisson noise from the run's seed (finite, the basis sinograms within
+    a_bounds: the pelvis's lateral rays starve the lowest bins, and their
+    Poisson counts rail some rays at the bound, as the JAX package's noise
+    test anticipates, tests/test_spectralct.py:220-238) and without noise
+    (the tissue ROI within TISSUE_TOL of 1.06 g/cm^3); (b) the K-edge
+    scenes through ``simulate_pcd_spectral`` (6 bins, water/bone/iodine/
+    gadolinium, 60 iterations): finite; on the
+    cylinder each rod reads its agent at 0.010 and not the other, and the
+    JAX package's half-resolution reading, within KEDGE_TOL (rod_check),
+    and the water between the rods reads its 70 keV VMI within 2 % of
+    water's mu; the pelvis's readings printed beside JAX's.  Launch
+    counters as every path's."""
+    import numpy as np
+    import torch
+
+    from dexct_tpu_torch.ops import matdecomp
+    from dexct_tpu_torch.physics import xcom
+    from dexct_tpu_torch.physics.materials import BONE, TISSUE, WATER
+    from dexct_tpu_torch.pipeline import spectralct
+
+    pcfg, spec, kph, basis4 = pcd
+    ct, img = pcfg.ct, (pcfg.N_matrix, pcfg.FOV, pcfg.ramp)
+    images = {"pelvis": (pcfg.N_matrix, pcfg.FOV),
+              "cylinder": KEDGE_CYLINDER_IMAGE}
+    mu_w = float(xcom.mixatten(WATER.matcomp, np.array([70.0]))[0])
+    air = float(matdecomp.pcd_bin_fluences(ct, spec, PCD_THRESHOLDS).sum())
+    pk = dict(n_iters=10, pileup_tau=PCD_PILEUP_RHO / air, device=dev)
+    fns = zero_counters()
+    for run in (1, 2):
+        st = Stages()
+        a, m = spectralct.pack_pcd_spectral(
+            ct, pcfg.phantom, spec, list(PCD_THRESHOLDS), (TISSUE, BONE),
+            *img, noise="poisson", seed=run, **pk)
+        st.mark("pack_pcd_spectral")
+        noisy = spectralct.pcd_step(a, m)
+        st.mark("pcd_step, Poisson noise")
+        a0, m0 = spectralct.pack_pcd_spectral(
+            ct, pcfg.phantom, spec, list(PCD_THRESHOLDS), (TISSUE, BONE),
+            *img, **pk)
+        st.mark("pack_pcd_spectral")
+        out = spectralct.pcd_step(a0, m0)
+        st.mark("pcd_step, no noise")
+        kedge = {}
+        for scene, (n, fov) in images.items():
+            kedge[scene] = spectralct.simulate_pcd_spectral(
+                ct, kph[scene], spec, list(KEDGE_THRESHOLDS), basis4, n, fov,
+                pcfg.ramp, n_iters=60, device=dev)
+            st.mark(f"simulate_pcd_spectral, K-edge {scene}")
+        print(f"spectral path (library, run {run}): "
+              f"{sum(st.t.values()) / 1e3:.3f} s on {smi}; stages (ms): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in st.t.items()))
+    check_launches("spectral", fns, SPECTRAL_KERNELS, records)
+    print_profiled("spectral pcd_step (Poisson noise)",
+                   lambda: spectralct.pcd_step(a, m))
+    recons = out["basis_recons"].cpu().numpy()
+    tis = roi_mean(recons[0][None], *TISSUE_XY, 0, pcfg.FOV)
+    bone = roi_mean(recons[1][None], *TISSUE_XY, 0, pcfg.FOV)
+    vmi = roi_mean(kedge["cylinder"].vmi(70.0).cpu().numpy()[None], 0.0,
+                   0.0, 0, KEDGE_CYLINDER_IMAGE[1])
+    finite = all(bool(torch.isfinite(x).all()) for x in (
+        out["basis_sinos"], out["basis_recons"], noisy["basis_sinos"],
+        noisy["basis_recons"], *(r.basis_sinos for r in kedge.values()),
+        *(r.basis_recons for r in kedge.values())))
+    rail = float(noisy["basis_sinos"].max())
+    railed = float((noisy["basis_sinos"] >= m.a_hi).float().mean())
+    print(f"  packed PCD (pileup): tissue ROI {tis:.4f} g/cm^3 (ICRU tissue "
+          f"{TISSUE_DENSITY}), bone {bone:.4f}; with Poisson noise the "
+          f"basis sinograms reach {rail:.4g} g/cm^2 ({railed:.4g} of them at "
+          f"a_hi {m.a_hi:g}); K-edge "
+          f"cylinder: water VMI(70 keV) {vmi:.5f} 1/cm, water {mu_w:.5f} "
+          f"(off {vmi / mu_w - 1.0:.4f}); finite: {finite}")
+    rods = rod_check("cylinder", kedge_reading(
+        kedge["cylinder"].basis_recons, KEDGE_CYLINDER_IMAGE[1], "cylinder"))
+    rod_check("pelvis", kedge_reading(kedge["pelvis"].basis_recons,
+                                      pcfg.FOV, "pelvis"))
+    if not (finite and abs(tis - TISSUE_DENSITY) <= TISSUE_TOL
+            and rail <= m.a_hi and abs(vmi / mu_w - 1.0) <= 0.02 and rods):
+        fail("the spectral path misses its checks")
+
+
+def spectral_cone_path(tmp, cone_cfgs, records, smi, dev, gens):
+    """Phase 4, cone-beam photon counting: the cone config (360 x 16 x 256)
+    as a PCD scan through ``pack_pcd_spectral_cone`` + ``pcd_cone_step``
+    and ``simulate_pcd_spectral_cone`` (4 bins, tissue/bone, 10
+    iterations; K10, K34, K35, K11), and the helical config's packed step
+    (K12; the JAX ``simulate_pcd_spectral_cone`` reconstructs circular
+    orbits only).  Each finite, the central slice's tissue ROI within
+    TISSUE_TOL of 1.06 g/cm^3, the packed and stateless cone volumes
+    within 1e-3 of each other."""
+    import torch
+
+    from dexct_tpu_torch.physics.materials import BONE, TISSUE
+    from dexct_tpu_torch.pipeline import spectralct
+    from dexct_tpu_torch.pipeline.runner import _resolve_spectrum
+    from dexct_tpu_torch.system.config import read_parameter_file
+
+    basis, thr = (TISSUE, BONE), list(PCD_THRESHOLDS)
+    fns = zero_counters()
+    vols = {}
+    for label in ("cone", "helical"):
+        ccfg = read_parameter_file(write_cone_params(
+            tmp, f"pcd_{label}", {**CONE_CONFIGS[label], **PCD_PARAMS}))[0]
+        ct = ccfg.ct
+        spec = _resolve_spectrum("140kV", PCD_DOSE_MGY, ct, str(SPECTRA),
+                                 gens)
+        img = (ccfg.N_matrix, ccfg.FOV, ccfg.ramp)
+        st = Stages()
+        a, m = spectralct.pack_pcd_spectral_cone(
+            ct, ccfg.phantom, spec, thr, basis, *img, n_iters=10,
+            device=dev)
+        st.mark("pack_pcd_spectral_cone")
+        out = spectralct.pcd_cone_step(a, m)
+        st.mark("pcd_cone_step")
+        vols[label] = (out["basis_recons"], ccfg.FOV)
+        if label == "cone":
+            res = spectralct.simulate_pcd_spectral_cone(
+                ct, ccfg.phantom, spec, thr, basis, *img, n_iters=10,
+                device=dev)
+            st.mark("simulate_pcd_spectral_cone")
+            vols["stateless"] = (res.basis_recons, ccfg.FOV)
+        del a, out
+        print(f"spectral_cone path ({label}, library): "
+              f"{sum(st.t.values()) / 1e3:.3f} s on {smi}; stages (ms): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in st.t.items()))
+        torch.cuda.empty_cache()
+    check_launches("spectral_cone", fns, SPECTRAL_CONE_KERNELS, records)
+    ok = True
+    for label, (v, fov) in vols.items():
+        mid = v.shape[1] // 2
+        tis = roi_mean(v[0].cpu().numpy(), *TISSUE_XY, mid, fov)
+        fin = bool(torch.isfinite(v).all())
+        print(f"  {label}: {tuple(v.shape)} basis volumes, central slice "
+              f"tissue ROI {tis:.4f} g/cm^3; finite: {fin}")
+        ok &= fin and abs(tis - TISSUE_DENSITY) <= TISSUE_TOL
+    d = float((vols["cone"][0] - vols["stateless"][0]).abs().max())
+    print(f"  packed vs stateless cone volumes: max abs {d:.3g} [<= 1e-3]")
+    if not (ok and d <= 1e-3):
+        fail("the spectral_cone path misses its checks")
+
+
+def acquisition_modes_path(cfg, spectra, records, smi, dev, gens):
+    """Phase 4, the other DE acquisition geometries at the reference
+    protocol, each once with its wall time: ``simulate_kvswitch_dect``,
+    ``simulate_dualsource_dect`` (cross_spr 0.1, corrected) and
+    ``simulate_dual_layer_dect`` (140 kV at 10 mGy through the sandwich
+    detector).  Each: the 80 kV (or back-layer) air ROI at (0, -20) cm
+    within 50 HU of -1000, the tissue ROI's tissue density within
+    TISSUE_TOL of 1.06 g/cm^3."""
+    import torch
+
+    from dexct_tpu_torch.physics.duallayer import simulate_dual_layer_dect
+    from dexct_tpu_torch.pipeline.dualsource import simulate_dualsource_dect
+    from dexct_tpu_torch.pipeline.kvswitch import simulate_kvswitch_dect
+    from dexct_tpu_torch.pipeline.runner import _resolve_spectrum
+
+    ct, ph = cfg.ct, cfg.phantom
+    s1, s2 = spectra(ct)
+    img = (cfg.N_matrix, cfg.FOV, cfg.ramp)
+    s140 = _resolve_spectrum("140kV", PCD_DOSE_MGY, ct, str(SPECTRA), gens)
+    runs = {
+        "kvswitch": lambda: simulate_kvswitch_dect(ct, ph, s1, s2, *img,
+                                                   n_iters=50, device=dev),
+        "dualsource": lambda: simulate_dualsource_dect(
+            ct, ph, s1, s2, *img, cross_spr=0.1, correct=True, n_iters=50,
+            device=dev),
+        "duallayer": lambda: simulate_dual_layer_dect(ct, ph, s140, *img,
+                                                      n_iters=50,
+                                                      device=dev),
+    }
+    fns = zero_counters()
+    ok = True
+    for label, run in runs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        air = roi_mean(out.recon_HU[1][None].cpu().numpy(), 0.0, -20.0, 0,
+                       cfg.FOV)
+        tis = roi_mean(out.mat_recons[0][None].cpu().numpy(), *TISSUE_XY, 0,
+                       cfg.FOV)
+        fin = all(bool(torch.isfinite(x).all()) for pair in (
+            out.sino_log, out.mat_sinos, out.recon_HU, out.mat_recons)
+            for x in pair)
+        print(f"acquisition_modes {label} (library): {wall:.3f} s on {smi}; "
+              f"air ROI {air:.2f} HU, tissue ROI {tis:.4f} g/cm^3; finite: "
+              f"{fin}")
+        ok &= fin and abs(air + 1000.0) <= 50.0 \
+            and abs(tis - TISSUE_DENSITY) <= TISSUE_TOL
+    check_launches("acquisition_modes", fns, ACQUISITION_KERNELS, records)
+    if not ok:
+        fail("an acquisition-mode path misses its checks")
+
+
+def spectral_devices_phase():
+    """Phase 5: the tiny spectral paths of ``dexct_tpu_torch.utils.
+    tiny_cases`` (photon-counting CT in 2-D and as a cone, kV switching,
+    dual source with cross-scatter and motion, dual layer) on the CPU and
+    on the card, each output within SPECTRAL_TOL of its maximum (the card
+    tests run the same cases)."""
+    from dexct_tpu_torch.utils import tiny_cases as tc
+
+    for kind in tc.SPECTRAL_KINDS:
+        c, g = tc.spectral(kind, "cpu"), tc.spectral(kind, "cuda")
+        errs = [float((gi - ci).abs().max() / ci.abs().max())
+                for gi, ci in zip(g, c)]
+        print(f"  spectral {kind}: card vs CPU max abs / max per output "
+              + ", ".join(f"{e:.3g}" for e in errs)
+              + f" [<= {tc.SPECTRAL_TOL:g}]")
+        if not max(errs) <= tc.SPECTRAL_TOL:
+            fail(f"tiny spectral path {kind} differs between the CPU and "
+                 "the card")
+
+
 def counters():
     from dexct_tpu_torch.ops import (conebeam, dose, fbp_fast, flatpanel,
                                      fourier, helical_pi, katsevich,
@@ -2589,7 +3165,9 @@ def counters():
             "gated_backproject": gated._gated_backproject,
             "fdk_backproject_motion": motion._fdk_backproject_motion,
             "helical_backproject_motion":
-                motion._helical_backproject_motion}
+                motion._helical_backproject_motion,
+            "multibin_counts": spectral.counts_from_paths_multibin,
+            "gauss_newton_general": matdecomp._gauss_newton_general}
 
 
 def zero_counters():
@@ -4603,7 +5181,7 @@ def main():
                                torch.zeros(1, device=dev))
     torch.cuda.synchronize()
     t2 = time.time()
-    print(f"build: nvcc K1, K3-K13, K15-K27, K29-K33 {t1 - t0:.1f} s, "
+    print(f"build: nvcc K1, K3-K13, K15-K27, K29-K33, K35 {t1 - t0:.1f} s, "
           f"triton K2 {t2 - t1:.1f} s")
 
     # 3. kernels against their plain versions at the paths' shapes
@@ -4682,6 +5260,9 @@ def main():
         realism_kernel_phase(cfg, cone_cfgs["cone"], spectra, records, dev)
         torch.cuda.empty_cache()
         motion_kernel_phase(cfg, cone_cfgs, spectra, records, dev)
+        torch.cuda.empty_cache()
+        pcd = pcd_setup(tmp, dev, gens)
+        spectral_kernel_phase(cfg, pcd, spectra, records, dev)
         torch.cuda.empty_cache()
 
         # 4. the paths: the CLI's, then the library's
@@ -4774,6 +5355,12 @@ def main():
         torch.cuda.empty_cache()
         motion_3d_path(cone_cfgs, spectra, records, smi, dev)
         torch.cuda.empty_cache()
+        spectral_path(cfg, pcd, records, smi, dev)
+        torch.cuda.empty_cache()
+        spectral_cone_path(tmp, cone_cfgs, records, smi, dev, gens)
+        torch.cuda.empty_cache()
+        acquisition_modes_path(cfg, spectra, records, smi, dev, gens)
+        torch.cuda.empty_cache()
 
         # 5. every path on both devices
         for label, (flags, config, _) in PATHS.items():
@@ -4788,6 +5375,7 @@ def main():
         planning_devices_phase()
         realism_devices_phase()
         motion_devices_phase()
+        spectral_devices_phase()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

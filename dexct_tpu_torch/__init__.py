@@ -9,22 +9,26 @@ an in-plane flying focal spot), on parallel-beam configs, as a z-stack of
 slices, on cone-beam, helical, flat-panel and gantry-tilted configs (with
 a z flying focal spot and exact Katsevich helical reconstruction), and with
 the analytic projector, optionally with beam-hardening correction and the
-learned denoiser, through twenty-seven hand-written kernels on the card
-(K1-K27, sources in ``csrc/``, ``ops/spectral.py`` and
+learned denoiser, through thirty-five hand-written kernels on the card
+(K1-K35, sources in ``csrc/``, ``ops/spectral.py`` and
 ``ops/katsevich.py``) with plain PyTorch versions of each on the CPU.  The
 library also offers the helical study reconstructors (every gFDK
 weighting, the cone-parallel PI method), exact 3-D iterative
 reconstruction (CG, PWLS), 2-D iterative reconstruction on the Fourier
 projector (CG, SIRT, PWLS), one-step spectral reconstruction, patient
 dose maps with CTDI, DLP and organ reports, predicted FBP noise maps
-(single and dual energy), and first-principles scatter (fan and cone beam)
-with the kernel-superposition scatter model and its correction.
+(single and dual energy), first-principles scatter (fan and cone beam)
+with the kernel-superposition scatter model and its correction, the
+scanner-realism chain, patient motion and gating, spectral
+photon-counting CT (2-D and cone, up to four basis materials and eight
+bins) and the kV-switching, dual-source and dual-layer acquisitions.
 
 Layer map (as in dexct_tpu):
     physics/   attenuation tables, spectra, detectors, materials, form
                factors (host NumPy)
     system/    scanner geometry, voxel and analytic phantoms (K9), run config
-    ops/       siddon (K1, K17), spectral (K2), matdecomp (K3), fbp/fbp_fast
+    ops/       siddon (K1, K17), spectral (K2, K28, K34), matdecomp (K3,
+               K29, K35), fbp/fbp_fast
                (K4-K6), ffs (K5 at 16 taps), fourier (K7, K8), conebeam
                (K10-K12, K16, K18, K19), flatpanel (K13), katsevich (K14,
                K15), helical_pi (K5 at 4 taps, K20), fourier's adjoints

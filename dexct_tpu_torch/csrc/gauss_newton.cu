@@ -45,6 +45,36 @@
 // group id, loads that group's tables into shared memory and runs K3's
 // per-pixel schedule (solve_pixel, shared with K3).  Bound and design are
 // K3's: arithmetic, one exp and 8 FMAs per (iteration, energy).
+//
+// K35 gauss_newton_general: the general per-pixel Newton decomposition.
+//
+// Replaces the TPU program dexct_tpu/ops/matdecomp.py:gauss_newton_solve
+// -> _solve_block -> _solve_spd for every case K3 does not take: K in
+// {2, 3, 4} basis materials, M >= K measurements (the bins of a photon-
+// counting detector), method "gn" or "newton", lm_damping, and a warm phase
+// of log-residual or Poisson-MLE steps.  The TPU form iterates all pixels
+// at once as [B, E] x [E, M + M K (+ M T)] matrix products.
+//
+// What bounds it: arithmetic, as K3.  Per (iteration, energy) a pixel
+// forms its exponent (K FMAs), one exp, and M (1 + K) moment sums (plus
+// M T Hessian weights with "newton", T = K (K + 1) / 2).  Design: K3's, one
+// thread per pixel with every iteration in registers and the energy tables
+// in shared memory, read at the same address by all threads.  A table row
+// holds [mu_k (K), i0_m (M), g_mi = i0_m mu_i (M K), and with "newton"
+// h_m,ij = i0_m mu_i mu_j (M T)] floats; the full grid for the polish, then
+// the warm table (the log warm phase's moment-compressed nodes; rounded to
+// bf16 by the wrapper when the warm phase runs in bf16).  The kernel is
+// templated on K and on a compile-time maximum of M (4 or 8, the port's
+// MAX_BINS), so the per-measurement accumulators are registers indexed by
+// unrolled loops; at M = 8, K = 4 with "newton" that is 120 accumulators
+// and the kernel spills.  The closed-form 2x2, 3x3 and 4x4 adjugate solves
+// follow the JAX package's cofactor expressions with every operation
+// rounded on its own (__fmul_rn, __fadd_rn): the 4x4 determinant cancels
+// heavily, and FMA contraction would move its rounding away from the plain
+// version's.  The schedule, floors, clamps and trust regions are
+// _solve_block's: log steps floor nu at 1e-35 and use 10 x step_max and the
+// lower clamp max(a_lo, -1); MLE steps floor nu at 1e-17 and use step_max
+// and a_lo; lm_damping scales the Hessian's diagonal by 1 + lm_damping.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -189,6 +219,349 @@ __global__ void gauss_newton_grouped_kernel(
               step_max, eps_init, clip, out + 2 * p);
 }
 
+
+// ---- K35 ------------------------------------------------------------------
+
+__device__ __forceinline__ float rmul(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ float radd(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ float rsub(float a, float b) {
+  return __fsub_rn(a, b);
+}
+
+template <int K>
+struct Tri {
+  static constexpr int T = K * (K + 1) / 2;
+};
+
+// _solve_spd: normalise H (upper triangle, row order) and dF by max|H|, a
+// dead Hessian takes a zero step, then the closed-form adjugate solve in
+// the JAX package's cofactor expressions.
+template <int K>
+__device__ __forceinline__ void solve_spd(float* H, float* f, float* x) {
+  constexpr int T = Tri<K>::T;
+  float m_raw = 0.0f;
+#pragma unroll
+  for (int t = 0; t < T; ++t) m_raw = fmaxf(m_raw, fabsf(H[t]));
+  const bool dead = m_raw < 1e-30f;
+  const float m = dead ? 1.0f : m_raw;
+#pragma unroll
+  for (int t = 0; t < T; ++t) H[t] = H[t] / m;
+#pragma unroll
+  for (int k = 0; k < K; ++k) f[k] = dead ? 0.0f : f[k] / m;
+  if constexpr (K == 2) {
+    const float H00 = H[0], H01 = H[1], H11 = H[2];
+    float det = rsub(rmul(H00, H11), rmul(H01, H01));
+    if (fabsf(det) < 1e-30f) det = 1e-30f;
+    x[0] = rsub(rmul(H11, f[0]), rmul(H01, f[1])) / det;
+    x[1] = rsub(rmul(H00, f[1]), rmul(H01, f[0])) / det;
+  } else if constexpr (K == 3) {
+    // H = [[a, b, c], [b, d, e], [c, e, f]]
+    const float a = H[0], b = H[1], c = H[2], d = H[3], e = H[4], ff = H[5];
+    const float A00 = rsub(rmul(d, ff), rmul(e, e));
+    const float A01 = rsub(rmul(c, e), rmul(b, ff));
+    const float A02 = rsub(rmul(b, e), rmul(c, d));
+    const float A11 = rsub(rmul(a, ff), rmul(c, c));
+    const float A12 = rsub(rmul(b, c), rmul(a, e));
+    const float A22 = rsub(rmul(a, d), rmul(b, b));
+    float det = radd(radd(rmul(a, A00), rmul(b, A01)), rmul(c, A02));
+    if (fabsf(det) < 1e-30f) det = 1e-30f;
+    x[0] = radd(radd(rmul(A00, f[0]), rmul(A01, f[1])), rmul(A02, f[2])) /
+           det;
+    x[1] = radd(radd(rmul(A01, f[0]), rmul(A11, f[1])), rmul(A12, f[2])) /
+           det;
+    x[2] = radd(radd(rmul(A02, f[0]), rmul(A12, f[1])), rmul(A22, f[2])) /
+           det;
+  } else {
+    // H = [[a, b, c, d], [b, e, f, g], [c, f, h, i], [d, g, i, j]]
+    const float a = H[0], b = H[1], c = H[2], d = H[3], e = H[4], ff = H[5],
+                g = H[6], h = H[7], i = H[8], j = H[9];
+    // the 2x2 minors of the cofactors, each as the JAX expression writes
+    // it (x * y - z * w)
+    const float hj_ii = rsub(rmul(h, j), rmul(i, i));
+    const float fj_gi = rsub(rmul(ff, j), rmul(g, i));
+    const float fi_gh = rsub(rmul(ff, i), rmul(g, h));
+    const float cj_id = rsub(rmul(c, j), rmul(i, d));
+    const float ci_hd = rsub(rmul(c, i), rmul(h, d));
+    const float fj_ig = rsub(rmul(ff, j), rmul(i, g));
+    const float cg_fd = rsub(rmul(c, g), rmul(ff, d));
+    const float fi_hg = rsub(rmul(ff, i), rmul(h, g));
+    const float ej_gg = rsub(rmul(e, j), rmul(g, g));
+    const float bj_gd = rsub(rmul(b, j), rmul(g, d));
+    const float bg_ed = rsub(rmul(b, g), rmul(e, d));
+    const float ei_fg = rsub(rmul(e, i), rmul(ff, g));
+    const float bi_fd = rsub(rmul(b, i), rmul(ff, d));
+    const float eh_ff = rsub(rmul(e, h), rmul(ff, ff));
+    const float bh_fc = rsub(rmul(b, h), rmul(ff, c));
+    const float bf_ec = rsub(rmul(b, ff), rmul(e, c));
+    const float A00 =
+        radd(rsub(rmul(e, hj_ii), rmul(ff, fj_gi)), rmul(g, fi_gh));
+    const float A01 =
+        -radd(rsub(rmul(b, hj_ii), rmul(ff, cj_id)), rmul(g, ci_hd));
+    const float A02 =
+        radd(rsub(rmul(b, fj_ig), rmul(e, cj_id)), rmul(g, cg_fd));
+    const float A03 =
+        -radd(rsub(rmul(b, fi_hg), rmul(e, ci_hd)), rmul(ff, cg_fd));
+    const float A11 =
+        radd(rsub(rmul(a, hj_ii), rmul(c, cj_id)), rmul(d, ci_hd));
+    const float A12 =
+        -radd(rsub(rmul(a, fj_ig), rmul(b, cj_id)), rmul(d, cg_fd));
+    const float A13 =
+        radd(rsub(rmul(a, fi_hg), rmul(b, ci_hd)), rmul(c, cg_fd));
+    const float A22 =
+        radd(rsub(rmul(a, ej_gg), rmul(b, bj_gd)), rmul(d, bg_ed));
+    const float A23 =
+        -radd(rsub(rmul(a, ei_fg), rmul(b, bi_fd)), rmul(c, bg_ed));
+    const float A33 =
+        radd(rsub(rmul(a, eh_ff), rmul(b, bh_fc)), rmul(c, bf_ec));
+    float det = radd(radd(radd(rmul(a, A00), rmul(b, A01)), rmul(c, A02)),
+                     rmul(d, A03));
+    if (fabsf(det) < 1e-30f) det = 1e-30f;
+    x[0] = radd(radd(radd(rmul(A00, f[0]), rmul(A01, f[1])),
+                     rmul(A02, f[2])), rmul(A03, f[3])) / det;
+    x[1] = radd(radd(radd(rmul(A01, f[0]), rmul(A11, f[1])),
+                     rmul(A12, f[2])), rmul(A13, f[3])) / det;
+    x[2] = radd(radd(radd(rmul(A02, f[0]), rmul(A12, f[1])),
+                     rmul(A22, f[2])), rmul(A23, f[3])) / det;
+    x[3] = radd(radd(radd(rmul(A03, f[0]), rmul(A13, f[1])),
+                     rmul(A23, f[2])), rmul(A33, f[3])) / det;
+  }
+}
+
+// The energy sums at iterate a over n rows of the table: nu[m], g[m][i]
+// and, with kHess, h[m][t].  Rounded as the plain version rounds them: the
+// exponent is the K products summed in order, each operation rounded on
+// its own; in float32 steps the attenuation is the float64 exp of that
+// exponent and the sums are float64 (rounded to float32 by the caller);
+// in bf16 steps the iterate, the exponent and the attenuation are bf16
+// values.  The 4x4 Poisson-MLE step amplifies any difference in these
+// sums on the hardest rays, so the kernel keeps them to the plain
+// version's own rounding.
+template <int K, int MAXM, bool kHess, bool kBf16>
+__device__ __forceinline__ void moments_general(
+    const float* tab, int n, int row, int M, const float* a_in, double* nu,
+    double (*g)[K], double (*h)[Tri<K>::T], float clip) {
+  constexpr int T = Tri<K>::T;
+  float a[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) a[k] = kBf16 ? bf16r(a_in[k]) : a_in[k];
+#pragma unroll
+  for (int m = 0; m < MAXM; ++m) {
+    nu[m] = 0.0;
+#pragma unroll
+    for (int i = 0; i < K; ++i) g[m][i] = 0.0;
+    if (kHess) {
+#pragma unroll
+      for (int t = 0; t < T; ++t) h[m][t] = 0.0;
+    }
+  }
+  const int o_i0 = K, o_g = K + M, o_h = K + M + M * K;
+  for (int e = 0; e < n; ++e) {
+    const float* r = tab + row * e;
+    float L = rmul(a[0], r[0]);
+#pragma unroll
+    for (int k = 1; k < K; ++k) L = radd(L, rmul(a[k], r[k]));
+    double at;
+    if (kBf16) {
+      L = bf16r(L);
+      at = bf16r(expf(fminf(fmaxf(-L, -clip), 20.0f)));
+    } else {
+      at = exp((double)fminf(fmaxf(-L, -clip), 20.0f));
+    }
+#pragma unroll
+    for (int m = 0; m < MAXM; ++m) {
+      if (m < M) {
+        nu[m] += at * r[o_i0 + m];
+#pragma unroll
+        for (int i = 0; i < K; ++i) g[m][i] += at * r[o_g + m * K + i];
+        if (kHess) {
+#pragma unroll
+          for (int t = 0; t < T; ++t) h[m][t] += at * r[o_h + m * T + t];
+        }
+      }
+    }
+  }
+}
+
+// One Newton step of _solve_block's _gn_body from the moments: the log
+// residual step (log_step) or the Poisson-MLE step (Fisher scoring, or with
+// kNewton the full Newton Hessian); then lm_damping, the solve, the trust
+// region and the clamps.
+template <int K, int MAXM, bool kNewton>
+__device__ __forceinline__ void step_general(
+    float* a, const double* nu, double (*g)[K], double (*h)[Tri<K>::T],
+    const float* y, const float* ly, int M, bool log_step, float lm,
+    float step_max, float a_lo, float a_hi) {
+  constexpr int T = Tri<K>::T;
+  float dF[K], H[T];
+#pragma unroll
+  for (int i = 0; i < K; ++i) dF[i] = 0.0f;
+#pragma unroll
+  for (int t = 0; t < T; ++t) H[t] = 0.0f;
+  if (log_step) {
+#pragma unroll
+    for (int m = 0; m < MAXM; ++m) {
+      if (m < M) {
+        const float n = fmaxf((float)nu[m], 1e-35f);
+        const float r =
+            fminf(fmaxf(ly[m] - (float)log((double)n), -30.0f), 30.0f);
+        float J[K];
+#pragma unroll
+        for (int i = 0; i < K; ++i) J[i] = (float)g[m][i] / n;
+#pragma unroll
+        for (int i = 0; i < K; ++i) dF[i] = radd(dF[i], rmul(r, J[i]));
+        int t = 0;
+#pragma unroll
+        for (int i = 0; i < K; ++i) {
+#pragma unroll
+          for (int j = i; j < K; ++j, ++t) H[t] = radd(H[t], rmul(J[i], J[j]));
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < MAXM; ++m) {
+      if (m < M) {
+        const float n = fmaxf((float)nu[m], 1e-17f);
+        const float r = y[m] / n - 1.0f;
+        const float yv2 = y[m] / rmul(n, n);
+        float gm[K];
+#pragma unroll
+        for (int i = 0; i < K; ++i) gm[i] = (float)g[m][i];
+#pragma unroll
+        for (int i = 0; i < K; ++i) dF[i] = radd(dF[i], rmul(r, gm[i]));
+        int t = 0;
+#pragma unroll
+        for (int i = 0; i < K; ++i) {
+#pragma unroll
+          for (int j = i; j < K; ++j, ++t) {
+            const float gg = rmul(gm[i], gm[j]);
+            if (kNewton)
+              H[t] = radd(H[t], rsub(rmul(r, (float)h[m][t]),
+                                     rmul(yv2, gg)));
+            else
+              H[t] = radd(H[t], rmul(yv2, gg));
+          }
+        }
+      }
+    }
+    if (kNewton) {
+#pragma unroll
+      for (int t = 0; t < T; ++t) H[t] = -H[t];
+    }
+  }
+  if (lm != 0.0f) {
+    // Levenberg-Marquardt: the diagonal entries sit at 0, K, 2K - 1, ...
+    int t = 0;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      H[t] = rmul(H[t], 1.0f + lm);
+      t += K - i;
+    }
+  }
+  float d[K];
+  solve_spd<K>(H, dF, d);
+  // trust region, then the bounds
+  float ss = 0.0f;
+#pragma unroll
+  for (int k = 0; k < K; ++k) ss = radd(ss, rmul(d[k], d[k]));
+  const float smax = log_step ? 10.0f * step_max : step_max;
+  const float sc =
+      fminf(1.0f, smax / fmaxf((float)sqrt((double)ss), 1e-30f));
+  const float lo = log_step ? fmaxf(a_lo, -1.0f) : a_lo;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    a[k] = fminf(fmaxf(rsub(a[k], rmul(d[k], sc)), lo), a_hi);
+}
+
+struct GeneralArgs {
+  long long n_pix;
+  int M, e_full, e_warm, n_warm, n_pol, warm_bf16, warm_log, polish_log;
+  float lm, scale, a_lo, a_hi, step_max, eps_init, clip;
+};
+
+// counts [M, n_pix]; tables: the full rows, then the warm rows; out
+// [n_pix, K].
+template <int K, int MAXM, bool kNewton>
+__global__ void gauss_newton_general_kernel(const float* __restrict__ counts,
+                                            const float* __restrict__ tables,
+                                            float* __restrict__ out,
+                                            GeneralArgs p) {
+  constexpr int T = Tri<K>::T;
+  extern __shared__ float tab[];
+  const int M = p.M;
+  const int row = K + M * (1 + K) + (kNewton ? M * T : 0);
+  const int n_tab = row * (p.e_full + p.e_warm);
+  for (int i = threadIdx.x; i < n_tab; i += blockDim.x) tab[i] = tables[i];
+  __syncthreads();
+  const long long px = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (px >= p.n_pix) return;
+  const float* full = tab;
+  const float* warm = tab + row * p.e_full;
+  float y[MAXM], ly[MAXM];
+#pragma unroll
+  for (int m = 0; m < MAXM; ++m) {
+    y[m] = m < M ? counts[m * p.n_pix + px] / p.scale : 0.0f;
+    ly[m] = (float)log((double)fmaxf(y[m], 1e-35f));
+  }
+  float a[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) a[k] = p.eps_init;
+  double nu[MAXM], g[MAXM][K], h[kNewton ? MAXM : 1][T];
+  for (int it = 0; it < p.n_warm; ++it) {
+    if (p.warm_bf16)
+      moments_general<K, MAXM, kNewton, true>(warm, p.e_warm, row, M, a, nu,
+                                              g, h, p.clip);
+    else
+      moments_general<K, MAXM, kNewton, false>(warm, p.e_warm, row, M, a, nu,
+                                               g, h, p.clip);
+    step_general<K, MAXM, kNewton>(a, nu, g, h, y, ly, M, p.warm_log != 0,
+                                   p.lm, p.step_max, p.a_lo, p.a_hi);
+  }
+  for (int it = 0; it < p.n_pol; ++it) {
+    moments_general<K, MAXM, kNewton, false>(full, p.e_full, row, M, a, nu,
+                                             g, h, p.clip);
+    step_general<K, MAXM, kNewton>(a, nu, g, h, y, ly, M, p.polish_log != 0,
+                                   p.lm, p.step_max, p.a_lo, p.a_hi);
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) out[px * K + k] = a[k];
+}
+
+template <int K, int MAXM, bool kNewton>
+int launch_general(const float* counts, const float* tables, float* out,
+                   const GeneralArgs& p, cudaStream_t stream) {
+  constexpr int T = Tri<K>::T;
+  const int row = K + p.M * (1 + K) + (kNewton ? p.M * T : 0);
+  const size_t shmem = sizeof(float) * row * (size_t)(p.e_full + p.e_warm);
+  auto kernel = gauss_newton_general_kernel<K, MAXM, kNewton>;
+  if (shmem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int threads = 128;
+  const long long blocks = (p.n_pix + threads - 1) / threads;
+  kernel<<<(unsigned)blocks, threads, shmem, stream>>>(counts, tables, out,
+                                                       p);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
+int dispatch_general(const float* counts, const float* tables, float* out,
+                     const GeneralArgs& p, int newton, cudaStream_t stream) {
+  if (p.M <= 4) {
+    return newton ? launch_general<K, 4, true>(counts, tables, out, p, stream)
+                  : launch_general<K, 4, false>(counts, tables, out, p,
+                                                stream);
+  }
+  return newton ? launch_general<K, 8, true>(counts, tables, out, p, stream)
+                : launch_general<K, 8, false>(counts, tables, out, p, stream);
+}
+
 }  // namespace
 
 extern "C" int dexct_gauss_newton(const void* counts, const void* tables,
@@ -237,4 +610,45 @@ extern "C" int dexct_gauss_newton_grouped(
       static_cast<float*>(out), n_pix, e_full, e_warm, n_warm, n_pol,
       warm_bf16, a_lo, a_hi, step_max, eps_init, clip);
   return (int)cudaGetLastError();
+}
+
+extern "C" int dexct_gauss_newton_general(
+    const void* counts, const void* tables, void* out, long long n_pix,
+    int n_meas, int n_mats, int newton, int e_full, int e_warm, int n_warm,
+    int n_pol, int warm_bf16, int warm_log, int polish_log, float lm_damping,
+    float scale, float a_lo, float a_hi, float step_max, float eps_init,
+    float clip, void* stream) {
+  if (n_pix <= 0) return (int)cudaGetLastError();
+  if (n_meas < n_mats || n_meas > 8) return (int)cudaErrorInvalidValue;
+  GeneralArgs p;
+  p.n_pix = n_pix;
+  p.M = n_meas;
+  p.e_full = e_full;
+  p.e_warm = e_warm;
+  p.n_warm = n_warm;
+  p.n_pol = n_pol;
+  p.warm_bf16 = warm_bf16;
+  p.warm_log = warm_log;
+  p.polish_log = polish_log;
+  p.lm = lm_damping;
+  p.scale = scale;
+  p.a_lo = a_lo;
+  p.a_hi = a_hi;
+  p.step_max = step_max;
+  p.eps_init = eps_init;
+  p.clip = clip;
+  const float* c = static_cast<const float*>(counts);
+  const float* t = static_cast<const float*>(tables);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (n_mats) {
+    case 2:
+      return dispatch_general<2>(c, t, o, p, newton, st);
+    case 3:
+      return dispatch_general<3>(c, t, o, p, newton, st);
+    case 4:
+      return dispatch_general<4>(c, t, o, p, newton, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..utils import kernels
+from ..utils.devices import check_float32
 
 __all__ = ["WEIGHTINGS", "trace_paths_3d", "trace_paths_3d_plain",
            "_fdk_backproject_multi", "_fdk_backproject_multi_plain",
@@ -191,17 +192,21 @@ def _trace_paths_3d_cuda(labels, src, dirs, dx, dy, dz, n_materials):
     return out.reshape(*src.shape[:-1], n_materials)
 
 
-def trace_paths_3d(labels, src, dirs, dx, dy, dz, *, n_materials):
+def trace_paths_3d(labels, src, dirs, dx, dy, dz, *, n_materials,
+                   n_steps=None):
     """Exact per-material radiological paths of 3-D rays.
 
     labels: [Nz, Ny, Nx] integer labels (uint8 on the CUDA path; labels
     >= n_materials contribute nothing), the grid centred on the origin;
     src, dirs: [..., 3] ray origins and unit directions (x, y, z); dx, dy,
     dz: voxel sizes [cm].  Returns float32 ``[..., n_materials]``.
+    ``n_steps`` (the JAX DDA's fixed trip count, a loop bound of its TPU
+    program) is accepted and ignored: every walk runs to the grid's edge.
 
     CUDA tensors run kernel K10 (counted in ``trace_paths_3d.launches``);
     CPU tensors run :func:`trace_paths_3d_plain`.
     """
+    del n_steps
     if not 1 <= n_materials <= MAX_MATERIALS:
         raise ValueError(f"n_materials must be in 1..{MAX_MATERIALS}, got "
                          f"{n_materials}")
@@ -1171,14 +1176,17 @@ def helical_fdk_reconstruct(sino_log, geometry, n_matrix, fov, ramp, *,
     return out[0] if single else out
 
 
-def cone_material_paths(phantom, geometry, *, device, view_block=None):
+def cone_material_paths(phantom, geometry, *, device, dtype=None,
+                        view_block=None, method="auto"):
     """``[N_proj, N_rows, N_channels, n_materials]`` exact cone-beam paths
     of the geometry's rays (``ray_geometry_3d``, exact for every cone
     geometry: tilted, flat-panel, z flying focal spot), traced by K10 on
-    ``device``.  The JAX package's packed dominant-axis tracers and their
-    DDA fallback compute the same paths.  ``view_block`` (a TPU view-block
-    layout) is accepted and ignored."""
-    del view_block
+    ``device`` in float32 (``dtype`` must be float32 or None).  The JAX
+    package's packed dominant-axis tracers and their DDA fallback compute
+    the same paths, so its ``method`` choice is accepted and ignored, as is
+    ``view_block`` (a TPU view-block layout)."""
+    del view_block, method
+    check_float32(dtype)
     src, dirs = geometry.ray_geometry_3d()
     return trace_paths_3d(
         labels_u8(np.asarray(phantom.labels), device), _f32(src, device),
@@ -1186,11 +1194,14 @@ def cone_material_paths(phantom, geometry, *, device, view_block=None):
         n_materials=phantom.n_materials)
 
 
-def cone_sinogram(phantom, geometry, spectrum, *, device, view_block=None):
+def cone_sinogram(phantom, geometry, spectrum, *, device, dtype=None,
+                  view_block=None):
     """Polyenergetic cone-beam acquisition -> (counts, log sinogram), both
-    ``[N_proj, N_rows, N_channels]`` on ``device``.  ``view_block`` (a TPU
-    view-block layout) is accepted and ignored."""
+    ``[N_proj, N_rows, N_channels]`` on ``device``, in float32 (``dtype``
+    must be float32 or None).  ``view_block`` (a TPU view-block layout) is
+    accepted and ignored."""
     del view_block
+    check_float32(dtype)
     from . import spectral as sp_ops
 
     paths = cone_material_paths(phantom, geometry, device=device)

@@ -18,6 +18,7 @@ import torch
 
 from .fbp_fast import (fan_backproject_multi, pack_filtered,
                        parallel_backproject_multi)
+from ..utils.devices import check_float32
 from .filters import filter_frequency_response
 
 __all__ = ["filter_sinogram", "filter_views", "fan_backproject",
@@ -33,9 +34,12 @@ def filter_views(sino, cos_w, H, fft_len, dgamma):
     return (filt * dgamma).to(sino.dtype)
 
 
-def filter_sinogram(sino, geometry, ramp=0.8, window="sinc"):
+def filter_sinogram(sino, geometry, ramp=0.8, window="sinc", dtype=None):
     """cos-weight + windowed-ramp filter each view (host-built response),
-    on the device of ``sino``.  Returns the same shape, scaled by dgamma."""
+    on the device of ``sino``.  Returns the same shape, scaled by dgamma.
+    ``dtype`` (the JAX signature's) must be float32 or None: the filter
+    keeps the type of ``sino``."""
+    check_float32(dtype)
     H, m = filter_frequency_response(geometry.N_channels, geometry.dgamma,
                                      ramp, window, "fan")
     dev, dtype = sino.device, sino.dtype
@@ -96,13 +100,16 @@ def hu_image(recon_raw, mu_water_eff):
 
 
 def fbp_recon(sino_log, geometry, n_matrix, fov, ramp=0.8, window="sinc",
-              mu_water_eff=None):
-    """Full FBP on the device of ``sino_log``: returns (recon_raw [1/cm],
-    recon_HU or None).  Dispatches on the geometry: equiangular fan beam
-    (the reference's scanner), parallel beam, or a fan beam with an
-    in-plane flying focal spot (the interleaved parallel rebin of
+              mu_water_eff=None, dtype=None):
+    """Full FBP on the device of ``sino_log``, in float32 (``dtype`` must be
+    float32 or None): returns (recon_raw [1/cm], recon_HU or None).
+    Dispatches on the geometry: equiangular fan beam (the reference's
+    scanner), parallel beam, or a fan beam with an in-plane flying focal
+    spot (the interleaved parallel rebin of
     :func:`~dexct_tpu_torch.ops.ffs.ffs_fbp_recon`)."""
     from ..system.geometry import ParallelBeamGeometry
+
+    check_float32(dtype)
 
     if isinstance(geometry, ParallelBeamGeometry):
         img = parallel_fbp(sino_log, geometry, n_matrix, fov, ramp, window)
@@ -131,9 +138,11 @@ def fbp_recon(sino_log, geometry, n_matrix, fov, ramp=0.8, window="sinc",
 
 
 def parallel_fbp(sino_log, geometry, n_matrix, fov, ramp=0.8,
-                 window="sinc"):
+                 window="sinc", dtype=None):
     """Parallel-beam FBP over the geometry's angular coverage, on the
-    device of ``sino_log``; returns the [n_matrix, n_matrix] image."""
+    device of ``sino_log`` in float32 (``dtype`` must be float32 or None);
+    returns the [n_matrix, n_matrix] image."""
+    check_float32(dtype)
     nt = geometry.N_channels
     ds = geometry.ds
     dev = sino_log.device

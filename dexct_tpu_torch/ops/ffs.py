@@ -150,9 +150,10 @@ def parallel_rebin_plan_ffs(geometry, n_theta=None, nt=None, t_max=None):
 
 
 def ffs_fbp_recon(sino_log, geometry, n_matrix, fov, ramp=0.8,
-                  window="sinc", n_theta=None, nt=None):
+                  window="sinc", n_theta=None, nt=None, dtype=None):
     """FBP of a flying-focal-spot fan scan on the device of ``sino_log``
-    -> [N, N] image [cm^-1].
+    -> [N, N] image [cm^-1], in float32 (``dtype`` must be float32 or
+    None).
 
     Rebins both focal-spot subsets onto one parallel grid at the
     doubled radial density (plan above; K5 at 16 taps), filters the
@@ -160,11 +161,13 @@ def ffs_fbp_recon(sino_log, geometry, n_matrix, fov, ramp=0.8,
     the deflected rays), and backprojects it (K6).  Host plan tables are
     rebuilt per call, as in the JAX package.
     """
+    from ..utils.devices import check_float32
     from .fbp import filter_views
     from .fbp_fast import (pack_filtered, parallel_backproject_multi,
                            rebin_to_parallel)
     from .filters import filter_frequency_response
 
+    check_float32(dtype)
     dev = sino_log.device
     idx, w, t0, dt = parallel_rebin_plan_ffs(geometry, n_theta, nt)
     nt_eff = 2 * geometry.N_channels if nt is None else int(nt)

@@ -57,6 +57,12 @@ def scatter_kernel(n_channels, sigma_ch=40.0, dtype=np.float32):
     return (g / g.sum()).astype(dtype)
 
 
+def _conv_channels(x, kernel):
+    """Same-size correlation along the last (channel) axis (edge-padded);
+    the dual-source cross-scatter's spread."""
+    return _conv_axis(x, kernel, -1)
+
+
 def _conv_axis(x, kernel, axis):
     """Same-size correlation along ``axis`` (edge-padded), in float32 on
     the device of ``x``."""

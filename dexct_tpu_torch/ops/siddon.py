@@ -301,19 +301,19 @@ def labels_stack_tensor(labels, device):
 
 
 def material_path_sinogram(phantom, geometry, *, device,
-                           dtype=torch.float32, trace_group=None,
-                           trace_bundle=None):
+                           dtype=torch.float32, method="auto",
+                           trace_group=None, trace_bundle=None):
     """Full material-path sinogram [N_proj, N_channels, n_materials].
 
     Host-side convenience wrapper: derives the rays from the geometry and
     traces them on ``device``.  One exact per-ray trace serves every grid,
-    so the JAX package's ``method`` choice has no counterpart here, and its
-    ``trace_group`` and ``trace_bundle`` (TPU ray-plan layouts) are
-    accepted and ignored.  An
+    so the JAX package's ``method`` choice (accepted and ignored) has no
+    counterpart here, and its ``trace_group`` and ``trace_bundle`` (TPU
+    ray-plan layouts) are accepted and ignored.  An
     :class:`~dexct_tpu_torch.system.analytic.AnalyticPhantom` is traced in
     closed form (:func:`~dexct_tpu_torch.system.analytic.analytic_paths`).
     """
-    del trace_group, trace_bundle
+    del method, trace_group, trace_bundle
     from ..system.analytic import (AnalyticPhantom,
                                    material_path_sinogram_analytic)
 

@@ -33,6 +33,22 @@ per_channel=True)`` (the bowtie's per-channel ``[C, E]`` einsum against
 bound is K2's (one exp and M FMAs per ray and energy); the only new read
 is a ``[BLOCK_R, BLOCK_E]`` gather from the table, which stays in L2
 (800 x 140 x 4 B = 0.45 MB at the reference protocol).
+
+K34 (``_bins_counts_kernel``, :func:`counts_from_paths_multibin`) is K2's
+fused pass with M fluence columns: ``out[r, m] = sum_E i0[E, m]
+exp(clip(-L[r, E]))`` for a stacked ``[E, M]`` table (a photon-counting
+detector's M threshold bins).  It replaces the TPU program
+``dexct_tpu/ops/spectral.py:counts_from_paths`` with the multi-bin
+pipelines' ``[E, M]`` table (``dexct_tpu/pipeline/spectralct.py``), an
+``[R, E] x [E, M]`` MXU product after the exp.  What bounds it is K2's
+exp per (ray, energy) plus M FMAs for the bin sums; the bytes are the
+paths in and M floats out per ray.  Design: one exp per (ray, energy) in
+a ``[BLOCK_R, BLOCK_E]`` tile, then the tile times the ``[BLOCK_E, M]``
+fluence block (M padded to 16) as a ``tl.dot`` in IEEE float32 into a
+``[BLOCK_R, M]`` accumulator in registers.  (A broadcast product summed
+over the energies took 10.2 ms at 6 bins on the H100, the dot 0.31 ms;
+PERF.md.)  K2 stays as it is (its output is pinned bit for bit); K34 is its
+own function.
 """
 
 from __future__ import annotations
@@ -42,6 +58,8 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.devices import check_float32
+
 __all__ = [
     "effective_fluence",
     "second_moment_fluence",
@@ -49,6 +67,7 @@ __all__ = [
     "counts_from_paths_plain",
     "counts_from_table",
     "counts_from_table_plain",
+    "counts_from_paths_multibin",
     "log_sinogram",
     "sample_noise",
     "forward_counts",
@@ -200,8 +219,50 @@ def _table_counts_kernel():
     return table_counts_kernel
 
 
+@functools.lru_cache(maxsize=1)
+def _bins_counts_kernel():
+    """K34, compiled on first use like K2: K2's fused pass with M fluence
+    columns accumulated side by side."""
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def bins_counts_kernel(paths_ptr, mu_ptr, i0_ptr, out_ptr, R, E, NB,
+                           M: tl.constexpr, NBP: tl.constexpr,
+                           BLOCK_R: tl.constexpr, BLOCK_E: tl.constexpr):
+        pid = tl.program_id(0)
+        rows = pid * BLOCK_R + tl.arange(0, BLOCK_R)
+        rmask = rows < R
+        rows64 = rows.to(tl.int64)
+        bins = tl.arange(0, NBP)
+        bmask = bins < NB
+        acc = tl.zeros([BLOCK_R, NBP], dtype=tl.float32)
+        for e0 in range(0, E, BLOCK_E):
+            cols = e0 + tl.arange(0, BLOCK_E)
+            emask = cols < E
+            L = tl.zeros([BLOCK_R, BLOCK_E], dtype=tl.float32)
+            for m in tl.static_range(M):
+                p = tl.load(paths_ptr + rows64 * M + m, mask=rmask, other=0.0)
+                mu = tl.load(mu_ptr + m * E + cols, mask=emask, other=0.0)
+                L += p[:, None] * mu[None, :]
+            att = tl.exp(tl.minimum(tl.maximum(-L, -700.0), 2.0))
+            # the [BLOCK_E, NBP] block of the [E, NB] fluence table
+            i0 = tl.load(i0_ptr + cols[:, None] * NB + bins[None, :],
+                         mask=emask[:, None] & bmask[None, :], other=0.0)
+            acc = tl.dot(att, i0, acc, input_precision="ieee")
+        out = out_ptr + rows64[:, None] * NB + bins[None, :]
+        tl.store(out, acc, mask=rmask[:, None] & bmask[None, :])
+
+    return bins_counts_kernel
+
+
 _BLOCK_R = 128
 _BLOCK_E = 64
+# K34's tiles (tuned on the H100 at 8e5 rays, 8 materials, 140 energies
+# and 4 or 6 bins); the bins pad to tl.dot's least width, 16
+_B_BLOCK_R = 128
+_B_BLOCK_E = 16
+_B_WARPS = 4
 # K28 holds a third [BLOCK_R, BLOCK_E] tile (the gathered table; a fourth
 # with the second table), so it takes narrower energy chunks than K2: on
 # the H100 at the reference protocol BLOCK_E 64 took 2.48 ms per spectrum,
@@ -280,6 +341,59 @@ def _table_counts_cuda(paths, mu_table, table, table2, stride):
     return out.reshape(shape)
 
 
+def _bins_counts_cuda(paths, mu_table, i0_bins):
+    dev = paths.device
+    m = paths.shape[-1]
+    p2 = paths.reshape(-1, m).to(torch.float32).contiguous()
+    mu = mu_table.to(device=dev, dtype=torch.float32).contiguous()
+    e = mu.shape[1]
+    if mu.shape[0] != m:
+        raise ValueError(f"mu_table has {mu.shape[0]} materials, paths {m}")
+    i0 = i0_bins.to(device=dev, dtype=torch.float32).contiguous()
+    if i0.ndim != 2 or i0.shape[0] != e:
+        raise ValueError(f"the fluence table must be [{e}, M], got "
+                         f"{tuple(i0.shape)}")
+    nb = i0.shape[1]
+    r = p2.shape[0]
+    out = torch.empty((r, nb), dtype=torch.float32, device=dev)
+    grid = (max(-(-r // _B_BLOCK_R), 1),)
+    with torch.cuda.device(dev):
+        _bins_counts_kernel()[grid](
+            p2, mu, i0, out, r, e, nb, M=m,
+            NBP=max(1 << (max(nb, 1) - 1).bit_length(), 16),
+            BLOCK_R=_B_BLOCK_R, BLOCK_E=_B_BLOCK_E, num_warps=_B_WARPS)
+    counts_from_paths_multibin.launches += 1
+    return out.reshape(paths.shape[:-1] + (nb,))
+
+
+def counts_from_paths_multibin(paths, mu_table, i0_bins):
+    """Detected counts of M photon-counting bins per ray.
+
+    paths:    [..., n_mats] material path lengths [cm]
+    mu_table: [n_mats, E] linear attenuation [1/cm]
+    i0_bins:  [E, M] effective fluence of each bin (the multi-bin
+              pipelines' stacked table, ``pcd_bin_fluences(...).T``)
+    Returns counts ``[..., M]``, one attenuation ``exp(-L)`` per (ray,
+    energy) shared by the bins.
+
+    CUDA tensors run kernel K34 (counted in
+    ``counts_from_paths_multibin.launches``); CPU tensors run
+    :func:`counts_from_paths_plain`, whose ``atten @ i0`` takes the [E, M]
+    table as it is.
+    """
+    if paths.is_cuda:
+        return _bins_counts_cuda(paths, mu_table, i0_bins)
+    if paths.device.type != "cpu":
+        raise ValueError(f"unsupported device {paths.device}")
+    if i0_bins.ndim != 2 or i0_bins.shape[0] != mu_table.shape[-1]:
+        raise ValueError(f"the fluence table must be [{mu_table.shape[-1]}, "
+                         f"M], got {tuple(i0_bins.shape)}")
+    return counts_from_paths_plain(paths, mu_table, i0_bins)
+
+
+counts_from_paths_multibin.launches = 0
+
+
 def counts_from_table(paths, mu_table, table, table2=None, *, stride=1):
     """Detected signal per ray with a fluence table of rows.
 
@@ -321,8 +435,12 @@ def counts_from_paths(paths, mu_table, i0_eff, i2_eff=None, *,
               ``per_channel=True``, a per-channel table [C, E] (bowtie
               filtration, ops/bowtie.py) against rays laid out
               [..., V, C] (kernel K28, :func:`counts_from_table`)
+              — or a stacked [E, M] table of M photon-counting bins
+              (kernel K34, :func:`counts_from_paths_multibin`), which
+              returns ``[..., M]``
     i2_eff:   optional second table of ``i0_eff``'s shape (compound-noise
-              second moment) contracted against the same attenuation.
+              second moment) contracted against the same attenuation; not
+              with an [E, M] table (PCD bins are Poisson).
     Returns counts ``[...]``, or ``(counts, var)`` when ``i2_eff`` is given.
 
     CUDA tensors run kernel K2 (counted in ``counts_from_paths.launches``);
@@ -336,6 +454,11 @@ def counts_from_paths(paths, mu_table, i0_eff, i2_eff=None, *,
                              f"needs rays [..., V, C], got paths "
                              f"{tuple(paths.shape)}")
         return counts_from_table(paths, mu_table, i0_eff, i2_eff, stride=1)
+    if i0_eff.ndim == 2:
+        if i2_eff is not None:
+            raise ValueError("a second-moment table goes with a [E] "
+                             "fluence, not a stacked [E, M] bin table")
+        return counts_from_paths_multibin(paths, mu_table, i0_eff)
     if paths.is_cuda:
         return _counts_cuda(paths, mu_table, i0_eff, i2_eff)
     if paths.device.type != "cpu":
@@ -392,9 +515,10 @@ def sample_noise(generator, counts, mode="poisson", var_scale=1.0, var=None):
 
 
 def forward_counts(paths, phantom, spec, geometry, *, noise="none",
-                   generator=None, bowtie=None, tcm=None, sigma_e=0.0):
+                   generator=None, dtype=None, bowtie=None, tcm=None,
+                   sigma_e=0.0):
     """paths -> (counts, log_sino): the get_sino back half, on the device
-    of ``paths``.
+    of ``paths``, in float32 (``dtype`` must be float32 or None).
 
     With a ``bowtie`` (ops/bowtie.py) the fluence and the air
     normalization become per channel (kernel K28).  With ``tcm`` (a
@@ -405,6 +529,7 @@ def forward_counts(paths, phantom, spec, geometry, *, noise="none",
     noise floor: ``var + sigma_e**2``.  One pass of K2 (or K28) gives the
     counts and, in compound mode, the second moment together.
     """
+    check_float32(dtype)
     dev = paths.device
     mu_table = torch.as_tensor(phantom.materials.mu_table(spec.E),
                                dtype=torch.float32, device=dev)

@@ -1,4 +1,5 @@
-"""Pipeline: reference-compatible API + fused step + run driver."""
+"""Pipeline: reference-compatible API, fused steps, the spectral PCD and
+acquisition-mode pipelines, run driver."""
 
 from .api import (
     DectResult,
@@ -10,15 +11,23 @@ from .api import (
     simulate_dect,
 )
 from .cone import ConeDectMeta, cone_dect_step, pack_cone_dect
+from .dualsource import simulate_dualsource_dect
 from .gated import gate_weights, gated_fbp_recon, gated_series, view_phases
 from .realism import (Stage, apply_chain, correct_chain,
                       simulate_dect_realistic)
+from .kvswitch import simulate_kvswitch_dect
 from .runner import DEFAULT_SPEC_PAIRS, run_config, run_parameter_file
+from .spectralct import (SpectralResult, make_jitted_pcd_cone_step,
+                         make_jitted_pcd_step, pack_pcd_spectral,
+                         pack_pcd_spectral_cone, simulate_pcd_spectral,
+                         simulate_pcd_spectral_cone)
 from .tcm import auto_tcm_profile, simulate_tcm_dect
 from .zstack import (make_jitted_zstack_step, pack_zstack, stack_phantom,
                      zstack_step)
 
 __all__ = [
+    "simulate_kvswitch_dect",
+    "simulate_dualsource_dect",
     "gated_fbp_recon",
     "gated_series",
     "gate_weights",
@@ -27,6 +36,13 @@ __all__ = [
     "apply_chain",
     "correct_chain",
     "simulate_dect_realistic",
+    "SpectralResult",
+    "simulate_pcd_spectral",
+    "simulate_pcd_spectral_cone",
+    "pack_pcd_spectral",
+    "pack_pcd_spectral_cone",
+    "make_jitted_pcd_step",
+    "make_jitted_pcd_cone_step",
     "auto_tcm_profile",
     "simulate_tcm_dect",
     "get_sino",

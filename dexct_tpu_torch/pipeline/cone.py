@@ -52,6 +52,8 @@ _ARRAY_DTYPES = {
 _OPTIONAL_DTYPES = {
     "src_z": torch.float32, "row_off": torch.float32,
     "beta_c": torch.float32, "i2_1": torch.float32, "i2_2": torch.float32,
+    # the photon-counting packs' bin tables (pipeline/spectralct.py)
+    "i0_bins_T": torch.float32, "pileup_route": torch.float32,
 }
 
 
@@ -210,15 +212,16 @@ def pack_cone_dect(ct, phantom, spec1, spec2, n_matrix, fov, ramp, *,
 
 
 def cone_arrays_from_numpy(arrays_np, device, labels, src, dirs):
-    """The JAX package's ``pack_cone_dect`` arrays (as numpy) -> this
-    port's tensor dict on ``device``, so both steps run on identical
-    inputs.  The JAX pack keeps the label volume and the rays only in its
-    TPU layouts (``pack_*``, ``src_*``/``dirs_*`` ray plans and bundles,
-    ``inv``), which are dropped; ``labels`` [nz, ny, nx] and ``src``,
-    ``dirs`` [V, R, C, 3] come from the host model instead."""
+    """The JAX package's ``pack_cone_dect`` (or ``pack_pcd_spectral_cone``)
+    arrays (as numpy) -> this port's tensor dict on ``device``, so both
+    steps run on identical inputs; every key the port's steps read is
+    carried when present.  The JAX pack keeps the label volume and the rays
+    only in its TPU layouts (``pack_*``, ``src_*``/``dirs_*`` ray plans and
+    bundles, ``inv``), which are dropped; ``labels`` [nz, ny, nx] and
+    ``src``, ``dirs`` [V, R, C, 3] come from the host model instead."""
     out = {}
     for k, dtype in {**_ARRAY_DTYPES, **_OPTIONAL_DTYPES}.items():
-        if k in _ARRAY_DTYPES or k in arrays_np:
+        if k in arrays_np:
             out[k] = torch.as_tensor(np.array(arrays_np[k]), dtype=dtype,
                                      device=device)
     out["labels"] = labels_u8(np.asarray(labels), device)

@@ -41,6 +41,7 @@ from ..ops.fourier import (fourier_paths_from_arrays, plan_arrays,
                            plan_fourier_projector)
 from ..ops.siddon import labels_tensor, trace_paths
 from ..system.analytic import AnalyticPhantom, analytic_paths
+from ..utils.devices import check_float32
 
 __all__ = ["DectMeta", "PROJECTORS", "pack_dect", "dect_step",
            "make_jitted_step", "decompose_counts", "reconstruct_stack",
@@ -69,6 +70,8 @@ _OPTIONAL_DTYPES = {
     "rb_idx": torch.int32, "rb_w": torch.float32,
     "par_thetas": torch.float32, "par_H": torch.float32,
     "an_params": torch.float32, "an_labels": torch.int32,
+    # the photon-counting packs' bin tables (pipeline/spectralct.py)
+    "i0_bins_T": torch.float32, "pileup_route": torch.float32,
 }
 
 
@@ -116,7 +119,7 @@ def check_choices(projector, recon):
 
 
 def pack_dect(ct, phantom, spec1, spec2, n_matrix, fov, ramp, *, device,
-              n_iters=50, window="sinc", mask_thresh=0.95,
+              n_iters=50, window="sinc", dtype=None, mask_thresh=0.95,
               pixel_block=65536, projector="siddon", n_theta=1024,
               recon="fan", recon_n_theta=512, recon_nt=1024, noise="none",
               seed=0, par_sym=True, trace_group=16, trace_bundle=8):
@@ -126,12 +129,15 @@ def pack_dect(ct, phantom, spec1, spec2, n_matrix, fov, ramp, *, device,
     ``n_theta`` is the Fourier projector's angle count
     (``projector='fourier'``); ``recon_n_theta`` x ``recon_nt`` is the
     parallel grid of ``recon='parallel'``.  The plans are host float64
-    NumPy, built anew on each call.  ``par_sym``, ``trace_group`` and
+    NumPy, built anew on each call; the arrays are float32 (``dtype`` must
+    be float32 or None).  ``par_sym``, ``trace_group`` and
     ``trace_bundle`` choose TPU layouts of the same arrays (the symmetric
     parallel backprojection, the packed trace's ray plan); they are
     accepted and ignored."""
     del par_sym, trace_group, trace_bundle
     from .api import effective_water_mu
+
+    check_float32(dtype)
 
     check_choices(projector, recon)
     if getattr(ct, "ffs", "none") != "none":
@@ -222,14 +228,16 @@ def pack_dect(ct, phantom, spec1, spec2, n_matrix, fov, ramp, *, device,
 
 
 def arrays_from_numpy(arrays_np, device):
-    """The JAX package's ``pack_dect`` arrays (as numpy) -> this port's
-    tensor dict on ``device``, so both ``dect_step``s can run on identical
-    inputs.  The Fourier-projector and parallel-recon tables are carried
-    when present; keys this port does not read are dropped; labels become
-    uint8 after a range check."""
+    """The JAX package's ``pack_dect`` (or ``pack_pcd_spectral``) arrays
+    (as numpy) -> this port's tensor dict on ``device``, so both steps can
+    run on identical inputs.  Every key the port's steps read is carried
+    when present (the PCD pack has no second spectrum; the Fourier-
+    projector, parallel-recon and bin tables belong to their choices);
+    keys this port does not read are dropped; labels become uint8 after a
+    range check."""
     out = {}
     for k, dtype in {**_ARRAY_DTYPES, **_OPTIONAL_DTYPES}.items():
-        if k not in _ARRAY_DTYPES and k not in arrays_np:
+        if k not in arrays_np:
             continue
         a = np.array(arrays_np[k])  # a writable copy
         if k == "labels" and a.size and (a.min() < 0 or a.max() > 255):

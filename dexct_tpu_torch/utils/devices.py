@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["device_of", "as_float"]
+__all__ = ["device_of", "as_float", "check_float32"]
 
 
 def device_of(x, device):
@@ -28,3 +28,18 @@ def as_float(x, device):
         x = x.to(device)
         return x if x.is_floating_point() else x.to(torch.float32)
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
+def check_float32(dtype):
+    """Accept the JAX signatures' ``dtype=`` keyword where the port works
+    in float32 only: ``None`` and float32 (torch's or NumPy's) pass,
+    anything else raises ``ValueError``."""
+    if dtype is None or dtype is torch.float32:
+        return
+    try:
+        ok = np.dtype(dtype) == np.float32
+    except TypeError:
+        ok = False
+    if not ok:
+        raise ValueError(f"this port computes in float32; dtype={dtype!r} "
+                         "is not supported")

@@ -64,6 +64,11 @@ _SIGNATURES = {
     # clip, stream
     "dexct_gauss_newton_grouped": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                                    _I, _I, _F, _F, _F, _F, _F, _P),
+    # counts, tables, out, n_pix, n_meas, n_mats, newton, e_full, e_warm,
+    # n_warm, n_pol, warm_bf16, warm_log, polish_log, lm_damping, scale,
+    # a_lo, a_hi, step_max, eps_init, clip, stream
+    "dexct_gauss_newton_general": (_P, _P, _P, _L) + (_I,) * 10 + (_F,) * 7
+                                  + (_P,),
     # packed, cos_b, sin_b, out, n_images, V, C, N, px, half, sid, dgamma,
     # dbeta, stream
     "dexct_fan_backproject": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,

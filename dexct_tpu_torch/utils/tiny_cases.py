@@ -12,7 +12,9 @@ paths (a bowtie under an artifact chain, tube-current modulation, the
 anode heel) through the same phantom, and the motion paths (a breathing
 scan of it through the motion-compensated FBP, the estimators and the
 motion-compensated one-step fit; a gated series; the motion-compensated
-cone and helical reconstructions).  The card tests
+cone and helical reconstructions), and the spectral paths (photon-counting
+CT of the same phantom in 2-D and as a cone, kV switching, dual source
+with cross-scatter and motion, the dual-layer detector).  The card tests
 (``tests/test_torch_cuda.py``) and ``chip_smoke.py``'s phase 5 both run
 them, with the tolerances below.
 """
@@ -27,6 +29,8 @@ import torch
 __all__ = ["ITERATIVE_PATHS", "ITERATIVE_TOL", "GRADIENT_TOL", "DOSE_KINDS",
            "DOSE_TOL", "NOISE_TOL", "SCATTER_KINDS", "SCATTER_TOL",
            "REALISM_KINDS", "REALISM_TOL", "MOTION_KINDS", "MOTION_TOL",
+           "SPECTRAL_KINDS", "SPECTRAL_TOL", "spectral", "NEWTON_TOL",
+           "newton_agreement", "newton_agrees",
            "fourier_plan", "iterative_2d", "onestep_gradient",
            "dose_inputs", "dose", "noise_maps", "scatter", "realism",
            "motion"]
@@ -57,6 +61,30 @@ MOTION_KINDS = ("motion", "gated", "motion_3d")
 # the one-step images) carry the adjoints' unordered float32 atomics on, as
 # ITERATIVE_TOL's loops do
 MOTION_TOL = 1e-3
+SPECTRAL_KINDS = ("pcd", "pcd_cone", "kvswitch", "dualsource", "duallayer")
+# every output's max abs difference over its max |CPU|: the decompositions
+# iterate float32 sums taken in another order (K35 and K3 against their
+# plain versions)
+SPECTRAL_TOL = 1e-3
+# K35 against its plain version: |d| / max(|a|, 1), K3's bar; at K = 4 on
+# 99 % of the pixels (the float32 Poisson-MLE polish of the 4x4 system is
+# chaotic on the hardest rays, where the plain version and the JAX program
+# disagree as much, tests/test_torch_multibin.py)
+NEWTON_TOL = 1e-4
+
+
+def newton_agreement(got, want):
+    """(max, 99th percentile) over pixels of max_k |got - want| /
+    max(|want|, 1) for two [P, K] decompositions."""
+    rel = ((got - want).abs() / want.abs().clamp_min(1.0)).amax(-1)
+    return float(rel.max()), float(torch.quantile(rel.double(), 0.99))
+
+
+def newton_agrees(got, want):
+    """K35's bar (:data:`NEWTON_TOL`): on every pixel for K <= 3, on 99 %
+    of them for K = 4."""
+    worst, p99 = newton_agreement(got, want)
+    return (p99 if got.shape[-1] == 4 else worst) <= NEWTON_TOL
 
 VIEW_SHAPE = (64, 48)
 
@@ -410,3 +438,59 @@ def motion(kind, device):
         geometry=ct)
     return [t.cpu() for t in (l2, m1, m2, *imgs,
                               torch.as_tensor(joint.disp), x, fit)]
+
+
+def spectral(kind, device):
+    """One spectral path on a tiny scan, no noise, through the 32^2
+    phantom: ``'pcd'`` (photon-counting CT with bins [20, 34, 50, 70] keV
+    of a 140 kV spectrum, 48 views x 48 channels, pileup on; K1, K34, K35,
+    K4), ``'pcd_cone'`` (the same over a 24 x 4 x 32 cone through the
+    phantom extruded to 8 slices; K10, K34, K35, K11), ``'kvswitch'``,
+    ``'dualsource'`` (cross-scatter 0.15 and a 0.5 cm breathing track) and
+    ``'duallayer'`` (K1-K4 each).  Returns the outputs as a list of CPU
+    tensors."""
+    from ..ops.motion import MotionProfile
+    from ..physics import duallayer, kramers_spectrum
+    from ..physics.detector import photon_counting_response
+    from ..physics.materials import BONE, WATER
+    from ..pipeline import dualsource, kvswitch, spectralct
+    from ..system import ConeBeamGeometry, FanBeamGeometry
+
+    kw = dict(gamma_fan=0.9, SID=60.0, SDD=100.0)
+    if kind in ("pcd", "pcd_cone"):
+        cone = kind == "pcd_cone"
+        ct = (ConeBeamGeometry(N_channels=32, N_proj=24, N_rows=4,
+                               h_iso=0.5, eid=False,
+                               detector=photon_counting_response(), **kw)
+              if cone else
+              FanBeamGeometry(N_channels=48, N_proj=48, eid=False,
+                              detector=photon_counting_response(), **kw))
+        spec = kramers_spectrum(140.0)
+        spec.rescale_counts(ct.A_iso * 10.0 / ct.N_proj)
+        sim = (spectralct.simulate_pcd_spectral_cone if cone
+               else spectralct.simulate_pcd_spectral)
+        res = sim(ct, _three_materials(8 if cone else None), spec,
+                  [20.0, 34.0, 50.0, 70.0], (WATER, BONE), 32, 20.0, 0.8,
+                  n_iters=20, pileup_tau=1e-9, device=device)
+        return [t.cpu() for t in (res.counts, res.basis_sinos,
+                                  res.basis_recons)]
+    ph = _three_materials()
+    ct = FanBeamGeometry(N_channels=48, N_proj=48, eid=True, **kw)
+    s1, s2 = _realism_spectra(ct)
+    if kind == "kvswitch":
+        out = kvswitch.simulate_kvswitch_dect(ct, ph, s1, s2, 32, 20.0, 0.8,
+                                              n_iters=10, device=device)
+    elif kind == "dualsource":
+        track = MotionProfile.breathing(ct.N_proj, amplitude_cm=0.5,
+                                        cycles=0.5, direction=(1.0, 0.3))
+        out = dualsource.simulate_dualsource_dect(
+            ct, ph, s1, s2, 32, 20.0, 0.8, cross_spr=0.15,
+            kernel_sigma_ch=20.0, motion=track, n_iters=10, device=device)
+    else:
+        spec = kramers_spectrum(120.0)
+        spec.rescale_counts(ct.A_iso * 10.0 / ct.N_proj)
+        out = duallayer.simulate_dual_layer_dect(ct, ph, spec, 32, 20.0,
+                                                 0.8, n_iters=10,
+                                                 device=device)
+    return [t.cpu() for pair in (out.sino_log, out.mat_sinos,
+                                 out.mat_recons) for t in pair]

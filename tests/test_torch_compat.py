@@ -153,6 +153,7 @@ def _keyword_case(name):
     from dexct_tpu_torch import ops as t_ops
     from dexct_tpu_torch.system import (FlatPanelConeBeamGeometry,
                                         HelicalConeBeamGeometry,
+                                        ParallelBeamGeometry,
                                         TiltedConeBeamGeometry)
 
     rng = np.random.default_rng(8)
@@ -168,6 +169,10 @@ def _keyword_case(name):
     sino_h = torch.as_tensor(rng.uniform(0, 2, (48, 4, 32)),
                              dtype=torch.float32)
     packed = t_ops.fbp_fast.pack_filtered(q[None])
+    paths = t_ops.siddon.material_path_sinogram(ph, _port(fan), device="cpu")
+    counts = 1e6 * torch.exp(-q.abs()[None] * torch.tensor([[[1.0]], [[1.3]]]))
+    src3, dirs3 = (torch.as_tensor(x[:2], dtype=torch.float32)
+                   for x in _port(cone).ray_geometry_3d())
     fan_args = (fan.SID, fan.dgamma, 32, 24.0)
     cases = {
         "fbp.fan_backproject": lambda **kw: t_ops.fbp.fan_backproject(
@@ -209,6 +214,30 @@ def _keyword_case(name):
         "helical_pi.helical_pi_reconstruct":
             lambda **kw: t_ops.helical_pi.helical_pi_reconstruct(
                 sino_h, helix, 16, 18.0, 0.8, **kw),
+        "fbp.fbp_recon": lambda **kw: t_ops.fbp.fbp_recon(
+            q, _port(fan), 32, 24.0, 0.8, **kw)[0],
+        "fbp.filter_sinogram": lambda **kw: t_ops.fbp.filter_sinogram(
+            q, _port(fan), 0.8, **kw),
+        "fbp.parallel_fbp": lambda **kw: t_ops.fbp.parallel_fbp(
+            q, ParallelBeamGeometry(N_channels=64, N_proj=48,
+                                    detector_width=24.0), 32, 24.0, 0.8,
+            **kw),
+        "ffs.ffs_fbp_recon": lambda **kw: t_ops.ffs.ffs_fbp_recon(
+            q, dataclasses.replace(_port(fan), ffs="inplane"), 32, 24.0,
+            0.8, **kw),
+        "matdecomp.decompose_sinograms":
+            lambda **kw: t_ops.matdecomp.decompose_sinograms(
+                _port(fan), counts[0], counts[1], s1, s2, n_iters=5,
+                **kw)[0],
+        "spectral.forward_counts":
+            lambda **kw: t_ops.spectral.forward_counts(
+                paths, ph, s1, _port(fan), **kw)[1],
+        "siddon.material_path_sinogram":
+            lambda **kw: t_ops.siddon.material_path_sinogram(
+                ph, _port(fan), device="cpu", **kw),
+        "conebeam.trace_paths_3d": lambda **kw: t_ops.conebeam.trace_paths_3d(
+            torch.as_tensor(np.asarray(ph3.labels)), src3, dirs3, ph3.dx,
+            ph3.dy, ph3.dz, n_materials=ph3.n_materials, **kw),
     }
     mod, fn = name.split(".")
     return getattr(getattr(j_ops, mod), fn), cases[name]
@@ -233,6 +262,41 @@ def test_view_block_is_accepted_and_ignored(name):
     assert torch.equal(got, want)
 
 
+# the JAX functions' dtype= keyword, which the port takes for float32
+DTYPE_KEYWORD = ["fbp.fbp_recon", "fbp.filter_sinogram", "fbp.parallel_fbp",
+                 "ffs.ffs_fbp_recon", "matdecomp.decompose_sinograms",
+                 "conebeam.cone_material_paths", "conebeam.cone_sinogram",
+                 "spectral.forward_counts"]
+
+
+@pytest.mark.parametrize("name", DTYPE_KEYWORD)
+def test_dtype_keyword_takes_float32(name):
+    """``dtype`` as torch's or NumPy's float32 gives the call without it,
+    bit for bit; another type raises ``ValueError`` (the port computes in
+    float32)."""
+    j_fn, call = _keyword_case(name)
+    assert "dtype" in inspect.signature(j_fn).parameters
+    want = call()
+    for dt in (torch.float32, np.float32, None):
+        assert torch.equal(call(dtype=dt), want)
+    with pytest.raises(ValueError, match="float32"):
+        call(dtype=torch.float64)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("siddon.material_path_sinogram", dict(method="dominant")),
+    ("conebeam.cone_material_paths", dict(method="dda")),
+    ("conebeam.trace_paths_3d", dict(n_steps=64))],
+    ids=lambda x: x if isinstance(x, str) else next(iter(x)))
+def test_tracer_choice_keywords_are_accepted_and_ignored(name, kw):
+    """The JAX package's tracer choices (``method``, the DDA's fixed trip
+    count ``n_steps``) name TPU programs of the same exact paths; the
+    port's one exact trace takes them and returns the same bits."""
+    j_fn, call = _keyword_case(name)
+    assert set(kw) <= set(inspect.signature(j_fn).parameters)
+    assert torch.equal(call(**kw), call())
+
+
 def _same_arrays(a, b):
     assert set(a) == set(b)
     for k in a:
@@ -240,7 +304,8 @@ def _same_arrays(a, b):
 
 
 @pytest.mark.parametrize("kw", [dict(trace_bundle=4), dict(trace_group=8),
-                                dict(par_sym=False)],
+                                dict(par_sym=False),
+                                dict(dtype=torch.float32)],
                          ids=lambda kw: next(iter(kw)))
 def test_pack_dect_layout_keywords(kw):
     assert set(kw) <= set(inspect.signature(j_fused.pack_dect).parameters)

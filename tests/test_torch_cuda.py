@@ -1,4 +1,4 @@
-"""Hand-written kernels K1-K33 against their plain PyTorch versions, on the
+"""Hand-written kernels K1-K35 against their plain PyTorch versions, on the
 card.
 
 Every test here needs a CUDA device and skips without one.  This file
@@ -1368,3 +1368,133 @@ def test_motion_paths_cuda_match_cpu(dev, kind):
     for g, w in zip(got, want):
         big = float(w.abs().max())
         assert float((g - w).abs().max()) <= tiny_cases.MOTION_TOL * big
+
+
+@pytest.mark.parametrize("n_bins", [4, 6])
+def test_multibin_counts_match_plain(dev, n_bins):
+    """K34 (a stacked [E, M] bin table through ``counts_from_paths``)
+    against its plain twin, rel 1e-5 (K2's bar); K2's counter stays put,
+    and a second-moment table with a bin table is refused on the card as
+    on the CPU."""
+    from dexct_tpu_torch.ops.spectral import counts_from_paths_multibin
+
+    rng = np.random.default_rng(41)
+    paths = torch.as_tensor(rng.uniform(0, 5, (3000, 6)),
+                            dtype=torch.float32, device=dev)
+    mu = torch.as_tensor(rng.uniform(0.01, 2.0, (6, 141)),
+                         dtype=torch.float32, device=dev)
+    i0 = rng.uniform(0, 1e6, (141, n_bins))
+    i0[:20] = 0.0
+    i0 = torch.as_tensor(i0, dtype=torch.float32, device=dev)
+    before = counts_from_paths_multibin.launches
+    k2 = counts_from_paths.launches
+    got = counts_from_paths(paths.reshape(60, 50, 6), mu, i0)
+    torch.cuda.synchronize()
+    assert counts_from_paths_multibin.launches == before + 1
+    assert counts_from_paths.launches == k2
+    assert got.shape == (60, 50, n_bins)
+    torch.testing.assert_close(
+        got, counts_from_paths_plain(paths.reshape(60, 50, 6), mu, i0),
+        rtol=1e-5, atol=0)
+    with pytest.raises(ValueError, match="second-moment"):
+        counts_from_paths(paths, mu, i0, i0)
+
+
+def _multibin_case(thresholds, n_mats, n_pix=2048, seed=43):
+    """Noiseless photon-counting counts [M, P] of random area densities
+    of K of (tissue, bone, iodine, gadolinium) under a 140 kV spectrum,
+    bins at ``thresholds`` (the JAX tests' multi-bin scene)."""
+    from dexct_tpu_torch.ops.matdecomp import pcd_bin_fluences
+    from dexct_tpu_torch.physics import kramers_spectrum, xcom
+    from dexct_tpu_torch.physics.detector import photon_counting_response
+    from dexct_tpu_torch.physics.materials import BONE, TISSUE, Material
+    from dexct_tpu_torch.system import FanBeamGeometry
+
+    basis = (TISSUE, BONE,
+             Material("iodine solution", 1.1, "H(10.0)O(85.0)I(5.0)"),
+             Material("gadolinium solution", 1.05,
+                      "H(10.5)O(88.5)Gd(1.0)"))[:n_mats]
+    ct = FanBeamGeometry(N_channels=64, N_proj=8, gamma_fan=0.8, SID=60.0,
+                         SDD=100.0, eid=False,
+                         detector=photon_counting_response())
+    spec = kramers_spectrum(140.0)
+    spec.rescale_counts(ct.A_iso * 20.0 / ct.N_proj)
+    i0s = pcd_bin_fluences(ct, spec, thresholds)
+    mus = np.stack([xcom.mixatten(m.matcomp, spec.E) for m in basis])
+    rng = np.random.default_rng(seed)
+    hi = (25.0, 5.0, 2.0, 2.0)
+    a = np.stack([rng.uniform(0.0, hi[k], n_pix) for k in range(n_mats)],
+                 -1)
+    counts = (np.exp(-a @ mus) @ i0s.T).T
+    return [torch.as_tensor(x, dtype=torch.float32)
+            for x in (counts, i0s, mus)]
+
+
+THR4 = [20.0, 34.0, 50.0, 70.0]
+THR6 = [20.0, 34.0, 45.0, 52.0, 65.0, 85.0]
+THR8 = [20.0, 30.0, 40.0, 50.0, 60.0, 70.0, 80.0, 90.0]
+# name -> (thresholds, K, solver keywords)
+K35_CASES = {
+    "4x2": (THR4, 2, dict(n_iters=50)),
+    "4x3": (THR4, 3, dict(n_iters=200, step_max=2.0)),
+    "6x4": (THR6, 4, dict(n_iters=200, step_max=2.0)),
+    "4x2_newton": (THR4, 2, dict(n_iters=30, method="newton")),
+    "4x3_lm": (THR4, 3, dict(n_iters=60, lm_damping=0.1, step_max=2.0)),
+    "4x2_mle_warm": (THR4, 2, dict(n_iters=40, warm="mle")),
+    "2x2_lm": (THR4[:1] + [60.0], 2, dict(n_iters=40, lm_damping=0.05)),
+    # M = 8 with the Hessian columns: 139 KB of tables in shared memory
+    "8x4_newton": (THR8, 4, dict(n_iters=40, method="newton",
+                                 step_max=2.0)),
+}
+
+
+@pytest.mark.parametrize("name", list(K35_CASES))
+def test_gauss_newton_general_matches_plain(dev, name):
+    """K35 through ``gauss_newton_solve`` against the plain version on
+    the same tensors: |d| / max(|a|, 1) <= 1e-4 (K3's bar) on every pixel
+    at K <= 3 and on 99 % of them at K = 4 (``tiny_cases.newton_agrees``);
+    one K35 launch, none of K3."""
+    from dexct_tpu_torch.ops import matdecomp
+
+    thr, n_mats, kw = K35_CASES[name]
+    args = _multibin_case(thr, n_mats)
+    before = matdecomp._gauss_newton_general.launches
+    k3 = gauss_newton_solve.launches
+    got = gauss_newton_solve(*(x.to(dev) for x in args), **kw)
+    torch.cuda.synchronize()
+    assert matdecomp._gauss_newton_general.launches == before + 1
+    assert gauss_newton_solve.launches == k3
+    want = matdecomp.gauss_newton_solve_plain(*args, **kw)
+    assert got.shape == want.shape == (args[0].shape[1], n_mats)
+    assert bool(torch.isfinite(got).all())
+    assert tiny_cases.newton_agrees(got.cpu(), want), \
+        tiny_cases.newton_agreement(got.cpu(), want)
+
+
+def test_gauss_newton_general_at_two_materials_is_k3(dev):
+    """At (M, K) = (2, 2) with K3's schedule, K35 agrees with K3 (and with
+    the plain version) within K3's bar of 1e-4; the default call still
+    takes K3."""
+    from dexct_tpu_torch.ops import matdecomp
+
+    counts, i0, mus = (torch.as_tensor(x, device=dev)
+                       for x in _k3_golden_case())
+    k3 = gauss_newton_solve(counts, i0, mus, n_iters=50)
+    kw = dict(n_iters=50, eps_init=1e-6, pixel_block=65536, step_max=5.0,
+              a_bounds=(-20.0, 500.0), method="gn", lm_damping=0.0,
+              polish_iters=4, warm="log", warm_nodes=32)
+    k35 = matdecomp._gauss_newton_general(counts, i0, mus, **kw)
+    plain = matdecomp.gauss_newton_solve_plain(counts.cpu(), i0.cpu(),
+                                               mus.cpu(), n_iters=50)
+    for a, b in ((k35, k3), (k35.cpu(), plain)):
+        rel = (a - b).abs() / b.abs().clamp_min(1.0)
+        assert float(rel.max()) <= 1e-4
+
+
+@pytest.mark.parametrize("kind", tiny_cases.SPECTRAL_KINDS)
+def test_spectral_paths_cuda_match_cpu(dev, kind):
+    got = tiny_cases.spectral(kind, dev)
+    want = tiny_cases.spectral(kind, "cpu")
+    for g, w in zip(got, want):
+        big = float(w.abs().max())
+        assert float((g - w).abs().max()) <= tiny_cases.SPECTRAL_TOL * big

@@ -158,15 +158,23 @@ def test_plain_rounding_does_not_follow_the_host(de_tables, tmp_path):
     assert len(digests) == 1, digests
 
 
-def test_unported_material_counts_raise(de_tables):
+def test_material_count_checks(de_tables):
+    """K > M raises the JAX ValueError, K = 5 the JAX
+    NotImplementedError of the closed-form solve, and more measurements
+    than the kernel's MAX_BINS a ValueError naming the limit (the same
+    checks on both devices: they run before the dispatch)."""
     i0, mus = (torch.as_tensor(x, dtype=torch.float32) for x in de_tables)
-    counts3 = torch.ones((3, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_md.gauss_newton_solve(counts3, torch.cat([i0, i0[:1]]),
-                                torch.cat([mus, mus[:1]]))
     with pytest.raises(ValueError, match="measurements"):
         t_md.gauss_newton_solve(torch.ones((2, 4)), i0,
                                 torch.cat([mus, mus[:1]]))
+    mus5 = torch.cat([mus, mus, mus[:1]])
+    with pytest.raises(NotImplementedError, match="2-4 materials"):
+        t_md.gauss_newton_solve(torch.ones((5, 4)),
+                                torch.cat([i0, i0, i0[:1]]), mus5)
+    n = t_md.MAX_BINS + 1
+    with pytest.raises(ValueError, match=f"at most {t_md.MAX_BINS}"):
+        t_md.gauss_newton_solve(torch.ones((n, 4)), i0[:1].expand(n, -1),
+                                mus)
 
 
 def test_decompose_sinograms_matches_jax():

@@ -70,6 +70,31 @@ def test_second_table_shares_the_pass(tables):
     torch.testing.assert_close(v, t_sp.counts_from_paths(paths, mu, i2))
 
 
+def test_multibin_counts_match_jax(tables):
+    """A stacked [E, M] fluence table (M photon-counting bins) gives
+    counts [..., M] equal to JAX's ``counts_from_paths(paths, mu,
+    i0s.T)`` at K2's bar (rtol 1e-5); with a second-moment table it is
+    refused by a ValueError (the check precedes the device dispatch)."""
+    paths, mu, _ = tables
+    rng = np.random.default_rng(9)
+    i0s = rng.uniform(0.0, 1e7, (4, 140)).astype(np.float32)
+    i0s[:, :20] = 0.0  # the bins start at a threshold
+    want = np.asarray(j_sp.counts_from_paths(
+        jnp.asarray(paths), jnp.asarray(mu), jnp.asarray(i0s.T)))
+    t_i0 = torch.as_tensor(i0s.T.copy())
+    got = t_sp.counts_from_paths(torch.as_tensor(paths), torch.as_tensor(mu),
+                                 t_i0)
+    assert got.shape == want.shape == (40, 30, 4)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+    np.testing.assert_allclose(
+        got.numpy(), t_sp.counts_from_paths_multibin(
+            torch.as_tensor(paths), torch.as_tensor(mu), t_i0).numpy(),
+        rtol=0)
+    with pytest.raises(ValueError, match="second-moment"):
+        t_sp.counts_from_paths(torch.as_tensor(paths), torch.as_tensor(mu),
+                               t_i0, t_i0)
+
+
 def test_log_sinogram_matches_jax():
     counts = np.array([[1e10, 3.5e7], [2.0, 1.0]], np.float32)
     want = np.asarray(j_sp.log_sinogram(jnp.asarray(counts), 2e10))

@@ -7,8 +7,8 @@ Needs one CUDA device, the CUDA toolkit (nvcc) and Triton; imports nothing
 of JAX.  Phases, each of which raises on failure:
 
 1. Device: the card's name and power limit (nvidia-smi).
-2. Build: nvcc builds kernels K1, K3-K13, K15-K27, K29-K33 and K35 from
-   ``dexct_tpu_torch/csrc`` (one nvcc per source, all at once); Triton
+2. Build: nvcc builds kernels K1, K3-K13, K15-K27, K29-K33 and K35-K39
+   from ``dexct_tpu_torch/csrc`` (one nvcc per source, all at once); Triton
    compiles K2, K14, K28 and K34.
 3. Each kernel against its plain PyTorch version on the card, on the
    inputs its path gives it, with the error, both times, the kernel's
@@ -65,7 +65,14 @@ of JAX.  Phases, each of which raises on failure:
    reference protocol as a PCD scan with the packed path's 4 bins and with
    the K-edge pelvis's 6 bins and 8 materials, and K35 (the general Newton
    decomposition) on those counts (M = 4, K = 2, 10 iterations; M = 6, K =
-   4, 60), and at (2, 2) with K3's schedule beside K3.
+   4, 60), and at (2, 2) with K3's schedule beside K3.  K36 and K37 (the
+   afterglow recursion and its inverse) on the realistic path's bowtie
+   counts of both acquisitions [1000, 800] and the cone config's 80 kV
+   counts [360, 16, 256] with its two traps and warm start (bitwise
+   reported; apply then correct must round-trip; K36's yardstick the
+   cold-start lag as one FFT convolution); K38 and K39 (the gather-rate
+   probe) on the JAX tool's 800-entry table at 2^20 and 2^24 indices and
+   K39 on the 512^2 label table, bit for bit against ``tab[idx]``.
 4. The paths: the default and the exact path through
    ``dexct_tpu_torch.run.main`` on ``input/params.txt``, then the cone,
    helical, flat-panel, tilted, z-FFS and Katsevich configs, the
@@ -151,13 +158,25 @@ of JAX.  Phases, each of which raises on failure:
    scan, packed and stateless, and the helical config packed: the tissue
    ROI ~ 1.06 g/cm^3) and ``acquisition_modes`` (kV switching, dual source
    with cross-scatter corrected, dual layer at the reference protocol: air
-   ~ -1000 HU, the tissue ROI ~ 1.06 g/cm^3).
+   ~ -1000 HU, the tissue ROI ~ 1.06 g/cm^3).  Then ``gather_probe``
+   (``dexct_tpu_torch.tools.bench_gather.main`` at 2^24 lookups: K38 and
+   K39 only) and ``sweep``, twice: the JAX package's dose study
+   (``dose_sweep`` over five doses with compound noise and two seeds at
+   the reference protocol's width, read through the port's ``analysis``:
+   the noise-dose exponent and the VMI(70) contrast held to the committed
+   JAX readings; K1, K2, K3, K5, K6 only) and BASELINE config 5's width
+   (1440 views x 1600 channels through the 1024^2 pelvis: noiseless doses
+   equal, ramp sharpness ordered, slice 0 equal to ``dect_step``, the
+   empty slice air; K1-K4 only), its stages timed with the device's busy
+   share.  The realistic path's afterglow stages must launch K36 or K37
+   exactly once each.
 5. A 64^2 config through the port on ``--device cpu`` and ``--device
    cuda`` under every 2-D path's flags and configuration, tiny versions of
    every 3-D path, a tiny z-stack, and tiny versions of the six library
    paths above, tiny noise maps and fan and cone scatter, tiny versions
-   of the three realism paths, of the three motion paths and of the
-   spectral paths; every output agrees to the pipeline tolerances.
+   of the three realism paths, of the three motion paths, of the
+   spectral paths and of the sweeps; every output agrees to the pipeline
+   tolerances.
 
 The last two lines of standard output are the kernels' JSON record and the
 device JSON line.
@@ -305,6 +324,19 @@ KERNELS = {
                              "M >= K, newton, lm_damping, warm)",
                              "max |d| / max(|a|, 1) <= 1e-4 (K = 4: on 99 % "
                              "of pixels); at (2, 2) within 1e-4 of K3"),
+    "afterglow_apply": ("cuda", "dexct_tpu_torch/csrc/afterglow.cu",
+                        "dexct_tpu/ops/afterglow.py:60",
+                        "max abs <= 1e-6 x max |plain| (bitwise reported); "
+                        "apply then correct within 1e-5 x max of the "
+                        "counts"),
+    "afterglow_correct": ("cuda", "dexct_tpu_torch/csrc/afterglow.cu",
+                          "dexct_tpu/ops/afterglow.py:92",
+                          "max abs <= 1e-6 x max |plain| (bitwise "
+                          "reported)"),
+    "gather_vmem": ("cuda", "dexct_tpu_torch/csrc/gather_probe.cu",
+                    "tools/bench_gather.py:101", "bitwise equal to tab[idx]"),
+    "gather_take": ("cuda", "dexct_tpu_torch/csrc/gather_probe.cu",
+                    "tools/bench_gather.py:116", "bitwise equal to tab[idx]"),
 }
 # the library paths of the helical study reconstructors and the exact 3-D
 # iterative reconstruction, and the kernels each launches
@@ -331,7 +363,7 @@ NOISE_MAP_KERNELS = ("siddon_trace", "spectral_counts", "gauss_newton",
 # solve), tube-current modulation (K2, K3) and the anode heel on the cone
 # config (K28 per-row counts, K29 over the rows)
 REALISTIC_KERNELS = ("siddon_trace", "table_counts", "gauss_newton_grouped",
-                     "fan_backproject")
+                     "fan_backproject", "afterglow_apply", "afterglow_correct")
 TCM_KERNELS = ("siddon_trace", "spectral_counts", "gauss_newton",
                "fan_backproject")
 HEEL_KERNELS = ("siddon_trace_3d", "table_counts", "gauss_newton_grouped",
@@ -358,6 +390,34 @@ SPECTRAL_CONE_KERNELS = ("siddon_trace_3d", "multibin_counts",
                          "helical_backproject")
 ACQUISITION_KERNELS = ("siddon_trace", "spectral_counts", "gauss_newton",
                        "fan_backproject")
+# the realistic path's afterglow stage (tests/test_realism_chain.py:36-48):
+# trap fractions and time constants [ms] at 1 ms per view, warm start
+AFTERGLOW_FRACTIONS = (0.05, 0.02)
+AFTERGLOW_TAU_MS = (2.0, 20.0)
+# the gather-rate probe (tools/bench_gather.py): its table, its two index
+# counts (2^20 the Pallas probes', 2^24 the other probes'), the 512^2
+# label table
+GATHER_TABLE = 800
+GATHER_N_LOG2 = (20, 24)
+GATHER_KERNELS = ("gather_vmem", "gather_take")
+# the sweep path: the JAX package's dose study (tools/dose_study_full.py:
+# 51-96: the 512^2 pelvis over 50 cm, 1000 views x 800 channels,
+# detunedMV 9 mGy with 80 kV 1 mGy, parallel recon 512 x 1600, 12
+# iterations, compound noise, two realizations) read through the port's
+# analysis against the committed readings (results/dose_study_full.json,
+# pelvis/MV-80kV), and BASELINE config 5's width
+# (tools/bench_highres_only.py:37-48: the 1024^2 pelvis at 0.05 cm, 1440
+# views x 1600 channels, 1024^2 images, siddon/fan, 10 iterations)
+DOSE_STUDY_SCALES = (0.25, 0.5, 1.0, 2.0, 4.0)
+DOSE_STUDY_SEEDS = (17, 18)
+DOSE_STUDY_ROIS = ((243, 261, 24, 24), (243, 324, 24, 24))  # signal, bg
+DOSE_EXPONENT_TOL = 0.06
+VMI70_CONTRAST_TOL_HU = 3.0
+HIGHRES_RAMPS = (0.3, 0.8, 1.0)
+SWEEP_PARALLEL_KERNELS = ("siddon_trace", "spectral_counts", "gauss_newton",
+                          "rebin_to_parallel", "parallel_backproject")
+SWEEP_FAN_KERNELS = ("siddon_trace", "spectral_counts", "gauss_newton",
+                     "fan_backproject")
 # a 1 cm ROI of ICRU tissue (labels 2) in the pelvis, (x, y) cm: its
 # density in the tissue basis
 TISSUE_XY, TISSUE_DENSITY, TISSUE_TOL = (-0.3, -3.7), 1.06, 0.05
@@ -675,16 +735,19 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def compare(kernel_fn, plain_fn, reps):
+def compare(kernel_fn, plain_fn, reps, plain_reps=None):
     """Kernel and plain outputs and their times, measured in turns (plain,
-    kernel, kernel, plain) within this call."""
+    kernel, kernel, plain) within this call; the plain version over
+    ``plain_reps`` calls when given (for plain loops far slower than the
+    kernel), else ``reps``."""
     import torch
 
     got, want = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
-    tp = [time_ms(plain_fn, reps)]
+    plain_reps = reps if plain_reps is None else plain_reps
+    tp = [time_ms(plain_fn, plain_reps)]
     tk = [time_ms(kernel_fn, reps), time_ms(kernel_fn, reps)]
-    tp.append(time_ms(plain_fn, reps))
+    tp.append(time_ms(plain_fn, plain_reps))
     return got, want, sum(tk) / 2, sum(tp) / 2
 
 
@@ -1890,23 +1953,171 @@ def realism_kernel_phase(cfg, cone_cfg, spectra, records, dev):
            record=False)
 
 
+def afterglow_work(x):
+    """K36's or K37's (bytes, float32 operations) on counts ``x``: one read
+    and one write of each element; per element and trap the state update
+    (3) and its term of the trap sum (2), and 1 more per element (the
+    prompt or the gain)."""
+    k = len(AFTERGLOW_FRACTIONS)
+    return 2 * nbytes(x), x.numel() * (5 * k + 1)
+
+
+def afterglow_kernel_phase(cfg, cone_cfg, spectra, records, dev):
+    """Phase 3, the afterglow pair: K36 (apply) and K37 (correct) against
+    their plain twins (a loop over views) on the realistic path's two
+    acquisitions' bowtie counts [1000, 800] at the reference protocol and
+    on the cone config's 80 kV counts [360, 16, 256], with the realistic
+    path's two traps and warm start; apply then correct must round-trip.
+    K36's yardstick: the same lag model with a cold start as one causal
+    FFT convolution along the views with ``lag_impulse_response(n=V)``
+    (K37 has none)."""
+    import numpy as np
+    import torch
+
+    from dexct_tpu_torch.ops import afterglow as ag
+    from dexct_tpu_torch.ops import spectral
+    from dexct_tpu_torch.ops.conebeam import cone_material_paths
+    from dexct_tpu_torch.pipeline.api import get_sino
+
+    a = list(AFTERGLOW_FRACTIONS)
+    b = ag.decay_per_view(AFTERGLOW_TAU_MS, 1.0)
+    ct, ph = cfg.ct, cfg.phantom
+    s1, s2, bt, paths = realism_setup(cfg, spectra, dev)
+    cases = [(s.name, get_sino(ct, ph, s, device=dev, paths=paths,
+                               bowtie=bt)[0]) for s in (s1, s2)]
+    del paths
+    cct, cph = cone_cfg.ct, cone_cfg.phantom
+    cs = spectra(cct)[1]
+    cpaths = cone_material_paths(cph, cct, device=dev)
+    cases.append((f"cone {cs.name}", spectral.counts_from_paths(
+        cpaths, torch.as_tensor(cph.materials.mu_table(cs.E),
+                                dtype=torch.float32, device=dev),
+        torch.as_tensor(spectral.effective_fluence(cs, cct),
+                        dtype=torch.float32, device=dev))))
+    del cpaths
+    torch.cuda.empty_cache()
+    for i, (label, x) in enumerate(cases):
+        shape = "x".join(map(str, x.shape))
+        m, want, ms, pms = compare(
+            lambda: ag.apply_afterglow(x, a, b, warm_start=True),
+            lambda: ag.apply_afterglow_plain(x, a, b, warm_start=True), 50, 1)
+        back, want_b, ms_c, pms_c = compare(
+            lambda: ag.correct_afterglow(m, a, b, warm_start=True),
+            lambda: ag.correct_afterglow_plain(m, a, b, warm_start=True), 50,
+            1)
+        trip = float((back - x).abs().max() / x.abs().max())
+        med = float(((back - x).abs() / x.abs().clamp_min(1e-30)).median())
+        lib = None
+        extra_lib = ""
+        if i == 0:
+            # the yardstick: a cold start, one causal FFT convolution
+            V = x.shape[0]
+            h = torch.as_tensor(ag.lag_impulse_response(a, b, n=V),
+                                dtype=x.dtype, device=dev)
+
+            def fft_conv():
+                n = 2 * V
+                spec = torch.fft.rfft(x, n=n, dim=0) * torch.fft.rfft(
+                    h, n=n)[:, None]
+                return torch.fft.irfft(spec, n=n, dim=0)[:V]
+
+            cold = ag.apply_afterglow(x, a, b)
+            conv = fft_conv()
+            lib = time_ms(fft_conv, 20)
+            cold_ms = time_ms(lambda: ag.apply_afterglow(x, a, b), 50)
+            conv_err = float((conv - cold).abs().max() / cold.abs().max())
+            extra_lib = (f"; cold start {cold_ms:.4f} ms, the FFT "
+                         f"convolution within {conv_err:.3g} of its max")
+            if not conv_err <= 1e-4:
+                fail("the FFT convolution misses K36's cold start")
+        for name, got, ref, t, tp, lib_ms in (
+                ("afterglow_apply", m, want, ms, pms, lib),
+                ("afterglow_correct", back, want_b, ms_c, pms_c, None)):
+            err, big = max_err(got, ref)
+            bitwise = torch.equal(got, ref)
+            report(records, name, err, t, tp, err <= 1e-6 * big,
+                   afterglow_work(x), library_ms=lib_ms,
+                   extra=f" ({label} [{shape}], warm start; bitwise "
+                   f"{bitwise}; max |plain| {big:.4g}"
+                   + (extra_lib if lib_ms is not None else "")
+                   + (f"; round trip {trip:.3g} of the max, median rel "
+                      f"{med:.3g}" if name == "afterglow_correct" else "")
+                   + ")", record=i == 0)
+        if not trip <= 1e-5:
+            fail(f"afterglow apply then correct misses the {label} counts "
+                 f"by {trip:.3g} of their maximum")
+    del cases
+    torch.cuda.empty_cache()
+
+
+def gather_kernel_phase(records, dev):
+    """Phase 3, the gather-rate probe: K38 (table staged in shared memory)
+    and K39 (direct gather) on the JAX tool's case, an 800-entry float32
+    table at 2^20 and 2^24 indices (recorded at 2^24), and K39 on the
+    512^2 int32 label table at 2^24, each bit for bit against its plain
+    twin ``tab[idx]``, beside ``torch.index_select``."""
+    import torch
+
+    from dexct_tpu_torch.tools import bench_gather as bg
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    table = torch.randn(GATHER_TABLE, generator=gen, device=dev)
+    labels = torch.randint(0, 6, (512 * 512,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    cases = []
+    for n_log2 in GATHER_N_LOG2:
+        idx = torch.randint(0, GATHER_TABLE, (1 << n_log2,), generator=gen,
+                            device=dev, dtype=torch.int32)
+        for name in GATHER_KERNELS:
+            cases.append((name, table, idx, f"{GATHER_TABLE} float32, "
+                          f"2^{n_log2}", n_log2 == GATHER_N_LOG2[-1]))
+    big = torch.randint(0, 512 * 512, (1 << 24,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    cases.append(("gather_take", labels, big, "512^2 int32 labels, 2^24",
+                  False))
+    for name, tab, idx, label, record in cases:
+        fn = getattr(bg, name)
+        got, want, ms, pms = compare(lambda: fn(tab, idx),
+                                     lambda: bg.gather_plain(tab, idx), 20)
+        lib = time_ms(lambda: torch.index_select(tab, 0, idx), 20)
+        bitwise = torch.equal(got, want)
+        err = float((got.double() - want.double()).abs().max())
+        gb_s = nbytes(tab, idx, got) / (ms * 1e-3) / 1e9
+        report(records, name, err, ms, pms, bitwise,
+               (nbytes(tab, idx, got), 0), library_ms=lib,
+               extra=f" ({label}; bitwise {bitwise}; {gb_s:.1f} GB/s)",
+               record=record)
+    del cases, big
+    torch.cuda.empty_cache()
+
+
 def timed_stages(stages, t):
     """``stages`` with each apply and correct timed into ``t`` [ms] (host
-    clock between synchronises)."""
+    clock between synchronises); each afterglow stage must launch its
+    kernel (K36 to apply, K37 to correct) exactly once."""
     import torch
 
     from dexct_tpu_torch.pipeline.realism import Stage
+
+    from dexct_tpu_torch.ops import afterglow as ag
 
     def timed(fn, key):
         if fn is None:
             return None
 
         def run(c):
+            n0 = (ag.apply_afterglow.launches, ag.correct_afterglow.launches)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(c)
             torch.cuda.synchronize()
             t[key] = t.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+            n = (ag.apply_afterglow.launches - n0[0],
+                 ag.correct_afterglow.launches - n0[1])
+            if key.startswith("afterglow") and n != ((1, 0) if key.endswith(
+                    "apply") else (0, 1)):
+                fail(f"the {key} stage launched K36, K37 {n} times, not "
+                     "one launch of its kernel")
             return out
         return run
 
@@ -3104,6 +3315,216 @@ def acquisition_modes_path(cfg, spectra, records, smi, dev, gens):
         fail("an acquisition-mode path misses its checks")
 
 
+def gather_probe_path(records, smi):
+    """Phase 4, the gather-rate probe through its entry point
+    (``python -m dexct_tpu_torch.tools.bench_gather``'s ``main``): every
+    probe at 2^24 lookups; K38 and K39 must launch, and no other kernel."""
+    from dexct_tpu_torch.tools import bench_gather
+
+    fns = zero_counters()
+    print(f"gather_probe path (bench_gather.main, 2^24 lookups, {smi}):")
+    probes = bench_gather.main(["--n-log2", "24", "--reps", "20"])
+    check_launches("gather_probe", fns, GATHER_KERNELS, records)
+    if len(probes) < 10 or not all(p["ms"] > 0 for p in probes):
+        fail("the gather probe did not time every probe")
+
+
+def dose_study_readings(mats, sig, bg):
+    """The JAX dose study's readings (tools/dose_study_full.py:103-136) of
+    two realizations' basis images [D, 2, N, N] through the port's
+    analysis: the VMI(70) contrast at the nominal dose, the 70 keV noise at
+    each dose (the std of the difference of the realizations over sqrt 2
+    in the background ROI) and its exponent against dose."""
+    import numpy as np
+
+    from dexct_tpu_torch import analysis
+
+    scales = np.asarray(DOSE_STUDY_SCALES)
+    i_nom = DOSE_STUDY_SCALES.index(1.0)
+    vmi = [[np.asarray(analysis.make_vmi(70.0, m[i, 0], m[i, 1]))
+            for i in range(len(scales))] for m in mats]
+    contrast = float(analysis.contrast(vmi[0][i_nom], sig, bg))
+    noises = [float(np.std(bg.extract((vmi[0][i] - vmi[1][i])
+                                      / np.sqrt(2.0))))
+              for i in range(len(scales))]
+    cnr = float(analysis.cnr(vmi[0][i_nom], sig, bg))
+    p = float(np.polyfit(np.log(scales), np.log(noises), 1)[0])
+    return contrast, cnr, noises, p
+
+
+def sweep_path(records, smi, dev):
+    """Phase 4, the parameter sweeps through the library, twice.  The JAX
+    package's dose study (``tools/dose_study_full.py``): ``dose_sweep``
+    over five doses with compound noise, seeds 17 and 18, read through the
+    port's ``analysis``: the noise-dose exponent within DOSE_EXPONENT_TOL
+    and the VMI(70) contrast within VMI70_CONTRAST_TOL_HU of the committed
+    JAX readings (kernels K1, K2, K3, K5, K6 only).  BASELINE config 5's
+    width: ``dose_sweep`` with no noise at 0.5 and 2.0 (HU images within
+    0.3 HU), ``ramp_sweep`` over sinc ramps 0.3, 0.8, 1.0 (edge sharpness
+    rising, >= 1.3x from 0.3 to 1.0), ``slice_sweep`` over the pelvis, an
+    empty slice and the pelvis rolled by 5 and 21 columns (slice 0 within
+    1e-5 HU of one ``dect_step``, the empty slice below -900 HU) (kernels
+    K1-K4 only).  Then the stages once more: host pack, the shared trace
+    and counts, the points, the copies to the host, and the device's busy
+    share over one more sweep."""
+    import numpy as np
+    import torch
+
+    from dexct_tpu_torch import analysis
+    from dexct_tpu_torch.ops.filters import filter_frequency_response
+    from dexct_tpu_torch.physics import kramers_spectrum, linac_spectrum
+    from dexct_tpu_torch.pipeline import sweep
+    from dexct_tpu_torch.pipeline.fused import dect_step, pack_dect
+    from dexct_tpu_torch.system import FanBeamGeometry, pelvis_phantom
+
+    ref = json.loads((ROOT / "results" / "dose_study_full.json")
+                     .read_text())["cases"]["pelvis/MV-80kV"]
+    exp_ref = ref["vs_dose"]["noise_dose_exponent"]
+    c70_ref = ref["vmi"]["70"]["contrast_hu"]
+
+    def scan(n_ch, n_proj):
+        ct = FanBeamGeometry(N_channels=n_ch, N_proj=n_proj,
+                             gamma_fan=0.8230337, SID=60.0, SDD=100.0,
+                             eid=True)
+        s1 = linac_spectrum()
+        s1.rescale_counts(ct.A_iso * 9.0 / ct.N_proj)
+        s2 = kramers_spectrum(80.0)
+        s2.rescale_counts(ct.A_iso * 1.0 / ct.N_proj)
+        return ct, s1, s2
+
+    ct, s1, s2 = scan(800, 1000)
+    ph = pelvis_phantom(N=512, dx=50.0 / 512)
+    hct, hs1, hs2 = scan(1600, 1440)
+    hph = pelvis_phantom(N=1024, dx=0.05)
+    sig, bg = (analysis.Roi(*r) for r in DOSE_STUDY_ROIS)
+    study = dict(n_iters=12, recon="parallel", recon_n_theta=512,
+                 recon_nt=1600, noise="compound", seed=17)
+    Hs = np.stack([filter_frequency_response(hct.N_channels, hct.dgamma, r,
+                                             "sinc", "fan")[0]
+                   for r in HIGHRES_RAMPS])
+
+    def edge(img):
+        return float((img[img.shape[0] // 2, 1:]
+                      - img[img.shape[0] // 2, :-1]).abs().max())
+
+    for run in (1, 2):
+        fns = zero_counters()
+        st = Stages()
+        arrays, meta = pack_dect(ct, ph, s1, s2, 512, 50.0, 0.8, device=dev,
+                                 **study)
+        st.mark("pack")
+        outs = [sweep.dose_sweep(arrays, meta, DOSE_STUDY_SCALES, seed,
+                                 noise="compound")
+                for seed in DOSE_STUDY_SEEDS]
+        st.mark("two dose sweeps")
+        mats = [o["mat_recons"].cpu().numpy() for o in outs]
+        st.mark("copies to the host")
+        c70, cnr, noises, p = dose_study_readings(mats, sig, bg)
+        st.mark("analysis")
+        print(f"sweep path, dose study (run {run}, {smi}): stages (ms) "
+              + ", ".join(f"{k} {v:.1f}" for k, v in st.t.items()))
+        print(f"  VMI(70) contrast {c70:.3f} HU (JAX {c70_ref:.3f}), CNR "
+              f"{cnr:.4f}; 70 keV noise vs dose {DOSE_STUDY_SCALES}: "
+              + ", ".join(f"{n:.3f}" for n in noises)
+              + f" HU; exponent {p:.4f} (JAX {exp_ref:.4f})")
+        check_launches("sweep (dose study)", fns, SWEEP_PARALLEL_KERNELS,
+                       records)
+        if not (abs(p - exp_ref) <= DOSE_EXPONENT_TOL
+                and abs(c70 - c70_ref) <= VMI70_CONTRAST_TOL_HU):
+            fail("the dose study misses the JAX package's readings")
+        if not all(bool(torch.isfinite(o[k]).all()) for o in outs
+                   for k in o):
+            fail("the dose study gives non-finite values")
+        del outs, arrays
+        torch.cuda.empty_cache()
+
+        fns = zero_counters()
+        st = Stages()
+        harr, hmeta = pack_dect(hct, hph, hs1, hs2, 1024, 50.0, 0.8,
+                                device=dev, n_iters=10, projector="siddon",
+                                recon="fan")
+        st.mark("pack")
+        dose = sweep.dose_sweep(harr, hmeta, [0.5, 2.0], 0, noise="none")
+        st.mark("dose_sweep (2 doses)")
+        ramp = sweep.ramp_sweep(harr, hmeta, Hs)
+        st.mark("ramp_sweep (3 ramps)")
+        base = harr["labels"].cpu().numpy()
+        vol = np.stack([base, np.zeros_like(base), np.roll(base, 5, 1),
+                        np.roll(base, 21, 1)])
+        sl = sweep.slice_sweep(harr, hmeta, vol)
+        st.mark("slice_sweep (4 slices)")
+        single = dect_step(harr, hmeta)
+        st.mark("one dect_step")
+        check_launches("sweep (config 5)", fns, SWEEP_FAN_KERNELS, records)
+        d_hu = float((dose["recon_HU"][0] - dose["recon_HU"][1]).abs().max())
+        edges = [edge(ramp[k, 1]) for k in range(len(HIGHRES_RAMPS))]
+        d_slice = max(float((sl["recon_HU"][i][0] - single["recon_HU"][i])
+                            .abs().max()) for i in range(2))
+        empty = [float(sl["recon_HU"][i][1].mean()) for i in range(2)]
+        print(f"sweep path, config 5 (run {run}, {smi}): stages (ms) "
+              + ", ".join(f"{k} {v:.1f}" for k, v in st.t.items()))
+        print(f"  noiseless doses 0.5 vs 2.0: max |HU difference| "
+              f"{d_hu:.4f}; ramp {HIGHRES_RAMPS} 80 kV edge "
+              + ", ".join(f"{e:.2f}" for e in edges)
+              + f" HU ({edges[-1] / edges[0]:.3f}x); slice 0 vs dect_step "
+              f"{d_slice:.3g} HU; empty slice mean {empty[0]:.1f}, "
+              f"{empty[1]:.1f} HU")
+        if not (d_hu <= 0.3 and edges[0] < edges[1] < edges[2]
+                and edges[2] >= 1.3 * edges[0] and d_slice <= 1e-5
+                and max(empty) < -900.0):
+            fail("the config 5 sweeps miss their checks")
+        del dose, ramp, sl, single
+        torch.cuda.empty_cache()
+
+    # the stages once more, and the device's busy share
+    st = Stages()
+    arrays, meta = pack_dect(ct, ph, s1, s2, 512, 50.0, 0.8, device=dev,
+                             **study)
+    st.mark("pack")
+    sweep._base_counts(arrays, meta, True)
+    st.mark("shared trace and four counts")
+    out = sweep.dose_sweep(arrays, meta, DOSE_STUDY_SCALES, 17,
+                           noise="compound")
+    st.mark("dose_sweep")
+    host = {k: v.cpu() for k, v in out.items()}
+    st.mark("copies to the host")
+    per_point = (st.t["dose_sweep"] - st.t["shared trace and four counts"]) \
+        / len(DOSE_STUDY_SCALES)
+    print(f"  sweep dose study stages (ms, {smi}): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in st.t.items())
+          + f"; per point {per_point:.2f}")
+    print_profiled("sweep dose study (dose_sweep)", lambda: sweep.dose_sweep(
+        arrays, meta, DOSE_STUDY_SCALES, 17, noise="compound"))
+    del out, host, arrays
+    torch.cuda.empty_cache()
+    harr, hmeta = pack_dect(hct, hph, hs1, hs2, 1024, 50.0, 0.8, device=dev,
+                            n_iters=10, projector="siddon", recon="fan")
+    print_profiled("sweep config 5 (slice_sweep, 4 slices)",
+                   lambda: sweep.slice_sweep(harr, hmeta, vol))
+    print_profiled("sweep config 5 (dose_sweep, 2 doses)",
+                   lambda: sweep.dose_sweep(harr, hmeta, [0.5, 2.0], 0,
+                                            noise="none"))
+    del harr
+    torch.cuda.empty_cache()
+
+
+def sweep_devices_phase():
+    """Phase 5: the tiny sweeps of ``dexct_tpu_torch.utils.tiny_cases``
+    (tests/test_sweep.py's 64^2 cylinder: dose on the fan and the parallel
+    grid, ramp, slice) on the CPU and on the card, each output within its
+    SWEEP_TOL (the card tests run the same cases)."""
+    from dexct_tpu_torch.utils import tiny_cases as tc
+
+    for kind in tc.SWEEP_KINDS:
+        c, g = tc.sweep(kind, "cpu"), tc.sweep(kind, "cuda")
+        errs = {k: float((g[k] - c[k]).abs().max()) for k in c}
+        print(f"  sweep {kind}: card vs CPU max abs "
+              + ", ".join(f"{k} {e:.3g} [<= {tc.SWEEP_TOL[k]:g}]"
+                          for k, e in errs.items()))
+        if not all(e <= tc.SWEEP_TOL[k] for k, e in errs.items()):
+            fail(f"tiny sweep {kind} differs between the CPU and the card")
+
+
 def spectral_devices_phase():
     """Phase 5: the tiny spectral paths of ``dexct_tpu_torch.utils.
     tiny_cases`` (photon-counting CT in 2-D and as a cone, kV switching,
@@ -3125,12 +3546,13 @@ def spectral_devices_phase():
 
 
 def counters():
-    from dexct_tpu_torch.ops import (conebeam, dose, fbp_fast, flatpanel,
-                                     fourier, helical_pi, katsevich,
-                                     matdecomp, motion, noisemap,
+    from dexct_tpu_torch.ops import (afterglow, conebeam, dose, fbp_fast,
+                                     flatpanel, fourier, helical_pi,
+                                     katsevich, matdecomp, motion, noisemap,
                                      scatter_physics, siddon, spectral)
     from dexct_tpu_torch.pipeline import gated
     from dexct_tpu_torch.system import analytic
+    from dexct_tpu_torch.tools import bench_gather
 
     return {"siddon_trace": siddon.trace_paths,
             "spectral_counts": spectral.counts_from_paths,
@@ -3167,7 +3589,11 @@ def counters():
             "helical_backproject_motion":
                 motion._helical_backproject_motion,
             "multibin_counts": spectral.counts_from_paths_multibin,
-            "gauss_newton_general": matdecomp._gauss_newton_general}
+            "gauss_newton_general": matdecomp._gauss_newton_general,
+            "afterglow_apply": afterglow.apply_afterglow,
+            "afterglow_correct": afterglow.correct_afterglow,
+            "gather_vmem": bench_gather.gather_vmem,
+            "gather_take": bench_gather.gather_take}
 
 
 def zero_counters():
@@ -5181,8 +5607,8 @@ def main():
                                torch.zeros(1, device=dev))
     torch.cuda.synchronize()
     t2 = time.time()
-    print(f"build: nvcc K1, K3-K13, K15-K27, K29-K33, K35 {t1 - t0:.1f} s, "
-          f"triton K2 {t2 - t1:.1f} s")
+    print(f"build: nvcc K1, K3-K13, K15-K27, K29-K33, K35-K39 "
+          f"{t1 - t0:.1f} s, triton K2 {t2 - t1:.1f} s")
 
     # 3. kernels against their plain versions at the paths' shapes
     from dexct_tpu_torch.pipeline.cone import pack_cone_dect
@@ -5264,6 +5690,8 @@ def main():
         pcd = pcd_setup(tmp, dev, gens)
         spectral_kernel_phase(cfg, pcd, spectra, records, dev)
         torch.cuda.empty_cache()
+        afterglow_kernel_phase(cfg, cone_cfgs["cone"], spectra, records, dev)
+        gather_kernel_phase(records, dev)
 
         # 4. the paths: the CLI's, then the library's
         from dexct_tpu_torch.run import main as run_main
@@ -5361,6 +5789,10 @@ def main():
         torch.cuda.empty_cache()
         acquisition_modes_path(cfg, spectra, records, smi, dev, gens)
         torch.cuda.empty_cache()
+        gather_probe_path(records, smi)
+        torch.cuda.empty_cache()
+        sweep_path(records, smi, dev)
+        torch.cuda.empty_cache()
 
         # 5. every path on both devices
         for label, (flags, config, _) in PATHS.items():
@@ -5376,6 +5808,7 @@ def main():
         realism_devices_phase()
         motion_devices_phase()
         spectral_devices_phase()
+        sweep_devices_phase()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -9,8 +9,8 @@ an in-plane flying focal spot), on parallel-beam configs, as a z-stack of
 slices, on cone-beam, helical, flat-panel and gantry-tilted configs (with
 a z flying focal spot and exact Katsevich helical reconstruction), and with
 the analytic projector, optionally with beam-hardening correction and the
-learned denoiser, through thirty-five hand-written kernels on the card
-(K1-K35, sources in ``csrc/``, ``ops/spectral.py`` and
+learned denoiser, through thirty-nine hand-written kernels on the card
+(K1-K39, sources in ``csrc/``, ``ops/spectral.py`` and
 ``ops/katsevich.py``) with plain PyTorch versions of each on the CPU.  The
 library also offers the helical study reconstructors (every gFDK
 weighting, the cone-parallel PI method), exact 3-D iterative
@@ -21,7 +21,8 @@ dose maps with CTDI, DLP and organ reports, predicted FBP noise maps
 with the kernel-superposition scatter model and its correction, the
 scanner-realism chain, patient motion and gating, spectral
 photon-counting CT (2-D and cone, up to four basis materials and eight
-bins) and the kV-switching, dual-source and dual-layer acquisitions.
+bins), the kV-switching, dual-source and dual-layer acquisitions, and the
+dose, ramp-filter and slice sweeps on one device.
 
 Layer map (as in dexct_tpu):
     physics/   attenuation tables, spectra, detectors, materials, form
@@ -33,16 +34,21 @@ Layer map (as in dexct_tpu):
                (K10-K12, K16, K18, K19), flatpanel (K13), katsevich (K14,
                K15), helical_pi (K5 at 4 taps, K20), fourier's adjoints
                (K21, K22), iterative, onestep, dose (K23, K24), noisemap
-               (K25), scatter_physics (K26, K27), scatter, bhc
+               (K25), scatter_physics (K26, K27), scatter, bhc, afterglow
+               (K36, K37)
     pipeline/  reference-compatible API, fused 2-D, z-stack and cone steps,
-               CLI runner
+               the sweeps, CLI runner
+    analysis/  VMI, ROI metrics, NPS, DE products, QA, registration (host
+               NumPy)
+    compat     the reference's import names
+    tools/     the gather-rate probe (K38, K39)
     learn/     the DnCNN denoiser (inference, cuDNN)
     utils/     output contract, kernel build, the Adam step
 """
 
 __version__ = "0.1.0"
 
-from . import ops, physics, pipeline, system, utils
+from . import analysis, ops, physics, pipeline, system, utils
 from .physics import mixatten
 from .pipeline import get_basismat_sinos, get_recon, get_sino, simulate_dect
 from .system import (
@@ -53,6 +59,7 @@ from .system import (
 )
 
 __all__ = [
+    "analysis",
     "physics",
     "system",
     "ops",

@@ -21,11 +21,18 @@ from .spectralct import (SpectralResult, make_jitted_pcd_cone_step,
                          make_jitted_pcd_step, pack_pcd_spectral,
                          pack_pcd_spectral_cone, simulate_pcd_spectral,
                          simulate_pcd_spectral_cone)
+from .sweep import (dose_sweep, ramp_sweep, sharded_dose_sweep,
+                    slice_sweep, sweep_mesh)
 from .tcm import auto_tcm_profile, simulate_tcm_dect
 from .zstack import (make_jitted_zstack_step, pack_zstack, stack_phantom,
                      zstack_step)
 
 __all__ = [
+    "dose_sweep",
+    "ramp_sweep",
+    "slice_sweep",
+    "sweep_mesh",
+    "sharded_dose_sweep",
     "simulate_kvswitch_dect",
     "simulate_dualsource_dect",
     "gated_fbp_recon",

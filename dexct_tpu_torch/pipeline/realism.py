@@ -115,7 +115,12 @@ def stage_physics_scatter(scatter_sino, *, grid_p=1.0, grid_s=1.0,
 
     def corr(c):
         s = _on(s_est, c)
-        return torch.clamp_min(c / grid_p - (grid_s / grid_p) * s, 0.0)
+        # a tensor divisor: on CUDA, PyTorch divides by a Python scalar as
+        # a product with its reciprocal, which rounds differently
+        gp = torch.as_tensor(grid_p, device=c.device,
+                             dtype=c.dtype if c.is_floating_point()
+                             else torch.float32)
+        return torch.clamp_min(c / gp - (grid_s / grid_p) * s, 0.0)
 
     return Stage("physics_scatter",
                  lambda c: grid_p * c + grid_s * _on(s_true, c),

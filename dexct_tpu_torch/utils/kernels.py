@@ -35,7 +35,7 @@ SOURCES = ("siddon_trace.cu", "gauss_newton.cu", "fan_backproject.cu",
            "analytic_chords.cu", "siddon_trace_3d.cu", "cone_backproject.cu",
            "trilinear_sample.cu", "siddon_trace_stack.cu",
            "siddon_project_3d.cu", "pi_backproject.cu", "dose.cu",
-           "scatter.cu")
+           "scatter.cu", "afterglow.cu", "gather_probe.cu")
 # headers the sources include (hashed with them, compiled through them)
 HEADERS = ("siddon_walk.cuh", "siddon_walk_3d.cuh", "td_window.cuh",
            "scatter_march.cuh")
@@ -161,6 +161,13 @@ _SIGNATURES = {
     # c_r2, inv_hc, inv_mec2; stream
     "dexct_scatter_2d": (_P,) * 17 + (_I,) * 13 + (_F,) * 22 + (_P,),
     "dexct_scatter_3d": (_P,) * 17 + (_I,) * 13 + (_F,) * 22 + (_P,),
+    # in, out, coef (host doubles), k, correct, is_double, V, P, warm,
+    # stream
+    "dexct_afterglow": (_P, _P, _P, _I, _I, _I, _I, _L, _I, _P),
+    # tab, n_tab, idx, out, n, stream
+    "dexct_gather_vmem": (_P, _I, _P, _P, _L, _P),
+    # tab, idx, out, n, stream
+    "dexct_gather_take": (_P, _P, _P, _L, _P),
     # labels, src, dirs, out, n_rays, nx, ny, nz, n_out, z_chunk, x0, y0,
     # x1, y1, dx, dy, eps, n_steps, stream
     "dexct_siddon_trace_stack": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F,

@@ -14,7 +14,9 @@ scan of it through the motion-compensated FBP, the estimators and the
 motion-compensated one-step fit; a gated series; the motion-compensated
 cone and helical reconstructions), and the spectral paths (photon-counting
 CT of the same phantom in 2-D and as a cone, kV switching, dual source
-with cross-scatter and motion, the dual-layer detector).  The card tests
+with cross-scatter and motion, the dual-layer detector), and the
+parameter sweeps on tests/test_sweep.py's 64^2 water cylinder.  The card
+tests
 (``tests/test_torch_cuda.py``) and ``chip_smoke.py``'s phase 5 both run
 them, with the tolerances below.
 """
@@ -33,9 +35,14 @@ __all__ = ["ITERATIVE_PATHS", "ITERATIVE_TOL", "GRADIENT_TOL", "DOSE_KINDS",
            "newton_agreement", "newton_agrees",
            "fourier_plan", "iterative_2d", "onestep_gradient",
            "dose_inputs", "dose", "noise_maps", "scatter", "realism",
-           "motion"]
+           "motion", "SWEEP_KINDS", "SWEEP_TOL", "sweep"]
 
 ITERATIVE_PATHS = ("cg", "sirt", "pwls", "onestep")
+SWEEP_KINDS = ("dose", "dose_parallel", "ramp", "slice")
+# absolute, per output: the pipeline tolerances of
+# tests/test_torch_pipeline.py (HU images 1 HU, basis sinograms and images
+# 1e-3)
+SWEEP_TOL = {"recon_HU": 1.0, "mat_recons": 1e-3, "mat_sinos": 1e-3}
 # of the result's largest value: the adjoints' float32 atomics add in no
 # fixed order, and the loops carry that rounding on
 ITERATIVE_TOL = 1e-3
@@ -494,3 +501,40 @@ def spectral(kind, device):
                                                  device=device)
     return [t.cpu() for pair in (out.sino_log, out.mat_sinos,
                                  out.mat_recons) for t in pair]
+
+
+def sweep(kind, device):
+    """One sweep on tests/test_sweep.py's scan (96 views x 64 channels
+    through a 64^2 water cylinder at 0.35 cm, 12 iterations, 64^2 images
+    over 20 cm), no noise: ``'dose'`` (scales 0.5 and 2.0; K1-K4),
+    ``'dose_parallel'`` (the same on a 96 x 128 parallel grid; K1, K2, K3,
+    K5, K6), ``'ramp'`` (sinc ramps 0.3 and 1.0) or ``'slice'`` (the
+    cylinder, an empty slice and the cylinder rolled by 5 columns).
+    Returns ``{output: tensor}`` (the keys of :data:`SWEEP_TOL` it has) on
+    the CPU."""
+    from ..ops.filters import filter_frequency_response
+    from ..pipeline import sweep as sw
+    from ..pipeline.fused import pack_dect
+    from ..system import FanBeamGeometry, water_cylinder_phantom
+
+    ct = FanBeamGeometry(N_channels=64, N_proj=96, gamma_fan=0.8230337,
+                         SID=60.0, SDD=100.0, eid=True)
+    ph = water_cylinder_phantom(N=64, dx=0.35)
+    s1, s2 = _realism_spectra(ct)
+    par = kind == "dose_parallel"
+    kw = dict(recon="parallel", recon_n_theta=96, recon_nt=128) if par \
+        else {}
+    arrays, meta = pack_dect(ct, ph, s1, s2, 64, 20.0, 0.8, device=device,
+                             n_iters=12, **kw)
+    if kind == "ramp":
+        H = np.stack([filter_frequency_response(ct.N_channels, ct.dgamma,
+                                                r, "sinc", "fan")[0]
+                      for r in (0.3, 1.0)])
+        return {"recon_HU": sw.ramp_sweep(arrays, meta, H).cpu()}
+    if kind == "slice":
+        base = ph.slice_labels()
+        vol = np.stack([base, np.zeros_like(base), np.roll(base, 5, 1)])
+        out = sw.slice_sweep(arrays, meta, vol)
+        return {k: torch.stack(out[k]).cpu() for k in SWEEP_TOL}
+    out = sw.dose_sweep(arrays, meta, [0.5, 2.0], 0, noise="none")
+    return {k: v.cpu() for k, v in out.items()}

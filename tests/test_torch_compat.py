@@ -8,6 +8,11 @@ trace plans' ``trace_group``/``trace_bundle``/``group``, ``par_sym``,
 with them equals the call without, bit for bit, and the JAX function takes
 the same keyword.
 
+The ``compat`` module (the reference's import names): the same names and
+constants, its ``get_*`` entry points and ``do_matdecomp_gn`` against the
+JAX module's (each stage on the JAX stage's own inputs), and the float64
+``optimize_sino_cpu`` to rtol 1e-12.
+
 Tolerances: the steps as in tests/test_pipeline.py (sino_raw rtol 1e-4,
 sino_log atol 1e-4, mat_sinos and mat_recons atol 1e-3, recon_raw atol
 1e-4, recon_HU atol 1 HU); ``mono_sinogram`` rtol 1e-6; the checkpoint
@@ -22,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from dexct_tpu import compat as j_compat
 from dexct_tpu.learn import denoiser_io as j_io
 from dexct_tpu.ops import siddon as j_siddon
 from dexct_tpu.physics import kramers_spectrum, linac_spectrum
@@ -29,6 +35,7 @@ from dexct_tpu.pipeline import cone as j_cone
 from dexct_tpu.pipeline import fused as j_fused
 from dexct_tpu.system import (ConeBeamGeometry, FanBeamGeometry,
                               water_cylinder_phantom)
+from dexct_tpu_torch import compat as t_compat
 from dexct_tpu_torch.learn import denoiser_io as t_io
 from dexct_tpu_torch.ops import siddon as t_siddon
 from dexct_tpu_torch.pipeline import cone as t_cone
@@ -340,3 +347,71 @@ def test_pack_cone_dect_layout_keywords(kw):
     b, n = t_cone.pack_cone_dect(*args, device="cpu", **kw)
     _same_arrays(a, b)
     assert m == n
+
+
+def test_compat_names_match_jax():
+    assert t_compat.__all__ == j_compat.__all__
+    for name in ("mat1", "matcomp1", "density1", "mat2", "matcomp2",
+                 "density2"):
+        assert getattr(t_compat, name) == getattr(j_compat, name)
+
+
+@pytest.fixture(scope="module")
+def compat_scan():
+    """The JAX compat entry points on the small fan: (inputs, outputs)."""
+    ct, ph, s1, s2 = _fan()
+    raw1, log1 = j_compat.get_sino(ct, ph, s1)
+    raw2, _ = j_compat.get_sino(ct, ph, s2)
+    return (ct, ph, s1, s2), {
+        "raw": (np.asarray(raw1), np.asarray(raw2)),
+        "log": np.asarray(log1),
+        "recon": tuple(np.asarray(x) for x in j_compat.get_recon(
+            log1, ct, s1, 48, 24.0, 0.8)),
+        "mats": tuple(np.asarray(x) for x in j_compat.get_basismat_sinos(
+            ct, raw1, raw2, s1, s2, n_iters=20)),
+        "gn": j_compat.do_matdecomp_gn(ct, raw1, raw2, s1, s2, 20)}
+
+
+@pytest.mark.parametrize("stage", ["get_sino", "get_recon",
+                                   "get_basismat_sinos", "do_matdecomp_gn"])
+def test_compat_entry_points_match_jax(compat_scan, stage):
+    (ct, ph, s1, s2), want = compat_scan
+    raw = [torch.as_tensor(np.array(x)) for x in want["raw"]]
+    if stage == "get_sino":
+        got_raw, got_log = t_compat.get_sino(ct, ph, s1, device="cpu")
+        np.testing.assert_allclose(got_raw.numpy(), want["raw"][0],
+                                   **TOL["sino_raw"])
+        np.testing.assert_allclose(got_log.numpy(), want["log"],
+                                   **TOL["sino_log"])
+    elif stage == "get_recon":
+        rec, hu = t_compat.get_recon(torch.as_tensor(want["log"]), ct, s1,
+                                     48, 24.0, 0.8)
+        np.testing.assert_allclose(rec.numpy(), want["recon"][0],
+                                   **TOL["recon_raw"])
+        np.testing.assert_allclose(hu.numpy(), want["recon"][1],
+                                   **TOL["recon_HU"])
+    elif stage == "get_basismat_sinos":
+        for g, w in zip(t_compat.get_basismat_sinos(ct, *raw, s1, s2,
+                                                    n_iters=20),
+                        want["mats"]):
+            np.testing.assert_allclose(g.numpy(), w, **TOL["mat_sinos"])
+    else:
+        got = t_compat.do_matdecomp_gn(ct, *raw, s1, s2, 20)
+        assert isinstance(got, np.ndarray) and got.shape == (48, 64, 2)
+        np.testing.assert_allclose(got, want["gn"], **TOL["mat_sinos"])
+
+
+def test_optimize_sino_cpu_matches_jax(compat_scan):
+    """The port's own copy of the float64 NumPy solve, to rtol 1e-12, on
+    the reference's channel-tiled fluence layout [nMeas, nBins, nE]."""
+    from dexct_tpu.ops.matdecomp import prepare_decomposition
+
+    (ct, _, s1, s2), want = compat_scan
+    ee, i0, mus = prepare_decomposition(ct, s1, s2)
+    g = np.stack(want["raw"])[:, ::4]  # every 4th view: 12 x 64 rays
+    i0_tiled = np.repeat(np.asarray(i0)[:, None, :], g.shape[2], 1)
+    for fluence in (i0, i0_tiled):
+        out = t_compat.optimize_sino_cpu(g, ee, fluence, mus, 10)
+        ref = j_compat.optimize_sino_cpu(g, ee, fluence, mus, 10)
+        assert out.shape == (12, 64, 2)
+        np.testing.assert_allclose(out, ref, rtol=1e-12, atol=0)

@@ -1,4 +1,4 @@
-"""Hand-written kernels K1-K35 against their plain PyTorch versions, on the
+"""Hand-written kernels K1-K39 against their plain PyTorch versions, on the
 card.
 
 Every test here needs a CUDA device and skips without one.  This file
@@ -1498,3 +1498,109 @@ def test_spectral_paths_cuda_match_cpu(dev, kind):
     for g, w in zip(got, want):
         big = float(w.abs().max())
         assert float((g - w).abs().max()) <= tiny_cases.SPECTRAL_TOL * big
+
+
+# --- K36/K37: the afterglow recursion; K38/K39: the gather probe ---------
+
+AFTERGLOW_TRAPS = {1: ([0.06], [2.0]), 2: ([0.05, 0.02], [2.0, 20.0]),
+                   3: ([0.04, 0.02, 0.01], [1.0, 6.0, 40.0]),
+                   8: ([0.01] * 8, [0.5, 1, 2, 4, 8, 16, 32, 64])}
+
+
+def _afterglow_case(dev, k, shape, dtype, seed):
+    from dexct_tpu_torch.ops.afterglow import decay_per_view
+
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(1e3, 1e5, shape)
+    x[shape[0] // 3:] *= 0.05  # an air -> object edge along the views
+    a, tau = AFTERGLOW_TRAPS[k]
+    return (torch.as_tensor(x, dtype=dtype, device=dev), a,
+            decay_per_view(tau, 1.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(1000, 96), (90, 4, 40)])
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("k", [1, 2, 3, 8])
+def test_afterglow_kernels_match_plain(dev, k, warm, shape, dtype):
+    """K36 and K37 against their plain twins on the card, within 1e-6 of
+    the maximum (the same operations in the same order, but torch.sum on
+    the card may add three or more traps in another order; two traps, the
+    JAX model's, bit for bit); the pair round-trips."""
+    from dexct_tpu_torch.ops import afterglow as ag
+
+    x, a, b = _afterglow_case(dev, k, shape, dtype, seed=k)
+    n_apply, n_correct = ag.apply_afterglow.launches, \
+        ag.correct_afterglow.launches
+    m = ag.apply_afterglow(x, a, b, warm_start=warm)
+    back = ag.correct_afterglow(m, a, b, warm_start=warm)
+    torch.cuda.synchronize()
+    assert (ag.apply_afterglow.launches, ag.correct_afterglow.launches) \
+        == (n_apply + 1, n_correct + 1)
+    assert m.dtype == dtype and m.shape == shape
+    want_m = ag.apply_afterglow_plain(x, a, b, warm_start=warm)
+    want_back = ag.correct_afterglow_plain(m, a, b, warm_start=warm)
+    for got, want in ((m, want_m), (back, want_back)):
+        assert float((got - want).abs().max()) <= 1e-6 * float(
+            want.abs().max())
+    if k <= 2:
+        assert torch.equal(m, want_m) and torch.equal(back, want_back)
+    assert float(((back - x) / x).abs().max()) <= 1e-5
+
+
+def test_afterglow_plain_correction_divides_as_the_cpu(dev):
+    """The plain correct_afterglow divides by a tensor gain: on the card
+    it equals its CPU result bit for bit (a Python-scalar divisor would
+    run as a product with its reciprocal there)."""
+    from dexct_tpu_torch.ops import afterglow as ag
+
+    x, a, b = _afterglow_case("cpu", 2, (96, 64), torch.float32, seed=7)
+    m = ag.apply_afterglow_plain(x, a, b)
+    want = ag.correct_afterglow_plain(m, a, b)
+    got = ag.correct_afterglow_plain(m.to(dev), a, b)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_physics_scatter_correction_divides_as_the_cpu(dev):
+    from dexct_tpu_torch.pipeline.realism import stage_physics_scatter
+
+    rng = np.random.default_rng(8)
+    c = torch.as_tensor(rng.uniform(1e3, 1e5, (96, 64)), dtype=torch.float32)
+    s = torch.as_tensor(rng.uniform(0, 1e3, (96, 64)), dtype=torch.float32)
+    stage = stage_physics_scatter(s, grid_p=0.7, grid_s=0.3)
+    assert torch.equal(stage.correct(c.to(dev)).cpu(), stage.correct(c))
+
+
+@pytest.mark.parametrize("n_tab,dtype", [(800, torch.float32),
+                                         (512 * 512, torch.int32),
+                                         (12288, torch.float32)])
+def test_gather_kernels_match_plain_bit_for_bit(dev, n_tab, dtype):
+    from dexct_tpu_torch.tools import bench_gather as bg
+
+    gen = torch.Generator(device=dev).manual_seed(n_tab)
+    if dtype == torch.int32:
+        tab = torch.randint(0, 6, (n_tab,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    else:
+        tab = torch.randn(n_tab, generator=gen, device=dev)
+    idx = torch.randint(0, n_tab, (1 << 20,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    idx[:2] = torch.tensor([0, n_tab - 1], device=dev)
+    want = bg.gather_plain(tab, idx)
+    fns = [bg.gather_take] + ([bg.gather_vmem]
+                              if n_tab <= bg.MAX_VMEM_WORDS else [])
+    for fn in fns:
+        before = fn.launches
+        got = fn(tab, idx)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", tiny_cases.SWEEP_KINDS)
+def test_sweeps_cuda_match_cpu(dev, kind):
+    got = tiny_cases.sweep(kind, dev)
+    want = tiny_cases.sweep(kind, "cpu")
+    for name, w in want.items():
+        err = float((got[name] - w).abs().max())
+        assert err <= tiny_cases.SWEEP_TOL[name], name

@@ -25,9 +25,11 @@ of JAX.  Phases, each of which raises on failure:
    K3 once more on each 3-D config's own [V, R, C, M] paths and counts,
    timed apart, and K10 on the helical rays.  The stateless 3-D paths: K13
    on the flat-panel config, K16 (and K11 on its enlarged 258^2 x 60
-   gantry grid) on the 15-degree tilted config, K12 with the z flying focal
-   spot's nonzero row offsets at pitch 0 on the z-FFS cone config, and K14
-   and K15 on the helical config's Katsevich chain (14 slices).  K17 at the
+   gantry grid) on the 15-degree tilted config (K16 bitwise its plain
+   version, allocating nothing beyond its output, timed at four block
+   widths), K12 with the z flying focal spot's nonzero row offsets at
+   pitch 0 on the z-FFS cone config, and K14 and K15 on the helical
+   config's Katsevich chain (14 slices).  K17 at the
    JAX package's z-stack workload (1000 x 800 rays through 8 slices of the
    512^2 pelvis, rolled), also bitwise against K1 on each slice (K1 over
    the 8 slices is its yardstick); K5 at 16 taps on the in-plane FFS plan
@@ -39,7 +41,9 @@ of JAX.  Phases, each of which raises on failure:
    every tenth view; K5 at 4 taps and K20 (the PI method) on the helical
    config's 60 keV sinogram.  K21 and K22 (the adjoints of K7 and K8) at
    the reference protocol's Fourier plan, each also against its forward
-   kernel through the dot-product identity, then the whole projector's
+   kernel through the dot-product identity (K22 over the plan's transposed
+   taps, whose build time is printed, two launches bitwise equal, and read
+   against the CPU's index_add_), then the whole projector's
    <A x, y> = <x, A^T y>; K23 (the 2-D dose map) on input/params.txt's 80
    kV scan at every 10th view, K24 (the 3-D one) on the cone and helical
    configs at every 30th and 60th view.  K25 (the variance backprojection)
@@ -246,7 +250,9 @@ KERNELS = {
                               "max abs <= 1e-4 x max |plain|"),
     "trilinear_sample": ("cuda", "dexct_tpu_torch/csrc/trilinear_sample.cu",
                          "dexct_tpu/ops/conebeam.py:778",
-                         "max abs <= 1e-5 x max |plain|"),
+                         "bitwise equal to the plain version (within max "
+                         "abs <= 1e-5 x max |plain|); no allocation beyond "
+                         "the output"),
     "siddon_trace_stack": ("cuda",
                            "dexct_tpu_torch/csrc/siddon_trace_stack.cu",
                            "dexct_tpu/ops/siddon_fast.py:827",
@@ -271,7 +277,8 @@ KERNELS = {
                                 "dexct_tpu_torch/csrc/gather_taps.cu",
                                 "dexct_tpu/ops/fourier.py:397",
                                 "max abs <= 1e-5 x max |plain|; <K8 r, y> = "
-                                "<r, K22 y> to rel 1e-5"),
+                                "<r, K22 y> to rel 1e-5; two launches "
+                                "bitwise equal"),
     "dose_map": ("cuda", "dexct_tpu_torch/csrc/dose.cu",
                  "dexct_tpu/ops/dose.py:184",
                  "max abs <= 1e-4 x max |plain|; deposited rel 1e-4"),
@@ -733,6 +740,34 @@ def time_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, calls=20, reps=5):
+    """Device time of one call of ``fn`` in ms, without the host's time:
+    ``calls`` calls captured in one CUDA graph, replayed ``reps`` times
+    between CUDA events (after a warm-up call on a side stream)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * calls)
+    del graph
+    return ms
 
 
 def compare(kernel_fn, plain_fn, reps, plain_reps=None):
@@ -1347,6 +1382,24 @@ def tilted_kernel_phase(ccfg, stack, records):
     print(f"  fdk_backproject on the tilted gantry grid ({n_g}^2 x {nz_g}): "
           f"kernel={k11:.4f} ms")
     idx = conebeam._tilted_indices(tau, N, fov, R, dz, q.device)
+    # what the wrapper allocates: the output and nothing else (no index
+    # copy), not even for a moment; the bytes requested of the caching
+    # allocator, which may hand out a larger cached block
+    def requested(which):
+        return torch.cuda.memory_stats()[f"requested_bytes.all.{which}"]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = requested("current")
+    out = conebeam._trilinear_volume_sample(vols, *idx)
+    torch.cuda.synchronize()
+    extra = requested("current") - mem0 - nbytes(out)
+    peak = requested("peak") - mem0 - nbytes(out)
+    print(f"  trilinear_sample allocates {extra} B beyond its "
+          f"{nbytes(out)} B output, {peak} B at its peak [0]")
+    if extra or peak:
+        fail("K16's wrapper allocates beyond its output (an index copy)")
+    del out
     out, want, ms, pms = compare(
         lambda: conebeam._trilinear_volume_sample(vols, *idx),
         lambda: conebeam._trilinear_volume_sample_plain(vols, *idx), reps=5)
@@ -1362,6 +1415,9 @@ def tilted_kernel_phase(ccfg, stack, records):
                              padding_mode="zeros", align_corners=True)[0]
 
     lib_err = float((library() - want).abs().max())
+    dev_ms = graph_ms(lambda: conebeam._trilinear_volume_sample(vols, *idx))
+    print(f"  trilinear_sample device time (CUDA graph of 20 calls): "
+          f"{dev_ms:.4f} ms; grid_sample {graph_ms(library):.4f} ms")
     # the gantry cells the function needs: the eight corners of every
     # point's stencil (the rotated patient slab covers part of the grid)
     corner = [torch.clamp(torch.floor(t.expand(shape)), 0, n - 2).long()
@@ -1370,13 +1426,13 @@ def tilted_kernel_phase(ccfg, stack, records):
     cells = torch.unique(torch.cat([
         ((corner[0] + a) * n_g + corner[1] + b) * n_g + corner[2] + c
         for a in (0, 1) for b in (0, 1) for c in (0, 1)])).numel()
-    report(records, "trilinear_sample", err, ms, pms, err <= 1e-5 * big,
+    report(records, "trilinear_sample", err, ms, pms, err == 0.0,
            (4 * vols.shape[0] * cells + nbytes(*idx, out),
             out.numel() * 40),
            library_ms=time_ms(library, 5),
-           extra=f" (max |plain| {big:.6g}; {nz_g} x {n_g}^2 -> {R} x {N}^2,"
-                 f" {cells} of {vols[0].numel()} cells touched; library err "
-                 f"{lib_err:.3g})")
+           extra=f" (bitwise; max |plain| {big:.6g}; {nz_g} x {n_g}^2 -> "
+                 f"{R} x {N}^2, {cells} of {vols[0].numel()} cells touched; "
+                 f"library err {lib_err:.3g})")
 
 
 def zffs_kernel_phase(ccfg, stack):
@@ -4470,12 +4526,30 @@ def fourier_adjoint_kernel_phase(cfg, records, dev):
         vs = (cfg.ct.N_proj, cfg.ct.N_channels)
         radon_shape = (M, plan.n_theta, plan.nt)
         y = torch.randn(vs + (M,), generator=gen, device=dev)
+        # the plan's transposed taps, built once (host clock, synchronised)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fan_t = fourier.fan_transpose(plan)
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
         r_adj, want, ms, pms = compare(
             lambda: fourier.resample_to_fan_adjoint(
-                y, plan.fan_idx, plan.fan_w, radon_shape),
+                y, plan.fan_idx, plan.fan_w, radon_shape, fan_t=fan_t),
             lambda: fourier.resample_to_fan_adjoint_plain(
                 y, plan.fan_idx, plan.fan_w, radon_shape), reps=5)
         err, big = max_err(r_adj, want)
+        again = fourier.resample_to_fan_adjoint(
+            y, plan.fan_idx, plan.fan_w, radon_shape, fan_t=fan_t)
+        if not torch.equal(again, r_adj):
+            fail("two launches of K22 differ")
+        per_call_ms = time_ms(lambda: fourier.resample_to_fan_adjoint(
+            y, plan.fan_idx, plan.fan_w, radon_shape), 3)
+        dev_ms = graph_ms(lambda: fourier.resample_to_fan_adjoint(
+            y, plan.fan_idx, plan.fan_w, radon_shape, fan_t=fan_t))
+        cpu = fourier.resample_to_fan_adjoint_plain(
+            y.cpu(), plan.fan_idx.cpu(), plan.fan_w.cpu(), radon_shape)
+        same_as_cpu = torch.equal(r_adj.cpu(), cpu)
+        del cpu
         r = torch.randn(radon_shape, generator=gen, device=dev)
         lhs = float((fourier.resample_to_fan(r, plan.fan_idx, plan.fan_w,
                                              vs + (M,)).double()
@@ -4492,6 +4566,13 @@ def fourier_adjoint_kernel_phase(cfg, records, dev):
         ycol = y.reshape(n_rays, M)
         lib_err = float((torch.sparse.mm(Wt, ycol).T.reshape(radon_shape)
                          - want).abs().max())
+        print(f"  resample_to_fan_adjoint ({label}): transpose built in "
+              f"{build_ms:.3f} ms (host clock; row_ptr {nbytes(fan_t[0])} B, "
+              f"ray and w {nbytes(*fan_t[1:])} B), K22's device time "
+              f"{dev_ms:.4f} ms (CUDA graph of 20 calls), with a transpose "
+              f"built per call {per_call_ms:.4f} ms; two launches bitwise "
+              f"equal; bit-equal to the CPU index_add_: "
+              f"{'yes' if same_as_cpu else 'no'}")
         report(records, "resample_to_fan_adjoint", err, ms, pms,
                err <= 1e-5 * big and ident <= 1e-5,
                (nbytes(y, plan.fan_idx, plan.fan_w, r_adj), n_rays * M * 8),

@@ -95,7 +95,13 @@ def parker_weights(geometry):
 
 
 def hu_image(recon_raw, mu_water_eff):
-    """cm^-1 -> Hounsfield units (formula pinned at plots.py:140-143)."""
+    """cm^-1 -> Hounsfield units (formula pinned at plots.py:140-143).  A
+    Python or NumPy scalar ``mu_water_eff`` enters as a tensor of the
+    image's dtype on its device, as in ``spectral.log_sinogram``."""
+    if not isinstance(mu_water_eff, torch.Tensor):
+        mu_water_eff = torch.full((), float(mu_water_eff),
+                                  dtype=recon_raw.dtype,
+                                  device=recon_raw.device)
     return 1000.0 * (recon_raw - mu_water_eff) / mu_water_eff
 
 

@@ -19,7 +19,9 @@ The projector of images (:func:`fourier_project_images`) is
 differentiable: the backward passes of steps 2 and 4 are their adjoints
 (:func:`kb_sample_adjoint`, K21, and :func:`resample_to_fan_adjoint`, K22,
 on the card), where the JAX package transposes them with
-``jax.linear_transpose`` and ``jax.grad``.
+``jax.linear_transpose`` and ``jax.grad``.  K22 gathers over the fan taps
+transposed into a CSR over the Radon bins, built once per plan on the
+plan's device (:func:`fan_transpose`).
 
 Accuracy is set by the KB gridding parameters (oversampling σ=2, W=4:
 ~1e-3 relative).  The host part (KB kernel, plan tables) is the JAX
@@ -55,6 +57,8 @@ __all__ = [
     "kb_sample_adjoint_plain",
     "resample_to_fan_adjoint",
     "resample_to_fan_adjoint_plain",
+    "fan_transpose",
+    "plan_fan_adjoint",
 ]
 
 
@@ -137,6 +141,9 @@ class FourierProjectorPlan:
     fan_idx: torch.Tensor  # [V*C, 4] int32 into flat [nθ * nt]
     fan_w: torch.Tensor  # [V*C, 4] float32
     scale: float
+    # the fan taps transposed, (row_ptr, ray, w): built by fan_transpose at
+    # the adjoint's first use
+    fan_t: tuple | None = None
 
 
 def plan_fourier_projector(phantom, geometry, n_theta=1024, *, device):
@@ -506,32 +513,67 @@ def resample_to_fan_adjoint_plain(values, fan_idx, fan_w, radon_shape):
     return table.reshape(radon_shape)
 
 
-def _resample_to_fan_adjoint_cuda(values, fan_idx, fan_w, radon_shape):
+def _transpose_taps(fan_idx, fan_w, n_bins):
+    """The fan taps as a CSR over the Radon bins, in plain PyTorch on their
+    device: ``(row_ptr [n_bins + 1] int32, ray [n_taps] int32, w [n_taps]
+    float32)``, each bin's taps in the stable (bin, ray * 4 + tap) order
+    (the order in which ``index_add_`` on the CPU visits them), the tap
+    indices clamped into the bins as K8 clamps them."""
+    bins = fan_idx.reshape(-1).to(torch.int64).clamp(0, n_bins - 1)
+    if bins.numel() >= 2 ** 31:
+        raise ValueError(f"{bins.numel()} fan taps do not fit int32 "
+                         "offsets")
+    order = torch.sort(bins, stable=True).indices
+    row_ptr = torch.zeros(n_bins + 1, dtype=torch.int32, device=bins.device)
+    row_ptr[1:] = torch.cumsum(torch.bincount(bins, minlength=n_bins), 0)
+    ray = torch.div(order, 4, rounding_mode="floor").to(torch.int32)
+    return row_ptr, ray, fan_w.reshape(-1)[order].to(torch.float32)
+
+
+def fan_transpose(plan: FourierProjectorPlan):
+    """The plan's fan taps transposed (see :func:`_transpose_taps`), built
+    on the plan's device at the first call and kept on the plan: K22's
+    table.  The forward projector never needs it."""
+    if plan.fan_t is None:
+        plan.fan_t = _transpose_taps(plan.fan_idx, plan.fan_w,
+                                     plan.n_theta * plan.nt)
+    return plan.fan_t
+
+
+def _resample_to_fan_adjoint_cuda(values, fan_idx, fan_w, radon_shape,
+                                  fan_t):
     dev = values.device
     m = radon_shape[0]
     n_rays = fan_idx.numel() // 4
+    n_bins = radon_shape[1] * radon_shape[2]
+    if fan_t is None:
+        fan_t = _transpose_taps(fan_idx, fan_w, n_bins)
     g = kernels.require(values.reshape(n_rays, m), "values", dev,
                         torch.float32)
-    idx = kernels.require(fan_idx.reshape(-1, 4), "fan_idx", dev,
-                          torch.int32, (n_rays, 4))
-    w = kernels.require(fan_w.reshape(-1, 4), "fan_w", dev, torch.float32,
-                        (n_rays, 4))
-    n_src = radon_shape[1] * radon_shape[2]
-    out = torch.zeros((m, n_src), dtype=torch.float32, device=dev)
+    row_ptr = kernels.require(fan_t[0], "fan_t row_ptr", dev, torch.int32,
+                              (n_bins + 1,))
+    ray = kernels.require(fan_t[1], "fan_t ray", dev, torch.int32,
+                          (4 * n_rays,))
+    w = kernels.require(fan_t[2], "fan_t w", dev, torch.float32,
+                        (4 * n_rays,))
+    out = torch.empty((m, n_bins), dtype=torch.float32, device=dev)
     rc = kernels.library().dexct_resample_to_fan_adjoint(
-        g.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(), n_rays,
-        m, n_src, kernels.stream_ptr(dev))
+        g.data_ptr(), row_ptr.data_ptr(), ray.data_ptr(), w.data_ptr(),
+        out.data_ptr(), n_bins, m, kernels.stream_ptr(dev))
     kernels.check(rc, "resample_to_fan_adjoint")
     resample_to_fan_adjoint.launches += 1
     return out.reshape(radon_shape)
 
 
-def resample_to_fan_adjoint(values, fan_idx, fan_w, radon_shape):
+def resample_to_fan_adjoint(values, fan_idx, fan_w, radon_shape, *,
+                            fan_t=None):
     """The adjoint of :func:`resample_to_fan`: fan values [V, C, M] (or
     [V*C, M]) -> Radon-transform gradient ``radon_shape`` = (M, nθ, nt).
-    CUDA tensors run kernel K22 (float32 atomic adds, counted in
-    ``resample_to_fan_adjoint.launches``); CPU tensors run
-    :func:`resample_to_fan_adjoint_plain`."""
+    CUDA tensors run kernel K22 (counted in
+    ``resample_to_fan_adjoint.launches``), a gather over the transposed
+    taps ``fan_t`` (:func:`fan_transpose` of the plan; built for this call
+    when absent); CPU tensors run :func:`resample_to_fan_adjoint_plain`,
+    which needs no ``fan_t``."""
     radon_shape = tuple(int(n) for n in radon_shape)
     if (fan_w.numel() != fan_idx.numel()
             or values.numel() != fan_idx.numel() // 4 * radon_shape[0]):
@@ -539,7 +581,7 @@ def resample_to_fan_adjoint(values, fan_idx, fan_w, radon_shape):
                          f"{tuple(values.shape)} do not fit {radon_shape}")
     if values.is_cuda:
         return _resample_to_fan_adjoint_cuda(values, fan_idx, fan_w,
-                                             radon_shape)
+                                             radon_shape, fan_t)
     if values.device.type != "cpu":
         raise ValueError(f"unsupported device {values.device}")
     return resample_to_fan_adjoint_plain(values, fan_idx, fan_w, radon_shape)
@@ -548,22 +590,29 @@ def resample_to_fan_adjoint(values, fan_idx, fan_w, radon_shape):
 resample_to_fan_adjoint.launches = 0
 
 
+def plan_fan_adjoint(plan: FourierProjectorPlan, values, radon_shape):
+    """:func:`resample_to_fan_adjoint` over the plan's fan taps: on the
+    card K22 reads the plan's cached transpose (:func:`fan_transpose`,
+    built at the first call), on the CPU the plain version needs none."""
+    fan_t = fan_transpose(plan) if values.is_cuda else None
+    return resample_to_fan_adjoint(values, plan.fan_idx, plan.fan_w,
+                                   radon_shape, fan_t=fan_t)
+
+
 class _ResampleToFan(torch.autograd.Function):
-    """The fan resample (K8) with its adjoint (K22) as the backward
+    """The plan's fan resample (K8) with its adjoint (K22) as the backward
     pass."""
 
     @staticmethod
-    def forward(ctx, radon, fan_idx, fan_w, out_shape):
-        ctx.save_for_backward(fan_idx, fan_w)
+    def forward(ctx, radon, plan, out_shape):
+        ctx.plan = plan
         ctx.radon_shape = tuple(radon.shape)
-        return resample_to_fan(radon, fan_idx, fan_w, out_shape)
+        return resample_to_fan(radon, plan.fan_idx, plan.fan_w, out_shape)
 
     @staticmethod
     def backward(ctx, grad):
-        fan_idx, fan_w = ctx.saved_tensors
-        g = resample_to_fan_adjoint(grad.contiguous(), fan_idx, fan_w,
-                                    ctx.radon_shape)
-        return g, None, None, None
+        g = plan_fan_adjoint(ctx.plan, grad.contiguous(), ctx.radon_shape)
+        return g, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -625,7 +674,7 @@ def fourier_project_images(plan: FourierProjectorPlan, images, view_shape):
     resample and of the sampler (K22, K21 on the card) and differentiates
     the FFT steps natively."""
     radon = fourier_radon(plan, images)
-    return _ResampleToFan.apply(radon, plan.fan_idx, plan.fan_w,
+    return _ResampleToFan.apply(radon, plan,
                                 tuple(view_shape) + (images.shape[0],))
 
 

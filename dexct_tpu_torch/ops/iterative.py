@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from .fourier import (FourierProjectorPlan, fourier_project_images,
-                      kb_sample_adjoint, resample_to_fan_adjoint)
+                      kb_sample_adjoint, plan_fan_adjoint)
 
 __all__ = ["make_projection_operator", "cg_recon", "sirt_recon",
            "pwls_recon", "pwls_weights"]
@@ -58,7 +58,8 @@ def make_projection_operator(plan: FourierProjectorPlan, view_shape):
 def _projection_adjoint(plan: FourierProjectorPlan, view_shape):
     """A^T(y): [V, C] sinogram -> [N, N] image, the exact adjoint of
     :func:`make_projection_operator` taken stage by stage in reverse: the
-    fan resample's adjoint (K22), the scale, the adjoint of the radial
+    fan resample's adjoint (K22, over the plan's cached transposed taps on
+    the card), the scale, the adjoint of the radial
     ``irfft`` at n = nt (an ``rfft`` / nt of which the nl = G/2 + 1 bins
     are kept, bins 1..nl-1 weighted twice for their conjugate halves and
     the imaginary part of DC dropped), the sampler's adjoint (K21, the
@@ -71,8 +72,8 @@ def _projection_adjoint(plan: FourierProjectorPlan, view_shape):
     half = n // 2
 
     def adjoint(y):
-        radon = resample_to_fan_adjoint(y.reshape(v, c, 1), plan.fan_idx,
-                                        plan.fan_w, (1, plan.n_theta, nt))
+        radon = plan_fan_adjoint(plan, y.reshape(v, c, 1),
+                                 (1, plan.n_theta, nt))
         spec = torch.fft.rfft(radon * plan.scale, dim=-1)[..., :nl] / nt
         spec = torch.cat([spec[..., :1].real.to(spec.dtype),
                           2.0 * spec[..., 1:]], -1)

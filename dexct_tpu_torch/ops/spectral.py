@@ -473,8 +473,16 @@ counts_from_paths.launches = 0
 
 
 def log_sinogram(counts, air_counts):
-    """Log-normalized line-integral sinogram: -ln(counts / air)."""
+    """Log-normalized line-integral sinogram: -ln(counts / air).  A
+    Python or NumPy scalar ``air_counts`` divides as a 0-d tensor of the
+    counts' dtype on their device: on CUDA, PyTorch divides by a Python
+    scalar as a product with its reciprocal, which rounds differently.
+    The tensor is filled on the device (``torch.full``), not copied from
+    the host, which would synchronise the stream."""
     c = torch.clamp_min(counts, 1e-30)
+    if not isinstance(air_counts, torch.Tensor):
+        air_counts = torch.full((), float(air_counts), dtype=c.dtype,
+                                device=c.device)
     return -torch.log(c / air_counts)
 
 

@@ -71,14 +71,6 @@ def _point_generator(seed, index, device):
     return torch.Generator(device=device).manual_seed(point_seed)
 
 
-def _log(counts, air):
-    # the air count as a tensor: on CUDA, PyTorch divides by a Python
-    # scalar as a product with its reciprocal, which rounds differently
-    return sp_ops.log_sinogram(
-        counts, torch.as_tensor(air, dtype=counts.dtype,
-                                device=counts.device))
-
-
 def _hu_pair(imgs, meta):
     return torch.stack([hu_image(imgs[0], meta.mu_w1),
                         hu_image(imgs[1], meta.mu_w2)])
@@ -107,8 +99,8 @@ def dose_sweep(arrays, meta: DectMeta, dose_scales, key=0, *,
                                  var=None if v1_base is None else v1_base * s)
         c2 = sp_ops.sample_noise(gen, c2_base * s, noise,
                                  var=None if v2_base is None else v2_base * s)
-        log1 = _log(c1, air[0] * np.float32(s))
-        log2 = _log(c2, air[1] * np.float32(s))
+        log1 = sp_ops.log_sinogram(c1, air[0] * np.float32(s))
+        log2 = sp_ops.log_sinogram(c2, air[1] * np.float32(s))
         mat1, mat2 = decompose_counts(
             c1, c2, dict(arrays, dec_i0=arrays["dec_i0"] * s), meta,
             meta.pixel_block)
@@ -130,8 +122,8 @@ def ramp_sweep(arrays, meta: DectMeta, ramps_H, *, window="sinc"):
     Returns recon_HU [K, 2, N, N]."""
     del window
     c1, c2, _, _ = _base_counts(arrays, meta, False)
-    sinos = torch.stack([_log(c1, np.float32(meta.air1)),
-                         _log(c2, np.float32(meta.air2))])
+    sinos = torch.stack([sp_ops.log_sinogram(c1, np.float32(meta.air1)),
+                         sp_ops.log_sinogram(c2, np.float32(meta.air2))])
     H = torch.as_tensor(ramps_H, dtype=torch.float32, device=sinos.device)
     fan = meta._replace(recon="fan")
     return torch.stack([

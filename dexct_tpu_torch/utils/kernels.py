@@ -96,8 +96,8 @@ _SIGNATURES = {
     "dexct_kb_sample": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # g, base, w, phase_cos, phase_sin, F, S, M, G, stream
     "dexct_kb_sample_adjoint": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # g, idx, w, radon, n_rays, M, n_src, stream
-    "dexct_resample_to_fan_adjoint": (_P, _P, _P, _P, _L, _I, _L, _P),
+    # g, row_ptr, ray, w, radon, n_bins, M, stream
+    "dexct_resample_to_fan_adjoint": (_P, _P, _P, _P, _P, _L, _I, _P),
     # tab, labels, src, dirs, out, n_rays, S, n_materials, stream
     "dexct_analytic_chords": (_P, _P, _P, _P, _P, _L, _I, _I, _P),
     # labels, src, dirs, out, n_rays, nx, ny, nz, n_out, x0, y0, z0, x1,
@@ -132,8 +132,10 @@ _SIGNATURES = {
     "dexct_katsevich_backproject": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                     _I, _I, _I, _I, _I, _I, _L, _F, _F, _F,
                                     _F, _F, _F, _F, _F, _F, _P),
-    # vols, zi, yi, xi, out, n_images, n_out, nz, ny, nx, stream
-    "dexct_trilinear_sample": (_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _P),
+    # vols, zi, yi, xi, out, n_images, n0, n1, n2, the strides of zi, yi
+    # and xi (three each), nz, ny, nx, stream
+    "dexct_trilinear_sample": (_P,) * 5 + (_I,) + (_L,) * 12 + (_I,) * 3
+                              + (_P,),
     # vol (or y), src, dirs, out (or vol), n_rays, nx, ny, nz, x0, y0, z0,
     # x1, y1, z1, dx, dy, dz, eps, n_steps, stream
     "dexct_project_3d": (_P, _P, _P, _P, _L, _I, _I, _I) + (_F,) * 10

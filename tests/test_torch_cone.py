@@ -250,6 +250,53 @@ def test_trilinear_sample_plain_matches_jax():
                                atol=1e-6 * np.abs(vol).max())
 
 
+def _layout_case(case):
+    """Index tensors of K16's layouts, as they reach the kernel."""
+    z = torch.arange(24, dtype=torch.float32)
+    if case == "tilted":
+        return t_cb._tilted_indices(0.26, 16, 20.0, 4, 0.5, "cpu")
+    if case == "rank1":
+        return z[:7], z[7:14], z[3:10]
+    if case == "rank4":
+        a = z.reshape(2, 3, 4, 1)
+        return a, a + 1.0, z[:5]
+    if case == "rank4_unmergeable":
+        a = z.reshape(2, 4, 3).permute(0, 2, 1)[..., None]
+        return a, a, z[:5]
+    return z[0], z[1], z[2]  # scalars
+
+
+@pytest.mark.parametrize("case,sizes,strides", [
+    ("tilted", (1, 64, 16), ((0, 1, 0), (0, 1, 0), (0, 0, 1))),
+    ("rank1", (1, 1, 7), ((0, 0, 1), (0, 0, 1), (0, 0, 1))),
+    ("rank4", (1, 24, 5), ((0, 1, 0), (0, 1, 0), (0, 0, 1))),
+    ("rank4_unmergeable", None, None),
+    ("scalars", (1, 1, 1), ((0, 0, 0),) * 3),
+])
+def test_trilinear_index_layout(case, sizes, strides):
+    """K16's host helper: the broadcast shape, that shape as three axes
+    and each index tensor's strides along them (0 where broadcast), read
+    back by ``as_strided`` as the kernel reads them; ``None`` where four
+    axes stay unmerged."""
+    idx = _layout_case(case)
+    want_shape = torch.broadcast_shapes(*(t.shape for t in idx))
+    shape, got_sizes, got_strides = t_cb._index_layout(
+        tuple(t.shape for t in idx), tuple(t.stride() for t in idx))
+    assert shape == tuple(want_shape)
+    assert (got_sizes, got_strides) == (sizes, strides)
+    if sizes is None:
+        return
+    for t, st in zip(idx, strides):
+        seen = t.as_strided(sizes, st, t.storage_offset())
+        torch.testing.assert_close(seen.reshape(shape),
+                                   t.broadcast_to(shape), rtol=0, atol=0)
+
+
+def test_trilinear_index_layout_refuses_shapes_that_do_not_broadcast():
+    with pytest.raises(ValueError, match="do not broadcast"):
+        t_cb._index_layout(((4, 3), (4, 1), (5,)), ((3, 1), (1, 1), (1,)))
+
+
 def _cyl_sino(ct, nz=8, N=32, dx=0.6, radius_cm=None):
     """Monoenergetic sinogram of a water cylinder (0.2 /cm), traced by the
     port's plain 3-D Siddon: the input of both sides."""

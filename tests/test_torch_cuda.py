@@ -496,6 +496,80 @@ def test_trilinear_sample_matches_plain(dev):
                                atol=1e-5 * float(want.abs().max()))
 
 
+def test_trilinear_sample_on_tilted_indices_is_bitwise_and_copies_nothing(
+        dev):
+    """K16 on the tilted path's factored indices (zi, yi [nz, N, 1], xi
+    [1, 1, N]): bitwise its plain version, one launch, and no memory
+    beyond the output, not even for a moment (no index copy)."""
+    from dexct_tpu_torch.ops.conebeam import (_tilted_grid, _tilted_indices,
+                                              _trilinear_volume_sample,
+                                              _trilinear_volume_sample_plain)
+
+    n, fov, nz, dz, tau = 32, 20.0, 4, 0.5, 0.26
+    n_g, _, nz_g = _tilted_grid(tau, n, fov, nz, dz)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    vols = torch.randn((4, nz_g, n_g, n_g), generator=gen, device=dev)
+    idx = _tilted_indices(tau, n, fov, nz, dz, dev)
+    def requested(which):  # bytes asked of the caching allocator
+        return torch.cuda.memory_stats(dev)[f"requested_bytes.all.{which}"]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = requested("current")
+    launches = _trilinear_volume_sample.launches
+    got = _trilinear_volume_sample(vols, *idx)
+    torch.cuda.synchronize()
+    assert _trilinear_volume_sample.launches == launches + 1
+    out_bytes = got.numel() * 4
+    assert requested("current") - before == out_bytes
+    assert requested("peak") - before == out_bytes
+    assert got.shape == (4, nz, n, n)
+    assert torch.equal(got, _trilinear_volume_sample_plain(vols, *idx))
+
+
+@pytest.mark.parametrize("case", ["materialised", "rank1", "rank4",
+                                  "outside", "sliced_volumes"])
+def test_trilinear_sample_layouts_are_bitwise(dev, case):
+    """K16 bitwise equal to its plain version on fully materialised
+    indices, on a rank-1 and a rank-4 broadcast, on points all around
+    and outside the box (faces, integers, beyond every face), and on a
+    non-contiguous volume stack (every other x of a wider stack)."""
+    from dexct_tpu_torch.ops.conebeam import (_trilinear_volume_sample,
+                                              _trilinear_volume_sample_plain)
+
+    rng = np.random.default_rng(23)
+    vol = torch.as_tensor(rng.standard_normal((3, 9, 10, 11)),
+                          dtype=torch.float32, device=dev)
+    dims = (9, 10, 11)
+    if case == "sliced_volumes":
+        vol = torch.as_tensor(rng.standard_normal((3, 9, 10, 22)),
+                              dtype=torch.float32, device=dev)[..., ::2]
+        assert not vol.is_contiguous()
+    if case in ("materialised", "sliced_volumes"):
+        idx = [rng.uniform(-1, n, (5, 7, 13)) for n in dims]
+    elif case == "rank1":
+        idx = [rng.uniform(-1, n, (300,)) for n in dims]
+    elif case == "rank4":
+        idx = [rng.uniform(-1, dims[0], (2, 3, 1, 1)),
+               rng.uniform(-1, dims[1], (1, 3, 4, 1)),
+               rng.uniform(-1, dims[2], (1, 1, 4, 37))]
+    else:
+        idx = [rng.uniform(-3, n + 2, (6, 8, 40)) for n in dims]
+        for t, n in zip(idx, dims):
+            t[0, :, :8] = [-1e-3, 0.0, 1.0, n - 2.0, n - 1.5, n - 1.0,
+                           n - 1.0 + 1e-3, n + 7.0]
+    zi, yi, xi = (torch.as_tensor(t, dtype=torch.float32, device=dev)
+                  for t in idx)
+    before = _trilinear_volume_sample.launches
+    got = _trilinear_volume_sample(vol, zi, yi, xi)
+    torch.cuda.synchronize()
+    assert _trilinear_volume_sample.launches == before + 1
+    want = _trilinear_volume_sample_plain(vol, zi, yi, xi)
+    assert got.shape == want.shape
+    assert (want == 0).any() and (want != 0).any()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("recon", ["flat", "tilted", "katsevich", "zffs"])
 def test_simulate_cone_dect_cuda_matches_cpu(dev, recon):
     """The stateless 3-D branch on the card against the same call on the
@@ -893,12 +967,73 @@ def test_resample_to_fan_adjoint_matches_plain(dev):
     assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
 
 
+def _fan_adjoint_case(dev, M, seed):
+    rng = np.random.default_rng(seed)
+    nth, nt, V, C = 48, 96, 30, 40
+    idx = torch.as_tensor(rng.integers(0, nth * nt, (V, C * 4)),
+                          dtype=torch.int32, device=dev)
+    w = torch.as_tensor(rng.uniform(0, 1, (V, C * 4)), dtype=torch.float32,
+                        device=dev)
+    y = torch.as_tensor(rng.normal(size=(V, C, M)), dtype=torch.float32,
+                        device=dev)
+    return y, idx, w, (M, nth, nt)
+
+
+@pytest.mark.parametrize("M", [1, 2, 5, 8])
+def test_resample_to_fan_adjoint_gathers_deterministically(dev, M):
+    """K22 over the transposed taps: two launches give the same bits, the
+    cached transpose gives what a transpose built for the call gives, and
+    both equal the CPU's ``index_add_`` (the same products added into
+    each bin in the same order); one launch a call at every M (beyond four
+    images the kernel loops over groups of four)."""
+    from dexct_tpu_torch.ops.fourier import (_transpose_taps,
+                                             resample_to_fan_adjoint,
+                                             resample_to_fan_adjoint_plain)
+
+    y, idx, w, shape = _fan_adjoint_case(dev, M, 40 + M)
+    fan_t = _transpose_taps(idx, w, shape[1] * shape[2])
+    before = resample_to_fan_adjoint.launches
+    first = resample_to_fan_adjoint(y, idx, w, shape, fan_t=fan_t)
+    second = resample_to_fan_adjoint(y, idx, w, shape, fan_t=fan_t)
+    per_call = resample_to_fan_adjoint(y, idx, w, shape)
+    torch.cuda.synchronize()
+    assert resample_to_fan_adjoint.launches == before + 3
+    assert torch.equal(first, second) and torch.equal(first, per_call)
+    want = resample_to_fan_adjoint_plain(y.cpu(), idx.cpu(), w.cpu(), shape)
+    assert torch.equal(first.cpu(), want)
+
+
+def test_plan_fan_transpose_feeds_both_adjoints(dev):
+    """The plan's cached transpose is built at the first adjoint and
+    reused: the explicit A^T and autograd's backward launch K22 over it,
+    and equal K22 over a transpose built per call."""
+    from dexct_tpu_torch.ops import fourier, iterative
+
+    plan = tiny_cases.fourier_plan(dev)
+    vs = tiny_cases.VIEW_SHAPE
+    assert plan.fan_t is None
+    gen = torch.Generator(device=dev).manual_seed(5)
+    y = torch.randn(vs, generator=gen, device=dev)
+    iterative._projection_adjoint(plan, vs)(y)
+    fan_t = plan.fan_t
+    assert fan_t is not None
+    x = torch.zeros((plan.n_img, plan.n_img), device=dev, requires_grad=True)
+    iterative.make_projection_operator(plan, vs)(x).backward(y)
+    assert plan.fan_t is fan_t
+    shape = (1, plan.n_theta, plan.nt)
+    cached = fourier.resample_to_fan_adjoint(
+        y[..., None], plan.fan_idx, plan.fan_w, shape, fan_t=fan_t)
+    per_call = fourier.resample_to_fan_adjoint(
+        y[..., None], plan.fan_idx, plan.fan_w, shape)
+    assert torch.equal(cached, per_call)
+
+
 @pytest.mark.parametrize("path", tiny_cases.ITERATIVE_PATHS)
 def test_2d_iterative_and_onestep_cuda_match_cpu(dev, path):
     """The 2-D reconstructions and the one-step fit (K7, K8, K21, K22) on
     the card against the CPU, every input drawn once from one seed
-    (``utils.tiny_cases``; the adjoints' atomics add in no fixed order:
-    1e-3 of the largest value)."""
+    (``utils.tiny_cases``; K21's atomics add in no fixed order: 1e-3 of
+    the largest value)."""
     from dexct_tpu_torch.ops.fourier import kb_sample_adjoint
 
     want = tiny_cases.iterative_2d(path, "cpu")
@@ -1559,6 +1694,54 @@ def test_afterglow_plain_correction_divides_as_the_cpu(dev):
     want = ag.correct_afterglow_plain(m, a, b)
     got = ag.correct_afterglow_plain(m.to(dev), a, b)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("fn", ["log_sinogram", "hu_image"])
+def test_log_and_hu_divide_as_the_cpu(dev, fn):
+    """``log_sinogram`` and ``hu_image`` with a Python-float divisor (as
+    ``dect_step`` passes ``meta.air1`` and ``meta.mu_w1``) divide by a
+    tensor: ``hu_image`` on the card equals its CPU result bit for bit;
+    ``log_sinogram`` equals the card's log of the CPU's quotient (the
+    card's and the CPU's float32 log are other functions, each within an
+    ulp, so the quotient is what the division decides)."""
+    from dexct_tpu_torch.ops.fbp import hu_image
+    from dexct_tpu_torch.ops.spectral import log_sinogram
+
+    rng = np.random.default_rng(12)
+    if fn == "log_sinogram":
+        x = torch.as_tensor(rng.uniform(1.0, 3e6, (96, 64)),
+                            dtype=torch.float32)
+        air = 3187654.321
+        quotient = x / torch.tensor(air)
+        assert not torch.equal(quotient, x * (1.0 / air))  # the cases differ
+        want = -torch.log(quotient.to(dev))
+        assert torch.equal(log_sinogram(x.to(dev), air), want)
+    else:
+        x = torch.as_tensor(rng.uniform(0.0, 0.5, (96, 64)),
+                            dtype=torch.float32)
+        assert torch.equal(hu_image(x.to(dev), 0.19234567).cpu(),
+                           hu_image(x, 0.19234567))
+
+
+@pytest.mark.parametrize("fn", ["log_sinogram", "hu_image"])
+def test_log_and_hu_divisors_do_not_synchronise(dev, fn):
+    """The divisor tensor of ``log_sinogram`` and ``hu_image`` is filled on
+    the card: no host copy, which would synchronise the stream (``dect_step``
+    calls the two four times a step)."""
+    from dexct_tpu_torch.ops.fbp import hu_image
+    from dexct_tpu_torch.ops.spectral import log_sinogram
+
+    x = torch.rand((96, 64), device=dev) + 1.0
+    call = ((lambda: log_sinogram(x, 3187654.321)) if fn == "log_sinogram"
+            else (lambda: hu_image(x, 0.19234567)))
+    call()
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
 
 
 def test_physics_scatter_correction_divides_as_the_cpu(dev):

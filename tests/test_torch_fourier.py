@@ -132,6 +132,70 @@ def test_resample_to_fan_matches_jax(plans):
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 
+def _fan_values(tplan, m, seed):
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(tplan.fan_idx.shape[0], m)).astype(np.float32)
+
+
+def test_fan_transpose_product_matches_plain_and_jax(plans):
+    """K22's table: the plan's taps transposed (``fan_transpose``), as a
+    CSR product, against the plain adjoint (``index_add_``, the same
+    products added in the same order: 1e-6 of the largest value) and
+    against ``jax.linear_transpose`` of the JAX resample (the resample's
+    1e-5)."""
+    import jax
+
+    jplan, tplan = plans
+    m, n_bins = 2, tplan.n_theta * tplan.nt
+    radon_shape = (m, tplan.n_theta, tplan.nt)
+    y = _fan_values(tplan, m, 8)
+    row_ptr, ray, w = t_fo.fan_transpose(tplan)
+    assert t_fo.fan_transpose(tplan)[0] is row_ptr  # built once, kept
+    n_rays = tplan.fan_idx.shape[0]
+    csr = torch.sparse_csr_tensor(row_ptr.long(), ray.long(), w,
+                                  (n_bins, n_rays))
+    got = (csr @ torch.as_tensor(y)).T.reshape(radon_shape)
+    plain = t_fo.resample_to_fan_adjoint_plain(
+        torch.as_tensor(y), tplan.fan_idx, tplan.fan_w, radon_shape)
+    big = float(plain.abs().max())
+    assert big > 0.0
+    torch.testing.assert_close(got, plain, rtol=0, atol=1e-6 * big)
+    (want,) = jax.linear_transpose(
+        lambda r: j_fo._resample_to_fan(r, jplan.fan_idx, jplan.fan_w,
+                                        (n_rays, m)),
+        jnp.zeros(radon_shape, jnp.float32))(jnp.asarray(y))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["plan", "clamped"])
+def test_fan_transpose_rows_are_in_stable_tap_order(plans, case):
+    """Each bin's taps run in the stable (bin, ray * 4 + tap) order, the
+    order in which ``index_add_`` on the CPU visits them; indices outside
+    the bins are clamped as K8 clamps them."""
+    _, tplan = plans
+    if case == "plan":
+        fan_idx, fan_w = tplan.fan_idx, tplan.fan_w
+        n_bins = tplan.n_theta * tplan.nt
+    else:
+        rng = np.random.default_rng(9)
+        n_bins = 12
+        fan_idx = torch.as_tensor(rng.integers(-3, n_bins + 3, (40, 4)),
+                                  dtype=torch.int32)
+        fan_w = torch.as_tensor(rng.uniform(0, 1, (40, 4)),
+                                dtype=torch.float32)
+    row_ptr, ray, w = t_fo._transpose_taps(fan_idx, fan_w, n_bins)
+    bins = np.clip(fan_idx.numpy().reshape(-1), 0, n_bins - 1)
+    order = np.argsort(bins, kind="stable")
+    assert row_ptr.dtype == ray.dtype == torch.int32
+    np.testing.assert_array_equal(
+        row_ptr.numpy(),
+        np.concatenate([[0], np.cumsum(np.bincount(bins,
+                                                   minlength=n_bins))]))
+    np.testing.assert_array_equal(ray.numpy(), order // 4)
+    np.testing.assert_array_equal(w.numpy(), fan_w.numpy().reshape(-1)[order])
+
+
 def test_fourier_paths_match_jax():
     """Material paths of a 6-label pelvis (96^2) at n_theta = 128 through
     both packages, and the pipeline's array-dict form."""

@@ -401,8 +401,8 @@ def test_fourier_functions_gradcheck():
     radon = torch.as_tensor(rng.normal(size=(2, 8, nt)),
                             dtype=torch.float64).requires_grad_(True)
     assert torch.autograd.gradcheck(
-        lambda r: t_fo._ResampleToFan.apply(r, tplan.fan_idx, tplan.fan_w,
-                                            (10, 12, 2)), (radon,))
+        lambda r: t_fo._ResampleToFan.apply(r, tplan, (10, 12, 2)),
+        (radon,))
     img = torch.as_tensor(rng.normal(size=(1, 8, 8)),
                           dtype=torch.float64).requires_grad_(True)
     assert torch.autograd.gradcheck(

@@ -46,7 +46,9 @@ of JAX.  Phases, each of which raises on failure:
    against the CPU's index_add_), then the whole projector's
    <A x, y> = <x, A^T y>; K23 (the 2-D dose map) on input/params.txt's 80
    kV scan at every 10th view, K24 (the 3-D one) on the cone and helical
-   configs at every 30th and 60th view.  K25 (the variance backprojection)
+   configs at every 30th and 60th view (each with its device time by
+   kernel under torch.profiler and its peak memory above its inputs).
+   K25 (the variance backprojection)
    at the reference protocol on the 80 kV exact-path counts (one field)
    and on the basis covariance of their decomposition (three fields); K26
    (fan-beam single scatter) on both acquisitions at every 50th view and
@@ -111,7 +113,8 @@ of JAX.  Phases, each of which raises on failure:
    default path's two-step result refined by 300 Adam iterations: the data
    loss must fall and the bladder's tissue density stay within 5 %) and
    ``dose`` (the 2-D maps of both acquisitions, the cone and helical 3-D
-   maps: each deposited energy within 5 % of the beam energy removed),
+   maps: each deposited energy within 5 % of the beam energy removed; each
+   map's peak device memory printed),
    ``noise_map`` (the reference protocol's exact counts and decomposition,
    both acquisitions' FBP variance maps, the decomposition's CRLB
    covariance, the basis maps and the VMI noise curve at 40-300 keV: the
@@ -4692,7 +4695,8 @@ def dose_kernel_phase(cfg, cone_cfgs, spectra, records, dev):
     energy bins; 80 kV, 74, recorded), K24 at 80 kV on the cone config at
     every 30th of its 360 views and on the helical config (its z-slab
     window) at every 60th of its 720; dose 1e-4 of the map's maximum,
-    deposited energy rel 1e-4."""
+    deposited energy rel 1e-4.  K24 is profiled once more at each shape:
+    its device time by kernel and the peak memory above its inputs."""
     from dexct_tpu_torch.ops import dose
 
     def check(name, args, fn, plain, three_d, label, record):
@@ -4705,6 +4709,33 @@ def dose_kernel_phase(cfg, cone_cfgs, spectra, records, dev):
                extra=f" ({label}; {args[1].shape[1]} live energies; max "
                      f"|plain| {big:.6g} keV/g; deposited {e:.8g} vs "
                      f"{ew:.8g} keV, rel {rel_e:.3g})", record=record)
+
+    def split(label, args):
+        """K24's device time by kernel over one more call under
+        torch.profiler, and the call's peak device memory above its
+        inputs (the scratch, with the dose map and its slots)."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            dose._dose_accumulate_3d(*args)
+            torch.cuda.synchronize()
+        extra = (torch.cuda.max_memory_allocated() - base) / 1e9
+        per = []
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0.0)
+            if us:
+                per.append((e.key, e.count, float(us) / 1e3))
+        per.sort(key=lambda kv: -kv[2])
+        print(f"    K24 split ({label}; one call, torch.profiler): "
+              + ", ".join(f"{k[:48]} x{n} {ms:.4f} ms" for k, n, ms in per)
+              + f"; device total {sum(ms for *_, ms in per):.4f} ms; peak "
+              f"above the inputs {extra:.4f} GB")
 
     ct = cfg.ct
     for i, spec in enumerate(spectra(ct)):
@@ -4729,6 +4760,7 @@ def dose_kernel_phase(cfg, cone_cfgs, spectra, records, dev):
               dose._dose_accumulate_3d_plain, True,
               f"{label} config, every {every}th view, z window "
               f"{args[-1]}, {spec.name}", label == "cone")
+        split(f"{label} config, {args[4].shape[0]} views", args)
 
 
 def noise_fields(counts, cov, ct, dev):
@@ -5384,6 +5416,7 @@ def dose_path(cfg, cone_cfgs, spectra, records, smi, dev):
     conservation test); the organ report of the 2-D maps and the 3-D maps'
     z profiles are printed."""
     import numpy as np
+    import torch
 
     from dexct_tpu_torch.ops import dose
 
@@ -5394,11 +5427,14 @@ def dose_path(cfg, cone_cfgs, spectra, records, smi, dev):
              for label in ("cone", "helical")]
     fns = zero_counters()
     for run in (1, 2):
-        st, results = Stages(), []
+        st, results, peaks = Stages(), [], {}
         for label, ph, ct, spec, three_d in jobs:
             fn = dose.dose_map_3d if three_d else dose.dose_map
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             res = fn(ph, ct, spec, device=dev)
             st.mark(f"{label} map")
+            peaks[label] = torch.cuda.max_memory_allocated() / 1e9
             removed = (dose.beam_energy_removed_3d if three_d
                        else dose.beam_energy_removed)(ph, ct, spec,
                                                       device=dev)
@@ -5407,6 +5443,8 @@ def dose_path(cfg, cone_cfgs, spectra, records, smi, dev):
         print(f"dose path (library, run {run}): "
               f"{sum(st.t.values()) / 1e3:.3f} s on {smi}; stages (ms): "
               + ", ".join(f"{k} {v:.1f}" for k, v in st.t.items()))
+        print("  peak device memory per map (GB): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in peaks.items()))
     check_launches("dose", fns, DOSE_KERNELS, records)
     ok = True
     for (label, ph, _, _, three_d), (_, res, removed) in zip(jobs, results):

@@ -15,10 +15,12 @@ tangent of the cone angle, and a running sum along r turns the occupancy
 into the partial material paths T from the source to every sample; each
 voxel then reads T at its own (gamma, r) bilinearly, attenuates the
 spectrum by exp(-T . mu(E)) and contracts it with its own material's
-deposition coefficients.  On the card this is kernel K23 (2-D) or K24
-(3-D), two launches per block of views (:func:`_dose_accumulate`,
-:func:`_dose_accumulate_3d`); CPU tensors run the plain twins, which
-follow the JAX program's operation order.
+deposition coefficients.  On the card this is kernel K23 (2-D: a polar
+pass and a voxel pass per block of views, T through device memory) or K24
+(3-D: T built and read in shared memory, one patch of polar lines per
+thread block) (:func:`_dose_accumulate`, :func:`_dose_accumulate_3d`);
+CPU tensors run the plain twins, which follow the JAX program's operation
+order.
 
 The port reads the uint8 labels directly: the JAX package's bit-packed
 label layouts (``_pack_label_quads``, ``_pack_label_nines``,
@@ -43,8 +45,9 @@ __all__ = ["dose_map", "sharded_dose_map", "dose_map_3d", "DoseResult",
 
 KEV_TO_J = 1.602176634e-16
 KEV_PER_G_TO_MGY = KEV_TO_J / 1e-3 * 1e3  # keV/g -> mGy
-# the partial-path table T of one block of views stays under this size
-_T_BYTES = 1 << 30
+# the scratch of one block of views (K23's partial-path table T, K24's
+# per-view terms) stays under this size
+_SCRATCH_BYTES = 1 << 30
 # voxels per plain spectral stage (bounds its [voxels, E] intermediates)
 _PLAIN_VOXELS = 1 << 18
 
@@ -169,8 +172,11 @@ def _chunks(n):
     return [(s, min(s + _PLAIN_VOXELS, n)) for s in range(0, n, _PLAIN_VOXELS)]
 
 
-def _view_block(n_views, per_view_bytes):
-    return max(1, min(n_views, _T_BYTES // max(per_view_bytes, 1)))
+def _view_block(n_views, per_view_bytes, fixed_bytes=0):
+    """Views per block: as many as keep the block's scratch (per view, plus
+    ``fixed_bytes`` once) under ``_SCRATCH_BYTES``, at least one."""
+    room = _SCRATCH_BYTES - fixed_bytes
+    return max(1, min(n_views, room // max(per_view_bytes, 1)))
 
 
 def _max_k(n_mats):
@@ -271,7 +277,9 @@ def _dose_accumulate_cuda(labels, mu, mu_dep, i0w, betas, view_w, gammas,
     req(rho_vox, "rho_vox", dev, torch.float32, (n_vox,))
     req(lab_vox, "lab_vox", dev, torch.uint8, (n_vox,))
     sid, dx, dy, geom, g_half, h_over_sid, dxdy = (float(v) for v in scalars)
-    src, ca, sa = _view_trig(betas, gammas, torch.tensor(sid, device=dev))
+    src, ca, sa = _view_trig(
+        betas, gammas,
+        torch.full((), sid, dtype=torch.float32, device=dev))
     muT = mu.T.contiguous()
     maxk = _max_k(K)
     dose = torch.zeros(n_vox, dtype=torch.float32, device=dev)
@@ -600,9 +608,22 @@ def _dose_accumulate_3d_plain(labels, mu, mu_dep, i0w, betas, src_zs,
     return dose, edep
 
 
-def _dose_accumulate_3d_cuda(labels, mu, mu_dep, i0w, betas, src_zs,
-                             view_w, gammas, ts, rs, vox_xyz, rho_vox,
-                             lab_vox, scalars, z_window):
+def _voxel_axes(vox_xyz, nz, ny, nx):
+    """The x, y and z coordinates [nx], [ny], [nz] of the voxel centres
+    ``vox_xyz`` [nz * ny * nx, 3] in raster order, as :func:`_dose_prep_3d`
+    makes them (x depends on the column only, y on the row, z on the
+    slice): the columns of the first row, the rows of the first slice, the
+    first voxel of each slice; copies on the device, no host sync."""
+    return (vox_xyz[:nx, 0].contiguous(),
+            vox_xyz[:ny * nx:nx, 1].contiguous(),
+            vox_xyz[::ny * nx, 2].contiguous())
+
+
+def _dose_3d_launch(labels, mu, mu_dep, i0w, betas, src_zs, view_w, gammas,
+                    ts, rs, vox_xyz, rho_vox, lab_vox, scalars, z_window):
+    """K24's C calls on the card, one per block of views: returns the dose
+    [vox] and the float64 deposited-energy slots, without waiting for them
+    (no host synchronisation: every scalar tensor is filled on the card)."""
     dev = labels.device
     nz, ny, nx = labels.shape
     K, E = mu.shape
@@ -620,40 +641,50 @@ def _dose_accumulate_3d_cuda(labels, mu, mu_dep, i0w, betas, src_zs,
     req(gammas, "gammas", dev, torch.float32, (n_g,))
     req(ts, "ts", dev, torch.float32, (n_t,))
     req(rs, "rs", dev, torch.float32, (n_r,))
-    req(vox_xyz, "vox_xyz", dev, torch.float32, (n_vox, 3))
+    req(vox_xyz, "vox_xyz", dev, torch.float32, (nz * ny * nx, 3))
     req(rho_vox, "rho_vox", dev, torch.float32, (n_vox,))
     req(lab_vox, "lab_vox", dev, torch.uint8, (n_vox,))
+    if min(n_g, n_t, n_r) < 2:
+        raise ValueError("the polar grids need at least two samples each")
     sid, dx, dy, dz, geom, g_half, t_half, dvol = (float(v) for v in scalars)
     f32 = dict(dtype=torch.float32, device=dev)
-    src, ca, sa = _view_trig(betas, gammas, torch.tensor(sid, **f32))
+    src, ca, sa = _view_trig(betas, gammas, torch.full((), sid, **f32))
     sec = torch.sqrt(1.0 + ts * ts)
     k0s, depth = _z_slabs(src_zs, ts, rs, vox_xyz[0, 2],
-                          torch.tensor(dz, **f32), nz, z_window)
+                          torch.full((), dz, **f32), nz, z_window)
     muT = mu.T.contiguous()
     maxk = _max_k(K)
     dose = torch.zeros(n_vox, **f32)
-    n_blocks = (n_vox + 255) // 256
-    edep = torch.zeros(n_blocks, dtype=torch.float64, device=dev)
-    vb = _view_block(V, n_r * n_t * n_g * K * 4)
-    T = torch.empty((vb, n_r, n_t, n_g, K), **f32)
+    edep = torch.zeros((n_vox + 255) // 256, dtype=torch.float64, device=dev)
+    # the voxel centres' axes, the labels as corner quads, and the per-view
+    # terms of one block of views [views, slab voxels, 2]: the quads and
+    # the terms together within the scratch bound
+    xc, yc, zc = _voxel_axes(vox_xyz, nz, ny, nx)
+    quads = torch.empty((nz, ny + 1, nx + 1), dtype=torch.int32, device=dev)
+    n_slab = depth * ny * nx
+    vb = _view_block(V, n_slab * 8, quads.numel() * 4)
+    contrib = torch.empty((vb, n_slab, 2), **f32)
     lib, stream = kernels.library(), kernels.stream_ptr(dev)
-    grid = _grid_scalars(gammas, ts, rs)
     for v0 in range(0, V, vb):
         nv = min(vb, V - v0)
         rc = lib.dexct_dose_3d(
             labels.data_ptr(), src[v0:].data_ptr(), src_zs[v0:].data_ptr(),
             ca[v0:].data_ptr(), sa[v0:].data_ptr(), view_w[v0:].data_ptr(),
-            k0s[v0:].data_ptr(), ts.data_ptr(), sec.data_ptr(),
-            rs.data_ptr(), vox_xyz.data_ptr(), rho_vox.data_ptr(),
-            lab_vox.data_ptr(), muT.data_ptr(), mu_dep.data_ptr(),
-            i0w.data_ptr(), T.data_ptr(), dose.data_ptr(), edep.data_ptr(),
-            maxk, nv, n_g, n_t, n_r, K, E, nx, ny, nz, depth, n_vox, sid, dx,
-            dy, dz, float(np.float32(nx / 2 - 0.5)),
-            float(np.float32(ny / 2 - 0.5)),
-            float(np.float32(nz / 2 - 0.5)), *grid, geom, g_half, t_half,
-            dvol, stream)
+            k0s[v0:].data_ptr(), gammas.data_ptr(), ts.data_ptr(),
+            sec.data_ptr(), rs.data_ptr(), xc.data_ptr(), yc.data_ptr(),
+            zc.data_ptr(), rho_vox.data_ptr(), lab_vox.data_ptr(),
+            muT.data_ptr(), mu_dep.data_ptr(), i0w.data_ptr(),
+            quads.data_ptr(), contrib.data_ptr(), dose.data_ptr(),
+            edep.data_ptr(), maxk, nv, n_g, n_t, n_r, K, E, nx, ny, nz,
+            depth, n_vox, sid, dx, dy, dz, geom, g_half, t_half, dvol,
+            stream)
         kernels.check(rc, "dose_map_3d")
         _dose_accumulate_3d.launches += 1
+    return dose, edep
+
+
+def _dose_accumulate_3d_cuda(*args):
+    dose, edep = _dose_3d_launch(*args)
     return dose, float(edep.sum())
 
 
@@ -665,9 +696,13 @@ def _dose_accumulate_3d(labels, mu, mu_dep, i0w, betas, src_zs, view_w,
     uint8 ``labels`` [nz, ny, nx], with the float32 ``scalars`` (sid, dx,
     dy, dz, geom_const, gamma_half_fan, t_half_beam, voxel_volume); each
     view's voxel stage covers its ``z_window``-slice slab when that is set
-    (identical results).  CUDA tensors run kernel K24 (a polar pass and a
-    voxel pass per block of views, counted in
-    ``_dose_accumulate_3d.launches``); CPU tensors run
+    (identical results).  CUDA tensors run kernel K24: one C call per
+    block of views (as many as 1 GiB holds beside the label quads),
+    counted in ``_dose_accumulate_3d.launches``; a call zero-fills the
+    terms, packs the labels as corner quads, runs the patch pass (a thread block per view and patch of polar lines, the
+    partial paths T in shared memory) and the view-ordered sum into the
+    dose.  ``vox_xyz`` must hold the centres of the labels' voxels in
+    raster order, as :func:`_dose_prep_3d` makes them.  CPU tensors run
     :func:`_dose_accumulate_3d_plain`."""
     args = (labels, mu, mu_dep, i0w, betas, src_zs, view_w, gammas, ts, rs,
             vox_xyz, rho_vox, lab_vox, scalars, z_window)

@@ -46,6 +46,17 @@ def align_tube_b(sino_b_time, offset_views):
     return torch.roll(sino_b_time, int(offset_views), dims=0)
 
 
+def _scalar(v, like):
+    """A Python or NumPy scalar ``v`` as a 0-d tensor of ``like``'s dtype
+    on its device, filled there (``torch.full``; a host copy would
+    synchronise the stream); a tensor passes through.  On CUDA, PyTorch
+    divides by a Python scalar as a product with its reciprocal, which
+    rounds differently from the CPU's division."""
+    if isinstance(v, torch.Tensor):
+        return v
+    return torch.full((), float(v), dtype=like.dtype, device=like.device)
+
+
 def add_cross_scatter(counts_a, counts_b, air_a, air_b, kernel, *,
                       cross_spr=0.1):
     """Measured counts of both detectors with cross-scatter added.
@@ -54,10 +65,11 @@ def add_cross_scatter(counts_a, counts_b, air_a, air_b, kernel, *,
     of the two tubes; the cross term on detector A seeds from tube B's
     simultaneous interaction profile ``counts_b * (1 - T_b)`` (photons
     removed from B's beam), spread by ``kernel`` and scaled by
-    ``cross_spr``, and symmetrically.
+    ``cross_spr``, and symmetrically.  A scalar air count divides as a
+    0-d tensor of the counts' dtype on their device (:func:`_scalar`).
     """
-    t_a = counts_a / air_a
-    t_b = counts_b / air_b
+    t_a = counts_a / _scalar(air_a, counts_a)
+    t_b = counts_b / _scalar(air_b, counts_b)
     s_on_a = cross_spr * _conv_channels(counts_b * (1.0 - t_b), kernel)
     s_on_b = cross_spr * _conv_channels(counts_a * (1.0 - t_a), kernel)
     return counts_a + s_on_a, counts_b + s_on_b
@@ -68,11 +80,12 @@ def correct_cross_scatter(meas_a, meas_b, air_a, air_b, kernel, *,
     """Coupled fixed-point removal of the cross-scatter background:
     re-estimate each detector's cross term from the OTHER's current
     primary estimate and subtract, alternating ``n_iters`` times (as
-    :func:`~dexct_tpu_torch.ops.scatter.correct_scatter`)."""
-    floor_a = torch.as_tensor(1e-6 * air_a, dtype=meas_a.dtype,
-                              device=meas_a.device)
-    floor_b = torch.as_tensor(1e-6 * air_b, dtype=meas_b.dtype,
-                              device=meas_b.device)
+    :func:`~dexct_tpu_torch.ops.scatter.correct_scatter`).  The air counts
+    and the floors enter as 0-d tensors filled on the data's device
+    (:func:`_scalar`)."""
+    floor_a = _scalar(1e-6 * air_a, meas_a)
+    floor_b = _scalar(1e-6 * air_b, meas_b)
+    air_a, air_b = _scalar(air_a, meas_a), _scalar(air_b, meas_b)
     p_a, p_b = meas_a, meas_b
     for _ in range(n_iters):
         t_b = torch.clamp(p_b / air_b, 0.0, 1.0)
@@ -150,7 +163,10 @@ def simulate_dualsource_dect(ct, phantom, spec_a, spec_b, N_matrix, FOV,
     meas_a, meas_b_time = raw_a, raw_b_time
     kern = None
     if cross_spr > 0.0:
-        kern = scatter_kernel(ct.N_channels, sigma_ch=kernel_sigma_ch)
+        # on the device once: each spread would copy a host kernel again
+        kern = torch.as_tensor(scatter_kernel(ct.N_channels,
+                                              sigma_ch=kernel_sigma_ch),
+                               device=dev)
         meas_a, meas_b_time = add_cross_scatter(
             raw_a, raw_b_time, air_a, air_b, kern, cross_spr=cross_spr)
     if noise != "none":

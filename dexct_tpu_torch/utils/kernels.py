@@ -151,11 +151,11 @@ _SIGNATURES = {
     # dose, edep; maxk, nv, n_g, n_r, K, E, nx, ny; n_vox; sid, dx, dy, cx,
     # cy, g0, dg, gmax, r0, dr, rmax, geom, g_half, h_over_sid, dxdy; stream
     "dexct_dose_2d": (_P,) * 15 + (_I,) * 8 + (_L,) + (_F,) * 15 + (_P,),
-    # labels, src, src_z, ca, sa, vw, k0s, ts, sec, rs, vox, rho, lab, muT,
-    # mu_dep, i0w, T, dose, edep; maxk, nv, n_g, n_t, n_r, K, E, nx, ny, nz,
-    # depth; n_vox; sid, dx, dy, dz, cx, cy, cz, g0, dg, gmax, t0, dt, tmax,
-    # r0, dr, rmax, geom, g_half, t_half, dvol; stream
-    "dexct_dose_3d": (_P,) * 19 + (_I,) * 11 + (_L,) + (_F,) * 20 + (_P,),
+    # labels, src, src_z, ca, sa, vw, k0s, gammas, ts, sec, rs, xc, yc, zc,
+    # rho, lab, muT, mu_dep, i0w, quads, contrib, dose, edep; maxk, nv, n_g,
+    # n_t, n_r, K, E, nx, ny, nz, depth; n_vox; sid, dx, dy, dz, geom,
+    # g_half, t_half, dvol; stream
+    "dexct_dose_3d": (_P,) * 23 + (_I,) * 11 + (_L,) + (_F,) * 8 + (_P,),
     # labels, cells, ne_w, f2w, mu_gE, mu_fine, resp_fine, resp_g, n0_g,
     # e_g, src, d0, det, nrm, phi, aux, out; maxk, nv, X, D, G, F, Q, nx,
     # ny, nz, s_in, s_out, coherent; dx, dy, dz, hx, hy, hz, cx, cy, cz,

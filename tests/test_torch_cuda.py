@@ -1083,6 +1083,147 @@ def test_dose_kernels_match_plain(dev, kind):
         <= tiny_cases.DOSE_TOL * want.deposited_J
 
 
+def _k24_args(dev, kind, n_materials=3):
+    """K24's arguments for the tiny dose case ``kind`` on ``dev``; with
+    more than three materials, its geometry through random labels of that
+    many (K > 8 runs the kernel's MAXK = 16 instance)."""
+    from dexct_tpu_torch.ops import dose
+    from dexct_tpu_torch.physics import materials as m
+    from dexct_tpu_torch.system import VoxelPhantom
+
+    ph, ct, spec = tiny_cases.dose_inputs(kind)
+    if n_materials > 3:
+        mats = [m.AIR, m.WATER, m.BONE, m.TISSUE, m.MARROW, m.ADIPOSE,
+                m.MUSCLE, m.BRAIN, m.CSF, m.LUNG, m.BLOOD, m.TITANIUM]
+        lab = np.random.default_rng(24).integers(0, n_materials,
+                                                 ph.labels.shape)
+        ph = VoxelPhantom("k24", lab.astype(np.uint8),
+                          m.MaterialTable(mats[:n_materials]), ph.dx, ph.dy,
+                          ph.dz)
+    args, _ = dose._dose_prep_3d(
+        ph, ct, spec, n_gamma=None, n_t=None, n_r=None, oversample=2,
+        views=None, n_energy=None, view_weights=None, scoring="removed",
+        z_window="auto", device=dev)
+    return list(args)
+
+
+def _k24_against_plain(args, bitwise=True):
+    """K24 and its plain twin on the same card tensors: the dose bit for
+    bit (the same float32 operations per voxel and view, views added in
+    order; else within DOSE_TOL of its maximum), the deposited energy
+    within DOSE_TOL (the plain twin sums it in float32, K24 per thread in
+    float64)."""
+    from dexct_tpu_torch.ops import dose
+
+    got, e = dose._dose_accumulate_3d(*args)
+    want, ew = dose._dose_accumulate_3d_plain(*args)
+    assert float(want.max()) > 0.0
+    if bitwise:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(
+            got, want, rtol=0,
+            atol=tiny_cases.DOSE_TOL * float(want.max()))
+    assert abs(e - ew) <= tiny_cases.DOSE_TOL * ew
+    return got, e
+
+
+@pytest.mark.parametrize("kind,n_materials,n_energies", [
+    ("cone", 3, None), ("helical", 3, None), ("cone", 12, None),
+    ("cone", 12, 700)])
+def test_k24_equals_its_plain_twin_bit_for_bit(dev, kind, n_materials,
+                                               n_energies):
+    """K24 on the tiny cone and helical (z window) cases and with 12
+    materials: one C call (all views fit one block), its dose bitwise its
+    plain twin's on the card.  With 12 materials over 700 energies (random
+    tables too large to share a patch block's 110 KB with T: the block
+    takes the most shared memory) the plain twin's energy sum is a cuBLAS
+    product whose order of terms is cuBLAS's choice: at 74-115 energies it
+    equals K24's sequential sum bit for bit, at 700 it differs in the last
+    bits, so DOSE_TOL there."""
+    from dexct_tpu_torch.ops import dose
+
+    args = _k24_args(dev, kind, n_materials)
+    if n_energies:
+        rng = np.random.default_rng(700)
+        shape = (n_materials, n_energies)
+        args[1], args[2] = (torch.as_tensor(rng.uniform(0.01, 1.0, shape),
+                                            dtype=torch.float32, device=dev)
+                            for _ in range(2))
+        args[3] = torch.as_tensor(rng.uniform(0.0, 1e6, n_energies),
+                                  dtype=torch.float32, device=dev)
+    if kind == "helical":
+        assert args[-1] is not None  # the z-slab window is on
+    before = dose._dose_accumulate_3d.launches
+    _k24_against_plain(args, bitwise=not n_energies)
+    assert dose._dose_accumulate_3d.launches == before + 1
+
+
+def test_k24_ragged_view_blocks(dev, monkeypatch):
+    """A scratch of the label quads and five views' terms splits the tiny
+    cone's 16 views into blocks of 5, 5, 5 and 1: four C calls, counted,
+    and the same dose bit for bit (each call adds its views in order)."""
+    from dexct_tpu_torch.ops import dose
+
+    args = _k24_args(dev, "cone")
+    whole, e_whole = dose._dose_accumulate_3d(*args)
+    nz, ny, nx = args[0].shape
+    n_slab = nz * ny * nx  # no z window: every slice
+    quads = nz * (ny + 1) * (nx + 1) * 4
+    monkeypatch.setattr(dose, "_SCRATCH_BYTES", quads + 5 * n_slab * 8)
+    before = dose._dose_accumulate_3d.launches
+    got, e = _k24_against_plain(args)
+    assert dose._dose_accumulate_3d.launches == before + 4
+    assert torch.equal(got, whole)
+    assert abs(e - e_whole) <= 1e-12 * e_whole
+
+
+def test_k24_slabs_at_the_volume_edges(dev):
+    """The helix's views whose z slab starts at the volume's first slice
+    or ends at its last: K24 bitwise its plain twin on those views."""
+    from dexct_tpu_torch.ops import dose
+
+    args = _k24_args(dev, "helical")
+    nz = args[0].shape[0]
+    k0s, depth = dose._z_slabs(args[5], args[8], args[9], args[10][0, 2],
+                               torch.full((), float(args[13][3]),
+                                          device=dev), nz, args[14])
+    edge = (k0s == 0) | (k0s == nz - depth)
+    assert bool((k0s == 0).any()) and bool((k0s == nz - depth).any())
+    assert not bool(edge.all())  # the helix also has inner slabs
+    for i in (4, 5, 6):  # betas, source z, view weights
+        args[i] = args[i][edge].contiguous()
+    _k24_against_plain(args)
+
+
+def test_k24_makes_no_host_synchronisation(dev):
+    """The 3-D dose wrapper's C calls make no synchronising call (scalar
+    tensors filled on the card, grid steps read on the card); the whole
+    call makes one, its final float64 sum."""
+    import warnings
+
+    from dexct_tpu_torch.ops import dose
+
+    args = _k24_args(dev, "helical")
+    dose._dose_accumulate_3d(*args)
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, edep = dose._dose_3d_launch(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert float(edep.sum()) > 0.0
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            dose._dose_accumulate_3d(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    assert sum("synchroniz" in str(w.message) for w in seen) == 1
+
+
 @pytest.mark.parametrize("n_fields", [1, 3])
 def test_fan_backproject_var_matches_plain(dev, n_fields):
     """K25 against its plain version on random variance fields of 96
@@ -1734,6 +1875,62 @@ def test_log_and_hu_divisors_do_not_synchronise(dev, fn):
     x = torch.rand((96, 64), device=dev) + 1.0
     call = ((lambda: log_sinogram(x, 3187654.321)) if fn == "log_sinogram"
             else (lambda: hu_image(x, 0.19234567)))
+    call()
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+def _cross_scatter_case(device):
+    """Two tubes' counts [48, 64] with Python-float air counts (as
+    ``simulate_dualsource_dect`` passes them)."""
+    rng = np.random.default_rng(15)
+    a = torch.as_tensor(rng.uniform(1e2, 3e6, (48, 64)), dtype=torch.float32)
+    b = torch.as_tensor(rng.uniform(1e1, 3e5, (48, 64)), dtype=torch.float32)
+    return a.to(device), b.to(device), 3187654.321, 318765.4321
+
+
+@pytest.mark.parametrize("fn", ["add_cross_scatter", "correct_cross_scatter"])
+def test_cross_scatter_divides_as_the_cpu(dev, fn):
+    """``add_cross_scatter`` and ``correct_cross_scatter`` divide by the air
+    counts and clamp at their floors as the CPU does: the card's counts
+    equal the CPU's bit for bit.  A one-tap kernel makes the channel spread
+    exact on both devices (cuDNN and the CPU add a wider kernel's taps in
+    other orders), so what is held is the divisions and the floors."""
+    from dexct_tpu_torch.pipeline import dualsource as ds
+
+    a, b, air_a, air_b = _cross_scatter_case("cpu")
+    # the cases differ: a division and a product with the reciprocal
+    assert not torch.equal(a / torch.tensor(air_a), a * (1.0 / air_a))
+    kern = np.ones(1, np.float32)
+    call = getattr(ds, fn)
+    want = call(a, b, air_a, air_b, kern, cross_spr=0.7)
+    got = call(a.to(dev), b.to(dev), air_a, air_b,
+               torch.as_tensor(kern, device=dev), cross_spr=0.7)
+    if fn == "correct_cross_scatter":
+        assert bool((want[0] == np.float32(1e-6 * air_a)).any())  # floors
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("fn", ["add_cross_scatter", "correct_cross_scatter"])
+def test_cross_scatter_does_not_synchronise(dev, fn):
+    """The air counts' divisors and the floors are filled on the card: with
+    the counts and the kernel there, neither function copies from the host
+    (a copy synchronises the stream)."""
+    from dexct_tpu_torch.ops.scatter import scatter_kernel
+    from dexct_tpu_torch.pipeline import dualsource as ds
+
+    a, b, air_a, air_b = _cross_scatter_case(dev)
+    kern = torch.as_tensor(scatter_kernel(64, sigma_ch=8.0), device=dev)
+
+    def call():
+        return getattr(ds, fn)(a, b, air_a, air_b, kern, cross_spr=0.1)
+
     call()
     torch.cuda.synchronize()
     mode = torch.cuda.get_sync_debug_mode()

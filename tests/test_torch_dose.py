@@ -140,6 +140,56 @@ def test_dose_map_3d_matches_jax(config):
             <= 1e-6 * full.deposited_J
 
 
+@pytest.mark.parametrize("config", ["cone", "helical"])
+def test_k24_host_plan(config, monkeypatch):
+    """K24's host-side plan against a direct NumPy count: the voxel
+    centres' axes the kernel reads (``_voxel_axes``: x by column, y by row,
+    z by slice) rebuild every centre ``_dose_prep_3d`` makes, and equal the
+    float32 centres of the phantom's grid; a scratch of the label quads and
+    five views' terms gives the C calls of blocks of five views, and a
+    byte less blocks of four."""
+    if config == "cone":
+        _, tct = _pair("cone", "ConeBeamGeometry", **CONE)
+        _, tph = _cylinders_3d(24, 8, 0.5, 0.5, 5.0)
+    else:
+        _, tct = _pair("helix", "HelicalConeBeamGeometry", **HELIX)
+        _, tph = _cylinders_3d(24, 32, 0.5, 0.25, 5.0)
+    _, ts = _spectra(120.0, 1e6)
+    args, (nz, ny, nx) = td._dose_prep_3d(
+        tph, tct, ts, n_gamma=None, n_t=None, n_r=None, oversample=1,
+        views=None, n_energy=None, view_weights=None, scoring="removed",
+        z_window="auto", device="cpu")
+    vox, z_window = args[10].numpy(), args[14]
+    assert (z_window is not None) == (config == "helical")
+    xc, yc, zc = (a.numpy() for a in td._voxel_axes(args[10], nz, ny, nx))
+    z, y, x = np.meshgrid(zc, yc, xc, indexing="ij")
+    assert np.array_equal(np.stack([x, y, z], -1).reshape(-1, 3), vox)
+    for got, n, d in ((xc, nx, tph.dx), (yc, ny, tph.dy), (zc, nz, tph.dz)):
+        np.testing.assert_array_equal(
+            got, ((np.arange(n) + 0.5 - n / 2) * d).astype(np.float32))
+    n_views = args[4].shape[0]
+    n_slab = (z_window or nz) * ny * nx
+    quads = nz * (ny + 1) * (nx + 1) * 4
+    for room, views in ((5 * n_slab * 8, 5), (5 * n_slab * 8 - 1, 4)):
+        monkeypatch.setattr(td, "_SCRATCH_BYTES", quads + room)
+        vb = td._view_block(n_views, n_slab * 8, quads)
+        assert vb == views
+        assert len(range(0, n_views, vb)) == -(-n_views // views)
+
+
+def test_k24_probe_finds_its_cut_points():
+    """``tools/probe_dose3d`` cuts K24's source at two marked lines: each
+    is in ``csrc/dose.cu`` once; without a card the tool refuses to run."""
+    from dexct_tpu_torch.tools import probe_dose3d as pd
+    from dexct_tpu_torch.utils import kernels
+
+    src = (kernels.CSRC / "dose.cu").read_text()
+    assert src.count(pd._SEARCH) == 1 and src.count(pd._TERM) == 1
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="needs a CUDA device"):
+            pd.main([])
+
+
 def _raises_like(j_call, t_call):
     with pytest.raises(Exception) as want:
         j_call()

@@ -38,12 +38,17 @@ of JAX.  Phases, each of which raises on failure:
    projector and its adjoint) on the cone config's rays and mu[labels] at
    60 keV, K18 also against K10's paths . mu and K19 through the
    dot-product identity, both against the system matrix's CSR product on
-   every tenth view; K5 at 4 taps and K20 (the PI method) on the helical
-   config's 60 keV sinogram.  K21 and K22 (the adjoints of K7 and K8) at
-   the reference protocol's Fourier plan, each also against its forward
-   kernel through the dot-product identity (K22 over the plan's transposed
-   taps, whose build time is printed, two launches bitwise equal, and read
-   against the CPU's index_add_), then the whole projector's
+   every tenth view, each with its device time under a CUDA graph; K19's
+   transposed table built by its kernels against the plain builder's,
+   field for field, with its build time, bytes and padding; K19 over that
+   table twice (bitwise equal) and, over its own table, bitwise against the
+   CPU's plain version on every 30th view; K5 at 4 taps and K20 (the PI
+   method) on the helical config's 60 keV sinogram.  K21 and K22 (the
+   adjoints of K7 and K8) at the reference protocol's Fourier plan, each
+   also against its forward kernel through the dot-product identity (K22
+   over the plan's transposed taps, whose build time is printed, two
+   launches bitwise equal, and read against the CPU's index_add_), then
+   the whole projector's
    <A x, y> = <x, A^T y>; K23 (the 2-D dose map) on input/params.txt's 80
    kV scan at every 10th view, K24 (the 3-D one) on the cone and helical
    configs at every 30th and 60th view (each with its device time by
@@ -94,7 +99,9 @@ of JAX.  Phases, each of which raises on failure:
    config through ``pack_cone_dect(weighting=...)`` + ``cone_dect_step``
    ('pair' twice, 'td', 'short'), a 60 keV scan of the cone config
    through an FDK warm start, ``cone_pwls_recon`` and ``cone_cg_recon``
-   (twice), and the helical config's 60 keV scan through
+   (twice, with each run's peak device memory; K19's table built once per
+   reconstruction, and its share of one more profiled run), and the
+   helical config's 60 keV scan through
    ``helical_pi_reconstruct`` (twice).  Every launch counter
    is set to 0 just before a path and read just after it: each kernel of
    the path must have launched, and no other.  Each path's outputs are
@@ -267,8 +274,15 @@ KERNELS = {
                    "max of K10's paths . mu"),
     "backproject_3d": ("cuda", "dexct_tpu_torch/csrc/siddon_project_3d.cu",
                        "dexct_tpu/ops/conebeam.py:1028",
-                       "max abs <= 1e-4 x max |plain|; <Ax, y> = <x, A^T y> "
-                       "to rel 1e-4"),
+                       "max abs <= 1e-4 x max |plain| (the card's plain "
+                       "version adds with atomic index_add_); bitwise equal "
+                       "to the CPU's plain version on every 30th view; two "
+                       "launches bitwise equal; <Ax, y> = <x, A^T y> to rel "
+                       "1e-4"),
+    "cone_transpose": ("cuda", "dexct_tpu_torch/csrc/siddon_project_3d.cu",
+                       "dexct_tpu/ops/conebeam.py:1028",
+                       "bitwise equal to the plain builder's table (runs, "
+                       "slice offsets, every slot's ray and segment)"),
     "pi_backproject": ("cuda", "dexct_tpu_torch/csrc/pi_backproject.cu",
                        "dexct_tpu/ops/helical_pi.py:128",
                        "max abs <= 1e-4 x max |plain|"),
@@ -353,7 +367,7 @@ KERNELS = {
 HELICAL_WEIGHTING_KERNELS = ("siddon_trace_3d", "spectral_counts",
                              "gauss_newton", "helical_backproject")
 CONE_PWLS_KERNELS = ("siddon_trace_3d", "fdk_backproject", "project_3d",
-                     "backproject_3d")
+                     "backproject_3d", "cone_transpose")
 HELICAL_PI_KERNELS = ("siddon_trace_3d", "rebin_to_parallel",
                       "pi_backproject")
 # the library paths of the 2-D iterative and one-step reconstructions and
@@ -1617,6 +1631,8 @@ def project_kernel_phase(ccfg, records):
     lib_err = float((torch.sparse.mm(A, x1).reshape(-1)
                      - sino[::every].reshape(-1)).abs().max())
     lib_fwd = time_ms(lambda: torch.sparse.mm(A, x1), 5) * scale
+    fwd_dev_ms = graph_ms(
+        lambda: conebeam.project_volume_3d(vol, src, dirs, *vox))
     report(records, "project_3d", err, ms, pms,
            err <= 1e-4 * big and k10_err <= 1e-4 * float(ref.abs().max()),
            (nbytes(vol, src, dirs, sino), 9 * steps + 60 * n_rays),
@@ -1624,31 +1640,97 @@ def project_kernel_phase(ccfg, records):
            extra=f" (max |plain| {big:.6g}; {n_rays} rays through "
                  f"{shape}; against K10's paths . mu {k10_err:.3g}; library "
                  f"= CSR torch.sparse.mm on every {every}th view ({nnz} "
-                 f"nonzeros) x {scale:g}, err {lib_err:.3g})")
+                 f"nonzeros) x {scale:g}, err {lib_err:.3g}; device "
+                 f"{fwd_dev_ms:.4f} ms, CUDA graph of 20 calls)")
+    walk_ops = 9 * steps + 60 * n_rays
+    del A
+    torch.cuda.empty_cache()
+
+    # K19's table: the kernels' build against the plain builder's
+    table, build_ms, plain_ms, same = transpose_phase(
+        conebeam, src, dirs, shape, vox)
+    report(records, "cone_transpose", 0.0 if same else float("inf"),
+           build_ms, plain_ms, same,
+           (nbytes(src, dirs) + table.nbytes, walk_ops),
+           extra=f" ({table.nnz} entries in {table.slots} slots, padding "
+                 f"{table.slots / table.nnz - 1:.4f}; {table.nbytes} B in "
+                 f"{len(table.blocks)} block(s); against the plain builder: "
+                 f"{'bitwise equal' if same else 'DIFFERENT'})")
 
     gen = torch.Generator(device=dev).manual_seed(6)
     y = torch.randn(sino.shape, generator=gen, device=dev)
     x = torch.randn(shape, generator=gen, device=dev)
+
+    def k19():
+        return conebeam.project_volume_3d_adjoint(y, src, dirs, shape, *vox,
+                                                  table=table)
+
     back, want, ms, pms = compare(
-        lambda: conebeam.project_volume_3d_adjoint(y, src, dirs, shape,
-                                                   *vox),
-        lambda: conebeam.project_volume_3d_adjoint_plain(y, src, dirs, shape,
-                                                         *vox), reps=3)
+        k19, lambda: conebeam.project_volume_3d_adjoint_plain(
+            y, src, dirs, shape, *vox), reps=3)
     err, big = max_err(back, want)
+    del want
+    twice = torch.equal(k19(), back)
+    dev_ms = graph_ms(k19)
+    with_build_ms = time_ms(lambda: conebeam.project_volume_3d_adjoint(
+        y, src, dirs, shape, *vox), 2)
     lhs = float((conebeam.project_volume_3d(x, src, dirs, *vox).double()
                  * y.double()).sum())
     rhs = float((x.double() * back.double()).sum())
     ident = abs(lhs - rhs) / abs(lhs)
+    del table
+    torch.cuda.empty_cache()
+    # every 30th view: the CPU's plain version, index_add_ one step after
+    # another, against K19 over its own table
+    s30, d30, y30 = (t[::30].contiguous() for t in (src, dirs, y))
+    got30 = conebeam.project_volume_3d_adjoint(y30, s30, d30, shape, *vox)
+    cpu30 = torch.equal(got30.cpu(), conebeam.project_volume_3d_adjoint_plain(
+        y30.cpu(), s30.cpu(), d30.cpu(), shape, *vox))
     y1 = y[::every].reshape(-1, 1).contiguous()
     lib_adj = time_ms(lambda: torch.sparse.mm(At, y1), 5) * scale
+    print(f"  backproject_3d: device {dev_ms:.4f} ms (CUDA graph of 20 "
+          f"calls; K18 {fwd_dev_ms:.4f}), with a build per call "
+          f"{with_build_ms:.3f} ms; two launches bitwise equal: {twice}; "
+          f"bitwise equal to the CPU's plain version on every 30th view: "
+          f"{cpu30}")
     report(records, "backproject_3d", err, ms, pms,
-           err <= 1e-4 * big and ident <= 1e-4,
-           (nbytes(y, src, dirs, back), 9 * steps + 60 * n_rays),
+           err <= 1e-4 * big and ident <= 1e-4 and twice and cpu30,
+           (nbytes(y, src, dirs, back), walk_ops),
            library_ms=lib_adj,
            extra=f" (max |plain| {big:.6g}; <Ax, y> = {lhs:.8g}, <x, A^T y>"
                  f" = {rhs:.8g}, rel {ident:.3g}; library = CSR of A^T on "
                  f"every {every}th view x {scale:g})")
-    del A, At
+    del At
+
+
+def transpose_phase(conebeam, src, dirs, shape, vox):
+    """K19's table built by its kernels (the least of three builds, host
+    clock, synchronised) and by the plain builder (once), compared field
+    for field: (the kernels' table, build ms, plain ms, equal)."""
+    import torch
+
+    times = []
+    for _ in range(3):
+        table = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        table = conebeam.cone_transpose(src, dirs, shape, *vox)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    plain = conebeam.cone_transpose_plain(src, dirs, shape, *vox)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    same = (len(table.blocks) == len(plain.blocks)
+            and all(torch.equal(a, b) for ga, gb in zip(table.blocks,
+                                                        plain.blocks)
+                    for a, b in zip(ga[:3], gb[:3])))
+    print(f"  cone_transpose builds (ms): "
+          + ", ".join(f"{t:.2f}" for t in times)
+          + f"; plain builder {plain_ms:.1f}")
+    del plain
+    torch.cuda.empty_cache()
+    return table, min(times), plain_ms, same
 
 
 def pi_kernel_phase(ccfg, records, dev):
@@ -3632,6 +3714,7 @@ def counters():
             "siddon_trace_stack": siddon.trace_paths_stack,
             "project_3d": conebeam.project_volume_3d,
             "backproject_3d": conebeam.project_volume_3d_adjoint,
+            "cone_transpose": conebeam.cone_transpose,
             "pi_backproject": helical_pi._pi_backproject,
             "kb_sample_adjoint": fourier.kb_sample_adjoint,
             "resample_to_fan_adjoint": fourier.resample_to_fan_adjoint,
@@ -4355,7 +4438,17 @@ def cone_pwls_path(ccfg, records, smi):
     vox = (ph.dx, ph.dy, ph.dz)
     n, fov = shape[-1], shape[-1] * ph.dx
     fns = zero_counters()
+
+    def recons():
+        x = conebeam.cone_pwls_recon(y, counts, ct, shape, vox, n_iters=60,
+                                     beta=3e-2,
+                                     x0=torch.clamp_min(fdk, 0.0))
+        st.mark("cone_pwls_recon (60 iterations)")
+        return (x, *conebeam.cone_cg_recon(y, ct, shape, vox, n_iters=30))
+
     for run in (1, 2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         st = Stages()
         sino = mono_sinogram(conebeam.cone_material_paths(ph, ct, device=dev),
                              mono_mu(ph, dev))
@@ -4368,17 +4461,28 @@ def cone_pwls_path(ccfg, records, smi):
         fdk = conebeam.fdk_reconstruct(y, ct, n, fov, ccfg.ramp,
                                        nz_out=shape[0], dz_out=ph.dz)
         st.mark("FDK warm start")
-        x = conebeam.cone_pwls_recon(y, counts, ct, shape, vox, n_iters=60,
-                                     beta=3e-2,
-                                     x0=torch.clamp_min(fdk, 0.0))
-        st.mark("cone_pwls_recon (60 iterations)")
-        vol_cg, hist = conebeam.cone_cg_recon(y, ct, shape, vox, n_iters=30)
+        x, vol_cg, hist = recons()
         st.mark("cone_cg_recon (30 iterations)")
         wall = sum(st.t.values()) / 1e3
         print(f"cone_pwls path (library, run {run}): {wall:.3f} s on {smi}; "
               "stages (ms): " + ", ".join(f"{k} {v:.1f}"
-                                         for k, v in st.t.items()))
+                                         for k, v in st.t.items())
+              + f"; peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.4f} GB")
+    builds = fns["cone_transpose"].launches
     check_launches("cone_pwls", fns, CONE_PWLS_KERNELS, records)
+    if builds != 4:
+        fail(f"K19's table was built {builds} times in two cone_pwls runs, "
+             "not once per reconstruction")
+    # K19's share of the reconstructions, from one more call profiled
+    st = Stages()
+    wall, dev_ms, _, top = profiled_run(recons, top=40)
+    k19 = sum(ms for k, ms in top if "backproject_3d" in k)
+    build = sum(ms for k, ms in top if "transpose" in k)
+    print(f"  K19 table builds: {builds} (one per reconstruction); "
+          f"profiled PWLS + CG: wall {wall:.1f} ms, device {dev_ms:.1f} ms, "
+          f"K19's gathers {k19:.1f} ms and builds {build:.1f} ms, K19's "
+          f"share {(k19 + build) / wall:.3f}")
     mu_w = float(mono_mu(ph, dev)[5])  # label 5: water (the bladder)
     # 2 cm x 2 cm inside the bladder (its centre lies at y = 1.8 cm)
     xr, fr = (roi_box(v, 0.0, 1.8, shape[0] // 2, fov, 1.0) for v in (x, fdk))

@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.devices import _scalar
 from .siddon import material_path_sinogram
 
 __all__ = ["finite_aperture_paths", "aperture_counts",
@@ -66,7 +67,12 @@ def nlpv_bias_sinogram(paths_sub, mu_table, i0_eff):
     ``mean_s(L_eff) - (-ln(mean_s exp(-L_eff)))``, zero through
     homogeneous apertures and positive at edges."""
     c = _counts(paths_sub, mu_table, i0_eff)  # [S, V, C]
-    air = float(torch.as_tensor(i0_eff, dtype=torch.float32).sum())
+    # the air counts as a 0-d tensor on the counts' device: summed where
+    # i0_eff lies (no host read of a card tensor), filled on the card from
+    # a host sum (a Python-float divisor runs as a reciprocal product there)
+    air = torch.as_tensor(i0_eff, dtype=torch.float32).sum()
+    if air.device != c.device:
+        air = _scalar(float(air), c)
     log_mean = -torch.log(torch.clamp_min(torch.mean(c, 0), 1e-30) / air)
     mean_log = torch.mean(-torch.log(torch.clamp_min(c, 1e-30) / air), 0)
     return mean_log - log_mean

@@ -17,8 +17,10 @@ launch the kernel, CPU tensors run the plain PyTorch version beside it):
   JAX package's six view weightings;
 - :func:`project_volume_3d`: K18 (``csrc/siddon_project_3d.cu``), the exact
   3-D Siddon line integrals of a volume, with K19 (the same source), its
-  adjoint, as the backward pass; :func:`cone_cg_recon` and
-  :func:`cone_pwls_recon` iterate on the pair.
+  adjoint, as the backward pass: a gather over the walk transposed
+  (:func:`cone_transpose`, built by three kernels of that source);
+  :func:`cone_cg_recon` and :func:`cone_pwls_recon` iterate on the pair,
+  building the table once.
 
 The JAX backprojectors' ``orbit4``, ``pair_mode``, ``view_block``,
 ``bf16_taps`` and ``pair_seq`` options are TPU gather-count layouts of one
@@ -28,7 +30,9 @@ disc are the host's float64 values, as in the JAX programs.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import typing
 
 import numpy as np
 import torch
@@ -41,6 +45,7 @@ __all__ = ["WEIGHTINGS", "trace_paths_3d", "trace_paths_3d_plain",
            "_helical_backproject", "_helical_backproject_plain",
            "project_volume_3d", "project_volume_3d_plain",
            "project_volume_3d_adjoint", "project_volume_3d_adjoint_plain",
+           "ConeTranspose", "cone_transpose", "cone_transpose_plain",
            "cone_cg_recon", "cone_pwls_recon", "fdk_reconstruct",
            "fdk_tilted_reconstruct", "helical_fdk_reconstruct",
            "cone_material_paths", "cone_sinogram", "simulate_cone_dect"]
@@ -389,7 +394,7 @@ _fdk_backproject_multi.launches = 0
 
 def _helical_z(nz_out, dz_out, z0, device):
     """Slice centres of the JAX helical grid, in float32."""
-    return (torch.tensor(z0, dtype=torch.float32, device=device)
+    return (torch.full((), float(z0), dtype=torch.float32, device=device)
             + torch.arange(nz_out, dtype=torch.float32, device=device)
             * dz_out)
 
@@ -670,20 +675,271 @@ def _project_cuda(vol, src, dirs, dx, dy, dz, n_steps):
     return out.reshape(src.shape[:-1])
 
 
-def _adjoint_cuda(y, src, dirs, vol_shape, dx, dy, dz, n_steps):
-    dev = y.device
+# K19's table: the walk transposed, built once per (rays, grid, n_steps)
+# and read by every adjoint of an iterative loop.  A table that would take
+# more than _TABLE_BYTES is built and gathered per block of views, the
+# blocks' sums added in view order (a module constant, as ops/dose.py's
+# _T_BYTES), as is one whose longest run would not fit the build's sort (a
+# warp holds one cell's run in shared memory, 227 KB at most).
+_TABLE_BYTES = 6 << 30
+_MAX_RUN = 232448 // 8
+_SLICE = 32  # cells per slice of the table's layout
+
+
+class _TransposeBlock(typing.NamedTuple):
+    """The walk of one block of views transposed, as a sliced ELLPACK of
+    :data:`_SLICE` cells a slice: ``length`` [cells, rounded up to 32]
+    int32, the entries of each cell; ``offset`` [slices + 1] int64, the
+    first slot of each slice, 32 x its longest run apart; ``entries``
+    [slots, 2] int32, (ray, the segment's float32 bits): entry j of cell c
+    lies at ``offset[c // 32] + 32 j + c % 32``, a cell's entries in (step,
+    ray) order, padding slots (0, 0); ``nnz`` entries in all."""
+    length: torch.Tensor
+    offset: torch.Tensor
+    entries: torch.Tensor
+    nnz: int
+
+
+@dataclasses.dataclass(frozen=True)
+class ConeTranspose:
+    """K19's table (:func:`cone_transpose`): the nonzero segments of the
+    walk of ``n_rays`` rays through a ``vol_shape`` grid of ``voxel``
+    cells over ``n_steps`` steps, grouped by cell, in ``blocks`` of views
+    (:class:`_TransposeBlock`; one unless the table would pass
+    ``_TABLE_BYTES`` or a run ``_MAX_RUN``)."""
+    vol_shape: tuple
+    voxel: tuple
+    n_steps: int
+    n_rays: int
+    blocks: tuple
+
+    @property
+    def nnz(self):
+        return sum(b.nnz for b in self.blocks)
+
+    @property
+    def slots(self):
+        return sum(b.entries.shape[0] for b in self.blocks)
+
+    @property
+    def nbytes(self):
+        return sum(t.numel() * t.element_size() for b in self.blocks
+                   for t in b[:3])
+
+
+def _slice_offsets(length):
+    """The first slot of each slice of a table of these run lengths
+    (int64 [slices + 1])."""
+    longest = length.reshape(-1, _SLICE).amax(1).to(torch.int64)
+    offset = torch.zeros(longest.numel() + 1, dtype=torch.int64,
+                         device=length.device)
+    offset[1:] = torch.cumsum(_SLICE * longest, 0)
+    return offset
+
+
+def _transpose(src, dirs, n_steps, count, fill):
+    """The table of rays ``src``, ``dirs`` [..., 3] (float32), built per
+    block of views (the rays' leading axis): ``count(p, d)`` gives a block's
+    run lengths, ``fill(p, d, r0, length, offset, slots, longest)`` its
+    entries.  A block is halved while its table would pass
+    ``_TABLE_BYTES``, a run ``_MAX_RUN`` or its (step, ray) keys 32 bits;
+    sizing it reads three numbers back from the device."""
+    p, d = src.reshape(-1, 3), dirs.reshape(-1, 3)
+    n_views = src.shape[0] if src.dim() > 2 else p.shape[0]
+    per = p.shape[0] // max(n_views, 1)
+    blocks, todo = [], [(0, n_views)]  # views [v0, v1), the next one last
+    while todo:
+        v0, v1 = todo.pop()
+        r0, r1 = v0 * per, v1 * per
+        length = count(p[r0:r1], d[r0:r1])
+        offset = _slice_offsets(length)
+        nnz, slots, longest = torch.stack([
+            length.sum(dtype=torch.int64), offset[-1],
+            length.max().to(torch.int64)]).tolist()
+        if (slots * 8 <= _TABLE_BYTES and longest <= _MAX_RUN
+                and n_steps * (r1 - r0) < 2 ** 32):
+            blocks.append(_TransposeBlock(
+                length, offset,
+                fill(p[r0:r1], d[r0:r1], r0, length, offset, slots, longest),
+                nnz))
+        elif v1 - v0 > 1:
+            todo += [((v0 + v1) // 2, v1), (v0, (v0 + v1) // 2)]
+        else:
+            raise ValueError(f"the walk of one view does not fit K19's "
+                             f"table ({slots} slots, runs of up to "
+                             f"{longest}, {r1 - r0} rays x {n_steps} steps)")
+    return tuple(blocks)
+
+
+def _n_cells(vol_shape):
+    n = int(np.prod(vol_shape))
+    return n, -(-n // _SLICE) * _SLICE
+
+
+def _transpose_plain_entries(p, d, r0, length, offset, slots, vol_shape,
+                             grid, n_steps):
+    """One block's entries in plain PyTorch: the walk's nonzero entries in
+    (step, ray) order, stably sorted by cell."""
+    cells, rays, segs = [], [], []
+    ray = torch.arange(r0, r0 + p.shape[0], dtype=torch.int32,
+                       device=p.device)
+    for lin, seg in _walk_3d(vol_shape, p, d, *grid, n_steps):
+        keep = seg != 0
+        cells.append(lin[keep].to(torch.int32))
+        rays.append(ray[keep])
+        segs.append(seg[keep])
+    entries = torch.zeros((slots, 2), dtype=torch.int32, device=p.device)
+    if not cells:
+        return entries
+    cell, order = torch.sort(torch.cat(cells), stable=True)
+    del cells
+    row_ptr = torch.cumsum(length.to(torch.int64), 0) - length
+    slot = (offset[cell // _SLICE] + cell % _SLICE
+            + _SLICE * (torch.arange(cell.numel(), device=p.device)
+                        - row_ptr[cell]))
+    del cell
+    entries[slot, 0] = torch.cat(rays)[order]
+    del rays
+    entries[slot, 1] = torch.cat(segs)[order].view(torch.int32)
+    return entries
+
+
+def cone_transpose_plain(src, dirs, vol_shape, dx, dy, dz, *, n_steps=None):
+    """:func:`cone_transpose` in plain PyTorch, on the device of ``src``:
+    the float32 walk of :func:`_walk_3d` run twice per block (to count,
+    then to collect its nonzero entries in (step, ray) order), the entries
+    stably sorted by cell."""
+    vol_shape = tuple(int(n) for n in vol_shape)
+    grid = (float(dx), float(dy), float(dz))
+    k = _max_steps(vol_shape) if n_steps is None else int(n_steps)
+    src = src.to(torch.float32)
+    dirs = dirs.to(device=src.device, dtype=torch.float32)
+    _, n_pad = _n_cells(vol_shape)
+
+    def count(p, d):
+        length = torch.zeros(n_pad, dtype=torch.int64, device=p.device)
+        for lin, seg in _walk_3d(vol_shape, p, d, *grid, k):
+            length += torch.bincount(lin[seg != 0], minlength=n_pad)
+        return length.to(torch.int32)
+
+    def fill(p, d, r0, length, offset, slots, longest):
+        return _transpose_plain_entries(p, d, r0, length, offset, slots,
+                                        vol_shape, grid, k)
+
+    blocks = _transpose(src, dirs, k, count, fill)
+    return ConeTranspose(vol_shape, grid, k, src.numel() // 3, blocks)
+
+
+def _transpose_cuda(src, dirs, vol_shape, grid, k):
+    dev = src.device
     s2 = kernels.require(src.reshape(-1, 3), "src", dev, torch.float32)
     d2 = kernels.require(dirs.reshape(-1, 3), "dirs", dev, torch.float32,
                          s2.shape)
+    lib = kernels.library()
+    walk = _walk_args(vol_shape, *grid, k)
+    _, n_pad = _n_cells(vol_shape)
+    # the walks take a block's rays detector row by detector row
+    batch = src.shape[:-1]
+    rows, cols = batch[-2:] if len(batch) == 3 else (1, None)
+
+    def count(p, d):
+        length = torch.zeros(n_pad, dtype=torch.int32, device=dev)
+        rc = lib.dexct_cone_transpose_walk(
+            p.data_ptr(), d.data_ptr(), length.data_ptr(), None, None,
+            p.shape[0], rows, cols or p.shape[0], *walk, 0,
+            kernels.stream_ptr(dev))
+        kernels.check(rc, "cone_transpose_walk")
+        return length
+
+    def fill(p, d, r0, length, offset, slots, longest):
+        cursor = torch.zeros(n_pad, dtype=torch.int32, device=dev)
+        entries = torch.empty((slots, 2), dtype=torch.int32, device=dev)
+        rc = lib.dexct_cone_transpose_walk(
+            p.data_ptr(), d.data_ptr(), cursor.data_ptr(), offset.data_ptr(),
+            entries.data_ptr(), p.shape[0], rows, cols or p.shape[0], *walk,
+            1, kernels.stream_ptr(dev))
+        kernels.check(rc, "cone_transpose_walk")
+        rc = lib.dexct_cone_transpose_sort(
+            length.data_ptr(), offset.data_ptr(), entries.data_ptr(), n_pad,
+            longest, r0, p.shape[0], kernels.stream_ptr(dev))
+        kernels.check(rc, "cone_transpose_sort")
+        return entries
+
+    return _transpose(s2.reshape(src.shape), d2.reshape(src.shape), k,
+                      count, fill)
+
+
+def cone_transpose(src, dirs, vol_shape, dx, dy, dz, *, n_steps=None):
+    """K19's table for the rays ``src``, ``dirs`` [..., 3] through a
+    ``vol_shape`` grid of (dx, dy, dz) cells over ``n_steps`` steps
+    (default Nx + Ny + Nz + 2): a :class:`ConeTranspose`, on the rays'
+    device, for :func:`project_volume_3d_adjoint`'s ``table=``.
+
+    CUDA tensors run the build's kernels (``csrc/siddon_project_3d.cu``;
+    counted in ``cone_transpose.launches``, one per build): a counting
+    walk, a filling walk into the table and a sort of each cell's entries
+    in place.  A build walks every ray twice, reads back three numbers to
+    size each block of its table (one host synchronisation a block) and
+    holds the table, 8 bytes a slot, with no scratch beyond it: at
+    chip_smoke's cone config (1.47M rays through 256^2 x 32 cells) 4.3 GB,
+    built in ~46 ms on an H100 (700 W), some 30 gathers' time.  CPU
+    tensors run :func:`cone_transpose_plain`."""
+    vol_shape = tuple(int(n) for n in vol_shape)
+    _check_volume_shape(vol_shape)
+    k = _max_steps(vol_shape) if n_steps is None else int(n_steps)
+    grid = (float(dx), float(dy), float(dz))
+    if src.is_cuda:
+        blocks = _transpose_cuda(src, dirs, vol_shape, grid, k)
+        cone_transpose.launches += 1
+        return ConeTranspose(vol_shape, grid, k, src.numel() // 3, blocks)
+    if src.device.type != "cpu":
+        raise ValueError(f"unsupported device {src.device}")
+    return cone_transpose_plain(src, dirs, vol_shape, *grid, n_steps=k)
+
+
+cone_transpose.launches = 0
+
+
+def _adjoint_gather_plain(y, table):
+    """K19's gather in plain PyTorch over a table (on its device): each
+    cell's entries summed in table order from 0, the blocks' sums added in
+    view order; ``[Nz, Ny, Nx]`` float32."""
+    yf = y.reshape(-1).to(torch.float32)
+    n_cells, _ = _n_cells(table.vol_shape)
+    out = None
+    for b in table.blocks:
+        ray, seg = b.entries[:, 0].long(), b.entries[:, 1].view(torch.float32)
+        cell = torch.arange(b.length.numel(), device=yf.device)
+        base = b.offset[cell // _SLICE] + cell % _SLICE
+        acc = torch.zeros(b.length.numel(), dtype=torch.float32,
+                          device=yf.device)
+        for j in range(int(b.length.max()) if b.length.numel() else 0):
+            act = torch.nonzero(b.length > j).squeeze(1)
+            at = base[act] + _SLICE * j
+            acc[act] = acc[act] + seg[at] * yf[ray[at]]
+        out = acc[:n_cells] if out is None else out + acc[:n_cells]
+    return out.reshape(table.vol_shape)
+
+
+def _adjoint_cuda(y, table):
+    dev = y.device
     y2 = kernels.require(y.reshape(-1), "y", dev, torch.float32,
-                         (s2.shape[0],))
-    out = torch.zeros(vol_shape, dtype=torch.float32, device=dev)
-    rc = kernels.library().dexct_backproject_3d(
-        y2.data_ptr(), s2.data_ptr(), d2.data_ptr(), out.data_ptr(),
-        s2.shape[0], *_walk_args(vol_shape, dx, dy, dz, n_steps),
-        kernels.stream_ptr(dev))
-    kernels.check(rc, "backproject_3d")
-    project_volume_3d_adjoint.launches += 1
+                         (table.n_rays,))
+    n_cells, n_pad = _n_cells(table.vol_shape)
+    out = torch.empty(table.vol_shape, dtype=torch.float32, device=dev)
+    for i, b in enumerate(table.blocks):
+        length = kernels.require(b.length, "table length", dev, torch.int32,
+                                 (n_pad,))
+        offset = kernels.require(b.offset, "table offset", dev, torch.int64,
+                                 (n_pad // _SLICE + 1,))
+        entries = kernels.require(b.entries, "table entries", dev,
+                                  torch.int32)
+        rc = kernels.library().dexct_backproject_3d(
+            y2.data_ptr(), length.data_ptr(), offset.data_ptr(),
+            entries.data_ptr(), out.data_ptr(), n_cells, int(i > 0),
+            kernels.stream_ptr(dev))
+        kernels.check(rc, "backproject_3d")
+        project_volume_3d_adjoint.launches += 1
     return out
 
 
@@ -703,18 +959,33 @@ def _project(vol, src, dirs, dx, dy, dz, n_steps):
 
 
 def project_volume_3d_adjoint(y, src, dirs, vol_shape, dx, dy, dz, *,
-                              n_steps=None):
+                              n_steps=None, table=None):
     """A^T y: the exact adjoint of :func:`project_volume_3d` (the JAX
     package's ``jax.linear_transpose`` of it), ``y [...]`` over the rays'
-    batch shape -> ``[Nz, Ny, Nx]``.  CUDA tensors run kernel K19 (float32
-    atomic adds, counted in ``project_volume_3d_adjoint.launches``); CPU
-    tensors run :func:`project_volume_3d_adjoint_plain`."""
+    batch shape -> ``[Nz, Ny, Nx]``.
+
+    CUDA tensors run kernel K19 (counted in
+    ``project_volume_3d_adjoint.launches``, one per block of the table):
+    a gather over ``table``, the walk of these rays transposed
+    (:func:`cone_transpose`; built for this call when absent, which costs
+    more than the gather), each cell's products summed in the plain
+    version's order, so bit for bit its result, deterministic and without
+    atomics.  A table split into blocks of views (past ``_TABLE_BYTES`` or
+    ``_MAX_RUN``) adds the blocks' sums in view order: deterministic,
+    within rounding of the plain version.  CPU tensors run
+    :func:`project_volume_3d_adjoint_plain`, which needs no table."""
     vol_shape = tuple(int(n) for n in vol_shape)
     _check_volume_shape(vol_shape)
     k = _max_steps(vol_shape) if n_steps is None else int(n_steps)
     args = (float(dx), float(dy), float(dz))
     if y.is_cuda:
-        return _adjoint_cuda(y, src, dirs, vol_shape, *args, k)
+        if table is None:
+            table = cone_transpose(src, dirs, vol_shape, *args, n_steps=k)
+        elif (table.vol_shape, table.voxel, table.n_steps,
+              table.n_rays) != (vol_shape, args, k, src.numel() // 3):
+            raise ValueError("the table was built for other rays, grid or "
+                             "n_steps")
+        return _adjoint_cuda(y, table)
     if y.device.type != "cpu":
         raise ValueError(f"unsupported device {y.device}")
     return project_volume_3d_adjoint_plain(y, src, dirs, vol_shape, *args,
@@ -765,18 +1036,24 @@ project_volume_3d.launches = 0
 
 def _cone_operator(geometry, vol_shape, voxel, device):
     """(A, A^T) of a cone geometry's rays on ``device``: the projector and
-    its explicit adjoint, as the iterative loops call them."""
+    its explicit adjoint, as the iterative loops call them.  On the card
+    the first A^T builds K19's table (:func:`cone_transpose`) and every
+    later one reuses it."""
     src, dirs = (torch.as_tensor(np.asarray(x), dtype=torch.float32,
                                  device=device).contiguous()
                  for x in geometry.ray_geometry_3d())
     dx, dy, dz = (float(v) for v in voxel)
     shape = tuple(int(n) for n in vol_shape)
+    table = []
 
     def apply_fn(vol):
         return project_volume_3d(vol, src, dirs, dx, dy, dz)
 
     def adjoint_fn(y):
-        return project_volume_3d_adjoint(y, src, dirs, shape, dx, dy, dz)
+        if y.is_cuda and not table:
+            table.append(cone_transpose(src, dirs, shape, dx, dy, dz))
+        return project_volume_3d_adjoint(y, src, dirs, shape, dx, dy, dz,
+                                         table=table[0] if table else None)
 
     return apply_fn, adjoint_fn
 

@@ -50,7 +50,7 @@ def synthesize_low_dose(generator, counts, f, *, mode="poisson",
         raise ValueError(f"dose fraction f must be in (0, 1], got {f}")
     dev = device_of(counts, device)
     y = as_float(counts, dev)
-    ff = torch.tensor(f, dtype=y.dtype, device=dev)
+    ff = torch.full((), float(f), dtype=y.dtype, device=dev)
 
     def normal():
         return torch.randn(y.shape, generator=generator, dtype=y.dtype,

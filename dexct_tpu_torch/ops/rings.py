@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.devices import as_float, device_of
+from ..utils.devices import _scalar, as_float, device_of
 
 __all__ = ["sample_channel_gains", "apply_channel_gains",
            "air_calibration_gains", "ring_correct_sinogram",
@@ -72,9 +72,10 @@ def air_calibration_gains(counts_air, i0_expected, *, device=None):
     """Per-channel gains from an air scan [V, C]: the view mean over the
     forward model's air counts (scalar or [C])."""
     dev = device_of(counts_air, device)
-    i0 = i0_expected if np.isscalar(i0_expected) else as_float(
-        i0_expected, dev)
-    return torch.mean(as_float(counts_air, dev), dim=0) / i0
+    mean = torch.mean(as_float(counts_air, dev), dim=0)
+    i0 = _scalar(i0_expected, mean) if np.isscalar(i0_expected) else (
+        as_float(i0_expected, dev))
+    return mean / i0
 
 
 def ring_correct_sinogram(sino_log, half_width=2, clip=0.05, *,

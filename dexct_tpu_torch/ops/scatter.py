@@ -37,7 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils.devices import as_float, device_of
+from ..utils.devices import _scalar, as_float, device_of
 
 __all__ = ["scatter_kernel", "add_scatter", "correct_scatter",
            "scatter_fraction"]
@@ -90,8 +90,11 @@ def _spread(seed, kernel, row_kernel):
     return s
 
 
-def _as_air(air, dev):
-    return air if np.isscalar(air) else as_float(air, dev)
+def _as_air(air, like):
+    """The air counts as a tensor on ``like``'s device: a scalar as a 0-d
+    tensor of its dtype, filled there (``utils.devices._scalar``)."""
+    return _scalar(air, like) if np.isscalar(air) else as_float(air,
+                                                                like.device)
 
 
 def add_scatter(primary, air, kernel, *, spr=0.2, grid_p=0.95,
@@ -112,7 +115,7 @@ def add_scatter(primary, air, kernel, *, spr=0.2, grid_p=0.95,
     """
     dev = device_of(primary, device)
     primary = as_float(primary, dev)
-    air = _as_air(air, dev)
+    air = _as_air(air, primary)
     t = primary / air
     seed = primary * (1.0 - t)
     s = spr * _spread(seed, kernel, row_kernel)
@@ -132,15 +135,14 @@ def correct_scatter(measured, air, kernel, *, spr=0.2, grid_p=0.95,
     """
     dev = device_of(measured, device)
     measured = as_float(measured, dev)
-    air = _as_air(air, dev)
-    floor = 1e-6 * (air if torch.is_tensor(air)
-                    else torch.tensor(float(air), dtype=measured.dtype,
-                                      device=measured.device))
-    p = measured / grid_p
+    air = _as_air(air, measured)
+    floor = 1e-6 * air
+    gp = _scalar(grid_p, measured)
+    p = measured / gp
     for _ in range(n_iters):
         t = torch.clamp(p / air, 0.0, 1.0)
         s = spr * _spread(p * (1.0 - t), kernel, row_kernel)
-        p = torch.maximum((measured - grid_s * s) / grid_p, floor)
+        p = torch.maximum((measured - grid_s * s) / gp, floor)
     return p
 
 

@@ -222,7 +222,8 @@ def _view_geometry(betas, det_ga, sid, sdd, cone):
     [V, D, 2], float32 on the device of ``betas``: both routes read these
     same values.  ``det_ga`` is [D] fan angles (fan) or [D, 2] (fan
     angle, axial tangent) pairs (cone); fan elements sit at z = 0."""
-    sid_t = torch.tensor(sid, dtype=torch.float32, device=betas.device)
+    sid_t = torch.full((), float(sid), dtype=torch.float32,
+                       device=betas.device)
     zero = torch.zeros_like(betas)
     src = torch.stack([sid_t * torch.cos(betas), sid_t * torch.sin(betas),
                        zero], -1)
@@ -331,8 +332,9 @@ def _exit_plain(labels, pos, src, det, nrm, phi, w_x, col, f2w, tables, sc,
     kn = 0.5 * _R2 * ratio * ratio * (ratio + 1.0 / ratio - sin2)
     l_fine = torch.matmul(t_ex, mu_fine)  # [xb, db, F]
     f_max = float(np.float32(F - 1.001))
-    ef0 = torch.tensor(sc["ef0"], dtype=e_g.dtype, device=e_g.device)
-    de = torch.tensor(sc["def"], dtype=e_g.dtype, device=e_g.device)
+    ef0 = torch.full((), float(sc["ef0"]), dtype=e_g.dtype,
+                     device=e_g.device)
+    de = torch.full((), float(sc["def"]), dtype=e_g.dtype, device=e_g.device)
     fi = torch.clamp((e_p - ef0) / de, 0.0, f_max)
     fi0 = torch.floor(fi)
     wf = fi - fi0

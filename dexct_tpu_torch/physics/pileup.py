@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.devices import as_float, device_of
+from ..utils.devices import _scalar, as_float, device_of
 
 __all__ = ["recorded_rate", "true_rate", "bin_mean_energies",
            "bin_sum_redistribution", "apply_pileup_bins",
@@ -103,7 +103,7 @@ def apply_pileup_bins(counts, tau_ratio, sum_tensor, model="paralyzable",
     safe_tot = torch.clamp_min(n_tot, 1e-12)
     rho = torch.clamp_max(n_tot * tau_ratio, 1.0)  # guard deep saturation
     p = c / safe_tot
-    m_tot = recorded_rate(n_tot * tau_ratio, model) / tau_ratio
+    m_tot = recorded_rate(n_tot * tau_ratio, model) / _scalar(tau_ratio, c)
     return m_tot * ((1.0 - 0.5 * rho) * p + 0.5 * rho * _psum(s, p))
 
 
@@ -115,7 +115,7 @@ def correct_pileup_bins(recorded, tau_ratio, sum_tensor,
     r = _as_tensor(recorded, device)
     s = torch.as_tensor(sum_tensor, dtype=r.dtype, device=r.device)
     m_tot = torch.sum(r, dim=0, keepdim=True)
-    n_tot = true_rate(m_tot * tau_ratio, model) / tau_ratio
+    n_tot = true_rate(m_tot * tau_ratio, model) / _scalar(tau_ratio, r)
     rho = torch.clamp_max(n_tot * tau_ratio, 1.0)
     q = r / torch.clamp_min(m_tot, 1e-12)  # recorded fractions
     p = q

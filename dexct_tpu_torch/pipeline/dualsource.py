@@ -30,6 +30,7 @@ import torch
 from ..ops import spectral as sp_ops
 from ..ops.scatter import _conv_channels, scatter_kernel
 from ..ops.siddon import material_path_sinogram
+from ..utils.devices import _scalar
 from .api import DectResult, get_basismat_sinos, get_recon, get_sino
 
 __all__ = ["align_tube_b", "add_cross_scatter", "correct_cross_scatter",
@@ -44,17 +45,6 @@ def align_tube_b(sino_b_time, offset_views):
     common grid: a ring roll over the full rotation.
     """
     return torch.roll(sino_b_time, int(offset_views), dims=0)
-
-
-def _scalar(v, like):
-    """A Python or NumPy scalar ``v`` as a 0-d tensor of ``like``'s dtype
-    on its device, filled there (``torch.full``; a host copy would
-    synchronise the stream); a tensor passes through.  On CUDA, PyTorch
-    divides by a Python scalar as a product with its reciprocal, which
-    rounds differently from the CPU's division."""
-    if isinstance(v, torch.Tensor):
-        return v
-    return torch.full((), float(v), dtype=like.dtype, device=like.device)
 
 
 def add_cross_scatter(counts_a, counts_b, air_a, air_b, kernel, *,

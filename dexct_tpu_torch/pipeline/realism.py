@@ -33,7 +33,7 @@ import torch
 
 from ..ops import spectral as sp_ops
 from ..ops.siddon import material_path_sinogram
-from ..utils.devices import as_float, device_of
+from ..utils.devices import _scalar, as_float, device_of
 from .api import DectResult, get_basismat_sinos, get_recon
 
 __all__ = ["Stage", "apply_chain", "correct_chain",
@@ -92,7 +92,7 @@ def stage_scatter(air, kernel, *, spr=0.2, grid_p=0.95, grid_s=0.2,
                   n_iters=3):
     from ..ops.scatter import add_scatter, correct_scatter
 
-    k = np.asarray(kernel)
+    k = kernel if torch.is_tensor(kernel) else np.asarray(kernel)
     return Stage(
         "scatter",
         lambda c: add_scatter(c, _on(air, c), k, spr=spr, grid_p=grid_p,
@@ -114,13 +114,10 @@ def stage_physics_scatter(scatter_sino, *, grid_p=1.0, grid_s=1.0,
     s_est = s_true if estimate is None else estimate
 
     def corr(c):
+        c = c if c.is_floating_point() else c.to(torch.float32)
         s = _on(s_est, c)
-        # a tensor divisor: on CUDA, PyTorch divides by a Python scalar as
-        # a product with its reciprocal, which rounds differently
-        gp = torch.as_tensor(grid_p, device=c.device,
-                             dtype=c.dtype if c.is_floating_point()
-                             else torch.float32)
-        return torch.clamp_min(c / gp - (grid_s / grid_p) * s, 0.0)
+        return torch.clamp_min(
+            c / _scalar(grid_p, c) - (grid_s / grid_p) * s, 0.0)
 
     return Stage("physics_scatter",
                  lambda c: grid_p * c + grid_s * _on(s_true, c),
@@ -153,8 +150,8 @@ def stage_pileup(tau_ratio, model="nonparalyzable"):
 
     return Stage(
         "pileup",
-        lambda c: recorded_rate(c * tau_ratio, model) / tau_ratio,
-        lambda c: true_rate(c * tau_ratio, model) / tau_ratio)
+        lambda c: recorded_rate(c * tau_ratio, model) / _scalar(tau_ratio, c),
+        lambda c: true_rate(c * tau_ratio, model) / _scalar(tau_ratio, c))
 
 
 def simulate_dect_realistic(ct, phantom, spec1, spec2, N_matrix, FOV,

@@ -30,6 +30,17 @@ def as_float(x, device):
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
 
+def _scalar(v, like):
+    """A Python or NumPy scalar ``v`` as a 0-d tensor of ``like``'s dtype
+    on its device, filled there (``torch.full``; a host copy would
+    synchronise the stream); a tensor passes through.  On CUDA, PyTorch
+    divides by a Python scalar as a product with its reciprocal, which
+    rounds differently from the CPU's division."""
+    if isinstance(v, torch.Tensor):
+        return v
+    return torch.full((), float(v), dtype=like.dtype, device=like.device)
+
+
 def check_float32(dtype):
     """Accept the JAX signatures' ``dtype=`` keyword where the port works
     in float32 only: ``None`` and float32 (torch's or NumPy's) pass,

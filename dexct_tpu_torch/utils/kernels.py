@@ -136,12 +136,18 @@ _SIGNATURES = {
     # and xi (three each), nz, ny, nx, stream
     "dexct_trilinear_sample": (_P,) * 5 + (_I,) + (_L,) * 12 + (_I,) * 3
                               + (_P,),
-    # vol (or y), src, dirs, out (or vol), n_rays, nx, ny, nz, x0, y0, z0,
-    # x1, y1, z1, dx, dy, dz, eps, n_steps, stream
+    # vol, src, dirs, out, n_rays, nx, ny, nz, x0, y0, z0, x1, y1, z1, dx,
+    # dy, dz, eps, n_steps, stream
     "dexct_project_3d": (_P, _P, _P, _P, _L, _I, _I, _I) + (_F,) * 10
                         + (_I, _P),
-    "dexct_backproject_3d": (_P, _P, _P, _P, _L, _I, _I, _I) + (_F,) * 10
-                            + (_I, _P),
+    # src, dirs, count, offset, rec, n_rays, rows, cols, nx, ny, nz, x0,
+    # y0, z0, x1, y1, z1, dx, dy, dz, eps, n_steps, fill, stream
+    "dexct_cone_transpose_walk": (_P,) * 5 + (_L,) + (_I,) * 5 + (_F,) * 10
+                                 + (_I, _I, _P),
+    # length, offset, rec, n_cells, longest, r0, n_rays, stream
+    "dexct_cone_transpose_sort": (_P,) * 3 + (_L, _I, _L, _L, _P),
+    # y, length, offset, rec, vol, n_cells, accumulate, stream
+    "dexct_backproject_3d": (_P,) * 5 + (_L, _I, _P),
     # par, thetas, cos_t, sin_t, X, Y, sel, zc, out, nT, nt, R, P, nz,
     # plane, sid, row_h, pitch, z0_src, t0, dt, dtheta, qp, nqp, taper, hdet,
     # th_lo, th_hi, stream

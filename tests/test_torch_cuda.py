@@ -806,7 +806,7 @@ def test_project_volume_3d_adjoint_matches_plain(dev):
     assert project_volume_3d_adjoint.launches == before + 1
     want = project_volume_3d_adjoint_plain(y, src, dirs, shape, 0.5, 0.5,
                                            0.5)
-    # atomics add in no fixed order
+    # the plain version on the card adds with atomic index_add_
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-4 * float(want.abs().max()))
     lhs = float((project_volume_3d(x, src, dirs, 0.5, 0.5, 0.5)
@@ -818,6 +818,160 @@ def test_project_volume_3d_adjoint_matches_plain(dev):
     torch.testing.assert_close(x.grad, want, rtol=0,
                                atol=1e-4 * float(want.abs().max()))
 
+
+
+def _k19_case(dev, case):
+    """K19's inputs: ``"tiny"`` (48 x 8 x 64 rays through 12 x 40 x 40
+    cells of 0.5 cm) or ``"cone_subset"`` (every 30th view of
+    chip_smoke.py's cone config, 360 x 16 x 256 rays, through its 32 x
+    256 x 256 grid of 0.2 cm)."""
+    from dexct_tpu_torch.system import ConeBeamGeometry
+
+    if case == "tiny":
+        src, dirs = _cone_rays(dev)
+        shape, vox = (12, 40, 40), (0.5, 0.5, 0.5)
+    else:
+        ct = ConeBeamGeometry(N_channels=256, N_proj=360, N_rows=16,
+                              gamma_fan=0.8230337, SID=60.0, SDD=100.0,
+                              h_iso=0.25)
+        src, dirs = (torch.as_tensor(x[::30], dtype=torch.float32,
+                                     device=dev).contiguous()
+                     for x in ct.ray_geometry_3d())
+        shape, vox = (32, 256, 256), (0.2, 0.2, 0.2)
+    rng = np.random.default_rng(27)
+    y = torch.as_tensor(rng.normal(size=src.shape[:-1]), dtype=torch.float32,
+                        device=dev)
+    return src, dirs, y, shape, vox
+
+
+@pytest.mark.parametrize("case", ["tiny", "cone_subset"])
+def test_k19_is_the_cpu_plain_version_bit_for_bit(dev, case):
+    """K19 over its cached table: two launches bit-equal, each equal to the
+    plain version run on the CPU (index_add_ one step after another) bit
+    for bit, the dot-product identity against K18 within rel 1e-4; one
+    build and one gather launch a call."""
+    from dexct_tpu_torch.ops import conebeam as cb
+
+    src, dirs, y, shape, vox = _k19_case(dev, case)
+    builds, gathers = cb.cone_transpose.launches, \
+        cb.project_volume_3d_adjoint.launches
+    table = cb.cone_transpose(src, dirs, shape, *vox)
+    got = cb.project_volume_3d_adjoint(y, src, dirs, shape, *vox, table=table)
+    again = cb.project_volume_3d_adjoint(y, src, dirs, shape, *vox,
+                                         table=table)
+    torch.cuda.synchronize()
+    assert cb.cone_transpose.launches == builds + 1
+    assert cb.project_volume_3d_adjoint.launches == gathers + 2
+    assert len(table.blocks) == 1 and table.nnz > 0
+    assert torch.equal(got, again)
+    want = cb.project_volume_3d_adjoint_plain(y.cpu(), src.cpu(), dirs.cpu(),
+                                              shape, *vox)
+    assert torch.equal(got.cpu(), want)
+    x = torch.as_tensor(np.random.default_rng(28).normal(size=shape),
+                        dtype=torch.float32, device=dev)
+    lhs = float((cb.project_volume_3d(x, src, dirs, *vox).double()
+                 * y.double()).sum())
+    rhs = float((x.double() * got.double()).sum())
+    assert abs(lhs - rhs) <= 1e-4 * abs(lhs)
+
+
+def test_k19_table_is_the_plain_builders(dev):
+    """The build's kernels (counting walk, filling walk, sort of each cell's
+    run) give the plain builder's table, run on the CPU, field for field:
+    the runs, the slices' offsets, and every slot's ray and segment (the
+    padding slots zero)."""
+    from dexct_tpu_torch.ops import conebeam as cb
+
+    src, dirs, _, shape, vox = _k19_case(dev, "tiny")
+    got = cb.cone_transpose(src, dirs, shape, *vox)
+    want = cb.cone_transpose_plain(src.cpu(), dirs.cpu(), shape, *vox)
+    assert got.nnz == want.nnz and got.slots == want.slots
+    for g, w in zip(got.blocks[0][:3], want.blocks[0][:3]):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_k19_direct_call_builds_its_table(dev):
+    """Without a table K19 builds one for the call: one build, one gather,
+    the same bits as with a cached table; a table of other rays' count or
+    another n_steps is refused."""
+    from dexct_tpu_torch.ops import conebeam as cb
+
+    src, dirs, y, shape, vox = _k19_case(dev, "tiny")
+    table = cb.cone_transpose(src, dirs, shape, *vox)
+    builds, gathers = cb.cone_transpose.launches, \
+        cb.project_volume_3d_adjoint.launches
+    got = cb.project_volume_3d_adjoint(y, src, dirs, shape, *vox)
+    assert cb.cone_transpose.launches == builds + 1
+    assert cb.project_volume_3d_adjoint.launches == gathers + 1
+    assert torch.equal(got, cb.project_volume_3d_adjoint(
+        y, src, dirs, shape, *vox, table=table))
+    with pytest.raises(ValueError, match="other rays"):
+        cb.project_volume_3d_adjoint(y, src, dirs, shape, *vox, n_steps=30,
+                                     table=table)
+    with pytest.raises(ValueError, match="other rays"):
+        cb.project_volume_3d_adjoint(y[:4], src[:4], dirs[:4], shape, *vox,
+                                     table=table)
+
+
+def test_k19_view_blocks_are_the_plain_blocks(dev, monkeypatch):
+    """Under a table budget that splits the views into blocks, the card's
+    blocks are the plain builder's, its gather equals the plain gather over
+    the CPU's table bit for bit (each block's sums added in view order),
+    and the plain version within 1e-5 of its largest value."""
+    from dexct_tpu_torch.ops import conebeam as cb
+
+    monkeypatch.setattr(cb, "_TABLE_BYTES", 2_000_000)
+    src, dirs, y, shape, vox = _k19_case(dev, "tiny")
+    table = cb.cone_transpose(src, dirs, shape, *vox)
+    cpu = cb.cone_transpose_plain(src.cpu(), dirs.cpu(), shape, *vox)
+    assert len(table.blocks) == len(cpu.blocks) > 1
+    before = cb.project_volume_3d_adjoint.launches
+    got = cb.project_volume_3d_adjoint(y, src, dirs, shape, *vox, table=table)
+    assert (cb.project_volume_3d_adjoint.launches
+            == before + len(table.blocks))
+    assert torch.equal(got.cpu(), cb._adjoint_gather_plain(y.cpu(), cpu))
+    want = cb.project_volume_3d_adjoint_plain(y.cpu(), src.cpu(), dirs.cpu(),
+                                              shape, *vox)
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def test_k19_gather_does_not_synchronise(dev):
+    """With its table built, K19 runs without a host synchronisation."""
+    from dexct_tpu_torch.ops import conebeam as cb
+
+    src, dirs, y, shape, vox = _k19_case(dev, "tiny")
+    table = cb.cone_transpose(src, dirs, shape, *vox)
+    cb.project_volume_3d_adjoint(y, src, dirs, shape, *vox, table=table)
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cb.project_volume_3d_adjoint(y, src, dirs, shape, *vox, table=table)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+def test_cone_cg_recon_builds_once_and_repeats_its_bits(dev):
+    """``cone_cg_recon`` on the card builds K19's table once for all its
+    adjoints and gives the same bits twice."""
+    from dexct_tpu_torch.ops import conebeam as cb
+    from dexct_tpu_torch.system import ConeBeamGeometry
+
+    ct = ConeBeamGeometry(N_channels=32, N_proj=48, N_rows=4, SID=60.0,
+                          SDD=100.0, h_iso=0.5)
+    sino = torch.as_tensor(np.random.default_rng(29).uniform(
+        0.5, 2.0, (48, 4, 32)), dtype=torch.float32, device=dev)
+    runs = []
+    for _ in range(2):
+        builds, gathers = cb.cone_transpose.launches, \
+            cb.project_volume_3d_adjoint.launches
+        runs.append(cb.cone_cg_recon(sino, ct, (4, 24, 24), (1.0, 1.0, 1.0),
+                                     n_iters=6))
+        assert cb.cone_transpose.launches == builds + 1
+        assert cb.project_volume_3d_adjoint.launches == gathers + 8
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 def test_pi_backproject_matches_plain(dev):
     from dexct_tpu_torch.ops.helical_pi import (_conepar_rebin_plan,
@@ -1950,6 +2104,166 @@ def test_physics_scatter_correction_divides_as_the_cpu(dev):
     stage = stage_physics_scatter(s, grid_p=0.7, grid_s=0.3)
     assert torch.equal(stage.correct(c.to(dev)).cpu(), stage.correct(c))
 
+
+# the realism chain's counts and a Python-float air count, and a
+# resolving time putting the counts at ~0.1 dead time
+_REALISM_AIR, _REALISM_TAU = 3187654.321, 3.3333e-8
+
+
+def _realism_counts():
+    rng = np.random.default_rng(31)
+    return torch.as_tensor(rng.uniform(1e2, 3e6, (48, 64)),
+                           dtype=torch.float32)
+
+
+@pytest.mark.parametrize("fn", ["add_scatter", "correct_scatter"])
+def test_scatter_with_scalar_air_divides_as_the_cpu(dev, fn):
+    """``add_scatter`` and ``correct_scatter`` with a Python-float air count
+    (as the realism chain's scatter stage passes it) divide by it and by
+    ``grid_p`` as the CPU does: bit for bit, through a one-tap kernel
+    (exact on both devices; cuDNN and the CPU add a wider kernel's taps in
+    other orders)."""
+    from dexct_tpu_torch.ops import scatter
+
+    c = _realism_counts()
+    assert not torch.equal(c / torch.tensor(_REALISM_AIR),
+                           c * (1.0 / _REALISM_AIR))
+    kern = np.ones(1, np.float32)
+    kw = dict(spr=0.7, grid_p=0.93, grid_s=0.3)
+    call = getattr(scatter, fn)
+    want = call(c, _REALISM_AIR, kern, **kw)
+    got = call(c.to(dev), _REALISM_AIR, torch.as_tensor(kern, device=dev),
+               **kw)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_pileup_stage_divides_as_the_cpu(dev):
+    """The realism chain's pileup stage (non-paralyzable: no exp, whose
+    float32 results differ between the devices) divides by ``tau_ratio``
+    as the CPU does: apply and correct bit for bit."""
+    from dexct_tpu_torch.pipeline.realism import stage_pileup
+
+    c = _realism_counts()
+    stage = stage_pileup(_REALISM_TAU)
+    m = c * _REALISM_TAU
+    assert not torch.equal(m / torch.tensor(_REALISM_TAU),
+                           m * (1.0 / _REALISM_TAU))
+    want = stage.apply(c)
+    assert torch.equal(stage.apply(c.to(dev)).cpu(), want)
+    assert torch.equal(stage.correct(want.to(dev)).cpu(),
+                       stage.correct(want))
+
+
+@pytest.mark.parametrize("fn", ["apply_pileup_bins", "correct_pileup_bins"])
+def test_pileup_bins_divide_as_the_cpu(dev, fn):
+    """The PCD's per-bin pileup and its inversion (non-paralyzable) divide
+    by ``tau_ratio`` as the CPU does: bit for bit."""
+    from dexct_tpu_torch.physics import pileup
+
+    rng = np.random.default_rng(32)
+    counts = torch.as_tensor(rng.uniform(1e3, 1e5, (4, 48, 64)),
+                             dtype=torch.float32)
+    s = pileup.bin_sum_redistribution([20.0, 34.0, 50.0, 70.0],
+                                      [27.0, 42.0, 60.0, 80.0])
+    call = getattr(pileup, fn)
+    want = call(counts, 1.2345e-6, s, "nonparalyzable")
+    got = call(counts.to(dev), 1.2345e-6, s, "nonparalyzable")
+    assert torch.equal(got.cpu(), want)
+
+
+def test_nlpv_bias_divides_as_the_cpu(dev, monkeypatch):
+    """``nlpv_bias_sinogram`` divides by the air counts as a 0-d tensor on
+    the card: its result is the card's log of the CPU's quotients (the
+    sub-ray counts fixed in place of K2's, whose rounding differs from the
+    plain counts'; the two devices' float32 logs are other functions, each
+    within an ulp, so the quotients are what the division decides)."""
+    from dexct_tpu_torch.ops import aperture
+
+    rng = np.random.default_rng(33)
+    c = torch.as_tensor(rng.uniform(1e2, 1e6, (3, 48, 64)),
+                        dtype=torch.float32)
+    i0 = rng.uniform(10.0, 1e5, 40).astype(np.float32)
+    monkeypatch.setattr(aperture, "_counts", lambda counts, mu, i0e: counts)
+    got = aperture.nlpv_bias_sinogram(c.to(dev), None, i0)
+    air = torch.as_tensor(i0).sum()
+    assert not torch.equal(c / air, c * (1.0 / float(air)))
+    q = torch.clamp_min(c, 1e-30) / air
+    qm = torch.clamp_min(torch.mean(c.to(dev), 0), 1e-30).cpu() / air
+    want = (torch.mean(-torch.log(q.to(dev)), 0)
+            - -torch.log(qm.to(dev)))
+    assert torch.equal(got, want)
+
+
+def test_air_calibration_gains_divide_as_the_cpu(dev):
+    """``air_calibration_gains`` with a scalar expected air count divides
+    the card's view mean by it as the CPU divides."""
+    from dexct_tpu_torch.ops.rings import air_calibration_gains
+
+    rng = np.random.default_rng(34)
+    air = torch.as_tensor(rng.uniform(2.9e6, 3.3e6, (256, 256)),
+                          dtype=torch.float32, device=dev)
+    got = air_calibration_gains(air, _REALISM_AIR)
+    mean = torch.mean(air, 0).cpu()
+    want = mean / torch.tensor(_REALISM_AIR)
+    assert not torch.equal(want, mean * (1.0 / _REALISM_AIR))
+    assert torch.equal(got.cpu(), want)
+
+
+def _no_sync(call):
+    """Run ``call`` once, then again with the host forbidden to synchronise
+    with the card (a host copy of a scalar would)."""
+    call()
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+@pytest.mark.parametrize("step", ["apply", "correct"])
+@pytest.mark.parametrize("stage", ["scatter", "pileup", "physics_scatter"])
+def test_realism_stages_do_not_synchronise(dev, stage, step):
+    """The scatter, pileup and physics-scatter stages with Python-float
+    air, ``tau_ratio`` and ``grid_p`` fill their divisors on the card: with
+    the counts (and the scatter kernel) there, no host copy."""
+    from dexct_tpu_torch.ops.scatter import scatter_kernel
+    from dexct_tpu_torch.pipeline import realism
+
+    c = _realism_counts().to(dev)
+    if stage == "scatter":
+        st = realism.stage_scatter(_REALISM_AIR, torch.as_tensor(
+            scatter_kernel(64, sigma_ch=8.0), device=dev))
+    elif stage == "pileup":
+        st = realism.stage_pileup(_REALISM_TAU)
+    else:
+        st = realism.stage_physics_scatter(c * 0.01, grid_p=0.7, grid_s=0.3)
+    _no_sync(lambda: getattr(st, step)(c))
+
+
+@pytest.mark.parametrize("site", ["helical_z", "view_geometry_fan",
+                                  "view_geometry_cone", "low_dose"])
+def test_scalar_uploads_do_not_synchronise(dev, site):
+    """The scalars of ``_helical_z`` (z0), ``_view_geometry`` (sid) and
+    ``synthesize_low_dose`` (the dose fraction; Poisson thinning) are
+    filled on the card, not copied from the host."""
+    from dexct_tpu_torch.ops import conebeam, lowdose, scatter_physics
+
+    if site == "helical_z":
+        call = lambda: conebeam._helical_z(19, 0.2, -1.8, dev)  # noqa: E731
+    elif site.startswith("view_geometry"):
+        cone = site.endswith("cone")
+        betas = torch.linspace(0.0, 6.0, 20, device=dev)
+        g = torch.linspace(-0.4, 0.4, 33, device=dev)
+        det = torch.stack([g, g * 0.1], -1) if cone else g
+        call = lambda: scatter_physics._view_geometry(  # noqa: E731
+            betas, det, 60.0, 100.0, cone)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(35)
+        c = _realism_counts().to(dev)
+        call = lambda: lowdose.synthesize_low_dose(gen, c, 0.37)  # noqa: E731
+    _no_sync(call)
 
 @pytest.mark.parametrize("n_tab,dtype", [(800, torch.float32),
                                          (512 * 512, torch.int32),

@@ -288,8 +288,11 @@ KERNELS = {
                        "max abs <= 1e-4 x max |plain|"),
     "kb_sample_adjoint": ("cuda", "dexct_tpu_torch/csrc/kb_sample.cu",
                           "dexct_tpu/ops/fourier.py:258",
-                          "max abs <= 1e-5 x max |plain|; <K7 F, g> = "
-                          "<F, K21 g> to rel 1e-5"),
+                          "max abs <= 1e-5 x max |plain| (the card's plain "
+                          "version adds with atomic index_add_); bitwise "
+                          "equal to the CPU's plain version; two launches "
+                          "bitwise equal; <K7 F, g> = <F, K21 g> to rel "
+                          "1e-5"),
     "resample_to_fan_adjoint": ("cuda",
                                 "dexct_tpu_torch/csrc/gather_taps.cu",
                                 "dexct_tpu/ops/fourier.py:397",
@@ -4571,20 +4574,25 @@ def autograd_adjoint(A, n):
 
 
 def fourier_adjoint_kernel_phase(cfg, records, dev):
-    """Phase 3, the Fourier projector's adjoints, at the two plans the
-    paths run them on: the reference protocol's phantom grid (256^2 at 0.2
-    cm, G = 512, n_theta = 1024, 1000 x 800 rays; one image, as the 2-D
+    """Phase 3, the Fourier projector's adjoints, at the plans the paths
+    run them on: the reference protocol's phantom grid (256^2 at 0.2 cm, G
+    = 512, n_theta = 1024, 1000 x 800 rays; one image, as the 2-D
     iterative path runs them; recorded) and the one-step path's 512^2
     reconstruction grid over 50 cm (G = 1024, 1024 x 513 samples; two basis
-    images).  At each, K21 and K22 against their plain versions (1e-5 x
-    max) and, through the dot-product identity, against K7 and K8 (1e-5);
-    at the reference plan <A x, y> = <x, A^T y> for the whole chain, and
-    one A^T explicit (K22, the FFT chain's adjoint, K21) against autograd's
-    (a forward pass, then its backward).  The library yardsticks are the
-    transposed tap matrices as CSR products (complex for K21)."""
+    images); K21 also at the motion joint fit's (the same grid at n_theta
+    = 512, one image).  At each, K21 and K22 against their plain versions
+    (1e-5 x max), bit for bit against the CPU's ``index_add_`` and two
+    launches against each other, and, through the dot-product identity,
+    against K7 and K8 (1e-5); each one's transposed taps built once (host
+    clock) and its device time (CUDA graph); at the reference plan <A x,
+    y> = <x, A^T y> for the whole chain, and one A^T explicit (K22, the FFT
+    chain's adjoint, K21) against autograd's (a forward pass, then its
+    backward).  The library yardsticks are the transposed tap matrices as
+    CSR products (complex for K21)."""
     import torch
 
     from dexct_tpu_torch.ops import fourier, iterative
+    from dexct_tpu_torch.tools import probe_kb_adjoint
 
     gen = torch.Generator(device=dev).manual_seed(7)
 
@@ -4600,10 +4608,45 @@ def fourier_adjoint_kernel_phase(cfg, records, dev):
         G = plan.grid
         tabs = (plan.slice_idx, plan.slice_w, plan.phase_cos, plan.phase_sin)
         g = crandn((M,) + tuple(plan.phase_cos.shape))
+        # the plan's transposed taps, built once (host clock, synchronised)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kb_t = fourier.kb_transpose(plan)
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
         F_adj, want, ms, pms = compare(
-            lambda: fourier.kb_sample_adjoint(g, *tabs, G),
+            lambda: fourier.kb_sample_adjoint(g, *tabs, G, kb_t=kb_t),
             lambda: fourier.kb_sample_adjoint_plain(g, *tabs, G), reps=5)
         err, big = max_err(F_adj, want)
+        again = fourier.kb_sample_adjoint(g, *tabs, G, kb_t=kb_t)
+        if not torch.equal(again, F_adj):
+            fail("two launches of K21 differ")
+        cpu = fourier.kb_sample_adjoint_plain(g.cpu(),
+                                              *(t.cpu() for t in tabs), G)
+        if not torch.equal(F_adj.cpu(), cpu):
+            fail(f"K21 is not bit-equal to the CPU's index_add_ ({label}; "
+                 f"max diff {max_err(F_adj.cpu(), cpu)[0]:.3g})")
+        del cpu
+        per_call_ms = time_ms(
+            lambda: fourier.kb_sample_adjoint(g, *tabs, G), 3)
+        dev_ms = graph_ms(
+            lambda: fourier.kb_sample_adjoint(g, *tabs, G, kb_t=kb_t))
+        # the rows over 256 taps alone (the cells around DC), the others
+        # empty: the in-order sums' longest chains
+        long_t, n_long, _ = probe_kb_adjoint.long_rows(fourier, kb_t, G * G)
+        long_ms = graph_ms(
+            lambda: fourier.kb_sample_adjoint(g, *tabs, G, kb_t=long_t))
+        del long_t
+        t_bytes = nbytes(kb_t.row_ptr, kb_t.entries, kb_t.rows, kb_t.ell,
+                         kb_t.ell_offset)
+        print(f"  kb_sample_adjoint ({label}): transpose built in "
+              f"{build_ms:.3f} ms (host clock; {t_bytes} B, "
+              f"{kb_t.entries.shape[0]} taps, {kb_t.n_long} rows a warp "
+              f"each), K21's device time {dev_ms:.4f} ms (CUDA graph of 20 "
+              f"calls), the {n_long} rows over 256 taps "
+              f"alone {long_ms:.4f} ms, with a transpose built per call "
+              f"{per_call_ms:.4f} ms; two launches bitwise equal; bit-equal "
+              f"to the CPU index_add_: yes")
         F = crandn((M, G, G))
         lhs, rhs = rdot(fourier.kb_sample(F, *tabs), g), rdot(F, F_adj)
         ident = abs(lhs - rhs) / abs(lhs)
@@ -4695,7 +4738,8 @@ def fourier_adjoint_kernel_phase(cfg, records, dev):
     # K21: 1024 x 257 samples into the G = 512 spectrum
     g = check_k21(plan, 1, "reference plan, 1 image", True)
     # the DC hot spot: every line's l = 0 and l = 1 windows add into the
-    # same 16 cells; the same launch without those 2 n_theta samples
+    # same 16 cells; the same launch without those 2 n_theta samples (over
+    # their own transpose, built once)
     S = plan.slice_idx.numel()
     nth, nl = plan.phase_cos.shape
     cut = (g[:, :, 2:].contiguous(),
@@ -4703,9 +4747,12 @@ def fourier_adjoint_kernel_phase(cfg, records, dev):
            plan.slice_w.reshape(nth, nl, 16)[:, 2:].contiguous(),
            plan.phase_cos[:, 2:].contiguous(),
            plan.phase_sin[:, 2:].contiguous())
+    cut_t = fourier._kb_transpose_taps(cut[1], cut[2], G)
+    cut_ms = time_ms(lambda: fourier.kb_sample_adjoint(*cut, G, kb_t=cut_t),
+                     5)
     print(f"  kb_sample_adjoint without the l < 2 samples ({2 * nth} of {S}):"
-          f" {time_ms(lambda: fourier.kb_sample_adjoint(*cut, G), 5):.4f} ms")
-    del cut
+          f" {cut_ms:.4f} ms")
+    del cut, cut_t
     # K22: 8e5 fan rays into the 1024 x 1024 Radon transform
     check_k22(plan, 1, "reference plan, 1 image", True)
 
@@ -4744,6 +4791,14 @@ def fourier_adjoint_kernel_phase(cfg, records, dev):
              "2 images")
     check_k21(plan, 2, label, False)
     check_k22(plan, 2, label, False)
+    del plan
+
+    # the motion joint fit's plan (estimate_motion_joint's n_theta = 512):
+    # K21 on one image
+    plan = fourier.plan_fourier_projector(recon_grid(cfg), cfg.ct,
+                                          n_theta=512, device=dev)
+    check_k21(plan, 1, f"motion plan, G = {plan.grid}, n_theta 512, 1 image",
+              False)
 
 
 def dose_work(args, three_d):

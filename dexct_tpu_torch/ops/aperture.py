@@ -18,7 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..utils.devices import _scalar
+from ..utils.devices import _scalar, upload
 from .siddon import material_path_sinogram
 
 __all__ = ["finite_aperture_paths", "aperture_counts",
@@ -49,11 +49,9 @@ def finite_aperture_paths(phantom, geometry, n_sub=4, *, device=None,
 def _counts(paths_sub, mu_table, i0_eff):
     from .spectral import counts_from_paths
 
-    dev = paths_sub.device
-    return counts_from_paths(
-        paths_sub, torch.as_tensor(mu_table, dtype=torch.float32,
-                                   device=dev),
-        torch.as_tensor(i0_eff, dtype=torch.float32, device=dev))
+    f32 = torch.float32
+    return counts_from_paths(paths_sub, upload(mu_table, paths_sub, f32),
+                             upload(i0_eff, paths_sub, f32))
 
 
 def aperture_counts(paths_sub, mu_table, i0_eff):

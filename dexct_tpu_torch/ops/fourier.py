@@ -19,9 +19,11 @@ The projector of images (:func:`fourier_project_images`) is
 differentiable: the backward passes of steps 2 and 4 are their adjoints
 (:func:`kb_sample_adjoint`, K21, and :func:`resample_to_fan_adjoint`, K22,
 on the card), where the JAX package transposes them with
-``jax.linear_transpose`` and ``jax.grad``.  K22 gathers over the fan taps
-transposed into a CSR over the Radon bins, built once per plan on the
-plan's device (:func:`fan_transpose`).
+``jax.linear_transpose`` and ``jax.grad``.  Both gather over the plan's taps
+transposed, built once per plan on the plan's device at the first adjoint:
+K22 over the fan taps as a CSR over the Radon bins (:func:`fan_transpose`),
+K21 over the sampler's 16 taps as a CSR over the spectrum's cells
+(:func:`kb_transpose`).
 
 Accuracy is set by the KB gridding parameters (oversampling σ=2, W=4:
 ~1e-3 relative).  The host part (KB kernel, plan tables) is the JAX
@@ -33,6 +35,7 @@ layout of the same sum and selects nothing here.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -59,6 +62,8 @@ __all__ = [
     "resample_to_fan_adjoint_plain",
     "fan_transpose",
     "plan_fan_adjoint",
+    "KBTranspose",
+    "kb_transpose",
 ]
 
 
@@ -144,6 +149,9 @@ class FourierProjectorPlan:
     # the fan taps transposed, (row_ptr, ray, w): built by fan_transpose at
     # the adjoint's first use
     fan_t: tuple | None = None
+    # the sampler's taps transposed: built by kb_transpose at the adjoint's
+    # first use
+    kb_t: KBTranspose | None = None
 
 
 def plan_fourier_projector(phantom, geometry, n_theta=1024, *, device):
@@ -374,46 +382,171 @@ def kb_sample_adjoint_plain(spec_grad, slice_idx, slice_w, phase_cos,
     return torch.complex(table[:M], table[M:]).reshape(M, grid, grid)
 
 
+# rows of the transposed taps longer than this go to a warp each in K21
+# (the cells around DC, where every line's first windows land); shorter
+# rows to a thread each, which takes its taps KB_BATCH at a time
+KB_WARP_ROW = 64
+KB_BATCH = 8
+_KB_SLICE = 32  # rows a slice of the short rows' ELLPACK
+
+
+@dataclasses.dataclass
+class KBTranspose:
+    """The sampler's taps transposed into a CSR over the spectrum's G^2
+    cells, K21's table (:func:`kb_transpose`).
+
+    ``row_ptr`` [G^2 + 1] int32; ``entries`` [16 S, 2] int32, per tap its
+    sample s and its weight's float32 bits, each cell's taps in the stable
+    (cell, s * 16 + k) order; ``rows`` [G^2] int32, the cells by
+    decreasing count of ``KB_BATCH``-tap batches (stable, so cells of one
+    count stay in cell order); ``n_long`` the number of cells with more
+    than :data:`KB_WARP_ROW` taps, the first ``n_long`` of ``rows``.  The
+    other rows' entries also stand in a sliced ELLPACK, ``ell`` [slots, 2]
+    int32: the short row of rank i (``rows[n_long + i]``) holds its j-th
+    tap at ``ell_offset[i // 32] + 32 j + i % 32``, each slice of 32 rows
+    padded to its longest, so that 32 neighbouring threads read 256
+    contiguous bytes."""
+
+    row_ptr: torch.Tensor
+    entries: torch.Tensor
+    rows: torch.Tensor
+    n_long: int
+    ell: torch.Tensor
+    ell_offset: torch.Tensor
+
+    @property
+    def sample(self):
+        return self.entries[:, 0]
+
+    @property
+    def weight(self):
+        return self.entries[:, 1].view(torch.float32)
+
+
+def _pack_kb_transpose(cells, sample, weight, n_cells):
+    """A :class:`KBTranspose` from its taps' cells (ascending), samples
+    and float32 weights, in that order.  Reads two counts back to the host
+    (``n_long`` and the ELLPACK's slots)."""
+    if cells.numel() >= 2 ** 31:
+        raise ValueError(f"{cells.numel()} sampler taps do not fit int32 "
+                         "offsets")
+    dev = cells.device
+    length = torch.bincount(cells, minlength=n_cells)
+    starts = torch.cumsum(length, 0) - length
+    row_ptr = torch.zeros(n_cells + 1, dtype=torch.int32, device=dev)
+    row_ptr[1:] = torch.cumsum(length, 0)
+    entries = torch.stack([sample.to(torch.int32),
+                           weight.to(torch.float32).view(torch.int32)], 1)
+    batches = torch.div(length + KB_BATCH - 1, KB_BATCH,
+                        rounding_mode="floor")
+    rows = torch.sort(batches, descending=True, stable=True).indices
+    n_long = int((length > KB_WARP_ROW).sum())
+    # the short rows' slices: each as wide as its longest row
+    short = rows[n_long:]
+    n_slices = -(-short.numel() // _KB_SLICE)
+    width = torch.zeros(n_slices * _KB_SLICE, dtype=torch.int64, device=dev)
+    width[:short.numel()] = length[short]
+    width = width.reshape(n_slices, _KB_SLICE).amax(1)
+    ell_offset = torch.zeros(n_slices + 1, dtype=torch.int64, device=dev)
+    ell_offset[1:] = torch.cumsum(_KB_SLICE * width, 0)
+    slots = int(ell_offset[-1])
+    if slots >= 2 ** 31:
+        raise ValueError(f"{slots} ELLPACK slots do not fit int32 offsets")
+    rank = torch.full((n_cells,), -1, dtype=torch.int64, device=dev)
+    rank[short] = torch.arange(short.numel(), device=dev)
+    r = rank[cells]
+    on = torch.nonzero(r >= 0).squeeze(1)
+    r = r[on]
+    pos = (ell_offset[torch.div(r, _KB_SLICE, rounding_mode="floor")]
+           + _KB_SLICE * (on - starts[cells[on]]) + r % _KB_SLICE)
+    ell = torch.zeros((slots, 2), dtype=torch.int32, device=dev)
+    ell[pos] = entries[on]
+    return KBTranspose(row_ptr, entries, rows.to(torch.int32), n_long, ell,
+                       ell_offset.to(torch.int32))
+
+
+def _kb_transpose_taps(slice_idx, slice_w, grid):
+    """The sampler's 16 taps per sample transposed, in plain PyTorch on
+    their device: a stable sort of the taps' cells (the window base
+    clamped into [0, G^2) as K7 clamps it, the offsets wrapped mod G), so
+    each cell's taps run in increasing p = s * 16 + k, the order in which
+    ``index_add_`` on the CPU adds them."""
+    n_cells = grid * grid
+    base = slice_idx.reshape(-1).to(torch.int64).clamp(0, n_cells - 1)
+    cells = _window_indices(base, grid).reshape(-1)
+    order = torch.sort(cells, stable=True).indices
+    return _pack_kb_transpose(
+        cells[order], torch.div(order, 16, rounding_mode="floor"),
+        slice_w.reshape(-1)[order], n_cells)
+
+
+def kb_transpose(plan: FourierProjectorPlan):
+    """The plan's sampler taps transposed (:class:`KBTranspose`), built on
+    the plan's device at the first call and kept on the plan: K21's table,
+    8 bytes a tap and again for the short rows' (~70 MB at G = 512,
+    n_theta = 1024).  The forward projector never needs it."""
+    if plan.kb_t is None:
+        plan.kb_t = _kb_transpose_taps(plan.slice_idx, plan.slice_w,
+                                       plan.grid)
+    return plan.kb_t
+
+
 def _kb_sample_adjoint_cuda(spec_grad, slice_idx, slice_w, phase_cos,
-                            phase_sin, grid):
+                            phase_sin, grid, kb_t):
     dev = spec_grad.device
     M = spec_grad.shape[0]
     n_theta, nl = phase_cos.shape
     S = n_theta * nl
+    n_cells = int(grid) * int(grid)
+    if kb_t is None:
+        kb_t = _kb_transpose_taps(slice_idx, slice_w, int(grid))
     g = kernels.require(spec_grad, "spec_grad", dev, torch.complex64,
                         (M, n_theta, nl))
-    base = kernels.require(slice_idx.reshape(-1), "slice_idx", dev,
-                           torch.int32, (S,))
-    w = kernels.require(slice_w.reshape(-1), "slice_w", dev, torch.float32,
-                        (S * 16,))
     kernels.require(phase_cos, "phase_cos", dev, torch.float32)
     kernels.require(phase_sin, "phase_sin", dev, torch.float32,
                     (n_theta, nl))
-    out = torch.zeros((M, grid, grid), dtype=torch.complex64, device=dev)
+    row_ptr = kernels.require(kb_t.row_ptr, "kb_t row_ptr", dev,
+                              torch.int32, (n_cells + 1,))
+    entries = kernels.require(kb_t.entries, "kb_t entries", dev, torch.int32,
+                              (16 * S, 2))
+    rows = kernels.require(kb_t.rows, "kb_t rows", dev, torch.int32,
+                           (n_cells,))
+    n_slices = -(-(n_cells - kb_t.n_long) // _KB_SLICE)
+    ell = kernels.require(kb_t.ell, "kb_t ell", dev, torch.int32)
+    ell_offset = kernels.require(kb_t.ell_offset, "kb_t ell_offset", dev,
+                                 torch.int32, (n_slices + 1,))
+    # each sample's conjugate-phased values, images side by side (in pairs
+    # beyond one image)
+    z = torch.empty(S * (1 if M == 1 else 2 * ((M + 1) // 2)),
+                    dtype=torch.complex64, device=dev)
+    out = torch.empty((M, grid, grid), dtype=torch.complex64, device=dev)
     rc = kernels.library().dexct_kb_sample_adjoint(
-        g.data_ptr(), base.data_ptr(), w.data_ptr(), phase_cos.data_ptr(),
-        phase_sin.data_ptr(), out.data_ptr(), S, M, int(grid),
-        kernels.stream_ptr(dev))
+        g.data_ptr(), row_ptr.data_ptr(), entries.data_ptr(),
+        rows.data_ptr(), ell.data_ptr(), ell_offset.data_ptr(),
+        phase_cos.data_ptr(), phase_sin.data_ptr(), z.data_ptr(),
+        out.data_ptr(), S, M, n_cells, kb_t.n_long, kernels.stream_ptr(dev))
     kernels.check(rc, "kb_sample_adjoint")
     kb_sample_adjoint.launches += 1
     return out
 
 
 def kb_sample_adjoint(spec_grad, slice_idx, slice_w, phase_cos, phase_sin,
-                      grid):
+                      grid, *, kb_t=None):
     """The adjoint of :func:`kb_sample`: complex samples [M, nθ, nl] ->
     the spectra's gradient [M, G, G], as torch's autograd pairs re and im
     (the JAX package gets the same real operator from
-    ``jax.linear_transpose``).  CUDA tensors run kernel K21 (float32 atomic
-    adds, counted in ``kb_sample_adjoint.launches``); CPU tensors run
-    :func:`kb_sample_adjoint_plain`."""
+    ``jax.linear_transpose``).  CUDA tensors run kernel K21 (counted in
+    ``kb_sample_adjoint.launches``), a gather over the transposed taps
+    ``kb_t`` (:func:`kb_transpose` of the plan; built for this call when
+    absent), bit for bit :func:`kb_sample_adjoint_plain` on the CPU; CPU
+    tensors run :func:`kb_sample_adjoint_plain`, which needs no ``kb_t``."""
     if spec_grad.dim() != 3 or spec_grad.shape[1:] != phase_cos.shape:
         raise ValueError(f"spec_grad must be [M, {phase_cos.shape[0]}, "
                          f"{phase_cos.shape[1]}], got "
                          f"{tuple(spec_grad.shape)}")
     if spec_grad.is_cuda:
         return _kb_sample_adjoint_cuda(spec_grad, slice_idx, slice_w,
-                                       phase_cos, phase_sin, grid)
+                                       phase_cos, phase_sin, grid, kb_t)
     if spec_grad.device.type != "cpu":
         raise ValueError(f"unsupported device {spec_grad.device}")
     return kb_sample_adjoint_plain(spec_grad, slice_idx, slice_w, phase_cos,
@@ -424,19 +557,24 @@ kb_sample_adjoint.launches = 0
 
 
 class _KBSample(torch.autograd.Function):
-    """The sampler (K7) with its adjoint (K21) as the backward pass."""
+    """The sampler (K7) with its adjoint (K21) as the backward pass.
+    ``kb_t``: a callable that returns K21's table, called at a backward
+    pass on the card (the forward pass builds nothing); None builds one
+    per call there."""
 
     @staticmethod
-    def forward(ctx, F, slice_idx, slice_w, phase_cos, phase_sin):
+    def forward(ctx, F, slice_idx, slice_w, phase_cos, phase_sin, kb_t=None):
         ctx.save_for_backward(slice_idx, slice_w, phase_cos, phase_sin)
         ctx.grid = F.shape[-1]
+        ctx.kb_t = kb_t
         return kb_sample(F, slice_idx, slice_w, phase_cos, phase_sin)
 
     @staticmethod
     def backward(ctx, grad):
+        kb_t = ctx.kb_t() if ctx.kb_t is not None and grad.is_cuda else None
         g = kb_sample_adjoint(grad.contiguous(), *ctx.saved_tensors,
-                              ctx.grid)
-        return g, None, None, None, None
+                              ctx.grid, kb_t=kb_t)
+        return g, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -632,15 +770,18 @@ def _spectrum(imgs, deapod, grid, n_img):
 
 def _radon_from_images(imgs, deapod, slice_idx, slice_w, phase_cos,
                        phase_sin, scale, *, n_theta, nt, grid, n_img,
-                       packed_table=True):
+                       packed_table=True, kb_t=None):
     """Radon transforms of an image stack [K, N, N] -> [K, nθ, nt].
 
     ``packed_table`` chooses between two TPU table layouts of the same
-    sampler in the JAX package; it is accepted and ignored.
+    sampler in the JAX package; it is accepted and ignored.  ``kb_t``: a
+    callable that returns the sampler's transposed taps for a backward
+    pass on the card (see :class:`_KBSample`).
     """
     del packed_table
     F = _spectrum(imgs, deapod, grid, n_img)
-    spec = _KBSample.apply(F, slice_idx, slice_w, phase_cos, phase_sin)
+    spec = _KBSample.apply(F, slice_idx, slice_w, phase_cos, phase_sin,
+                           kb_t)
     if spec.shape[1] != n_theta:
         raise ValueError(f"phase tables hold {spec.shape[1]} lines, "
                          f"n_theta={n_theta}")
@@ -659,12 +800,16 @@ def _onehot_images(labels, n_materials):
 
 
 def fourier_radon(plan: FourierProjectorPlan, images):
-    """Radon transforms [K, nθ, nt] of an image stack [K, N, N]."""
+    """Radon transforms [K, nθ, nt] of an image stack [K, N, N].  On the
+    card a backward pass runs K21 over the plan's cached transpose
+    (:func:`kb_transpose`, built at the first backward)."""
     return _radon_from_images(
         images, plan.deapod, plan.slice_idx, plan.slice_w,
         plan.phase_cos, plan.phase_sin, plan.scale,
         n_theta=plan.n_theta, nt=plan.nt, grid=plan.grid,
         n_img=plan.n_img,
+        kb_t=functools.partial(kb_transpose, plan)
+        if plan.slice_idx.is_cuda else None,
     )
 
 

@@ -25,8 +25,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.devices import _scalar
 from .fourier import (FourierProjectorPlan, fourier_project_images,
-                      kb_sample_adjoint, plan_fan_adjoint)
+                      kb_sample_adjoint, kb_transpose, plan_fan_adjoint)
 
 __all__ = ["make_projection_operator", "cg_recon", "sirt_recon",
            "pwls_recon", "pwls_weights"]
@@ -38,9 +39,8 @@ def pwls_weights(counts, *, sigma_e=0.0, var_ratio=1.0):
     y = -ln(N / N0) with var(N) = var_ratio N + sigma_e^2), in float32 on
     the device of ``counts``."""
     c = torch.clamp_min(torch.as_tensor(counts).to(torch.float32), 1e-30)
-    f32 = dict(dtype=torch.float32, device=c.device)
-    sig = torch.tensor(sigma_e, **f32)
-    w = c * c / (torch.tensor(var_ratio, **f32) * c + sig * sig)
+    sig = _scalar(sigma_e, c)
+    w = c * c / (_scalar(var_ratio, c) * c + sig * sig)
     return w / torch.clamp_min(w.mean(), 1e-30)
 
 
@@ -63,7 +63,8 @@ def _projection_adjoint(plan: FourierProjectorPlan, view_shape):
     ``irfft`` at n = nt (an ``rfft`` / nt of which the nl = G/2 + 1 bins
     are kept, bins 1..nl-1 weighted twice for their conjugate halves and
     the imaginary part of DC dropped), the sampler's adjoint (K21, the
-    conjugate phase), then the adjoint of the 2-D FFT of a real image (the
+    conjugate phase, over the plan's cached transposed taps on the card),
+    then the adjoint of the 2-D FFT of a real image (the
     real part of an unnormalized inverse FFT), of the roll, of the zero pad
     (a crop) and of the deapodization."""
     v, c = (int(n) for n in view_shape)
@@ -78,7 +79,9 @@ def _projection_adjoint(plan: FourierProjectorPlan, view_shape):
         spec = torch.cat([spec[..., :1].real.to(spec.dtype),
                           2.0 * spec[..., 1:]], -1)
         F = kb_sample_adjoint(spec, plan.slice_idx, plan.slice_w,
-                              plan.phase_cos, plan.phase_sin, grid)
+                              plan.phase_cos, plan.phase_sin, grid,
+                              kb_t=kb_transpose(plan) if spec.is_cuda
+                              else None)
         img = torch.fft.ifft2(F, norm="forward").real
         img = torch.roll(img, (half, half), dims=(-2, -1))[0, :n, :n]
         return img / plan.deapod

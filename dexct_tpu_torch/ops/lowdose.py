@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.devices import as_float, device_of
+from ..utils.devices import _scalar, as_float, device_of
 from .spectral import effective_fluence, second_moment_fluence
 
 __all__ = ["synthesize_low_dose", "quantum_var_ratio"]
@@ -75,8 +75,8 @@ def synthesize_low_dose(generator, counts, f, *, mode="poisson",
             raise ValueError("compound mode requires the per-ray var_q "
                              "(quantum variance of the input scan)")
         vq = as_float(var_q, dev).to(y.dtype)
-        se = torch.tensor(float(sigma_e), dtype=y.dtype, device=dev)
-        se0 = torch.tensor(float(sigma_e0), dtype=y.dtype, device=dev)
+        se = _scalar(float(sigma_e), y)
+        se0 = _scalar(float(sigma_e0), y)
         var_add = ff * (1.0 - ff) * vq + se ** 2 - ff * ff * se0 ** 2
         sigma_add = torch.sqrt(torch.clamp_min(var_add, 0.0))
         return torch.clamp_min(ff * y + sigma_add * normal(), 0.0)

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils.devices import _scalar, as_float, device_of
+from ..utils.devices import _scalar, as_float, device_of, upload
 
 __all__ = ["scatter_kernel", "add_scatter", "correct_scatter",
            "scatter_fraction"]
@@ -68,7 +68,7 @@ def _conv_axis(x, kernel, axis):
     the device of ``x``."""
     xm = torch.movedim(x, axis, -1)
     shape = xm.shape
-    k = torch.as_tensor(kernel, dtype=x.dtype, device=x.device)
+    k = upload(kernel, x)
     hw = (k.shape[0] - 1) // 2
     rows = xm.reshape(-1, 1, shape[-1])
     rows = F.pad(rows, (hw, hw), mode="replicate")

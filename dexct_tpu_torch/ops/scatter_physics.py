@@ -62,6 +62,7 @@ import torch
 
 from ..physics import formfactor, xcom
 from ..utils import kernels
+from ..utils.devices import _scalar, upload
 from .conebeam import labels_u8
 
 __all__ = [
@@ -186,8 +187,7 @@ def _march_plain(labels, p0, p1, n_steps, cell, n_mats):
              + 0.5) / n_steps
     frac = t0[..., None] + (t1 - t0)[..., None] * steps
     pts = p0[..., None, :] + seg[..., None, :] * frac[..., None]
-    f = [pts[..., a] / torch.tensor(cell[a], dtype=pts.dtype,
-                                    device=pts.device) + (shape[a] / 2 - 0.5)
+    f = [pts[..., a] / _scalar(cell[a], pts) + (shape[a] / 2 - 0.5)
          for a in range(dims)]
     i0 = [torch.floor(fa) for fa in f]
     w = [fa - ia for fa, ia in zip(f, i0)]
@@ -381,7 +381,7 @@ def _scatter_plain(labels, ne_w, f2w, cells, mu_gE, mu_fine, resp_fine,
     in torch, view by view, in blocks of ``x_block`` vertices x
     ``d_block`` elements: [V, D] float32."""
     sc, e_g = _scatter_scalars(scalars, cone)
-    e_g = torch.as_tensor(e_g, device=betas.device)
+    e_g = upload(e_g, betas)
     src, d0, det, nrm = _view_geometry(betas, det_ga, sc["sid"], sc["sdd"],
                                        cone)
     tables = (mu_fine, resp_fine, resp_g, e_g)
@@ -432,7 +432,7 @@ def _scatter_cuda(labels, ne_w, f2w, cells, mu_gE, mu_fine, resp_fine,
         raise ValueError("the fine energy and q grids need 2 points each")
     maxk = _max_k(n_mats)
     sc, e_g = _scatter_scalars(scalars, cone)
-    e_g_t = torch.as_tensor(e_g, device=dev)
+    e_g_t = upload(e_g, betas)
     src, d0, det, nrm = _view_geometry(betas, det_ga, sc["sid"], sc["sdd"],
                                        cone)
     D = det.shape[1]

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.devices import _scalar, as_float, device_of
+from ..utils.devices import _scalar, as_float, device_of, upload
 
 __all__ = ["recorded_rate", "true_rate", "bin_mean_energies",
            "bin_sum_redistribution", "apply_pileup_bins",
@@ -98,7 +98,7 @@ def apply_pileup_bins(counts, tau_ratio, sum_tensor, model="paralyzable",
     [M, ...]; ``tau_ratio = tau / T_view``; ``sum_tensor`` from
     :func:`bin_sum_redistribution`."""
     c = _as_tensor(counts, device)
-    s = torch.as_tensor(sum_tensor, dtype=c.dtype, device=c.device)
+    s = upload(sum_tensor, c)
     n_tot = torch.sum(c, dim=0, keepdim=True)
     safe_tot = torch.clamp_min(n_tot, 1e-12)
     rho = torch.clamp_max(n_tot * tau_ratio, 1.0)  # guard deep saturation
@@ -113,7 +113,7 @@ def correct_pileup_bins(recorded, tau_ratio, sum_tensor,
     then ``n_iters`` damped fixed-point sweeps unmixing the sum-energy
     routing (nonnegativity clamp and renormalization each sweep)."""
     r = _as_tensor(recorded, device)
-    s = torch.as_tensor(sum_tensor, dtype=r.dtype, device=r.device)
+    s = upload(sum_tensor, r)
     m_tot = torch.sum(r, dim=0, keepdim=True)
     n_tot = true_rate(m_tot * tau_ratio, model) / _scalar(tau_ratio, r)
     rho = torch.clamp_max(n_tot * tau_ratio, 1.0)

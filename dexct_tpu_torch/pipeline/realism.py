@@ -33,7 +33,7 @@ import torch
 
 from ..ops import spectral as sp_ops
 from ..ops.siddon import material_path_sinogram
-from ..utils.devices import _scalar, as_float, device_of
+from ..utils.devices import _scalar, as_float, device_of, upload
 from .api import DectResult, get_basismat_sinos, get_recon
 
 __all__ = ["Stage", "apply_chain", "correct_chain",
@@ -92,12 +92,23 @@ def stage_scatter(air, kernel, *, spr=0.2, grid_p=0.95, grid_s=0.2,
                   n_iters=3):
     from ..ops.scatter import add_scatter, correct_scatter
 
-    k = kernel if torch.is_tensor(kernel) else np.asarray(kernel)
+    if torch.is_tensor(kernel):
+        def k(c):
+            return kernel
+    else:
+        host, kept = torch.as_tensor(np.asarray(kernel)), {}
+
+        def k(c):  # a NumPy kernel goes to each device (and dtype) once
+            key = (c.device, c.dtype)
+            if key not in kept:
+                kept[key] = upload(host, c)
+            return kept[key]
+
     return Stage(
         "scatter",
-        lambda c: add_scatter(c, _on(air, c), k, spr=spr, grid_p=grid_p,
+        lambda c: add_scatter(c, _on(air, c), k(c), spr=spr, grid_p=grid_p,
                               grid_s=grid_s),
-        lambda c: correct_scatter(c, _on(air, c), k, spr=spr,
+        lambda c: correct_scatter(c, _on(air, c), k(c), spr=spr,
                                   grid_p=grid_p, grid_s=grid_s,
                                   n_iters=n_iters))
 

@@ -43,6 +43,7 @@ from ..ops import matdecomp as md_ops
 from ..ops import spectral as sp_ops
 from ..ops.siddon import material_path_sinogram
 from ..physics import xcom
+from ..utils.devices import upload
 from ..physics.pileup import (apply_pileup_bins, bin_mean_energies,
                               bin_sum_redistribution, correct_pileup_bins)
 from ..utils.devices import check_float32, device_of
@@ -105,6 +106,7 @@ def _acquire(counts, route, pileup_tau, pileup_model, correct_pileup,
     """Pileup on the expected counts [M, ...], Poisson (or other) noise,
     then the pileup inversion: (recorded, corrected)."""
     if pileup_tau > 0.0:
+        route = upload(route, counts)  # once for both pileup stages
         counts = apply_pileup_bins(counts, pileup_tau, route, pileup_model)
     if noise != "none":
         if generator is None:

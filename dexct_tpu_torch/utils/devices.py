@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["device_of", "as_float", "check_float32"]
+__all__ = ["device_of", "as_float", "upload", "check_float32"]
 
 
 def device_of(x, device):
@@ -39,6 +39,21 @@ def _scalar(v, like):
     if isinstance(v, torch.Tensor):
         return v
     return torch.full((), float(v), dtype=like.dtype, device=like.device)
+
+
+def upload(x, like, dtype=None):
+    """``x`` (a tensor, NumPy array, list or scalar) as a tensor of
+    ``dtype`` (default ``like``'s) on ``like``'s device.  A tensor already
+    there is kept (cast there if need be); host data bound for the card is
+    staged in pinned memory and copied asynchronously, so the stream is not
+    synchronised, as ``torch.as_tensor(..., device=cuda)`` would."""
+    dtype = like.dtype if dtype is None else dtype
+    if torch.is_tensor(x) and x.device == like.device:
+        return x.to(dtype)
+    t = torch.as_tensor(x, dtype=dtype)
+    if like.device.type != "cuda" or t.device.type != "cpu":
+        return t.to(like.device)
+    return t.pin_memory().to(like.device, non_blocking=True)
 
 
 def check_float32(dtype):

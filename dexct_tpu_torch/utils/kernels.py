@@ -94,8 +94,9 @@ _SIGNATURES = {
                                    _F, _F, _F, _F, _P),
     # F, base, w, phase_cos, phase_sin, out, S, M, G, stream
     "dexct_kb_sample": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # g, base, w, phase_cos, phase_sin, F, S, M, G, stream
-    "dexct_kb_sample_adjoint": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # g, row_ptr, entries, rows, ell, ell_offset, phase_cos, phase_sin, z,
+    # F, S, M, n_cells, n_long, stream
+    "dexct_kb_sample_adjoint": (_P,) * 10 + (_I,) * 4 + (_P,),
     # g, row_ptr, ray, w, radon, n_bins, M, stream
     "dexct_resample_to_fan_adjoint": (_P, _P, _P, _P, _P, _L, _I, _P),
     # tab, labels, src, dirs, out, n_rays, S, n_materials, stream

@@ -1092,6 +1092,102 @@ def test_kb_sample_adjoint_matches_plain(dev, M):
     assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
 
 
+def _kb_adjoint_case(dev, M, case, seed):
+    """K21's inputs: the tiny plan's tables, or a hot spot (every window
+    base among four cells of a G = 64 spectrum, so each of a few dozen
+    cells holds ~600 taps, over several of the warp's chunks)."""
+    rng = np.random.default_rng(seed)
+    if case == "plan":
+        plan = tiny_cases.fourier_plan(dev)
+        tabs = (plan.slice_idx, plan.slice_w, plan.phase_cos, plan.phase_sin)
+        G = plan.grid
+    else:
+        G, nth, nl = 64, 40, 30
+        base = rng.choice([0, 1, G, G + 1], size=(nth, nl))
+        tabs = (torch.as_tensor(base, dtype=torch.int32, device=dev),
+                torch.as_tensor(rng.uniform(0, 1, nth * nl * 16),
+                                dtype=torch.float32, device=dev),
+                *(torch.as_tensor(np.cos(rng.uniform(0, 6.3, (nth, nl)) + k),
+                                  dtype=torch.float32, device=dev)
+                  for k in (0.0, -np.pi / 2)))
+    g = torch.complex(*(torch.as_tensor(
+        rng.normal(size=(M,) + tuple(tabs[2].shape)), dtype=torch.float32,
+        device=dev) for _ in range(2)))
+    return g, tabs, G
+
+
+@pytest.mark.parametrize("case", ["plan", "hot"])
+@pytest.mark.parametrize("M", [1, 2, 3])
+def test_kb_sample_adjoint_gathers_deterministically(dev, M, case):
+    """K21 over the transposed taps: two launches give the same bits, the
+    cached transpose gives what a transpose built for the call gives, and
+    both equal the CPU's ``index_add_`` (the same products added into each
+    cell in the same order); one launch a call at every M (beyond two
+    images the kernel takes them in pairs)."""
+    from dexct_tpu_torch.ops.fourier import (_kb_transpose_taps,
+                                             kb_sample_adjoint,
+                                             kb_sample_adjoint_plain)
+
+    g, tabs, G = _kb_adjoint_case(dev, M, case, 50 + M)
+    kb_t = _kb_transpose_taps(tabs[0], tabs[1], G)
+    assert kb_t.n_long > 0
+    before = kb_sample_adjoint.launches
+    first = kb_sample_adjoint(g, *tabs, G, kb_t=kb_t)
+    second = kb_sample_adjoint(g, *tabs, G, kb_t=kb_t)
+    per_call = kb_sample_adjoint(g, *tabs, G)
+    torch.cuda.synchronize()
+    assert kb_sample_adjoint.launches == before + 3
+    assert torch.equal(first, second) and torch.equal(first, per_call)
+    want = kb_sample_adjoint_plain(g.cpu(), *(t.cpu() for t in tabs), G)
+    assert torch.equal(first.cpu(), want)
+
+
+def test_plan_kb_transpose_feeds_both_adjoints(dev):
+    """The plan's cached sampler transpose is built at the first adjoint
+    (not by the forward projector) and reused: the explicit A^T and
+    autograd's backward launch K21 over it, equal K21 over a transpose
+    built per call, and agree with each other within 1e-5 of the
+    largest value."""
+    from dexct_tpu_torch.ops import fourier, iterative
+
+    plan = tiny_cases.fourier_plan(dev)
+    vs = tiny_cases.VIEW_SHAPE
+    A = iterative.make_projection_operator(plan, vs)
+    x = torch.zeros((plan.n_img, plan.n_img), device=dev, requires_grad=True)
+    A(x)  # the forward pass alone builds nothing
+    assert plan.kb_t is None
+    gen = torch.Generator(device=dev).manual_seed(6)
+    y = torch.randn(vs, generator=gen, device=dev)
+    explicit = iterative._projection_adjoint(plan, vs)(y)
+    kb_t = plan.kb_t
+    assert kb_t is not None
+    before = fourier.kb_sample_adjoint.launches
+    (auto,) = torch.autograd.grad(A(x), x, y)
+    assert fourier.kb_sample_adjoint.launches == before + 1
+    assert plan.kb_t is kb_t
+    torch.testing.assert_close(auto, explicit, rtol=0,
+                               atol=1e-5 * float(explicit.abs().max()))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    g = torch.randn((1, plan.n_theta, plan.grid // 2 + 1, 2),
+                    generator=gen, device=dev)
+    g = torch.view_as_complex(g)
+    tabs = (plan.slice_idx, plan.slice_w, plan.phase_cos, plan.phase_sin)
+    cached = fourier.kb_sample_adjoint(g, *tabs, plan.grid, kb_t=kb_t)
+    per_call = fourier.kb_sample_adjoint(g, *tabs, plan.grid)
+    assert torch.equal(cached, per_call)
+
+
+def test_kb_sample_adjoint_makes_no_host_synchronisation(dev):
+    """A K21 call over a cached transpose copies nothing from the host and
+    reads nothing back."""
+    from dexct_tpu_torch.ops.fourier import kb_sample_adjoint, kb_transpose
+
+    plan = tiny_cases.fourier_plan(dev)
+    g, tabs, G = _kb_adjoint_case(dev, 2, "plan", 60)
+    kb_t = kb_transpose(plan)
+    _no_sync(lambda: kb_sample_adjoint(g, *tabs, G, kb_t=kb_t))
+
+
 def test_resample_to_fan_adjoint_matches_plain(dev):
     """K22 against its plain version (index_add_), and <K8 r, y> =
     <r, K22 y>."""
@@ -1186,8 +1282,8 @@ def test_plan_fan_transpose_feeds_both_adjoints(dev):
 def test_2d_iterative_and_onestep_cuda_match_cpu(dev, path):
     """The 2-D reconstructions and the one-step fit (K7, K8, K21, K22) on
     the card against the CPU, every input drawn once from one seed
-    (``utils.tiny_cases``; K21's atomics add in no fixed order: 1e-3 of
-    the largest value)."""
+    (``utils.tiny_cases``; cuFFT and K7/K8 round otherwise than the CPU,
+    and the loops amplify it: 1e-3 of the largest value)."""
     from dexct_tpu_torch.ops.fourier import kb_sample_adjoint
 
     want = tiny_cases.iterative_2d(path, "cpu")
@@ -2223,18 +2319,21 @@ def _no_sync(call):
 
 
 @pytest.mark.parametrize("step", ["apply", "correct"])
-@pytest.mark.parametrize("stage", ["scatter", "pileup", "physics_scatter"])
+@pytest.mark.parametrize("stage", ["scatter", "scatter_numpy", "pileup",
+                                   "physics_scatter"])
 def test_realism_stages_do_not_synchronise(dev, stage, step):
     """The scatter, pileup and physics-scatter stages with Python-float
     air, ``tau_ratio`` and ``grid_p`` fill their divisors on the card: with
-    the counts (and the scatter kernel) there, no host copy."""
+    the counts there, no host copy; a scatter kernel on the card is kept, a
+    NumPy one goes to the card once, at the stage's first call."""
     from dexct_tpu_torch.ops.scatter import scatter_kernel
     from dexct_tpu_torch.pipeline import realism
 
     c = _realism_counts().to(dev)
-    if stage == "scatter":
-        st = realism.stage_scatter(_REALISM_AIR, torch.as_tensor(
-            scatter_kernel(64, sigma_ch=8.0), device=dev))
+    if stage.startswith("scatter"):
+        k = scatter_kernel(64, sigma_ch=8.0)
+        st = realism.stage_scatter(_REALISM_AIR, k if stage.endswith("numpy")
+                                   else torch.as_tensor(k, device=dev))
     elif stage == "pileup":
         st = realism.stage_pileup(_REALISM_TAU)
     else:
@@ -2242,13 +2341,22 @@ def test_realism_stages_do_not_synchronise(dev, stage, step):
     _no_sync(lambda: getattr(st, step)(c))
 
 
-@pytest.mark.parametrize("site", ["helical_z", "view_geometry_fan",
-                                  "view_geometry_cone", "low_dose"])
+@pytest.mark.parametrize("site", [
+    "helical_z", "view_geometry_fan", "view_geometry_cone", "low_dose",
+    "low_dose_compound", "march_plain", "scatter_energies", "pileup_bins",
+    "aperture_counts", "scatter_kernel", "pwls_weights"])
 def test_scalar_uploads_do_not_synchronise(dev, site):
-    """The scalars of ``_helical_z`` (z0), ``_view_geometry`` (sid) and
-    ``synthesize_low_dose`` (the dose fraction; Poisson thinning) are
-    filled on the card, not copied from the host."""
-    from dexct_tpu_torch.ops import conebeam, lowdose, scatter_physics
+    """The scalars of ``_helical_z`` (z0), ``_view_geometry`` (sid),
+    ``synthesize_low_dose`` (the dose fraction; Poisson thinning and the
+    compound mode's electronic noise), the plain scatter march (the cell
+    sizes) and ``pwls_weights`` (sigma_e, the variance ratio) are filled
+    on the card, not copied from the host; NumPy
+    inputs (K26's energy grid, the bin pileup's sum routing, the aperture's
+    mu table and fluences, a scatter kernel) go to the card through pinned
+    memory, without a synchronisation."""
+    from dexct_tpu_torch.ops import (aperture, conebeam, iterative, lowdose,
+                                     scatter, scatter_physics)
+    from dexct_tpu_torch.physics import pileup
 
     if site == "helical_z":
         call = lambda: conebeam._helical_z(19, 0.2, -1.8, dev)  # noqa: E731
@@ -2259,10 +2367,59 @@ def test_scalar_uploads_do_not_synchronise(dev, site):
         det = torch.stack([g, g * 0.1], -1) if cone else g
         call = lambda: scatter_physics._view_geometry(  # noqa: E731
             betas, det, 60.0, 100.0, cone)
-    else:
+    elif site.startswith("low_dose"):
         gen = torch.Generator(device=dev).manual_seed(35)
         c = _realism_counts().to(dev)
-        call = lambda: lowdose.synthesize_low_dose(gen, c, 0.37)  # noqa: E731
+        kw = (dict(mode="compound", var_q=c, sigma_e=3.0, sigma_e0=1.5)
+              if site.endswith("compound") else {})
+        call = lambda: lowdose.synthesize_low_dose(  # noqa: E731
+            gen, c, 0.37, **kw)
+    elif site == "march_plain":
+        rng = np.random.default_rng(36)
+        labels = torch.as_tensor(rng.integers(0, 3, (1, 24, 24)),
+                                 dtype=torch.uint8, device=dev)
+        p0, p1 = (torch.as_tensor(rng.uniform(-6.0, 6.0, (40, 2)),
+                                  dtype=torch.float32, device=dev)
+                  for _ in range(2))
+        call = lambda: scatter_physics._march_plain(  # noqa: E731
+            labels, p0, p1, 16, (0.4, 0.4), 3)
+    elif site == "scatter_energies":
+        from dexct_tpu_torch.physics import kramers_spectrum
+        from dexct_tpu_torch.system import FanBeamGeometry
+
+        spec = kramers_spectrum(120.0)
+        spec.rescale_counts(1e6)
+        ct = FanBeamGeometry(N_channels=32, N_proj=4, gamma_fan=0.9,
+                             SID=60.0, SDD=100.0, h_iso=0.1, eid=True)
+        args, kw, _ = scatter_physics._sinogram_prep(
+            tiny_cases._three_materials(), ct, spec, coarse=2, n_energy=8,
+            n_fine=96, s_in=None, s_out=None, views=np.array([0.0, 2.0]),
+            channel_sub=1, z_index=None, coherent=True, n_q=48, device=dev)
+        call = lambda: scatter_physics._scatter_scan(  # noqa: E731
+            *args, **kw)
+    elif site == "pileup_bins":
+        c = _realism_counts().to(dev)[None].expand(3, -1, -1).contiguous()
+        route = pileup.bin_sum_redistribution([20.0, 40.0, 60.0],
+                                              [30.0, 50.0, 70.0])
+
+        def call():
+            rec = pileup.apply_pileup_bins(c, 0.05, route)
+            return pileup.correct_pileup_bins(rec, 0.05, route)
+    elif site == "aperture_counts":
+        rng = np.random.default_rng(37)
+        paths = torch.as_tensor(rng.uniform(0.0, 3.0, (2, 16, 24, 3)),
+                                dtype=torch.float32, device=dev)
+        mu = rng.uniform(0.1, 0.5, (3, 40))
+        i0 = rng.uniform(10.0, 1e4, 40)
+        call = lambda: aperture.aperture_counts(paths, mu, i0)  # noqa: E731
+    elif site == "scatter_kernel":
+        c = _realism_counts().to(dev)
+        k = scatter.scatter_kernel(64, sigma_ch=8.0)
+        call = lambda: scatter.add_scatter(c, _REALISM_AIR, k)  # noqa: E731
+    else:
+        c = _realism_counts().to(dev)
+        call = lambda: iterative.pwls_weights(  # noqa: E731
+            c, sigma_e=2.5, var_ratio=1.3)
     _no_sync(call)
 
 @pytest.mark.parametrize("n_tab,dtype", [(800, torch.float32),

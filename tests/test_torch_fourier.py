@@ -196,6 +196,171 @@ def test_fan_transpose_rows_are_in_stable_tap_order(plans, case):
     np.testing.assert_array_equal(w.numpy(), fan_w.numpy().reshape(-1)[order])
 
 
+def _spec_grad(tplan, m, seed):
+    rng = np.random.default_rng(seed)
+    shape = (m,) + tuple(tplan.phase_cos.shape)
+    return (rng.normal(size=shape).astype(np.float32),
+            rng.normal(size=shape).astype(np.float32))
+
+
+def _conj_phase(tplan, g_re, g_im):
+    """Each sample times the conjugate phase, as the plain adjoint forms
+    it: [2M, S], re rows first."""
+    s = tplan.phase_cos.numel()
+    g_re, g_im = (torch.as_tensor(a).reshape(-1, s) for a in (g_re, g_im))
+    pc, ps = (t.reshape(1, s) for t in (tplan.phase_cos, tplan.phase_sin))
+    return torch.cat([g_re * pc + g_im * ps, g_im * pc - g_re * ps])
+
+
+def test_kb_transpose_product_matches_plain_and_jax(plans):
+    """K21's table: the plan's 16 sampler taps transposed
+    (``kb_transpose``, built once and kept on the plan), as a CSR product
+    with the conjugate-phased samples, against the plain adjoint
+    (``index_add_``: 1e-6 of the largest value) and against
+    ``jax.linear_transpose`` of the JAX sampler (``dexct_tpu/ops/
+    fourier.py:_radon_from_images``' gather and tap sum, as a real map of
+    (re, im); the sampler's 1e-5 of the largest value)."""
+    import jax
+
+    jplan, tplan = plans
+    m, G = 2, tplan.grid
+    g_re, g_im = _spec_grad(tplan, m, 12)
+    assert tplan.kb_t is None
+    kb_t = t_fo.kb_transpose(tplan)
+    assert t_fo.kb_transpose(tplan) is kb_t and tplan.kb_t is kb_t
+    csr = torch.sparse_csr_tensor(kb_t.row_ptr.long(), kb_t.sample.long(),
+                                  kb_t.weight,
+                                  (G * G, tplan.phase_cos.numel()))
+    z = _conj_phase(tplan, g_re, g_im)
+    prod = (csr @ z.T).T  # [2M, G^2]
+    got = torch.complex(prod[:m], prod[m:]).reshape(m, G, G)
+    g = torch.complex(torch.as_tensor(g_re), torch.as_tensor(g_im))
+    plain = t_fo.kb_sample_adjoint_plain(g, tplan.slice_idx, tplan.slice_w,
+                                         tplan.phase_cos, tplan.phase_sin, G)
+    big = float(plain.abs().max())
+    assert big > 0.0
+    torch.testing.assert_close(got, plain, rtol=0, atol=1e-6 * big)
+
+    base = jnp.asarray(jplan.slice_idx).reshape(-1)
+    offs = jnp.arange(4, dtype=base.dtype)
+    vb, ub = (base // G)[:, None, None], (base % G)[:, None, None]
+    idx16 = (jnp.mod(vb + offs[None, None, :], G) * G
+             + jnp.mod(ub + offs[None, :, None], G)).reshape(-1)
+    w = jnp.asarray(jplan.slice_w).reshape(-1, 16)
+    pc = jnp.asarray(jplan.phase_cos).reshape(-1)
+    ps = jnp.asarray(jplan.phase_sin).reshape(-1)
+
+    def sampler(f_re, f_im):
+        rows = jnp.concatenate([f_re, f_im]).reshape(2 * m, G * G)[:, idx16]
+        s = jnp.einsum("sk,csk->cs", w, rows.reshape(2 * m, -1, 16),
+                       precision=jax.lax.Precision.HIGHEST)
+        z_re, z_im = s[:m], s[m:]
+        return z_re * pc - z_im * ps, z_re * ps + z_im * pc
+
+    zero = jnp.zeros((m, G, G), jnp.float32)
+    want_re, want_im = jax.linear_transpose(sampler, zero, zero)(
+        (jnp.asarray(g_re.reshape(m, -1)), jnp.asarray(g_im.reshape(m, -1))))
+    np.testing.assert_allclose(got.real.numpy(), np.asarray(want_re), rtol=0,
+                               atol=1e-5 * big)
+    np.testing.assert_allclose(got.imag.numpy(), np.asarray(want_im), rtol=0,
+                               atol=1e-5 * big)
+
+
+@pytest.mark.parametrize("case", ["plan", "clamped"])
+def test_kb_transpose_rows_are_in_stable_tap_order(plans, case):
+    """Each cell's taps run in the stable (cell, s * 16 + k) order, the
+    order in which ``index_add_`` on the CPU adds them; row_ptr is the
+    cells' bincount summed; samples are p // 16 and weights slice_w[p];
+    the rows are listed by decreasing count of ``KB_BATCH``-tap batches
+    (stable), those over ``KB_WARP_ROW`` taps first; the short rows' taps
+    stand again in the sliced ELLPACK, row i's tap j at ell_offset[i // 32]
+    + 32 j + i % 32; window bases outside the spectrum are clamped as K7
+    clamps them."""
+    _, tplan = plans
+    if case == "plan":
+        slice_idx, slice_w, G = tplan.slice_idx, tplan.slice_w, tplan.grid
+    else:
+        rng = np.random.default_rng(13)
+        G = 8
+        slice_idx = torch.as_tensor(rng.integers(-20, G * G + 20, (6, 7)),
+                                    dtype=torch.int32)
+        slice_w = torch.as_tensor(rng.uniform(0, 1, 6 * 7 * 16),
+                                  dtype=torch.float32)
+    kb_t = t_fo._kb_transpose_taps(slice_idx, slice_w, G)
+    base = np.clip(slice_idx.numpy().reshape(-1), 0, G * G - 1)
+    offs = np.arange(4)
+    cells = (np.mod(base[:, None, None] // G + offs[None, None, :], G) * G
+             + np.mod(base[:, None, None] % G + offs[None, :, None], G))
+    cells = cells.reshape(-1)
+    order = np.argsort(cells, kind="stable")
+    length = np.bincount(cells, minlength=G * G)
+    assert kb_t.row_ptr.dtype == kb_t.entries.dtype == torch.int32
+    assert kb_t.rows.dtype == torch.int32
+    np.testing.assert_array_equal(kb_t.row_ptr.numpy(),
+                                  np.concatenate([[0], np.cumsum(length)]))
+    np.testing.assert_array_equal(kb_t.sample.numpy(), order // 16)
+    np.testing.assert_array_equal(kb_t.weight.numpy(),
+                                  slice_w.numpy().reshape(-1)[order])
+    batches = -(-length // t_fo.KB_BATCH)
+    rows = np.argsort(-batches, kind="stable")
+    np.testing.assert_array_equal(kb_t.rows.numpy(), rows)
+    n_long = int((length > t_fo.KB_WARP_ROW).sum())
+    assert kb_t.n_long == n_long
+    assert (length[rows[:n_long]] > t_fo.KB_WARP_ROW).all()
+    if case == "plan":
+        assert n_long > 0
+    ell, off = kb_t.ell.numpy(), kb_t.ell_offset.numpy()
+    assert off.shape == (-(-(G * G - n_long) // 32) + 1,) and off[0] == 0
+    entries, row_ptr = kb_t.entries.numpy(), kb_t.row_ptr.numpy()
+    for i, c in enumerate(rows[n_long:]):
+        at = off[i // 32] + 32 * np.arange(length[c]) + i % 32
+        np.testing.assert_array_equal(ell[at],
+                                      entries[row_ptr[c]:row_ptr[c + 1]])
+
+
+def test_kb_transpose_in_order_sum_is_index_add(plans):
+    """Each cell's products summed from 0 in the table's order, as K21 sums
+    them on the card, give the plain adjoint's ``index_add_`` bit for
+    bit."""
+    _, tplan = plans
+    m, G = 2, tplan.grid
+    g_re, g_im = _spec_grad(tplan, m, 14)
+    kb_t = t_fo._kb_transpose_taps(tplan.slice_idx, tplan.slice_w, G)
+    prod = _conj_phase(tplan, g_re, g_im)[:, kb_t.sample.long()] * kb_t.weight
+    length = kb_t.row_ptr[1:] - kb_t.row_ptr[:-1]
+    start = kb_t.row_ptr[:-1].long()
+    acc = torch.zeros(2 * m, G * G)
+    for j in range(int(length.max())):
+        act = torch.nonzero(length > j).squeeze(1)
+        acc[:, act] = acc[:, act] + prod[:, start[act] + j]
+    got = torch.complex(acc[:m], acc[m:]).reshape(m, G, G)
+    g = torch.complex(torch.as_tensor(g_re), torch.as_tensor(g_im))
+    want = t_fo.kb_sample_adjoint_plain(g, tplan.slice_idx, tplan.slice_w,
+                                        tplan.phase_cos, tplan.phase_sin, G)
+    assert torch.equal(got, want)
+
+
+def test_cpu_adjoints_build_no_kb_transpose(monkeypatch):
+    """On the CPU the plain adjoint needs no table: neither autograd's
+    backward through ``fourier_project_images`` nor the explicit A^T
+    (``_projection_adjoint``) builds one."""
+    from dexct_tpu_torch.ops import iterative
+
+    def refuse(*args):
+        raise AssertionError("a transpose was built on the CPU")
+
+    monkeypatch.setattr(t_fo, "_kb_transpose_taps", refuse)
+    tplan = t_fo.plan_fourier_projector(t_cyl(N=32, dx=0.8), TFan(**GEOM),
+                                        n_theta=48, device="cpu")
+    vs = (GEOM["N_proj"], GEOM["N_channels"])
+    x = torch.zeros((1, 32, 32), requires_grad=True)
+    t_fo.fourier_project_images(tplan, x, vs).sum().backward()
+    assert x.grad is not None and float(x.grad.abs().max()) > 0.0
+    y = torch.ones(vs)
+    assert float(iterative._projection_adjoint(tplan, vs)(y).abs().max()) > 0
+    assert tplan.kb_t is None
+
+
 def test_fourier_paths_match_jax():
     """Material paths of a 6-label pelvis (96^2) at n_theta = 128 through
     both packages, and the pipeline's array-dict form."""

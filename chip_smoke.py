@@ -271,7 +271,12 @@ KERNELS = {
     "project_3d": ("cuda", "dexct_tpu_torch/csrc/siddon_project_3d.cu",
                    "dexct_tpu/ops/conebeam.py:1028",
                    "max abs <= 1e-4 x max |plain|; on mu[labels] <= 1e-4 x "
-                   "max of K10's paths . mu"),
+                   "max of K10's paths . mu; bitwise equal to the CPU's "
+                   "plain version on every 30th view; two launches "
+                   "bitwise equal"),
+    "swap_xy": ("cuda", "dexct_tpu_torch/csrc/siddon_project_3d.cu",
+                "dexct_tpu/ops/conebeam.py:1028",
+                "bitwise equal to vol.transpose(1, 2).contiguous()"),
     "backproject_3d": ("cuda", "dexct_tpu_torch/csrc/siddon_project_3d.cu",
                        "dexct_tpu/ops/conebeam.py:1028",
                        "max abs <= 1e-4 x max |plain| (the card's plain "
@@ -370,7 +375,7 @@ KERNELS = {
 HELICAL_WEIGHTING_KERNELS = ("siddon_trace_3d", "spectral_counts",
                              "gauss_newton", "helical_backproject")
 CONE_PWLS_KERNELS = ("siddon_trace_3d", "fdk_backproject", "project_3d",
-                     "backproject_3d", "cone_transpose")
+                     "swap_xy", "backproject_3d", "cone_transpose")
 HELICAL_PI_KERNELS = ("siddon_trace_3d", "rebin_to_parallel",
                       "pi_backproject")
 # the library paths of the 2-D iterative and one-step reconstructions and
@@ -1582,10 +1587,13 @@ def cone_rays(ct, dev):
 
 def project_kernel_phase(ccfg, records):
     """Phase 3, exact 3-D projector on the cone config: K18 on mu[labels] at
-    60 keV over the 1.47M rays (also against K10's paths . mu), K19 on a
-    random sinogram with the dot-product identity on random x and y; the
-    library yardstick is the system matrix as a CSR product on every tenth
-    view, scaled to all views."""
+    60 keV over the 1.47M rays (also against K10's paths . mu, against the
+    CPU's plain version on every 30th view, and against itself; its device
+    time over all views and over the x- and y-dominant views apart) with
+    its swapped copy of the volume, K19 on a random sinogram with the
+    dot-product identity on random x and y; the library yardstick is the
+    system matrix as a CSR product on every tenth view, scaled to all
+    views."""
     import torch
 
     from dexct_tpu_torch.ops import conebeam
@@ -1603,6 +1611,34 @@ def project_kernel_phase(ccfg, records):
         lambda: conebeam.project_volume_3d_plain(vol, src, dirs, *vox),
         reps=3)
     err, big = max_err(sino, want)
+    twice = torch.equal(
+        conebeam.project_volume_3d(vol, src, dirs, *vox), sino)
+    # every 30th view: the CPU's plain version, a product and a sum a step
+    s30, d30 = (t[::30].contiguous() for t in (src, dirs))
+    cpu30 = torch.equal(
+        conebeam.project_volume_3d(vol, s30, d30, *vox).cpu(),
+        conebeam.project_volume_3d_plain(vol.cpu(), s30.cpu(), d30.cpu(),
+                                         *vox))
+    # the views whose central ray runs mostly along x, and the others
+    centre = dirs[:, dirs.shape[1] // 2, dirs.shape[2] // 2]
+    along_x = centre[:, 0].abs() > centre[:, 1].abs()
+    split_ms = [graph_ms(lambda s=src[keep].contiguous(),
+                         d=dirs[keep].contiguous():
+                         conebeam.project_volume_3d(vol, s, d, *vox))
+                for keep in (along_x, ~along_x)]
+    yx, want_yx, yx_ms, yx_pms = compare(
+        lambda: conebeam._swap_xy(vol),
+        lambda: vol.transpose(1, 2).contiguous(), reps=20)
+    yx_dev_ms = graph_ms(lambda: conebeam._swap_xy(vol))
+    lib_dev_ms = graph_ms(lambda: vol.transpose(1, 2).contiguous())
+    report(records, "swap_xy", float((yx - want_yx).abs().max()), yx_ms,
+           yx_pms, torch.equal(yx, want_yx), (2 * nbytes(vol), 0),
+           library_ms=yx_pms,
+           extra=f" (K18's copy of {shape} with x and y swapped; device "
+                 f"{yx_dev_ms:.4f} ms against the library's "
+                 f"{lib_dev_ms:.4f} ms, CUDA graphs of 20 calls; library = "
+                 f"the plain version, one PyTorch copy)")
+    del yx, want_yx
     paths = conebeam.trace_paths_3d(labels, src, dirs, *vox,
                                     n_materials=ph.n_materials)
     ref = paths @ mu
@@ -1637,14 +1673,20 @@ def project_kernel_phase(ccfg, records):
     fwd_dev_ms = graph_ms(
         lambda: conebeam.project_volume_3d(vol, src, dirs, *vox))
     report(records, "project_3d", err, ms, pms,
-           err <= 1e-4 * big and k10_err <= 1e-4 * float(ref.abs().max()),
+           err <= 1e-4 * big and k10_err <= 1e-4 * float(ref.abs().max())
+           and twice and cpu30,
            (nbytes(vol, src, dirs, sino), 9 * steps + 60 * n_rays),
            library_ms=lib_fwd,
            extra=f" (max |plain| {big:.6g}; {n_rays} rays through "
                  f"{shape}; against K10's paths . mu {k10_err:.3g}; library "
                  f"= CSR torch.sparse.mm on every {every}th view ({nnz} "
                  f"nonzeros) x {scale:g}, err {lib_err:.3g}; device "
-                 f"{fwd_dev_ms:.4f} ms, CUDA graph of 20 calls)")
+                 f"{fwd_dev_ms:.4f} ms, CUDA graph of 20 calls: the "
+                 f"{int(along_x.sum())} x-dominant views {split_ms[0]:.4f} "
+                 f"ms, the others {split_ms[1]:.4f} ms, the swapped copy "
+                 f"{yx_dev_ms:.4f} ms; two launches bitwise equal: {twice}; "
+                 f"bitwise equal to the CPU's plain version on every 30th "
+                 f"view: {cpu30})")
     walk_ops = 9 * steps + 60 * n_rays
     del A
     torch.cuda.empty_cache()
@@ -3716,6 +3758,7 @@ def counters():
             "trilinear_sample": conebeam._trilinear_volume_sample,
             "siddon_trace_stack": siddon.trace_paths_stack,
             "project_3d": conebeam.project_volume_3d,
+            "swap_xy": conebeam._swap_xy,
             "backproject_3d": conebeam.project_volume_3d_adjoint,
             "cone_transpose": conebeam.cone_transpose,
             "pi_backproject": helical_pi._pi_backproject,
@@ -3902,6 +3945,7 @@ def profiled_run(step, top=6):
     torch.profiler, the peak device memory [GB] of that call, and its
     ``top`` kernels by device time as (name, ms)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3914,6 +3958,10 @@ def profiled_run(step, top=6):
         wall = (time.perf_counter() - w0) * 1e3
     per = []
     for e in prof.key_averages():
+        # the device's own events (kernels, copies): an operator on the host
+        # also carries the device time of the kernels it launched
+        if e.device_type == DeviceType.CPU:
+            continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)

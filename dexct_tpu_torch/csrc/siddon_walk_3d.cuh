@@ -6,8 +6,10 @@
 // axes with the +-1e30 bounds, the entry nudge eps = 1e-6 (dx + dy + dz),
 // the index clamps, the tie rule (x, then y, then z) and t_next clamped into
 // [t, t_out].  The kernels walk a ray through the same cells with the same
-// segment lengths, so K18 on a volume of per-label values equals K10's paths
-// times those values, and K19 scatters exactly the segments K18 gathers.
+// segment lengths (K18 repeats walk_step's operations with 32-bit cell
+// offsets, siddon_project_3d.cu: step32), so K18 on a volume of per-label
+// values equals K10's paths times those values, and K19 scatters exactly
+// the segments K18 gathers.
 
 #pragma once
 

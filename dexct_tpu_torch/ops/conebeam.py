@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from ..utils import kernels
-from ..utils.devices import check_float32
+from ..utils.devices import check_float32, upload
 
 __all__ = ["WEIGHTINGS", "trace_paths_3d", "trace_paths_3d_plain",
            "_fdk_backproject_multi", "_fdk_backproject_multi_plain",
@@ -659,16 +659,47 @@ def _walk_args(shape, dx, dy, dz, n_steps):
     return (nx, ny, nz, *g0, *g1, dx, dy, dz, eps, n_steps)
 
 
+# K18 addresses the volume with 32-bit indices
+_MAX_CELLS = 2 ** 31 - 1
+
+
+def _check_int32_cells(shape):
+    n = int(np.prod([int(s) for s in shape]))
+    if n > _MAX_CELLS:
+        raise ValueError(f"the volume has {n} cells; the card's projector "
+                         f"takes at most 2^31 - 1 = {_MAX_CELLS}")
+
+
+def _swap_xy(vol):
+    """K18's second layout of ``vol`` [Nz, Ny, Nx] (float32, contiguous, on
+    the card): the copy [Nz, Nx, Ny] with x and y swapped, made by a tiled
+    transpose in shared memory."""
+    nz, ny, nx = vol.shape
+    out = torch.empty((nz, nx, ny), dtype=vol.dtype, device=vol.device)
+    rc = kernels.library().dexct_swap_xy(
+        vol.data_ptr(), out.data_ptr(), nx, ny, nz,
+        kernels.stream_ptr(vol.device))
+    kernels.check(rc, "swap_xy")
+    _swap_xy.launches += 1
+    return out
+
+
+_swap_xy.launches = 0
+
+
 def _project_cuda(vol, src, dirs, dx, dy, dz, n_steps):
+    _check_int32_cells(vol.shape)
     dev = vol.device
     kernels.require(vol, "vol", dev, torch.float32)
     s2 = kernels.require(src.reshape(-1, 3), "src", dev, torch.float32)
     d2 = kernels.require(dirs.reshape(-1, 3), "dirs", dev, torch.float32,
                          s2.shape)
     out = torch.empty(s2.shape[0], dtype=torch.float32, device=dev)
+    vol_yx = _swap_xy(vol)
     rc = kernels.library().dexct_project_3d(
-        vol.data_ptr(), s2.data_ptr(), d2.data_ptr(), out.data_ptr(),
-        s2.shape[0], *_walk_args(vol.shape, dx, dy, dz, n_steps),
+        vol.data_ptr(), vol_yx.data_ptr(), s2.data_ptr(), d2.data_ptr(),
+        out.data_ptr(), s2.shape[0],
+        *_walk_args(vol.shape, dx, dy, dz, n_steps),
         kernels.stream_ptr(dev))
     kernels.check(rc, "project_3d")
     project_volume_3d.launches += 1
@@ -1039,8 +1070,7 @@ def _cone_operator(geometry, vol_shape, voxel, device):
     its explicit adjoint, as the iterative loops call them.  On the card
     the first A^T builds K19's table (:func:`cone_transpose`) and every
     later one reuses it."""
-    src, dirs = (torch.as_tensor(np.asarray(x), dtype=torch.float32,
-                                 device=device).contiguous()
+    src, dirs = (upload(np.asarray(x), device, torch.float32).contiguous()
                  for x in geometry.ray_geometry_3d())
     dx, dy, dz = (float(v) for v in voxel)
     shape = tuple(int(n) for n in vol_shape)
@@ -1077,10 +1107,9 @@ def cone_cg_recon(sino, geometry, vol_shape, voxel, *, n_iters=30, x0=None,
 
     dev = _device_of(sino, device)
     apply_fn, adjoint_fn = _cone_operator(geometry, vol_shape, voxel, dev)
-    b = torch.as_tensor(sino, dtype=torch.float32, device=dev)
+    b = upload(sino, dev, torch.float32)
     x0 = (torch.zeros(tuple(vol_shape), dtype=torch.float32, device=dev)
-          if x0 is None else torch.as_tensor(x0, dtype=torch.float32,
-                                             device=dev))
+          if x0 is None else upload(x0, dev, torch.float32))
     return _cg(apply_fn, b, x0, int(n_iters), 0.0, adjoint=adjoint_fn)
 
 
@@ -1101,12 +1130,11 @@ def cone_pwls_recon(sino_log, counts, geometry, vol_shape, voxel, *,
 
     dev = _device_of(sino_log, device)
     apply_fn, adjoint_fn = _cone_operator(geometry, vol_shape, voxel, dev)
-    y = torch.as_tensor(sino_log, dtype=torch.float32, device=dev)
-    w = pwls_weights(torch.as_tensor(counts, device=dev), sigma_e=sigma_e,
+    y = upload(sino_log, dev, torch.float32)
+    w = pwls_weights(upload(counts, dev), sigma_e=sigma_e,
                      var_ratio=var_ratio)
     x0 = (torch.zeros(tuple(vol_shape), dtype=torch.float32, device=dev)
-          if x0 is None else torch.as_tensor(x0, dtype=torch.float32,
-                                             device=dev))
+          if x0 is None else upload(x0, dev, torch.float32))
     return _pwls_fista(apply_fn, y, w, x0, int(n_iters), float(beta),
                        float(delta), bool(nonneg), int(power_iters),
                        adjoint=adjoint_fn, _v0=_v0)

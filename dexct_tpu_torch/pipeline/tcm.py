@@ -18,7 +18,7 @@ import torch
 
 from ..ops import spectral as sp_ops
 from ..ops.siddon import material_path_sinogram
-from ..utils.devices import as_float, device_of
+from ..utils.devices import _scalar, as_float, device_of, upload
 from .api import DectResult, get_basismat_sinos, get_recon
 
 __all__ = ["auto_tcm_profile", "simulate_tcm_dect", "normalize_counts",
@@ -45,13 +45,12 @@ def auto_tcm_profile(ct, phantom, spec, *, strength=1.0, m_min=0.2,
     dev = device_of(paths, device)
     if paths is None:
         paths = material_path_sinogram(phantom, ct, device=dev)
-    mu_t = torch.as_tensor(phantom.materials.mu_table(spec.E),
-                           dtype=torch.float32, device=dev)
+    paths = paths.to(torch.float32)
+    mu_t = upload(phantom.materials.mu_table(spec.E), paths)
     i0_h = sp_ops.effective_fluence(spec, ct)
-    i0 = torch.as_tensor(i0_h, dtype=torch.float32, device=dev)
-    counts = sp_ops.counts_from_paths(paths.to(torch.float32), mu_t, i0)
+    counts = sp_ops.counts_from_paths(paths, mu_t, upload(i0_h, paths))
     air = float(np.sum(i0_h))
-    floor = torch.tensor(air * 1e-8, dtype=torch.float32, device=dev)
+    floor = _scalar(air * 1e-8, counts)
     inv_t = air / torch.maximum(counts, floor)  # [V, C] = e^L
     if channel_window is not None:
         C = inv_t.shape[-1]
@@ -87,7 +86,7 @@ def normalize_counts(counts, m, *, device=None):
     the decomposition unchanged: a per-ray fluence scale shared by every
     energy bin leaves the Poisson-MLE stationary point where it was."""
     c = as_float(counts, device_of(counts, device))
-    m = torch.as_tensor(m, dtype=c.dtype, device=c.device)
+    m = upload(m, c)
     return c / m.reshape(tuple(m.shape) + (1,) * (c.ndim - 1))
 
 
@@ -142,7 +141,7 @@ def simulate_tcm_dect(ct, phantom, spec1, spec2, N_matrix, FOV, ramp, *,
     if m is None:
         m = auto_tcm_profile(ct, phantom, spec1, strength=strength,
                              paths=paths)
-    m = torch.as_tensor(m, dtype=torch.float32, device=dev)
+    m = upload(m, paths, torch.float32)
     mv = m[:, None]
     if noise != "none" and generator is None:
         raise ValueError("noise sampling requires a torch.Generator")

@@ -1,7 +1,9 @@
-"""K19, the exact 3-D Siddon adjoint, on the card: its time at
-``chip_smoke.py``'s phase-3 shape and on its ``cone_pwls`` path.
+"""K18 and K19, the exact 3-D Siddon projector and its adjoint, on the
+card: their times at ``chip_smoke.py``'s phase-3 shape and on their
+``cone_pwls`` path.
 
     python dexct_tpu_torch/tools/probe_cone_adjoint.py [--root DIR] [--reps 5]
+        [--sass]
 
 Run it by path, from the repository root.  ``--root`` names the checkout
 whose ``dexct_tpu_torch`` is measured (default: the one holding this
@@ -14,9 +16,18 @@ of phase 4 (60 keV Poisson scan at 1e5 counts per ray, FDK warm start,
 
 Prints the card's name and power limit, then JSON lines:
 
+- ``"k18"``: K18's device time (20 calls in one CUDA graph) on
+  ``mu[labels]`` at 60 keV over all views, over the views whose central
+  ray runs mostly along x (|d_x| > |d_y|) and over the rest (each set a
+  contiguous copy of its views' rays), its call (CUDA events), whether two
+  launches are bit-equal, and, where the checkout's K18 swaps the volume's
+  x and y for its x-dominant warps (``conebeam._swap_xy``), that copy's
+  device time;
+- ``"k18_sass"`` (with ``--sass``): K18's registers and, for each loop of
+  its walk kernel in the built library's SASS (a branch back to an earlier
+  address), the instructions it spans, from ``cuobjdump``;
 - ``"k19"``: K19's call (CUDA events over ``--reps`` calls, after a warm
-  call) and device time (20 calls in one CUDA graph), K18's beside it,
-  whether two launches on the same input are bit-equal and their largest
+  call) and device time (20 calls in one CUDA graph), whether two launches on the same input are bit-equal and their largest
   difference; where the checkout builds K19's transposed table
   (``conebeam.cone_transpose``), the build's time (host clock,
   synchronised; the least of three), its bytes, entries and padding, and
@@ -24,8 +35,9 @@ Prints the card's name and power limit, then JSON lines:
 - ``"cone_pwls"``: per run the wall time, the stages, the gather launches,
   the table builds and the peak device memory;
 - ``"cone_pwls_profile"``: one more run under torch.profiler: its wall,
-  its device kernel time, K19's (the gather or atomic kernel) and the
-  build's kernels' device time, and K19's share of the run.
+  its device time (the device's own events: kernels and copies), K19's
+  (the gather or atomic kernel), the build's kernels' and K18's device
+  time, and K19's share of the run.
 
 Card only.
 """
@@ -116,7 +128,9 @@ def _graph_ms(fn, calls=20, reps=5):
     return ms
 
 
-def _probe_k19(conebeam, ccfg, reps):
+def _k18_inputs(ccfg):
+    """chip_smoke's phase-3 K18 inputs: the cone rays [V, R, C, 3] and
+    ``mu[labels]`` at 60 keV on the card."""
     import numpy as np
     import torch
 
@@ -128,8 +142,98 @@ def _probe_k19(conebeam, ccfg, reps):
     mu = torch.as_tensor(ph.materials.mu_table(np.array([_KEV]))[:, 0],
                          dtype=torch.float32, device=dev)
     labels = torch.as_tensor(np.asarray(ph.labels), device=dev).long()
-    vol = mu[labels].contiguous()
-    vox = (ph.dx, ph.dy, ph.dz)
+    return src, dirs, mu[labels].contiguous(), (ph.dx, ph.dy, ph.dz)
+
+
+def _probe_k18(conebeam, ccfg, reps):
+    import torch
+
+    src, dirs, vol, vox = _k18_inputs(ccfg)
+    centre = dirs[:, dirs.shape[1] // 2, dirs.shape[2] // 2]
+    along_x = centre[:, 0].abs() > centre[:, 1].abs()
+    rec = {"probe": "k18", "rays": src.numel() // 3,
+           "shape": list(vol.shape), "views": src.shape[0],
+           "x_dominant_views": int(along_x.sum())}
+    for name, keep in (("all", None), ("x_dominant", along_x),
+                       ("y_dominant", ~along_x)):
+        s, d = ((src, dirs) if keep is None else
+                (src[keep].contiguous(), dirs[keep].contiguous()))
+
+        def fwd(s=s, d=d):
+            return conebeam.project_volume_3d(vol, s, d, *vox)
+
+        rec[f"device_ms_{name}"] = _graph_ms(fwd)
+    def fwd():
+        return conebeam.project_volume_3d(vol, src, dirs, *vox)
+
+    rec["call_ms"] = [_time_ms(fwd, reps), _time_ms(fwd, reps)]
+    a, b = fwd(), fwd()
+    rec["two_launches_equal"] = bool(torch.equal(a, b))
+    swap = getattr(conebeam, "_swap_xy", None)
+    if swap is not None:
+        rec["swap_device_ms"] = _graph_ms(lambda: swap(vol))
+    print(json.dumps(rec))
+    del a, b
+    torch.cuda.empty_cache()
+
+
+def _sass_loops(lines):
+    """The loops of one function's SASS listing: (first address, branch
+    address, instructions spanned) for each branch back to an earlier
+    address."""
+    import re
+
+    addr = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?);")
+    code = []
+    for line in lines:
+        m = addr.search(line)
+        if m:
+            code.append((int(m.group(1), 16), m.group(2)))
+    loops = []
+    for at, ins in code:
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", ins)
+        if m and int(m.group(1), 16) < at:
+            target = int(m.group(1), 16)
+            n = sum(1 for a, _ in code if target <= a <= at)
+            loops.append({"from": hex(target), "to": hex(at),
+                          "instructions": n})
+    return loops
+
+
+def _probe_sass(kernels):
+    """K18's registers and the loops of its walk in the built library."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = str(kernels.build())
+    res = subprocess.run([tool, "-res-usage", lib], capture_output=True,
+                         text=True, timeout=300).stdout.splitlines()
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300).stdout.splitlines()
+    regs = {}
+    for i, line in enumerate(res):
+        if ("project_3d_kernel" in line or "swap_xy" in line) and \
+                "Function" in line and i + 1 < len(res):
+            name = line.split("Function")[1].strip(" :")
+            regs[name] = res[i + 1].strip()
+    funcs, cur = {}, None
+    for line in sass:
+        if "Function :" in line:
+            cur = line.split("Function :")[1].strip()
+            funcs[cur] = []
+        elif cur is not None:
+            funcs[cur].append(line)
+    loops = {name: _sass_loops(body) for name, body in funcs.items()
+             if "project_3d_kernel" in name or "swap_xy" in name}
+    print(json.dumps({"probe": "k18_sass", "resources": regs,
+                      "loops": loops}))
+
+
+def _probe_k19(conebeam, ccfg, reps):
+    import torch
+
+    dev = torch.device("cuda")
+    src, dirs, vol, vox = _k18_inputs(ccfg)
     shape = tuple(vol.shape)
     gen = torch.Generator(device=dev).manual_seed(6)
     y = torch.randn(src.shape[:-1], generator=gen, device=dev)
@@ -158,13 +262,8 @@ def _probe_k19(conebeam, ccfg, reps):
         def call():
             return adjoint(y, src, dirs, shape, *vox)
 
-    def fwd():
-        return conebeam.project_volume_3d(vol, src, dirs, *vox)
-
     rec["k19_call_ms"] = [_time_ms(call, reps), _time_ms(call, reps)]
-    rec["k18_call_ms"] = [_time_ms(fwd, reps), _time_ms(fwd, reps)]
     rec["k19_device_ms"] = _graph_ms(call)
-    rec["k18_device_ms"] = _graph_ms(fwd)
     a, b = call(), call()
     rec["two_launches_equal"] = bool(torch.equal(a, b))
     rec["two_launches_max_diff"] = float((a - b).abs().max())
@@ -177,6 +276,7 @@ def _probe_k19(conebeam, ccfg, reps):
 def _probe_pwls(conebeam, ccfg):
     import numpy as np
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from dexct_tpu_torch.ops.siddon import mono_sinogram
@@ -240,16 +340,23 @@ def _probe_pwls(conebeam, ccfg):
         wall = (time.perf_counter() - w0) * 1e3
     per = {}
     for e in prof.key_averages():
+        # the device's own events (kernels, copies): an operator on the host
+        # also carries the device time of the kernels it launched
+        if e.device_type == DeviceType.CPU:
+            continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
         per[e.key] = float(us or 0.0) / 1e3
     k19 = sum(ms for k, ms in per.items() if "backproject_3d" in k)
     tbuild = sum(ms for k, ms in per.items() if "transpose" in k)
+    k18 = sum(ms for k, ms in per.items()
+              if "project_3d_kernel" in k or "swap_xy" in k)
     print(json.dumps({
         "probe": "cone_pwls_profile", "wall_ms": wall,
         "device_ms": sum(per.values()), "k19_device_ms": k19,
-        "build_device_ms": tbuild, "k19_share": (k19 + tbuild) / wall,
+        "build_device_ms": tbuild, "k18_device_ms": k18,
+        "k19_share": (k19 + tbuild) / wall,
         "kernels_ms": {k: ms for k, ms in sorted(per.items(),
                                                  key=lambda kv: -kv[1])[:8]}}))
 
@@ -259,6 +366,8 @@ def main(argv=None):
     parser.add_argument("--root", type=Path, default=_HERE,
                         help="the checkout whose dexct_tpu_torch to measure")
     parser.add_argument("--reps", type=int, default=5)
+    parser.add_argument("--sass", action="store_true",
+                        help="print K18's registers and loops from its SASS")
     args = parser.parse_args(argv)
     root = args.root.resolve()
     sys.path.insert(0, str(root))
@@ -277,8 +386,11 @@ def main(argv=None):
                          f"not the checkout {root}")
     print(f"{_card_line()} | torch {torch.__version__} | {root}")
     kernels.library()
+    if args.sass:
+        _probe_sass(kernels)
     with tempfile.TemporaryDirectory() as tmp:
         ccfg = _cone_config(root, Path(tmp))
+        _probe_k18(conebeam, ccfg, args.reps)
         _probe_k19(conebeam, ccfg, args.reps)
         _probe_pwls(conebeam, ccfg)
 

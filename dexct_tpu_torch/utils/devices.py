@@ -42,18 +42,23 @@ def _scalar(v, like):
 
 
 def upload(x, like, dtype=None):
-    """``x`` (a tensor, NumPy array, list or scalar) as a tensor of
-    ``dtype`` (default ``like``'s) on ``like``'s device.  A tensor already
+    """``x`` (a tensor, NumPy array, list or scalar) as a tensor on the
+    device of ``like``: a tensor (its dtype too, unless ``dtype`` is given)
+    or a device (``dtype`` None then keeps ``x``'s own).  A tensor already
     there is kept (cast there if need be); host data bound for the card is
     staged in pinned memory and copied asynchronously, so the stream is not
     synchronised, as ``torch.as_tensor(..., device=cuda)`` would."""
-    dtype = like.dtype if dtype is None else dtype
-    if torch.is_tensor(x) and x.device == like.device:
-        return x.to(dtype)
+    if isinstance(like, torch.Tensor):
+        device = like.device
+        dtype = like.dtype if dtype is None else dtype
+    else:
+        device = torch.device(like)
+    if torch.is_tensor(x) and x.device == device:
+        return x if dtype is None else x.to(dtype)
     t = torch.as_tensor(x, dtype=dtype)
-    if like.device.type != "cuda" or t.device.type != "cpu":
-        return t.to(like.device)
-    return t.pin_memory().to(like.device, non_blocking=True)
+    if device.type != "cuda" or t.device.type != "cpu":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def check_float32(dtype):

@@ -137,9 +137,11 @@ _SIGNATURES = {
     # and xi (three each), nz, ny, nx, stream
     "dexct_trilinear_sample": (_P,) * 5 + (_I,) + (_L,) * 12 + (_I,) * 3
                               + (_P,),
-    # vol, src, dirs, out, n_rays, nx, ny, nz, x0, y0, z0, x1, y1, z1, dx,
-    # dy, dz, eps, n_steps, stream
-    "dexct_project_3d": (_P, _P, _P, _P, _L, _I, _I, _I) + (_F,) * 10
+    # vol, out, nx, ny, nz, stream
+    "dexct_swap_xy": (_P, _P, _I, _I, _I, _P),
+    # vol, vol_yx, src, dirs, out, n_rays, nx, ny, nz, x0, y0, z0, x1, y1,
+    # z1, dx, dy, dz, eps, n_steps, stream
+    "dexct_project_3d": (_P,) * 5 + (_L, _I, _I, _I) + (_F,) * 10
                         + (_I, _P),
     # src, dirs, count, offset, rec, n_rays, rows, cols, nx, ny, nz, x0,
     # y0, z0, x1, y1, z1, dx, dy, dz, eps, n_steps, fill, stream

@@ -820,6 +820,76 @@ def test_project_volume_3d_adjoint_matches_plain(dev):
 
 
 
+def _k18_case(dev, case):
+    """K18's inputs on the card: ``"cone"`` (``_cone_rays``: 48 views
+    around, both dominances); ``"ragged"`` (50 channels, so that warps
+    straddle detector rows and views of different dominance); ``"diagonal"``
+    (views every 45 degrees: the central ray at |d_x| = |d_y| on the
+    diagonals and along an axis on the others; a fan wider than the grid,
+    so that outer rays miss it);
+    ``"truncated"`` (the cone case with ``n_steps=30``).  The volume holds
+    normal values, so that products of both signs and zero-length steps
+    meet the sums."""
+    from dexct_tpu_torch.system import ConeBeamGeometry
+
+    shape, vox, n_steps = (12, 40, 40), (0.5, 0.5, 0.5), None
+    if case in ("cone", "truncated"):
+        src, dirs = _cone_rays(dev)
+        n_steps = 30 if case == "truncated" else None
+    else:
+        kw = (dict(N_channels=50, N_proj=20, N_rows=3, h_iso=0.5)
+              if case == "ragged" else
+              dict(N_channels=97, N_proj=8, N_rows=4, h_iso=0.5,
+                   gamma_fan=1.4))
+        ct = ConeBeamGeometry(SID=60.0, SDD=100.0, **kw)
+        src, dirs = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+                     for x in ct.ray_geometry_3d())
+    rng = np.random.default_rng(41)
+    vol = torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
+                          device=dev)
+    return vol, src, dirs, vox, n_steps
+
+
+@pytest.mark.parametrize("case", ["cone", "ragged", "diagonal", "truncated"])
+def test_k18_is_the_cpu_plain_version_bit_for_bit(dev, case):
+    """K18 equals the plain version run on the CPU bit for bit (a product
+    and a sum per step, in step order), and two launches are bit-equal;
+    one launch a call."""
+    from dexct_tpu_torch.ops import conebeam as cb
+
+    vol, src, dirs, vox, n_steps = _k18_case(dev, case)
+    before = cb.project_volume_3d.launches
+    got = cb.project_volume_3d(vol, src, dirs, *vox, n_steps=n_steps)
+    again = cb.project_volume_3d(vol, src, dirs, *vox, n_steps=n_steps)
+    torch.cuda.synchronize()
+    assert cb.project_volume_3d.launches == before + 2
+    assert got.shape == src.shape[:-1]
+    assert torch.equal(got, again)
+    want = cb.project_volume_3d_plain(vol.cpu(), src.cpu(), dirs.cpu(),
+                                      *vox, n_steps=n_steps)
+    assert torch.equal(got.cpu(), want)
+    if case == "diagonal":
+        assert bool((want == 0).any()) and bool((want != 0).any())
+
+
+def test_k18_swapped_copy_is_the_transpose(dev):
+    """K18's second layout is the volume with x and y swapped, also when
+    neither is a multiple of the 32-cell tile."""
+    from dexct_tpu_torch.ops import conebeam as cb
+
+    vol = torch.randn((3, 45, 70), device=dev)
+    assert torch.equal(cb._swap_xy(vol), vol.transpose(1, 2).contiguous())
+
+
+def test_k18_makes_no_host_synchronisation(dev):
+    """K18's call (the swapped copy and the walk) makes no synchronising
+    call."""
+    from dexct_tpu_torch.ops import conebeam as cb
+
+    vol, src, dirs, vox, _ = _k18_case(dev, "cone")
+    _no_sync(lambda: cb.project_volume_3d(vol, src, dirs, *vox))
+
+
 def _k19_case(dev, case):
     """K19's inputs: ``"tiny"`` (48 x 8 x 64 rays through 12 x 40 x 40
     cells of 0.5 cm) or ``"cone_subset"`` (every 30th view of
@@ -2344,15 +2414,18 @@ def test_realism_stages_do_not_synchronise(dev, stage, step):
 @pytest.mark.parametrize("site", [
     "helical_z", "view_geometry_fan", "view_geometry_cone", "low_dose",
     "low_dose_compound", "march_plain", "scatter_energies", "pileup_bins",
-    "aperture_counts", "scatter_kernel", "pwls_weights"])
+    "aperture_counts", "scatter_kernel", "pwls_weights", "auto_tcm_profile",
+    "normalize_counts", "cone_operator"])
 def test_scalar_uploads_do_not_synchronise(dev, site):
     """The scalars of ``_helical_z`` (z0), ``_view_geometry`` (sid),
     ``synthesize_low_dose`` (the dose fraction; Poisson thinning and the
     compound mode's electronic noise), the plain scatter march (the cell
-    sizes) and ``pwls_weights`` (sigma_e, the variance ratio) are filled
-    on the card, not copied from the host; NumPy
-    inputs (K26's energy grid, the bin pileup's sum routing, the aperture's
-    mu table and fluences, a scatter kernel) go to the card through pinned
+    sizes), ``pwls_weights`` (sigma_e, the variance ratio) and
+    ``auto_tcm_profile`` (the count floor) are filled on the card, not
+    copied from the host; NumPy inputs (K26's energy grid, the bin
+    pileup's sum routing, the aperture's mu table and fluences, a scatter
+    kernel, the tcm profile's mu table and fluence, ``normalize_counts``'
+    modulation, the cone operator's rays) go to the card through pinned
     memory, without a synchronisation."""
     from dexct_tpu_torch.ops import (aperture, conebeam, iterative, lowdose,
                                      scatter, scatter_physics)
@@ -2416,6 +2489,33 @@ def test_scalar_uploads_do_not_synchronise(dev, site):
         c = _realism_counts().to(dev)
         k = scatter.scatter_kernel(64, sigma_ch=8.0)
         call = lambda: scatter.add_scatter(c, _REALISM_AIR, k)  # noqa: E731
+    elif site == "auto_tcm_profile":
+        from dexct_tpu_torch.physics import kramers_spectrum
+        from dexct_tpu_torch.pipeline import tcm
+        from dexct_tpu_torch.system import (FanBeamGeometry,
+                                            water_cylinder_phantom)
+
+        ph = water_cylinder_phantom(N=32, dx=0.6)
+        ct = FanBeamGeometry(N_channels=32, N_proj=16, gamma_fan=0.9,
+                             SID=60.0, SDD=100.0, eid=True)
+        spec = kramers_spectrum(80.0)
+        spec.rescale_counts(1e6)
+        paths = torch.rand((16, 32, ph.n_materials), device=dev)
+        call = lambda: tcm.auto_tcm_profile(  # noqa: E731
+            ct, ph, spec, paths=paths)
+    elif site == "normalize_counts":
+        from dexct_tpu_torch.pipeline import tcm
+
+        c = _realism_counts().to(dev)
+        m = np.linspace(0.5, 2.0, c.shape[0])
+        call = lambda: tcm.normalize_counts(c, m)  # noqa: E731
+    elif site == "cone_operator":
+        from dexct_tpu_torch.system import ConeBeamGeometry
+
+        ct = ConeBeamGeometry(N_channels=32, N_proj=12, N_rows=4, SID=60.0,
+                              SDD=100.0, h_iso=0.5)
+        call = lambda: conebeam._cone_operator(  # noqa: E731
+            ct, (8, 24, 24), (0.5, 0.5, 0.5), dev)
     else:
         c = _realism_counts().to(dev)
         call = lambda: iterative.pwls_weights(  # noqa: E731

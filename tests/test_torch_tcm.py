@@ -93,6 +93,42 @@ def test_profile_on_the_cpu_from_its_own_trace():
                                normalize="dose")
 
 
+def _host_copies(monkeypatch):
+    """Put back the host copies that ``pipeline/tcm.py`` made before its
+    uploads went through ``utils.devices.upload`` and ``_scalar``."""
+    def as_tensor(x, like, dtype=None):
+        dev = like.device if torch.is_tensor(like) else torch.device(like)
+        return torch.as_tensor(x, dtype=like.dtype if dtype is None
+                               else dtype, device=dev)
+
+    monkeypatch.setattr(t_tcm, "upload", as_tensor)
+    monkeypatch.setattr(t_tcm, "_scalar", lambda v, like: torch.tensor(
+        v, dtype=like.dtype, device=like.device))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(normalize="noise")])
+def test_uploads_keep_the_host_copies_bits(monkeypatch, kw):
+    """``auto_tcm_profile`` and ``normalize_counts`` (NumPy ``m``) give, on
+    the CPU, the bits they gave with ``torch.as_tensor``/``torch.tensor``
+    host copies."""
+    c = _case()
+    paths = torch.as_tensor(c["paths"])
+    counts = np.random.default_rng(3).uniform(
+        1e2, 1e4, (GEO["N_proj"], GEO["N_channels"])).astype(np.float32)
+    m_host = np.linspace(0.5, 2.0, GEO["N_proj"])
+
+    def run():
+        m = t_tcm.auto_tcm_profile(c["tct"], c["ph"], c["s"][0],
+                                   paths=paths, **kw)
+        return m, t_tcm.normalize_counts(counts, m_host, device="cpu")
+
+    got = run()
+    _host_copies(monkeypatch)
+    want = run()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
 def test_forward_counts_tcm_invariance_and_normalization():
     """The JAX test's identity (tests/test_tcm.py:179-197) on the port:
     counts scale by m, the log sinogram does not move, and

@@ -17,7 +17,10 @@ of JAX.  Phases, each of which raises on failure:
    one PyTorch call computes the same function, that call's time: K1-K4 on
    the exact path and K5-K8 on the default path at the reference protocol
    (``input/params.txt``: 256^2 pelvis, 1000 views x 800 channels, 50 GN
-   iterations, four 512^2 images; K7's yardstick a complex CSR product);
+   iterations, four 512^2 images; K7's yardstick a complex CSR product;
+   K4 also on seeded 1000 x 800 sinograms at K = 4 and 1, held to the
+   sha1s pinned from its build before its 16-byte loads, with its device
+   times);
    K9 on the same fan rays through ``pelvis_analytic()``; K10 and K11 on
    the cone config (360 views x 16 rows x 256 channels through a 256^2 x
    32 pelvis, 16 slices of 256^2); K12 on the helical one (720 views over
@@ -221,7 +224,10 @@ KERNELS = {
                      "max |d| / max(|a|, 1) <= 1e-4"),
     "fan_backproject": ("cuda", "dexct_tpu_torch/csrc/fan_backproject.cu",
                         "dexct_tpu/ops/fbp_fast.py:53",
-                        "max abs <= 1e-4 cm^-1"),
+                        "max abs <= 1e-4 cm^-1; on seeded 4 x 1000 x 800 "
+                        "sinograms bitwise the output pinned from K4 "
+                        "before its 16-byte loads (sha1); two launches "
+                        "bitwise equal"),
     "rebin_to_parallel": ("cuda", "dexct_tpu_torch/csrc/gather_taps.cu",
                           "dexct_tpu/ops/fbp_fast.py:184",
                           "max abs <= 1e-5 x max |plain|"),
@@ -944,9 +950,52 @@ def kernel_phase(arrays, meta, records):
         lambda: fbp_fast.fan_backproject_multi_plain(*bargs), reps=3)
     err = float((img - want).abs().max())
     V = a["betas"].shape[0]
+    pinned, twice, k4_dev = k4_pinned_phase(fbp_fast)
+    if not (pinned and twice):
+        fail(f"K4 on the seeded sinograms: pinned sha1 {pinned}, two "
+             f"launches equal {twice}")
     report(records, "fan_backproject", err, ms, pms, err <= 1e-4,
            (nbytes(packed, img) + 8 * V,
-            meta.n_matrix ** 2 * V * (25 + 4 * 4)))
+            meta.n_matrix ** 2 * V * (25 + 4 * 4)),
+           extra=f" (seeded sinograms: the pinned sha1 {pinned}, two "
+                 f"launches bitwise equal {twice}; device, CUDA graph of 20 "
+                 f"calls: K = 4 {k4_dev['k4']:.4f} ms, K = 1 "
+                 f"{k4_dev['k1']:.4f} ms)")
+
+
+# sha1 of K4's output on probe_fan_backproject's seeded cases, pinned from
+# the build of K4 before its 16-byte loads and compact warp tiles (NVIDIA
+# H100 80GB HBM3, CUDA 12.8); tests/test_torch_cuda.py holds the same
+K4_PINNED_SHA1 = {"k1": "0f69aa9b54f67a29a5037658f00a1b8485a1acc2",
+                  "k4": "34d550b204cddb6b868c1dfa4a03dfa63b95c4ec"}
+
+
+def k4_pinned_phase(fbp_fast):
+    """K4 on the seeded full-shape cases (1000 x 800 -> 512^2 at K = 4 and
+    K = 1): whether both outputs are their pinned sha1, whether two K = 4
+    launches are equal, and each case's device time (CUDA graph)."""
+    import torch
+
+    from dexct_tpu_torch.tools.probe_fan_backproject import (output_sha1,
+                                                             pin_case)
+
+    dev = torch.device("cuda")
+    pinned, twice, dev_ms = True, True, {}
+    for case in ("k4", "k1"):
+        q, betas, args = pin_case(case)
+        packed = fbp_fast.pack_filtered(torch.as_tensor(q, device=dev))
+        b = torch.as_tensor(betas, device=dev)
+
+        def call():
+            return fbp_fast.fan_backproject_multi(packed, q.shape[0], b,
+                                                  *args)
+
+        out = call()
+        pinned &= output_sha1(out) == K4_PINNED_SHA1[case]
+        if case == "k4":
+            twice = bool(torch.equal(out, call()))
+        dev_ms[case] = graph_ms(call)
+    return pinned, twice, dev_ms
 
 
 def gn_work(flat, ab, e_full, meta, polish=4, warm_nodes=32, n_tables=1):

@@ -10,17 +10,28 @@
 // 2K taps per (view, pixel)) and dexct_tpu/ops/fbp.py:fan_backproject (the
 // one-image form, K = 1 here).
 //
-// What bounds it on the card: per (pixel, view) one atan2, one reciprocal
-// and ~20 other float ops, plus one row of 2K floats of the packed tap
-// table (25.6 MB at 4 x 1000 x 800, resident in L2).  N^2 x V = 2.6e8
-// pixel-views at the reference protocol, so arithmetic dominates.  Design:
-// one thread per output pixel loops over all views and keeps the K sums
-// in registers, so the output [K, N, N] is written once with no atomics;
-// cos/sin of the view angles come from shared memory (staged in chunks of
-// kChunk views); the packed table pack_filtered([K, V, C]) -> [V*C, 2K]
-// lets one row fetch serve both linear-interpolation taps of all K images.
-// Neighbouring threads are neighbouring pixels, whose channel coordinates
-// differ by a fraction of a channel, so their row fetches share lines.
+// What bounds it on the card: per (pixel, view) one atan2, two IEEE
+// divisions and ~20 other float ops, plus one row of 2K floats of the
+// packed tap table (25.6 MB at 4 x 1000 x 800, resident in L2).  N^2 x V =
+// 2.6e8 pixel-views at the reference protocol, ~115 instructions each on
+// the path of a view inside the fan (K = 4; atan2 ~48 of them), so the
+// SMs' issue rate bounds it, then the gathers' L1 wavefronts.  Design: one
+// thread per output pixel loops over all views and keeps the K sums in
+// registers, so the output [K, N, N] is written once with no atomics;
+// cos/sin of the view angles come from shared memory as one float2
+// (staged in chunks of kChunk views); the packed table
+// pack_filtered([K, V, C]) -> [V*C, 2K] lets one row fetch serve both
+// linear-interpolation taps of all K images, and the row comes in 16-byte
+// loads (two at K = 4, one at K = 2; 8-byte loads at K = 1 and 3) at a
+// 32-bit offset, which cuts the L1 wavefronts of a warp's gather from
+// eight scalar loads' to two.  The lanes of a warp hold an 8 x 4 pixel
+// tile, blocks are 16 x 32 pixels with 32 registers a thread (64 warps an
+// SM), and the view loop is unrolled by 8.  The geometry and the sums are
+// the parent design's operations in its order, each rounding explicit
+// (fan_tap, and the contraction nvcc had chosen for the sum: fma(q[c0],
+// 1 - f, f q[c0+1]), then fma(tap, w, acc); 1 / l2 correctly rounded), so
+// the output is bit for bit that of the kernel with scalar loads and 16 x 2
+// warps it replaced.
 //
 // Per view, as the JAX program: vr = X cos b + Y sin b - sid,
 // vt = -X sin b + Y cos b, gamma = atan2(-vt, -vr),
@@ -29,6 +40,9 @@
 // the packed row at c0 holds q[c0] and q[c0+1] (pack_filtered's
 // last-channel rule repeats q[C-1] only at c = C-1, which c0 never
 // reaches).  The sum is multiplied by dbeta at the end.
+
+#include <climits>
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -41,8 +55,8 @@ constexpr int kChunk = 1024;
 // fan-edge test must flip where the reference's does): vr, vt, gamma =
 // atan2(-vt, -vr), c = gamma / dgamma - 0.5 + C/2.  Returns false outside
 // the fan (c < 0 or c > C - 1); else c0 = clamp(floor(c), 0, C - 2), the
-// tap fraction f = clamp(c - c0, 0, 1) and l2 = vr^2 + vt^2.  K4 and K25
-// share it.
+// tap fraction f = clamp(c - c0, 0, 1) and l2 = vr^2 + vt^2.  K4, K25, K30
+// and K31 share it.
 __device__ __forceinline__ bool fan_tap(float X, float Y, float cb, float sb,
                                         float sid, float dgamma,
                                         float c_shift, float c_max,
@@ -60,25 +74,67 @@ __device__ __forceinline__ bool fan_tap(float X, float Y, float cb, float sb,
   return true;
 }
 
+// K4's pixel tiles: a block of kBlockW x kBlockH pixels, one thread each;
+// the lanes of a warp hold a kTileW x (32 / kTileW) tile of it
+constexpr int kBlockW = 16;
+constexpr int kBlockH = 32;
+constexpr int kTileW = 8;
+constexpr int kThreads = kBlockW * kBlockH;
+// blocks an SM keeps resident (64 warps): caps the registers at 32 a thread
+constexpr int kMinBlocks = 4;
+
+// One packed row: a[k] = q_k[c0], b[k] = q_k[c0 + 1], from 2K floats at p
+// (16-byte aligned: the wrapper checks the table, and a row of 2K floats
+// starts at a multiple of 8K bytes).
 template <int K>
-__global__ void fan_backproject_kernel(const float* __restrict__ packed,
-                                       const float* __restrict__ cos_b,
-                                       const float* __restrict__ sin_b,
-                                       float* __restrict__ out, int V, int C,
-                                       int N, float px, float half, float sid,
-                                       float dgamma, float dbeta) {
-  __shared__ float s_cos[kChunk];
-  __shared__ float s_sin[kChunk];
-  const int ix = blockIdx.x * blockDim.x + threadIdx.x;
-  const int iy = blockIdx.y * blockDim.y + threadIdx.y;
+struct Row {
+  float a[K];
+  float b[K];
+};
+
+template <int K>
+__device__ __forceinline__ Row<K> load_row(const float* __restrict__ p) {
+  if constexpr (K == 4) {
+    const float4 lo = __ldg(reinterpret_cast<const float4*>(p));
+    const float4 hi = __ldg(reinterpret_cast<const float4*>(p) + 1);
+    return {{lo.x, lo.y, lo.z, lo.w}, {hi.x, hi.y, hi.z, hi.w}};
+  } else if constexpr (K == 3) {
+    const float2 t0 = __ldg(reinterpret_cast<const float2*>(p));
+    const float2 t1 = __ldg(reinterpret_cast<const float2*>(p) + 1);
+    const float2 t2 = __ldg(reinterpret_cast<const float2*>(p) + 2);
+    return {{t0.x, t0.y, t1.x}, {t1.y, t2.x, t2.y}};
+  } else if constexpr (K == 2) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    return {{t.x, t.y}, {t.z, t.w}};
+  } else {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    return {{t.x}, {t.y}};
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    fan_backproject_kernel(const float* __restrict__ packed,
+                           const float* __restrict__ cos_b,
+                           const float* __restrict__ sin_b,
+                           float* __restrict__ out, int V, int C, int N,
+                           float px, float half, float sid, float dgamma,
+                           float dbeta) {
+  __shared__ float2 s_cs[kChunk];  // (cos b, sin b) of a chunk of views
+  constexpr int kTileH = 32 / kTileW;
+  constexpr int kWarpsW = kBlockW / kTileW;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int ix = blockIdx.x * kBlockW + (warp % kWarpsW) * kTileW +
+                 lane % kTileW;
+  const int iy = blockIdx.y * kBlockH + (warp / kWarpsW) * kTileH +
+                 lane / kTileW;
   const bool valid = ix < N && iy < N;
   const float X = ((float)ix + 0.5f - half) * px;
   const float Y = ((float)iy + 0.5f - half) * px;
   const float c_shift = 0.5f * (float)C;
   const float c_max = (float)(C - 1);
   const float c0_max = (float)(C - 2);
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y;
 
   float acc[K];
 #pragma unroll
@@ -87,44 +143,51 @@ __global__ void fan_backproject_kernel(const float* __restrict__ packed,
   for (int v0 = 0; v0 < V; v0 += kChunk) {
     const int nv = min(kChunk, V - v0);
     __syncthreads();
-    for (int i = tid; i < nv; i += nthreads) {
-      s_cos[i] = cos_b[v0 + i];
-      s_sin[i] = sin_b[v0 + i];
-    }
+#pragma unroll 1
+    for (int i = threadIdx.x; i < nv; i += kThreads)
+      s_cs[i] = make_float2(cos_b[v0 + i], sin_b[v0 + i]);
     __syncthreads();
     if (!valid) continue;
-    for (int j = 0; j < nv; ++j) {
+    // the table's row index v C + c0 < 2^31 / (2K): the wrapper refuses a
+    // table of 2^31 floats or more
+    int row_v = v0 * C;
+#pragma unroll 8
+    for (int j = 0; j < nv; ++j, row_v += C) {
+      const float2 cs = s_cs[j];
       float c0, f, l2;
-      if (!fan_tap(X, Y, s_cos[j], s_sin[j], sid, dgamma, c_shift, c_max,
-                   c0_max, c0, f, l2))
+      if (!fan_tap(X, Y, cs.x, cs.y, sid, dgamma, c_shift, c_max, c0_max,
+                   c0, f, l2))
         continue;  // outside the fan
-      const float w = __fdiv_rn(1.0f, l2);
-      const float* row =
-          packed + ((size_t)(v0 + j) * C + (size_t)c0) * (2 * K);
+      const float w = __frcp_rn(l2);  // 1 / l2, IEEE-rounded
+      const Row<K> r =
+          load_row<K>(packed + (row_v + __float2int_rz(c0)) * (2 * K));
+      const float g = __fsub_rn(1.0f, f);
 #pragma unroll
       for (int k = 0; k < K; ++k)
-        acc[k] += w * (__ldg(row + k) * (1.0f - f) + __ldg(row + K + k) * f);
+        acc[k] = __fmaf_rn(w, __fmaf_rn(r.a[k], g, __fmul_rn(r.b[k], f)),
+                           acc[k]);
     }
   }
   if (!valid) return;
   const size_t plane = (size_t)N * N;
 #pragma unroll
   for (int k = 0; k < K; ++k)
-    out[k * plane + (size_t)iy * N + ix] = acc[k] * dbeta;
+    out[k * plane + (size_t)iy * N + ix] = __fmul_rn(acc[k], dbeta);
 }
 
 template <int K>
 void launch(const float* packed, const float* cos_b, const float* sin_b,
             float* out, int V, int C, int N, float px, float half, float sid,
             float dgamma, float dbeta, cudaStream_t stream) {
-  const dim3 threads(16, 16);
-  const dim3 blocks((N + 15) / 16, (N + 15) / 16);
-  fan_backproject_kernel<K><<<blocks, threads, 0, stream>>>(
+  const dim3 blocks((N + kBlockW - 1) / kBlockW, (N + kBlockH - 1) / kBlockH);
+  fan_backproject_kernel<K><<<blocks, kThreads, 0, stream>>>(
       packed, cos_b, sin_b, out, V, C, N, px, half, sid, dgamma, dbeta);
 }
 
 }  // namespace
 
+// Refuses (cudaErrorInvalidValue) a table that is not 16-byte aligned or
+// holds 2^31 floats or more, as the wrapper does before it calls here.
 extern "C" int dexct_fan_backproject(const void* packed, const void* cos_b,
                                      const void* sin_b, void* out,
                                      int n_images, int V, int C, int N,
@@ -137,6 +200,9 @@ extern "C" int dexct_fan_backproject(const void* packed, const void* cos_b,
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (N <= 0) return (int)cudaGetLastError();
+  if (reinterpret_cast<uintptr_t>(packed) % 16 != 0 ||
+      (long long)V * C * 2 * n_images > INT_MAX)
+    return (int)cudaErrorInvalidValue;
 #define DEXCT_CASE(KK) \
   launch<KK>(p, cb, sb, o, V, C, N, px, half, sid, dgamma, dbeta, st)
   switch (n_images) {

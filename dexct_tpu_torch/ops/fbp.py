@@ -18,7 +18,7 @@ import torch
 
 from .fbp_fast import (fan_backproject_multi, pack_filtered,
                        parallel_backproject_multi)
-from ..utils.devices import check_float32
+from ..utils.devices import check_float32, upload
 from .filters import filter_frequency_response
 
 __all__ = ["filter_sinogram", "filter_views", "fan_backproject",
@@ -38,15 +38,13 @@ def filter_sinogram(sino, geometry, ramp=0.8, window="sinc", dtype=None):
     """cos-weight + windowed-ramp filter each view (host-built response),
     on the device of ``sino``.  Returns the same shape, scaled by dgamma.
     ``dtype`` (the JAX signature's) must be float32 or None: the filter
-    keeps the type of ``sino``."""
+    keeps the type of ``sino``.  The channel angles and the response go
+    up through ``upload`` (no synchronising copy)."""
     check_float32(dtype)
     H, m = filter_frequency_response(geometry.N_channels, geometry.dgamma,
                                      ramp, window, "fan")
-    dev, dtype = sino.device, sino.dtype
-    gammas = torch.as_tensor(geometry.gammas, dtype=dtype, device=dev)
-    w = torch.cos(gammas) * geometry.SID
-    return filter_views(sino, w, torch.as_tensor(H, dtype=dtype, device=dev),
-                        m, geometry.dgamma)
+    w = torch.cos(upload(geometry.gammas, sino)) * geometry.SID
+    return filter_views(sino, w, upload(H, sino), m, geometry.dgamma)
 
 
 def fan_backproject(q, betas, sid, dgamma, n_matrix, fov, *, view_block=None,
@@ -112,7 +110,8 @@ def fbp_recon(sino_log, geometry, n_matrix, fov, ramp=0.8, window="sinc",
     Dispatches on the geometry: equiangular fan beam (the reference's
     scanner), parallel beam, or a fan beam with an in-plane flying focal
     spot (the interleaved parallel rebin of
-    :func:`~dexct_tpu_torch.ops.ffs.ffs_fbp_recon`)."""
+    :func:`~dexct_tpu_torch.ops.ffs.ffs_fbp_recon`).  The host tables
+    (Parker weights, view angles) go up through ``upload``."""
     from ..system.geometry import ParallelBeamGeometry
 
     check_float32(dtype)
@@ -128,15 +127,11 @@ def fbp_recon(sino_log, geometry, n_matrix, fov, ramp=0.8, window="sinc",
     else:
         sino_log = sino_log.to(torch.float32)
         if geometry.rotation_total < 2.0 * np.pi - 1e-6:
-            sino_log = sino_log * torch.as_tensor(
-                parker_weights(geometry), dtype=torch.float32,
-                device=sino_log.device)
+            sino_log = sino_log * upload(parker_weights(geometry), sino_log)
         q = filter_sinogram(sino_log, geometry, ramp, window)
         img = fan_backproject(
-            q, torch.as_tensor(geometry.betas, dtype=torch.float32,
-                               device=q.device),
-            float(geometry.SID), float(geometry.dgamma), int(n_matrix),
-            float(fov),
+            q, upload(geometry.betas, q), float(geometry.SID),
+            float(geometry.dgamma), int(n_matrix), float(fov),
             dbeta=float(geometry.rotation_total) / geometry.N_proj)
     if mu_water_eff is None:
         return img, None
@@ -147,22 +142,21 @@ def parallel_fbp(sino_log, geometry, n_matrix, fov, ramp=0.8,
                  window="sinc", dtype=None):
     """Parallel-beam FBP over the geometry's angular coverage, on the
     device of ``sino_log`` in float32 (``dtype`` must be float32 or None);
-    returns the [n_matrix, n_matrix] image."""
+    returns the [n_matrix, n_matrix] image.  The response and the view
+    angles go up through ``upload``."""
     check_float32(dtype)
     nt = geometry.N_channels
     ds = geometry.ds
-    dev = sino_log.device
+    sino = sino_log.to(torch.float32)
     H, m = filter_frequency_response(nt, ds, ramp, window, "parallel")
-    q = filter_views(sino_log.to(torch.float32)[None],
-                     torch.ones(nt, dtype=torch.float32, device=dev),
-                     torch.as_tensor(H, dtype=torch.float32, device=dev), m,
-                     ds)
+    q = filter_views(sino[None],
+                     torch.ones(nt, dtype=torch.float32, device=sino.device),
+                     upload(H, sino), m, ds)
     # each line is counted rotation_total/pi times over the scan
     dtheta = float(geometry.rotation_total) / geometry.N_proj \
         * (np.pi / geometry.rotation_total)
     img = parallel_backproject_multi(
-        pack_filtered(q), 1,
-        torch.as_tensor(geometry.betas, dtype=torch.float32, device=dev),
+        pack_filtered(q), 1, upload(geometry.betas, sino),
         float(geometry.s_positions[0]), float(ds), nt, int(n_matrix),
         float(fov), dtheta)
     return img[0]

@@ -11,7 +11,8 @@ tensors (CUDA tensors launch the kernel, CPU tensors run the plain PyTorch
 version beside it):
 
 - :func:`fan_backproject_multi`: K4 (``csrc/fan_backproject.cu``), direct
-  fan-beam backprojection, one thread per pixel over all views;
+  fan-beam backprojection, one thread per pixel over all views, each
+  packed row read in 16- or 8-byte loads at a 32-bit offset;
 - :func:`rebin_to_parallel`: K5 (``csrc/gather_taps.cu``), the fan data
   resampled onto a (theta, t) parallel grid, one thread per parallel bin;
 - :func:`parallel_backproject_multi`: K6
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from ..utils import kernels
+from ..utils.devices import upload
 
 __all__ = ["pack_filtered", "fan_backproject_multi",
            "fan_backproject_multi_plain", "parallel_rebin_plan",
@@ -92,6 +94,25 @@ def fan_backproject_multi_plain(packed, n_images, betas, sid, dgamma,
     return (acc * dbeta).reshape(K, n_matrix, n_matrix)
 
 
+# K4 addresses its packed table in 32-bit offsets
+MAX_TABLE_FLOATS = 2 ** 31 - 1
+
+
+def _check_table(packed, n_images, n_views, n_channels):
+    """Raise ``ValueError`` unless ``packed`` can be K4's table: shape [V*C,
+    2K], at most ``MAX_TABLE_FLOATS`` floats (the kernel's row offsets are
+    32-bit) and 16-byte aligned (it reads each row in 8- or 16-byte loads;
+    a PyTorch allocation is).  Reads only the shape and the address."""
+    if tuple(packed.shape) != (n_views * n_channels, 2 * n_images):
+        raise ValueError(f"packed table must be [{n_views * n_channels}, "
+                         f"{2 * n_images}], got {tuple(packed.shape)}")
+    if packed.numel() > MAX_TABLE_FLOATS:
+        raise ValueError(f"packed table holds {packed.numel()} floats; K4 "
+                         f"takes at most {MAX_TABLE_FLOATS}")
+    if packed.data_ptr() % 16:
+        raise ValueError("packed table must be 16-byte aligned")
+
+
 def _fan_backproject_cuda(packed, n_images, betas, sid, dgamma, n_channels,
                           n_matrix, fov, dbeta):
     dev = packed.device
@@ -100,9 +121,7 @@ def _fan_backproject_cuda(packed, n_images, betas, sid, dgamma, n_channels,
     cos_b = torch.cos(betas).contiguous()
     sin_b = torch.sin(betas).contiguous()
     V = betas.shape[0]
-    if packed.shape != (V * n_channels, 2 * n_images):
-        raise ValueError(f"packed table must be [{V * n_channels}, "
-                         f"{2 * n_images}], got {tuple(packed.shape)}")
+    _check_table(packed, n_images, V, n_channels)
     out = torch.empty((n_images, n_matrix, n_matrix), dtype=torch.float32,
                       device=dev)
     rc = kernels.library().dexct_fan_backproject(
@@ -123,7 +142,8 @@ def fan_backproject_multi(packed, n_images, betas, sid, dgamma, n_channels,
     Returns [K, n_matrix, n_matrix] in the phantom index convention
     (image[iy, ix] at x = (ix + 0.5 - N/2) px, y = (iy + 0.5 - N/2) px),
     times ``dbeta``.  CUDA tensors run kernel K4 (counted in
-    ``fan_backproject_multi.launches``); CPU tensors run
+    ``fan_backproject_multi.launches``; the table 16-byte aligned and
+    under 2^31 floats, else ``ValueError``); CPU tensors run
     :func:`fan_backproject_multi_plain`.  ``view_block`` (a TPU view-block
     layout) is accepted and ignored.
     """
@@ -295,6 +315,14 @@ def _fov_disc_mask(n_matrix, fov):
     return (rr <= fov / 2.0).astype(np.uint8)
 
 
+@functools.lru_cache(maxsize=8)
+def _fov_disc_mask_on(n_matrix, fov, device):
+    """:func:`_fov_disc_mask` on ``device``, uploaded once (pinned memory,
+    an asynchronous copy) and kept: K6's wrapper reads it on every call.
+    Shared: never write."""
+    return upload(_fov_disc_mask(n_matrix, fov), device)
+
+
 def parallel_backproject_multi_plain(packed, n_images, thetas, t0, dt, nt,
                                      n_matrix, fov, dtheta, *,
                                      fov_mask=True, view_block=64):
@@ -342,8 +370,7 @@ def _parallel_backproject_cuda(packed, n_images, thetas, t0, dt, nt,
                     (n_th * nt, 2 * n_images))
     kernels.require(thetas, "thetas", dev, torch.float32, (n_th,))
     cos_t, sin_t = torch.cos(thetas), torch.sin(thetas)
-    mask = (torch.as_tensor(_fov_disc_mask(n_matrix, fov), device=dev)
-            if fov_mask else None)
+    mask = _fov_disc_mask_on(n_matrix, fov, dev) if fov_mask else None
     out = torch.empty((n_images, n_matrix, n_matrix), dtype=torch.float32,
                       device=dev)
     rc = kernels.library().dexct_parallel_backproject(

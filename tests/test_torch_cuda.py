@@ -1834,6 +1834,67 @@ def test_k4_output_is_unchanged(dev):
     assert hashlib.sha1(out.tobytes()).hexdigest() == K4_GOLDEN_SHA1
 
 
+# sha1 of K4's output on the cases of probe_fan_backproject.PIN_CASES (the
+# exact path's 1000 x 800 -> 512^2 at K = 1, 3 and 4, and a ragged 70^2
+# image over 90 x 96), from the build of K4 before its 16-byte loads and
+# compact warp tiles (NVIDIA H100 80GB HBM3, CUDA 12.8)
+K4_PINNED_SHA1 = {"k1": "0f69aa9b54f67a29a5037658f00a1b8485a1acc2",
+                  "k3": "85778dafe38e3ddef2d7fd4c93ce4403dc6bc66f",
+                  "k4": "34d550b204cddb6b868c1dfa4a03dfa63b95c4ec",
+                  "ragged": "d4aea1441d62e45a8eb00d95c357d31abeee7bbf"}
+
+
+def _k4_pin_call(dev, case):
+    from dexct_tpu_torch.ops.fbp_fast import pack_filtered
+    from dexct_tpu_torch.tools.probe_fan_backproject import pin_case
+
+    q, betas, args = pin_case(case)
+    packed = pack_filtered(torch.as_tensor(q, device=dev))
+    b = torch.as_tensor(betas, device=dev)
+    return lambda: fan_backproject_multi(packed, q.shape[0], b, *args)
+
+
+@pytest.mark.parametrize("case", sorted(K4_PINNED_SHA1))
+def test_k4_keeps_its_pinned_bits(dev, case):
+    from dexct_tpu_torch.tools.probe_fan_backproject import output_sha1
+
+    before = fan_backproject_multi.launches
+    out = _k4_pin_call(dev, case)()
+    torch.cuda.synchronize()
+    assert fan_backproject_multi.launches == before + 1
+    assert output_sha1(out) == K4_PINNED_SHA1[case]
+
+
+@pytest.mark.parametrize("case", ["k4", "ragged"])
+def test_k4_two_launches_are_equal(dev, case):
+    call = _k4_pin_call(dev, case)
+    assert torch.equal(call(), call())
+
+
+def test_k4_makes_no_host_synchronisation(dev):
+    _no_sync(_k4_pin_call(dev, "ragged"))
+
+
+def test_k4_refuses_a_misaligned_table(dev):
+    """K4 reads each packed row in 8- or 16-byte loads: a table that
+    starts off a 16-byte boundary is refused, not read."""
+    from dexct_tpu_torch.ops.fbp_fast import pack_filtered
+
+    rng = np.random.default_rng(42)
+    q = torch.as_tensor(rng.normal(size=(2, 12, 16)), dtype=torch.float32,
+                        device=dev)
+    packed = pack_filtered(q)
+    buf = torch.empty(packed.numel() + 1, device=dev)
+    shifted = buf[1:].view(packed.shape)
+    shifted.copy_(packed)
+    betas = torch.linspace(0.0, 6.0, 12, device=dev)
+    before = fan_backproject_multi.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        fan_backproject_multi(shifted, 2, betas, 60.0, 0.8230337 / 16, 16,
+                              8, 24.0, 0.5)
+    assert fan_backproject_multi.launches == before
+
+
 def _motion_fan_case(dev, V=120, C=96, seed=30):
     rng = np.random.default_rng(seed)
     q = torch.as_tensor(rng.normal(size=(V, C)), dtype=torch.float32,
@@ -2415,7 +2476,8 @@ def test_realism_stages_do_not_synchronise(dev, stage, step):
     "helical_z", "view_geometry_fan", "view_geometry_cone", "low_dose",
     "low_dose_compound", "march_plain", "scatter_energies", "pileup_bins",
     "aperture_counts", "scatter_kernel", "pwls_weights", "auto_tcm_profile",
-    "normalize_counts", "cone_operator"])
+    "normalize_counts", "cone_operator", "fbp_recon", "fbp_recon_short",
+    "parallel_fbp", "parallel_backproject_mask"])
 def test_scalar_uploads_do_not_synchronise(dev, site):
     """The scalars of ``_helical_z`` (z0), ``_view_geometry`` (sid),
     ``synthesize_low_dose`` (the dose fraction; Poisson thinning and the
@@ -2425,8 +2487,10 @@ def test_scalar_uploads_do_not_synchronise(dev, site):
     copied from the host; NumPy inputs (K26's energy grid, the bin
     pileup's sum routing, the aperture's mu table and fluences, a scatter
     kernel, the tcm profile's mu table and fluence, ``normalize_counts``'
-    modulation, the cone operator's rays) go to the card through pinned
-    memory, without a synchronisation."""
+    modulation, the cone operator's rays, the fan and parallel FBPs'
+    channel angles, filter responses, view angles and Parker weights) go
+    to the card through pinned memory, without a synchronisation; K6's FOV
+    mask goes up once and is kept."""
     from dexct_tpu_torch.ops import (aperture, conebeam, iterative, lowdose,
                                      scatter, scatter_physics)
     from dexct_tpu_torch.physics import pileup
@@ -2516,6 +2580,31 @@ def test_scalar_uploads_do_not_synchronise(dev, site):
                               SDD=100.0, h_iso=0.5)
         call = lambda: conebeam._cone_operator(  # noqa: E731
             ct, (8, 24, 24), (0.5, 0.5, 0.5), dev)
+    elif site.startswith("fbp_recon"):
+        from dexct_tpu_torch.ops import fbp
+        from dexct_tpu_torch.system import FanBeamGeometry
+
+        rot = 4.2 if site.endswith("short") else 2.0 * np.pi
+        ct = FanBeamGeometry(N_channels=64, N_proj=72, SID=60.0, SDD=100.0,
+                             rotation_total=rot)
+        sino = torch.as_tensor(np.random.default_rng(39).uniform(
+            0.0, 4.0, (72, 64)), dtype=torch.float32, device=dev)
+        call = lambda: fbp.fbp_recon(sino, ct, 40, 24.0)  # noqa: E731
+    elif site == "parallel_fbp":
+        from dexct_tpu_torch.ops import fbp
+        from dexct_tpu_torch.system import ParallelBeamGeometry
+
+        ct = ParallelBeamGeometry(N_channels=64, N_proj=60)
+        sino = torch.as_tensor(np.random.default_rng(39).uniform(
+            0.0, 4.0, (60, 64)), dtype=torch.float32, device=dev)
+        call = lambda: fbp.parallel_fbp(sino, ct, 40, 3.5)  # noqa: E731
+    elif site == "parallel_backproject_mask":
+        rng = np.random.default_rng(38)
+        packed = torch.as_tensor(rng.normal(size=(48 * 128, 2)),
+                                 dtype=torch.float32, device=dev)
+        th = torch.arange(48, dtype=torch.float32, device=dev) * (np.pi / 48)
+        call = lambda: parallel_backproject_multi(  # noqa: E731
+            packed, 1, th, -20.0, 40.0 / 128, 128, 64, 24.0, np.pi / 48)
     else:
         c = _realism_counts().to(dev)
         call = lambda: iterative.pwls_weights(  # noqa: E731

@@ -20,7 +20,11 @@ of JAX.  Phases, each of which raises on failure:
    iterations, four 512^2 images; K7's yardstick a complex CSR product;
    K4 also on seeded 1000 x 800 sinograms at K = 4 and 1, held to the
    sha1s pinned from its build before its 16-byte loads, with its device
-   times);
+   times; K7 also on seeded spectra at the four shapes the paths launch
+   it at, a ragged grid and a z-stack batch, each held to its plain
+   version and to the sha1 pinned from its build before it binned the
+   samples by spectrum tile, with its device time and bound; K7's
+   launches on the paths are printed by path at the end);
    K9 on the same fan rays through ``pelvis_analytic()``; K10 and K11 on
    the cone config (360 views x 16 rows x 256 channels through a 256^2 x
    32 pelvis, 16 slices of 256^2); K12 on the helical one (720 views over
@@ -998,6 +1002,56 @@ def k4_pinned_phase(fbp_fast):
     return pinned, twice, dev_ms
 
 
+# sha1 of K7's output on probe_kb_sample's seeded cases, pinned from the
+# build of K7 before it binned the samples by spectrum tile (NVIDIA H100
+# 80GB HBM3, CUDA 12.8); tests/test_torch_cuda.py holds the same
+K7_PINNED_SHA1 = {"ref6": "b4b713a723895e71e64f1114ae5ba37bb9188861",
+                  "ref1": "99d463d2d2f92073af01fb5c2dea0327309542cb",
+                  "onestep2": "bd307bf83e12a36667988ba5fe46341852547000",
+                  "motion1": "39e98eee5efb76e8180dbe5ae4811952da3c6cb0",
+                  "ragged": "52f4ef702fc46edf6fe1b36102b83ddd4776ebb9",
+                  "zstack16": "119a4b16b3b645c87e65eeaadc8e4c718b6f8fca"}
+
+
+def k7_pinned_phase(fourier):
+    """K7 on probe_kb_sample's seeded cases (the four shapes the paths
+    launch it at: the reference plan at M = 6 and M = 1, the one-step
+    plan at M = 2, the motion plan at M = 1; a ragged 50^2 grid; a z-stack
+    batch of 16 images): each against its plain version (1e-5 of the
+    maximum) and its pinned sha1, two launches equal; prints each case's
+    device time (CUDA graph) and bound; returns {case: device ms}."""
+    import torch
+
+    from dexct_tpu_torch.tools.probe_kb_sample import (output_sha1,
+                                                       pin_case,
+                                                       sampler_tables)
+
+    dev = torch.device("cuda")
+    tables, dev_ms = {}, {}
+    for case in K7_PINNED_SHA1:
+        n_img, n_theta, F = pin_case(case)
+        if (n_img, n_theta) not in tables:
+            tables[n_img, n_theta] = sampler_tables(fourier, n_img, n_theta,
+                                                    dev)
+        args = (torch.as_tensor(F, device=dev), *tables[n_img, n_theta])
+        out, again = fourier.kb_sample(*args), fourier.kb_sample(*args)
+        err, big = max_err(out, fourier.kb_sample_plain(*args))
+        sha_ok = output_sha1(out) == K7_PINNED_SHA1[case]
+        twice = bool(torch.equal(out, again))
+        dev_ms[case] = graph_ms(lambda: fourier.kb_sample(*args))
+        b, by = bound(nbytes(*args, out), out.numel() * 70)
+        print(f"  kb_sample {case} (G {2 * n_img}, n_theta {n_theta}, M "
+              f"{F.shape[0]}): device {dev_ms[case]:.4f} ms, bound "
+              f"{b:.4f} ms ({by}); pinned sha1 {sha_ok}, two launches "
+              f"equal {twice}, max_abs_err {err:.3g} of max |plain| "
+              f"{big:.4g} [<= 1e-5 of it]")
+        if not (sha_ok and twice and err <= 1e-5 * big):
+            fail(f"K7 on the seeded case {case}: pinned sha1 {sha_ok}, two "
+                 f"launches equal {twice}, error {err:.3g} of {big:.4g}")
+        del out, again
+    return dev_ms
+
+
 def gn_work(flat, ab, e_full, meta, polish=4, warm_nodes=32, n_tables=1):
     """Bytes and operations of one GN solve: per pixel and iteration, 17
     operations per energy node (the exponent, exp, six moment sums) and
@@ -1057,11 +1111,15 @@ def default_kernel_phase(arrays, meta, records):
     dense = F.reshape(n_mat, -1).T.contiguous()
     lib_err = float((torch.sparse.mm(W, dense).T.reshape(spec.shape)
                      - want).abs().max())
+    pinned = k7_pinned_phase(fourier)
     report(records, "kb_sample", err, ms, pms, err <= 1e-5 * big,
            (nbytes(*sargs, spec), spec.numel() * 70),
            library_ms=time_ms(lambda: torch.sparse.mm(W, dense), 5),
            extra=f" (max |plain| {big:.6g}; complex CSR library err "
-                 f"{lib_err:.3g})")
+                 f"{lib_err:.3g}; the seeded cases' pinned sha1s, two "
+                 f"launches equal; device, CUDA graph of 20 calls: "
+                 + ", ".join(f"{c} {t:.4f} ms" for c, t in pinned.items())
+                 + ")")
     del W, dense, cols, vals
 
     # K8: 8e5 fan rays from the 6 x 1024 x 1024 Radon transforms; the
@@ -3852,6 +3910,21 @@ def check_launches(label, fns, path_kernels, records):
         if name not in path_kernels and n != 0:
             fail(f"kernel {name} was launched on the {label} path")
         records[name]["launches"] += n
+    if launches["kb_sample"]:
+        K7_BY_PATH[label] = K7_BY_PATH.get(label, 0) + launches["kb_sample"]
+
+
+# K7's launches on the paths, by path (each path runs its own Fourier
+# plans: see K7_PLANS)
+K7_BY_PATH = {}
+K7_PLANS = {
+    "default": "reference plan G 512, n_theta 1024, M 6",
+    "bhc_denoise": "reference plan M 6; two n_theta 768 bone plans, M 1",
+    "iterative_2d": "reference plan, M 1",
+    "onestep": "512^2 plan G 1024, n_theta 1024, M 2",
+    "motion": "G 1024, n_theta 512, M 1 (joint fit); G 1024, n_theta "
+              "1024, M 2 (one-step)",
+}
 
 
 def write_cone_params(tmp, label, spec):
@@ -6190,6 +6263,9 @@ def main():
     order = ("name", "route", "source", "replaces", "launches",
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")
+    print("kb_sample launches by path: " + ", ".join(
+        f"{label} {n} ({K7_PLANS.get(label, 'its own plan')})"
+        for label, n in K7_BY_PATH.items()))
     print(f"chip_smoke wall time: {time.time() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": [{k: records[n][k] for k in order}

@@ -180,12 +180,15 @@ __device__ __forceinline__ void solve_pixel(
   out[1] = a1;
 }
 
+// scale: the count scale, one float on the card (read, never copied to
+// the host)
 __global__ void gauss_newton_kernel(const float* __restrict__ counts,
                                     const float* __restrict__ tables,
+                                    const float* __restrict__ scale,
                                     float* __restrict__ out, long long n_pix,
                                     int e_full, int e_warm, int n_warm,
-                                    int n_pol, int warm_bf16, float scale,
-                                    float a_lo, float a_hi, float step_max,
+                                    int n_pol, int warm_bf16, float a_lo,
+                                    float a_hi, float step_max,
                                     float eps_init, float clip) {
   extern __shared__ float tab[];
   const int n_tab = kRow * (e_full + e_warm);
@@ -194,8 +197,8 @@ __global__ void gauss_newton_kernel(const float* __restrict__ counts,
   const long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (p >= n_pix) return;
   solve_pixel(counts[p], counts[n_pix + p], tab, tab + kRow * e_full, e_full,
-              e_warm, n_warm, n_pol, warm_bf16, scale, a_lo, a_hi, step_max,
-              eps_init, clip, out + 2 * p);
+              e_warm, n_warm, n_pol, warm_bf16, __ldg(scale), a_lo, a_hi,
+              step_max, eps_init, clip, out + 2 * p);
 }
 
 // counts [2, n_pix] in group order, n_pix a multiple of blockDim.x; block
@@ -480,14 +483,15 @@ __device__ __forceinline__ void step_general(
 struct GeneralArgs {
   long long n_pix;
   int M, e_full, e_warm, n_warm, n_pol, warm_bf16, warm_log, polish_log;
-  float lm, scale, a_lo, a_hi, step_max, eps_init, clip;
+  float lm, a_lo, a_hi, step_max, eps_init, clip;
 };
 
-// counts [M, n_pix]; tables: the full rows, then the warm rows; out
-// [n_pix, K].
+// counts [M, n_pix]; tables: the full rows, then the warm rows; scale:
+// the count scale, one float on the card; out [n_pix, K].
 template <int K, int MAXM, bool kNewton>
 __global__ void gauss_newton_general_kernel(const float* __restrict__ counts,
                                             const float* __restrict__ tables,
+                                            const float* __restrict__ scale,
                                             float* __restrict__ out,
                                             GeneralArgs p) {
   constexpr int T = Tri<K>::T;
@@ -501,10 +505,11 @@ __global__ void gauss_newton_general_kernel(const float* __restrict__ counts,
   if (px >= p.n_pix) return;
   const float* full = tab;
   const float* warm = tab + row * p.e_full;
+  const float sc = __ldg(scale);
   float y[MAXM], ly[MAXM];
 #pragma unroll
   for (int m = 0; m < MAXM; ++m) {
-    y[m] = m < M ? counts[m * p.n_pix + px] / p.scale : 0.0f;
+    y[m] = m < M ? counts[m * p.n_pix + px] / sc : 0.0f;
     ly[m] = (float)log((double)fmaxf(y[m], 1e-35f));
   }
   float a[K];
@@ -532,8 +537,9 @@ __global__ void gauss_newton_general_kernel(const float* __restrict__ counts,
 }
 
 template <int K, int MAXM, bool kNewton>
-int launch_general(const float* counts, const float* tables, float* out,
-                   const GeneralArgs& p, cudaStream_t stream) {
+int launch_general(const float* counts, const float* tables,
+                   const float* scale, float* out, const GeneralArgs& p,
+                   cudaStream_t stream) {
   constexpr int T = Tri<K>::T;
   const int row = K + p.M * (1 + K) + (kNewton ? p.M * T : 0);
   const size_t shmem = sizeof(float) * row * (size_t)(p.e_full + p.e_warm);
@@ -545,31 +551,36 @@ int launch_general(const float* counts, const float* tables, float* out,
   }
   const int threads = 128;
   const long long blocks = (p.n_pix + threads - 1) / threads;
-  kernel<<<(unsigned)blocks, threads, shmem, stream>>>(counts, tables, out,
-                                                       p);
+  kernel<<<(unsigned)blocks, threads, shmem, stream>>>(counts, tables,
+                                                       scale, out, p);
   return (int)cudaGetLastError();
 }
 
 template <int K>
-int dispatch_general(const float* counts, const float* tables, float* out,
-                     const GeneralArgs& p, int newton, cudaStream_t stream) {
+int dispatch_general(const float* counts, const float* tables,
+                     const float* scale, float* out, const GeneralArgs& p,
+                     int newton, cudaStream_t stream) {
   if (p.M <= 4) {
-    return newton ? launch_general<K, 4, true>(counts, tables, out, p, stream)
-                  : launch_general<K, 4, false>(counts, tables, out, p,
-                                                stream);
+    return newton ? launch_general<K, 4, true>(counts, tables, scale, out, p,
+                                               stream)
+                  : launch_general<K, 4, false>(counts, tables, scale, out,
+                                                p, stream);
   }
-  return newton ? launch_general<K, 8, true>(counts, tables, out, p, stream)
-                : launch_general<K, 8, false>(counts, tables, out, p, stream);
+  return newton ? launch_general<K, 8, true>(counts, tables, scale, out, p,
+                                             stream)
+                : launch_general<K, 8, false>(counts, tables, scale, out, p,
+                                              stream);
 }
 
 }  // namespace
 
+// scale: a pointer to the count scale on the card
 extern "C" int dexct_gauss_newton(const void* counts, const void* tables,
-                                  void* out, long long n_pix, int e_full,
-                                  int e_warm, int n_warm, int n_pol,
-                                  int warm_bf16, float scale, float a_lo,
-                                  float a_hi, float step_max, float eps_init,
-                                  float clip, void* stream) {
+                                  const void* scale, void* out,
+                                  long long n_pix, int e_full, int e_warm,
+                                  int n_warm, int n_pol, int warm_bf16,
+                                  float a_lo, float a_hi, float step_max,
+                                  float eps_init, float clip, void* stream) {
   if (n_pix <= 0) return (int)cudaGetLastError();
   const size_t shmem = sizeof(float) * kRow * (size_t)(e_full + e_warm);
   if (shmem > 48 * 1024) {
@@ -583,8 +594,9 @@ extern "C" int dexct_gauss_newton(const void* counts, const void* tables,
   gauss_newton_kernel<<<(unsigned)blocks, threads, shmem,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(counts), static_cast<const float*>(tables),
-      static_cast<float*>(out), n_pix, e_full, e_warm, n_warm, n_pol,
-      warm_bf16, scale, a_lo, a_hi, step_max, eps_init, clip);
+      static_cast<const float*>(scale), static_cast<float*>(out), n_pix,
+      e_full, e_warm, n_warm, n_pol, warm_bf16, a_lo, a_hi, step_max,
+      eps_init, clip);
   return (int)cudaGetLastError();
 }
 
@@ -612,12 +624,13 @@ extern "C" int dexct_gauss_newton_grouped(
   return (int)cudaGetLastError();
 }
 
+// scale: a pointer to the count scale on the card
 extern "C" int dexct_gauss_newton_general(
-    const void* counts, const void* tables, void* out, long long n_pix,
-    int n_meas, int n_mats, int newton, int e_full, int e_warm, int n_warm,
-    int n_pol, int warm_bf16, int warm_log, int polish_log, float lm_damping,
-    float scale, float a_lo, float a_hi, float step_max, float eps_init,
-    float clip, void* stream) {
+    const void* counts, const void* tables, const void* scale, void* out,
+    long long n_pix, int n_meas, int n_mats, int newton, int e_full,
+    int e_warm, int n_warm, int n_pol, int warm_bf16, int warm_log,
+    int polish_log, float lm_damping, float a_lo, float a_hi, float step_max,
+    float eps_init, float clip, void* stream) {
   if (n_pix <= 0) return (int)cudaGetLastError();
   if (n_meas < n_mats || n_meas > 8) return (int)cudaErrorInvalidValue;
   GeneralArgs p;
@@ -631,7 +644,6 @@ extern "C" int dexct_gauss_newton_general(
   p.warm_log = warm_log;
   p.polish_log = polish_log;
   p.lm = lm_damping;
-  p.scale = scale;
   p.a_lo = a_lo;
   p.a_hi = a_hi;
   p.step_max = step_max;
@@ -639,15 +651,16 @@ extern "C" int dexct_gauss_newton_general(
   p.clip = clip;
   const float* c = static_cast<const float*>(counts);
   const float* t = static_cast<const float*>(tables);
+  const float* sc = static_cast<const float*>(scale);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (n_mats) {
     case 2:
-      return dispatch_general<2>(c, t, o, p, newton, st);
+      return dispatch_general<2>(c, t, sc, o, p, newton, st);
     case 3:
-      return dispatch_general<3>(c, t, o, p, newton, st);
+      return dispatch_general<3>(c, t, sc, o, p, newton, st);
     case 4:
-      return dispatch_general<4>(c, t, o, p, newton, st);
+      return dispatch_general<4>(c, t, sc, o, p, newton, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

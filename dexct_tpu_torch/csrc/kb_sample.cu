@@ -6,67 +6,116 @@
 // The TPU program builds a table of 16 rolled copies of the spectrum,
 // [G^2, 16 * 2M] floats (201 MB at G = 512, M = 6), so that one row gather
 // fetches the whole 4 x 4 window of every re/im channel of a sample; the
-// gather count, not the bytes, sets a TPU's rate.  Here each sample reads
-// its 16 window taps straight from the spectrum F [M, G, G] (complex64, 12.6
-// MB at the reference protocol: it stays in the 50 MB L2), with the window
-// base from slice_idx and the four row and four column offsets wrapped mod
-// G.  No table is built.
-//
-// What bounds it on the card: 16 * M complex L2 reads (768 bytes at M = 6)
-// and 16 * M * 4 float ops per sample, ntheta * nl = 1024 x 257 samples:
-// 0.2 GB of L2 traffic.  Design: one thread per (theta, l) sample; the 16
-// weights, the 4 row and 4 column offsets and the phase stay in registers
-// across the loop over materials; neighbouring threads are neighbouring
-// radii of one line, whose windows overlap, so their reads share lines.
-// The output is complex64 [M, ntheta, nl], the layout torch.fft.irfft takes
-// along its last axis.
+// gather count, not the bytes, sets a TPU's rate.  Here no such table is
+// built: each sample reads its 16 window taps of the spectrum F [M, G, G]
+// (complex64, 12.6 MB at the reference protocol), with the window base from
+// slice_idx clamped into the plane and the four row and four column
+// offsets wrapped mod G.
 //
 // Per sample, as the JAX program: z = sum_{i,j} w[i*4 + j] *
 // F[(vb + j) % G, (ub + i) % G] for re and im, then spec = z * (cos phi +
 // i sin phi) with the host phase table.
+//
+// What bounds it on the card: the function's bytes (F, the tables and the
+// output, each moved once: 0.0135 ms at the reference plan, M = 6).  The
+// first design ran a thread per sample in the tables' (theta, l) order, so
+// a warp held 32 radii of one line: on a steep line its 32 lanes walk down
+// 32 rows, and each of the 16 M gathers of a sample touched ~21 distinct
+// 128-byte lines, the same addresses again for every image, with the 16
+// weights in 16 scalar loads at a 64-byte stride.  It ran at 31-58 % of
+// its bound, its steep lines 1.9x slower than its shallow ones: the
+// gathers bound it, not the bytes.
+//
+// Design: the samples are binned once per table by the T x T spectrum
+// tile that holds their window base (kb_tiles in ops/fourier.py: T =
+// kTile = 8, each dense tile split into work items of at most kItem = 128
+// samples, a block's threads; T = 16 and items of 64 to 256 measured
+// slower at three or four of the four plans the paths run, NVIDIA H100
+// 80GB HBM3, 700 W, tools/probe_k7_steps.py).  A block takes one item: it
+// stages the tile and its 3-cell halo, (T + 3)^2 cells wrapped mod G, of
+// up to kGroup images in shared memory, each staged cell read once and
+// coalesced along rows; then each thread sums one sample's 16 taps from
+// shared memory for every staged image.  A sample's record (its index s,
+// its window base in the staged tile, its phase pair) is one 16-byte
+// load, its weights four 16-byte loads from [4][S] float4, so a warp's
+// loads are contiguous.  Images beyond one group are staged a group at a
+// time, the weights kept in registers.  The arithmetic is the first
+// design's, in its order (i outer, j inner, the sums contracted as nvcc
+// contracted them, fma(w, z, acc), then the phase product rounded apart),
+// written with explicit intrinsics: the output is its output bit for bit.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void kb_sample_kernel(const float2* __restrict__ F,
-                                 const int* __restrict__ base,
-                                 const float* __restrict__ w,
-                                 const float* __restrict__ phase_cos,
-                                 const float* __restrict__ phase_sin,
-                                 float2* __restrict__ out, int S, int M,
-                                 int G) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  const int plane = G * G;
-  int b = __ldg(base + s);
-  b = b < 0 ? 0 : (b >= plane ? plane - 1 : b);  // the JAX gather's clamp
-  const int vb = b / G, ub = b % G;
-  int rows[4], cols[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    rows[j] = ((vb + j) % G) * G;
-    cols[j] = (ub + j) % G;
-  }
+constexpr int kGroup = 8;  // images staged at a time
+constexpr int kTile = 8;   // the spectrum tile's side (KB_TILE)
+constexpr int kItem = 128; // the most samples (threads) a work item (KB_ITEM)
+
+// one block per work item of at most Threads samples, binned by T x T
+// tile; items [n_items + 1] the item's binned samples [items[b], items[b
+// + 1]); origin [n_items] its tile's first (row, col); rec [S] (s, base in
+// the staged tile, cos phi bits, sin phi bits); w [4][S] float4: binned
+// sample p's taps 4q .. 4q + 3 at w[q S + p]
+template <int T, int Threads>
+__global__ void __launch_bounds__(Threads)
+    kb_tile_kernel(const float2* __restrict__ F, const int* __restrict__ items,
+                   const int2* __restrict__ origin,
+                   const int4* __restrict__ rec,
+                   const float4* __restrict__ w, float2* __restrict__ out,
+                   int S, int M, int G) {
+  constexpr int P = T + 3;  // the staged tile's side (and row pitch)
+  constexpr int C2 = P * P;
+  __shared__ float2 sh[kGroup * C2];
+  const int lo = __ldg(items + blockIdx.x);
+  const int p = lo + threadIdx.x;
+  const bool live = p < __ldg(items + blockIdx.x + 1);
+  const int2 o = __ldg(origin + blockIdx.x);
+  const long long plane = (long long)G * G;
+  int4 r = make_int4(0, 0, 0, 0);
   float wt[16];
+  if (live) {
+    r = __ldg(rec + p);
 #pragma unroll
-  for (int k = 0; k < 16; ++k) wt[k] = __ldg(w + (size_t)s * 16 + k);
-  const float pc = __ldg(phase_cos + s), ps = __ldg(phase_sin + s);
-  for (int m = 0; m < M; ++m) {
-    const float2* Fm = F + (size_t)m * plane;
-    float re = 0.0f, im = 0.0f;
+    for (int q = 0; q < 4; ++q) {
+      const float4 v = __ldg(w + (long long)q * S + p);
+      wt[4 * q] = v.x;
+      wt[4 * q + 1] = v.y;
+      wt[4 * q + 2] = v.z;
+      wt[4 * q + 3] = v.w;
+    }
+  }
+  const float pc = __int_as_float(r.z), ps = __int_as_float(r.w);
+  for (int m0 = 0; m0 < M; m0 += kGroup) {
+    const int nm = M - m0 < kGroup ? M - m0 : kGroup;
+    if (m0 > 0) __syncthreads();  // the last group's taps are all read
+    for (int c = threadIdx.x; c < C2; c += blockDim.x) {
+      const int dr = c / P, dc = c - dr * P;
+      int row = o.x + dr, col = o.y + dc;
+      while (row >= G) row -= G;
+      while (col >= G) col -= G;
+      const float2* src = F + m0 * plane + row * G + col;
+      for (int m = 0; m < nm; ++m) sh[m * C2 + c] = __ldg(src + m * plane);
+    }
+    __syncthreads();
+    if (live) {
+      for (int m = 0; m < nm; ++m) {
+        const float2* t = sh + m * C2 + r.y;
+        float re = 0.0f, im = 0.0f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < 4; ++i) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 z = __ldg(Fm + rows[j] + cols[i]);
-        re += wt[i * 4 + j] * z.x;
-        im += wt[i * 4 + j] * z.y;
+          for (int j = 0; j < 4; ++j) {
+            const float2 z = t[j * P + i];
+            re = __fmaf_rn(wt[i * 4 + j], z.x, re);
+            im = __fmaf_rn(wt[i * 4 + j], z.y, im);
+          }
+        }
+        out[(m0 + m) * (long long)S + r.x] =
+            make_float2(__fsub_rn(__fmul_rn(re, pc), __fmul_rn(im, ps)),
+                        __fadd_rn(__fmul_rn(re, ps), __fmul_rn(im, pc)));
       }
     }
-    out[(size_t)m * S + s] =
-        make_float2(__fsub_rn(__fmul_rn(re, pc), __fmul_rn(im, ps)),
-                    __fadd_rn(__fmul_rn(re, ps), __fmul_rn(im, pc)));
   }
 }
 
@@ -361,20 +410,22 @@ void launch_adjoint(const float2* g, const int* row_ptr, const int2* ent,
 
 }  // namespace
 
-// F [M, G, G] complex64; base [S] int32; w [S, 16]; phase_cos/sin [S];
-// out [M, S] complex64
-extern "C" int dexct_kb_sample(const void* F, const void* base,
-                               const void* w, const void* phase_cos,
-                               const void* phase_sin, void* out, int S, int M,
-                               int G, void* stream) {
-  if (S <= 0) return (int)cudaGetLastError();
-  const int threads = 256;
-  kb_sample_kernel<<<(S + threads - 1) / threads, threads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(F), static_cast<const int*>(base),
-      static_cast<const float*>(w), static_cast<const float*>(phase_cos),
-      static_cast<const float*>(phase_sin), static_cast<float2*>(out), S, M,
-      G);
+// F [M, G, G] complex64; the binned samples of kb_tiles: items [n_items
+// + 1] int32, origin [n_items] int2, rec [S] int4, w [4, S, 4] float32,
+// the items at most kItem samples each of one kTile x kTile tile; out [M,
+// S] complex64, every element written
+extern "C" int dexct_kb_sample(const void* F, const void* items,
+                               const void* origin, const void* rec,
+                               const void* w, void* out, int S, int M, int G,
+                               int n_items, void* stream) {
+  if (S < 0 || M < 0 || G <= 0 || n_items < 0)
+    return (int)cudaErrorInvalidValue;
+  if (S == 0 || M == 0 || n_items == 0) return (int)cudaGetLastError();
+  kb_tile_kernel<kTile, kItem>
+      <<<n_items, kItem, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float2*>(F), static_cast<const int*>(items),
+          static_cast<const int2*>(origin), static_cast<const int4*>(rec),
+          static_cast<const float4*>(w), static_cast<float2*>(out), S, M, G);
   return (int)cudaGetLastError();
 }
 

@@ -8,7 +8,8 @@ an exact per-ray walk:
        FFT'd (``torch.fft``);
     2. the spectrum is sampled along nθ radial half-lines with a width-4
        Kaiser-Bessel kernel, from host-precomputed window bases and weights
-       (:func:`kb_sample`, kernel K7 on the card);
+       (:func:`kb_sample`, kernel K7 on the card, over the samples binned
+       once per table by spectrum tile, :func:`kb_tiles`);
     3. an inverse real FFT along the radial axis gives the parallel-beam
        Radon transform R_m(θ, t) on a (nθ x nt) grid;
     4. fan rays (β, γ) map to parallel coordinates (θ = β + γ - π/2,
@@ -36,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import weakref
 
 import numpy as np
 import torch
@@ -64,6 +66,8 @@ __all__ = [
     "plan_fan_adjoint",
     "KBTranspose",
     "kb_transpose",
+    "KBTiles",
+    "kb_tiles",
 ]
 
 
@@ -319,23 +323,136 @@ def kb_sample_plain(F, slice_idx, slice_w, phase_cos, phase_sin):
     return spec.reshape(M, n_theta, nl)
 
 
+# K7's work items: the samples whose window base lies in one KB_TILE x
+# KB_TILE tile of the spectrum, at most KB_ITEM of them (a thread block)
+KB_TILE = 8
+KB_ITEM = 128
+
+
+@dataclasses.dataclass
+class KBTiles:
+    """The sampler's samples binned by spectrum tile, K7's table
+    (:func:`kb_tiles`).
+
+    Samples stand in binned order p: by the T x T tile (T = ``KB_TILE``)
+    of the G x G spectrum that holds their window base (the base clamped
+    into the plane as K7 clamps it; tiles in row-major order, ragged at the
+    last row and column when G is no multiple of T), each tile's samples in
+    increasing s.  A tile of n samples splits into ceil(n / ``KB_ITEM``)
+    work items of near-equal size.  ``items`` [n_items + 1] int32: item i
+    holds binned samples [items[i], items[i + 1]); ``origin`` [n_items, 2]
+    int32, its tile's first (row, column); ``rec`` [S, 4] int32, per binned
+    sample its index s, its window base in the staged tile ((row - origin
+    row) * (T + 3) + column - origin column) and the float32 bits of its
+    phase pair; ``w`` [4, S, 4] float32, its tap k = 4 q + e at ``w[q, p,
+    e]``."""
+
+    grid: int
+    items: torch.Tensor
+    origin: torch.Tensor
+    rec: torch.Tensor
+    w: torch.Tensor
+
+    @property
+    def n_items(self):
+        return self.items.numel() - 1
+
+    @property
+    def nbytes(self):
+        return sum(t.numel() * t.element_size()
+                   for t in (self.items, self.origin, self.rec, self.w))
+
+
+def _kb_tiles_build(slice_idx, slice_w, phase_cos, phase_sin, grid):
+    """:class:`KBTiles` of the sampler's tables, built in plain PyTorch on
+    their device: a stable sort of the samples by tile, a bincount, the
+    items' bounds, the records and weights gathered into binned order.
+    Reads the number of items back to the host."""
+    G = int(grid)
+    tile, cap = KB_TILE, KB_ITEM
+    S = slice_idx.numel()
+    if slice_w.numel() != 16 * S or phase_cos.numel() != S \
+            or phase_sin.numel() != S:
+        raise ValueError(f"sampler tables of {S} samples: slice_w holds "
+                         f"{slice_w.numel()}, the phases {phase_cos.numel()}"
+                         f" and {phase_sin.numel()}")
+    dev = slice_idx.device
+    base = slice_idx.reshape(-1).to(torch.int64).clamp(0, G * G - 1)
+    vb, ub = base // G, base % G
+    ty, tx = vb // tile, ub // tile
+    n_side = -(-G // tile)
+    tile_id = ty * n_side + tx
+    order = torch.sort(tile_id, stable=True).indices
+    count = torch.bincount(tile_id, minlength=n_side * n_side)
+    k = torch.div(count + cap - 1, cap, rounding_mode="floor")
+    n_items = int(k.sum())
+    item_tile = torch.repeat_interleave(
+        torch.arange(n_side * n_side, device=dev), k, output_size=n_items)
+    first = torch.cumsum(k, 0) - k
+    start = torch.cumsum(count, 0) - count
+    j = torch.arange(n_items, device=dev) - first[item_tile]
+    n = count[item_tile]
+    items = torch.empty(n_items + 1, dtype=torch.int32, device=dev)
+    items[:-1] = start[item_tile] + torch.div(j * n, k[item_tile],
+                                              rounding_mode="floor")
+    items[-1] = S
+    origin = torch.stack([item_tile // n_side * tile,
+                          item_tile % n_side * tile], 1).to(torch.int32)
+    local = (vb - ty * tile) * (tile + 3) + (ub - tx * tile)
+    rec = torch.stack([
+        order.to(torch.int32), local[order].to(torch.int32),
+        phase_cos.reshape(-1)[order].to(torch.float32).view(torch.int32),
+        phase_sin.reshape(-1)[order].to(torch.float32).view(torch.int32)], 1)
+    w = slice_w.reshape(S, 4, 4)[order].to(torch.float32).transpose(0, 1)
+    return KBTiles(G, items, origin, rec, w.contiguous())
+
+
+# kb_tiles' cache: id(slice_idx) -> (KBTiles, slice_w, phase_cos,
+# phase_sin); an entry goes when its slice_idx tensor does
+_KB_TILES = {}
+
+
+def kb_tiles(slice_idx, slice_w, phase_cos, phase_sin, grid):
+    """The samples of the sampler's tables binned by spectrum tile
+    (:class:`KBTiles`), K7's table, on the tables' device: built at the
+    first call for a ``slice_idx`` tensor and kept while that tensor lives
+    (the same ``slice_w`` and phase tensors and grid reuse it), about 80
+    bytes a sample (21 MB at G = 512, n_theta = 1024).  Counts its builds
+    in ``kb_tiles.builds``."""
+    key = id(slice_idx)
+    hit = _KB_TILES.get(key)
+    if (hit is not None and hit[1] is slice_w and hit[2] is phase_cos
+            and hit[3] is phase_sin and hit[0].grid == int(grid)):
+        return hit[0]
+    tiles = _kb_tiles_build(slice_idx, slice_w, phase_cos, phase_sin, grid)
+    kb_tiles.builds += 1
+    if hit is None:
+        weakref.finalize(slice_idx, _KB_TILES.pop, key, None)
+    _KB_TILES[key] = (tiles, slice_w, phase_cos, phase_sin)
+    return tiles
+
+
+kb_tiles.builds = 0
+
+
 def _kb_sample_cuda(F, slice_idx, slice_w, phase_cos, phase_sin):
     dev = F.device
     M, G, _ = F.shape
     n_theta, nl = phase_cos.shape
     S = n_theta * nl
     kernels.require(F, "F", dev, torch.complex64, (M, G, G))
-    base = kernels.require(slice_idx.reshape(-1), "slice_idx", dev,
-                           torch.int32, (S,))
-    w = kernels.require(slice_w.reshape(-1), "slice_w", dev, torch.float32,
-                        (S * 16,))
-    kernels.require(phase_cos, "phase_cos", dev, torch.float32)
-    kernels.require(phase_sin, "phase_sin", dev, torch.float32,
-                    (n_theta, nl))
+    tiles = kb_tiles(slice_idx, slice_w, phase_cos, phase_sin, G)
+    n_items = tiles.n_items
+    items = kernels.require(tiles.items, "tiles items", dev, torch.int32,
+                            (n_items + 1,))
+    origin = kernels.require(tiles.origin, "tiles origin", dev, torch.int32,
+                             (n_items, 2))
+    rec = kernels.require(tiles.rec, "tiles rec", dev, torch.int32, (S, 4))
+    w = kernels.require(tiles.w, "tiles w", dev, torch.float32, (4, S, 4))
     out = torch.empty((M, n_theta, nl), dtype=torch.complex64, device=dev)
     rc = kernels.library().dexct_kb_sample(
-        F.data_ptr(), base.data_ptr(), w.data_ptr(), phase_cos.data_ptr(),
-        phase_sin.data_ptr(), out.data_ptr(), S, M, G,
+        F.data_ptr(), items.data_ptr(), origin.data_ptr(), rec.data_ptr(),
+        w.data_ptr(), out.data_ptr(), S, M, G, n_items,
         kernels.stream_ptr(dev))
     kernels.check(rc, "kb_sample")
     kb_sample.launches += 1
@@ -345,8 +462,10 @@ def _kb_sample_cuda(F, slice_idx, slice_w, phase_cos, phase_sin):
 def kb_sample(F, slice_idx, slice_w, phase_cos, phase_sin):
     """KB gridding samples of the spectra ``F`` [M, G, G] along the plan's
     radial lines: complex [M, nθ, nl].  CUDA tensors run kernel K7
-    (counted in ``kb_sample.launches``; complex64 F, int32 window bases,
-    float32 weights and phases); CPU tensors run :func:`kb_sample_plain`.
+    (counted in ``kb_sample.launches``; complex64 F) over the samples
+    binned by spectrum tile (:func:`kb_tiles` of the tables, built at the
+    first call for them), bit for bit the sampler's first kernel; CPU
+    tensors run :func:`kb_sample_plain`, which bins nothing.
     """
     if F.dim() != 3 or F.shape[1] != F.shape[2]:
         raise ValueError(f"F must be [M, G, G], got {tuple(F.shape)}")
@@ -801,8 +920,10 @@ def _onehot_images(labels, n_materials):
 
 def fourier_radon(plan: FourierProjectorPlan, images):
     """Radon transforms [K, nθ, nt] of an image stack [K, N, N].  On the
-    card a backward pass runs K21 over the plan's cached transpose
-    (:func:`kb_transpose`, built at the first backward)."""
+    card K7 runs over the plan's samples binned by spectrum tile
+    (:func:`kb_tiles`, built at the first call and kept while the plan's
+    ``slice_idx`` lives) and a backward pass runs K21 over the plan's
+    cached transpose (:func:`kb_transpose`, built at the first backward)."""
     return _radon_from_images(
         images, plan.deapod, plan.slice_idx, plan.slice_w,
         plan.phase_cos, plan.phase_sin, plan.scale,
@@ -842,8 +963,9 @@ def fourier_paths_from_arrays(a, labels, meta_fp):
 def fourier_paths_stack_from_arrays(a, labels, meta_fp):
     """:func:`fourier_paths_from_arrays` for a stack of label slices [Z, N,
     N] in one pass: the one-hot images of every slice go through the FFT,
-    the KB sampler (K7) and the fan resample (K8) as one batch of Z x M
-    images.  Returns [Z, V, C, M], each slice contiguous."""
+    the KB sampler (K7, over the binned samples that :func:`kb_tiles`
+    keeps for ``a["fp_slice_idx"]``) and the fan resample (K8) as one
+    batch of Z x M images.  Returns [Z, V, C, M], each slice contiguous."""
     n_mat, n_theta, nt, grid, n_img, scale = meta_fp[:6]
     z = labels.shape[0]
     imgs = torch.cat([_onehot_images(lab, n_mat) for lab in labels])

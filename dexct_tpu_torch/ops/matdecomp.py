@@ -431,13 +431,13 @@ def _gauss_newton_cuda(counts, i0, mus, *, n_iters, eps_init, pixel_block,
     if warm_bf16:  # the warm table as the bf16 warm phase sees it
         rows[1] = rows[1].to(torch.bfloat16).float()
     tables = torch.cat([r.reshape(-1) for r in rows]).contiguous()
+    scale = kernels.require(scale, "scale", dev, torch.float32, ())
     out = torch.empty((P, 2), dtype=torch.float32, device=dev)
     rc = kernels.library().dexct_gauss_newton(
-        counts.data_ptr(), tables.data_ptr(), out.data_ptr(), P,
-        full[0].shape[0], warm_tab[0].shape[0], n_warm, n_pol,
-        int(warm_bf16), float(scale), float(a_bounds[0]),
-        float(a_bounds[1]), float(step_max), float(eps_init), _CLIP,
-        kernels.stream_ptr(dev))
+        counts.data_ptr(), tables.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), P, full[0].shape[0], warm_tab[0].shape[0], n_warm,
+        n_pol, int(warm_bf16), float(a_bounds[0]), float(a_bounds[1]),
+        float(step_max), float(eps_init), _CLIP, kernels.stream_ptr(dev))
     kernels.check(rc, "gauss_newton")
     gauss_newton_solve.launches += 1
     return out
@@ -467,12 +467,13 @@ def _gauss_newton_general(counts, i0, mus, *, n_iters, eps_init,
     if warm_bf16:  # the warm table as the bf16 warm phase sees it
         rows[1] = rows[1].to(torch.bfloat16).float()
     tables = torch.cat([r.reshape(-1) for r in rows]).contiguous()
+    scale = kernels.require(scale, "scale", dev, torch.float32, ())
     out = torch.empty((P, n_mats), dtype=torch.float32, device=dev)
     rc = kernels.library().dexct_gauss_newton_general(
-        counts.data_ptr(), tables.data_ptr(), out.data_ptr(), P, n_meas,
-        n_mats, int(newton), rows[0].shape[0], rows[1].shape[0], n_warm,
-        n_pol, int(warm_bf16), int(warm_log), int(polish_log),
-        float(lm_damping), float(scale), float(a_bounds[0]),
+        counts.data_ptr(), tables.data_ptr(), scale.data_ptr(),
+        out.data_ptr(), P, n_meas, n_mats, int(newton), rows[0].shape[0],
+        rows[1].shape[0], n_warm, n_pol, int(warm_bf16), int(warm_log),
+        int(polish_log), float(lm_damping), float(a_bounds[0]),
         float(a_bounds[1]), float(step_max), float(eps_init), _CLIP,
         kernels.stream_ptr(dev))
     kernels.check(rc, "gauss_newton_general")

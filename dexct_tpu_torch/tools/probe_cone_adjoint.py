@@ -23,9 +23,8 @@ Prints the card's name and power limit, then JSON lines:
   launches are bit-equal, and, where the checkout's K18 swaps the volume's
   x and y for its x-dominant warps (``conebeam._swap_xy``), that copy's
   device time;
-- ``"k18_sass"`` (with ``--sass``): K18's registers and, for each loop of
-  its walk kernel in the built library's SASS (a branch back to an earlier
-  address), the instructions it spans, from ``cuobjdump``;
+- ``"k18_sass"`` (with ``--sass``): K18's registers, instructions by
+  opcode and loops (``sass_stats.py``);
 - ``"k19"``: K19's call (CUDA events over ``--reps`` calls, after a warm
   call) and device time (20 calls in one CUDA graph), whether two launches on the same input are bit-equal and their largest
   difference; where the checkout builds K19's transposed table
@@ -177,56 +176,18 @@ def _probe_k18(conebeam, ccfg, reps):
     torch.cuda.empty_cache()
 
 
-def _sass_loops(lines):
-    """The loops of one function's SASS listing: (first address, branch
-    address, instructions spanned) for each branch back to an earlier
-    address."""
-    import re
-
-    addr = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?);")
-    code = []
-    for line in lines:
-        m = addr.search(line)
-        if m:
-            code.append((int(m.group(1), 16), m.group(2)))
-    loops = []
-    for at, ins in code:
-        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", ins)
-        if m and int(m.group(1), 16) < at:
-            target = int(m.group(1), 16)
-            n = sum(1 for a, _ in code if target <= a <= at)
-            loops.append({"from": hex(target), "to": hex(at),
-                          "instructions": n})
-    return loops
-
-
 def _probe_sass(kernels):
-    """K18's registers and the loops of its walk in the built library."""
-    import shutil
+    """K18's registers and the loops of its walk in the built library
+    (``sass_stats.py`` beside this file)."""
+    import importlib.util
 
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    lib = str(kernels.build())
-    res = subprocess.run([tool, "-res-usage", lib], capture_output=True,
-                         text=True, timeout=300).stdout.splitlines()
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
-                          text=True, timeout=300).stdout.splitlines()
-    regs = {}
-    for i, line in enumerate(res):
-        if ("project_3d_kernel" in line or "swap_xy" in line) and \
-                "Function" in line and i + 1 < len(res):
-            name = line.split("Function")[1].strip(" :")
-            regs[name] = res[i + 1].strip()
-    funcs, cur = {}, None
-    for line in sass:
-        if "Function :" in line:
-            cur = line.split("Function :")[1].strip()
-            funcs[cur] = []
-        elif cur is not None:
-            funcs[cur].append(line)
-    loops = {name: _sass_loops(body) for name, body in funcs.items()
-             if "project_3d_kernel" in name or "swap_xy" in name}
-    print(json.dumps({"probe": "k18_sass", "resources": regs,
-                      "loops": loops}))
+    path = Path(__file__).resolve().parent / "sass_stats.py"
+    spec = importlib.util.spec_from_file_location("_sass_stats", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    stats = mod.kernel_stats(kernels.build(),
+                             ("project_3d_kernel", "swap_xy"))
+    print(json.dumps({"probe": "k18_sass", "kernels": stats}))
 
 
 def _probe_k19(conebeam, ccfg, reps):

@@ -17,10 +17,9 @@ The sinograms are drawn with ``numpy.random.default_rng`` (see
 
 Prints the card's name and power limit, then JSON lines:
 
-- ``"k4_sass"`` (with ``--sass``): each K4 instance's registers and, for
-  each loop of its SASS (a branch back to an earlier address), the
-  instructions it spans and its loads by width, from ``cuobjdump``;
-  ``--sass-dump FILE`` also writes the loops' SASS there;
+- ``"k4_sass"`` (with ``--sass``): each K4 instance's registers,
+  instructions by opcode and loops (``sass_stats.py``);
+  ``--sass-dump FILE`` also writes their SASS there;
 - ``"k4_time"``: at K = 4 and K = 1, K4's device time (20 calls in one
   CUDA graph) and its call (CUDA events over ``--reps`` calls), twice;
 - ``"k4_bits"``: for each case of :data:`PIN_CASES`, the sha1 of K4's
@@ -32,13 +31,10 @@ Card only.
 from __future__ import annotations
 
 import argparse
-import collections
 import hashlib
 import importlib.util
 import json
 import os
-import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -129,71 +125,16 @@ def _probe_bits(fbp_fast):
         torch.cuda.empty_cache()
 
 
-def _loop_stats(h, lines):
-    """Each loop of a function's SASS (:func:`_sass_loops` of the sibling
-    probe) with its loads by opcode and a few opcode counts."""
-    addr = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?);")
-    code = []
-    for line in lines:
-        m = addr.search(line)
-        if m:
-            code.append((int(m.group(1), 16), m.group(2), line.rstrip()))
-    out = []
-    for loop in h._sass_loops(lines):
-        lo, hi = int(loop["from"], 16), int(loop["to"], 16)
-        body = [(ins, text) for a, ins, text in code if lo <= a <= hi]
-        ops = collections.Counter()
-        for ins, _ in body:
-            op = re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0]
-            ops[op] += 1
-        loads = {op: n for op, n in ops.items() if op.startswith("LD")}
-        watch = {op: ops[op] for op in ops
-                 if op.split(".")[0] in ("FFMA", "FMUL", "FADD", "MUFU",
-                                         "F2I", "I2F", "IMAD", "F2F")}
-        out.append({**loop, "loads": loads, "ops": watch,
-                    "sass": [text for _, text in body]})
-    return out
-
-
-def _probe_sass(h, kernels, dump):
-    """K4's registers and loops in the built library."""
-    import shutil
-
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    lib = str(kernels.build())
-    res = subprocess.run([tool, "-res-usage", lib], capture_output=True,
-                         text=True, timeout=300).stdout.splitlines()
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
-                          text=True, timeout=300).stdout.splitlines()
-
-    def is_k4(name):
-        return "fan_backproject_kernel" in name
-
-    regs = {}
-    for i, line in enumerate(res):
-        if "Function" in line and is_k4(line) and i + 1 < len(res):
-            regs[line.split("Function")[1].strip(" :")] = res[i + 1].strip()
-    funcs, cur = {}, None
-    for line in sass:
-        if "Function :" in line:
-            cur = line.split("Function :")[1].strip()
-            funcs[cur] = []
-        elif cur is not None:
-            funcs[cur].append(line)
-    loops = {name: _loop_stats(h, body) for name, body in funcs.items()
-             if is_k4(name)}
-    if dump:
-        with open(dump, "w") as fh:
-            for name, ls in loops.items():
-                for loop in ls:
-                    fh.write(f"# {name} {loop['from']}..{loop['to']} "
-                             f"({loop['instructions']} instructions)\n")
-                    fh.write("\n".join(loop["sass"]) + "\n\n")
-    for ls in loops.values():
-        for loop in ls:
-            del loop["sass"]
-    print(json.dumps({"probe": "k4_sass", "resources": regs,
-                      "loops": loops}))
+def _probe_sass(kernels, dump):
+    """K4's registers, instructions and loops in the built library
+    (``sass_stats.py`` beside this file)."""
+    path = Path(__file__).resolve().parent / "sass_stats.py"
+    spec = importlib.util.spec_from_file_location("_sass_stats", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    stats = mod.kernel_stats(kernels.build(), ("fan_backproject_kernel",),
+                             dump)
+    print(json.dumps({"probe": "k4_sass", "kernels": stats}))
 
 
 def main(argv=None):
@@ -224,7 +165,7 @@ def main(argv=None):
     print(f"{h._card_line()} | torch {torch.__version__} | {root}")
     kernels.library()
     if args.sass:
-        _probe_sass(h, kernels, dump)
+        _probe_sass(kernels, dump)
     _probe_time(h, fbp_fast, args.reps)
     _probe_bits(fbp_fast)
 

@@ -55,20 +55,21 @@ _SIGNATURES = {
     # dy, eps, n_steps, stream
     "dexct_siddon_trace": (_P, _P, _P, _P, _L, _I, _I, _I, _F, _F, _F, _F,
                            _F, _F, _F, _I, _P),
-    # counts, tables, out, n_pix, e_full, e_warm, n_warm, n_pol,
-    # warm_bf16, scale, a_lo, a_hi, step_max, eps_init, clip, stream
-    "dexct_gauss_newton": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _F, _F, _F,
+    # counts, tables, scale (a device pointer), out, n_pix, e_full, e_warm,
+    # n_warm, n_pol, warm_bf16, a_lo, a_hi, step_max, eps_init, clip,
+    # stream
+    "dexct_gauss_newton": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F, _F,
                            _F, _F, _F, _P),
     # counts, block_group, scales, tables, out, n_pix, block, e_full,
     # e_warm, n_warm, n_pol, warm_bf16, a_lo, a_hi, step_max, eps_init,
     # clip, stream
     "dexct_gauss_newton_grouped": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                                    _I, _I, _F, _F, _F, _F, _F, _P),
-    # counts, tables, out, n_pix, n_meas, n_mats, newton, e_full, e_warm,
-    # n_warm, n_pol, warm_bf16, warm_log, polish_log, lm_damping, scale,
-    # a_lo, a_hi, step_max, eps_init, clip, stream
-    "dexct_gauss_newton_general": (_P, _P, _P, _L) + (_I,) * 10 + (_F,) * 7
-                                  + (_P,),
+    # counts, tables, scale (a device pointer), out, n_pix, n_meas, n_mats,
+    # newton, e_full, e_warm, n_warm, n_pol, warm_bf16, warm_log,
+    # polish_log, lm_damping, a_lo, a_hi, step_max, eps_init, clip, stream
+    "dexct_gauss_newton_general": (_P, _P, _P, _P, _L) + (_I,) * 10
+                                  + (_F,) * 6 + (_P,),
     # packed, cos_b, sin_b, out, n_images, V, C, N, px, half, sid, dgamma,
     # dbeta, stream
     "dexct_fan_backproject": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
@@ -92,8 +93,8 @@ _SIGNATURES = {
     # t0, dt, dtheta, stream
     "dexct_parallel_backproject": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                                    _F, _F, _F, _F, _P),
-    # F, base, w, phase_cos, phase_sin, out, S, M, G, stream
-    "dexct_kb_sample": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # F, items, origin, rec, w, out, S, M, G, n_items, stream
+    "dexct_kb_sample": (_P,) * 6 + (_I,) * 4 + (_P,),
     # g, row_ptr, entries, rows, ell, ell_offset, phase_cos, phase_sin, z,
     # F, S, M, n_cells, n_long, stream
     "dexct_kb_sample_adjoint": (_P,) * 10 + (_I,) * 4 + (_P,),

@@ -1258,6 +1258,96 @@ def test_kb_sample_adjoint_makes_no_host_synchronisation(dev):
     _no_sync(lambda: kb_sample_adjoint(g, *tabs, G, kb_t=kb_t))
 
 
+# sha1 of K7's output on the cases of probe_kb_sample.PIN_CASES (the
+# reference plan at M = 6 and 1, the one-step plan at M = 2, the motion
+# plan at M = 1, a ragged 50^2 grid at M = 3 and a z-stack batch of 16
+# images), from the build of K7 before it binned the samples by spectrum
+# tile (NVIDIA H100 80GB HBM3, CUDA 12.8)
+K7_PINNED_SHA1 = {"ref6": "b4b713a723895e71e64f1114ae5ba37bb9188861",
+                  "ref1": "99d463d2d2f92073af01fb5c2dea0327309542cb",
+                  "onestep2": "bd307bf83e12a36667988ba5fe46341852547000",
+                  "motion1": "39e98eee5efb76e8180dbe5ae4811952da3c6cb0",
+                  "ragged": "52f4ef702fc46edf6fe1b36102b83ddd4776ebb9",
+                  "zstack16": "119a4b16b3b645c87e65eeaadc8e4c718b6f8fca"}
+
+
+def _k7_pin_args(dev, case):
+    from dexct_tpu_torch.ops import fourier
+    from dexct_tpu_torch.tools.probe_kb_sample import (pin_case,
+                                                       sampler_tables)
+
+    n_img, n_theta, F = pin_case(case)
+    return (torch.as_tensor(F, device=dev),
+            *sampler_tables(fourier, n_img, n_theta, dev))
+
+
+@pytest.mark.parametrize("case", sorted(K7_PINNED_SHA1))
+def test_k7_keeps_its_pinned_bits(dev, case):
+    """K7 over the binned samples gives the first K7's output bit for bit,
+    two launches are equal, and it lies within 1e-5 of the plain version's
+    maximum."""
+    from dexct_tpu_torch.tools.probe_kb_sample import output_sha1
+
+    args = _k7_pin_args(dev, case)
+    before = kb_sample.launches
+    out = kb_sample(*args)
+    again = kb_sample(*args)
+    torch.cuda.synchronize()
+    assert kb_sample.launches == before + 2
+    assert output_sha1(out) == K7_PINNED_SHA1[case]
+    assert torch.equal(out, again)
+    want = kb_sample_plain(*args)
+    assert float((out - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_k7_builds_its_binning_once_per_table(dev):
+    """A second K7 call on the same tables builds nothing, and a plan's
+    projector bins its samples once."""
+    from dexct_tpu_torch.ops import fourier
+
+    args = _k7_pin_args(dev, "ragged")
+    before = fourier.kb_tiles.builds
+    first = kb_sample(*args)
+    assert fourier.kb_tiles.builds == before + 1
+    second = kb_sample(*args)
+    assert fourier.kb_tiles.builds == before + 1
+    assert torch.equal(first, second)
+    plan = tiny_cases.fourier_plan(dev)
+    imgs = torch.ones((2, plan.n_img, plan.n_img), device=dev)
+    before = fourier.kb_tiles.builds
+    a = fourier.fourier_radon(plan, imgs)
+    b = fourier.fourier_radon(plan, imgs)
+    assert fourier.kb_tiles.builds == before + 1
+    assert torch.equal(a, b)
+
+
+def test_k7_makes_no_host_synchronisation(dev):
+    """With its tables binned, a K7 call copies nothing from the host and
+    reads nothing back."""
+    args = _k7_pin_args(dev, "ragged")
+    _no_sync(lambda: kb_sample(*args))
+
+
+def test_k7_bins_for_the_spectrum_grid(dev):
+    """The same tables on a spectrum of another grid are binned anew for
+    that grid, and K7 there stays within 1e-5 of the plain version's
+    maximum."""
+    from dexct_tpu_torch.ops import fourier
+
+    F, *tabs = _k7_pin_args(dev, "ragged")
+    G = F.shape[-1] + 2
+    wider = torch.as_tensor(np.random.default_rng(77).standard_normal(
+        (3, G, G, 2), dtype=np.float32), device=dev)
+    wider = torch.view_as_complex(wider)
+    kb_sample(F, *tabs)
+    before = fourier.kb_tiles.builds
+    out = kb_sample(wider, *tabs)
+    assert fourier.kb_tiles.builds == before + 1
+    assert fourier.kb_tiles(*tabs, G).grid == G
+    want = kb_sample_plain(wider, *tabs)
+    assert float((out - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
 def test_resample_to_fan_adjoint_matches_plain(dev):
     """K22 against its plain version (index_add_), and <K8 r, y> =
     <r, K22 y>."""
@@ -1873,6 +1963,51 @@ def test_k4_two_launches_are_equal(dev, case):
 
 def test_k4_makes_no_host_synchronisation(dev):
     _no_sync(_k4_pin_call(dev, "ragged"))
+
+
+def test_k3_makes_no_host_synchronisation(dev):
+    """K3 reads its count scale on the card: a solve copies nothing from
+    the host and reads nothing back."""
+    counts, i0, mus = (torch.as_tensor(x, device=dev)
+                       for x in _k3_golden_case())
+    _no_sync(lambda: gauss_newton_solve(counts, i0, mus, n_iters=50))
+
+
+def test_k35_makes_no_host_synchronisation(dev):
+    """K35 reads its count scale on the card, as K3 does."""
+    from dexct_tpu_torch.ops import matdecomp
+
+    thr, n_mats, kw = K35_CASES["4x3"]
+    args = [x.to(dev) for x in _multibin_case(thr, n_mats)]
+    before = matdecomp._gauss_newton_general.launches
+    _no_sync(lambda: gauss_newton_solve(*args, **kw))
+    assert matdecomp._gauss_newton_general.launches == before + 2
+
+
+# sha1 of K35's output on the cases of K35_CASES, from the build of K35
+# that took its count scale as a host float (NVIDIA H100 80GB HBM3, CUDA
+# 12.8): reading it on the card left every bit as it was
+K35_PINNED_SHA1 = {
+    "4x2": "869b8d05d2bd6303d6ff91941004cf3286720bf5",
+    "4x3": "37d57f0813b22954a3d5bf33ad0c628f053b4729",
+    "6x4": "8aa0414b0c52348703bd4fd3322c09c4e3f04739",
+    "4x2_newton": "117bff32e51948b48e926b73ed03d821fdb0b4fe",
+    "4x3_lm": "5997fed51646ec776fe645c1fa6a88af43d40521",
+    "4x2_mle_warm": "1450d2e9d1af0e68f798cbd1b99feff1c7eebd43",
+    "2x2_lm": "ee0ba3eaa55139c0fd114490c8708d2868b13f0e",
+    "8x4_newton": "ae2d3c8c6ec2a42f108a64e8636d66ae77d9b867",
+}
+
+
+@pytest.mark.parametrize("name", sorted(K35_PINNED_SHA1))
+def test_k35_output_is_unchanged(dev, name):
+    import hashlib
+
+    thr, n_mats, kw = K35_CASES[name]
+    args = _multibin_case(thr, n_mats)
+    out = gauss_newton_solve(*(x.to(dev) for x in args), **kw)
+    assert hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest() == \
+        K35_PINNED_SHA1[name]
 
 
 def test_k4_refuses_a_misaligned_table(dev):

@@ -405,3 +405,183 @@ def test_kernel_arguments_refuse_lazy_views(view):
         kernels.require(t, "g", t.device, torch.complex64)
     res = t.resolve_conj().resolve_neg()
     assert kernels.require(res, "g", t.device, torch.complex64) is res
+
+
+def _kb_tile_tables(case, tplan):
+    """(slice_idx, slice_w, phase_cos, phase_sin, G) of a binning case: the
+    64^2 cylinder's plan, a ragged 50^2 grid (G = 100, no multiple of the
+    tile) at 90 lines, the reference protocol's phantom grid (G = 512,
+    n_theta = 1024) and the motion fit's (G = 1024, n_theta = 512), and
+    random window bases outside the spectrum (clamped as K7 clamps them)."""
+    from dexct_tpu_torch.tools.probe_kb_sample import sampler_tables
+
+    if case == "plan":
+        return (tplan.slice_idx, tplan.slice_w, tplan.phase_cos,
+                tplan.phase_sin, tplan.grid)
+    if case == "clamped":
+        rng = np.random.default_rng(17)
+        G = 40
+        tabs = [rng.integers(-300, G * G + 300, 6 * 35),
+                rng.uniform(0, 1, 6 * 35 * 16), rng.uniform(-1, 1, (6, 35)),
+                rng.uniform(-1, 1, (6, 35))]
+        return (torch.as_tensor(tabs[0], dtype=torch.int32),
+                *(torch.as_tensor(t, dtype=torch.float32) for t in tabs[1:]),
+                G)
+    n_img, n_theta = {"ragged": (50, 90), "reference": (256, 1024),
+                      "motion": (512, 512)}[case]
+    return (*sampler_tables(t_fo, n_img, n_theta, "cpu"), 2 * n_img)
+
+
+KB_TILE_CASES = ["plan", "ragged", "clamped", "reference", "motion"]
+
+
+def _binned_sample(tiles):
+    """[S] int64: the index s of each binned sample."""
+    return tiles.rec[:, 0].to(torch.int64)
+
+
+def _binned_window_base(tiles):
+    """[S, 2] int64: each binned sample's window base (row, column), from
+    its item's origin and its offset in the staged tile."""
+    pitch = t_fo.KB_TILE + 3
+    size = (tiles.items[1:] - tiles.items[:-1]).to(torch.int64)
+    item = torch.repeat_interleave(torch.arange(tiles.n_items), size)
+    local = tiles.rec[:, 1].to(torch.int64)
+    org = tiles.origin.to(torch.int64)[item]
+    return torch.stack([org[:, 0] + local // pitch,
+                        org[:, 1] + local % pitch], 1)
+
+
+@pytest.mark.parametrize("case", KB_TILE_CASES)
+def test_kb_tiles_hold_every_sample_once_in_its_tile(plans, case):
+    """K7's binning: every sample once, in increasing s within its tile,
+    the tiles in row-major order; each item at most ``KB_ITEM`` samples of
+    one tile, the tile's items of near-equal size; each sample's window
+    base in the first ``KB_TILE`` rows and columns of its item's staged
+    region, so that its 4 x 4 window lies inside the (``KB_TILE`` + 3)^2
+    cells staged."""
+    slice_idx, slice_w, pc, ps, G = _kb_tile_tables(case, plans[1])
+    tiles = t_fo._kb_tiles_build(slice_idx, slice_w, pc, ps, G)
+    S, T, P = slice_idx.numel(), t_fo.KB_TILE, t_fo.KB_TILE + 3
+    s = _binned_sample(tiles)
+    assert torch.equal(torch.sort(s).values, torch.arange(S))
+    items = tiles.items.long()
+    size = items[1:] - items[:-1]
+    assert items[0] == 0 and items[-1] == S
+    assert int(size.min()) >= 1 and int(size.max()) <= t_fo.KB_ITEM
+    local = tiles.rec[:, 1].long()
+    assert int((local // P).max()) < T and int((local % P).max()) < T
+    base = slice_idx.reshape(-1).long().clamp(0, G * G - 1)
+    tile_of = (base // G // T) * -(-G // T) + base % G // T
+    key = tile_of[s] * S + s  # tile, then s: increasing in binned order
+    assert bool((key[1:] > key[:-1]).all())
+    item = torch.repeat_interleave(torch.arange(tiles.n_items), size)
+    org = tiles.origin.long()[item]
+    assert bool((org % T == 0).all()) and bool((org < G).all())
+    assert torch.equal(tile_of[s], (org[:, 0] // T) * -(-G // T)
+                       + org[:, 1] // T)
+    # a tile's items differ in size by at most one sample
+    first = torch.ones(tiles.n_items, dtype=torch.bool)
+    same = (tiles.origin[1:] == tiles.origin[:-1]).all(1)
+    first[1:] = ~same
+    group = torch.cumsum(first.long(), 0) - 1
+    n_groups = int(group[-1]) + 1
+    lo = torch.full((n_groups,), S).scatter_reduce(0, group, size, "amin")
+    hi = torch.zeros(n_groups, dtype=torch.int64).scatter_reduce(
+        0, group, size, "amax")
+    assert int((hi - lo).max()) <= 1
+
+
+@pytest.mark.parametrize("case", KB_TILE_CASES)
+def test_kb_tiles_origin_and_offset_give_back_the_windows(plans, case):
+    """Each binned sample's item origin plus its offset in the staged tile,
+    the 16 taps wrapped mod G, give back ``_window_indices`` of its
+    clamped window base exactly; its weights and phases are the tables' at
+    its index, bit for bit."""
+    slice_idx, slice_w, pc, ps, G = _kb_tile_tables(case, plans[1])
+    tiles = t_fo._kb_tiles_build(slice_idx, slice_w, pc, ps, G)
+    s = _binned_sample(tiles)
+    vb, ub = _binned_window_base(tiles).unbind(1)
+    offs = torch.arange(4)
+    got = (torch.remainder(vb[:, None, None] + offs[None, None, :], G) * G
+           + torch.remainder(ub[:, None, None] + offs[None, :, None], G))
+    base = slice_idx.reshape(-1).long().clamp(0, G * G - 1)
+    want = t_fo._window_indices(base, G)[s]
+    assert torch.equal(got.reshape(-1, 16), want)
+    w = tiles.w.transpose(0, 1).reshape(-1, 16)
+    assert torch.equal(w.view(torch.int32),
+                       slice_w.reshape(-1, 16)[s].view(torch.int32))
+    assert torch.equal(tiles.rec[:, 2], pc.reshape(-1)[s].view(torch.int32))
+    assert torch.equal(tiles.rec[:, 3], ps.reshape(-1)[s].view(torch.int32))
+
+
+@pytest.mark.parametrize("case", ["plan", "ragged"])
+def test_kb_tiles_sum_gives_the_plain_sampler(plans, case):
+    """The sampler evaluated from the binned tables (windows from origin
+    and offset, weights and phases re-laid, i outer and j inner as K7
+    sums) and put back at s gives the plain sampler's output (1e-6 of the
+    maximum: the same products, summed in another order)."""
+    slice_idx, slice_w, pc, ps, G = _kb_tile_tables(case, plans[1])
+    tiles = t_fo._kb_tiles_build(slice_idx, slice_w, pc, ps, G)
+    rng = np.random.default_rng(19)
+    F = torch.complex(*(torch.as_tensor(rng.normal(size=(3, G, G)),
+                                        dtype=torch.float32)
+                        for _ in range(2)))
+    vb, ub = _binned_window_base(tiles).unbind(1)
+    table = torch.cat([F.real, F.imag]).reshape(6, G * G)
+    z = torch.zeros(6, slice_idx.numel())
+    for i in range(4):
+        for j in range(4):
+            cell = (torch.remainder(vb + j, G) * G
+                    + torch.remainder(ub + i, G))
+            z = z + tiles.w[i, :, j] * table[:, cell]
+    pcb = tiles.rec[:, 2].view(torch.float32)
+    psb = tiles.rec[:, 3].view(torch.float32)
+    got = torch.empty(3, slice_idx.numel(), dtype=torch.complex64)
+    got[:, _binned_sample(tiles)] = torch.complex(z[:3] * pcb - z[3:] * psb,
+                                           z[:3] * psb + z[3:] * pcb)
+    want = t_fo.kb_sample_plain(F, slice_idx, slice_w, pc, ps)
+    big = float(want.abs().max())
+    torch.testing.assert_close(got, want.reshape(3, -1), rtol=0,
+                               atol=1e-6 * big)
+
+
+@pytest.mark.parametrize("case", ["plan", "ragged"])
+def test_kb_tiles_builds_are_equal(plans, case):
+    slice_idx, slice_w, pc, ps, G = _kb_tile_tables(case, plans[1])
+    a = t_fo._kb_tiles_build(slice_idx, slice_w, pc, ps, G)
+    b = t_fo._kb_tiles_build(slice_idx, slice_w, pc, ps, G)
+    for f in ("items", "origin", "rec", "w"):
+        assert torch.equal(getattr(a, f), getattr(b, f))
+    assert a.grid == b.grid == G
+
+
+def test_kb_tiles_are_built_once_per_table():
+    """A second request for the same tables builds nothing (the cache keyed
+    by the ``slice_idx`` tensor), other phase tensors or another grid
+    rebuild, the entry goes with its tensor, and the sampler on the CPU
+    builds none."""
+    import gc
+
+    tplan = t_fo.plan_fourier_projector(t_cyl(N=32, dx=0.8), TFan(**GEOM),
+                                        n_theta=48, device="cpu")
+    tabs = (tplan.slice_idx, tplan.slice_w, tplan.phase_cos,
+            tplan.phase_sin)
+    before = t_fo.kb_tiles.builds
+    F = torch.zeros((1, tplan.grid, tplan.grid), dtype=torch.complex64)
+    t_fo.kb_sample(F, *tabs)
+    assert t_fo.kb_tiles.builds == before
+    first = t_fo.kb_tiles(*tabs, tplan.grid)
+    assert t_fo.kb_tiles(*tabs, tplan.grid) is first
+    assert t_fo.kb_tiles.builds == before + 1
+    other = t_fo.kb_tiles(tabs[0], tabs[1], tabs[2].clone(), tabs[3],
+                          tplan.grid)
+    assert other is not first and t_fo.kb_tiles.builds == before + 2
+    wider = t_fo.kb_tiles(*tabs, tplan.grid + 2)
+    assert wider.grid == tplan.grid + 2
+    assert t_fo.kb_tiles.builds == before + 3
+    key = id(tplan.slice_idx)
+    assert key in t_fo._KB_TILES
+    del tplan, tabs, first, other, wider
+    gc.collect()
+    assert key not in t_fo._KB_TILES

@@ -18,6 +18,9 @@ of JAX.  Phases, each of which raises on failure:
    the exact path and K5-K8 on the default path at the reference protocol
    (``input/params.txt``: 256^2 pelvis, 1000 views x 800 channels, 50 GN
    iterations, four 512^2 images; K7's yardstick a complex CSR product;
+   K3 on the exact counts and on the golden case cut to 1, 127, 129, 384
+   and 4097 pixels, held to the sha1s pinned from its build before it
+   solved several pixels a thread, with its device time;
    K4 also on seeded 1000 x 800 sinograms at K = 4 and 1, held to the
    sha1s pinned from its build before its 16-byte loads, with its device
    times; K7 also on seeded spectra at the four shapes the paths launch
@@ -30,7 +33,8 @@ of JAX.  Phases, each of which raises on failure:
    32 pelvis, 16 slices of 256^2); K12 on the helical one (720 views over
    two turns, pitch 3 cm, through a 256^2 x 48 pelvis, 19 slices); K2 and
    K3 once more on each 3-D config's own [V, R, C, M] paths and counts,
-   timed apart, and K10 on the helical rays.  The stateless 3-D paths: K13
+   timed apart (K3 held to its pinned sha1 on both), and K10 on the
+   helical rays.  The stateless 3-D paths: K13
    on the flat-panel config, K16 (and K11 on its enlarged 258^2 x 60
    gantry grid) on the 15-degree tilted config (K16 bitwise its plain
    version, allocating nothing beyond its output, timed at four block
@@ -936,9 +940,17 @@ def kernel_phase(arrays, meta, records):
         reps=2)
     err = float((ab - want).abs().max())
     rel = float(((ab - want).abs() / want.abs().clamp_min(1.0)).max())
+    pinned, twice, k3_dev = k3_pinned_phase(
+        matdecomp, lambda: matdecomp.gauss_newton_solve(
+            flat, a["dec_i0"], a["dec_mus"], **gkw))
+    if not (pinned and twice):
+        fail(f"K3 on its pinned cases: pinned sha1 {pinned}, two launches "
+             f"equal {twice}")
     report(records, "gauss_newton", err, ms, pms, rel <= 1e-4,
            gn_work(flat, ab, a["dec_mus"].shape[1], meta),
-           extra=f" (rel {rel:.3g})")
+           extra=f" (rel {rel:.3g}; the exact counts and the ragged cases: "
+                 f"pinned sha1 {pinned}, two launches bitwise equal {twice};"
+                 f" device, CUDA graph of 20 calls: {k3_dev:.4f} ms)")
 
     # K4: 4 x 512^2 from the filtered 4 x 1000 x 800 sinogram stack
     log = [spectral.log_sinogram(c, air) for c, air in
@@ -965,6 +977,42 @@ def kernel_phase(arrays, meta, records):
                  f"launches bitwise equal {twice}; device, CUDA graph of 20 "
                  f"calls: K = 4 {k4_dev['k4']:.4f} ms, K = 1 "
                  f"{k4_dev['k1']:.4f} ms)")
+
+
+# sha1 of K3's output on probe_gauss_newton's cases (the exact path's 8e5
+# counts, the cone config's 1.47M and the helical config's 2.95M, as phase
+# 3 makes them with K1 or K10 and K2; the golden case cut to 1, 127, 129,
+# 384 and 4097 pixels), pinned from the build of K3 before it solved
+# several pixels a thread (NVIDIA H100 80GB HBM3, CUDA 12.8);
+# tests/test_torch_cuda.py holds the same
+K3_PINNED_SHA1 = {"exact": "7d2e546bd280d86794f574d9198eb17db7364b8e",
+                  "cone": "4c998d7358357825a955890223880b265030a743",
+                  "helical": "c8f47a9e91f23f0d03babe7ec21deae9e9912095",
+                  "n1": "75af3f7b2b0d2942233ec12b53c8e959dbb74082",
+                  "n127": "e18b80b7c5f0fdf5c9244b52948688bc3daa9f37",
+                  "n129": "cc18c46bb359a7c9a39ad8d8dfcf8c56c1a1bd2c",
+                  "n384": "2d1d59438785ec1e2993528c07b841cb0b7bb4fa",
+                  "n4097": "0dbaa8907887639190140cba8948506e2209bf88"}
+
+
+def k3_pinned_phase(matdecomp, exact_call):
+    """K3 on the exact path's counts (``exact_call``) and on the golden
+    case cut to ragged pixel counts: whether every output is its pinned
+    sha1, whether two launches on the exact counts are equal, and K3's
+    device time on them (CUDA graph)."""
+    import torch
+
+    from dexct_tpu_torch.tools.probe_gauss_newton import (output_sha1,
+                                                          pin_case)
+
+    out = exact_call()
+    pinned = output_sha1(out) == K3_PINNED_SHA1["exact"]
+    twice = bool(torch.equal(out, exact_call()))
+    for case in ("n1", "n127", "n129", "n384", "n4097"):
+        counts, i0, mus, kw = pin_case(case, torch.device("cuda"))
+        out = matdecomp.gauss_newton_solve(counts, i0, mus, **kw)
+        pinned &= output_sha1(out) == K3_PINNED_SHA1[case]
+    return pinned, twice, graph_ms(exact_call)
 
 
 # sha1 of K4's output on probe_fan_backproject's seeded cases, pinned from
@@ -1274,9 +1322,17 @@ def check_counts_and_gn(label, paths, a, meta, pixel_block):
                                                    a["dec_mus"], **gkw),
         reps=1)
     rel = float(((ab - want).abs() / want.abs().clamp_min(1.0)).max())
+    pinned = ""
+    if label in K3_PINNED_SHA1:
+        from dexct_tpu_torch.tools.probe_gauss_newton import output_sha1
+
+        if output_sha1(ab) != K3_PINNED_SHA1[label]:
+            fail(f"gauss_newton on the {label} counts is not its pinned "
+                 "sha1")
+        pinned = ", its pinned sha1"
     print(f"  gauss_newton on the {label} counts ({flat.shape[1]} pixels, "
           f"pixel_block {pixel_block}): rel {rel:.3g} [max |d| / max(|a|, 1)"
-          f" <= 1e-4]  kernel={ms:.4f} ms  plain={pms:.4f} ms")
+          f" <= 1e-4{pinned}]  kernel={ms:.4f} ms  plain={pms:.4f} ms")
     if not (rel <= 1e-4 and bool(torch.isfinite(ab).all())):
         fail(f"gauss_newton disagrees with its plain version on the {label} "
              "counts")
@@ -3457,11 +3513,15 @@ def spectral_path(cfg, pcd, records, smi, dev):
         out = spectralct.pcd_step(a0, m0)
         st.mark("pcd_step, no noise")
         kedge = {}
+        k35 = matdecomp._gauss_newton_general.launches
         for scene, (n, fov) in images.items():
             kedge[scene] = spectralct.simulate_pcd_spectral(
                 ct, kph[scene], spec, list(KEDGE_THRESHOLDS), basis4, n, fov,
                 pcfg.ramp, n_iters=60, device=dev)
             st.mark(f"simulate_pcd_spectral, K-edge {scene}")
+        k35 = matdecomp._gauss_newton_general.launches - k35
+        K35_BY_SHAPE["K-edge"] += k35
+        K35_BY_SHAPE["packed"] -= k35
         print(f"spectral path (library, run {run}): "
               f"{sum(st.t.values()) / 1e3:.3f} s on {smi}; stages (ms): "
               + ", ".join(f"{k} {v:.1f}" for k, v in st.t.items()))
@@ -3912,11 +3972,16 @@ def check_launches(label, fns, path_kernels, records):
         records[name]["launches"] += n
     if launches["kb_sample"]:
         K7_BY_PATH[label] = K7_BY_PATH.get(label, 0) + launches["kb_sample"]
+    K35_BY_SHAPE["packed"] += launches["gauss_newton_general"]
 
 
 # K7's launches on the paths, by path (each path runs its own Fourier
 # plans: see K7_PLANS)
 K7_BY_PATH = {}
+# K35's launches on the paths, by shape: the K-edge scans' (M 6, K 4, 60
+# iterations; spectral_path moves them here) and the packed PCD steps' (M
+# 4, K 2, 10 iterations; 2-D and cone)
+K35_BY_SHAPE = {"K-edge": 0, "packed": 0}
 K7_PLANS = {
     "default": "reference plan G 512, n_theta 1024, M 6",
     "bhc_denoise": "reference plan M 6; two n_theta 768 bone plans, M 1",
@@ -6266,6 +6331,8 @@ def main():
     print("kb_sample launches by path: " + ", ".join(
         f"{label} {n} ({K7_PLANS.get(label, 'its own plan')})"
         for label, n in K7_BY_PATH.items()))
+    print("gauss_newton_general launches by shape: " + ", ".join(
+        f"{shape} {n}" for shape, n in K35_BY_SHAPE.items()))
     print(f"chip_smoke wall time: {time.time() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": [{k: records[n][k] for k in order}

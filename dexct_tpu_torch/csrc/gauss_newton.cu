@@ -6,15 +6,26 @@
 // matrix products, writing a [B, E] attenuation array to HBM every
 // iteration.
 //
-// What bounds it on the card: arithmetic, not memory.  Each pixel reads
-// two counts and writes two floats, but runs n_iters passes over the
-// energy tables with one exp and 8 FMAs per (iteration, energy).  Design:
-// one thread per sinogram pixel keeps its iterate, its log counts and
-// every iteration in registers; the energy tables sit in shared memory
-// (rows of 8 floats: mu_0, mu_1, i0_0, i0_1, g_00, g_01, g_10, g_11; the
-// full union grid for the polish, then the warm-phase table), read by all
-// threads of the block at the same address (broadcast, no bank conflict);
-// the 2x2 system is solved in closed form.  No [B, E] array exists.
+// What bounds it on the card: instruction issue, not memory.  Each pixel
+// reads two counts and writes two floats, but runs n_iters passes over
+// the energy tables with one exp and 8 FMAs per (iteration, energy): ~21
+// instructions a node that belong to the pixel (the exponent, its clamp,
+// expf's range reduction and MUFU.EX2, six sums, in the bf16 phase the
+// roundings) and ~7 that do not (the row's shared loads, loop control).
+// Design: each thread solves kPix = 4 pixels at once and keeps their
+// iterates, log counts and every iteration in registers; the energy tables
+// sit in shared memory (rows of 8 floats: mu_0, mu_1, i0_0, i0_1, g_00,
+// g_01, g_10, g_11; the full union grid for the polish, then the warm-phase
+// table), each row read once for the thread's pixels in two 16-byte loads
+// at the same address for the whole block (broadcast, no bank conflict),
+// the node loop unrolled by kUnroll = 2; the pixels' exp chains are
+// independent and hide each other's latency; in the bf16 phase two pixels'
+// values round in one packed conversion.  The 2x2 system is solved in
+// closed form per pixel.  No [B, E] array exists.  Every product, sum and
+// contraction is written out as nvcc compiled the first K3 (one pixel a
+// thread; its SASS), so a pixel's result is bit for bit that kernel's
+// whatever P (tools/probe_k3_steps.py, K3_PINNED_SHA1).  A thread's slots
+// past the last pixel solve its first pixel again and store nothing.
 //
 // Schedule, as _solve_block runs it for M == K: counts normalised by
 // scale = max(i0); a = eps_init; n_warm log-residual Newton steps on the
@@ -43,8 +54,8 @@
 // into group order and pads each group only to a whole block of 128
 // pixels with copies of the group's first pixel; each block reads its
 // group id, loads that group's tables into shared memory and runs K3's
-// per-pixel schedule (solve_pixel, shared with K3).  Bound and design are
-// K3's: arithmetic, one exp and 8 FMAs per (iteration, energy).
+// per-pixel schedule (solve_pixels, shared with K3) at one pixel a thread.
+// Bound and design are K3's: one exp and 8 FMAs per (iteration, energy).
 //
 // K35 gauss_newton_general: the general per-pixel Newton decomposition.
 //
@@ -82,41 +93,99 @@
 namespace {
 
 constexpr int kRow = 8;
+// K3's launch: threads a block, pixels a thread (P) and how far the node
+// loop is unrolled (U); P = 4, U = 2 were the fastest of P in {1, 2, 4}
+// and U in {1, 2, 4} at the paths' shapes (tools/probe_k3_steps.py)
+constexpr int kThreads = 128;
+constexpr int kPix = 4;
+constexpr int kUnroll = 2;
 
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// lo and hi each rounded to bf16 as bf16r rounds it, by one packed
+// conversion; the halves are unpacked with a shift and a mask
+__device__ __forceinline__ void bf16r_pair(float& lo, float& hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  const unsigned int u = *reinterpret_cast<const unsigned int*>(&h);
+  lo = __uint_as_float(u << 16);
+  hi = __uint_as_float(u & 0xffff0000u);
+}
+
+// x[0..P) each rounded to bf16 as bf16r rounds it, two values to a
+// packed conversion
+template <int P>
+__device__ __forceinline__ void bf16r_all(float (&x)[P]) {
+#pragma unroll
+  for (int p = 0; p + 1 < P; p += 2) bf16r_pair(x[p], x[p + 1]);
+  if (P % 2) x[P - 1] = bf16r(x[P - 1]);
 }
 
 struct Moments {
   float nu0, nu1, g00, g01, g10, g11;
 };
 
-template <bool kBf16>
-__device__ __forceinline__ Moments moments(const float* tab, int n, float a0,
-                                           float a1, float clip) {
-  Moments s = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (kBf16) {
-    a0 = bf16r(a0);
-    a1 = bf16r(a1);
+// One table row (two 16-byte shared loads: mu_0, mu_1, i0_0, i0_1, then
+// g_00, g_01, g_10, g_11) added into the sums of P pixels at their
+// iterates (b0, b1), already rounded to bf16 in a bf16 phase.  The
+// operations are the first K3's, contraction for contraction (its SASS):
+// the exponent fma(a0, mu0, a1 * mu1), the sums fma(at, w, s).
+template <int P, bool kBf16>
+__device__ __forceinline__ void add_row(const float4* row,
+                                        const float (&b0)[P],
+                                        const float (&b1)[P], float clip,
+                                        Moments (&s)[P]) {
+  const float4 mi = row[0];
+  const float4 g = row[1];
+  float L[P], at[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    L[p] = __fmaf_rn(b0[p], mi.x, __fmul_rn(b1[p], mi.y));
+  if (kBf16) bf16r_all(L);
+#pragma unroll
+  for (int p = 0; p < P; ++p) at[p] = expf(fminf(fmaxf(-L[p], -clip), 20.0f));
+  if (kBf16) bf16r_all(at);
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    s[p].nu0 = __fmaf_rn(at[p], mi.z, s[p].nu0);
+    s[p].nu1 = __fmaf_rn(at[p], mi.w, s[p].nu1);
+    s[p].g00 = __fmaf_rn(at[p], g.x, s[p].g00);
+    s[p].g01 = __fmaf_rn(at[p], g.y, s[p].g01);
+    s[p].g10 = __fmaf_rn(at[p], g.z, s[p].g10);
+    s[p].g11 = __fmaf_rn(at[p], g.w, s[p].g11);
   }
-  for (int e = 0; e < n; ++e) {
-    const float* row = tab + kRow * e;
-    float L = a0 * row[0] + a1 * row[1];
-    if (kBf16) L = bf16r(L);
-    float at = expf(fminf(fmaxf(-L, -clip), 20.0f));
-    if (kBf16) at = bf16r(at);
-    s.nu0 += at * row[2];
-    s.nu1 += at * row[3];
-    s.g00 += at * row[4];
-    s.g01 += at * row[5];
-    s.g10 += at * row[6];
-    s.g11 += at * row[7];
+}
+
+// The six energy sums of P pixels at their iterates over the n rows of a
+// table in shared memory, in row order; each row is read once for all P
+// pixels, U rows to a pass of the loop.
+template <int P, int U, bool kBf16>
+__device__ __forceinline__ void moments(const float4* tab, int n,
+                                        const float (&a0)[P],
+                                        const float (&a1)[P], float clip,
+                                        Moments (&s)[P]) {
+  float b0[P], b1[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    b0[p] = a0[p];
+    b1[p] = a1[p];
+    if (kBf16) bf16r_pair(b0[p], b1[p]);  // the iterate as the phase sees it
+    s[p] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   }
-  return s;
+  const float4* row = tab;
+  for (const float4* end = tab + 2 * (n - n % U); row != end; row += 2 * U) {
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      add_row<P, kBf16>(row + 2 * u, b0, b1, clip, s);
+  }
+  for (const float4* end = tab + 2 * n; row != end; row += 2)
+    add_row<P, kBf16>(row, b0, b1, clip, s);
 }
 
 // Newton step on the log residuals r_m = ln y_m - ln nu_m with Jacobian
-// J_mi = g_mi / nu_m, through the normal equations JtJ d = Jt r.
+// J_mi = g_mi / nu_m, through the normal equations JtJ d = Jt r; each
+// product and sum as the first K3 contracted it (its SASS).
 __device__ __forceinline__ void log_step(float& a0, float& a1,
                                          const Moments& s, float ly0,
                                          float ly1, float smax, float lo,
@@ -124,13 +193,13 @@ __device__ __forceinline__ void log_step(float& a0, float& a1,
   const float n0 = fmaxf(s.nu0, 1e-35f), n1 = fmaxf(s.nu1, 1e-35f);
   const float j00 = s.g00 / n0, j01 = s.g01 / n0;
   const float j10 = s.g10 / n1, j11 = s.g11 / n1;
-  const float r0 = fminf(fmaxf(ly0 - logf(n0), -30.0f), 30.0f);
-  const float r1 = fminf(fmaxf(ly1 - logf(n1), -30.0f), 30.0f);
-  float f0 = r0 * j00 + r1 * j10;
-  float f1 = r0 * j01 + r1 * j11;
-  float h00 = j00 * j00 + j10 * j10;
-  float h01 = j00 * j01 + j10 * j11;
-  float h11 = j01 * j01 + j11 * j11;
+  const float r0 = fminf(fmaxf(__fsub_rn(ly0, logf(n0)), -30.0f), 30.0f);
+  const float r1 = fminf(fmaxf(__fsub_rn(ly1, logf(n1)), -30.0f), 30.0f);
+  float f0 = __fmaf_rn(r0, j00, __fmul_rn(r1, j10));
+  float f1 = __fmaf_rn(r0, j01, __fmul_rn(r1, j11));
+  float h00 = __fmaf_rn(j00, j00, __fmul_rn(j10, j10));
+  float h01 = __fmaf_rn(j00, j01, __fmul_rn(j10, j11));
+  float h11 = __fmaf_rn(j01, j01, __fmul_rn(j11, j11));
   // _solve_spd: normalise by max|H|; a dead Hessian takes a zero step
   const float m_raw = fmaxf(fmaxf(fabsf(h00), fabsf(h01)), fabsf(h11));
   const bool dead = m_raw < 1e-30f;
@@ -140,88 +209,149 @@ __device__ __forceinline__ void log_step(float& a0, float& a1,
   h11 /= m;
   f0 = dead ? 0.0f : f0 / m;
   f1 = dead ? 0.0f : f1 / m;
-  float det = h00 * h11 - h01 * h01;
+  float det = __fmaf_rn(h00, h11, -__fmul_rn(h01, h01));
   if (fabsf(det) < 1e-30f) det = 1e-30f;
-  float d0 = (h11 * f0 - h01 * f1) / det;
-  float d1 = (h00 * f1 - h01 * f0) / det;
+  const float d0 = __fmaf_rn(h11, f0, -__fmul_rn(h01, f1)) / det;
+  const float d1 = __fmaf_rn(h00, f1, -__fmul_rn(h01, f0)) / det;
   // trust region
-  const float norm = sqrtf(d0 * d0 + d1 * d1);
+  const float norm = sqrtf(__fmaf_rn(d0, d0, __fmul_rn(d1, d1)));
   const float sc = fminf(1.0f, smax / fmaxf(norm, 1e-30f));
-  d0 *= sc;
-  d1 *= sc;
-  a0 = fminf(fmaxf(a0 - d0, lo), hi);
-  a1 = fminf(fmaxf(a1 - d1, lo), hi);
+  a0 = fminf(fmaxf(__fmaf_rn(-d0, sc, a0), lo), hi);
+  a1 = fminf(fmaxf(__fmaf_rn(-d1, sc, a1), lo), hi);
 }
 
-// K3's per-pixel schedule on one pixel's raw counts (c0, c1), with the
-// full and warm tables in shared memory; writes a[0..1] to out.
-__device__ __forceinline__ void solve_pixel(
-    float c0, float c1, const float* full, const float* warm, int e_full,
-    int e_warm, int n_warm, int n_pol, int warm_bf16, float scale,
-    float a_lo, float a_hi, float step_max, float eps_init, float clip,
-    float* out) {
-  const float y0 = c0 / scale;
-  const float y1 = c1 / scale;
-  const float ly0 = logf(fmaxf(y0, 1e-35f));
-  const float ly1 = logf(fmaxf(y1, 1e-35f));
+// K3's per-pixel schedule on P pixels' raw counts (c0, c1) at once, with
+// the full and warm tables in shared memory; each pixel's arithmetic is
+// the one-pixel schedule's, so its result does not depend on P.
+template <int P, int U>
+__device__ __forceinline__ void solve_pixels(
+    const float (&c0)[P], const float (&c1)[P], const float4* full,
+    const float4* warm, int e_full, int e_warm, int n_warm, int n_pol,
+    int warm_bf16, float scale, float a_lo, float a_hi, float step_max,
+    float eps_init, float clip, float (&a0)[P], float (&a1)[P]) {
+  float ly0[P], ly1[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    ly0[p] = logf(fmaxf(c0[p] / scale, 1e-35f));
+    ly1[p] = logf(fmaxf(c1[p] / scale, 1e-35f));
+    a0[p] = eps_init;
+    a1[p] = eps_init;
+  }
   const float lo = fmaxf(a_lo, -1.0f);
   const float smax = 10.0f * step_max;
-  float a0 = eps_init, a1 = eps_init;
+  Moments s[P];
   for (int it = 0; it < n_warm; ++it) {
-    const Moments s = warm_bf16 ? moments<true>(warm, e_warm, a0, a1, clip)
-                                : moments<false>(warm, e_warm, a0, a1, clip);
-    log_step(a0, a1, s, ly0, ly1, smax, lo, a_hi);
+    if (warm_bf16)
+      moments<P, U, true>(warm, e_warm, a0, a1, clip, s);
+    else
+      moments<P, U, false>(warm, e_warm, a0, a1, clip, s);
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      log_step(a0[p], a1[p], s[p], ly0[p], ly1[p], smax, lo, a_hi);
   }
   for (int it = 0; it < n_pol; ++it) {
-    const Moments s = moments<false>(full, e_full, a0, a1, clip);
-    log_step(a0, a1, s, ly0, ly1, smax, lo, a_hi);
+    moments<P, U, false>(full, e_full, a0, a1, clip, s);
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      log_step(a0[p], a1[p], s[p], ly0[p], ly1[p], smax, lo, a_hi);
   }
-  out[0] = a0;
-  out[1] = a1;
 }
 
-// scale: the count scale, one float on the card (read, never copied to
-// the host)
-__global__ void gauss_newton_kernel(const float* __restrict__ counts,
-                                    const float* __restrict__ tables,
-                                    const float* __restrict__ scale,
-                                    float* __restrict__ out, long long n_pix,
-                                    int e_full, int e_warm, int n_warm,
-                                    int n_pol, int warm_bf16, float a_lo,
-                                    float a_hi, float step_max,
-                                    float eps_init, float clip) {
-  extern __shared__ float tab[];
-  const int n_tab = kRow * (e_full + e_warm);
-  for (int i = threadIdx.x; i < n_tab; i += blockDim.x) tab[i] = tables[i];
+// The table rows of ``src`` (n_tab float4s, 16-byte aligned) into shared
+// memory.
+__device__ __forceinline__ void stage_table(float4* tab,
+                                            const float4* __restrict__ src,
+                                            int n_tab) {
+  for (int i = threadIdx.x; i < n_tab; i += blockDim.x) tab[i] = src[i];
   __syncthreads();
-  const long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (p >= n_pix) return;
-  solve_pixel(counts[p], counts[n_pix + p], tab, tab + kRow * e_full, e_full,
-              e_warm, n_warm, n_pol, warm_bf16, __ldg(scale), a_lo, a_hi,
-              step_max, eps_init, clip, out + 2 * p);
+}
+
+// counts [2, n_pix]; tables: the full rows, then the warm rows (16-byte
+// aligned); scale: the count scale, one float on the card (read, never
+// copied to the host); out [n_pix, 2].  Block b, thread t solves pixels
+// b * kThreads * P + t + p * kThreads, p < P; a slot past the last pixel
+// solves the thread's first pixel again and stores nothing.
+template <int P, int U>
+__global__ void __launch_bounds__(kThreads) gauss_newton_kernel(
+    const float* __restrict__ counts, const float4* __restrict__ tables,
+    const float* __restrict__ scale, float2* __restrict__ out,
+    long long n_pix, int e_full, int e_warm, int n_warm, int n_pol,
+    int warm_bf16, float a_lo, float a_hi, float step_max, float eps_init,
+    float clip) {
+  extern __shared__ float4 k3_tab[];
+  stage_table(k3_tab, tables, 2 * (e_full + e_warm));
+  const long long first =
+      blockIdx.x * (long long)(kThreads * P) + threadIdx.x;
+  if (first >= n_pix) return;
+  float c0[P], c1[P], a0[P], a1[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const long long q = first + (long long)p * kThreads;
+    const long long r = q < n_pix ? q : first;
+    c0[p] = counts[r];
+    c1[p] = counts[n_pix + r];
+  }
+  solve_pixels<P, U>(c0, c1, k3_tab, k3_tab + 2 * e_full, e_full, e_warm,
+                     n_warm, n_pol, warm_bf16, __ldg(scale), a_lo, a_hi,
+                     step_max, eps_init, clip, a0, a1);
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const long long q = first + (long long)p * kThreads;
+    if (q < n_pix) out[q] = make_float2(a0[p], a1[p]);
+  }
 }
 
 // counts [2, n_pix] in group order, n_pix a multiple of blockDim.x; block
-// b solves group block_group[b] with tables + g * n_tab and scales[g].
+// b solves group block_group[b] with tables + g * n_tab and scales[g],
+// one pixel a thread (K3's body at P = 1, U = 1: nvcc unrolls the node
+// loop by 2 itself; the fastest at P = 1, tools/probe_k3_steps.py).
 __global__ void gauss_newton_grouped_kernel(
     const float* __restrict__ counts, const int* __restrict__ block_group,
-    const float* __restrict__ scales, const float* __restrict__ tables,
-    float* __restrict__ out, long long n_pix, int e_full, int e_warm,
+    const float* __restrict__ scales, const float4* __restrict__ tables,
+    float2* __restrict__ out, long long n_pix, int e_full, int e_warm,
     int n_warm, int n_pol, int warm_bf16, float a_lo, float a_hi,
     float step_max, float eps_init, float clip) {
-  extern __shared__ float tab[];
+  extern __shared__ float4 k29_tab[];
   const int g = block_group[blockIdx.x];
-  const int n_tab = kRow * (e_full + e_warm);
-  const float* src = tables + (long long)g * n_tab;
-  for (int i = threadIdx.x; i < n_tab; i += blockDim.x) tab[i] = src[i];
-  __syncthreads();
+  const int n_tab = 2 * (e_full + e_warm);
+  stage_table(k29_tab, tables + (long long)g * n_tab, n_tab);
   const long long p = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (p >= n_pix) return;
-  solve_pixel(counts[p], counts[n_pix + p], tab, tab + kRow * e_full, e_full,
-              e_warm, n_warm, n_pol, warm_bf16, scales[g], a_lo, a_hi,
-              step_max, eps_init, clip, out + 2 * p);
+  const float c0[1] = {counts[p]}, c1[1] = {counts[n_pix + p]};
+  float a0[1], a1[1];
+  solve_pixels<1, 1>(c0, c1, k29_tab, k29_tab + 2 * e_full, e_full, e_warm,
+                     n_warm, n_pol, warm_bf16, scales[g], a_lo, a_hi,
+                     step_max, eps_init, clip, a0, a1);
+  out[p] = make_float2(a0[0], a1[0]);
 }
 
+// K3 at P pixels a thread and the node loop unrolled by U (the library's
+// entry takes kPix, kUnroll)
+template <int P, int U>
+int launch_gauss_newton(const float* counts, const float4* tables,
+                        const float* scale, float2* out, long long n_pix,
+                        int e_full, int e_warm, int n_warm, int n_pol,
+                        int warm_bf16, float a_lo, float a_hi,
+                        float step_max, float eps_init, float clip,
+                        cudaStream_t stream) {
+  const size_t shmem = sizeof(float) * kRow * (size_t)(e_full + e_warm);
+  auto kernel = gauss_newton_kernel<P, U>;
+  if (shmem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long per_block = (long long)kThreads * P;
+  const long long blocks = (n_pix + per_block - 1) / per_block;
+  kernel<<<(unsigned)blocks, kThreads, shmem, stream>>>(
+      counts, tables, scale, out, n_pix, e_full, e_warm, n_warm, n_pol,
+      warm_bf16, a_lo, a_hi, step_max, eps_init, clip);
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+}
 
 // ---- K35 ------------------------------------------------------------------
 
@@ -574,7 +704,7 @@ int dispatch_general(const float* counts, const float* tables,
 
 }  // namespace
 
-// scale: a pointer to the count scale on the card
+// scale: a pointer to the count scale on the card; tables 16-byte aligned
 extern "C" int dexct_gauss_newton(const void* counts, const void* tables,
                                   const void* scale, void* out,
                                   long long n_pix, int e_full, int e_warm,
@@ -582,24 +712,15 @@ extern "C" int dexct_gauss_newton(const void* counts, const void* tables,
                                   float a_lo, float a_hi, float step_max,
                                   float eps_init, float clip, void* stream) {
   if (n_pix <= 0) return (int)cudaGetLastError();
-  const size_t shmem = sizeof(float) * kRow * (size_t)(e_full + e_warm);
-  if (shmem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gauss_newton_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)shmem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int threads = 128;
-  const long long blocks = (n_pix + threads - 1) / threads;
-  gauss_newton_kernel<<<(unsigned)blocks, threads, shmem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(counts), static_cast<const float*>(tables),
-      static_cast<const float*>(scale), static_cast<float*>(out), n_pix,
+  if (!aligned16(tables)) return (int)cudaErrorMisalignedAddress;
+  return launch_gauss_newton<kPix, kUnroll>(
+      static_cast<const float*>(counts), static_cast<const float4*>(tables),
+      static_cast<const float*>(scale), static_cast<float2*>(out), n_pix,
       e_full, e_warm, n_warm, n_pol, warm_bf16, a_lo, a_hi, step_max,
-      eps_init, clip);
-  return (int)cudaGetLastError();
+      eps_init, clip, static_cast<cudaStream_t>(stream));
 }
 
+// tables: G groups' tables, 16-byte aligned
 extern "C" int dexct_gauss_newton_grouped(
     const void* counts, const void* block_group, const void* scales,
     const void* tables, void* out, long long n_pix, int block, int e_full,
@@ -607,6 +728,7 @@ extern "C" int dexct_gauss_newton_grouped(
     float step_max, float eps_init, float clip, void* stream) {
   if (n_pix <= 0) return (int)cudaGetLastError();
   if (block <= 0 || n_pix % block != 0) return (int)cudaErrorInvalidValue;
+  if (!aligned16(tables)) return (int)cudaErrorMisalignedAddress;
   const size_t shmem = sizeof(float) * kRow * (size_t)(e_full + e_warm);
   if (shmem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -618,8 +740,8 @@ extern "C" int dexct_gauss_newton_grouped(
   gauss_newton_grouped_kernel<<<(unsigned)blocks, block, shmem,
                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(counts), static_cast<const int*>(block_group),
-      static_cast<const float*>(scales), static_cast<const float*>(tables),
-      static_cast<float*>(out), n_pix, e_full, e_warm, n_warm, n_pol,
+      static_cast<const float*>(scales), static_cast<const float4*>(tables),
+      static_cast<float2*>(out), n_pix, e_full, e_warm, n_warm, n_pol,
       warm_bf16, a_lo, a_hi, step_max, eps_init, clip);
   return (int)cudaGetLastError();
 }

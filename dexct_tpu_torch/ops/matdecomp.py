@@ -21,17 +21,18 @@ diagonal.
 :func:`gauss_newton_solve` builds the energy tables once, then dispatches
 on the device of its tensors.  CUDA tensors of the two-spectra,
 two-material log-warm Gauss-Newton solve go to the hand-written kernel K3
-(``csrc/gauss_newton.cu``, one thread per pixel, all iterations in
-registers); every other CUDA call goes to K35 (the same file: K3's design
-templated on K and on a compile-time maximum of M, :data:`MAX_BINS`).  CPU
+(``csrc/gauss_newton.cu``, four pixels a thread over each table row, all
+iterations in registers); every other CUDA call goes to K35 (the same
+file: K3's first design, one pixel a thread, templated on K and on a
+compile-time maximum of M, :data:`MAX_BINS`).  CPU
 tensors run :func:`gauss_newton_solve_plain`, the JAX package's
 ``_solve_block`` in torch, bfloat16 warm phase included.
 
 :func:`gauss_newton_solve_grouped` solves pixels that fall into fluence
 groups, each with its own ``i0`` (a bowtie's thickness levels, an anode
 heel's detector rows): kernel K29 (``csrc/gauss_newton.cu``, K3's
-per-pixel body over pixels sorted into group order, each group padded to a
-whole block) on CUDA tensors, :func:`gauss_newton_solve_grouped_plain`
+per-pixel body at one pixel a thread over pixels sorted into group order,
+each group padded to a whole block) on CUDA tensors, :func:`gauss_newton_solve_grouped_plain`
 (:func:`gauss_newton_solve_plain` once per group) on CPU tensors.
 
 The multi-bin helpers :func:`pcd_bin_fluences` and
@@ -417,27 +418,42 @@ def gauss_newton_solve(counts, i0, mus, *, n_iters=30, eps_init=1e-6,
     return gauss_newton_solve_plain(counts, i0, mus, **kw)
 
 
-def _gauss_newton_cuda(counts, i0, mus, *, n_iters, eps_init, pixel_block,
-                       step_max, a_bounds, method, lm_damping, polish_iters,
-                       warm, warm_nodes):
-    del pixel_block  # one launch covers every pixel
+def k3_arguments(counts, i0, mus, *, n_iters=30, eps_init=1e-6,
+                 step_max=5.0, a_bounds=(-20.0, 500.0), polish_iters=4,
+                 warm_nodes=32):
+    """K3's launch arguments on the device of ``counts``: ``(counts [2, P]
+    contiguous, tables [(E_full + E_warm) * 8] (the full rows, then the
+    warm rows, rounded to bfloat16 when the warm phase runs in it), scale
+    (0-d), P, E_full, E_warm, n_warm, n_pol, warm_bf16, a_lo, a_hi,
+    step_max, eps_init, clip)``, the C entry's order."""
     counts, scale, full, warm_tab, sched = _prepare(
-        counts, i0, mus, n_iters, polish_iters, warm_nodes, method, warm)
+        counts, i0, mus, n_iters, polish_iters, warm_nodes, "gn", "log")
     n_warm, n_pol, warm_bf16 = sched[:3]
-    dev = counts.device
     counts = counts.contiguous()
-    P = counts.shape[1]
     rows = [torch.cat(full, 1), torch.cat(warm_tab, 1)]  # [E, 8] rows
     if warm_bf16:  # the warm table as the bf16 warm phase sees it
         rows[1] = rows[1].to(torch.bfloat16).float()
     tables = torch.cat([r.reshape(-1) for r in rows]).contiguous()
-    scale = kernels.require(scale, "scale", dev, torch.float32, ())
+    scale = kernels.require(scale, "scale", counts.device, torch.float32, ())
+    return (counts, tables, scale, counts.shape[1], rows[0].shape[0],
+            rows[1].shape[0], n_warm, n_pol, int(warm_bf16),
+            float(a_bounds[0]), float(a_bounds[1]), float(step_max),
+            float(eps_init), _CLIP)
+
+
+def _gauss_newton_cuda(counts, i0, mus, *, n_iters, eps_init, pixel_block,
+                       step_max, a_bounds, method, lm_damping, polish_iters,
+                       warm, warm_nodes):
+    del pixel_block, method, lm_damping, warm  # one launch, K3's schedule
+    counts, tables, scale, P, *rest = k3_arguments(
+        counts, i0, mus, n_iters=n_iters, eps_init=eps_init,
+        step_max=step_max, a_bounds=a_bounds, polish_iters=polish_iters,
+        warm_nodes=warm_nodes)
+    dev = counts.device
     out = torch.empty((P, 2), dtype=torch.float32, device=dev)
     rc = kernels.library().dexct_gauss_newton(
         counts.data_ptr(), tables.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), P, full[0].shape[0], warm_tab[0].shape[0], n_warm,
-        n_pol, int(warm_bf16), float(a_bounds[0]), float(a_bounds[1]),
-        float(step_max), float(eps_init), _CLIP, kernels.stream_ptr(dev))
+        out.data_ptr(), P, *rest, kernels.stream_ptr(dev))
     kernels.check(rc, "gauss_newton")
     gauss_newton_solve.launches += 1
     return out

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..utils import kernels
+from ..utils.devices import upload
 
 __all__ = ["material_path_sinogram", "mono_sinogram", "trace_paths",
            "trace_paths_plain",
@@ -290,14 +291,13 @@ def _labels_checked(lab):
 def labels_tensor(phantom, device):
     """The phantom's 2-D label slice as a uint8 tensor (the kernel's
     label type), after checking that every label fits."""
-    return torch.as_tensor(_labels_checked(phantom.slice_labels()),
-                           device=device)
+    return upload(_labels_checked(phantom.slice_labels()), device)
 
 
 def labels_stack_tensor(labels, device):
     """A host label stack [Nz, Ny, Nx] as a uint8 tensor, after the same
     check."""
-    return torch.as_tensor(_labels_checked(labels), device=device)
+    return upload(_labels_checked(labels), device)
 
 
 def material_path_sinogram(phantom, geometry, *, device,
@@ -323,8 +323,8 @@ def material_path_sinogram(phantom, geometry, *, device,
     src, dirs = geometry.ray_geometry()
     return trace_paths(
         labels_tensor(phantom, device),
-        torch.as_tensor(src, dtype=dtype, device=device),
-        torch.as_tensor(dirs, dtype=dtype, device=device),
+        upload(src, device, dtype),
+        upload(dirs, device, dtype),
         float(phantom.dx), float(phantom.dy),
         n_materials=phantom.n_materials,
     )
@@ -335,6 +335,5 @@ def mono_sinogram(paths, mu_per_material):
     """Monoenergetic line-integral sinogram: ``paths [..., M]`` contracted
     with a per-material linear attenuation vector ``[M]`` [1/cm], in full
     float32 (TF32 plays no part in a matrix-vector product)."""
-    mu = torch.as_tensor(mu_per_material, dtype=paths.dtype,
-                         device=paths.device)
+    mu = upload(mu_per_material, paths)
     return torch.matmul(paths, mu)

@@ -58,7 +58,7 @@ import functools
 import numpy as np
 import torch
 
-from ..utils.devices import check_float32
+from ..utils.devices import _scalar, check_float32, upload
 
 __all__ = [
     "effective_fluence",
@@ -539,26 +539,25 @@ def forward_counts(paths, phantom, spec, geometry, *, noise="none",
     """
     check_float32(dtype)
     dev = paths.device
-    mu_table = torch.as_tensor(phantom.materials.mu_table(spec.E),
-                               dtype=torch.float32, device=dev)
+    mu_table = upload(phantom.materials.mu_table(spec.E), dev,
+                      torch.float32)
     compound = noise == "compound"
     if bowtie is not None:
         from .bowtie import bowtie_fluence, bowtie_second_moment
 
         i0_h = bowtie_fluence(spec, geometry, bowtie)  # [C, E]
-        air = torch.as_tensor(i0_h.sum(-1), dtype=torch.float32,
-                              device=dev)
+        air = upload(i0_h.sum(-1), dev, torch.float32)
         i2_h = bowtie_second_moment(spec, geometry, bowtie) \
             if compound else None
     else:
         i0_h = effective_fluence(spec, geometry)
         air = float(np.sum(i0_h))
         i2_h = second_moment_fluence(spec, geometry) if compound else None
-    i0 = torch.as_tensor(i0_h, dtype=torch.float32, device=dev)
+    i0 = upload(i0_h, dev, torch.float32)
     paths = paths.to(torch.float32)
     var = None
     if compound:
-        i2 = torch.as_tensor(i2_h, dtype=torch.float32, device=dev)
+        i2 = upload(i2_h, dev, torch.float32)
         counts, var = counts_from_paths(paths, mu_table, i0, i2,
                                         per_channel=bowtie is not None)
     else:
@@ -567,7 +566,7 @@ def forward_counts(paths, phantom, spec, geometry, *, noise="none",
     if tcm is not None:
         # per-view tube-current modulation, broadcast over the trailing
         # channel (and row) axes
-        s = torch.as_tensor(tcm, dtype=torch.float32, device=dev)
+        s = upload(tcm, dev, torch.float32)
         s = s.reshape(tuple(s.shape) + (1,) * (counts.ndim - 1))
         counts = counts * s
         air = air * s
@@ -577,7 +576,6 @@ def forward_counts(paths, phantom, spec, geometry, *, noise="none",
         if generator is None:
             raise ValueError("noise sampling requires a torch.Generator")
         if var is not None and sigma_e:
-            var = var + torch.tensor(float(sigma_e), dtype=torch.float32,
-                                     device=dev) ** 2
+            var = var + _scalar(sigma_e, var) ** 2
         counts = sample_noise(generator, counts, noise, var=var)
     return counts, log_sinogram(counts, air)

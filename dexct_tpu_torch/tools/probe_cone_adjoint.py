@@ -64,25 +64,38 @@ def _card_line():
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def _cone_config(root, tmp):
-    """chip_smoke's cone config: its params file and pelvis, read back."""
+# chip_smoke.py's CONE_CONFIGS entries of the repo's cone and helical
+# configurations (tools/bench_r3c.py:60-69, tools/bench_helical.py:62-66)
+CONE_CONFIGS = {
+    "cone": dict(scanner_geometry="cone_beam", N_projections=360,
+                 phantom_nz=32),
+    "helical": dict(scanner_geometry="helical_cone_beam", N_projections=720,
+                    rotation_angle_total=4.0 * 3.141592653589793, pitch=3.0,
+                    phantom_nz=48),
+}
+
+
+def _cone_config(root, tmp, label="cone"):
+    """chip_smoke's cone (or helical) config: its params file and pelvis,
+    read back."""
     from dexct_tpu_torch.system.config import read_parameter_file
     from dexct_tpu_torch.system.phantom import pelvis_phantom_3d
 
-    ph = pelvis_phantom_3d(N=256, nz=32, dx=0.2, dz=0.2)
-    ph.to_file(str(tmp / "cone.bin"), str(tmp / "cone.csv"))
+    spec = dict(CONE_CONFIGS[label])
+    nz = spec.pop("phantom_nz")
+    ph = pelvis_phantom_3d(N=256, nz=nz, dx=0.2, dz=0.2)
+    ph.to_file(str(tmp / f"{label}.bin"), str(tmp / f"{label}.csv"))
     cfg = json.loads((root / "input" / "params.txt").read_text())
-    cfg.update({"RUN_ID": "cone", "phantom_id": ph.name,
-                "phantom_filename": str(tmp / "cone.bin"),
-                "matcomp_filename": str(tmp / "cone.csv"),
-                "Nx": 256, "Ny": 256, "Nz": 32, "dx": 0.2, "dy": 0.2,
+    cfg.update({"RUN_ID": label, "phantom_id": ph.name,
+                "phantom_filename": str(tmp / f"{label}.bin"),
+                "matcomp_filename": str(tmp / f"{label}.csv"),
+                "Nx": 256, "Ny": 256, "Nz": nz, "dx": 0.2, "dy": 0.2,
                 "dz": 0.2, "N_rows": 16, "detector_px_height": 0.25,
                 "N_channels": 256, "SID": 60.0, "SDD": 100.0,
                 "fan_angle_total": 0.8230337,
                 "detector_filename": str(root / cfg["detector_filename"]),
-                "N_recon_matrix": 256, "FOV_recon": 40.0,
-                "scanner_geometry": "cone_beam", "N_projections": 360})
-    path = tmp / "cone.txt"
+                "N_recon_matrix": 256, "FOV_recon": 40.0, **spec})
+    path = tmp / f"{label}.txt"
     path.write_text(json.dumps(cfg))
     return read_parameter_file(path)[0]
 

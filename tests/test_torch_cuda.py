@@ -1749,19 +1749,11 @@ def test_cone_scatter_one_row_is_the_fan(dev):
 
 def _k3_golden_case():
     """A fixed K3 case: 4096 pixels of two basis materials under the tiny
-    cases' linac / 80 kV pair, 50 iterations."""
-    from dexct_tpu_torch.physics import kramers_spectrum, linac_spectrum
-    from dexct_tpu_torch.system import FanBeamGeometry
+    cases' linac / 80 kV pair, 50 iterations
+    (``probe_gauss_newton.golden_case``)."""
+    from dexct_tpu_torch.tools.probe_gauss_newton import golden_case
 
-    ct = FanBeamGeometry(N_channels=64, N_proj=64, eid=True)
-    s1, s2 = linac_spectrum(), kramers_spectrum(80.0)
-    s1.rescale_counts(ct.A_iso * 9.0 / ct.N_proj)
-    s2.rescale_counts(ct.A_iso * 1.0 / ct.N_proj)
-    _, i0, mus = prepare_decomposition(ct, s1, s2)
-    rng = np.random.default_rng(29)
-    a = np.stack([rng.uniform(0, 40, 4096), rng.uniform(0, 6, 4096)], -1)
-    counts = (np.exp(-a @ mus) @ i0.T).T.astype(np.float32)
-    return counts, i0.astype(np.float32), mus.astype(np.float32)
+    return golden_case()
 
 
 @pytest.mark.parametrize("layout", ["bowtie", "heel", "one_row"])
@@ -1859,6 +1851,47 @@ def test_k3_output_is_unchanged(dev):
                        for x in _k3_golden_case())
     out = gauss_newton_solve(counts, i0, mus, n_iters=50).cpu().numpy()
     assert hashlib.sha1(out.tobytes()).hexdigest() == K3_GOLDEN_SHA1
+
+
+# sha1 of K3's output on the cases of probe_gauss_newton.PIN_CASES (the
+# exact path's 8e5 counts, the cone config's 1.47M and the helical
+# config's 2.95M, each made by the port's K1 or K10 and K2; the golden
+# case repeated and cut to 1, 127, 129, 384 and 4097 pixels), from the
+# build of K3 before it solved several pixels a thread (NVIDIA H100 80GB
+# HBM3, CUDA 12.8).  The path cases also pin K1's, K10's and K2's bits.
+K3_PINNED_SHA1 = {"exact": "7d2e546bd280d86794f574d9198eb17db7364b8e",
+                  "cone": "4c998d7358357825a955890223880b265030a743",
+                  "helical": "c8f47a9e91f23f0d03babe7ec21deae9e9912095",
+                  "n1": "75af3f7b2b0d2942233ec12b53c8e959dbb74082",
+                  "n127": "e18b80b7c5f0fdf5c9244b52948688bc3daa9f37",
+                  "n129": "cc18c46bb359a7c9a39ad8d8dfcf8c56c1a1bd2c",
+                  "n384": "2d1d59438785ec1e2993528c07b841cb0b7bb4fa",
+                  "n4097": "0dbaa8907887639190140cba8948506e2209bf88"}
+
+
+@pytest.mark.parametrize("case", list(K3_PINNED_SHA1))
+def test_k3_keeps_its_pinned_bits(dev, case):
+    """K3 gives the first K3's output bit for bit at the paths' shapes and
+    at pixel counts ragged against its groups of pixels, in one launch."""
+    from dexct_tpu_torch.tools.probe_gauss_newton import (output_sha1,
+                                                          pin_case)
+
+    counts, i0, mus, kw = pin_case(case, dev)
+    before = gauss_newton_solve.launches
+    out = gauss_newton_solve(counts, i0, mus, **kw)
+    torch.cuda.synchronize()
+    assert gauss_newton_solve.launches == before + 1
+    assert out.shape == (counts.shape[1], 2)
+    assert output_sha1(out) == K3_PINNED_SHA1[case]
+
+
+@pytest.mark.parametrize("case", ["n4097", "exact"])
+def test_k3_two_launches_are_equal(dev, case):
+    from dexct_tpu_torch.tools.probe_gauss_newton import pin_case
+
+    counts, i0, mus, kw = pin_case(case, dev)
+    assert torch.equal(gauss_newton_solve(counts, i0, mus, **kw),
+                       gauss_newton_solve(counts, i0, mus, **kw))
 
 
 @pytest.mark.parametrize("kind", tiny_cases.REALISM_KINDS)
@@ -1967,10 +2000,12 @@ def test_k4_makes_no_host_synchronisation(dev):
 
 def test_k3_makes_no_host_synchronisation(dev):
     """K3 reads its count scale on the card: a solve copies nothing from
-    the host and reads nothing back."""
-    counts, i0, mus = (torch.as_tensor(x, device=dev)
-                       for x in _k3_golden_case())
-    _no_sync(lambda: gauss_newton_solve(counts, i0, mus, n_iters=50))
+    the host and reads nothing back, at a pixel count ragged against its
+    groups of pixels."""
+    from dexct_tpu_torch.tools.probe_gauss_newton import pin_case
+
+    counts, i0, mus, kw = pin_case("n4097", dev)
+    _no_sync(lambda: gauss_newton_solve(counts, i0, mus, **kw))
 
 
 def test_k35_makes_no_host_synchronisation(dev):
@@ -2612,7 +2647,9 @@ def test_realism_stages_do_not_synchronise(dev, stage, step):
     "low_dose_compound", "march_plain", "scatter_energies", "pileup_bins",
     "aperture_counts", "scatter_kernel", "pwls_weights", "auto_tcm_profile",
     "normalize_counts", "cone_operator", "fbp_recon", "fbp_recon_short",
-    "parallel_fbp", "parallel_backproject_mask"])
+    "parallel_fbp", "parallel_backproject_mask", "forward_counts",
+    "forward_counts_bowtie", "forward_counts_tcm", "forward_counts_compound",
+    "material_path_sinogram"])
 def test_scalar_uploads_do_not_synchronise(dev, site):
     """The scalars of ``_helical_z`` (z0), ``_view_geometry`` (sid),
     ``synthesize_low_dose`` (the dose fraction; Poisson thinning and the
@@ -2623,9 +2660,12 @@ def test_scalar_uploads_do_not_synchronise(dev, site):
     pileup's sum routing, the aperture's mu table and fluences, a scatter
     kernel, the tcm profile's mu table and fluence, ``normalize_counts``'
     modulation, the cone operator's rays, the fan and parallel FBPs'
-    channel angles, filter responses, view angles and Parker weights) go
-    to the card through pinned memory, without a synchronisation; K6's FOV
-    mask goes up once and is kept."""
+    channel angles, filter responses, view angles and Parker weights;
+    ``forward_counts``' mu table, fluences, second moment, bowtie air
+    levels and tcm profile; ``material_path_sinogram``'s labels and rays)
+    go to the card through pinned memory, without a synchronisation, and
+    ``forward_counts``' sigma_e is filled there; K6's FOV mask goes up once
+    and is kept."""
     from dexct_tpu_torch.ops import (aperture, conebeam, iterative, lowdose,
                                      scatter, scatter_physics)
     from dexct_tpu_torch.physics import pileup
@@ -2740,6 +2780,39 @@ def test_scalar_uploads_do_not_synchronise(dev, site):
         th = torch.arange(48, dtype=torch.float32, device=dev) * (np.pi / 48)
         call = lambda: parallel_backproject_multi(  # noqa: E731
             packed, 1, th, -20.0, 40.0 / 128, 128, 64, 24.0, np.pi / 48)
+    elif site.startswith("forward_counts"):
+        from dexct_tpu_torch.ops.bowtie import design_flattening_bowtie
+        from dexct_tpu_torch.ops.spectral import forward_counts
+        from dexct_tpu_torch.physics import kramers_spectrum
+        from dexct_tpu_torch.system import (FanBeamGeometry,
+                                            water_cylinder_phantom)
+
+        ct = FanBeamGeometry(N_channels=24, N_proj=10, eid=True)
+        ph = water_cylinder_phantom(N=16)
+        spec = kramers_spectrum(80.0)
+        spec.rescale_counts(1e6)
+        rng = np.random.default_rng(40)
+        paths = torch.as_tensor(rng.uniform(0.0, 12.0, (10, 24, 2)),
+                                dtype=torch.float32, device=dev)
+        kw = {}
+        if site.endswith(("bowtie", "compound")):
+            kw["bowtie"] = design_flattening_bowtie(ct, 8.0)
+        if site.endswith(("tcm", "compound")):
+            kw["tcm"] = rng.uniform(0.5, 2.0, 10)
+        if site.endswith("compound"):
+            kw.update(noise="compound", sigma_e=37.5,
+                      generator=torch.Generator(device=dev).manual_seed(41))
+        call = lambda: forward_counts(paths, ph, spec, ct,  # noqa: E731
+                                      **kw)
+    elif site == "material_path_sinogram":
+        from dexct_tpu_torch.ops.siddon import material_path_sinogram
+        from dexct_tpu_torch.system import (FanBeamGeometry,
+                                            water_cylinder_phantom)
+
+        ph = water_cylinder_phantom(N=24, dx=0.6)
+        ct = FanBeamGeometry(N_channels=32, N_proj=12, eid=True)
+        call = lambda: material_path_sinogram(  # noqa: E731
+            ph, ct, device=dev)
     else:
         c = _realism_counts().to(dev)
         call = lambda: iterative.pwls_weights(  # noqa: E731

@@ -198,3 +198,23 @@ def test_decompose_sinograms_matches_jax():
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-3)
     assert float(got[0].reshape(-1)[:5].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("n_pix", [1, 127, 129, 4097])
+def test_ragged_pixel_counts_match_jax(n_pix):
+    """The plain version against the JAX package's solver at pixel counts
+    ragged against any group of 128 x P pixels (the card kernel's tails):
+    the card tests' golden case (``probe_gauss_newton.golden_case``)
+    repeated and cut to ``n_pix`` pixels, 50 iterations."""
+    from dexct_tpu_torch.tools.probe_gauss_newton import golden_case
+
+    counts, i0, mus = golden_case()
+    counts = np.tile(counts, (1, -(-n_pix // counts.shape[1])))[:, :n_pix]
+    got = t_md.gauss_newton_solve(
+        *(torch.as_tensor(np.ascontiguousarray(x)) for x in (counts, i0,
+                                                            mus)),
+        n_iters=50).numpy()
+    want = np.asarray(j_solve(jnp.asarray(counts), jnp.asarray(i0),
+                              jnp.asarray(mus), n_iters=50))
+    assert got.shape == want.shape == (n_pix, 2)
+    assert _rel(got, want).max() < 1e-4

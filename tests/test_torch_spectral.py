@@ -156,3 +156,105 @@ def test_noise_is_seeded():
     assert torch.equal(t_sp.sample_noise(None, c, "none"), c)
     with pytest.raises(ValueError, match="compound"):
         t_sp.sample_noise(torch.Generator(), c, "compound")
+
+
+def _forward_counts_as_tensor(paths, phantom, spec, geometry, noise,
+                              generator, bowtie, tcm, sigma_e):
+    """``forward_counts`` with every host array made a tensor by
+    ``torch.as_tensor`` and ``sigma_e`` by ``torch.tensor``: the reference
+    for its uploads through pinned memory and ``torch.full``."""
+    from dexct_tpu_torch.ops import bowtie as t_bt
+
+    dev = paths.device
+    mu = torch.as_tensor(phantom.materials.mu_table(spec.E),
+                         dtype=torch.float32, device=dev)
+    compound = noise == "compound"
+    if bowtie is not None:
+        i0_h = t_bt.bowtie_fluence(spec, geometry, bowtie)
+        air = torch.as_tensor(i0_h.sum(-1), dtype=torch.float32, device=dev)
+        i2_h = t_bt.bowtie_second_moment(spec, geometry, bowtie)
+    else:
+        i0_h = t_sp.effective_fluence(spec, geometry)
+        air = float(np.sum(i0_h))
+        i2_h = t_sp.second_moment_fluence(spec, geometry)
+    i0 = torch.as_tensor(i0_h, dtype=torch.float32, device=dev)
+    per_channel = bowtie is not None
+    var = None
+    if compound:
+        i2 = torch.as_tensor(i2_h, dtype=torch.float32, device=dev)
+        counts, var = t_sp.counts_from_paths(paths, mu, i0, i2,
+                                             per_channel=per_channel)
+    else:
+        counts = t_sp.counts_from_paths(paths, mu, i0,
+                                        per_channel=per_channel)
+    if tcm is not None:
+        s = torch.as_tensor(tcm, dtype=torch.float32, device=dev)
+        s = s.reshape(tuple(s.shape) + (1,) * (counts.ndim - 1))
+        counts, air = counts * s, air * s
+        if var is not None:
+            var = var * s
+    if noise != "none":
+        if var is not None and sigma_e:
+            var = var + torch.tensor(float(sigma_e), dtype=torch.float32,
+                                     device=dev) ** 2
+        counts = t_sp.sample_noise(generator, counts, noise, var=var)
+    return counts, t_sp.log_sinogram(counts, air)
+
+
+@pytest.mark.parametrize("case", ["plain", "bowtie", "tcm", "compound"])
+def test_forward_counts_uploads_keep_the_bits(case):
+    """``forward_counts`` (plain; with a bowtie; with a TCM profile; in
+    compound mode with ``sigma_e``, a bowtie and a TCM profile) gives on
+    the CPU bit for bit what the same inputs give when made tensors with
+    ``torch.as_tensor``."""
+    from dexct_tpu_torch.ops.bowtie import design_flattening_bowtie
+    from dexct_tpu_torch.physics import kramers_spectrum
+    from dexct_tpu_torch.system import FanBeamGeometry, water_cylinder_phantom
+
+    ct = FanBeamGeometry(N_channels=24, N_proj=10, eid=True)
+    ph = water_cylinder_phantom(N=16)
+    spec = kramers_spectrum(80.0)
+    spec.rescale_counts(1e6)
+    rng = np.random.default_rng(21)
+    paths = torch.as_tensor(rng.uniform(0.0, 12.0, (10, 24, ph.n_materials)),
+                            dtype=torch.float32)
+    kw = dict(noise="none", bowtie=None, tcm=None, sigma_e=0.0)
+    if case in ("bowtie", "compound"):
+        kw["bowtie"] = design_flattening_bowtie(ct, 8.0)
+    if case in ("tcm", "compound"):
+        kw["tcm"] = rng.uniform(0.5, 2.0, 10)
+    if case == "compound":
+        kw.update(noise="compound", sigma_e=37.5)
+    got = t_sp.forward_counts(paths, ph, spec, ct,
+                              generator=torch.Generator().manual_seed(5),
+                              **kw)
+    want = _forward_counts_as_tensor(paths, ph, spec, ct,
+                                     generator=torch.Generator().manual_seed(
+                                         5), **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.float32
+        assert torch.equal(g, w)
+
+
+def test_material_path_sinogram_uploads_keep_the_bits():
+    """``material_path_sinogram`` traces the labels and rays it uploads
+    bit for bit as it traces the same arrays made tensors with
+    ``torch.as_tensor``; ``mono_sinogram`` contracts a NumPy mu vector as
+    it contracts the tensor."""
+    from dexct_tpu_torch.ops import siddon
+    from dexct_tpu_torch.system import FanBeamGeometry, water_cylinder_phantom
+
+    ph = water_cylinder_phantom(N=24, dx=0.6)
+    ct = FanBeamGeometry(N_channels=32, N_proj=12, eid=True)
+    got = siddon.material_path_sinogram(ph, ct, device="cpu")
+    src, dirs = ct.ray_geometry()
+    want = siddon.trace_paths(
+        torch.as_tensor(ph.slice_labels().astype(np.uint8)),
+        torch.as_tensor(src, dtype=torch.float32),
+        torch.as_tensor(dirs, dtype=torch.float32), float(ph.dx),
+        float(ph.dy), n_materials=ph.n_materials)
+    assert torch.equal(got, want)
+    mu = np.linspace(0.1, 0.3, ph.n_materials)
+    assert torch.equal(siddon.mono_sinogram(got, mu),
+                       siddon.mono_sinogram(got, torch.as_tensor(
+                           mu, dtype=torch.float32)))

@@ -87,7 +87,10 @@ of JAX.  Phases, each of which raises on failure:
    reference protocol as a PCD scan with the packed path's 4 bins and with
    the K-edge pelvis's 6 bins and 8 materials, and K35 (the general Newton
    decomposition) on those counts (M = 4, K = 2, 10 iterations; M = 6, K =
-   4, 60), and at (2, 2) with K3's schedule beside K3.  K36 and K37 (the
+   4, 60), and at (2, 2) with K3's schedule beside K3, each output also
+   bitwise its sha1 pinned from K35 before its float64 table
+   (``K35_PATH_SHA1``), as are K35's 6 x 4 and 8 x 4 "newton" cases at 1,
+   127, 129 and 4097 pixels.  K36 and K37 (the
    afterglow recursion and its inverse) on the realistic path's bowtie
    counts of both acquisitions [1000, 800] and the cone config's 80 kV
    counts [360, 16, 256] with its two traps and warm start (bitwise
@@ -369,7 +372,10 @@ KERNELS = {
                              "dexct_tpu/ops/matdecomp.py:333 (K in {3, 4}, "
                              "M >= K, newton, lm_damping, warm)",
                              "max |d| / max(|a|, 1) <= 1e-4 (K = 4: on 99 % "
-                             "of pixels); at (2, 2) within 1e-4 of K3"),
+                             "of pixels); at (2, 2) within 1e-4 of K3; "
+                             "bitwise the output pinned from K35 before its "
+                             "float64 table at both path shapes, at (2, 2) "
+                             "and at ragged pixel counts (sha1)"),
     "afterglow_apply": ("cuda", "dexct_tpu_torch/csrc/afterglow.cu",
                         "dexct_tpu/ops/afterglow.py:60",
                         "max abs <= 1e-6 x max |plain| (bitwise reported); "
@@ -3354,73 +3360,79 @@ def compare_once(kernel_fn, plain_fn, reps):
     return got, want, time_ms(kernel_fn, reps), start.elapsed_time(end)
 
 
-def spectral_kernel_phase(cfg, pcd, spectra, records, dev):
-    """Phase 3, spectral paths: K34 (the bins' counts) on the exact trace
-    of the photon-counting reference protocol with the 4 bins of the
-    packed path (pelvis, 6 materials) and the K-edge scan's 6 bins (8
-    materials; recorded), and K35 on those counts: M = 4, K = 2 with the
-    packed path's 10 iterations, M = 6, K = 4 with the K-edge scan's 60
-    (recorded), and at (2, 2) on the exact path's DE counts beside K3."""
-    import numpy as np
+# sha1 of K35's output on probe_k35's cases (the spectral paths' two
+# shapes as spectral_path_inputs makes them, the exact path's DE counts at
+# (2, 2) with K3's schedule, K35_CASES' 6x4 and 8x4_newton at 1, 127, 129
+# and 4097 pixels), pinned from the build of K35 before its float64 table
+# (NVIDIA H100 80GB HBM3, CUDA 12.8); tests/test_torch_cuda.py holds the
+# same
+K35_PATH_SHA1 = {
+    "kedge": "5d9567c4c6e21c9d84619fcf74c37c42e0897b54",
+    "packed": "63bd30f0758c5f552992d35ae39d94bc68c9add6",
+    "de_2x2": "1cb940185a9d72da30b707407e8e5488de0bcfbe",
+    "6x4_n1": "b0f07841de32f80a1f102c4c5510b9d745d94bad",
+    "6x4_n127": "4c24e0d743b5f35c19aa6f7af5138eaebdf8b1f0",
+    "6x4_n129": "53b7a98b09ca5d0d5e84ec82fde8d84313a4e01e",
+    "6x4_n4097": "5d667ec4b2e97712366f69422d98c8b60a650e89",
+    "8x4_newton_n1": "0ef186eb006502da6c895de60cc52e3d81ae4dc9",
+    "8x4_newton_n127": "22243dab96a366ae3efb25af4a7cbbc859724de7",
+    "8x4_newton_n129": "f7c5f088a8b5c93f07af39c4254bd56a3978c1d9",
+    "8x4_newton_n4097": "3fe0917acedcde64fbdbfe505fc84c64e72db1d2",
+}
+
+
+def spectral_path_inputs(pcd, dev):
+    """K34's inputs at the spectral paths' two shapes, one shape at a
+    time: ``(key, label, paths, mu, i0s, i0_T, basis, n_iters)`` for the
+    packed path (the exact trace of the photon-counting reference protocol,
+    pelvis, 6 materials; the 4 bins PCD_THRESHOLDS; tissue/bone at 10
+    iterations) and the K-edge pelvis (8 materials; the 6 bins
+    KEDGE_THRESHOLDS; the K-edge basis at 60 iterations).
+    ``tools/probe_k35.py`` makes its path cases here too."""
     import torch
 
-    from dexct_tpu_torch.ops import matdecomp, siddon, spectral
-    from dexct_tpu_torch.physics import xcom
+    from dexct_tpu_torch.ops import matdecomp, siddon
     from dexct_tpu_torch.physics.materials import BONE, TISSUE
-    from dexct_tpu_torch.utils import tiny_cases
 
     pcfg, spec, kph, basis4 = pcd
     ct = pcfg.ct
-    cases = []
-    for label, ph, thr, basis, n_iters in (
-            ("packed, M = 4, K = 2", pcfg.phantom, PCD_THRESHOLDS,
+    for key, label, ph, thr, basis, n_iters in (
+            ("packed", "packed, M = 4, K = 2", pcfg.phantom, PCD_THRESHOLDS,
              (TISSUE, BONE), 10),
-            ("K-edge pelvis, M = 6, K = 4", kph["pelvis"], KEDGE_THRESHOLDS,
-             basis4, 60)):
+            ("kedge", "K-edge pelvis, M = 6, K = 4", kph["pelvis"],
+             KEDGE_THRESHOLDS, basis4, 60)):
         paths = siddon.material_path_sinogram(ph, ct, device=dev)
         mu = torch.as_tensor(ph.materials.mu_table(spec.E),
                              dtype=torch.float32, device=dev)
         i0s = matdecomp.pcd_bin_fluences(ct, spec, thr)
         i0_T = torch.as_tensor(i0s.T.copy(), dtype=torch.float32,
                                device=dev)
-        c, want, ms, pms = compare(
-            lambda: spectral.counts_from_paths(paths, mu, i0_T),
-            lambda: spectral.counts_from_paths_plain(paths, mu, i0_T),
-            reps=3)
-        err = float((c - want).abs().max())
-        rel = float(((c - want).abs() / want.abs().clamp_min(1e-30)).max())
-        n_rays, E, M = c.numel() // c.shape[-1], mu.shape[1], c.shape[-1]
-        work = (nbytes(paths, mu, i0_T, c),
-                n_rays * E * (2 * mu.shape[0] + 1 + 2 * M))
-        report(records, "multibin_counts", err, ms, pms, rel <= 1e-5, work,
-               extra=f" (max rel {rel:.3g}; {label}: {n_rays} rays, "
-                     f"{mu.shape[0]} materials, {E} energies, {M} bins)",
-               record=basis is basis4)
-        counts = torch.movedim(c, -1, 0).reshape(M, -1).contiguous()
-        mus = torch.as_tensor(np.stack([xcom.mixatten(b.matcomp, spec.E)
-                                        for b in basis]),
-                              dtype=torch.float32, device=dev)
-        dec_i0 = torch.as_tensor(i0s, dtype=torch.float32, device=dev)
-        cases.append((label, counts, dec_i0, mus, n_iters, basis is basis4))
-        del paths, c, want
-    for label, counts, dec_i0, mus, n_iters, recorded in cases:
-        kw = dict(n_iters=n_iters)
-        ab, want, ms, pms = compare_once(
-            lambda: matdecomp.gauss_newton_solve(counts, dec_i0, mus, **kw),
-            lambda: matdecomp.gauss_newton_solve_plain(counts, dec_i0, mus,
-                                                       **kw), reps=2)
-        worst, p99 = tiny_cases.newton_agreement(ab, want)
-        err = float((ab - want).abs().max())
-        M, K = counts.shape[0], mus.shape[0]
-        report(records, "gauss_newton_general", err, ms, pms,
-               tiny_cases.newton_agrees(ab, want) and
-               bool(torch.isfinite(ab).all()),
-               newton_work(counts.shape[1], M, K, n_iters, mus.shape[1]),
-               extra=f" ({label}, {n_iters} iterations, {counts.shape[1]} "
-                     f"pixels, {mus.shape[1]} energies; rel max {worst:.3g},"
-                     f" 99th percentile {p99:.3g})", record=recorded)
-    del cases
-    # (2, 2) beside K3 on the exact path's DE counts, K3's schedule
+        yield key, label, paths, mu, i0s, i0_T, basis, n_iters
+
+
+def k35_inputs(c, i0s, basis, spec, dev):
+    """K35's inputs from K34's counts ``c`` [..., M]: ``(counts [M, P],
+    i0 [M, E], mus [K, E])`` on ``dev``."""
+    import numpy as np
+    import torch
+
+    from dexct_tpu_torch.physics import xcom
+
+    counts = torch.movedim(c, -1, 0).reshape(c.shape[-1], -1).contiguous()
+    mus = torch.as_tensor(np.stack([xcom.mixatten(b.matcomp, spec.E)
+                                    for b in basis]),
+                          dtype=torch.float32, device=dev)
+    return counts, torch.as_tensor(i0s, dtype=torch.float32, device=dev), mus
+
+
+def de_2x2_inputs(cfg, spectra, dev):
+    """K35 at (2, 2) beside K3: ``(counts [2, P], i0, mus, keywords)``, the
+    exact path's DE counts of both spectra (K1, K2), the decomposition's
+    tables and K3's schedule as ``_gauss_newton_general``'s keywords."""
+    import torch
+
+    from dexct_tpu_torch.ops import matdecomp, siddon, spectral
+
     ct2, ph2 = cfg.ct, cfg.phantom
     s1, s2 = spectra(ct2)
     paths = siddon.material_path_sinogram(ph2, ct2, device=dev)
@@ -3433,9 +3445,67 @@ def spectral_kernel_phase(cfg, pcd, spectra, records, dev):
     kw = dict(n_iters=50, eps_init=1e-6, pixel_block=65536, step_max=5.0,
               a_bounds=(-20.0, 500.0), method="gn", lm_damping=0.0,
               polish_iters=4, warm="log", warm_nodes=32)
+    return flat, i0, mus, kw
+
+
+def spectral_kernel_phase(cfg, pcd, spectra, records, dev):
+    """Phase 3, spectral paths: K34 (the bins' counts) at
+    ``spectral_path_inputs``' two shapes (the K-edge one recorded), and K35
+    on those counts: M = 4, K = 2 with the packed path's 10 iterations, M =
+    6, K = 4 with the K-edge scan's 60 (recorded), and at (2, 2) on the
+    exact path's DE counts beside K3."""
+    import torch
+
+    from dexct_tpu_torch.ops import matdecomp, spectral
+    from dexct_tpu_torch.tools.probe_gauss_newton import output_sha1
+    from dexct_tpu_torch.utils import tiny_cases
+
+    spec = pcd[1]
+    cases = []
+    for key, label, paths, mu, i0s, i0_T, basis, n_iters in \
+            spectral_path_inputs(pcd, dev):
+        recorded = key == "kedge"
+        c, want, ms, pms = compare(
+            lambda: spectral.counts_from_paths(paths, mu, i0_T),
+            lambda: spectral.counts_from_paths_plain(paths, mu, i0_T),
+            reps=3)
+        err = float((c - want).abs().max())
+        rel = float(((c - want).abs() / want.abs().clamp_min(1e-30)).max())
+        n_rays, E, M = c.numel() // c.shape[-1], mu.shape[1], c.shape[-1]
+        work = (nbytes(paths, mu, i0_T, c),
+                n_rays * E * (2 * mu.shape[0] + 1 + 2 * M))
+        report(records, "multibin_counts", err, ms, pms, rel <= 1e-5, work,
+               extra=f" (max rel {rel:.3g}; {label}: {n_rays} rays, "
+                     f"{mu.shape[0]} materials, {E} energies, {M} bins)",
+               record=recorded)
+        cases.append((key, label, *k35_inputs(c, i0s, basis, spec, dev),
+                      n_iters, recorded))
+        del paths, c, want
+    for key, label, counts, dec_i0, mus, n_iters, recorded in cases:
+        kw = dict(n_iters=n_iters)
+        ab, want, ms, pms = compare_once(
+            lambda: matdecomp.gauss_newton_solve(counts, dec_i0, mus, **kw),
+            lambda: matdecomp.gauss_newton_solve_plain(counts, dec_i0, mus,
+                                                       **kw), reps=2)
+        worst, p99 = tiny_cases.newton_agreement(ab, want)
+        err = float((ab - want).abs().max())
+        M, K = counts.shape[0], mus.shape[0]
+        pinned = output_sha1(ab) == K35_PATH_SHA1[key]
+        report(records, "gauss_newton_general", err, ms, pms,
+               tiny_cases.newton_agrees(ab, want) and pinned and
+               bool(torch.isfinite(ab).all()),
+               newton_work(counts.shape[1], M, K, n_iters, mus.shape[1]),
+               extra=f" ({label}, {n_iters} iterations, {counts.shape[1]} "
+                     f"pixels, {mus.shape[1]} energies; rel max {worst:.3g},"
+                     f" 99th percentile {p99:.3g}; the pinned sha1 "
+                     f"{pinned})", record=recorded)
+    del cases
+    # (2, 2) beside K3 on the exact path's DE counts, K3's schedule
+    flat, i0, mus, kw = de_2x2_inputs(cfg, spectra, dev)
     k35 = matdecomp._gauss_newton_general(flat, i0, mus, **kw)
     k3 = matdecomp.gauss_newton_solve(flat, i0, mus, n_iters=50)
     rel = float(((k35 - k3).abs() / k3.abs().clamp_min(1.0)).max())
+    pinned = output_sha1(k35) == K35_PATH_SHA1["de_2x2"]
     t35 = time_ms(lambda: matdecomp._gauss_newton_general(flat, i0, mus,
                                                           **kw), 2)
     t3 = time_ms(lambda: matdecomp.gauss_newton_solve(flat, i0, mus,
@@ -3443,9 +3513,25 @@ def spectral_kernel_phase(cfg, pcd, spectra, records, dev):
     print(f"  gauss_newton_general at (2, 2) (the exact path's DE counts, "
           f"{flat.shape[1]} pixels, 50 iterations): kernel={t35:.4f} ms, "
           f"K3 {t3:.4f} ms, max |d| / max(|a|, 1) from K3 {rel:.3g} "
-          f"[<= 1e-4]")
+          f"[<= 1e-4]; the pinned sha1 {pinned}")
     if not rel <= 1e-4:
         fail("gauss_newton_general disagrees with K3 at (2, 2)")
+    if not pinned:
+        fail("gauss_newton_general at (2, 2) misses its pinned sha1")
+    del flat
+    # K35_CASES' 6x4 and 8x4_newton at pixel counts ragged against its
+    # blocks
+    from dexct_tpu_torch.tools.probe_k35 import RAGGED, pin_case, solve
+
+    missed = []
+    for name in RAGGED:
+        case = pin_case(name, dev)
+        if output_sha1(solve(matdecomp, name, *case)) != K35_PATH_SHA1[name]:
+            missed.append(name)
+    print(f"  gauss_newton_general at ragged pixel counts "
+          f"({', '.join(RAGGED)}): pinned sha1s missed {missed or 'none'}")
+    if missed:
+        fail(f"gauss_newton_general misses its pinned sha1 on {missed}")
 
 
 def rod_check(scene, reading):

@@ -66,17 +66,33 @@
 // of log-residual or Poisson-MLE steps.  The TPU form iterates all pixels
 // at once as [B, E] x [E, M + M K (+ M T)] matrix products.
 //
-// What bounds it: arithmetic, as K3.  Per (iteration, energy) a pixel
-// forms its exponent (K FMAs), one exp, and M (1 + K) moment sums (plus
-// M T Hessian weights with "newton", T = K (K + 1) / 2).  Design: K3's, one
-// thread per pixel with every iteration in registers and the energy tables
-// in shared memory, read at the same address by all threads.  A table row
-// holds [mu_k (K), i0_m (M), g_mi = i0_m mu_i (M K), and with "newton"
-// h_m,ij = i0_m mu_i mu_j (M T)] floats; the full grid for the polish, then
-// the warm table (the log warm phase's moment-compressed nodes; rounded to
-// bf16 by the wrapper when the warm phase runs in bf16).  The kernel is
-// templated on K and on a compile-time maximum of M (4 or 8, the port's
-// MAX_BINS), so the per-measurement accumulators are registers indexed by
+// What bounds it: arithmetic in float64.  Per (iteration, energy) a pixel
+// forms its exponent (K float products), one exp, and M (1 + K) float64
+// moment sums (plus M T Hessian weights with "newton", T = K (K + 1) / 2):
+// the sums stay float64 to keep the plain version's rounding (the 4x4 MLE
+// polish is chaotic on the hardest rays).  Summed from a float table,
+// every weight would be converted to a double per pixel and table node
+// (F2F.F64.F32, 16 a clock per SM against the DFMAs' 64), at four times
+// the sums' cost.  Design: the wrapper casts the table to float64 once
+// (exact), and each block stages a phase's rows in shared
+// memory before that phase's steps (the warm table, then the full grid),
+// the sums' weights as doubles and the exponent's mu_k as floats, every row
+// read at the same address by all threads (broadcast) in 16-byte loads, so
+// a pixel-node costs its DFMAs and the one conversion of its attenuation.
+// A phase larger than a block's shared memory is staged in chunks of rows,
+// every pass walking them in row order.  One thread solves one pixel with
+// every iteration in registers, the registers left to ptxas.
+// tools/probe_k35.py --steps measured the alternatives at the paths' shapes:
+// 2 pixels a thread, 2 or 4 lanes sharing each row, 4 or 5 blocks an SM
+// (128 or 102 registers) and weights read from the card's memory were all
+// slower.  A table row holds [mu_k (K), i0_m (M), g_mi =
+// i0_m mu_i (M K), and with "newton" h_m,ij = i0_m mu_i mu_j (M T)]; the
+// full grid for the polish, then the warm table (the log warm phase's
+// moment-compressed nodes; rounded to bf16 by the wrapper when the warm
+// phase runs in bf16).  The kernel is templated on K and on M itself at the
+// paths' shapes (M = 6 with K = 4, M = 4 with K = 2), else on a maximum M
+// of 4 or 8 (the port's MAX_BINS) with the sums of the measurements past M
+// skipped, so the per-measurement accumulators are registers indexed by
 // unrolled loops; at M = 8, K = 4 with "newton" that is 120 accumulators
 // and the kernel spills.  The closed-form 2x2, 3x3 and 4x4 adjugate solves
 // follow the JAX package's cofactor expressions with every operation
@@ -86,9 +102,13 @@
 // _solve_block's: log steps floor nu at 1e-35 and use 10 x step_max and the
 // lower clamp max(a_lo, -1); MLE steps floor nu at 1e-17 and use step_max
 // and a_lo; lm_damping scales the Hessian's diagonal by 1 + lm_damping.
+// Every sum is the fma(at, w, s) the first K35 compiled to, so the output
+// is that kernel's bit for bit (K35_PINNED_SHA1, K35_PATH_SHA1).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -355,6 +375,9 @@ bool aligned16(const void* p) {
 
 // ---- K35 ------------------------------------------------------------------
 
+// K35's threads a block
+constexpr int kThreads35 = 128;
+
 __device__ __forceinline__ float rmul(float a, float b) {
   return __fmul_rn(a, b);
 }
@@ -368,6 +391,21 @@ __device__ __forceinline__ float rsub(float a, float b) {
 template <int K>
 struct Tri {
   static constexpr int T = K * (K + 1) / 2;
+};
+
+// The sums of one pixel in shared memory's column order: nu_m at [0, MAXM),
+// g_mi at MAXM + m K + i, and with kHess h_m,t at MAXM (1 + K) + m T + t.
+// W is even, so that a row is read in 16-byte loads.
+template <int K, int MAXM, bool kHess>
+struct Cols {
+  static constexpr int G = MAXM;
+  static constexpr int H = MAXM * (1 + K);
+  static constexpr int W = H + (kHess ? MAXM * Tri<K>::T : 0);
+  static_assert(W % 2 == 0, "a row of an odd number of sums");
+  // the measurement whose sum column j holds
+  static constexpr __host__ __device__ int meas(int j) {
+    return j < G ? j : j < H ? (j - G) / K : (j - H) / Tri<K>::T;
+  }
 };
 
 // _solve_spd: normalise H (upper triangle, row order) and dF by max|H|, a
@@ -464,70 +502,78 @@ __device__ __forceinline__ void solve_spd(float* H, float* f, float* x) {
   }
 }
 
-// The energy sums at iterate a over n rows of the table: nu[m], g[m][i]
-// and, with kHess, h[m][t].  Rounded as the plain version rounds them: the
-// exponent is the K products summed in order, each operation rounded on
-// its own; in float32 steps the attenuation is the float64 exp of that
-// exponent and the sums are float64 (rounded to float32 by the caller);
-// in bf16 steps the iterate, the exponent and the attenuation are bf16
-// values.  The 4x4 Poisson-MLE step amplifies any difference in these
-// sums on the hardest rays, so the kernel keeps them to the plain
-// version's own rounding.
-template <int K, int MAXM, bool kHess, bool kBf16>
-__device__ __forceinline__ void moments_general(
-    const float* tab, int n, int row, int M, const float* a_in, double* nu,
-    double (*g)[K], double (*h)[Tri<K>::T], float clip) {
-  constexpr int T = Tri<K>::T;
-  float a[K];
+// The K exponent coefficients of one table row (mu_k, float)
+template <int K>
+__device__ __forceinline__ void load_mu(const float* mu, float (&m)[K]) {
+  if constexpr (K == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(mu);
+    m[0] = v.x, m[1] = v.y, m[2] = v.z, m[3] = v.w;
+  } else if constexpr (K == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(mu);
+    m[0] = v.x, m[1] = v.y;
+  } else {
 #pragma unroll
-  for (int k = 0; k < K; ++k) a[k] = kBf16 ? bf16r(a_in[k]) : a_in[k];
-#pragma unroll
-  for (int m = 0; m < MAXM; ++m) {
-    nu[m] = 0.0;
-#pragma unroll
-    for (int i = 0; i < K; ++i) g[m][i] = 0.0;
-    if (kHess) {
-#pragma unroll
-      for (int t = 0; t < T; ++t) h[m][t] = 0.0;
-    }
+    for (int k = 0; k < K; ++k) m[k] = mu[k];
   }
-  const int o_i0 = K, o_g = K + M, o_h = K + M + M * K;
-  for (int e = 0; e < n; ++e) {
-    const float* r = tab + row * e;
-    float L = rmul(a[0], r[0]);
+}
+
+// A pixel's attenuation at one table row, at its iterate b (already
+// rounded to bf16 in a bf16 step), rounded as the plain version rounds it:
+// the exponent is the K products summed in order, each operation rounded
+// on its own; in float32 steps the attenuation is the float64 exp of that
+// exponent; in bf16 steps the exponent and the attenuation are bf16 values.
+template <int K, bool kBf16>
+__device__ __forceinline__ double attenuation(const float (&b)[K],
+                                              const float* mu, float clip) {
+  float m[K];
+  load_mu<K>(mu, m);
+  float L = rmul(b[0], m[0]);
 #pragma unroll
-    for (int k = 1; k < K; ++k) L = radd(L, rmul(a[k], r[k]));
-    double at;
-    if (kBf16) {
-      L = bf16r(L);
-      at = bf16r(expf(fminf(fmaxf(-L, -clip), 20.0f)));
-    } else {
-      at = exp((double)fminf(fmaxf(-L, -clip), 20.0f));
-    }
+  for (int k = 1; k < K; ++k) L = radd(L, rmul(b[k], m[k]));
+  if (kBf16) {
+    L = bf16r(L);
+    return bf16r(expf(fminf(fmaxf(-L, -clip), 20.0f)));
+  }
+  return exp((double)fminf(fmaxf(-L, -clip), 20.0f));
+}
+
+// n table rows added in row order into one pixel's sums s at its iterate
+// b: the weights w (Cols::W a row, 16-byte aligned, read two at a time)
+// and mu (K a row).  Each sum is the fma(at, w, s) that nvcc made of the
+// first K35's `s += at * (double)w` (its SASS): the weights were floats,
+// so reading them as the doubles they convert to exactly keeps the bits.
+// The 4x4 Poisson-MLE step amplifies any difference in these sums on the
+// hardest rays, so the kernel keeps them to the plain version's own
+// rounding.  Without kExact, the sums of measurements M..MAXM-1 are not
+// formed.
+template <int K, int MAXM, bool kHess, bool kExact, bool kBf16>
+__device__ __forceinline__ void add_rows(
+    const double* w, const float* mu, int n, int M, const float (&b)[K],
+    double (&s)[Cols<K, MAXM, kHess>::W], float clip) {
+  using C = Cols<K, MAXM, kHess>;
+  for (int e = 0; e < n; ++e, w += C::W, mu += K) {
+    const double at = attenuation<K, kBf16>(b, mu, clip);
+    const double2* w2 = reinterpret_cast<const double2*>(w);
 #pragma unroll
-    for (int m = 0; m < MAXM; ++m) {
-      if (m < M) {
-        nu[m] += at * r[o_i0 + m];
-#pragma unroll
-        for (int i = 0; i < K; ++i) g[m][i] += at * r[o_g + m * K + i];
-        if (kHess) {
-#pragma unroll
-          for (int t = 0; t < T; ++t) h[m][t] += at * r[o_h + m * T + t];
-        }
+    for (int j = 0; j < C::W / 2; ++j) {
+      if (kExact || C::meas(2 * j) < M) {
+        const double2 v = w2[j];
+        s[2 * j] = __fma_rn(at, v.x, s[2 * j]);
+        s[2 * j + 1] = __fma_rn(at, v.y, s[2 * j + 1]);
       }
     }
   }
 }
 
-// One Newton step of _solve_block's _gn_body from the moments: the log
-// residual step (log_step) or the Poisson-MLE step (Fisher scoring, or with
-// kNewton the full Newton Hessian); then lm_damping, the solve, the trust
-// region and the clamps.
+// One Newton step of _solve_block's _gn_body from one pixel's sums s
+// (Cols' order): the log residual step (log_step) or the Poisson-MLE step
+// (Fisher scoring, or with kNewton the full Newton Hessian); then
+// lm_damping, the solve, the trust region and the clamps.
 template <int K, int MAXM, bool kNewton>
 __device__ __forceinline__ void step_general(
-    float* a, const double* nu, double (*g)[K], double (*h)[Tri<K>::T],
-    const float* y, const float* ly, int M, bool log_step, float lm,
-    float step_max, float a_lo, float a_hi) {
+    float* a, const double* s, const float* y, const float* ly, int M,
+    bool log_step, float lm, float step_max, float a_lo, float a_hi) {
+  using C = Cols<K, MAXM, kNewton>;
   constexpr int T = Tri<K>::T;
   float dF[K], H[T];
 #pragma unroll
@@ -538,12 +584,12 @@ __device__ __forceinline__ void step_general(
 #pragma unroll
     for (int m = 0; m < MAXM; ++m) {
       if (m < M) {
-        const float n = fmaxf((float)nu[m], 1e-35f);
+        const float n = fmaxf((float)s[m], 1e-35f);
         const float r =
             fminf(fmaxf(ly[m] - (float)log((double)n), -30.0f), 30.0f);
         float J[K];
 #pragma unroll
-        for (int i = 0; i < K; ++i) J[i] = (float)g[m][i] / n;
+        for (int i = 0; i < K; ++i) J[i] = (float)s[C::G + m * K + i] / n;
 #pragma unroll
         for (int i = 0; i < K; ++i) dF[i] = radd(dF[i], rmul(r, J[i]));
         int t = 0;
@@ -558,12 +604,12 @@ __device__ __forceinline__ void step_general(
 #pragma unroll
     for (int m = 0; m < MAXM; ++m) {
       if (m < M) {
-        const float n = fmaxf((float)nu[m], 1e-17f);
+        const float n = fmaxf((float)s[m], 1e-17f);
         const float r = y[m] / n - 1.0f;
         const float yv2 = y[m] / rmul(n, n);
         float gm[K];
 #pragma unroll
-        for (int i = 0; i < K; ++i) gm[i] = (float)g[m][i];
+        for (int i = 0; i < K; ++i) gm[i] = (float)s[C::G + m * K + i];
 #pragma unroll
         for (int i = 0; i < K; ++i) dF[i] = radd(dF[i], rmul(r, gm[i]));
         int t = 0;
@@ -572,8 +618,8 @@ __device__ __forceinline__ void step_general(
 #pragma unroll
           for (int j = i; j < K; ++j, ++t) {
             const float gg = rmul(gm[i], gm[j]);
-            if (kNewton)
-              H[t] = radd(H[t], rsub(rmul(r, (float)h[m][t]),
+            if constexpr (kNewton)
+              H[t] = radd(H[t], rsub(rmul(r, (float)s[C::H + m * T + t]),
                                      rmul(yv2, gg)));
             else
               H[t] = radd(H[t], rmul(yv2, gg));
@@ -616,90 +662,199 @@ struct GeneralArgs {
   float lm, a_lo, a_hi, step_max, eps_init, clip;
 };
 
-// counts [M, n_pix]; tables: the full rows, then the warm rows; scale:
-// the count scale, one float on the card; out [n_pix, K].
-template <int K, int MAXM, bool kNewton>
-__global__ void gauss_newton_general_kernel(const float* __restrict__ counts,
-                                            const float* __restrict__ tables,
-                                            const float* __restrict__ scale,
-                                            float* __restrict__ out,
-                                            GeneralArgs p) {
+// The table rows [r0, r0 + n) of ``tables`` (float64, rows of R = K + the
+// M measurements' sums: mu_k, then the sums in the order nu, g, h) into
+// shared memory at ``w``, Cols::W a row, the columns of measurements past M
+// zero.
+template <int K, int MAXM, bool kHess>
+__device__ __forceinline__ void stage_rows(double* w,
+                                           const double* __restrict__ tab,
+                                           int r0, int n, int M, int R) {
+  using C = Cols<K, MAXM, kHess>;
   constexpr int T = Tri<K>::T;
-  extern __shared__ float tab[];
-  const int M = p.M;
-  const int row = K + M * (1 + K) + (kNewton ? M * T : 0);
-  const int n_tab = row * (p.e_full + p.e_warm);
-  for (int i = threadIdx.x; i < n_tab; i += blockDim.x) tab[i] = tables[i];
-  __syncthreads();
-  const long long px = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (px >= p.n_pix) return;
-  const float* full = tab;
-  const float* warm = tab + row * p.e_full;
-  const float sc = __ldg(scale);
-  float y[MAXM], ly[MAXM];
-#pragma unroll
-  for (int m = 0; m < MAXM; ++m) {
-    y[m] = m < M ? counts[m * p.n_pix + px] / sc : 0.0f;
-    ly[m] = (float)log((double)fmaxf(y[m], 1e-35f));
+  for (int i = threadIdx.x; i < n * C::W; i += blockDim.x) {
+    const int r = i / C::W, c = i % C::W;
+    double v = 0.0;
+    if (C::meas(c) < M) {
+      const int src = c < C::G ? c
+                      : c < C::H ? M + (c - C::G)
+                                 : M * (1 + K) + C::meas(c) * T +
+                                       (c - C::H) % T;
+      v = tab[(long long)(r0 + r) * R + K + src];
+    }
+    w[i] = v;
   }
-  float a[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) a[k] = p.eps_init;
-  double nu[MAXM], g[MAXM][K], h[kNewton ? MAXM : 1][T];
-  for (int it = 0; it < p.n_warm; ++it) {
-    if (p.warm_bf16)
-      moments_general<K, MAXM, kNewton, true>(warm, p.e_warm, row, M, a, nu,
-                                              g, h, p.clip);
-    else
-      moments_general<K, MAXM, kNewton, false>(warm, p.e_warm, row, M, a, nu,
-                                               g, h, p.clip);
-    step_general<K, MAXM, kNewton>(a, nu, g, h, y, ly, M, p.warm_log != 0,
-                                   p.lm, p.step_max, p.a_lo, p.a_hi);
-  }
-  for (int it = 0; it < p.n_pol; ++it) {
-    moments_general<K, MAXM, kNewton, false>(full, p.e_full, row, M, a, nu,
-                                             g, h, p.clip);
-    step_general<K, MAXM, kNewton>(a, nu, g, h, y, ly, M, p.polish_log != 0,
-                                   p.lm, p.step_max, p.a_lo, p.a_hi);
-  }
-#pragma unroll
-  for (int k = 0; k < K; ++k) out[px * K + k] = a[k];
 }
 
-template <int K, int MAXM, bool kNewton>
-int launch_general(const float* counts, const float* tables,
-                   const float* scale, float* out, const GeneralArgs& p,
-                   cudaStream_t stream) {
+// The pixel's y and log y (normalised by the count scale) and its initial
+// iterate; a thread past the last pixel solves the last one again (its
+// lanes and barriers need it) and stores nothing.
+template <int K, int MAXM>
+__device__ __forceinline__ void load_pixel(const float* __restrict__ counts,
+                                           const float* __restrict__ scale,
+                                           long long n_pix, long long px,
+                                           int M, float eps_init,
+                                           float (&y)[MAXM],
+                                           float (&ly)[MAXM], float (&a)[K]) {
+  const float sc = __ldg(scale);
+  const long long q = px < n_pix ? px : n_pix - 1;
+#pragma unroll
+  for (int m = 0; m < MAXM; ++m) {
+    y[m] = m < M ? counts[m * n_pix + q] / sc : 0.0f;
+    ly[m] = (float)log((double)fmaxf(y[m], 1e-35f));
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) a[k] = eps_init;
+}
+
+// counts [M, n_pix]; tables: float64 rows of R = K + M (1 + K) (+ M T)
+// values, the full rows, then the warm rows; scale: the count scale, one
+// float on the card; out [n_pix, K].  Thread t of block b solves pixel
+// b kThreads35 + t.  The block stages every row's mu_k as floats once, and
+// each phase's weights as doubles, Cols::W a row, before its steps (warm,
+// then polish); ``cap`` rows fit the shared memory, and a phase of more
+// rows is staged cap rows at a time in every pass, the passes walking the
+// chunks in row order.
+template <int K, int MAXM, bool kNewton, bool kExact>
+__device__ __forceinline__ void solve_general(
+    const float* __restrict__ counts, const double* __restrict__ tables,
+    const float* __restrict__ scale, float* __restrict__ out,
+    const GeneralArgs& p, int cap) {
+  using C = Cols<K, MAXM, kNewton>;
   constexpr int T = Tri<K>::T;
-  const int row = K + p.M * (1 + K) + (kNewton ? p.M * T : 0);
-  const size_t shmem = sizeof(float) * row * (size_t)(p.e_full + p.e_warm);
-  auto kernel = gauss_newton_general_kernel<K, MAXM, kNewton>;
+  extern __shared__ double2 k35_smem[];
+  const int M = kExact ? MAXM : p.M;
+  const int R = K + M * (1 + K) + (kNewton ? M * T : 0);
+  double* w = reinterpret_cast<double*>(k35_smem);
+  float* mu = reinterpret_cast<float*>(w + (size_t)C::W * cap);
+  for (int i = threadIdx.x; i < (p.e_full + p.e_warm) * K; i += blockDim.x)
+    mu[i] = (float)tables[(long long)(i / K) * R + i % K];
+
+  const long long px = blockIdx.x * (long long)kThreads35 + threadIdx.x;
+  float y[MAXM], ly[MAXM], a[K];
+  load_pixel<K, MAXM>(counts, scale, p.n_pix, px, M, p.eps_init, y, ly, a);
+  double s[C::W];
+  // ``iters`` steps on the rows [r0, r0 + n)
+  auto phase = [&](int r0, int n, int iters, bool bf16, bool log) {
+    if (iters <= 0) return;
+    const bool once = n <= cap;
+    if (once) {
+      __syncthreads();
+      stage_rows<K, MAXM, kNewton>(w, tables, r0, n, M, R);
+      __syncthreads();
+    }
+    for (int it = 0; it < iters; ++it) {
+      float b[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) b[k] = bf16 ? bf16r(a[k]) : a[k];
+#pragma unroll
+      for (int j = 0; j < C::W; ++j) s[j] = 0.0;
+      for (int c0 = 0; c0 < n; c0 += cap) {
+        const int nc = min(cap, n - c0);
+        if (!once) {
+          __syncthreads();
+          stage_rows<K, MAXM, kNewton>(w, tables, r0 + c0, nc, M, R);
+          __syncthreads();
+        }
+        const double* wc = w + (size_t)C::W * (once ? c0 : 0);
+        if (bf16)
+          add_rows<K, MAXM, kNewton, kExact, true>(wc, mu + (r0 + c0) * K,
+                                                   nc, M, b, s, p.clip);
+        else
+          add_rows<K, MAXM, kNewton, kExact, false>(wc, mu + (r0 + c0) * K,
+                                                    nc, M, b, s, p.clip);
+      }
+      step_general<K, MAXM, kNewton>(a, s, y, ly, M, log, p.lm, p.step_max,
+                                     p.a_lo, p.a_hi);
+    }
+  };
+  phase(p.e_full, p.e_warm, p.n_warm, p.warm_bf16 != 0, p.warm_log != 0);
+  phase(0, p.e_full, p.n_pol, false, p.polish_log != 0);
+  if (px < p.n_pix) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) out[px * K + k] = a[k];
+  }
+}
+
+template <int K, int MAXM, bool kNewton, bool kExact>
+__global__ void __launch_bounds__(kThreads35) gauss_newton_general_kernel(
+    const float* __restrict__ counts, const double* __restrict__ tables,
+    const float* __restrict__ scale, float* __restrict__ out, GeneralArgs p,
+    int cap) {
+  solve_general<K, MAXM, kNewton, kExact>(counts, tables, scale, out, p,
+                                          cap);
+}
+
+// Shared memory a block may take (the opt-in maximum of the current card)
+int max_shared_per_block() {
+  int dev = 0, bytes = 48 * 1024;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+  return bytes;
+}
+
+// Launch ``kernel`` (solve_general's) with rows of ``row_bytes`` weights:
+// a phase's rows at once when they fit a block's shared memory beside
+// every row's mu_k, else as many as fit.
+template <typename Kernel>
+int launch_solve(Kernel kernel, size_t row_bytes, int K,
+                 const float* counts, const double* tables,
+                 const float* scale, float* out, const GeneralArgs& p,
+                 cudaStream_t stream) {
+  const size_t mu_bytes = sizeof(float) * K * (size_t)(p.e_full + p.e_warm);
+  const size_t limit = (size_t)max_shared_per_block();
+  if (mu_bytes + row_bytes > limit) return (int)cudaErrorInvalidValue;
+  const int cap = (int)std::min<size_t>(std::max(p.e_full, p.e_warm),
+                                        (limit - mu_bytes) / row_bytes);
+  const size_t shmem = row_bytes * cap + mu_bytes;
   if (shmem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int threads = 128;
-  const long long blocks = (p.n_pix + threads - 1) / threads;
-  kernel<<<(unsigned)blocks, threads, shmem, stream>>>(counts, tables,
-                                                       scale, out, p);
+  const long long blocks = (p.n_pix + kThreads35 - 1) / kThreads35;
+  kernel<<<(unsigned)blocks, kThreads35, shmem, stream>>>(counts, tables,
+                                                          scale, out, p, cap);
   return (int)cudaGetLastError();
 }
 
-template <int K>
-int dispatch_general(const float* counts, const float* tables,
+template <int K, int MAXM, bool kNewton, bool kExact>
+int launch_general(const float* counts, const double* tables,
+                   const float* scale, float* out, const GeneralArgs& p,
+                   cudaStream_t stream) {
+  return launch_solve(gauss_newton_general_kernel<K, MAXM, kNewton, kExact>,
+                      sizeof(double) * Cols<K, MAXM, kNewton>::W, K, counts,
+                      tables, scale, out, p, stream);
+}
+
+// K35's instantiations: exact M at the paths' shapes (K = 4 with M = 6, the
+// K-edge scans; K = 2 with M = 4, the packed PCD steps), else a maximum M
+// of 4 or 8 (with kExactM false, every shape takes a maximum M)
+template <int K, bool kExactM = true>
+int dispatch_general(const float* counts, const double* tables,
                      const float* scale, float* out, const GeneralArgs& p,
                      int newton, cudaStream_t stream) {
-  if (p.M <= 4) {
-    return newton ? launch_general<K, 4, true>(counts, tables, scale, out, p,
-                                               stream)
-                  : launch_general<K, 4, false>(counts, tables, scale, out,
-                                                p, stream);
+  if constexpr (kExactM && K == 4) {
+    if (!newton && p.M == 6)
+      return launch_general<4, 6, false, true>(counts, tables, scale, out, p,
+                                               stream);
   }
-  return newton ? launch_general<K, 8, true>(counts, tables, scale, out, p,
-                                             stream)
-                : launch_general<K, 8, false>(counts, tables, scale, out, p,
-                                              stream);
+  if constexpr (kExactM && K == 2) {
+    if (!newton && p.M == 4)
+      return launch_general<2, 4, false, true>(counts, tables, scale, out, p,
+                                               stream);
+  }
+  if (p.M <= 4) {
+    return newton ? launch_general<K, 4, true, false>(counts, tables, scale,
+                                                      out, p, stream)
+                  : launch_general<K, 4, false, false>(counts, tables, scale,
+                                                       out, p, stream);
+  }
+  return newton ? launch_general<K, 8, true, false>(counts, tables, scale,
+                                                    out, p, stream)
+                : launch_general<K, 8, false, false>(counts, tables, scale,
+                                                     out, p, stream);
 }
 
 }  // namespace
@@ -746,7 +901,8 @@ extern "C" int dexct_gauss_newton_grouped(
   return (int)cudaGetLastError();
 }
 
-// scale: a pointer to the count scale on the card
+// tables: float64, 16-byte aligned; scale: a pointer to the count scale
+// on the card
 extern "C" int dexct_gauss_newton_general(
     const void* counts, const void* tables, const void* scale, void* out,
     long long n_pix, int n_meas, int n_mats, int newton, int e_full,
@@ -755,6 +911,7 @@ extern "C" int dexct_gauss_newton_general(
     float eps_init, float clip, void* stream) {
   if (n_pix <= 0) return (int)cudaGetLastError();
   if (n_meas < n_mats || n_meas > 8) return (int)cudaErrorInvalidValue;
+  if (!aligned16(tables)) return (int)cudaErrorMisalignedAddress;
   GeneralArgs p;
   p.n_pix = n_pix;
   p.M = n_meas;
@@ -772,7 +929,7 @@ extern "C" int dexct_gauss_newton_general(
   p.eps_init = eps_init;
   p.clip = clip;
   const float* c = static_cast<const float*>(counts);
-  const float* t = static_cast<const float*>(tables);
+  const double* t = static_cast<const double*>(tables);
   const float* sc = static_cast<const float*>(scale);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

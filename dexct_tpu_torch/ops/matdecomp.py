@@ -23,8 +23,10 @@ on the device of its tensors.  CUDA tensors of the two-spectra,
 two-material log-warm Gauss-Newton solve go to the hand-written kernel K3
 (``csrc/gauss_newton.cu``, four pixels a thread over each table row, all
 iterations in registers); every other CUDA call goes to K35 (the same
-file: K3's first design, one pixel a thread, templated on K and on a
-compile-time maximum of M, :data:`MAX_BINS`).  CPU
+file: one pixel a thread, float64 sums over a float64 copy of the table
+staged in shared memory a phase's rows at a time, templated on K and on M
+at the paths' shapes, else on a compile-time maximum of M,
+:data:`MAX_BINS`).  CPU
 tensors run :func:`gauss_newton_solve_plain`, the JAX package's
 ``_solve_block`` in torch, bfloat16 warm phase included.
 
@@ -50,7 +52,7 @@ import torch
 from ..physics import xcom
 from ..physics.materials import BONE, TISSUE
 from ..utils import kernels
-from ..utils.devices import check_float32, device_of
+from ..utils.devices import check_float32, device_of, upload
 
 __all__ = [
     "gauss_newton_solve",
@@ -462,36 +464,51 @@ def _gauss_newton_cuda(counts, i0, mus, *, n_iters, eps_init, pixel_block,
 gauss_newton_solve.launches = 0
 
 
-def _gauss_newton_general(counts, i0, mus, *, n_iters, eps_init,
-                          pixel_block, step_max, a_bounds, method,
-                          lm_damping, polish_iters, warm, warm_nodes):
-    """K35: every (M, K, method, lm_damping, warm) of the solve on CUDA
-    tensors, one launch over all pixels.  The table rows are [mu_k (K),
-    i0_m (M), g_mi (M K), and with ``newton`` h_m,ij (M T)], the full grid
-    for the polish, then the warm table (rounded to bfloat16 when the warm
-    phase runs in it); one row layout serves both, since only the log warm
+def k35_arguments(counts, i0, mus, *, n_iters=30, eps_init=1e-6,
+                  step_max=5.0, a_bounds=(-20.0, 500.0), method="gn",
+                  lm_damping=0.0, polish_iters=4, warm="log", warm_nodes=32):
+    """K35's launch arguments on the device of ``counts``: ``(counts [M, P]
+    contiguous, tables, scale (0-d), P, M, K, newton, E_full, E_warm,
+    n_warm, n_pol, warm_bf16, warm_log, polish_log, lm_damping, a_lo,
+    a_hi, step_max, eps_init, clip)``, the C entry's order.  ``tables`` is
+    float64: the float32 rows [mu_k (K), i0_m (M), g_mi (M K), and with
+    ``newton`` h_m,ij (M T)], the full grid for the polish, then the warm
+    table (rounded to bfloat16 when the warm phase runs in it), each value
+    cast exactly; one row layout serves both, since only the log warm
     phase, which has no Hessian columns, takes a compressed table."""
-    del pixel_block  # one launch covers every pixel
     counts, scale, full, warm_tab, sched = _prepare(
         counts, i0, mus, n_iters, polish_iters, warm_nodes, method, warm)
     n_warm, n_pol, warm_bf16, warm_log, polish_log, newton = sched
-    dev = counts.device
-    n_meas, P = counts.shape
-    n_mats = mus.shape[0]
     counts = counts.contiguous()
     rows = [torch.cat(full, 1), torch.cat(warm_tab, 1)]
     if warm_bf16:  # the warm table as the bf16 warm phase sees it
         rows[1] = rows[1].to(torch.bfloat16).float()
-    tables = torch.cat([r.reshape(-1) for r in rows]).contiguous()
-    scale = kernels.require(scale, "scale", dev, torch.float32, ())
-    out = torch.empty((P, n_mats), dtype=torch.float32, device=dev)
+    tables = torch.cat([r.reshape(-1) for r in rows]).double()
+    scale = kernels.require(scale, "scale", counts.device, torch.float32, ())
+    return (counts, tables, scale, counts.shape[1], counts.shape[0],
+            mus.shape[0], int(newton), rows[0].shape[0], rows[1].shape[0],
+            n_warm, n_pol, int(warm_bf16), int(warm_log), int(polish_log),
+            float(lm_damping), float(a_bounds[0]), float(a_bounds[1]),
+            float(step_max), float(eps_init), _CLIP)
+
+
+def _gauss_newton_general(counts, i0, mus, *, n_iters, eps_init,
+                          pixel_block, step_max, a_bounds, method,
+                          lm_damping, polish_iters, warm, warm_nodes):
+    """K35: every (M, K, method, lm_damping, warm) of the solve on CUDA
+    tensors, one launch over all pixels, on :func:`k35_arguments`'
+    float64 table."""
+    del pixel_block  # one launch covers every pixel
+    counts, tables, scale, P, M, K, *rest = k35_arguments(
+        counts, i0, mus, n_iters=n_iters, eps_init=eps_init,
+        step_max=step_max, a_bounds=a_bounds, method=method,
+        lm_damping=lm_damping, polish_iters=polish_iters, warm=warm,
+        warm_nodes=warm_nodes)
+    dev = counts.device
+    out = torch.empty((P, K), dtype=torch.float32, device=dev)
     rc = kernels.library().dexct_gauss_newton_general(
         counts.data_ptr(), tables.data_ptr(), scale.data_ptr(),
-        out.data_ptr(), P, n_meas, n_mats, int(newton), rows[0].shape[0],
-        rows[1].shape[0], n_warm, n_pol, int(warm_bf16), int(warm_log),
-        int(polish_log), float(lm_damping), float(a_bounds[0]),
-        float(a_bounds[1]), float(step_max), float(eps_init), _CLIP,
-        kernels.stream_ptr(dev))
+        out.data_ptr(), P, M, K, *rest, kernels.stream_ptr(dev))
     kernels.check(rc, "gauss_newton_general")
     _gauss_newton_general.launches += 1
     return out
@@ -681,8 +698,8 @@ def decompose_sinograms(geometry, sino1, sino2, spec1, spec2, *, n_iters=30,
     counts = torch.stack([sino1.reshape(-1), sino2.reshape(-1)]).float()
     a = gauss_newton_solve(
         counts,
-        torch.as_tensor(i0, dtype=torch.float32, device=dev),
-        torch.as_tensor(mus, dtype=torch.float32, device=dev),
+        upload(i0, dev, torch.float32),
+        upload(mus, dev, torch.float32),
         n_iters=n_iters, pixel_block=pixel_block,
     )
     mask = air_mask(sino1, mask_thresh)
@@ -728,14 +745,14 @@ def decompose_multibin_grid(sinos, ee, i0s, basis, *, n_iters=30,
     """
     check_float32(dtype)
     dev = device_of(sinos, device)
-    sinos = torch.as_tensor(sinos, dtype=torch.float32, device=dev)
+    sinos = upload(sinos, dev, torch.float32)
     m, v, c = sinos.shape
     mus = np.stack([xcom.mixatten(b.matcomp, np.asarray(ee))
                     for b in basis])
     a = gauss_newton_solve(
         sinos.reshape(m, -1),
-        torch.as_tensor(np.asarray(i0s), dtype=torch.float32, device=dev),
-        torch.as_tensor(mus, dtype=torch.float32, device=dev),
+        upload(np.asarray(i0s), dev, torch.float32),
+        upload(mus, dev, torch.float32),
         n_iters=n_iters, pixel_block=pixel_block, method=method,
         a_bounds=a_bounds)
     mask = air_mask(sinos[0], mask_thresh)
@@ -772,9 +789,8 @@ def image_domain_decomposition(recon1_raw, recon2_raw, spec1, spec2,
         for m, mat in enumerate(basis):
             a_mat[i, m] = float(np.sum(w * mat.mass_atten(spec.E)))
     dev = device_of(recon1_raw, device)
-    a_inv = torch.as_tensor(np.linalg.inv(a_mat), dtype=torch.float32,
-                            device=dev)
-    mu1 = torch.as_tensor(recon1_raw, dtype=torch.float32, device=dev)
-    mu2 = torch.as_tensor(recon2_raw, dtype=torch.float32, device=dev)
+    a_inv = upload(np.linalg.inv(a_mat), dev, torch.float32)
+    mu1 = upload(recon1_raw, dev, torch.float32)
+    mu2 = upload(recon2_raw, dev, torch.float32)
     return (mu1 * a_inv[0, 0] + mu2 * a_inv[0, 1],
             mu1 * a_inv[1, 0] + mu2 * a_inv[1, 1])

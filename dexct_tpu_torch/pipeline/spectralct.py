@@ -43,10 +43,9 @@ from ..ops import matdecomp as md_ops
 from ..ops import spectral as sp_ops
 from ..ops.siddon import material_path_sinogram
 from ..physics import xcom
-from ..utils.devices import upload
 from ..physics.pileup import (apply_pileup_bins, bin_mean_energies,
                               bin_sum_redistribution, correct_pileup_bins)
-from ..utils.devices import check_float32, device_of
+from ..utils.devices import check_float32, device_of, upload
 
 __all__ = ["SpectralResult", "simulate_pcd_spectral",
            "simulate_pcd_spectral_cone", "PcdMeta", "pack_pcd_spectral",
@@ -122,10 +121,9 @@ def _acquire(counts, route, pileup_tau, pileup_model, correct_pileup,
 def _bin_counts(paths, phantom, spec, i0s):
     """The bins' expected counts with the bin axis first: [M, ...] (K34)."""
     dev = paths.device
-    mu_table = torch.as_tensor(phantom.materials.mu_table(spec.E),
-                               dtype=torch.float32, device=dev)
-    i0_T = torch.as_tensor(np.asarray(i0s).T, dtype=torch.float32,
-                           device=dev)
+    mu_table = upload(phantom.materials.mu_table(spec.E), dev,
+                      torch.float32)
+    i0_T = upload(np.asarray(i0s).T, dev, torch.float32)
     counts = sp_ops.counts_from_paths(paths.to(torch.float32), mu_table,
                                       i0_T)
     return torch.movedim(counts, -1, 0).contiguous()
@@ -262,8 +260,7 @@ def _pcd_arrays(arrays, ct, spec, thresholds, basis, response, pileup_tau,
                     for b in basis])
 
     def f32(x):
-        return torch.as_tensor(np.asarray(x), dtype=torch.float32,
-                               device=device)
+        return upload(np.asarray(x), device, torch.float32)
 
     arrays["i0_bins_T"] = f32(np.asarray(i0s).T)
     arrays["dec_i0"] = f32(i0s)

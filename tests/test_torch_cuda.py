@@ -2019,6 +2019,71 @@ def test_k35_makes_no_host_synchronisation(dev):
     assert matdecomp._gauss_newton_general.launches == before + 2
 
 
+@pytest.mark.parametrize("site", ["multibin_numpy", "multibin_tensor",
+                                  "sinograms", "image_domain"])
+def test_decomposition_uploads_do_not_synchronise(dev, site):
+    """``decompose_multibin_grid`` (NumPy counts, or counts on the card),
+    ``decompose_sinograms`` and ``image_domain_decomposition`` (NumPy
+    reconstructions) send their host tables and arrays to the card through
+    pinned memory: no host synchronisation."""
+    from dexct_tpu_torch.ops import matdecomp as md
+    from dexct_tpu_torch.physics import kramers_spectrum, linac_spectrum
+    from dexct_tpu_torch.physics.materials import BONE, TISSUE
+    from dexct_tpu_torch.system import FanBeamGeometry
+
+    rng = np.random.default_rng(25)
+    if site.startswith("multibin"):
+        counts, i0, _ = (x.numpy() for x in _multibin_case(
+            K35_CASES["4x2"][0], 2, n_pix=96))
+        sinos = counts.reshape(4, 8, 12)
+        if site.endswith("tensor"):
+            sinos = torch.as_tensor(sinos, device=dev)
+        ee = kramers_spectrum(140.0).E
+        call = lambda: md.decompose_multibin_grid(  # noqa: E731
+            sinos, ee, i0, (TISSUE, BONE), n_iters=12, device=dev)
+    elif site == "sinograms":
+        ct = FanBeamGeometry(N_channels=16, N_proj=8, eid=True)
+        s1, s2 = linac_spectrum(), kramers_spectrum(80.0)
+        s1.rescale_counts(ct.A_iso * 9.0 / ct.N_proj)
+        s2.rescale_counts(ct.A_iso * 1.0 / ct.N_proj)
+        _, i0, mus = md.prepare_decomposition(ct, s1, s2)
+        a = np.stack([rng.uniform(0, 30, 128), rng.uniform(0, 4, 128)], -1)
+        c = torch.as_tensor((np.exp(-a @ mus) @ i0.T).T.reshape(2, 8, 16),
+                            dtype=torch.float32, device=dev)
+        call = lambda: md.decompose_sinograms(  # noqa: E731
+            ct, c[0], c[1], s1, s2, n_iters=12)
+    else:
+        ct = FanBeamGeometry(N_channels=48, N_proj=48, eid=True)
+        r1, r2 = rng.uniform(0.1, 0.4, (2, 16, 16)).astype(np.float32)
+        call = lambda: md.image_domain_decomposition(  # noqa: E731
+            r1, r2, kramers_spectrum(80.0), kramers_spectrum(140.0), ct,
+            device=dev)
+    _no_sync(call)
+
+
+@pytest.mark.parametrize("pileup", [False, True])
+def test_simulate_pcd_spectral_does_not_synchronise(dev, pileup):
+    """The tiny spectral case (``tiny_cases.spectral("pcd")``'s scan):
+    the trace, the bins' counts (their mu table and fluences uploaded
+    through pinned memory), the pileup and its inversion, K35 and the
+    FBPs make no host synchronisation."""
+    from dexct_tpu_torch.physics import kramers_spectrum
+    from dexct_tpu_torch.physics.detector import photon_counting_response
+    from dexct_tpu_torch.physics.materials import BONE, WATER
+    from dexct_tpu_torch.pipeline import spectralct
+    from dexct_tpu_torch.system import FanBeamGeometry
+
+    ct = FanBeamGeometry(N_channels=48, N_proj=48, eid=False,
+                         detector=photon_counting_response(), gamma_fan=0.9,
+                         SID=60.0, SDD=100.0)
+    spec = kramers_spectrum(140.0)
+    spec.rescale_counts(ct.A_iso * 10.0 / ct.N_proj)
+    ph = tiny_cases._three_materials()
+    _no_sync(lambda: spectralct.simulate_pcd_spectral(
+        ct, ph, spec, [20.0, 34.0, 50.0, 70.0], (WATER, BONE), 32, 20.0,
+        0.8, n_iters=12, pileup_tau=1e-9 if pileup else 0.0, device=dev))
+
+
 # sha1 of K35's output on the cases of K35_CASES, from the build of K35
 # that took its count scale as a host float (NVIDIA H100 80GB HBM3, CUDA
 # 12.8): reading it on the card left every bit as it was
@@ -2043,6 +2108,121 @@ def test_k35_output_is_unchanged(dev, name):
     out = gauss_newton_solve(*(x.to(dev) for x in args), **kw)
     assert hashlib.sha1(out.cpu().numpy().tobytes()).hexdigest() == \
         K35_PINNED_SHA1[name]
+
+
+# sha1 of K35's output on probe_k35's cases: the K-edge pelvis's 8e5
+# counts (M 6, K 4, 60 iterations) and the packed PCD path's (M 4, K 2, 10),
+# made by the port's K1 and K34 as chip_smoke.py's phase 3 makes them; the
+# exact path's DE counts at (2, 2) with K3's schedule (K1, K2); K35_CASES'
+# 6x4 and 8x4_newton drawn at 1, 127, 129 and 4097 pixels.  Pinned from the
+# build of K35 before its float64 table (NVIDIA H100 80GB HBM3, CUDA 12.8);
+# chip_smoke.py holds the same.  The path cases also pin K1's, K2's and
+# K34's bits.
+K35_PATH_SHA1 = {
+    "kedge": "5d9567c4c6e21c9d84619fcf74c37c42e0897b54",
+    "packed": "63bd30f0758c5f552992d35ae39d94bc68c9add6",
+    "de_2x2": "1cb940185a9d72da30b707407e8e5488de0bcfbe",
+    "6x4_n1": "b0f07841de32f80a1f102c4c5510b9d745d94bad",
+    "6x4_n127": "4c24e0d743b5f35c19aa6f7af5138eaebdf8b1f0",
+    "6x4_n129": "53b7a98b09ca5d0d5e84ec82fde8d84313a4e01e",
+    "6x4_n4097": "5d667ec4b2e97712366f69422d98c8b60a650e89",
+    "8x4_newton_n1": "0ef186eb006502da6c895de60cc52e3d81ae4dc9",
+    "8x4_newton_n127": "22243dab96a366ae3efb25af4a7cbbc859724de7",
+    "8x4_newton_n129": "f7c5f088a8b5c93f07af39c4254bd56a3978c1d9",
+    "8x4_newton_n4097": "3fe0917acedcde64fbdbfe505fc84c64e72db1d2",
+}
+
+
+@pytest.fixture(scope="module")
+def k35_paths():
+    """probe_k35's three path cases on the card, made once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from dexct_tpu_torch.tools.probe_k35 import path_cases
+
+    return path_cases(torch.device("cuda"))
+
+
+def _k35_case(name, dev, k35_paths):
+    from dexct_tpu_torch.tools.probe_k35 import pin_case
+
+    return k35_paths[name] if name in k35_paths else pin_case(name, dev)
+
+
+@pytest.mark.parametrize("case", list(K35_PATH_SHA1))
+def test_k35_keeps_its_path_bits(dev, k35_paths, case):
+    """K35 gives the first K35's output bit for bit at the paths' shapes,
+    at (2, 2) and at pixel counts ragged against its blocks, in one
+    launch."""
+    from dexct_tpu_torch.ops import matdecomp
+    from dexct_tpu_torch.tools.probe_gauss_newton import output_sha1
+    from dexct_tpu_torch.tools.probe_k35 import solve
+
+    counts, i0, mus, kw = _k35_case(case, dev, k35_paths)
+    before = matdecomp._gauss_newton_general.launches
+    out = solve(matdecomp, case, counts, i0, mus, kw)
+    torch.cuda.synchronize()
+    assert matdecomp._gauss_newton_general.launches == before + 1
+    assert out.shape == (counts.shape[1], mus.shape[0])
+    assert output_sha1(out) == K35_PATH_SHA1[case]
+
+
+@pytest.mark.parametrize("case", ["kedge", "6x4_n4097", "8x4_newton_n129"])
+def test_k35_two_launches_are_equal(dev, k35_paths, case):
+    from dexct_tpu_torch.ops import matdecomp
+    from dexct_tpu_torch.tools.probe_k35 import solve
+
+    args = _k35_case(case, dev, k35_paths)
+    assert torch.equal(solve(matdecomp, case, *args),
+                       solve(matdecomp, case, *args))
+
+
+def test_k35_runs_a_table_larger_than_a_block(dev):
+    """8x4_newton on the 140-bin grid: its float64 table (269 KB) exceeds
+    a block's shared memory, and K35 still solves it (one phase's rows at
+    a time), in one launch, within its bar of the plain version."""
+    from dexct_tpu_torch.ops import matdecomp
+
+    thr, n_mats, kw = K35_CASES["8x4_newton"]
+    args = _multibin_case(thr, n_mats)
+    tables = matdecomp.k35_arguments(*args, **kw)[1]
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    assert tables.numel() * tables.element_size() > limit
+    before = matdecomp._gauss_newton_general.launches
+    got = gauss_newton_solve(*(x.to(dev) for x in args), **kw)
+    torch.cuda.synchronize()
+    assert matdecomp._gauss_newton_general.launches == before + 1
+    want = matdecomp.gauss_newton_solve_plain(*args, **kw)
+    assert bool(torch.isfinite(got).all())
+    assert tiny_cases.newton_agrees(got.cpu(), want)
+
+
+def test_k35_streams_a_phase_larger_than_a_block(dev):
+    """8x4_newton on a 280-bin grid (each bin of the 140-bin grid split in
+    two): each phase's float64 rows (269 KB) exceed a block's shared
+    memory, so K35 stages them in chunks in every pass; one launch, two
+    launches equal, within its bar of the plain version."""
+    from dexct_tpu_torch.ops import matdecomp
+
+    thr, n_mats, kw = K35_CASES["8x4_newton"]
+    counts, i0, mus = _multibin_case(thr, n_mats, n_pix=512)
+    i0 = torch.repeat_interleave(i0, 2, dim=1) / 2
+    mus = torch.repeat_interleave(mus, 2, dim=1)
+    args = (counts, i0, mus)
+    tables, _, _, M, K, newton, e_full = matdecomp.k35_arguments(
+        *args, **kw)[1:8]
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    assert newton and e_full == 280
+    assert e_full * 8 * M * (1 + K + K * (K + 1) // 2) > limit
+    before = matdecomp._gauss_newton_general.launches
+    got = gauss_newton_solve(*(x.to(dev) for x in args), **kw)
+    again = gauss_newton_solve(*(x.to(dev) for x in args), **kw)
+    torch.cuda.synchronize()
+    assert matdecomp._gauss_newton_general.launches == before + 2
+    assert torch.equal(got, again)
+    want = matdecomp.gauss_newton_solve_plain(*args, **kw)
+    assert bool(torch.isfinite(got).all())
+    assert tiny_cases.newton_agrees(got.cpu(), want)
 
 
 def test_k4_refuses_a_misaligned_table(dev):
@@ -2227,52 +2407,10 @@ def test_multibin_counts_match_plain(dev, n_bins):
         counts_from_paths(paths, mu, i0, i0)
 
 
-def _multibin_case(thresholds, n_mats, n_pix=2048, seed=43):
-    """Noiseless photon-counting counts [M, P] of random area densities
-    of K of (tissue, bone, iodine, gadolinium) under a 140 kV spectrum,
-    bins at ``thresholds`` (the JAX tests' multi-bin scene)."""
-    from dexct_tpu_torch.ops.matdecomp import pcd_bin_fluences
-    from dexct_tpu_torch.physics import kramers_spectrum, xcom
-    from dexct_tpu_torch.physics.detector import photon_counting_response
-    from dexct_tpu_torch.physics.materials import BONE, TISSUE, Material
-    from dexct_tpu_torch.system import FanBeamGeometry
-
-    basis = (TISSUE, BONE,
-             Material("iodine solution", 1.1, "H(10.0)O(85.0)I(5.0)"),
-             Material("gadolinium solution", 1.05,
-                      "H(10.5)O(88.5)Gd(1.0)"))[:n_mats]
-    ct = FanBeamGeometry(N_channels=64, N_proj=8, gamma_fan=0.8, SID=60.0,
-                         SDD=100.0, eid=False,
-                         detector=photon_counting_response())
-    spec = kramers_spectrum(140.0)
-    spec.rescale_counts(ct.A_iso * 20.0 / ct.N_proj)
-    i0s = pcd_bin_fluences(ct, spec, thresholds)
-    mus = np.stack([xcom.mixatten(m.matcomp, spec.E) for m in basis])
-    rng = np.random.default_rng(seed)
-    hi = (25.0, 5.0, 2.0, 2.0)
-    a = np.stack([rng.uniform(0.0, hi[k], n_pix) for k in range(n_mats)],
-                 -1)
-    counts = (np.exp(-a @ mus) @ i0s.T).T
-    return [torch.as_tensor(x, dtype=torch.float32)
-            for x in (counts, i0s, mus)]
-
-
-THR4 = [20.0, 34.0, 50.0, 70.0]
-THR6 = [20.0, 34.0, 45.0, 52.0, 65.0, 85.0]
-THR8 = [20.0, 30.0, 40.0, 50.0, 60.0, 70.0, 80.0, 90.0]
-# name -> (thresholds, K, solver keywords)
-K35_CASES = {
-    "4x2": (THR4, 2, dict(n_iters=50)),
-    "4x3": (THR4, 3, dict(n_iters=200, step_max=2.0)),
-    "6x4": (THR6, 4, dict(n_iters=200, step_max=2.0)),
-    "4x2_newton": (THR4, 2, dict(n_iters=30, method="newton")),
-    "4x3_lm": (THR4, 3, dict(n_iters=60, lm_damping=0.1, step_max=2.0)),
-    "4x2_mle_warm": (THR4, 2, dict(n_iters=40, warm="mle")),
-    "2x2_lm": (THR4[:1] + [60.0], 2, dict(n_iters=40, lm_damping=0.05)),
-    # M = 8 with the Hessian columns: 139 KB of tables in shared memory
-    "8x4_newton": (THR8, 4, dict(n_iters=40, method="newton",
-                                 step_max=2.0)),
-}
+# the multi-bin scene and K35's cases (name -> (thresholds, K, solver
+# keywords)) are probe_k35's, so that the probe and the pins draw the same
+from dexct_tpu_torch.tools.probe_k35 import (  # noqa: E402
+    K35_CASES, multibin_case as _multibin_case)
 
 
 @pytest.mark.parametrize("name", list(K35_CASES))

@@ -7,9 +7,9 @@ Needs one CUDA device, the CUDA toolkit (nvcc) and Triton; imports nothing
 of JAX.  Phases, each of which raises on failure:
 
 1. Device: the card's name and power limit (nvidia-smi).
-2. Build: nvcc builds kernels K1, K3-K13, K15-K27, K29-K33 and K35-K39
-   from ``dexct_tpu_torch/csrc`` (one nvcc per source, all at once); Triton
-   compiles K2, K14, K28 and K34.
+2. Build: nvcc builds kernels K1-K13, K15-K27, K29-K33 and K35-K39 from
+   the eighteen sources of ``dexct_tpu_torch/csrc`` (one nvcc per source,
+   all at once); Triton compiles K14, K28 and K34 at their first calls.
 3. Each kernel against its plain PyTorch version on the card, on the
    inputs its path gives it, with the error, both times, the kernel's
    bound (the larger of its bytes over 3.35 TB/s and its float32
@@ -33,8 +33,12 @@ of JAX.  Phases, each of which raises on failure:
    32 pelvis, 16 slices of 256^2); K12 on the helical one (720 views over
    two turns, pitch 3 cm, through a 256^2 x 48 pelvis, 19 slices); K2 and
    K3 once more on each 3-D config's own [V, R, C, M] paths and counts,
-   timed apart (K3 held to its pinned sha1 on both), and K10 on the
-   helical rays.  The stateless 3-D paths: K13
+   timed apart (both held to their pinned sha1s on both), and K10 on the
+   helical rays.  K2 is also held, bit for bit, to the sha1s pinned from
+   its Triton parent (``K2_PINNED_SHA1``): both spectra of the exact path
+   with and without the second moment, and seeded rays at 1, 127, 129 and
+   4097 rays, M in {1, 2, 6, 8, 12} and E in {1, 63, 64, 65, 100, 140,
+   200}, with its device time.  The stateless 3-D paths: K13
    on the flat-panel config, K16 (and K11 on its enlarged 258^2 x 60
    gantry grid) on the 15-degree tilted config (K16 bitwise its plain
    version, allocating nothing beyond its output, timed at four block
@@ -228,8 +232,11 @@ SPECTRA = ROOT / "input" / "spectrum"
 KERNELS = {
     "siddon_trace": ("cuda", "dexct_tpu_torch/csrc/siddon_trace.cu",
                      "dexct_tpu/ops/siddon.py:98", "max abs <= 1e-4 cm"),
-    "spectral_counts": ("triton", "dexct_tpu_torch/ops/spectral.py",
-                        "dexct_tpu/ops/spectral.py:67", "max rel <= 1e-5"),
+    "spectral_counts": ("cuda", "dexct_tpu_torch/csrc/spectral_counts.cu",
+                        "dexct_tpu/ops/spectral.py:67",
+                        "max rel <= 1e-5; bitwise the Triton parent's "
+                        "output on its pinned cases (sha1); two launches "
+                        "bitwise equal"),
     "gauss_newton": ("cuda", "dexct_tpu_torch/csrc/gauss_newton.cu",
                      "dexct_tpu/ops/matdecomp.py:333",
                      "max |d| / max(|a|, 1) <= 1e-4"),
@@ -930,9 +937,16 @@ def kernel_phase(arrays, meta, records):
         counts.append(c)
         k2_bytes += nbytes(paths, mu, i0, c)
         k2_ops += c.numel() * mu.shape[1] * (2 * meta.n_materials + 3)
+    pinned, twice, k2_dev = k2_pinned_phase(spectral, paths, a)
+    if not (pinned and twice):
+        fail(f"K2 on its pinned cases: pinned sha1 {pinned}, two launches "
+             f"equal {twice}")
     report(records, "spectral_counts", max(errs), ms_sum, pms_sum,
            max(rels) <= 1e-5, (k2_bytes, k2_ops),
-           extra=f" (max rel {max(rels):.3g})")
+           extra=f" (max rel {max(rels):.3g}; the exact path with and "
+                 f"without i2 and the seeded cases: pinned sha1 {pinned}, "
+                 f"two launches bitwise equal {twice}; device, CUDA graph of "
+                 f"20 calls, both spectra: {k2_dev:.4f} ms)")
 
     # K3: all 8e5 pixels, 50 iterations
     flat = torch.stack([counts[0].reshape(-1), counts[1].reshape(-1)])
@@ -983,6 +997,81 @@ def kernel_phase(arrays, meta, records):
                  f"launches bitwise equal {twice}; device, CUDA graph of 20 "
                  f"calls: K = 4 {k4_dev['k4']:.4f} ms, K = 1 "
                  f"{k4_dev['k1']:.4f} ms)")
+
+
+# sha1 of K2's output (the counts, then the second moment where there is
+# one) on probe_k2's cases: both spectra of the exact path's 8e5 rays (K1),
+# the cone config's 1.47M and the helical config's 2.95M (K10), with and
+# without i2; seeded rays at 1, 127, 129 and 4097 rays, M in {1, 2, 6, 8,
+# 12}, E in {1, 63, 64, 65, 100, 140, 200}, and rays past both clamps and
+# into float32's subnormal exps.  Pinned from K2's Triton parent, the first
+# K2 (NVIDIA H100 80GB HBM3, CUDA 12.8, Triton 3.6.0);
+# tests/test_torch_cuda.py holds the same
+K2_PINNED_SHA1 = {
+    "exact_s1": "8ce7dbe69c7942c92d1803692a7897eef1cf33a4",
+    "exact_s1_i2": "8be99adc386b7e1b197ec7a5067186ac91f66f20",
+    "exact_s2": "b5aa23477c5716442a835c0a163c4a66529b8f20",
+    "exact_s2_i2": "5cb3a14065b4b56054aaeabde5addd982e2c5b4c",
+    "cone_s1": "a34521c0e429547ed34a2358ffc991922c212809",
+    "cone_s1_i2": "dcd8a878ad76ddbbd73f136829dca34461c1eb51",
+    "cone_s2": "cecc9d7eb0f50436310b48d7fa2ac5ce96a70a32",
+    "cone_s2_i2": "6667b90163e92954214d49c2a6e1b98e2b179e39",
+    "helical_s1": "f153c5f68f2cdc4ffc1547d4cc4be0fa23cc0d6c",
+    "helical_s1_i2": "bc010dac9030878e83bebbd538a2ef80fa9b568b",
+    "helical_s2": "d0da4ab54e33a7ceed9a1765cc73d83f6234b97a",
+    "helical_s2_i2": "10868c08e19567a4ed05d7794bb0503ae375c081",
+    "r4097_m6_e1_i2": "0cb50dd3746bb27e3a96edc20be321993f130e83",
+    "r4097_m6_e63_i2": "88c84e71ec4735ec311a6295662fa199112ab048",
+    "r4097_m6_e64_i2": "11e9e272da52fc049940e2d838eec524c53abc4d",
+    "r4097_m6_e65_i2": "91c410296577e5df87dea0b0032712e9c8531e75",
+    "r4097_m6_e100_i2": "e758481ee95077b36c6d5e8d9df94b5fc387d852",
+    "r4097_m6_e140_i2": "6f74b79964d6464ab1516e2f88a3925af0c70513",
+    "r4097_m6_e200_i2": "90cbd09ff2ad9b1eaa2873f5f8be81ccbb2b68ce",
+    "r129_m1_e140": "d096aa71aaa0b8fcdf2e74d1a09796de8da24575",
+    "r129_m2_e140": "d58e3c223ad0a532a60ee94997174db46a663353",
+    "r129_m8_e140": "834e9965c84b21b6376c32144dd02a7d34960ac8",
+    "r129_m12_e100_i2": "2e4e0e10e9a7c6b39ed950bd5c98d60dff4daff3",
+    "r1_m2_e65": "db7551cac988ee24cf2e5e557e56ccc1ff34cdb2",
+    "r1_m2_e65_i2": "0772430b6fed1214624463076df15b9012adba7f",
+    "r127_m2_e65": "71c73ff433476d6cc19e7fb995d74a8b0cbd8a2b",
+    "r127_m2_e65_i2": "fe5f9bf2904078adb718cf4d37b9723401c8e823",
+    "r129_m2_e65": "1d9ae1f75f3b0e566532961cbfc26d736d515ac0",
+    "r129_m2_e65_i2": "b7d51942dd0ed3c7c58cb6ea18d5990c899b9395",
+    "r4097_m8_e200": "a83b8994232a2c08c0c759bbf363c0514fadfbc5",
+    "clamp_r4097_m6_e140_i2": "5019049e7e71ea6160d8f8a943a13f7ec9edc708",
+}
+
+
+def k2_pinned_phase(spectral, paths, a):
+    """K2 on the exact path's paths (both spectra, with and without the
+    pack's second moment) and on the seeded cases: whether every output is
+    its pinned sha1, whether two launches are equal, and the device time
+    of both spectra (CUDA graph)."""
+    import torch
+
+    from dexct_tpu_torch.tools.probe_k2 import (SYNTH_CASES, counts,
+                                                output_sha1, pin_case)
+
+    pinned = twice = True
+    for s in ("1", "2"):
+        mu, i0, i2 = a["mu_t" + s], a["i0_" + s], a["i2_" + s]
+        for key, second in ((f"exact_s{s}", None), (f"exact_s{s}_i2", i2)):
+            out = counts(spectral, paths, mu, i0, second)
+            pinned &= output_sha1(out) == K2_PINNED_SHA1[key]
+            again = counts(spectral, paths, mu, i0, second)
+            if second is None:
+                out, again = (out,), (again,)
+            twice &= all(bool(torch.equal(x, y))
+                         for x, y in zip(out, again))
+    for case in SYNTH_CASES:
+        out = counts(spectral, *pin_case(case, torch.device("cuda")))
+        pinned &= output_sha1(out) == K2_PINNED_SHA1[case]
+
+    def both():
+        for s in ("1", "2"):
+            spectral.counts_from_paths(paths, a["mu_t" + s], a["i0_" + s])
+
+    return pinned, twice, graph_ms(both)
 
 
 # sha1 of K3's output on probe_gauss_newton's cases (the exact path's 8e5
@@ -1312,8 +1401,17 @@ def check_counts_and_gn(label, paths, a, meta, pixel_block):
         ms, pms = ms + k_ms, pms + p_ms
         counts.append(c)
     n_rays = paths.numel() // paths.shape[-1]
+    pinned = ""
+    if f"{label}_s1" in K2_PINNED_SHA1:
+        from dexct_tpu_torch.tools.probe_k2 import output_sha1
+
+        for s, c in zip((1, 2), counts):
+            if output_sha1(c) != K2_PINNED_SHA1[f"{label}_s{s}"]:
+                fail(f"spectral_counts on the {label} paths, spectrum {s}, "
+                     "is not its pinned sha1")
+        pinned = ", its pinned sha1s"
     print(f"  spectral_counts on the {label} paths ({n_rays} rays): max rel"
-          f" {max(rels):.3g} [max rel <= 1e-5]  kernel="
+          f" {max(rels):.3g} [max rel <= 1e-5{pinned}]  kernel="
           f"{ms:.4f} ms  plain={pms:.4f} ms")
     if max(rels) > 1e-5:
         fail(f"spectral_counts disagrees with its plain version on the "
@@ -6193,21 +6291,15 @@ def main():
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
 
     # 2. build
-    from dexct_tpu_torch.ops import spectral
     from dexct_tpu_torch.utils import kernels
 
     t0 = time.time()
     kernels.build()
     kernels.library()
     t1 = time.time()
+    print(f"build: nvcc K1-K13, K15-K27, K29-K33, K35-K39 "
+          f"({len(kernels.SOURCES)} sources) {t1 - t0:.1f} s")
     dev = torch.device("cuda")
-    spectral.counts_from_paths(torch.zeros((1, 1), device=dev),
-                               torch.zeros((1, 1), device=dev),
-                               torch.zeros(1, device=dev))
-    torch.cuda.synchronize()
-    t2 = time.time()
-    print(f"build: nvcc K1, K3-K13, K15-K27, K29-K33, K35-K39 "
-          f"{t1 - t0:.1f} s, triton K2 {t2 - t1:.1f} s")
 
     # 3. kernels against their plain versions at the paths' shapes
     from dexct_tpu_torch.pipeline.cone import pack_cone_dect

@@ -32,7 +32,7 @@ import torch
 
 from ..physics import xcom
 from ..physics.materials import Material
-from ..utils.devices import device_of
+from ..utils.devices import device_of, upload
 from . import matdecomp as md_ops
 from . import spectral as sp_ops
 
@@ -159,19 +159,17 @@ def decompose_sinograms_bowtie(geometry, sino1, sino2, spec1, spec2,
     i0_g = i0_base[None] * t_g[:, None, :]  # [G, 2, E']
 
     dev = device_of(sino1, device)
-    s1 = torch.as_tensor(sino1, dtype=torch.float32, device=dev)
-    s2 = torch.as_tensor(sino2, dtype=torch.float32, device=dev)
+    s1 = upload(sino1, dev, torch.float32)
+    s2 = upload(sino2, dev, torch.float32)
     V, C = s1.shape
-    group = torch.as_tensor(gidx, dtype=torch.int64,
-                            device=dev).expand(V, C).reshape(-1)
+    group = upload(gidx, dev, torch.int64).expand(V, C).reshape(-1)
     a = md_ops.gauss_newton_solve_grouped(
         torch.stack([s1.reshape(-1), s2.reshape(-1)]), group,
-        torch.as_tensor(i0_g, dtype=torch.float32, device=dev),
-        torch.as_tensor(mus, dtype=torch.float32, device=dev),
+        upload(i0_g, dev, torch.float32), upload(mus, dev, torch.float32),
         n_iters=n_iters, pixel_block=pixel_block)
 
-    air1 = torch.as_tensor(bowtie_fluence(spec1, geometry, bowtie).sum(-1),
-                           dtype=torch.float32, device=dev)  # [C]
+    air1 = upload(bowtie_fluence(spec1, geometry, bowtie).sum(-1), dev,
+                  torch.float32)  # [C]
     mask = s1 >= mask_thresh * air1[None, :]
     zero = torch.zeros((), dtype=a.dtype, device=dev)
     mat1 = torch.where(mask, zero, a[:, 0].reshape(V, C))

@@ -168,7 +168,15 @@ def trace_paths_3d_plain(labels, src, dirs, dx, dy, dz, *, n_materials):
 
 def labels_u8(labels, device):
     """A label volume as the contiguous uint8 tensor the kernel reads,
-    after checking that every label fits."""
+    after checking that every label fits.  Host labels are checked and
+    converted on the host, then go up through :func:`upload`."""
+    if not torch.is_tensor(labels):
+        lab = np.asarray(labels)
+        if lab.dtype != np.uint8:
+            if lab.size and (int(lab.min()) < 0 or int(lab.max()) > 255):
+                raise ValueError("material labels must lie in 0..255")
+            lab = lab.astype(np.uint8)
+        return upload(np.ascontiguousarray(lab), device)
     lab = torch.as_tensor(labels, device=device)
     if lab.dtype != torch.uint8:
         if lab.numel() and (int(lab.min()) < 0 or int(lab.max()) > 255):
@@ -247,9 +255,7 @@ def _disc_host(n_matrix, fov):
 
 def _disc(n_matrix, fov, device):
     X, Y, sel = _disc_host(int(n_matrix), float(fov))
-    return (torch.as_tensor(X, device=device),
-            torch.as_tensor(Y, device=device),
-            torch.as_tensor(sel, device=device))
+    return tuple(upload(t, device) for t in (X, Y, sel))
 
 
 def _inplane(X, Y, beta, sid, dgamma, C):
@@ -1285,10 +1291,8 @@ def _fdk_filter(sino_log, weights, ct, ramp, window):
     dev = sino_log.device
     C = sino_log.shape[-1]
     H, m = filter_frequency_response(C, ct.dgamma, ramp, window, "fan")
-    f32 = dict(dtype=torch.float32, device=dev)
-    return filter_views(sino_log.to(torch.float32),
-                        torch.as_tensor(weights, **f32),
-                        torch.as_tensor(H, **f32), m, ct.dgamma).contiguous()
+    return filter_views(sino_log.to(torch.float32), _f32(weights, dev),
+                        _f32(H, dev), m, ct.dgamma).contiguous()
 
 
 def _fdk_weights(ct):
@@ -1320,7 +1324,9 @@ def _stack(sino_log, name="sino_log"):
 
 
 def _f32(x, device):
-    return torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device)
+    """Host data ``x`` as float32 on ``device``, through :func:`upload`
+    (no synchronisation when ``device`` is the card)."""
+    return upload(np.asarray(x), device, torch.float32)
 
 
 def fdk_reconstruct(sino_log, geometry, n_matrix, fov, ramp, *, nz_out=None,

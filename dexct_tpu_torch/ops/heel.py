@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..physics.materials import Material
-from ..utils.devices import device_of
+from ..utils.devices import device_of, upload
 from . import matdecomp as md_ops
 from . import spectral as sp_ops
 
@@ -103,8 +103,7 @@ def counts_from_paths_heel(paths, mu_table, i0_rows, i2_rows=None, *,
                          f"{tuple(paths.shape)}")
 
     def tab(x):
-        return None if x is None else torch.as_tensor(
-            x, dtype=torch.float32, device=dev)
+        return None if x is None else upload(x, dev, torch.float32)
 
     t0 = tab(i0_rows)
     if t0.shape[0] != paths.shape[1]:
@@ -130,12 +129,11 @@ def cone_sinogram_heel(phantom, geometry, spectrum, heel, *, device,
         return cone_sinogram(phantom, geometry, spectrum, device=device)
     del view_block
     paths = cone_material_paths(phantom, geometry, device=device)
-    mu_t = torch.as_tensor(phantom.materials.mu_table(spectrum.E),
-                           dtype=torch.float32, device=device)
+    mu_t = upload(phantom.materials.mu_table(spectrum.E), device,
+                  torch.float32)
     i0_r = heel_fluence(spectrum, geometry, heel)  # [R, E]
     counts = counts_from_paths_heel(paths, mu_t, i0_r)
-    air_r = torch.as_tensor(i0_r.sum(-1), dtype=torch.float32,
-                            device=device)
+    air_r = upload(i0_r.sum(-1), device, torch.float32)
     return counts, sp_ops.log_sinogram(counts, air_r[None, :, None])
 
 
@@ -161,19 +159,18 @@ def decompose_cone_sinograms_heel(geometry, sino1, sino2, spec1, spec2,
     i0_r = i0_base[None] * tr[:, None, :]  # [R, 2, E']
 
     dev = device_of(sino1, device)
-    s1 = torch.as_tensor(sino1, dtype=torch.float32, device=dev)
-    s2 = torch.as_tensor(sino2, dtype=torch.float32, device=dev)
+    s1 = upload(sino1, dev, torch.float32)
+    s2 = upload(sino2, dev, torch.float32)
     V, R, C = s1.shape
     group = torch.arange(R, device=dev)[None, :, None].expand(V, R, C)
     a = md_ops.gauss_newton_solve_grouped(
         torch.stack([s1.reshape(-1), s2.reshape(-1)]), group.reshape(-1),
-        torch.as_tensor(i0_r, dtype=torch.float32, device=dev),
-        torch.as_tensor(mus, dtype=torch.float32, device=dev),
+        upload(i0_r, dev, torch.float32), upload(mus, dev, torch.float32),
         n_iters=n_iters, pixel_block=pixel_block)
 
     air1 = heel_fluence(spec1, geometry, heel).sum(-1)  # [R]
-    mask = s1 >= mask_thresh * torch.as_tensor(
-        air1, dtype=torch.float32, device=dev)[None, :, None]
+    mask = s1 >= mask_thresh * upload(air1, dev,
+                                      torch.float32)[None, :, None]
     zero = torch.zeros((), dtype=a.dtype, device=dev)
     mat1 = torch.where(mask, zero, a[:, 0].reshape(V, R, C))
     mat2 = torch.where(mask, zero, a[:, 1].reshape(V, R, C))

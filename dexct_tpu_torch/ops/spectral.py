@@ -5,9 +5,10 @@ Port of :mod:`dexct_tpu.ops.spectral`:
     counts(ray) = sum_E i0_eff(E) exp(-clip(sum_m paths_m mu_m(E)))
 
 :func:`counts_from_paths` dispatches on the device of its tensors: CUDA
-tensors go to the hand-written Triton kernel K2 (``_counts_kernel``), CPU
-tensors to :func:`counts_from_paths_plain`, the JAX package's two
-contractions in torch.
+tensors go to the hand-written CUDA C++ kernel K2
+(``csrc/spectral_counts.cu``), CPU tensors to
+:func:`counts_from_paths_plain`, the JAX package's two contractions in
+torch.
 
 K2 replaces the TPU program ``dexct_tpu/ops/spectral.py:counts_from_paths``
 (two MXU matmuls, ``[R, M] @ [M, E]`` then ``exp(-L) @ i0``).  On the card
@@ -15,12 +16,15 @@ that form writes and re-reads an ``[R, E]`` float32 array (8e5 x 140 x 4 B
 = 450 MB per spectrum at the reference protocol) and M = 6 is far too thin
 for a tensor-core product.  What bounds the fused kernel is the exp per
 (ray, energy) and the M FMAs that form its argument; the bytes moved are
-only the paths in and one float out per ray.  Design: a block owns
-BLOCK_R rays and loops over E in BLOCK_E chunks; per chunk it forms
-``L = sum_m paths_m mu_m(E)`` with M FMAs in registers, applies
-``exp(clip(-L, -700, 2))`` and reduces ``* i0(E)`` over the chunk, so
-``[R, E]`` never reaches device memory.  An optional second fluence table
-(the compound-noise second moment ``i2``) shares the same exp pass.
+only the paths in and one float out per ray.  Design: each thread owns a
+few rays, keeps their paths in registers and walks E in 64-energy chunks
+whose table (mu, i0, i2) the block stages in shared memory; per energy it
+forms ``L = sum_m paths_m mu_m(E)`` with M FMAs, applies
+``exp(clip(-L, -700, 2))`` and adds ``* i0(E)`` into the chunk's sum in
+the order of the first K2 (a Triton kernel whose output the paths' pinned
+bits come from; the order is spelled out in the source), so ``[R, E]``
+never reaches device memory.  An optional second fluence table (the
+compound-noise second moment ``i2``) shares the same exp pass.
 
 K28 (``_table_counts_kernel``, :func:`counts_from_table`) is the same fused
 pass with the fluence read from a table of rows, one row per ray: row
@@ -42,13 +46,12 @@ detector's M threshold bins).  It replaces the TPU program
 pipelines' ``[E, M]`` table (``dexct_tpu/pipeline/spectralct.py``), an
 ``[R, E] x [E, M]`` MXU product after the exp.  What bounds it is K2's
 exp per (ray, energy) plus M FMAs for the bin sums; the bytes are the
-paths in and M floats out per ray.  Design: one exp per (ray, energy) in
-a ``[BLOCK_R, BLOCK_E]`` tile, then the tile times the ``[BLOCK_E, M]``
-fluence block (M padded to 16) as a ``tl.dot`` in IEEE float32 into a
-``[BLOCK_R, M]`` accumulator in registers.  (A broadcast product summed
-over the energies took 10.2 ms at 6 bins on the H100, the dot 0.31 ms;
-PERF.md.)  K2 stays as it is (its output is pinned bit for bit); K34 is its
-own function.
+paths in and M floats out per ray.  Design (Triton): one exp per (ray,
+energy) in a ``[BLOCK_R, BLOCK_E]`` tile, then the tile times the
+``[BLOCK_E, M]`` fluence block (M padded to 16) as a ``tl.dot`` in IEEE
+float32 into a ``[BLOCK_R, M]`` accumulator in registers.  (A broadcast
+product summed over the energies took 10.2 ms at 6 bins on the H100, the
+dot 0.31 ms; PERF.md.)  K34 is its own function.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import kernels
 from ..utils.devices import _scalar, check_float32, upload
 
 __all__ = [
@@ -140,47 +144,11 @@ def counts_from_table_plain(paths, mu_table, table, *, stride=1):
 
 
 @functools.lru_cache(maxsize=1)
-def _counts_kernel():
-    """Compile-on-first-use Triton kernel (``triton`` is imported here, not
-    at module import: a CPU-only installation has no triton)."""
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def counts_kernel(paths_ptr, mu_ptr, i0_ptr, i2_ptr, out_ptr, var_ptr,
-                      R, E, M: tl.constexpr, HAS_I2: tl.constexpr,
-                      BLOCK_R: tl.constexpr, BLOCK_E: tl.constexpr):
-        pid = tl.program_id(0)
-        rows = pid * BLOCK_R + tl.arange(0, BLOCK_R)
-        rmask = rows < R
-        rows64 = rows.to(tl.int64)
-        acc = tl.zeros([BLOCK_R], dtype=tl.float32)
-        acc2 = tl.zeros([BLOCK_R], dtype=tl.float32)
-        for e0 in range(0, E, BLOCK_E):
-            cols = e0 + tl.arange(0, BLOCK_E)
-            emask = cols < E
-            L = tl.zeros([BLOCK_R, BLOCK_E], dtype=tl.float32)
-            for m in tl.static_range(M):
-                p = tl.load(paths_ptr + rows64 * M + m, mask=rmask, other=0.0)
-                mu = tl.load(mu_ptr + m * E + cols, mask=emask, other=0.0)
-                L += p[:, None] * mu[None, :]
-            att = tl.exp(tl.minimum(tl.maximum(-L, -700.0), 2.0))
-            i0 = tl.load(i0_ptr + cols, mask=emask, other=0.0)
-            acc += tl.sum(att * i0[None, :], axis=1)
-            if HAS_I2:
-                i2 = tl.load(i2_ptr + cols, mask=emask, other=0.0)
-                acc2 += tl.sum(att * i2[None, :], axis=1)
-        tl.store(out_ptr + rows64, acc, mask=rmask)
-        if HAS_I2:
-            tl.store(var_ptr + rows64, acc2, mask=rmask)
-
-    return counts_kernel
-
-
-@functools.lru_cache(maxsize=1)
 def _table_counts_kernel():
-    """K28, compiled on first use like K2: K2's fused pass with the
-    fluence of each ray gathered from its row of a table."""
+    """K28, a Triton kernel compiled on first use (``triton`` is imported
+    here, not at module import: a CPU-only installation has no triton):
+    K2's fused pass with the fluence of each ray gathered from its row of
+    a table."""
     import triton
     import triton.language as tl
 
@@ -221,7 +189,7 @@ def _table_counts_kernel():
 
 @functools.lru_cache(maxsize=1)
 def _bins_counts_kernel():
-    """K34, compiled on first use like K2: K2's fused pass with M fluence
+    """K34, compiled on first use like K28: K2's fused pass with M fluence
     columns accumulated side by side."""
     import triton
     import triton.language as tl
@@ -256,8 +224,6 @@ def _bins_counts_kernel():
     return bins_counts_kernel
 
 
-_BLOCK_R = 128
-_BLOCK_E = 64
 # K34's tiles (tuned on the H100 at 8e5 rays, 8 materials, 140 energies
 # and 4 or 6 bins); the bins pad to tl.dot's least width, 16
 _B_BLOCK_R = 128
@@ -274,31 +240,36 @@ _T_WARPS = 4
 
 def _counts_cuda(paths, mu_table, i0_eff, i2_eff):
     dev = paths.device
+    f32 = torch.float32
     m = paths.shape[-1]
-    p2 = paths.reshape(-1, m).to(torch.float32).contiguous()
-    mu = mu_table.to(device=dev, dtype=torch.float32).contiguous()
+    p2 = kernels.require(paths.reshape(-1, m).to(f32).contiguous(), "paths",
+                         dev, f32)
+    mu = kernels.require(mu_table.to(device=dev, dtype=f32).contiguous(),
+                         "mu_table", dev, f32)
     e = mu.shape[1]
     if mu.shape[0] != m:
         raise ValueError(f"mu_table has {mu.shape[0]} materials, paths {m}")
-    i0 = i0_eff.to(device=dev, dtype=torch.float32).contiguous()
+    i0 = i0_eff.to(device=dev, dtype=f32).contiguous()
     if i0.shape != (e,):
         raise ValueError(f"i0_eff must have shape ({e},), got "
                          f"{tuple(i0.shape)}")
+    i0 = kernels.require(i0, "i0_eff", dev, f32)
     r = p2.shape[0]
-    out = torch.empty(r, dtype=torch.float32, device=dev)
+    out = torch.empty(r, dtype=f32, device=dev)
     has_i2 = i2_eff is not None
+    i2 = var = None
     if has_i2:
-        i2 = i2_eff.to(device=dev, dtype=torch.float32).contiguous()
+        i2 = i2_eff.to(device=dev, dtype=f32).contiguous()
         if i2.shape != (e,):
             raise ValueError("i2_eff must match i0_eff's shape")
+        i2 = kernels.require(i2, "i2_eff", dev, f32)
         var = torch.empty_like(out)
-    else:
-        i2, var = i0, out  # unused by the kernel
-    grid = (max(-(-r // _BLOCK_R), 1),)
-    with torch.cuda.device(dev):
-        _counts_kernel()[grid](p2, mu, i0, i2, out, var, r, e, M=m,
-                               HAS_I2=has_i2, BLOCK_R=_BLOCK_R,
-                               BLOCK_E=_BLOCK_E, num_warps=4)
+    rc = kernels.library().dexct_spectral_counts(
+        p2.data_ptr(), mu.data_ptr(), i0.data_ptr(),
+        i2.data_ptr() if has_i2 else None, out.data_ptr(),
+        var.data_ptr() if has_i2 else None, r, m, e,
+        kernels.stream_ptr(dev))
+    kernels.check(rc, "spectral_counts")
     counts_from_paths.launches += 1
     shape = paths.shape[:-1]
     if has_i2:

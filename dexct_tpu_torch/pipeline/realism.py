@@ -84,8 +84,8 @@ def stage_gains(gains, air, n_cal_views=256):
         air_t * g.expand(int(n_cal_views), g.shape[-1]), air_t)
 
     return Stage("gains",
-                 lambda c: apply_channel_gains(c, g.to(c.device)),
-                 lambda c: c / g_hat.to(c.device))
+                 lambda c: apply_channel_gains(c, upload(g, c.device)),
+                 lambda c: c / upload(g_hat, c.device))
 
 
 def stage_scatter(air, kernel, *, spr=0.2, grid_p=0.95, grid_s=0.2,
@@ -193,8 +193,8 @@ def simulate_dect_realistic(ct, phantom, spec1, spec2, N_matrix, FOV,
         from ..ops.bowtie import bowtie_fluence, bowtie_second_moment
     out_raw, out_log = [], []
     for spec, stages in ((spec1, stages1), (spec2, stages2)):
-        mu_t = torch.as_tensor(phantom.materials.mu_table(spec.E),
-                               dtype=torch.float32, device=dev)
+        mu_t = upload(phantom.materials.mu_table(spec.E), dev,
+                      torch.float32)
         if bowtie is not None:
             i0_h = bowtie_fluence(spec, ct, bowtie)
             air = as_float(i0_h.sum(-1), dev)

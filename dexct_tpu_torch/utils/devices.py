@@ -23,11 +23,13 @@ def device_of(x, device):
 def as_float(x, device):
     """``x`` as a tensor on ``device``: a floating tensor keeps its dtype;
     an integer tensor and anything else (NumPy arrays, lists, scalars)
-    become float32, the JAX package's working type."""
+    become float32, the JAX package's working type.  Host data bound for
+    the card goes through :func:`upload` (pinned memory, an asynchronous
+    copy: no synchronisation)."""
     if torch.is_tensor(x):
         x = x.to(device)
         return x if x.is_floating_point() else x.to(torch.float32)
-    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+    return upload(np.asarray(x, np.float32), device)
 
 
 def _scalar(v, like):

@@ -35,7 +35,8 @@ SOURCES = ("siddon_trace.cu", "gauss_newton.cu", "fan_backproject.cu",
            "analytic_chords.cu", "siddon_trace_3d.cu", "cone_backproject.cu",
            "trilinear_sample.cu", "siddon_trace_stack.cu",
            "siddon_project_3d.cu", "pi_backproject.cu", "dose.cu",
-           "scatter.cu", "afterglow.cu", "gather_probe.cu")
+           "scatter.cu", "afterglow.cu", "gather_probe.cu",
+           "spectral_counts.cu")
 # headers the sources include (hashed with them, compiled through them)
 HEADERS = ("siddon_walk.cuh", "siddon_walk_3d.cuh", "td_window.cuh",
            "scatter_march.cuh")
@@ -102,6 +103,8 @@ _SIGNATURES = {
     "dexct_resample_to_fan_adjoint": (_P, _P, _P, _P, _P, _L, _I, _P),
     # tab, labels, src, dirs, out, n_rays, S, n_materials, stream
     "dexct_analytic_chords": (_P, _P, _P, _P, _P, _L, _I, _I, _P),
+    # paths, mu, i0, i2 (null: none), out, var, n_rays, n_m, n_e, stream
+    "dexct_spectral_counts": (_P,) * 6 + (_L, _I, _I, _P),
     # labels, src, dirs, out, n_rays, nx, ny, nz, n_out, x0, y0, z0, x1,
     # y1, z1, dx, dy, dz, eps, n_steps, stream
     "dexct_siddon_trace_3d": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _F, _F,

@@ -2990,3 +2990,220 @@ def test_sweeps_cuda_match_cpu(dev, kind):
     for name, w in want.items():
         err = float((got[name] - w).abs().max())
         assert err <= tiny_cases.SWEEP_TOL[name], name
+
+
+# ---------------------------------------------------------------------------
+# K2 in CUDA C++, bit for bit its Triton parent; the counts' host uploads
+# ---------------------------------------------------------------------------
+
+# sha1 of K2's output (the counts, then the second moment where there is
+# one) on probe_k2's cases: both spectra of the exact path's 8e5 rays (K1),
+# the cone config's 1.47M and the helical config's 2.95M (K10), with and
+# without i2; seeded rays at 1, 127, 129 and 4097 rays, M in {1, 2, 6, 8,
+# 12}, E in {1, 63, 64, 65, 100, 140, 200}, and rays past both clamps and
+# into float32's subnormal exps.  Pinned from K2's Triton parent, the first
+# K2 (NVIDIA H100 80GB HBM3, CUDA 12.8, Triton 3.6.0); chip_smoke.py holds
+# the same.
+K2_PINNED_SHA1 = {
+    "exact_s1": "8ce7dbe69c7942c92d1803692a7897eef1cf33a4",
+    "exact_s1_i2": "8be99adc386b7e1b197ec7a5067186ac91f66f20",
+    "exact_s2": "b5aa23477c5716442a835c0a163c4a66529b8f20",
+    "exact_s2_i2": "5cb3a14065b4b56054aaeabde5addd982e2c5b4c",
+    "cone_s1": "a34521c0e429547ed34a2358ffc991922c212809",
+    "cone_s1_i2": "dcd8a878ad76ddbbd73f136829dca34461c1eb51",
+    "cone_s2": "cecc9d7eb0f50436310b48d7fa2ac5ce96a70a32",
+    "cone_s2_i2": "6667b90163e92954214d49c2a6e1b98e2b179e39",
+    "helical_s1": "f153c5f68f2cdc4ffc1547d4cc4be0fa23cc0d6c",
+    "helical_s1_i2": "bc010dac9030878e83bebbd538a2ef80fa9b568b",
+    "helical_s2": "d0da4ab54e33a7ceed9a1765cc73d83f6234b97a",
+    "helical_s2_i2": "10868c08e19567a4ed05d7794bb0503ae375c081",
+    "r4097_m6_e1_i2": "0cb50dd3746bb27e3a96edc20be321993f130e83",
+    "r4097_m6_e63_i2": "88c84e71ec4735ec311a6295662fa199112ab048",
+    "r4097_m6_e64_i2": "11e9e272da52fc049940e2d838eec524c53abc4d",
+    "r4097_m6_e65_i2": "91c410296577e5df87dea0b0032712e9c8531e75",
+    "r4097_m6_e100_i2": "e758481ee95077b36c6d5e8d9df94b5fc387d852",
+    "r4097_m6_e140_i2": "6f74b79964d6464ab1516e2f88a3925af0c70513",
+    "r4097_m6_e200_i2": "90cbd09ff2ad9b1eaa2873f5f8be81ccbb2b68ce",
+    "r129_m1_e140": "d096aa71aaa0b8fcdf2e74d1a09796de8da24575",
+    "r129_m2_e140": "d58e3c223ad0a532a60ee94997174db46a663353",
+    "r129_m8_e140": "834e9965c84b21b6376c32144dd02a7d34960ac8",
+    "r129_m12_e100_i2": "2e4e0e10e9a7c6b39ed950bd5c98d60dff4daff3",
+    "r1_m2_e65": "db7551cac988ee24cf2e5e557e56ccc1ff34cdb2",
+    "r1_m2_e65_i2": "0772430b6fed1214624463076df15b9012adba7f",
+    "r127_m2_e65": "71c73ff433476d6cc19e7fb995d74a8b0cbd8a2b",
+    "r127_m2_e65_i2": "fe5f9bf2904078adb718cf4d37b9723401c8e823",
+    "r129_m2_e65": "1d9ae1f75f3b0e566532961cbfc26d736d515ac0",
+    "r129_m2_e65_i2": "b7d51942dd0ed3c7c58cb6ea18d5990c899b9395",
+    "r4097_m8_e200": "a83b8994232a2c08c0c759bbf363c0514fadfbc5",
+    "clamp_r4097_m6_e140_i2": "5019049e7e71ea6160d8f8a943a13f7ec9edc708",
+}
+
+
+@pytest.fixture(scope="module")
+def k2_paths():
+    """probe_k2's path cases on the card, traced once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from dexct_tpu_torch.tools.probe_k2 import path_cases
+
+    return path_cases(torch.device("cuda"))
+
+
+def _k2_case(name, dev, k2_paths):
+    from dexct_tpu_torch.tools.probe_k2 import pin_case
+
+    return k2_paths[name] if name in k2_paths else pin_case(name, dev)
+
+
+@pytest.mark.parametrize("case", list(K2_PINNED_SHA1))
+def test_k2_keeps_its_pinned_bits(dev, k2_paths, case):
+    """K2 gives its Triton parent's output bit for bit at the paths' shapes
+    and on the seeded cases, in one launch."""
+    from dexct_tpu_torch.ops import spectral
+    from dexct_tpu_torch.tools.probe_k2 import counts, output_sha1
+
+    paths, mu, i0, i2 = _k2_case(case, dev, k2_paths)
+    before = counts_from_paths.launches
+    out = counts(spectral, paths, mu, i0, i2)
+    torch.cuda.synchronize()
+    assert counts_from_paths.launches == before + 1
+    assert output_sha1(out) == K2_PINNED_SHA1[case]
+
+
+@pytest.mark.parametrize("case", ["exact_s2_i2", "helical_s1",
+                                  "r4097_m6_e65_i2", "r129_m12_e100_i2"])
+def test_k2_two_launches_are_equal(dev, k2_paths, case):
+    from dexct_tpu_torch.ops import spectral
+    from dexct_tpu_torch.tools.probe_k2 import counts
+
+    args = _k2_case(case, dev, k2_paths)
+    a, b = counts(spectral, *args), counts(spectral, *args)
+    if args[3] is None:
+        a, b = (a,), (b,)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("with_i2", [False, True])
+def test_k2_makes_no_host_synchronisation(dev, with_i2):
+    """K2's call on tensors on the card copies nothing from the host and
+    reads nothing back."""
+    from dexct_tpu_torch.tools.probe_k2 import pin_case
+
+    paths, mu, i0, i2 = pin_case("clamp_r4097_m6_e140_i2", dev)
+    args = (paths, mu, i0) + ((i2,) if with_i2 else ())
+    before = counts_from_paths.launches
+    _no_sync(lambda: counts_from_paths(*args))
+    assert counts_from_paths.launches == before + 2
+
+
+def test_k2_is_not_triton(dev):
+    """K2 is the nvcc library's ``dexct_spectral_counts``: the Triton
+    kernel and its tiles are gone, and a process that runs K2 imports no
+    Triton."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from dexct_tpu_torch.ops import spectral
+    from dexct_tpu_torch.utils import kernels
+
+    for name in ("_counts_kernel", "_BLOCK_R", "_BLOCK_E"):
+        assert not hasattr(spectral, name), name
+    assert "spectral_counts.cu" in kernels.SOURCES
+    assert hasattr(kernels.library(), "dexct_spectral_counts")
+    code = ("import sys, torch\n"
+            "from dexct_tpu_torch.ops.spectral import counts_from_paths\n"
+            "d = torch.device('cuda')\n"
+            "c = counts_from_paths(torch.ones((5, 6), device=d),\n"
+            "                      torch.ones((6, 70), device=d),\n"
+            "                      torch.ones(70, device=d))\n"
+            "torch.cuda.synchronize()\n"
+            "assert counts_from_paths.launches == 1\n"
+            "print('triton' in sys.modules)\n")
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=root, env=env, timeout=600)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "False"
+
+
+def _counts_uploads():
+    """``tests/test_torch_counts_uploads.py`` as a module: its tiny cases
+    of the repaired upload sites."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).with_name("test_torch_counts_uploads.py")
+    spec = importlib.util.spec_from_file_location("_counts_uploads", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _sync_functions(call):
+    """The calls of ``call()`` that synchronise the host with the card:
+    {"file:function" of the innermost frame of the port: count}."""
+    import collections
+    import traceback
+    import warnings
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    sites = collections.Counter()
+    on = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if on and "synchroniz" in str(message):
+            port = [f for f in traceback.extract_stack()[:-1]
+                    if "dexct_tpu_torch" in f.filename]
+            f = port[-1] if port else traceback.extract_stack()[-2]
+            try:
+                name = Path(f.filename).resolve().relative_to(root)
+            except ValueError:
+                name = f.filename
+            sites[f"{name}:{f.name}"] += 1
+
+    mode = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        on.append(True)
+        try:
+            call()
+        finally:
+            on.clear()
+            torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    return dict(sites)
+
+
+COUNTS_UPLOAD_SITES = (
+    "cone_sinogram", "flat_cone_sinogram", "simulate_cone_dect_flat",
+    "simulate_cone_dect_heel", "cone_sinogram_heel", "counts_from_paths_heel",
+    "decompose_cone_sinograms_heel", "decompose_sinograms_bowtie",
+    "simulate_dect_realistic")
+# the calls of those sites that still synchronise for reasons of their own,
+# each named by the innermost function of the port that makes it: K29's
+# pixel layout sizes its arrays from the groups' pixel counts, which it
+# counts on the card and reads back (bincount, sum, repeat_interleave)
+COUNTS_UPLOAD_SYNCS = {
+    site: {"dexct_tpu_torch/ops/matdecomp.py:group_layout"}
+    for site in ("simulate_cone_dect_heel", "decompose_cone_sinograms_heel",
+                 "decompose_sinograms_bowtie", "simulate_dect_realistic")}
+
+
+@pytest.mark.parametrize("site", COUNTS_UPLOAD_SITES)
+def test_counts_uploads_do_not_synchronise(dev, site):
+    """The stateless 3-D branch, the heel's and the bowtie's counts and
+    decompositions and the realistic pipeline send their host tables and
+    sinograms to the card through pinned memory: none of them synchronises
+    the host with the card, apart from the calls
+    ``COUNTS_UPLOAD_SYNCS`` names."""
+    call = _counts_uploads().site_call(site, dev)
+    call()
+    torch.cuda.synchronize()
+    syncs = _sync_functions(call)
+    assert set(syncs) <= COUNTS_UPLOAD_SYNCS.get(site, set()), syncs

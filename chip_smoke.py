@@ -65,9 +65,10 @@ of JAX.  Phases, each of which raises on failure:
    launches bitwise equal, and read against the CPU's index_add_), then
    the whole projector's
    <A x, y> = <x, A^T y>; K23 (the 2-D dose map) on input/params.txt's 80
-   kV scan at every 10th view, K24 (the 3-D one) on the cone and helical
-   configs at every 30th and 60th view (each with its device time by
-   kernel under torch.profiler and its peak memory above its inputs).
+   kV scan at every 10th view, its pinned cases (``K23_PINNED_SHA1``: the
+   dose of its parent bit for bit), K24 (the 3-D one) on the cone and
+   helical configs at every 30th and 60th view (each with its device time
+   by kernel under torch.profiler and its peak memory above its inputs).
    K25 (the variance backprojection)
    at the reference protocol on the 80 kV exact-path counts (one field)
    and on the basis covariance of their decomposition (three fields); K26
@@ -5266,6 +5267,79 @@ def dose_work(args, three_d):
     return n_bytes, pairs * E * (K + 3) + n_polar * (35 if three_d else 20)
 
 
+# sha1 of K23's dose and of its float64 slots on probe_dose2d's cases (the
+# reference protocol's phase-3 calls and 1000-view maps of both spectra, a
+# tube-current-modulated and an n_energy-compressed map, 12 random
+# materials, a 45 x 37 phantom on a 100 x 77 grid, the tiny fan case),
+# pinned from the build of K23 before its (voxel, view) terms (NVIDIA H100
+# 80GB HBM3, CUDA 12.8); tests/test_torch_cuda.py holds the same
+K23_PINNED_SHA1 = {
+    "ref_mv": ("e784053d5578a30847234f2ddcbb7e7f419383c8",
+              "e090a6650ac22c84a0b256daa2abad9333a05f37"),
+    "ref_80": ("ee66ace3b06d2f755abf47874edbf2e316818911",
+              "0292b5afe7a5fd2e5600f87bdc6162d1b7739964"),
+    "full_mv": ("8554d04073386a3fef1d07d37f1e01ae135a6df6",
+               "34384006aa71433fba2a42bb6fda1e10e2cb5778"),
+    "full_80": ("05665ced1e7cac633f233e4fad571bfe6872c0a1",
+               "1809d70e5cc36e1c8c62e41d322e07f3aab9404c"),
+    "tcm_80": ("7b0f6a2649fc89d48e7025ad9475d581b2dd3b3d",
+              "58e4adb8ce6a47d835ae0cc89e1eb924ff45c538"),
+    "ne16_80": ("17cbfd5a811ee8e5cb2031526c697b3a84241945",
+               "6c23e7d89bba955553d78b1a3497bd46ec5e20e8"),
+    "k12": ("9d50663ddbcef00d6253340452b154193f996349",
+           "9c67d67ae8d1b44b69e2a78403c6ba550b3168ea"),
+    "ragged": ("c6f5df5f613fc2469bb99207cd73d0b96522d72c",
+              "d858b428eec0d77a6a5d5dc066aa8e57216a4ba6"),
+    "tiny_fan": ("c2d53e8b0bae81d9b9b290b4de14239723b9c3a0",
+                "fc1c510f9d6357705cd3621438e1ce824cb9b87d"),
+}
+# that build's C calls and deposited keV (the slots' sum) per case: where
+# the calls moved, the slots group their float64 sums otherwise
+K23_PINNED_ENERGY = {
+    "ref_mv": (1, "16704601088485.309"),
+    "ref_80": (1, "114253624593363.44"),
+    "full_mv": (6, "167046272036222.12"),
+    "full_80": (6, "1142542833138932.8"),
+    "tcm_80": (1, "129425111530947.38"),
+    "ne16_80": (1, "114249749375199.97"),
+    "k12": (1, "1956009295958750.5"),
+    "ragged": (1, "872841288869734.0"),
+    "tiny_fan": (1, "615269373109021.5"),
+}
+# that build's device ms at phase 3's two calls (detunedMV, 80 kV): the
+# call, its polar pass, its voxel pass (probe_dose2d.py --time on that
+# build, torch.profiler, NVIDIA H100 80GB HBM3, 700 W)
+K23_PARENT_MS = (("1.7041-1.7142", "0.5158-0.5251", "1.174-1.175"),
+                 ("1.448-1.4979", "0.5191-0.5426", "0.9156-0.9444"))
+
+
+def k23_pinned_phase(dose, dev):
+    """K23 on probe_dose2d's cases: the dose its pinned sha1 on each, the
+    slots too where the C calls are the parent's, else their sum within
+    1e-12 of the parent's; fails on a mismatch."""
+    from dexct_tpu_torch.tools.probe_dose2d import (PIN_CASES, output_sha1,
+                                                    pin_case)
+
+    bad = []
+    for case in PIN_CASES:
+        args = pin_case(case, dev)
+        before = dose._dose_accumulate.launches
+        got, slots = dose._dose_2d_launch(*args)
+        calls = dose._dose_accumulate.launches - before
+        parent_calls, keV = K23_PINNED_ENERGY[case]
+        ok = output_sha1(got) == K23_PINNED_SHA1[case][0]
+        if calls == parent_calls:
+            ok &= output_sha1(slots) == K23_PINNED_SHA1[case][1]
+        ok &= abs(float(slots.sum()) - float(keV)) <= 1e-12 * float(keV)
+        if not ok:
+            bad.append(case)
+    print(f"  K23 pinned cases: {len(PIN_CASES) - len(bad)} of "
+          f"{len(PIN_CASES)} bit for bit the parent's dose (slots or their "
+          f"sum within 1e-12)" + (f"; failed: {bad}" if bad else ""))
+    if bad:
+        fail(f"K23 differs from its pinned parent on {bad}")
+
+
 def dose_kernel_phase(cfg, cone_cfgs, spectra, records, dev):
     """Phase 3, the dose kernels against their plain versions on the
     spectra the dose path runs: K23 on input/params.txt's pelvis at every
@@ -5273,13 +5347,15 @@ def dose_kernel_phase(cfg, cone_cfgs, spectra, records, dev):
     energy bins; 80 kV, 74, recorded), K24 at 80 kV on the cone config at
     every 30th of its 360 views and on the helical config (its z-slab
     window) at every 60th of its 720; dose 1e-4 of the map's maximum,
-    deposited energy rel 1e-4.  K24 is profiled once more at each shape:
-    its device time by kernel and the peak memory above its inputs."""
+    deposited energy rel 1e-4.  Each is profiled once more at each shape:
+    its device time by kernel and the peak memory above its inputs.  K23
+    also on its pinned cases (:func:`k23_pinned_phase`)."""
     from dexct_tpu_torch.ops import dose
 
     def check(name, args, fn, plain, three_d, label, record):
         (d, e), (dw, ew), ms, pms = compare(lambda: fn(*args),
-                                            lambda: plain(*args), reps=1)
+                                            lambda: plain(*args), reps=3,
+                                            plain_reps=1)
         err, big = max_err(d, dw)
         rel_e = abs(e - ew) / abs(ew)
         report(records, name, err, ms, pms,
@@ -5288,10 +5364,10 @@ def dose_kernel_phase(cfg, cone_cfgs, spectra, records, dev):
                      f"|plain| {big:.6g} keV/g; deposited {e:.8g} vs "
                      f"{ew:.8g} keV, rel {rel_e:.3g})", record=record)
 
-    def split(label, args):
-        """K24's device time by kernel over one more call under
-        torch.profiler, and the call's peak device memory above its
-        inputs (the scratch, with the dose map and its slots)."""
+    def split(kernel, label, fn):
+        """A dose kernel's device time by kernel over one more call of
+        ``fn`` under torch.profiler, and the call's peak device memory
+        above its inputs (the scratch, with the dose map and its slots)."""
         import torch
         from torch.profiler import ProfilerActivity, profile
 
@@ -5299,7 +5375,7 @@ def dose_kernel_phase(cfg, cone_cfgs, spectra, records, dev):
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            dose._dose_accumulate_3d(*args)
+            fn()
             torch.cuda.synchronize()
         extra = (torch.cuda.max_memory_allocated() - base) / 1e9
         per = []
@@ -5310,7 +5386,7 @@ def dose_kernel_phase(cfg, cone_cfgs, spectra, records, dev):
             if us:
                 per.append((e.key, e.count, float(us) / 1e3))
         per.sort(key=lambda kv: -kv[2])
-        print(f"    K24 split ({label}; one call, torch.profiler): "
+        print(f"    {kernel} split ({label}; one call, torch.profiler): "
               + ", ".join(f"{k[:48]} x{n} {ms:.4f} ms" for k, n, ms in per)
               + f"; device total {sum(ms for *_, ms in per):.4f} ms; peak "
               f"above the inputs {extra:.4f} GB")
@@ -5321,9 +5397,15 @@ def dose_kernel_phase(cfg, cone_cfgs, spectra, records, dev):
             cfg.phantom, ct, spec, n_gamma=None, n_r=None, oversample=2,
             views=ct.betas[::10], z_index=None, n_energy=None,
             view_weights=None, scoring="removed", device=dev)
+        label = f"{len(ct.betas[::10])} views, {spec.name}"
         check("dose_map", args, dose._dose_accumulate,
-              dose._dose_accumulate_plain, False,
-              f"{len(ct.betas[::10])} views, {spec.name}", i == 1)
+              dose._dose_accumulate_plain, False, label, i == 1)
+        split("K23", label, lambda: dose._dose_accumulate(*args))
+        print(f"    K23's parent build at this call (recorded with "
+              f"probe_dose2d.py): device {K23_PARENT_MS[i][0]} ms, polar "
+              f"pass {K23_PARENT_MS[i][1]}, voxel pass "
+              f"{K23_PARENT_MS[i][2]}")
+    k23_pinned_phase(dose, dev)
     for label, every in (("cone", 30), ("helical", 60)):
         ccfg = cone_cfgs[label]
         spec = spectra(ccfg.ct)[1]
@@ -5338,7 +5420,8 @@ def dose_kernel_phase(cfg, cone_cfgs, spectra, records, dev):
               dose._dose_accumulate_3d_plain, True,
               f"{label} config, every {every}th view, z window "
               f"{args[-1]}, {spec.name}", label == "cone")
-        split(f"{label} config, {args[4].shape[0]} views", args)
+        split("K24", f"{label} config, {args[4].shape[0]} views",
+              lambda: dose._dose_accumulate_3d(*args))
 
 
 def noise_fields(counts, cov, ct, dev):
@@ -6023,6 +6106,19 @@ def dose_path(cfg, cone_cfgs, spectra, records, smi, dev):
               + ", ".join(f"{k} {v:.1f}" for k, v in st.t.items()))
         print("  peak device memory per map (GB): "
               + ", ".join(f"{k} {v:.4f}" for k, v in peaks.items()))
+    k23 = 0  # K23's C calls: one per block of views of each 2-D map
+    for _, ph, ct, _, three_d in jobs:
+        if not three_d:
+            g, r = dose._sample_grids(ct, ph, None, None, 2)
+            vb = dose._k23_blocks(len(ct.betas), ph.Nx * ph.Ny, len(g),
+                                  len(r), len(ph.materials.densities),
+                                  ph.Nx, ph.Ny)
+            k23 += 2 * -(-len(ct.betas) // vb)
+    print(f"  K23: {fns['dose_map'].launches} C calls over the two runs' 2-D "
+          f"maps ({k23} expected: {len(cfg.ct.betas)} views a map in "
+          f"blocks of up to {vb})")
+    if fns["dose_map"].launches != k23:
+        fail("K23's C calls on the dose path are not its blocks of views")
     check_launches("dose", fns, DOSE_KERNELS, records)
     ok = True
     for (label, ph, _, _, three_d), (_, res, removed) in zip(jobs, results):

@@ -8,22 +8,41 @@
 // and contracts exp(-T . mu(E)) with its material's deposition
 // coefficients (MXU matmuls over voxel blocks).
 //
-// K23, two launches per block of views:
-// 1. The polar pass: one thread per (view, gamma) line.  It walks r, forms
-//    the bilinear occupancy of the uint8 labels with the JAX program's
-//    bounds tests and corner order, keeps the midpoint running sum
-//    (cumsum - occ / 2) dr in registers and writes T [view][r][gamma][K].
-// 2. The voxel pass: one thread per voxel looping over the block's views
-//    in order, so each voxel's dose sums in the JAX program's view order
-//    with no atomics.  It forms (gamma, r) of the voxel in the JAX
-//    operation order (clips at n - 1.001, the in-fan gate), reads T
-//    bilinearly, and loops over the energies with mu, mu_dep and the
-//    fluence weights in shared memory; only the voxel's own material's
-//    mu_dep is read (the JAX one-hot contraction picks that column).  Out
-//    of the fan the view adds an exact zero and is skipped.  The deposited
-//    energy is a per-thread float64 sum, reduced per thread block in a
-//    fixed order into one slot per block; the host adds the slots.
-// T is 6.3 MB per 2-D view (512 x 512 x K = 6).
+// K23, one C call per block of views: the labels packed as corner quads
+// (pack_quads_kernel on one slice), then three launches:
+// 1. the polar pass: a thread block per view and tile of kPolarLines gamma
+//    lines, marching r in chunks of kPolarChunk samples.  Per chunk, the
+//    bilinear occupancy of its samples, one thread per (line, sample): a
+//    sample's four corners are one 4-byte quad load, added per material in
+//    the JAX program's corner order (one sum for a sample whose four
+//    corners are one material), into shared memory; then the midpoint
+//    running sum T = (cum - occ / 2) dr along r, one thread per (line,
+//    material) in r order, each T stored as it is formed into T [view][r]
+//    [gamma][K], consecutive threads on consecutive words of a row;
+// 2. the term pass: one thread per voxel and kViews views.
+//    Per view, the voxel's (gamma, r) frame and the in-fan gate in the JAX
+//    operation order and T read bilinearly; then one pass over the
+//    energies serves all its views (each table row loaded once for them,
+//    the mu rows as 16-byte words, the views' sums interleaved, each in its
+//    own order).  The (view, voxel) slot of a per-view scratch gets
+//    (vw e_vol / rho, vw e_vol dxdy h r / sid), zeros out of the fan or
+//    for a label past the tables;
+// 3. the view sum: per voxel its terms in view order onto the dose
+//    (float32) and the deposited energy (float64 per thread, then per
+//    block of 256 voxels in a fixed order into the block's slot).
+// These are the sums of the first K23's voxel pass term for term (one
+// thread per voxel looping over the views), so the dose is bitwise that
+// K23's and its plain twin's.  What bounded that K23 on the H100
+// (tools/probe_dose2d.py, a 100-view call of the 256^2 pelvis at 80 kV,
+// 1.45-1.50 ms): its polar pass 0.52 ms, one thread per (view, gamma) line
+// storing T a material at a time at a 24 B stride, and its voxel pass
+// 0.92, one thread per voxel looping over the views, 65,536 threads: a
+// quarter of the card.  Now (PERF.md): the polar pass ~0.24 ms (T's 629 MB
+// stored at ~2.6 TB/s, ~8 warp instructions a sample), the term pass ~0.44
+// (~18 instructions a (voxel, view, energy), 15 of them the sum's
+// floating-point work) and the view sum 0.03.  T is 6.3 MB per view (512
+// x 512 x K = 6); storing it only along each line's run over the labels
+// saved bytes but cost more instructions than it saved.
 //
 // K24 had the same two passes over T [view][r][t][gamma][K], 264 MB per
 // view of the cone config (512 x 36 x 512 x K = 7).  What bounded it on
@@ -80,43 +99,6 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// occ[lab] += w for lab < K, with constant register indices
-template <int MAXK>
-__device__ __forceinline__ void add_occ(float (&occ)[MAXK], int lab, int K,
-                                        float w) {
-#pragma unroll
-  for (int k = 0; k < MAXK; ++k)
-    if (k < K && k == lab) occ[k] = __fadd_rn(occ[k], w);
-}
-
-// sum_E i0w(E) exp(-t . mu(E)) mu_dep_own(E)
-template <int MAXK>
-__device__ __forceinline__ float own_deposit(const float (&t)[MAXK], int K,
-                                             int E, const float* muT,
-                                             const float* i0w,
-                                             const float* dep) {
-  float c = 0.0f;
-  for (int e = 0; e < E; ++e) {
-    const float* m = muT + e * K;
-    float s = 0.0f;
-#pragma unroll
-    for (int k = 0; k < MAXK; ++k)
-      if (k < K) s = fmaf(t[k], m[k], s);
-    c = fmaf(expf(-s) * i0w[e], dep[e], c);
-  }
-  return c;
-}
-
-__device__ void load_tables(float* sh, const float* muT, const float* dep,
-                            const float* i0w, int K, int E) {
-  for (int i = threadIdx.x; i < E * K; i += blockDim.x) {
-    sh[i] = muT[i];
-    sh[E * K + i] = dep[i];
-  }
-  for (int i = threadIdx.x; i < E; i += blockDim.x) sh[2 * E * K + i] = i0w[i];
-  __syncthreads();
-}
-
 // the block's float64 sum, in a fixed order, added into its own slot
 __device__ void add_block_sum(double v, double* slot) {
   __shared__ double warp_sums[kThreads / 32];
@@ -159,105 +141,6 @@ __device__ __forceinline__ int grid_pos(float x, float x0, float dx,
 
 __device__ __forceinline__ float lerp(float a, float b, float w) {
   return __fadd_rn(__fmul_rn(a, __fsub_rn(1.0f, w)), __fmul_rn(b, w));
-}
-
-template <int MAXK>
-__global__ void polar_2d_kernel(const unsigned char* __restrict__ labels,
-                                const float* __restrict__ src,
-                                const float* __restrict__ ca,
-                                const float* __restrict__ sa,
-                                const float* __restrict__ rs,
-                                float* __restrict__ T, int nv, int n_g,
-                                int n_r, int K, int nx, int ny, float dx,
-                                float dy, float cx, float cy, float dr) {
-  const long long line = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (line >= (long long)nv * n_g) return;
-  const int v = (int)(line / n_g), g = (int)(line % n_g);
-  const float s0 = src[2 * v], s1 = src[2 * v + 1];
-  const float c = ca[line], s = sa[line];
-  float cum[MAXK];
-#pragma unroll
-  for (int k = 0; k < MAXK; ++k) cum[k] = 0.0f;
-  float* Tv = T + (size_t)v * n_r * n_g * K;
-  for (int r = 0; r < n_r; ++r) {
-    const float rr = __ldg(rs + r);
-    const float fx = __fadd_rn(__fsub_rn(s0, __fmul_rn(c, rr)) / dx, cx);
-    const float fy = __fadd_rn(__fsub_rn(s1, __fmul_rn(s, rr)) / dy, cy);
-    const float flx = floorf(fx), fly = floorf(fy);
-    const int ix0 = (int)flx, iy0 = (int)fly;
-    const float wx = __fsub_rn(fx, flx), wy = __fsub_rn(fy, fly);
-    float occ[MAXK];
-#pragma unroll
-    for (int k = 0; k < MAXK; ++k) occ[k] = 0.0f;
-#pragma unroll
-    for (int ty = 0; ty < 2; ++ty) {
-#pragma unroll
-      for (int tx = 0; tx < 2; ++tx) {
-        const int iy = iy0 + ty, ix = ix0 + tx;
-        if (iy < 0 || iy >= ny || ix < 0 || ix >= nx) continue;
-        const float w = __fmul_rn(ty ? wy : __fsub_rn(1.0f, wy),
-                                  tx ? wx : __fsub_rn(1.0f, wx));
-        add_occ<MAXK>(occ, __ldg(labels + (size_t)iy * nx + ix), K, w);
-      }
-    }
-    float* out = Tv + ((size_t)r * n_g + g) * K;
-#pragma unroll
-    for (int k = 0; k < MAXK; ++k) {
-      if (k >= K) break;
-      cum[k] = __fadd_rn(cum[k], occ[k]);
-      out[k] = __fmul_rn(__fsub_rn(cum[k], __fmul_rn(0.5f, occ[k])), dr);
-    }
-  }
-}
-
-template <int MAXK>
-__global__ void voxel_2d_kernel(
-    const float* __restrict__ T, const float* __restrict__ src,
-    const float* __restrict__ vw, const float* __restrict__ vox,
-    const float* __restrict__ rho, const unsigned char* __restrict__ lab,
-    const float* __restrict__ muT, const float* __restrict__ mu_dep,
-    const float* __restrict__ i0w, float* __restrict__ dose,
-    double* __restrict__ edep, int nv, int n_g, int n_r, int K, int E,
-    long long n_vox, float sid, float g0, float dg, float gmax, float r0,
-    float dr, float rmax, float geom, float g_half, float h_over_sid,
-    float dxdy) {
-  extern __shared__ float sh[];
-  load_tables(sh, muT, mu_dep, i0w, K, E);
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  double e_sum = 0.0;
-  if (j < n_vox) {
-    const float vx = vox[2 * j], vy = vox[2 * j + 1], rj = rho[j];
-    const int lj = lab[j];
-    const float* dep = sh + E * K + (lj < K ? lj : 0) * E;
-    float acc = dose[j];
-    for (int v = 0; v < nv && lj < K; ++v) {
-      const float s0 = src[2 * v], s1 = src[2 * v + 1];
-      float r_v, g_v;
-      voxel_frame(vx, vy, s0, s1, sid, &r_v, &g_v);
-      if (!(fabsf(g_v) <= g_half)) continue;  // out of the fan: adds 0
-      float wg, wr;
-      const int gi = grid_pos(g_v, g0, dg, gmax, &wg);
-      const int ri = grid_pos(r_v, r0, dr, rmax, &wr);
-      const float* a = T + (size_t)v * n_r * n_g * K
-                       + ((size_t)ri * n_g + gi) * K;  // (g, r)
-      const float* b = a + (size_t)n_g * K;            // (g, r + 1)
-      float t[MAXK];
-#pragma unroll
-      for (int k = 0; k < MAXK; ++k) {
-        if (k >= K) break;
-        t[k] = lerp(lerp(a[k], b[k], wr), lerp(a[K + k], b[K + k], wr), wg);
-      }
-      const float phi0 = geom / __fmul_rn(r_v, r_v);
-      const float e_vol = __fmul_rn(phi0, own_deposit<MAXK>(
-          t, K, E, sh, sh + 2 * E * K, dep));
-      acc = __fadd_rn(acc, __fmul_rn(vw[v], e_vol / rj));
-      e_sum += (double)__fmul_rn(
-          vw[v], __fmul_rn(__fmul_rn(e_vol, dxdy),
-                           __fmul_rn(h_over_sid, r_v)));
-    }
-    dose[j] = acc;
-  }
-  add_block_sum(e_sum, edep + blockIdx.x);
 }
 
 // ---------------------------------------------------------------------------
@@ -781,12 +664,15 @@ __global__ void __launch_bounds__(kTile, 2) patch_3d_kernel(
 
 // Per voxel, its views' terms added in view order onto the dose (float32)
 // and the deposited energy (float64, per thread, then per block in a fixed
-// order into the block's slot): the old voxel pass's sums, term for term.
-__global__ void view_sum_3d_kernel(const float2* __restrict__ contrib,
-                                   const int* __restrict__ k0s,
-                                   float* __restrict__ dose,
-                                   double* __restrict__ edep, int nv,
-                                   int nynx, int depth, long long n_vox) {
+// order into the block's slot): the old voxel passes' sums, term for term.
+// kSlabs (K24): view v's terms cover the depth slices from k0s[v];
+// otherwise (K23) every voxel, depth 1 and nynx = n_vox.
+template <bool kSlabs>
+__global__ void view_sum_kernel(const float2* __restrict__ contrib,
+                                const int* __restrict__ k0s,
+                                float* __restrict__ dose,
+                                double* __restrict__ edep, int nv, int nynx,
+                                int depth, long long n_vox) {
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   double e_sum = 0.0;
   if (j < n_vox) {
@@ -795,7 +681,7 @@ __global__ void view_sum_3d_kernel(const float2* __restrict__ contrib,
     const size_t n_slab = (size_t)depth * nynx;
     float acc = dose[j];
     for (int v = 0; v < nv; ++v) {
-      const int k0 = k0s[v];
+      const int k0 = kSlabs ? k0s[v] : 0;
       if (kz < k0 || kz >= k0 + depth) continue;  // outside the view's slab
       const float2 c =
           contrib[(size_t)v * n_slab + (size_t)(kz - k0) * nynx + jxy];
@@ -807,6 +693,224 @@ __global__ void view_sum_3d_kernel(const float2* __restrict__ contrib,
   add_block_sum(e_sum, edep + blockIdx.x);
 }
 
+// ---------------------------------------------------------------------------
+// K23: the polar pass, the term pass and the view sum
+// ---------------------------------------------------------------------------
+
+constexpr int kPolarLines = 16;  // gamma lines of a polar block
+constexpr int kPolarChunk = 32;  // r samples a polar block holds at once
+constexpr int kViews = 4;        // views of a term thread (half at MAXK 16)
+constexpr int kEnergyUnroll = 2;  // energies a term thread unrolls
+constexpr int kTermThreads = 256;  // threads of a term block
+constexpr int kTermBlocks = 4;     // term blocks an SM must hold at least
+constexpr bool kConstK = true;     // the term pass's K as a constant at 3, 6
+
+// T [nv][n_r][n_g][K] of nv views: one block per (tile of kPolarLines
+// gamma lines, view).  quads: the labels as corner quads [ny + 1][nx + 1]
+// (pack_quads_kernel, one slice).
+template <int MAXK>
+__global__ void __launch_bounds__(kThreads) polar_2d_kernel(
+    const unsigned* __restrict__ quads, const float* __restrict__ src,
+    const float* __restrict__ ca, const float* __restrict__ sa,
+    const float* __restrict__ rs, float* __restrict__ T, int n_g, int n_r,
+    int K, int nx, int ny, float dx, float dy) {
+  // the chunk's occupancy: [sample][line][MAXK]
+  __shared__ float4 occ4[kPolarChunk * kPolarLines * MAXK / 4];
+  constexpr int kRow = kPolarLines * MAXK;  // words of a sample's row
+  __shared__ float line_c[kPolarLines], line_s[kPolarLines];
+  float* occ = reinterpret_cast<float*>(occ4);
+  const int v = blockIdx.y, ga = blockIdx.x * kPolarLines;
+  const int n_lines = min(kPolarLines, n_g - ga);
+  const float s0 = src[2 * v], s1 = src[2 * v + 1];
+  const float cx = (float)(nx / 2.0 - 0.5), cy = (float)(ny / 2.0 - 0.5);
+  const float dr = __fsub_rn(rs[1], rs[0]);
+  if (threadIdx.x < kPolarLines) {
+    // lines past the grid's edge (never stored) repeat its last line
+    const int g = min(ga + (int)threadIdx.x, n_g - 1);
+    line_c[threadIdx.x] = ca[(size_t)v * n_g + g];
+    line_s[threadIdx.x] = sa[(size_t)v * n_g + g];
+  }
+  // thread i keeps the running sums of the padded row's words i + u
+  // kThreads (line, material) over the chunks
+  constexpr int kSums = (kRow + kThreads - 1) / kThreads;
+  float cum[kSums];
+#pragma unroll
+  for (int u = 0; u < kSums; ++u) cum[u] = 0.0f;
+  float* Tv = T + (size_t)v * n_r * n_g * K;
+  __syncthreads();
+  for (int ra = 0; ra < n_r; ra += kPolarChunk) {
+    const int n_s = min(kPolarChunk, n_r - ra);
+    // 1. the occupancy of each (line, sample): its row zeroed, then the
+    //    corners of one material added in the JAX program's order (ty
+    //    outer, tx inner) into its slot; a corner outside the labels (0xff
+    //    in its quad) adds nothing.  Four corners of one material: their
+    //    weights summed in that order, one store.
+    for (int i = threadIdx.x; i < n_s * kPolarLines; i += kThreads) {
+      const int l = i % kPolarLines, s = i / kPolarLines;
+      const float rr = __ldg(rs + ra + s);
+      const float fx =
+          __fadd_rn(__fsub_rn(s0, __fmul_rn(line_c[l], rr)) / dx, cx);
+      const float fy =
+          __fadd_rn(__fsub_rn(s1, __fmul_rn(line_s[l], rr)) / dy, cy);
+      const float flx = floorf(fx), fly = floorf(fy);
+      float* row = occ + (s * kPolarLines + l) * MAXK;
+#pragma unroll
+      for (int q = 0; q < MAXK / 4; ++q)
+        reinterpret_cast<float4*>(row)[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (flx >= -1.0f && flx < (float)nx && fly >= -1.0f &&
+          fly < (float)ny) {
+        const unsigned q =
+            __ldg(quads + ((int)fly + 1) * (nx + 1) + (int)flx + 1);
+        const float wx = __fsub_rn(fx, flx), wy = __fsub_rn(fy, fly);
+        float w[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          w[c] = __fmul_rn((c >> 1) ? wy : __fsub_rn(1.0f, wy),
+                           (c & 1) ? wx : __fsub_rn(1.0f, wx));
+        const unsigned l0 = q & 0xffu;
+        if (q == l0 * 0x01010101u) {
+          if (l0 < (unsigned)K)
+            row[l0] = __fadd_rn(__fadd_rn(__fadd_rn(w[0], w[1]), w[2]), w[3]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const unsigned lc = (q >> (8 * c)) & 0xffu;
+            if (lc < (unsigned)K) row[lc] = __fadd_rn(row[lc], w[c]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    // 2. the midpoint running sum in r order, one thread per (line,
+    //    material) with its sum in a register: eight samples' occupancies
+    //    loaded before their sums, each T stored as it is formed
+    //    (consecutive threads on consecutive words of a row of T)
+#pragma unroll
+    for (int u = 0; u < kSums; ++u) {
+      const int word = threadIdx.x + u * kThreads;
+      const int l = word / MAXK, k = word % MAXK;
+      if (word >= kRow || l >= n_lines || k >= K) continue;
+      const float* p = occ + word;
+      float* out = Tv + ((size_t)ra * n_g + ga + l) * K + k;
+      for (int s8 = 0; s8 < n_s; s8 += 8) {
+        float o[8];
+#pragma unroll
+        for (int b = 0; b < 8; ++b)
+          o[b] = s8 + b < n_s ? p[(s8 + b) * kRow] : 0.0f;
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+          if (s8 + b >= n_s) break;
+          cum[u] = __fadd_rn(cum[u], o[b]);
+          out[(size_t)(s8 + b) * n_g * K] =
+              __fmul_rn(__fsub_rn(cum[u], __fmul_rn(0.5f, o[b])), dr);
+        }
+      }
+    }
+    __syncthreads();  // the next chunk's occupancy overwrites this one's
+  }
+}
+
+// The (view, voxel) terms of nv views from their T [nv][n_r][n_g][K]: one
+// thread per voxel and P views.  terms [nv][n_vox] float2.  KC > 0 fixes
+// K at compile time (no predicated products past K).
+template <int MAXK, int KC, int P>
+__global__ void __launch_bounds__(kTermThreads, kTermBlocks) term_2d_kernel(
+    const float* __restrict__ T, const float* __restrict__ src,
+    const float* __restrict__ vw, const float* __restrict__ gammas,
+    const float* __restrict__ rs, const float* __restrict__ vox,
+    const float* __restrict__ rho, const unsigned char* __restrict__ lab,
+    const float* __restrict__ muT, const float* __restrict__ mu_dep,
+    const float* __restrict__ i0w, float2* __restrict__ terms, int nv,
+    int n_g, int n_r, int K_, int E, long long n_vox, float sid, float geom,
+    float g_half, float h_over_sid, float dxdy) {
+  // KC > 0: the count of materials as a constant (K_ == KC)
+  const int K = KC > 0 ? KC : K_;
+  extern __shared__ float4 term_smem[];  // 16 B aligned
+  float* mu_pad = reinterpret_cast<float*>(term_smem);  // [E][MAXK]
+  float* i0w_s = mu_pad + E * MAXK;                     // [E]
+  float* depT = i0w_s + E;                              // [E][K]
+  load_padded_tables<MAXK>(mu_pad, i0w_s, depT, muT, mu_dep, i0w, K, E);
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n_vox) return;
+  const int v0 = blockIdx.y * P;
+  const Axis G = axis_of(gammas, n_g), Rx = axis_of(rs, n_r);
+  const float vx = vox[2 * j], vy = vox[2 * j + 1];
+  const int lj = lab[j];
+  float t[P][MAXK], phi0[P], r_v[P];
+  bool live[P];
+  bool any = false;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+#pragma unroll
+    for (int k = 0; k < MAXK; ++k) t[p][k] = 0.0f;
+    phi0[p] = r_v[p] = 0.0f;
+    live[p] = false;
+    const int v = v0 + p;
+    if (v >= nv || lj >= K) continue;  // no view, or no material: adds 0
+    float g_v;
+    voxel_frame(vx, vy, src[2 * v], src[2 * v + 1], sid, &r_v[p], &g_v);
+    if (!(fabsf(g_v) <= g_half)) continue;  // out of the fan: adds 0
+    live[p] = any = true;
+    float wg, wr;
+    const int gi = grid_pos(g_v, G.x0, G.d, G.xmax, &wg);
+    const int ri = grid_pos(r_v[p], Rx.x0, Rx.d, Rx.xmax, &wr);
+    const float* a =
+        T + (((size_t)v * n_r + ri) * n_g + gi) * K;  // (g, r)
+    const float* b = a + (size_t)n_g * K;             // (g, r + 1)
+#pragma unroll
+    for (int k = 0; k < MAXK; ++k) {
+      if (k >= K) break;
+      t[p][k] = lerp(lerp(__ldg(a + k), __ldg(b + k), wr),
+                     lerp(__ldg(a + K + k), __ldg(b + K + k), wr), wg);
+    }
+    phi0[p] = geom / __fmul_rn(r_v[p], r_v[p]);
+  }
+  float c[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) c[p] = 0.0f;
+  if (any) {
+    // sum_E i0w(E) exp(-t . mu(E)) mu_dep_own(E) of each view, in the
+    // first K23's order
+    const float* dep = depT + lj;
+#pragma unroll kEnergyUnroll
+    for (int e = 0; e < E; ++e) {
+      float m[MAXK];
+#pragma unroll
+      for (int q = 0; q < MAXK / 4; ++q) {
+        const float4 w = reinterpret_cast<const float4*>(mu_pad + e * MAXK)[q];
+        m[4 * q] = w.x;
+        m[4 * q + 1] = w.y;
+        m[4 * q + 2] = w.z;
+        m[4 * q + 3] = w.w;
+      }
+      const float i0 = i0w_s[e], d = dep[e * K];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        float s = 0.0f;
+#pragma unroll
+        for (int k = 0; k < MAXK; ++k)
+          if (k < K) s = fmaf(t[p][k], m[k], s);
+        c[p] = fmaf(expf(-s) * i0, d, c[p]);
+      }
+    }
+  }
+  const float rj = rho[j];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int v = v0 + p;
+    if (v >= nv) break;
+    float2 out = make_float2(0.0f, 0.0f);
+    if (live[p]) {
+      const float e_vol = __fmul_rn(phi0[p], c[p]);
+      out = make_float2(
+          __fmul_rn(vw[v], e_vol / rj),
+          __fmul_rn(vw[v], __fmul_rn(__fmul_rn(e_vol, dxdy),
+                                     __fmul_rn(h_over_sid, r_v[p]))));
+    }
+    terms[(size_t)v * n_vox + j] = out;
+  }
+}
+
 template <typename Kern>
 cudaError_t allow_smem(Kern kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -816,29 +920,45 @@ cudaError_t allow_smem(Kern kernel, size_t smem) {
 }
 
 template <int MAXK>
-int launch_2d(const unsigned char* labels, const float* src, const float* ca,
-              const float* sa, const float* vw, const float* rs,
-              const float* vox, const float* rho, const unsigned char* lab,
-              const float* muT, const float* mu_dep, const float* i0w,
-              float* T, float* dose, double* edep, int nv, int n_g, int n_r,
-              int K, int E, int nx, int ny, long long n_vox, float sid,
-              float dx, float dy, float cx, float cy, float g0, float dg,
-              float gmax, float r0, float dr, float rmax, float geom,
+int launch_2d(const unsigned char* labels, unsigned* quads, const float* src,
+              const float* ca, const float* sa, const float* vw,
+              const float* gammas, const float* rs, const float* vox,
+              const float* rho, const unsigned char* lab, const float* muT,
+              const float* mu_dep, const float* i0w, float* T,
+              float2* terms, float* dose, double* edep, int nv,
+              int n_g, int n_r, int K, int E, int nx, int ny,
+              long long n_vox, float sid, float dx, float dy, float geom,
               float g_half, float h_over_sid, float dxdy,
               cudaStream_t stream) {
-  const long long lines = (long long)nv * n_g;
-  polar_2d_kernel<MAXK><<<(unsigned)((lines + kThreads - 1) / kThreads),
-                          kThreads, 0, stream>>>(
-      labels, src, ca, sa, rs, T, nv, n_g, n_r, K, nx, ny, dx, dy, cx, cy,
-      dr);
-  const size_t smem = (size_t)(2 * E * K + E) * sizeof(float);
-  cudaError_t err = allow_smem(voxel_2d_kernel<MAXK>, smem);
+  if (n_g < 2 || n_r < 2) return (int)cudaErrorInvalidValue;
+  constexpr int P = MAXK > 8 ? (kViews + 1) / 2 : kViews;
+  const long long n_quads = (long long)(ny + 1) * (nx + 1);
+  pack_quads_kernel<<<(unsigned)((n_quads + kThreads - 1) / kThreads),
+                      kThreads, 0, stream>>>(labels, quads, nx, ny, 1);
+  // the term pass with K as a constant for the paths' tables (the
+  // reference pelvis's 6 materials, the test phantoms' 3)
+  auto term = term_2d_kernel<MAXK, 0, P>;
+  if constexpr (kConstK && MAXK == 4) {
+    if (K == 3) term = term_2d_kernel<MAXK, 3, P>;
+  } else if constexpr (kConstK && MAXK == 8) {
+    if (K == 6) term = term_2d_kernel<MAXK, 6, P>;
+  }
+  const size_t smem = (size_t)E * (MAXK + 1 + K) * sizeof(float);
+  cudaError_t err = allow_smem(term, smem);
   if (err != cudaSuccess) return (int)err;
-  voxel_2d_kernel<MAXK><<<(unsigned)((n_vox + kThreads - 1) / kThreads),
-                          kThreads, smem, stream>>>(
-      T, src, vw, vox, rho, lab, muT, mu_dep, i0w, dose, edep, nv, n_g, n_r,
-      K, E, n_vox, sid, g0, dg, gmax, r0, dr, rmax, geom, g_half,
-      h_over_sid, dxdy);
+  polar_2d_kernel<MAXK>
+      <<<dim3((n_g + kPolarLines - 1) / kPolarLines, nv), kThreads, 0,
+         stream>>>(quads, src, ca, sa, rs, T, n_g, n_r, K, nx, ny, dx, dy);
+  term<<<dim3((unsigned)((n_vox + kTermThreads - 1) / kTermThreads),
+              (nv + P - 1) / P),
+         kTermThreads, smem, stream>>>(
+      T, src, vw, gammas, rs, vox, rho, lab, muT, mu_dep, i0w,
+      terms, nv, n_g, n_r, K, E, n_vox, sid, geom, g_half, h_over_sid, dxdy);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  view_sum_kernel<false><<<(unsigned)((n_vox + kThreads - 1) / kThreads),
+                           kThreads, 0, stream>>>(
+      terms, nullptr, dose, edep, nv, (int)n_vox, 1, n_vox);
   return (int)cudaGetLastError();
 }
 
@@ -891,42 +1011,46 @@ int launch_3d(const unsigned char* labels, unsigned* quads, const float* src,
       n_gp, sid, dx, dy, dz, geom, g_half, t_half, dvol);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  view_sum_3d_kernel<<<(unsigned)((n_vox + kThreads - 1) / kThreads),
-                       kThreads, 0, stream>>>(contrib, k0s, dose, edep, nv,
-                                              nx * ny, depth, n_vox);
+  view_sum_kernel<true><<<(unsigned)((n_vox + kThreads - 1) / kThreads),
+                          kThreads, 0, stream>>>(contrib, k0s, dose, edep, nv,
+                                                 nx * ny, depth, n_vox);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // One block of nv views of a fan-beam dose map.  labels [ny, nx] uint8;
-// src [nv, 2]; ca, sa [nv, n_g]; vw [nv]; rs [n_r]; vox [n_vox, 2]; rho
-// [n_vox]; lab [n_vox] uint8; muT [E, K]; mu_dep [K, E]; i0w [E]; T
-// scratch [nv, n_r, n_g, K]; dose [n_vox] and edep [ceil(n_vox / 256)]
+// src [nv, 2]; ca, sa [nv, n_g]; vw [nv]; gammas [n_g], rs [n_r] (the
+// polar grids, at least two samples each); vox [n_vox, 2]; rho [n_vox];
+// lab [n_vox] uint8; muT [E, K]; mu_dep [K, E]; i0w [E]; quads scratch
+// [ny + 1, nx + 1] uint32; T scratch [nv, n_r, n_g, K]; terms scratch
+// [nv, n_vox] float2; dose [n_vox] and edep [ceil(n_vox / 256)]
 // (float64) accumulated into.  maxk: 4, 8 or 16 >= K.
 extern "C" int dexct_dose_2d(
     const void* labels, const void* src, const void* ca, const void* sa,
-    const void* vw, const void* rs, const void* vox, const void* rho,
-    const void* lab, const void* muT, const void* mu_dep, const void* i0w,
-    void* T, void* dose, void* edep, int maxk, int nv, int n_g, int n_r,
+    const void* vw, const void* gammas, const void* rs, const void* vox,
+    const void* rho, const void* lab, const void* muT, const void* mu_dep,
+    const void* i0w, void* quads, void* T, void* terms, void* dose,
+    void* edep, int maxk, int nv, int n_g, int n_r,
     int K, int E, int nx, int ny, long long n_vox, float sid, float dx,
-    float dy, float cx, float cy, float g0, float dg, float gmax, float r0,
-    float dr, float rmax, float geom, float g_half, float h_over_sid,
-    float dxdy, void* stream) {
+    float dy, float geom, float g_half, float h_over_sid, float dxdy,
+    void* stream) {
   if (nv <= 0 || n_vox <= 0) return (int)cudaGetLastError();
 #define DEXCT_DOSE_2D(M)                                                     \
   launch_2d<M>(static_cast<const unsigned char*>(labels),                    \
+               static_cast<unsigned*>(quads),                                \
                static_cast<const float*>(src), static_cast<const float*>(ca), \
                static_cast<const float*>(sa), static_cast<const float*>(vw), \
+               static_cast<const float*>(gammas),                            \
                static_cast<const float*>(rs), static_cast<const float*>(vox), \
                static_cast<const float*>(rho),                               \
                static_cast<const unsigned char*>(lab),                       \
                static_cast<const float*>(muT),                               \
                static_cast<const float*>(mu_dep),                            \
                static_cast<const float*>(i0w), static_cast<float*>(T),       \
-               static_cast<float*>(dose), static_cast<double*>(edep), nv,    \
-               n_g, n_r, K, E, nx, ny, n_vox, sid, dx, dy, cx, cy, g0, dg,   \
-               gmax, r0, dr, rmax, geom, g_half, h_over_sid, dxdy,           \
+               static_cast<float2*>(terms), static_cast<float*>(dose),       \
+               static_cast<double*>(edep), nv, n_g, n_r, K, E, nx, ny,       \
+               n_vox, sid, dx, dy, geom, g_half, h_over_sid, dxdy,           \
                static_cast<cudaStream_t>(stream))
   switch (maxk) {
     case 4:

@@ -16,7 +16,8 @@ into the partial material paths T from the source to every sample; each
 voxel then reads T at its own (gamma, r) bilinearly, attenuates the
 spectrum by exp(-T . mu(E)) and contracts it with its own material's
 deposition coefficients.  On the card this is kernel K23 (2-D: a polar
-pass and a voxel pass per block of views, T through device memory) or K24
+pass, T through device memory, a pass over the (voxel, view) terms, then
+their sum in view order) or K24
 (3-D: T built and read in shared memory, one patch of polar lines per
 thread block) (:func:`_dose_accumulate`, :func:`_dose_accumulate_3d`);
 CPU tensors run the plain twins, which follow the JAX program's operation
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from ..utils import kernels
+from ..utils.devices import upload
 from .conebeam import labels_u8
 
 __all__ = ["dose_map", "sharded_dose_map", "dose_map_3d", "DoseResult",
@@ -45,8 +47,8 @@ __all__ = ["dose_map", "sharded_dose_map", "dose_map_3d", "DoseResult",
 
 KEV_TO_J = 1.602176634e-16
 KEV_PER_G_TO_MGY = KEV_TO_J / 1e-3 * 1e3  # keV/g -> mGy
-# the scratch of one block of views (K23's partial-path table T, K24's
-# per-view terms) stays under this size
+# the scratch of one block of views (K23's partial-path table T with its
+# per-view terms, K24's per-view terms) stays under this size
 _SCRATCH_BYTES = 1 << 30
 # voxels per plain spectral stage (bounds its [voxels, E] intermediates)
 _PLAIN_VOXELS = 1 << 18
@@ -121,8 +123,9 @@ def _dose_energy_grid(phantom, spec, n_energy, scoring="removed"):
 
 
 def _f32(x, device):
-    return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32,
-                           device=device)
+    """Host data as a float32 tensor on ``device``, up through
+    :func:`upload` (pinned memory, an asynchronous copy)."""
+    return upload(np.ascontiguousarray(x), device, torch.float32)
 
 
 def _spectral_tables(mu_kE, mu_dep_kE, i0w_E, device):
@@ -142,18 +145,6 @@ def _view_trig(betas, gammas, sid):
     src = sid * torch.stack([torch.cos(betas), torch.sin(betas)], -1)
     ang = betas[:, None] + gammas[None, :]
     return src.contiguous(), torch.cos(ang), torch.sin(ang)
-
-
-def _grid_scalars(*grids):
-    """Per float32 polar grid: its first value, its step a[1] - a[0] taken
-    in float32 (as the JAX program) and the clip bound n - 1.001, as the
-    kernels take them."""
-    out = []
-    for g in grids:
-        a = g.cpu().numpy().astype(np.float32)
-        out += [float(a[0]), float(a[1] - a[0]),
-                float(np.float32(len(a) - 1.001))]
-    return out
 
 
 def _deposit(t_vox, phi0, lab, mu, mu_dep, i0w):
@@ -223,7 +214,7 @@ def _dose_accumulate_plain(labels, mu, mu_dep, i0w, betas, view_w, gammas,
     dev = labels.device
     f32 = dict(dtype=torch.float32, device=dev)
     sid, dx, dy, geom, g_half, h_over_sid, dxdy = (
-        torch.tensor(float(v), **f32) for v in scalars)
+        torch.full((), float(v), **f32) for v in scalars)
     n_mats = mu.shape[0]
     n_g, n_r = gammas.shape[0], rs.shape[0]
     dr, dg = rs[1] - rs[0], gammas[1] - gammas[0]
@@ -257,8 +248,19 @@ def _dose_accumulate_plain(labels, mu, mu_dep, i0w, betas, view_w, gammas,
     return dose, edep
 
 
-def _dose_accumulate_cuda(labels, mu, mu_dep, i0w, betas, view_w, gammas,
-                          rs, vox_xy, rho_vox, lab_vox, scalars):
+def _k23_blocks(V, n_vox, n_g, n_r, K, nx, ny):
+    """Views per C call of K23: the label quads, and per view its T and its
+    terms [vox, 2], within ``_SCRATCH_BYTES``."""
+    quads = (ny + 1) * (nx + 1) * 4
+    return _view_block(V, n_vox * 8 + n_r * n_g * K * 4, quads)
+
+
+def _dose_2d_launch(labels, mu, mu_dep, i0w, betas, view_w, gammas, rs,
+                    vox_xy, rho_vox, lab_vox, scalars):
+    """K23's C calls on the card, one per block of views: returns the dose
+    [vox] and the float64 deposited-energy slots, without waiting for them
+    (no host synchronisation: every scalar tensor is filled on the card,
+    the grids' first values and steps are read there)."""
     dev = labels.device
     ny, nx = labels.shape
     K, E = mu.shape
@@ -276,32 +278,37 @@ def _dose_accumulate_cuda(labels, mu, mu_dep, i0w, betas, view_w, gammas,
     req(vox_xy, "vox_xy", dev, torch.float32, (n_vox, 2))
     req(rho_vox, "rho_vox", dev, torch.float32, (n_vox,))
     req(lab_vox, "lab_vox", dev, torch.uint8, (n_vox,))
+    if min(n_g, n_r) < 2:
+        raise ValueError("the polar grids need at least two samples each")
     sid, dx, dy, geom, g_half, h_over_sid, dxdy = (float(v) for v in scalars)
-    src, ca, sa = _view_trig(
-        betas, gammas,
-        torch.full((), sid, dtype=torch.float32, device=dev))
+    f32 = dict(dtype=torch.float32, device=dev)
+    src, ca, sa = _view_trig(betas, gammas, torch.full((), sid, **f32))
     muT = mu.T.contiguous()
     maxk = _max_k(K)
-    dose = torch.zeros(n_vox, dtype=torch.float32, device=dev)
-    n_blocks = (n_vox + 255) // 256
-    edep = torch.zeros(n_blocks, dtype=torch.float64, device=dev)
-    vb = _view_block(V, n_r * n_g * K * 4)
-    T = torch.empty((vb, n_r, n_g, K), dtype=torch.float32, device=dev)
+    dose = torch.zeros(n_vox, **f32)
+    edep = torch.zeros((n_vox + 255) // 256, dtype=torch.float64, device=dev)
+    vb = _k23_blocks(V, n_vox, n_g, n_r, K, nx, ny)
+    quads = torch.empty((ny + 1, nx + 1), dtype=torch.int32, device=dev)
+    T = torch.empty((vb, n_r, n_g, K), **f32)
+    terms = torch.empty((vb, n_vox, 2), **f32)
     lib, stream = kernels.library(), kernels.stream_ptr(dev)
-    grid = _grid_scalars(gammas, rs)
     for v0 in range(0, V, vb):
         nv = min(vb, V - v0)
         rc = lib.dexct_dose_2d(
             labels.data_ptr(), src[v0:].data_ptr(), ca[v0:].data_ptr(),
-            sa[v0:].data_ptr(), view_w[v0:].data_ptr(), rs.data_ptr(),
-            vox_xy.data_ptr(), rho_vox.data_ptr(), lab_vox.data_ptr(),
-            muT.data_ptr(), mu_dep.data_ptr(), i0w.data_ptr(), T.data_ptr(),
-            dose.data_ptr(), edep.data_ptr(), maxk, nv, n_g, n_r, K, E, nx,
-            ny, n_vox, sid, dx, dy, float(np.float32(nx / 2 - 0.5)),
-            float(np.float32(ny / 2 - 0.5)), *grid, geom, g_half,
-            h_over_sid, dxdy, stream)
+            sa[v0:].data_ptr(), view_w[v0:].data_ptr(), gammas.data_ptr(),
+            rs.data_ptr(), vox_xy.data_ptr(), rho_vox.data_ptr(),
+            lab_vox.data_ptr(), muT.data_ptr(), mu_dep.data_ptr(),
+            i0w.data_ptr(), quads.data_ptr(), T.data_ptr(), terms.data_ptr(),
+            dose.data_ptr(), edep.data_ptr(), maxk, nv, n_g, n_r, K, E, nx, ny, n_vox,
+            sid, dx, dy, geom, g_half, h_over_sid, dxdy, stream)
         kernels.check(rc, "dose_map")
         _dose_accumulate.launches += 1
+    return dose, edep
+
+
+def _dose_accumulate_cuda(*args):
+    dose, edep = _dose_2d_launch(*args)
     return dose, float(edep.sum())
 
 
@@ -312,9 +319,12 @@ def _dose_accumulate(labels, mu, mu_dep, i0w, betas, view_w, gammas, rs,
     uint8 ``labels`` [ny, nx], the float32 spectral tables, per-view
     angles and weights, the polar grids, the voxel centres, densities and
     labels, and the float32 ``scalars`` (sid, dx, dy, geom_const,
-    gamma_half_fan, h_over_sid, dxdy).  CUDA tensors run kernel K23 (a
-    polar pass and a voxel pass per block of views, counted in
-    ``_dose_accumulate.launches``); CPU tensors run
+    gamma_half_fan, h_over_sid, dxdy).  CUDA tensors run kernel K23: one
+    C call per block of views (:func:`_k23_blocks`), counted in
+    ``_dose_accumulate.launches``; a call packs the labels as corner
+    quads, runs the polar pass (T) and the term pass (each voxel's term of
+    each view into a per-view scratch), then adds each voxel's terms in
+    view order into the dose.  CPU tensors run
     :func:`_dose_accumulate_plain`."""
     if labels.is_cuda:
         return _dose_accumulate_cuda(labels, mu, mu_dep, i0w, betas, view_w,
@@ -423,9 +433,9 @@ def _removed_keV(paths, phantom, spec, device):
     ``device``, the rays in blocks (the JAX package takes the same sum in
     float64 NumPy over one [rays, E] array)."""
     f64 = dict(dtype=torch.float64, device=device)
-    mu = torch.as_tensor(phantom.materials.mu_table(spec.E), **f64)
-    i0w = torch.as_tensor(spec.I0 * spec.bin_widths() * spec.E, **f64)
-    p = torch.as_tensor(paths, device=device).reshape(-1, mu.shape[0])
+    mu = upload(phantom.materials.mu_table(spec.E), device, torch.float64)
+    i0w = upload(spec.I0 * spec.bin_widths() * spec.E, device, torch.float64)
+    p = upload(paths, device).reshape(-1, mu.shape[0])
     total = torch.zeros((), **f64)
     for s, e in _chunks(p.shape[0]):
         L = p[s:e].to(torch.float64) @ mu
@@ -556,7 +566,7 @@ def _dose_accumulate_3d_plain(labels, mu, mu_dep, i0w, betas, src_zs,
     dev = labels.device
     f32 = dict(dtype=torch.float32, device=dev)
     sid, dx, dy, dz, geom, g_half, t_half, dvol = (
-        torch.tensor(float(v), **f32) for v in scalars)
+        torch.full((), float(v), **f32) for v in scalars)
     nz, ny, nx = labels.shape
     n_mats = mu.shape[0]
     n_g, n_t, n_r = gammas.shape[0], ts.shape[0], rs.shape[0]

@@ -160,10 +160,10 @@ _SIGNATURES = {
     # th_lo, th_hi, stream
     "dexct_pi_backproject": (_P,) * 9 + (_I,) * 5 + (_L,) + (_F,) * 13
                             + (_P,),
-    # labels, src, ca, sa, vw, rs, vox, rho, lab, muT, mu_dep, i0w, T,
-    # dose, edep; maxk, nv, n_g, n_r, K, E, nx, ny; n_vox; sid, dx, dy, cx,
-    # cy, g0, dg, gmax, r0, dr, rmax, geom, g_half, h_over_sid, dxdy; stream
-    "dexct_dose_2d": (_P,) * 15 + (_I,) * 8 + (_L,) + (_F,) * 15 + (_P,),
+    # labels, src, ca, sa, vw, gammas, rs, vox, rho, lab, muT, mu_dep, i0w,
+    # quads, T, terms, dose, edep; maxk, nv, n_g, n_r, K, E, nx, ny; n_vox;
+    # sid, dx, dy, geom, g_half, h_over_sid, dxdy; stream
+    "dexct_dose_2d": (_P,) * 18 + (_I,) * 8 + (_L,) + (_F,) * 7 + (_P,),
     # labels, src, src_z, ca, sa, vw, k0s, gammas, ts, sec, rs, xc, yc, zc,
     # rho, lab, muT, mu_dep, i0w, quads, contrib, dose, edep; maxk, nv, n_g,
     # n_t, n_r, K, E, nx, ny, nz, depth; n_vox; sid, dx, dy, dz, geom,

@@ -1634,6 +1634,140 @@ def test_k24_makes_no_host_synchronisation(dev):
     assert sum("synchroniz" in str(w.message) for w in seen) == 1
 
 
+# sha1 of K23's dose and of its float64 slots on probe_dose2d's cases (the
+# reference protocol's phase-3 calls and 1000-view maps of both spectra, a
+# tube-current-modulated and an n_energy-compressed map, 12 random
+# materials, a 45 x 37 phantom on a 100 x 77 grid, the tiny fan case),
+# pinned from the build of K23 before its (voxel, view) terms (NVIDIA H100
+# 80GB HBM3, CUDA 12.8); chip_smoke.py holds the same
+K23_PINNED_SHA1 = {
+    "ref_mv": ("e784053d5578a30847234f2ddcbb7e7f419383c8",
+              "e090a6650ac22c84a0b256daa2abad9333a05f37"),
+    "ref_80": ("ee66ace3b06d2f755abf47874edbf2e316818911",
+              "0292b5afe7a5fd2e5600f87bdc6162d1b7739964"),
+    "full_mv": ("8554d04073386a3fef1d07d37f1e01ae135a6df6",
+               "34384006aa71433fba2a42bb6fda1e10e2cb5778"),
+    "full_80": ("05665ced1e7cac633f233e4fad571bfe6872c0a1",
+               "1809d70e5cc36e1c8c62e41d322e07f3aab9404c"),
+    "tcm_80": ("7b0f6a2649fc89d48e7025ad9475d581b2dd3b3d",
+              "58e4adb8ce6a47d835ae0cc89e1eb924ff45c538"),
+    "ne16_80": ("17cbfd5a811ee8e5cb2031526c697b3a84241945",
+               "6c23e7d89bba955553d78b1a3497bd46ec5e20e8"),
+    "k12": ("9d50663ddbcef00d6253340452b154193f996349",
+           "9c67d67ae8d1b44b69e2a78403c6ba550b3168ea"),
+    "ragged": ("c6f5df5f613fc2469bb99207cd73d0b96522d72c",
+              "d858b428eec0d77a6a5d5dc066aa8e57216a4ba6"),
+    "tiny_fan": ("c2d53e8b0bae81d9b9b290b4de14239723b9c3a0",
+                "fc1c510f9d6357705cd3621438e1ce824cb9b87d"),
+}
+# that build's C calls and deposited keV (the slots' sum) per case: where
+# the calls moved, the slots group their float64 sums otherwise
+K23_PINNED_ENERGY = {
+    "ref_mv": (1, "16704601088485.309"),
+    "ref_80": (1, "114253624593363.44"),
+    "full_mv": (6, "167046272036222.12"),
+    "full_80": (6, "1142542833138932.8"),
+    "tcm_80": (1, "129425111530947.38"),
+    "ne16_80": (1, "114249749375199.97"),
+    "k12": (1, "1956009295958750.5"),
+    "ragged": (1, "872841288869734.0"),
+    "tiny_fan": (1, "615269373109021.5"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K23_PINNED_SHA1))
+def test_k23_pinned_bits(dev, case):
+    """K23's dose is its parent's bit for bit on every pinned case; its
+    slots too where its C calls are the parent's, else their sum within
+    1e-12 of the parent's."""
+    from dexct_tpu_torch.ops import dose
+    from dexct_tpu_torch.tools.probe_dose2d import output_sha1, pin_case
+
+    args = pin_case(case, dev)
+    before = dose._dose_accumulate.launches
+    got, slots = dose._dose_2d_launch(*args)
+    calls = dose._dose_accumulate.launches - before
+    want_dose, want_slots = K23_PINNED_SHA1[case]
+    parent_calls, keV = K23_PINNED_ENERGY[case]
+    assert output_sha1(got) == want_dose
+    if calls == parent_calls:
+        assert output_sha1(slots) == want_slots
+    assert abs(float(slots.sum()) - float(keV)) <= 1e-12 * float(keV)
+
+
+def test_k23_makes_no_host_synchronisation(dev):
+    """K23's C calls make no synchronising call (scalar tensors filled on
+    the card, the grids' steps read on the card); the whole call makes one,
+    its final float64 sum."""
+    import warnings
+
+    from dexct_tpu_torch.ops import dose
+    from dexct_tpu_torch.tools.probe_dose2d import pin_case
+
+    args = pin_case("tcm_80", dev)
+    dose._dose_accumulate(*args)
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, edep = dose._dose_2d_launch(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert float(edep.sum()) > 0.0
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            dose._dose_accumulate(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    assert sum("synchroniz" in str(w.message) for w in seen) == 1
+
+
+def test_k23_blocked_calls_keep_the_dose(dev, monkeypatch):
+    """A scratch of 26 views splits the 100-view 80 kV call into C calls
+    of 26, 26, 26 and 22 views: four calls, counted, the pinned dose bit
+    for bit (each call adds its views in order) and the deposited energy
+    within 1e-12."""
+    from dexct_tpu_torch.ops import dose
+    from dexct_tpu_torch.tools.probe_dose2d import output_sha1, pin_case
+
+    args = pin_case("ref_80", dev)
+    ny, nx = args[0].shape
+    K, n_g, n_r, n_vox = (args[1].shape[0], args[6].shape[0],
+                          args[7].shape[0], args[8].shape[0])
+    quads = (ny + 1) * (nx + 1) * 4
+    per = n_vox * 8 + n_r * n_g * K * 4
+    monkeypatch.setattr(dose, "_SCRATCH_BYTES", quads + 26 * per)
+    assert dose._k23_blocks(100, n_vox, n_g, n_r, K, nx, ny) == 26
+    before = dose._dose_accumulate.launches
+    got, slots = dose._dose_2d_launch(*args)
+    assert dose._dose_accumulate.launches == before + 4
+    assert output_sha1(got) == K23_PINNED_SHA1["ref_80"][0]
+    keV = float(K23_PINNED_ENERGY["ref_80"][1])
+    assert abs(float(slots.sum()) - keV) <= 1e-12 * keV
+
+
+def test_k23_maxk16_matches_plain(dev):
+    """K23's MAXK = 16 instance (12 random materials) in one C call
+    against its plain twin on the same card tensors: the dose within
+    DOSE_TOL of its maximum (the twin's material sums are cuBLAS
+    products), the deposited energy within DOSE_TOL."""
+    from dexct_tpu_torch.ops import dose
+    from dexct_tpu_torch.tools.probe_dose2d import pin_case
+
+    args = pin_case("k12", dev)
+    assert dose._max_k(args[1].shape[0]) == 16
+    before = dose._dose_accumulate.launches
+    got, e = dose._dose_accumulate(*args)
+    assert dose._dose_accumulate.launches == before + 1
+    want, ew = dose._dose_accumulate_plain(*args)
+    assert float(want.max()) > 0.0
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=tiny_cases.DOSE_TOL * float(want.max()))
+    assert abs(e - ew) <= tiny_cases.DOSE_TOL * ew
+
+
 @pytest.mark.parametrize("n_fields", [1, 3])
 def test_fan_backproject_var_matches_plain(dev, n_fields):
     """K25 against its plain version on random variance fields of 96

@@ -27,7 +27,12 @@ of JAX.  Phases, each of which raises on failure:
    it at, a ragged grid and a z-stack batch, each held to its plain
    version and to the sha1 pinned from its build before it binned the
    samples by spectrum tile, with its device time and bound; K7's
-   launches on the paths are printed by path at the end);
+   launches on the paths are printed by path at the end; K6 also on
+   seeded filtered stacks at the default, FFS, parallel-beam and sweep
+   grids, K = 1 to 4, ragged images, no FOV mask and 1100 views, held to
+   the sha1s pinned from its build before its vector loads and compact
+   warp tiles (``K6_PINNED_SHA1``), with each case's device time, and
+   K6's yardstick a CSR product of its taps);
    K9 on the same fan rays through ``pelvis_analytic()``; K10 and K11 on
    the cone config (360 views x 16 rows x 256 channels through a 256^2 x
    32 pelvis, 16 slices of 256^2); K12 on the helical one (720 views over
@@ -1146,6 +1151,91 @@ def k4_pinned_phase(fbp_fast):
     return pinned, twice, dev_ms
 
 
+# sha1 of K6's output on probe_parallel_backproject's seeded cases (the
+# default path's 512 x 1024 grid at K = 4 and 1, the FFS grid 500 x 1600,
+# the parallel-beam 1000 x 800, the sweep's 512 x 1600 at K = 4, K = 2 and
+# 3, 257^2 and 500^2 images, no FOV mask, 1100 views), pinned from the
+# build of K6 before its vector loads and compact warp tiles (NVIDIA H100
+# 80GB HBM3, CUDA 12.8); tests/test_torch_cuda.py holds the same
+K6_PINNED_SHA1 = {"default": "8a1058eb650489d9d040e6f9257e87ec88b62082",
+                  "default_k1": "0d11365c64318c7ba9e3ae4778dd7f283000a071",
+                  "ffs": "a93e13097a6352640e421cfc1c743951fad6fde4",
+                  "parallel": "d5296a02f23d4419304937f4999675dd1a278fe0",
+                  "sweep": "dcbfffb2a56246d08ce5cae1e7cbba5b7b633994",
+                  "k2": "c5130ccfafebd209c4df73fc262355086353f4a7",
+                  "k3": "45f66895e70d1c79f9c050292ad0cfe429d1f409",
+                  "n257": "1410b9f39f81cf8520f1293d3c95e4dd699f1192",
+                  "n500": "77df4fa36c3d9f6ac381dd0d62eaf0c507e54c11",
+                  "nomask": "d207ca246ded4c9c415649daa1f5fd73c1537644",
+                  "views1100": "74bcdbc1934705a819c0ee128b46bef4d6f0fad9"}
+
+
+def k6_pinned_phase(fbp_fast):
+    """K6 on every seeded case of ``K6_PINNED_SHA1``: whether every output
+    is its pinned sha1 and two launches are equal; prints each case's
+    device time (CUDA graph) and returns them."""
+    import torch
+
+    from dexct_tpu_torch.tools.probe_parallel_backproject import (
+        k6_call, output_sha1)
+
+    dev = torch.device("cuda")
+    pinned, twice, dev_ms = True, True, {}
+    for case, want in K6_PINNED_SHA1.items():
+        call = k6_call(fbp_fast, case, dev)
+        out = call()
+        ok = output_sha1(out) == want
+        again = bool(torch.equal(out, call()))
+        dev_ms[case] = graph_ms(call)
+        print(f"  K6 pinned case {case}: sha1 {ok}, two launches equal "
+              f"{again}; device, CUDA graph of 20 calls: "
+              f"{dev_ms[case]:.4f} ms")
+        pinned &= ok
+        twice &= again
+        del call, out
+    torch.cuda.empty_cache()
+    if not (pinned and twice):
+        fail(f"K6 on its pinned cases: pinned sha1 {pinned}, two launches "
+             f"equal {twice}")
+    return dev_ms
+
+
+def k6_taps(thetas, t0, dt, nt, n_matrix, fov, pixels=32768):
+    """K6's backprojection taps as one CSR matrix [in-disc pixels, n_theta
+    * nt]: per pixel and view on the detector, 1 - f at its channel c0 and
+    f at c0 + 1 (the plain version's float32 operations), in pixel then
+    view order; and the in-disc pixels' flat indices."""
+    import numpy as np
+    import torch
+
+    from dexct_tpu_torch.ops import fbp_fast
+
+    dev = thetas.device
+    pix = torch.as_tensor(np.flatnonzero(
+        fbp_fast._fov_disc_mask(n_matrix, fov)), device=dev)
+    X, Y = fbp_fast._pixel_coords(n_matrix, fov, torch.float32, dev)
+    X, Y = X[pix], Y[pix]
+    ct, st = torch.cos(thetas)[None, :], torch.sin(thetas)[None, :]
+    vo = torch.arange(thetas.shape[0], device=dev)[None, :] * nt
+    counts, cols, vals = [], [], []
+    for p0 in range(0, X.shape[0], pixels):
+        u = X[p0:p0 + pixels, None] * ct + Y[p0:p0 + pixels, None] * st - t0
+        c = u / torch.full_like(u, dt)
+        c0 = torch.clamp(torch.floor(c), 0, nt - 2)
+        f = torch.clamp(c - c0, 0.0, 1.0)
+        on = (c >= 0.0) & (c <= nt - 1.0)
+        col = vo + c0.to(torch.int64)
+        counts.append(2 * on.sum(1))
+        cols.append(torch.stack([col, col + 1], -1)[on].reshape(-1))
+        vals.append(torch.stack([1.0 - f, f], -1)[on].reshape(-1))
+    crow = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                      torch.cumsum(torch.cat(counts), 0)])
+    W = torch.sparse_csr_tensor(crow, torch.cat(cols), torch.cat(vals),
+                                (X.shape[0], thetas.shape[0] * nt),
+                                check_invariants=False)
+    return W, pix
+
+
 # sha1 of K7's output on probe_kb_sample's seeded cases, pinned from the
 # build of K7 before it binned the samples by spectrum tile (NVIDIA H100
 # 80GB HBM3, CUDA 12.8); tests/test_torch_cuda.py holds the same
@@ -1354,10 +1444,24 @@ def default_kernel_phase(arrays, meta, records):
         lambda: fbp_fast.parallel_backproject_multi_plain(*bargs), reps=3)
     err, big = max_err(img, want)
     n_disc = int(fbp_fast._fov_disc_mask(meta.n_matrix, meta.fov).sum())
+    k6_dev = k6_pinned_phase(fbp_fast)
+    # the library yardstick: the taps of every in-disc pixel, two a view on
+    # the detector, as one CSR matrix over the filtered stack [n_theta nt, K]
+    W, pix = k6_taps(a["par_thetas"], t0, dt, pnt, meta.n_matrix, meta.fov)
+    dense = packed[:, :4].contiguous()
+    lib = torch.sparse.mm(W, dense).T * (np.pi / n_th)
+    lib_err = float((lib - want.reshape(4, -1)[:, pix]).abs().max())
     report(records, "parallel_backproject", err, ms, pms, err <= 1e-4,
            (nbytes(packed, img) + meta.n_matrix ** 2 + 8 * n_th,
             n_disc * n_th * (8 + 4 * 4)),
-           extra=f" (max |plain| {big:.6g})")
+           library_ms=time_ms(lambda: torch.sparse.mm(W, dense), 5),
+           extra=f" (max |plain| {big:.6g}; CSR library err {lib_err:.3g}, "
+                 f"{W.values().numel()} nonzeros; the seeded cases' pinned "
+                 f"sha1s, two launches equal; device, CUDA graph of 20 "
+                 f"calls: default K = 4 {k6_dev['default']:.4f} ms, K = 1 "
+                 f"{k6_dev['default_k1']:.4f} ms, FFS {k6_dev['ffs']:.4f} "
+                 f"ms, parallel beam {k6_dev['parallel']:.4f} ms)")
+    del W, dense, lib
 
 
 def analytic_kernel_phase(arrays, meta, records):

@@ -17,7 +17,9 @@ version beside it):
   resampled onto a (theta, t) parallel grid, one thread per parallel bin;
 - :func:`parallel_backproject_multi`: K6
   (``csrc/parallel_backproject.cu``), parallel-beam backprojection over the
-  FOV disc, one thread per pixel over all views.
+  FOV disc, one thread per pixel (two at K = 4) over all views, each
+  packed row read in 16- or 8-byte loads at a 32-bit offset, several
+  views' rows in flight.
 
 The JAX module's symmetry-packed backprojectors (``pack_filtered_sym*``,
 ``parallel_backproject_sym*``) and its ``quad`` rebin are TPU gather-count
@@ -94,23 +96,25 @@ def fan_backproject_multi_plain(packed, n_images, betas, sid, dgamma,
     return (acc * dbeta).reshape(K, n_matrix, n_matrix)
 
 
-# K4 addresses its packed table in 32-bit offsets
+# K4 and K6 address their packed tables in 32-bit offsets
 MAX_TABLE_FLOATS = 2 ** 31 - 1
 
 
-def _check_table(packed, n_images, n_views, n_channels):
-    """Raise ``ValueError`` unless ``packed`` can be K4's table: shape [V*C,
-    2K], at most ``MAX_TABLE_FLOATS`` floats (the kernel's row offsets are
-    32-bit) and 16-byte aligned (it reads each row in 8- or 16-byte loads;
-    a PyTorch allocation is).  Reads only the shape and the address."""
+def _check_table(packed, n_images, n_views, n_channels, kernel):
+    """Raise ``ValueError`` unless ``packed`` can be the table of
+    ``kernel`` (K4 or K6): shape [V*C, 2K], at most ``MAX_TABLE_FLOATS``
+    floats (the kernel's row offsets are 32-bit) and 16-byte aligned (it
+    reads each row in 8- or 16-byte loads; a PyTorch allocation is).  Reads
+    only the shape and the address."""
     if tuple(packed.shape) != (n_views * n_channels, 2 * n_images):
-        raise ValueError(f"packed table must be [{n_views * n_channels}, "
-                         f"{2 * n_images}], got {tuple(packed.shape)}")
+        raise ValueError(f"{kernel}'s packed table must be "
+                         f"[{n_views * n_channels}, {2 * n_images}], got "
+                         f"{tuple(packed.shape)}")
     if packed.numel() > MAX_TABLE_FLOATS:
-        raise ValueError(f"packed table holds {packed.numel()} floats; K4 "
-                         f"takes at most {MAX_TABLE_FLOATS}")
+        raise ValueError(f"packed table holds {packed.numel()} floats; "
+                         f"{kernel} takes at most {MAX_TABLE_FLOATS}")
     if packed.data_ptr() % 16:
-        raise ValueError("packed table must be 16-byte aligned")
+        raise ValueError(f"{kernel}'s packed table must be 16-byte aligned")
 
 
 def _fan_backproject_cuda(packed, n_images, betas, sid, dgamma, n_channels,
@@ -121,7 +125,7 @@ def _fan_backproject_cuda(packed, n_images, betas, sid, dgamma, n_channels,
     cos_b = torch.cos(betas).contiguous()
     sin_b = torch.sin(betas).contiguous()
     V = betas.shape[0]
-    _check_table(packed, n_images, V, n_channels)
+    _check_table(packed, n_images, V, n_channels, "K4")
     out = torch.empty((n_images, n_matrix, n_matrix), dtype=torch.float32,
                       device=dev)
     rc = kernels.library().dexct_fan_backproject(
@@ -368,6 +372,7 @@ def _parallel_backproject_cuda(packed, n_images, thetas, t0, dt, nt,
     n_th = thetas.shape[0]
     kernels.require(packed, "packed", dev, torch.float32,
                     (n_th * nt, 2 * n_images))
+    _check_table(packed, n_images, n_th, nt, "K6")
     kernels.require(thetas, "thetas", dev, torch.float32, (n_th,))
     cos_t, sin_t = torch.cos(thetas), torch.sin(thetas)
     mask = _fov_disc_mask_on(n_matrix, fov, dev) if fov_mask else None
@@ -393,7 +398,8 @@ def parallel_backproject_multi(packed, n_images, thetas, t0, dt, nt,
     (θ, pixel) is affine: c = (x cosθ + y sinθ - t0) / dt.  Returns
     [K, n_matrix, n_matrix] times ``dtheta``; with ``fov_mask`` pixels
     outside the FOV disc (r > fov/2) are 0.  CUDA tensors run kernel K6
-    (counted in ``parallel_backproject_multi.launches``); CPU tensors run
+    (counted in ``parallel_backproject_multi.launches``; the table 16-byte
+    aligned and under 2^31 floats, else ``ValueError``); CPU tensors run
     :func:`parallel_backproject_multi_plain`.  ``view_block`` (a TPU view-block
     layout) is accepted and ignored.
     """

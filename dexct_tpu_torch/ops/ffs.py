@@ -161,7 +161,7 @@ def ffs_fbp_recon(sino_log, geometry, n_matrix, fov, ramp=0.8,
     the deflected rays), and backprojects it (K6).  Host plan tables are
     rebuilt per call, as in the JAX package.
     """
-    from ..utils.devices import check_float32
+    from ..utils.devices import check_float32, upload
     from .fbp import filter_views
     from .fbp_fast import (pack_filtered, parallel_backproject_multi,
                            rebin_to_parallel)
@@ -173,14 +173,11 @@ def ffs_fbp_recon(sino_log, geometry, n_matrix, fov, ramp=0.8,
     nt_eff = 2 * geometry.N_channels if nt is None else int(nt)
     n_th = idx.size // (16 * nt_eff)
     par = rebin_to_parallel(sino_log.to(torch.float32)[None],
-                            torch.as_tensor(idx, device=dev),
-                            torch.as_tensor(w, device=dev), nt_eff, taps=16)
+                            upload(idx, dev), upload(w, dev), nt_eff, taps=16)
     H, m = filter_frequency_response(nt_eff, dt, ramp, window, "parallel")
     q = filter_views(par, torch.ones(nt_eff, dtype=torch.float32, device=dev),
-                     torch.as_tensor(H, dtype=torch.float32, device=dev), m,
-                     dt)
-    thetas = torch.as_tensor(np.arange(n_th) * (np.pi / n_th),
-                             dtype=torch.float32, device=dev)
+                     upload(H, dev, torch.float32), m, dt)
+    thetas = upload(np.arange(n_th) * (np.pi / n_th), dev, torch.float32)
     img = parallel_backproject_multi(
         pack_filtered(q), 1, thetas, float(t0), float(dt), nt_eff,
         int(n_matrix), float(fov), float(np.pi / n_th))

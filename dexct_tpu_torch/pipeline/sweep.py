@@ -30,6 +30,7 @@ import torch
 from ..ops import spectral as sp_ops
 from ..ops.fbp import hu_image
 from ..ops.siddon import labels_stack_tensor
+from ..utils.devices import upload
 from .fused import (DectMeta, _project_paths, decompose_counts, dect_step,
                     reconstruct_stack)
 
@@ -124,7 +125,7 @@ def ramp_sweep(arrays, meta: DectMeta, ramps_H, *, window="sinc"):
     c1, c2, _, _ = _base_counts(arrays, meta, False)
     sinos = torch.stack([sp_ops.log_sinogram(c1, np.float32(meta.air1)),
                          sp_ops.log_sinogram(c2, np.float32(meta.air2))])
-    H = torch.as_tensor(ramps_H, dtype=torch.float32, device=sinos.device)
+    H = upload(ramps_H, sinos)
     fan = meta._replace(recon="fan")
     return torch.stack([
         _hu_pair(reconstruct_stack(sinos, dict(arrays, filt_H=h), fan), meta)

@@ -23,6 +23,7 @@ import torch
 
 from ..physics.materials import MaterialTable
 from ..utils import kernels
+from ..utils.devices import upload
 
 __all__ = ["Ellipse", "AnalyticPhantom", "analytic_paths",
            "analytic_paths_plain", "material_path_sinogram_analytic",
@@ -195,14 +196,14 @@ analytic_paths.launches = 0
 
 def material_path_sinogram_analytic(phantom: AnalyticPhantom, geometry, *,
                                     device, dtype=torch.float32):
-    """[N_proj, N_channels, n_materials] exact paths for a geometry."""
+    """[N_proj, N_channels, n_materials] exact paths for a geometry; the
+    shape table and the rays go up through ``upload`` (pinned memory, an
+    asynchronous copy)."""
     src, dirs = geometry.ray_geometry()
     params, labels = phantom.shape_arrays()
     return analytic_paths(
-        torch.as_tensor(params, dtype=dtype, device=device),
-        torch.as_tensor(labels, device=device),
-        torch.as_tensor(src, dtype=dtype, device=device),
-        torch.as_tensor(dirs, dtype=dtype, device=device),
+        upload(params, device, dtype), upload(labels, device),
+        upload(src, device, dtype), upload(dirs, device, dtype),
         n_materials=phantom.n_materials)
 
 

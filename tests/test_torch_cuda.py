@@ -2132,6 +2132,48 @@ def test_k4_makes_no_host_synchronisation(dev):
     _no_sync(_k4_pin_call(dev, "ragged"))
 
 
+# sha1 of K6's output on the cases of probe_parallel_backproject.PIN_CASES
+# (the default path's 512 x 1024 grid at K = 4 and 1, the FFS grid 500 x
+# 1600 at K = 1, the parallel-beam 1000 x 800 at K = 1, the sweep's 512 x
+# 1600 at K = 4, the default grid at K = 2 and 3, a 257^2 image from 90 x
+# 96 bins, a 500^2 image, no FOV mask on 257^2, and 1100 views), from the
+# build of K6 before its vector loads and compact warp tiles (NVIDIA H100
+# 80GB HBM3, CUDA 12.8)
+K6_PINNED_SHA1 = {"default": "8a1058eb650489d9d040e6f9257e87ec88b62082",
+                  "default_k1": "0d11365c64318c7ba9e3ae4778dd7f283000a071",
+                  "ffs": "a93e13097a6352640e421cfc1c743951fad6fde4",
+                  "parallel": "d5296a02f23d4419304937f4999675dd1a278fe0",
+                  "sweep": "dcbfffb2a56246d08ce5cae1e7cbba5b7b633994",
+                  "k2": "c5130ccfafebd209c4df73fc262355086353f4a7",
+                  "k3": "45f66895e70d1c79f9c050292ad0cfe429d1f409",
+                  "n257": "1410b9f39f81cf8520f1293d3c95e4dd699f1192",
+                  "n500": "77df4fa36c3d9f6ac381dd0d62eaf0c507e54c11",
+                  "nomask": "d207ca246ded4c9c415649daa1f5fd73c1537644",
+                  "views1100": "74bcdbc1934705a819c0ee128b46bef4d6f0fad9"}
+
+
+@pytest.mark.parametrize("case", sorted(K6_PINNED_SHA1))
+def test_k6_keeps_its_pinned_bits(dev, case):
+    from dexct_tpu_torch.ops import fbp_fast
+    from dexct_tpu_torch.tools.probe_parallel_backproject import (
+        k6_call, output_sha1)
+
+    before = parallel_backproject_multi.launches
+    out = k6_call(fbp_fast, case, dev)()
+    torch.cuda.synchronize()
+    assert parallel_backproject_multi.launches == before + 1
+    assert output_sha1(out) == K6_PINNED_SHA1[case]
+
+
+@pytest.mark.parametrize("case", ["default", "n257", "views1100"])
+def test_k6_two_launches_are_equal(dev, case):
+    from dexct_tpu_torch.ops import fbp_fast
+    from dexct_tpu_torch.tools.probe_parallel_backproject import k6_call
+
+    call = k6_call(fbp_fast, case, dev)
+    assert torch.equal(call(), call())
+
+
 def test_k3_makes_no_host_synchronisation(dev):
     """K3 reads its count scale on the card: a solve copies nothing from
     the host and reads nothing back, at a pixel count ragged against its

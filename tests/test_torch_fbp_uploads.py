@@ -74,12 +74,13 @@ def test_k4_table_limit(floats, ok):
     rows = floats // 8
     packed = torch.empty((rows, 8), device="meta")
     if ok:
-        fbp_fast._check_table(packed, 4, rows, 1)
+        fbp_fast._check_table(packed, 4, rows, 1, "K4")
     else:
         with pytest.raises(ValueError, match="at most"):
-            fbp_fast._check_table(packed, 4, rows, 1)
+            fbp_fast._check_table(packed, 4, rows, 1, "K4")
 
 
 def test_k4_table_shape_is_checked():
     with pytest.raises(ValueError, match="must be"):
-        fbp_fast._check_table(torch.empty((96, 6), device="meta"), 4, 12, 8)
+        fbp_fast._check_table(torch.empty((96, 6), device="meta"), 4, 12, 8,
+                               "K4")

@@ -39,9 +39,15 @@ of JAX.  Phases, each of which raises on failure:
    two turns, pitch 3 cm, through a 256^2 x 48 pelvis, 19 slices); K2 and
    K3 once more on each 3-D config's own [V, R, C, M] paths and counts,
    timed apart (both held to their pinned sha1s on both), and K10 on the
-   helical rays.  K2 is also held, bit for bit, to the sha1s pinned from
-   its Triton parent (``K2_PINNED_SHA1``): both spectra of the exact path
-   with and without the second moment, and seeded rays at 1, 127, 129 and
+   helical rays; K10 bit for bit its plain version there and held to the
+   sha1s pinned from its build before it took K18's 32-bit walk and kept
+   its sums in shared memory (``K10_PINNED_SHA1``: those two, the flat,
+   tilted, z-FFS, motion_3d and K-edge rays and ragged cases), with each
+   case's device time, and K10's yardstick the CSR product of its walk on
+   every tenth cone view by the one-hot label matrix.  K2 is also held,
+   bit for bit, to the sha1s pinned from its Triton parent
+   (``K2_PINNED_SHA1``): both spectra of the exact path with and without
+   the second moment, and seeded rays at 1, 127, 129 and
    4097 rays, M in {1, 2, 6, 8, 12} and E in {1, 63, 64, 65, 100, 140,
    200}, with its device time.  The stateless 3-D paths: K13
    on the flat-panel config, K16 (and K11 on its enlarged 258^2 x 60
@@ -1200,6 +1206,68 @@ def k6_pinned_phase(fbp_fast):
     return dev_ms
 
 
+# sha1 of K10's output on probe_siddon_trace_3d's cases (the cone,
+# helical, flat-panel, tilted, z-FFS, motion_3d and K-edge rays through the
+# pelvis; a 12 x 40 x 40 grid, rays along each axis, rays that miss, 1, 33
+# and 1001 rays, labels up to 255, 1, 8, 9 and 32 materials), pinned from
+# the build of K10 before it took K18's 32-bit walk and kept its sums in
+# shared memory (NVIDIA H100 80GB HBM3, CUDA 12.8);
+# tests/test_torch_cuda.py holds the same
+K10_PINNED_SHA1 = {"cone": "7031af51f51aedf0de2ba9db78379d4f9c4b1275",
+                   "helical": "10663141f41bc05a2545fcef5f03cccc91818f03",
+                   "flat": "1da179aeb4fdaa30b41c46aad1a35cbac9fb3227",
+                   "tilted": "ff28c24268b538d31188ab6f05f9e21546b20006",
+                   "zffs": "b257a7431ea94c1715cc98695ebf6aa764045873",
+                   "motion_3d": "539c12aa492aca26968eda3501aeccf87fb1535b",
+                   "kedge": "9472efdef71b2686aa8c94189b3aff7f8035c00a",
+                   "tiny": "4faca69c156f371b5b3bf867ef99addc2052467f",
+                   "axis_x": "56ab3bf49f5db9ff8dfeeb09b46bbd38741e503d",
+                   "axis_y": "759930cd452519a2d2ac4c144ab6c4b801a7a28e",
+                   "axis_z": "178e482297d2004f2167483ffcf8bba6e1248dfb",
+                   "miss": "d31282669ed88d352b198c0afbd7a7dd53f6119c",
+                   "r1": "37c19cb51cea43a8b6a922413b0014cc73474a03",
+                   "r33": "e57435c182fd44a1f2b72704d0908767c0be9568",
+                   "r1001": "e1bb126027a4f6e286b79d26170be39e2cab4020",
+                   "labels_past": "c216b9ae0eb97299c9cbcb0561546fe2295a7978",
+                   "m1": "6fab5153bf3c10f3406f4fd1f09c26aa3f743da5",
+                   "m8": "7832f9824f90ea62d403d6e4001da641573928a9",
+                   "m9": "8eba7ae0501539bdd28c2ca8cc1419661f24a8d5",
+                   "m32": "eb4d71802c43b43eedcba1f8b883582a351df6a3"}
+
+
+def k10_pinned(label, paths, call):
+    """Whether K10's ``paths`` on the path ``label`` are their pinned sha1;
+    prints that and K10's device time there (``call``, a CUDA graph)."""
+    from dexct_tpu_torch.tools.probe_siddon_trace_3d import output_sha1
+
+    ok = output_sha1(paths) == K10_PINNED_SHA1[label]
+    print(f"  K10 on the {label} rays: pinned sha1 {ok}; device, CUDA graph "
+          f"of 20 calls: {graph_ms(call):.4f} ms")
+    return ok
+
+
+def k10_pinned_phase():
+    """K10 on the cases of ``K10_PINNED_SHA1`` that phase 3's cone and
+    helical records do not trace: each held to its pinned sha1, with its
+    device time (CUDA graph)."""
+    import torch
+
+    from dexct_tpu_torch.ops import conebeam
+    from dexct_tpu_torch.tools.probe_siddon_trace_3d import k10_call, pin_case
+
+    dev = torch.device("cuda")
+    pinned = True
+    for case in K10_PINNED_SHA1:
+        if case in ("cone", "helical"):
+            continue
+        call = k10_call(conebeam, pin_case(case, dev, ROOT))
+        pinned &= k10_pinned(case, call(), call)
+        del call
+    torch.cuda.empty_cache()
+    if not pinned:
+        fail("K10 is not its pinned sha1 on every case")
+
+
 def k6_taps(thetas, t0, dt, nt, n_matrix, fov, pixels=32768):
     """K6's backprojection taps as one CSR matrix [in-disc pixels, n_theta
     * nt]: per pixel and view on the detector, 1 - f at its channel c0 and
@@ -1561,32 +1629,32 @@ def cone_kernel_phase(arrays, meta, records, helical):
 
     a = arrays
     V, R, C = meta.vrc
+    # K10, bit for bit its plain version and its pinned sha1 (the helical
+    # rays timed apart from the cone record)
+    label = "helical" if helical else "cone"
+    args = (a["labels"], a["src"], a["dirs"], meta.dx, meta.dy, meta.dz)
+    kw = dict(n_materials=meta.n_materials)
+    paths, want, ms, pms = compare(
+        lambda: conebeam.trace_paths_3d(*args, **kw),
+        lambda: conebeam.trace_paths_3d_plain(*args, **kw), reps=2)
+    err = float((paths - want).abs().max())
+    ok = err == 0.0 and k10_pinned(
+        label, paths, lambda: conebeam.trace_paths_3d(*args, **kw))
+    del want
     if not helical:
-        args = (a["labels"], a["src"], a["dirs"], meta.dx, meta.dy, meta.dz)
-        kw = dict(n_materials=meta.n_materials)
-        paths, want, ms, pms = compare(
-            lambda: conebeam.trace_paths_3d(*args, **kw),
-            lambda: conebeam.trace_paths_3d_plain(*args, **kw), reps=2)
-        err = float((paths - want).abs().max())
         steps = walk_steps(paths, a["dirs"], (meta.dx, meta.dy, meta.dz))
-        report(records, "siddon_trace_3d", err, ms, pms, err <= 1e-4,
+        report(records, "siddon_trace_3d", err, ms, pms, ok,
                (nbytes(a["labels"], a["src"], a["dirs"], paths),
                 7 * steps + 60 * V * R * C),
-               extra=f" ({V * R * C} rays)")
-    else:  # K10 at the helical rays, timed apart from the cone record
-        args = (a["labels"], a["src"], a["dirs"], meta.dx, meta.dy, meta.dz)
-        kw = dict(n_materials=meta.n_materials)
-        paths, want, ms, pms = compare(
-            lambda: conebeam.trace_paths_3d(*args, **kw),
-            lambda: conebeam.trace_paths_3d_plain(*args, **kw), reps=2)
-        err = float((paths - want).abs().max())
+               extra=f" ({V * R * C} rays; max_abs_err 0 and the pinned "
+                     f"sha1 required; library: project_3d's phase)")
+    else:
         print(f"  siddon_trace_3d on the helical rays ({V * R * C} rays): "
               f"max_abs_err={err:.6g}  kernel={ms:.4f} ms  plain={pms:.4f} "
               f"ms  [{KERNELS['siddon_trace_3d'][3]}]")
-        if err > 1e-4:
-            fail("siddon_trace_3d disagrees with its plain version on the "
-                 "helical rays")
-        del want
+        if not ok:
+            fail("siddon_trace_3d is not bit for bit its plain version and "
+                 "its pinned sha1 on the helical rays")
     # decompose_counts's pixel blocks, as the step solves them
     check_counts_and_gn("helical" if helical else "cone", paths, a, meta,
                         65536)
@@ -2017,10 +2085,11 @@ def project_kernel_phase(ccfg, records):
     k10_err = float((sino - ref).abs().max())
     steps = walk_steps(paths, dirs, vox)
     n_rays = sino.numel()
+    every = 10
+    paths_sub = paths[::every].reshape(-1, ph.n_materials)
     del paths, want
 
     # every tenth view's rows of the system matrix, from the plain walk
-    every = 10
     s_sub = src[::every].reshape(-1, 3)
     d_sub = dirs[::every].reshape(-1, 3)
     n_sub = s_sub.shape[0]
@@ -2042,6 +2111,20 @@ def project_kernel_phase(ccfg, records):
     lib_err = float((torch.sparse.mm(A, x1).reshape(-1)
                      - sino[::every].reshape(-1)).abs().max())
     lib_fwd = time_ms(lambda: torch.sparse.mm(A, x1), 5) * scale
+    # K10's yardstick: the same rows by the one-hot [cells, M] label matrix
+    # (labels >= M in no column)
+    m = ph.n_materials
+    onehot = torch.nn.functional.one_hot(
+        labels.reshape(-1).long().clamp_max(m), m + 1)[:, :m].float()
+    k10_lib_err = float((torch.sparse.mm(A, onehot) - paths_sub).abs().max())
+    records["siddon_trace_3d"]["library_ms"] = time_ms(
+        lambda: torch.sparse.mm(A, onehot), 5) * scale
+    print(f"  siddon_trace_3d library: CSR torch.sparse.mm of the walk on "
+          f"every {every}th view ({nnz} nonzeros) by the one-hot label "
+          f"matrix x {scale:g}: "
+          f"{records['siddon_trace_3d']['library_ms']:.4f} ms, max abs "
+          f"{k10_lib_err:.3g} from K10's paths")
+    del onehot, paths_sub
     fwd_dev_ms = graph_ms(
         lambda: conebeam.project_volume_3d(vol, src, dirs, *vox))
     report(records, "project_3d", err, ms, pms,
@@ -6545,6 +6628,7 @@ def main():
             cone_kernel_phase(arrays, meta, records, label == "helical")
         del arrays
         torch.cuda.empty_cache()
+        k10_pinned_phase()
         project_kernel_phase(cone_cfgs["cone"], records)
         torch.cuda.empty_cache()
         pi_kernel_phase(cone_cfgs["helical"], records, dev)

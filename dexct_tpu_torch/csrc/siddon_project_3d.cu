@@ -27,7 +27,8 @@
 // whose fast axis runs along that face -- as it is, [nz, ny, nx], for rays
 // entering through a y face, its copy with x and y swapped, [nz, nx, ny]
 // (swap_xy_kernel, each call), through an x face -- by a vote of its rays.
-// The walk's set-up is siddon_walk_3d.cuh's, shared with K10 and K19.
+// The walk (walk32_run, step32), its set-up, the vote and the swap are
+// siddon_walk_3d.cuh's, shared with K10 (K19's build walks use walk_step).
 //
 // K19 was the same walk with a float32 atomicAdd of seg * y[ray] into the
 // volume per step: 4.1 ms against K18's 0.91 ms on the same walk at the
@@ -70,69 +71,11 @@
 namespace {
 
 using dexct_walk3d::Grid;
+using dexct_walk3d::kExitEvery;
 using dexct_walk3d::Walk;
-
-// K18's walk in 32 bits over one of two layouts of the volume.  A lane's
-// cell is the sum of three signed offsets, one an axis (index x stride),
-// and a step moves one of them by its stride, clamped into the axis's range:
-// walk_step's float operations, tie rule and clamps, with the address in
-// 32-bit integers and the three-way choice as selects.
-struct Walk32 {
-  float t, t_out, tnx, tny, tnz, dtx, dty, dtz;
-  int ox, oy, oz, stx, sty, stz, capx, capy, capz;
-};
-
-__device__ __forceinline__ Walk32 walk32(const Walk& w, const Grid& g,
-                                         int sx_stride, int sy_stride) {
-  const int sz_stride = g.nx * g.ny;
-  Walk32 v;
-  v.t = w.t, v.t_out = w.t_out;
-  v.tnx = w.tnx, v.tny = w.tny, v.tnz = w.tnz;
-  v.dtx = w.dtx, v.dty = w.dty, v.dtz = w.dtz;
-  v.ox = w.ix * sx_stride, v.oy = w.iy * sy_stride, v.oz = w.iz * sz_stride;
-  v.stx = w.sx * sx_stride, v.sty = w.sy * sy_stride;
-  v.stz = w.sz * sz_stride;
-  v.capx = (g.nx - 1) * sx_stride, v.capy = (g.ny - 1) * sy_stride;
-  v.capz = (g.nz - 1) * sz_stride;
-  return v;
-}
-
-// one instruction on sm_90 (VIADDMNMX.RELU)
-__device__ __forceinline__ int clamp_step(int o, int step, int cap) {
-  return max(min(o + step, cap), 0);
-}
-
-// One step: acc += seg * vol[cell] (a product, then a sum, each rounded),
-// then the walk advances.  fminf is exact, so min(tnx, min(tny, tnz)) is
-// walk_step's min(min(tnx, tny), tnz) up to the sign of a zero, which
-// changes no sum.  kMax: t_next = max(that, t), as walk_step takes it; once
-// no crossing lies behind t none ever does again (a step moves t to the
-// least crossing and that crossing forward), and the max is t_next itself.
-template <bool kMax>
-__device__ __forceinline__ void step32(Walk32& w, const float* __restrict__ v,
-                                       float& acc) {
-  const float m_yz = fminf(w.tny, w.tnz);
-  const float m = fminf(fminf(w.tnx, m_yz), w.t_out);
-  const float t_next = kMax ? fmaxf(m, w.t) : m;
-  const float seg = __fsub_rn(t_next, w.t);
-  acc = __fadd_rn(acc, __fmul_rn(seg, __ldg(v + (w.ox + w.oy + w.oz))));
-  const bool tx = w.tnx <= m_yz;
-  const bool ty = !tx && w.tny <= w.tnz;
-  const bool tz = !tx && !ty;
-  w.ox = tx ? clamp_step(w.ox, w.stx, w.capx) : w.ox;
-  w.oy = ty ? clamp_step(w.oy, w.sty, w.capy) : w.oy;
-  w.oz = tz ? clamp_step(w.oz, w.stz, w.capz) : w.oz;
-  w.tnx = tx ? __fadd_rn(w.tnx, w.dtx) : w.tnx;
-  w.tny = ty ? __fadd_rn(w.tny, w.dty) : w.tny;
-  w.tnz = tz ? __fadd_rn(w.tnz, w.dtz) : w.tnz;
-  w.t = t_next;
-}
+using dexct_walk3d::Walk32;
 
 constexpr int kThreads = 256;
-// steps between tests of the exit: past t_out a step adds seg = +0, which
-// leaves acc as it is (16 against 4 and 8: 0.456 against 0.481 and 0.464
-// ms at the cone protocol, H100, 700 W)
-constexpr int kExitEvery = 16;
 
 __global__ void __launch_bounds__(kThreads)
     project_3d_kernel(const float* __restrict__ vol,
@@ -147,53 +90,21 @@ __global__ void __launch_bounds__(kThreads)
   const float px = src[3 * q], py = src[3 * q + 1], pz = src[3 * q + 2];
   const float ux = dirs[3 * q], uy = dirs[3 * q + 1], uz = dirs[3 * q + 2];
   const Walk w0 = dexct_walk3d::walk_start(g, px, py, pz, ux, uy, uz);
-  // the face the ray enters by: an x plane when it reaches the x range
-  // last (a tie votes x)
-  const bool x_face = dexct_walk3d::axis_setup(px, ux, g.x0, g.x1).tmin >=
-                      dexct_walk3d::axis_setup(py, uy, g.y0, g.y1).tmin;
+  const bool x_face = dexct_walk3d::enters_by_x(g, px, py, ux, uy);
   const unsigned lanes = __ballot_sync(0xffffffffu, live);
   const unsigned votes = __ballot_sync(0xffffffffu, live && x_face);
   if (!live) return;
   const bool swapped = 2 * __popc(votes) > __popc(lanes);
   const float* v = swapped ? vol_yx : vol;
-  Walk32 w = swapped ? walk32(w0, g, g.ny, 1) : walk32(w0, g, 1, g.nx);
+  Walk32 w = swapped ? dexct_walk3d::walk32(w0, g, g.ny, 1)
+                     : dexct_walk3d::walk32(w0, g, 1, g.nx);
+  // a product, then a sum, each rounded: the plain version's operations
   float acc = 0.0f;
-  int k = 0;
-  for (; k < n_steps && w.t < w.t_out &&
-         fminf(fminf(w.tnx, w.tny), w.tnz) < w.t; ++k)
-    step32<true>(w, v, acc);
-  for (; k + kExitEvery <= n_steps && w.t < w.t_out; k += kExitEvery) {
-#pragma unroll
-    for (int u = 0; u < kExitEvery; ++u) step32<false>(w, v, acc);
-  }
-  for (; k < n_steps && w.t < w.t_out; ++k) step32<false>(w, v, acc);
+  auto gather = [&](float seg, int o) {
+    acc = __fadd_rn(acc, __fmul_rn(seg, __ldg(v + o)));
+  };
+  dexct_walk3d::walk32_run<kExitEvery>(w, n_steps, gather);
   out[r] = acc;
-}
-
-// x and y of each slice swapped through 32 x 32 tiles in shared memory:
-// vol [nz, ny, nx] -> out [nz, nx, ny].  Bound by bytes: 8.4 MB read and
-// written at the cone protocol.
-constexpr int kTile = 32;
-
-__global__ void swap_xy_kernel(const float* __restrict__ vol,
-                               float* __restrict__ out, int nx, int ny,
-                               int nz) {
-  __shared__ float tile[kTile][kTile + 1];
-  const int x0 = blockIdx.x * kTile, y0 = blockIdx.y * kTile;
-  for (int z = blockIdx.z; z < nz; z += gridDim.z) {
-    const float* s = vol + (long long)z * nx * ny;
-    float* d = out + (long long)z * nx * ny;
-    for (int j = threadIdx.y; j < kTile; j += blockDim.y) {
-      const int x = x0 + threadIdx.x, y = y0 + j;
-      if (x < nx && y < ny) tile[j][threadIdx.x] = s[y * nx + x];
-    }
-    __syncthreads();
-    for (int j = threadIdx.y; j < kTile; j += blockDim.y) {
-      const int y = y0 + threadIdx.x, x = x0 + j;
-      if (x < nx && y < ny) d[x * ny + y] = tile[threadIdx.x][j];
-    }
-    __syncthreads();
-  }
 }
 
 // The build's walks, one thread per ray of the block: kFill false counts
@@ -351,13 +262,9 @@ __global__ void backproject_3d_gather_kernel(
 // vol [nz, ny, nx] -> out [nz, nx, ny]
 extern "C" int dexct_swap_xy(const void* vol, void* out, int nx, int ny,
                              int nz, void* stream) {
-  if ((long long)nx * ny * nz <= 0) return (int)cudaGetLastError();
-  const dim3 grid((nx + kTile - 1) / kTile, (ny + kTile - 1) / kTile,
-                  nz < 65535 ? nz : 65535);
-  swap_xy_kernel<<<grid, dim3(kTile, 8), 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(vol), static_cast<float*>(out), nx, ny, nz);
-  return (int)cudaGetLastError();
+  return (int)dexct_walk3d::launch_swap_xy(
+      static_cast<const float*>(vol), static_cast<float*>(out), nx, ny, nz,
+      static_cast<cudaStream_t>(stream));
 }
 
 // vol [nz, ny, nx], vol_yx its copy [nz, nx, ny] (dexct_swap_xy), src/dirs

@@ -7,21 +7,40 @@
 // fixed-trip trace_paths_3d (an Nx+Ny+Nz+2-step lax.scan).  They compute
 // the same numbers; the packed forms exist because a TPU pays per gather.
 //
-// What bounds it on the card: one dependent label load per traversal step
-// (latency: the uint8 volume, 3 MB for 256 x 256 x 48, stays in L2) plus
-// ~20 float ops; the total work is the number of voxels the rays cross.
-// Design: one thread per ray walks only its own steps (the loop ends at
-// t_out instead of running the fixed trip), labels are uint8 read through
-// the read-only cache, the M per-material sums live in registers (M is a
-// template parameter, a label adds its segment through an unrolled select),
-// and the output is written in natural [V, R, C, M] order, so the TPU
-// path's inverse ray-plan permute is gone.  Neighbouring threads are
-// neighbouring channels of one detector row, whose walks are alike.
+// What bounds it on the card: the instructions of a traversal step.  The
+// cone protocol's 1.47M rays take 470M steps; the labels, 2.1 MB (3.1 MB
+// on the helix), stay in L2.  The first K10 walked with a 64-bit cell and
+// an if/else axis choice, tested the exit every step and added each
+// segment to all M sums in registers through an unrolled select: 61 SASS
+// instructions a step at M = 7, 0.97 ms at one instruction a clock on
+// each of the 528 schedulers, against its 1.27 ms (H100, 700 W).  This one:
 //
-// The ray set-up and step are siddon_walk_3d.cuh's (shared with K18 and
-// K19): trace_paths_3d's axis_setup / cell_and_crossing in float32
-// operation by operation.  Stopping at t_out is exact: from there on every
-// segment of the fixed-trip walk is 0.
+// - walks with K18's step (siddon_walk_3d.cuh: walk32_run, step32): 32-bit
+//   offsets, the axis chosen by selects, the max with t only while a
+//   crossing lies behind t, the exit tested every 16 steps (a step past
+//   t_out adds a segment of +0);
+// - keeps the per-material sums in shared memory, acc[min(label, M)][lane of
+//   the block], row M a dump for labels >= n_materials: a step is one uint8
+//   load, an address, LDS, FADD, STS in place of M selects and adds, with
+//   no bank conflicts (a lane's bank is its threadIdx.x % 32 in every row),
+//   and the array sized by the runtime n_materials (no template on M);
+// - reads the labels as they are, [nz, ny, nx], or from their copy with x
+//   and y swapped, [nz, nx, ny] (swap_xy_kernel<uint8_t>, each call, into
+//   the wrapper's scratch), by the warp's vote on the face its rays enter
+//   by, as K18 does: without it an x-dominant warp's loads, nx bytes
+//   apart, touch a line a lane (0.88 against 0.55 ms).
+//
+// 24.4 instructions a step, 0.39 ms at one instruction a clock on each
+// scheduler, against 0.55 ms at the cone protocol and 1.07 ms on the helix
+// (H100, 700 W; tools/probe_siddon_trace_3d.py --steps times each step of
+// this design).
+//
+// Bit for bit the first K10: each material's sum takes that material's
+// segments one at a time, in step order, with __fadd_rn; the adds dropped
+// are the +0 adds to the other materials' sums, which never change a sum
+// (sums start at +0 and segments are >= +0, because the walk's t_next >=
+// t).  Neighbouring threads are neighbouring channels of one detector row,
+// whose walks are alike.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,79 +50,74 @@
 namespace {
 
 using dexct_walk3d::Grid;
+using dexct_walk3d::kExitEvery;
 using dexct_walk3d::Walk;
+using dexct_walk3d::Walk32;
 
-template <int M>
-__global__ void siddon_trace_3d_kernel(
-    const uint8_t* __restrict__ labels, const float* __restrict__ src,
-    const float* __restrict__ dirs, float* __restrict__ out, long long n_rays,
-    int n_out, Grid g, int n_steps) {
-  const long long r = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (r >= n_rays) return;
-  Walk w = dexct_walk3d::walk_start(g, src[3 * r], src[3 * r + 1],
-                                    src[3 * r + 2], dirs[3 * r],
-                                    dirs[3 * r + 1], dirs[3 * r + 2]);
-  float acc[M];
-#pragma unroll
-  for (int m = 0; m < M; ++m) acc[m] = 0.0f;
+constexpr int kThreads = 256;
+// a block's sums: (n_materials + 1) rows of kThreads floats in the 48 KB a
+// block takes without opting in
+constexpr int kMaxSums = 48 * 1024 / (4 * kThreads);
 
-  for (int k = 0; k < n_steps && w.t < w.t_out; ++k) {
-    long long cell;
-    const float seg = dexct_walk3d::walk_step(w, g, cell);
-    const int lab = __ldg(labels + cell);
-#pragma unroll
-    for (int m = 0; m < M; ++m) acc[m] += (lab == m) ? seg : 0.0f;
+__global__ void __launch_bounds__(kThreads) siddon_trace_3d_kernel(
+    const uint8_t* __restrict__ labels, const uint8_t* __restrict__ labels_yx,
+    const float* __restrict__ src, const float* __restrict__ dirs,
+    float* __restrict__ out, long long n_rays, int n_mat, Grid g,
+    int n_steps) {
+  extern __shared__ float acc[];  // [n_mat + 1][kThreads]
+  const int lane = threadIdx.x;
+  const long long r = (long long)blockIdx.x * kThreads + lane;
+  const bool live = r < n_rays;
+  float* col = acc + lane;  // this ray's sums, a row apart
+  for (int m = 0; m <= n_mat; ++m) col[m * kThreads] = 0.0f;
+  const long long q = live ? r : 0;
+  const float px = src[3 * q], py = src[3 * q + 1], pz = src[3 * q + 2];
+  const float ux = dirs[3 * q], uy = dirs[3 * q + 1], uz = dirs[3 * q + 2];
+  const Walk w0 = dexct_walk3d::walk_start(g, px, py, pz, ux, uy, uz);
+  const bool x_face = dexct_walk3d::enters_by_x(g, px, py, ux, uy);
+  const unsigned lanes = __ballot_sync(0xffffffffu, live);
+  const unsigned votes = __ballot_sync(0xffffffffu, live && x_face);
+  if (live) {
+    const bool swapped = 2 * __popc(votes) > __popc(lanes);
+    const uint8_t* lab = swapped ? labels_yx : labels;
+    Walk32 w = swapped ? dexct_walk3d::walk32(w0, g, g.ny, 1)
+                       : dexct_walk3d::walk32(w0, g, 1, g.nx);
+    auto add = [&](float seg, int o) {
+      float* sum = col + min((int)__ldg(lab + o), n_mat) * kThreads;
+      *sum = __fadd_rn(*sum, seg);
+    };
+    dexct_walk3d::walk32_run<kExitEvery>(w, n_steps, add);
+    // the ray's row, from its own column: a barrier and the block's tile
+    // written coalesced instead took 3 % longer
+    float* o = out + r * n_mat;
+    for (int m = 0; m < n_mat; ++m) o[m] = col[m * kThreads];
   }
-  float* o = out + r * n_out;
-#pragma unroll
-  for (int m = 0; m < M; ++m)  // unrolled: acc[] never leaves registers
-    if (m < n_out) o[m] = acc[m];
-}
-
-template <int M>
-void launch(const uint8_t* labels, const float* src, const float* dirs,
-            float* out, long long n_rays, int n_out, const Grid& g,
-            int n_steps, cudaStream_t stream) {
-  const int threads = 256;
-  const long long blocks = (n_rays + threads - 1) / threads;
-  siddon_trace_3d_kernel<M><<<(unsigned)blocks, threads, 0, stream>>>(
-      labels, src, dirs, out, n_rays, n_out, g, n_steps);
 }
 
 }  // namespace
 
+// labels [nz, ny, nx] uint8, labels_yx [nz, nx, ny] scratch (filled here),
+// src/dirs [n_rays, 3] -> out [n_rays, n_materials]
 extern "C" int dexct_siddon_trace_3d(
-    const void* labels, const void* src, const void* dirs, void* out,
-    long long n_rays, int nx, int ny, int nz, int n_materials, float x0,
-    float y0, float z0, float x1, float y1, float z1, float dx, float dy,
-    float dz, float eps, int n_steps, void* stream) {
-  const uint8_t* l = static_cast<const uint8_t*>(labels);
-  const float* s = static_cast<const float*>(src);
-  const float* d = static_cast<const float*>(dirs);
-  float* o = static_cast<float*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const void* labels, void* labels_yx, const void* src, const void* dirs,
+    void* out, long long n_rays, int nx, int ny, int nz, int n_materials,
+    float x0, float y0, float z0, float x1, float y1, float z1, float dx,
+    float dy, float dz, float eps, int n_steps, void* stream) {
   if (n_rays <= 0) return (int)cudaGetLastError();
+  if (n_materials < 1 || n_materials + 1 > kMaxSums)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint8_t* l = static_cast<const uint8_t*>(labels);
+  uint8_t* l_yx = static_cast<uint8_t*>(labels_yx);
+  const cudaError_t err = dexct_walk3d::launch_swap_xy(l, l_yx, nx, ny, nz,
+                                                       st);
+  if (err != cudaSuccess) return (int)err;
   const Grid g{nx, ny, nz, x0, y0, z0, x1, y1, z1, dx, dy, dz, eps};
-#define DEXCT_CASE(MM) \
-  launch<MM>(l, s, d, o, n_rays, n_materials, g, n_steps, st)
-  switch (n_materials) {
-    case 1: DEXCT_CASE(1); break;
-    case 2: DEXCT_CASE(2); break;
-    case 3: DEXCT_CASE(3); break;
-    case 4: DEXCT_CASE(4); break;
-    case 5: DEXCT_CASE(5); break;
-    case 6: DEXCT_CASE(6); break;
-    case 7: DEXCT_CASE(7); break;
-    case 8: DEXCT_CASE(8); break;
-    default:
-      if (n_materials <= 16) {
-        DEXCT_CASE(16);
-      } else if (n_materials <= 32) {
-        DEXCT_CASE(32);
-      } else {
-        return (int)cudaErrorInvalidValue;
-      }
-  }
-#undef DEXCT_CASE
+  const long long blocks = (n_rays + kThreads - 1) / kThreads;
+  const size_t smem = sizeof(float) * (n_materials + 1) * kThreads;
+  siddon_trace_3d_kernel<<<(unsigned)blocks, kThreads, smem, st>>>(
+      l, l_yx, static_cast<const float*>(src),
+      static_cast<const float*>(dirs), static_cast<float*>(out), n_rays,
+      n_materials, g, n_steps);
   return (int)cudaGetLastError();
 }

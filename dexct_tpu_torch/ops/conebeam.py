@@ -6,10 +6,13 @@ behind a wrapper that dispatches on the device of its tensors (CUDA tensors
 launch the kernel, CPU tensors run the plain PyTorch version beside it):
 
 - :func:`trace_paths_3d`: K10 (``csrc/siddon_trace_3d.cu``), the exact 3-D
-  Siddon trace, one thread per ray walking only the voxels it crosses.  On
-  the card it replaces the JAX package's packed dominant-axis cone tracers
-  (label packs, ray plans and bundles are TPU gather-count layouts of the
-  same paths) as well as its ``trace_paths_3d``;
+  Siddon trace, one thread per ray walking only the voxels it crosses with
+  K18's 32-bit step (``csrc/siddon_walk_3d.cuh``), its per-material sums in
+  shared memory, the labels read as they are or x/y-swapped by a vote of
+  each warp's rays; bound by the instructions of a step.  On the card it
+  replaces the JAX package's packed dominant-axis cone tracers (label
+  packs, ray plans and bundles are TPU gather-count layouts of the same
+  paths) as well as its ``trace_paths_3d``;
 - :func:`_fdk_backproject_multi`: K11 (``csrc/cone_backproject.cu``), the
   voxel-driven circular FDK backprojection of K filtered stacks;
 - :func:`_helical_backproject`: K12 (the same source), the
@@ -168,25 +171,31 @@ def trace_paths_3d_plain(labels, src, dirs, dx, dy, dz, *, n_materials):
 
 def labels_u8(labels, device):
     """A label volume as the contiguous uint8 tensor the kernel reads,
-    after checking that every label fits.  Host labels are checked and
-    converted on the host, then go up through :func:`upload`."""
-    if not torch.is_tensor(labels):
-        lab = np.asarray(labels)
-        if lab.dtype != np.uint8:
-            if lab.size and (int(lab.min()) < 0 or int(lab.max()) > 255):
-                raise ValueError("material labels must lie in 0..255")
-            lab = lab.astype(np.uint8)
-        return upload(np.ascontiguousarray(lab), device)
-    lab = torch.as_tensor(labels, device=device)
-    if lab.dtype != torch.uint8:
-        if lab.numel() and (int(lab.min()) < 0 or int(lab.max()) > 255):
+    after checking that every label fits.  Host labels (arrays and CPU
+    tensors) are checked and converted on the host, then go up through
+    :func:`upload`; a uint8 tensor on the card passes as it is, one of
+    another dtype there is checked by one read-back (its ``aminmax``) and
+    converted there."""
+    if torch.is_tensor(labels) and labels.device.type != "cpu":
+        lab = labels.to(device)
+        if lab.dtype != torch.uint8:
+            if lab.numel():
+                lo, hi = torch.stack(torch.aminmax(lab)).tolist()
+                if lo < 0 or hi > 255:
+                    raise ValueError("material labels must lie in 0..255")
+            lab = lab.to(torch.uint8)
+        return lab.contiguous()
+    lab = labels.numpy() if torch.is_tensor(labels) else np.asarray(labels)
+    if lab.dtype != np.uint8:
+        if lab.size and (int(lab.min()) < 0 or int(lab.max()) > 255):
             raise ValueError("material labels must lie in 0..255")
-        lab = lab.to(torch.uint8)
-    return lab.contiguous()
+        lab = lab.astype(np.uint8)
+    return upload(np.ascontiguousarray(lab), device)
 
 
 def _trace_paths_3d_cuda(labels, src, dirs, dx, dy, dz, n_materials):
     nz, ny, nx = labels.shape
+    _check_int32_cells(labels.shape)
     dev = src.device
     lab = labels_u8(labels, dev)
     src2 = src.reshape(-1, 3).to(torch.float32).contiguous()
@@ -195,11 +204,13 @@ def _trace_paths_3d_cuda(labels, src, dirs, dx, dy, dz, n_materials):
                             src2.shape)
     n_rays = src2.shape[0]
     out = torch.empty((n_rays, n_materials), dtype=torch.float32, device=dev)
+    # the labels with x and y swapped, made by the C call ahead of the walk
+    lab_yx = torch.empty((nz, nx, ny), dtype=torch.uint8, device=dev)
     g0, g1, eps = _grid_3d((nz, ny, nx), dx, dy, dz)
     rc = kernels.library().dexct_siddon_trace_3d(
-        lab.data_ptr(), src2.data_ptr(), dirs2.data_ptr(), out.data_ptr(),
-        n_rays, nx, ny, nz, n_materials, *g0, *g1, dx, dy, dz, eps,
-        _max_steps((nz, ny, nx)), kernels.stream_ptr(dev))
+        lab.data_ptr(), lab_yx.data_ptr(), src2.data_ptr(), dirs2.data_ptr(),
+        out.data_ptr(), n_rays, nx, ny, nz, n_materials, *g0, *g1, dx, dy,
+        dz, eps, _max_steps((nz, ny, nx)), kernels.stream_ptr(dev))
     kernels.check(rc, "siddon_trace_3d")
     trace_paths_3d.launches += 1
     return out.reshape(*src.shape[:-1], n_materials)
@@ -665,14 +676,14 @@ def _walk_args(shape, dx, dy, dz, n_steps):
     return (nx, ny, nz, *g0, *g1, dx, dy, dz, eps, n_steps)
 
 
-# K18 addresses the volume with 32-bit indices
+# K10 and K18 address the volume with 32-bit indices
 _MAX_CELLS = 2 ** 31 - 1
 
 
 def _check_int32_cells(shape):
     n = int(np.prod([int(s) for s in shape]))
     if n > _MAX_CELLS:
-        raise ValueError(f"the volume has {n} cells; the card's projector "
+        raise ValueError(f"the volume has {n} cells; the card's 3-D walk "
                          f"takes at most 2^31 - 1 = {_MAX_CELLS}")
 
 
@@ -1460,7 +1471,7 @@ def _tilted_indices(tau, n_matrix, fov, nz, dz, device):
     yi = (y_g / px_g + n_g / 2 - 0.5)[:, :, None]
     zi = (z_g / dz + nz_g / 2 - 0.5)[:, :, None]
     xi = (xs / px_g + n_g / 2 - 0.5)[None, None, :]
-    return tuple(torch.as_tensor(t, device=device) for t in (zi, yi, xi))
+    return tuple(upload(t, device) for t in (zi, yi, xi))
 
 
 def helical_slices(ct, z_out=None):

@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from ..utils import kernels
-from ..utils.devices import as_float, device_of
+from ..utils.devices import as_float, device_of, upload
 
 __all__ = ["MotionProfile", "rays_in_object_frame",
            "material_path_sinogram_motion", "fan_backproject_motion",
@@ -242,8 +242,7 @@ def cone_material_paths_motion(phantom, geometry, motion, *, device=None,
     src_o, dirs_o = rays_in_object_frame(src, dirs, motion.phi, motion.disp)
     return trace_paths_3d(
         labels_u8(np.asarray(phantom.labels), dev),
-        torch.as_tensor(src_o, dtype=dtype, device=dev),
-        torch.as_tensor(dirs_o, dtype=dtype, device=dev),
+        upload(src_o, dev, dtype), upload(dirs_o, dev, dtype),
         phantom.dx, phantom.dy, phantom.dz, n_materials=phantom.n_materials)
 
 

@@ -33,6 +33,7 @@ from ..ops.conebeam import (WEIGHTINGS, _fdk_backproject_multi,
                             trace_paths_3d)
 from ..ops.fbp import filter_views, hu_image
 from ..ops.filters import filter_frequency_response
+from ..utils.devices import upload
 from .fused import decompose_counts
 
 __all__ = ["ConeDectMeta", "pack_cone_dect", "unsupported_geometry",
@@ -177,13 +178,14 @@ def pack_cone_dect(ct, phantom, spec1, spec2, n_matrix, fov, ramp, *,
     if noise == "compound":
         host["i2_1"] = sp_ops.second_moment_fluence(spec1, ct)
         host["i2_2"] = sp_ops.second_moment_fluence(spec2, ct)
+    # host tables and float64 rays cast to float32 on the host, then up
+    # through pinned memory (NumPy's and torch's roundings are the same)
     dtypes = {**_ARRAY_DTYPES, **_OPTIONAL_DTYPES}
-    arrays = {k: torch.as_tensor(np.asarray(v), dtype=dtypes[k],
-                                 device=device) for k, v in host.items()}
+    arrays = {k: upload(np.asarray(v), device, dtypes[k])
+              for k, v in host.items()}
     arrays["labels"] = labels_u8(np.asarray(phantom.labels), device)
-    arrays["src"] = torch.as_tensor(src, dtype=torch.float32, device=device)
-    arrays["dirs"] = torch.as_tensor(dirs, dtype=torch.float32,
-                                     device=device)
+    arrays["src"] = upload(src, device, torch.float32)
+    arrays["dirs"] = upload(dirs, device, torch.float32)
     meta = ConeDectMeta(
         n_materials=int(phantom.n_materials),
         n_matrix=int(n_matrix),
@@ -222,13 +224,10 @@ def cone_arrays_from_numpy(arrays_np, device, labels, src, dirs):
     out = {}
     for k, dtype in {**_ARRAY_DTYPES, **_OPTIONAL_DTYPES}.items():
         if k in arrays_np:
-            out[k] = torch.as_tensor(np.array(arrays_np[k]), dtype=dtype,
-                                     device=device)
+            out[k] = upload(np.array(arrays_np[k]), device, dtype)
     out["labels"] = labels_u8(np.asarray(labels), device)
-    out["src"] = torch.as_tensor(np.asarray(src), dtype=torch.float32,
-                                 device=device)
-    out["dirs"] = torch.as_tensor(np.asarray(dirs), dtype=torch.float32,
-                                  device=device)
+    out["src"] = upload(np.asarray(src), device, torch.float32)
+    out["dirs"] = upload(np.asarray(dirs), device, torch.float32)
     return out
 
 

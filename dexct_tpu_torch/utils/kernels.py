@@ -105,10 +105,10 @@ _SIGNATURES = {
     "dexct_analytic_chords": (_P, _P, _P, _P, _P, _L, _I, _I, _P),
     # paths, mu, i0, i2 (null: none), out, var, n_rays, n_m, n_e, stream
     "dexct_spectral_counts": (_P,) * 6 + (_L, _I, _I, _P),
-    # labels, src, dirs, out, n_rays, nx, ny, nz, n_out, x0, y0, z0, x1,
-    # y1, z1, dx, dy, dz, eps, n_steps, stream
-    "dexct_siddon_trace_3d": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _F, _F,
-                              _F, _F, _F, _F, _F, _F, _F, _F, _I, _P),
+    # labels, labels_yx (scratch), src, dirs, out, n_rays, nx, ny, nz,
+    # n_out, x0, y0, z0, x1, y1, z1, dx, dy, dz, eps, n_steps, stream
+    "dexct_siddon_trace_3d": (_P,) * 5 + (_L,) + (_I,) * 4 + (_F,) * 10
+                             + (_I, _P),
     # qs, cos_b, sin_b, X, Y, sel, zc, out, n_images, V, R, C, P, nz,
     # plane, sid, dgamma, row_h, dbeta, stream
     "dexct_fdk_backproject": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -86,12 +86,15 @@ def _np(x):
 # K10: the 3-D trace
 # ---------------------------------------------------------------------------
 
-def test_trace_paths_3d_matches_jax():
-    """Random labels (4 materials, one label past n_materials), the rays of
-    a small cone scan and random rays, some axis-parallel and some
-    missing the grid."""
+@pytest.mark.parametrize("n_materials", [1, 4, 9, 32])
+def test_trace_paths_3d_matches_jax(n_materials):
+    """Random labels (n_materials materials, one label past them), the
+    rays of a small cone scan and random rays, some axis-parallel and some
+    missing the grid: the material counts whose card route differed while
+    K10 took M as a template parameter (exact, 4, the 16-wide and 32-wide
+    templates)."""
     rng = np.random.default_rng(0)
-    labels = rng.integers(0, 5, (6, 10, 12)).astype(np.int32)
+    labels = rng.integers(0, n_materials + 1, (6, 10, 12)).astype(np.int32)
     ct = ConeBeamGeometry(N_channels=24, N_proj=12, N_rows=4,
                           gamma_fan=0.8230337, SID=30.0, SDD=50.0,
                           h_iso=0.6)
@@ -106,12 +109,12 @@ def test_trace_paths_3d_matches_jax():
     args = (0.9, 0.8, 1.1)
     want = np.asarray(j_cb.trace_paths_3d(
         jnp.asarray(labels), jnp.asarray(src, jnp.float32),
-        jnp.asarray(dirs, jnp.float32), *args, n_materials=4))
+        jnp.asarray(dirs, jnp.float32), *args, n_materials=n_materials))
     got = t_cb.trace_paths_3d(
         torch.as_tensor(labels), torch.as_tensor(src, dtype=torch.float32),
         torch.as_tensor(dirs, dtype=torch.float32), *args,
-        n_materials=4).numpy()
-    assert got.shape == want.shape == (src.shape[0], 4)
+        n_materials=n_materials).numpy()
+    assert got.shape == want.shape == (src.shape[0], n_materials)
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-4)
     assert (want[:-256].sum(-1) > 0.0).mean() > 0.3  # the scan hits it
 

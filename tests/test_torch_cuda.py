@@ -2174,6 +2174,62 @@ def test_k6_two_launches_are_equal(dev, case):
     assert torch.equal(call(), call())
 
 
+# sha1 of K10's output on the cases of probe_siddon_trace_3d.PIN_CASES (the
+# cone, helical, flat-panel, tilted, z-FFS, motion_3d and K-edge rays
+# through the pelvis; a 12 x 40 x 40 grid, rays along each axis, rays that
+# miss, 1, 33 and 1001 rays, labels up to 255, 1, 8, 9 and 32 materials),
+# from the build of K10 before it took K18's 32-bit walk and kept its sums
+# in shared memory (NVIDIA H100 80GB HBM3, CUDA 12.8); chip_smoke.py holds
+# the same
+K10_PINNED_SHA1 = {"cone": "7031af51f51aedf0de2ba9db78379d4f9c4b1275",
+                   "helical": "10663141f41bc05a2545fcef5f03cccc91818f03",
+                   "flat": "1da179aeb4fdaa30b41c46aad1a35cbac9fb3227",
+                   "tilted": "ff28c24268b538d31188ab6f05f9e21546b20006",
+                   "zffs": "b257a7431ea94c1715cc98695ebf6aa764045873",
+                   "motion_3d": "539c12aa492aca26968eda3501aeccf87fb1535b",
+                   "kedge": "9472efdef71b2686aa8c94189b3aff7f8035c00a",
+                   "tiny": "4faca69c156f371b5b3bf867ef99addc2052467f",
+                   "axis_x": "56ab3bf49f5db9ff8dfeeb09b46bbd38741e503d",
+                   "axis_y": "759930cd452519a2d2ac4c144ab6c4b801a7a28e",
+                   "axis_z": "178e482297d2004f2167483ffcf8bba6e1248dfb",
+                   "miss": "d31282669ed88d352b198c0afbd7a7dd53f6119c",
+                   "r1": "37c19cb51cea43a8b6a922413b0014cc73474a03",
+                   "r33": "e57435c182fd44a1f2b72704d0908767c0be9568",
+                   "r1001": "e1bb126027a4f6e286b79d26170be39e2cab4020",
+                   "labels_past": "c216b9ae0eb97299c9cbcb0561546fe2295a7978",
+                   "m1": "6fab5153bf3c10f3406f4fd1f09c26aa3f743da5",
+                   "m8": "7832f9824f90ea62d403d6e4001da641573928a9",
+                   "m9": "8eba7ae0501539bdd28c2ca8cc1419661f24a8d5",
+                   "m32": "eb4d71802c43b43eedcba1f8b883582a351df6a3"}
+
+
+@pytest.mark.parametrize("case", list(K10_PINNED_SHA1))
+def test_k10_keeps_its_pinned_bits(dev, case):
+    """K10 gives the first K10's output bit for bit on the paths' rays and
+    on the ragged cases, in one launch."""
+    from dexct_tpu_torch.ops import conebeam
+    from dexct_tpu_torch.tools.probe_siddon_trace_3d import (k10_call,
+                                                             output_sha1,
+                                                             pin_case)
+
+    args = pin_case(case, dev)
+    before = conebeam.trace_paths_3d.launches
+    out = k10_call(conebeam, args)()
+    torch.cuda.synchronize()
+    assert conebeam.trace_paths_3d.launches == before + 1
+    assert out.shape == (*args[1].shape[:-1], args[4])
+    assert output_sha1(out) == K10_PINNED_SHA1[case]
+
+
+@pytest.mark.parametrize("case", ["helical", "r1001", "m32"])
+def test_k10_two_launches_are_equal(dev, case):
+    from dexct_tpu_torch.ops import conebeam
+    from dexct_tpu_torch.tools.probe_siddon_trace_3d import k10_call, pin_case
+
+    call = k10_call(conebeam, pin_case(case, dev))
+    assert torch.equal(call(), call())
+
+
 def test_k3_makes_no_host_synchronisation(dev):
     """K3 reads its count scale on the card: a solve copies nothing from
     the host and reads nothing back, at a pixel count ragged against its

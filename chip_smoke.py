@@ -60,9 +60,17 @@ of JAX.  Phases, each of which raises on failure:
    512^2 pelvis, rolled), also bitwise against K1 on each slice (K1 over
    the 8 slices is its yardstick); K5 at 16 taps on the in-plane FFS plan
    of the reference protocol (500 x 1600 bins).  K12 in each of its six
-   gFDK weightings on the helical config; K18 and K19 (the exact 3-D
-   projector and its adjoint) on the cone config's rays and mu[labels] at
-   60 keV, K18 also against K10's paths . mu and K19 through the
+   gFDK weightings on the helical config and at the z-FFS call, each with
+   its device time under a CUDA graph, and held to the sha1s pinned from
+   its build before it formed each (pixel, view)'s in-plane geometry once
+   for a group of slices (``K12_PINNED_SHA1``: the helical config's seeded
+   stacks in each weighting at K = 4 and at K = 1, 2, 3, the z-FFS call,
+   ragged cases), two launches equal; K8, K11, K13, K15, K32 and K33 with
+   their device times (K8 under a CUDA graph at the reference protocol's
+   and at the one-step fit's plans; the rest under torch.profiler, their
+   wrappers' host copies being outside a graph's reach); K18 and K19 (the
+   exact 3-D projector and its adjoint) on the cone config's rays and
+   mu[labels] at 60 keV, K18 also against K10's paths . mu and K19 through the
    dot-product identity, both against the system matrix's CSR product on
    every tenth view, each with its device time under a CUDA graph; K19's
    transposed table built by its kernels against the plain builder's,
@@ -834,6 +842,40 @@ def graph_ms(fn, calls=20, reps=5):
     return ms
 
 
+def kernel_device_ms(fn, name, calls=10):
+    """Device time [ms] of the kernels whose names hold ``name``, per call
+    of ``fn``: ``calls`` calls under torch.profiler, the matching kernels'
+    own device time summed over them (for wrappers that a CUDA graph cannot
+    capture); None where the profiler saw none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU or name not in e.key:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        us += float(t or 0.0)
+    return us / 1e3 / calls if us > 0.0 else None
+
+
+def device_note(ms, how="profiler, 10 calls"):
+    """`` ; device <ms> ms (<how>)``, or that it was not measured."""
+    if ms is None:
+        return "; device not measured (the profiler saw no kernel time)"
+    return f"; device {ms:.4f} ms ({how})"
+
+
 def compare(kernel_fn, plain_fn, reps, plain_reps=None):
     """Kernel and plain outputs and their times, measured in turns (plain,
     kernel, kernel, plain) within this call; the plain version over
@@ -1268,6 +1310,60 @@ def k10_pinned_phase():
         fail("K10 is not its pinned sha1 on every case")
 
 
+# sha1 of K12's output on probe_cone_backproject's cases (the helical
+# config's seeded stacks in each of the six weightings at K = 4 and in
+# `full` at K = 1, 2, 3; the z flying focal spot's call at pitch 0 with its
+# row offsets; a 37^2 grid of 1085 disc pixels with one slice whose window
+# runs off both ends of a 50-view helix, in each weighting, and 7 slices
+# over two turns with random row offsets), pinned from the build of K12
+# before it formed each (pixel, view)'s in-plane geometry once for a group
+# of slices and read packed taps (NVIDIA H100 80GB HBM3, CUDA 12.8);
+# tests/test_torch_cuda.py holds the same
+K12_PINNED_SHA1 = {
+    "helical_full": "f8cbc7de45238c970779fb93d32b9bad07bb3558",
+    "helical_feather": "ae142534b059cb049af71b59ac65d9943b8c7b94",
+    "helical_td": "eed052dbc259b55b3f24c35278c83069e1c57454",
+    "helical_cosz": "0aa97bfd29efc2bb8a5f11bcfc3c752f37f8e03c",
+    "helical_short": "c43d03147773c79913db52934093572707ff11aa",
+    "helical_pair": "c53f9fd5f8517557dba28002944e3dfa3c8b7937",
+    "zffs": "92e0a1b7f66df7f0cfd0e5b97bfa4d9265edcc28",
+    "k1": "e30c9a823e2bfb4dbd5c7ae605e5973445e54578",
+    "k2": "da7d1d651df4300385e67e12ab4596d2feba360c",
+    "k3": "819d64d98442e2c14864b84ae7a2f58c3f1abb55",
+    "ragged_full": "60cce521c93173c7d83e720e9a74e586ce759070",
+    "ragged_feather": "7cc0bc54700d4c9566d4cb6a9141ff5bfae36594",
+    "ragged_td": "fa43c7afc850540ca7df501fff950108afe8e108",
+    "ragged_cosz": "d093d98e3e8dd0919d295aeb7924947cfa0b083a",
+    "ragged_short": "d5f687fccd0f4274073bf302b83c4e07973b0eb2",
+    "ragged_pair": "535623a493b751249c100293f9d01532973fa4a8",
+    "ragged_nz7": "eab1da458b69463270924c7e79f4621d56d60162"}
+
+
+def k12_pinned_phase():
+    """K12 on the cases of ``K12_PINNED_SHA1``: each held to its pinned
+    sha1, and two launches equal."""
+    import torch
+
+    from dexct_tpu_torch.ops import conebeam
+    from dexct_tpu_torch.tools.probe_cone_backproject import (k12_call,
+                                                              output_sha1,
+                                                              pin_case)
+
+    dev = torch.device("cuda")
+    pinned = twice = True
+    for case, sha1 in K12_PINNED_SHA1.items():
+        call = k12_call(conebeam, pin_case(case, dev, ROOT))
+        a = call()
+        pinned &= output_sha1(a) == sha1
+        twice &= bool(torch.equal(a, call()))
+        del call, a
+    torch.cuda.empty_cache()
+    print(f"  K12 on its {len(K12_PINNED_SHA1)} pinned cases: pinned sha1 "
+          f"{pinned}, two launches equal {twice}")
+    if not (pinned and twice):
+        fail("K12 is not its pinned sha1 on every case")
+
+
 def k6_taps(thetas, t0, dt, nt, n_matrix, fov, pixels=32768):
     """K6's backprojection taps as one CSR matrix [in-disc pixels, n_theta
     * nt]: per pixel and view on the detector, 1 - f at its channel c0 and
@@ -1441,11 +1537,13 @@ def default_kernel_phase(arrays, meta, records):
     dense = table.T.contiguous()
     lib_err = float((torch.sparse.mm(W, dense).reshape(paths.shape)
                      - want).abs().max())
+    dev_ms = graph_ms(lambda: fourier.resample_to_fan(*rargs))
     report(records, "resample_to_fan", err, ms, pms, err <= 1e-5 * big,
            (nbytes(radon, a["fp_fan_idx"], a["fp_fan_w"], paths),
             paths.numel() * 8),
            library_ms=time_ms(lambda: torch.sparse.mm(W, dense), 5),
-           extra=f" (max |plain| {big:.6g} cm; library err {lib_err:.3g})")
+           extra=f" (max |plain| {big:.6g} cm; library err {lib_err:.3g}"
+                 + device_note(dev_ms, "CUDA graph of 20 calls") + ")")
     del W, dense
     print(f"  Fourier paths: min {float(paths.min()):.6g} cm, "
           f"{int((paths < 0).sum())} of {paths.numel()} negative")
@@ -1678,6 +1776,8 @@ def cone_kernel_phase(arrays, meta, records, helical):
                 lambda w=w: conebeam._helical_backproject_plain(
                     *hargs, weighting=w), reps=1)
             err, big = max_err(vol, want)
+            dev_ms = graph_ms(lambda w=w: conebeam._helical_backproject(
+                *hargs, dbeta=meta.dbeta, weighting=w))
             on, taps = helical_terms(a, meta, w, X, Y)
             work = (nbytes(qs, vol) + 8 * P + 16 * V,
                     PLANE_OPS * P * V
@@ -1685,7 +1785,9 @@ def cone_kernel_phase(arrays, meta, records, helical):
                     + (MOTION_TAP_OPS + 7 * K) * taps)
             extra = (f" (max |plain| {big:.6g}; {meta.nz_out} slices; "
                      f"{on} pixel-slice-views on the detector in the window,"
-                     f" {taps} of them weighted)")
+                     f" {taps} of them weighted"
+                     + device_note(dev_ms, "CUDA graph of 20 calls, the "
+                                   "pack included") + ")")
             if w == "full":
                 report(records, "helical_backproject", err, ms, pms,
                        err <= 1e-4 * big, work, extra=extra)
@@ -1711,13 +1813,16 @@ def cone_kernel_phase(arrays, meta, records, helical):
             X, Y, beta, meta.sid, meta.dgamma, C)[2:4],
         lambda inv_h: (zc[None, :, None] * meta.sid) * inv_h[:, None, :]
         / meta.row_h - 0.5 + R / 2.0, R)
+    dev_ms = kernel_device_ms(
+        lambda: conebeam._fdk_backproject_multi(*fargs),
+        "fdk_backproject_kernel")
     report(records, "fdk_backproject", err, ms, pms, err <= 1e-4 * big,
            (nbytes(qs, vol) + 8 * P + 8 * V,
             PLANE_OPS * P * V + MOTION_ROW_OPS * P * meta.nz_out * V
             + (MOTION_TAP_OPS + 7 * K) * taps),
            extra=f" (max |plain| {big:.6g}; {meta.nz_out} slices; {taps} "
                  f"of {P * meta.nz_out * V} pixel-slice-views on the "
-                 f"detector)")
+                 f"detector" + device_note(dev_ms) + ")")
 
 
 def rows_on_detector(betas, plane, row_index, R, block=8):
@@ -1815,12 +1920,15 @@ def flat_kernel_phase(ccfg, stack, records):
         conebeam._f32(ct.betas, q.device), plane,
         lambda inv_ell: (zc[None, :, None] * sid) * inv_ell[:, None, :]
         / ct.h_iso - 0.5 - ct.det_offset_row + R / 2.0, R)
+    dev_ms = kernel_device_ms(lambda: flatpanel._flat_backproject(*bargs),
+                              "flat_backproject_kernel")
     report(records, "flat_backproject", err, ms, pms, err <= 1e-4 * big,
            (nbytes(q, vol) + 8 * P + 8 * V,
             PLANE_OPS * P * V + MOTION_ROW_OPS * P * R * V
             + (MOTION_TAP_OPS + 7 * q.shape[0]) * taps),
            extra=f" (max |plain| {big:.6g}; {R} slices; {taps} of "
-                 f"{P * R * V} pixel-slice-views on the detector)")
+                 f"{P * R * V} pixel-slice-views on the detector"
+                 + device_note(dev_ms) + ")")
 
 
 def tilted_kernel_phase(ccfg, stack, records):
@@ -1920,14 +2028,19 @@ def zffs_kernel_phase(ccfg, stack):
              conebeam._f32(np.full(R, 0.5 * ct.rotation_total), dev),
              ct.SID, ct.dgamma, ct.h_iso, R, 0.0, ccfg.N_matrix, R, ccfg.FOV,
              ct.h_iso, z0)
+    def kernel():
+        return conebeam._helical_backproject(*hargs,
+                                             dbeta=ct.rotation_total / V)
+
     vol, want, ms, pms = compare(
-        lambda: conebeam._helical_backproject(
-            *hargs, dbeta=ct.rotation_total / V),
-        lambda: conebeam._helical_backproject_plain(*hargs), reps=1)
+        kernel, lambda: conebeam._helical_backproject_plain(*hargs), reps=1)
     err, big = max_err(vol, want)
+    dev_ms = graph_ms(kernel)
     print(f"  helical_backproject at pitch 0 with the z-FFS row offsets "
           f"(|row_off| {abs(row_off).max():.4g} rows): max_abs_err={err:.6g}"
-          f" (max |plain| {big:.6g})  kernel={ms:.4f} ms  plain={pms:.4f} ms"
+          f" (max |plain| {big:.6g}"
+          + device_note(dev_ms, "CUDA graph of 20 calls, the pack included")
+          + f")  kernel={ms:.4f} ms  plain={pms:.4f} ms"
           f"  [{KERNELS['helical_backproject'][3]}]")
     if err > 1e-4 * big:
         fail("helical_backproject disagrees with its plain version at the "
@@ -2000,12 +2113,16 @@ def katsevich_kernel_phase(ccfg, stack, records):
             st["dgamma"], st["row_h"], R, C, st["pitch"] / (4.0 * np.pi),
             st["taper"])[2]
         terms += int((w != 0).sum())
+    dev_ms = kernel_device_ms(
+        lambda: katsevich._katsevich_backproject(
+            *bargs, st["beta_mid"], st["dbeta"], st["taper"]),
+        "katsevich_backproject_kernel")
     report(records, "katsevich_backproject", err, ms, pms, err <= 1e-4 * big,
            (nbytes(gf, vol) + 8 * P + 12 * V,
             terms * (60 + 7 * gf.shape[0])),
            extra=f" (max |plain| {big:.6g}; {st['nz_out']} slices; "
                  f"{terms} weighted pixel-slice-views of {P * visits} in "
-                 f"reach)")
+                 f"reach" + device_note(dev_ms) + ")")
 
 
 def mono_mu(phantom, dev):
@@ -3268,6 +3385,7 @@ def motion_kernel_phase(cfg, cone_cfgs, spectra, records, dev):
             **kw)
         vol, want, ms, pms = compare(kern, plain, reps=1)
         err, big = max_err(vol, want)
+        dev_ms = kernel_device_ms(kern, "motion_backproject_kernel")
         work = {}
         plain(terms=work)
         K = qs.shape[0]
@@ -3279,7 +3397,8 @@ def motion_kernel_phase(cfg, cone_cfgs, spectra, records, dev):
                extra=f" ({label} config, {dz_cm} cm z drift, {nz} slices; "
                      f"{work['pixel_views']} pixel-views, {work['terms']} "
                      f"pixel-slice-views evaluated, {work['taps']} with "
-                     f"taps; max |plain| {big:.6g})")
+                     f"taps; max |plain| {big:.6g}"
+                     + device_note(dev_ms) + ")")
         del qs, vol, want
         torch.cuda.empty_cache()
 
@@ -5308,6 +5427,13 @@ def fourier_adjoint_kernel_phase(cfg, records, dev):
         same_as_cpu = torch.equal(r_adj.cpu(), cpu)
         del cpu
         r = torch.randn(radon_shape, generator=gen, device=dev)
+        k8_ms = graph_ms(lambda: fourier.resample_to_fan(
+            r, plan.fan_idx, plan.fan_w, vs + (M,)))
+        k8_bound = bound(nbytes(r, plan.fan_idx, plan.fan_w)
+                         + 4 * vs[0] * vs[1] * M, vs[0] * vs[1] * M * 8)[0]
+        print(f"  resample_to_fan ({label}): K8's device time "
+              f"{k8_ms:.4f} ms (CUDA graph of 20 calls), bound "
+              f"{k8_bound:.4f} ms")
         lhs = float((fourier.resample_to_fan(r, plan.fan_idx, plan.fan_w,
                                              vs + (M,)).double()
                      * y.double()).sum())
@@ -6629,6 +6755,7 @@ def main():
         del arrays
         torch.cuda.empty_cache()
         k10_pinned_phase()
+        k12_pinned_phase()
         project_kernel_phase(cone_cfgs["cone"], records)
         torch.cuda.empty_cache()
         pi_kernel_phase(cone_cfgs["helical"], records, dev)

@@ -30,7 +30,10 @@
 // output slice) loops over the views and keeps its sums in registers, so the
 // output is written once with no atomics; neighbouring threads are
 // neighbouring disc pixels of one slice, whose taps sit on neighbouring
-// channels of the same detector rows.  K11 and K13 stage cos/sin of the view
+// channels of the same detector rows.  K12 instead gives a thread one disc
+// pixel and a group of slices, so that each (pixel, view)'s in-plane
+// geometry serves every slice of the group (its note is beside it below).
+// K11 and K13 stage cos/sin of the view
 // angles in shared memory (kChunk views at a time) and visit every view.
 // K12 and K15 visit only the views that can reach their slice, the views
 // being uniformly spaced: K12 those within the weighting's half-width hw pi
@@ -244,128 +247,291 @@ __device__ __forceinline__ float cos2(float x) {
   return __fmul_rn(c, c);
 }
 
-// The window weight of one view without its on-detector factor: d = beta -
-// beta_c, gam the fan angle, zt the iso-scaled row height of the slice z,
-// sz the source z, t the view's in-plane geometry.
+// K12 design.  The parent ran one thread per (disc pixel, slice) and
+// recomputed each view's in-plane geometry (view_tap, atan2, the channel
+// tap, 1 / h^2: ~120 of the ~250 instructions its `full` loop executes a
+// term) for every slice that view feeds, ~9.6x over at the helical config
+// (19 slices, ~365 views a slice, 720 views); at 64 registers (32 warps an
+// SM) it issued at ~95 % of that count's floor.  Here one thread owns a
+// disc pixel and kGroup consecutive slices: it walks the union of those
+// slices' view ranges in ascending order, forms the pixel's in-plane
+// geometry (and the parts of the window that depend on the pixel and the
+// view only, ViewWindow) once per view, and adds that view's term to each
+// slice of the group whose own range holds the view.  The sums stay in
+// registers; the slices' z, beta_c and view ranges, block constants, are
+// read from shared memory, and the launch bounds hold the kernel to the
+// parent's 64 registers: its occupancy, not its instruction count, is what
+// the first designs lost (tools/k12_steps.cu, PERF.md: 8 slices a thread
+// at 118 registers, or a block staging 32 views' geometry in shared memory
+// for 32 pixels x 10 slices, ran 2.65 and 4.26 ms against the parent's
+// 3.26).  Each slice's sums are the parent's: the same terms of the same
+// views in the same order, each value from the same expression (the
+// parent's `acc += val * w` was contracted by nvcc into an FFMA, written
+// here as __fmaf_rn).  The taps come from a packed copy of the stacks with
+// the K images innermost ([V, R, C, KP], KP = 4 at K = 3), so a tap row is
+// one 16-byte (K = 3, 4), 8-byte (K = 2) or 4-byte load a channel instead
+// of K scalar loads.
+
+// the slices a thread owns; the threads a block and the blocks an SM
+// must hold (launch bounds: 64 registers, the parent's count)
+constexpr int kGroup = 4;
+constexpr int kThreadsK12 = 128;
+constexpr int kBlocksK12 = 8;
+
+// The parts of one view's window weight that depend only on the pixel and
+// the view (p0..p3, by weighting: td the window's edges over cos gam;
+// short the ends and widths of the Parker ramps; pair 2 gam, the conjugate
+// source heights on either side and the conjugate ray's length).
+struct ViewWindow {
+  float p0, p1, p2, p3;
+};
+
 template <int W>
-__device__ __forceinline__ float window_weight(const Window& k, float d,
-                                               float gam, float zt, float z,
-                                               float sz, const ViewTap& t,
-                                               float sid) {
-  if (W == kFull) return fabsf(d) <= kPi ? 1.0f : 0.0f;
-  if (W == kFeather) {
+__device__ __forceinline__ ViewWindow view_window(const Window& k, float gam,
+                                                  const ViewTap& t,
+                                                  float sz) {
+  ViewWindow vw{0.0f, 0.0f, 0.0f, 0.0f};
+  if constexpr (W == kTd) {
+    const dexct_td::Bounds b = dexct_td::over_cos(
+        dexct_td::bounds(k.qp, k.nqp, gam), cosf(gam));
+    vw.p0 = b.top;
+    vw.p1 = b.bot;
+  } else if constexpr (W == kShort) {
+    vw.p0 = __fmul_rn(2.0f, __fsub_rn(k.gm, gam));
+    vw.p1 = fmaxf(__fsub_rn(k.gm, gam), 1e-3f);
+    vw.p2 = __fsub_rn(kPi, __fmul_rn(2.0f, gam));
+    vw.p3 = fmaxf(__fadd_rn(k.gm, gam), 1e-3f);
+  } else if constexpr (W == kPair) {
+    const float two_g = __fmul_rn(2.0f, gam);
+    vw.p0 = two_g;
+    vw.p1 = __fadd_rn(
+        sz, __fdiv_rn(__fmul_rn(-__fsub_rn(kPi, two_g), k.pitch), kTwoPi));
+    vw.p2 = __fadd_rn(
+        sz, __fdiv_rn(__fmul_rn(__fadd_rn(kPi, two_g), k.pitch), kTwoPi));
+    const float h_own = __fmul_rn(t.h2, t.inv_h);
+    vw.p3 = fmaxf(__fsub_rn(__fmul_rn(k.two_sid, cosf(gam)), h_own), 1e-3f);
+  }
+  return vw;
+}
+
+// The window weight of one view at one slice without its on-detector
+// factor: d = beta - beta_c, zt the iso-scaled row height of the slice z,
+// vw the view's pixel part.  Each jnp.where and clip of the reference's
+// win_weight in its order.
+template <int W>
+__device__ __forceinline__ float term_weight(const Window& k,
+                                             const ViewWindow& vw, float d,
+                                             float zt, float z, float sid) {
+  if constexpr (W == kFull) {
+    return fabsf(d) <= kPi ? 1.0f : 0.0f;
+  } else if constexpr (W == kFeather) {
     const float dd = __fdiv_rn(fabsf(d), kPi);
     return cos2(__fmul_rn(
         clampf(__fdiv_rn(__fsub_rn(dd, 0.75f), 0.5f), 0.0f, 1.0f), kHalfPi));
-  }
-  if (W == kTd) {
+  } else if constexpr (W == kTd) {
     if (!(fabsf(d) <= kOneHalfPi)) return 0.0f;
-    return dexct_td::weight<false>(
-        zt, dexct_td::over_cos(dexct_td::bounds(k.qp, k.nqp, gam), cosf(gam)),
-        k.taper);
-  }
-  if (W == kCosz) {
+    return dexct_td::weight<false>(zt, {vw.p0, vw.p1}, k.taper);
+  } else if constexpr (W == kCosz) {
     if (!(fabsf(d) <= kOneHalfPi)) return 0.0f;
     return __fadd_rn(
         cos2(__fmul_rn(clampf(__fdiv_rn(zt, k.hmax), -1.0f, 1.0f), kHalfPi)),
         1e-3f);
-  }
-  if (W == kShort) {
+  } else if constexpr (W == kShort) {
     const float alpha = __fadd_rn(__fadd_rn(d, kHalfPi), k.gm);
     if (!(alpha >= 0.0f && alpha <= k.pi_2gm)) return 0.0f;
-    if (alpha < __fmul_rn(2.0f, __fsub_rn(k.gm, gam))) {
-      const float lo_den = fmaxf(__fsub_rn(k.gm, gam), 1e-3f);
+    if (alpha < vw.p0) {
       const float s = sinf(__fmul_rn(
-          kQuarterPi, clampf(__fdiv_rn(alpha, lo_den), 0.0f, 2.0f)));
+          kQuarterPi, clampf(__fdiv_rn(alpha, vw.p1), 0.0f, 2.0f)));
       return __fmul_rn(s, s);
     }
-    if (alpha > __fsub_rn(kPi, __fmul_rn(2.0f, gam))) {
-      const float hi_den = fmaxf(__fadd_rn(k.gm, gam), 1e-3f);
+    if (alpha > vw.p2) {
       const float s = sinf(__fmul_rn(
           kQuarterPi,
-          clampf(__fdiv_rn(__fsub_rn(k.pi_2gm, alpha), hi_den), 0.0f, 2.0f)));
+          clampf(__fdiv_rn(__fsub_rn(k.pi_2gm, alpha), vw.p3), 0.0f, 2.0f)));
       return __fmul_rn(s, s);
     }
     return 1.0f;
+  } else {  // kPair: the conjugate copy's row height, a smooth partition
+    if (!(fabsf(d) <= kPi)) return 0.0f;
+    const float sz_conj = d > -vw.p0 ? vw.p1 : vw.p2;
+    const float zt_c =
+        __fdiv_rn(__fmul_rn(__fsub_rn(z, sz_conj), sid), vw.p3);
+    const float k_own = __fadd_rn(
+        cos2(__fmul_rn(clampf(__fdiv_rn(zt, k.scale), -1.0f, 1.0f), kHalfPi)),
+        1e-4f);
+    const float k_c =
+        fabsf(zt_c) <= k.hdet
+            ? __fadd_rn(cos2(__fmul_rn(
+                            clampf(__fdiv_rn(zt_c, k.scale), -1.0f, 1.0f),
+                            kHalfPi)),
+                        1e-4f)
+            : 0.0f;
+    return __fdiv_rn(k_own, __fadd_rn(__fadd_rn(k_own, k_c), 1e-30f));
   }
-  // kPair: the conjugate copy's row height, a smooth pairwise partition
-  if (!(fabsf(d) <= kPi)) return 0.0f;
-  const float two_g = __fmul_rn(2.0f, gam);
-  const float dbc =
-      d > -two_g ? -__fsub_rn(kPi, two_g) : __fadd_rn(kPi, two_g);
-  const float sz_conj =
-      __fadd_rn(sz, __fdiv_rn(__fmul_rn(dbc, k.pitch), kTwoPi));
-  const float h_own = __fmul_rn(t.h2, t.inv_h);
-  const float h_conj =
-      fmaxf(__fsub_rn(__fmul_rn(k.two_sid, cosf(gam)), h_own), 1e-3f);
-  const float zt_c = __fdiv_rn(__fmul_rn(__fsub_rn(z, sz_conj), sid), h_conj);
-  const float k_own = __fadd_rn(
-      cos2(__fmul_rn(clampf(__fdiv_rn(zt, k.scale), -1.0f, 1.0f), kHalfPi)),
-      1e-4f);
-  const float k_c =
-      fabsf(zt_c) <= k.hdet
-          ? __fadd_rn(cos2(__fmul_rn(
-                          clampf(__fdiv_rn(zt_c, k.scale), -1.0f, 1.0f),
-                          kHalfPi)),
-                      1e-4f)
-          : 0.0f;
-  return __fdiv_rn(k_own, __fadd_rn(__fadd_rn(k_own, k_c), 1e-30f));
+}
+
+// The packed images of one detector element: K floats (K = 3 padded to 4).
+template <int K>
+struct Packed;
+template <>
+struct Packed<1> {
+  static constexpr int kWidth = 1;
+  float v[1];
+  __device__ __forceinline__ Packed(const float* __restrict__ q, int o) {
+    v[0] = __ldg(q + o);
+  }
+};
+template <>
+struct Packed<2> {
+  static constexpr int kWidth = 2;
+  float v[2];
+  __device__ __forceinline__ Packed(const float* __restrict__ q, int o) {
+    const float2 a = __ldg(reinterpret_cast<const float2*>(q + o));
+    v[0] = a.x;
+    v[1] = a.y;
+  }
+};
+template <>
+struct Packed<4> {
+  static constexpr int kWidth = 4;
+  float v[4];
+  __device__ __forceinline__ Packed(const float* __restrict__ q, int o) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(q + o));
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = a.z;
+    v[3] = a.w;
+  }
+};
+template <>
+struct Packed<3> : Packed<4> {
+  using Packed<4>::Packed;
+};
+
+// acc[k] += w x the bilinear value of packed image k at the element offset
+// `base` of (view, row 0, c0), row position ridx, channel fraction fc.
+template <int K>
+__device__ __forceinline__ void add_packed_taps(const float* __restrict__ qp,
+                                                const Detector& d, int base,
+                                                float fc, float ridx, float w,
+                                                float* acc) {
+  constexpr int kw = Packed<K>::kWidth;
+  float r0, fr;
+  row_tap(ridx, d, r0, fr);
+  const int ir0 = (int)r0;
+  const int ir1 = min(ir0 + 1, d.R - 1);
+  const int o0 = (base + ir0 * d.C) * kw;
+  const int o1 = (base + ir1 * d.C) * kw;
+  const Packed<K> t0(qp, o0), t1(qp, o0 + kw), b0(qp, o1), b1(qp, o1 + kw);
+  const float gc = 1.0f - fc, gr = 1.0f - fr;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const float top = __fadd_rn(__fmul_rn(t0.v[k], gc), __fmul_rn(t1.v[k], fc));
+    const float bot = __fadd_rn(__fmul_rn(b0.v[k], gc), __fmul_rn(b1.v[k], fc));
+    acc[k] = __fmaf_rn(__fadd_rn(__fmul_rn(top, gr), __fmul_rn(bot, fr)), w,
+                       acc[k]);
+  }
 }
 
 template <int K, int W>
-__global__ void helical_backproject_kernel(
-    const float* __restrict__ qs, const float* __restrict__ cos_b,
-    const float* __restrict__ sin_b, const float* __restrict__ betas,
-    const float* __restrict__ src_z, const float* __restrict__ row_off,
-    const float* __restrict__ beta_c, const float* __restrict__ X,
-    const float* __restrict__ Y, const long long* __restrict__ sel,
-    const float* __restrict__ zc, float* __restrict__ out, int V, int R,
-    int C, int P, long long plane, float sid, float dgamma, float row_h,
-    float beta0, float dbeta, Window win) {
+__global__ void __launch_bounds__(kThreadsK12, kBlocksK12)
+    helical_backproject_kernel(
+        const float* __restrict__ qp, const float* __restrict__ cos_b,
+        const float* __restrict__ sin_b, const float* __restrict__ betas,
+        const float* __restrict__ src_z, const float* __restrict__ row_off,
+        const float* __restrict__ beta_c, const float* __restrict__ X,
+        const float* __restrict__ Y, const long long* __restrict__ sel,
+        const float* __restrict__ zc, float* __restrict__ out, int V, int R,
+        int C, int P, int nz, long long plane, float sid, float dgamma,
+        float row_h, float dbeta, Window win) {
+  // the group's slices: z, beta_c and view range (those within hw pi of
+  // beta_c, with a two-view margin: the parent's range; a slice past nz
+  // visits none), block constants read from shared memory so that the
+  // registers hold the sums
+  __shared__ float s_z[kGroup], s_bc[kGroup];
+  __shared__ int s_lo[kGroup], s_hi[kGroup];
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  const int iz = blockIdx.y;
+  const int s0 = blockIdx.y * kGroup;
+  const float beta0 = __ldg(betas);
+  int v_first = V, v_last = -1;
+#pragma unroll
+  for (int s = 0; s < kGroup; ++s) {
+    float z = 0.0f, bc = 0.0f;
+    int lo = V, hi = -1;
+    if (s0 + s < nz) {
+      z = zc[s0 + s];
+      bc = beta_c[s0 + s];
+      lo = max(0, (int)floorf((bc - win.hwpi - beta0) / dbeta) - 2);
+      hi = min(V - 1, (int)ceilf((bc + win.hwpi - beta0) / dbeta) + 2);
+    }
+    if (threadIdx.x == s) {
+      s_z[s] = z;
+      s_bc[s] = bc;
+      s_lo[s] = lo;
+      s_hi[s] = hi;
+    }
+    v_first = min(v_first, lo);
+    v_last = max(v_last, hi);
+  }
+  __syncthreads();
   if (p >= P) return;
   const float x = X[p], y = Y[p];
-  const float z = zc[iz];
-  const float bc = beta_c[iz];
   const Detector d = make_detector(V, R, C);
-  // the views within hw pi of beta_c, with a two-view margin
-  const int v_lo =
-      max(0, (int)floorf((bc - win.hwpi - beta0) / dbeta) - 2);
-  const int v_hi =
-      min(V - 1, (int)ceilf((bc + win.hwpi - beta0) / dbeta) + 2);
 
-  float num[K];
+  float num[kGroup][K], den[kGroup];
 #pragma unroll
-  for (int k = 0; k < K; ++k) num[k] = 0.0f;
-  float den = 0.0f;
+  for (int s = 0; s < kGroup; ++s) {
+    den[s] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) num[s][k] = 0.0f;
+  }
 
-  for (int v = v_lo; v <= v_hi; ++v) {
-    const float dv = __fsub_rn(__ldg(betas + v), bc);
-    if (W == kFull && !(fabsf(dv) <= kPi)) continue;
+  for (int v = v_first; v <= v_last; ++v) {
+    // the pixel's in-plane geometry at view v, once for every slice
+    const float bv = __ldg(betas + v);
+    const float sz = __ldg(src_z + v);
+    const float ro = __ldg(row_off + v);
     const ViewTap t =
         view_tap(x, y, __ldg(cos_b + v), __ldg(sin_b + v), sid);
-    const float sz = __ldg(src_z + v);
-    const float zt = __fmul_rn(__fmul_rn(__fsub_rn(z, sz), sid), t.inv_h);
-    const float ridx = __fadd_rn(
-        __fadd_rn(__fsub_rn(__fdiv_rn(zt, row_h), 0.5f), d.r_shift),
-        __ldg(row_off + v));
-    if (!on_detector(ridx, d)) continue;
     const float gam = atan2f(-t.vt, t.ell);
-    const float w = window_weight<W>(win, dv, gam, zt, z, sz, t, sid);
-    if (w == 0.0f) continue;
-    den += w;
     const float c =
         __fadd_rn(__fsub_rn(__fdiv_rn(gam, dgamma), 0.5f), d.c_shift);
-    if (!in_fan(c, d)) continue;
-    add_taps<K>(qs, d, v, c, ridx, __fmul_rn(__fdiv_rn(1.0f, t.h2), w), num);
-  }
-  const long long dst = (long long)iz * plane + sel[p];
-  const long long vol = (long long)gridDim.y * plane;
+    const bool fan = in_fan(c, d);
+    float c0, fc;
+    channel_tap(c, d, c0, fc);
+    const int base = v * R * C + (int)c0;
+    const float inv_h2 = __fdiv_rn(1.0f, t.h2);
+    const ViewWindow vw = view_window<W>(win, gam, t, sz);
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const float o = den > 0.0f ? __fdiv_rn(num[k], fmaxf(den, 1e-30f)) : 0.0f;
-    out[k * vol + dst] = __fmul_rn(o, kTwoPi);
+    for (int s = 0; s < kGroup; ++s) {
+      if (v < s_lo[s] || v > s_hi[s]) continue;
+      const float dv = __fsub_rn(bv, s_bc[s]);
+      if (W == kFull && !(fabsf(dv) <= kPi)) continue;
+      const float z = s_z[s];
+      const float zt = __fmul_rn(__fmul_rn(__fsub_rn(z, sz), sid), t.inv_h);
+      const float ridx = __fadd_rn(
+          __fadd_rn(__fsub_rn(__fdiv_rn(zt, row_h), 0.5f), d.r_shift), ro);
+      if (!on_detector(ridx, d)) continue;
+      const float w = term_weight<W>(win, vw, dv, zt, z, sid);
+      if (w == 0.0f) continue;
+      den[s] += w;
+      if (!fan) continue;
+      // `full`'s w is 1, and inv_h2 x 1 is inv_h2
+      add_packed_taps<K>(qp, d, base, fc, ridx,
+                         W == kFull ? inv_h2 : __fmul_rn(inv_h2, w), num[s]);
+    }
+  }
+  const long long vol = (long long)nz * plane;
+#pragma unroll
+  for (int s = 0; s < kGroup; ++s) {
+    if (s0 + s >= nz) break;
+    const long long dst = (long long)(s0 + s) * plane + sel[p];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float o =
+          den[s] > 0.0f ? __fdiv_rn(num[s][k], fmaxf(den[s], 1e-30f)) : 0.0f;
+      out[k * vol + dst] = __fmul_rn(o, kTwoPi);
+    }
   }
 }
 
@@ -694,21 +860,24 @@ extern "C" int dexct_fdk_backproject(const void* qs, const void* cos_b,
 }
 
 extern "C" int dexct_helical_backproject(
-    const void* qs, const void* cos_b, const void* sin_b, const void* betas,
+    const void* packed, const void* cos_b, const void* sin_b, const void* betas,
     const void* src_z, const void* row_off, const void* beta_c, const void* X,
     const void* Y, const void* sel, const void* zc, void* out, int n_images,
     int weighting, int V, int R, int C, int P, int nz, long long plane,
-    float sid, float dgamma, float row_h, float beta0, float dbeta,
-    float hwpi, float pitch, float qp, float nqp, float taper, float hmax,
-    float gm, float pi_2gm, float two_sid, float hdet, float scale,
-    void* stream) {
+    float sid, float dgamma, float row_h, float dbeta, float hwpi,
+    float pitch, float qp, float nqp, float taper, float hmax, float gm,
+    float pi_2gm, float two_sid, float hdet, float scale, void* stream) {
   if (P <= 0 || nz <= 0) return (int)cudaGetLastError();
-  if (C < 2 || R < 1 || nz > 65535 || !(dbeta > 0.0f) || weighting < 0 ||
-      weighting > kPair)
+  // the packed taps are addressed with 32-bit element offsets
+  const long long width = n_images == 3 ? 4 : n_images;
+  if (C < 2 || R < 1 || !(dbeta > 0.0f) || weighting < 0 ||
+      weighting > kPair || (long long)V * R * C * width >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const Window win{hwpi, pitch, qp, nqp, taper, hmax, gm, pi_2gm, two_sid,
                    hdet, scale};
-  const dim3 blocks((P + kThreads - 1) / kThreads, nz);
+  const dim3 blocks((P + kThreadsK12 - 1) / kThreadsK12,
+                    (nz + kGroup - 1) / kGroup);
+  if (blocks.y > 65535) return (int)cudaErrorInvalidValue;
   return for_images(n_images, [&](auto k) {
     constexpr int kK = decltype(k)::value;
     auto* kern = helical_backproject_kernel<kK, kFull>;
@@ -720,14 +889,14 @@ extern "C" int dexct_helical_backproject(
       case kPair: kern = helical_backproject_kernel<kK, kPair>; break;
       default: break;
     }
-    kern<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(qs), static_cast<const float*>(cos_b),
+    kern<<<blocks, kThreadsK12, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(packed), static_cast<const float*>(cos_b),
         static_cast<const float*>(sin_b), static_cast<const float*>(betas),
         static_cast<const float*>(src_z), static_cast<const float*>(row_off),
         static_cast<const float*>(beta_c), static_cast<const float*>(X),
         static_cast<const float*>(Y), static_cast<const long long*>(sel),
         static_cast<const float*>(zc), static_cast<float*>(out), V, R, C, P,
-        plane, sid, dgamma, row_h, beta0, dbeta, win);
+        nz, plane, sid, dgamma, row_h, dbeta, win);
   });
 }
 

@@ -264,9 +264,17 @@ def _disc_host(n_matrix, fov):
             YY.reshape(-1)[sel].astype(np.float32), sel.astype(np.int64))
 
 
-def _disc(n_matrix, fov, device):
-    X, Y, sel = _disc_host(int(n_matrix), float(fov))
+@functools.lru_cache(maxsize=16)
+def _disc_on(n_matrix, fov, device):
+    X, Y, sel = _disc_host(n_matrix, fov)
     return tuple(upload(t, device) for t in (X, Y, sel))
+
+
+def _disc(n_matrix, fov, device):
+    """:func:`_disc_host` on ``device``, uploaded once per (grid, device)
+    and kept: the backprojectors' calls then copy nothing from the host,
+    and a CUDA graph can capture them.  Shared: never write."""
+    return _disc_on(int(n_matrix), float(fov), torch.device(device))
 
 
 def _inplane(X, Y, beta, sid, dgamma, C):
@@ -549,6 +557,27 @@ def _helical_backproject_plain(q, betas, src_z, row_off, beta_c, sid, dgamma,
     return _place(out * (2.0 * np.pi), sel, n_matrix)
 
 
+# K12 addresses its packed taps with 32-bit element offsets
+_MAX_PACKED = 2 ** 31 - 1
+
+
+def _pack_images(q):
+    """K12's copy of the stacks ``q`` [K, V, R, C] with the images innermost,
+    [V, R, C, KP] (KP = K, 4 at K = 3, the fourth image zero), so that each
+    detector element's K values are one 4-, 8- or 16-byte load."""
+    K = q.shape[0]
+    width = 4 if K == 3 else K
+    if q[0].numel() * width > _MAX_PACKED:
+        raise ValueError(f"the packed stacks hold {q[0].numel() * width} "
+                         f"floats; K12 takes at most 2^31 - 1")
+    if K == 1:
+        return q.reshape(q.shape[1:] + (1,))
+    packed = q.permute(1, 2, 3, 0)
+    if width != K:
+        packed = torch.nn.functional.pad(packed, (0, width - K))
+    return packed.contiguous()
+
+
 def _helical_cuda(q, betas, src_z, row_off, beta_c, sid, dgamma, row_h,
                   pitch, n_matrix, nz_out, fov, dz_out, z0, dbeta, weighting):
     dev = q.device
@@ -558,20 +587,21 @@ def _helical_cuda(q, betas, src_z, row_off, beta_c, sid, dgamma, row_h,
                     ("row_off", row_off)):
         kernels.require(t, name, dev, torch.float32, (V,))
     kernels.require(beta_c, "beta_c", dev, torch.float32, (nz_out,))
+    packed = _pack_images(q)
     X, Y, sel = _disc(n_matrix, fov, dev)
     zc = _helical_z(nz_out, dz_out, z0, dev)
     cos_b, sin_b = torch.cos(betas), torch.sin(betas)
-    beta0 = float(betas[0])  # the origin of each slice's view range
     k = _window_constants(weighting, C, dgamma, pitch, row_h, R, sid)
     out = torch.zeros((M, nz_out, n_matrix, n_matrix), dtype=torch.float32,
                       device=dev)
+    # the kernel reads betas[0], each slice's view origin, on the card
     rc = kernels.library().dexct_helical_backproject(
-        q.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(), betas.data_ptr(),
-        src_z.data_ptr(), row_off.data_ptr(), beta_c.data_ptr(),
-        X.data_ptr(), Y.data_ptr(), sel.data_ptr(), zc.data_ptr(),
-        out.data_ptr(), M, WEIGHTINGS.index(weighting), V, R, C, X.shape[0],
-        nz_out, n_matrix * n_matrix, sid, dgamma, row_h, beta0, dbeta,
-        *(k[name] for name in _WINDOW_ARGS), kernels.stream_ptr(dev))
+        packed.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(),
+        betas.data_ptr(), src_z.data_ptr(), row_off.data_ptr(),
+        beta_c.data_ptr(), X.data_ptr(), Y.data_ptr(), sel.data_ptr(),
+        zc.data_ptr(), out.data_ptr(), M, WEIGHTINGS.index(weighting), V, R,
+        C, X.shape[0], nz_out, n_matrix * n_matrix, sid, dgamma, row_h,
+        dbeta, *(k[name] for name in _WINDOW_ARGS), kernels.stream_ptr(dev))
     kernels.check(rc, "helical_backproject")
     _helical_backproject.launches += 1
     return out

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..utils import kernels
+from ..utils.devices import upload
 from .conebeam import _disc, _f32, _place
 from .fbp import filter_views
 from .fbp_fast import rebin_to_parallel
@@ -299,7 +300,7 @@ def helical_pi_reconstruct(sino_log, geometry, n_matrix, fov, ramp, *,
     idx, w, t0, dt, thetas = _conepar_rebin_plan(ct, nt)
     par = rebin_to_parallel(
         pw.permute(1, 0, 2).contiguous(),
-        torch.as_tensor(idx, device=dev), torch.as_tensor(w, device=dev),
+        upload(idx, dev), upload(w, dev),
         nt, taps=4)
 
     # parallel ramp filter along t, per (row, theta line)
@@ -311,6 +312,6 @@ def helical_pi_reconstruct(sino_log, geometry, n_matrix, fov, ramp, *,
     z0_src = float(np.asarray(ct.source_z)[0])
     return _pi_backproject(
         par.permute(1, 2, 0).contiguous(), float(ct.SID), float(ct.h_iso),
-        int(R), pitch, z0_src, torch.as_tensor(thetas, device=dev), t0, dt,
+        int(R), pitch, z0_src, upload(thetas, dev), t0, dt,
         nt, int(n_matrix), len(z_out), float(fov), dz, float(z_out[0]),
         float(ct.rotation_total / V))

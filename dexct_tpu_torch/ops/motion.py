@@ -221,8 +221,7 @@ def material_path_sinogram_motion(phantom, geometry, motion, *, device=None,
     src, dirs = geometry.ray_geometry()
     src_o, dirs_o = rays_in_object_frame(src, dirs, motion.phi, motion.disp)
     return trace_paths(labels_tensor(phantom, dev),
-                       torch.as_tensor(src_o, dtype=dtype, device=dev),
-                       torch.as_tensor(dirs_o, dtype=dtype, device=dev),
+                       upload(src_o, dev, dtype), upload(dirs_o, dev, dtype),
                        float(phantom.dx), float(phantom.dy),
                        n_materials=phantom.n_materials)
 
@@ -371,7 +370,7 @@ def fbp_recon_motion(sino_log, geometry, n_matrix, fov, motion, ramp=0.8,
                                               dtype=dtype, device=dev)
     q = filter_sinogram(sino_log, geometry, ramp, window).contiguous()
     img = fan_backproject_motion(
-        q, torch.as_tensor(geometry.betas, dtype=dtype, device=dev),
+        q, upload(geometry.betas, dev, dtype),
         float(geometry.SID), float(geometry.dgamma), int(n_matrix),
         float(fov), motion.phi, motion.disp,
         dbeta=float(geometry.rotation_total) / geometry.N_proj)
@@ -765,7 +764,7 @@ def fdk_reconstruct_motion(sino_log, geometry, n_matrix, fov, ramp, motion,
     dz = float(ct.h_iso if dz_out is None else dz_out)
     z0 = (0.5 - nz / 2.0) * dz
     out = _fdk_backproject_motion(
-        q, torch.as_tensor(ct.betas, dtype=torch.float32, device=q.device),
+        q, upload(ct.betas, q.device, torch.float32),
         motion.phi, motion.disp, float(ct.SID), float(ct.dgamma),
         float(ct.h_iso), int(R), int(n_matrix), nz, float(fov), dz, float(z0),
         view_block=view_block)
@@ -800,7 +799,7 @@ def helical_fdk_reconstruct_motion(sino_log, geometry, n_matrix, fov, ramp,
     z_out, dz = helical_slices(ct, z_out)
     q, single = _cone_filtered(sino_log, ct, ramp, window, device)
     out = _helical_backproject_motion(
-        q, torch.as_tensor(ct.betas, dtype=torch.float32, device=q.device),
+        q, upload(ct.betas, q.device, torch.float32),
         np.asarray(ct.source_z, np.float64), float(0.5 * ct.rotation_total),
         motion.phi, motion.disp, float(ct.SID), float(ct.dgamma),
         float(ct.h_iso), int(q.shape[2]), float(ct.pitch), int(n_matrix),

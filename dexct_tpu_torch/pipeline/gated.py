@@ -29,7 +29,7 @@ import torch
 
 from ..ops.fbp import filter_sinogram
 from ..utils import kernels
-from ..utils.devices import as_float, device_of
+from ..utils.devices import as_float, device_of, upload
 
 __all__ = ["view_phases", "gate_weights", "gated_fbp_recon",
            "gated_series"]
@@ -176,8 +176,8 @@ def gated_fbp_recon(sino_log, geometry, n_matrix, fov, weights, ramp=0.8,
     ct = geometry
     q = _filtered(sino_log, ct, ramp, window, dtype, device)
     return _gated_backproject(
-        q, torch.as_tensor(ct.betas, dtype=dtype, device=q.device),
-        torch.as_tensor(np.asarray(weights), dtype=dtype, device=q.device),
+        q, upload(ct.betas, q.device, dtype),
+        upload(np.asarray(weights), q.device, dtype),
         float(ct.SID), float(ct.dgamma), int(n_matrix), float(fov),
         view_block=int(view_block))
 
@@ -195,6 +195,6 @@ def gated_series(sino_log, geometry, n_matrix, fov, period_views, *,
                   for g in range(n_gates)])
     q = _filtered(sino_log, ct, ramp, window, torch.float32, device)
     return _gated_backproject(
-        q, torch.as_tensor(ct.betas, dtype=torch.float32, device=q.device),
-        torch.as_tensor(w, dtype=torch.float32, device=q.device),
+        q, upload(ct.betas, q.device, torch.float32),
+        upload(w, q.device, torch.float32),
         float(ct.SID), float(ct.dgamma), int(n_matrix), float(fov))

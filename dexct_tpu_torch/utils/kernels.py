@@ -113,11 +113,11 @@ _SIGNATURES = {
     # plane, sid, dgamma, row_h, dbeta, stream
     "dexct_fdk_backproject": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _I, _I, _I, _L, _F, _F, _F, _F, _P),
-    # qs, cos_b, sin_b, betas, src_z, row_off, beta_c, X, Y, sel, zc, out,
-    # n_images, weighting, V, R, C, P, nz, plane, sid, dgamma, row_h, beta0,
+    # packed, cos_b, sin_b, betas, src_z, row_off, beta_c, X, Y, sel, zc,
+    # out, n_images, weighting, V, R, C, P, nz, plane, sid, dgamma, row_h,
     # dbeta, then the 11 window scalars (hwpi .. scale), stream
     "dexct_helical_backproject": (_P,) * 12 + (_I,) * 7 + (_L,)
-                                 + (_F,) * 16 + (_P,),
+                                 + (_F,) * 15 + (_P,),
     # qs, cos_b, sin_b, cos_p, sin_p, dx, dy, dz, X, Y, sel, zc, out,
     # n_images, V, R, C, P, nz, plane, sid, dgamma, row_h, stream
     "dexct_fdk_backproject_motion": (_P,) * 13 + (_I,) * 6 + (_L,)

@@ -2230,6 +2230,113 @@ def test_k10_two_launches_are_equal(dev, case):
     assert torch.equal(call(), call())
 
 
+# sha1 of K12's output on the cases of probe_cone_backproject.PIN_CASES
+# (the helical config's seeded stacks in each of the six weightings at K =
+# 4 and in `full` at K = 1, 2, 3; the z flying focal spot's call at pitch
+# 0 with its row offsets; a 37^2 grid of 1085 disc pixels with one slice
+# whose window runs off both ends of a 50-view helix, in each weighting,
+# and 7 slices over two turns with random row offsets), from the build of
+# K12 before it formed each (pixel, view)'s in-plane geometry once for a
+# group of slices and read packed taps (NVIDIA H100 80GB HBM3, CUDA 12.8);
+# chip_smoke.py holds the same
+K12_PINNED_SHA1 = {
+    "helical_full": "f8cbc7de45238c970779fb93d32b9bad07bb3558",
+    "helical_feather": "ae142534b059cb049af71b59ac65d9943b8c7b94",
+    "helical_td": "eed052dbc259b55b3f24c35278c83069e1c57454",
+    "helical_cosz": "0aa97bfd29efc2bb8a5f11bcfc3c752f37f8e03c",
+    "helical_short": "c43d03147773c79913db52934093572707ff11aa",
+    "helical_pair": "c53f9fd5f8517557dba28002944e3dfa3c8b7937",
+    "zffs": "92e0a1b7f66df7f0cfd0e5b97bfa4d9265edcc28",
+    "k1": "e30c9a823e2bfb4dbd5c7ae605e5973445e54578",
+    "k2": "da7d1d651df4300385e67e12ab4596d2feba360c",
+    "k3": "819d64d98442e2c14864b84ae7a2f58c3f1abb55",
+    "ragged_full": "60cce521c93173c7d83e720e9a74e586ce759070",
+    "ragged_feather": "7cc0bc54700d4c9566d4cb6a9141ff5bfae36594",
+    "ragged_td": "fa43c7afc850540ca7df501fff950108afe8e108",
+    "ragged_cosz": "d093d98e3e8dd0919d295aeb7924947cfa0b083a",
+    "ragged_short": "d5f687fccd0f4274073bf302b83c4e07973b0eb2",
+    "ragged_pair": "535623a493b751249c100293f9d01532973fa4a8",
+    "ragged_nz7": "eab1da458b69463270924c7e79f4621d56d60162"}
+
+
+@pytest.mark.parametrize("case", list(K12_PINNED_SHA1))
+def test_k12_keeps_its_pinned_bits(dev, case):
+    """K12 gives the first K12's output bit for bit on the paths' shapes
+    and on the ragged cases, in one launch."""
+    from dexct_tpu_torch.ops import conebeam
+    from dexct_tpu_torch.tools.probe_cone_backproject import (k12_call,
+                                                              output_sha1,
+                                                              pin_case)
+
+    args = pin_case(case, dev)
+    before = conebeam._helical_backproject.launches
+    out = k12_call(conebeam, args)()
+    torch.cuda.synchronize()
+    assert conebeam._helical_backproject.launches == before + 1
+    assert out.shape == (args[0].shape[0], args[1][10], args[1][9],
+                         args[1][9])
+    assert output_sha1(out) == K12_PINNED_SHA1[case]
+
+
+@pytest.mark.parametrize("case", ["helical_pair", "k3", "ragged_short",
+                                  "ragged_nz7"])
+def test_k12_two_launches_are_equal(dev, case):
+    from dexct_tpu_torch.ops import conebeam
+    from dexct_tpu_torch.tools.probe_cone_backproject import (k12_call,
+                                                              pin_case)
+
+    call = k12_call(conebeam, pin_case(case, dev))
+    assert torch.equal(call(), call())
+
+
+@pytest.mark.parametrize("path", ["cone_reconstruct_stack",
+                                  "helical_fdk_reconstruct", "zffs_fdk"])
+def test_k12_makes_no_host_synchronisation(dev, path):
+    """K12's wrapper reads betas[0] on the card: the fused step's helical
+    reconstruction, ``helical_fdk_reconstruct`` and the z flying focal
+    spot's ``fdk_reconstruct`` launch K12 with no synchronisation of the
+    host with the card."""
+    from dexct_tpu_torch.ops import conebeam
+    from dexct_tpu_torch.physics import kramers_spectrum
+    from dexct_tpu_torch.pipeline import cone
+    from dexct_tpu_torch.system import (ConeBeamGeometry,
+                                        HelicalConeBeamGeometry,
+                                        water_cylinder_phantom)
+
+    det = dict(N_channels=32, N_rows=4, gamma_fan=0.8230337, SID=60.0,
+               SDD=100.0, h_iso=0.5)
+    helix = HelicalConeBeamGeometry(N_proj=48, pitch=2.0,
+                                    rotation_total=4.0 * np.pi, **det)
+    rng = np.random.default_rng(27)
+    sino = torch.as_tensor(rng.random((4, 48, 4, 32), np.float32),
+                           device=dev)
+    if path == "cone_reconstruct_stack":
+        import dataclasses
+
+        ph2 = water_cylinder_phantom(N=32, dx=0.6)
+        ph = dataclasses.replace(ph2, labels=np.broadcast_to(
+            ph2.labels[0], (8, 32, 32)).copy(), dz=0.5)
+        spec = kramers_spectrum(80.0)
+        a, meta = cone.pack_cone_dect(helix, ph, spec, spec, 32, 18.0, 0.8,
+                                      device=dev, weighting="pair")
+
+        def call():
+            return cone.cone_reconstruct_stack(sino, a, meta)
+    elif path == "helical_fdk_reconstruct":
+        def call():
+            return conebeam.helical_fdk_reconstruct(sino, helix, 32, 18.0,
+                                                    0.8, weighting="td")
+    else:
+        ring = ConeBeamGeometry(N_proj=24, ffs="z", **det)
+        flat = sino[:, :24].contiguous()
+
+        def call():
+            return conebeam.fdk_reconstruct(flat, ring, 32, 18.0, 0.8)
+    before = conebeam._helical_backproject.launches
+    _no_sync(call)
+    assert conebeam._helical_backproject.launches == before + 2
+
+
 def test_k3_makes_no_host_synchronisation(dev):
     """K3 reads its count scale on the card: a solve copies nothing from
     the host and reads nothing back, at a pixel count ragged against its

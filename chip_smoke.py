@@ -65,10 +65,16 @@ of JAX.  Phases, each of which raises on failure:
    its build before it formed each (pixel, view)'s in-plane geometry once
    for a group of slices (``K12_PINNED_SHA1``: the helical config's seeded
    stacks in each weighting at K = 4 and at K = 1, 2, 3, the z-FFS call,
-   ragged cases), two launches equal; K8, K11, K13, K15, K32 and K33 with
-   their device times (K8 under a CUDA graph at the reference protocol's
-   and at the one-step fit's plans; the rest under torch.profiler, their
-   wrappers' host copies being outside a graph's reach); K18 and K19 (the
+   ragged cases), two launches equal; K11 held to the sha1s pinned from
+   its build before it formed each (pixel, view)'s in-plane geometry once
+   for a group of slices (``K11_PINNED_SHA1``: the cone config's seeded
+   stacks at K = 1 to 4, the tilted gantry grid, cone_pwls's warm-start
+   grid, ragged cases), two launches equal, and K32 and K33 to theirs
+   (``MOTION_PINNED_SHA1``); K8, K11 (at the cone config and on the tilted
+   gantry grid), K13, K15, K32 and K33 with their device times (K8, K11 and
+   K13 under a CUDA graph, K8 at the reference protocol's and at the
+   one-step fit's plans; the rest under torch.profiler, their wrappers'
+   host copies being outside a graph's reach); K18 and K19 (the
    exact 3-D projector and its adjoint) on the cone config's rays and
    mu[labels] at 60 keV, K18 also against K10's paths . mu and K19 through the
    dot-product identity, both against the system matrix's CSR product on
@@ -1364,6 +1370,68 @@ def k12_pinned_phase():
         fail("K12 is not its pinned sha1 on every case")
 
 
+# sha1 of K11's output on probe_cone_backproject's K11 cases (the cone
+# config's seeded stacks at K = 4, 1, 2, 3 onto 256^2 x 16; the tilted
+# path's gantry grid, 258^2 x 60; cone_pwls's warm-start grid, 256^2 x 32
+# at K = 1; a 600-view orbit onto a 37^2 grid of 1085 disc pixels, 5 slices
+# centred off z = 0 at K = 2 and 7 centred on it at K = 3), pinned from the
+# build of K11 before it formed each (pixel, view)'s in-plane geometry once
+# for a group of slices and read packed taps (NVIDIA H100 80GB HBM3, CUDA
+# 12.8); tests/test_torch_cuda.py holds the same
+K11_PINNED_SHA1 = {
+    "cone": "fbe4f1abb08b99dbce175ae58898bb2ea33ea403",
+    "k1": "021557d4b0adefebf68bf4a60fd812b9d3f9e867",
+    "k2": "fe596192aa1a825019b3317bc040c238a6c8c972",
+    "k3": "7d6826cc0148b4302d0148ee6039bd481e3f21bc",
+    "tilted": "584cf38c60d7e092c3d4ce37ee39f198dfad7bca",
+    "warm": "d32558d125da0ff77abf4d838ecbdbe14ff75b83",
+    "ragged": "c30fb5b79f76c8ae0264645d9789efa5df9e62d7",
+    "ragged_odd": "be7ddb5c201e8d6a53eda6ee5c9ba24edd40e221"}
+
+# sha1 of K32's and K33's output on probe_cone_backproject's motion cases
+# (seeded stacks under seeded rigid poses: the cone config at K = 4, the
+# helical config's 19 slices at K = 4, a 120-view helix onto 37^2 x 7 at K
+# = 3), pinned from their build before K33 read betas[0] on the card (NVIDIA
+# H100 80GB HBM3, CUDA 12.8); tests/test_torch_cuda.py holds the same
+MOTION_PINNED_SHA1 = {
+    "k32_cone": "54f460b3e401ffc3b372f8700ec77dae9b8cc45a",
+    "k33_helical": "55ba9cc87bf45d2c77cdbc2a9609ccf1735663d3",
+    "k33_ragged": "4c7223f78cef2cc2f2684744a7c3e9975d9048bb"}
+
+
+def k11_pinned_phase():
+    """K11 on the cases of ``K11_PINNED_SHA1`` and K32/K33 on those of
+    ``MOTION_PINNED_SHA1``: each held to its pinned sha1, and two launches
+    equal."""
+    import torch
+
+    from dexct_tpu_torch.ops import conebeam, motion
+    from dexct_tpu_torch.tools.probe_cone_backproject import (k11_call,
+                                                              k11_case,
+                                                              motion_call,
+                                                              motion_case,
+                                                              output_sha1)
+
+    dev = torch.device("cuda")
+    for label, pins, make in (
+            ("K11", K11_PINNED_SHA1,
+             lambda c: k11_call(conebeam, k11_case(c, dev, ROOT))),
+            ("K32/K33", MOTION_PINNED_SHA1,
+             lambda c: motion_call(motion, motion_case(c, dev, ROOT)))):
+        pinned = twice = True
+        for case, sha1 in pins.items():
+            call = make(case)
+            a = call()
+            pinned &= output_sha1(a) == sha1
+            twice &= bool(torch.equal(a, call()))
+            del call, a
+        torch.cuda.empty_cache()
+        print(f"  {label} on its {len(pins)} pinned cases: pinned sha1 "
+              f"{pinned}, two launches equal {twice}")
+        if not (pinned and twice):
+            fail(f"{label} is not its pinned sha1 on every case")
+
+
 def k6_taps(thetas, t0, dt, nt, n_matrix, fov, pixels=32768):
     """K6's backprojection taps as one CSR matrix [in-disc pixels, n_theta
     * nt]: per pixel and view on the detector, 1 - f at its channel c0 and
@@ -1813,16 +1881,15 @@ def cone_kernel_phase(arrays, meta, records, helical):
             X, Y, beta, meta.sid, meta.dgamma, C)[2:4],
         lambda inv_h: (zc[None, :, None] * meta.sid) * inv_h[:, None, :]
         / meta.row_h - 0.5 + R / 2.0, R)
-    dev_ms = kernel_device_ms(
-        lambda: conebeam._fdk_backproject_multi(*fargs),
-        "fdk_backproject_kernel")
+    dev_ms = graph_ms(lambda: conebeam._fdk_backproject_multi(*fargs))
     report(records, "fdk_backproject", err, ms, pms, err <= 1e-4 * big,
            (nbytes(qs, vol) + 8 * P + 8 * V,
             PLANE_OPS * P * V + MOTION_ROW_OPS * P * meta.nz_out * V
             + (MOTION_TAP_OPS + 7 * K) * taps),
            extra=f" (max |plain| {big:.6g}; {meta.nz_out} slices; {taps} "
                  f"of {P * meta.nz_out * V} pixel-slice-views on the "
-                 f"detector" + device_note(dev_ms) + ")")
+                 f"detector" + device_note(dev_ms, "CUDA graph of 20 calls, "
+                                           "the pack included") + ")")
 
 
 def rows_on_detector(betas, plane, row_index, R, block=8):
@@ -1920,15 +1987,14 @@ def flat_kernel_phase(ccfg, stack, records):
         conebeam._f32(ct.betas, q.device), plane,
         lambda inv_ell: (zc[None, :, None] * sid) * inv_ell[:, None, :]
         / ct.h_iso - 0.5 - ct.det_offset_row + R / 2.0, R)
-    dev_ms = kernel_device_ms(lambda: flatpanel._flat_backproject(*bargs),
-                              "flat_backproject_kernel")
+    dev_ms = graph_ms(lambda: flatpanel._flat_backproject(*bargs))
     report(records, "flat_backproject", err, ms, pms, err <= 1e-4 * big,
            (nbytes(q, vol) + 8 * P + 8 * V,
             PLANE_OPS * P * V + MOTION_ROW_OPS * P * R * V
             + (MOTION_TAP_OPS + 7 * q.shape[0]) * taps),
            extra=f" (max |plain| {big:.6g}; {R} slices; {taps} of "
                  f"{P * R * V} pixel-slice-views on the detector"
-                 + device_note(dev_ms) + ")")
+                 + device_note(dev_ms, "CUDA graph of 20 calls") + ")")
 
 
 def tilted_kernel_phase(ccfg, stack, records):
@@ -1952,8 +2018,10 @@ def tilted_kernel_phase(ccfg, stack, records):
              ct_g.h_iso, R, n_g, nz_g, fov_g, dz, ct_g.rotation_total / V)
     vols = conebeam._fdk_backproject_multi(*fargs)
     k11 = time_ms(lambda: conebeam._fdk_backproject_multi(*fargs), 1)
+    k11_dev = graph_ms(lambda: conebeam._fdk_backproject_multi(*fargs))
     print(f"  fdk_backproject on the tilted gantry grid ({n_g}^2 x {nz_g}): "
-          f"kernel={k11:.4f} ms")
+          f"kernel={k11:.4f} ms; device {k11_dev:.4f} ms (CUDA graph of 20 "
+          f"calls, the pack included)")
     idx = conebeam._tilted_indices(tau, N, fov, R, dz, q.device)
     # what the wrapper allocates: the output and nothing else (no index
     # copy), not even for a moment; the bytes requested of the caching
@@ -6756,6 +6824,7 @@ def main():
         torch.cuda.empty_cache()
         k10_pinned_phase()
         k12_pinned_phase()
+        k11_pinned_phase()
         project_kernel_phase(cone_cfgs["cone"], records)
         torch.cuda.empty_cache()
         pi_kernel_phase(cone_cfgs["helical"], records, dev)

@@ -30,9 +30,10 @@
 // output slice) loops over the views and keeps its sums in registers, so the
 // output is written once with no atomics; neighbouring threads are
 // neighbouring disc pixels of one slice, whose taps sit on neighbouring
-// channels of the same detector rows.  K12 instead gives a thread one disc
-// pixel and a group of slices, so that each (pixel, view)'s in-plane
-// geometry serves every slice of the group (its note is beside it below).
+// channels of the same detector rows.  K11 and K12 instead give a thread
+// one disc pixel and a group of slices, so that each (pixel, view)'s
+// in-plane geometry serves every slice of the group, and read a packed
+// copy of the stacks (their notes are beside them below).
 // K11 and K13 stage cos/sin of the view
 // angles in shared memory (kChunk views at a time) and visit every view.
 // K12 and K15 visit only the views that can reach their slice, the views
@@ -182,27 +183,124 @@ __device__ __forceinline__ void add_taps(const float* __restrict__ qs,
   }
 }
 
+// The packed images of one detector element: K floats (K = 3 padded to 4).
 template <int K>
-__global__ void fdk_backproject_kernel(
-    const float* __restrict__ qs, const float* __restrict__ cos_b,
-    const float* __restrict__ sin_b, const float* __restrict__ X,
-    const float* __restrict__ Y, const long long* __restrict__ sel,
-    const float* __restrict__ zc, float* __restrict__ out, int V, int R,
-    int C, int P, long long plane, float sid, float dgamma, float row_h,
-    float dbeta) {
+struct Packed;
+template <>
+struct Packed<1> {
+  static constexpr int kWidth = 1;
+  float v[1];
+  __device__ __forceinline__ Packed(const float* __restrict__ q, int o) {
+    v[0] = __ldg(q + o);
+  }
+};
+template <>
+struct Packed<2> {
+  static constexpr int kWidth = 2;
+  float v[2];
+  __device__ __forceinline__ Packed(const float* __restrict__ q, int o) {
+    const float2 a = __ldg(reinterpret_cast<const float2*>(q + o));
+    v[0] = a.x;
+    v[1] = a.y;
+  }
+};
+template <>
+struct Packed<4> {
+  static constexpr int kWidth = 4;
+  float v[4];
+  __device__ __forceinline__ Packed(const float* __restrict__ q, int o) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(q + o));
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = a.z;
+    v[3] = a.w;
+  }
+};
+template <>
+struct Packed<3> : Packed<4> {
+  using Packed<4>::Packed;
+};
+
+// acc[k] += w x the bilinear value of packed image k at the element offset
+// `base` of (view, row 0, c0), row position ridx, channel fraction fc (K11
+// and K12).
+template <int K>
+__device__ __forceinline__ void add_packed_taps(const float* __restrict__ qp,
+                                                const Detector& d, int base,
+                                                float fc, float ridx, float w,
+                                                float* acc) {
+  constexpr int kw = Packed<K>::kWidth;
+  float r0, fr;
+  row_tap(ridx, d, r0, fr);
+  const int ir0 = (int)r0;
+  const int ir1 = min(ir0 + 1, d.R - 1);
+  const int o0 = (base + ir0 * d.C) * kw;
+  const int o1 = (base + ir1 * d.C) * kw;
+  const Packed<K> t0(qp, o0), t1(qp, o0 + kw), b0(qp, o1), b1(qp, o1 + kw);
+  const float gc = 1.0f - fc, gr = 1.0f - fr;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const float top = __fadd_rn(__fmul_rn(t0.v[k], gc), __fmul_rn(t1.v[k], fc));
+    const float bot = __fadd_rn(__fmul_rn(b0.v[k], gc), __fmul_rn(b1.v[k], fc));
+    acc[k] = __fmaf_rn(__fadd_rn(__fmul_rn(top, gr), __fmul_rn(bot, fr)), w,
+                       acc[k]);
+  }
+}
+
+// K11 design.  The parent ran one thread per (disc pixel, slice) and
+// recomputed each view's in-plane geometry (view_tap, atan2, the channel
+// tap, 1 / h^2: ~131 of the 283 instructions of its view loop) for every
+// slice; at 47 registers it issued near that count's floor.  Every slice of
+// the circular orbit takes every view, so here one thread owns a disc pixel
+// and kGroupK11 consecutive slices: it forms the pixel's in-plane geometry
+// once per view (a view outside the fan is skipped for all of them), then
+// the group's row quotients, each slice's division independent of the
+// others', and adds that view's term to each slice whose row lies on the
+// detector.  The sums stay in registers, under launch bounds of 64
+// registers; the slices' z sid, block constants, are read from shared
+// memory.  Each slice's sum is the parent's: the same terms of the same
+// views in the same order, each value from the same expression (the
+// parent's `acc += val * w` was contracted by nvcc into an FFMA, written
+// here as __fmaf_rn, in add_packed_taps).  The taps come from K12's packed
+// copy of the stacks ([V, R, C, KP], the images innermost), one 16-, 8- or
+// 4-byte load a detector element at a 32-bit offset.
+
+// the slices a thread owns; the threads a block and the blocks an SM
+// must hold (launch bounds: 64 registers)
+constexpr int kGroupK11 = 8;
+constexpr int kThreadsK11 = 128;
+constexpr int kBlocksK11 = 8;
+
+template <int K>
+__global__ void __launch_bounds__(kThreadsK11, kBlocksK11)
+    fdk_backproject_kernel(
+        const float* __restrict__ qp, const float* __restrict__ cos_b,
+        const float* __restrict__ sin_b, const float* __restrict__ X,
+        const float* __restrict__ Y, const long long* __restrict__ sel,
+        const float* __restrict__ zc, float* __restrict__ out, int V, int R,
+        int C, int P, int nz, long long plane, float sid, float dgamma,
+        float row_h, float dbeta) {
   __shared__ float s_cos[kChunk];
   __shared__ float s_sin[kChunk];
+  __shared__ float s_zs[kGroupK11];
+  __shared__ int s_iz[kGroupK11];  // the slice of each slot, -1 past nz
+  if (threadIdx.x < kGroupK11) {
+    const int iz = blockIdx.y * kGroupK11 + threadIdx.x;
+    s_iz[threadIdx.x] = iz < nz ? iz : -1;
+    s_zs[threadIdx.x] = iz < nz ? __fmul_rn(zc[iz], sid) : 0.0f;
+  }
+  __syncthreads();
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  const int iz = blockIdx.y;
   const bool valid = p < P;
   const float x = valid ? X[p] : 0.0f;
   const float y = valid ? Y[p] : 0.0f;
-  const float zs = __fmul_rn(zc[iz], sid);
   const Detector d = make_detector(V, R, C);
 
-  float acc[K];
+  float acc[kGroupK11][K];
 #pragma unroll
-  for (int k = 0; k < K; ++k) acc[k] = 0.0f;
+  for (int s = 0; s < kGroupK11; ++s)
+#pragma unroll
+    for (int k = 0; k < K; ++k) acc[s][k] = 0.0f;
 
   for (int v0 = 0; v0 < V; v0 += kChunk) {
     const int nv = min(kChunk, V - v0);
@@ -214,21 +312,38 @@ __global__ void fdk_backproject_kernel(
     __syncthreads();
     if (!valid) continue;
     for (int j = 0; j < nv; ++j) {
+      // the pixel's in-plane geometry at view v0 + j, once for the group
       const ViewTap t = view_tap(x, y, s_cos[j], s_sin[j], sid);
       const float c = channel(t, dgamma, d);
       if (!in_fan(c, d)) continue;
-      const float ridx = __fadd_rn(
-          __fsub_rn(__fdiv_rn(__fmul_rn(zs, t.inv_h), row_h), 0.5f),
-          d.r_shift);
-      if (!on_detector(ridx, d)) continue;
-      add_taps<K>(qs, d, v0 + j, c, ridx, __fdiv_rn(1.0f, t.h2), acc);
+      float c0, fc;
+      channel_tap(c, d, c0, fc);
+      const int base = (v0 + j) * R * C + (int)c0;
+      const float w = __fdiv_rn(1.0f, t.h2);
+      float quot[kGroupK11];
+#pragma unroll
+      for (int s = 0; s < kGroupK11; ++s)
+        quot[s] = __fdiv_rn(__fmul_rn(s_zs[s], t.inv_h), row_h);
+#pragma unroll
+      for (int s = 0; s < kGroupK11; ++s) {
+        if (s_iz[s] < 0) continue;
+        const float ridx = __fadd_rn(__fsub_rn(quot[s], 0.5f), d.r_shift);
+        if (!on_detector(ridx, d)) continue;
+        add_packed_taps<K>(qp, d, base, fc, ridx, w, acc[s]);
+      }
     }
   }
   if (!valid) return;
-  const long long dst = (long long)iz * plane + sel[p];
-  const long long vol = (long long)gridDim.y * plane;
+  const long long vol = (long long)nz * plane;
+  const long long px = sel[p];
 #pragma unroll
-  for (int k = 0; k < K; ++k) out[k * vol + dst] = acc[k] * dbeta;
+  for (int s = 0; s < kGroupK11; ++s) {
+    const int iz = s_iz[s];
+    if (iz < 0) continue;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      out[k * vol + (long long)iz * plane + px] = __fmul_rn(acc[s][k], dbeta);
+  }
 }
 
 // The scalars of K12's windows, each the reference's Python float rounded
@@ -367,69 +482,6 @@ __device__ __forceinline__ float term_weight(const Window& k,
                         1e-4f)
             : 0.0f;
     return __fdiv_rn(k_own, __fadd_rn(__fadd_rn(k_own, k_c), 1e-30f));
-  }
-}
-
-// The packed images of one detector element: K floats (K = 3 padded to 4).
-template <int K>
-struct Packed;
-template <>
-struct Packed<1> {
-  static constexpr int kWidth = 1;
-  float v[1];
-  __device__ __forceinline__ Packed(const float* __restrict__ q, int o) {
-    v[0] = __ldg(q + o);
-  }
-};
-template <>
-struct Packed<2> {
-  static constexpr int kWidth = 2;
-  float v[2];
-  __device__ __forceinline__ Packed(const float* __restrict__ q, int o) {
-    const float2 a = __ldg(reinterpret_cast<const float2*>(q + o));
-    v[0] = a.x;
-    v[1] = a.y;
-  }
-};
-template <>
-struct Packed<4> {
-  static constexpr int kWidth = 4;
-  float v[4];
-  __device__ __forceinline__ Packed(const float* __restrict__ q, int o) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(q + o));
-    v[0] = a.x;
-    v[1] = a.y;
-    v[2] = a.z;
-    v[3] = a.w;
-  }
-};
-template <>
-struct Packed<3> : Packed<4> {
-  using Packed<4>::Packed;
-};
-
-// acc[k] += w x the bilinear value of packed image k at the element offset
-// `base` of (view, row 0, c0), row position ridx, channel fraction fc.
-template <int K>
-__device__ __forceinline__ void add_packed_taps(const float* __restrict__ qp,
-                                                const Detector& d, int base,
-                                                float fc, float ridx, float w,
-                                                float* acc) {
-  constexpr int kw = Packed<K>::kWidth;
-  float r0, fr;
-  row_tap(ridx, d, r0, fr);
-  const int ir0 = (int)r0;
-  const int ir1 = min(ir0 + 1, d.R - 1);
-  const int o0 = (base + ir0 * d.C) * kw;
-  const int o1 = (base + ir1 * d.C) * kw;
-  const Packed<K> t0(qp, o0), t1(qp, o0 + kw), b0(qp, o1), b1(qp, o1 + kw);
-  const float gc = 1.0f - fc, gr = 1.0f - fr;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const float top = __fadd_rn(__fmul_rn(t0.v[k], gc), __fmul_rn(t1.v[k], fc));
-    const float bot = __fadd_rn(__fmul_rn(b0.v[k], gc), __fmul_rn(b1.v[k], fc));
-    acc[k] = __fmaf_rn(__fadd_rn(__fmul_rn(top, gr), __fmul_rn(bot, fr)), w,
-                       acc[k]);
   }
 }
 
@@ -746,7 +798,7 @@ __global__ void motion_backproject_kernel(
     const long long* __restrict__ sel, const float* __restrict__ zc,
     float* __restrict__ out, int V, int R, int C, int P, long long plane,
     float sid, float dgamma, float row_h, float pitch, float beta_mid,
-    float beta0, float dbeta, float shift_lo, float shift_hi) {
+    float dbeta, float shift_lo, float shift_hi) {
   __shared__ float s_cb[kChunk];
   __shared__ float s_sb[kChunk];
   __shared__ float s_cp[kChunk];
@@ -766,7 +818,9 @@ __global__ void motion_backproject_kernel(
   int v_lo = 0, v_hi = V - 1;
   if (kWindow) {
     // the views within pi of the window centre under any pose, with a
-    // two-view margin (one range per slice, so per block)
+    // two-view margin (one range per slice, so per block), from the views'
+    // origin betas[0]
+    const float beta0 = __ldg(betas);
     const float bc = beta_mid + kTwoPi * z / pitch;
     v_lo = max(0, (int)floorf((bc + shift_lo - kPi - beta0) / dbeta) - 2);
     v_hi = min(V - 1, (int)ceilf((bc + shift_hi + kPi - beta0) / dbeta) + 2);
@@ -838,7 +892,7 @@ constexpr int kThreads = 128;
 
 }  // namespace
 
-extern "C" int dexct_fdk_backproject(const void* qs, const void* cos_b,
+extern "C" int dexct_fdk_backproject(const void* packed, const void* cos_b,
                                      const void* sin_b, const void* X,
                                      const void* Y, const void* sel,
                                      const void* zc, void* out, int n_images,
@@ -846,16 +900,22 @@ extern "C" int dexct_fdk_backproject(const void* qs, const void* cos_b,
                                      long long plane, float sid, float dgamma,
                                      float row_h, float dbeta, void* stream) {
   if (P <= 0 || nz <= 0) return (int)cudaGetLastError();
-  if (C < 2 || R < 1 || nz > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 blocks((P + kThreads - 1) / kThreads, nz);
+  // the packed taps are addressed with 32-bit element offsets
+  const long long width = n_images == 3 ? 4 : n_images;
+  if (C < 2 || R < 1 || (long long)V * R * C * width >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const dim3 blocks((P + kThreadsK11 - 1) / kThreadsK11,
+                    (nz + kGroupK11 - 1) / kGroupK11);
+  if (blocks.y > 65535) return (int)cudaErrorInvalidValue;
   return for_images(n_images, [&](auto k) {
     fdk_backproject_kernel<decltype(k)::value>
-        <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const float*>(qs), static_cast<const float*>(cos_b),
+        <<<blocks, kThreadsK11, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float*>(packed),
+            static_cast<const float*>(cos_b),
             static_cast<const float*>(sin_b), static_cast<const float*>(X),
             static_cast<const float*>(Y), static_cast<const long long*>(sel),
             static_cast<const float*>(zc), static_cast<float*>(out), V, R, C,
-            P, plane, sid, dgamma, row_h, dbeta);
+            P, nz, plane, sid, dgamma, row_h, dbeta);
   });
 }
 
@@ -956,7 +1016,7 @@ int launch_motion(const void* qs, const void* cos_b, const void* sin_b,
                   const void* sel, const void* zc, void* out, int n_images,
                   int V, int R, int C, int P, int nz, long long plane,
                   float sid, float dgamma, float row_h, float pitch,
-                  float beta_mid, float beta0, float dbeta, float shift_lo,
+                  float beta_mid, float dbeta, float shift_lo,
                   float shift_hi, void* stream) {
   if (P <= 0 || nz <= 0) return (int)cudaGetLastError();
   if (C < 2 || R < 1 || nz > 65535) return (int)cudaErrorInvalidValue;
@@ -974,8 +1034,8 @@ int launch_motion(const void* qs, const void* cos_b, const void* sin_b,
             static_cast<const float*>(X), static_cast<const float*>(Y),
             static_cast<const long long*>(sel),
             static_cast<const float*>(zc), static_cast<float*>(out), V, R, C,
-            P, plane, sid, dgamma, row_h, pitch, beta_mid, beta0, dbeta,
-            shift_lo, shift_hi);
+            P, plane, sid, dgamma, row_h, pitch, beta_mid, dbeta, shift_lo,
+            shift_hi);
   });
 }
 
@@ -988,8 +1048,7 @@ extern "C" int dexct_fdk_backproject_motion(
   return launch_motion<false>(qs, cos_b, sin_b, nullptr, nullptr, cos_p,
                               sin_p, dx, dy, dz, X, Y, sel, zc, out,
                               n_images, V, R, C, P, nz, plane, sid, dgamma,
-                              row_h, 1.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f,
-                              stream);
+                              row_h, 1.0f, 0.0f, 1.0f, 0.0f, 0.0f, stream);
 }
 
 extern "C" int dexct_helical_backproject_motion(
@@ -998,13 +1057,12 @@ extern "C" int dexct_helical_backproject_motion(
     const void* dy, const void* dz, const void* X, const void* Y,
     const void* sel, const void* zc, void* out, int n_images, int V, int R,
     int C, int P, int nz, long long plane, float sid, float dgamma,
-    float row_h, float pitch, float beta_mid, float beta0, float dbeta,
-    float shift_lo, float shift_hi, void* stream) {
+    float row_h, float pitch, float beta_mid, float dbeta, float shift_lo,
+    float shift_hi, void* stream) {
   if (!(dbeta > 0.0f) || pitch == 0.0f || !(shift_lo <= shift_hi))
     return (int)cudaErrorInvalidValue;
   return launch_motion<true>(qs, cos_b, sin_b, betas, src_z, cos_p, sin_p,
                              dx, dy, dz, X, Y, sel, zc, out, n_images, V, R,
                              C, P, nz, plane, sid, dgamma, row_h, pitch,
-                             beta_mid, beta0, dbeta, shift_lo, shift_hi,
-                             stream);
+                             beta_mid, dbeta, shift_lo, shift_hi, stream);
 }

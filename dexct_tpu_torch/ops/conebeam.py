@@ -370,13 +370,14 @@ def _fdk_cuda(qs, betas, sid, dgamma, row_h, n_matrix, nz_out, fov, dz_out,
     K, V, R, C = qs.shape
     kernels.require(qs, "qs", dev, torch.float32)
     kernels.require(betas, "betas", dev, torch.float32, (V,))
+    packed = _pack_images(qs)
     X, Y, sel = _disc(n_matrix, fov, dev)
     zc = _fdk_z(nz_out, dz_out, z_center, dev)
     cos_b, sin_b = torch.cos(betas), torch.sin(betas)
     out = torch.zeros((K, nz_out, n_matrix, n_matrix), dtype=torch.float32,
                       device=dev)
     rc = kernels.library().dexct_fdk_backproject(
-        qs.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(), X.data_ptr(),
+        packed.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(), X.data_ptr(),
         Y.data_ptr(), sel.data_ptr(), zc.data_ptr(), out.data_ptr(), K, V,
         R, C, X.shape[0], nz_out, n_matrix * n_matrix, sid, dgamma, row_h,
         dbeta, kernels.stream_ptr(dev))
@@ -557,19 +558,20 @@ def _helical_backproject_plain(q, betas, src_z, row_off, beta_c, sid, dgamma,
     return _place(out * (2.0 * np.pi), sel, n_matrix)
 
 
-# K12 addresses its packed taps with 32-bit element offsets
+# K11 and K12 address their packed taps with 32-bit element offsets
 _MAX_PACKED = 2 ** 31 - 1
 
 
 def _pack_images(q):
-    """K12's copy of the stacks ``q`` [K, V, R, C] with the images innermost,
-    [V, R, C, KP] (KP = K, 4 at K = 3, the fourth image zero), so that each
-    detector element's K values are one 4-, 8- or 16-byte load."""
+    """K11's and K12's copy of the stacks ``q`` [K, V, R, C] with the images
+    innermost, [V, R, C, KP] (KP = K, 4 at K = 3, the fourth image zero),
+    so that each detector element's K values are one 4-, 8- or 16-byte
+    load."""
     K = q.shape[0]
     width = 4 if K == 3 else K
     if q[0].numel() * width > _MAX_PACKED:
         raise ValueError(f"the packed stacks hold {q[0].numel() * width} "
-                         f"floats; K12 takes at most 2^31 - 1")
+                         f"floats; K11 and K12 take at most 2^31 - 1")
     if K == 1:
         return q.reshape(q.shape[1:] + (1,))
     packed = q.permute(1, 2, 3, 0)

@@ -16,6 +16,8 @@ on the card; the backprojection is kernel K13
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -64,9 +66,16 @@ def offset_detector_weights(geometry, *, feather=None):
     return 2.0 * w
 
 
-def _flat_z(nz_out, dz_out, device):
-    """Slice centres of the JAX flat-panel grid (float64, then float32)."""
+@functools.lru_cache(maxsize=16)
+def _flat_z_on(nz_out, dz_out, device):
     return _f32((np.arange(nz_out) + 0.5 - nz_out / 2.0) * dz_out, device)
+
+
+def _flat_z(nz_out, dz_out, device):
+    """Slice centres of the JAX flat-panel grid (float64, then float32),
+    uploaded once per (grid, device) and kept, so that a CUDA graph can
+    capture K13's wrapper.  Shared: never write."""
+    return _flat_z_on(int(nz_out), float(dz_out), torch.device(device))
 
 
 def _flat_backproject_plain(q, betas, sid, du_iso, dv_iso, off_c, off_r,

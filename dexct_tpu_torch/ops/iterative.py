@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.devices import _scalar
+from ..utils.devices import _scalar, as_float, upload
 from .fourier import (FourierProjectorPlan, fourier_project_images,
                       kb_sample_adjoint, kb_transpose, plan_fan_adjoint)
 
@@ -94,7 +94,7 @@ def _image_start(plan, x0):
     if x0 is None:
         return torch.zeros((plan.n_img, plan.n_img), dtype=torch.float32,
                            device=dev)
-    return torch.as_tensor(x0, dtype=torch.float32, device=dev)
+    return as_float(x0, dev).float()
 
 
 def cg_recon(plan: FourierProjectorPlan, sino, view_shape, *, n_iters=30,
@@ -105,7 +105,7 @@ def cg_recon(plan: FourierProjectorPlan, sino, view_shape, *, n_iters=30,
     the plan's tables.  Returns ([N, N] image in 1/cm, residual-norm
     history [n_iters])."""
     apply_fn = make_projection_operator(plan, view_shape)
-    b = torch.as_tensor(sino, dtype=torch.float32, device=plan.deapod.device)
+    b = as_float(sino, plan.deapod.device).float()
     return _cg(apply_fn, b, _image_start(plan, x0), int(n_iters), float(lam),
                adjoint=_projection_adjoint(plan, view_shape))
 
@@ -117,7 +117,7 @@ def _start_vector(shape, device, _v0):
     if _v0 is None:
         gen = torch.Generator(device=device).manual_seed(0)
         return torch.randn(tuple(shape), generator=gen, **f32)
-    return torch.as_tensor(np.array(_v0), **f32)
+    return as_float(np.array(_v0), device).float()
 
 
 def sirt_recon(plan: FourierProjectorPlan, sino, view_shape, *, n_iters=50,
@@ -130,7 +130,7 @@ def sirt_recon(plan: FourierProjectorPlan, sino, view_shape, *, n_iters=50,
     iteration's start vector.  Returns the [N, N] image in 1/cm."""
     apply_fn = make_projection_operator(plan, view_shape)
     adjoint = _projection_adjoint(plan, view_shape)
-    b = torch.as_tensor(sino, dtype=torch.float32, device=plan.deapod.device)
+    b = as_float(sino, plan.deapod.device).float()
     x = _image_start(plan, x0)
 
     def normal(z):
@@ -161,8 +161,8 @@ def pwls_recon(plan: FourierProjectorPlan, sino_log, counts, view_shape, *,
     vector.  Returns the [N, N] image in 1/cm."""
     dev = plan.deapod.device
     apply_fn = make_projection_operator(plan, view_shape)
-    y = torch.as_tensor(sino_log, dtype=torch.float32, device=dev)
-    w = pwls_weights(torch.as_tensor(counts, device=dev), sigma_e=sigma_e,
+    y = as_float(sino_log, dev).float()
+    w = pwls_weights(upload(counts, dev), sigma_e=sigma_e,
                      var_ratio=var_ratio)
     return _pwls_fista(apply_fn, y, w, _image_start(plan, x0), int(n_iters),
                        float(beta), float(delta), bool(nonneg),

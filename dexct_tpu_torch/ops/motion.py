@@ -253,8 +253,7 @@ def _pose(phi, disp, dev):
     """cos phi, sin phi and the displacement columns as contiguous float32
     tensors on ``dev`` (cos and sin taken there in float32, as the JAX
     programs do)."""
-    phi = torch.as_tensor(phi, dtype=torch.float32, device=dev)
-    disp = torch.as_tensor(disp, dtype=torch.float32, device=dev)
+    phi, disp = as_float(phi, dev).float(), as_float(disp, dev).float()
     return (torch.cos(phi).contiguous(), torch.sin(phi).contiguous(),
             *(disp[:, i].contiguous() for i in range(disp.shape[1])))
 
@@ -469,9 +468,10 @@ def estimate_translation(sino_log, geometry, *, n_modes=6, n_iters=25,
 
 def _z_grid(nz_out, dz_out, z0, device):
     """Slice centres z0 + k dz_out, in float64 on the host and then rounded
-    to float32, as the JAX motion programs build them."""
-    return torch.as_tensor(z0 + np.arange(nz_out) * dz_out,
-                           dtype=torch.float32, device=device)
+    to float32, as the JAX motion programs build them (uploaded: no
+    synchronisation)."""
+    return upload((z0 + np.arange(nz_out) * dz_out).astype(np.float32),
+                  device)
 
 
 def _posed_inplane(X, Y, beta, ph, d, sid, dgamma, C):
@@ -509,15 +509,12 @@ def _motion_backproject_plain(q, betas, phi, disp, sid, dgamma, row_h,
 
     K, V, R, C = q.shape
     dev = q.device
-    f32 = dict(dtype=torch.float32, device=dev)
     X, Y, sel = _disc(n_matrix, fov, dev)
     zc = _z_grid(nz_out, dz_out, z0, dev)
-    betas = betas.to(**f32)
-    phi = torch.as_tensor(phi, **f32)
-    disp = torch.as_tensor(disp, **f32)
+    betas, phi, disp = (as_float(x, dev).float() for x in (betas, phi, disp))
     if window is not None:
         src_z, beta_mid, pitch = window
-        src_z = torch.as_tensor(src_z, **f32)
+        src_z = as_float(src_z, dev).float()
     qf = q.to(torch.float32).reshape(K, -1)
     num = qf.new_zeros((K, nz_out, X.shape[0]))
     den = qf.new_zeros((nz_out, X.shape[0]))
@@ -574,7 +571,7 @@ def _motion_cuda_args(q, betas, phi, disp, n_matrix, fov, nz_out, dz_out,
     dev = q.device
     K, V, R, C = q.shape
     kernels.require(q, "q", dev, torch.float32)
-    betas = betas.to(device=dev, dtype=torch.float32).contiguous()
+    betas = as_float(betas, dev).float().contiguous()
     if betas.shape != (V,):
         raise ValueError(f"betas must be [{V}], got {tuple(betas.shape)}")
     from .conebeam import _disc
@@ -603,9 +600,9 @@ def _fdk_motion_cuda(q, betas, phi, disp, sid, dgamma, row_h, n_matrix,
 
 
 def _check_pose(phi, disp, V, D):
-    """Raise unless phi is [V] and disp [V, D] (arrays or tensors)."""
-    if tuple(np.shape(_host64(phi))) != (V,) \
-            or tuple(np.shape(_host64(disp))) != (V, D):
+    """Raise unless phi is [V] and disp [V, D] (arrays or tensors, whose
+    shapes are read without a copy)."""
+    if tuple(np.shape(phi)) != (V,) or tuple(np.shape(disp)) != (V, D):
         raise ValueError(f"phi must be [{V}] and disp [{V}, {D}]")
 
 
@@ -649,28 +646,39 @@ def _window_shifts(disp_z, pitch):
     return float(s.min()), float(s.max())
 
 
+def _host_f32(x):
+    """``x``'s float32 values as a host float64 array: host data is cast
+    on the host; a tensor on the card is read back (a synchronising
+    copy)."""
+    if torch.is_tensor(x):
+        x = x.detach().to(torch.float32).cpu().numpy()
+    return np.asarray(x, np.float32).astype(np.float64)
+
+
 def _helical_motion_cuda(q, betas, src_z, beta_mid, phi, disp, sid, dgamma,
                          row_h, pitch, n_matrix, nz_out, fov, dz_out, z0):
     K, V, R, C = q.shape
     dev = q.device
+    # the view spacing and its check, and the window's shifts, from host
+    # arrays; betas or disp given only on the card are read back once
+    b = _host_f32(betas)
+    lo, hi = _window_shifts(_host64(disp)[:, 2], pitch)
     betas, cos_b, sin_b, pose, grid, out = _motion_cuda_args(
         q, betas, phi, disp, n_matrix, fov, nz_out, dz_out, z0)
-    src_z = torch.as_tensor(src_z, dtype=torch.float32,
-                            device=dev).contiguous()
+    src_z = as_float(src_z, dev).float().contiguous()
     if src_z.shape != (V,):
         raise ValueError(f"src_z must be [{V}], got {tuple(src_z.shape)}")
-    b = betas.double().cpu().numpy()
     dbeta = float(b[1] - b[0]) if V > 1 else 1.0
     if V > 1 and not np.allclose(np.diff(b), dbeta, rtol=1e-4, atol=1e-6):
         raise ValueError("the views must be uniformly spaced (each slice "
                          "visits only the views its window can reach)")
-    lo, hi = _window_shifts(_host64(disp)[:, 2], pitch)
+    # the kernel reads betas[0], the views' origin, on the card
     rc = kernels.library().dexct_helical_backproject_motion(
         q.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(), betas.data_ptr(),
         src_z.data_ptr(), *(t.data_ptr() for t in pose),
         *(t.data_ptr() for t in grid), out.data_ptr(), K, V, R, C,
         grid[0].shape[0], nz_out, n_matrix * n_matrix, sid, dgamma, row_h,
-        pitch, beta_mid, float(b[0]), dbeta, lo, hi, kernels.stream_ptr(dev))
+        pitch, beta_mid, dbeta, lo, hi, kernels.stream_ptr(dev))
     kernels.check(rc, "helical_backproject_motion")
     _helical_backproject_motion.launches += 1
     return out
@@ -684,9 +692,12 @@ def _helical_backproject_motion(q, betas, src_z, beta_mid, phi, disp, sid,
 
     q: [V, R, C] (or [K, V, R, C]); betas, src_z, phi: [V], the views
     uniformly spaced with ``betas[v] = betas[0] + v dbeta``, dbeta > 0;
-    disp: [V, 3].  A view adds to a voxel when its row is on the detector
-    and |beta_v - bc_v| <= pi with bc_v = beta_mid + 2 pi (z + dz_v) /
-    pitch; num / den x 2 pi as :func:`_fdk_backproject_motion`.  Returns
+    disp: [V, 3].  Host arrays are cast to float32 on the host; on the
+    card, betas or disp given only as card tensors are read back once (the
+    view spacing and the window's reach are host figures).  A view adds to
+    a voxel when its row is on the detector and |beta_v - bc_v| <= pi with
+    bc_v = beta_mid + 2 pi (z + dz_v) / pitch; num / den x 2 pi as
+    :func:`_fdk_backproject_motion`.  Returns
     [nz_out, N, N] (or [K, nz_out, N, N]).  CUDA tensors run kernel K33
     (counted in ``_helical_backproject_motion.launches``; each slice visits
     the views its window reaches under the track's least and largest dz);
@@ -799,7 +810,7 @@ def helical_fdk_reconstruct_motion(sino_log, geometry, n_matrix, fov, ramp,
     z_out, dz = helical_slices(ct, z_out)
     q, single = _cone_filtered(sino_log, ct, ramp, window, device)
     out = _helical_backproject_motion(
-        q, upload(ct.betas, q.device, torch.float32),
+        q, np.asarray(ct.betas, np.float64),
         np.asarray(ct.source_z, np.float64), float(0.5 * ct.rotation_total),
         motion.phi, motion.disp, float(ct.SID), float(ct.dgamma),
         float(ct.h_iso), int(q.shape[2]), float(ct.pitch), int(n_matrix),

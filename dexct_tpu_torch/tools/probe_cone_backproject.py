@@ -1,10 +1,14 @@
-"""K12, the helical gFDK backprojector, on the card: the sha1s of its
-pinned cases, its device time at the paths' shapes, what nvcc made of it,
-and the steps of its redesign.
+"""K12, the helical gFDK backprojector, and K11, the circular FDK
+backprojector, on the card: the sha1s of their pinned cases, their device
+times at the paths' shapes, what nvcc made of them, and the steps of their
+redesigns; and the sha1s of K32's and K33's pinned cases.
 
     python dexct_tpu_torch/tools/probe_cone_backproject.py [--root DIR]
-        [--reps 10] [--bits] [--time] [--sass] [--sass-dump FILE]
-        [--steps] [--parent DIR] [--variants 0,1,2]
+        [--kernel k12|k11|motion] [--reps 10] [--bits] [--time] [--sass]
+        [--sass-dump FILE] [--steps] [--parent DIR] [--variants 0,1,2]
+
+``--kernel`` picks the kernel (default ``k12``); ``motion`` has ``--bits``
+only.  K11's cases, lines and steps are described after K12's below.
 
 Run it by path, from the repository root.  ``--root`` names the checkout
 whose ``dexct_tpu_torch`` is measured (default: the one holding this
@@ -50,6 +54,33 @@ Prints the card's name and power limit, then JSON lines:
   launches are equal, its device time at the helical ``full`` case in two
   passes over the variants, the second in reverse, and its loops; the
   checkout's and the parent's K12 are timed in the same passes.
+
+K11's cases (:data:`K11_PIN_CASES`, :func:`k11_case`), each the arguments
+of one ``_fdk_backproject_multi`` call on seeded filtered stacks:
+
+- ``cone``: the cone configuration of ``chip_smoke.py`` (360 views x 16
+  rows x 256 channels, 256^2 x 16 slices of ``h_iso`` over 40 cm), K = 4;
+  ``k1``, ``k2``, ``k3``: the same at K = 1, 2, 3;
+- ``tilted``: the tilted configuration's gantry grid (``_tilted_grid``:
+  258^2 x 60 slices), K = 4;
+- ``warm``: ``cone_pwls``'s FDK warm start (the cone scan onto the
+  phantom's 256^2 x 32 voxel grid at 0.2 cm), K = 1;
+- ``ragged``: a 600-view orbit of a 6-row x 40-channel detector onto a
+  37^2 grid (1085 disc pixels) of 5 slices centred at z = 0.3 cm (no
+  slice mirrors another), K = 2; ``ragged_odd``: the same with 7 slices
+  centred at 0 (the middle slice its own mirror), K = 3.
+
+Its lines: ``"k11_sass"``, ``"k11_bits"``, ``"k11_time"`` (at
+:data:`K11_TIME_CASES`) and ``"k11_step"`` as K12's, the variants those of
+:data:`K11_STEPS` in ``k11_steps.cu``, each packed variant timed with its
+pack (as the wrapper packs), the parent through its C entry.
+
+K32's and K33's cases (:data:`MOTION_PIN_CASES`, :func:`motion_case`),
+seeded stacks under seeded rigid poses: ``k32_cone`` (the cone
+configuration, K = 4), ``k33_helical`` (the helical configuration's 19
+slices, K = 4) and ``k33_ragged`` (a 120-view helix over two turns of the
+ragged detector, 37^2 x 7 slices, K = 3); ``"motion_bits"`` as
+``"k12_bits"``.
 
 Card only.
 """
@@ -337,16 +368,18 @@ def _registers(ptxas):
     return regs
 
 
-def _build_steps(tmp, variants, parent):
-    """Each variant of ``k12_steps.cu`` and, with ``parent``, the parent
-    checkout's ``csrc/cone_backproject.cu``, built at once, one nvcc each:
-    ({variant: (library, ptxas report, path)}, parent library or None)."""
+def _build_steps(tmp, variants, parent, kernel="k12"):
+    """Each variant of ``<kernel>_steps.cu`` and, with ``parent``, the
+    parent checkout's ``csrc/cone_backproject.cu``, built at once, one nvcc
+    each: ({variant: (library, ptxas report, path)}, parent library or
+    None)."""
     here = Path(__file__).resolve().parent
-    jobs = {v: (Path(tmp) / f"libk12_step{v}.so", _nvcc(
-        here / "k12_steps.cu", Path(tmp) / f"libk12_step{v}.so",
-        (f"-DK12_VARIANT={v}",), verbose=True)) for v in variants}
+    define = kernel.upper() + "_VARIANT"
+    jobs = {v: (Path(tmp) / f"lib{kernel}_step{v}.so", _nvcc(
+        here / f"{kernel}_steps.cu", Path(tmp) / f"lib{kernel}_step{v}.so",
+        (f"-D{define}={v}",), verbose=True)) for v in variants}
     if parent is not None:
-        so = Path(tmp) / "libk12_parent.so"
+        so = Path(tmp) / f"lib{kernel}_parent.so"
         jobs["parent"] = (so, _nvcc(
             parent / "dexct_tpu_torch" / "csrc" / "cone_backproject.cu", so))
     libs = {}
@@ -358,11 +391,16 @@ def _build_steps(tmp, variants, parent):
         libs[v] = (ctypes.CDLL(str(so)), err, so)
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
-    # the parent's dexct_helical_backproject: the checkout's arguments with
-    # beta0 before dbeta
-    args = (P,) * 12 + (I,) * 7 + (L,) + (F,) * 16 + (P,)
+    if kernel == "k11":  # dexct_fdk_backproject's arguments
+        args = (P,) * 8 + (I,) * 6 + (L,) + (F,) * 4 + (P,)
+        entry = "dexct_fdk_backproject"
+    else:
+        # the parent's dexct_helical_backproject: the checkout's arguments
+        # with beta0 before dbeta
+        args = (P,) * 12 + (I,) * 7 + (L,) + (F,) * 16 + (P,)
+        entry = "dexct_helical_backproject"
     for v, (lib, _, _) in libs.items():
-        fn = lib.dexct_helical_backproject if v == "parent" else lib.k12_step
+        fn = getattr(lib, entry if v == "parent" else f"{kernel}_step")
         fn.argtypes, fn.restype = args, I
     par = libs.pop("parent", (None,))[0]
     return libs, par
@@ -431,8 +469,9 @@ def _probe_steps(h, conebeam, root, parent, variants):
                                  f"cudaError_t {rc}")
             return out
 
-        names = list(variants) + ["checkout"] + (
-            ["parent"] if par is not None else [])
+        # timed parent, checkout, variants, then in reverse
+        names = (["parent"] if par is not None else []) + ["checkout"] + \
+            list(variants)
         recs = {v: {"probe": "k12_step", "variant": v,
                     "name": v if isinstance(v, str) else STEPS[v],
                     "equal_to_checkout": {}, "equal_to_parent": {},
@@ -480,10 +519,328 @@ def _probe_steps(h, conebeam, root, parent, variants):
         print(json.dumps(rec), flush=True)
 
 
+
+# ---------------------------------------------------------------------------
+# K11, the circular FDK backprojector
+# ---------------------------------------------------------------------------
+
+K11_PATH_CASES = ("cone", "k1", "k2", "k3", "tilted", "warm")
+K11_RAGGED_CASES = ("ragged", "ragged_odd")
+K11_PIN_CASES = K11_PATH_CASES + K11_RAGGED_CASES
+K11_TIME_CASES = ("cone", "tilted", "warm")
+
+
+def _ragged_orbit(views):
+    from dexct_tpu_torch.system.geometry import ConeBeamGeometry
+
+    return ConeBeamGeometry(N_proj=views, **RAGGED_DETECTOR)
+
+
+def k11_spec(name, root=_HERE):
+    """(K, the scan, (n_matrix, nz_out, fov, dz_out, z_center)) of the K11
+    case ``name``."""
+    root = str(root)
+    if name in ("cone", "k1", "k2", "k3"):
+        ct = _scan("cone", root)
+        K = 4 if name == "cone" else int(name[1])
+        return K, ct, (N_MATRIX, int(ct.N_rows), FOV, float(ct.h_iso), 0.0)
+    if name == "warm":  # chip_smoke's cone_pwls: the pelvis's voxel grid
+        return 1, _scan("cone", root), (256, 32, 256 * 0.2, 0.2, 0.0)
+    if name == "tilted":
+        from dexct_tpu_torch.ops.conebeam import _tilted_grid
+
+        ct = _scan("tilted", root)
+        n_g, fov_g, nz_g = _tilted_grid(ct.tilt, N_MATRIX, FOV, ct.N_rows,
+                                        ct.h_iso)
+        return 4, ct.untilted(), (n_g, nz_g, fov_g, float(ct.h_iso), 0.0)
+    n, fov = RAGGED_GRID
+    if name == "ragged":
+        return 2, _ragged_orbit(600), (n, 5, fov, 0.5, 0.3)
+    if name == "ragged_odd":
+        return 3, _ragged_orbit(600), (n, 7, fov, 0.5, 0.0)
+    raise KeyError(name)
+
+
+def k11_case(name, dev, root=_HERE):
+    """One case of :data:`K11_PIN_CASES` on ``dev``: (q [K, V, R, C]
+    float32, the arguments of ``_fdk_backproject_multi`` after q, the
+    betas a float32 tensor)."""
+    import torch
+
+    K, ct, (n, nz, fov, dz, zc) = k11_spec(name, root)
+    V, R, C = int(ct.N_proj), int(ct.N_rows), int(ct.N_channels)
+    rng = np.random.default_rng(zlib.crc32(f"k11_{name}".encode()))
+    q = torch.as_tensor(rng.standard_normal((K, V, R, C), np.float32),
+                        device=dev)
+    betas = torch.as_tensor(np.asarray(ct.betas, np.float32), device=dev)
+    return q, (betas, float(ct.SID), float(ct.dgamma), float(ct.h_iso), R,
+               int(n), int(nz), float(fov), float(dz),
+               float(ct.rotation_total / V), float(zc))
+
+
+def k11_call(conebeam, case, plain=False):
+    """K11's call on ``case`` (:func:`k11_case`'s tuple) through the
+    checkout's wrapper (with ``plain``, its plain version)."""
+    q, args = case
+    fn = (conebeam._fdk_backproject_multi_plain if plain
+          else conebeam._fdk_backproject_multi)
+    return lambda: fn(q, *args)
+
+
+def k11_work(cs, conebeam, case, vol):
+    """(bytes, operations, terms with taps) of K11 on ``case`` as
+    ``chip_smoke.py`` counts them."""
+    q, args = case
+    K, V, R, C = q.shape
+    betas, sid, dgamma, row_h, _, n, nz, fov, dz, _, zc0 = args
+    X, Y, _ = conebeam._disc(n, fov, q.device)
+    P = X.shape[0]
+    zc = conebeam._fdk_z(nz, dz, zc0, q.device)
+    taps = cs.rows_on_detector(
+        betas, lambda beta: conebeam._inplane(X, Y, beta, sid, dgamma,
+                                              C)[2:4],
+        lambda inv_h: (zc[None, :, None] * sid) * inv_h[:, None, :] / row_h
+        - 0.5 + R / 2.0, R)
+    return (cs.nbytes(q, vol) + 8 * P + 8 * V,
+            cs.PLANE_OPS * P * V + cs.MOTION_ROW_OPS * P * nz * V
+            + (cs.MOTION_TAP_OPS + 7 * K) * taps, taps)
+
+
+def _probe_k11_bits(conebeam, root, names):
+    import torch
+
+    dev = torch.device("cuda")
+    for name in names:
+        case = k11_case(name, dev, root)
+        call = k11_call(conebeam, case)
+        a, b = call(), call()
+        want = k11_call(conebeam, case, plain=True)()
+        print(json.dumps({
+            "probe": "k11_bits", "case": name, "shape": list(a.shape),
+            "sha1": output_sha1(a),
+            "two_launches_equal": bool(torch.equal(a, b)),
+            "plain_max_abs": float((a - want).abs().max()),
+            "plain_max": float(want.abs().max())}), flush=True)
+        del case, call, a, b, want
+        torch.cuda.empty_cache()
+
+
+def _probe_k11_time(h, cs, conebeam, root, reps):
+    import torch
+
+    dev = torch.device("cuda")
+    for name in K11_TIME_CASES:
+        case = k11_case(name, dev, root)
+        call = k11_call(conebeam, case)
+        n_bytes, n_ops, taps = k11_work(cs, conebeam, case, call())
+        b, by = cs.bound(n_bytes, n_ops)
+        print(json.dumps({
+            "probe": "k11_time", "case": name, "shape": list(
+                call().shape), "terms_with_taps": taps,
+            "device_ms": [h._graph_ms(call), h._graph_ms(call)],
+            "call_ms": [h._time_ms(call, reps), h._time_ms(call, reps)],
+            "bound_ms": b, "bound_by": by}), flush=True)
+        del case, call
+        torch.cuda.empty_cache()
+
+
+# the variants of k11_steps.cu, in its order; variant 0 is the parent kernel
+K11_STEPS = (
+    "parent: a thread per (pixel, slice), the in-plane geometry per term, "
+    "scalar taps at 64-bit offsets, 128 threads",
+    "1: a thread per (pixel, 4 slices), the in-plane geometry once per "
+    "view, scalar taps, 128 threads bounded to 8 blocks an SM",
+    "2: as 1 with the packed taps",
+    "3: as 2 with 2 slices a thread",
+    "4: as 2 in 64-thread blocks bounded to 16",
+    "5: as 3 in 64-thread blocks bounded to 16",
+    "6: as 2 with mirror slices paired, one division for both",
+    "7: as 3 with mirror slices paired",
+    "8: as 2 with 8 slices a thread",
+    "9: as 3 bounded to 12 blocks an SM",
+    "10: as 8 with mirror slices paired",
+    "11: as 8 in 64-thread blocks bounded to 16",
+    "12: as 8 bounded to 6 blocks an SM",
+    "13: as 8 with each slice's quotient formed where it is used",
+)
+
+
+def _k11_c_args(conebeam, case):
+    """The C arguments of a K11 launch on ``case`` after the stacks and
+    before the stream, the output, and the arrays they point to (kept
+    alive by the caller)."""
+    import torch
+
+    q, args = case
+    K, V, R, C = q.shape
+    betas, sid, dgamma, row_h, _, n, nz, fov, dz, dbeta, zc0 = args
+    X, Y, sel = conebeam._disc(n, fov, q.device)
+    zc = conebeam._fdk_z(nz, dz, zc0, q.device)
+    cos_b, sin_b = torch.cos(betas), torch.sin(betas)
+    out = torch.zeros((K, nz, n, n), device=q.device)
+    keep = (cos_b, sin_b, X, Y, sel, zc)
+    return ([t.data_ptr() for t in keep]
+            + [out.data_ptr(), K, V, R, C, X.shape[0], nz, n * n, sid,
+               dgamma, row_h, dbeta]), out, keep
+
+
+def _probe_k11_steps(h, conebeam, root, parent, variants):
+    """Each variant on every K11 case against the checkout's K11 (and the
+    parent's): bits, registers, SASS and device times at every case of
+    :data:`K11_TIME_CASES`, the checkout and the parent timed in the same
+    passes."""
+    import torch
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        libs, par = _build_steps(tmp, variants, parent, "k11")
+        cache = {}
+
+        def setup(name):
+            if name not in cache:
+                case = k11_case(name, dev, root)
+                cache[name] = (case, *_k11_c_args(conebeam, case))
+            return cache[name]
+
+        def call(v, name):
+            case, c_args, out, _ = setup(name)
+            stream = torch.cuda.current_stream().cuda_stream
+            if v == "checkout":
+                return k11_call(conebeam, case)()
+            if v == "parent":
+                rc = par.dexct_fdk_backproject(case[0].data_ptr(), *c_args,
+                                               stream)
+            else:
+                lib = libs[v][0]
+                # a packed variant packs on every call, as the wrapper does
+                q = (conebeam._pack_images(case[0]) if lib.k11_step_packed()
+                     else case[0])
+                rc = lib.k11_step(q.data_ptr(), *c_args, stream)
+            if rc:
+                raise SystemExit(f"probe_cone_backproject: {v} on {name}: "
+                                 f"cudaError_t {rc}")
+            return out
+
+        # timed parent, checkout, variants, then in reverse
+        names = (["parent"] if par is not None else []) + ["checkout"] + \
+            list(variants)
+        recs = {v: {"probe": "k11_step", "variant": v,
+                    "name": v if isinstance(v, str) else K11_STEPS[v],
+                    "equal_to_checkout": {}, "equal_to_parent": {},
+                    "two_launches_equal": True,
+                    "device_ms": {c: [] for c in K11_TIME_CASES}}
+                for v in names}
+        sass = _sibling("sass_stats")
+        for v in variants:
+            recs[v]["resources"] = _registers(libs[v][1])
+            tag = "parent_kernel" if v == 0 else "k11v_kernel"
+            st = sass.kernel_stats(libs[v][2], (tag + "ILi4E",))
+            recs[v]["sass"] = {k: {"resources": s.get("resources"),
+                                   "instructions": s.get("instructions"),
+                                   "ops": s.get("ops"),
+                                   "loops": s.get("loops")}
+                               for k, s in st.items()}
+        for name in K11_PIN_CASES:
+            ref = call("checkout", name).clone()
+            pref = (call("parent", name).clone() if par is not None
+                    else None)
+            for v in names:
+                a = call(v, name).clone()
+                recs[v]["equal_to_checkout"][name] = bool(torch.equal(a, ref))
+                if pref is not None:
+                    recs[v]["equal_to_parent"][name] = bool(
+                        torch.equal(a, pref))
+                recs[v]["two_launches_equal"] &= bool(
+                    torch.equal(a, call(v, name)))
+            if name not in K11_TIME_CASES:
+                del cache[name]
+            torch.cuda.empty_cache()
+        for order in (names, names[::-1]):
+            for v in order:
+                for name in K11_TIME_CASES:
+                    recs[v]["device_ms"][name].append(
+                        h._graph_ms(lambda v=v, name=name: call(v, name)))
+    for v in names:
+        rec = recs[v]
+        rec["all_equal_to_checkout"] = all(rec["equal_to_checkout"].values())
+        if par is not None:
+            rec["all_equal_to_parent"] = all(rec["equal_to_parent"].values())
+        print(json.dumps(rec), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# K32 and K33, the motion-compensated cone backprojectors
+# ---------------------------------------------------------------------------
+
+MOTION_PIN_CASES = ("k32_cone", "k33_helical", "k33_ragged")
+
+
+def motion_case(name, dev, root=_HERE):
+    """One case of :data:`MOTION_PIN_CASES` on ``dev``: (the wrapper's
+    name in ``ops/motion.py``, its positional arguments: the seeded stacks
+    and betas as float32 tensors on ``dev``, the rest as the library's
+    callers pass them)."""
+    import torch
+
+    from dexct_tpu_torch.ops.conebeam import helical_slices
+
+    rng = np.random.default_rng(zlib.crc32(f"motion_{name}".encode()))
+    if name == "k32_cone":
+        ct, K = _scan("cone", str(root)), 4
+    elif name == "k33_helical":
+        ct, K = _scan("helical", str(root)), 4
+    elif name == "k33_ragged":
+        ct, K = _ragged_geometry(120, 4.0, 1.5), 3
+    else:
+        raise KeyError(name)
+    n, fov = RAGGED_GRID if name == "k33_ragged" else (N_MATRIX, FOV)
+    V, R, C = int(ct.N_proj), int(ct.N_rows), int(ct.N_channels)
+    q = torch.as_tensor(rng.standard_normal((K, V, R, C), np.float32),
+                        device=dev)
+    betas = torch.as_tensor(np.asarray(ct.betas, np.float32), device=dev)
+    phi = rng.uniform(-0.03, 0.03, V)
+    disp = rng.uniform(-0.4, 0.4, (V, 3))
+    geo = (float(ct.SID), float(ct.dgamma), float(ct.h_iso))
+    if name == "k32_cone":
+        return "_fdk_backproject_motion", (
+            q, betas, phi, disp, *geo, R, n, R, fov, float(ct.h_iso),
+            (0.5 - R / 2.0) * float(ct.h_iso))
+    z_out, dz = helical_slices(ct, None if name == "k33_helical"
+                               else 0.6 * np.arange(7) - 1.8)
+    return "_helical_backproject_motion", (
+        q, betas, np.asarray(ct.source_z, np.float64),
+        float(0.5 * ct.rotation_total), phi, disp, *geo, R, float(ct.pitch),
+        n, len(z_out), fov, dz, float(z_out[0]))
+
+
+def motion_call(motion, case):
+    """K32's or K33's call on ``case`` (:func:`motion_case`'s tuple)."""
+    fn, args = case
+    return lambda: getattr(motion, fn)(*args)
+
+
+def _probe_motion_bits(motion, root):
+    import torch
+
+    dev = torch.device("cuda")
+    for name in MOTION_PIN_CASES:
+        case = motion_case(name, dev, root)
+        call = motion_call(motion, case)
+        a, b = call(), call()
+        print(json.dumps({
+            "probe": "motion_bits", "case": name, "kernel": case[0],
+            "shape": list(a.shape), "sha1": output_sha1(a),
+            "two_launches_equal": bool(torch.equal(a, b))}), flush=True)
+        del case, call, a, b
+        torch.cuda.empty_cache()
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", type=Path, default=_HERE,
                         help="the checkout whose dexct_tpu_torch to measure")
+    parser.add_argument("--kernel", choices=("k12", "k11", "motion"),
+                        default="k12", help="the kernel to probe")
     parser.add_argument("--reps", type=int, default=10)
     parser.add_argument("--bits", action="store_true",
                         help="the pinned cases' sha1s")
@@ -524,22 +881,34 @@ def main(argv=None):
     print(f"{h._card_line()} | torch {torch.__version__} | {root}",
           flush=True)
     kernels.library()
+    parent = None if args.parent is None else args.parent.resolve()
+    if args.kernel == "motion":
+        if args.bits:
+            from dexct_tpu_torch.ops import motion
+
+            _probe_motion_bits(motion, root)
+        return
+    k11 = args.kernel == "k11"
     if args.sass:
-        stats = _sibling("sass_stats").kernel_stats(
-            kernels.build(), ("helical_backproject_kernelILi4E",), dump)
-        print(json.dumps({"probe": "k12_sass", "kernels": stats}),
+        name = ("fdk_backproject_kernelILi4E" if k11
+                else "helical_backproject_kernelILi4E")
+        stats = _sibling("sass_stats").kernel_stats(kernels.build(), (name,),
+                                                    dump)
+        print(json.dumps({"probe": f"{args.kernel}_sass", "kernels": stats}),
               flush=True)
     if args.bits:
-        names = PIN_CASES if args.cases is None else args.cases.split(",")
-        _probe_bits(conebeam, root, names)
+        names = ((K11_PIN_CASES if k11 else PIN_CASES)
+                 if args.cases is None else args.cases.split(","))
+        (_probe_k11_bits if k11 else _probe_bits)(conebeam, root, names)
     if args.time:
-        _probe_time(h, cs, conebeam, root, args.reps)
+        (_probe_k11_time if k11 else _probe_time)(h, cs, conebeam, root,
+                                                  args.reps)
     if args.steps:
-        variants = (range(len(STEPS)) if args.variants is None
+        n_steps = len(K11_STEPS if k11 else STEPS)
+        variants = (range(n_steps) if args.variants is None
                     else [int(v) for v in args.variants.split(",")])
-        _probe_steps(h, conebeam, root,
-                     None if args.parent is None else args.parent.resolve(),
-                     list(variants))
+        (_probe_k11_steps if k11 else _probe_steps)(h, conebeam, root, parent,
+                                                    list(variants))
 
 
 if __name__ == "__main__":

@@ -124,9 +124,9 @@ _SIGNATURES = {
                                     + (_F,) * 3 + (_P,),
     # qs, cos_b, sin_b, betas, src_z, cos_p, sin_p, dx, dy, dz, X, Y, sel,
     # zc, out, n_images, V, R, C, P, nz, plane, sid, dgamma, row_h, pitch,
-    # beta_mid, beta0, dbeta, shift_lo, shift_hi, stream
+    # beta_mid, dbeta, shift_lo, shift_hi, stream (betas[0] read on the card)
     "dexct_helical_backproject_motion": (_P,) * 15 + (_I,) * 6 + (_L,)
-                                        + (_F,) * 9 + (_P,),
+                                        + (_F,) * 8 + (_P,),
     # qs, cos_b, sin_b, X, Y, sel, zc, out, n_images, V, R, C, P, nz,
     # plane, sid, du, dv, off_c, off_r, dbeta, stream
     "dexct_flat_backproject": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -2337,6 +2337,236 @@ def test_k12_makes_no_host_synchronisation(dev, path):
     assert conebeam._helical_backproject.launches == before + 2
 
 
+# sha1 of K11's output on the cases of probe_cone_backproject.K11_PIN_CASES
+# (the cone config's seeded stacks at K = 4, 1, 2, 3 onto 256^2 x 16; the
+# tilted path's gantry grid, 258^2 x 60; cone_pwls's warm-start grid,
+# 256^2 x 32 at K = 1; a 600-view orbit onto a 37^2 grid of 1085 disc
+# pixels, 5 slices centred off z = 0 at K = 2 and 7 centred on it at K =
+# 3), from the build of K11 before it formed each (pixel, view)'s in-plane
+# geometry once for a group of slices and read packed taps (NVIDIA H100
+# 80GB HBM3, CUDA 12.8); chip_smoke.py holds the same
+K11_PINNED_SHA1 = {
+    "cone": "fbe4f1abb08b99dbce175ae58898bb2ea33ea403",
+    "k1": "021557d4b0adefebf68bf4a60fd812b9d3f9e867",
+    "k2": "fe596192aa1a825019b3317bc040c238a6c8c972",
+    "k3": "7d6826cc0148b4302d0148ee6039bd481e3f21bc",
+    "tilted": "584cf38c60d7e092c3d4ce37ee39f198dfad7bca",
+    "warm": "d32558d125da0ff77abf4d838ecbdbe14ff75b83",
+    "ragged": "c30fb5b79f76c8ae0264645d9789efa5df9e62d7",
+    "ragged_odd": "be7ddb5c201e8d6a53eda6ee5c9ba24edd40e221"}
+
+
+@pytest.mark.parametrize("case", list(K11_PINNED_SHA1))
+def test_k11_keeps_its_pinned_bits(dev, case):
+    """K11 gives its parent's output bit for bit on the paths' shapes and on
+    the ragged cases, in one launch."""
+    from dexct_tpu_torch.ops import conebeam
+    from dexct_tpu_torch.tools.probe_cone_backproject import (k11_call,
+                                                              k11_case,
+                                                              output_sha1)
+
+    q, args = k11_case(case, dev)
+    before = conebeam._fdk_backproject_multi.launches
+    out = k11_call(conebeam, (q, args))()
+    torch.cuda.synchronize()
+    assert conebeam._fdk_backproject_multi.launches == before + 1
+    assert out.shape == (q.shape[0], args[6], args[5], args[5])
+    assert output_sha1(out) == K11_PINNED_SHA1[case]
+
+
+@pytest.mark.parametrize("case", list(K11_PINNED_SHA1))
+def test_k11_two_launches_are_equal(dev, case):
+    from dexct_tpu_torch.ops import conebeam
+    from dexct_tpu_torch.tools.probe_cone_backproject import (k11_call,
+                                                              k11_case)
+
+    call = k11_call(conebeam, k11_case(case, dev))
+    assert torch.equal(call(), call())
+
+
+@pytest.mark.parametrize("path", ["cone_reconstruct_stack", "fdk_reconstruct",
+                                  "fdk_tilted_reconstruct"])
+def test_k11_makes_no_host_synchronisation(dev, path):
+    """K11's wrapper packs the stacks and reads its disc grid from the
+    card: the fused step's circular reconstruction, ``fdk_reconstruct`` and
+    the tilted FDK launch K11 with no synchronisation of the host with the
+    card."""
+    import dataclasses
+
+    from dexct_tpu_torch.ops import conebeam
+    from dexct_tpu_torch.physics import kramers_spectrum
+    from dexct_tpu_torch.pipeline import cone
+    from dexct_tpu_torch.system import (ConeBeamGeometry,
+                                        TiltedConeBeamGeometry,
+                                        water_cylinder_phantom)
+
+    det = dict(N_channels=32, N_proj=24, N_rows=4, gamma_fan=0.8230337,
+               SID=60.0, SDD=100.0, h_iso=0.5)
+    ring = ConeBeamGeometry(**det)
+    rng = np.random.default_rng(28)
+    sino = torch.as_tensor(rng.random((4, 24, 4, 32), np.float32),
+                           device=dev)
+    if path == "cone_reconstruct_stack":
+        ph2 = water_cylinder_phantom(N=32, dx=0.6)
+        ph = dataclasses.replace(ph2, labels=np.broadcast_to(
+            ph2.labels[0], (8, 32, 32)).copy(), dz=0.5)
+        spec = kramers_spectrum(80.0)
+        a, meta = cone.pack_cone_dect(ring, ph, spec, spec, 32, 18.0, 0.8,
+                                      device=dev)
+
+        def call():
+            return cone.cone_reconstruct_stack(sino, a, meta)
+    elif path == "fdk_reconstruct":
+        def call():
+            return conebeam.fdk_reconstruct(sino, ring, 32, 18.0, 0.8)
+    else:
+        tilted = TiltedConeBeamGeometry(tilt=0.2, **det)
+
+        def call():
+            return conebeam.fdk_tilted_reconstruct(sino, tilted, 32, 18.0,
+                                                   0.8)
+    before = conebeam._fdk_backproject_multi.launches
+    _no_sync(call)
+    assert conebeam._fdk_backproject_multi.launches == before + 2
+
+
+# sha1 of K32's and K33's output on probe_cone_backproject.MOTION_PIN_CASES
+# (seeded stacks under seeded rigid poses: the cone config at K = 4, the
+# helical config's 19 slices at K = 4, a 120-view helix onto 37^2 x 7 at K
+# = 3), from their build before K33 read betas[0] on the card (NVIDIA H100
+# 80GB HBM3, CUDA 12.8); chip_smoke.py holds the same
+MOTION_PINNED_SHA1 = {
+    "k32_cone": "54f460b3e401ffc3b372f8700ec77dae9b8cc45a",
+    "k33_helical": "55ba9cc87bf45d2c77cdbc2a9609ccf1735663d3",
+    "k33_ragged": "4c7223f78cef2cc2f2684744a7c3e9975d9048bb"}
+
+
+@pytest.mark.parametrize("case", list(MOTION_PINNED_SHA1))
+def test_motion_backprojectors_keep_their_pinned_bits(dev, case):
+    """K32 and K33, which share K11's tap functions, give their pinned
+    output bit for bit, and twice the same."""
+    from dexct_tpu_torch.ops import motion
+    from dexct_tpu_torch.tools.probe_cone_backproject import (motion_call,
+                                                              motion_case,
+                                                              output_sha1)
+
+    case_ = motion_case(case, dev)
+    launches = getattr(motion, case_[0])
+    before = launches.launches
+    call = motion_call(motion, case_)
+    out = call()
+    torch.cuda.synchronize()
+    assert launches.launches == before + 1
+    assert output_sha1(out) == MOTION_PINNED_SHA1[case]
+    assert torch.equal(out, call())
+
+
+# the calls of the motion backprojectors' paths that still synchronise,
+# each named by the innermost function of the port that makes it: K33's
+# view spacing, uniformity check and window reach are host figures, so
+# view angles or displacements given only on the card are read back once
+MOTION_SYNCS = {"helical_card_tensors": {
+    "dexct_tpu_torch/ops/motion.py:_host_f32",
+    "dexct_tpu_torch/ops/motion.py:_host64"}}
+
+
+@pytest.mark.parametrize("path", ["fdk_reconstruct_motion",
+                                  "helical_fdk_reconstruct_motion",
+                                  "helical_card_tensors"])
+def test_motion_backprojectors_make_no_host_synchronisation(dev, path):
+    """``fdk_reconstruct_motion`` and ``helical_fdk_reconstruct_motion``
+    (K32, K33) upload their poses and slice centres and take K33's host
+    figures from the caller's host arrays: no synchronisation of the host
+    with the card; K33 given its view angles and displacements as card
+    tensors reads them back once, as ``MOTION_SYNCS`` names."""
+    from dexct_tpu_torch.ops import motion
+    from dexct_tpu_torch.system import (ConeBeamGeometry,
+                                        HelicalConeBeamGeometry)
+
+    det = dict(N_channels=32, N_rows=4, gamma_fan=0.8230337, SID=60.0,
+               SDD=100.0, h_iso=0.5)
+    rng = np.random.default_rng(28)
+    if path == "fdk_reconstruct_motion":
+        ct = ConeBeamGeometry(N_proj=24, **det)
+        track = motion.MotionProfile3D.breathing_z(24, 0.5)
+        sino = torch.as_tensor(rng.random((2, 24, 4, 32), np.float32),
+                               device=dev)
+
+        def call():
+            return motion.fdk_reconstruct_motion(sino, ct, 24, 18.0, 0.8,
+                                                 track)
+        counter = motion._fdk_backproject_motion
+    else:
+        ct = HelicalConeBeamGeometry(N_proj=48, pitch=2.0,
+                                     rotation_total=4.0 * np.pi, **det)
+        track = motion.MotionProfile3D.breathing_z(48, 0.5)
+        counter = motion._helical_backproject_motion
+        if path == "helical_fdk_reconstruct_motion":
+            sino = torch.as_tensor(rng.random((2, 48, 4, 32), np.float32),
+                                   device=dev)
+
+            def call():
+                return motion.helical_fdk_reconstruct_motion(
+                    sino, ct, 24, 18.0, 0.8, track)
+        else:
+            q = torch.as_tensor(rng.standard_normal((2, 48, 4, 32),
+                                                    np.float32), device=dev)
+            betas = torch.as_tensor(np.asarray(ct.betas, np.float32),
+                                    device=dev)
+            disp = torch.as_tensor(track.disp, dtype=torch.float32,
+                                   device=dev)
+
+            def call():
+                return motion._helical_backproject_motion(
+                    q, betas, np.asarray(ct.source_z), 0.5 * ct.rotation_total,
+                    track.phi, disp, ct.SID, ct.dgamma, ct.h_iso, 4,
+                    ct.pitch, 24, 5, 18.0, 0.5, -1.0)
+    call()
+    torch.cuda.synchronize()
+    before = counter.launches
+    syncs = _sync_functions(call)
+    assert counter.launches == before + 1
+    assert set(syncs) == MOTION_SYNCS.get(path, set()), syncs
+
+
+@pytest.mark.parametrize("recon", ["cg", "sirt", "pwls"])
+def test_2d_iterative_makes_no_host_synchronisation(dev, recon):
+    """``cg_recon``, ``sirt_recon`` and ``pwls_recon`` on a plan on the card,
+    their sinograms, start images, start vectors and counts given as NumPy
+    arrays, upload them and run their loops with no synchronisation of the
+    host with the card (the transposes of the plan's adjoints are built at
+    the first call, before the check)."""
+    from dexct_tpu_torch.ops import fourier, iterative
+    from dexct_tpu_torch.system import FanBeamGeometry, water_cylinder_phantom
+
+    ct = FanBeamGeometry(N_channels=48, N_proj=64, gamma_fan=0.8230337,
+                         SID=60.0, SDD=100.0)
+    plan = fourier.plan_fourier_projector(water_cylinder_phantom(N=48,
+                                                                 dx=0.4),
+                                          ct, n_theta=96, device=dev)
+    rng = np.random.default_rng(28)
+    vs = (64, 48)
+    sino = np.abs(rng.normal(size=vs)).astype(np.float32)
+    x0 = rng.uniform(0.0, 0.02, (48, 48))
+    v0 = rng.normal(size=(48, 48))
+    if recon == "cg":
+        def call():
+            return iterative.cg_recon(plan, sino, vs, n_iters=3, x0=x0)[0]
+    elif recon == "sirt":
+        def call():
+            return iterative.sirt_recon(plan, sino, vs, n_iters=3,
+                                        power_iters=3, _v0=v0)
+    else:
+        counts = np.maximum(rng.poisson(2e3 * np.exp(-sino)), 1)
+
+        def call():
+            return iterative.pwls_recon(plan, sino, counts, vs, n_iters=3,
+                                        power_iters=3, x0=x0, _v0=v0)
+    _no_sync(call)
+    out = call()
+    assert out.is_cuda and bool(torch.isfinite(out).all())
+
+
 def test_k3_makes_no_host_synchronisation(dev):
     """K3 reads its count scale on the card: a solve copies nothing from
     the host and reads nothing back, at a pixel count ragged against its
